@@ -1,0 +1,58 @@
+"""The PyTorch/CUDA port of ``distributeddeeplearningspark_tpu``.
+
+A second package beside the JAX one, held against it module by module. It
+imports ``torch`` and numpy only — never jax, flax, or any module of the
+JAX package — and keeps that package's module paths (``ops/``,
+``models/``, ``serve/``, ``telemetry/``) so each counterpart is easy to
+find. Every TPU kernel on a ported path is a kernel written by hand for
+Hopper (``csrc/``), built at first use; its plain PyTorch version runs for
+CPU tensors only. Entry points run on the card unless the caller passes
+``device="cpu"``.
+
+This slice serves BERT-base through :class:`InferenceEngine`:
+
+    model = bert_base()                       # on "cuda", weights from a seed
+    with InferenceEngine.for_model(model, max_batch=32) as eng:
+        logits = eng.infer({"input_ids": ids, "attention_mask": am})
+"""
+
+import importlib
+from typing import TYPE_CHECKING
+
+__version__ = "0.1.0"
+
+#: public name -> defining submodule, resolved lazily (PEP 562) so that
+#: importing a light submodule does not pull in the rest
+_EXPORTS = {
+    "InferenceEngine": "distributeddeeplearningspark_tpu_torch.serve.engine",
+    "BertConfig": "distributeddeeplearningspark_tpu_torch.models.bert",
+    "BertForMLM": "distributeddeeplearningspark_tpu_torch.models.bert",
+    "bert_base": "distributeddeeplearningspark_tpu_torch.models.bert",
+    "flash_attention": "distributeddeeplearningspark_tpu_torch.ops.flash_attention",
+}
+
+if TYPE_CHECKING:  # static analyzers see the real names
+    from distributeddeeplearningspark_tpu_torch.models.bert import (
+        BertConfig,
+        BertForMLM,
+        bert_base,
+    )
+    from distributeddeeplearningspark_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from distributeddeeplearningspark_tpu_torch.serve.engine import InferenceEngine
+
+
+def __getattr__(name: str):
+    if name in _EXPORTS:
+        value = getattr(importlib.import_module(_EXPORTS[name]), name)
+        globals()[name] = value  # cache: next access skips the import
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))
+
+
+__all__ = [*_EXPORTS, "__version__"]

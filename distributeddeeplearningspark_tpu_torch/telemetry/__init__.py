@@ -1,0 +1,184 @@
+"""Run telemetry — the port's writer of the shared JSONL event stream.
+
+The port's own copy of the part of the JAX package's
+``telemetry.EventWriter`` that the serving engine uses. It appends the same
+records to the same place, ``<workdir>/telemetry/events-<process>.jsonl``:
+one JSON object per line carrying ``ts``/``kind``/``process``, the host
+identity (``host``, and ``hosts`` in a gang) from the ``DLS_*`` env
+contract, and the ``DLS_TENANT``/``DLS_PRIORITY`` stamps. So the JAX
+package's ``dlstatus`` reads a run of the port unchanged. The engine writes
+``request``, ``span`` and ``heartbeat`` events; a heartbeat names the oldest
+in-flight request (``phase``/``phase_t0``) so a wedged batch localizes.
+
+Writers are append-only and flushed per call; a full disk downgrades
+telemetry to one warning, never a serving failure. Size-capped segment
+rotation and the reader side are not ported.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+from typing import Any
+
+logger = logging.getLogger("distributeddeeplearningspark_tpu_torch.telemetry")
+
+#: Subdirectory of the workdir holding the per-process event files.
+TELEMETRY_DIRNAME = "telemetry"
+TENANT_ENV = "DLS_TENANT"
+PRIORITY_ENV = "DLS_PRIORITY"
+
+
+def process_identity() -> tuple[int, int]:
+    """This host's (process index, process count) from ``DLS_PROCESS_ID`` /
+    ``DLS_NUM_PROCESSES``; a malformed value degrades to one process."""
+    try:
+        index = int(os.environ.get("DLS_PROCESS_ID", "0"))
+    except ValueError:
+        index = 0
+    try:
+        count = int(os.environ.get("DLS_NUM_PROCESSES", "1"))
+    except ValueError:
+        count = 1
+    return max(0, index), max(1, count, index + 1)
+
+
+def _priority_from_env() -> int | None:
+    raw = os.environ.get(PRIORITY_ENV)
+    if not raw:
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        logger.warning("ignoring malformed %s=%r", PRIORITY_ENV, raw)
+        return None
+
+
+class EventWriter:
+    """Appends typed events to ``<workdir>/telemetry/events-<process>.jsonl``.
+
+    ``clock`` is injectable (epoch seconds) for tests."""
+
+    def __init__(self, workdir: str | os.PathLike, *, process: str | None = None,
+                 clock=time.time):
+        self.workdir = os.path.abspath(os.fspath(workdir))
+        self.process = process or f"p{os.environ.get('DLS_PROCESS_ID', '0')}"
+        self.path = os.path.join(self.workdir, TELEMETRY_DIRNAME,
+                                 f"events-{self.process}.jsonl")
+        self.tenant = os.environ.get(TENANT_ENV) or None
+        self.priority = _priority_from_env()
+        self.host, self.hosts = process_identity()
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._f = None
+        self._closed = False
+        self._warned = False
+        # in-flight request notes, insertion-ordered: the first is the
+        # OLDEST, the one a heartbeat names
+        self._open_spans: dict[Any, tuple[str, float]] = {}
+
+    def _record(self, kind: str, fields: dict[str, Any]) -> dict[str, Any]:
+        rec = {"ts": self._clock(), "kind": kind, "process": self.process,
+               **fields}
+        rec.setdefault("host", self.host)
+        if self.hosts > 1:
+            rec.setdefault("hosts", self.hosts)
+        if self.tenant is not None:
+            rec.setdefault("tenant", self.tenant)
+        if self.priority is not None:
+            rec.setdefault("priority", self.priority)
+        return rec
+
+    def _write_lines(self, lines: list[str]) -> None:
+        """Append + flush under the held lock (one flush per call)."""
+        try:
+            if self._f is None:
+                os.makedirs(os.path.dirname(self.path), exist_ok=True)
+                self._f = open(self.path, "a")
+            self._f.write("\n".join(lines) + "\n")
+            self._f.flush()
+        except OSError as e:
+            if not self._warned:
+                logger.warning("telemetry disabled (%s): %s", self.path, e)
+                self._warned = True
+
+    def emit(self, kind: str, **fields: Any) -> None:
+        rec = self._record(kind, fields)
+        with self._lock:
+            if self._closed:
+                return  # a stale writer must not reopen and fork the stream
+            if kind == "heartbeat" and "phase" not in rec and self._open_spans:
+                name, t0 = next(iter(self._open_spans.values()))
+                rec["phase"] = name
+                rec["phase_t0"] = t0
+            self._write_lines([json.dumps(rec, default=str)])
+
+    def emit_many(self, kind: str, records: list[dict[str, Any]]) -> None:
+        """Append N same-kind events under ONE lock/flush (one per served
+        batch). ``phase``/``heartbeat`` are rejected: a heartbeat's
+        enrichment is :meth:`emit`'s."""
+        if kind in ("phase", "heartbeat"):
+            raise ValueError(f"emit_many({kind!r}): use emit()")
+        if not records:
+            return
+        with self._lock:
+            if self._closed:
+                return
+            self._write_lines([json.dumps(self._record(kind, f), default=str)
+                               for f in records])
+
+    def note_span(self, key: Any, name: str) -> None:
+        """Mark an in-flight request open; nothing is written, later
+        heartbeats name the oldest open one. :meth:`clear_span` ends it."""
+        with self._lock:
+            self._open_spans.pop(key, None)
+            self._open_spans[key] = (name, self._clock())
+
+    def clear_span(self, key: Any) -> None:
+        with self._lock:
+            self._open_spans.pop(key, None)
+
+    def heartbeat(self, **fields: Any) -> None:
+        self.emit("heartbeat", **fields)
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            if self._f is not None:
+                try:
+                    self._f.close()
+                except OSError:
+                    pass
+                self._f = None
+
+
+_writer: EventWriter | None = None
+_writer_lock = threading.Lock()
+
+
+def configure(workdir: str | os.PathLike, *, process: str | None = None,
+              clock=time.time) -> EventWriter:
+    """Bind the process-wide writer to ``workdir`` (idempotent per workdir);
+    rebinding closes the previous writer."""
+    global _writer
+    wd = os.path.abspath(os.fspath(workdir))
+    with _writer_lock:
+        if (_writer is not None and _writer.workdir == wd
+                and (process is None or _writer.process == process)):
+            return _writer
+        if _writer is not None:
+            _writer.close()
+        _writer = EventWriter(wd, process=process, clock=clock)
+        return _writer
+
+
+def reset() -> None:
+    """Drop the process-wide writer (tests; also ends a run's binding)."""
+    global _writer
+    with _writer_lock:
+        if _writer is not None:
+            _writer.close()
+            _writer = None

@@ -1,0 +1,108 @@
+"""The port stands alone: importing it and every one of its modules loads
+no jax, no flax and no module of the JAX package, and its sources name none
+of them. The JAX package's name is a prefix of the port's, so every check
+compares whole dotted names."""
+
+import ast
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import distributeddeeplearningspark_tpu_torch as port
+
+JAX_PKG = "distributeddeeplearningspark_tpu"
+PORT_DIR = Path(port.__file__).parent
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in ("jax", "jaxlib", "flax", "optax", "orbax") or \
+        name == JAX_PKG or name.startswith(JAX_PKG + ".")
+
+
+@pytest.mark.parametrize("name,bad", [
+    ("jax", True), ("jax.numpy", True), ("flax.linen", True),
+    (JAX_PKG, True), (JAX_PKG + ".telemetry", True),
+    (JAX_PKG + "_torch", False), (JAX_PKG + "_torch.ops", False),
+    ("torch", False), ("jaxtyping_like", False),
+])
+def test_forbidden_compares_whole_dotted_names(name, bad):
+    assert _forbidden(name) is bad
+
+
+def test_importing_the_port_loads_no_jax_in_a_fresh_process():
+    code = f"""
+import json, pkgutil, importlib, sys
+import {JAX_PKG}_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+print(json.dumps({{"modules": names, "loaded": sorted(sys.modules)}}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=PORT_DIR.parent)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    expected = {"ops.flash_attention", "ops.attention", "ops._build",
+                "models.bert", "models.bert_io", "serve.engine",
+                "telemetry", "telemetry.trace", "utils.device"}
+    got = {n.split(".", 1)[1] for n in rec["modules"]}
+    assert expected <= got, expected - got
+    bad = [m for m in rec["loaded"] if _forbidden(m)]
+    assert not bad, bad
+
+
+def _imported_names(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+def test_port_sources_import_no_jax():
+    files = sorted(PORT_DIR.rglob("*.py"))
+    assert len(files) >= 12
+    bad = {str(f.relative_to(PORT_DIR)): n for f in files
+           for n in _imported_names(f) if _forbidden(n)}
+    assert not bad, bad
+
+
+def test_chip_smoke_imports_no_jax():
+    path = PORT_DIR.parent / "chip_smoke.py"
+    bad = [n for n in _imported_names(path) if _forbidden(n)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("entry", ["bert_base", "for_model", "engine",
+                                   "resolve_device"])
+def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
+    if torch.cuda.is_available():
+        pytest.skip("the no-CUDA error needs a machine without CUDA")
+    from distributeddeeplearningspark_tpu_torch.models.bert import (
+        BertConfig, BertForMLM, bert_base)
+    from distributeddeeplearningspark_tpu_torch.serve import InferenceEngine
+    from distributeddeeplearningspark_tpu_torch.utils.device import resolve_device
+
+    calls = {
+        "bert_base": lambda: bert_base(num_layers=1),
+        "for_model": lambda: InferenceEngine.for_model(
+            BertForMLM(BertConfig.tiny(num_layers=1), device="cpu")),
+        "engine": lambda: InferenceEngine(lambda p, b: b, {}),
+        "resolve_device": lambda: resolve_device(),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+
+
+def test_cpu_device_is_taken_and_others_refused():
+    from distributeddeeplearningspark_tpu_torch.utils.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
