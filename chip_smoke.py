@@ -1,25 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card. Phases:
 
-1. build every kernel of the path from the checkout's sources (``nvcc``,
-   ``sm_90a``) and print the compiler's register/spill report;
-2. hold each kernel against its plain PyTorch version on the card, in
-   bf16, at the stated tolerance, and time the kernel, the plain version,
-   one PyTorch library call computing the same function (a yardstick the
-   port never calls) and the card's bound for the same work;
-3. serve BERT-base at full width (12 layers, hidden 768, vocab 30522,
-   S=512, random weights from a seed) through the port's
-   ``InferenceEngine.for_model`` to 8 client threads; check every served
-   row against a one-request forward of the same module whose attention
-   runs the plain PyTorch path, the first layer's attention output of a
-   served batch against that path on the same inputs, and that the kernel
-   ran 12 times per served batch; print latency percentiles and
-   requests/s;
-4. print one JSON line of per-kernel numbers, the card's name and power
+1. build every kernel of the paths from the checkout's sources (one
+   ``nvcc`` per source, started together, ``sm_90a``) and print the
+   compiler's register/spill report;
+2. hold K1 (flash forward) against its plain PyTorch version on the card
+   in four bf16 cases, at the stated tolerance, and time the kernel, the
+   plain version, one PyTorch library call computing the same function (a
+   yardstick the port never calls) and the card's bound for the same work;
+3. the same for K2 (dQ) and K3 (dK, dV) against the plain backward, in the
+   four K1 cases and the training shape (b=32, S=512, every key allowed);
+4. train BERT-base MLM at full width (12 layers, hidden 768, vocab 30522,
+   S=512, dropout 0.1, random weights from a seed) for 30 steps at b=32
+   through the port's ``Session`` → ``synthetic_wikipedia`` →
+   ``WordPieceTokenizer`` → ``mlm_dataset`` → ``Trainer.fit``, the calls of
+   ``examples/train_bert.py``; check that every logged loss is finite and
+   the last below 0.9x the first, that each kernel ran 12 times per step,
+   and that every parameter gradient through the kernels agrees with the
+   plain attention path on one batch; print the step time, tokens/s, the
+   step's forward/backward/optimizer split, a profiled window and the peak
+   device memory;
+5. serve BERT-base through the port's ``InferenceEngine.for_model`` to 8
+   client threads; check every served row against a one-request forward of
+   the same module whose attention runs the plain PyTorch path, the first
+   layer's attention output of a served batch against that path on the
+   same inputs, and that K1 ran 12 times per served batch; print latency
+   percentiles and requests/s;
+6. print one JSON line of per-kernel numbers, the card's name and power
    limit (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is absent, when the port's
@@ -58,6 +69,26 @@ SERVE_ATOL = 0.1
 # attention core differs (bf16 P and O rounded at other points), while a
 # wrong tile or an ignored padding mask moves rows by their own magnitude
 ATTN_RTOL = 0.02
+# K2/K3 gradients vs the plain backward in f32 on the same inputs, per
+# element: |g - ref| <= GRAD_TOL*max|ref| + GRAD_TOL*|ref|. The kernels round
+# P and dS to bf16 as mma operands (the plain version keeps them in f32) and
+# sum over 512-2048 rows in another order, so an element's error scales with
+# the gradient's overall size, not only with its own value
+GRAD_TOL = 0.02
+# BERT-base parameter gradients through the kernels vs the plain attention
+# path on one batch, same weights, dropout off, per tensor (Frobenius):
+# |g - g_ref| <= PARITY_RTOL*|g_ref| + PARITY_ATOL*|G_ref|, G the whole
+# gradient. Both run bf16 activations and differ only in where the attention
+# core rounds: the kernels take delta = rowsum(dO*O) from the bf16 output O
+# (as FlashAttention and the Pallas kernels do), the plain path's autograd
+# sums P*dP in f32. Where a layer's true q/k gradient is near 0 (the key
+# bias's is exactly 0: softmax ignores a shift shared by every key), that
+# rounding is all there is, so such tensors are held to a small share of
+# the whole gradient instead of to their own size
+PARITY_RTOL = 2e-2
+PARITY_ATOL = 1e-4
+# the last logged training loss must be below this fraction of the first
+LOSS_DROP = 0.9
 
 
 class SmokeFailure(Exception):
@@ -96,7 +127,9 @@ def graph_ms(torch, fn, iters: int, warmup: int = 2) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # thread_local: autograd runs a backward on its own thread, which the
+    # default (global) mode would refuse during the capture
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -180,21 +213,21 @@ def _bound(torch, case) -> tuple[float, str]:
 
 
 def _library_call(torch, case):
-    """One ``scaled_dot_product_attention`` call over the same inputs (BHSD
-    views), with the masks as a boolean attend-mask."""
+    """``fn(q, k, v)``: one ``scaled_dot_product_attention`` call over BSHD
+    inputs (BHSD views), with the case's masks as a boolean attend-mask
+    made once."""
     import torch.nn.functional as F
 
-    q, k, v = (t.transpose(1, 2) for t in (case["q"], case["k"], case["v"]))
     mask = None
     if case["kv_mask"] is not None:
         mask = (case["kv_mask"] != 0)[:, None, None, :]
     if case["segs"] is not None:
         same = (case["segs"][:, None, :, None] == case["segs"][:, None, None, :])
         mask = same if mask is None else mask & same
-    gqa = q.shape[1] != k.shape[1]
-    return lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, is_causal=case["causal"] and mask is None,
-        enable_gqa=gqa)
+    gqa = case["q"].shape[2] != case["k"].shape[2]
+    return lambda q, k, v: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        is_causal=case["causal"] and mask is None, enable_gqa=gqa)
 
 
 def check_flash_fwd(torch, fa) -> list[dict]:
@@ -231,6 +264,7 @@ def check_flash_fwd(torch, fa) -> list[dict]:
         if c["name"] == "fully_masked_row":
             ok = ok and bool((o[2] == 0).all()) and bool(masked_rows.any())
         fwd = lambda: fa.flash_fwd(c["q"], c["k"], c["v"], **kw)  # noqa: E731
+        sdpa = _library_call(torch, c)
         plain = lambda: fa.flash_attention_reference(  # noqa: E731
             c["q"], c["k"], c["v"], **kw)
         bound_ms, bound_by = _bound(torch, c)
@@ -241,7 +275,8 @@ def check_flash_fwd(torch, fa) -> list[dict]:
                    lse_max_abs_err=lse_err, ok=ok,
                    ms=graph_ms(torch, fwd, 20),
                    plain_ms=graph_ms(torch, plain, 3),
-                   library_ms=graph_ms(torch, _library_call(torch, c), 20),
+                   library_ms=graph_ms(torch, lambda: sdpa(c["q"], c["k"], c["v"]),
+                                       20),
                    bound_ms=bound_ms, bound_by=bound_by)
         print("K1 flash_fwd " + json.dumps(rec), flush=True)
         check(ok, f"flash_fwd disagrees with its plain version on {c['name']}")
@@ -251,7 +286,325 @@ def check_flash_fwd(torch, fa) -> list[dict]:
     return results
 
 
-# -- phase 3: serving BERT-base -----------------------------------------------
+# -- phase 3: K2/K3 against the plain backward ---------------------------------
+
+
+def _bwd_bound(torch, case, products: int, outputs) -> tuple[float, str]:
+    """The card's least time for ``products`` [S, S]x[S, D] products per
+    head over the allowed pairs, reading q, k, v, dO, LSE and delta once
+    and writing ``outputs`` once."""
+    q, k = case["q"], case["k"]
+    b, s, h, d = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * b * h * s * 4
+    nbytes += sum(t.numel() * t.element_size() for t in outputs)
+    for t in (case["kv_mask"], case["segs"]):
+        if t is not None:
+            nbytes += t.numel() * 4 * (2 if t is case["segs"] else 1)
+    flops = products * 2 * d * h * _allowed_pairs(torch, case)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _library_bwd_ms(torch, case, do) -> float:
+    """SDPA's backward as a yardstick the port never calls: a CUDA-graph
+    replay of its forward and backward minus one of its forward alone."""
+    sdpa = _library_call(torch, case)
+    # the output gradient in SDPA's own (BHSD) layout, made once outside the
+    # timed calls, as K2/K3 are handed theirs in BSHD
+    do_bhsd = do.transpose(1, 2).contiguous()
+
+    def fwd_bwd():
+        # fresh leaves per call, so that autograd ties them to the stream the
+        # call runs on (a side stream while warming up, then the capture's)
+        q, k, v = (t.detach().requires_grad_()
+                   for t in (case["q"], case["k"], case["v"]))
+        torch.autograd.grad(sdpa(q, k, v), (q, k, v), do_bhsd)
+
+    with torch.no_grad():
+        fwd_ms = graph_ms(torch, lambda: sdpa(case["q"], case["k"], case["v"]), 20)
+    return graph_ms(torch, fwd_bwd, 20) - fwd_ms
+
+
+def check_flash_bwd(torch, fa) -> list[dict]:
+    cases = [
+        _attn_case(torch, "bert_b32_full_mask", b=32, s=512, h=12, hkv=12,
+                   d=64, causal=False, seed=5, lengths=[512] * 32),
+        _attn_case(torch, "bert_b32_padded", b=32, s=512, h=12, hkv=12, d=64,
+                   causal=False, seed=1,
+                   lengths=np.random.default_rng(1).integers(1, 513, 32).tolist()),
+        _attn_case(torch, "causal_gqa_d128", b=2, s=2048, h=32, hkv=8, d=128,
+                   causal=True, seed=2),
+        _attn_case(torch, "segments_and_padding", b=8, s=512, h=12, hkv=12,
+                   d=64, causal=False, seed=3,
+                   lengths=[512, 400, 300, 512, 128, 77, 511, 256],
+                   doc_starts=[[0, 100, 300], [0, 50], [0], [0, 256],
+                               [0, 64], [0, 10, 20], [0, 255], [0, 128]]),
+        _attn_case(torch, "fully_masked_row", b=4, s=512, h=12, hkv=12, d=64,
+                   causal=False, seed=4, lengths=[512, 300, 0, 77]),
+    ]
+    results = []
+    for c in cases:
+        s, d = c["q"].shape[1], c["q"].shape[3]
+        kw = dict(kv_mask=c["kv_mask"], q_segs=c["segs"], kv_segs=c["segs"],
+                  scale=d ** -0.5, causal=c["causal"])
+        gen = torch.Generator(device="cuda").manual_seed(100 + len(results))
+        do = torch.randn(c["q"].shape, device="cuda", generator=gen
+                         ).to(torch.bfloat16)
+        o, lse = fa.flash_fwd(c["q"], c["k"], c["v"], **kw)
+        grads = fa.flash_bwd(c["q"], c["k"], c["v"], o, lse, do, **kw)
+        torch.cuda.synchronize()
+        refs = fa.flash_attention_backward_reference(
+            c["q"], c["k"], c["v"], o, lse, do, **kw)
+        errs, ok = {}, True
+        for name, g, ref in zip(("dq", "dk", "dv"), grads, refs):
+            g, ref = g.float(), ref.float()
+            err = (g - ref).abs()
+            tol = GRAD_TOL * float(ref.abs().max()) + GRAD_TOL * ref.abs()
+            errs[name] = float(err.max())
+            errs[name + "_ref_max"] = float(ref.abs().max())
+            ok = ok and bool(torch.isfinite(g).all()) and bool((err <= tol).all())
+        if c["name"] == "fully_masked_row":
+            ok = ok and all(bool((g[2] == 0).all()) for g in grads)
+        delta = fa._delta(o, do).contiguous()
+        k2 = lambda: fa.flash_bwd_dq(c["q"], c["k"], c["v"], do, lse,  # noqa: E731
+                                     delta, **kw)
+        k3 = lambda: fa.flash_bwd_dkv(c["q"], c["k"], c["v"], do, lse,  # noqa: E731
+                                      delta, **kw)
+        plain = lambda: fa.flash_attention_backward_reference(  # noqa: E731
+            c["q"], c["k"], c["v"], o, lse, do, **kw)
+        dq_bound = _bwd_bound(torch, c, 3, grads[:1])
+        dkv_bound = _bwd_bound(torch, c, 4, grads[1:])
+        pair_bound = _bwd_bound(torch, c, 5, grads)
+        rec = dict(case=c["name"], shape=list(c["q"].shape),
+                   kv_heads=c["k"].shape[2], **errs,
+                   tolerance=f"|g-ref| <= {GRAD_TOL}*max|ref| + "
+                             f"{GRAD_TOL}*|ref|", ok=ok,
+                   dq_ms=graph_ms(torch, k2, 20),
+                   dkv_ms=graph_ms(torch, k3, 20),
+                   plain_ms=graph_ms(torch, plain, 3),
+                   library_ms=_library_bwd_ms(torch, c, do),
+                   dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+                   dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+                   pair_bound_ms=pair_bound[0], pair_bound_by=pair_bound[1])
+        print("K2/K3 flash_bwd " + json.dumps(rec), flush=True)
+        check(ok, f"flash_bwd disagrees with its plain version on {c['name']}")
+        results.append(rec)
+        del o, lse, grads, refs, do, delta
+        torch.cuda.empty_cache()
+    return results
+
+
+# -- phase 4: training BERT-base -----------------------------------------------
+
+
+def _grad_parity(torch, model, loss_fn, batch) -> dict:
+    """Every parameter's gradient on ``batch`` through the kernels
+    (``attention_impl="auto"``) against the plain path (``"xla"``), with the
+    same weights and dropout off (eval mode)."""
+    model.eval()
+    grads = {}
+    try:
+        for impl in ("auto", "xla"):
+            model.cfg.attention_impl = impl
+            model.zero_grad(set_to_none=True)
+            loss_fn(model(batch), batch)[0].backward()
+            grads[impl] = {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()}
+    finally:
+        model.cfg.attention_impl = "auto"
+        model.zero_grad(set_to_none=True)
+    total = float(torch.stack([g.norm() for g in grads["xla"].values()]).norm())
+    rel, used = {}, {}
+    for n, ref in grads["xla"].items():
+        diff, ref_norm = float((grads["auto"][n] - ref).norm()), float(ref.norm())
+        rel[n] = diff / ref_norm if ref_norm else (0.0 if diff == 0 else float("inf"))
+        used[n] = diff / (PARITY_RTOL * ref_norm + PARITY_ATOL * total)
+    ranked = sorted(used, key=used.get, reverse=True)
+    qkv = {n: float(g.norm()) for n, g in grads["auto"].items()
+           if any(n.endswith(f".attention.{m}.weight")
+                  for m in ("query", "key", "value"))}
+    return dict(tensors=len(rel), grad_norm=total,
+                worst=[(n, rel[n], used[n]) for n in ranked[:5]],
+                max_tolerance_used=used[ranked[0]],
+                median_rel_err=float(np.median(list(rel.values()))),
+                qkv_weights=len(qkv), qkv_min_grad_norm=min(qkv.values()),
+                tolerance=f"|g-g_ref| <= {PARITY_RTOL}*|g_ref| + "
+                          f"{PARITY_ATOL}*|G_ref| per tensor")
+
+
+def _step_split(torch, trainer, batch, repeats: int = 3) -> dict:
+    """One train step's forward (with the loss), backward and optimizer
+    update, each between CUDA events, averaged over ``repeats`` steps (the
+    step's own three parts, run one after another as the train step runs
+    them)."""
+    from distributeddeeplearningspark_tpu_torch.train.optim import global_norm
+
+    model, state = trainer.model, trainer.state
+    params = list(state.params.values())
+    model.train()
+    sums = [0.0, 0.0, 0.0]
+    for _ in range(repeats):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for p in params:
+            p.grad = None
+        ev[0].record()
+        loss, _ = trainer.loss_fn(model(batch, generator=state.generator), batch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        with torch.no_grad():
+            grads = [p.grad for p in params]
+            global_norm(grads)
+            updates, state.opt_state = trainer.tx.update(grads, state.opt_state,
+                                                         params)
+            torch._foreach_add_(params, updates)
+        ev[3].record()
+        ev[3].synchronize()
+        for i in range(3):
+            sums[i] += ev[i].elapsed_time(ev[i + 1])
+    for p in params:
+        p.grad = None
+    return dict(forward_ms=sums[0] / repeats, backward_ms=sums[1] / repeats,
+                optimizer_ms=sums[2] / repeats)
+
+
+def _profile_fit(torch, trainer, ds, batch_size: int, seq: int,
+                 steps: int = 4) -> dict:
+    """``steps`` more steps of ``fit`` under ``torch.profiler``: the device's
+    busy time per step (the sum of the times of the kernels and copies that
+    ran on it, one stream, so none overlap) against the wall time per step,
+    and the kernels that take most of it. The profiler's own cost is in the
+    wall time; "not measured" when the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start = trainer.state.step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(ds, batch_size=batch_size, steps=start + steps,
+                    tokens_per_example=seq, log_every=steps)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    own = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(ms for _, ms in own) / steps
+    if not own:
+        return dict(busy_ms_per_step="not measured", wall_ms_per_step=wall_ms)
+    top = sorted(own, key=lambda kv: -kv[1])[:10]
+    groups: dict[str, float] = {}
+    for k, ms in own:  # by kernel family, from the kernels' names
+        group = ("flash" if "flash_" in k else
+                 "gemm" if any(s in k for s in ("gemm", "nvjet", "cutlass")) else
+                 "other")
+        groups[group] = groups.get(group, 0.0) + ms / steps
+    return dict(steps=steps, wall_ms_per_step=wall_ms, busy_ms_per_step=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms, busy_ms_by_family=groups,
+                top_device_ms_per_step=[(k[:80], ms / steps) for k, ms in top])
+
+
+def train_bert(torch, fa) -> dict:
+    """BERT-base MLM at full width through the port's Session → text →
+    mlm_dataset → Trainer.fit, the calls of examples/train_bert.py at
+    S=512; the run's step_metrics telemetry gives the logged losses."""
+    import os
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch import telemetry
+    from distributeddeeplearningspark_tpu_torch.data import text
+    from distributeddeeplearningspark_tpu_torch.data.feed import (
+        device_batches,
+        host_batches,
+    )
+    from distributeddeeplearningspark_tpu_torch.models import bert
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    steps, batch_size, seq, log_every = 30, 32, 512, 10
+    workdir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    spark = Session.builder.master("local[1]").appName("bert-mlm").getOrCreate()
+    docs = text.synthetic_wikipedia(
+        2048, num_partitions=max(spark.default_parallelism, 1))
+    tok = text.WordPieceTokenizer.train(docs.collect(), vocab_size=8192)
+    ds = text.mlm_dataset(docs, tok, seq_len=seq, max_predictions=80).repeat()
+    model = bert.bert_base(device="cuda", seed=0)
+    cfg = model.cfg
+    check(cfg.num_layers == 12 and cfg.hidden_size == 768
+          and cfg.num_heads == 12 and cfg.intermediate_size == 3072
+          and cfg.vocab_size == 30522 and cfg.max_position == seq
+          and cfg.dropout_rate == 0.1 and cfg.dtype == torch.bfloat16,
+          "bert_base is not at BERT-base width")
+    check(tok.vocab_size <= cfg.vocab_size,
+          f"tokenizer ids reach {tok.vocab_size}, past the model's vocab")
+    tx = optim.with_grad_clip(
+        optim.adamw(optim.warmup_linear(1e-4, 10, steps)), 1.0)
+    trainer = Trainer(spark, model, losses.masked_lm, tx)
+    setup_s = time.perf_counter() - t0
+    os.environ[telemetry.WORKDIR_ENV] = str(workdir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for k in kernels:  # the main path's run starts here
+        k.launches = 0
+    t_fit = time.perf_counter()
+    try:
+        _, summary = trainer.fit(ds, batch_size=batch_size, steps=steps,
+                                 tokens_per_example=seq, log_every=log_every)
+    finally:
+        os.environ.pop(telemetry.WORKDIR_ENV, None)
+        telemetry.reset()
+    fit_s = time.perf_counter() - t_fit
+    launches = {k.__name__: k.launches for k in kernels}
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    records = [json.loads(line) for f in sorted(
+        (workdir / telemetry.TELEMETRY_DIRNAME).glob("events-*.jsonl"))
+        for line in f.read_text().splitlines()]
+    logged = [(r["step"], r["metrics"]["loss"]) for r in records
+              if r["kind"] == "step_metrics"]
+    host = host_batches(ds, batch_size)
+    next(host)
+    t_host = time.perf_counter()
+    for _ in range(5):
+        next(host)
+    host_batch_ms = (time.perf_counter() - t_host) / 5 * 1e3
+    profile = _profile_fit(torch, trainer, ds, batch_size, seq)
+    batch = next(device_batches(ds, batch_size, trainer.device))
+    parity = _grad_parity(torch, model, losses.masked_lm, batch)
+    split = _step_split(torch, trainer, batch)
+    spark.stop()
+    rec = dict(steps=steps, batch_size=batch_size, seq_len=seq,
+               tokenizer_vocab=tok.vocab_size, logged_losses=logged,
+               loss_ratio_last_first=logged[-1][1] / logged[0][1] if logged else None,
+               step_time_ms=summary.get("step_time_ms"),
+               tokens_per_sec_per_chip=summary.get("tokens_per_sec_per_chip"),
+               launches=launches, max_memory_allocated=peak_bytes,
+               fit_s=fit_s, setup_s=setup_s, host_batch_ms=host_batch_ms,
+               step_split=split, profile=profile, grad_parity=parity)
+    print("train bert-base " + json.dumps(rec), flush=True)
+    check(len(logged) == steps // log_every,
+          f"{len(logged)} step_metrics records for {steps} steps")
+    check(all(np.isfinite(loss) for _, loss in logged),
+          f"non-finite logged loss: {logged}")
+    check(logged[-1][1] < LOSS_DROP * logged[0][1],
+          f"loss did not fall: {logged}")
+    want = cfg.num_layers * steps
+    check(all(n == want for n in launches.values()),
+          f"kernel launches during fit {launches}, want {want} each")
+    check(parity["max_tolerance_used"] <= 1.0,
+          f"gradients through the kernels are off the plain path's "
+          f"(tensor, relative error, share of the tolerance): {parity['worst']}")
+    check(parity["qkv_weights"] == 3 * cfg.num_layers
+          and parity["qkv_min_grad_norm"] > 0,
+          "a query/key/value projection got no gradient through the kernels")
+    return rec
+
+
+# -- phase 5: serving BERT-base -----------------------------------------------
 
 
 def serve_bert(torch, fa, bert, engine_mod) -> dict:
@@ -405,30 +758,47 @@ def main() -> int:
           f"{torch.version.cuda}; {sys.version.split()[0]}", flush=True)
     try:
         t0 = time.perf_counter()
-        _build.build("flash_fwd")
-        print(f"build: flash_fwd in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        for line in _build.build_log("flash_fwd").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  flash_fwd: {line.strip()}")
+        _build.build_all()
+        print(f"build: {', '.join(_build.SOURCES)} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for name in _build.SOURCES:
+            for line in _build.build_log(name).splitlines():
+                if any(s in line for s in ("Function properties", "registers",
+                                           "spill")):
+                    print(f"  {name}: {line.strip()}")
 
         k1 = check_flash_fwd(torch, fa)
+        k23 = check_flash_bwd(torch, fa)
+        train = train_bert(torch, fa)
         serve = serve_bert(torch, fa, bert, engine_mod)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
-    main_case = k1[0]  # the shape the served batches of 32 give the kernel
+    src = "distributeddeeplearningspark_tpu/ops/flash_attention.py"
+    fwd = k1[0]  # the shape the served batches of 32 give the kernel
+    bwd = k23[0]  # the training shape: b=32, S=512, every key allowed
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
-        "source": f"{PKG}/csrc/flash_fwd.cu",
-        "replaces": "distributeddeeplearningspark_tpu/ops/flash_attention.py:131",
-        "launches": serve["flash_fwd_launches"],
+        "source": f"{PKG}/csrc/flash_fwd.cu", "replaces": f"{src}:131",
+        "launches": serve["flash_fwd_launches"]
+        + train["launches"]["flash_fwd"],
         "max_abs_err": max(c["max_abs_err"] for c in k1),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
+        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms"],
     }]
+    for name, key, line, grads in (("flash_bwd_dq", "dq", 256, ("dq",)),
+                                   ("flash_bwd_dkv", "dkv", 303, ("dk", "dv"))):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"{PKG}/csrc/flash_bwd.cu", "replaces": f"{src}:{line}",
+            "launches": train["launches"][name],
+            "max_abs_err": max(c[g] for c in k23 for g in grads),
+            "ms": bwd[f"{key}_ms"], "plain_ms": bwd["plain_ms"],
+            "bound_ms": bwd[f"{key}_bound_ms"], "bound_by": bwd[f"{key}_bound_by"],
+            "library_ms": bwd["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,17 +3,27 @@
 A second package beside the JAX one, held against it module by module. It
 imports ``torch`` and numpy only — never jax, flax, or any module of the
 JAX package — and keeps that package's module paths (``ops/``,
-``models/``, ``serve/``, ``telemetry/``) so each counterpart is easy to
-find. Every TPU kernel on a ported path is a kernel written by hand for
-Hopper (``csrc/``), built at first use; its plain PyTorch version runs for
-CPU tensors only. Entry points run on the card unless the caller passes
-``device="cpu"``.
+``models/``, ``serve/``, ``train/``, ``data/``, ``telemetry/``) so each
+counterpart is easy to find. Every TPU kernel on a ported path is a
+kernel written by hand for Hopper (``csrc/``), built at first use; its
+plain PyTorch version runs for CPU tensors only. Entry points run on the
+card unless the caller passes ``device="cpu"`` (a :class:`Session`:
+``.config("spark.dls.device", "cpu")``).
 
-This slice serves BERT-base through :class:`InferenceEngine`:
+It serves BERT-base through :class:`InferenceEngine`:
 
     model = bert_base()                       # on "cuda", weights from a seed
     with InferenceEngine.for_model(model, max_batch=32) as eng:
         logits = eng.infer({"input_ids": ids, "attention_mask": am})
+
+and trains it through :class:`Session` and :class:`Trainer`, as
+``examples/train_bert.py`` drives the JAX package:
+
+    spark = Session.builder.master("local[1]").appName("bert").getOrCreate()
+    ds = text.mlm_dataset(docs, tok, seq_len=512, max_predictions=80)
+    tx = optim.with_grad_clip(optim.adamw(optim.warmup_linear(1e-4, 10, 30)), 1.0)
+    state, summary = Trainer(spark, bert_base(), losses.masked_lm, tx).fit(
+        ds.repeat(), batch_size=32, steps=30, tokens_per_example=512)
 """
 
 import importlib
@@ -29,6 +39,9 @@ _EXPORTS = {
     "BertForMLM": "distributeddeeplearningspark_tpu_torch.models.bert",
     "bert_base": "distributeddeeplearningspark_tpu_torch.models.bert",
     "flash_attention": "distributeddeeplearningspark_tpu_torch.ops.flash_attention",
+    "Session": "distributeddeeplearningspark_tpu_torch.session",
+    "Trainer": "distributeddeeplearningspark_tpu_torch.train.trainer",
+    "TrainState": "distributeddeeplearningspark_tpu_torch.train.state",
 }
 
 if TYPE_CHECKING:  # static analyzers see the real names
@@ -41,6 +54,9 @@ if TYPE_CHECKING:  # static analyzers see the real names
         flash_attention,
     )
     from distributeddeeplearningspark_tpu_torch.serve.engine import InferenceEngine
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train.state import TrainState
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
 
 
 def __getattr__(name: str):

@@ -11,13 +11,19 @@ Same numerics as the flax model, which the CPU tests hold it to:
 - the MLM decoder is tied to the token-embedding table (``x @ Eᵀ``), its
   bias is f32 and the logits are f32;
 - attention goes through :func:`..ops.attention.dot_product_attention` in
-  BSHD layout, so ``attention_impl="auto"`` takes the flash kernel on CUDA
-  at BERT's s=512 with its key-padding mask.
+  BSHD layout, so ``attention_impl="auto"`` takes the flash kernels on CUDA
+  at BERT's s=512 with its key-padding mask (K1 forward, K2/K3 backward);
+- dropout sits where flax puts it (after the attention output projection,
+  after the MLP, after the embedding LayerNorm) and, in train mode, draws
+  its mask from the ``torch.Generator`` passed to ``forward`` (the
+  Trainer's), never from the global generator, so one seed gives one run.
 
 Batch dict: ``input_ids`` [B,S] int, ``attention_mask`` [B,S] 1/0, optional
 ``token_type_ids`` [B,S], ``segment_ids`` [B,S] (packed documents) and
 ``mlm_positions`` [B,P] (gathered head); returns MLM logits [B,S,vocab] (or
-[B,P,vocab]) in f32.
+[B,P,vocab]) in f32. ``forward(batch, generator=g)``: ``g`` draws the dropout
+masks in train mode; eval mode (``bert_base`` returns the model in it)
+needs none.
 """
 
 from __future__ import annotations
@@ -86,6 +92,22 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            training: bool) -> torch.Tensor:
+    """flax ``nn.Dropout``: in training, keep each element with probability
+    ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``; the mask is
+    drawn from ``generator``."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout draws its mask from a "
+                         "torch.Generator: pass forward(..., generator=g)")
+    keep = 1.0 - rate
+    mask = torch.empty_like(x).bernoulli_(keep, generator=generator).bool()
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
     """flax ``LayerNorm(dtype=f32)`` then ``.astype(dtype)``."""
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
@@ -101,9 +123,8 @@ class SelfAttention(nn.Module):
         self.key = Dense(h, h, cfg.dtype, device)
         self.value = Dense(h, h, cfg.dtype, device)
         self.out = Dense(h, h, cfg.dtype, device)
-        self.dropout = nn.Dropout(cfg.dropout_rate)
 
-    def forward(self, x, mask, segment_ids=None):
+    def forward(self, x, mask, segment_ids=None, generator=None):
         cfg = self.cfg
         b, s, _ = x.shape
         heads = (b, s, cfg.num_heads, cfg.hidden_size // cfg.num_heads)
@@ -112,7 +133,8 @@ class SelfAttention(nn.Module):
         v = self.value(x).view(heads)
         y = dot_product_attention(q, k, v, mask=mask, segment_ids=segment_ids,
                                   impl=cfg.attention_impl)
-        return self.dropout(self.out(y.reshape(b, s, cfg.hidden_size)))
+        return dropout(self.out(y.reshape(b, s, cfg.hidden_size)),
+                       cfg.dropout_rate, generator, self.training)
 
 
 class EncoderLayer(nn.Module):
@@ -129,14 +151,14 @@ class EncoderLayer(nn.Module):
         self.mlp_out = Dense(cfg.intermediate_size, cfg.hidden_size, cfg.dtype,
                              device)
         self.mlp_ln = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS, device=device)
-        self.dropout = nn.Dropout(cfg.dropout_rate)
 
-    def forward(self, x, mask, segment_ids=None):
+    def forward(self, x, mask, segment_ids=None, generator=None):
         dt = self.cfg.dtype
-        y = self.attention(x, mask, segment_ids)
+        y = self.attention(x, mask, segment_ids, generator)
         x = _layer_norm(self.attention_ln, x + y, dt)
         y = self.mlp_out(F.gelu(self.mlp_in(x), approximate="tanh"))
-        return _layer_norm(self.mlp_ln, x + self.dropout(y), dt)
+        y = dropout(y, self.cfg.dropout_rate, generator, self.training)
+        return _layer_norm(self.mlp_ln, x + y, dt)
 
 
 class BertEncoder(nn.Module):
@@ -153,11 +175,11 @@ class BertEncoder(nn.Module):
         self.type_embeddings = nn.Embedding(cfg.type_vocab_size, h,
                                             device=device)
         self.embeddings_ln = nn.LayerNorm(h, eps=LN_EPS, device=device)
-        self.dropout = nn.Dropout(cfg.dropout_rate)
         self.layers = nn.ModuleList(EncoderLayer(cfg, device)
                                     for _ in range(cfg.num_layers))
 
-    def forward(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: dict[str, torch.Tensor],
+                generator: torch.Generator | None = None) -> torch.Tensor:
         cfg, dt = self.cfg, self.cfg.dtype
         ids = batch["input_ids"]
         if ids.shape[1] > cfg.max_position:
@@ -171,12 +193,13 @@ class BertEncoder(nn.Module):
         x = F.embedding(ids, self.token_embeddings.weight.to(dt))
         x = x + F.embedding(positions, self.position_embeddings.weight.to(dt))
         x = x + F.embedding(types, self.type_embeddings.weight.to(dt))
-        x = self.dropout(_layer_norm(self.embeddings_ln, x, dt))
+        x = dropout(_layer_norm(self.embeddings_ln, x, dt), cfg.dropout_rate,
+                    generator, self.training)
         am = batch.get("attention_mask")
         mask = padding_mask(torch.ones_like(ids) if am is None else am)
         segment_ids = batch.get("segment_ids")
         for layer in self.layers:
-            x = layer(x, mask, segment_ids)
+            x = layer(x, mask, segment_ids, generator)
         return x
 
 
@@ -197,9 +220,10 @@ class BertForMLM(nn.Module):
         self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size,
                                                  device=device))
 
-    def forward(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: dict[str, torch.Tensor],
+                generator: torch.Generator | None = None) -> torch.Tensor:
         dt = self.cfg.dtype
-        x = self.encoder(batch)
+        x = self.encoder(batch, generator)
         if "mlm_positions" in batch:
             pos = batch["mlm_positions"].long()
             x = torch.take_along_dim(x, pos[:, :, None], dim=1)

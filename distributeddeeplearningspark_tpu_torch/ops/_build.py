@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels from the package's sources, at first use.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-a shared library with a plain C interface, ``build/kernels/lib<name>-<hash>
-.so`` under the checkout's root, and loaded with :mod:`ctypes`. The hash
-covers the source and the flags, so an edited source builds anew and an
-unchanged one is loaded as it is. ``nvcc -Xptxas -v`` reports each kernel's
-registers, shared memory and spills into a ``.log`` beside the library.
+Each ``csrc/<name>.cu`` (``flash_fwd``: K1; ``flash_bwd``: K2 and K3) is
+compiled by its own ``nvcc`` for Hopper (``sm_90a``) into a shared library
+with a plain C interface, ``build/kernels/lib<name>-<hash>.so`` under the
+checkout's root, and loaded with :mod:`ctypes`. The hash covers the source
+and the flags, so an edited source builds anew and an unchanged one is
+loaded as it is. ``nvcc -Xptxas -v`` reports each kernel's registers,
+shared memory and spills into a ``.log`` beside the library.
+:func:`build_all` starts one ``nvcc`` per source together.
 
 Nothing here runs at import: the CPU tests import every module, and a
 process that never launches a kernel never builds one.
@@ -19,9 +21,12 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+#: every source of the port's kernels
+SOURCES = ("flash_fwd", "flash_bwd")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 NVCC_FLAGS = (
@@ -72,6 +77,12 @@ def build(name: str) -> Path:
             f"nvcc failed for {name}.cu (rc {out.returncode}):\n{out.stdout}")
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
     return path
+
+
+def build_all() -> list[Path]:
+    """Build every source with one ``nvcc`` each, all started together."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return list(pool.map(build, SOURCES))
 
 
 def build_log(name: str) -> str:

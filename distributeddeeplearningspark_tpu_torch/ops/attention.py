@@ -5,16 +5,17 @@ call :func:`dot_product_attention`; ``impl`` picks the implementation:
 
 - ``"xla"`` — plain PyTorch softmax attention (the name is the JAX
   package's, kept so that configs carry over unchanged).
-- ``"flash"`` — the flash attention forward of :mod:`.flash_attention`:
-  the hand-written CUDA kernel for CUDA tensors, its plain version for CPU
-  tensors. Key-padding masks and grouped (GQA) K/V are taken natively.
+- ``"flash"`` — the flash attention of :mod:`.flash_attention`, through
+  its autograd Function: the hand-written CUDA kernels for CUDA tensors
+  (K1 forward, K2/K3 backward), their plain versions for CPU tensors.
+  Key-padding masks and grouped (GQA) K/V are taken natively.
 - ``"auto"`` — flash when the tensors are on CUDA and the shape qualifies
   (no bias, key-only mask, seq a multiple of 512, head dim a multiple of
   8, whole GQA groups), else xla — the JAX rule with "on TPU" read as
   "on CUDA".
 
-All take and return ``[batch, seq, heads, head_dim]`` (BSHD). Ring and
-Ulysses context parallelism are not ported yet.
+All take and return ``[batch, seq, heads, head_dim]`` (BSHD) and are
+differentiable. Ring and Ulysses context parallelism are not ported yet.
 """
 
 from __future__ import annotations

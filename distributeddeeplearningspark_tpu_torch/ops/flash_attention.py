@@ -1,16 +1,24 @@
-"""Flash attention forward (FlashAttention-2): the port of kernel K1.
+"""Flash attention (FlashAttention-2): the port of kernels K1, K2 and K3.
 
-Replaces the Pallas kernel ``_fwd_kernel`` / ``_flash_fwd`` of
-``distributeddeeplearningspark_tpu/ops/flash_attention.py`` with a CUDA
-kernel written for Hopper, ``csrc/flash_fwd.cu`` (its header states the
+Replaces the Pallas kernels of
+``distributeddeeplearningspark_tpu/ops/flash_attention.py`` with CUDA
+kernels written for Hopper: the forward ``_fwd_kernel`` (K1) with
+``csrc/flash_fwd.cu``, the backward ``_bwd_dq_kernel`` (K2) and
+``_bwd_dkv_kernel`` (K3) with ``csrc/flash_bwd.cu`` (each header states the
 design and the bound). Here:
 
-- :func:`flash_fwd` — the kernel's wrapper: ``(o, lse)`` for BSHD inputs.
-  A CUDA tensor launches the kernel (bf16, head dim 64 or 128) or raises;
-  a CPU tensor takes :func:`flash_attention_reference`, the kernel's plain
-  PyTorch version. ``flash_fwd.launches`` counts the kernel's launches.
+- :func:`flash_fwd` — K1's wrapper: ``(o, lse)`` for BSHD inputs.
+- :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` — K2's and K3's wrappers;
+  :func:`flash_bwd` — the backward's entry, ``(dq, dk, dv)`` from the
+  forward's ``o`` and ``lse``, as the JAX package's ``_flash_bwd(res, g)``.
+- Each wrapper launches its kernel for a CUDA tensor (bf16, head dim 64 or
+  128) or raises, and takes the kernel's plain PyTorch version
+  (:func:`flash_attention_reference`,
+  :func:`flash_attention_backward_reference`) for a CPU tensor. Each keeps
+  its launch count in a plain integer, ``<wrapper>.launches``.
 - :func:`flash_attention` — the public op, with the argument checks of the
-  JAX package's ``flash_attention`` (:func:`flash_operands`).
+  JAX package's ``flash_attention`` (:func:`flash_operands`), made
+  differentiable by :class:`_FlashAttention` (K1 forward, K2/K3 backward).
 - :func:`as_kv_mask` — a broadcastable attend-mask reduced to key-only
   ``[B, Sk]`` int32 form.
 
@@ -22,7 +30,10 @@ above the diagonal; the key mask and segment ids are indexed by batch; GQA
 q head ``h`` reads kv head ``h // (H // Hkv)`` without repeating K/V. The
 Mosaic layout rules (``STAT_LANES``, the lane-major mask, the (8, 128)
 block checks) are TPU artifacts and are not carried over: LSE is a plain
-``[B·H, S]`` f32 array and any sequence length is taken.
+``[B·H, S]`` f32 array and any sequence length is taken. The backward
+recomputes P from LSE and zeroes it with the mask, never through the
+exponent (a fully masked row's ``exp(s - LSE)`` would be 1), so such a row
+gets ``dq = 0``.
 """
 
 from __future__ import annotations
@@ -77,15 +88,8 @@ def flash_attention_reference(q, k, v, *, kv_mask=None, q_segs=None,
     kf = k.float().permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
     vf = v.permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
     logits = qf @ kf.transpose(-1, -2)                              # [B,H,S,S]
-    allowed = None
-    if causal:
-        allowed = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-    if kv_mask is not None:
-        key_ok = (kv_mask != 0)[:, None, None, :]
-        allowed = key_ok if allowed is None else allowed & key_ok
-    if q_segs is not None:
-        same = (q_segs[:, None, :, None] == kv_segs[:, None, None, :])
-        allowed = same if allowed is None else allowed & same
+    allowed = _allowed(b, s, q.device, kv_mask=kv_mask, q_segs=q_segs,
+                       kv_segs=kv_segs, causal=causal)
     if allowed is not None:
         logits = logits.masked_fill(~allowed, MASK_VALUE)
     m = logits.amax(dim=-1, keepdim=True)
@@ -100,19 +104,100 @@ def flash_attention_reference(q, k, v, *, kv_mask=None, q_segs=None,
     return o, lse
 
 
+def _allowed(b, s, device, *, kv_mask, q_segs, kv_segs, causal):
+    """The (q row, key) pairs that may attend, ``[B, 1, S, S]`` bool, or
+    None when every pair may."""
+    allowed = None
+    if causal:
+        allowed = torch.ones(s, s, dtype=torch.bool, device=device).tril()
+    if kv_mask is not None:
+        key_ok = (kv_mask != 0)[:, None, None, :]
+        allowed = key_ok if allowed is None else allowed & key_ok
+    if q_segs is not None:
+        same = q_segs[:, None, :, None] == kv_segs[:, None, None, :]
+        allowed = same if allowed is None else allowed & same
+    return allowed
+
+
+def _backward_plain(q, k, v, lse, delta, do, *, kv_mask, q_segs, kv_segs,
+                    scale: float, causal: bool):
+    """K2's and K3's arithmetic in f32 over the whole score matrix, from
+    ``lse`` and ``delta`` ``[B·H, S]``: ``(dq, dk, dv)`` in the inputs'
+    dtypes."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    bhsd = lambda t: t.float().permute(0, 2, 1, 3)  # noqa: E731
+    qs = bhsd(q) * scale                                            # [B,H,S,D]
+    kf = bhsd(k).repeat_interleave(group, dim=1)
+    vf = bhsd(v).repeat_interleave(group, dim=1)
+    dof = bhsd(do)
+    p = torch.exp(qs @ kf.transpose(-1, -2) - lse.view(b, h, s, 1))
+    allowed = _allowed(b, s, q.device, kv_mask=kv_mask, q_segs=q_segs,
+                       kv_segs=kv_segs, causal=causal)
+    if allowed is not None:  # the mask, not the exponent, zeroes P
+        p = p.masked_fill(~allowed, 0.0)
+    dp = dof @ vf.transpose(-1, -2)
+    ds = p * (dp - delta.view(b, h, s, 1))
+    dq = scale * (ds @ kf)
+    # per q head, then summed over each kv head's group of q heads
+    dk = (ds.transpose(-1, -2) @ qs).view(b, hkv, group, s, d).sum(2)
+    dv = (p.transpose(-1, -2) @ dof).view(b, hkv, group, s, d).sum(2)
+    back = lambda t, like: t.permute(0, 2, 1, 3).to(like.dtype).contiguous()  # noqa: E731
+    return back(dq, q), back(dk, k), back(dv, v)
+
+
+def _delta(o, do) -> torch.Tensor:
+    """rowsum(dO∘O) in f32, ``[B·H, S]``. A plain torch op: the JAX package
+    computes it in XLA (``_flash_bwd``), outside any Pallas kernel."""
+    b, s, h, _ = o.shape
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, s)
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, *, kv_mask=None,
+                                       q_segs=None, kv_segs=None,
+                                       scale: float, causal: bool = False):
+    """The backward kernels' plain PyTorch version: ``(dq, dk, dv)``.
+
+    Follows the JAX package's ``_flash_bwd`` / ``_bwd_dq_kernel`` /
+    ``_bwd_dkv_kernel`` in f32: ``delta = rowsum(dO∘O)``; P recomputed as
+    ``exp(scale·q·kᵀ − LSE)`` and set to exactly 0 under the mask;
+    ``dS = P∘(dP − delta)``; ``dQ = scale·dS·K``; ``dK = dSᵀ·(scale·Q)``;
+    ``dV = Pᵀ·dO``; a kv head's gradient summed over its group of q heads.
+    Gradients come back in the inputs' dtypes."""
+    return _backward_plain(q, k, v, lse, _delta(o, do), do, kv_mask=kv_mask,
+                           q_segs=q_segs, kv_segs=kv_segs, scale=scale,
+                           causal=causal)
+
+
 @functools.cache
-def _kernel():
+def _kernel(library: str, symbol: str, n_pointers: int):
+    """The C entry point ``symbol`` of ``csrc/<library>.cu``: ``n_pointers``
+    pointers, then B, S, H, Hkv, D, the scale, the causal flag and the
+    stream."""
     from distributeddeeplearningspark_tpu_torch.ops import _build
 
-    fn = _build.load("flash_fwd").dls_flash_fwd_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    fn = getattr(_build.load(library), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_cuda_operands(q, k, v, masks) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _launch(name: str, fn, tensors, b, s, h, hkv, d, scale, causal) -> None:
+    """Call a kernel's C entry point on q's device and current stream; raise
+    on a nonzero CUDA error."""
+    dev = tensors[0].device
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*ptrs, b, s, h, hkv, d, float(scale), int(causal), stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _check_cuda_operands(q, k, v, masks, **more) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash kernel takes bf16 {name}, got {t.dtype}")
         if not t.is_contiguous():
@@ -162,21 +247,109 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_cuda_operands(q, k, v, (kv_mask, q_segs, kv_segs))
     o = torch.empty_like(q)
     lse = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        ptr(kv_mask), ptr(q_segs), ptr(kv_segs),
-                        o.data_ptr(), lse.data_ptr(),
-                        b, s, h, k.shape[2], d, float(scale), int(causal),
-                        stream)
-    if err:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+    _launch("flash_fwd", _kernel("flash_fwd", "dls_flash_fwd_bf16", 8),
+            (q, k, v, kv_mask, q_segs, kv_segs, o, lse),
+            b, s, h, k.shape[2], d, scale, causal)
     flash_fwd.launches += 1
     return o, lse
 
 
 flash_fwd.launches = 0
+
+
+def _check_bwd_cuda_operands(q, k, v, do, lse, delta, masks) -> None:
+    _check_cuda_operands(q, k, v, masks, do=do)
+    if do.shape != q.shape:
+        raise ValueError(f"do shape {tuple(do.shape)} != q {tuple(q.shape)}")
+    b, s, h, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (b * h, s)
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name} must be contiguous f32 [B·H, S] = "
+                             f"{(b * h, s)} on q's device")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, kv_mask=None, q_segs=None,
+                 kv_segs=None, scale: float, causal: bool = False):
+    """K2: dq ``[B, S, H, D]`` from the forward's ``lse`` and
+    ``delta = rowsum(dO∘O)`` (both ``[B·H, S]`` f32)."""
+    kw = dict(kv_mask=kv_mask, q_segs=q_segs, kv_segs=kv_segs, scale=scale,
+              causal=causal)
+    if q.device.type == "cpu":
+        return _backward_plain(q, k, v, lse, delta, do, **kw)[0]
+    _check_bwd_cuda_operands(q, k, v, do, lse, delta,
+                             (kv_mask, q_segs, kv_segs))
+    b, s, h, d = q.shape
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq", _kernel("flash_bwd", "dls_flash_bwd_dq_bf16", 10),
+            (q, k, v, do, lse, delta, kv_mask, q_segs, kv_segs, dq),
+            b, s, h, k.shape[2], d, scale, causal)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, kv_mask=None, q_segs=None,
+                  kv_segs=None, scale: float, causal: bool = False):
+    """K3: ``(dk, dv)`` ``[B, S, Hkv, D]``, each kv head's gradient summed
+    over its group of q heads, from ``lse`` and ``delta`` as K2's."""
+    kw = dict(kv_mask=kv_mask, q_segs=q_segs, kv_segs=kv_segs, scale=scale,
+              causal=causal)
+    if q.device.type == "cpu":
+        return _backward_plain(q, k, v, lse, delta, do, **kw)[1:]
+    _check_bwd_cuda_operands(q, k, v, do, lse, delta,
+                             (kv_mask, q_segs, kv_segs))
+    b, s, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv", _kernel("flash_bwd", "dls_flash_bwd_dkv_bf16", 11),
+            (q, k, v, do, lse, delta, kv_mask, q_segs, kv_segs, dk, dv),
+            b, s, h, k.shape[2], d, scale, causal)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, o, lse, do, *, kv_mask=None, q_segs=None,
+              kv_segs=None, scale: float, causal: bool = False):
+    """The flash backward: ``(dq, dk, dv)`` from the forward's ``o`` and
+    ``lse``, as the JAX package's ``_flash_bwd(res, g)``. On CUDA tensors
+    it computes ``delta`` and launches K2 then K3 on the current stream; on
+    CPU tensors it takes :func:`flash_attention_backward_reference`."""
+    kw = dict(kv_mask=kv_mask, q_segs=q_segs, kv_segs=kv_segs, scale=scale,
+              causal=causal)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, o, lse, do, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd runs on cuda or cpu, not {q.device}")
+    delta = _delta(o, do).contiguous()
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K2/K3 backward. The forward saves q, k, v, o, LSE and
+    the masks, which get no gradient. Under ``no_grad``/``inference_mode``
+    autograd records nothing, so nothing is saved and only K1 runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, q_segs, kv_segs, scale, causal):
+        o, lse = flash_fwd(q, k, v, kv_mask=kv_mask, q_segs=q_segs,
+                           kv_segs=kv_segs, scale=scale, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse, kv_mask, q_segs, kv_segs)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_mask, q_segs, kv_segs = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(),
+                               kv_mask=kv_mask, q_segs=q_segs, kv_segs=kv_segs,
+                               scale=ctx.scale, causal=ctx.causal)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_operands(q, k, v, *, bias=None, mask=None, causal: bool = False,
@@ -212,10 +385,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     bias=None, mask=None, causal: bool = False,
                     scale: float | None = None,
                     segment_ids: torch.Tensor | None = None) -> torch.Tensor:
-    """BSHD flash attention (forward). ``mask`` may be a key-only padding
-    mask (see :func:`as_kv_mask`); ``k``/``v`` may carry fewer (grouped)
-    heads than ``q``; ``segment_ids`` ``[B, S]`` block attention across
-    packed documents and compose with ``mask`` and ``causal``."""
+    """BSHD flash attention, differentiable. ``mask`` may be a key-only
+    padding mask (see :func:`as_kv_mask`); ``k``/``v`` may carry fewer
+    (grouped) heads than ``q``; ``segment_ids`` ``[B, S]`` block attention
+    across packed documents and compose with ``mask`` and ``causal``."""
     kw = flash_operands(q, k, v, bias=bias, mask=mask, causal=causal,
                         scale=scale, segment_ids=segment_ids)
-    return flash_fwd(q, k, v, **kw)[0]
+    return _FlashAttention.apply(q, k, v, kw["kv_mask"], kw["q_segs"],
+                                 kw["kv_segs"], kw["scale"], kw["causal"])

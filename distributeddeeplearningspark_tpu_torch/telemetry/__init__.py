@@ -1,14 +1,17 @@
 """Run telemetry — the port's writer of the shared JSONL event stream.
 
 The port's own copy of the part of the JAX package's
-``telemetry.EventWriter`` that the serving engine uses. It appends the same
-records to the same place, ``<workdir>/telemetry/events-<process>.jsonl``:
-one JSON object per line carrying ``ts``/``kind``/``process``, the host
-identity (``host``, and ``hosts`` in a gang) from the ``DLS_*`` env
-contract, and the ``DLS_TENANT``/``DLS_PRIORITY`` stamps. So the JAX
-package's ``dlstatus`` reads a run of the port unchanged. The engine writes
-``request``, ``span`` and ``heartbeat`` events; a heartbeat names the oldest
-in-flight request (``phase``/``phase_t0``) so a wedged batch localizes.
+``telemetry.EventWriter`` that the serving engine and the trainer use. It
+appends the same records to the same place,
+``<workdir>/telemetry/events-<process>.jsonl``: one JSON object per line
+carrying ``ts``/``kind``/``process``, the host identity (``host``, and
+``hosts`` in a gang) from the ``DLS_*`` env contract, and the
+``DLS_TENANT``/``DLS_PRIORITY`` stamps. So the JAX package's ``dlstatus``
+reads a run of the port unchanged. The engine writes ``request``, ``span``
+and ``heartbeat`` events; a heartbeat names the oldest in-flight request
+(``phase``/``phase_t0``) so a wedged batch localizes. ``Trainer.fit``
+writes the ``run`` phase span, one ``step_metrics`` record per log lap and
+heartbeats into the workdir that ``DLS_TELEMETRY_DIR`` names.
 
 Writers are append-only and flushed per call; a full disk downgrades
 telemetry to one warning, never a serving failure. Size-capped segment
@@ -28,6 +31,8 @@ logger = logging.getLogger("distributeddeeplearningspark_tpu_torch.telemetry")
 
 #: Subdirectory of the workdir holding the per-process event files.
 TELEMETRY_DIRNAME = "telemetry"
+#: env var naming a run's workdir (the supervisor exports it to its gang)
+WORKDIR_ENV = "DLS_TELEMETRY_DIR"
 TENANT_ENV = "DLS_TENANT"
 PRIORITY_ENV = "DLS_PRIORITY"
 
@@ -140,6 +145,12 @@ class EventWriter:
     def clear_span(self, key: Any) -> None:
         with self._lock:
             self._open_spans.pop(key, None)
+
+    def step_metrics(self, step: int, *, steps: int, lap_s: float,
+                     metrics: dict[str, float] | None = None,
+                     **gauges: Any) -> None:
+        self.emit("step_metrics", step=int(step), steps=int(steps),
+                  lap_s=float(lap_s), metrics=dict(metrics or {}), **gauges)
 
     def heartbeat(self, **fields: Any) -> None:
         self.emit("heartbeat", **fields)

@@ -1,0 +1,37 @@
+"""Loss functions — the port of the MLM loss of ``train/losses.py``.
+
+Each takes (model outputs, batch dict) and returns (scalar loss, metrics
+dict). A loss whose denominator is not the example count reports a
+``"weight"`` metric, which :meth:`..trainer.Trainer.evaluate` uses to
+combine per-batch means exactly across unequal batches; the train loop
+drops it from its logs. The other losses of the JAX package (classification,
+CTR, causal LM) arrive with the slices that train those models.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+
+def masked_lm(logits: torch.Tensor, batch: dict[str, Any]
+              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """BERT MLM: f32 cross-entropy over the masked positions, weighted mean.
+
+    ``batch['mlm_labels']`` holds target ids, ``batch['mlm_weights']`` is 1.0
+    at masked positions and 0.0 elsewhere; rows of a padded eval batch carry
+    ``eval_mask == 0`` and weigh nothing."""
+    labels = batch["mlm_labels"].long()
+    weights = batch["mlm_weights"].float()
+    em = batch.get("eval_mask")
+    if em is not None:  # padded eval rows contribute zero mask weight
+        weights = weights * em.float()[:, None]
+    logits = logits.float()
+    per_tok = F.cross_entropy(logits.flatten(0, -2), labels.flatten(),
+                              reduction="none").view(labels.shape)
+    denom = weights.sum().clamp(min=1.0)
+    loss = (per_tok * weights).sum() / denom
+    acc = ((logits.argmax(-1) == labels) * weights).sum() / denom
+    return loss, {"loss": loss, "mlm_accuracy": acc, "weight": denom}

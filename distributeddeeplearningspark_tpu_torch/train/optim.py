@@ -1,0 +1,173 @@
+"""Optimizers and LR schedules with optax's semantics, on torch tensors.
+
+The port of ``distributeddeeplearningspark_tpu/train/optim.py`` for the
+BERT path: ``adamw``, ``warmup_linear`` and ``with_grad_clip``. Each is a
+:class:`GradientTransformation` of optax's shape, ``init(params) -> state``
+and ``update(updates, state, params) -> (updates, state)``, over lists of
+tensors in the params' order, so that a reader can map it onto optax. The
+arithmetic is optax's, not ``torch.optim``'s defaults:
+
+- a schedule is read at the count *before* it is incremented, so the first
+  update under ``warmup_linear`` has lr 0; ``join_schedules`` evaluates the
+  decay leg at ``count - warmup_steps``; schedules compute in f32;
+- ``clip_by_global_norm`` scales by ``max_norm / norm`` only when
+  ``norm >= max_norm``, as ``(t / norm) * max_norm``, with no epsilon
+  (``torch.nn.utils.clip_grad_norm_`` adds 1e-6);
+- ``adamw`` is ``scale_by_adam`` (eps outside the sqrt, bias correction by
+  ``count + 1``), then ``+ weight_decay * p`` for every param (optax's
+  default mask is None: biases and LayerNorms decay too), then ``* -lr``.
+
+Updates are made in place with ``torch._foreach_*`` ops: a transform may
+overwrite the ``updates`` it is given (the caller's gradients) and the
+moment buffers in its state. Counts are host integers, so no update syncs
+with the device. These are plain tensor ops, as the JAX package runs its
+optimizer in XLA, not in Pallas. ``sgd``, ``lamb``, ``lars``,
+``adafactor``, ``masked`` and ``warmup_cosine`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+Schedule = Callable[[int], float]
+Tensors = list[torch.Tensor]
+
+
+class GradientTransformation(NamedTuple):
+    init: Callable[[Tensors], Any]
+    update: Callable[[Tensors, Any, Tensors], tuple[Tensors, Any]]
+
+
+def chain(*txs: GradientTransformation) -> GradientTransformation:
+    def init(params):
+        return tuple(tx.init(params) for tx in txs)
+
+    def update(updates, state, params):
+        new_state = []
+        for tx, s in zip(txs, state):
+            updates, s = tx.update(updates, s, params)
+            new_state.append(s)
+        return updates, tuple(new_state)
+
+    return GradientTransformation(init, update)
+
+
+def global_norm(tensors: Tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over every element, f32, on the device."""
+    return torch.linalg.vector_norm(torch.stack(
+        [n.float() for n in torch._foreach_norm(tensors)]))
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    def update(updates, state, params):
+        g_norm = global_norm(updates)
+        keep = g_norm < max_norm
+        one = torch.ones_like(g_norm)
+        # (t / norm) * max_norm where clipping, t / 1 * 1 == t elsewhere
+        torch._foreach_div_(updates, torch.where(keep, one, g_norm))
+        torch._foreach_mul_(updates, torch.where(keep, one, one * max_norm))
+        return updates, state
+
+    return GradientTransformation(lambda params: (), update)
+
+
+class ScaleByAdamState(NamedTuple):
+    count: int
+    mu: Tensors
+    nu: Tensors
+
+
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
+                  eps: float = 1e-8) -> GradientTransformation:
+    def init(params):
+        return ScaleByAdamState(0, [torch.zeros_like(p) for p in params],
+                                [torch.zeros_like(p) for p in params])
+
+    def update(updates, state, params):
+        mu, nu = state.mu, state.nu
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, updates, alpha=1.0 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, updates, updates, value=1.0 - b2)
+        count = state.count + 1
+        f32 = np.float32
+        bc1 = float(f32(1) - f32(b1) ** f32(count))
+        bc2 = float(f32(1) - f32(b2) ** f32(count))
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        out = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(out, denom)
+        return out, ScaleByAdamState(count, mu, nu)
+
+    return GradientTransformation(init, update)
+
+
+def add_decayed_weights(weight_decay: float) -> GradientTransformation:
+    def update(updates, state, params):
+        torch._foreach_add_(updates, params, alpha=weight_decay)
+        return updates, state
+
+    return GradientTransformation(lambda params: (), update)
+
+
+def scale_by_learning_rate(learning_rate: float | Schedule) -> GradientTransformation:
+    """``updates * -lr``; a schedule is read at the count before the
+    increment (optax's ``scale_by_schedule``)."""
+    schedule = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
+
+    def update(updates, count, params):
+        torch._foreach_mul_(updates, -float(schedule(count)))
+        return updates, count + 1
+
+    return GradientTransformation(lambda params: 0, update)
+
+
+def adamw(learning_rate: float | Schedule, *, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 0.01) -> GradientTransformation:
+    return chain(scale_by_adam(b1, b2, eps), add_decayed_weights(weight_decay),
+                 scale_by_learning_rate(learning_rate))
+
+
+def with_grad_clip(tx: GradientTransformation, max_norm: float) -> GradientTransformation:
+    return chain(clip_by_global_norm(max_norm), tx)
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Schedule:
+    """optax's ``linear_schedule`` in f32."""
+    if transition_steps <= 0:
+        return lambda count: init_value
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        c = f32(min(max(count, 0), transition_steps))
+        frac = f32(1) - c / f32(transition_steps)
+        return float(f32(init_value - end_value) * frac + f32(end_value))
+
+    return schedule
+
+
+def join_schedules(schedules: list[Schedule], boundaries: list[int]) -> Schedule:
+    """optax's ``join_schedules``: past each boundary, the next schedule at
+    ``count - boundary``."""
+    def schedule(count: int) -> float:
+        out = schedules[0](count)
+        for boundary, sched in zip(boundaries, schedules[1:]):
+            if count >= boundary:
+                out = sched(count - boundary)
+        return out
+
+    return schedule
+
+
+def warmup_linear(peak_lr: float, warmup_steps: int, total_steps: int,
+                  end_lr: float = 0.0) -> Schedule:
+    """BERT-style linear warmup then linear decay."""
+    return join_schedules(
+        [linear_schedule(0.0, peak_lr, warmup_steps),
+         linear_schedule(peak_lr, end_lr, max(total_steps - warmup_steps, 1))],
+        [warmup_steps])

@@ -1,0 +1,69 @@
+"""The train and eval steps — the port of ``train/step.py``.
+
+The JAX package compiles ``(state, batch) -> (state, metrics)`` into one
+jitted SPMD program; here the same function runs eagerly: the forward in
+train mode (dropout drawn from the state's generator), ``loss.backward()``,
+the global gradient norm reported as ``grad_norm``, the optimizer's update
+applied to the params in place, ``step + 1``. It never copies to the host:
+metrics stay device tensors until the loop's log point, as the JAX loop
+fetches them only there. This is the JAX step's ``accum_steps == 1``,
+unguarded branch on one device; gradient accumulation, frozen params, the
+non-finite guard and the cross-device gradient all-reduce are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from distributeddeeplearningspark_tpu_torch.train.optim import (
+    GradientTransformation,
+    global_norm,
+)
+from distributeddeeplearningspark_tpu_torch.train.state import TrainState
+
+LossFn = Callable[[Any, dict[str, Any]], tuple[torch.Tensor, dict[str, torch.Tensor]]]
+
+
+def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
+                    loss_fn: LossFn):
+    """(state, batch) → (state, metrics). ``model(batch, generator=g)``
+    returns the outputs ``loss_fn(outputs, batch)`` consumes."""
+
+    def train_step(state: TrainState, batch: dict[str, torch.Tensor]):
+        params = list(state.params.values())
+        model.train()
+        for p in params:
+            p.grad = None
+        outputs = model(batch, generator=state.generator)
+        loss, metrics = loss_fn(outputs, batch)
+        loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
+        with torch.no_grad():
+            grad_norm = global_norm(grads)
+            updates, opt_state = tx.update(grads, state.opt_state, params)
+            torch._foreach_add_(params, updates)
+        for p in params:
+            p.grad = None
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = grad_norm
+        return dataclasses.replace(state, step=state.step + 1,
+                                   opt_state=opt_state), metrics
+
+    return train_step
+
+
+def make_eval_step(model: torch.nn.Module, loss_fn: LossFn):
+    """batch → metrics, no gradients, the model in eval mode."""
+
+    def eval_step(batch: dict[str, torch.Tensor]):
+        model.eval()
+        with torch.inference_mode():
+            _, metrics = loss_fn(model(batch), batch)
+        return metrics
+
+    return eval_step

@@ -302,3 +302,153 @@ def test_cuda_wrapper_raises_without_kernel_inputs():
     q = torch.zeros(1, 64, 1, 64, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfa.flash_fwd(q, q, q, scale=1.0)
+
+
+# -- the backward (K2/K3): autograd through _FlashAttention ------------------
+
+
+def _dout(shape, seed=99):
+    return np.random.default_rng(seed).normal(0, 1, shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_flash_grads_match_jax_pallas(name):
+    """Gradients of the port's flash_attention (the autograd Function; on the
+    CPU its plain backward) against jax.grad of the JAX flash_attention with
+    its Pallas backward in interpret mode, f32 at 2e-5."""
+    qkv_kw, kw = CASES[name]
+    q, k, v = _qkv(**qkv_kw)
+    do = _dout(q.shape)
+    jkw = {key: jnp.asarray(val) if key != "causal" else val
+           for key, val in kw.items()}
+
+    def objective(q, k, v):
+        o = jfa.flash_attention(q, k, v, block_q=64, block_k=64,
+                                interpret=True, **jkw)
+        return jnp.sum(o * jnp.asarray(do))
+
+    want = jax.grad(objective, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    tkw = {key: _t(val) if key != "causal" else val for key, val in kw.items()}
+    out = tfa.flash_attention(tq, tk, tv, **tkw)
+    (out * _t(do)).sum().backward()
+    for got, exp in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=ATOL,
+                                   rtol=ATOL)
+
+
+@pytest.mark.parametrize("name", ["none", "causal", "mask_bs", "gqa_mask_causal",
+                                  "segments_mask", "gqa_segments",
+                                  "ragged_lengths_fully_masked_row"])
+def test_backward_reference_matches_jax_flash_bwd(name):
+    """flash_attention_backward_reference (K2/K3's plain version) against
+    the JAX ``_flash_bwd`` in interpret mode on the same o, LSE and dO; the
+    wrapper ``flash_bwd`` and the per-kernel wrappers take it on CPU."""
+    qkv_kw, kw = CASES[name]
+    q, k, v = _qkv(**qkv_kw)
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    blk = min(64, s // 2)
+    mask = kw.get("mask")
+    kv_mask = None if mask is None else np.asarray(tfa.as_kv_mask(_t(mask), b, s))
+    segs = kw.get("segment_ids")
+    causal = kw.get("causal", False)
+    flat = lambda x: jnp.asarray(x.transpose(0, 2, 1, 3).reshape(-1, s, d))  # noqa: E731
+    jm = None if kv_mask is None else jnp.asarray(kv_mask)
+    js = None if segs is None else jnp.asarray(segs)
+    o_j, lse_j = jfa._flash_fwd(flat(q), flat(k), flat(v), jm, scale=d ** -0.5,
+                                causal=causal, group=h // hkv, block_q=blk,
+                                block_k=blk, interpret=True, q_segs=js, kv_segs=js)
+    do = _dout(q.shape, seed=5)
+    res = (flat(q), flat(k), flat(v), jm, o_j, lse_j, js, js)
+    want = jfa._flash_bwd(res, flat(do), scale=d ** -0.5, causal=causal,
+                          group=h // hkv, block_q=blk, block_k=blk,
+                          interpret=True)
+    unflat = lambda x, heads: np.asarray(x).reshape(b, heads, s, d).transpose(0, 2, 1, 3)  # noqa: E731
+    o_t = _t(unflat(o_j, h).copy())
+    lse_t = _t(np.asarray(lse_j).copy())
+    tkw = dict(kv_mask=None if kv_mask is None else _t(kv_mask),
+               q_segs=None if segs is None else _t(segs),
+               kv_segs=None if segs is None else _t(segs),
+               scale=d ** -0.5, causal=causal)
+    ref = tfa.flash_attention_backward_reference(
+        _t(q), _t(k), _t(v), o_t, lse_t, _t(do), **tkw)
+    for got, exp, heads in zip(ref, want, (h, hkv, hkv)):
+        np.testing.assert_allclose(got.numpy(), unflat(exp, heads), atol=ATOL,
+                                   rtol=ATOL)
+        assert torch.isfinite(got).all()
+    wrapped = tfa.flash_bwd(_t(q), _t(k), _t(v), o_t, lse_t, _t(do), **tkw)
+    delta = tfa._delta(o_t, _t(do))
+    dq = tfa.flash_bwd_dq(_t(q), _t(k), _t(v), _t(do), lse_t, delta, **tkw)
+    dk, dv = tfa.flash_bwd_dkv(_t(q), _t(k), _t(v), _t(do), lse_t, delta, **tkw)
+    for got, exp in zip((*wrapped, dq, dk, dv), (*ref, *ref)):
+        torch.testing.assert_close(got, exp, atol=ATOL, rtol=ATOL)
+    if name == "ragged_lengths_fully_masked_row":
+        assert torch.all(ref[0][2] == 0)  # the row that attends to nothing
+
+
+def test_fully_masked_row_gets_zero_dq():
+    """P is zeroed by the mask, not the exponent: with LSE = -1e30 a fully
+    masked row's exp(s - LSE) would be 1."""
+    q, k, v = map(_t, _qkv(b=2, s=64, h=2, d=16, seed=3))
+    for t in (q, k, v):
+        t.requires_grad_()
+    out = tfa.flash_attention(q, k, v, mask=_t(_pad_mask(2, 64, [64, 0])))
+    out.sum().backward()
+    assert torch.all(q.grad[1] == 0) and torch.all(k.grad[1] == 0)
+    assert torch.all(v.grad[1] == 0)
+    assert torch.isfinite(q.grad).all() and q.grad[0].abs().sum() > 0
+
+
+def _packed_saves(fn):
+    """How many tensors autograd packs for backward while ``fn`` runs."""
+    packed = []
+
+    def pack(t):
+        packed.append(t)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, len(packed)
+
+
+@pytest.mark.parametrize("mode", ["inference_mode", "no_grad"])
+def test_inference_saves_nothing_and_has_no_grad_fn(mode):
+    q, k, v = (_t(x).requires_grad_() for x in _qkv(s=64))
+    ctx = torch.inference_mode if mode == "inference_mode" else torch.no_grad
+    with ctx():
+        out, saved = _packed_saves(lambda: tfa.flash_attention(q, k, v))
+    assert out.grad_fn is None and saved == 0
+
+
+def test_grad_mode_records_the_flash_function():
+    q, k, v = (_t(x).requires_grad_() for x in _qkv(s=64))
+    out, saved = _packed_saves(lambda: tfa.flash_attention(q, k, v, causal=True))
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    assert saved >= 5  # q, k, v, o, lse
+
+
+@pytest.mark.parametrize("name", ["causal", "mask_b11s", "gqa_segments"])
+def test_flash_and_xla_impls_agree_on_gradients(name):
+    """Both dispatch paths are differentiable and agree (no fully masked
+    rows in these cases, where the two paths differ by design)."""
+    qkv_kw, kw = CASES[name]
+    grads = {}
+    for impl in ("flash", "xla"):
+        q, k, v = (_t(x).requires_grad_() for x in _qkv(**qkv_kw))
+        tkw = {key: _t(val) if key != "causal" else val for key, val in kw.items()}
+        if impl == "xla" and "mask" in tkw:
+            tkw["mask"] = tfa.as_kv_mask(tkw["mask"], q.shape[0], q.shape[1]
+                                         )[:, None, None, :] != 0
+        out = tattn.dot_product_attention(q, k, v, impl=impl, **tkw)
+        (out * _t(_dout(out.shape))).sum().backward()
+        grads[impl] = (q.grad, k.grad, v.grad)
+    for a, b in zip(grads["flash"], grads["xla"]):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=ATOL)
+
+
+def test_backward_wrapper_refuses_other_devices():
+    q = torch.zeros(1, 64, 1, 64, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfa.flash_bwd(q, q, q, q, torch.zeros(1, 64, device="meta"), q, scale=1.0)

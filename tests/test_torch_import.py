@@ -50,7 +50,9 @@ print(json.dumps({{"modules": names, "loaded": sorted(sys.modules)}}))
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     expected = {"ops.flash_attention", "ops.attention", "ops._build",
                 "models.bert", "models.bert_io", "serve.engine",
-                "telemetry", "telemetry.trace", "utils.device"}
+                "telemetry", "telemetry.trace", "utils.device", "session",
+                "rdd", "metrics", "data.text", "data.feed", "train.losses",
+                "train.optim", "train.state", "train.step", "train.trainer"}
     got = {n.split(".", 1)[1] for n in rec["modules"]}
     assert expected <= got, expected - got
     bad = [m for m in rec["loaded"] if _forbidden(m)]
@@ -80,13 +82,15 @@ def test_chip_smoke_imports_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["bert_base", "for_model", "engine",
-                                   "resolve_device"])
+                                   "resolve_device", "session", "trainer"])
 def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
     if torch.cuda.is_available():
         pytest.skip("the no-CUDA error needs a machine without CUDA")
+    from distributeddeeplearningspark_tpu_torch import Session, Trainer
     from distributeddeeplearningspark_tpu_torch.models.bert import (
         BertConfig, BertForMLM, bert_base)
     from distributeddeeplearningspark_tpu_torch.serve import InferenceEngine
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
     from distributeddeeplearningspark_tpu_torch.utils.device import resolve_device
 
     calls = {
@@ -95,6 +99,10 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
             BertForMLM(BertConfig.tiny(num_layers=1), device="cpu")),
         "engine": lambda: InferenceEngine(lambda p, b: b, {}),
         "resolve_device": lambda: resolve_device(),
+        "session": lambda: Session.builder.master("local[1]").getOrCreate(),
+        "trainer": lambda: Trainer(
+            None, BertForMLM(BertConfig.tiny(num_layers=1), device="cpu"),
+            losses.masked_lm, optim.adamw(1e-3)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

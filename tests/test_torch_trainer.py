@@ -1,0 +1,179 @@
+"""``Trainer.fit`` and ``Trainer.evaluate`` of the port against the JAX
+``Trainer`` on a one-device CPU session: the same synthetic corpus through
+each package's ``mlm_dataset``, a tiny BERT started from the same weights
+(the JAX trainer's init carried across by ``params_from_flax``), dropout 0,
+f32. The logged losses come from each run's ``step_metrics`` telemetry,
+which the JAX package's status reader also reads for the port's run."""
+
+import math
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from distributeddeeplearningspark_tpu import Session as JSession
+from distributeddeeplearningspark_tpu import Trainer as JTrainer
+from distributeddeeplearningspark_tpu import status
+from distributeddeeplearningspark_tpu import telemetry as jtele
+from distributeddeeplearningspark_tpu.data import text as jtext
+from distributeddeeplearningspark_tpu.models import bert as jbert
+from distributeddeeplearningspark_tpu.train import losses as jlosses
+from distributeddeeplearningspark_tpu.train import optim as joptim
+from distributeddeeplearningspark_tpu_torch import Session, Trainer, TrainState
+from distributeddeeplearningspark_tpu_torch import telemetry as ttele
+from distributeddeeplearningspark_tpu_torch.data import text as ttext
+from distributeddeeplearningspark_tpu_torch.models import bert as tbert
+from distributeddeeplearningspark_tpu_torch.models.bert_io import params_from_flax
+from distributeddeeplearningspark_tpu_torch.session import DEVICE_CONF
+from distributeddeeplearningspark_tpu_torch.train import losses as tlosses
+from distributeddeeplearningspark_tpu_torch.train import optim as toptim
+
+SEQ, BATCH, STEPS, LOG_EVERY = 64, 4, 6, 2
+# f32 on both sides; the residue is summation order, compounded over the
+# steps through Adam (which magnifies noise in near-zero gradients)
+RTOL = 1e-4
+
+
+def _corpus(text_mod):
+    docs = text_mod.synthetic_wikipedia(48, num_partitions=2, seed=1)
+    tok = text_mod.WordPieceTokenizer.train(docs.collect(), vocab_size=64)
+    return docs, tok
+
+
+def _step_metrics(workdir):
+    return [(e["step"], e["metrics"]) for e in jtele.read_events(str(workdir))
+            if e["kind"] == "step_metrics"]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """One JAX run and one port run: (JAX workdir, port workdir, JAX eval,
+    port eval, port state, port summary)."""
+    root = tmp_path_factory.mktemp("runs")
+    cfg_kw = dict(num_layers=2, dropout_rate=0.0, max_position=SEQ)
+    mp = pytest.MonkeyPatch()
+    try:
+        jspark = JSession.builder.master("local[1]").appName("j").getOrCreate()
+        jdocs, jtok = _corpus(jtext)
+        jds = jtext.mlm_dataset(jdocs, jtok, seq_len=SEQ, max_predictions=10,
+                                num_workers=0)
+        jtrainer = JTrainer(jspark, jbert.BertForMLM(jbert.BertConfig.tiny(**cfg_kw)),
+                            jlosses.masked_lm,
+                            joptim.with_grad_clip(joptim.adamw(
+                                joptim.warmup_linear(2e-3, 2, STEPS)), 1.0))
+        jtrainer.init(jtrainer._sample_batch(jds, BATCH))
+        params = jax.tree.map(np.asarray, jax.device_get(jtrainer.state.params))
+        jeval = jtrainer.evaluate(jds, batch_size=3)
+        mp.setenv(jtele.WORKDIR_ENV, str(root / "jax"))
+        jtrainer.fit(jds.repeat(), batch_size=BATCH, steps=STEPS,
+                     tokens_per_example=SEQ, log_every=LOG_EVERY)
+        jtele.reset()
+        jspark.stop()
+
+        spark = Session.builder.master("local[1]").appName("t").config(
+            DEVICE_CONF, "cpu").getOrCreate()
+        tdocs, ttok = _corpus(ttext)
+        tds = ttext.mlm_dataset(tdocs, ttok, seq_len=SEQ, max_predictions=10)
+        model = tbert.BertForMLM(tbert.BertConfig.tiny(**cfg_kw), device="cpu")
+        model.load_state_dict(params_from_flax(params))
+        trainer = Trainer(spark, model, tlosses.masked_lm,
+                          toptim.with_grad_clip(toptim.adamw(
+                              toptim.warmup_linear(2e-3, 2, STEPS)), 1.0))
+        teval = trainer.evaluate(tds, batch_size=3)
+        mp.setenv(ttele.WORKDIR_ENV, str(root / "port"))
+        state, summary = trainer.fit(tds.repeat(), batch_size=BATCH, steps=STEPS,
+                                     tokens_per_example=SEQ, log_every=LOG_EVERY)
+        ttele.reset()
+        spark.stop()
+    finally:
+        mp.undo()
+    return root / "jax", root / "port", jeval, teval, state, summary
+
+
+def test_fit_logs_the_jax_losses(runs):
+    jdir, tdir, *_ = runs
+    want, got = _step_metrics(jdir), _step_metrics(tdir)
+    assert [s for s, _ in got] == [s for s, _ in want] == [2, 4, 6]
+    for (_, tm), (_, jm) in zip(got, want):
+        assert set(tm) == set(jm) == {"loss", "mlm_accuracy", "grad_norm"}
+        np.testing.assert_allclose(tm["loss"], jm["loss"], rtol=RTOL)
+        np.testing.assert_allclose(tm["grad_norm"], jm["grad_norm"], rtol=RTOL)
+    assert got[-1][1]["loss"] < got[0][1]["loss"]
+
+
+def test_evaluate_matches_jax_with_a_tail_batch(runs):
+    """Same weights, the whole finite dataset in batches of 3 (a short tail
+    batch), combined by the loss's weight on both sides."""
+    *_, jeval, teval, _, _ = runs
+    assert set(teval) == set(jeval) == {"loss", "mlm_accuracy"}
+    for k in jeval:
+        np.testing.assert_allclose(teval[k], jeval[k], rtol=RTOL)
+
+
+def test_fit_returns_state_and_meter_summary(runs):
+    *_, state, summary = runs
+    assert isinstance(state, TrainState) and state.step == STEPS
+    assert {"step_time_ms", "tokens_per_sec_per_chip", "loss",
+            "grad_norm"} <= set(summary)
+    assert summary["tokens_per_sec_per_chip"] == pytest.approx(
+        BATCH * SEQ / (summary["step_time_ms"] / 1e3))
+
+
+def test_status_reader_reads_a_port_training_run(runs):
+    _, tdir, *_ = runs
+    rep = status.report(str(tdir))
+    assert rep["last_step"] == STEPS and rep["num_events"] > 0
+    kinds = {e["kind"] for e in jtele.read_events(str(tdir))}
+    assert {"phase", "step_metrics", "heartbeat"} <= kinds
+    assert status.main([str(tdir)]) == 0
+
+
+def _tiny_trainer(loss_fn=tlosses.masked_lm):
+    spark = Session.builder.master("local[1]").config(DEVICE_CONF, "cpu").getOrCreate()
+    model = tbert.BertForMLM(tbert.BertConfig.tiny(num_layers=1, max_position=SEQ),
+                             device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    docs, tok = _corpus(ttext)
+    ds = ttext.mlm_dataset(docs, tok, seq_len=SEQ, max_predictions=10).repeat()
+    return spark, Trainer(spark, model, loss_fn,
+                          toptim.adamw(1e-3)), ds
+
+
+def test_fit_raises_on_a_non_finite_loss():
+    def nan_loss(out, batch):
+        loss, m = tlosses.masked_lm(out, batch)
+        loss = loss * float("nan")
+        return loss, {**m, "loss": loss}
+
+    spark, trainer, ds = _tiny_trainer(nan_loss)
+    try:
+        with pytest.raises(FloatingPointError, match="step 2"):
+            trainer.fit(ds, batch_size=2, steps=4, log_every=2)
+    finally:
+        spark.stop()
+
+
+def test_fit_is_seeded_through_the_dropout_generator():
+    """Two trainers with the same seed and weights log the same losses with
+    dropout on; the state's generator is the one the masks came from."""
+    losses = []
+    for _ in range(2):
+        spark, trainer, ds = _tiny_trainer()
+        try:
+            state, summary = trainer.fit(ds, batch_size=2, steps=2, log_every=1)
+        finally:
+            spark.stop()
+        assert state.generator.initial_seed() == 0
+        losses.append(summary["loss"])
+    assert losses[0] == losses[1] and math.isfinite(losses[0])
+
+
+def test_trainer_refuses_a_model_off_the_session_device():
+    spark = Session.builder.master("local[1]").config(DEVICE_CONF, "cpu").getOrCreate()
+    try:
+        model = tbert.BertForMLM(tbert.BertConfig.tiny(num_layers=1), device="meta")
+        with pytest.raises(ValueError, match="session's device"):
+            Trainer(spark, model, tlosses.masked_lm, toptim.adamw(1e-3))
+    finally:
+        spark.stop()
