@@ -30,7 +30,23 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    layer's attention output of a served batch against that path on the
    same inputs, and that K1 ran 12 times per served batch; print latency
    percentiles and requests/s;
-6. print one JSON line of per-kernel numbers, the card's name and power
+6. hold K4 (the 1×1-conv matmul with BN statistics) against its plain
+   version on the card in bf16 at the ten shapes of ResNet-50's fused
+   layers at b=256 and three small, ragged ones, at the stated tolerances,
+   and time the kernel, the plain version, the library yardstick
+   (``torch.mm`` then ``torch.var_mean``) and the bound;
+7. train ResNet-50 at full width (stages 3/4/6/3, width 64, 1000 classes,
+   224², bf16 activations, ``fused_conv_bn=True``, random weights from a
+   seed) for 30 steps at b=256 through the port's ``Session`` →
+   ``synthetic_images`` → ``imagenet_train(repeat=True)`` → ``Trainer.fit``
+   with SGD under ``warmup_cosine(0.1)``, the calls of
+   ``examples/train_resnet.py``; check that every logged loss is finite and
+   the last below the first, that K4 ran 27 times per step, that every
+   parameter gradient through K4 agrees with the unfused chain on one
+   batch, that the BN statistics moved and an evaluation is finite; print
+   the step time, images/s, the host's ms per batch, the step's split, a
+   profiled window and the peak device memory;
+8. print one JSON line of per-kernel numbers, the card's name and power
    limit (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is absent, when the port's
@@ -89,6 +105,8 @@ PARITY_RTOL = 2e-2
 PARITY_ATOL = 1e-4
 # the last logged training loss must be below this fraction of the first
 LOSS_DROP = 0.9
+# ResNet-50 training: steps and batch (b=256, BASELINE.json config 2's batch)
+RESNET_STEPS, RESNET_BATCH = 30, 256
 
 
 class SmokeFailure(Exception):
@@ -414,23 +432,30 @@ def _grad_parity(torch, model, loss_fn, batch) -> dict:
     finally:
         model.cfg.attention_impl = "auto"
         model.zero_grad(set_to_none=True)
-    total = float(torch.stack([g.norm() for g in grads["xla"].values()]).norm())
-    rel, used = {}, {}
-    for n, ref in grads["xla"].items():
-        diff, ref_norm = float((grads["auto"][n] - ref).norm()), float(ref.norm())
-        rel[n] = diff / ref_norm if ref_norm else (0.0 if diff == 0 else float("inf"))
-        used[n] = diff / (PARITY_RTOL * ref_norm + PARITY_ATOL * total)
-    ranked = sorted(used, key=used.get, reverse=True)
     qkv = {n: float(g.norm()) for n, g in grads["auto"].items()
            if any(n.endswith(f".attention.{m}.weight")
                   for m in ("query", "key", "value"))}
+    return dict(**_compare_grads(torch, grads["auto"], grads["xla"],
+                                 PARITY_RTOL, PARITY_ATOL),
+                qkv_weights=len(qkv), qkv_min_grad_norm=min(qkv.values()))
+
+
+def _compare_grads(torch, got: dict, ref: dict, rtol: float, atol: float) -> dict:
+    """Per tensor (Frobenius): the relative error of ``got`` against
+    ``ref`` and the share it uses of ``rtol·|g_ref| + atol·|G_ref|``, G the
+    whole reference gradient; the five that use the most."""
+    total = float(torch.stack([g.norm() for g in ref.values()]).norm())
+    rel, used = {}, {}
+    for n, r in ref.items():
+        diff, ref_norm = float((got[n] - r).norm()), float(r.norm())
+        rel[n] = diff / ref_norm if ref_norm else (0.0 if diff == 0 else float("inf"))
+        used[n] = diff / (rtol * ref_norm + atol * total)
+    ranked = sorted(used, key=used.get, reverse=True)
     return dict(tensors=len(rel), grad_norm=total,
                 worst=[(n, rel[n], used[n]) for n in ranked[:5]],
                 max_tolerance_used=used[ranked[0]],
                 median_rel_err=float(np.median(list(rel.values()))),
-                qkv_weights=len(qkv), qkv_min_grad_norm=min(qkv.values()),
-                tolerance=f"|g-g_ref| <= {PARITY_RTOL}*|g_ref| + "
-                          f"{PARITY_ATOL}*|G_ref| per tensor")
+                tolerance=f"|g-g_ref| <= {rtol}*|g_ref| + {atol}*|G_ref| per tensor")
 
 
 def _step_split(torch, trainer, batch, repeats: int = 3) -> dict:
@@ -469,7 +494,22 @@ def _step_split(torch, trainer, batch, repeats: int = 3) -> dict:
                 optimizer_ms=sums[2] / repeats)
 
 
-def _profile_fit(torch, trainer, ds, batch_size: int, seq: int,
+def _kernel_family(name: str) -> str:
+    """A device kernel's family, from its name: the port's kernels, cuDNN
+    convolutions, cuBLAS GEMMs, or other (elementwise, reductions, copies)."""
+    if "flash_" in name:
+        return "flash"
+    if "matmul_stats" in name:
+        return "k4"
+    if any(s in name for s in ("fprop", "dgrad", "wgrad", "conv", "cudnn",
+                               "implicit")):
+        return "conv"
+    if any(s in name for s in ("gemm", "nvjet", "cutlass")):
+        return "gemm"
+    return "other"
+
+
+def _profile_fit(torch, trainer, ds, batch_size: int, fit_kw: dict,
                  steps: int = 4) -> dict:
     """``steps`` more steps of ``fit`` under ``torch.profiler``: the device's
     busy time per step (the sum of the times of the kernels and copies that
@@ -485,7 +525,7 @@ def _profile_fit(torch, trainer, ds, batch_size: int, seq: int,
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         trainer.fit(ds, batch_size=batch_size, steps=start + steps,
-                    tokens_per_example=seq, log_every=steps)
+                    log_every=steps, **fit_kw)
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     own = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -495,9 +535,7 @@ def _profile_fit(torch, trainer, ds, batch_size: int, seq: int,
     top = sorted(own, key=lambda kv: -kv[1])[:10]
     groups: dict[str, float] = {}
     for k, ms in own:  # by kernel family, from the kernels' names
-        group = ("flash" if "flash_" in k else
-                 "gemm" if any(s in k for s in ("gemm", "nvjet", "cutlass")) else
-                 "other")
+        group = _kernel_family(k)
         groups[group] = groups.get(group, 0.0) + ms / steps
     return dict(steps=steps, wall_ms_per_step=wall_ms, busy_ms_per_step=busy_ms,
                 idle_share=1.0 - busy_ms / wall_ms, busy_ms_by_family=groups,
@@ -572,7 +610,8 @@ def train_bert(torch, fa) -> dict:
     for _ in range(5):
         next(host)
     host_batch_ms = (time.perf_counter() - t_host) / 5 * 1e3
-    profile = _profile_fit(torch, trainer, ds, batch_size, seq)
+    profile = _profile_fit(torch, trainer, ds, batch_size,
+                           dict(tokens_per_example=seq))
     batch = next(device_batches(ds, batch_size, trainer.device))
     parity = _grad_parity(torch, model, losses.masked_lm, batch)
     split = _step_split(torch, trainer, batch)
@@ -601,6 +640,248 @@ def train_bert(torch, fa) -> dict:
     check(parity["qkv_weights"] == 3 * cfg.num_layers
           and parity["qkv_min_grad_norm"] > 0,
           "a query/key/value projection got no gradient through the kernels")
+    return rec
+
+
+# -- phase 6: K4 against its plain version ---------------------------------------
+
+# (M, K, N) of the Conv1x1BN calls that the K4 gate admits in one fused
+# ResNet-50 forward at b=256, 224², and how many of the 27 launches of a
+# train step each shape takes; then small and ragged shapes the gate admits
+# (K, N not multiples of 8 take the element-wise load path)
+K4_MAIN_SHAPES = {
+    (802816, 64, 64): 1, (802816, 64, 256): 3, (802816, 256, 64): 2,
+    (802816, 256, 128): 1, (200704, 128, 512): 4, (200704, 512, 128): 3,
+    (200704, 512, 256): 1, (50176, 256, 1024): 6, (50176, 1024, 256): 5,
+    (50176, 1024, 512): 1,
+}
+K4_EXTRA_SHAPES = [(1024, 40, 72), (256, 16, 16), (48, 13, 24)]
+# Y: both round one f32 dot product to bf16, the sums taken in another
+# order, so Y may sit one bf16 step (at most 2^-7 of |y|) from the plain
+# version's y32.to(bf16), plus the f32 order residue near y = 0
+K4_Y_RTOL, K4_Y_ATOL = 2 ** -7, 1e-4
+# s1, s2: f32 sums over up to 802,816 rows in another order (128-row tiles
+# in the kernel, then torch's sum over the tiles); held to each column's
+# sum of |y32| (of y32²): a wrong or missing 128-row tile moves a column by
+# about 1/6272 of it, ten times this
+K4_STATS_RTOL = 2e-5
+
+
+def _k4_bound(m: int, k: int, n: int) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, bytes ms, operations ms): X and W read
+    once, Y and the two [N] f32 sums written once; 2·M·K·N operations."""
+    t_bytes = ((m * k + k * n + m * n) * 2 + 2 * n * 4) / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * m * k * n / PEAK_BF16_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            t_bytes, t_ops)
+
+
+def check_conv_bn(torch, cb) -> list[dict]:
+    """K4 at the main path's ten shapes and three small ones, bf16: the
+    kernel's (y, s1, s2) against its plain version on the same inputs; the
+    wrapper (kernel + the reduce over row tiles), the plain version and the
+    library yardstick (``torch.mm`` into bf16, then ``torch.var_mean``'s
+    one f32-accumulated pass over Y: two calls the port never makes) timed
+    from CUDA graphs."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32 mm
+    torch.backends.cudnn.allow_tf32 = False
+    results = []
+    for i, (m, k, n) in enumerate([*K4_MAIN_SHAPES, *K4_EXTRA_SHAPES]):
+        gen = torch.Generator(device="cuda").manual_seed(50 + i)
+        x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+        w = (torch.randn(k, n, device="cuda", generator=gen) * k ** -0.5
+             ).to(torch.bfloat16)
+        y, s1, s2 = cb.matmul_stats(x, w)
+        torch.cuda.synchronize()
+        y32 = x.float() @ w.float()
+        y_ref, s1_ref, s2_ref = cb.matmul_stats_reference(x, w)
+        y_err = (y.float() - y_ref.float()).abs()
+        y_tol = K4_Y_RTOL * y32.abs() + K4_Y_ATOL * float(y32.abs().max())
+        s1_tol = K4_STATS_RTOL * y32.abs().sum(0)
+        s2_tol = K4_STATS_RTOL * (y32 * y32).sum(0)
+        ok = (bool(torch.isfinite(y.float()).all())
+              and bool((y_err <= y_tol).all())
+              and bool(((s1 - s1_ref).abs() <= s1_tol).all())
+              and bool(((s2 - s2_ref).abs() <= s2_tol).all()))
+        bound_ms, bound_by, bytes_ms, ops_ms = _k4_bound(m, k, n)
+        rec = dict(shape=[m, k, n], launches_per_step=K4_MAIN_SHAPES.get((m, k, n), 0),
+                   max_abs_err=float(y_err.max()), y_ref_max=float(y32.abs().max()),
+                   s1_max_rel_err=float(((s1 - s1_ref).abs() / s1_tol).max()) * K4_STATS_RTOL,
+                   s2_max_rel_err=float(((s2 - s2_ref).abs() / s2_tol).max()) * K4_STATS_RTOL,
+                   tolerance=f"|y-ref| <= {K4_Y_RTOL}*|y32| + {K4_Y_ATOL}*max|y32|; "
+                             f"|s-ref| <= {K4_STATS_RTOL}*sum|y32| (sum y32^2)",
+                   ok=ok)
+        del y, s1, s2, y32, y_ref, s1_ref, s2_ref, y_err, y_tol
+        torch.cuda.empty_cache()
+        big = m * n >= 50176 * 512
+        rec.update(
+            ms=graph_ms(torch, lambda: cb.matmul_stats(x, w), 10 if big else 50),
+            plain_ms=graph_ms(torch, lambda: cb.matmul_stats_reference(x, w),
+                              3 if big else 20),
+            library_ms=graph_ms(torch, lambda: torch.var_mean(
+                torch.mm(x, w), dim=0, correction=0), 10 if big else 50),
+            bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms)
+        print("K4 matmul_stats " + json.dumps(rec), flush=True)
+        check(ok, f"matmul_stats disagrees with its plain version at {(m, k, n)}")
+        results.append(rec)
+        del x, w
+        torch.cuda.empty_cache()
+    return results
+
+
+# -- phase 7: training ResNet-50 ---------------------------------------------------
+
+# ResNet-50 parameter gradients through K4 (every Conv1x1BN.fused = True)
+# vs the unfused chain (fused = False), one batch, the same weights, per
+# tensor (Frobenius): |g - g_ref| <= RESNET_PARITY_RTOL*|g_ref| +
+# RESNET_PARITY_ATOL*|G_ref|, G the whole gradient. Both run bf16
+# activations; they differ where the 27 fused pairs round: K4 takes the BN
+# statistics from its f32 accumulator and runs its backward in f32 (the
+# JAX custom VJP), the chain takes them from the bf16 Y and backpropagates
+# its bf16 matmul in bf16. 53 BNs deep, those bf16 differences compound
+RESNET_PARITY_RTOL = 5e-2
+RESNET_PARITY_ATOL = 1e-3
+
+
+def _conv_bn_grad_parity(torch, model, loss_fn, batch) -> dict:
+    """Every parameter's gradient on ``batch`` in train mode with K4 against
+    the unfused chain; the BN buffers are put back after both passes."""
+    layers = model.conv_bn_layers()
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    grads = {}
+    model.train()
+    try:
+        for fused in (True, False):
+            for layer in layers:
+                layer.fused = fused
+            model.zero_grad(set_to_none=True)
+            loss_fn(model(batch), batch)[0].backward()
+            grads[fused] = {n: p.grad.detach().clone()
+                            for n, p in model.named_parameters()}
+    finally:
+        for layer in layers:
+            layer.fused = True
+        model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                b.copy_(buffers[n])
+    conv_bn_3 = [float(g.norm()) for n, g in grads[True].items()
+                 if ".conv_bn_3.kernel" in n]
+    return dict(**_compare_grads(torch, grads[True], grads[False],
+                                 RESNET_PARITY_RTOL, RESNET_PARITY_ATOL),
+                conv_bn_3_min_grad_norm=min(conv_bn_3))
+
+
+def _host_batch_ms(ds, batch_size: int, batches: int) -> float:
+    """The host's ms per batch, over ``batches`` fresh batches (whole passes
+    over a small dataset include each pass's shuffle and image draws)."""
+    from distributeddeeplearningspark_tpu_torch.data.feed import host_batches
+
+    it = host_batches(ds, batch_size)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    return (time.perf_counter() - t0) / batches * 1e3
+
+
+def train_resnet(torch, cb) -> dict:
+    """ResNet-50 at full width (stages 3/4/6/3, width 64, 1000 classes,
+    224², bf16 activations, f32 params and BN state, random weights from a
+    seed, fused_conv_bn=True) through the port's Session →
+    synthetic_images → imagenet_train(repeat=True) → Trainer.fit with SGD
+    (momentum 0.9, weight decay 1e-4) under warmup_cosine(0.1) and
+    softmax_xent: the calls of examples/train_resnet.py's synthetic
+    branch. 4 batches of images, seen several times, so the loss falls."""
+    import os
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch import telemetry
+    from distributeddeeplearningspark_tpu_torch.data import sources, vision
+    from distributeddeeplearningspark_tpu_torch.data.feed import device_batches
+    from distributeddeeplearningspark_tpu_torch.models import resnet
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    steps, batch_size, log_every, size = RESNET_STEPS, RESNET_BATCH, 5, 224
+    workdir = ROOT / "build" / "chip_smoke_resnet"
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    spark = Session.builder.master("local[1]").appName("resnet50").getOrCreate()
+    src = sources.synthetic_images(4 * batch_size, image_size=size,
+                                   num_classes=1000, num_partitions=1)
+    ds = vision.imagenet_train(src, size=size, repeat=True)
+    model = resnet.resnet50(num_classes=1000, fused_conv_bn=True,
+                            device="cuda", seed=0)
+    check(model.stage_sizes == (3, 4, 6, 3) and model.head.out_features == 1000
+          and model.stem_conv.weight.shape[0] == 64
+          and model.dtype == torch.bfloat16
+          and len(model.conv_bn_layers()) == 32,
+          "resnet50 is not ResNet-50 at full width")
+    tx = optim.sgd(optim.warmup_cosine(0.1, max(steps // 10, 1), steps),
+                   momentum=0.9, weight_decay=1e-4)
+    trainer = Trainer(spark, model, losses.softmax_xent, tx)
+    setup_s = time.perf_counter() - t0
+    os.environ[telemetry.WORKDIR_ENV] = str(workdir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cb.matmul_stats.launches = 0  # the main path's run starts here
+    t_fit = time.perf_counter()
+    try:
+        _, summary = trainer.fit(ds, batch_size=batch_size, steps=steps,
+                                 log_every=log_every)
+    finally:
+        os.environ.pop(telemetry.WORKDIR_ENV, None)
+        telemetry.reset()
+    fit_s = time.perf_counter() - t_fit
+    launches = cb.matmul_stats.launches
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    records = [json.loads(line) for f in sorted(
+        (workdir / telemetry.TELEMETRY_DIRNAME).glob("events-*.jsonl"))
+        for line in f.read_text().splitlines()]
+    logged = [(r["step"], r["metrics"]["loss"]) for r in records
+              if r["kind"] == "step_metrics"]
+    moved = sum(1 for n, b in model.named_buffers()
+                if n.endswith(".mean") and bool(b.abs().max() > 0))
+    host_batch_ms = _host_batch_ms(ds, batch_size, 8)
+    profile = _profile_fit(torch, trainer, ds, batch_size, {})
+    batch = next(device_batches(ds, batch_size, trainer.device))
+    parity = _conv_bn_grad_parity(torch, model, losses.softmax_xent, batch)
+    split = _step_split(torch, trainer, batch)
+    eval_ds = vision.imagenet_eval(sources.synthetic_images(
+        2 * batch_size, image_size=size, num_classes=1000, num_partitions=1,
+        seed=1), size=size)
+    evaluation = trainer.evaluate(eval_ds, batch_size=batch_size)
+    spark.stop()
+    step_ms = summary.get("step_time_ms")
+    rec = dict(steps=steps, batch_size=batch_size, image_size=size,
+               logged_losses=logged,
+               loss_ratio_last_first=logged[-1][1] / logged[0][1] if logged else None,
+               step_time_ms=step_ms,
+               images_per_sec_per_chip=summary.get("examples_per_sec_per_chip"),
+               k4_launches=launches, k4_launches_per_step=launches / steps,
+               bn_means_moved=moved, max_memory_allocated=peak_bytes,
+               fit_s=fit_s, setup_s=setup_s, host_batch_ms=host_batch_ms,
+               step_split=split, profile=profile, grad_parity=parity,
+               evaluation=evaluation)
+    print("train resnet-50 " + json.dumps(rec), flush=True)
+    check(len(logged) == steps // log_every,
+          f"{len(logged)} step_metrics records for {steps} steps")
+    check(all(np.isfinite(loss) for _, loss in logged),
+          f"non-finite logged loss: {logged}")
+    check(logged[-1][1] < logged[0][1], f"loss did not fall: {logged}")
+    check(launches == 27 * steps,
+          f"K4 launched {launches} times in {steps} steps, want 27 per step")
+    check(parity["max_tolerance_used"] <= 1.0,
+          f"gradients through K4 are off the unfused chain's (tensor, "
+          f"relative error, share of the tolerance): {parity['worst']}")
+    check(parity["conv_bn_3_min_grad_norm"] > 0,
+          "a conv_bn_3 kernel got no gradient through K4")
+    check(moved == 53, f"{moved} of 53 BN running means moved in training")
+    check(all(np.isfinite(v) for v in evaluation.values())
+          and {"loss", "accuracy", "top5_accuracy"} <= set(evaluation),
+          f"evaluation not finite: {evaluation}")
     return rec
 
 
@@ -750,6 +1031,7 @@ def main() -> int:
         return 2
     from distributeddeeplearningspark_tpu_torch.models import bert
     from distributeddeeplearningspark_tpu_torch.ops import _build
+    from distributeddeeplearningspark_tpu_torch.ops import conv_bn as cb
     from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
     from distributeddeeplearningspark_tpu_torch.serve import engine as engine_mod
 
@@ -771,6 +1053,8 @@ def main() -> int:
         k23 = check_flash_bwd(torch, fa)
         train = train_bert(torch, fa)
         serve = serve_bert(torch, fa, bert, engine_mod)
+        k4 = check_conv_bn(torch, cb)
+        resnet = train_resnet(torch, cb)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -799,6 +1083,23 @@ def main() -> int:
             "bound_ms": bwd[f"{key}_bound_ms"], "bound_by": bwd[f"{key}_bound_by"],
             "library_ms": bwd["library_ms"],
         })
+    # K4's numbers per launch, averaged over the 27 launches of a train step
+    # at the main path's shapes
+    main = [c for c in k4 if c["launches_per_step"]]
+    per_step = sum(c["launches_per_step"] for c in main)
+    mean = lambda key: sum(c[key] * c["launches_per_step"]  # noqa: E731
+                           for c in main) / per_step
+    kernels.append({
+        "name": "conv_bn_stats", "route": "cuda",
+        "source": f"{PKG}/csrc/conv_bn.cu",
+        "replaces": "distributeddeeplearningspark_tpu/ops/conv_bn.py:62",
+        "launches": resnet["k4_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in k4),
+        "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
+        "bound_by": "bytes" if mean("bytes_ms") >= mean("ops_ms") else "operations",
+        "library_ms": mean("library_ms"),
+    })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,16 @@ and trains it through :class:`Session` and :class:`Trainer`, as
     tx = optim.with_grad_clip(optim.adamw(optim.warmup_linear(1e-4, 10, 30)), 1.0)
     state, summary = Trainer(spark, bert_base(), losses.masked_lm, tx).fit(
         ds.repeat(), batch_size=32, steps=30, tokens_per_example=512)
+
+and trains ResNet-50 with the fused 1×1-conv + BN-statistics kernel (K4),
+as ``examples/train_resnet.py`` drives the JAX package on synthetic data:
+
+    ds = vision.imagenet_train(sources.synthetic_images(1024, num_partitions=1),
+                               size=224, repeat=True)
+    tx = optim.sgd(optim.warmup_cosine(0.1, 2, 20), momentum=0.9,
+                   weight_decay=1e-4)
+    state, summary = Trainer(spark, resnet50(), losses.softmax_xent, tx).fit(
+        ds, batch_size=256, steps=20)
 """
 
 import importlib
@@ -39,6 +49,16 @@ _EXPORTS = {
     "BertForMLM": "distributeddeeplearningspark_tpu_torch.models.bert",
     "bert_base": "distributeddeeplearningspark_tpu_torch.models.bert",
     "flash_attention": "distributeddeeplearningspark_tpu_torch.ops.flash_attention",
+    "Conv1x1BN": "distributeddeeplearningspark_tpu_torch.ops.conv_bn",
+    "ResNet": "distributeddeeplearningspark_tpu_torch.models.resnet",
+    "ResNet18": "distributeddeeplearningspark_tpu_torch.models.resnet",
+    "ResNet34": "distributeddeeplearningspark_tpu_torch.models.resnet",
+    "ResNet50": "distributeddeeplearningspark_tpu_torch.models.resnet",
+    "ResNet101": "distributeddeeplearningspark_tpu_torch.models.resnet",
+    "ResNet152": "distributeddeeplearningspark_tpu_torch.models.resnet",
+    "BottleneckBlock": "distributeddeeplearningspark_tpu_torch.models.resnet",
+    "BasicBlock": "distributeddeeplearningspark_tpu_torch.models.resnet",
+    "resnet50": "distributeddeeplearningspark_tpu_torch.models.resnet",
     "Session": "distributeddeeplearningspark_tpu_torch.session",
     "Trainer": "distributeddeeplearningspark_tpu_torch.train.trainer",
     "TrainState": "distributeddeeplearningspark_tpu_torch.train.state",
@@ -50,6 +70,18 @@ if TYPE_CHECKING:  # static analyzers see the real names
         BertForMLM,
         bert_base,
     )
+    from distributeddeeplearningspark_tpu_torch.models.resnet import (
+        BasicBlock,
+        BottleneckBlock,
+        ResNet,
+        ResNet18,
+        ResNet34,
+        ResNet50,
+        ResNet101,
+        ResNet152,
+        resnet50,
+    )
+    from distributeddeeplearningspark_tpu_torch.ops.conv_bn import Conv1x1BN
     from distributeddeeplearningspark_tpu_torch.ops.flash_attention import (
         flash_attention,
     )

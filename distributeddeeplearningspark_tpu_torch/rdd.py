@@ -3,9 +3,10 @@
 The port of the part of ``distributeddeeplearningspark_tpu/rdd.py`` that
 the training path calls: a lazy, partitioned collection whose partitions
 are plain Python thunks producing iterables on the host. Transformations
-(``map``, ``map_partitions``, ``map_partitions_with_index``, ``repeat``)
-wrap the thunks; actions (``take``, ``collect``) run them. The device never
-sees a dataset: :mod:`.data.feed` stacks its examples into batches.
+(``map``, ``map_parallel``, ``map_partitions``,
+``map_partitions_with_index``, ``shuffle``, ``repeat``) wrap the thunks;
+actions (``take``, ``collect``) run them. The device never sees a dataset:
+:mod:`.data.feed` stacks its examples into batches.
 
 The wide operations (``reduce_by_key``, ``sort_by``, the exchange), the
 sampling and caching helpers and the pyspark camelCase aliases are not
@@ -15,6 +16,10 @@ ported yet.
 from __future__ import annotations
 
 import functools
+import os
+import random
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
@@ -62,6 +67,30 @@ class PartitionedDataset:
     def map(self, f: Callable[[Any], Any]) -> "PartitionedDataset":
         return self.map_partitions(lambda it: map(f, it))
 
+    def map_parallel(self, f: Callable[[Any], Any], *,
+                     num_threads: int | None = None) -> "PartitionedDataset":
+        """``map`` with a bounded thread pool per partition, order-preserving:
+        a sliding window of ``2 × threads`` futures keeps memory bounded and
+        works on infinite (``repeat()``) streams. ``num_threads`` 0/1 is a
+        plain serial map; the default divides the host's cores by the
+        partition count (the feed opens every partition at once)."""
+        if num_threads in (0, 1):
+            return self.map(f)
+        workers = num_threads or min(
+            32, max(1, (os.cpu_count() or 4) // max(self.num_partitions, 1)))
+
+        def per_partition(it: Iterable[Any]) -> Iterator[Any]:
+            with ThreadPoolExecutor(workers) as ex:
+                window: deque = deque()
+                for item in it:
+                    window.append(ex.submit(f, item))
+                    if len(window) >= 2 * workers:
+                        yield window.popleft().result()
+                while window:
+                    yield window.popleft().result()
+
+        return self.map_partitions(per_partition)
+
     def map_partitions(
         self, f: Callable[[Iterable[Any]], Iterable[Any]]
     ) -> "PartitionedDataset":
@@ -79,6 +108,22 @@ class PartitionedDataset:
 
         return PartitionedDataset([wrap(i, p) for i, p in enumerate(self._parts)],
                                   infinite=self._infinite)
+
+    def shuffle(self, seed: int = 0) -> "PartitionedDataset":
+        """Per-partition shuffle (``random.Random(seed + i)`` for partition
+        i; no cross-partition exchange). Shuffle before ``repeat()``: each
+        pass materialises the partition once."""
+        if self._infinite:
+            raise ValueError(
+                "shuffle() on an infinite (.repeat()) dataset would hang or "
+                "drop data — apply shuffle() BEFORE .repeat()")
+
+        def shuf(i: int, it: Iterable[Any]) -> Iterable[Any]:
+            items = list(it)
+            random.Random(seed + i).shuffle(items)
+            return items
+
+        return self.map_partitions_with_index(shuf)
 
     def repeat(self, count: int | None = None) -> "PartitionedDataset":
         """Repeat each partition ``count`` times (None = forever)."""

@@ -1,11 +1,11 @@
-"""Loss functions — the port of the MLM loss of ``train/losses.py``.
+"""Loss functions — the port of ``train/losses.py`` for BERT and ResNet.
 
 Each takes (model outputs, batch dict) and returns (scalar loss, metrics
 dict). A loss whose denominator is not the example count reports a
 ``"weight"`` metric, which :meth:`..trainer.Trainer.evaluate` uses to
 combine per-batch means exactly across unequal batches; the train loop
-drops it from its logs. The other losses of the JAX package (classification,
-CTR, causal LM) arrive with the slices that train those models.
+drops it from its logs. The other losses of the JAX package (CTR, causal
+LM) arrive with the slices that train those models.
 """
 
 from __future__ import annotations
@@ -14,6 +14,35 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+
+def softmax_xent(logits: torch.Tensor, batch: dict[str, Any]
+                 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Classification (ResNet-50/ImageNet): mean cross-entropy and accuracy,
+    and top-5 accuracy when there are more than 5 classes.
+
+    A padded eval batch's ``eval_mask`` weighs its rows; the metrics are
+    then weighted means and ``"weight"`` is the real row count."""
+    labels = batch["label"].long()
+    per_ex = F.cross_entropy(logits.float(), labels, reduction="none")
+    hit = (logits.argmax(-1) == labels).float()
+    top5 = None
+    if logits.shape[-1] > 5:
+        top5 = (logits.topk(5, dim=-1).indices == labels[:, None]).any(-1).float()
+    em = batch.get("eval_mask")
+    if em is None:
+        loss = per_ex.mean()
+        metrics = {"loss": loss, "accuracy": hit.mean()}
+        if top5 is not None:
+            metrics["top5_accuracy"] = top5.mean()
+        return loss, metrics
+    w = em.float()
+    denom = w.sum().clamp(min=1.0)
+    loss = (per_ex * w).sum() / denom
+    metrics = {"loss": loss, "accuracy": (hit * w).sum() / denom, "weight": denom}
+    if top5 is not None:
+        metrics["top5_accuracy"] = (top5 * w).sum() / denom
+    return loss, metrics
 
 
 def masked_lm(logits: torch.Tensor, batch: dict[str, Any]

@@ -1,7 +1,8 @@
 """Optimizers and LR schedules with optax's semantics, on torch tensors.
 
 The port of ``distributeddeeplearningspark_tpu/train/optim.py`` for the
-BERT path: ``adamw``, ``warmup_linear`` and ``with_grad_clip``. Each is a
+BERT and ResNet paths: ``adamw``, ``sgd``, ``warmup_linear``,
+``warmup_cosine`` and ``with_grad_clip``. Each is a
 :class:`GradientTransformation` of optax's shape, ``init(params) -> state``
 and ``update(updates, state, params) -> (updates, state)``, over lists of
 tensors in the params' order, so that a reader can map it onto optax. The
@@ -15,14 +16,19 @@ arithmetic is optax's, not ``torch.optim``'s defaults:
   (``torch.nn.utils.clip_grad_norm_`` adds 1e-6);
 - ``adamw`` is ``scale_by_adam`` (eps outside the sqrt, bias correction by
   ``count + 1``), then ``+ weight_decay * p`` for every param (optax's
-  default mask is None: biases and LayerNorms decay too), then ``* -lr``.
+  default mask is None: biases and LayerNorms decay too), then ``* -lr``;
+- ``sgd`` is ``add_decayed_weights`` first (every param, BatchNorm's
+  included), then ``trace`` (``t = g + momentum·t``, Nesterov
+  ``g + momentum·t``), then ``* -lr``;
+- ``warmup_cosine`` is ``warmup_cosine_decay_schedule``: the cosine leg
+  runs over ``total − warmup`` steps.
 
 Updates are made in place with ``torch._foreach_*`` ops: a transform may
 overwrite the ``updates`` it is given (the caller's gradients) and the
 moment buffers in its state. Counts are host integers, so no update syncs
 with the device. These are plain tensor ops, as the JAX package runs its
-optimizer in XLA, not in Pallas. ``sgd``, ``lamb``, ``lars``,
-``adafactor``, ``masked`` and ``warmup_cosine`` are not ported yet.
+optimizer in XLA, not in Pallas. ``lamb``, ``lars``, ``adafactor`` and
+``masked`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -114,6 +120,28 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     return GradientTransformation(lambda params: (), update)
 
 
+class TraceState(NamedTuple):
+    trace: Tensors
+
+
+def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
+    """optax's ``trace``: ``t = g + decay·t``; the update is ``t`` (Nesterov:
+    ``g + decay·t``). The state keeps its own tensors, so a later transform
+    may scale the returned updates in place."""
+    def init(params):
+        return TraceState([torch.zeros_like(p) for p in params])
+
+    def update(updates, state, params):
+        new_trace = torch._foreach_add(updates, state.trace, alpha=decay)
+        torch._foreach_copy_(state.trace, new_trace)
+        if nesterov:
+            torch._foreach_add_(updates, new_trace, alpha=decay)
+            return updates, state
+        return new_trace, state
+
+    return GradientTransformation(init, update)
+
+
 def scale_by_learning_rate(learning_rate: float | Schedule) -> GradientTransformation:
     """``updates * -lr``; a schedule is read at the count before the
     increment (optax's ``scale_by_schedule``)."""
@@ -130,6 +158,16 @@ def adamw(learning_rate: float | Schedule, *, b1: float = 0.9, b2: float = 0.999
           eps: float = 1e-8, weight_decay: float = 0.01) -> GradientTransformation:
     return chain(scale_by_adam(b1, b2, eps), add_decayed_weights(weight_decay),
                  scale_by_learning_rate(learning_rate))
+
+
+def sgd(learning_rate: float | Schedule, momentum: float | None = 0.9,
+        nesterov: bool = False, weight_decay: float = 0.0) -> GradientTransformation:
+    """optax ``sgd`` (momentum by ``trace``), after ``add_decayed_weights``
+    when ``weight_decay`` is set, as the JAX package chains them."""
+    txs = [add_decayed_weights(weight_decay)] if weight_decay else []
+    if momentum is not None:
+        txs.append(trace(momentum, nesterov))
+    return chain(*txs, scale_by_learning_rate(learning_rate))
 
 
 def with_grad_clip(tx: GradientTransformation, max_norm: float) -> GradientTransformation:
@@ -170,4 +208,33 @@ def warmup_linear(peak_lr: float, warmup_steps: int, total_steps: int,
     return join_schedules(
         [linear_schedule(0.0, peak_lr, warmup_steps),
          linear_schedule(peak_lr, end_lr, max(total_steps - warmup_steps, 1))],
+        [warmup_steps])
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Schedule:
+    """optax's ``cosine_decay_schedule`` (exponent 1) in f32."""
+    if not decay_steps > 0:
+        raise ValueError(f"The cosine_decay_schedule requires positive "
+                         f"decay_steps, got decay_steps={decay_steps}.")
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        c = f32(min(count, decay_steps))
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(decay_steps)))
+        return float(f32(init_value) * (f32(1 - alpha) * cosine + f32(alpha)))
+
+    return schedule
+
+
+def warmup_cosine(peak_lr: float, warmup_steps: int, total_steps: int,
+                  end_factor: float = 0.0) -> Schedule:
+    """ResNet-style warmup + cosine decay: optax's
+    ``warmup_cosine_decay_schedule(0, peak_lr, warmup_steps, total_steps,
+    peak_lr * end_factor)``."""
+    end_value = peak_lr * end_factor
+    alpha = 0.0 if peak_lr == 0.0 else end_value / peak_lr
+    return join_schedules(
+        [linear_schedule(0.0, peak_lr, warmup_steps),
+         cosine_decay_schedule(peak_lr, total_steps - warmup_steps, alpha)],
         [warmup_steps])

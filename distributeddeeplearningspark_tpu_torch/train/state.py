@@ -4,9 +4,12 @@ The port of ``distributeddeeplearningspark_tpu/train/state.py``. The JAX
 state is an immutable pytree that the jitted step replaces; here the
 params are the model's own ``nn.Parameter``s (by name, updated in place by
 the optimizer), beside the optimizer's state, the host step counter and the
-``torch.Generator`` that draws the dropout masks. Mutable collections
-(BatchNorm statistics) and row-sparse embedding state arrive with the
-models that need them.
+``torch.Generator`` that draws the dropout masks, and ``mutable``: the
+model's named buffers (BatchNorm's running ``mean``/``var``), the
+counterpart of ``state.mutable["batch_stats"]``. The forward updates them
+in place in train mode; they are never params, so the optimizer and the
+gradient norm never see them. Row-sparse embedding state arrives with the
+model that needs it.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ class TrainState:
     params: dict[str, torch.nn.Parameter]
     opt_state: Any
     generator: torch.Generator
+    mutable: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     @property
     def num_params(self) -> int:

@@ -4,7 +4,9 @@ The JAX package compiles ``(state, batch) -> (state, metrics)`` into one
 jitted SPMD program; here the same function runs eagerly: the forward in
 train mode (dropout drawn from the state's generator), ``loss.backward()``,
 the global gradient norm reported as ``grad_norm``, the optimizer's update
-applied to the params in place, ``step + 1``. It never copies to the host:
+applied to the params in place, ``step + 1``. The model's buffers
+(BatchNorm's running statistics, ``state.mutable``) are updated by the
+forward itself and are neither params nor optimizer state. It never copies to the host:
 metrics stay device tensors until the loop's log point, as the JAX loop
 fetches them only there. This is the JAX step's ``accum_steps == 1``,
 unguarded branch on one device; gradient accumulation, frozen params, the

@@ -72,12 +72,14 @@ class Trainer:
         self._eval_step = step_lib.make_eval_step(model, loss_fn)
 
     def init(self) -> TrainState:
-        """The initial state: the model's params, the optimizer's state and
-        the dropout generator seeded from ``seed``."""
+        """The initial state: the model's params, the optimizer's state,
+        the dropout generator seeded from ``seed`` and the model's buffers
+        (BatchNorm statistics)."""
         params = dict(self.model.named_parameters())
         self.state = TrainState(
             step=0, params=params, opt_state=self.tx.init(list(params.values())),
-            generator=torch.Generator(self.device).manual_seed(self.seed))
+            generator=torch.Generator(self.device).manual_seed(self.seed),
+            mutable=dict(self.model.named_buffers()))
         logger.info("initialized %s params on %s",
                     f"{self.state.num_params:,}", self.device)
         return self.state
@@ -93,8 +95,9 @@ class Trainer:
             log_every: int = 10) -> tuple[TrainState, dict[str, float]]:
         """Train until the state's step reaches ``steps`` (or the dataset is
         exhausted). Returns (final state, summary): the :class:`Meter`'s
-        summary (``step_time_ms``, ``tokens_per_sec_per_chip``, ...) and the
-        last logged metrics."""
+        summary (``step_time_ms``, ``examples_per_sec_per_chip`` — images/s
+        for a vision model —, ``tokens_per_sec_per_chip`` when
+        ``tokens_per_example`` is given, ...) and the last logged metrics."""
         if self.state is None:
             self.init()
         meter = Meter(examples_per_step=batch_size,
@@ -144,7 +147,8 @@ class Trainer:
                  ) -> dict[str, float]:
         """Weighted-mean metrics over the whole dataset, the short tail
         batch included (marked with ``eval_mask``), combined by the loss's
-        ``"weight"`` metric when it reports one, else by rows."""
+        ``"weight"`` metric when it reports one, else by rows. The model
+        runs in eval mode (BatchNorm on its running statistics)."""
         totals: dict[str, float] = {}
         wsum = 0.0
         for batch in device_batches(dataset, batch_size, self.device,

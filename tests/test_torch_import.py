@@ -52,7 +52,9 @@ print(json.dumps({{"modules": names, "loaded": sorted(sys.modules)}}))
                 "models.bert", "models.bert_io", "serve.engine",
                 "telemetry", "telemetry.trace", "utils.device", "session",
                 "rdd", "metrics", "data.text", "data.feed", "train.losses",
-                "train.optim", "train.state", "train.step", "train.trainer"}
+                "train.optim", "train.state", "train.step", "train.trainer",
+                "ops.conv_bn", "models.resnet", "models.resnet_io",
+                "data.sources", "data.vision"}
     got = {n.split(".", 1)[1] for n in rec["modules"]}
     assert expected <= got, expected - got
     bad = [m for m in rec["loaded"] if _forbidden(m)]
@@ -82,7 +84,8 @@ def test_chip_smoke_imports_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["bert_base", "for_model", "engine",
-                                   "resolve_device", "session", "trainer"])
+                                   "resolve_device", "session", "trainer",
+                                   "resnet50"])
 def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
     if torch.cuda.is_available():
         pytest.skip("the no-CUDA error needs a machine without CUDA")
@@ -95,6 +98,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
 
     calls = {
         "bert_base": lambda: bert_base(num_layers=1),
+        "resnet50": lambda: port.resnet50(),
         "for_model": lambda: InferenceEngine.for_model(
             BertForMLM(BertConfig.tiny(num_layers=1), device="cpu")),
         "engine": lambda: InferenceEngine(lambda p, b: b, {}),
