@@ -46,7 +46,29 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    batch, that the BN statistics moved and an evaluation is finite; print
    the step time, images/s, the host's ms per batch, the step's split, a
    profiled window and the peak device memory;
-8. print one JSON line of per-kernel numbers, the card's name and power
+8. hold K5 (the in-place row scatter-add) against its plain version on the
+   card, bitwise, in five cases: the DLRM step's shape (the sorted unique
+   rows of a real synthetic batch of 8,192 over the 2,600,000 × 64 f32
+   table, padded to 212,992 with drop sentinels), the same at D = 1, 700
+   unsorted int64 ids at D = 13, all ids sentinels
+   (past V and negative), and no ids; guard rows around each table show
+   that nothing was written outside it, and its ``data_ptr`` that it was
+   not copied. At the DLRM shape, time the kernel, the plain version,
+   ``index_add_`` (a yardstick the port never calls on this path) and
+   the bound;
+9. train the config-4 DLRM at full width (26 × 100,000 rows × 64 in one
+   f32 table, bottom MLP 512/256/64, top 512/256/1, bf16 MLPs, random
+   weights from a seed) for 30 steps at b=8,192 through the port's
+   ``Session`` → ``synthetic_criteo`` → ``Trainer.fit(sparse_embed=...)``
+   with ``binary_xent``, AdamW on the MLPs and row-wise AdaGrad on the
+   table through K5; check that every logged loss is finite and the last
+   below the first, that K5 ran once a step, that no optimizer tensor has
+   the table's size, and, on one more batch from one saved state, that
+   rows outside the batch do not move and that K5's step, a step whose
+   scatter is K5's plain version, and a second K5 step give the same bits;
+   print the step time, examples/s, the host's ms per batch, a profiled
+   window, the peak device memory, a held-out evaluation and its AUC;
+10. print one JSON line of per-kernel numbers, the card's name and power
    limit (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is absent, when the port's
@@ -107,6 +129,11 @@ PARITY_ATOL = 1e-4
 LOSS_DROP = 0.9
 # ResNet-50 training: steps and batch (b=256, BASELINE.json config 2's batch)
 RESNET_STEPS, RESNET_BATCH = 30, 256
+# DLRM (config 4): 26 features of 100,000 rows each, batch 8,192
+DLRM_VOCABS = (100_000,) * 26
+DLRM_STEPS, DLRM_BATCH = 30, 8192
+# H100 SXM data-sheet peak of f32 outside the tensor cores (K5's adds)
+PEAK_F32_FLOPS = 67e12
 
 
 class SmokeFailure(Exception):
@@ -501,6 +528,8 @@ def _kernel_family(name: str) -> str:
         return "flash"
     if "matmul_stats" in name:
         return "k4"
+    if "scatter_add_rows" in name:
+        return "k5"
     if any(s in name for s in ("fprop", "dgrad", "wgrad", "conv", "cudnn",
                                "implicit")):
         return "conv"
@@ -885,6 +914,296 @@ def train_resnet(torch, cb) -> dict:
     return rec
 
 
+# -- phase 8: K5 against its plain version ---------------------------------------
+
+# K5 and its plain version add one f32 update to each kept element: the
+# results must agree bitwise (max_abs_err 0)
+K5_GUARD_ROWS = 64
+
+
+def _criteo_row_ids(torch):
+    """The fused-table row ids ``[8192·26]`` (int32, on the card) of the
+    first batch the DLRM phase trains on."""
+    from distributeddeeplearningspark_tpu_torch.data.feed import host_batches
+    from distributeddeeplearningspark_tpu_torch.data.sources import synthetic_criteo
+    from distributeddeeplearningspark_tpu_torch.models.dlrm import fused_flat_ids
+
+    batch = next(host_batches(synthetic_criteo(
+        DLRM_BATCH, vocab_sizes=DLRM_VOCABS, num_partitions=4), DLRM_BATCH))
+    return fused_flat_ids(DLRM_VOCABS,
+                          torch.from_numpy(batch["sparse"]).cuda()).reshape(-1)
+
+
+def _k5_bound(kept: int, k: int, d: int, idx_bytes: int) -> tuple[float, str]:
+    """The ids read once, each kept update row read once and each kept
+    table row read and written once; one f32 add per kept element."""
+    t_bytes = (k * idx_bytes + 3 * kept * d * 4) / PEAK_BYTES_PER_S * 1e3
+    t_ops = kept * d / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _k5_case(torch, sr, name, v, d, idx, seed) -> dict:
+    """Run K5's wrapper on a [V, D] table that lies between guard rows,
+    against the plain version on a copy; bitwise."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = K5_GUARD_ROWS
+    buf = torch.randn(g + v + g, d, device="cuda", generator=gen)
+    table = buf[g:g + v]
+    upd = torch.randn(idx.numel(), d, device="cuda", generator=gen)
+    before = buf.clone()
+    want = sr.scatter_add_rows_reference(table.clone(), idx, upd)
+    ptr, launches = table.data_ptr(), sr.scatter_add_rows.launches
+    sr.scatter_add_rows(table, idx, upd)
+    torch.cuda.synchronize()
+    launched = sr.scatter_add_rows.launches - launches
+    kept = idx[(idx >= 0) & (idx < v)]
+    touched = torch.zeros(v, dtype=torch.bool, device="cuda")
+    touched[kept.long()] = True
+    moved = (table != before[g:g + v]).any(1)
+    rec = dict(case=name, v=v, d=d, k=idx.numel(), kept=kept.numel(),
+               idx_dtype=str(idx.dtype).replace("torch.", ""),
+               max_abs_err=float((table - want).abs().max()),
+               bitwise=bool(torch.equal(table, want)),
+               untouched_rows_moved=int((moved & ~touched).sum()),
+               guards_intact=bool(torch.equal(buf[:g], before[:g])
+                                  and torch.equal(buf[g + v:], before[g + v:])),
+               in_place=table.data_ptr() == ptr,
+               launched=launched)
+    rec["ok"] = (rec["bitwise"] and rec["untouched_rows_moved"] == 0
+                 and rec["guards_intact"] and rec["in_place"]
+                 and launched == (1 if idx.numel() else 0))
+    return rec, table, upd
+
+
+def check_scatter_rows(torch, sr) -> list[dict]:
+    """K5 in five cases, bitwise against its plain version; at the DLRM
+    shape the wrapper, the plain version and ``index_add_`` over the kept
+    rows are timed (the wrapper and ``index_add_`` from CUDA graphs; the
+    plain version, whose boolean mask syncs with the host, between events)."""
+    from distributeddeeplearningspark_tpu_torch.train.embed import padded_unique
+
+    v = sum(DLRM_VOCABS)
+    flat = _criteo_row_ids(torch)
+    uniq, _, counts = padded_unique(flat, v)
+    n = counts.numel()
+    rng = np.random.default_rng(0)
+    sentinels = np.concatenate([v + np.arange(256), -1 - np.arange(256)])
+    cases = [
+        ("dlrm_step", v, 64, uniq),
+        ("dlrm_step_d1", v, 1, uniq),
+        ("unsorted_int64_d13", 1000, 13,
+         torch.from_numpy(rng.permutation(1000)[:700]).cuda()),
+        ("all_sentinels", 1000, 64,
+         torch.from_numpy(rng.permutation(sentinels).astype(np.int32)).cuda()),
+        ("no_ids", 1000, 64, torch.zeros(0, dtype=torch.int32, device="cuda")),
+    ]
+    fn = sr.scatter_add_rows
+    results = []
+    for i, (name, cv, d, idx) in enumerate(cases):
+        rec, table, upd = _k5_case(torch, sr, name, cv, d, idx, seed=70 + i)
+        if name == "dlrm_step":
+            kept_idx, kept_upd = idx[:n], upd[:n]
+            bound_ms, bound_by = _k5_bound(n, idx.numel(), d, idx.element_size())
+            rec.update(
+                ms=graph_ms(torch, lambda: fn(table, idx, upd), 20),
+                plain_ms=time_ms(torch, lambda: sr.scatter_add_rows_reference(
+                    table, idx, upd), 5),
+                library_ms=graph_ms(torch, lambda: table.index_add_(
+                    0, kept_idx, kept_upd), 20),
+                bound_ms=bound_ms, bound_by=bound_by)
+            rec["ns_per_kept_row"] = rec["ms"] * 1e6 / n
+        print("K5 scatter_add_rows " + json.dumps(rec), flush=True)
+        check(rec["ok"], f"scatter_add_rows disagrees with its plain version "
+                         f"on {name}: {rec}")
+        results.append(rec)
+        del table, upd
+        torch.cuda.empty_cache()
+    return results
+
+
+# -- phase 9: training DLRM ------------------------------------------------------
+
+
+def _tensors(torch, tree) -> list:
+    """Every tensor in a tree of tuples and lists (an optimizer state)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _tensors(torch, x)]
+    return []
+
+
+def _clone_tree(torch, tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a NamedTuple
+        return type(tree)(*(_clone_tree(torch, x) for x in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(torch, x) for x in tree)
+    return tree
+
+
+def _sparse_step_bits(torch, trainer, batch) -> dict:
+    """One more step on ``batch`` from one saved state, three times: K5,
+    K5 again, and K5's plain version in its place. The table and row
+    accumulator of each, and which rows moved."""
+    import dataclasses
+
+    from distributeddeeplearningspark_tpu_torch.ops import scatter_rows as sr
+    from distributeddeeplearningspark_tpu_torch.train import embed
+
+    model, state = trainer.model, trainer.state
+    (spec,) = trainer.sparse_embed
+    table = state.params[spec.param_path]
+    accum = state.embed_state[spec.name][embed.ROW_ACCUM]
+    saved = {n: p.detach().clone() for n, p in state.params.items()}
+    saved_accum, saved_opt = accum.clone(), _clone_tree(torch, state.opt_state)
+    runs = {}
+    step = embed.make_sparse_embed_train_step(model, trainer.tx, trainer.loss_fn,
+                                              (spec,))
+    for run, scatter in (("cuda", sr.scatter_add_rows),
+                         ("cuda_again", sr.scatter_add_rows),
+                         ("plain", sr.scatter_add_rows_reference)):
+        with torch.no_grad():
+            for n, p in state.params.items():
+                p.copy_(saved[n])
+            accum.copy_(saved_accum)
+        embed.scatter_add_rows = scatter
+        try:
+            _, metrics = step(dataclasses.replace(
+                state, opt_state=_clone_tree(torch, saved_opt)), batch)
+        finally:
+            embed.scatter_add_rows = sr.scatter_add_rows
+        runs[run] = (table.detach().clone(), accum.clone(), float(metrics["loss"]))
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
+    touched[spec.ids_fn(batch).reshape(-1).long()] = True
+    t, a, _ = runs["cuda"]
+    moved = (t != saved[spec.param_path]).any(1)
+    acc_moved = a != saved_accum
+    same = lambda x, y: bool(torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]))  # noqa: E731
+    rec = dict(batch_rows=int(touched.sum()), rows_moved=int(moved.sum()),
+               rows_moved_outside_batch=int((moved & ~touched).sum()),
+               accum_moved_outside_batch=int((acc_moved & ~touched).sum()),
+               cuda_equals_plain=same(runs["cuda"], runs["plain"]),
+               cuda_deterministic=same(runs["cuda"], runs["cuda_again"]),
+               losses={k: r[2] for k, r in runs.items()})
+    del runs, saved, saved_opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_dlrm(torch, sr) -> dict:
+    """The config-4 DLRM at full width through the port's Session →
+    synthetic_criteo → Trainer.fit(sparse_embed=...) with binary_xent,
+    AdamW(1e-3, no weight decay) on the MLPs (examples/train_dlrm.py) and
+    row-wise AdaGrad (lr 1e-2, the JAX bench's) on the table through K5.
+    4 batches of examples, seen 7.5 times, so the loss falls."""
+    import gc
+    import os
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch import telemetry
+    from distributeddeeplearningspark_tpu_torch.data import sources
+    from distributeddeeplearningspark_tpu_torch.data.feed import device_batches
+    from distributeddeeplearningspark_tpu_torch.metrics import StreamingAUC
+    from distributeddeeplearningspark_tpu_torch.models import dlrm
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    steps, batch_size, log_every = DLRM_STEPS, DLRM_BATCH, 5
+    workdir = ROOT / "build" / "chip_smoke_dlrm"
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    spark = Session.builder.master("local[1]").appName("dlrm").getOrCreate()
+    ds = sources.synthetic_criteo(4 * batch_size, vocab_sizes=DLRM_VOCABS,
+                                  num_partitions=4).repeat()
+    model = dlrm.dlrm(DLRM_VOCABS, device="cuda", seed=0)
+    table = model.embedding.embedding_table
+    check(tuple(table.shape) == (2_600_000, 64) and table.dtype == torch.float32
+          and [model.bottom_mlp.dense_0.in_features]
+          + [getattr(model.bottom_mlp, f"dense_{i}").out_features for i in range(3)]
+          == [13, 512, 256, 64]
+          and [getattr(model.top_mlp, f"dense_{i}").out_features for i in range(3)]
+          == [512, 256, 1] and model.dtype == torch.bfloat16,
+          "dlrm is not the config-4 DLRM at full width")
+    specs = dlrm.sparse_embed_specs(model, lr=1e-2)
+    trainer = Trainer(spark, model, losses.binary_xent,
+                      optim.adamw(1e-3, weight_decay=0.0), sparse_embed=specs)
+    setup_s = time.perf_counter() - t0
+    os.environ[telemetry.WORKDIR_ENV] = str(workdir)
+    gc.collect()  # what earlier phases left, so that the peak is this one's
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sr.scatter_add_rows.launches = 0  # the main path's run starts here
+    t_fit = time.perf_counter()
+    try:
+        state, summary = trainer.fit(ds, batch_size=batch_size, steps=steps,
+                                     log_every=log_every)
+    finally:
+        os.environ.pop(telemetry.WORKDIR_ENV, None)
+        telemetry.reset()
+    fit_s = time.perf_counter() - t_fit
+    launches = sr.scatter_add_rows.launches
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    records = [json.loads(line) for f in sorted(
+        (workdir / telemetry.TELEMETRY_DIRNAME).glob("events-*.jsonl"))
+        for line in f.read_text().splitlines()]
+    logged = [(r["step"], r["metrics"]["loss"]) for r in records
+              if r["kind"] == "step_metrics"]
+    opt_tensors = _tensors(torch, state.opt_state)
+    table_sized = [tuple(t.shape) for t in opt_tensors if t.numel() >= table.numel()]
+    host_batch_ms = _host_batch_ms(ds, batch_size, 3)
+    profile = _profile_fit(torch, trainer, ds, batch_size, {})
+    batch = next(device_batches(ds, batch_size, trainer.device))
+    bits = _sparse_step_bits(torch, trainer, batch)
+    eval_src = sources.synthetic_criteo(8 * batch_size, vocab_sizes=DLRM_VOCABS,
+                                        seed=777)
+    evaluation = trainer.evaluate(eval_src, batch_size=batch_size)
+    auc = StreamingAUC()
+    model.eval()
+    with torch.inference_mode():
+        for b in device_batches(eval_src, batch_size, trainer.device,
+                                drop_remainder=False):
+            auc.update(torch.sigmoid(model(b)).cpu().numpy(), b["label"].cpu().numpy())
+    spark.stop()
+    step_ms = summary.get("step_time_ms")
+    rec = dict(steps=steps, batch_size=batch_size, table_rows=table.shape[0],
+               embed_dim=table.shape[1], logged_losses=logged,
+               loss_ratio_last_first=logged[-1][1] / logged[0][1] if logged else None,
+               step_time_ms=step_ms,
+               examples_per_sec_per_chip=summary.get("examples_per_sec_per_chip"),
+               k5_launches=launches, k5_launches_per_step=launches / steps,
+               optimizer_tensors=len(opt_tensors),
+               optimizer_bytes=sum(t.numel() * t.element_size() for t in opt_tensors),
+               table_sized_optimizer_tensors=table_sized,
+               max_memory_allocated=peak_bytes, fit_s=fit_s, setup_s=setup_s,
+               host_batch_ms=host_batch_ms, profile=profile,
+               extra_step=bits, evaluation=evaluation, eval_examples=8 * batch_size,
+               eval_auc=auc.compute())
+    print("train dlrm " + json.dumps(rec), flush=True)
+    check(len(logged) == steps // log_every,
+          f"{len(logged)} step_metrics records for {steps} steps")
+    check(all(np.isfinite(loss) for _, loss in logged),
+          f"non-finite logged loss: {logged}")
+    check(logged[-1][1] < logged[0][1], f"loss did not fall: {logged}")
+    check(launches == steps * len(specs),
+          f"K5 launched {launches} times in {steps} steps, want one per step")
+    check(not table_sized, f"optimizer tensors of table size: {table_sized}")
+    check(bits["rows_moved"] > 0 and bits["rows_moved_outside_batch"] == 0
+          and bits["accum_moved_outside_batch"] == 0,
+          f"the sparse step moved rows outside its batch: {bits}")
+    check(bits["cuda_equals_plain"],
+          "K5's step and the plain scatter's step give different tables")
+    check(bits["cuda_deterministic"], "two K5 steps give different tables")
+    check(all(np.isfinite(v) for v in evaluation.values())
+          and {"loss", "accuracy"} <= set(evaluation),
+          f"evaluation not finite: {evaluation}")
+    return rec
+
+
 # -- phase 5: serving BERT-base -----------------------------------------------
 
 
@@ -1033,6 +1352,7 @@ def main() -> int:
     from distributeddeeplearningspark_tpu_torch.ops import _build
     from distributeddeeplearningspark_tpu_torch.ops import conv_bn as cb
     from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearningspark_tpu_torch.ops import scatter_rows as sr
     from distributeddeeplearningspark_tpu_torch.serve import engine as engine_mod
 
     kind = torch.cuda.get_device_name(0)
@@ -1055,6 +1375,8 @@ def main() -> int:
         serve = serve_bert(torch, fa, bert, engine_mod)
         k4 = check_conv_bn(torch, cb)
         resnet = train_resnet(torch, cb)
+        k5 = check_scatter_rows(torch, sr)
+        dlrm_rec = train_dlrm(torch, sr)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1099,6 +1421,17 @@ def main() -> int:
         "bound_ms": mean("bound_ms"),
         "bound_by": "bytes" if mean("bytes_ms") >= mean("ops_ms") else "operations",
         "library_ms": mean("library_ms"),
+    })
+    k5_step = k5[0]  # the DLRM step's shape
+    kernels.append({
+        "name": "scatter_add_rows", "route": "cuda",
+        "source": f"{PKG}/csrc/scatter_rows.cu",
+        "replaces": "distributeddeeplearningspark_tpu/ops/scatter_rows.py:39",
+        "launches": dlrm_rec["k5_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in k5),
+        "ms": k5_step["ms"], "plain_ms": k5_step["plain_ms"],
+        "bound_ms": k5_step["bound_ms"], "bound_by": k5_step["bound_by"],
+        "library_ms": k5_step["library_ms"],
     })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -34,6 +34,16 @@ as ``examples/train_resnet.py`` drives the JAX package on synthetic data:
                    weight_decay=1e-4)
     state, summary = Trainer(spark, resnet50(), losses.softmax_xent, tx).fit(
         ds, batch_size=256, steps=20)
+
+and trains the config-4 DLRM with its fused table updated row-sparsely by
+row-wise AdaGrad, the table scatter on the row scatter-add kernel (K5):
+
+    model = dlrm()                            # 26 × 100,000 rows × 64
+    specs = sparse_embed_specs(model, lr=1e-2)
+    ds = sources.synthetic_criteo(32_768, vocab_sizes=(100_000,) * 26).repeat()
+    state, summary = Trainer(spark, model, losses.binary_xent,
+                             optim.adamw(1e-3, weight_decay=0.0),
+                             sparse_embed=specs).fit(ds, batch_size=8192, steps=30)
 """
 
 import importlib
@@ -59,6 +69,12 @@ _EXPORTS = {
     "BottleneckBlock": "distributeddeeplearningspark_tpu_torch.models.resnet",
     "BasicBlock": "distributeddeeplearningspark_tpu_torch.models.resnet",
     "resnet50": "distributeddeeplearningspark_tpu_torch.models.resnet",
+    "DLRM": "distributeddeeplearningspark_tpu_torch.models.dlrm",
+    "WideAndDeep": "distributeddeeplearningspark_tpu_torch.models.dlrm",
+    "dlrm": "distributeddeeplearningspark_tpu_torch.models.dlrm",
+    "sparse_embed_specs": "distributeddeeplearningspark_tpu_torch.models.dlrm",
+    "SparseEmbedSpec": "distributeddeeplearningspark_tpu_torch.train.embed",
+    "StreamingAUC": "distributeddeeplearningspark_tpu_torch.metrics",
     "Session": "distributeddeeplearningspark_tpu_torch.session",
     "Trainer": "distributeddeeplearningspark_tpu_torch.train.trainer",
     "TrainState": "distributeddeeplearningspark_tpu_torch.train.state",
@@ -69,6 +85,13 @@ if TYPE_CHECKING:  # static analyzers see the real names
         BertConfig,
         BertForMLM,
         bert_base,
+    )
+    from distributeddeeplearningspark_tpu_torch.metrics import StreamingAUC
+    from distributeddeeplearningspark_tpu_torch.models.dlrm import (
+        DLRM,
+        WideAndDeep,
+        dlrm,
+        sparse_embed_specs,
     )
     from distributeddeeplearningspark_tpu_torch.models.resnet import (
         BasicBlock,
@@ -87,6 +110,7 @@ if TYPE_CHECKING:  # static analyzers see the real names
     )
     from distributeddeeplearningspark_tpu_torch.serve.engine import InferenceEngine
     from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train.embed import SparseEmbedSpec
     from distributeddeeplearningspark_tpu_torch.train.state import TrainState
     from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
 

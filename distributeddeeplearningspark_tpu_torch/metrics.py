@@ -1,18 +1,22 @@
-"""Step timing and throughput, and the per-step log line.
+"""Step timing and throughput, the per-step log line, and ROC AUC.
 
-The port's copy of ``Meter`` and ``MetricLogger`` from
-``distributeddeeplearningspark_tpu/metrics.py``, without the JAX device
-queries: the chip count is the caller's (the Session's device count), and
-model FLOPs/MFU, TensorBoard and recovery events are not ported yet.
+The port's copy of ``Meter``, ``MetricLogger``, ``StreamingAUC`` and
+``auc_from_predictions`` from ``distributeddeeplearningspark_tpu/
+metrics.py``, without the JAX device queries: the chip count is the
+caller's (the Session's device count), and model FLOPs/MFU, TensorBoard
+and recovery events are not ported yet.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import math
 import time
 from typing import Any
+
+import numpy as np
 
 logger = logging.getLogger("distributeddeeplearningspark_tpu_torch.metrics")
 
@@ -99,3 +103,75 @@ class MetricLogger:
         """Emit unconditionally — cadence is the caller's decision."""
         logger.info("step %d: %s", step,
                     json.dumps({k: _log_value(v) for k, v in metrics.items()}))
+
+
+class StreamingAUC:
+    """Histogram-binned ROC AUC over a prediction stream (config 4's
+    metric: accuracy is degenerate at Criteo's click rate). Scores, clipped
+    to [0, 1], fall into ``num_bins`` bins per class; the binned ROC is
+    integrated exactly, with an error of O(1/bins). Feed sigmoid
+    probabilities batch by batch; ``compute()`` at the end."""
+
+    def __init__(self, num_bins: int = 4096):
+        self.num_bins = num_bins
+        self._pos = np.zeros(num_bins, np.int64)
+        self._neg = np.zeros(num_bins, np.int64)
+
+    def update(self, scores, labels) -> None:
+        s = np.clip(np.asarray(scores, np.float64).reshape(-1), 0.0, 1.0)
+        y = np.asarray(labels).reshape(-1)
+        if s.shape != y.shape:
+            raise ValueError(f"scores {s.shape} vs labels {y.shape}")
+        bins = np.minimum((s * self.num_bins).astype(np.int64),
+                          self.num_bins - 1)
+        self._pos += np.bincount(bins[y > 0], minlength=self.num_bins)
+        self._neg += np.bincount(bins[y <= 0], minlength=self.num_bins)
+
+    def compute(self) -> float:
+        """AUC = P(score⁺ > score⁻) + ½·P(tie), from the class histograms;
+        NaN without both classes."""
+        npos, nneg = self._pos.sum(), self._neg.sum()
+        if npos == 0 or nneg == 0:
+            return float("nan")
+        # for each positive bin: negatives strictly below + half of ties
+        neg_below = np.concatenate(([0], np.cumsum(self._neg)[:-1]))
+        wins = float((self._pos * neg_below).sum())
+        ties = 0.5 * float((self._pos * self._neg).sum())
+        return (wins + ties) / (float(npos) * float(nneg))
+
+
+def auc_from_predictions(predictions, *, num_bins: int = 4096,
+                         label_key: str = "label", max_examples: int | None = None,
+                         chunk: int = 8192) -> float:
+    """AUC over a stream of ``(example_dict, score)`` pairs (the label read
+    from ``example_dict[label_key]``) or ``(score, label)`` pairs, fed to
+    :class:`StreamingAUC` in chunks of ``chunk`` rows; ``max_examples``
+    stops consuming the stream early."""
+    auc = StreamingAUC(num_bins)
+    scores: list = []
+    labels: list = []
+    buffered_rows = 0
+
+    def flush():
+        nonlocal buffered_rows
+        if scores:
+            auc.update(np.concatenate(scores), np.concatenate(labels))
+            scores.clear()
+            labels.clear()
+            buffered_rows = 0
+
+    stream = (predictions if max_examples is None
+              else itertools.islice(predictions, max_examples))
+    for a, b_ in stream:
+        if isinstance(a, dict):
+            score, label = b_, a[label_key]
+        else:
+            score, label = a, b_
+        s = np.asarray(score, np.float64).reshape(-1)
+        scores.append(s)
+        labels.append(np.asarray(label).reshape(-1))
+        buffered_rows += s.size
+        if buffered_rows >= chunk:
+            flush()
+    flush()
+    return auc.compute()

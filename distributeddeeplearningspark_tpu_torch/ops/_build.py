@@ -1,10 +1,10 @@
 """Build the port's CUDA kernels from the package's sources, at first use.
 
 Each ``csrc/<name>.cu`` (``flash_fwd``: K1; ``flash_bwd``: K2 and K3;
-``conv_bn``: K4) is
-compiled by its own ``nvcc`` for Hopper (``sm_90a``) into a shared library
-with a plain C interface, ``build/kernels/lib<name>-<hash>.so`` under the
-checkout's root, and loaded with :mod:`ctypes`. The hash covers the source
+``conv_bn``: K4; ``scatter_rows``: K5) is compiled by its own ``nvcc`` for
+Hopper (``sm_90a``) into a shared library with a plain C interface,
+``build/kernels/lib<name>-<hash>.so`` under the checkout's root, and loaded
+with :mod:`ctypes`. The hash covers the source
 and the flags, so an edited source builds anew and an unchanged one is
 loaded as it is. ``nvcc -Xptxas -v`` reports each kernel's registers,
 shared memory and spills into a ``.log`` beside the library.
@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 #: every source of the port's kernels
-SOURCES = ("flash_fwd", "flash_bwd", "conv_bn")
+SOURCES = ("flash_fwd", "flash_bwd", "conv_bn", "scatter_rows")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 NVCC_FLAGS = (

@@ -1,11 +1,12 @@
-"""Loss functions — the port of ``train/losses.py`` for BERT and ResNet.
+"""Loss functions — the port of ``train/losses.py`` for BERT, ResNet and
+DLRM.
 
 Each takes (model outputs, batch dict) and returns (scalar loss, metrics
 dict). A loss whose denominator is not the example count reports a
 ``"weight"`` metric, which :meth:`..trainer.Trainer.evaluate` uses to
 combine per-batch means exactly across unequal batches; the train loop
-drops it from its logs. The other losses of the JAX package (CTR, causal
-LM) arrive with the slices that train those models.
+drops it from its logs. The causal-LM losses of the JAX package arrive
+with the slice that trains Llama.
 """
 
 from __future__ import annotations
@@ -64,3 +65,24 @@ def masked_lm(logits: torch.Tensor, batch: dict[str, Any]
     loss = (per_tok * weights).sum() / denom
     acc = ((logits.argmax(-1) == labels) * weights).sum() / denom
     return loss, {"loss": loss, "mlm_accuracy": acc, "weight": denom}
+
+
+def binary_xent(logits: torch.Tensor, batch: dict[str, Any]
+                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """CTR prediction (Wide&Deep/DLRM on Criteo): optax's sigmoid binary
+    cross-entropy, mean over rows, and accuracy (``logit > 0`` against
+    ``label > 0.5``). A padded eval batch's ``eval_mask`` weighs its rows,
+    as in :func:`softmax_xent`."""
+    labels = batch["label"].float()
+    logits = logits.float().reshape(labels.shape)
+    per_ex = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
+    hit = ((logits > 0) == (labels > 0.5)).float()
+    em = batch.get("eval_mask")
+    if em is None:
+        loss = per_ex.mean()
+        return loss, {"loss": loss, "accuracy": hit.mean()}
+    w = em.float()
+    denom = w.sum().clamp(min=1.0)
+    loss = (per_ex * w).sum() / denom
+    return loss, {"loss": loss, "accuracy": (hit * w).sum() / denom,
+                  "weight": denom}

@@ -8,8 +8,9 @@ the optimizer), beside the optimizer's state, the host step counter and the
 model's named buffers (BatchNorm's running ``mean``/``var``), the
 counterpart of ``state.mutable["batch_stats"]``. The forward updates them
 in place in train mode; they are never params, so the optimizer and the
-gradient norm never see them. Row-sparse embedding state arrives with the
-model that needs it.
+gradient norm never see them. ``embed_state`` is the row-sparse embedding
+state of :mod:`.embed`, ``{spec name: {"row_accum": [V] f32}}``, updated
+in place by the sparse step; empty when no table trains sparsely.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ class TrainState:
     opt_state: Any
     generator: torch.Generator
     mutable: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    embed_state: dict[str, dict[str, torch.Tensor]] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def num_params(self) -> int:

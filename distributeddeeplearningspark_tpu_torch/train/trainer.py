@@ -9,10 +9,15 @@ logs, writes a ``step_metrics`` record (when ``DLS_TELEMETRY_DIR`` names a
 workdir) and raises on a non-finite metric, as the JAX loop's default
 ``on_nonfinite="raise"`` does.
 
+``sparse_embed`` specs (:mod:`.embed`) train their tables row-sparsely:
+the step gathers the batch's rows outside autograd and applies row-wise
+AdaGrad to them, and the optimizer state is built over the other params
+only, so no moment of table size exists.
+
 One device. Not ported yet: checkpoints and resume, ``accum_steps``,
 ``trainable``, ``on_nonfinite="skip"|"rollback"``, sharding plans and
-rules, sparse embeddings, eval during fit, callbacks, profiling, sanitize
-and TensorBoard, ``predict``.
+rules, eval during fit, callbacks, profiling, sanitize and TensorBoard,
+``predict``.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from __future__ import annotations
 import logging
 import math
 import os
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
@@ -29,6 +34,7 @@ from distributeddeeplearningspark_tpu_torch.data.feed import device_batches
 from distributeddeeplearningspark_tpu_torch.metrics import Meter, MetricLogger
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 from distributeddeeplearningspark_tpu_torch.session import Session
+from distributeddeeplearningspark_tpu_torch.train import embed as embed_lib
 from distributeddeeplearningspark_tpu_torch.train import step as step_lib
 from distributeddeeplearningspark_tpu_torch.train.optim import GradientTransformation
 from distributeddeeplearningspark_tpu_torch.train.state import TrainState
@@ -51,11 +57,15 @@ class Trainer:
     ``model(batch, generator=g)`` returns the outputs consumed by
     ``loss_fn(outputs, batch) → (loss, metrics)``; its params must lie on
     the session's device. ``seed`` seeds the generator the dropout masks
-    are drawn from (the weights come from the model's own seed)."""
+    are drawn from (the weights come from the model's own seed).
+    ``sparse_embed``: :class:`~.embed.SparseEmbedSpec` s of the tables that
+    train row-sparsely (``models.dlrm.sparse_embed_specs``); the model then
+    takes ``overrides`` in train mode."""
 
     def __init__(self, session: Session | None, model: torch.nn.Module,
                  loss_fn: Callable, optimizer: GradientTransformation, *,
-                 seed: int = 0):
+                 seed: int = 0,
+                 sparse_embed: Sequence[embed_lib.SparseEmbedSpec] = ()):
         self.session = session or Session.get_or_default()
         self.device = self.session.device
         wrong = {str(p.device) for p in model.parameters()
@@ -68,18 +78,32 @@ class Trainer:
         self.tx = optimizer
         self.seed = seed
         self.state: TrainState | None = None
-        self._train_step = step_lib.make_train_step(model, optimizer, loss_fn)
+        self.sparse_embed = tuple(sparse_embed)
+        names = dict(model.named_parameters())
+        missing = [s.param_path for s in self.sparse_embed if s.param_path not in names]
+        if missing:
+            raise ValueError(f"sparse_embed tables {missing} are not params of "
+                             f"the model")
+        if self.sparse_embed:
+            self._train_step = embed_lib.make_sparse_embed_train_step(
+                model, optimizer, loss_fn, self.sparse_embed)
+        else:
+            self._train_step = step_lib.make_train_step(model, optimizer, loss_fn)
         self._eval_step = step_lib.make_eval_step(model, loss_fn)
 
     def init(self) -> TrainState:
-        """The initial state: the model's params, the optimizer's state,
-        the dropout generator seeded from ``seed`` and the model's buffers
-        (BatchNorm statistics)."""
+        """The initial state: the model's params, the optimizer's state
+        (over the params that are not sparse tables), the dropout generator
+        seeded from ``seed``, the model's buffers (BatchNorm statistics) and
+        the sparse tables' zero row accumulators."""
         params = dict(self.model.named_parameters())
+        dense = embed_lib.dense_trainable(self.sparse_embed)
         self.state = TrainState(
-            step=0, params=params, opt_state=self.tx.init(list(params.values())),
+            step=0, params=params,
+            opt_state=self.tx.init([p for n, p in params.items() if dense(n)]),
             generator=torch.Generator(self.device).manual_seed(self.seed),
-            mutable=dict(self.model.named_buffers()))
+            mutable=dict(self.model.named_buffers()),
+            embed_state=embed_lib.init_embed_state(self.sparse_embed, params))
         logger.info("initialized %s params on %s",
                     f"{self.state.num_params:,}", self.device)
         return self.state

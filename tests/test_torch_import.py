@@ -54,7 +54,8 @@ print(json.dumps({{"modules": names, "loaded": sorted(sys.modules)}}))
                 "rdd", "metrics", "data.text", "data.feed", "train.losses",
                 "train.optim", "train.state", "train.step", "train.trainer",
                 "ops.conv_bn", "models.resnet", "models.resnet_io",
-                "data.sources", "data.vision"}
+                "data.sources", "data.vision", "ops.scatter_rows",
+                "models.dlrm", "models.dlrm_io", "train.embed"}
     got = {n.split(".", 1)[1] for n in rec["modules"]}
     assert expected <= got, expected - got
     bad = [m for m in rec["loaded"] if _forbidden(m)]
@@ -85,7 +86,7 @@ def test_chip_smoke_imports_no_jax():
 
 @pytest.mark.parametrize("entry", ["bert_base", "for_model", "engine",
                                    "resolve_device", "session", "trainer",
-                                   "resnet50"])
+                                   "resnet50", "dlrm"])
 def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
     if torch.cuda.is_available():
         pytest.skip("the no-CUDA error needs a machine without CUDA")
@@ -99,6 +100,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
     calls = {
         "bert_base": lambda: bert_base(num_layers=1),
         "resnet50": lambda: port.resnet50(),
+        "dlrm": lambda: port.dlrm(vocab_sizes=(10,) * 26),
         "for_model": lambda: InferenceEngine.for_model(
             BertForMLM(BertConfig.tiny(num_layers=1), device="cpu")),
         "engine": lambda: InferenceEngine(lambda p, b: b, {}),
