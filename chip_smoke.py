@@ -9,7 +9,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    ``nvcc`` per source, started together, ``sm_90a``) and print the
    compiler's register/spill report;
 2. hold K1 (flash forward) against its plain PyTorch version on the card
-   in four bf16 cases, at the stated tolerance, and time the kernel, the
+   in eight bf16 cases (the served and the training shape, causal GQA at
+   D = 128, segments with padding, a fully masked row, S = 320 at D = 64
+   and at D = 128 causal GQA, and whole key tiles skipped by padding and
+   by segments), at the stated tolerance, and time the kernel, the
    plain version, one PyTorch library call computing the same function (a
    yardstick the port never calls) and the card's bound for the same work;
 3. the same for K2 (dQ) and K3 (dK, dV) against the plain backward, in the
@@ -230,9 +233,10 @@ def _attn_case(torch, name, *, b, s, h, hkv, d, causal, lengths=None,
     return case
 
 
-def _allowed_pairs(torch, case) -> int:
-    """(q row, key) pairs the case's masks allow, summed over batch; the
-    work that this run's data needs."""
+def _attn_work(torch, case) -> tuple[int, int]:
+    """The (q row, key) pairs the case's masks allow, and the keys that some
+    q row may attend, each summed over batch: the products and the K/V rows
+    that this run's data needs."""
     b, s = case["q"].shape[:2]
     allowed = torch.ones(b, s, s, dtype=torch.bool, device="cuda")
     if case["causal"]:
@@ -241,32 +245,43 @@ def _allowed_pairs(torch, case) -> int:
         allowed &= (case["kv_mask"] != 0)[:, None, :]
     if case["segs"] is not None:
         allowed &= case["segs"][:, :, None] == case["segs"][:, None, :]
-    return int(allowed.sum())
+    return int(allowed.sum()), int(allowed.any(dim=1).sum())
 
 
 def _bound(torch, case) -> tuple[float, str]:
+    """The card's least time for the forward: q, the masks and the K/V rows
+    of keys that some q row may attend read once, o and LSE written once,
+    and the two products over the allowed pairs."""
     q, k = case["q"], case["k"]
     b, s, h, d = q.shape
-    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + b * h * s * 4
+    pairs, keys = _attn_work(torch, case)
+    nbytes = 2 * q.numel() * 2 + 2 * keys * k.shape[2] * d * 2 + b * h * s * 4
     for t in (case["kv_mask"], case["segs"]):
         if t is not None:
             nbytes += t.numel() * 4 * (2 if t is case["segs"] else 1)
-    flops = 4 * d * h * _allowed_pairs(torch, case)
+    flops = 4 * d * h * pairs
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _library_call(torch, case):
+def _every_key_allowed(case) -> bool:
+    """A key mask of all ones and no segments: the function is then also one
+    SDPA call without a mask, which may take a faster backend."""
+    return (case["kv_mask"] is not None and case["segs"] is None
+            and bool((case["kv_mask"] != 0).all()))
+
+
+def _library_call(torch, case, masked: bool = True):
     """``fn(q, k, v)``: one ``scaled_dot_product_attention`` call over BSHD
     inputs (BHSD views), with the case's masks as a boolean attend-mask
-    made once."""
+    made once (none when ``masked`` is false)."""
     import torch.nn.functional as F
 
     mask = None
-    if case["kv_mask"] is not None:
+    if masked and case["kv_mask"] is not None:
         mask = (case["kv_mask"] != 0)[:, None, None, :]
-    if case["segs"] is not None:
+    if masked and case["segs"] is not None:
         same = (case["segs"][:, None, :, None] == case["segs"][:, None, None, :])
         mask = same if mask is None else mask & same
     gqa = case["q"].shape[2] != case["k"].shape[2]
@@ -289,6 +304,21 @@ def check_flash_fwd(torch, fa) -> list[dict]:
                                [0, 64], [0, 10, 20], [0, 255], [0, 128]]),
         _attn_case(torch, "fully_masked_row", b=4, s=512, h=12, hkv=12, d=64,
                    causal=False, seed=4, lengths=[512, 300, 0, 77]),
+        # where BERT training's 360 launches run: every key allowed
+        _attn_case(torch, "bert_train_b32", b=32, s=512, h=12, hkv=12, d=64,
+                   causal=False, seed=5, lengths=[512] * 32),
+        # S not a multiple of the 128-row tile: the last tile's rows past S
+        # must read as zeros, not as the next sequence's rows
+        _attn_case(torch, "ragged_s320", b=4, s=320, h=12, hkv=12, d=64,
+                   causal=False, seed=6),
+        _attn_case(torch, "ragged_s320_causal_gqa_d128", b=4, s=320, h=8,
+                   hkv=2, d=128, causal=True, seed=7),
+        # whole key tiles that no q row may attend: padding past the first
+        # 128 keys, and documents whose segment ranges miss a q tile's
+        _attn_case(torch, "skip_tiles", b=4, s=1024, h=12, hkv=12, d=64,
+                   causal=False, seed=8, lengths=[128, 1024, 1024, 700],
+                   doc_starts=[[0], [0, 256, 512, 768], [0, 384],
+                               [0, 128, 640]]),
     ]
     results = []
     for c in cases:
@@ -322,7 +352,12 @@ def check_flash_fwd(torch, fa) -> list[dict]:
                    plain_ms=graph_ms(torch, plain, 3),
                    library_ms=graph_ms(torch, lambda: sdpa(c["q"], c["k"], c["v"]),
                                        20),
+                   library_unmasked_ms=None,
                    bound_ms=bound_ms, bound_by=bound_by)
+        if _every_key_allowed(c):
+            unmasked = _library_call(torch, c, masked=False)
+            rec["library_unmasked_ms"] = graph_ms(
+                torch, lambda: unmasked(c["q"], c["k"], c["v"]), 20)
         print("K1 flash_fwd " + json.dumps(rec), flush=True)
         check(ok, f"flash_fwd disagrees with its plain version on {c['name']}")
         results.append(rec)
@@ -336,25 +371,26 @@ def check_flash_fwd(torch, fa) -> list[dict]:
 
 def _bwd_bound(torch, case, products: int, outputs) -> tuple[float, str]:
     """The card's least time for ``products`` [S, S]x[S, D] products per
-    head over the allowed pairs, reading q, k, v, dO, LSE and delta once
-    and writing ``outputs`` once."""
+    head over the allowed pairs, reading q, dO, LSE, delta and the K/V rows
+    of keys that some q row may attend once and writing ``outputs`` once."""
     q, k = case["q"], case["k"]
     b, s, h, d = q.shape
-    nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * b * h * s * 4
+    pairs, keys = _attn_work(torch, case)
+    nbytes = (2 * q.numel() + 2 * keys * k.shape[2] * d) * 2 + 2 * b * h * s * 4
     nbytes += sum(t.numel() * t.element_size() for t in outputs)
     for t in (case["kv_mask"], case["segs"]):
         if t is not None:
             nbytes += t.numel() * 4 * (2 if t is case["segs"] else 1)
-    flops = products * 2 * d * h * _allowed_pairs(torch, case)
+    flops = products * 2 * d * h * pairs
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _library_bwd_ms(torch, case, do) -> float:
+def _library_bwd_ms(torch, case, do, masked: bool = True) -> float:
     """SDPA's backward as a yardstick the port never calls: a CUDA-graph
     replay of its forward and backward minus one of its forward alone."""
-    sdpa = _library_call(torch, case)
+    sdpa = _library_call(torch, case, masked)
     # the output gradient in SDPA's own (BHSD) layout, made once outside the
     # timed calls, as K2/K3 are handed theirs in BSHD
     do_bhsd = do.transpose(1, 2).contiguous()
@@ -429,6 +465,8 @@ def check_flash_bwd(torch, fa) -> list[dict]:
                    dkv_ms=graph_ms(torch, k3, 20),
                    plain_ms=graph_ms(torch, plain, 3),
                    library_ms=_library_bwd_ms(torch, c, do),
+                   library_unmasked_ms=(_library_bwd_ms(torch, c, do, False)
+                                        if _every_key_allowed(c) else None),
                    dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
                    dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
                    pair_bound_ms=pair_bound[0], pair_bound_by=pair_bound[1])
@@ -1368,6 +1406,9 @@ def main() -> int:
                 if any(s in line for s in ("Function properties", "registers",
                                            "spill")):
                     print(f"  {name}: {line.strip()}")
+        print(f"flash_fwd built against CUDA runtime "
+              f"{_build.load('flash_fwd').dls_flash_fwd_cuda_version()}",
+              flush=True)
 
         k1 = check_flash_fwd(torch, fa)
         k23 = check_flash_bwd(torch, fa)
@@ -1403,7 +1444,10 @@ def main() -> int:
             "max_abs_err": max(c[g] for c in k23 for g in grads),
             "ms": bwd[f"{key}_ms"], "plain_ms": bwd["plain_ms"],
             "bound_ms": bwd[f"{key}_bound_ms"], "bound_by": bwd[f"{key}_bound_by"],
-            "library_ms": bwd["library_ms"],
+            # the faster SDPA call for the same function: without a mask
+            # where every key is allowed
+            "library_ms": min(bwd["library_ms"],
+                              bwd["library_unmasked_ms"] or bwd["library_ms"]),
         })
     # K4's numbers per launch, averaged over the 27 launches of a train step
     # at the main path's shapes

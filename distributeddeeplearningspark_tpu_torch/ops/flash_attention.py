@@ -25,8 +25,9 @@ design and the bound). Here:
 Semantics held from the TPU kernel: masked logits take the finite value
 ``-1e30`` and p is exactly 0 under the mask; a fully masked row emits
 ``O = 0`` and ``LSE = -1e30`` (the XLA path instead averages v over such a
-row); P is rounded to v's dtype before PV; causal attention skips key tiles
-above the diagonal; the key mask and segment ids are indexed by batch; GQA
+row); P is rounded to v's dtype before PV; the forward kernel skips key
+tiles that the causal rule, the key mask or the segment ids rule out for a
+whole q tile; the key mask and segment ids are indexed by batch; GQA
 q head ``h`` reads kv head ``h // (H // Hkv)`` without repeating K/V. The
 Mosaic layout rules (``STAT_LANES``, the lane-major mask, the (8, 128)
 block checks) are TPU artifacts and are not carried over: LSE is a plain

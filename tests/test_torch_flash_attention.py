@@ -48,6 +48,11 @@ def _t(x):
 def _cases():
     padded_segs = _seg_ids(2, 128, [[0, 30], [0, 77]])
     padded_segs[:, 100:] = -1
+    # ids that are not sorted: q tile 0 (id 7) shares no id with key tile 1
+    # (id 3), and every id with key tile 2 (id 7)
+    unsorted = np.full((2, 384), 7, np.int32)
+    unsorted[:, 128:256] = 3
+    unsorted[1, 300:] = 1
     return {
         "none": (dict(), dict()),
         "causal": (dict(), dict(causal=True)),
@@ -69,6 +74,27 @@ def _cases():
             segment_ids=_seg_ids(2, 128, [[0, 50], [0]]))),
         "ragged_lengths_fully_masked_row": (dict(b=3, s=64, h=2, d=16, seed=4),
                                             dict(mask=_pad_mask(3, 64, [64, 17, 0]))),
+        # the edges of the CUDA kernel's tiling (128-row q tiles, 128-key
+        # tiles skipped when no key is allowed, the per-element test only in
+        # partly masked and causal diagonal tiles), at sizes the JAX block
+        # rule admits with 64-blocks. S not a multiple of 128: the last
+        # tile's rows past S
+        "ragged_s320": (dict(b=2, s=320, h=2, d=32, seed=21), dict()),
+        "ragged_s320_causal_padding": (dict(b=2, s=320, h=2, d=32, seed=22),
+                                       dict(causal=True,
+                                            mask=_pad_mask(2, 320, [300, 77]))),
+        # every key past the first 128 (or 5) is padding: whole key tiles empty
+        "padding_empties_key_tiles": (dict(b=3, s=384, h=2, d=32, seed=23),
+                                      dict(mask=_pad_mask(3, 384, [128, 5, 384]))),
+        # documents on tile boundaries: tile id ranges that do not overlap
+        "segments_disjoint_tile_ranges": (
+            dict(b=2, s=384, h=2, d=32, seed=24),
+            dict(segment_ids=_seg_ids(2, 384, [[0, 128, 256], [0, 256]]))),
+        "segments_unsorted_ids": (dict(b=2, s=384, h=2, d=32, seed=25),
+                                  dict(segment_ids=unsorted)),
+        "causal_padding_gqa_d128": (dict(b=2, s=256, h=4, hkv=2, d=128, seed=26),
+                                    dict(causal=True,
+                                         mask=_pad_mask(2, 256, [256, 140]))),
     }
 
 
@@ -92,7 +118,12 @@ def test_flash_matches_jax_pallas(name):
 
 @pytest.mark.parametrize("name", ["none", "causal", "mask_bs", "gqa_mask_causal",
                                   "segments_mask",
-                                  "ragged_lengths_fully_masked_row"])
+                                  "ragged_lengths_fully_masked_row",
+                                  "ragged_s320", "ragged_s320_causal_padding",
+                                  "padding_empties_key_tiles",
+                                  "segments_disjoint_tile_ranges",
+                                  "segments_unsorted_ids",
+                                  "causal_padding_gqa_d128"])
 def test_flash_fwd_lse_matches_jax(name):
     """o and LSE of the wrapper (CPU → the plain version) against the JAX
     ``_flash_fwd`` in interpret mode, fully masked rows included."""
