@@ -15,8 +15,15 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    by segments), at the stated tolerance, and time the kernel, the
    plain version, one PyTorch library call computing the same function (a
    yardstick the port never calls) and the card's bound for the same work;
-3. the same for K2 (dQ) and K3 (dK, dV) against the plain backward, in the
-   four K1 cases and the training shape (b=32, S=512, every key allowed);
+3. the same for K2 (dQ) and K3 (dK, dV) against the plain backward, in
+   nine cases (the training shape, b=32, S=512, every key allowed; the
+   served batch; causal GQA at D = 128; segments with padding; a fully
+   masked row; S = 320 at D = 64 and at D = 128 causal GQA; whole tiles
+   skipped; S = 322 with padding), each run twice for equal bits, timing
+   ``_delta`` and the whole ``flash_bwd`` beside the two kernels; then the
+   gates: "auto" picks the plain path for f32 and for head dims the
+   kernels are not built for, an f32 ``Conv1x1BN`` trains unfused, and the
+   wrappers raise on such inputs;
 4. train BERT-base MLM at full width (12 layers, hidden 768, vocab 30522,
    S=512, dropout 0.1, random weights from a seed) for 30 steps at b=32
    through the port's ``Session`` → ``synthetic_wikipedia`` →
@@ -423,6 +430,21 @@ def check_flash_bwd(torch, fa) -> list[dict]:
                                [0, 64], [0, 10, 20], [0, 255], [0, 128]]),
         _attn_case(torch, "fully_masked_row", b=4, s=512, h=12, hkv=12, d=64,
                    causal=False, seed=4, lengths=[512, 300, 0, 77]),
+        # K1's tile edges: the last q and key tiles' rows past S (read as
+        # zeros, not as the next sequence), at D = 64 and at D = 128 causal
+        # GQA, and whole tiles skipped by padding and by segments
+        _attn_case(torch, "ragged_s320", b=4, s=320, h=12, hkv=12, d=64,
+                   causal=False, seed=6),
+        _attn_case(torch, "ragged_s320_causal_gqa_d128", b=4, s=320, h=8,
+                   hkv=2, d=128, causal=True, seed=7),
+        _attn_case(torch, "skip_tiles", b=4, s=1024, h=12, hkv=12, d=64,
+                   causal=False, seed=8, lengths=[128, 1024, 1024, 700],
+                   doc_starts=[[0], [0, 256, 512, 768], [0, 384],
+                               [0, 128, 640]]),
+        # S not a multiple of 4: no [B*H, S] f32 row of LSE or delta past
+        # the first is 16-byte aligned
+        _attn_case(torch, "ragged_s322_padding", b=4, s=322, h=12, hkv=12,
+                   d=64, causal=False, seed=9, lengths=[322, 200, 1, 130]),
     ]
     results = []
     for c in cases:
@@ -452,8 +474,15 @@ def check_flash_bwd(torch, fa) -> list[dict]:
                                      delta, **kw)
         k3 = lambda: fa.flash_bwd_dkv(c["q"], c["k"], c["v"], do, lse,  # noqa: E731
                                       delta, **kw)
+        # no atomics: two runs on the same inputs give the same bits
+        again = (k2(), *k3())
+        deterministic = all(bool(torch.equal(a, b))
+                            for a, b in zip(grads, again))
+        ok = ok and deterministic
         plain = lambda: fa.flash_attention_backward_reference(  # noqa: E731
             c["q"], c["k"], c["v"], o, lse, do, **kw)
+        whole = lambda: fa.flash_bwd(c["q"], c["k"], c["v"], o, lse, do,  # noqa: E731
+                                     **kw)
         dq_bound = _bwd_bound(torch, c, 3, grads[:1])
         dkv_bound = _bwd_bound(torch, c, 4, grads[1:])
         pair_bound = _bwd_bound(torch, c, 5, grads)
@@ -461,8 +490,11 @@ def check_flash_bwd(torch, fa) -> list[dict]:
                    kv_heads=c["k"].shape[2], **errs,
                    tolerance=f"|g-ref| <= {GRAD_TOL}*max|ref| + "
                              f"{GRAD_TOL}*|ref|", ok=ok,
+                   deterministic=deterministic,
                    dq_ms=graph_ms(torch, k2, 20),
                    dkv_ms=graph_ms(torch, k3, 20),
+                   delta_ms=graph_ms(torch, lambda: fa._delta(o, do), 20),
+                   flash_bwd_ms=graph_ms(torch, whole, 20),
                    plain_ms=graph_ms(torch, plain, 3),
                    library_ms=_library_bwd_ms(torch, c, do),
                    library_unmasked_ms=(_library_bwd_ms(torch, c, do, False)
@@ -473,9 +505,53 @@ def check_flash_bwd(torch, fa) -> list[dict]:
         print("K2/K3 flash_bwd " + json.dumps(rec), flush=True)
         check(ok, f"flash_bwd disagrees with its plain version on {c['name']}")
         results.append(rec)
-        del o, lse, grads, refs, do, delta
+        del o, lse, grads, refs, do, delta, again
         torch.cuda.empty_cache()
     return results
+
+
+def check_gates(torch, fa, attention, cb) -> None:
+    """The dispatch sends the kernels only what they take: "auto" picks the
+    plain path for f32 and for head dims the kernels are not built for, an
+    f32 ``Conv1x1BN`` trains through the unfused chain; the wrappers still
+    raise on such inputs (a gate, not a fallback)."""
+    mk = lambda d, dtype: torch.zeros(1, 512, 2, d, device="cuda",  # noqa: E731
+                                      dtype=dtype)
+    picks = {f"{str(dt).split('.')[-1]}_d{d}": attention._pick_impl(
+        mk(d, dt), mk(d, dt), None, None)
+        for dt, d in ((torch.bfloat16, 64), (torch.bfloat16, 128),
+                      (torch.float32, 64), (torch.bfloat16, 32),
+                      (torch.bfloat16, 96), (torch.bfloat16, 256))}
+    check(picks == {"bfloat16_d64": "flash", "bfloat16_d128": "flash",
+                    "float32_d64": "xla", "bfloat16_d32": "xla",
+                    "bfloat16_d96": "xla", "bfloat16_d256": "xla"},
+          f"attention gate picks {picks}")
+    raised = []
+    for d, dtype, exc in ((64, torch.float32, TypeError),
+                          (32, torch.bfloat16, ValueError)):
+        try:
+            fa.flash_fwd(mk(d, dtype), mk(d, dtype), mk(d, dtype), scale=1.0)
+        except exc:
+            raised.append(f"flash_fwd {dtype} d={d}")
+    x32 = torch.zeros(512, 64, device="cuda")
+    try:
+        cb.matmul_stats(x32, torch.zeros(64, 64, device="cuda"))
+    except TypeError:
+        raised.append("matmul_stats float32")
+    check(len(raised) == 3, f"wrappers raised only for {raised}")
+    mod = cb.Conv1x1BN(64, 64, dtype=torch.float32, device="cuda")
+    torch.nn.init.normal_(mod.kernel, std=0.1)
+    mod.train()
+    x = torch.randn(4, 64, 8, 8, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    before = cb.matmul_stats.launches
+    out = mod(x)
+    torch.cuda.synchronize()
+    check(cb.matmul_stats.launches == before and bool(torch.isfinite(out).all())
+          and out.dtype == torch.float32,
+          "an f32 Conv1x1BN must train through the unfused chain")
+    print("gates " + json.dumps(dict(picks=picks, wrappers_raised=raised,
+                                     conv1x1bn_f32_unfused=True)), flush=True)
 
 
 # -- phase 4: training BERT-base -----------------------------------------------
@@ -1388,6 +1464,7 @@ def main() -> int:
         return 2
     from distributeddeeplearningspark_tpu_torch.models import bert
     from distributeddeeplearningspark_tpu_torch.ops import _build
+    from distributeddeeplearningspark_tpu_torch.ops import attention
     from distributeddeeplearningspark_tpu_torch.ops import conv_bn as cb
     from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
     from distributeddeeplearningspark_tpu_torch.ops import scatter_rows as sr
@@ -1412,6 +1489,7 @@ def main() -> int:
 
         k1 = check_flash_fwd(torch, fa)
         k23 = check_flash_bwd(torch, fa)
+        check_gates(torch, fa, attention, cb)
         train = train_bert(torch, fa)
         serve = serve_bert(torch, fa, bert, engine_mod)
         k4 = check_conv_bn(torch, cb)

@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` (``flash_fwd``: K1; ``flash_bwd``: K2 and K3;
 ``conv_bn``: K4; ``scatter_rows``: K5) is compiled by its own ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface,
 ``build/kernels/lib<name>-<hash>.so`` under the checkout's root, and loaded
-with :mod:`ctypes`. The hash covers the source
-and the flags, so an edited source builds anew and an unchanged one is
-loaded as it is. ``nvcc -Xptxas -v`` reports each kernel's registers,
+with :mod:`ctypes`. The sources share the Hopper helpers of
+``csrc/sm90.cuh`` (mbarriers, TMA, ``wgmma``, the tensor-map encoder). The
+hash covers the source, every ``csrc/*.cuh`` header and the flags, so an
+edited source or header builds anew and an unchanged one is loaded as it
+is. ``nvcc -Xptxas -v`` reports each kernel's registers,
 shared memory and spills into a ``.log`` beside the library.
 :func:`build_all` starts one ``nvcc`` per source together.
 
@@ -56,9 +58,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -12,7 +12,10 @@ call :func:`dot_product_attention`; ``impl`` picks the implementation:
 - ``"auto"`` — flash when the tensors are on CUDA and the shape qualifies
   (no bias, key-only mask, seq a multiple of 512, head dim a multiple of
   8, whole GQA groups), else xla — the JAX rule with "on TPU" read as
-  "on CUDA".
+  "on CUDA". One deliberate difference: the CUDA kernels take bf16 and
+  head dims in ``KERNEL_HEAD_DIMS`` only (the Pallas kernel takes q's
+  dtype and any such head dim), so "auto" picks xla for other inputs
+  instead of sending the kernel a call it refuses.
 
 All take and return ``[batch, seq, heads, head_dim]`` (BSHD) and are
 differentiable. Ring and Ulysses context parallelism are not ported yet.
@@ -90,10 +93,13 @@ def _flash_min_seq() -> int:
 def _pick_impl(q, k, bias, mask) -> str:
     # the flash kernel needs CUDA, a block-divisible seq, a head dim that is
     # a multiple of 8, a key-only mask (if any), whole GQA groups, and a
-    # sequence long enough (FLASH_MIN_SEQ)
+    # sequence long enough (FLASH_MIN_SEQ); and, unlike the Pallas kernel,
+    # bf16 and a head dim it is built for
     if q.device.type != "cuda":
         return "xla"
     b, s, h, d = q.shape
+    if q.dtype != torch.bfloat16 or d not in fa.KERNEL_HEAD_DIMS:
+        return "xla"
     if bias is not None:
         return "xla"
     if mask is not None and not _key_only_mask(mask, s):

@@ -48,8 +48,9 @@ def _resolve_blocks(m, k, n, block_m, block_n, block_k):
 def can_fuse(m: int, k: int, n: int,
              block_m: int = 512, block_n: int = 512, block_k: int = 512) -> bool:
     """True when :func:`matmul_stats` accepts this shape: M a multiple of 8
-    and M, K, N divisible by ``min(512, dim)``. The one gate
-    :class:`Conv1x1BN` uses, as in the JAX package."""
+    and M, K, N divisible by ``min(512, dim)``. The shape gate
+    :class:`Conv1x1BN` uses, as in the JAX package (on the card it also
+    needs bf16, see ``Conv1x1BN._fuses``)."""
     if m % 8:
         return False
     try:
@@ -176,7 +177,8 @@ class Conv1x1BN(nn.Module):
     Takes and returns ``[B, C, H, W]`` channels-last tensors. Params
     ``kernel`` ``[Cout, Cin, 1, 1]`` (f32, OIHW), ``scale`` and ``bias``
     (f32); buffers ``mean`` and ``var`` (the running statistics). In train
-    mode, ``fused`` and :func:`can_fuse` send the conv through K4, whose
+    mode, ``fused`` and :func:`can_fuse` (and, on the card, a bf16
+    ``dtype``) send the conv through K4, whose
     epilogue gives the batch statistics; otherwise the unfused chain (the
     matmul, then the statistics of its ``dtype`` output). The running
     statistics move as ``0.9·old + 0.1·batch`` with the biased variance.
@@ -199,6 +201,15 @@ class Conv1x1BN(nn.Module):
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
 
+    def _fuses(self, x: torch.Tensor, m: int, cin: int, cout: int) -> bool:
+        """The JAX gate (``fused`` and :func:`can_fuse`), and off the CPU
+        also bf16: K4 takes nothing else, so an f32 module on the card
+        takes the unfused chain. On the CPU the plain version fuses any
+        dtype, as the JAX module does."""
+        if not (self.fused and can_fuse(m, cin, cout)):
+            return False
+        return x.device.type == "cpu" or self.dtype == torch.bfloat16
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, cin, h, w_ = x.shape
         cout = self.kernel.shape[0]
@@ -206,7 +217,7 @@ class Conv1x1BN(nn.Module):
         xf = channels_last_rows(x).to(self.dtype)
         w2d = self.kernel.to(self.dtype).view(cout, cin).t().contiguous()
         if self.training:
-            if self.fused and can_fuse(m, cin, cout):
+            if self._fuses(x, m, cin, cout):
                 y, s1, s2 = fused_matmul_stats(xf, w2d)
                 mean = s1 / m
                 # E[y²] − E[y]² (the one-pass form), clipped at 0

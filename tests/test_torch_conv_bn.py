@@ -240,3 +240,28 @@ def test_conv1x1bn_takes_the_kernel_path_only_where_the_gate_admits(monkeypatch)
     mod.fused = False
     mod(x)
     assert calls == [(32, 16, 8)]
+
+
+@pytest.mark.parametrize("dtype,fuses", [(torch.bfloat16, True),
+                                         (torch.float32, False)])
+def test_conv1x1bn_off_the_cpu_fuses_only_bf16(dtype, fuses, monkeypatch):
+    """Off the CPU (here the meta device standing in for the card) an f32
+    module takes the unfused chain, since K4 takes bf16 only; a bf16 one
+    takes the kernel path. On the CPU both fuse (the tests above)."""
+    calls = []
+
+    def fused(x, w):
+        assert fuses, "an f32 module must not reach K4's path off the CPU"
+        calls.append(x.dtype)
+        m, n = x.shape[0], w.shape[1]
+        return (torch.empty(m, n, dtype=x.dtype, device=x.device),
+                torch.empty(n, device=x.device), torch.empty(n, device=x.device))
+
+    monkeypatch.setattr(tconv, "fused_matmul_stats", fused)
+    mod = tconv.Conv1x1BN(16, 8, dtype=dtype, device="meta")
+    x = torch.empty(2, 16, 4, 4, device="meta").contiguous(
+        memory_format=torch.channels_last)
+    mod.train()
+    out = mod(x)
+    assert out.shape == (2, 8, 4, 4) and out.dtype == dtype
+    assert calls == ([dtype] if fuses else [])

@@ -264,8 +264,9 @@ def test_dot_product_attention_gqa_segments_matches_jax(impl):
 class _CudaLike:
     """A stand-in for a CUDA tensor: only the attributes _pick_impl reads."""
 
-    def __init__(self, shape):
+    def __init__(self, shape, dtype=torch.bfloat16):
         self.shape = shape
+        self.dtype = dtype
         self.device = torch.device("cuda")
 
 
@@ -303,6 +304,48 @@ def test_pick_impl_matches_jax_rule(name, min_seq, monkeypatch):
     assert jattn._pick_impl(jnp.zeros(qs), jnp.zeros(ks), jbias, jmask) == "xla"
     assert tattn._pick_impl(torch.zeros(1).expand(qs),
                             torch.zeros(1).expand(ks), tbias, tmask) == "xla"
+
+
+# inputs the JAX rule sends to its Pallas kernel (which takes q's dtype and
+# any head dim that is a multiple of 8) but the CUDA kernels refuse (bf16,
+# head dim in KERNEL_HEAD_DIMS): here the port deliberately picks xla
+REFUSED_CASES = {
+    "f32_bert": ((2, 512, 12, 64), (2, 512, 12, 64), torch.float32),
+    "f32_gqa_d128": ((1, 1024, 8, 128), (1, 1024, 2, 128), torch.float32),
+    "bf16_d32": ((2, 512, 24, 32), (2, 512, 24, 32), torch.bfloat16),
+    "bf16_d96": ((2, 512, 8, 96), (2, 512, 8, 96), torch.bfloat16),
+    "bf16_d256": ((2, 512, 4, 256), (2, 512, 4, 256), torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED_CASES))
+def test_pick_impl_declines_what_the_cuda_kernel_refuses(name, monkeypatch):
+    """A deliberate difference from the JAX rule: "auto" must not hand the
+    CUDA kernel a dtype or head dim whose call it would refuse."""
+    qs, ks, dtype = REFUSED_CASES[name]
+    mask_s = (qs[0], 1, 1, qs[1])
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    assert jattn._pick_impl(jnp.zeros(qs, jdt), jnp.zeros(ks, jdt), None,
+                            jnp.ones(mask_s, bool)) == "flash"
+    assert tattn._pick_impl(_CudaLike(qs, dtype), _CudaLike(ks, dtype), None,
+                            torch.ones(mask_s, dtype=torch.bool)) == "xla"
+    # the same shape in bf16 at a kernel head dim takes the kernel
+    d_ok = qs[-1] if qs[-1] in tfa.KERNEL_HEAD_DIMS else 64
+    assert tattn._pick_impl(_CudaLike(qs[:-1] + (d_ok,)),
+                            _CudaLike(ks[:-1] + (d_ok,)), None, None) == "flash"
+
+
+@pytest.mark.parametrize("dtype,d,exc", [(torch.float32, 64, TypeError),
+                                         (torch.float16, 128, TypeError),
+                                         (torch.bfloat16, 32, ValueError),
+                                         (torch.bfloat16, 96, ValueError)])
+def test_kernel_operand_check_refuses_what_the_gate_declines(dtype, d, exc):
+    """The wrappers keep raising on what their kernels refuse: the gate
+    decides, the wrapper never falls back."""
+    q = torch.zeros(1, 128, 2, d, dtype=dtype)
+    with pytest.raises(exc):
+        tfa._check_cuda_operands(q, q, q, (None, None, None))
 
 
 def test_padding_mask_matches_jax():
@@ -370,7 +413,13 @@ def test_flash_grads_match_jax_pallas(name):
 
 @pytest.mark.parametrize("name", ["none", "causal", "mask_bs", "gqa_mask_causal",
                                   "segments_mask", "gqa_segments",
-                                  "ragged_lengths_fully_masked_row"])
+                                  "ragged_lengths_fully_masked_row",
+                                  # the edges of K2's and K3's tiling
+                                  "ragged_s320", "ragged_s320_causal_padding",
+                                  "padding_empties_key_tiles",
+                                  "segments_disjoint_tile_ranges",
+                                  "segments_unsorted_ids",
+                                  "causal_padding_gqa_d128"])
 def test_backward_reference_matches_jax_flash_bwd(name):
     """flash_attention_backward_reference (K2/K3's plain version) against
     the JAX ``_flash_bwd`` in interpret mode on the same o, LSE and dO; the
