@@ -22,8 +22,9 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    skipped; S = 322 with padding), each run twice for equal bits, timing
    ``_delta`` and the whole ``flash_bwd`` beside the two kernels; then the
    gates: "auto" picks the plain path for f32 and for head dims the
-   kernels are not built for, an f32 ``Conv1x1BN`` trains unfused, and the
-   wrappers raise on such inputs;
+   kernels are not built for, an f32 ``Conv1x1BN`` and a bf16 one with
+   widths off a multiple of 8 train unfused, and the wrappers raise on such
+   inputs;
 4. train BERT-base MLM at full width (12 layers, hidden 768, vocab 30522,
    S=512, dropout 0.1, random weights from a seed) for 30 steps at b=32
    through the port's ``Session`` → ``synthetic_wikipedia`` →
@@ -42,9 +43,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    percentiles and requests/s;
 6. hold K4 (the 1×1-conv matmul with BN statistics) against its plain
    version on the card in bf16 at the ten shapes of ResNet-50's fused
-   layers at b=256 and three small, ragged ones, at the stated tolerances,
-   and time the kernel, the plain version, the library yardstick
-   (``torch.mm`` then ``torch.var_mean``) and the bound;
+   layers at b=256 and five small, ragged ones, at the stated tolerances,
+   each launched twice for equal bits, and time the kernel, the plain
+   version, the library yardstick (``torch.mm`` then ``torch.var_mean``)
+   and the bound;
 7. train ResNet-50 at full width (stages 3/4/6/3, width 64, 1000 classes,
    224², bf16 activations, ``fused_conv_bn=True``, random weights from a
    seed) for 30 steps at b=256 through the port's ``Session`` →
@@ -513,8 +515,9 @@ def check_flash_bwd(torch, fa) -> list[dict]:
 def check_gates(torch, fa, attention, cb) -> None:
     """The dispatch sends the kernels only what they take: "auto" picks the
     plain path for f32 and for head dims the kernels are not built for, an
-    f32 ``Conv1x1BN`` trains through the unfused chain; the wrappers still
-    raise on such inputs (a gate, not a fallback)."""
+    f32 ``Conv1x1BN`` and a bf16 one whose widths are not multiples of 8
+    (K4's 16-byte rule) train through the unfused chain; the wrappers
+    still raise on such inputs (a gate, not a fallback)."""
     mk = lambda d, dtype: torch.zeros(1, 512, 2, d, device="cuda",  # noqa: E731
                                       dtype=dtype)
     picks = {f"{str(dt).split('.')[-1]}_d{d}": attention._pick_impl(
@@ -538,20 +541,33 @@ def check_gates(torch, fa, attention, cb) -> None:
         cb.matmul_stats(x32, torch.zeros(64, 64, device="cuda"))
     except TypeError:
         raised.append("matmul_stats float32")
-    check(len(raised) == 3, f"wrappers raised only for {raised}")
-    mod = cb.Conv1x1BN(64, 64, dtype=torch.float32, device="cuda")
-    torch.nn.init.normal_(mod.kernel, std=0.1)
-    mod.train()
-    x = torch.randn(4, 64, 8, 8, device="cuda").contiguous(
-        memory_format=torch.channels_last)
-    before = cb.matmul_stats.launches
-    out = mod(x)
-    torch.cuda.synchronize()
-    check(cb.matmul_stats.launches == before and bool(torch.isfinite(out).all())
-          and out.dtype == torch.float32,
-          "an f32 Conv1x1BN must train through the unfused chain")
+    try:  # K and N off a multiple of 8: TMA's 16-byte rows
+        cb.matmul_stats(torch.zeros(48, 13, device="cuda", dtype=torch.bfloat16),
+                        torch.zeros(13, 24, device="cuda", dtype=torch.bfloat16))
+    except ValueError:
+        raised.append("matmul_stats (48, 13, 24)")
+    check(len(raised) == 4, f"wrappers raised only for {raised}")
+    unfused = {}
+    for cin, cout, dtype in ((64, 64, torch.float32), (13, 24, torch.bfloat16)):
+        mod = cb.Conv1x1BN(cin, cout, dtype=dtype, device="cuda")
+        torch.nn.init.normal_(mod.kernel, std=0.1)
+        mod.train()
+        x = torch.randn(4, cin, 8, 8, device="cuda").contiguous(
+            memory_format=torch.channels_last)
+        before = cb.matmul_stats.launches
+        out = mod(x)
+        out.float().sum().backward()
+        torch.cuda.synchronize()
+        name = f"{str(dtype).split('.')[-1]}_{cin}x{cout}"
+        unfused[name] = (cb.matmul_stats.launches == before
+                         and bool(torch.isfinite(out.float()).all())
+                         and out.dtype == dtype
+                         and bool(torch.isfinite(mod.kernel.grad).all()))
+    check(all(unfused.values()),
+          f"Conv1x1BN must train through the unfused chain where K4 declines: "
+          f"{unfused}")
     print("gates " + json.dumps(dict(picks=picks, wrappers_raised=raised,
-                                     conv1x1bn_f32_unfused=True)), flush=True)
+                                     conv1x1bn_unfused=unfused)), flush=True)
 
 
 # -- phase 4: training BERT-base -----------------------------------------------
@@ -790,23 +806,28 @@ def train_bert(torch, fa) -> dict:
 
 # (M, K, N) of the Conv1x1BN calls that the K4 gate admits in one fused
 # ResNet-50 forward at b=256, 224², and how many of the 27 launches of a
-# train step each shape takes; then small and ragged shapes the gate admits
-# (K, N not multiples of 8 take the element-wise load path)
+# train step each shape takes; then small and ragged shapes the card's gate
+# admits: partial row tiles (M = 48, 392 against 128 rows), partial column
+# tiles at both tile widths (N = 16, 24, 136 at 64; 72 at 128), the K tail
+# (K = 40 against 64-deep slices), and W streamed through the ring at the
+# 64-wide tile (K = 1024, N = 40)
 K4_MAIN_SHAPES = {
     (802816, 64, 64): 1, (802816, 64, 256): 3, (802816, 256, 64): 2,
     (802816, 256, 128): 1, (200704, 128, 512): 4, (200704, 512, 128): 3,
     (200704, 512, 256): 1, (50176, 256, 1024): 6, (50176, 1024, 256): 5,
     (50176, 1024, 512): 1,
 }
-K4_EXTRA_SHAPES = [(1024, 40, 72), (256, 16, 16), (48, 13, 24)]
+K4_EXTRA_SHAPES = [(1024, 40, 72), (256, 16, 16), (48, 16, 24), (392, 64, 136),
+                   (256, 1024, 40)]
 # Y: both round one f32 dot product to bf16, the sums taken in another
 # order, so Y may sit one bf16 step (at most 2^-7 of |y|) from the plain
 # version's y32.to(bf16), plus the f32 order residue near y = 0
 K4_Y_RTOL, K4_Y_ATOL = 2 ** -7, 1e-4
-# s1, s2: f32 sums over up to 802,816 rows in another order (128-row tiles
-# in the kernel, then torch's sum over the tiles); held to each column's
-# sum of |y32| (of y32²): a wrong or missing 128-row tile moves a column by
-# about 1/6272 of it, ten times this
+# s1, s2: f32 sums over up to 802,816 rows in another order (running sums
+# over each block's row tiles in the kernel, then torch's sum over the
+# blocks' partial rows); held to each column's sum of |y32| (of y32²): a
+# wrong or missing 128-row tile moves a column by about 1/6272 of it, ten
+# times this
 K4_STATS_RTOL = 2e-5
 
 
@@ -820,12 +841,13 @@ def _k4_bound(m: int, k: int, n: int) -> tuple[float, str, float, float]:
 
 
 def check_conv_bn(torch, cb) -> list[dict]:
-    """K4 at the main path's ten shapes and three small ones, bf16: the
-    kernel's (y, s1, s2) against its plain version on the same inputs; the
-    wrapper (kernel + the reduce over row tiles), the plain version and the
-    library yardstick (``torch.mm`` into bf16, then ``torch.var_mean``'s
-    one f32-accumulated pass over Y: two calls the port never makes) timed
-    from CUDA graphs."""
+    """K4 at the main path's ten shapes and five small ones, bf16: the
+    kernel's (y, s1, s2) against its plain version on the same inputs, and
+    a second launch bit for bit against the first (no atomics); the
+    wrapper (kernel + the reduce over the blocks' partial rows), the plain
+    version and the library yardstick (``torch.mm`` into bf16, then
+    ``torch.var_mean``'s one f32-accumulated pass over Y: two calls the
+    port never makes) timed from CUDA graphs."""
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32 mm
     torch.backends.cudnn.allow_tf32 = False
     results = []
@@ -835,7 +857,10 @@ def check_conv_bn(torch, cb) -> list[dict]:
         w = (torch.randn(k, n, device="cuda", generator=gen) * k ** -0.5
              ).to(torch.bfloat16)
         y, s1, s2 = cb.matmul_stats(x, w)
+        again = cb.matmul_stats(x, w)
         torch.cuda.synchronize()
+        bitwise = all(bool(torch.equal(a, b)) for a, b in zip((y, s1, s2), again))
+        del again
         y32 = x.float() @ w.float()
         y_ref, s1_ref, s2_ref = cb.matmul_stats_reference(x, w)
         y_err = (y.float() - y_ref.float()).abs()
@@ -853,7 +878,7 @@ def check_conv_bn(torch, cb) -> list[dict]:
                    s2_max_rel_err=float(((s2 - s2_ref).abs() / s2_tol).max()) * K4_STATS_RTOL,
                    tolerance=f"|y-ref| <= {K4_Y_RTOL}*|y32| + {K4_Y_ATOL}*max|y32|; "
                              f"|s-ref| <= {K4_STATS_RTOL}*sum|y32| (sum y32^2)",
-                   ok=ok)
+                   ok=ok, bitwise_repeat=bitwise)
         del y, s1, s2, y32, y_ref, s1_ref, s2_ref, y_err, y_tol
         torch.cuda.empty_cache()
         big = m * n >= 50176 * 512
@@ -866,6 +891,7 @@ def check_conv_bn(torch, cb) -> list[dict]:
             bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms)
         print("K4 matmul_stats " + json.dumps(rec), flush=True)
         check(ok, f"matmul_stats disagrees with its plain version at {(m, k, n)}")
+        check(bitwise, f"two matmul_stats launches differ at {(m, k, n)}")
         results.append(rec)
         del x, w
         torch.cuda.empty_cache()

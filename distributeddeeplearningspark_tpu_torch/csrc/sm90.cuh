@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
+// Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // mbarriers, TMA copies, wgmma descriptors and issue helpers, warp
-// reductions, and the host-side tensor-map encoder. flash_fwd.cu (K1) and
-// flash_bwd.cu (K2, K3) include it; ops/_build.py hashes it with each
-// source, so an edit here rebuilds both libraries.
+// reductions, and the host-side tensor-map encoder. flash_fwd.cu (K1),
+// flash_bwd.cu (K2, K3) and conv_bn.cu (K4) include it; ops/_build.py hashes
+// it with each source, so an edit here rebuilds every library.
 
 #pragma once
 
@@ -81,6 +81,12 @@ __device__ __forceinline__ void bulk_commit() {
 // Until the committed stores have read their shared memory.
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Until at most N of the committed store groups still read their shared
+// memory (N = 0 is bulk_wait_read).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read_upto() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
 }
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
@@ -193,6 +199,36 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
       : DLS_F8(0), DLS_F8(8), DLS_F8(16), DLS_F8(24), DLS_F8(32), DLS_F8(40),
         DLS_F8(48), DLS_F8(56)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+// d[N/2] (+)= A[64 x 16] B[16 x N], both from shared memory: A K-major, B
+// MN-major (the transpose bit), as a [K, N] matrix with N contiguous gives
+// it; N = 64 or 128 by the size of d.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t da,
+                                            uint64_t db, uint32_t accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : DLS_F8(0), DLS_F8(8), DLS_F8(16), DLS_F8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t da,
+                                            uint64_t db, uint32_t accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : DLS_F8(0), DLS_F8(8), DLS_F8(16), DLS_F8(24), DLS_F8(32),
+        DLS_F8(40), DLS_F8(48), DLS_F8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 #undef DLS_F8

@@ -10,9 +10,10 @@ the design and the bound). A stride-1 1×1 convolution is a matmul over the
 second read of Y. Here:
 
 - :func:`matmul_stats` — K4's wrapper: ``(y, s1, s2)``. It launches the
-  kernel for CUDA tensors (bf16, contiguous, every shape :func:`can_fuse`
-  admits) or raises, and takes :func:`matmul_stats_reference` for CPU
-  tensors. Its launch count is ``matmul_stats.launches``.
+  kernel for CUDA tensors (bf16, contiguous, 16-byte aligned, every shape
+  :func:`can_fuse` admits with K and N multiples of 8) or raises, and takes
+  :func:`matmul_stats_reference` for CPU tensors. Its launch count is
+  ``matmul_stats.launches``.
 - :func:`fused_matmul_stats` — the differentiable op, the counterpart of
   the JAX package's ``jax.custom_vjp`` ``matmul_stats``: K4 forward, and the
   JAX backward (``:177-189``) as torch matmuls in f32, the stats cotangents
@@ -80,31 +81,24 @@ def matmul_stats_reference(x: torch.Tensor, w: torch.Tensor):
 
 @functools.cache
 def _kernel():
-    """K4's C entry point and the row tile its scratch is sized by."""
+    """K4's C entry point and the count of partial-sum rows it writes."""
     from distributeddeeplearningspark_tpu_torch.ops import _build
 
     lib = _build.load("conv_bn")
     fn = lib.dls_matmul_stats_bf16
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.dls_matmul_stats_block_m.argtypes = []
-    lib.dls_matmul_stats_block_m.restype = ctypes.c_int
-    return fn, lib.dls_matmul_stats_block_m()
+    partials = lib.dls_matmul_stats_partials
+    partials.argtypes = [ctypes.c_int, ctypes.c_int]
+    partials.restype = ctypes.c_int
+    return fn, partials
 
 
-def matmul_stats(x: torch.Tensor, w: torch.Tensor):
-    """``y = x @ w`` with each column's ``(sum(y), sum(y²))`` in f32.
-
-    x ``[M, K]``, w ``[K, N]``; y ``[M, N]`` in x's dtype. Any shape
-    :func:`can_fuse` admits; others raise ``ValueError``. On CUDA tensors it
-    launches K4 (bf16 only) on the current stream; on CPU tensors it takes
-    :func:`matmul_stats_reference`. Not differentiable: see
-    :func:`fused_matmul_stats`."""
-    m, k, n = _check_shapes(x, w)
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return matmul_stats_reference(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"matmul_stats runs on cuda or cpu, not {x.device}")
+def _check_cuda_operands(x: torch.Tensor, w: torch.Tensor) -> None:
+    """What the kernel takes beyond :func:`can_fuse`: bf16, contiguous,
+    16-byte aligned operands on one device, and K and N multiples of 8 (TMA
+    wants every row stride a multiple of 16 bytes). Raises on anything else;
+    ``Conv1x1BN._fuses`` declines such layers first."""
     for name, t in (("x", x), ("w", w)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"matmul_stats kernel takes bf16 {name}, got {t.dtype}")
@@ -112,20 +106,46 @@ def matmul_stats(x: torch.Tensor, w: torch.Tensor):
             raise ValueError(f"matmul_stats kernel takes a contiguous {name}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    fn, block_m = _kernel()
-    tiles = -(-m // block_m)
-    y = torch.empty(m, n, dtype=x.dtype, device=x.device)
-    ps1 = torch.empty(tiles, n, dtype=torch.float32, device=x.device)
-    ps2 = torch.empty_like(ps1)
+        if t.data_ptr() % 16:
+            raise ValueError(f"matmul_stats kernel takes a 16-byte aligned {name}")
+    k, n = w.shape
+    if k % 8 or n % 8:
+        raise ValueError(f"matmul_stats kernel takes K and N multiples of 8, "
+                         f"got K={k}, N={n}")
+
+
+def matmul_stats(x: torch.Tensor, w: torch.Tensor):
+    """``y = x @ w`` with each column's ``(sum(y), sum(y²))`` in f32.
+
+    x ``[M, K]``, w ``[K, N]``; y ``[M, N]`` in x's dtype. Any shape
+    :func:`can_fuse` admits; others raise ``ValueError``. On CUDA tensors it
+    launches K4 on the current stream (bf16, K and N multiples of 8:
+    :func:`_check_cuda_operands`); on CPU tensors it takes
+    :func:`matmul_stats_reference`. Not differentiable: see
+    :func:`fused_matmul_stats`."""
+    m, k, n = _check_shapes(x, w)
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return matmul_stats_reference(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"matmul_stats runs on cuda or cpu, not {x.device}")
+    _check_cuda_operands(x, w)
+    fn, partials = _kernel()
     with torch.cuda.device(x.device):
+        rows = partials(m, n)
+        if rows <= 0:
+            raise RuntimeError("matmul_stats: no partial-row count for this device")
+        y = torch.empty(m, n, dtype=x.dtype, device=x.device)
+        # the partial rows of sum(y) and of sum(y²), one tensor
+        ps = torch.empty(2, rows, n, dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), ps1.data_ptr(),
-                 ps2.data_ptr(), m, k, n, tiles, stream)
+        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), ps[0].data_ptr(),
+                 ps[1].data_ptr(), m, k, n, rows, stream)
     if err:
         raise RuntimeError(f"matmul_stats kernel launch failed: CUDA error {err}")
     matmul_stats.launches += 1
-    # one reduce over the row tiles' partials, as the JAX package's XLA sum
-    return y, ps1.sum(0), ps2.sum(0)
+    # one reduce over the blocks' partial rows, as the JAX package's XLA sum
+    s1, s2 = ps.sum(1)
+    return y, s1, s2
 
 
 matmul_stats.launches = 0
@@ -178,9 +198,9 @@ class Conv1x1BN(nn.Module):
     ``kernel`` ``[Cout, Cin, 1, 1]`` (f32, OIHW), ``scale`` and ``bias``
     (f32); buffers ``mean`` and ``var`` (the running statistics). In train
     mode, ``fused`` and :func:`can_fuse` (and, on the card, a bf16
-    ``dtype``) send the conv through K4, whose
-    epilogue gives the batch statistics; otherwise the unfused chain (the
-    matmul, then the statistics of its ``dtype`` output). The running
+    ``dtype`` and widths that are multiples of 8) send the conv through K4,
+    whose epilogue gives the batch statistics; otherwise the unfused chain
+    (the matmul, then the statistics of its ``dtype`` output). The running
     statistics move as ``0.9·old + 0.1·batch`` with the biased variance.
     Eval mode takes the chain and the running statistics. The
     normalisation is the JAX module's own: ``g = scale·rstd``,
@@ -203,12 +223,14 @@ class Conv1x1BN(nn.Module):
 
     def _fuses(self, x: torch.Tensor, m: int, cin: int, cout: int) -> bool:
         """The JAX gate (``fused`` and :func:`can_fuse`), and off the CPU
-        also bf16: K4 takes nothing else, so an f32 module on the card
-        takes the unfused chain. On the CPU the plain version fuses any
-        dtype, as the JAX module does."""
+        also bf16 with ``cin`` and ``cout`` multiples of 8: K4 takes nothing
+        else, so such a module on the card takes the unfused chain. On the
+        CPU the plain version fuses any dtype and width, as the JAX module
+        does."""
         if not (self.fused and can_fuse(m, cin, cout)):
             return False
-        return x.device.type == "cpu" or self.dtype == torch.bfloat16
+        return x.device.type == "cpu" or (self.dtype == torch.bfloat16
+                                          and cin % 8 == 0 and cout % 8 == 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, cin, h, w_ = x.shape

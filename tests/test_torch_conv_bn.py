@@ -10,6 +10,8 @@ bf16 step (2⁻⁸ relative) where the two sums land on either side of a
 rounding boundary, and the f32 stats stay within 1e-5 of Σ|y|.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -265,3 +267,44 @@ def test_conv1x1bn_off_the_cpu_fuses_only_bf16(dtype, fuses, monkeypatch):
     out = mod(x)
     assert out.shape == (2, 8, 4, 4) and out.dtype == dtype
     assert calls == ([dtype] if fuses else [])
+
+
+@pytest.mark.parametrize("cin,cout,fuses", [(13, 24, False), (16, 12, False),
+                                            (40, 72, True)])
+def test_conv1x1bn_off_the_cpu_fuses_only_widths_of_multiples_of_8(
+        cin, cout, fuses, monkeypatch):
+    """Off the CPU (the meta device standing in for the card) a bf16 module
+    whose widths are not multiples of 8 takes the unfused chain, since K4's
+    TMA rows must be multiples of 16 bytes; on the CPU every width that
+    :func:`can_fuse` admits fuses, as in the JAX module."""
+    calls = []
+
+    def fused(x, w):
+        assert fuses, f"({cin}, {cout}) must not reach K4's path off the CPU"
+        calls.append((x.shape[1], w.shape[1]))
+        m, n = x.shape[0], w.shape[1]
+        return (torch.empty(m, n, dtype=x.dtype, device=x.device),
+                torch.empty(n, device=x.device), torch.empty(n, device=x.device))
+
+    monkeypatch.setattr(tconv, "fused_matmul_stats", fused)
+    mod = tconv.Conv1x1BN(cin, cout, device="meta")
+    x = torch.empty(2, cin, 4, 4, device="meta").contiguous(
+        memory_format=torch.channels_last)
+    mod.train()
+    out = mod(x)
+    assert out.shape == (2, cout, 4, 4) and out.dtype == torch.bfloat16
+    assert calls == ([(cin, cout)] if fuses else [])
+    assert tconv.Conv1x1BN(cin, cout)._fuses(torch.empty(0), 32, cin, cout)
+
+
+@pytest.mark.parametrize("k,n,dtype,exc", [(13, 24, torch.bfloat16, ValueError),
+                                           (16, 12, torch.bfloat16, ValueError),
+                                           (16, 24, torch.float32, TypeError),
+                                           (40, 72, torch.bfloat16, None)])
+def test_kernel_operand_check_refuses_what_k4_does_not_take(k, n, dtype, exc):
+    """The wrapper's operand check for CUDA tensors raises where the card's
+    gate declines (K or N off a multiple of 8, or not bf16) and admits the
+    rest."""
+    x, w = torch.zeros(48, k, dtype=dtype), torch.zeros(k, n, dtype=dtype)
+    with pytest.raises(exc) if exc else contextlib.nullcontext():
+        tconv._check_cuda_operands(x, w)
