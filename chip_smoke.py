@@ -80,7 +80,26 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    scatter is K5's plain version, and a second K5 step give the same bits;
    print the step time, examples/s, the host's ms per batch, a profiled
    window, the peak device memory, a held-out evaluation and its AUC;
-10. print one JSON line of per-kernel numbers, the card's name and power
+10. train LeNet-5 (BASELINE.json config 1, the main path; full width,
+   random weights from a seed) through the port's ``dlsubmit``: ``python
+   -m distributeddeeplearningspark_tpu_torch.cli --master local[1]`` runs
+   the port's ``examples/train_mnist.py`` in a subprocess, a gang of one
+   whose ``Session`` joins an NCCL group, for 150 steps at b=64 over
+   ``synthetic_mnist(4096)`` with a checkpoint every 25 steps and
+   deterministic algorithms on; check that the rank reports backend
+   ``nccl`` and device ``cuda:0``, that the gradient all-reduce ran once a
+   step, that a held-out evaluation on ``synthetic_mnist(512, seed=99)``
+   passes 0.9 accuracy, that the telemetry holds ``step_metrics`` and
+   ``checkpoint`` phase records and that every kept step's manifest
+   verifies. Then a launch with ``--resume`` restores step 150 and its
+   ``data_state`` and runs to 200; 75 steps plus a resume to 150 give the
+   same bits as the 150 straight steps; a copy of the newest step with one
+   byte flipped is quarantined and the restore walks back to the step
+   before it; and a gang of one in this process shows NCCL kernels in a
+   profiled window. LeNet runs no hand-written kernel. Print the step
+   time, examples/s, the host's ms per batch, busy and all-reduce ms per
+   step, and checkpoint save and restore ms;
+11. print one JSON line of per-kernel numbers, the card's name and power
    limit (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is absent, when the port's
@@ -141,6 +160,9 @@ PARITY_ATOL = 1e-4
 LOSS_DROP = 0.9
 # ResNet-50 training: steps and batch (b=256, BASELINE.json config 2's batch)
 RESNET_STEPS, RESNET_BATCH = 30, 256
+# LeNet-5 (config 1): steps, batch and checkpoint interval of
+# examples/train_mnist.py, and where the resume launch runs to
+LENET_STEPS, LENET_BATCH, LENET_EVERY, LENET_RESUME_TO = 150, 64, 25, 200
 # DLRM (config 4): 26 features of 100,000 rows each, batch 8,192
 DLRM_VOCABS = (100_000,) * 26
 DLRM_STEPS, DLRM_BATCH = 30, 8192
@@ -660,6 +682,8 @@ def _kernel_family(name: str) -> str:
         return "k4"
     if "scatter_add_rows" in name:
         return "k5"
+    if "nccl" in name.lower():
+        return "nccl"
     if any(s in name for s in ("fprop", "dgrad", "wgrad", "conv", "cudnn",
                                "implicit")):
         return "conv"
@@ -673,8 +697,9 @@ def _profile_fit(torch, trainer, ds, batch_size: int, fit_kw: dict,
     """``steps`` more steps of ``fit`` under ``torch.profiler``: the device's
     busy time per step (the sum of the times of the kernels and copies that
     ran on it, one stream, so none overlap) against the wall time per step,
-    and the kernels that take most of it. The profiler's own cost is in the
-    wall time; "not measured" when the trace holds no device event."""
+    the kernels that take most of it, and the host-side records of the
+    collectives (calls and host ms per step). The profiler's own cost is in
+    the wall time; "not measured" when the trace holds no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -686,11 +711,20 @@ def _profile_fit(torch, trainer, ds, batch_size: int, fit_kw: dict,
         trainer.fit(ds, batch_size=batch_size, steps=start + steps,
                     log_every=steps, **fit_kw)
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    own = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events = prof.key_averages()
+    # a range the host annotates (NCCL's "nccl:all_reduce") is mirrored on
+    # the device under the same name, over its kernels: not work of its own
+    host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+    own = [(e.key, e.self_device_time_total / 1e3) for e in events
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+           and e.key not in host_keys]
+    comms = {e.key: dict(calls=e.count, host_ms_per_step=e.cpu_time_total / 1e3 / steps)
+             for e in events if e.device_type == DeviceType.CPU
+             and any(s in e.key.lower() for s in ("allreduce", "all_reduce", "nccl"))}
     busy_ms = sum(ms for _, ms in own) / steps
     if not own:
-        return dict(busy_ms_per_step="not measured", wall_ms_per_step=wall_ms)
+        return dict(busy_ms_per_step="not measured", wall_ms_per_step=wall_ms,
+                    collectives=comms)
     top = sorted(own, key=lambda kv: -kv[1])[:10]
     groups: dict[str, float] = {}
     for k, ms in own:  # by kernel family, from the kernels' names
@@ -698,7 +732,8 @@ def _profile_fit(torch, trainer, ds, batch_size: int, fit_kw: dict,
         groups[group] = groups.get(group, 0.0) + ms / steps
     return dict(steps=steps, wall_ms_per_step=wall_ms, busy_ms_per_step=busy_ms,
                 idle_share=1.0 - busy_ms / wall_ms, busy_ms_by_family=groups,
-                top_device_ms_per_step=[(k[:80], ms / steps) for k, ms in top])
+                top_device_ms_per_step=[(k[:80], ms / steps) for k, ms in top],
+                collectives=comms)
 
 
 def train_bert(torch, fa) -> dict:
@@ -1344,6 +1379,252 @@ def train_dlrm(torch, sr) -> dict:
     return rec
 
 
+# -- phase 10: LeNet-5 through the port's dlsubmit ------------------------------
+
+#: steps of the profiled window of each rank
+LENET_WINDOW = 20
+
+
+def _lenet_launch(workdir: Path, ranks: int, *args: str, script: Path | None = None
+                  ) -> tuple[list[str], dict]:
+    """One launch through the port's cli at ``local[ranks]`` on the card with
+    deterministic algorithms, of ``script`` (default: the port's
+    examples/train_mnist.py, checkpointing into ``workdir``): rank 0's
+    stdout lines, and the launch's wall seconds with the part before rank
+    0's run began (process start, CUDA, the group) and the run's own, from
+    its telemetry. Fails on a non-zero exit."""
+    if script is None:
+        script = ROOT / PKG / "examples" / "train_mnist.py"
+        args = ("--batch-size", str(LENET_BATCH), "--checkpoint-every",
+                str(LENET_EVERY), "--checkpoint-dir", str(workdir / "ckpt"), *args)
+    cmd = [sys.executable, "-m", f"{PKG}.cli", "--master", f"local[{ranks}]",
+           "--conf", "spark.dls.deterministic=true", "--workdir", str(workdir),
+           str(script), *args]
+    t0 = time.time()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    wall_s = time.time() - t0
+    check(out.returncode == 0, f"lenet launch {args} exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    runs = [r["ts"] for r in _events(workdir, "p0") if r["kind"] == "phase"
+            and r.get("name") == "run" and r["ts"] >= t0]
+    return out.stdout.splitlines(), dict(
+        wall_s=wall_s, before_run_s=runs[0] - t0 if runs else None,
+        run_s=runs[-1] - runs[0] if len(runs) >= 2 else None)
+
+
+def _lenet_result(workdir: Path, ranks: int, *args: str) -> tuple[dict, dict]:
+    """A launch of the example; rank 0's JSON result line."""
+    lines, timing = _lenet_launch(workdir, ranks, *args)
+    results = [line for line in lines if line.startswith('{"train"')]
+    check(len(results) == 1, f"lenet launch {args} printed {len(results)} "
+          f"result lines: {lines[-20:]}")
+    return json.loads(results[0]), timing
+
+
+def _events(workdir: Path, process: str = "*") -> list[dict]:
+    return [json.loads(line)
+            for f in sorted((workdir / "telemetry").glob(f"events-{process}.jsonl"))
+            for line in f.read_text().splitlines()]
+
+
+def _phase_ms(records: list[dict], name: str) -> list[float]:
+    return [r["dur_s"] * 1e3 for r in records if r["kind"] == "phase"
+            and r.get("name") == name and r.get("edge") == "end"]
+
+
+def lenet_rank() -> int:
+    """One rank of the profiled gang (``chip_smoke.py --lenet-rank``, run by
+    the port's cli): LENET_WINDOW LeNet steps, then as many under the
+    profiler; rank 0 prints the profile."""
+    import torch
+
+    from distributeddeeplearningspark_tpu_torch.data import sources
+    from distributeddeeplearningspark_tpu_torch.models.lenet import LeNet5
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    spark = Session.builder.appName("lenet-profile").getOrCreate()
+    ds = sources.synthetic_mnist(
+        4096, num_partitions=spark.default_parallelism).repeat()
+    trainer = Trainer(spark, LeNet5(device=spark.device), losses.softmax_xent,
+                      optim.sgd(0.01, momentum=0.9))
+    trainer.fit(ds, batch_size=LENET_BATCH, steps=LENET_WINDOW, log_every=LENET_WINDOW)
+    profile = _profile_fit(torch, trainer, ds, LENET_BATCH, {}, steps=LENET_WINDOW)
+    if spark.rank == 0:
+        print("lenet profile " + json.dumps(dict(
+            profile, backend=spark.backend, world_size=spark.world_size)), flush=True)
+    spark.stop()
+    return 0
+
+
+def train_lenet(torch, ranks: int = 1) -> dict:
+    """LeNet-5 (config 1) through the port's cli → Session (NCCL, ``ranks``
+    processes, one card each) → synthetic_mnist → Trainer.fit with
+    checkpoints → resume, resume parity, the walk-back past a corrupt step,
+    and a profiled window."""
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch import checkpoint as ckpt_lib
+    from distributeddeeplearningspark_tpu_torch import telemetry
+    from distributeddeeplearningspark_tpu_torch.data import sources
+    from distributeddeeplearningspark_tpu_torch.models.lenet import LeNet5
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    root = ROOT / "build" / f"chip_smoke_lenet_{ranks}"
+    shutil.rmtree(root, ignore_errors=True)
+    main_dir, half_dir, bad_dir = root / "main", root / "half", root / "walk_back"
+
+    # the main path: 150 steps through the cli, then a resume to 200
+    res, main_s = _lenet_result(main_dir, ranks, "--steps", str(LENET_STEPS))
+    kept = ckpt_lib.Checkpointer(main_dir / "ckpt").all_steps()
+    verified = {s: ckpt_lib.verify_step_dir(str(main_dir / "ckpt" / str(s)))
+                for s in kept}
+    main_records = _events(main_dir)
+    resumed, resume_s = _lenet_result(main_dir, ranks, "--steps", str(LENET_RESUME_TO),
+                                      "--resume")
+    records = _events(main_dir)
+
+    # resume parity: 75 steps, then a resume to 150, against the 150 straight
+    half, _ = _lenet_result(half_dir, ranks, "--steps", str(LENET_STEPS // 2))
+    half_resumed, _ = _lenet_result(half_dir, ranks, "--steps", str(LENET_STEPS),
+                                    "--resume")
+
+    def saved(d: Path, step: int) -> dict:
+        return torch.load(d / "ckpt" / str(step) / ckpt_lib.STATE_FILE,
+                          map_location="cpu", weights_only=True)
+
+    straight, split = saved(main_dir, LENET_STEPS), saved(half_dir, LENET_STEPS)
+    mismatched = [k for k in straight["params"]
+                  if not torch.equal(straight["params"][k], split["params"][k])]
+    mismatched += [f"opt_state[{i}]" for i, (a, b) in enumerate(
+        zip(straight["opt_state"], split["opt_state"]))
+        if isinstance(a, torch.Tensor) and not torch.equal(a, b)]
+
+    # the walk-back: a copy of the newest step with one byte flipped
+    shutil.copytree(half_dir / "ckpt", bad_dir)
+    newest = max(int(p.name) for p in bad_dir.iterdir() if p.name.isdigit())
+    target = bad_dir / str(newest) / ckpt_lib.STATE_FILE
+    raw = bytearray(target.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    target.write_bytes(bytes(raw))
+    spark = Session.builder.master("local[1]").appName("lenet").getOrCreate()
+    trainer = Trainer(spark, LeNet5(device=spark.device), losses.softmax_xent,
+                      optim.sgd(0.01, momentum=0.9),
+                      checkpointer=ckpt_lib.Checkpointer(bad_dir))
+    walked, walked_data = trainer.restore()
+    walked_step = walked.step
+    walked_equal = all(torch.equal(walked.params[k].cpu(), v) for k, v in
+                       saved(half_dir, walked_step)["params"].items())
+    quarantined = sorted(p.name for p in bad_dir.iterdir() if ".corrupt-" in p.name)
+    spark.stop()
+    telemetry.reset()  # the restore bound the process's writer to bad_dir
+
+    # the gang again, this script as each rank's: a profiled window
+    lines, _ = _lenet_launch(root / "profile", ranks, "--lenet-rank",
+                             script=Path(__file__).resolve())
+    found = [line for line in lines if line.startswith("lenet profile ")]
+    check(len(found) == 1, f"the profiled gang printed {lines[-20:]}")
+    profile = json.loads(found[0][len("lenet profile "):])
+    host_batch_ms = _host_batch_ms(sources.synthetic_mnist(4096, num_partitions=1),
+                                   LENET_BATCH, 20)
+
+    save_ms = _phase_ms(main_records, "checkpoint")
+    restore_ms = _phase_ms([r for r in records if r["process"] == "p0"], "restore")
+    logged = [(r["step"], r["metrics"]["loss"]) for r in main_records
+              if r["kind"] == "step_metrics" and r["process"] == "p0"]
+    families = profile.get("busy_ms_by_family", {})
+    comms = profile.get("collectives", {})
+    summary = res["train"]
+    rec = dict(ranks=ranks, steps=LENET_STEPS, batch_size=LENET_BATCH,
+               backend=res["backend"], device=res["device"],
+               world_size=res["world_size"], grad_allreduces=res["grad_allreduces"],
+               test=res["test"], step_time_ms=summary.get("step_time_ms"),
+               examples_per_sec=summary.get("examples_per_sec"),
+               examples_per_sec_per_chip=summary.get("examples_per_sec_per_chip"),
+               host_batch_ms=host_batch_ms,
+               busy_ms_per_step=profile.get("busy_ms_per_step"),
+               idle_share=profile.get("idle_share"),
+               # NCCL's one-rank all-reduce in place launches no kernel
+               allreduce_device_ms_per_step=families.get("nccl", 0.0),
+               allreduce_host_ms_per_step=max(
+                   (c["host_ms_per_step"] for c in comms.values()), default=None),
+               profile=profile,
+               checkpoint_save_ms=sum(save_ms) / len(save_ms) if save_ms else None,
+               checkpoint_saves=len(save_ms),
+               restore_ms=restore_ms[-1] if restore_ms else None,
+               kept_steps=kept, verified={s: v[1] for s, v in verified.items()},
+               resumed_from=resumed["restored_step"],
+               resumed_data_state=resumed["data_state"], resumed_to=resumed["step"],
+               resume_parity="bitwise (deterministic algorithms on)",
+               resume_parity_mismatched=mismatched, walked_back_to=walked_step,
+               walked_back_data_state=walked_data, quarantined=quarantined,
+               launch=dict(main=main_s, resume=resume_s), logged_losses=logged,
+               nvidia_smi=nvidia_smi_line())
+    print("train lenet " + json.dumps(rec), flush=True)
+    check(res["backend"] == "nccl" and res["device"] == "cuda:0"
+          and res["world_size"] == ranks, f"rank 0 ran on {res['backend']} "
+          f"{res['device']} at world size {res['world_size']}")
+    check(res["step"] == LENET_STEPS and res["grad_allreduces"] == LENET_STEPS,
+          f"{res['grad_allreduces']} gradient all-reduces in {res['step']} steps")
+    check(res["test"]["accuracy"] > 0.9, f"held-out accuracy {res['test']}")
+    check(len(logged) == LENET_STEPS // LENET_EVERY
+          and all(np.isfinite(loss) for _, loss in logged),
+          f"step_metrics records: {logged}")
+    check(len(save_ms) == LENET_STEPS // LENET_EVERY
+          and len(save_ms) == len([r for r in main_records if r["kind"] == "phase"
+                                   and r.get("name") == "checkpoint"
+                                   and r.get("edge") == "begin"]),
+          f"{len(save_ms)} checkpoint phase records for {LENET_STEPS} steps")
+    check(kept == [100, 125, 150] and all(v[0] for v in verified.values()),
+          f"kept steps {kept}, verification {verified}")
+    check(resumed["restored_step"] == LENET_STEPS and resumed["step"] == LENET_RESUME_TO
+          and resumed["data_state"] == {"examples_seen": LENET_STEPS * LENET_BATCH,
+                                        "batch_size": LENET_BATCH}
+          and resumed["grad_allreduces"] == LENET_RESUME_TO - LENET_STEPS,
+          f"resume: {resumed}")
+    check(half["step"] == LENET_STEPS // 2
+          and half_resumed["restored_step"] == LENET_STEPS // 2
+          and not mismatched, f"75 + resume to 150 differs from 150 straight "
+          f"in {mismatched}")
+    check(walked_step == newest - LENET_EVERY and walked_equal
+          and quarantined == [f"{newest}.corrupt-0"]
+          and walked_data == {"examples_seen": walked_step * LENET_BATCH,
+                              "batch_size": LENET_BATCH},
+          f"walk-back: step {walked_step}, quarantined {quarantined}")
+    # two all-reduces a step (the loss weights with the metrics, the
+    # grads); across cards NCCL's kernels run them on the device
+    check(profile["backend"] == "nccl" and profile["world_size"] == ranks
+          and any(c["calls"] >= 2 * LENET_WINDOW for c in comms.values())
+          and (ranks == 1 or families.get("nccl", 0.0) > 0),
+          f"the profiled window's collectives: {comms}, {families}")
+    return rec
+
+
+def gang_main(torch) -> int:
+    """``chip_smoke.py --gang``: the LeNet phase alone at one rank per
+    visible card (2 or more), NCCL between them."""
+    ranks = torch.cuda.device_count()
+    if ranks < 2:
+        print(f"chip_smoke --gang: {ranks} card(s); it needs 2 or more",
+              file=sys.stderr)
+        return 2
+    try:
+        train_lenet(torch, ranks)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    print(out.stdout.strip())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": ranks}}))
+    return 0
+
+
 # -- phase 5: serving BERT-base -----------------------------------------------
 
 
@@ -1479,6 +1760,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:] == ["--lenet-rank"]:
+        return lenet_rank()
     try:
         import distributeddeeplearningspark_tpu_torch as pkg
     except ImportError as e:
@@ -1488,6 +1771,8 @@ def main() -> int:
         print(f"chip_smoke: {PKG} imported from {pkg.__file__}, not from "
               f"beside this script", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--gang"]:
+        return gang_main(torch)
     from distributeddeeplearningspark_tpu_torch.models import bert
     from distributeddeeplearningspark_tpu_torch.ops import _build
     from distributeddeeplearningspark_tpu_torch.ops import attention
@@ -1522,6 +1807,7 @@ def main() -> int:
         resnet = train_resnet(torch, cb)
         k5 = check_scatter_rows(torch, sr)
         dlrm_rec = train_dlrm(torch, sr)
+        train_lenet(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -10,6 +10,20 @@ plain PyTorch version runs for CPU tensors only. Entry points run on the
 card unless the caller passes ``device="cpu"`` (a :class:`Session`:
 ``.config("spark.dls.device", "cpu")``).
 
+It trains LeNet-5 (BASELINE.json config 1, the main path) data-parallel
+over N processes, one device each, launched by the port's ``dlsubmit``
+(``python -m distributeddeeplearningspark_tpu_torch.cli --master local[2]
+script.py``); each rank's script runs the calls of
+``examples/train_mnist.py``:
+
+    spark = Session.builder.appName("mnist").getOrCreate()  # joins the gang
+    ds = sources.synthetic_mnist(4096, num_partitions=spark.default_parallelism)
+    trainer = Trainer(spark, LeNet5(device=spark.device), losses.softmax_xent,
+                      optim.sgd(0.01, momentum=0.9),
+                      checkpointer=Checkpointer("ckpt"))
+    state, summary = trainer.fit(ds.repeat(), batch_size=64, steps=150,
+                                 checkpoint_every=25)
+
 It serves BERT-base through :class:`InferenceEngine`:
 
     model = bert_base()                       # on "cuda", weights from a seed
@@ -55,6 +69,10 @@ __version__ = "0.1.0"
 #: importing a light submodule does not pull in the rest
 _EXPORTS = {
     "InferenceEngine": "distributeddeeplearningspark_tpu_torch.serve.engine",
+    "LeNet5": "distributeddeeplearningspark_tpu_torch.models.lenet",
+    "PartitionedDataset": "distributeddeeplearningspark_tpu_torch.rdd",
+    "MeshSpec": "distributeddeeplearningspark_tpu_torch.parallel.mesh",
+    "Checkpointer": "distributeddeeplearningspark_tpu_torch.checkpoint",
     "BertConfig": "distributeddeeplearningspark_tpu_torch.models.bert",
     "BertForMLM": "distributeddeeplearningspark_tpu_torch.models.bert",
     "bert_base": "distributeddeeplearningspark_tpu_torch.models.bert",
@@ -81,6 +99,10 @@ _EXPORTS = {
 }
 
 if TYPE_CHECKING:  # static analyzers see the real names
+    from distributeddeeplearningspark_tpu_torch.checkpoint import Checkpointer
+    from distributeddeeplearningspark_tpu_torch.models.lenet import LeNet5
+    from distributeddeeplearningspark_tpu_torch.parallel.mesh import MeshSpec
+    from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
     from distributeddeeplearningspark_tpu_torch.models.bert import (
         BertConfig,
         BertForMLM,

@@ -1,12 +1,27 @@
-"""Partition → device feed for one device.
+"""Partition → device feed: each process's rows of the global batch.
 
-The port of the one-shard case of ``distributeddeeplearningspark_tpu/data/
-feed.py``: partitions are host-side iterators of example dicts (numpy);
-:func:`host_batches` deals them round-robin, as the JAX feed does for one
-data shard, and stacks ``batch_size`` examples into a batch;
-:func:`device_batches` moves each batch to the device with a non-blocking
-copy from pinned memory. Several shards, several processes and the
-prefetch ring are not ported yet (they arrive with data parallelism).
+The port of ``distributeddeeplearningspark_tpu/data/feed.py``. Partitions
+are host-side iterators of example dicts (numpy); :func:`host_batches`
+assembles them into *global* batches of ``batch_size`` rows split over
+``num_shards`` data shards, and with ``shard_range=(lo, hi)`` yields only
+the rows of shards [lo, hi): rank r of a data-parallel gang takes shard r,
+``shard_range=(r, r + 1)`` (:func:`process_shard_range`). Its rows are
+exactly the rows the JAX feed gives shard r, in the same order. Two
+assembly modes, as in JAX:
+
+- **aligned** (the partition count and the batch divide evenly by the
+  shards): partition *i* feeds shard ``i % num_shards``; a finite dataset
+  walks every shard's stream in lockstep so every rank agrees where the
+  data ends, an infinite one (``repeat()``) opens only its own shards';
+- **chained**: the partitions are concatenated into one stream, dealt out
+  in order, and each rank keeps its shards' slice.
+
+A tail that cannot fill every shard equally is dropped, or with
+``pad_remainder`` padded with copies of its first row carrying ``eval_mask
+== 0`` (:func:`_pad_to_shards`), which every contract loss weighs to
+nothing. :func:`device_batches` moves each batch to the device with a
+non-blocking copy from pinned memory. The worker pool and the prefetch
+ring are not ported yet (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -17,7 +32,23 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
+
+
+def process_shard_range(num_shards: int, *, rank: int | None = None,
+                        world_size: int | None = None) -> tuple[int, int] | None:
+    """This process's data-shard slice [lo, hi), or None for one process.
+    ``rank``/``world_size`` default to this process's group's."""
+    pc = collectives.world_size() if world_size is None else world_size
+    if pc == 1:
+        return None
+    if num_shards % pc:
+        raise ValueError(
+            f"data shards ({num_shards}) must divide evenly across {pc} processes")
+    index = collectives.rank() if rank is None else rank
+    spp = num_shards // pc
+    return index * spp, (index + 1) * spp
 
 
 def stack_examples(examples: list[dict[str, Any]]) -> dict[str, np.ndarray]:
@@ -48,33 +79,111 @@ def _round_robin(iters: list[Iterator]) -> Iterator:
         active = still
 
 
+def _pad_to_shards(rest: list[dict[str, Any]], num_shards: int
+                   ) -> dict[str, np.ndarray]:
+    """Stack a sub-shard remainder padded to a ``num_shards`` multiple with
+    copies of row 0; real rows carry ``eval_mask == 1.0``, pad rows 0.0."""
+    n = len(rest)
+    target = -(-n // num_shards) * num_shards
+    batch = stack_examples(rest + [rest[0]] * (target - n))
+    if "eval_mask" in batch:
+        raise ValueError(
+            "'eval_mask' is reserved for remainder padding — rename the "
+            "dataset key or pass pad_remainder=False")
+    batch["eval_mask"] = (np.arange(target) < n).astype(np.float32)
+    return batch
+
+
+def _slice_shards(batch: dict[str, np.ndarray], num_shards: int,
+                  shard_range: tuple[int, int] | None) -> dict[str, np.ndarray]:
+    """The rows of shards [lo, hi) of a padded batch."""
+    if shard_range is None:
+        return batch
+    lo, hi = shard_range
+    per = batch["eval_mask"].shape[0] // num_shards
+    return {k: v[lo * per:hi * per] for k, v in batch.items()}
+
+
 def host_batches(
     dataset: PartitionedDataset,
     batch_size: int,
     *,
+    num_shards: int = 1,
     drop_remainder: bool = True,
+    shard_range: tuple[int, int] | None = None,
     pad_remainder: bool = False,
 ) -> Iterator[dict[str, np.ndarray]]:
-    """Yield stacked host batches, dealing examples from the partitions in
-    turn. The short final batch is dropped, or with ``drop_remainder=False``
-    yielded; ``pad_remainder`` then marks it with ``eval_mask`` (all 1.0:
-    one shard needs no padding rows), as the JAX feed does."""
-    stream = _round_robin([dataset.iter_partition(i)
-                           for i in range(dataset.num_partitions)])
-    while True:
-        chunk = list(itertools.islice(stream, batch_size))
-        if pad_remainder and chunk and "eval_mask" in chunk[0]:
+    """Yield stacked host batches from a dataset of example dicts.
+
+    ``batch_size`` is the GLOBAL batch. ``shard_range=(lo, hi)`` keeps the
+    rows of data shards [lo, hi) (``batch_size`` must divide by
+    ``num_shards``); every process still advances the shard streams of a
+    finite dataset in lockstep, so no rank yields a batch its peers do not.
+    ``drop_remainder=False`` keeps the tail where it divides evenly over
+    the shards (one process: all of it); ``pad_remainder`` pads it instead
+    (:func:`_pad_to_shards`), in every mode."""
+    n_parts = dataset.num_partitions
+    lo, hi = shard_range if shard_range is not None else (0, num_shards)
+
+    def checked(batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+        if pad_remainder and "eval_mask" in batch:
             raise ValueError(
-                "'eval_mask' is reserved for remainder padding — rename the "
-                "dataset key or pass pad_remainder=False")
-        if len(chunk) < batch_size:
-            if chunk and not drop_remainder:
-                batch = stack_examples(chunk)
-                if pad_remainder:
-                    batch["eval_mask"] = np.ones(len(chunk), np.float32)
-                yield batch
-            return
-        yield stack_examples(chunk)
+                "'eval_mask' is reserved for remainder padding — rename "
+                "the dataset key or pass pad_remainder=False")
+        return batch
+
+    if shard_range is not None and batch_size % num_shards:
+        raise ValueError(
+            f"multi-process feed needs batch_size ({batch_size}) divisible by "
+            f"num_shards ({num_shards})")
+    aligned = n_parts % num_shards == 0 and batch_size % num_shards == 0
+    if aligned and n_parts > 1:
+        per_shard = batch_size // num_shards
+        # an infinite dataset never needs the ranks to agree where it ends:
+        # open and walk only this process's shards
+        local_only = dataset.is_infinite and shard_range is not None
+        streams: list[Iterator | None] = []
+        for s in range(num_shards):
+            if local_only and not lo <= s < hi:
+                streams.append(None)
+                continue
+            group = [dataset.iter_partition(i) for i in range(s, n_parts, num_shards)]
+            streams.append(_round_robin(group) if len(group) > 1 else group[0])
+        while True:
+            chunks, short = [], False
+            for s in streams:
+                chunk = [] if s is None else list(itertools.islice(s, per_shard))
+                short |= s is not None and len(chunk) < per_shard
+                chunks.append(chunk)
+            if short:
+                rest = [e for chunk in chunks for e in chunk]
+                if not drop_remainder and pad_remainder and rest:
+                    yield _slice_shards(_pad_to_shards(rest, num_shards),
+                                        num_shards, shard_range)
+                elif not drop_remainder and shard_range is None:
+                    keep = len(rest) - len(rest) % num_shards
+                    if keep:
+                        yield stack_examples(rest[:keep])
+                return
+            yield checked(stack_examples(
+                [e for chunk in chunks[lo:hi] for e in chunk]))
+    else:
+        per_shard = batch_size // num_shards
+        stream = itertools.chain.from_iterable(
+            dataset.iter_partition(i) for i in range(n_parts))
+        while True:
+            chunk = list(itertools.islice(stream, batch_size))
+            if len(chunk) < batch_size:
+                if chunk and not drop_remainder:
+                    if pad_remainder:
+                        yield _slice_shards(_pad_to_shards(chunk, num_shards),
+                                            num_shards, shard_range)
+                    elif shard_range is None:
+                        yield stack_examples(chunk)
+                return
+            if shard_range is not None:
+                chunk = chunk[lo * per_shard:hi * per_shard]
+            yield checked(stack_examples(chunk))
 
 
 def to_device(batch: dict[str, np.ndarray], device: torch.device

@@ -1,0 +1,171 @@
+"""The collectives the data-parallel path calls, over ``torch.distributed``.
+
+The port of the parts of ``distributeddeeplearningspark_tpu/parallel/
+collectives.py`` (and of ``utils/sanitize.py``'s replica check) that the
+LeNet path runs. Under GSPMD the JAX step's gradient is the gradient of
+the global batch's loss, reduced by XLA; here each rank holds its own rows,
+so the train step makes the same gradient in two collectives:
+
+1. :func:`weigh_loss` — one small all-reduce of each rank's weight ``w_r``
+   (the loss's ``"weight"`` metric when it reports one, else its row
+   count) beside its weighted metrics. Rank r's loss is scaled by
+   ``w_r / W`` before backward, ``W`` the sum, and the metrics come back
+   global. For a mean over rows on equal shards this is the plain mean;
+   for ``masked_lm`` it is what stays exact when ranks hold unequal
+   numbers of masked tokens (unless a rank holds none: the loss clamps
+   its weight to 1).
+2. :func:`all_reduce_grads` — the gradients summed across ranks in place,
+   one flat buffer per dtype (one collective each, not one per param).
+
+:func:`grad_average` is the reference's round loop, a numpy average of
+per-partition gradients, which tests hold the step to;
+:func:`assert_replicas_in_sync` compares a digest of every rank's params.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+
+class DesyncError(RuntimeError):
+    """Replicated state differs across ranks."""
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+def active() -> bool:
+    """True when this process is in a ``torch.distributed`` group."""
+    dist = _dist()
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    return _dist().get_world_size() if active() else 1
+
+
+def rank() -> int:
+    return _dist().get_rank() if active() else 0
+
+
+def barrier() -> None:
+    """Wait for every rank (a no-op outside a group)."""
+    if not active():
+        return
+    dist = _dist()
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    """``obj`` from rank ``src`` on every rank (picklable objects)."""
+    if not active():
+        return obj
+    box = [obj]
+    _dist().broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
+    """Sum ``t`` across ranks in place (a no-op outside a group)."""
+    if active():
+        _dist().all_reduce(t)
+    return t
+
+
+def weigh_loss(loss: torch.Tensor, metrics: dict[str, torch.Tensor],
+               rows: int) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Rank r's loss scaled by ``w_r / W`` and the metrics made global, by
+    one all-reduce of ``[w_r, m·w_r ...]``. ``"weight"`` comes back as W."""
+    w = metrics.get("weight")
+    w = (w.detach().float().reshape(()) if w is not None
+         else torch.full((), float(rows), device=loss.device))
+    names = [k for k in metrics if k != "weight"]
+    vec = torch.stack([w] + [metrics[k].detach().float().reshape(()) * w
+                             for k in names])
+    all_reduce_sum_(vec)
+    total = vec[0]
+    out = {k: v for k, v in zip(names, vec[1:] / total)}
+    out["weight"] = total
+    return loss * (w / total), out
+
+
+def all_reduce_grads(grads: Sequence[torch.Tensor]) -> None:
+    """Sum ``grads`` across ranks in place: one flat buffer and one
+    all-reduce per dtype (a no-op outside a group). Counts the calls that
+    reduce in ``all_reduce_grads.calls``: the train step makes one a step."""
+    if not active():
+        return
+    all_reduce_grads.calls += 1
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for group in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in group])
+        _dist().all_reduce(flat)
+        parts = flat.split([g.numel() for g in group])
+        torch._foreach_copy_(group, [p.view_as(g) for p, g in zip(parts, group)])
+
+
+all_reduce_grads.calls = 0
+
+
+def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` (equal shapes) concatenated along dim 0 in rank
+    order (``t`` itself outside a group)."""
+    if not active():
+        return t
+    parts = [torch.empty_like(t) for _ in range(world_size())]
+    _dist().all_gather(parts, t.contiguous())
+    return torch.cat(parts)
+
+
+def grad_average(partition_grads: Sequence[Any]) -> Any:
+    """Average per-partition gradient trees in one process (parity mode):
+    dicts, lists and tuples of numpy arrays, summed in partition order in
+    f32 and divided by the partition count."""
+    n = len(partition_grads)
+    first = partition_grads[0]
+    if isinstance(first, dict):
+        return {k: grad_average([g[k] for g in partition_grads]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(grad_average([g[i] for g in partition_grads])
+                           for i in range(len(first)))
+    acc = np.array(first, copy=True)
+    for g in partition_grads[1:]:
+        acc += np.asarray(g)
+    return acc / n
+
+
+def params_digest(params: dict[str, torch.Tensor]) -> str:
+    """blake2b over every param's name, dtype, shape and bytes."""
+    h = hashlib.blake2b(digest_size=16)
+    for name in sorted(params):
+        t = params[name].detach().cpu().contiguous()
+        h.update(f"{name}:{t.dtype}:{tuple(t.shape)}".encode())
+        h.update(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"")
+    return h.hexdigest()
+
+
+def assert_replicas_in_sync(params: dict[str, torch.Tensor], *,
+                            what: str = "params") -> None:
+    """Raise :class:`DesyncError` unless every rank holds the same bytes:
+    one digest a rank, all-gathered and compared (a no-op outside a
+    group)."""
+    if not active():
+        return
+    digests = [None] * world_size()
+    _dist().all_gather_object(digests, params_digest(params))
+    bad = [r for r, d in enumerate(digests) if d != digests[0]]
+    if bad:
+        raise DesyncError(f"{what} desynced across ranks: ranks {bad} differ "
+                          f"from rank 0 ({digests})")

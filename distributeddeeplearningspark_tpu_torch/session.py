@@ -1,51 +1,99 @@
-"""Session lifecycle — the SparkSession surface over one device.
+"""Session lifecycle — the SparkSession surface over a process group.
 
 The port of ``distributeddeeplearningspark_tpu/session.py``: the same
 builder, ::
 
-    spark = Session.builder.master("local[1]").appName("bert").getOrCreate()
+    spark = Session.builder.master("local[2]").appName("mnist").getOrCreate()
     docs = spark.parallelize(lines)
     ... train ...
     spark.stop()
 
-but ``getOrCreate`` binds one torch device instead of a JAX mesh: the card
-(``cuda``) unless the caller asks for the CPU with
-``.config("spark.dls.device", "cpu")``, and it raises without CUDA
-otherwise. Master URLs: ``local[1]``, and ``local``/``local[*]``/``auto``
-when they come to one device. A master that asks for more than one device
-raises ``NotImplementedError``: data parallelism over several cards (NCCL)
-arrives with its own slice of the port.
+The process model differs from the JAX package's. There, ``local[N]`` is N
+devices in one process, and several hosts join through the ``DLS_*`` env
+contract. Here **an executor is a process holding one device** (the torch
+idiom, and the reference Spark's own model): the port's launcher,
+``python -m distributeddeeplearningspark_tpu_torch.cli --master local[N]
+script.py``, starts N processes, and each one's ``getOrCreate`` joins a
+``torch.distributed`` group from ``DLS_COORDINATOR``,
+``DLS_NUM_PROCESSES`` and ``DLS_PROCESS_ID`` (``init_method=
+"tcp://$DLS_COORDINATOR"``): backend ``nccl`` with rank r on ``cuda:r``,
+or ``gloo`` on the CPU. A gang of one (the launcher at ``local[1]``) still
+forms the group, and the train step's all-reduce runs over it.
+
+- ``local[N]`` with N > 1 outside such a launch raises ``ValueError``
+  (launch through the cli); so does a world larger than the visible cards
+  ("needs N devices, only M available") and a malformed ``DLS_*`` value.
+- ``local[1]`` (or a wildcard master on one card) outside a launch forms
+  no group: one device, no all-reduce.
+- The device is the card unless the caller asks for the CPU with
+  ``.config("spark.dls.device", "cpu")``; without CUDA it raises. There is
+  no fallback: no CPU in place of a missing card, no gloo in place of a
+  failing NCCL.
+- ``spark.dls.deterministic=true`` turns on deterministic algorithms
+  (``torch.use_deterministic_algorithms``, cuDNN without autotuning) for
+  the session's life, so a resumed run repeats an uninterrupted one bit
+  for bit on the card as on the CPU.
+
+Conf exported by the launcher (``DLS_CONF_*``) is read first; the
+builder's ``.master()``/``.config()`` win over it. Only the ``data`` mesh
+axis is ported (:mod:`.parallel.mesh`).
 """
 
 from __future__ import annotations
 
+import datetime
 import logging
+import os
 import threading
 from typing import Any, Iterable, Sequence
 
 import torch
 
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
+    MeshSpec,
+    num_data_shards,
+    spec_from_conf,
+)
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 from distributeddeeplearningspark_tpu_torch.utils.device import resolve_device
+from distributeddeeplearningspark_tpu_torch.utils.env import (
+    DistributedEnv,
+    conf_from_env,
+    distributed_env,
+)
 
 logger = logging.getLogger("distributeddeeplearningspark_tpu_torch")
 
 #: conf key naming the device: "cuda" (the default) or "cpu"
 DEVICE_CONF = "spark.dls.device"
+#: conf key turning on deterministic algorithms ("true"/"false")
+DETERMINISTIC_CONF = "spark.dls.deterministic"
+#: seconds the group's rendezvous and each collective may take: a gang
+#: whose peer never arrives fails instead of hanging
+GROUP_TIMEOUT_S = 120.0
 
 _LOCK = threading.Lock()
 
 
 class Session:
-    """An active session bound to one device. Construct via
-    ``Session.builder`` (SparkSession-style)."""
+    """An active session: one device, and the process group when launched
+    as a gang. Construct via ``Session.builder`` (SparkSession-style)."""
 
     _active: "Session | None" = None
 
-    def __init__(self, app_name: str, conf: dict[str, str], device: torch.device):
+    def __init__(self, app_name: str, conf: dict[str, str], device: torch.device,
+                 spec: MeshSpec | None = None, *, rank: int = 0,
+                 world_size: int = 1, group: bool = False):
         self.app_name = app_name
         self.conf = dict(conf)
         self.device = device
+        self.spec = spec or MeshSpec(data=world_size)
+        self.mesh_shape = self.spec.shape(world_size)
+        self.rank = rank
+        self.world_size = world_size
+        #: True when this session formed a ``torch.distributed`` group
+        self.distributed = group
+        self._restore_determinism: tuple | None = None
         self._stopped = False
 
     class Builder:
@@ -69,7 +117,9 @@ class Session:
                 if Session._active is not None and not Session._active._stopped:
                     Session._active.conf.update(self._conf)
                     return Session._active
-                sess = _create_session(self._conf)
+                # launch conf arrives through the env and loses to the
+                # script's own .master()/.config() calls
+                sess = _create_session({**conf_from_env(), **self._conf})
                 Session._active = sess
                 return sess
 
@@ -94,15 +144,34 @@ class Session:
 
     @property
     def default_parallelism(self) -> int:
-        """Data shards: one, the session's one device."""
-        return 1
+        """Data shards: one per process of the gang."""
+        return num_data_shards(self.mesh_shape)
 
     @property
     def num_devices(self) -> int:
-        return 1
+        return self.world_size
+
+    @property
+    def backend(self) -> str | None:
+        """The group's backend (``"nccl"``/``"gloo"``), None without one."""
+        if not self.distributed:
+            return None
+        import torch.distributed as dist
+
+        return str(dist.get_backend())
 
     def stop(self) -> None:
+        if self._stopped:
+            return
         self._stopped = True
+        if self.distributed:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        if self._restore_determinism is not None:
+            _set_determinism(*self._restore_determinism)
+            self._restore_determinism = None
         if Session._active is self:
             Session._active = None
 
@@ -113,32 +182,83 @@ class Session:
         self.stop()
 
     def __repr__(self) -> str:
-        return f"Session(app={self.app_name!r}, device={self.device})"
+        return (f"Session(app={self.app_name!r}, device={self.device}, "
+                f"rank={self.rank}, world_size={self.world_size})")
 
 
-def _devices_asked(master: str | None, device: torch.device) -> int:
-    """How many devices ``master`` asks for on ``device``'s kind."""
-    if master in (None, "auto", "local", "local[*]"):
-        return torch.cuda.device_count() if device.type == "cuda" else 1
-    if master.startswith("local[") and master.endswith("]") \
-            and master[len("local["):-1].isdigit():
-        return int(master[len("local["):-1])
-    raise ValueError(f"unrecognized master URL: {master!r}")
+def _set_determinism(algorithms: bool, cudnn_deterministic: bool,
+                     cudnn_benchmark: bool) -> None:
+    torch.use_deterministic_algorithms(algorithms)
+    torch.backends.cudnn.deterministic = cudnn_deterministic
+    torch.backends.cudnn.benchmark = cudnn_benchmark
+
+
+def _join_group(env: DistributedEnv, device: torch.device) -> None:
+    """Join the gang's process group (NCCL on a card, gloo on the CPU) and
+    prove the connection with one all-reduce. The rendezvous and every
+    collective are bounded by :data:`GROUP_TIMEOUT_S`."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        raise RuntimeError("a torch.distributed group already exists in this "
+                           "process; stop its Session first")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=env.init_method,
+                            world_size=env.world_size, rank=env.rank,
+                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    probe = torch.ones(1, device=device)
+    dist.all_reduce(probe)
+    if int(probe.item()) != env.world_size:
+        raise RuntimeError(f"group probe summed to {probe.item()}, want "
+                           f"{env.world_size}")
 
 
 def _create_session(conf: dict[str, str]) -> Session:
     device = resolve_device(conf.get(DEVICE_CONF, "cuda"))
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
     master = conf.get("spark.master")
-    n = _devices_asked(master, device)
-    if n < 1:
-        raise ValueError(f"master {master!r} asks for no device")
-    if n > 1:
-        raise NotImplementedError(
-            f"master {master!r} asks for {n} devices: the port runs on one "
-            f"device until its data-parallel slice (NCCL gradient "
-            f"all-reduce) lands; use local[1]")
+    spec = spec_from_conf(master, conf)
+    env = distributed_env()
+    world = env.world_size if env is not None else 1
+    if env is None and spec.data not in (-1, 1):
+        raise ValueError(
+            f"master {master!r} asks for {spec.data} executors: in the port "
+            f"an executor is a process; launch the script through "
+            f"`python -m distributeddeeplearningspark_tpu_torch.cli "
+            f"--master local[{spec.data}] script.py`")
+    if env is not None and spec.data not in (-1, world):
+        raise ValueError(f"master {master!r} asks for {spec.data} executors, "
+                         f"the launch started {world} processes")
+    if device.type == "cuda":
+        available = torch.cuda.device_count()
+        if env is None and spec.data == -1 and available > 1:
+            raise ValueError(
+                f"master {master!r} asks for all {available} devices: launch "
+                f"the script through `python -m "
+                f"distributeddeeplearningspark_tpu_torch.cli`, one process "
+                f"per device")
+        if world > available:
+            raise ValueError(f"master {master!r} needs {world} devices, only "
+                             f"{available} available")
+        index = env.rank if env is not None else (
+            device.index if device.index is not None
+            else torch.cuda.current_device())
+        device = torch.device("cuda", index)
+        torch.cuda.set_device(device)
+    sess_kw: dict[str, Any] = {}
+    restore = None
+    if conf.get(DETERMINISTIC_CONF, "false").lower() == "true":
+        restore = (torch.are_deterministic_algorithms_enabled(),
+                   torch.backends.cudnn.deterministic,
+                   torch.backends.cudnn.benchmark)
+        # cuBLAS reads its workspace rule when its handle is made
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        _set_determinism(True, True, False)
+    if env is not None:
+        _join_group(env, device)
+        sess_kw = dict(rank=env.rank, world_size=env.world_size, group=True)
     app = conf.get("spark.app.name", "dls-torch")
-    logger.info("session %s on %s", app, device)
-    return Session(app, conf, device)
+    sess = Session(app, conf, device, spec, **sess_kw)
+    sess._restore_determinism = restore
+    logger.info("session %s on %s, rank %d of %d%s", app, device, sess.rank,
+                sess.world_size, f" ({sess.backend})" if sess.distributed else "")
+    return sess

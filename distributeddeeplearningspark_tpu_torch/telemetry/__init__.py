@@ -11,7 +11,12 @@ reads a run of the port unchanged. The engine writes ``request``, ``span``
 and ``heartbeat`` events; a heartbeat names the oldest in-flight request
 (``phase``/``phase_t0``) so a wedged batch localizes. ``Trainer.fit``
 writes the ``run`` phase span, one ``step_metrics`` record per log lap and
-heartbeats into the workdir that ``DLS_TELEMETRY_DIR`` names.
+heartbeats into the workdir that ``DLS_TELEMETRY_DIR`` names (else its
+checkpointer's directory). The checkpointer, which holds no writer, goes
+through the process-wide one (:func:`get`): :func:`phase` spans a blocking
+phase (``checkpoint``, ``checkpoint-verify``, ``checkpoint-wait``,
+``restore``) with begin/end records, the end carrying ``dur_s``, and
+:meth:`EventWriter.recovery` writes a ``recovery`` event (``quarantine``).
 
 Writers are append-only and flushed per call; a full disk downgrades
 telemetry to one warning, never a serving failure. Size-capped segment
@@ -20,12 +25,15 @@ rotation and the reader side are not ported.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import threading
 import time
 from typing import Any
+
+from distributeddeeplearningspark_tpu_torch.utils.env import process_identity
 
 logger = logging.getLogger("distributeddeeplearningspark_tpu_torch.telemetry")
 
@@ -35,20 +43,6 @@ TELEMETRY_DIRNAME = "telemetry"
 WORKDIR_ENV = "DLS_TELEMETRY_DIR"
 TENANT_ENV = "DLS_TENANT"
 PRIORITY_ENV = "DLS_PRIORITY"
-
-
-def process_identity() -> tuple[int, int]:
-    """This host's (process index, process count) from ``DLS_PROCESS_ID`` /
-    ``DLS_NUM_PROCESSES``; a malformed value degrades to one process."""
-    try:
-        index = int(os.environ.get("DLS_PROCESS_ID", "0"))
-    except ValueError:
-        index = 0
-    try:
-        count = int(os.environ.get("DLS_NUM_PROCESSES", "1"))
-    except ValueError:
-        count = 1
-    return max(0, index), max(1, count, index + 1)
 
 
 def _priority_from_env() -> int | None:
@@ -152,6 +146,26 @@ class EventWriter:
         self.emit("step_metrics", step=int(step), steps=int(steps),
                   lap_s=float(lap_s), metrics=dict(metrics or {}), **gauges)
 
+    @contextlib.contextmanager
+    def phase(self, name: str, **fields: Any):
+        """Span a blocking phase: begin/end records, the end carries
+        ``dur_s``. A crashed run's unterminated begin is accounted up to
+        the stream's last event."""
+        t0 = self._clock()
+        self.emit("phase", name=name, edge="begin", **fields)
+        try:
+            yield
+        finally:
+            self.emit("phase", name=name, edge="end",
+                      dur_s=self._clock() - t0, **fields)
+
+    def recovery(self, step: int | None, event: str, **fields: Any) -> None:
+        """``step=None`` when the emitter does not know the training step."""
+        if step is None:
+            self.emit("recovery", event=event, **fields)
+        else:
+            self.emit("recovery", step=int(step), event=event, **fields)
+
     def heartbeat(self, **fields: Any) -> None:
         self.emit("heartbeat", **fields)
 
@@ -184,6 +198,18 @@ def configure(workdir: str | os.PathLike, *, process: str | None = None,
             _writer.close()
         _writer = EventWriter(wd, process=process, clock=clock)
         return _writer
+
+
+def get() -> EventWriter | None:
+    return _writer
+
+
+def phase(name: str, **fields: Any):
+    """Span context through the process-wide writer (no-op unconfigured)."""
+    writer = _writer
+    if writer is not None:
+        return writer.phase(name, **fields)
+    return contextlib.nullcontext()
 
 
 def reset() -> None:

@@ -9,9 +9,16 @@ applied to the params in place, ``step + 1``. The model's buffers
 forward itself and are neither params nor optimizer state. It never copies to the host:
 metrics stay device tensors until the loop's log point, as the JAX loop
 fetches them only there. This is the JAX step's ``accum_steps == 1``,
-unguarded branch on one device; gradient accumulation, frozen params, the
-non-finite guard and the cross-device gradient all-reduce are not ported
-yet.
+unguarded branch; gradient accumulation, frozen params and the non-finite
+guard are not ported yet.
+
+``distributed=True`` (a data-parallel gang, :mod:`..parallel.collectives`):
+each rank holds its own rows of the global batch, and the step makes the
+JAX step's gradient of the *global* batch's loss. Before backward, one
+small all-reduce of the ranks' weights (the loss's ``"weight"``, else the
+rows) scales rank r's loss by ``w_r / W`` and makes the logged metrics
+global; after backward, the gradients are summed across ranks, one flat
+buffer per dtype. ``grad_norm`` and clipping see the reduced gradient.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Any, Callable
 
 import torch
 
+from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.train.optim import (
     GradientTransformation,
     global_norm,
@@ -31,7 +39,7 @@ LossFn = Callable[[Any, dict[str, Any]], tuple[torch.Tensor, dict[str, torch.Ten
 
 
 def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
-                    loss_fn: LossFn):
+                    loss_fn: LossFn, *, distributed: bool = False):
     """(state, batch) → (state, metrics). ``model(batch, generator=g)``
     returns the outputs ``loss_fn(outputs, batch)`` consumes."""
 
@@ -42,10 +50,15 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
             p.grad = None
         outputs = model(batch, generator=state.generator)
         loss, metrics = loss_fn(outputs, batch)
+        if distributed:
+            rows = next(iter(batch.values())).shape[0]
+            loss, metrics = collectives.weigh_loss(loss, metrics, rows)
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
         with torch.no_grad():
+            if distributed:
+                collectives.all_reduce_grads(grads)
             grad_norm = global_norm(grads)
             updates, opt_state = tx.update(grads, state.opt_state, params)
             torch._foreach_add_(params, updates)

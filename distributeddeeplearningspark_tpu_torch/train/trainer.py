@@ -5,33 +5,57 @@ session's device to a loss and an optax-shaped optimizer
 (:mod:`.optim`); :meth:`Trainer.fit` feeds batches from a
 :class:`~..rdd.PartitionedDataset` through the train step and syncs with
 the device only at log points, where it laps the :class:`~..metrics.Meter`,
-logs, writes a ``step_metrics`` record (when ``DLS_TELEMETRY_DIR`` names a
-workdir) and raises on a non-finite metric, as the JAX loop's default
-``on_nonfinite="raise"`` does.
+logs, writes a ``step_metrics`` record (when ``DLS_TELEMETRY_DIR`` or the
+checkpointer names a workdir) and raises on a non-finite metric, as the JAX
+loop's default ``on_nonfinite="raise"`` does.
+
+In a data-parallel gang (a :class:`~..session.Session` launched by the
+port's cli) each rank feeds its own rows of every global batch
+(``batch_size`` is global, as in JAX) and the train step reduces the
+gradient across ranks (:mod:`.step`); :meth:`evaluate` all-reduces each
+batch's weighted sums and weights, so it is exact over ranks, the padded
+tail included; :meth:`predict` gathers the outputs into JAX's feed order.
+At more than one rank the Trainer refuses what would silently differ from
+JAX: a model holding buffers (BatchNorm, whose JAX statistics are global
+over the mesh) and ``sparse_embed`` tables (whose row updates would need a
+cross-rank merge).
+
+With a ``checkpointer`` (:class:`~..checkpoint.Checkpointer`),
+``fit(checkpoint_every=N)`` saves the state and the feed position
+(``data_state``: ``examples_seen``, ``batch_size``) every N steps and at
+the end; :meth:`restore` loads the newest step that verifies, and
+``fit(data_state=...)`` fast-forwards the feed past the batches already
+trained on, so a resumed run repeats an uninterrupted one.
 
 ``sparse_embed`` specs (:mod:`.embed`) train their tables row-sparsely:
 the step gathers the batch's rows outside autograd and applies row-wise
 AdaGrad to them, and the optimizer state is built over the other params
 only, so no moment of table size exists.
 
-One device. Not ported yet: checkpoints and resume, ``accum_steps``,
-``trainable``, ``on_nonfinite="skip"|"rollback"``, sharding plans and
-rules, eval during fit, callbacks, profiling, sanitize and TensorBoard,
-``predict``.
+Not ported yet (ROADMAP Queue 1 item 1): ``accum_steps``, ``trainable``,
+``on_nonfinite="skip"|"rollback"``, eval during fit, callbacks; sharding
+plans and rules, profiling, sanitize and TensorBoard.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import math
 import os
-from typing import Callable, Sequence
+from typing import Any, Callable, Iterator, Sequence
 
 import torch
 
 from distributeddeeplearningspark_tpu_torch import telemetry as telemetry_lib
-from distributeddeeplearningspark_tpu_torch.data.feed import device_batches
+from distributeddeeplearningspark_tpu_torch.checkpoint import Checkpointer
+from distributeddeeplearningspark_tpu_torch.data.feed import (
+    host_batches,
+    process_shard_range,
+    to_device,
+)
 from distributeddeeplearningspark_tpu_torch.metrics import Meter, MetricLogger
+from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 from distributeddeeplearningspark_tpu_torch.session import Session
 from distributeddeeplearningspark_tpu_torch.train import embed as embed_lib
@@ -51,6 +75,20 @@ def _to_host(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
     return dict(zip(metrics, vals))
 
 
+def _tree_map(fn: Callable, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _first_leaf(tree: Any) -> Any:
+    while isinstance(tree, (dict, tuple, list)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree
+
+
 class Trainer:
     """Bind (session, model, loss, optimizer) into a train loop.
 
@@ -60,12 +98,14 @@ class Trainer:
     are drawn from (the weights come from the model's own seed).
     ``sparse_embed``: :class:`~.embed.SparseEmbedSpec` s of the tables that
     train row-sparsely (``models.dlrm.sparse_embed_specs``); the model then
-    takes ``overrides`` in train mode."""
+    takes ``overrides`` in train mode. ``checkpointer``: where ``fit``
+    saves and :meth:`restore` reads."""
 
     def __init__(self, session: Session | None, model: torch.nn.Module,
                  loss_fn: Callable, optimizer: GradientTransformation, *,
                  seed: int = 0,
-                 sparse_embed: Sequence[embed_lib.SparseEmbedSpec] = ()):
+                 sparse_embed: Sequence[embed_lib.SparseEmbedSpec] = (),
+                 checkpointer: Checkpointer | None = None):
         self.session = session or Session.get_or_default()
         self.device = self.session.device
         wrong = {str(p.device) for p in model.parameters()
@@ -77,8 +117,21 @@ class Trainer:
         self.loss_fn = loss_fn
         self.tx = optimizer
         self.seed = seed
+        self.checkpointer = checkpointer
         self.state: TrainState | None = None
         self.sparse_embed = tuple(sparse_embed)
+        world = self.session.world_size
+        if world > 1 and any(True for _ in model.buffers()):
+            raise NotImplementedError(
+                f"the model holds buffers ({[n for n, _ in model.named_buffers()][:3]}"
+                f"...): BatchNorm's statistics are global over the JAX mesh and "
+                f"would be per-rank here; training it at {world} ranks is "
+                f"ROADMAP Queue 1 item 1 (ResNet at N > 1)")
+        if world > 1 and self.sparse_embed:
+            raise NotImplementedError(
+                f"sparse_embed at {world} ranks: each rank's row updates "
+                f"would need a cross-rank merge; ROADMAP Queue 1 item 1 "
+                f"(DLRM at N > 1)")
         names = dict(model.named_parameters())
         missing = [s.param_path for s in self.sparse_embed if s.param_path not in names]
         if missing:
@@ -88,7 +141,8 @@ class Trainer:
             self._train_step = embed_lib.make_sparse_embed_train_step(
                 model, optimizer, loss_fn, self.sparse_embed)
         else:
-            self._train_step = step_lib.make_train_step(model, optimizer, loss_fn)
+            self._train_step = step_lib.make_train_step(
+                model, optimizer, loss_fn, distributed=self.session.distributed)
         self._eval_step = step_lib.make_eval_step(model, loss_fn)
 
     def init(self) -> TrainState:
@@ -108,20 +162,65 @@ class Trainer:
                     f"{self.state.num_params:,}", self.device)
         return self.state
 
-    def _telemetry(self) -> telemetry_lib.EventWriter | None:
-        """The run's event writer when ``DLS_TELEMETRY_DIR`` names a
-        workdir, else None (then fit costs nothing extra)."""
+    def restore(self, checkpointer: Checkpointer | None = None, *,
+                step: int | None = None) -> tuple[TrainState, dict | None]:
+        """Restore ``(state, data_state)`` from a checkpoint (by default the
+        newest step that verifies) into this trainer's state, initialising
+        it first if needed. Pass ``data_state`` on to :meth:`fit`."""
+        ckpt = checkpointer or self.checkpointer
+        if ckpt is None:
+            raise RuntimeError("Trainer.restore: no checkpointer configured — "
+                               "pass one to the constructor or to restore()")
+        # bind the run's telemetry first, so the restore's phases land in it
+        self._telemetry(ckpt)
+        if self.state is None:
+            self.init()
+        self.state, data_state = ckpt.restore(self.state, step=step)
+        logger.info("resumed at step %d", self.state.step)
+        return self.state, data_state
+
+    def _telemetry(self, checkpointer: Checkpointer | None = None
+                   ) -> telemetry_lib.EventWriter | None:
+        """The run's event writer: ``DLS_TELEMETRY_DIR``, else the
+        checkpointer's directory, else None (then fit costs nothing
+        extra). Binds the process-wide writer, which the checkpointer's
+        phases go through."""
         workdir = os.environ.get(telemetry_lib.WORKDIR_ENV)
+        ckpt = checkpointer or self.checkpointer
+        if not workdir and ckpt is not None:
+            workdir = ckpt.directory
         return telemetry_lib.configure(workdir) if workdir else None
+
+    def _host_feed(self, dataset: PartitionedDataset, batch_size: int,
+                   **kw) -> Iterator[dict]:
+        """This rank's rows of each global batch (JAX's shard mapping)."""
+        n = self.session.default_parallelism
+        return host_batches(dataset, batch_size, num_shards=n,
+                            shard_range=process_shard_range(n), **kw)
+
+    def _feed(self, dataset: PartitionedDataset, batch_size: int, *,
+              skip_batches: int = 0) -> Iterator[dict[str, torch.Tensor]]:
+        hb = self._host_feed(dataset, batch_size)
+        if skip_batches:
+            # resume fast-forward: burn host batches, no copy to the device
+            hb = itertools.islice(hb, skip_batches, None)
+        for b in hb:
+            yield to_device(b, self.device)
 
     def fit(self, dataset: PartitionedDataset, *, batch_size: int,
             steps: int | None = None, tokens_per_example: int = 0,
-            log_every: int = 10) -> tuple[TrainState, dict[str, float]]:
+            log_every: int = 10, checkpoint_every: int | None = None,
+            data_state: dict | None = None
+            ) -> tuple[TrainState, dict[str, float]]:
         """Train until the state's step reaches ``steps`` (or the dataset is
         exhausted). Returns (final state, summary): the :class:`Meter`'s
         summary (``step_time_ms``, ``examples_per_sec_per_chip`` — images/s
         for a vision model —, ``tokens_per_sec_per_chip`` when
-        ``tokens_per_example`` is given, ...) and the last logged metrics."""
+        ``tokens_per_example`` is given, ...) and the last logged metrics.
+
+        ``checkpoint_every``: save every N steps and at the end (needs a
+        checkpointer). ``data_state`` (from :meth:`restore`): skip the
+        ``examples_seen`` the checkpoint had trained on."""
         if self.state is None:
             self.init()
         meter = Meter(examples_per_step=batch_size,
@@ -130,6 +229,22 @@ class Trainer:
         tele = self._telemetry()
         mlog = MetricLogger()
         step_i = self.state.step
+        skip = 0
+        if data_state and data_state.get("examples_seen"):
+            stored_bs = data_state.get("batch_size")
+            if stored_bs is not None and int(stored_bs) != batch_size:
+                raise ValueError(
+                    f"resume batch_size mismatch: checkpoint was written with "
+                    f"batch_size={int(stored_bs)}, fit() called with "
+                    f"{batch_size} — the examples_seen fast-forward would "
+                    f"land mid-batch; resume with the original batch size")
+            skip = int(data_state["examples_seen"]) // batch_size
+        ckpt = self.checkpointer if checkpoint_every else None
+
+        def save(at: int) -> None:
+            ckpt.save(at, self.state, data_state={
+                "examples_seen": at * batch_size, "batch_size": batch_size})
+
         if tele is not None:
             tele.emit("phase", name="run", edge="begin", step=step_i,
                       attempt=int(os.environ.get("DLS_RESTART", "0") or 0))
@@ -137,8 +252,10 @@ class Trainer:
         meter.start()
         lap_start = step_i
         last_metrics: dict[str, float] = {}
+        got_batch = False
         try:
-            for batch in device_batches(dataset, batch_size, self.device):
+            for batch in self._feed(dataset, batch_size, skip_batches=skip):
+                got_batch = True
                 if steps is not None and step_i >= steps:
                     break
                 self.state, metrics = self._train_step(self.state, batch)
@@ -160,23 +277,42 @@ class Trainer:
                     if bad:
                         raise FloatingPointError(
                             f"non-finite metrics at step {step_i}: {bad}")
+                if ckpt is not None and step_i % checkpoint_every == 0:
+                    save(step_i)
         finally:
             if tele is not None:
                 tele.emit("phase", name="run", edge="end", step=step_i)
+        if skip and not got_batch:
+            raise RuntimeError(
+                f"resume fast-forward consumed the whole dataset: skipping "
+                f"{skip} batches (examples_seen="
+                f"{int(data_state['examples_seen'])}) exhausted the feed "
+                f"before the first post-resume step — pass a .repeat() "
+                f"dataset or fewer epochs-already-trained")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return self.state, {**meter.summary(), **last_metrics}
+        summary = {**meter.summary(), **last_metrics}
+        if ckpt is not None:
+            if step_i % checkpoint_every:
+                save(step_i)
+            ckpt.wait()
+        return self.state, summary
 
     def evaluate(self, dataset: PartitionedDataset, *, batch_size: int
                  ) -> dict[str, float]:
-        """Weighted-mean metrics over the whole dataset, the short tail
-        batch included (marked with ``eval_mask``), combined by the loss's
-        ``"weight"`` metric when it reports one, else by rows. The model
-        runs in eval mode (BatchNorm on its running statistics)."""
+        """Weighted-mean metrics over the whole dataset, the tail batch
+        included, combined by the loss's ``"weight"`` metric when it
+        reports one, else by rows. In a gang, each batch's weighted sums and
+        weights are summed across ranks, and a tail that cannot fill every
+        rank equally is padded with ``eval_mask == 0`` rows (a rank holding
+        only padding weighs nothing), so the result is one pass over the
+        global dataset. The model runs in eval mode (BatchNorm on its
+        running statistics)."""
         totals: dict[str, float] = {}
         wsum = 0.0
-        for batch in device_batches(dataset, batch_size, self.device,
-                                    drop_remainder=False, pad_remainder=True):
+        for host in self._host_feed(dataset, batch_size, drop_remainder=False,
+                                    pad_remainder=True):
+            batch = to_device(host, self.device)
             rows = next(iter(batch.values())).shape[0]
             m = _to_host(self._eval_step(batch))
             if "eval_mask" in batch and "weight" not in m:
@@ -185,7 +321,52 @@ class Trainer:
                     "'weight' metric reported): weight per-row metrics by "
                     "batch['eval_mask'] and report weight=mask.sum()")
             w = float(m.pop("weight", rows))
-            for k, v in m.items():
-                totals[k] = totals.get(k, 0.0) + v * w
-            wsum += w
+            if "eval_mask" in host and not host["eval_mask"].any():
+                w = 0.0  # this rank's slice of the tail is all padding
+            vec = torch.tensor([w] + [v * w for v in m.values()],
+                               dtype=torch.float64, device=self.device)
+            sums = collectives.all_reduce_sum_(vec).tolist()
+            for k, v in zip(m, sums[1:]):
+                totals[k] = totals.get(k, 0.0) + v
+            wsum += sums[0]
         return {k: v / max(wsum, 1e-9) for k, v in totals.items()}
+
+    def predict(self, dataset: PartitionedDataset, *, batch_size: int,
+                output_fn: Callable[[Any], Any] | None = None,
+                with_inputs: bool = False) -> Iterator[Any]:
+        """Yield per-example model outputs (host numpy) over ``dataset``, in
+        JAX's *feed order*: shard-interleaved (partition *i* → data shard
+        ``i % num_shards``), which is not ``dataset.collect()`` order when
+        there are several partitions. ``with_inputs=True`` yields
+        ``(example, output)`` pairs instead. ``output_fn`` post-processes
+        each output batch on the device before the copy to the host (e.g.
+        ``lambda logits: logits.argmax(-1)``).
+
+        In a gang the outputs are gathered, so every rank yields the whole
+        global row stream — with ``with_inputs``, only the rows whose inputs
+        it holds. As in JAX, a tail that cannot fill every rank equally is
+        then dropped."""
+        n = self.session.default_parallelism
+        srange = process_shard_range(n)
+        gather = self.session.distributed and self.session.world_size > 1
+        self.model.eval()
+        for host_batch in self._host_feed(dataset, batch_size,
+                                          drop_remainder=False):
+            with torch.inference_mode():
+                out = self.model(to_device(host_batch, self.device))
+                if output_fn is not None:
+                    out = output_fn(out)
+                if gather:
+                    out = _tree_map(collectives.all_gather_rows, out)
+                host = _tree_map(lambda t: t.cpu().numpy(), out)
+            rows = _first_leaf(host).shape[0]
+            local_rows = next(iter(host_batch.values())).shape[0]
+            lo = 0 if srange is None else srange[0] * (rows // n)
+            for r in range(rows):
+                row_out = _tree_map(lambda a: a[r], host)
+                if with_inputs:
+                    if lo <= r < lo + local_rows:
+                        yield ({k: v[r - lo] for k, v in host_batch.items()},
+                               row_out)
+                else:
+                    yield row_out

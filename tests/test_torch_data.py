@@ -127,7 +127,7 @@ def test_session_on_cpu():
 
 
 @pytest.mark.parametrize("master,exc,match", [
-    ("local[2]", NotImplementedError, "data-parallel"),
+    ("local[2]", ValueError, "launch the script through"),
     ("yarn", ValueError, "unrecognized master"),
 ])
 def test_session_refuses_what_it_cannot_run(master, exc, match):

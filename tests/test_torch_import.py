@@ -55,7 +55,10 @@ print(json.dumps({{"modules": names, "loaded": sorted(sys.modules)}}))
                 "train.optim", "train.state", "train.step", "train.trainer",
                 "ops.conv_bn", "models.resnet", "models.resnet_io",
                 "data.sources", "data.vision", "ops.scatter_rows",
-                "models.dlrm", "models.dlrm_io", "train.embed"}
+                "models.dlrm", "models.dlrm_io", "train.embed",
+                "models.lenet", "models.lenet_io", "utils.env",
+                "parallel.mesh", "parallel.collectives", "checkpoint", "cli",
+                "examples.train_mnist"}
     got = {n.split(".", 1)[1] for n in rec["modules"]}
     assert expected <= got, expected - got
     bad = [m for m in rec["loaded"] if _forbidden(m)]
@@ -86,7 +89,7 @@ def test_chip_smoke_imports_no_jax():
 
 @pytest.mark.parametrize("entry", ["bert_base", "for_model", "engine",
                                    "resolve_device", "session", "trainer",
-                                   "resnet50", "dlrm"])
+                                   "resnet50", "dlrm", "lenet"])
 def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
     if torch.cuda.is_available():
         pytest.skip("the no-CUDA error needs a machine without CUDA")
@@ -101,6 +104,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
         "bert_base": lambda: bert_base(num_layers=1),
         "resnet50": lambda: port.resnet50(),
         "dlrm": lambda: port.dlrm(vocab_sizes=(10,) * 26),
+        "lenet": lambda: port.LeNet5(),
         "for_model": lambda: InferenceEngine.for_model(
             BertForMLM(BertConfig.tiny(num_layers=1), device="cpu")),
         "engine": lambda: InferenceEngine(lambda p, b: b, {}),
