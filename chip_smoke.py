@@ -25,40 +25,56 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    kernels are not built for, an f32 ``Conv1x1BN`` and a bf16 one with
    widths off a multiple of 8 train unfused, and the wrappers raise on such
    inputs;
-4. train BERT-base MLM at full width (12 layers, hidden 768, vocab 30522,
+4. the host input path, W = min(8, cores / 2) worker processes: BERT's
+   feed (``mlm_dataset`` at S=512, b=32, tokenize pooled) and ResNet's
+   (``imagenet_train`` at 224², b=256), each with its source at 1 and at W
+   partitions, at 0 and at W workers; check that the first 4 batches are
+   the same bytes at both counts, that the pool ran (W workers, items
+   delivered) and that no worker, shared-memory segment or prefetch thread
+   outlives the phase; print the host's ms per batch of each and the
+   host's core count;
+5. train BERT-base MLM at full width (12 layers, hidden 768, vocab 30522,
    S=512, dropout 0.1, random weights from a seed) for 30 steps at b=32
    through the port's ``Session`` → ``synthetic_wikipedia`` →
-   ``WordPieceTokenizer`` → ``mlm_dataset`` → ``Trainer.fit``, the calls of
+   ``WordPieceTokenizer`` → ``mlm_dataset`` (tokenize over W workers) →
+   ``Trainer.fit`` (which prefetches), the calls of
    ``examples/train_bert.py``; check that every logged loss is finite and
    the last below 0.9x the first, that each kernel ran 12 times per step,
-   and that every parameter gradient through the kernels agrees with the
-   plain attention path on one batch; print the step time, tokens/s, the
-   step's forward/backward/optimizer split, a profiled window and the peak
-   device memory;
-5. serve BERT-base through the port's ``InferenceEngine.for_model`` to 8
+   that every parameter gradient through the kernels agrees with the
+   plain attention path on one batch, that the steps' telemetry saw the
+   pool at W workers and that nothing of the input path outlives the
+   phase; print the step time, tokens/s, the host's ms per batch, the
+   loop's own ms a step with its input ready, the laps' summed wait for
+   input, the prefetch ring's depth, the workers'
+   utilization, the step's forward/backward/optimizer split, a profiled
+   window and the peak device memory;
+6. serve BERT-base through the port's ``InferenceEngine.for_model`` to 8
    client threads; check every served row against a one-request forward of
    the same module whose attention runs the plain PyTorch path, the first
    layer's attention output of a served batch against that path on the
    same inputs, and that K1 ran 12 times per served batch; print latency
    percentiles and requests/s;
-6. hold K4 (the 1×1-conv matmul with BN statistics) against its plain
+7. hold K4 (the 1×1-conv matmul with BN statistics) against its plain
    version on the card in bf16 at the ten shapes of ResNet-50's fused
    layers at b=256 and five small, ragged ones, at the stated tolerances,
    each launched twice for equal bits, and time the kernel, the plain
    version, the library yardstick (``torch.mm`` then ``torch.var_mean``)
    and the bound;
-7. train ResNet-50 at full width (stages 3/4/6/3, width 64, 1000 classes,
+8. train ResNet-50 at full width (stages 3/4/6/3, width 64, 1000 classes,
    224², bf16 activations, ``fused_conv_bn=True``, random weights from a
    seed) for 30 steps at b=256 through the port's ``Session`` →
-   ``synthetic_images`` → ``imagenet_train(repeat=True)`` → ``Trainer.fit``
-   with SGD under ``warmup_cosine(0.1)``, the calls of
-   ``examples/train_resnet.py``; check that every logged loss is finite and
-   the last below the first, that K4 ran 27 times per step, that every
-   parameter gradient through K4 agrees with the unfused chain on one
-   batch, that the BN statistics moved and an evaluation is finite; print
-   the step time, images/s, the host's ms per batch, the step's split, a
-   profiled window and the peak device memory;
-8. hold K5 (the in-place row scatter-add) against its plain version on the
+   ``synthetic_images`` (W partitions) → ``imagenet_train(repeat=True)``
+   over W workers → ``Trainer.fit`` with SGD under ``warmup_cosine(0.1)``,
+   the calls of ``examples/train_resnet.py``; check that every logged loss
+   is finite and the last below the first, that K4 ran 27 times per step,
+   that every parameter gradient through K4 agrees with the unfused chain
+   on one batch, that the BN statistics moved and an evaluation is
+   finite, that the steps' telemetry saw the pool at W workers and that
+   nothing of the input path outlives the phase; print the step time,
+   images/s, the host's ms per batch, the loop's own ms a step, the input
+   gauges, the step's split,
+   a profiled window and the peak device memory;
+9. hold K5 (the in-place row scatter-add) against its plain version on the
    card, bitwise, in five cases: the DLRM step's shape (the sorted unique
    rows of a real synthetic batch of 8,192 over the 2,600,000 × 64 f32
    table, padded to 212,992 with drop sentinels), the same at D = 1, 700
@@ -68,7 +84,7 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    not copied. At the DLRM shape, time the kernel, the plain version,
    ``index_add_`` (a yardstick the port never calls on this path) and
    the bound;
-9. train the config-4 DLRM at full width (26 × 100,000 rows × 64 in one
+10. train the config-4 DLRM at full width (26 × 100,000 rows × 64 in one
    f32 table, bottom MLP 512/256/64, top 512/256/1, bf16 MLPs, random
    weights from a seed) for 30 steps at b=8,192 through the port's
    ``Session`` → ``synthetic_criteo`` → ``Trainer.fit(sparse_embed=...)``
@@ -78,9 +94,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    the table's size, and, on one more batch from one saved state, that
    rows outside the batch do not move and that K5's step, a step whose
    scatter is K5's plain version, and a second K5 step give the same bits;
-   print the step time, examples/s, the host's ms per batch, a profiled
-   window, the peak device memory, a held-out evaluation and its AUC;
-10. train LeNet-5 (BASELINE.json config 1, the main path; full width,
+   print the step time, examples/s, the host's ms per batch, the loop's
+   own ms a step, the laps' summed wait for input, a profiled window, the peak device memory, a
+   held-out evaluation and its AUC;
+11. train LeNet-5 (BASELINE.json config 1, the main path; full width,
    random weights from a seed) through the port's ``dlsubmit``: ``python
    -m distributeddeeplearningspark_tpu_torch.cli --master local[1]`` runs
    the port's ``examples/train_mnist.py`` in a subprocess, a gang of one
@@ -97,10 +114,16 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    byte flipped is quarantined and the restore walks back to the step
    before it; and a gang of one in this process shows NCCL kernels in a
    profiled window. LeNet runs no hand-written kernel. Print the step
-   time, examples/s, the host's ms per batch, busy and all-reduce ms per
-   step, and checkpoint save and restore ms;
-11. print one JSON line of per-kernel numbers, the card's name and power
+   time, examples/s, the host's ms per batch, the laps' summed wait for
+   input, busy and all-reduce ms per step, and checkpoint save and restore
+   ms;
+12. print one JSON line of per-kernel numbers, the card's name and power
    limit (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --gang`` runs the LeNet phase alone at one rank per
+card (2 or more). ``python3 chip_smoke.py --input-ab`` times BERT-base,
+ResNet-50 and the DLRM through ``Trainer.fit`` with their batches built in
+the prefetch thread and in the loop's thread, in turns (one card).
 
 Exits non-zero, printing no result, when CUDA is absent, when the port's
 package is not beside this script, or when any phase fails.
@@ -108,7 +131,10 @@ package is not beside this script, or when any phase fails.
 
 from __future__ import annotations
 
+import hashlib
 import json
+import multiprocessing as mp
+import os
 import subprocess
 import sys
 import threading
@@ -592,7 +618,144 @@ def check_gates(torch, fa, attention, cb) -> None:
                                      conv1x1bn_unfused=unfused)), flush=True)
 
 
-# -- phase 4: training BERT-base -----------------------------------------------
+# -- phase 4: the host input path ---------------------------------------------
+
+#: batches whose bytes the input phase compares at 0 and W workers, and
+#: batches after them over which it times the host's ms per batch: one
+#: whole pass of ResNet's 1,024 images, whose shuffle draws the pass's
+#: images before its first batch
+INPUT_BATCHES, INPUT_TIMED = 4, 4
+
+
+def input_workers() -> int:
+    """W, the worker processes of the input phase and of the BERT and
+    ResNet runs: half the host's cores, at most 8."""
+    return min(8, (os.cpu_count() or 2) // 2)
+
+
+def _input_leftovers() -> dict:
+    """What of the input path is alive in this process (prefetch threads,
+    pool workers, ``dlsw-<pid>-`` segments), after a bounded moment for
+    them to end."""
+    deadline = time.monotonic() + 5.0
+    while True:
+        left = dict(
+            threads=[t.name for t in threading.enumerate() if t.name == "dls-prefetch"],
+            workers=[p.name for p in mp.active_children()
+                     if p.name.startswith("dls-worker")],
+            segments=[f for f in os.listdir("/dev/shm")
+                      if f.startswith(f"dlsw-{os.getpid()}-")])
+        if not any(left.values()) or time.monotonic() > deadline:
+            return {k: v for k, v in left.items() if v}
+        time.sleep(0.05)
+
+
+def _feed_run(ds, batch_size: int) -> dict:
+    """The first INPUT_BATCHES host batches of ``ds``: a digest of each
+    one's bytes, the host's ms for the first, the live pools' gauges after
+    it, and the host's ms per batch over the INPUT_TIMED batches after
+    them."""
+    from distributeddeeplearningspark_tpu_torch.data import workers
+    from distributeddeeplearningspark_tpu_torch.data.feed import host_batches
+
+    def digest(batch) -> str:
+        h = hashlib.sha256()
+        for k in sorted(batch):
+            h.update(k.encode() + batch[k].dtype.str.encode()
+                     + str(batch[k].shape).encode() + batch[k].tobytes())
+        return h.hexdigest()
+
+    it = host_batches(ds, batch_size)
+    try:
+        t0 = time.perf_counter()
+        digests = [digest(next(it))]
+        t1 = time.perf_counter()
+        gauges = workers.pool_gauges()
+        digests += [digest(next(it)) for _ in range(INPUT_BATCHES - 1)]
+        t2 = time.perf_counter()
+        for _ in range(INPUT_TIMED):
+            next(it)
+        t3 = time.perf_counter()
+    finally:
+        it.close()
+    return dict(digests=digests, first_ms=(t1 - t0) * 1e3,
+                host_batch_ms=(t3 - t2) / INPUT_TIMED * 1e3,
+                input_workers=gauges.get("input_workers", 0),
+                worker_items=gauges.get("worker_items", 0))
+
+
+def check_input() -> dict:
+    """BERT's feed (S=512, b=32) and ResNet's (224², b=256), each with its
+    source at 1 and at W partitions, at 0 and at W workers: the same bytes
+    at both counts, the pool really ran (W workers, items delivered), the
+    host's ms per batch, and nothing of the input path left after."""
+    from distributeddeeplearningspark_tpu_torch.data import sources, text, vision
+
+    w = input_workers()
+    docs = text.synthetic_wikipedia(2048, num_partitions=1)
+    tok = text.WordPieceTokenizer.train(docs.collect(), vocab_size=8192)
+    feeds = {}
+    for parts in (1, w):
+        bert_docs = text.synthetic_wikipedia(2048, num_partitions=parts)
+        images = sources.synthetic_images(4 * RESNET_BATCH, image_size=224,
+                                          num_classes=1000, num_partitions=parts)
+        for n in (0, w):
+            feeds[f"bert_p{parts}_w{n}"] = _feed_run(text.mlm_dataset(
+                bert_docs, tok, seq_len=512, max_predictions=80,
+                num_workers=n).repeat(), 32)
+            feeds[f"resnet_p{parts}_w{n}"] = _feed_run(vision.imagenet_train(
+                images, size=224, repeat=True, num_workers=n), RESNET_BATCH)
+    left = _input_leftovers()
+    rec = dict(workers=w, cpu_count=os.cpu_count(), batches=INPUT_BATCHES,
+               host_batch_ms={k: v["host_batch_ms"] for k, v in feeds.items()},
+               first_batch_ms={k: v["first_ms"] for k, v in feeds.items()},
+               pool={k: (v["input_workers"], v["worker_items"])
+                     for k, v in feeds.items()}, leftovers=left)
+    print("input " + json.dumps(rec), flush=True)
+    for model in ("bert", "resnet"):
+        for parts in (1, w):
+            serial, pooled = (feeds[f"{model}_p{parts}_w{n}"] for n in (0, w))
+            check(serial["digests"] == pooled["digests"],
+                  f"{model} batches at {parts} partition(s) differ between 0 and "
+                  f"{w} workers")
+            check(pooled["input_workers"] == w and pooled["worker_items"] > 0
+                  and serial["input_workers"] == 0,
+                  f"{model} at {parts} partition(s): the pool did not run "
+                  f"({pooled['input_workers']} workers, {pooled['worker_items']} "
+                  f"items)")
+    check(not left, f"the input path outlived its phase: {left}")
+    return rec
+
+
+def _input_gauges(records: list[dict]) -> dict:
+    """The input path's gauges over a run's ``step_metrics`` laps: the
+    summed wait for input and lap wall, the ring's depth, the pool's size
+    and utilization."""
+    laps = [r for r in records if r["kind"] == "step_metrics"]
+    pooled = [r for r in laps if "input_workers" in r]
+    depth = [r["prefetch_depth_mean"] for r in laps if "prefetch_depth_mean" in r]
+    return dict(
+        input_wait_s=sum(r.get("input_wait_s", 0.0) for r in laps),
+        lap_s=sum(r["lap_s"] for r in laps),
+        input_wait_by_lap_s=[r.get("input_wait_s") for r in laps],
+        prefetch_depth_mean=sum(depth) / len(depth) if depth else None,
+        prefetch_depth_min=min((r["prefetch_depth_min"] for r in laps
+                                if "prefetch_depth_min" in r), default=None),
+        input_workers=sorted({r["input_workers"] for r in pooled}),
+        worker_util_mean=pooled[-1]["worker_util_mean"] if pooled else None,
+        worker_overflow=pooled[-1]["worker_overflow"] if pooled else None,
+        laps=len(laps), laps_with_pool=len(pooled))
+
+
+def _check_pooled(name: str, gauges: dict, workers: int) -> None:
+    check(gauges["laps_with_pool"] > 0 and gauges["input_workers"] == [workers],
+          f"{name}'s laps saw pools of {gauges['input_workers']} workers in "
+          f"{gauges['laps_with_pool']} of {gauges['laps']} laps, want {workers}")
+    left = _input_leftovers()
+    check(not left, f"{name}: the input path outlived its phase: {left}")
+
+
+# -- phase 5: training BERT-base -----------------------------------------------
 
 
 def _grad_parity(torch, model, loss_fn, batch) -> dict:
@@ -673,6 +836,19 @@ def _step_split(torch, trainer, batch, repeats: int = 3) -> dict:
                 optimizer_ms=sums[2] / repeats)
 
 
+def _loop_ms(torch, trainer, batch, steps: int = 10) -> float:
+    """The train loop's own ms a step with its input ready: ``steps`` train
+    steps on one batch already on the card, no feed, ending in a sync (the
+    step's dispatch and device work, nothing of the host input path)."""
+    trainer.state, _ = trainer._train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.state, _ = trainer._train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
 def _kernel_family(name: str) -> str:
     """A device kernel's family, from its name: the port's kernels, cuDNN
     convolutions, cuBLAS GEMMs, or other (elementwise, reductions, copies)."""
@@ -738,17 +914,14 @@ def _profile_fit(torch, trainer, ds, batch_size: int, fit_kw: dict,
 
 def train_bert(torch, fa) -> dict:
     """BERT-base MLM at full width through the port's Session → text →
-    mlm_dataset → Trainer.fit, the calls of examples/train_bert.py at
-    S=512; the run's step_metrics telemetry gives the logged losses."""
-    import os
+    mlm_dataset (tokenize over W worker processes) → Trainer.fit (its
+    prefetch), the calls of examples/train_bert.py at S=512; the run's
+    step_metrics telemetry gives the logged losses and the input gauges."""
     import shutil
 
     from distributeddeeplearningspark_tpu_torch import telemetry
     from distributeddeeplearningspark_tpu_torch.data import text
-    from distributeddeeplearningspark_tpu_torch.data.feed import (
-        device_batches,
-        host_batches,
-    )
+    from distributeddeeplearningspark_tpu_torch.data.feed import device_batches
     from distributeddeeplearningspark_tpu_torch.models import bert
     from distributeddeeplearningspark_tpu_torch.session import Session
     from distributeddeeplearningspark_tpu_torch.train import losses, optim
@@ -762,7 +935,9 @@ def train_bert(torch, fa) -> dict:
     docs = text.synthetic_wikipedia(
         2048, num_partitions=max(spark.default_parallelism, 1))
     tok = text.WordPieceTokenizer.train(docs.collect(), vocab_size=8192)
-    ds = text.mlm_dataset(docs, tok, seq_len=seq, max_predictions=80).repeat()
+    workers = input_workers()
+    ds = text.mlm_dataset(docs, tok, seq_len=seq, max_predictions=80,
+                          num_workers=workers).repeat()
     model = bert.bert_base(device="cuda", seed=0)
     cfg = model.cfg
     check(cfg.num_layers == 12 and cfg.hidden_size == 768
@@ -798,15 +973,12 @@ def train_bert(torch, fa) -> dict:
         for line in f.read_text().splitlines()]
     logged = [(r["step"], r["metrics"]["loss"]) for r in records
               if r["kind"] == "step_metrics"]
-    host = host_batches(ds, batch_size)
-    next(host)
-    t_host = time.perf_counter()
-    for _ in range(5):
-        next(host)
-    host_batch_ms = (time.perf_counter() - t_host) / 5 * 1e3
+    gauges = _input_gauges(records)
+    host_batch_ms = _host_batch_ms(ds, batch_size, 6)
     profile = _profile_fit(torch, trainer, ds, batch_size,
                            dict(tokens_per_example=seq))
     batch = next(device_batches(ds, batch_size, trainer.device))
+    loop_ms = _loop_ms(torch, trainer, batch)
     parity = _grad_parity(torch, model, losses.masked_lm, batch)
     split = _step_split(torch, trainer, batch)
     spark.stop()
@@ -817,8 +989,10 @@ def train_bert(torch, fa) -> dict:
                tokens_per_sec_per_chip=summary.get("tokens_per_sec_per_chip"),
                launches=launches, max_memory_allocated=peak_bytes,
                fit_s=fit_s, setup_s=setup_s, host_batch_ms=host_batch_ms,
+               loop_ms=loop_ms, workers=workers, input=gauges,
                step_split=split, profile=profile, grad_parity=parity)
     print("train bert-base " + json.dumps(rec), flush=True)
+    _check_pooled("train_bert", gauges, workers)
     check(len(logged) == steps // log_every,
           f"{len(logged)} step_metrics records for {steps} steps")
     check(all(np.isfinite(loss) for _, loss in logged),
@@ -837,7 +1011,7 @@ def train_bert(torch, fa) -> dict:
     return rec
 
 
-# -- phase 6: K4 against its plain version ---------------------------------------
+# -- phase 7: K4 against its plain version ---------------------------------------
 
 # (M, K, N) of the Conv1x1BN calls that the K4 gate admits in one fused
 # ResNet-50 forward at b=256, 224², and how many of the 27 launches of a
@@ -933,7 +1107,7 @@ def check_conv_bn(torch, cb) -> list[dict]:
     return results
 
 
-# -- phase 7: training ResNet-50 ---------------------------------------------------
+# -- phase 8: training ResNet-50 ---------------------------------------------------
 
 # ResNet-50 parameter gradients through K4 (every Conv1x1BN.fused = True)
 # vs the unfused chain (fused = False), one batch, the same weights, per
@@ -977,26 +1151,31 @@ def _conv_bn_grad_parity(torch, model, loss_fn, batch) -> dict:
 
 
 def _host_batch_ms(ds, batch_size: int, batches: int) -> float:
-    """The host's ms per batch, over ``batches`` fresh batches (whole passes
+    """The host's ms per batch, over ``batches`` batches after the first
+    (which starts the dataset's worker pools, if it has any; whole passes
     over a small dataset include each pass's shuffle and image draws)."""
     from distributeddeeplearningspark_tpu_torch.data.feed import host_batches
 
     it = host_batches(ds, batch_size)
-    t0 = time.perf_counter()
-    for _ in range(batches):
+    try:
         next(it)
-    return (time.perf_counter() - t0) / batches * 1e3
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(it)
+        return (time.perf_counter() - t0) / batches * 1e3
+    finally:
+        it.close()
 
 
 def train_resnet(torch, cb) -> dict:
     """ResNet-50 at full width (stages 3/4/6/3, width 64, 1000 classes,
     224², bf16 activations, f32 params and BN state, random weights from a
     seed, fused_conv_bn=True) through the port's Session →
-    synthetic_images → imagenet_train(repeat=True) → Trainer.fit with SGD
+    synthetic_images (W partitions) → imagenet_train(repeat=True, W worker
+    processes, one a partition) → Trainer.fit (its prefetch) with SGD
     (momentum 0.9, weight decay 1e-4) under warmup_cosine(0.1) and
     softmax_xent: the calls of examples/train_resnet.py's synthetic
     branch. 4 batches of images, seen several times, so the loss falls."""
-    import os
     import shutil
 
     from distributeddeeplearningspark_tpu_torch import telemetry
@@ -1012,9 +1191,10 @@ def train_resnet(torch, cb) -> dict:
     shutil.rmtree(workdir, ignore_errors=True)
     t0 = time.perf_counter()
     spark = Session.builder.master("local[1]").appName("resnet50").getOrCreate()
+    workers = input_workers()
     src = sources.synthetic_images(4 * batch_size, image_size=size,
-                                   num_classes=1000, num_partitions=1)
-    ds = vision.imagenet_train(src, size=size, repeat=True)
+                                   num_classes=1000, num_partitions=workers)
+    ds = vision.imagenet_train(src, size=size, repeat=True, num_workers=workers)
     model = resnet.resnet50(num_classes=1000, fused_conv_bn=True,
                             device="cuda", seed=0)
     check(model.stage_sizes == (3, 4, 6, 3) and model.head.out_features == 1000
@@ -1046,11 +1226,13 @@ def train_resnet(torch, cb) -> dict:
         for line in f.read_text().splitlines()]
     logged = [(r["step"], r["metrics"]["loss"]) for r in records
               if r["kind"] == "step_metrics"]
+    gauges = _input_gauges(records)
     moved = sum(1 for n, b in model.named_buffers()
                 if n.endswith(".mean") and bool(b.abs().max() > 0))
     host_batch_ms = _host_batch_ms(ds, batch_size, 8)
     profile = _profile_fit(torch, trainer, ds, batch_size, {})
     batch = next(device_batches(ds, batch_size, trainer.device))
+    loop_ms = _loop_ms(torch, trainer, batch)
     parity = _conv_bn_grad_parity(torch, model, losses.softmax_xent, batch)
     split = _step_split(torch, trainer, batch)
     eval_ds = vision.imagenet_eval(sources.synthetic_images(
@@ -1067,9 +1249,12 @@ def train_resnet(torch, cb) -> dict:
                k4_launches=launches, k4_launches_per_step=launches / steps,
                bn_means_moved=moved, max_memory_allocated=peak_bytes,
                fit_s=fit_s, setup_s=setup_s, host_batch_ms=host_batch_ms,
+               loop_ms=loop_ms, workers=workers, source_partitions=workers,
+               input=gauges,
                step_split=split, profile=profile, grad_parity=parity,
                evaluation=evaluation)
     print("train resnet-50 " + json.dumps(rec), flush=True)
+    _check_pooled("train_resnet", gauges, workers)
     check(len(logged) == steps // log_every,
           f"{len(logged)} step_metrics records for {steps} steps")
     check(all(np.isfinite(loss) for _, loss in logged),
@@ -1089,7 +1274,7 @@ def train_resnet(torch, cb) -> dict:
     return rec
 
 
-# -- phase 8: K5 against its plain version ---------------------------------------
+# -- phase 9: K5 against its plain version ---------------------------------------
 
 # K5 and its plain version add one f32 update to each kept element: the
 # results must agree bitwise (max_abs_err 0)
@@ -1196,7 +1381,7 @@ def check_scatter_rows(torch, sr) -> list[dict]:
     return results
 
 
-# -- phase 9: training DLRM ------------------------------------------------------
+# -- phase 10: training DLRM ------------------------------------------------------
 
 
 def _tensors(torch, tree) -> list:
@@ -1274,7 +1459,6 @@ def train_dlrm(torch, sr) -> dict:
     row-wise AdaGrad (lr 1e-2, the JAX bench's) on the table through K5.
     4 batches of examples, seen 7.5 times, so the loss falls."""
     import gc
-    import os
     import shutil
 
     from distributeddeeplearningspark_tpu_torch import telemetry
@@ -1328,11 +1512,13 @@ def train_dlrm(torch, sr) -> dict:
         for line in f.read_text().splitlines()]
     logged = [(r["step"], r["metrics"]["loss"]) for r in records
               if r["kind"] == "step_metrics"]
+    gauges = _input_gauges(records)
     opt_tensors = _tensors(torch, state.opt_state)
     table_sized = [tuple(t.shape) for t in opt_tensors if t.numel() >= table.numel()]
     host_batch_ms = _host_batch_ms(ds, batch_size, 3)
     profile = _profile_fit(torch, trainer, ds, batch_size, {})
     batch = next(device_batches(ds, batch_size, trainer.device))
+    loop_ms = _loop_ms(torch, trainer, batch)
     bits = _sparse_step_bits(torch, trainer, batch)
     eval_src = sources.synthetic_criteo(8 * batch_size, vocab_sizes=DLRM_VOCABS,
                                         seed=777)
@@ -1355,7 +1541,8 @@ def train_dlrm(torch, sr) -> dict:
                optimizer_bytes=sum(t.numel() * t.element_size() for t in opt_tensors),
                table_sized_optimizer_tensors=table_sized,
                max_memory_allocated=peak_bytes, fit_s=fit_s, setup_s=setup_s,
-               host_batch_ms=host_batch_ms, profile=profile,
+               host_batch_ms=host_batch_ms, loop_ms=loop_ms, input=gauges,
+               profile=profile,
                extra_step=bits, evaluation=evaluation, eval_examples=8 * batch_size,
                eval_auc=auc.compute())
     print("train dlrm " + json.dumps(rec), flush=True)
@@ -1379,7 +1566,7 @@ def train_dlrm(torch, sr) -> dict:
     return rec
 
 
-# -- phase 10: LeNet-5 through the port's dlsubmit ------------------------------
+# -- phase 11: LeNet-5 through the port's dlsubmit ------------------------------
 
 #: steps of the profiled window of each rank
 LENET_WINDOW = 20
@@ -1545,6 +1732,7 @@ def train_lenet(torch, ranks: int = 1) -> dict:
                examples_per_sec=summary.get("examples_per_sec"),
                examples_per_sec_per_chip=summary.get("examples_per_sec_per_chip"),
                host_batch_ms=host_batch_ms,
+               input=_input_gauges([r for r in main_records if r["process"] == "p0"]),
                busy_ms_per_step=profile.get("busy_ms_per_step"),
                idle_share=profile.get("idle_share"),
                # NCCL's one-rank all-reduce in place launches no kernel
@@ -1603,6 +1791,123 @@ def train_lenet(torch, ranks: int = 1) -> dict:
     return rec
 
 
+# -- chip_smoke.py --input-ab: the prefetch thread against the loop's thread ----
+
+#: steps of each timed fit of the A/B, and its laps (the first is left out)
+AB_STEPS = {"bert": (20, 4), "resnet": (12, 3), "dlrm": (12, 3)}
+#: the interpreter's switch interval of the variants that cut it
+AB_SWITCH_S = 1e-4
+
+
+def _ab_fit(trainer, ds, batch_size: int, model: str, background: bool,
+            switch_s: float | None) -> float:
+    """Step ms of one fit whose feed is assembled in the prefetch thread
+    (``background``) or in the loop's thread, at the given switch interval."""
+    import functools
+
+    from distributeddeeplearningspark_tpu_torch.data.prefetch import prefetch_to_device
+    from distributeddeeplearningspark_tpu_torch.train import trainer as trainer_mod
+
+    steps, log_every = AB_STEPS[model]
+    interval = sys.getswitchinterval()
+    trainer_mod.prefetch_to_device = functools.partial(prefetch_to_device,
+                                                       background=background)
+    if switch_s is not None:
+        sys.setswitchinterval(switch_s)
+    try:
+        start = trainer.state.step if trainer.state is not None else 0
+        _, summary = trainer.fit(ds, batch_size=batch_size, steps=start + steps,
+                                 log_every=log_every)
+    finally:
+        trainer_mod.prefetch_to_device = prefetch_to_device
+        sys.setswitchinterval(interval)
+    return summary["step_time_ms"]
+
+
+def _ab_model(name: str, trainer, datasets: dict, batch_size: int) -> dict:
+    """Every variant of one model, in two rounds (the second in reverse
+    order): {variant: [step ms of round 1, of round 2]}."""
+    variants = [(ds_name, bg, sw) for ds_name in datasets
+                for bg, sw in ((True, None), (False, None), (True, AB_SWITCH_S))]
+    times: dict = {}
+    for order in (variants, variants[::-1]):
+        for ds_name, bg, sw in order:
+            key = (f"{ds_name}, {'thread' if bg else 'loop'}"
+                   + (f", switch {sw * 1e3:g} ms" if sw else ""))
+            times.setdefault(key, []).append(
+                _ab_fit(trainer, datasets[ds_name], batch_size, name, bg, sw))
+    left = _input_leftovers()
+    check(not left, f"{name}: the input path outlived the A/B: {left}")
+    return times
+
+
+def input_ab_main(torch) -> int:
+    """``chip_smoke.py --input-ab``: where the prefetch thread helps and where
+    the interpreter lock takes it back. BERT-base, ResNet-50 and the DLRM at
+    full width, each trained through ``Trainer.fit`` with its batches
+    assembled in the prefetch thread (the default) or in the loop's thread
+    (``prefetch_to_device(background=False)``), with the thread at the
+    interpreter's default switch interval and at 0.1 ms, over the feeds of
+    the main script (with W workers and with none). Each variant runs twice,
+    the order reversed in the second round; one card."""
+    import gc
+
+    from distributeddeeplearningspark_tpu_torch.data import sources, text, vision
+    from distributeddeeplearningspark_tpu_torch.models import bert, dlrm, resnet
+    from distributeddeeplearningspark_tpu_torch.ops import _build
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    _build.build_all()
+    w = input_workers()
+    spark = Session.builder.master("local[1]").appName("input-ab").getOrCreate()
+    out = dict(workers=w, cpu_count=os.cpu_count(), switch_default_s=sys.getswitchinterval(),
+               steps={k: v[0] for k, v in AB_STEPS.items()}, nvidia_smi=nvidia_smi_line())
+    try:
+        docs = text.synthetic_wikipedia(2048, num_partitions=1)
+        tok = text.WordPieceTokenizer.train(docs.collect(), vocab_size=8192)
+        trainer = Trainer(spark, bert.bert_base(device="cuda", seed=0), losses.masked_lm,
+                          optim.with_grad_clip(optim.adamw(1e-4), 1.0))
+        out["bert"] = _ab_model("bert", trainer, {
+            f"{n} workers": text.mlm_dataset(docs, tok, seq_len=512, max_predictions=80,
+                                             num_workers=n).repeat()
+            for n in (w, 0)}, 32)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        src = sources.synthetic_images(4 * RESNET_BATCH, image_size=224,
+                                       num_classes=1000, num_partitions=w)
+        trainer = Trainer(spark, resnet.resnet50(num_classes=1000, fused_conv_bn=True,
+                                                 device="cuda", seed=0),
+                          losses.softmax_xent, optim.sgd(0.01, momentum=0.9))
+        out["resnet"] = _ab_model("resnet", trainer, {
+            f"{n} workers": vision.imagenet_train(src, size=224, repeat=True,
+                                                  num_workers=n)
+            for n in (w, 0)}, RESNET_BATCH)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = dlrm.dlrm(DLRM_VOCABS, device="cuda", seed=0)
+        trainer = Trainer(spark, model, losses.binary_xent,
+                          optim.adamw(1e-3, weight_decay=0.0),
+                          sparse_embed=dlrm.sparse_embed_specs(model, lr=1e-2))
+        out["dlrm"] = _ab_model("dlrm", trainer, {"no pool": sources.synthetic_criteo(
+            4 * DLRM_BATCH, vocab_sizes=DLRM_VOCABS, num_partitions=4).repeat()},
+            DLRM_BATCH)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    finally:
+        spark.stop()
+    print("input ab " + json.dumps(out), flush=True)
+    print(nvidia_smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def gang_main(torch) -> int:
     """``chip_smoke.py --gang``: the LeNet phase alone at one rank per
     visible card (2 or more), NCCL between them."""
@@ -1625,7 +1930,7 @@ def gang_main(torch) -> int:
     return 0
 
 
-# -- phase 5: serving BERT-base -----------------------------------------------
+# -- phase 6: serving BERT-base -----------------------------------------------
 
 
 def serve_bert(torch, fa, bert, engine_mod) -> dict:
@@ -1773,6 +2078,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--gang"]:
         return gang_main(torch)
+    if sys.argv[1:] == ["--input-ab"]:
+        return input_ab_main(torch)
     from distributeddeeplearningspark_tpu_torch.models import bert
     from distributeddeeplearningspark_tpu_torch.ops import _build
     from distributeddeeplearningspark_tpu_torch.ops import attention
@@ -1801,6 +2108,7 @@ def main() -> int:
         k1 = check_flash_fwd(torch, fa)
         k23 = check_flash_bwd(torch, fa)
         check_gates(torch, fa, attention, cb)
+        check_input()
         train = train_bert(torch, fa)
         serve = serve_bert(torch, fa, bert, engine_mod)
         k4 = check_conv_bn(torch, cb)

@@ -19,9 +19,13 @@ assembly modes, as in JAX:
 A tail that cannot fill every shard equally is dropped, or with
 ``pad_remainder`` padded with copies of its first row carrying ``eval_mask
 == 0`` (:func:`_pad_to_shards`), which every contract loss weighs to
-nothing. :func:`device_batches` moves each batch to the device with a
-non-blocking copy from pinned memory. The worker pool and the prefetch
-ring are not ported yet (ROADMAP Queue 1 item 2).
+nothing. ``num_workers`` fans a pool-backed dataset's per-example map
+out over worker processes (:class:`~.workers.WorkerMappedDataset`); the
+batches are the same bytes at any count. :func:`to_device` moves a batch
+to the device with a non-blocking copy from pinned memory;
+:func:`device_batches` does so in the caller's thread, and
+:func:`~.prefetch.prefetch_to_device`, which ``Trainer.fit`` feeds
+through, in a background thread ahead of the consumer.
 """
 
 from __future__ import annotations
@@ -52,6 +56,9 @@ def process_shard_range(num_shards: int, *, rank: int | None = None,
 
 
 def stack_examples(examples: list[dict[str, Any]]) -> dict[str, np.ndarray]:
+    """One batch of the examples' arrays. ``np.stack`` copies, also for a
+    batch of one: an example of a worker pool may be a view into its
+    shared-memory ring, which must not reach torch uncopied."""
     keys = examples[0].keys()
     try:
         return {k: np.stack([np.asarray(e[k]) for e in examples])
@@ -112,6 +119,7 @@ def host_batches(
     drop_remainder: bool = True,
     shard_range: tuple[int, int] | None = None,
     pad_remainder: bool = False,
+    num_workers: int | None = None,
 ) -> Iterator[dict[str, np.ndarray]]:
     """Yield stacked host batches from a dataset of example dicts.
 
@@ -121,7 +129,16 @@ def host_batches(
     finite dataset in lockstep, so no rank yields a batch its peers do not.
     ``drop_remainder=False`` keeps the tail where it divides evenly over
     the shards (one process: all of it); ``pad_remainder`` pads it instead
-    (:func:`_pad_to_shards`), in every mode."""
+    (:func:`_pad_to_shards`), in every mode.
+
+    ``num_workers`` sets the worker-process count of a pool-backed dataset
+    (:class:`~.workers.WorkerMappedDataset`, e.g. from
+    ``imagenet_train(num_workers=...)``); ``None`` keeps the dataset's own
+    (in the end ``DLS_DATA_WORKERS``), 0 maps in this process. The batches
+    are byte-identical either way. A dataset with no map stage ignores
+    it."""
+    if num_workers is not None and hasattr(dataset, "with_num_workers"):
+        dataset = dataset.with_num_workers(num_workers)
     n_parts = dataset.num_partitions
     lo, hi = shard_range if shard_range is not None else (0, num_shards)
 
@@ -165,8 +182,13 @@ def host_batches(
                     if keep:
                         yield stack_examples(rest[:keep])
                 return
-            yield checked(stack_examples(
+            batch = checked(stack_examples(
                 [e for chunk in chunks[lo:hi] for e in chunk]))
+            # release the examples before the next refill: a pool's
+            # examples are views into its ring, and holding a batch of
+            # them across the refill makes the ring carry two batches
+            chunks.clear()
+            yield batch
     else:
         per_shard = batch_size // num_shards
         stream = itertools.chain.from_iterable(
@@ -183,13 +205,17 @@ def host_batches(
                 return
             if shard_range is not None:
                 chunk = chunk[lo * per_shard:hi * per_shard]
-            yield checked(stack_examples(chunk))
+            batch = checked(stack_examples(chunk))
+            chunk.clear()
+            yield batch
 
 
 def to_device(batch: dict[str, np.ndarray], device: torch.device
               ) -> dict[str, torch.Tensor]:
     """A host batch on ``device``: on CUDA through pinned memory with a
-    non-blocking copy, on the CPU as it is."""
+    non-blocking copy on the current stream, on the CPU as it is. Under
+    :func:`~.prefetch.prefetch_to_device` this runs in the prefetch
+    thread, on its copy stream, so the pinning is that thread's work."""
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
@@ -200,7 +226,17 @@ def to_device(batch: dict[str, np.ndarray], device: torch.device
 
 
 def device_batches(dataset: PartitionedDataset, batch_size: int,
-                   device: torch.device, **kw) -> Iterator[dict[str, torch.Tensor]]:
-    """:func:`host_batches` moved to ``device``."""
-    for b in host_batches(dataset, batch_size, **kw):
-        yield to_device(b, device)
+                   device: torch.device, *, probe=None,
+                   num_workers: int | None = None,
+                   **kw) -> Iterator[dict[str, torch.Tensor]]:
+    """:func:`host_batches` moved to ``device`` in the caller's thread,
+    with no prefetch. ``probe`` (a :class:`~.prefetch.StarvationProbe`)
+    times each host batch's assembly, which here blocks the consumer."""
+    hb = host_batches(dataset, batch_size, num_workers=num_workers, **kw)
+    if probe is not None:
+        hb = probe.timed(hb)
+    try:
+        for b in hb:
+            yield to_device(b, device)
+    finally:
+        hb.close()

@@ -9,9 +9,10 @@ documents and seed give the same examples byte for byte:
    "mlm_labels": [S] i32, "mlm_weights": [S] f32}``
 
 plus ``mlm_positions`` [P] (``max_predictions``, the gathered head's form)
-and ``segment_ids`` [S] (packed-document ids) when asked for. Tokenizing runs
-in process; the worker pool of the JAX package's ``data/workers.py``, the
-causal-LM feed, Wikipedia dumps and token statistics are not ported yet.
+and ``segment_ids`` [S] (packed-document ids) when asked for. Tokenizing, the
+per-document hot loop, can run over worker processes (:mod:`.workers`);
+packing and masking stay on the consumer. The causal-LM feed, Wikipedia
+dumps and token statistics are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 
+from distributeddeeplearningspark_tpu_torch.data import workers as workers_lib
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 
 PAD, UNK, CLS, SEP, MASK = "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"
@@ -176,6 +178,17 @@ def _padded_from_tokens(
             yield np.array(ids, np.int32)
 
 
+def _tokens_dataset(docs: PartitionedDataset, tok_fn, num_workers: int | None,
+                    *, label: str) -> PartitionedDataset:
+    """Per-document tokenize as a dataset stage: over worker processes when
+    ``num_workers`` (or ``DLS_DATA_WORKERS``) asks for them, else the plain
+    in-process ``map``; the same token stream either way."""
+    if workers_lib.resolve_num_workers(num_workers) > 0:
+        return workers_lib.WorkerMappedDataset(docs, tok_fn, num_workers,
+                                               label=label)
+    return docs.map(tok_fn)
+
+
 def mask_tokens(
     ids: np.ndarray,
     tokenizer: WordPieceTokenizer,
@@ -247,6 +260,7 @@ def mlm_dataset(
     max_predictions: int | None = None,
     segment_ids: bool = False,
     pack: bool = True,
+    num_workers: int | None = None,
 ) -> PartitionedDataset:
     """Text dataset → MLM example dataset (tokenize → pack → mask, per
     partition). Partition ``i`` masks with numpy's
@@ -255,13 +269,18 @@ def mlm_dataset(
     ``max_predictions``: emit the gathered (``mlm_positions``) form.
     ``segment_ids``: also emit per-position document ids, so that attention
     is blocked across packed-document boundaries. ``pack=False``: one padded
-    document per window."""
+    document per window. ``num_workers`` (default ``DLS_DATA_WORKERS``):
+    tokenize across worker processes (:mod:`.workers`); the stateful
+    window packing and the per-partition-seeded masking stay on the
+    consumer, so the example stream is byte-identical at any count."""
     if not pack and segment_ids:
         raise ValueError(
             "segment_ids=True requires pack=True (padded mode has one "
             "document per window — there are no boundaries to mark)")
 
-    token_ds = docs.map(lambda doc: np.asarray(tokenizer.encode(doc), np.int32))
+    token_ds = _tokens_dataset(
+        docs, lambda doc: np.asarray(tokenizer.encode(doc), np.int32),
+        num_workers, label="mlm_tokenize")
 
     def per_partition(pidx: int, toks: Iterable[np.ndarray]) -> Iterator[dict]:
         rng = np.random.default_rng(seed * 100003 + pidx)

@@ -2,16 +2,18 @@
 ``distributeddeeplearningspark_tpu/data/vision.py``.
 
 Per-example numpy transforms over a :class:`~..rdd.PartitionedDataset`, run
-on the host: :func:`imagenet_train` (shuffle → repeat → crop/flip in a
-thread pool) and :func:`imagenet_eval` (center crop). Augmentation is seeded
-by the example's content and the pipeline's seed, so the same examples get
-the same crops and flips in both packages and at any thread count.
+on the host: :func:`imagenet_train` (shuffle → repeat → crop/flip) and
+:func:`imagenet_eval` (center crop), each mapped in a thread pool or, with
+``num_workers``, over worker processes (:mod:`.workers`). Augmentation is
+seeded by the example's content and the pipeline's seed, so the same
+examples get the same crops and flips in both packages and at any thread
+or worker count.
 
 Only float images (already normalised, as :func:`~.sources.
 synthetic_images` yields) are taken: uint8 images, JPEG bytes, the native
-(C++) decode and resize, ``imagenet_train_batched`` and worker processes
-are not ported yet. Resizing is the numpy :func:`resize_bilinear`, whose
-arithmetic the JAX package's native resize mirrors.
+(C++) decode and resize and ``imagenet_train_batched`` are not ported yet.
+Resizing is the numpy :func:`resize_bilinear`, whose arithmetic the JAX
+package's native resize mirrors.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Callable
 
 import numpy as np
 
+from distributeddeeplearningspark_tpu_torch.data import workers as workers_lib
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 
 #: ImageNet channel statistics
@@ -151,17 +154,36 @@ def eval_transform(size: int = 224) -> Callable[[dict], dict]:
 
 def imagenet_train(dataset: PartitionedDataset, *, size: int = 224, seed: int = 0,
                    num_threads: int | None = None,
-                   repeat: bool = False) -> PartitionedDataset:
+                   repeat: bool = False,
+                   num_workers: int | None = None) -> PartitionedDataset:
     """shuffle → (repeat) → augment in a thread pool (``num_threads``; 0/1 =
     serial). ``repeat=True`` makes the stream infinite here: shuffle
     precedes repeat, and repeating before the pool keeps one pool alive
-    across passes."""
+    across passes.
+
+    ``num_workers`` (default ``DLS_DATA_WORKERS``, 0 = off): augment over
+    worker *processes* instead (:class:`~.workers.WorkerMappedDataset`:
+    real cores, no GIL, shared-memory delivery), in place of the thread
+    pool, whose ``num_threads`` is then ignored. The batches are the same
+    bytes at any count. Each partition's worker walks that partition's
+    source: split the source into as many partitions as workers where the
+    source's own draw is the expensive part."""
     ds = dataset.shuffle(seed)
     if repeat:
         ds = ds.repeat()
-    return ds.map_parallel(train_transform(size, seed), num_threads=num_threads)
+    tf = train_transform(size, seed)
+    if workers_lib.resolve_num_workers(num_workers) > 0:
+        return workers_lib.WorkerMappedDataset(ds, tf, num_workers,
+                                               label="imagenet_train")
+    return ds.map_parallel(tf, num_threads=num_threads)
 
 
 def imagenet_eval(dataset: PartitionedDataset, *, size: int = 224,
-                  num_threads: int | None = None) -> PartitionedDataset:
+                  num_threads: int | None = None,
+                  num_workers: int | None = None) -> PartitionedDataset:
+    """The eval transform mapped in a thread pool or, with ``num_workers``,
+    over worker processes, as :func:`imagenet_train`."""
+    if workers_lib.resolve_num_workers(num_workers) > 0:
+        return workers_lib.WorkerMappedDataset(
+            dataset, eval_transform(size), num_workers, label="imagenet_eval")
     return dataset.map_parallel(eval_transform(size), num_threads=num_threads)

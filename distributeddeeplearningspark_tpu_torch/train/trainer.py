@@ -9,6 +9,18 @@ logs, writes a ``step_metrics`` record (when ``DLS_TELEMETRY_DIR`` or the
 checkpointer names a workdir) and raises on a non-finite metric, as the JAX
 loop's default ``on_nonfinite="raise"`` does.
 
+``fit`` and :meth:`evaluate` feed through
+:func:`~..data.prefetch.prefetch_to_device`: a background thread
+assembles, pins and copies the next batches while the step runs, and a
+dataset's worker pool (``num_workers``, ``DLS_DATA_WORKERS``) forks from
+that thread. With telemetry on, each lap's ``step_metrics`` record carries
+the :class:`~..data.prefetch.StarvationProbe`'s gauges (``input_wait_s``,
+the ring's depth, the pool's ``input_workers`` and utilization) and the
+lap's split in the JAX package's anatomy keys (``anatomy_wall_s``;
+``device_s``, the host time spent in the train step's calls and waiting at
+the lap's sync; ``input_wait_s``; ``host_s``, the rest), so the JAX
+package's ``dlstatus --anatomy`` reads it.
+
 In a data-parallel gang (a :class:`~..session.Session` launched by the
 port's cli) each rank feeds its own rows of every global batch
 (``batch_size`` is global, as in JAX) and the train step reduces the
@@ -39,10 +51,10 @@ plans and rules, profiling, sanitize and TensorBoard.
 
 from __future__ import annotations
 
-import itertools
 import logging
 import math
 import os
+import time
 from typing import Any, Callable, Iterator, Sequence
 
 import torch
@@ -53,6 +65,10 @@ from distributeddeeplearningspark_tpu_torch.data.feed import (
     host_batches,
     process_shard_range,
     to_device,
+)
+from distributeddeeplearningspark_tpu_torch.data.prefetch import (
+    StarvationProbe,
+    prefetch_to_device,
 )
 from distributeddeeplearningspark_tpu_torch.metrics import Meter, MetricLogger
 from distributeddeeplearningspark_tpu_torch.parallel import collectives
@@ -81,6 +97,27 @@ def _tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, (tuple, list)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _skip(it: Iterator, n: int) -> Iterator:
+    """``it`` past its first ``n`` items; closing this closes ``it``."""
+    for _ in range(n):
+        if next(it, None) is None:
+            return
+    yield from it
+
+
+def _lap_anatomy(lap_s: float, dispatch_s: float, drain_s: float,
+                 dispatches: int, input_wait_s: float, num_chips: int) -> dict:
+    """A lap's wall split in the JAX package's anatomy keys: ``device_s``
+    is the host time given to the device (the train step's calls and the
+    wait at the lap's sync), ``host_s`` the rest after the input wait."""
+    device = dispatch_s + drain_s
+    return dict(anatomy_wall_s=lap_s, device_s=device,
+                device_dispatch_s=dispatch_s, device_drain_s=drain_s,
+                host_s=max(0.0, lap_s - device - input_wait_s),
+                compile_in_lap_s=0.0, device_dispatches=dispatches,
+                num_chips=num_chips)
 
 
 def _first_leaf(tree: Any) -> Any:
@@ -199,13 +236,15 @@ class Trainer:
                             shard_range=process_shard_range(n), **kw)
 
     def _feed(self, dataset: PartitionedDataset, batch_size: int, *,
-              skip_batches: int = 0) -> Iterator[dict[str, torch.Tensor]]:
+              skip_batches: int = 0, probe: StarvationProbe | None = None
+              ) -> Iterator[dict[str, torch.Tensor]]:
+        """This rank's batches on the device, prefetched in a background
+        thread. ``skip_batches`` (resume) burns host batches there, with no
+        copy to the device."""
         hb = self._host_feed(dataset, batch_size)
         if skip_batches:
-            # resume fast-forward: burn host batches, no copy to the device
-            hb = itertools.islice(hb, skip_batches, None)
-        for b in hb:
-            yield to_device(b, self.device)
+            hb = _skip(hb, skip_batches)
+        return prefetch_to_device(hb, self.device, probe=probe)
 
     def fit(self, dataset: PartitionedDataset, *, batch_size: int,
             steps: int | None = None, tokens_per_example: int = 0,
@@ -245,33 +284,46 @@ class Trainer:
             ckpt.save(at, self.state, data_state={
                 "examples_seen": at * batch_size, "batch_size": batch_size})
 
+        probe = StarvationProbe() if tele is not None else None
         if tele is not None:
             tele.emit("phase", name="run", edge="begin", step=step_i,
                       attempt=int(os.environ.get("DLS_RESTART", "0") or 0))
             tele.heartbeat(step=step_i)
+        feed = self._feed(dataset, batch_size, skip_batches=skip, probe=probe)
         meter.start()
         lap_start = step_i
         last_metrics: dict[str, float] = {}
         got_batch = False
+        dispatch_s = 0.0
         try:
-            for batch in self._feed(dataset, batch_size, skip_batches=skip):
+            for batch in feed:
                 got_batch = True
                 if steps is not None and step_i >= steps:
                     break
+                t0 = time.perf_counter()
                 self.state, metrics = self._train_step(self.state, batch)
+                dispatch_s += time.perf_counter() - t0
                 metrics.pop("weight", None)  # eval-aggregation detail
                 step_i += 1
                 if step_i % log_every == 0 or (steps is not None and step_i >= steps):
                     # the copy to the host waits for this step: the lap
                     # boundary is a true sync point, so the timing is honest
-                    last_metrics = meter.lap(step_i - lap_start, _to_host(metrics))
+                    t0 = time.perf_counter()
+                    fetched = _to_host(metrics)
+                    drain_s = time.perf_counter() - t0
+                    last_metrics = meter.lap(step_i - lap_start, fetched)
                     lap_start = step_i
                     lap_s, lap_n = meter.last_lap or (0.0, 0)
                     mlog.log(step_i, {**last_metrics, **meter.summary()})
                     if tele is not None:
-                        tele.step_metrics(step_i, steps=lap_n, lap_s=lap_s,
-                                          metrics=last_metrics)
+                        snap = probe.snapshot()
+                        tele.step_metrics(
+                            step_i, steps=lap_n, lap_s=lap_s, metrics=last_metrics,
+                            **snap, **_lap_anatomy(
+                                lap_s, dispatch_s, drain_s, lap_n,
+                                snap["input_wait_s"], self.session.num_devices))
                         tele.heartbeat(step=step_i)
+                    dispatch_s = 0.0
                     bad = {k: v for k, v in last_metrics.items()
                            if not math.isfinite(v)}
                     if bad:
@@ -280,6 +332,7 @@ class Trainer:
                 if ckpt is not None and step_i % checkpoint_every == 0:
                     save(step_i)
         finally:
+            feed.close()
             if tele is not None:
                 tele.emit("phase", name="run", edge="end", step=step_i)
         if skip and not got_batch:
@@ -307,28 +360,32 @@ class Trainer:
         rank equally is padded with ``eval_mask == 0`` rows (a rank holding
         only padding weighs nothing), so the result is one pass over the
         global dataset. The model runs in eval mode (BatchNorm on its
-        running statistics)."""
+        running statistics). The batches are prefetched as in :meth:`fit`."""
         totals: dict[str, float] = {}
         wsum = 0.0
-        for host in self._host_feed(dataset, batch_size, drop_remainder=False,
-                                    pad_remainder=True):
-            batch = to_device(host, self.device)
-            rows = next(iter(batch.values())).shape[0]
-            m = _to_host(self._eval_step(batch))
-            if "eval_mask" in batch and "weight" not in m:
-                raise RuntimeError(
-                    "the loss ignored the tail batch's eval_mask (no "
-                    "'weight' metric reported): weight per-row metrics by "
-                    "batch['eval_mask'] and report weight=mask.sum()")
-            w = float(m.pop("weight", rows))
-            if "eval_mask" in host and not host["eval_mask"].any():
-                w = 0.0  # this rank's slice of the tail is all padding
-            vec = torch.tensor([w] + [v * w for v in m.values()],
-                               dtype=torch.float64, device=self.device)
-            sums = collectives.all_reduce_sum_(vec).tolist()
-            for k, v in zip(m, sums[1:]):
-                totals[k] = totals.get(k, 0.0) + v
-            wsum += sums[0]
+        feed = prefetch_to_device(
+            self._host_feed(dataset, batch_size, drop_remainder=False,
+                            pad_remainder=True), self.device)
+        try:
+            for batch in feed:
+                rows = next(iter(batch.values())).shape[0]
+                m = _to_host(self._eval_step(batch))
+                if "eval_mask" in batch and "weight" not in m:
+                    raise RuntimeError(
+                        "the loss ignored the tail batch's eval_mask (no "
+                        "'weight' metric reported): weight per-row metrics by "
+                        "batch['eval_mask'] and report weight=mask.sum()")
+                w = float(m.pop("weight", rows))
+                if "eval_mask" in batch and not bool(batch["eval_mask"].any()):
+                    w = 0.0  # this rank's slice of the tail is all padding
+                vec = torch.tensor([w] + [v * w for v in m.values()],
+                                   dtype=torch.float64, device=self.device)
+                sums = collectives.all_reduce_sum_(vec).tolist()
+                for k, v in zip(m, sums[1:]):
+                    totals[k] = totals.get(k, 0.0) + v
+                wsum += sums[0]
+        finally:
+            feed.close()
         return {k: v / max(wsum, 1e-9) for k, v in totals.items()}
 
     def predict(self, dataset: PartitionedDataset, *, batch_size: int,

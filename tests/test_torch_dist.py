@@ -18,15 +18,24 @@ rank writes what the tests read into OUTDIR:
 - ``evaluate`` with a tail of 1 and of 3 rows over the 2 ranks, equal to
   one full-batch pass and to JAX's;
 - ``predict``'s stream and its ``with_inputs`` pairs in JAX's feed order;
+- LeNet over a ``WorkerMappedDataset`` (2 worker processes a rank) through
+  the prefetch: the losses and final params of the run with 0 workers,
+  bit for bit, and a resume's bits equal to an uninterrupted run's; the
+  steps' telemetry carries the probe's and the pool's gauges, which the
+  JAX package's ``dlstatus`` reads, and no worker, segment or prefetch
+  thread outlives ``fit``;
 - what a Trainer refuses at 2 ranks: a model with buffers (ResNet) and
   ``sparse_embed`` (DLRM).
 """
 
 import json
+import multiprocessing as mp
 import os
 import signal
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -35,8 +44,10 @@ import torch
 
 from distributeddeeplearningspark_tpu_torch import LeNet5, Session, Trainer
 from distributeddeeplearningspark_tpu_torch import telemetry as ttele
+from distributeddeeplearningspark_tpu_torch.checkpoint import Checkpointer
 from distributeddeeplearningspark_tpu_torch.data import sources as tsources
 from distributeddeeplearningspark_tpu_torch.data.feed import stack_examples
+from distributeddeeplearningspark_tpu_torch.data.workers import WorkerMappedDataset
 from distributeddeeplearningspark_tpu_torch.models import bert as tbert
 from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
@@ -54,6 +65,9 @@ EVAL_RTOL, EVAL_ATOL = 2e-5, 1e-6
 GANG_DEADLINE_S = 300
 FIT_DATA = dict(num_examples=512, num_partitions=2, seed=1)
 EVAL_SIZES = (65, 67)  # batch 32 over 2 ranks: tails of 1 and 3 rows
+# the pooled LeNet runs: a budget of 4 workers over the 2 partitions is 2
+# worker processes on each rank, which opens only its own partition
+POOL_WORKERS, POOL_STEPS = 4, 12
 
 
 def _capture_tx(store: list):
@@ -113,6 +127,63 @@ def _predict_dataset():
     return tsources.synthetic_mnist(100, num_partitions=2, seed=3)
 
 
+def _flip(ex: dict) -> dict:
+    """The pooled runs' per-example map (numpy only, as a worker's must be)."""
+    return {**ex, "image": np.ascontiguousarray(ex["image"][:, ::-1])}
+
+
+def _pooled_mnist(num_workers: int) -> WorkerMappedDataset:
+    return WorkerMappedDataset(tsources.synthetic_mnist(**FIT_DATA).repeat(), _flip,
+                               num_workers)
+
+
+def _input_leftovers() -> dict:
+    """Prefetch threads, pool workers and segments still alive here."""
+    deadline = time.monotonic() + 5.0
+    while True:
+        left = dict(
+            threads=[t.name for t in threading.enumerate() if t.name == "dls-prefetch"],
+            workers=[p.name for p in mp.active_children()
+                     if p.name.startswith("dls-worker")],
+            segments=[f for f in os.listdir("/dev/shm")
+                      if f.startswith(f"dlsw-{os.getpid()}-")])
+        if not any(left.values()) or time.monotonic() > deadline:
+            return {k: v for k, v in left.items() if v}
+        time.sleep(0.05)
+
+
+def _pooled_runs(spark, init: dict, outdir: Path) -> dict:
+    """LeNet at 0 and POOL_WORKERS workers, then at POOL_WORKERS in two
+    halves with a restore between them: whether the params agree bitwise,
+    and what of the input path outlived each fit."""
+    def fit(num_workers, steps, checkpointer=None, resume=False):
+        trainer = Trainer(spark, _lenet(init), losses.softmax_xent,
+                          optim.sgd(0.1, momentum=0.9), checkpointer=checkpointer)
+        data_state = trainer.restore()[1] if resume else None
+        state, _ = trainer.fit(_pooled_mnist(num_workers), batch_size=32, steps=steps,
+                               log_every=2, data_state=data_state,
+                               checkpoint_every=steps if checkpointer else None)
+        return {k: v.detach().clone() for k, v in state.params.items()}
+
+    params, left = {}, {}
+    for n in (0, POOL_WORKERS):
+        os.environ[ttele.WORKDIR_ENV] = str(outdir / f"pool{n}")
+        params[n] = fit(n, POOL_STEPS)
+        ttele.reset()
+        del os.environ[ttele.WORKDIR_ENV]
+        left[n] = _input_leftovers()
+    ck = Checkpointer(outdir / "pool_ck", async_save=False)
+    fit(POOL_WORKERS, POOL_STEPS // 2, ck)
+    params["resumed"] = fit(POOL_WORKERS, POOL_STEPS, ck, resume=True)
+    ttele.reset()
+    left["resumed"] = _input_leftovers()
+    return dict(
+        equal=all(torch.equal(params[0][k], params[POOL_WORKERS][k]) for k in params[0]),
+        resume_equal=all(torch.equal(params["resumed"][k], params[POOL_WORKERS][k])
+                         for k in params[0]),
+        left={str(k): v for k, v in left.items()})
+
+
 def _worker(outdir: Path) -> None:
     """One rank of the gang: every scenario, in order."""
     spark = Session.builder.appName("dist").getOrCreate()
@@ -168,6 +239,7 @@ def _worker(outdir: Path) -> None:
         except NotImplementedError as e:
             refused[name] = str(e)
     out["refused"] = refused
+    out["pooled"] = _pooled_runs(spark, init, outdir)
     if rank == 0:
         np.savez(outdir / "grads_lenet.npz", **lenet_grads)
         np.savez(outdir / "grads_bert.npz", **bert_grads)
@@ -406,6 +478,32 @@ def test_two_ranks_refuse_what_would_differ_from_jax(gang):
     refused = _rank(gang[0], 0)["refused"]
     assert "BatchNorm" in refused["resnet"] and "ResNet at N > 1" in refused["resnet"]
     assert "DLRM at N > 1" in refused["sparse_embed"]
+
+
+def test_pooled_lenet_gives_the_bits_of_the_run_without_workers(gang):
+    """At 2 ranks, with 2 worker processes on each and the prefetch: the
+    losses and params of the run with 0 workers, a resume's bits equal to
+    the uninterrupted run's, the gauges in every rank's telemetry (read by
+    the JAX package's ``dlstatus``), nothing of the input path left."""
+    from distributeddeeplearningspark_tpu import status
+    from distributeddeeplearningspark_tpu import telemetry as jtele
+
+    outdir = gang[0]
+    for r in (0, 1):
+        pooled = _rank(outdir, r)["pooled"]
+        assert pooled["equal"] and pooled["resume_equal"]
+        assert pooled["left"] == {"0": {}, str(POOL_WORKERS): {}, "resumed": {}}
+    plain = _fit_losses(outdir / "pool0")
+    assert sorted(plain) == ["p0", "p1"] and len(plain["p0"]) == POOL_STEPS // 2
+    assert _fit_losses(outdir / f"pool{POOL_WORKERS}") == plain
+    events = jtele.read_events(str(outdir / f"pool{POOL_WORKERS}"))
+    laps = [e for e in events if e["kind"] == "step_metrics"]
+    assert sorted({e["process"] for e in laps}) == ["p0", "p1"]
+    assert all(e["input_wait_s"] >= 0 and e["input_workers"] == 2 for e in laps)
+    pool = status.input_workers_from(events)
+    assert pool["input_workers"] == 2 and pool["worker_items"] > 0
+    assert all("input_workers" not in e for e in jtele.read_events(str(outdir / "pool0"))
+               if e["kind"] == "step_metrics")
 
 
 if __name__ == "__main__":

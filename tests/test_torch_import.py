@@ -58,7 +58,7 @@ print(json.dumps({{"modules": names, "loaded": sorted(sys.modules)}}))
                 "models.dlrm", "models.dlrm_io", "train.embed",
                 "models.lenet", "models.lenet_io", "utils.env",
                 "parallel.mesh", "parallel.collectives", "checkpoint", "cli",
-                "examples.train_mnist"}
+                "examples.train_mnist", "data.workers", "data.prefetch"}
     got = {n.split(".", 1)[1] for n in rec["modules"]}
     assert expected <= got, expected - got
     bad = [m for m in rec["loaded"] if _forbidden(m)]
