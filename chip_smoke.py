@@ -56,7 +56,8 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    percentiles and requests/s;
 7. hold K4 (the 1×1-conv matmul with BN statistics) against its plain
    version on the card in bf16 at the ten shapes of ResNet-50's fused
-   layers at b=256 and five small, ragged ones, at the stated tolerances,
+   layers at b=256, three that a rank of four gets at 64 images, and six
+   small or ragged ones, at the stated tolerances,
    each launched twice for equal bits, and time the kernel, the plain
    version, the library yardstick (``torch.mm`` then ``torch.var_mean``)
    and the bound;
@@ -86,7 +87,7 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    the bound;
 10. train the config-4 DLRM at full width (26 × 100,000 rows × 64 in one
    f32 table, bottom MLP 512/256/64, top 512/256/1, bf16 MLPs, random
-   weights from a seed) for 30 steps at b=8,192 through the port's
+   weights from a seed) for 20 steps at b=8,192 through the port's
    ``Session`` → ``synthetic_criteo`` → ``Trainer.fit(sparse_embed=...)``
    with ``binary_xent``, AdamW on the MLPs and row-wise AdaGrad on the
    table through K5; check that every logged loss is finite and the last
@@ -117,13 +118,35 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    time, examples/s, the host's ms per batch, the laps' summed wait for
    input, busy and all-reduce ms per step, and checkpoint save and restore
    ms;
-12. print one JSON line of per-kernel numbers, the card's name and power
+12. run the port's drivers through its ``dlsubmit`` at ``local[1]`` (a gang
+   of one, NCCL) at full width: ``examples/train_resnet.py`` (ResNet-50 at
+   b=256, 224², W workers) and ``examples/train_dlrm.py`` (the config-4
+   DLRM at b=8,192, then its held-out AUC), 10 steps each; check that each
+   exits 0, that K4 ran 27 times a step and the BatchNorm all-reduces 106
+   times a step (K5 once a step), that the logged losses are finite and
+   that no process or segment of either run is left; print each run's
+   step ms and the launch's seconds;
+13. hold global BatchNorm statistics on the card: ResNet-50 at b=256 as
+   the two halves of a batch, one process each on this card, summing
+   their statistics and their gradients through a gloo group as
+   ``all_reduce_sum`` does, against the whole batch in this process: every
+   BatchNorm's batch mean and variance the same on both halves and the
+   whole batch's, and the halves' summed parameter gradients the whole
+   batch's, at the stated tolerances, through K4;
+14. print one JSON line of per-kernel numbers, the card's name and power
    limit (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --gang`` runs the LeNet phase alone at one rank per
-card (2 or more). ``python3 chip_smoke.py --input-ab`` times BERT-base,
-ResNet-50 and the DLRM through ``Trainer.fit`` with their batches built in
-the prefetch thread and in the loop's thread, in turns (one card).
+``python3 chip_smoke.py --gang`` runs, at one rank per card (2 or more),
+the LeNet phase and then the ResNet-50 (b=256 global) and DLRM (b=8,192
+global) drivers over NCCL: the replicas in sync, 27 K4 launches a step,
+every rank's losses the global batch's and a one-card run's on the same
+batches at a stated tolerance, and ResNet-50's parameters' change too;
+two faults planted into ResNet-50's N-rank run (the loss not weighed, a
+rank-local BatchNorm backward) must each break one of those limits; each
+rank's step ms and a profiled window's NCCL kernel time.
+``python3 chip_smoke.py --input-ab`` times BERT-base, ResNet-50 and the
+DLRM through ``Trainer.fit`` with their batches built in the prefetch
+thread and in the loop's thread, in turns (one card).
 
 Exits non-zero, printing no result, when CUDA is absent, when the port's
 package is not beside this script, or when any phase fails.
@@ -185,13 +208,13 @@ PARITY_ATOL = 1e-4
 # the last logged training loss must be below this fraction of the first
 LOSS_DROP = 0.9
 # ResNet-50 training: steps and batch (b=256, BASELINE.json config 2's batch)
-RESNET_STEPS, RESNET_BATCH = 30, 256
+RESNET_STEPS, RESNET_BATCH = 20, 256
 # LeNet-5 (config 1): steps, batch and checkpoint interval of
 # examples/train_mnist.py, and where the resume launch runs to
 LENET_STEPS, LENET_BATCH, LENET_EVERY, LENET_RESUME_TO = 150, 64, 25, 200
 # DLRM (config 4): 26 features of 100,000 rows each, batch 8,192
 DLRM_VOCABS = (100_000,) * 26
-DLRM_STEPS, DLRM_BATCH = 30, 8192
+DLRM_STEPS, DLRM_BATCH = 20, 8192
 # H100 SXM data-sheet peak of f32 outside the tensor cores (K5's adds)
 PEAK_F32_FLOPS = 67e12
 
@@ -1015,8 +1038,11 @@ def train_bert(torch, fa) -> dict:
 
 # (M, K, N) of the Conv1x1BN calls that the K4 gate admits in one fused
 # ResNet-50 forward at b=256, 224², and how many of the 27 launches of a
-# train step each shape takes; then small and ragged shapes the card's gate
-# admits: partial row tiles (M = 48, 392 against 128 rows), partial column
+# train step each shape takes; then the shapes a rank of four gives it at 64
+# images (M = 12,544 rows, no multiple of 512: the gate takes the global
+# batch's rows, 50,176, and K4 a rank's), and small and ragged shapes the
+# card's gate admits: partial row tiles (M = 48, 392 and 3,136 against 128
+# rows), partial column
 # tiles at both tile widths (N = 16, 24, 136 at 64; 72 at 128), the K tail
 # (K = 40 against 64-deep slices), and W streamed through the ring at the
 # 64-wide tile (K = 1024, N = 40)
@@ -1026,8 +1052,9 @@ K4_MAIN_SHAPES = {
     (200704, 512, 256): 1, (50176, 256, 1024): 6, (50176, 1024, 256): 5,
     (50176, 1024, 512): 1,
 }
-K4_EXTRA_SHAPES = [(1024, 40, 72), (256, 16, 16), (48, 16, 24), (392, 64, 136),
-                   (256, 1024, 40)]
+K4_EXTRA_SHAPES = [(12544, 1024, 256), (12544, 256, 1024), (12544, 1024, 512),
+                   (1024, 40, 72), (256, 16, 16), (48, 16, 24), (392, 64, 136),
+                   (3136, 2048, 512), (256, 1024, 40)]
 # Y: both round one f32 dot product to bf16, the sums taken in another
 # order, so Y may sit one bf16 step (at most 2^-7 of |y|) from the plain
 # version's y32.to(bf16), plus the f32 order residue near y = 0
@@ -1572,31 +1599,66 @@ def train_dlrm(torch, sr) -> dict:
 LENET_WINDOW = 20
 
 
-def _lenet_launch(workdir: Path, ranks: int, *args: str, script: Path | None = None
-                  ) -> tuple[list[str], dict]:
-    """One launch through the port's cli at ``local[ranks]`` on the card with
-    deterministic algorithms, of ``script`` (default: the port's
-    examples/train_mnist.py, checkpointing into ``workdir``): rank 0's
-    stdout lines, and the launch's wall seconds with the part before rank
-    0's run began (process start, CUDA, the group) and the run's own, from
-    its telemetry. Fails on a non-zero exit."""
-    if script is None:
-        script = ROOT / PKG / "examples" / "train_mnist.py"
-        args = ("--batch-size", str(LENET_BATCH), "--checkpoint-every",
-                str(LENET_EVERY), "--checkpoint-dir", str(workdir / "ckpt"), *args)
+def _running(script: Path) -> set[int]:
+    """The pids of the processes whose command line names ``script``."""
+    pids = set()
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                if str(script).encode() in (d / "cmdline").read_bytes():
+                    pids.add(int(d.name))
+            except OSError:
+                continue
+    return pids
+
+
+def _launch(workdir: Path, ranks: int, script: Path, args, *,
+            deterministic: bool = False, timeout: float = 300,
+            pids: set | None = None) -> tuple[list[str], dict]:
+    """One launch of ``script`` through the port's cli at ``local[ranks]`` on
+    the card (optionally with deterministic algorithms), its telemetry in
+    ``workdir``: rank 0's stdout lines, and the launch's wall seconds with
+    the part before rank 0's run began (process start, CUDA, the group) and
+    the run's own, from its telemetry. Fails on a non-zero exit. ``pids``
+    receives the pids of the launch's ranks and of the workers they fork,
+    seen every 0.2 s while it runs."""
+    conf = ["--conf", "spark.dls.deterministic=true"] if deterministic else []
     cmd = [sys.executable, "-m", f"{PKG}.cli", "--master", f"local[{ranks}]",
-           "--conf", "spark.dls.deterministic=true", "--workdir", str(workdir),
-           str(script), *args]
+           *conf, "--workdir", str(workdir), str(script), *args]
     t0 = time.time()
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    while True:
+        try:
+            stdout, stderr = proc.communicate(timeout=0.2)
+            break
+        except subprocess.TimeoutExpired:
+            if pids is not None:
+                pids |= _running(script)
+            if time.time() - t0 > timeout:
+                proc.kill()
+                proc.communicate()
+                raise
+    out = subprocess.CompletedProcess(cmd, proc.returncode, stdout, stderr)
     wall_s = time.time() - t0
-    check(out.returncode == 0, f"lenet launch {args} exited {out.returncode}: "
-          f"{out.stderr[-2000:]}")
+    check(out.returncode == 0, f"launch of {script.name} {list(args)} exited "
+          f"{out.returncode}: {out.stderr[-2000:]}")
     runs = [r["ts"] for r in _events(workdir, "p0") if r["kind"] == "phase"
             and r.get("name") == "run" and r["ts"] >= t0]
     return out.stdout.splitlines(), dict(
         wall_s=wall_s, before_run_s=runs[0] - t0 if runs else None,
         run_s=runs[-1] - runs[0] if len(runs) >= 2 else None)
+
+
+def _lenet_launch(workdir: Path, ranks: int, *args: str, script: Path | None = None
+                  ) -> tuple[list[str], dict]:
+    """:func:`_launch` with deterministic algorithms of ``script`` (default:
+    the port's examples/train_mnist.py, checkpointing into ``workdir``)."""
+    if script is None:
+        script = ROOT / PKG / "examples" / "train_mnist.py"
+        args = ("--batch-size", str(LENET_BATCH), "--checkpoint-every",
+                str(LENET_EVERY), "--checkpoint-dir", str(workdir / "ckpt"), *args)
+    return _launch(workdir, ranks, script, args, deterministic=True)
 
 
 def _lenet_result(workdir: Path, ranks: int, *args: str) -> tuple[dict, dict]:
@@ -1791,6 +1853,483 @@ def train_lenet(torch, ranks: int = 1) -> dict:
     return rec
 
 
+# -- phase 12: the ResNet-50 and DLRM drivers through the port's dlsubmit -------
+
+#: steps and log interval of each driver run on one card
+DRIVER_STEPS, DRIVER_LOG_EVERY = 10, 5
+#: held-out examples of the DLRM driver's AUC
+DRIVER_EVAL_EXAMPLES = 32_768
+#: ResNet-50's BatchNorm layers (53), each one all-reduce forward and one
+#: backward a step: all_reduce_sum's collectives in a step
+BN_ALLREDUCES_PER_STEP = 2 * 53
+
+
+def _driver_script(name: str) -> Path:
+    return ROOT / PKG / "examples" / f"train_{name}.py"
+
+
+def _driver_args(name: str, *, steps: int, log_every: int, workers: int | None = None,
+                 parts: int | None = None) -> list[str]:
+    """The driver's flags at full width: ResNet-50 at b=256, 224², 1000
+    classes; the config-4 DLRM, 26 × 100,000 × 64, at b=8,192."""
+    if name == "resnet":
+        args = ["--batch-size", str(RESNET_BATCH), "--image-size", "224",
+                "--num-classes", "1000"]
+        if workers is not None:
+            args += ["--data-workers", str(workers)]
+    else:
+        args = ["--batch-size", str(DLRM_BATCH), "--vocab-size", str(DLRM_VOCABS[0]),
+                "--num-sparse", str(len(DLRM_VOCABS)), "--embed-dim", "64",
+                "--eval-examples", str(DRIVER_EVAL_EXAMPLES)]
+    args += ["--steps", str(steps), "--log-every", str(log_every)]
+    if parts:
+        args += ["--source-partitions", str(parts)]
+    return args
+
+
+def _left_behind(script: Path, pids: set) -> dict:
+    """Processes still running ``script`` (a rank, or a worker it forked)
+    and the ``dlsw-<pid>-`` segments of the launch's processes ``pids``
+    (those of another program on the machine are not this run's), after a
+    bounded moment for them to end."""
+    deadline = time.monotonic() + 10.0
+    while True:
+        procs = sorted(_running(script))
+        segments = sorted(f for f in os.listdir("/dev/shm")
+                          if f.startswith("dlsw-")
+                          and f.split("-")[1].isdigit() and int(f.split("-")[1]) in pids)
+        left = {k: v for k, v in dict(processes=procs, segments=segments).items() if v}
+        if not left or time.monotonic() > deadline:
+            return left
+        time.sleep(0.1)
+
+
+def _driver_run(name: str, workdir: Path, ranks: int, args: list[str]) -> dict:
+    """One launch of the port's ``name`` driver through its cli at
+    ``local[ranks]``: rank 0's JSON line, the launch's timing, each rank's
+    logged losses and step ms (its laps after the first, from its
+    telemetry), and what of the run outlived it."""
+    import shutil
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    script = _driver_script(name)
+    pids: set[int] = set()
+    lines, timing = _launch(workdir, ranks, script, args, timeout=600, pids=pids)
+    results = [json.loads(x) for x in lines if x.startswith('{"train"')]
+    check(len(results) == 1, f"{name} driver printed {len(results)} result "
+          f"lines: {lines[-20:]}")
+    losses: dict[str, list] = {}
+    laps: dict[str, list] = {}
+    for r in _events(workdir):
+        if r["kind"] == "step_metrics":
+            losses.setdefault(r["process"], []).append(r["metrics"]["loss"])
+            laps.setdefault(r["process"], []).append(r["lap_s"] * 1e3 / r["steps"])
+    step_ms = {p: float(np.mean(v[1:] if len(v) > 1 else v)) for p, v in laps.items()}
+    return dict(result=results[0], launch=timing, losses=losses,
+                step_ms_by_rank=step_ms, left=_left_behind(script, pids))
+
+
+def train_drivers(torch) -> dict:
+    """The port's examples/train_resnet.py and examples/train_dlrm.py
+    through its cli at ``local[1]`` (a gang of one, NCCL), at full width,
+    DRIVER_STEPS steps each: each exits 0, K4 ran 27 times a step and the
+    BatchNorm all-reduces 106 times (K5 once a step), the logged losses are
+    finite, the AUC is a probability, and nothing of either run is left."""
+    root = ROOT / "build" / "chip_smoke_drivers"
+    w = input_workers()
+    runs = {
+        "resnet": _driver_run("resnet", root / "resnet", 1, _driver_args(
+            "resnet", steps=DRIVER_STEPS, log_every=DRIVER_LOG_EVERY, workers=w)),
+        "dlrm": _driver_run("dlrm", root / "dlrm", 1, _driver_args(
+            "dlrm", steps=DRIVER_STEPS, log_every=DRIVER_LOG_EVERY)),
+    }
+    rec = {name: dict(step_time_ms=run["result"]["train"].get("step_time_ms"),
+                      launch=run["launch"], logged_losses=run["losses"].get("p0"),
+                      left=run["left"], **{k: v for k, v in run["result"].items()
+                                           if k != "train"})
+           for name, run in runs.items()}
+    rec["workers"] = w
+    print("train drivers " + json.dumps(rec), flush=True)
+    for name, run in runs.items():
+        res = run["result"]
+        check(res["backend"] == "nccl" and res["device"] == "cuda:0"
+              and res["world_size"] == 1 and res["step"] == DRIVER_STEPS,
+              f"{name} driver: {res}")
+        logged = run["losses"].get("p0", [])
+        check(len(logged) == DRIVER_STEPS // DRIVER_LOG_EVERY
+              and all(np.isfinite(x) for x in logged),
+              f"{name} driver's logged losses: {logged}")
+        check(not run["left"], f"{name} driver left {run['left']}")
+    res = runs["resnet"]["result"]
+    check(res["variant"] == "resnet50" and res["k4_launches"] == 27 * DRIVER_STEPS,
+          f"the resnet driver launched K4 {res['k4_launches']} times in "
+          f"{DRIVER_STEPS} steps, want 27 a step")
+    check(res["bn_allreduces_per_step"] == BN_ALLREDUCES_PER_STEP,
+          f"{res['bn_allreduces_per_step']} BatchNorm all-reduces a step, want "
+          f"{BN_ALLREDUCES_PER_STEP}")
+    res = runs["dlrm"]["result"]
+    check(res["k5_launches"] == DRIVER_STEPS,
+          f"the dlrm driver launched K5 {res['k5_launches']} times in "
+          f"{DRIVER_STEPS} steps, want one a step")
+    check(0.0 <= res["eval_auc"] <= 1.0, f"the dlrm driver's AUC: {res['eval_auc']}")
+    return rec
+
+
+# -- phase 13: global BatchNorm statistics from two halves, on one card ---------
+
+#: each BatchNorm's batch statistics from the two halves' sums against the
+#: whole batch's: |Δmean| <= tol·sqrt(var) and |Δvar| <= tol·var per
+#: channel. The halves' convolutions (b=128 against 256) and K4's partial
+#: sums round their bf16 activations differently, which 50 layers compound
+BN_HALVES_TOL = 2e-2
+BN_HALVES_BATCH = RESNET_BATCH
+
+
+def _bn_step(torch, rows: slice) -> dict:
+    """ResNet-50 (seed 0, fused) on ``rows`` of a fixed batch of 256: one
+    forward in train mode and one backward of the whole batch's mean loss
+    restricted to these rows; each BatchNorm's batch mean and variance
+    (read back from its running statistics, which start at 0 and 1), every
+    param gradient, K4's launches and all_reduce_sum's collectives."""
+    import torch.nn.functional as F
+
+    from distributeddeeplearningspark_tpu_torch.models import resnet
+    from distributeddeeplearningspark_tpu_torch.ops import conv_bn as cb
+    from distributeddeeplearningspark_tpu_torch.ops.conv_bn import BN_MOMENTUM
+    from distributeddeeplearningspark_tpu_torch.parallel import collectives
+
+    model = resnet.resnet50(device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    images = torch.randn(BN_HALVES_BATCH, 224, 224, 3, generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (BN_HALVES_BATCH,), generator=gen, device="cuda")
+    k4, calls = cb.matmul_stats.launches, collectives.all_reduce_sum.calls
+    logits = model({"image": images[rows]})
+    loss = F.cross_entropy(logits, labels[rows], reduction="sum") / BN_HALVES_BATCH
+    loss.backward()
+    torch.cuda.synchronize()
+    keep = 1 - BN_MOMENTUM
+    stats = {}
+    for name, b in model.named_buffers():
+        b = b.detach().double().cpu()
+        stats[name] = b / keep if name.endswith(".mean") else (b - BN_MOMENTUM) / keep
+    return dict(stats=stats, loss=float(loss.detach()),
+                grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                k4_launches=cb.matmul_stats.launches - k4,
+                allreduces=collectives.all_reduce_sum.calls - calls)
+
+
+def bn_half_rank(rank: int, port: int, out: str) -> int:
+    """One half of the batch (``chip_smoke.py --bn-half-rank R PORT OUT``):
+    two such processes share the card through a gloo group, which sums
+    their CUDA tensors as ``all_reduce_sum`` asks."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    half = BN_HALVES_BATCH // 2
+    torch.save(_bn_step(torch, slice(rank * half, (rank + 1) * half)), out)
+    dist.destroy_process_group()
+    return 0
+
+
+def check_bn_halves(torch) -> dict:
+    """ResNet-50 at b=256 as the two halves of a batch, one process each on
+    this card, against the whole batch in this process: every BatchNorm's
+    batch mean and variance are the same bits on both halves and the whole
+    batch's at BN_HALVES_TOL, and the two halves' param gradients, summed,
+    are the whole batch's at the tolerance of K4's gradient parity; each
+    half launched K4 27 times and made 106 all-reduces."""
+    import socket
+
+    root = ROOT / "build" / "chip_smoke_bn_halves"
+    root.mkdir(parents=True, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    outs = [root / f"half{r}.pt" for r in (0, 1)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--bn-half-rank", str(r), str(port), str(outs[r])],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in (0, 1)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            check(p.returncode == 0, f"a BatchNorm half exited {p.returncode}: "
+                  f"{err[-2000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    halves_s = time.perf_counter() - t0
+    halves = [torch.load(o, weights_only=True) for o in outs]
+    whole = _bn_step(torch, slice(0, BN_HALVES_BATCH))
+    equal = all(torch.equal(halves[0]["stats"][k], halves[1]["stats"][k])
+                for k in whole["stats"])
+    worst = (0.0, None)
+    layers = [k[:-len(".mean")] for k in whole["stats"] if k.endswith(".mean")]
+    for layer in layers:
+        mean_w, var_w = whole["stats"][f"{layer}.mean"], whole["stats"][f"{layer}.var"]
+        mean_h, var_h = halves[0]["stats"][f"{layer}.mean"], halves[0]["stats"][f"{layer}.var"]
+        used = max(float(((mean_h - mean_w).abs() / (BN_HALVES_TOL * var_w.clamp_min(1e-12).sqrt())).max()),
+                   float(((var_h - var_w).abs() / (BN_HALVES_TOL * var_w.clamp_min(1e-12))).max()))
+        if used > worst[0]:
+            worst = (used, layer)
+    summed = {n: halves[0]["grads"][n] + halves[1]["grads"][n] for n in whole["grads"]}
+    grads = _compare_grads(torch, summed, whole["grads"], RESNET_PARITY_RTOL,
+                           RESNET_PARITY_ATOL)
+    rec = dict(batch=BN_HALVES_BATCH, layers=len(layers), halves_stats_equal=equal,
+               stats_max_tolerance_used=worst[0], stats_worst_layer=worst[1],
+               stats_tolerance=f"|dmean| <= {BN_HALVES_TOL}*std, "
+                               f"|dvar| <= {BN_HALVES_TOL}*var per channel",
+               loss_whole=whole["loss"], loss_halves=[h["loss"] for h in halves],
+               grads=grads, k4_launches=[h["k4_launches"] for h in halves],
+               allreduces=[h["allreduces"] for h in halves], halves_s=halves_s)
+    print("bn halves " + json.dumps(rec), flush=True)
+    check(len(layers) == 53, f"{len(layers)} BatchNorm layers, want 53")
+    check(equal, "the two halves' BatchNorm statistics differ")
+    check(worst[0] <= 1.0, f"BatchNorm statistics from the halves are off the "
+          f"whole batch's: {worst}")
+    check(grads["max_tolerance_used"] <= 1.0,
+          f"the halves' summed gradients are off the whole batch's: {grads['worst']}")
+    check(all(h["k4_launches"] == 27 for h in halves) and whole["k4_launches"] == 27,
+          f"K4 launches {rec['k4_launches']}, whole {whole['k4_launches']}")
+    check(all(h["allreduces"] == BN_ALLREDUCES_PER_STEP for h in halves)
+          and whole["allreduces"] == 0, f"all-reduces {rec['allreduces']}")
+    return rec
+
+
+# -- chip_smoke.py --gang: the drivers at one rank per card ---------------------
+
+#: steps of the --gang runs (each logged), and of the profiled window
+GANG_STEPS, GANG_WINDOW = 6, 4
+#: ResNet's worker processes a rank in the --gang runs
+GANG_WORKERS = 2
+#: each logged loss at N ranks against one card's on the same global
+#: batches: bf16 activations, whose convolutions, matmuls and K4 sums round
+#: differently at b/N rows than at b, carried through the steps (four H100s
+#: read 2.25e-5 for ResNet-50 and 3.37e-5 for the DLRM)
+GANG_LOSS_RTOL = 1e-3
+#: ResNet-50's parameters' change over the GANG_STEPS steps at N ranks
+#: against one card's, |Δ_N − Δ_1| / |Δ_1| over every parameter together.
+#: SGD moves them in proportion to the gradient: four H100s read 0.026 from
+#: the rounding above, 0.55 with a rank-local BatchNorm backward and 2.4
+#: with the loss not weighed (GANG_FAULTS), whose losses read 1.1e-4 and
+#: 3.4e-2. The DLRM's change is printed, not held: AdamW and the row-wise
+#: AdaGrad take steps of about ±lr wherever a gradient is near 0, so
+#: rounding alone flips whole steps there; and both are blind to the
+#: gradient's scale, so a loss weighed wrong cannot move them at all.
+GANG_PARAM_RTOL = 0.1
+#: faults planted into the N-rank ResNet-50 run. Each leaves the replicas
+#: equal, so that only the comparison with one card can see it, and the
+#: phase fails unless its loss or its parameters leave their limit.
+GANG_FAULTS = {
+    "loss-unweighed": "each rank's loss is not weighed by its share of the "
+                      "global batch: the ranks' gradients are summed, not averaged",
+    "bn-backward-local": "BatchNorm's backward sums (Σg and Σg·(x−mean), and "
+                         "K4's ds1 and ds2) stay this rank's",
+}
+
+
+def _plant(fault: str) -> None:
+    """Plant one of GANG_FAULTS into this process's port ("none": nothing)."""
+    from distributeddeeplearningspark_tpu_torch.models import resnet
+    from distributeddeeplearningspark_tpu_torch.parallel import collectives
+
+    if fault == "loss-unweighed":
+        weigh = collectives.weigh_loss
+
+        def unweighed(loss, metrics, rows):
+            weighed, out = weigh(loss, metrics, rows)
+            return weighed * collectives.world_size(), out
+
+        collectives.weigh_loss = unweighed
+    elif fault == "bn-backward-local":
+        reduce, backward = collectives.all_reduce_sum, resnet._BatchNormTrain.backward
+
+        def local_backward(ctx, *grads):
+            collectives.all_reduce_sum = lambda t: t
+            try:
+                return backward(ctx, *grads)
+            finally:
+                collectives.all_reduce_sum = reduce
+
+        resnet._BatchNormTrain.backward = staticmethod(local_backward)
+        collectives._AllReduceSum.backward = staticmethod(lambda ctx, g: g)
+    else:
+        check(fault == "none", f"no fault {fault!r}")
+
+
+def model_rank(argv: list[str]) -> int:
+    """One rank of a --gang comparison run (``chip_smoke.py --model-rank
+    resnet|dlrm OUT FAULT ARGS``, run by the port's cli): the driver's
+    model, data and optimizer, FAULT planted (``none`` or one of
+    GANG_FAULTS), GANG_STEPS steps, each logged, and the replicas checked;
+    rank 0 saves to OUT the parameters' change over the steps (and the
+    DLRM's row accumulators). A sound run at more than one rank then takes
+    GANG_WINDOW more steps under the profiler, whose record rank 0 prints."""
+    import torch
+
+    from distributeddeeplearningspark_tpu_torch.examples import train_dlrm, train_resnet
+    from distributeddeeplearningspark_tpu_torch.parallel import collectives
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import embed
+
+    name, out, fault = argv[:3]
+    driver = {"resnet": train_resnet, "dlrm": train_dlrm}[name]
+    args = driver.parse_args(argv[3:])
+    _plant(fault)
+    spark = Session.builder.appName(f"{name}-gang-{fault}").getOrCreate()
+    trainer, ds = driver.make_trainer(args, spark), driver.make_dataset(args, spark)
+    init = {k: p.detach().to("cpu", copy=True)
+            for k, p in trainer.model.named_parameters()}
+    state, _ = trainer.fit(ds, batch_size=args.batch_size, steps=GANG_STEPS, log_every=1)
+    compare = {k: p.detach().cpu() - init[k] for k, p in state.params.items()}
+    compare.update({f"{n}.row_accum": s[embed.ROW_ACCUM].detach().cpu()
+                    for n, s in state.embed_state.items()})
+    collectives.assert_replicas_in_sync(
+        {**state.params, **dict(trainer.model.named_buffers()),
+         **{f"{n}.row_accum": s[embed.ROW_ACCUM] for n, s in state.embed_state.items()}},
+        what="params, buffers and row accumulators")
+    if spark.rank == 0:
+        torch.save(compare, out)
+    if fault == "none" and spark.world_size > 1:
+        profile = _profile_fit(torch, trainer, ds, args.batch_size, {}, steps=GANG_WINDOW)
+        if spark.rank == 0:
+            print("model profile " + json.dumps(dict(
+                profile, backend=spark.backend, world_size=spark.world_size)), flush=True)
+    spark.stop()
+    return 0
+
+
+def _model_run(name: str, workdir: Path, ranks: int, fault: str, args: list[str]) -> dict:
+    """A :func:`model_rank` launch at ``local[ranks]``: rank 0's logged
+    losses, its step ms (the laps after the first), the change it saved,
+    and the profile where it printed one."""
+    import shutil
+
+    import torch
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    out = workdir / "compare.pt"
+    lines, timing = _launch(workdir, ranks, Path(__file__).resolve(),
+                            ["--model-rank", name, str(out), fault, *args], timeout=600)
+    metrics = [r for r in _events(workdir, "p0") if r["kind"] == "step_metrics"]
+    metrics = metrics[:GANG_STEPS]
+    laps = [r["lap_s"] * 1e3 / r["steps"] for r in metrics]
+    found = [x for x in lines if x.startswith("model profile ")]
+    return dict(losses=[r["metrics"]["loss"] for r in metrics],
+                step_ms=float(np.mean(laps[1:] or laps)) if laps else None,
+                compare=torch.load(out), launch=timing,
+                profile=json.loads(found[0][len("model profile "):]) if found else None)
+
+
+def _loss_gap(got: list, want: list) -> float:
+    check(len(got) == len(want) == GANG_STEPS and all(np.isfinite(got + want)),
+          f"logged {got} against {want}")
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _param_gap(got: dict, want: dict) -> dict:
+    """|got − want| / |want| over every tensor together, and the tensor
+    where the ratio is largest among those that hold at least 1e-3 of
+    |want|."""
+    check(sorted(got) == sorted(want), f"{sorted(got)} against {sorted(want)}")
+    norms = {k: (float((got[k] - b).double().norm()), float(b.double().norm()))
+             for k, b in want.items()}
+    num, den = (sum(x[i] ** 2 for x in norms.values()) ** 0.5 for i in (0, 1))
+    big = {k: d / n for k, (d, n) in norms.items() if n > 0 and n >= 1e-3 * den}
+    where = max(big, key=big.get, default=None)
+    return dict(rel=num / den if den else float("inf"), worst_tensor=where,
+                worst_rel=big.get(where))
+
+
+def train_drivers_gang(torch, ranks: int) -> dict:
+    """ResNet-50 at b=256 global and the DLRM at b=8,192 global at one rank
+    per card over NCCL, GANG_STEPS steps, against one card on the same
+    source partitions (the same global batches). The drivers through the
+    cli: replicas in sync (each driver checks its params and BatchNorm
+    buffers or row accumulators), every rank's losses the same, 27 K4
+    launches and 106 BatchNorm all-reduces a step, one K5 launch, and
+    nothing left behind. The drivers' model, data and optimizer in
+    :func:`model_rank` runs at N ranks and on one card: the losses at
+    GANG_LOSS_RTOL, ResNet-50's parameters' change at GANG_PARAM_RTOL,
+    each rank's step ms and a profiled window for the NCCL kernels' time.
+    Then each of GANG_FAULTS planted into ResNet-50's N-rank run must leave
+    one of the two limits."""
+    root = ROOT / "build" / f"chip_smoke_gang_{ranks}"
+    out = {}
+    for name in ("resnet", "dlrm"):
+        workers = GANG_WORKERS if name == "resnet" else None
+        parts = ranks * GANG_WORKERS if name == "resnet" else ranks
+        args = _driver_args(name, steps=GANG_STEPS, log_every=1, workers=workers,
+                            parts=parts)
+        many = _driver_run(name, root / name / "driver", ranks, args)
+        gang = _model_run(name, root / name / "gang", ranks, "none", args)
+        one = _model_run(name, root / name / "one", 1, "none", args)
+        got, want, base = many["losses"].get("p0", []), one["losses"], one["compare"]
+        profile = gang["profile"] or {}
+        rec = dict(ranks=ranks, global_batch=RESNET_BATCH if name == "resnet" else DLRM_BATCH,
+                   step_ms_by_rank=many["step_ms_by_rank"], one_card_step_ms=one["step_ms"],
+                   losses=got, one_card_losses=want, max_loss_rel_err=_loss_gap(got, want),
+                   loss_rtol=GANG_LOSS_RTOL,
+                   model_rank_max_loss_rel_err=_loss_gap(gang["losses"], want),
+                   params=_param_gap(gang["compare"], base),
+                   param_rtol=GANG_PARAM_RTOL if name == "resnet" else None,
+                   launch=many["launch"], left=many["left"],
+                   nccl_ms_per_step=profile.get("busy_ms_by_family", {}).get("nccl"),
+                   profile=profile, **{k: v for k, v in many["result"].items()
+                                       if k != "train"})
+        del gang, one
+        if name == "resnet":
+            rec["faults"] = {}
+            for fault in GANG_FAULTS:
+                bad = _model_run(name, root / name / fault, ranks, fault, args)
+                rec["faults"][fault] = dict(
+                    max_loss_rel_err=_loss_gap(bad["losses"], want),
+                    params=_param_gap(bad["compare"], base))
+                del bad
+        del base
+        print(f"gang {name} " + json.dumps(rec), flush=True)
+        res = many["result"]
+        check(res["world_size"] == ranks and res["backend"] == "nccl"
+              and res["replicas_checked"], f"{name} gang: {res}")
+        check(sorted(many["losses"]) == [f"p{r}" for r in range(ranks)]
+              and all(v == got for v in many["losses"].values()),
+              f"{name}: the ranks logged different losses")
+        check(rec["max_loss_rel_err"] <= GANG_LOSS_RTOL,
+              f"{name}: the losses at {ranks} ranks are off one card's "
+              f"({rec['max_loss_rel_err']} > {GANG_LOSS_RTOL}): {got} vs {want}")
+        check(rec["params"]["rel"] <= (rec["param_rtol"] or float("inf")),
+              f"{name}: the parameters' change at {ranks} ranks is off one card's "
+              f"({rec['params']} > {GANG_PARAM_RTOL})")
+        check(not many["left"], f"{name} left {many['left']}")
+        check(profile.get("busy_ms_by_family", {}).get("nccl", 0.0) > 0,
+              f"no NCCL kernel in the profiled {name} gang: {profile}")
+        if name == "resnet":
+            check(res["k4_launches"] == 27 * GANG_STEPS
+                  and res["bn_allreduces_per_step"] == BN_ALLREDUCES_PER_STEP,
+                  f"resnet gang: {res}, want 27 K4 launches a step at "
+                  f"{RESNET_BATCH // ranks} rows a rank")
+            for fault, seen in rec["faults"].items():
+                check(seen["max_loss_rel_err"] > GANG_LOSS_RTOL
+                      or seen["params"]["rel"] > GANG_PARAM_RTOL,
+                      f"resnet gang: the planted fault {fault!r} ({GANG_FAULTS[fault]}) "
+                      f"stays within both limits: {seen}")
+        else:
+            check(res["k5_launches"] == GANG_STEPS
+                  and res["merge_bytes_per_step"] == DLRM_BATCH * len(DLRM_VOCABS) * (4 + 64 * 4),
+                  f"dlrm gang: {res}")
+        out[name] = rec
+    return out
+
+
 # -- chip_smoke.py --input-ab: the prefetch thread against the loop's thread ----
 
 #: steps of each timed fit of the A/B, and its laps (the first is left out)
@@ -1909,8 +2448,9 @@ def input_ab_main(torch) -> int:
 
 
 def gang_main(torch) -> int:
-    """``chip_smoke.py --gang``: the LeNet phase alone at one rank per
-    visible card (2 or more), NCCL between them."""
+    """``chip_smoke.py --gang``: at one rank per visible card (2 or more),
+    NCCL between them, the LeNet phase, then the ResNet-50 and DLRM drivers
+    (:func:`train_drivers_gang`)."""
     ranks = torch.cuda.device_count()
     if ranks < 2:
         print(f"chip_smoke --gang: {ranks} card(s); it needs 2 or more",
@@ -1918,6 +2458,7 @@ def gang_main(torch) -> int:
         return 2
     try:
         train_lenet(torch, ranks)
+        train_drivers_gang(torch, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2067,6 +2608,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:] == ["--lenet-rank"]:
         return lenet_rank()
+    if sys.argv[1:2] == ["--model-rank"]:
+        return model_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--bn-half-rank"]:
+        rank, port, out = sys.argv[2:5]
+        return bn_half_rank(int(rank), int(port), out)
     try:
         import distributeddeeplearningspark_tpu_torch as pkg
     except ImportError as e:
@@ -2116,6 +2662,8 @@ def main() -> int:
         k5 = check_scatter_rows(torch, sr)
         dlrm_rec = train_dlrm(torch, sr)
         train_lenet(torch)
+        drivers = train_drivers(torch)
+        check_bn_halves(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2157,7 +2705,8 @@ def main() -> int:
         "name": "conv_bn_stats", "route": "cuda",
         "source": f"{PKG}/csrc/conv_bn.cu",
         "replaces": "distributeddeeplearningspark_tpu/ops/conv_bn.py:62",
-        "launches": resnet["k4_launches"],
+        # the in-process phase's and the driver's runs, each counted from 0
+        "launches": resnet["k4_launches"] + drivers["resnet"]["k4_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in k4),
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),
@@ -2169,7 +2718,7 @@ def main() -> int:
         "name": "scatter_add_rows", "route": "cuda",
         "source": f"{PKG}/csrc/scatter_rows.cu",
         "replaces": "distributeddeeplearningspark_tpu/ops/scatter_rows.py:39",
-        "launches": dlrm_rec["k5_launches"],
+        "launches": dlrm_rec["k5_launches"] + drivers["dlrm"]["k5_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in k5),
         "ms": k5_step["ms"], "plain_ms": k5_step["plain_ms"],
         "bound_ms": k5_step["bound_ms"], "bound_by": k5_step["bound_by"],

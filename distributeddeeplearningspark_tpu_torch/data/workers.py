@@ -41,8 +41,11 @@ the rest of the stack depends on:
   *raises* (deterministic on this input: a retry would raise again), the
   consumer raises a typed :class:`WorkerCrashed` within a bounded wait,
   and it propagates out of ``Trainer.fit`` like any training error. A
-  worker that is alive but *stuck* is not timed out: no per-example
-  deadline fits legitimately slow work; the utilization gauges show it.
+  worker that is alive but *silent*, whose next record the consumer has
+  waited ``_RESULT_TIMEOUT_S`` for (120 s, far past any one example's
+  map), counts as dead: it is killed and respawned within
+  the same budget, past which :class:`WorkerCrashed` is raised. So the
+  consumer never waits on a child for good.
 
 Workers start with the ``fork`` start method: the map ``fn`` and the source
 partition are closures (lambdas over tokenizers and transform settings)
@@ -51,9 +54,13 @@ plain Python only, never torch**, as torch's own DataLoader asks of its
 workers: a pool may fork while the parent's main thread drives CUDA (and,
 in a gang, NCCL) and after torch's intra-op OpenMP pool has started, and a
 torch call in such a child can hang on a lock or thread that fork did not
-copy. The child inherits no CUDA work and makes none. Where fork is
-unavailable the pool degrades to the serial in-process map with a one-time
-warning: the same bytes, no speedup.
+copy. The child inherits no CUDA work and makes none. Nor does it collect
+the parent's garbage: the parent freezes its objects (``gc.freeze``) for
+the fork, so a cycle the parent had not collected yet, holding an object
+whose finalizer takes a lock of a parent thread (a JAX array's buffer, a
+torch handle), is never finalized in a child, where that lock may be held
+for good. Where fork is unavailable the pool degrades to the serial
+in-process map with a one-time warning: the same bytes, no speedup.
 
 Each worker re-iterates its partition's *source* and maps only its residue
 class: no input pickling, no dispatcher thread. That repeats the source
@@ -76,6 +83,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import gc
 import multiprocessing as mp
 import os
 import queue as queue_lib
@@ -100,6 +108,9 @@ RING_MB_ENV = "DLS_DATA_WORKER_RING_MB"
 #: death escalates to the typed WorkerCrashed (0 = today's fail-fast).
 INPUT_RETRIES_ENV = "DLS_DATA_WORKER_MAX_RETRIES"
 _DEFAULT_INPUT_RETRIES = 2
+#: seconds the consumer waits on a live worker's next record before it
+#: counts the worker as dead (killed, then respawned or raised)
+_RESULT_TIMEOUT_S = 120.0
 
 _DEFAULT_RING_MB = 32
 #: metadata-queue bound = max mapped examples in flight per worker beyond
@@ -190,11 +201,13 @@ class WorkerCrashed(RuntimeError):
 
 
 @contextlib.contextmanager
-def _fork_warnings_silenced():
-    """Fork from a multi-threaded parent warns of deadlocks in the child
-    (Python's DeprecationWarning; JAX's RuntimeWarning where JAX is loaded
-    beside the port). It does not apply here: the child runs numpy and
-    plain Python only and never waits on a thread or lock of the parent's."""
+def _forking():
+    """Around a worker's fork: the parent's objects frozen out of the
+    collector (the child then never finalizes them: see the module
+    docstring), and the warnings that a fork from a multi-threaded parent
+    raises (Python's DeprecationWarning; JAX's RuntimeWarning where JAX is
+    loaded beside the port) silenced, since the child runs numpy and plain
+    Python only and never waits on a thread or lock of the parent's."""
     with warnings.catch_warnings():
         warnings.filterwarnings(
             "ignore", message=r".*os\.fork\(\) was called.*",
@@ -202,7 +215,11 @@ def _fork_warnings_silenced():
         warnings.filterwarnings(
             "ignore", message=r".*multi-threaded, use of fork\(\).*",
             category=DeprecationWarning)
-        yield
+        gc.freeze()
+        try:
+            yield
+        finally:
+            gc.unfreeze()
 
 
 def _safe_put(q, item) -> None:
@@ -444,6 +461,7 @@ class WorkerPool:
         self._source_factory = source_factory
         self._fn = fn
         self._respawns_left = input_worker_retries(max_retries)
+        self._result_timeout = _RESULT_TIMEOUT_S
         ctx = mp.get_context("fork")
         rb = _ring_bytes(ring_bytes)
         self._ring_bytes = rb
@@ -466,7 +484,7 @@ class WorkerPool:
                       self._out_qs[w], self._free_qs[w], self._stats,
                       self._stop))
             for w in range(num_workers)]
-        with _fork_warnings_silenced():
+        with _forking():
             for p in self._procs:
                 p.start()
         # LIVE lists shared with the finalizer: respawned workers and
@@ -505,12 +523,15 @@ class WorkerPool:
             self.close()
 
     def _next_record(self, w: int):
+        waited_since = time.monotonic()
+        silent = False
         while True:
             q = self._out_qs[w]
             try:
                 return q.get(timeout=_POLL_S)
             except queue_lib.Empty:
-                if self._procs[w].is_alive():
+                silent = (time.monotonic() - waited_since > self._result_timeout)
+                if self._procs[w].is_alive() and not silent:
                     continue
             except Exception:  # noqa: BLE001 — a frame the dying feeder
                 # tore mid-write surfacing on the PRIMARY get (unpickle/
@@ -526,18 +547,27 @@ class WorkerPool:
                 pass
             except Exception:  # noqa: BLE001 — the torn frame again
                 pass
+            if silent and self._procs[w].is_alive():
+                # alive, but nothing for the whole deadline: stuck (a lock
+                # fork copied held, say); it counts as dead
+                self._procs[w].kill()
+                self._procs[w].join(timeout=5.0)
             rc = self._procs[w].exitcode
+            why = (f"was alive but sent nothing for {self._result_timeout:g} s "
+                   f"and was killed" if silent else
+                   f"died (exit code {rc}) without reporting an error — "
+                   f"killed (OOM/SIGKILL) or crashed in native code")
             if self._respawns_left > 0:
-                self._respawn(w, rc)
+                self._respawn(w, rc, silent=silent)
+                waited_since = time.monotonic()
+                silent = False
                 continue
             raise WorkerCrashed(
-                f"input worker {w} died (exit code {rc}) without "
-                f"reporting an error — killed (OOM/SIGKILL) or "
-                f"crashed in native code (respawn budget "
+                f"input worker {w} {why} (respawn budget "
                 f"{INPUT_RETRIES_ENV} exhausted)", worker=w,
                 exitcode=rc) from None
 
-    def _respawn(self, w: int, exitcode: int | None) -> None:
+    def _respawn(self, w: int, exitcode: int | None, *, silent: bool = False) -> None:
         """Replace a dead worker in place: fresh arena and
         queues — the dead worker's pipe may hold a frame its feeder tore
         mid-write, and in-flight examples regenerate deterministically —
@@ -548,7 +578,8 @@ class WorkerPool:
         writer = telemetry.get()
         if writer is not None:
             writer.recovery(None, "input-worker-respawn", worker=w,
-                            exitcode=exitcode, skipped=self._consumed[w],
+                            exitcode=exitcode, silent=silent,
+                            skipped=self._consumed[w],
                             respawns_left=self._respawns_left,
                             label=self.label or None)
         ctx = mp.get_context("fork")
@@ -565,7 +596,7 @@ class WorkerPool:
             target=_worker_loop, daemon=True, name=f"dls-worker-{w}",
             args=(w, self.n, self._source_factory, self._fn, shm, out_q,
                   free_q, self._stats, self._stop, self._consumed[w]))
-        with _fork_warnings_silenced():
+        with _forking():
             p.start()
         self._retired_qs.extend((self._out_qs[w], self._free_qs[w]))
         # old arena stays in _all_shms for unlink at close; views the

@@ -139,14 +139,30 @@ class StreamingAUC:
         ties = 0.5 * float((self._pos * self._neg).sum())
         return (wins + ties) / (float(npos) * float(nneg))
 
+    def all_reduce(self, device) -> None:
+        """Sum the class histograms across the ranks of a gang, through
+        ``device`` (the group's: a card under NCCL), so that
+        :meth:`compute` gives the AUC of every rank's predictions. A no-op
+        outside a group."""
+        from distributeddeeplearningspark_tpu_torch.parallel import collectives
+
+        if not collectives.active():
+            return
+        import torch
+
+        hist = torch.from_numpy(np.stack([self._pos, self._neg])).to(device)
+        self._pos, self._neg = collectives.all_reduce_sum_(hist).cpu().numpy()
+
 
 def auc_from_predictions(predictions, *, num_bins: int = 4096,
                          label_key: str = "label", max_examples: int | None = None,
-                         chunk: int = 8192) -> float:
+                         chunk: int = 8192, device=None) -> float:
     """AUC over a stream of ``(example_dict, score)`` pairs (the label read
     from ``example_dict[label_key]``) or ``(score, label)`` pairs, fed to
     :class:`StreamingAUC` in chunks of ``chunk`` rows; ``max_examples``
-    stops consuming the stream early."""
+    stops consuming the stream early. ``device`` (in a gang, each rank
+    holding the pairs of its own rows): the histograms are summed across
+    ranks through it before the AUC is computed."""
     auc = StreamingAUC(num_bins)
     scores: list = []
     labels: list = []
@@ -174,4 +190,6 @@ def auc_from_predictions(predictions, *, num_bins: int = 4096,
         if buffered_rows >= chunk:
             flush()
     flush()
+    if device is not None:
+        auc.all_reduce(device)
     return auc.compute()

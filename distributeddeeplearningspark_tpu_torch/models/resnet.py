@@ -18,6 +18,11 @@ Same model as the flax one, which the CPU tests hold it to:
   clipped at 0, the normalisation ``((x − mean)·(rsqrt(var + eps)·scale) +
   bias)`` computed in f32 and cast to ``dtype``, running statistics
   ``0.9·old + 0.1·batch`` with the biased variance;
+- in a data-parallel gang the training statistics are the global batch's,
+  as GSPMD makes them in JAX: each BatchNorm (and each
+  :class:`~..ops.conv_bn.Conv1x1BN`) all-reduces its column sums forward
+  and their gradients backward, so the running statistics move alike on
+  every rank and stay replicas;
 - ``fused_conv_bn=True`` routes each bottleneck's two stride-1 1×1
   conv→BN pairs through :class:`~..ops.conv_bn.Conv1x1BN`, which takes
   kernel K4 in train mode where the JAX gate admits the shape.
@@ -40,6 +45,7 @@ from distributeddeeplearningspark_tpu_torch.ops.conv_bn import (
     BN_MOMENTUM,
     Conv1x1BN,
 )
+from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.utils.device import resolve_device
 
 
@@ -61,13 +67,20 @@ class Conv2d(nn.Module):
                         padding=self.padding)
 
 
-def _bn_stats(xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """flax ``_compute_stats`` over (B, H, W): ``(mean, E[x²] − mean²,
-    clipped var)``."""
+def _bn_stats(xf: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """flax ``_compute_stats`` over (B, H, W) of the global batch: ``(mean,
+    E[x²] − mean², clipped var, rows)``. Each rank's ``Σx``, ``Σx²`` and
+    row count go through one :func:`~..parallel.collectives.all_reduce_sum`
+    of a ``[2C+1]`` f32 buffer (nothing outside a group)."""
     dims = (0, 2, 3)
-    mean = xf.mean(dims)
-    raw = xf.square().mean(dims) - mean * mean
-    return mean, raw, torch.clamp(raw, min=0.0)
+    c = xf.shape[1]
+    sums = collectives.all_reduce_sum(torch.cat([
+        xf.sum(dims), xf.square().sum(dims),
+        xf.new_full((1,), xf.numel() // c)]))
+    n = sums[2 * c]
+    mean = sums[:c] / n
+    raw = sums[c:2 * c] / n - mean * mean
+    return mean, raw, torch.clamp(raw, min=0.0), n
 
 
 def _bn_apply(x, mean, var, scale, bias, eps, dtype) -> torch.Tensor:
@@ -79,25 +92,33 @@ def _bn_apply(x, mean, var, scale, bias, eps, dtype) -> torch.Tensor:
 
 
 class _BatchNormTrain(torch.autograd.Function):
-    """flax's train-mode BatchNorm on batch statistics, with its gradient
-    written out so that autograd keeps only the input (in its own dtype)
-    and [C] vectors, not the f32 copies the forward makes. Returns the
-    output and the batch ``(mean, var)``, which take no gradient."""
+    """flax's train-mode BatchNorm on the global batch's statistics, with
+    its gradient written out so that autograd keeps only the input (in its
+    own dtype) and [C] vectors, not the f32 copies the forward makes.
+    Returns the output and the batch ``(mean, var)``, which take no
+    gradient.
+
+    In a gang the statistics are the global batch's (:func:`_bn_stats`), and
+    so are the backward's ``Σg`` and ``Σg·(x − mean)`` that reach them
+    through the mean and the variance (one all-reduce of a ``[2C]``
+    buffer), over the global row count. ``dscale`` and ``dbias`` stay this
+    rank's, as every param gradient does until the train step's
+    all-reduce."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps, out_dtype):
-        mean, raw, var = _bn_stats(x.float())
+        mean, raw, var, n = _bn_stats(x.float())
         out = _bn_apply(x, mean, var, scale, bias, eps, out_dtype)
-        ctx.save_for_backward(x, mean, raw, var, scale)
+        ctx.save_for_backward(x, mean, raw, var, scale, n)
         ctx.eps = eps
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
     @staticmethod
     def backward(ctx, dout, _dmean, _dvar):
-        x, mean, raw, var, scale = ctx.saved_tensors
+        x, mean, raw, var, scale, n = ctx.saved_tensors
         shape = (1, -1, 1, 1)
-        n = x.numel() // x.shape[1]
+        c = x.shape[1]
         rstd = torch.rsqrt(var + ctx.eps)
         a = rstd * scale
         g = dout.float()
@@ -106,6 +127,9 @@ class _BatchNormTrain(torch.autograd.Function):
         sum_gxc = (g * xc).sum((0, 2, 3))
         del xc
         dscale = sum_gxc * rstd
+        dbias = sum_g
+        sums = collectives.all_reduce_sum(torch.cat([sum_g, sum_gxc]))
+        sum_g, sum_gxc = sums[:c], sums[c:]
         # through rstd = (var + eps)^-1/2; var = max(0, E[x²] − mean²),
         # whose gradient is 1 above 0, 0 below and ½ at the tie, as jnp's
         dvar = sum_gxc * scale * (-0.5) * rstd ** 3
@@ -113,7 +137,7 @@ class _BatchNormTrain(torch.autograd.Function):
         dmean = -a * sum_g - 2.0 * mean * dvar
         dx = (g * a.view(shape) + (dmean / n).view(shape)
               + x.float() * (2.0 * dvar / n).view(shape))
-        return dx.to(x.dtype), dscale, sum_g, None, None
+        return dx.to(x.dtype), dscale, dbias, None, None
 
 
 class BatchNorm(nn.Module):

@@ -10,18 +10,26 @@ the design and the bound). A stride-1 1×1 convolution is a matmul over the
 second read of Y. Here:
 
 - :func:`matmul_stats` — K4's wrapper: ``(y, s1, s2)``. It launches the
-  kernel for CUDA tensors (bf16, contiguous, 16-byte aligned, every shape
-  :func:`can_fuse` admits with K and N multiples of 8) or raises, and takes
-  :func:`matmul_stats_reference` for CPU tensors. Its launch count is
+  kernel for CUDA tensors (bf16, contiguous, 16-byte aligned, M, K and N
+  multiples of 8) or raises, and takes :func:`matmul_stats_reference` for
+  CPU tensors of every shape :func:`can_fuse` admits. Its launch count is
   ``matmul_stats.launches``.
 - :func:`fused_matmul_stats` — the differentiable op, the counterpart of
   the JAX package's ``jax.custom_vjp`` ``matmul_stats``: K4 forward, and the
   JAX backward (``:177-189``) as torch matmuls in f32, the stats cotangents
   folded into ``dY + ds1 + 2·Y·ds2``.
 - :func:`can_fuse` and :func:`_resolve_blocks` — the JAX package's gate,
-  copied as it is (block 512), so that both packages fuse the same layers.
+  copied as it is (block 512). :class:`Conv1x1BN` applies it to the global
+  batch's rows (this rank's M times the rank count), as JAX's gate sees the
+  global M under GSPMD, so that both packages fuse the same layers at any
+  rank count. K4 takes partial row tiles, so on the card a rank's own M
+  need only be a multiple of 8.
 - :class:`Conv1x1BN` — the JAX module as an ``nn.Module``: the kernel path
   in train mode where ``fused`` and the gate allow, else the unfused chain.
+  In a data-parallel gang its statistics are the global batch's: K4 still
+  computes this rank's ``Y``, ``Σy`` and ``Σy²``, and the module sums the
+  ranks' ``Σ``'s (and their gradients, backward) before the mean and the
+  variance.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import functools
 
 import torch
 from torch import nn
+
+from distributeddeeplearningspark_tpu_torch.parallel import collectives
 
 #: BatchNorm's running-statistics momentum and epsilon (the JAX module's)
 BN_MOMENTUM = 0.9
@@ -50,8 +60,8 @@ def can_fuse(m: int, k: int, n: int,
              block_m: int = 512, block_n: int = 512, block_k: int = 512) -> bool:
     """True when :func:`matmul_stats` accepts this shape: M a multiple of 8
     and M, K, N divisible by ``min(512, dim)``. The shape gate
-    :class:`Conv1x1BN` uses, as in the JAX package (on the card it also
-    needs bf16, see ``Conv1x1BN._fuses``)."""
+    :class:`Conv1x1BN` uses on the CPU, as in the JAX package (the card's
+    is ``Conv1x1BN._fuses``)."""
     if m % 8:
         return False
     try:
@@ -68,7 +78,6 @@ def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> tuple[int, int, int]:
     n = w.shape[1]
     if m % 8:
         raise ValueError(f"matmul_stats needs M divisible by 8, got {m}")
-    _resolve_blocks(m, k, n, 512, 512, 512)
     return m, k, n
 
 
@@ -117,14 +126,15 @@ def _check_cuda_operands(x: torch.Tensor, w: torch.Tensor) -> None:
 def matmul_stats(x: torch.Tensor, w: torch.Tensor):
     """``y = x @ w`` with each column's ``(sum(y), sum(y²))`` in f32.
 
-    x ``[M, K]``, w ``[K, N]``; y ``[M, N]`` in x's dtype. Any shape
-    :func:`can_fuse` admits; others raise ``ValueError``. On CUDA tensors it
-    launches K4 on the current stream (bf16, K and N multiples of 8:
-    :func:`_check_cuda_operands`); on CPU tensors it takes
-    :func:`matmul_stats_reference`. Not differentiable: see
+    x ``[M, K]``, w ``[K, N]``; y ``[M, N]`` in x's dtype, M a multiple of
+    8. On CUDA tensors it launches K4 on the current stream (bf16, K and N
+    multiples of 8: :func:`_check_cuda_operands`); on CPU tensors it takes
+    :func:`matmul_stats_reference` at any shape :func:`can_fuse` admits.
+    Other shapes raise ``ValueError``. Not differentiable: see
     :func:`fused_matmul_stats`."""
     m, k, n = _check_shapes(x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
+        _resolve_blocks(m, k, n, 512, 512, 512)
         return matmul_stats_reference(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"matmul_stats runs on cuda or cpu, not {x.device}")
@@ -191,14 +201,28 @@ def channels_last_rows(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).view(b * h * w, c)
 
 
+def _global_stats(s1: torch.Tensor, s2: torch.Tensor, m: int):
+    """BatchNorm's ``(mean, var)`` from this rank's column sums of y and y²
+    over its ``m`` rows: the sums and the row count go through one
+    :func:`~..parallel.collectives.all_reduce_sum` (nothing outside a
+    group), so in a gang they are the global batch's and the backward
+    takes the global ``ds1`` and ``ds2``. ``E[y²] − E[y]²`` (the one-pass
+    form), clipped at 0."""
+    n = s1.numel()
+    sums = collectives.all_reduce_sum(torch.cat([s1, s2, s1.new_full((1,), m)]))
+    mean = sums[:n] / sums[2 * n]
+    return mean, torch.clamp(sums[n:2 * n] / sums[2 * n] - mean * mean, min=0.0)
+
+
 class Conv1x1BN(nn.Module):
     """Fused ``1×1 conv → BatchNorm`` (stride 1), the JAX ``Conv1x1BN``.
 
     Takes and returns ``[B, C, H, W]`` channels-last tensors. Params
     ``kernel`` ``[Cout, Cin, 1, 1]`` (f32, OIHW), ``scale`` and ``bias``
     (f32); buffers ``mean`` and ``var`` (the running statistics). In train
-    mode, ``fused`` and :func:`can_fuse` (and, on the card, a bf16
-    ``dtype`` and widths that are multiples of 8) send the conv through K4,
+    mode, ``fused`` and :func:`can_fuse` over the global batch (on the
+    card also a bf16 ``dtype``, and this rank's rows and both widths
+    multiples of 8: ``_fuses``) send the conv through K4,
     whose epilogue gives the batch statistics; otherwise the unfused chain
     (the matmul, then the statistics of its ``dtype`` output). The running
     statistics move as ``0.9·old + 0.1·batch`` with the biased variance.
@@ -222,15 +246,19 @@ class Conv1x1BN(nn.Module):
         self.register_buffer("var", torch.ones(features, device=device))
 
     def _fuses(self, x: torch.Tensor, m: int, cin: int, cout: int) -> bool:
-        """The JAX gate (``fused`` and :func:`can_fuse`), and off the CPU
-        also bf16 with ``cin`` and ``cout`` multiples of 8: K4 takes nothing
-        else, so such a module on the card takes the unfused chain. On the
-        CPU the plain version fuses any dtype and width, as the JAX module
-        does."""
-        if not (self.fused and can_fuse(m, cin, cout)):
+        """The JAX gate (``fused`` and :func:`can_fuse`) over the global
+        batch's ``m · world_size`` rows, and then what this rank's ``m``
+        rows need: on the CPU the plain version takes the shapes JAX's
+        ``matmul_stats`` takes on one array (:func:`can_fuse` again, any
+        dtype); off the CPU K4 takes bf16 with ``m``, ``cin`` and ``cout``
+        multiples of 8 (it computes partial row tiles), and a module with
+        another dtype or width takes the unfused chain."""
+        if not (self.fused and can_fuse(m * collectives.world_size(), cin, cout)):
             return False
-        return x.device.type == "cpu" or (self.dtype == torch.bfloat16
-                                          and cin % 8 == 0 and cout % 8 == 0)
+        if x.device.type == "cpu":
+            return can_fuse(m, cin, cout)
+        return (self.dtype == torch.bfloat16
+                and m % 8 == 0 and cin % 8 == 0 and cout % 8 == 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, cin, h, w_ = x.shape
@@ -241,14 +269,11 @@ class Conv1x1BN(nn.Module):
         if self.training:
             if self._fuses(x, m, cin, cout):
                 y, s1, s2 = fused_matmul_stats(xf, w2d)
-                mean = s1 / m
-                # E[y²] − E[y]² (the one-pass form), clipped at 0
-                var = torch.clamp(s2 / m - mean * mean, min=0.0)
             else:
                 y = xf @ w2d
                 yf = y.float()
-                mean = yf.mean(0)
-                var = torch.clamp((yf * yf).mean(0) - mean * mean, min=0.0)
+                s1, s2 = yf.sum(0), (yf * yf).sum(0)
+            mean, var = _global_stats(s1, s2, m)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
                 self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)

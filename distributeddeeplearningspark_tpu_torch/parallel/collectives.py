@@ -17,6 +17,17 @@ so the train step makes the same gradient in two collectives:
 2. :func:`all_reduce_grads` — the gradients summed across ranks in place,
    one flat buffer per dtype (one collective each, not one per param).
 
+Two more carry the models whose JAX step reduces inside the forward:
+
+- :func:`all_reduce_sum` — a differentiable sum across ranks, for
+  BatchNorm's statistics (JAX's ``mean`` over the sharded batch axis,
+  which GSPMD reduces over the mesh): the forward sums each rank's column
+  sums, the backward sums the gradients that reach them, since every
+  rank's loss depends on every rank's rows through the global statistics;
+- :func:`all_gather_rows` — the row-sparse step's merge: every rank's ids
+  and gathered-vector gradients in rank order, which is the global
+  batch's row order.
+
 :func:`grad_average` is the reference's round loop, a numpy average of
 per-partition gradients, which tests hold the step to;
 :func:`assert_replicas_in_sync` compares a digest of every rank's params.
@@ -119,10 +130,41 @@ def all_reduce_grads(grads: Sequence[torch.Tensor]) -> None:
 all_reduce_grads.calls = 0
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum across ranks; the gradient is summed across ranks too."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
+        out = t.detach().clone(memory_format=torch.contiguous_format)
+        all_reduce_sum.calls += 1
+        _dist().all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        g = g.clone(memory_format=torch.contiguous_format)
+        all_reduce_sum.calls += 1
+        _dist().all_reduce(g)
+        return g
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed across ranks, differentiably: the backward sums the
+    incoming gradient across ranks. ``t`` itself outside a group. Counts
+    the collectives it makes, forward and backward, in
+    ``all_reduce_sum.calls``: ResNet-50 makes 53 of each a train step."""
+    if not active():
+        return t
+    return _AllReduceSum.apply(t)
+
+
+all_reduce_sum.calls = 0
+
+
 def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
     """Every rank's ``t`` (equal shapes) concatenated along dim 0 in rank
-    order (``t`` itself outside a group)."""
-    if not active():
+    order (``t`` itself outside a group and in a gang of one)."""
+    if world_size() == 1:
         return t
     parts = [torch.empty_like(t) for _ in range(world_size())]
     _dist().all_gather(parts, t.contiguous())

@@ -24,6 +24,12 @@ gathered vector received none: the live table is never touched.
 Arrays are updated in place: the table param and the ``row_accum`` of
 ``TrainState.embed_state``.
 
+In a data-parallel gang each rank holds a replica of every table and
+accumulator. The step gathers every rank's ids and vector gradients (rank
+order is the global batch's row order) and each rank applies the whole
+global batch's update, so the replicas stay equal without ever moving a
+table.
+
 The table scatter is always :func:`..ops.scatter_rows.scatter_add_rows`:
 K5 on CUDA tensors, its plain version on CPU tensors. The JAX function's
 ``scatter_impl`` switch (the library scatter by default, the Pallas kernel
@@ -39,6 +45,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from distributeddeeplearningspark_tpu_torch.ops.scatter_rows import scatter_add_rows
+from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.train.optim import (
     GradientTransformation,
     global_norm,
@@ -158,12 +165,25 @@ def _clear_grads(tensors) -> None:
 
 
 def make_sparse_embed_train_step(model: torch.nn.Module, tx: GradientTransformation,
-                                 loss_fn: Callable, specs: Sequence[SparseEmbedSpec]):
+                                 loss_fn: Callable, specs: Sequence[SparseEmbedSpec],
+                                 *, distributed: bool = False):
     """(state, batch) → (state, metrics), the train step with sparse table
     updates. ``tx`` sees the :func:`dense_trainable` params only, in the
     order of ``state.params``; ``state.embed_state`` holds each table's
     ``row_accum``. The model takes ``overrides={spec.name: vectors}`` and
-    must read its tables only through them."""
+    must read its tables only through them.
+
+    ``distributed=True`` (a data-parallel gang, each rank holding its rows
+    of the global batch): the loss is weighed and the dense gradients
+    all-reduced as in :func:`..step.make_train_step`; each table's ids and
+    gathered-vector gradients are all-gathered in rank order, the global
+    batch's row order, so every rank runs the same
+    :func:`rowwise_adagrad_update` (one unique and one segment sum over the
+    global batch, as the JAX step computes them, then K5) on its replica
+    of the table and of ``row_accum``; ``grad_norm`` is the norm of the
+    global dense gradient and every rank's vector gradients, JAX's
+    ``global_norm((g_dense, g_vecs))``. ``gather_bytes`` counts the bytes
+    the steps' gathers receive at more than one rank."""
     specs = tuple(specs)
     trainable = dense_trainable(specs)
 
@@ -177,6 +197,9 @@ def make_sparse_embed_train_step(model: torch.nn.Module, tx: GradientTransformat
         vecs = {n: tables[n].detach()[ids[n]].requires_grad_() for n in tables}
         outputs = model(batch, generator=state.generator, overrides=vecs)
         loss, metrics = loss_fn(outputs, batch)
+        if distributed:
+            rows = next(iter(batch.values())).shape[0]
+            loss, metrics = collectives.weigh_loss(loss, metrics, rows)
         loss.backward()
         unconsumed = [s.name for s in specs if tables[s.name].grad is not None
                       or vecs[s.name].grad is None]
@@ -188,15 +211,18 @@ def make_sparse_embed_train_step(model: torch.nn.Module, tx: GradientTransformat
                 f"vector none (a spec name the model does not consume?); "
                 f"no param was updated")
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in dense]
-        vec_grads = [vecs[s.name].grad for s in specs]
+        merged = {s.name: (ids[s.name], vecs[s.name].grad) for s in specs}
         with torch.no_grad():
-            grad_norm = global_norm(grads + vec_grads)
+            if distributed:
+                collectives.all_reduce_grads(grads)
+                merged = {n: _gather_rows(i, g) for n, (i, g) in merged.items()}
+            grad_norm = global_norm(grads + [g for _, g in merged.values()])
             updates, opt_state = tx.update(grads, state.opt_state, dense)
             torch._foreach_add_(dense, updates)
-            for s, g in zip(specs, vec_grads):
+            for s in specs:
                 rowwise_adagrad_update(
                     tables[s.name], state.embed_state[s.name][ROW_ACCUM],
-                    ids[s.name], g, lr=s.lr, eps=s.eps)
+                    *merged[s.name], lr=s.lr, eps=s.eps)
         _clear_grads(dense)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = grad_norm
@@ -205,3 +231,17 @@ def make_sparse_embed_train_step(model: torch.nn.Module, tx: GradientTransformat
 
     return train_step
 
+
+def _gather_rows(ids: torch.Tensor, d_vecs: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every rank's ids ``[B, ...]`` and their vector gradients ``[B, ...,
+    D]``, concatenated in rank order along the batch axis (this rank's own
+    in a gang of one, where nothing moves)."""
+    got = (collectives.all_gather_rows(ids), collectives.all_gather_rows(d_vecs))
+    if collectives.world_size() > 1:
+        make_sparse_embed_train_step.gather_bytes += sum(
+            t.numel() * t.element_size() for t in got)
+    return got
+
+
+make_sparse_embed_train_step.gather_bytes = 0

@@ -19,6 +19,9 @@ small all-reduce of the ranks' weights (the loss's ``"weight"``, else the
 rows) scales rank r's loss by ``w_r / W`` and makes the logged metrics
 global; after backward, the gradients are summed across ranks, one flat
 buffer per dtype. ``grad_norm`` and clipping see the reduced gradient.
+The model's buffers are not reduced: BatchNorm's forward already takes the
+global batch's statistics (:mod:`..models.resnet`), so they move alike on
+every rank.
 """
 
 from __future__ import annotations

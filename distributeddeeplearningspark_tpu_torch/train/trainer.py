@@ -27,10 +27,11 @@ port's cli) each rank feeds its own rows of every global batch
 gradient across ranks (:mod:`.step`); :meth:`evaluate` all-reduces each
 batch's weighted sums and weights, so it is exact over ranks, the padded
 tail included; :meth:`predict` gathers the outputs into JAX's feed order.
-At more than one rank the Trainer refuses what would silently differ from
-JAX: a model holding buffers (BatchNorm, whose JAX statistics are global
-over the mesh) and ``sparse_embed`` tables (whose row updates would need a
-cross-rank merge).
+A model with BatchNorm (ResNet) takes the global batch's statistics inside
+its forward (:mod:`..models.resnet`), as JAX's do over the mesh, so its
+buffers move alike on every rank; ``sparse_embed`` tables merge every
+rank's row gradients before the row-wise update (:mod:`.embed`), so every
+rank applies the same one.
 
 With a ``checkpointer`` (:class:`~..checkpoint.Checkpointer`),
 ``fit(checkpoint_every=N)`` saves the state and the feed position
@@ -41,8 +42,9 @@ trained on, so a resumed run repeats an uninterrupted one.
 
 ``sparse_embed`` specs (:mod:`.embed`) train their tables row-sparsely:
 the step gathers the batch's rows outside autograd and applies row-wise
-AdaGrad to them, and the optimizer state is built over the other params
-only, so no moment of table size exists.
+AdaGrad to them (in a gang, to every rank's rows, gathered), and the
+optimizer state is built over the other params only, so no moment of table
+size exists.
 
 Not ported yet (ROADMAP Queue 1 item 1): ``accum_steps``, ``trainable``,
 ``on_nonfinite="skip"|"rollback"``, eval during fit, callbacks; sharding
@@ -157,18 +159,6 @@ class Trainer:
         self.checkpointer = checkpointer
         self.state: TrainState | None = None
         self.sparse_embed = tuple(sparse_embed)
-        world = self.session.world_size
-        if world > 1 and any(True for _ in model.buffers()):
-            raise NotImplementedError(
-                f"the model holds buffers ({[n for n, _ in model.named_buffers()][:3]}"
-                f"...): BatchNorm's statistics are global over the JAX mesh and "
-                f"would be per-rank here; training it at {world} ranks is "
-                f"ROADMAP Queue 1 item 1 (ResNet at N > 1)")
-        if world > 1 and self.sparse_embed:
-            raise NotImplementedError(
-                f"sparse_embed at {world} ranks: each rank's row updates "
-                f"would need a cross-rank merge; ROADMAP Queue 1 item 1 "
-                f"(DLRM at N > 1)")
         names = dict(model.named_parameters())
         missing = [s.param_path for s in self.sparse_embed if s.param_path not in names]
         if missing:
@@ -176,7 +166,8 @@ class Trainer:
                              f"the model")
         if self.sparse_embed:
             self._train_step = embed_lib.make_sparse_embed_train_step(
-                model, optimizer, loss_fn, self.sparse_embed)
+                model, optimizer, loss_fn, self.sparse_embed,
+                distributed=self.session.distributed)
         else:
             self._train_step = step_lib.make_train_step(
                 model, optimizer, loss_fn, distributed=self.session.distributed)

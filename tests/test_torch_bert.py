@@ -12,9 +12,16 @@ import torch
 from distributeddeeplearningspark_tpu.models import bert as jbert
 from distributeddeeplearningspark_tpu_torch.models import bert as tbert
 from distributeddeeplearningspark_tpu_torch.models.bert_io import params_from_flax
+from test_torch_deadline import bounded, per_test
 
 ATOL = 1e-4
 B, S = 2, 64
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _batch(mode: str, vocab: int, seed: int = 0) -> dict[str, np.ndarray]:
@@ -40,6 +47,7 @@ def _batch(mode: str, vocab: int, seed: int = 0) -> dict[str, np.ndarray]:
 
 
 @pytest.fixture(scope="module")
+@bounded()
 def flax_params():
     cfg = jbert.BertConfig.tiny()
     batch = _batch("full", cfg.vocab_size)

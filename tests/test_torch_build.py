@@ -5,6 +5,13 @@ never loads a library built from the old one."""
 import pytest
 
 from distributeddeeplearningspark_tpu_torch.ops import _build
+from test_torch_deadline import per_test
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 @pytest.fixture

@@ -22,6 +22,13 @@ from distributeddeeplearningspark_tpu_torch.models.resnet import ResNet, BasicBl
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 from distributeddeeplearningspark_tpu_torch.session import DEVICE_CONF
 from distributeddeeplearningspark_tpu_torch.train import losses, optim
+from test_torch_deadline import per_test
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 @pytest.fixture

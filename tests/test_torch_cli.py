@@ -29,11 +29,18 @@ from distributeddeeplearningspark_tpu_torch import checkpoint as tcheckpoint
 from distributeddeeplearningspark_tpu_torch import cli
 from distributeddeeplearningspark_tpu_torch.session import DETERMINISTIC_CONF, DEVICE_CONF
 from distributeddeeplearningspark_tpu_torch.utils import env as tenv
+from test_torch_deadline import bounded, per_test
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLE = ROOT / "distributeddeeplearningspark_tpu_torch" / "examples" / "train_mnist.py"
 GANG_DEADLINE_S = 240
 LAUNCH_ENV = (tenv.COORDINATOR_ENV, tenv.NUM_PROCESSES_ENV, tenv.PROCESS_ID_ENV)
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def run_gang(args: list[str], *, deadline_s: float = GANG_DEADLINE_S
@@ -56,6 +63,13 @@ def run_gang(args: list[str], *, deadline_s: float = GANG_DEADLINE_S
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
         pytest.fail(f"gang {args} passed its {deadline_s} s deadline")
+    except BaseException:  # the test's own deadline: never leave the gang
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+        raise
     return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
 
 
@@ -71,6 +85,7 @@ def _example(workdir: Path, *args: str) -> dict:
 
 
 @pytest.fixture(scope="module")
+@bounded()
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("cli")
     first = _example(root / "split", "--steps", "80")

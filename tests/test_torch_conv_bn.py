@@ -20,6 +20,7 @@ import torch
 
 from distributeddeeplearningspark_tpu.ops import conv_bn as jconv
 from distributeddeeplearningspark_tpu_torch.ops import conv_bn as tconv
+from test_torch_deadline import per_test
 
 # (M, K, N, JAX block sizes): several row blocks and K steps, one block,
 # and ragged widths the gate admits (K, N not multiples of 8)
@@ -31,6 +32,12 @@ SHAPES = [
     (256, 16, 16, (512, 512, 512)),
     (48, 13, 24, (512, 512, 512)),
 ]
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _xw(m, k, n, seed, dtype=np.float32):
@@ -295,6 +302,42 @@ def test_conv1x1bn_off_the_cpu_fuses_only_widths_of_multiples_of_8(
     assert out.shape == (2, cout, 4, 4) and out.dtype == torch.bfloat16
     assert calls == ([(cin, cout)] if fuses else [])
     assert tconv.Conv1x1BN(cin, cout)._fuses(torch.empty(0), 32, cin, cout)
+
+
+@pytest.mark.parametrize("side,cin,cout,fuses", [(14, 1024, 256, True),
+                                                  (14, 256, 1024, True),
+                                                  (14, 1024, 512, True),
+                                                  (7, 2048, 512, False)])
+def test_conv1x1bn_off_the_cpu_gates_on_the_global_batch(side, cin, cout, fuses,
+                                                         monkeypatch):
+    """ResNet-50's stage 3 and 4 layers at 64 images a rank, one rank of
+    four at b=256. JAX's gate sees the global M under GSPMD: 50,176 rows at
+    14² fuse, 12,544 at 7² do not. This rank's 12,544 rows at 14² are no
+    multiple of 512, yet off the CPU (the meta device standing in for the
+    card) the module takes K4's path, which computes partial row tiles;
+    the 7² layer takes the unfused chain, as in JAX. 27 of ResNet-50's 32
+    1×1 conv→BN layers fuse at any rank count."""
+    rows = 64 * side * side
+    calls = []
+
+    def fused(x, w):
+        calls.append(tuple(x.shape))
+        m, n = x.shape[0], w.shape[1]
+        return (torch.empty(m, n, dtype=x.dtype, device=x.device),
+                torch.empty(n, device=x.device), torch.empty(n, device=x.device))
+
+    monkeypatch.setattr(tconv, "fused_matmul_stats", fused)
+    monkeypatch.setattr(tconv.collectives, "world_size", lambda: 4)
+    monkeypatch.setattr(tconv.collectives, "all_reduce_sum", lambda t: t)
+    x = torch.empty(64, cin, side, side, device="meta").contiguous(
+        memory_format=torch.channels_last)
+    mod = tconv.Conv1x1BN(cin, cout, device="meta").train()
+    assert mod(x).shape == (64, cout, side, side)
+    assert calls == ([(rows, cin)] if fuses else [])
+    assert tconv.can_fuse(4 * rows, cin, cout) == fuses
+    assert not tconv.can_fuse(rows, cin, cout)
+    # on the CPU the plain version holds this rank's rows to JAX's gate too
+    assert not tconv.Conv1x1BN(cin, cout)._fuses(torch.empty(0), rows, cin, cout)
 
 
 @pytest.mark.parametrize("k,n,dtype,exc", [(13, 24, torch.bfloat16, ValueError),

@@ -14,6 +14,13 @@ from distributeddeeplearningspark_tpu_torch.data import feed as tfeed
 from distributeddeeplearningspark_tpu_torch.data import text as ttext
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset as TDataset
 from distributeddeeplearningspark_tpu_torch.session import DEVICE_CONF, Session
+from test_torch_deadline import bounded, per_test
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _assert_examples_equal(got: list[dict], want: list[dict]):
@@ -25,6 +32,7 @@ def _assert_examples_equal(got: list[dict], want: list[dict]):
 
 
 @pytest.fixture(scope="module")
+@bounded()
 def corpus():
     jdocs = jtext.synthetic_wikipedia(96, num_partitions=3, seed=4)
     tdocs = ttext.synthetic_wikipedia(96, num_partitions=3, seed=4)

@@ -24,8 +24,8 @@ rank writes what the tests read into OUTDIR:
   steps' telemetry carries the probe's and the pool's gauges, which the
   JAX package's ``dlstatus`` reads, and no worker, segment or prefetch
   thread outlives ``fit``;
-- what a Trainer refuses at 2 ranks: a model with buffers (ResNet) and
-  ``sparse_embed`` (DLRM).
+- what a Trainer once refused at 2 ranks and now trains with its replicas
+  in sync: a model with buffers (ResNet) and ``sparse_embed`` (DLRM).
 """
 
 import json
@@ -55,6 +55,7 @@ from distributeddeeplearningspark_tpu_torch.session import DEVICE_CONF
 from distributeddeeplearningspark_tpu_torch.train import losses, optim
 from distributeddeeplearningspark_tpu_torch.train.state import TrainState
 from distributeddeeplearningspark_tpu_torch.train.step import make_train_step
+from test_torch_deadline import bounded, per_test
 
 ROOT = Path(__file__).resolve().parents[1]
 # f32 on both sides; 20 SGD steps compound the order of the sums
@@ -68,6 +69,12 @@ EVAL_SIZES = (65, 67)  # batch 32 over 2 ranks: tails of 1 and 3 rows
 # the pooled LeNet runs: a budget of 4 workers over the 2 partitions is 2
 # worker processes on each rank, which opens only its own partition
 POOL_WORKERS, POOL_STEPS = 4, 12
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _capture_tx(store: list):
@@ -221,24 +228,35 @@ def _worker(outdir: Path) -> None:
 
     from distributeddeeplearningspark_tpu_torch.models.dlrm import DLRM, sparse_embed_specs
     from distributeddeeplearningspark_tpu_torch.models.resnet import BasicBlock, ResNet
+    from distributeddeeplearningspark_tpu_torch.train.embed import ROW_ACCUM
 
     def resnet():
         model = ResNet((1,), BasicBlock, num_classes=4, width=8, dtype=torch.float32,
-                       device="cpu")
-        Trainer(spark, model, losses.softmax_xent, optim.sgd(0.1))
+                       device="cpu").init_weights(torch.Generator().manual_seed(0))
+        trainer = Trainer(spark, model, losses.softmax_xent, optim.sgd(0.1))
+        ds = tsources.synthetic_images(32, image_size=16, num_classes=4,
+                                       num_partitions=2).repeat()
+        state, summary = trainer.fit(ds, batch_size=8, steps=3, log_every=3)
+        return summary, {**state.params, **state.mutable}
 
     def dlrm():
-        model = DLRM((10,) * 26, 8, (16, 8), (16, 1), dtype=torch.float32, device="cpu")
-        Trainer(spark, model, losses.binary_xent, optim.adamw(1e-3),
-                sparse_embed=sparse_embed_specs(model, lr=1e-2))
+        model = DLRM((10,) * 26, 8, (16, 8), (16, 1), dtype=torch.float32,
+                     device="cpu").init_weights(torch.Generator().manual_seed(0))
+        trainer = Trainer(spark, model, losses.binary_xent, optim.adamw(1e-3),
+                          sparse_embed=sparse_embed_specs(model, lr=1e-2))
+        ds = tsources.synthetic_criteo(64, vocab_sizes=(10,) * 26,
+                                       num_partitions=2).repeat()
+        state, summary = trainer.fit(ds, batch_size=16, steps=3, log_every=3)
+        return summary, {**state.params, **{f"{n}.{ROW_ACCUM}": s[ROW_ACCUM]
+                                            for n, s in state.embed_state.items()}}
 
-    refused = {}
-    for name, make in (("resnet", resnet), ("sparse_embed", dlrm)):
-        try:
-            make()
-        except NotImplementedError as e:
-            refused[name] = str(e)
-    out["refused"] = refused
+    trained = {}
+    for name, run in (("resnet", resnet), ("sparse_embed", dlrm)):
+        summary, replicated = run()
+        collectives.assert_replicas_in_sync(replicated, what=name)
+        trained[name] = dict(loss=summary["loss"],
+                             digest=collectives.params_digest(replicated))
+    out["trained"] = trained
     out["pooled"] = _pooled_runs(spark, init, outdir)
     if rank == 0:
         np.savez(outdir / "grads_lenet.npz", **lenet_grads)
@@ -270,10 +288,18 @@ def run_gang(args: list[str], *, deadline_s: float = GANG_DEADLINE_S,
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
         pytest.fail(f"gang {args} passed its {deadline_s} s deadline")
+    except BaseException:  # the test's own deadline: never leave the gang
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+        raise
     return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
 
 
 @pytest.fixture(scope="module")
+@bounded()
 def gang(tmp_path_factory):
     """The JAX run at local[2] (its init params seed the gang), then the
     gang; (outdir, init params, JAX losses, JAX final params)."""
@@ -475,9 +501,15 @@ def test_predict_keeps_jax_feed_order(gang):
 
 
 def test_two_ranks_refuse_what_would_differ_from_jax(gang):
-    refused = _rank(gang[0], 0)["refused"]
-    assert "BatchNorm" in refused["resnet"] and "ResNet at N > 1" in refused["resnet"]
-    assert "DLRM at N > 1" in refused["sparse_embed"]
+    """Nothing is refused at 2 ranks any more: a model with BatchNorm
+    buffers (ResNet, global statistics) and ``sparse_embed`` tables (DLRM,
+    the merged row update) train, and every param, buffer and row
+    accumulator is the same bytes on both ranks."""
+    ranks = [_rank(gang[0], r)["trained"] for r in (0, 1)]
+    assert sorted(ranks[0]) == ["resnet", "sparse_embed"]
+    for name in ranks[0]:
+        assert np.isfinite(ranks[0][name]["loss"])
+        assert ranks[0][name] == ranks[1][name]
 
 
 def test_pooled_lenet_gives_the_bits_of_the_run_without_workers(gang):

@@ -20,6 +20,7 @@ from distributeddeeplearningspark_tpu_torch.data import sources as tsources
 from distributeddeeplearningspark_tpu_torch.models import dlrm as tdlrm
 from distributeddeeplearningspark_tpu_torch.models.dlrm_io import params_from_flax
 from distributeddeeplearningspark_tpu_torch.train import losses as tlosses
+from test_torch_deadline import per_test
 
 VOCABS = (50, 30, 20, 40)
 # f32 models: the same math, sums in another order
@@ -27,6 +28,12 @@ F32_TOL = 1e-5
 # bf16 MLPs: the two frameworks round the bf16 matmuls and bias adds at
 # other points; held to the logits' scale
 BF16_RTOL = 2e-2
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _batch(n=8, seed=0, vocabs=VOCABS):

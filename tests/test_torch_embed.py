@@ -37,6 +37,7 @@ from distributeddeeplearningspark_tpu_torch.train import embed as tembed
 from distributeddeeplearningspark_tpu_torch.train import losses as tlosses
 from distributeddeeplearningspark_tpu_torch.train import optim as toptim
 from distributeddeeplearningspark_tpu_torch.train.state import TrainState
+from test_torch_deadline import bounded, per_test
 
 VOCABS = (11, 7, 5)
 # f32 on both sides; the residue is summation order (the mean over D, the
@@ -46,6 +47,12 @@ RTOL = ATOL = 1e-6
 STEP_TOL = 1e-5
 # logged losses over steps, as test_torch_trainer.py holds BERT
 TRAIN_RTOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _update_case(v, d, shape, seed):
@@ -296,6 +303,7 @@ def _step_metrics(workdir):
 
 
 @pytest.fixture(scope="module")
+@bounded()
 def fit_runs(tmp_path_factory):
     """The JAX Trainer and the port's on the same data and weights, f32
     models: (JAX workdir, port workdir, port state, port trainer)."""

@@ -14,8 +14,15 @@ from distributeddeeplearningspark_tpu.ops import attention as jattn
 from distributeddeeplearningspark_tpu.ops import flash_attention as jfa
 from distributeddeeplearningspark_tpu_torch.ops import attention as tattn
 from distributeddeeplearningspark_tpu_torch.ops import flash_attention as tfa
+from test_torch_deadline import per_test
 
 ATOL = 2e-5
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _qkv(b=2, s=128, h=2, d=32, hkv=None, seed=0):

@@ -14,9 +14,16 @@ import pytest
 import torch
 
 import distributeddeeplearningspark_tpu_torch as port
+from test_torch_deadline import per_test
 
 JAX_PKG = "distributeddeeplearningspark_tpu"
 PORT_DIR = Path(port.__file__).parent
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _forbidden(name: str) -> bool:
@@ -58,7 +65,8 @@ print(json.dumps({{"modules": names, "loaded": sorted(sys.modules)}}))
                 "models.dlrm", "models.dlrm_io", "train.embed",
                 "models.lenet", "models.lenet_io", "utils.env",
                 "parallel.mesh", "parallel.collectives", "checkpoint", "cli",
-                "examples.train_mnist", "data.workers", "data.prefetch"}
+                "examples.train_mnist", "data.workers", "data.prefetch",
+                "examples", "examples.train_resnet", "examples.train_dlrm"}
     got = {n.split(".", 1)[1] for n in rec["modules"]}
     assert expected <= got, expected - got
     bad = [m for m in rec["loaded"] if _forbidden(m)]
@@ -89,11 +97,13 @@ def test_chip_smoke_imports_no_jax():
 
 @pytest.mark.parametrize("entry", ["bert_base", "for_model", "engine",
                                    "resolve_device", "session", "trainer",
-                                   "resnet50", "dlrm", "lenet"])
+                                   "resnet50", "dlrm", "lenet", "train_resnet",
+                                   "train_dlrm"])
 def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
     if torch.cuda.is_available():
         pytest.skip("the no-CUDA error needs a machine without CUDA")
     from distributeddeeplearningspark_tpu_torch import Session, Trainer
+    from distributeddeeplearningspark_tpu_torch.examples import train_dlrm, train_resnet
     from distributeddeeplearningspark_tpu_torch.models.bert import (
         BertConfig, BertForMLM, bert_base)
     from distributeddeeplearningspark_tpu_torch.serve import InferenceEngine
@@ -113,6 +123,9 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
         "trainer": lambda: Trainer(
             None, BertForMLM(BertConfig.tiny(num_layers=1), device="cpu"),
             losses.masked_lm, optim.adamw(1e-3)),
+        # the drivers, run with no conf: the card, not a CPU fallback
+        "train_resnet": lambda: train_resnet.main(["--steps", "1", "--image-size", "32"]),
+        "train_dlrm": lambda: train_dlrm.main(["--steps", "1", "--vocab-size", "10"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

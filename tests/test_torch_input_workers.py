@@ -8,6 +8,8 @@
 - Crashes: a worker that raises gives ``WorkerCrashed``; a SIGKILLed one
   respawns with the same bytes and an ``input-worker-respawn`` recovery
   event in the port's telemetry; past the budget a kill is ``WorkerCrashed``.
+  A worker alive but silent past the result deadline is killed and counts
+  as dead the same way; a child never finalizes the parent's garbage.
 - Backpressure: a slow consumer bounds what is in flight; examples the
   ring cannot take overflow to the queue in order, with no deadlock.
 
@@ -16,10 +18,12 @@ elapsed time; no worker process and no ``dlsw-<pid>-`` segment outlives a
 test.
 """
 
+import gc
 import json
 import multiprocessing as mp
 import os
 import signal
+import threading
 import time
 
 import numpy as np
@@ -38,9 +42,16 @@ from distributeddeeplearningspark_tpu_torch.data import text as ttext
 from distributeddeeplearningspark_tpu_torch.data import vision as tvision
 from distributeddeeplearningspark_tpu_torch.data import workers as W
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset as TDataset
+from test_torch_deadline import per_test
 
 #: bound on any one stream's wall time in these tests
 DEADLINE_S = 30.0
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _live() -> dict:
@@ -264,6 +275,84 @@ def test_kill_past_the_budget_gives_worker_crashed(monkeypatch):
             pass
     assert time.monotonic() - t0 < DEADLINE_S
     assert e.value.exitcode == -signal.SIGKILL and "died" in str(e.value)
+
+
+def _hangs_once(flag: str):
+    """A map whose first call, in whichever worker makes it, never returns
+    (the worker stays alive and silent); every later call maps."""
+    def fn(x):
+        if x == 3 and not os.path.exists(flag):
+            open(flag, "w").close()
+            threading.Event().wait()
+        return _slow(x)
+    return fn
+
+
+def test_silent_worker_is_killed_and_respawned_byte_identical(tmp_path, monkeypatch):
+    """A worker that is alive but sends nothing for the result deadline
+    counts as dead: it is killed, a replacement takes over its residue
+    class, and the stream is the unfaulted one; the recovery event says
+    it was silent."""
+    n = 40
+    want = [_slow(x)["v"].tobytes() for x in range(n)]
+    monkeypatch.setattr(W, "_RESULT_TIMEOUT_S", 1.0)
+    ttele.configure(tmp_path)
+    t0 = time.monotonic()
+    try:
+        pool = W.WorkerPool(lambda: iter(range(n)), _hangs_once(str(tmp_path / "hung")), 2)
+        got = [ex["v"].tobytes() for ex in pool.stream()]
+    finally:
+        ttele.reset()
+    assert time.monotonic() - t0 < DEADLINE_S
+    assert got == want
+    events = [json.loads(line) for line in
+              (tmp_path / "telemetry" / "events-p0.jsonl").read_text().splitlines()]
+    rec = [e for e in events if e["kind"] == "recovery"]
+    assert len(rec) == 1 and rec[0]["event"] == "input-worker-respawn"
+    assert rec[0]["worker"] == 1 and rec[0]["silent"] is True
+    assert rec[0]["exitcode"] == -signal.SIGKILL
+
+
+def test_silent_worker_past_the_budget_gives_worker_crashed(monkeypatch, tmp_path):
+    monkeypatch.setenv(W.INPUT_RETRIES_ENV, "0")
+    monkeypatch.setattr(W, "_RESULT_TIMEOUT_S", 1.0)
+    pool = W.WorkerPool(lambda: iter(range(40)), _hangs_once(str(tmp_path / "hung")), 2)
+    t0 = time.monotonic()
+    with pytest.raises(W.WorkerCrashed) as e:
+        list(pool.stream())
+    assert time.monotonic() - t0 < DEADLINE_S
+    assert e.value.worker == 1 and "sent nothing for 1 s" in str(e.value)
+
+
+class _Finalized:
+    """Writes the pid of the process that finalizes it into ``path``."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.cycle = self
+
+    def __del__(self):
+        with open(self.path, "a") as f:
+            f.write(f"{os.getpid()}\n")
+
+
+def test_children_never_finalize_the_parents_garbage(tmp_path):
+    """A cycle the parent has not collected when the pool forks (its
+    finalizer could take a lock of a parent thread, held for good in the
+    child) is finalized by the parent alone, though the children collect."""
+    path = str(tmp_path / "finalized")
+    gc.disable()
+    try:
+        _Finalized(path)  # unreachable at once, but only gc can free a cycle
+        pool = W.WorkerPool(lambda: iter(range(8)),
+                            lambda x: {"v": np.full(300, gc.collect() * 0 + x, np.float32)},
+                            2)
+        got = [int(ex["v"][0]) for ex in pool.stream()]
+    finally:
+        gc.enable()
+    gc.collect()
+    assert got == list(range(8))
+    assert open(path).read().split() == [str(os.getpid())]
 
 
 def test_slow_consumer_bounds_what_is_in_flight():

@@ -34,11 +34,18 @@ from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset as TDa
 from distributeddeeplearningspark_tpu_torch.session import DEVICE_CONF
 from distributeddeeplearningspark_tpu_torch.train import losses as tlosses
 from distributeddeeplearningspark_tpu_torch.train import optim as toptim
+from test_torch_deadline import per_test
 
 # f32 on both sides; the residue is the order of the convolutions' sums
 FWD_RTOL = FWD_ATOL = 1e-5
 # 20 SGD steps compound that residue through the updates
 FIT_RTOL, FIT_ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _flax_params(seed: int = 2) -> dict:

@@ -44,9 +44,16 @@ from distributeddeeplearningspark_tpu_torch.models import bert as tbert
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 from distributeddeeplearningspark_tpu_torch.session import DEVICE_CONF
 from distributeddeeplearningspark_tpu_torch.train import losses, optim
+from test_torch_deadline import bounded, per_test
 
 DEADLINE_S = 30.0
 SEQ, BATCH, STEPS, LOG_EVERY = 64, 4, 6, 2
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _live() -> dict:
@@ -214,6 +221,7 @@ def _fit(spark, workdir, num_workers, mp_):
 
 
 @pytest.fixture(scope="module")
+@bounded()
 def runs(tmp_path_factory):
     """The same BERT run at 0 and at 2 workers, and at 2 workers in two
     halves with a restore between them: (workdirs, params by run, what was

@@ -24,9 +24,16 @@ from distributeddeeplearningspark_tpu.ops import conv_bn as jconv
 from distributeddeeplearningspark_tpu_torch.models import resnet as tresnet
 from distributeddeeplearningspark_tpu_torch.models.resnet_io import params_from_flax
 from distributeddeeplearningspark_tpu_torch.ops import conv_bn as tconv
+from test_torch_deadline import bounded, per_test
 
 BATCH, SIZE, CLASSES = 8, 32, 10
 F32_RTOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _close(got, want, rtol=F32_RTOL, msg=""):
@@ -101,6 +108,7 @@ def _case(kind: str, dtype: str = "float32"):
 
 
 @pytest.fixture(scope="module", params=["fused", "unfused", "basic"])
+@bounded()
 def built(request):
     want, tm = _case(request.param)
     return request.param, want, tm, {k: v.clone() for k, v in tm.state_dict().items()}

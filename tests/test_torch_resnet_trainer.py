@@ -31,6 +31,7 @@ from distributeddeeplearningspark_tpu_torch.ops import conv_bn as tconv
 from distributeddeeplearningspark_tpu_torch.session import DEVICE_CONF
 from distributeddeeplearningspark_tpu_torch.train import losses as tlosses
 from distributeddeeplearningspark_tpu_torch.train import optim as toptim
+from test_torch_deadline import bounded, per_test
 
 BATCH, SIZE, CLASSES, STEPS, LOG_EVERY = 8, 32, 10, 6, 2
 # f32 on both sides; the residue is summation order (convolutions by other
@@ -39,6 +40,12 @@ RTOL = 2e-4
 
 
 # -- loss and optimizer ---------------------------------------------------------
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 @pytest.mark.parametrize("classes", [5, 10])
@@ -126,6 +133,7 @@ def _tx(optim_mod):
 
 
 @pytest.fixture(scope="module")
+@bounded()
 def runs(tmp_path_factory):
     """One JAX run and one port run from the same weights: (JAX workdir,
     port workdir, JAX eval before/after, port eval before/after, JAX final

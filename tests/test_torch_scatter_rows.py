@@ -12,6 +12,13 @@ import torch
 
 from distributeddeeplearningspark_tpu.ops import scatter_rows as jsr
 from distributeddeeplearningspark_tpu_torch.ops import scatter_rows as tsr
+from test_torch_deadline import per_test
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _case(v, d, k, seed=0):

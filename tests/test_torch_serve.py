@@ -19,6 +19,13 @@ from distributeddeeplearningspark_tpu_torch.serve import (
     OverloadedError,
     default_buckets,
 )
+from test_torch_deadline import per_test
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _mul_forward(params, batch):

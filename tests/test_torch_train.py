@@ -23,6 +23,13 @@ from distributeddeeplearningspark_tpu_torch.train import losses as tlosses
 from distributeddeeplearningspark_tpu_torch.train import optim as toptim
 from distributeddeeplearningspark_tpu_torch.train import step as tstep
 from distributeddeeplearningspark_tpu_torch.train.state import TrainState
+from test_torch_deadline import bounded, per_test
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _tree(seed=0, scale=1.0):
@@ -142,6 +149,7 @@ def _mlm_batches(vocab, seed=0):
 
 
 @pytest.fixture(scope="module")
+@bounded()
 def tiny_init():
     cfg = jbert.BertConfig.tiny(num_layers=2, dropout_rate=0.0)
     batch = {k: jnp.asarray(v) for k, v in _mlm_batches(cfg.vocab_size)[0].items()}

@@ -28,11 +28,18 @@ from distributeddeeplearningspark_tpu_torch.models.bert_io import params_from_fl
 from distributeddeeplearningspark_tpu_torch.session import DEVICE_CONF
 from distributeddeeplearningspark_tpu_torch.train import losses as tlosses
 from distributeddeeplearningspark_tpu_torch.train import optim as toptim
+from test_torch_deadline import bounded, per_test
 
 SEQ, BATCH, STEPS, LOG_EVERY = 64, 4, 6, 2
 # f32 on both sides; the residue is summation order, compounded over the
 # steps through Adam (which magnifies noise in near-zero gradients)
 RTOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _corpus(text_mod):
@@ -47,6 +54,7 @@ def _step_metrics(workdir):
 
 
 @pytest.fixture(scope="module")
+@bounded()
 def runs(tmp_path_factory):
     """One JAX run and one port run: (JAX workdir, port workdir, JAX eval,
     port eval, port state, port summary)."""

@@ -15,6 +15,13 @@ from distributeddeeplearningspark_tpu_torch.data import feed as tfeed
 from distributeddeeplearningspark_tpu_torch.data import sources as tsources
 from distributeddeeplearningspark_tpu_torch.data import vision as tvision
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset as TDataset
+from test_torch_deadline import per_test
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Each test under a deadline of its own (``test_torch_deadline``)."""
+    yield from per_test()
 
 
 def _batches_equal(got, want):
