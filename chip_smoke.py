@@ -9,17 +9,18 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    ``nvcc`` per source, started together, ``sm_90a``) and print the
    compiler's register/spill report;
 2. hold K1 (flash forward) against its plain PyTorch version on the card
-   in eight bf16 cases (the served and the training shape, causal GQA at
+   in nine bf16 cases (the served and the training shape, causal GQA at
    D = 128, segments with padding, a fully masked row, S = 320 at D = 64
-   and at D = 128 causal GQA, and whole key tiles skipped by padding and
-   by segments), at the stated tolerance, and time the kernel, the
+   and at D = 128 causal GQA, whole key tiles skipped by padding and
+   by segments, and Llama-2 7B's b=8, S=1,024, 32 heads, D = 128,
+   causal), at the stated tolerance, and time the kernel, the
    plain version, one PyTorch library call computing the same function (a
    yardstick the port never calls) and the card's bound for the same work;
 3. the same for K2 (dQ) and K3 (dK, dV) against the plain backward, in
-   nine cases (the training shape, b=32, S=512, every key allowed; the
+   ten cases (the training shape, b=32, S=512, every key allowed; the
    served batch; causal GQA at D = 128; segments with padding; a fully
    masked row; S = 320 at D = 64 and at D = 128 causal GQA; whole tiles
-   skipped; S = 322 with padding), each run twice for equal bits, timing
+   skipped; S = 322 with padding; Llama's), each run twice for equal bits, timing
    ``_delta`` and the whole ``flash_bwd`` beside the two kernels; then the
    gates: "auto" picks the plain path for f32 and for head dims the
    kernels are not built for, an f32 ``Conv1x1BN`` and a bf16 one with
@@ -54,6 +55,23 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    layer's attention output of a served batch against that path on the
    same inputs, and that K1 ran 12 times per served batch; print latency
    percentiles and requests/s;
+6b. train Llama-2 7B with LoRA (BASELINE.json config 5) at its published
+   widths (32 layers, hidden 4096, 32 heads, intermediate 11008, vocab
+   32000, bf16 base, rank 16 on wq and wv, random weights from a seed) for
+   10 steps at b=8, S=1,024 through the port's ``Session`` →
+   ``synthetic_wikipedia`` → ``WordPieceTokenizer`` → ``lm_dataset`` →
+   ``Trainer.fit(trainable=lora_trainable)`` with the adapters' AdamW, the
+   calls of ``examples/train_llama_lora.py``; check that every logged loss
+   is finite and the last below the first, that K1 ran 64 times a step
+   (forward and remat recompute) and K2 and K3 32 times, that the
+   optimizer state holds the adapters' two moments only, that the peak
+   memory stays under a limit that a planted fault (every frozen param's
+   gradient zero-filled) breaks, and that at 2 layers the adapters'
+   gradients through the kernels agree with the plain attention path from
+   nonzero B; print the step time, tokens/s, model TFLOP/s, a profiled
+   window and the peak memory; then run the port's driver through its
+   ``dlsubmit`` at ``local[1]`` for 5 steps (the same launch counts a step,
+   finite losses, nothing left);
 7. hold K4 (the 1×1-conv matmul with BN statistics) against its plain
    version on the card in bf16 at the ten shapes of ResNet-50's fused
    layers at b=256, three that a rank of four gets at 64 images, and six
@@ -140,10 +158,12 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
 the LeNet phase and then the ResNet-50 (b=256 global) and DLRM (b=8,192
 global) drivers over NCCL: the replicas in sync, 27 K4 launches a step,
 every rank's losses the global batch's and a one-card run's on the same
-batches at a stated tolerance, and ResNet-50's parameters' change too;
-two faults planted into ResNet-50's N-rank run (the loss not weighed, a
-rank-local BatchNorm backward) must each break one of those limits; each
-rank's step ms and a profiled window's NCCL kernel time.
+batches at a stated tolerance, ResNet-50's parameters' change and the
+DLRM's row accumulators too; two faults planted into ResNet-50's N-rank
+run (the loss not weighed, a rank-local BatchNorm backward) and one into
+the DLRM's (a rank-by-rank sparse merge) must each break one of those
+limits; each rank's step ms and a profiled window's NCCL kernel time.
+``--gang dlrm`` (or ``resnet``) runs that driver's comparisons only.
 ``python3 chip_smoke.py --input-ab`` times BERT-base, ResNet-50 and the
 DLRM through ``Trainer.fit`` with their batches built in the prefetch
 thread and in the loop's thread, in turns (one card).
@@ -399,6 +419,9 @@ def check_flash_fwd(torch, fa) -> list[dict]:
                    causal=False, seed=8, lengths=[128, 1024, 1024, 700],
                    doc_starts=[[0], [0, 256, 512, 768], [0, 384],
                                [0, 128, 640]]),
+        # where the Llama-2 7B fine-tune's launches run: causal, D = 128
+        _attn_case(torch, "llama_b8_s1024_causal_d128", b=LLAMA_BATCH,
+                   s=LLAMA_SEQ, h=32, hkv=32, d=128, causal=True, seed=10),
     ]
     results = []
     for c in cases:
@@ -518,6 +541,9 @@ def check_flash_bwd(torch, fa) -> list[dict]:
         # the first is 16-byte aligned
         _attn_case(torch, "ragged_s322_padding", b=4, s=322, h=12, hkv=12,
                    d=64, causal=False, seed=9, lengths=[322, 200, 1, 130]),
+        # the Llama-2 7B fine-tune's shape: causal, D = 128
+        _attn_case(torch, "llama_b8_s1024_causal_d128", b=LLAMA_BATCH,
+                   s=LLAMA_SEQ, h=32, hkv=32, d=128, causal=True, seed=10),
     ]
     results = []
     for c in cases:
@@ -1031,6 +1057,227 @@ def train_bert(torch, fa) -> dict:
     check(parity["qkv_weights"] == 3 * cfg.num_layers
           and parity["qkv_min_grad_norm"] > 0,
           "a query/key/value projection got no gradient through the kernels")
+    return rec
+
+
+# -- phase 6b: Llama-2 7B LoRA (config 5) ----------------------------------------
+
+#: Llama-2 7B at its published widths, LoRA rank 16 (alpha 16) on wq and wv,
+#: b=8 sequences of S=1,024: steps in process and through the driver
+LLAMA_STEPS, LLAMA_DRIVER_STEPS, LLAMA_BATCH, LLAMA_SEQ, LLAMA_RANK = 10, 5, 8, 1024, 16
+#: the in-process phase's peak lr (LoRA fine-tunes run 1e-4 to 1e-3; random
+#: base weights need the upper end for the loss to move in 10 steps)
+LLAMA_LR = 1e-3
+#: flash launches a step: K1 in each layer's forward and again in its remat
+#: recompute, K2 and K3 once in each layer's backward
+LLAMA_LAUNCHES = {"flash_fwd": 64, "flash_bwd_dq": 32, "flash_bwd_dkv": 32}
+#: the training step's peak device memory over the base weights' bytes: the
+#: base (13.5 GB in bf16), the 32 layer inputs the remat keeps (2.1 GB), one
+#: layer's recompute (~1 GB), the f32 logits and their gradient (~2.1 GB)
+#: and the adapters' AdamW state read ~1.5; a step that zero-fills the
+#: frozen params' gradients adds the base once more (~2.5)
+LLAMA_PEAK_OVER_BASE = 2.0
+#: the adapters' gradients through the flash kernels against the plain
+#: attention path on one batch, at 2 layers of the 7B widths, from nonzero
+#: B (bf16 activations: PARITY_RTOL/PARITY_ATOL, as for BERT)
+LLAMA_PARITY_LAYERS = 2
+
+
+def _llama_grad_parity(torch, fa, batch) -> dict:
+    """The adapters' gradients at LLAMA_PARITY_LAYERS layers of the 7B
+    widths (the same weights, seed 1, B drawn nonzero) through the kernels
+    (``attention_impl="auto"``, which must pick them) and through the plain
+    path (``"xla"``) on the same batch."""
+    from distributeddeeplearningspark_tpu_torch.models import llama
+    from distributeddeeplearningspark_tpu_torch.ops import attention
+    from distributeddeeplearningspark_tpu_torch.train import losses
+
+    model = llama.llama2_7b(device="cuda", seed=1, lora_rank=LLAMA_RANK,
+                            num_layers=LLAMA_PARITY_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.requires_grad_(llama.lora_trainable(name))
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.02, generator=gen)
+    model.train()
+    q = torch.zeros(LLAMA_BATCH, LLAMA_SEQ, 32, 128, device="cuda", dtype=torch.bfloat16)
+    picked = attention._pick_impl(q, q, None, None)
+    grads, launches = {}, {}
+    for impl in ("auto", "xla"):
+        model.cfg.attention_impl = impl
+        before = fa.flash_fwd.launches
+        model.zero_grad(set_to_none=True)
+        losses.causal_lm(model(batch), batch)[0].backward()
+        launches[impl] = fa.flash_fwd.launches - before
+        grads[impl] = {n: p.grad.detach().float().clone()
+                       for n, p in model.named_parameters() if p.grad is not None}
+    frozen_grads = [n for n, p in model.named_parameters()
+                    if not llama.lora_trainable(n) and p.grad is not None]
+    del model
+    torch.cuda.empty_cache()
+    rec = _compare_grads(torch, grads["auto"], grads["xla"], PARITY_RTOL, PARITY_ATOL)
+    return dict(rec, picked=picked, k1_launches=launches,
+                lora_a_min_grad_norm=min(float(g.norm()) for n, g in grads["auto"].items()
+                                         if n.endswith("lora_a")),
+                frozen_with_grad=frozen_grads)
+
+
+def _llama_peak_with_zero_filled_base(torch, trainer, batch, steps: int = 2) -> int:
+    """The peak device memory of ``steps`` train steps with a planted fault
+    that zero-fills a gradient for every frozen param and holds it through
+    the step, as a step that gives every param a gradient does."""
+    frozen = [p for n, p in trainer.state.params.items() if not p.requires_grad]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        zeros = [torch.zeros_like(p) for p in frozen]
+        trainer.state, _ = trainer._train_step(trainer.state, batch)
+        del zeros
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def train_llama(torch, fa) -> dict:
+    """Llama-2 7B LoRA (config 5) at full published width through the port's
+    Session → synthetic_wikipedia → WordPieceTokenizer → lm_dataset(S=1,024)
+    → Trainer.fit (``trainable=lora_trainable``, the adapters' AdamW), the
+    calls of examples/train_llama_lora.py, for LLAMA_STEPS steps at b=8;
+    then the port's driver through its cli at ``local[1]``."""
+    import gc
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch import telemetry
+    from distributeddeeplearningspark_tpu_torch.data import text
+    from distributeddeeplearningspark_tpu_torch.data.feed import device_batches
+    from distributeddeeplearningspark_tpu_torch.metrics import llama_model_flops_per_token
+    from distributeddeeplearningspark_tpu_torch.models import llama
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    gc.collect()  # what the earlier phases left in the caching allocator
+    torch.cuda.empty_cache()
+    steps = LLAMA_STEPS
+    workdir = ROOT / "build" / "chip_smoke_llama"
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    spark = Session.builder.master("local[1]").appName("llama-lora").getOrCreate()
+    # the feed and optimizer of examples/train_llama_lora.py
+    docs = text.synthetic_wikipedia(1024, num_partitions=max(spark.default_parallelism, 1))
+    tok = text.WordPieceTokenizer.train(docs.collect(), vocab_size=2048)
+    ds = text.lm_dataset(docs, tok, seq_len=LLAMA_SEQ).repeat()
+    tx = optim.masked(optim.with_grad_clip(optim.adamw(optim.warmup_cosine(
+        LLAMA_LR, min(10, max(steps // 10, 1)), steps)), 1.0), llama.lora_trainable)
+    model = llama.llama2_7b(device="cuda", seed=0, lora_rank=LLAMA_RANK,
+                            lora_alpha=16.0)
+    cfg = model.cfg
+    check((cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads,
+           cfg.num_kv_heads, cfg.intermediate_size, cfg.rope_theta, cfg.rms_eps,
+           cfg.param_dtype, cfg.dtype, cfg.remat, tuple(cfg.lora_targets))
+          == (32000, 4096, 32, 32, 32, 11008, 10000.0, 1e-5, torch.bfloat16,
+              torch.bfloat16, True, ("wq", "wv")),
+          f"llama2_7b is not at Llama-2 7B's published widths: {cfg}")
+    check(tok.vocab_size <= cfg.vocab_size, "tokenizer ids past the model's vocab")
+    base_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                     if not llama.lora_trainable(n))
+    trainer = Trainer(spark, model, losses.causal_lm, tx, trainable=llama.lora_trainable)
+    trainer.init()
+    setup_s = time.perf_counter() - t0
+    os.environ[telemetry.WORKDIR_ENV] = str(workdir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for k in kernels:  # the main path's run starts here
+        k.launches = 0
+    t_fit = time.perf_counter()
+    try:
+        _, summary = trainer.fit(ds, batch_size=LLAMA_BATCH, steps=steps,
+                                 tokens_per_example=LLAMA_SEQ, log_every=1)
+    finally:
+        os.environ.pop(telemetry.WORKDIR_ENV, None)
+        telemetry.reset()
+    fit_s = time.perf_counter() - t_fit
+    launches = {k.__name__: k.launches for k in kernels}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    records = _events(workdir)
+    logged = [(r["step"], r["metrics"]["loss"]) for r in records
+              if r["kind"] == "step_metrics"]
+    opt_numel = sum(t.numel() for t in _tensors(torch, trainer.state.opt_state))
+    lora_numel = sum(p.numel() for n, p in trainer.state.params.items()
+                     if llama.lora_trainable(n))
+    profile = _profile_fit(torch, trainer, ds, LLAMA_BATCH,
+                           dict(tokens_per_example=LLAMA_SEQ), steps=3)
+    batch = next(device_batches(ds, LLAMA_BATCH, trainer.device))
+    fault_peak = _llama_peak_with_zero_filled_base(torch, trainer, batch)
+    spark.stop()
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = _llama_grad_parity(torch, fa, batch)
+    flops_per_token = llama_model_flops_per_token(cfg, LLAMA_SEQ, frozen_base=True)
+    tokens_s = summary.get("tokens_per_sec_per_chip")
+    rec = dict(steps=steps, batch_size=LLAMA_BATCH, seq_len=LLAMA_SEQ,
+               lora_rank=LLAMA_RANK, tokenizer_vocab=tok.vocab_size,
+               logged_losses=logged, step_time_ms=summary.get("step_time_ms"),
+               tokens_per_sec_per_chip=tokens_s,
+               model_flops_per_token=flops_per_token,
+               model_tflops_per_s=tokens_s * flops_per_token / 1e12 if tokens_s else None,
+               launches=launches, max_memory_allocated=peak_bytes,
+               base_bytes=base_bytes, peak_limit=LLAMA_PEAK_OVER_BASE * base_bytes,
+               zero_filled_base_peak=fault_peak,
+               optimizer_state_numel=opt_numel, lora_numel=lora_numel,
+               fit_s=fit_s, setup_s=setup_s, profile=profile, grad_parity=parity)
+    print("train llama-2-7b lora " + json.dumps(rec), flush=True)
+    check(len(logged) == steps and all(np.isfinite(x) for _, x in logged),
+          f"logged losses {logged}")
+    check(logged[-1][1] < logged[0][1], f"the loss did not fall: {logged}")
+    want = {k: n * steps for k, n in LLAMA_LAUNCHES.items()}
+    check(launches == want, f"flash launches during fit {launches}, want {want}")
+    check(opt_numel == 2 * lora_numel,
+          f"optimizer state of {opt_numel} elements, want AdamW's two moments of "
+          f"the {lora_numel} adapter elements only")
+    check(peak_bytes <= rec["peak_limit"] < fault_peak,
+          f"peak memory {peak_bytes} (zero-filled frozen gradients: {fault_peak}) "
+          f"against the limit {rec['peak_limit']}")
+    check(parity["picked"] == "flash" and parity["k1_launches"]["auto"] > 0
+          and parity["k1_launches"]["xla"] == 0,
+          f"the Llama shape did not take the flash kernels: {parity}")
+    check(not parity["frozen_with_grad"] and parity["lora_a_min_grad_norm"] > 0,
+          f"frozen params with a gradient, or an adapter A with none: {parity}")
+    check(parity["max_tolerance_used"] <= 1.0,
+          f"adapter gradients through the kernels are off the plain path's: "
+          f"{parity['worst']}")
+    rec["driver"] = train_llama_driver(torch)
+    return rec
+
+
+def train_llama_driver(torch) -> dict:
+    """The port's examples/train_llama_lora.py through its cli at
+    ``local[1]`` (a gang of one, NCCL): 7B at b=8, S=1,024, LoRA rank 16,
+    LLAMA_DRIVER_STEPS steps, each logged: it exits 0, the flash kernels
+    launch LLAMA_LAUNCHES a step, the losses are finite and nothing of the
+    run is left."""
+    args = ["--variant", "7b", "--seq-len", str(LLAMA_SEQ), "--batch-size",
+            str(LLAMA_BATCH), "--lora-rank", str(LLAMA_RANK), "--lora-alpha", "16",
+            "--steps", str(LLAMA_DRIVER_STEPS), "--log-every", "1"]
+    run = _driver_run("llama_lora", ROOT / "build" / "chip_smoke_llama_driver", 1, args)
+    res = run["result"]
+    rec = dict(step_time_ms=res["train"].get("step_time_ms"),
+               tokens_per_sec_per_chip=res["train"].get("tokens_per_sec_per_chip"),
+               launch=run["launch"], logged_losses=run["losses"].get("p0"),
+               left=run["left"], **{k: v for k, v in res.items() if k != "train"})
+    print("train llama driver " + json.dumps(rec), flush=True)
+    check(res["backend"] == "nccl" and res["device"] == "cuda:0"
+          and res["world_size"] == 1 and res["step"] == LLAMA_DRIVER_STEPS,
+          f"llama driver: {res}")
+    logged = rec["logged_losses"] or []
+    check(len(logged) == LLAMA_DRIVER_STEPS and all(np.isfinite(x) for x in logged),
+          f"llama driver's logged losses: {logged}")
+    want = {k: n * LLAMA_DRIVER_STEPS for k, n in LLAMA_LAUNCHES.items()}
+    check(res["flash_launches"] == want,
+          f"the llama driver's flash launches {res['flash_launches']}, want {want}")
+    check(not run["left"], f"llama driver left {run['left']}")
     return rec
 
 
@@ -2126,14 +2373,33 @@ GANG_LOSS_RTOL = 1e-3
 #: rounding alone flips whole steps there; and both are blind to the
 #: gradient's scale, so a loss weighed wrong cannot move them at all.
 GANG_PARAM_RTOL = 0.1
-#: faults planted into the N-rank ResNet-50 run. Each leaves the replicas
+#: the DLRM's row accumulators (AdaGrad's Σg² a row, not sign-like) at N
+#: ranks against one card's, |acc_N − acc_1| / |acc_1| over every table
+#: together, after the first step: later steps' gradients come from weights
+#: that AdamW's sign-like steps have already moved apart, while the first
+#: step's differ only by the MLPs' bf16 rounding at b/N rows against b,
+#: which the row sums' cancellation magnifies. Four H100s read 0.030 sound
+#: and 0.105 with the merge-local fault (GANG_FAULTS) after the first step
+#: (0.068 sound after 6 steps); a CPU rehearsal (4 gloo ranks, b=256,
+#: vocab 1,000, f32 sums in the same order) 1.2e-8 and 0.107
+GANG_ROW_ACCUM_RTOL = 5e-2
+#: faults planted into each model's N-rank run. Each leaves the replicas
 #: equal, so that only the comparison with one card can see it, and the
-#: phase fails unless its loss or its parameters leave their limit.
+#: phase fails unless its loss or its held state (ResNet-50's parameters'
+#: change, the DLRM's row accumulators) leaves its limit.
 GANG_FAULTS = {
-    "loss-unweighed": "each rank's loss is not weighed by its share of the "
-                      "global batch: the ranks' gradients are summed, not averaged",
-    "bn-backward-local": "BatchNorm's backward sums (Σg and Σg·(x−mean), and "
-                         "K4's ds1 and ds2) stay this rank's",
+    "resnet": {
+        "loss-unweighed": "each rank's loss is not weighed by its share of the "
+                          "global batch: the ranks' gradients are summed, not "
+                          "averaged",
+        "bn-backward-local": "BatchNorm's backward sums (Σg and Σg·(x−mean), "
+                             "and K4's ds1 and ds2) stay this rank's",
+    },
+    "dlrm": {
+        "merge-local": "the sparse merge folds each rank's rows apart: every "
+                       "rank applies the ranks' row updates one after another "
+                       "(each rank's duplicates summed, not the global batch's)",
+    },
 }
 
 
@@ -2141,6 +2407,7 @@ def _plant(fault: str) -> None:
     """Plant one of GANG_FAULTS into this process's port ("none": nothing)."""
     from distributeddeeplearningspark_tpu_torch.models import resnet
     from distributeddeeplearningspark_tpu_torch.parallel import collectives
+    from distributeddeeplearningspark_tpu_torch.train import embed
 
     if fault == "loss-unweighed":
         weigh = collectives.weigh_loss
@@ -2162,6 +2429,16 @@ def _plant(fault: str) -> None:
 
         resnet._BatchNormTrain.backward = staticmethod(local_backward)
         collectives._AllReduceSum.backward = staticmethod(lambda ctx, g: g)
+    elif fault == "merge-local":
+        update = embed.rowwise_adagrad_update
+
+        def rank_by_rank(table, accum, ids, d_vecs, **kw):
+            n = collectives.world_size()
+            for rank_ids, rank_vecs in zip(ids.chunk(n), d_vecs.chunk(n)):
+                update(table, accum, rank_ids, rank_vecs, **kw)
+            return table, accum
+
+        embed.rowwise_adagrad_update = rank_by_rank
     else:
         check(fault == "none", f"no fault {fault!r}")
 
@@ -2189,10 +2466,18 @@ def model_rank(argv: list[str]) -> int:
     trainer, ds = driver.make_trainer(args, spark), driver.make_dataset(args, spark)
     init = {k: p.detach().to("cpu", copy=True)
             for k, p in trainer.model.named_parameters()}
-    state, _ = trainer.fit(ds, batch_size=args.batch_size, steps=GANG_STEPS, log_every=1)
+    first = {}
+    if trainer.sparse_embed:  # the row accumulators after the first step too
+        state, _ = trainer.fit(ds, batch_size=args.batch_size, steps=1, log_every=1)
+        first = {f"{n}.row_accum": s[embed.ROW_ACCUM].detach().to("cpu", copy=True)
+                 for n, s in state.embed_state.items()}
+    resume = {"examples_seen": args.batch_size, "batch_size": args.batch_size}
+    state, _ = trainer.fit(ds, batch_size=args.batch_size, steps=GANG_STEPS,
+                           log_every=1, data_state=resume if first else None)
     compare = {k: p.detach().cpu() - init[k] for k, p in state.params.items()}
     compare.update({f"{n}.row_accum": s[embed.ROW_ACCUM].detach().cpu()
                     for n, s in state.embed_state.items()})
+    compare.update({f"{k}.step1": v for k, v in first.items()})
     collectives.assert_replicas_in_sync(
         {**state.params, **dict(trainer.model.named_buffers()),
          **{f"{n}.row_accum": s[embed.ROW_ACCUM] for n, s in state.embed_state.items()}},
@@ -2250,7 +2535,14 @@ def _param_gap(got: dict, want: dict) -> dict:
                 worst_rel=big.get(where))
 
 
-def train_drivers_gang(torch, ranks: int) -> dict:
+def _row_accums(compare: dict, suffix: str = ".row_accum.step1") -> dict:
+    """The row accumulators a model run saved: after its first step (the
+    held reading: every rank's and one card's gradients come from the same
+    weights), or with ``suffix=".row_accum"`` after the last."""
+    return {k: v for k, v in compare.items() if k.endswith(suffix)}
+
+
+def train_drivers_gang(torch, ranks: int, names=("resnet", "dlrm")) -> dict:
     """ResNet-50 at b=256 global and the DLRM at b=8,192 global at one rank
     per card over NCCL, GANG_STEPS steps, against one card on the same
     source partitions (the same global batches). The drivers through the
@@ -2260,12 +2552,13 @@ def train_drivers_gang(torch, ranks: int) -> dict:
     nothing left behind. The drivers' model, data and optimizer in
     :func:`model_rank` runs at N ranks and on one card: the losses at
     GANG_LOSS_RTOL, ResNet-50's parameters' change at GANG_PARAM_RTOL,
-    each rank's step ms and a profiled window for the NCCL kernels' time.
-    Then each of GANG_FAULTS planted into ResNet-50's N-rank run must leave
-    one of the two limits."""
+    each rank's step ms and a profiled window for the NCCL kernels' time;
+    the DLRM's row accumulators at GANG_ROW_ACCUM_RTOL. Then each of
+    GANG_FAULTS planted into a model's N-rank run must leave one of its
+    limits."""
     root = ROOT / "build" / f"chip_smoke_gang_{ranks}"
     out = {}
-    for name in ("resnet", "dlrm"):
+    for name in names:
         workers = GANG_WORKERS if name == "resnet" else None
         parts = ranks * GANG_WORKERS if name == "resnet" else ranks
         args = _driver_args(name, steps=GANG_STEPS, log_every=1, workers=workers,
@@ -2282,19 +2575,27 @@ def train_drivers_gang(torch, ranks: int) -> dict:
                    model_rank_max_loss_rel_err=_loss_gap(gang["losses"], want),
                    params=_param_gap(gang["compare"], base),
                    param_rtol=GANG_PARAM_RTOL if name == "resnet" else None,
+                   row_accum=(_param_gap(_row_accums(gang["compare"]),
+                                         _row_accums(base))
+                              if name == "dlrm" else None),
+                   row_accum_last=(_param_gap(_row_accums(gang["compare"], ".row_accum"),
+                                              _row_accums(base, ".row_accum"))
+                                   if name == "dlrm" else None),
+                   row_accum_rtol=GANG_ROW_ACCUM_RTOL if name == "dlrm" else None,
                    launch=many["launch"], left=many["left"],
                    nccl_ms_per_step=profile.get("busy_ms_by_family", {}).get("nccl"),
                    profile=profile, **{k: v for k, v in many["result"].items()
                                        if k != "train"})
         del gang, one
-        if name == "resnet":
-            rec["faults"] = {}
-            for fault in GANG_FAULTS:
-                bad = _model_run(name, root / name / fault, ranks, fault, args)
-                rec["faults"][fault] = dict(
-                    max_loss_rel_err=_loss_gap(bad["losses"], want),
-                    params=_param_gap(bad["compare"], base))
-                del bad
+        rec["faults"] = {}
+        for fault in GANG_FAULTS[name]:
+            bad = _model_run(name, root / name / fault, ranks, fault, args)
+            rec["faults"][fault] = dict(
+                max_loss_rel_err=_loss_gap(bad["losses"], want),
+                params=_param_gap(bad["compare"], base),
+                row_accum=(_param_gap(_row_accums(bad["compare"]), _row_accums(base))
+                           if name == "dlrm" else None))
+            del bad
         del base
         print(f"gang {name} " + json.dumps(rec), flush=True)
         res = many["result"]
@@ -2320,12 +2621,20 @@ def train_drivers_gang(torch, ranks: int) -> dict:
             for fault, seen in rec["faults"].items():
                 check(seen["max_loss_rel_err"] > GANG_LOSS_RTOL
                       or seen["params"]["rel"] > GANG_PARAM_RTOL,
-                      f"resnet gang: the planted fault {fault!r} ({GANG_FAULTS[fault]}) "
-                      f"stays within both limits: {seen}")
+                      f"resnet gang: the planted fault {fault!r} "
+                      f"({GANG_FAULTS[name][fault]}) stays within both limits: {seen}")
         else:
             check(res["k5_launches"] == GANG_STEPS
                   and res["merge_bytes_per_step"] == DLRM_BATCH * len(DLRM_VOCABS) * (4 + 64 * 4),
                   f"dlrm gang: {res}")
+            check(rec["row_accum"]["rel"] <= GANG_ROW_ACCUM_RTOL,
+                  f"dlrm: the row accumulators at {ranks} ranks are off one card's "
+                  f"({rec['row_accum']} > {GANG_ROW_ACCUM_RTOL})")
+            for fault, seen in rec["faults"].items():
+                check(seen["max_loss_rel_err"] > GANG_LOSS_RTOL
+                      or seen["row_accum"]["rel"] > GANG_ROW_ACCUM_RTOL,
+                      f"dlrm gang: the planted fault {fault!r} "
+                      f"({GANG_FAULTS[name][fault]}) stays within both limits: {seen}")
         out[name] = rec
     return out
 
@@ -2447,18 +2756,24 @@ def input_ab_main(torch) -> int:
     return 0
 
 
-def gang_main(torch) -> int:
-    """``chip_smoke.py --gang``: at one rank per visible card (2 or more),
-    NCCL between them, the LeNet phase, then the ResNet-50 and DLRM drivers
-    (:func:`train_drivers_gang`)."""
+def gang_main(torch, names: list[str]) -> int:
+    """``chip_smoke.py --gang [resnet|dlrm ...]``: at one rank per visible
+    card (2 or more), NCCL between them, the LeNet phase, then the ResNet-50
+    and DLRM drivers (:func:`train_drivers_gang`); with names, only those
+    drivers' comparisons."""
     ranks = torch.cuda.device_count()
     if ranks < 2:
         print(f"chip_smoke --gang: {ranks} card(s); it needs 2 or more",
               file=sys.stderr)
         return 2
+    if not set(names) <= set(GANG_FAULTS):
+        print(f"chip_smoke --gang: no driver {names}; choose from "
+              f"{sorted(GANG_FAULTS)}", file=sys.stderr)
+        return 2
     try:
-        train_lenet(torch, ranks)
-        train_drivers_gang(torch, ranks)
+        if not names:
+            train_lenet(torch, ranks)
+        train_drivers_gang(torch, ranks, tuple(names) or tuple(GANG_FAULTS))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2622,8 +2937,8 @@ def main() -> int:
         print(f"chip_smoke: {PKG} imported from {pkg.__file__}, not from "
               f"beside this script", file=sys.stderr)
         return 2
-    if sys.argv[1:] == ["--gang"]:
-        return gang_main(torch)
+    if sys.argv[1:2] == ["--gang"]:
+        return gang_main(torch, sys.argv[2:])
     if sys.argv[1:] == ["--input-ab"]:
         return input_ab_main(torch)
     from distributeddeeplearningspark_tpu_torch.models import bert
@@ -2657,6 +2972,7 @@ def main() -> int:
         check_input()
         train = train_bert(torch, fa)
         serve = serve_bert(torch, fa, bert, engine_mod)
+        llama = train_llama(torch, fa)
         k4 = check_conv_bn(torch, cb)
         resnet = train_resnet(torch, cb)
         k5 = check_scatter_rows(torch, sr)
@@ -2674,8 +2990,10 @@ def main() -> int:
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": f"{PKG}/csrc/flash_fwd.cu", "replaces": f"{src}:131",
-        "launches": serve["flash_fwd_launches"]
-        + train["launches"]["flash_fwd"],
+        # the served batches', BERT's and Llama's (in process and through
+        # the driver) runs, each counted from 0
+        "launches": serve["flash_fwd_launches"] + train["launches"]["flash_fwd"]
+        + llama["launches"]["flash_fwd"] + llama["driver"]["flash_launches"]["flash_fwd"],
         "max_abs_err": max(c["max_abs_err"] for c in k1),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -2686,7 +3004,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"{PKG}/csrc/flash_bwd.cu", "replaces": f"{src}:{line}",
-            "launches": train["launches"][name],
+            "launches": train["launches"][name] + llama["launches"][name]
+            + llama["driver"]["flash_launches"][name],
             "max_abs_err": max(c[g] for c in k23 for g in grads),
             "ms": bwd[f"{key}_ms"], "plain_ms": bwd["plain_ms"],
             "bound_ms": bwd[f"{key}_bound_ms"], "bound_by": bwd[f"{key}_bound_by"],

@@ -58,6 +58,18 @@ row-wise AdaGrad, the table scatter on the row scatter-add kernel (K5):
     state, summary = Trainer(spark, model, losses.binary_xent,
                              optim.adamw(1e-3, weight_decay=0.0),
                              sparse_embed=specs).fit(ds, batch_size=8192, steps=30)
+
+and fine-tunes Llama-2 7B with LoRA adapters on wq and wv (config 5), the
+base frozen in bf16, the attention on K1-K3, as ``examples/
+train_llama_lora.py`` does:
+
+    model = llama2_7b(lora_rank=16)           # on "cuda", weights from a seed
+    ds = text.lm_dataset(docs, tok, seq_len=1024).repeat()
+    tx = optim.masked(optim.with_grad_clip(optim.adamw(
+        optim.warmup_cosine(1e-4, 1, 10)), 1.0), lora_trainable)
+    state, summary = Trainer(spark, model, losses.causal_lm, tx,
+                             trainable=lora_trainable).fit(
+        ds, batch_size=8, steps=10, tokens_per_example=1024)
 """
 
 import importlib
@@ -92,6 +104,10 @@ _EXPORTS = {
     "dlrm": "distributeddeeplearningspark_tpu_torch.models.dlrm",
     "sparse_embed_specs": "distributeddeeplearningspark_tpu_torch.models.dlrm",
     "SparseEmbedSpec": "distributeddeeplearningspark_tpu_torch.train.embed",
+    "LlamaConfig": "distributeddeeplearningspark_tpu_torch.models.llama",
+    "LlamaForCausalLM": "distributeddeeplearningspark_tpu_torch.models.llama",
+    "llama2_7b": "distributeddeeplearningspark_tpu_torch.models.llama",
+    "lora_trainable": "distributeddeeplearningspark_tpu_torch.models.llama",
     "StreamingAUC": "distributeddeeplearningspark_tpu_torch.metrics",
     "Session": "distributeddeeplearningspark_tpu_torch.session",
     "Trainer": "distributeddeeplearningspark_tpu_torch.train.trainer",
@@ -109,6 +125,12 @@ if TYPE_CHECKING:  # static analyzers see the real names
         bert_base,
     )
     from distributeddeeplearningspark_tpu_torch.metrics import StreamingAUC
+    from distributeddeeplearningspark_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        llama2_7b,
+        lora_trainable,
+    )
     from distributeddeeplearningspark_tpu_torch.models.dlrm import (
         DLRM,
         WideAndDeep,

@@ -9,10 +9,12 @@ documents and seed give the same examples byte for byte:
    "mlm_labels": [S] i32, "mlm_weights": [S] f32}``
 
 plus ``mlm_positions`` [P] (``max_predictions``, the gathered head's form)
-and ``segment_ids`` [S] (packed-document ids) when asked for. Tokenizing, the
-per-document hot loop, can run over worker processes (:mod:`.workers`);
-packing and masking stay on the consumer. The causal-LM feed, Wikipedia
-dumps and token statistics are not ported yet.
+and ``segment_ids`` [S] (packed-document ids) when asked for; and the
+causal-LM feed of Llama's fine-tune (:func:`lm_dataset`),
+``{"input_ids": [S] i32, "loss_mask": [S] f32}`` (+ ``segment_ids``).
+Tokenizing, the per-document hot loop, can run over worker processes
+(:mod:`.workers`); packing and masking stay on the consumer. Wikipedia
+dumps, the HF tokenizer adapter and token statistics are not ported yet.
 """
 
 from __future__ import annotations
@@ -298,6 +300,53 @@ def mlm_dataset(
                 ex["segment_ids"] = sids
             yield (pack_mlm_predictions(ex, max_predictions)
                    if max_predictions else ex)
+
+    return token_ds.map_partitions_with_index(per_partition)
+
+
+def lm_dataset(
+    docs: PartitionedDataset,
+    tokenizer: WordPieceTokenizer,
+    *,
+    seq_len: int = 512,
+    eos_between_docs: bool = True,
+    segment_ids: bool = False,
+    num_workers: int | None = None,
+) -> PartitionedDataset:
+    """Text dataset → packed causal-LM blocks (config 5's fine-tune feed),
+    the same bytes as the JAX package's.
+
+    Documents are tokenized and concatenated (SEP between documents), then
+    cut into ``seq_len`` windows: ``{"input_ids": [S] i32, "loss_mask": [S]
+    f32}``; ``loss_mask`` zeroes the padding of the corpus's short last
+    block, and a last block of one token is dropped (it has no target).
+    ``segment_ids=True`` adds per-position document ids (a running
+    counter; the SEP belongs to the document it ends; pads get -1), so
+    attention is blocked across packed documents. ``num_workers``: tokenize
+    across worker processes; packing stays on the consumer, so the stream
+    is the same at any count."""
+    token_ds = _tokens_dataset(
+        docs,
+        lambda doc: np.asarray(
+            tokenizer.encode(doc)
+            + ([tokenizer.sep_id] if eos_between_docs else []), np.int32),
+        num_workers, label="lm_tokenize")
+
+    def per_partition(pidx: int, stream: Iterable[np.ndarray]) -> Iterator[dict]:
+        del pidx
+        for chunk, cseg, partial in _pack_token_windows(stream, seq_len):
+            if partial and len(chunk) <= 1:
+                continue  # a lone token has no next-token target
+            mask = np.zeros(seq_len, np.float32)
+            mask[: len(chunk)] = 1.0
+            ids = chunk + [tokenizer.pad_id] * (seq_len - len(chunk))
+            ex = {"input_ids": np.array(ids, np.int32),
+                  "loss_mask": (np.ones(seq_len, np.float32)
+                                if not partial else mask)}
+            if segment_ids:
+                sids = cseg + [-1] * (seq_len - len(cseg))
+                ex["segment_ids"] = np.array(sids, np.int32)
+            yield ex
 
     return token_ds.map_partitions_with_index(per_partition)
 

@@ -1,6 +1,10 @@
 """Training scripts of the port, spark-submit shaped (run them through
 :mod:`..cli`), and what they share: flags of the JAX drivers that the port
-cannot honour yet fail at parse time."""
+cannot honour yet fail at parse time.
+
+The drivers: ``train_mnist`` (LeNet-5, config 1), ``train_resnet``
+(ResNet, config 2), ``train_dlrm`` (DLRM / Wide&Deep, config 4) and
+``train_llama_lora`` (the Llama-2 LoRA fine-tune, config 5)."""
 
 import argparse
 

@@ -20,10 +20,19 @@ than one rank every BatchNorm takes the global batch's statistics
 (``all_reduce_sum``), and the run ends by checking that the params and
 the BatchNorm buffers are the same bytes on every rank.
 
-The source comes in ``default_parallelism × max(1, workers)`` partitions
-(``--source-partitions``), so that each worker draws a partition of its
-own instead of re-walking one (a pool over one partition re-walks it in
-every worker).
+Two deliberate differences from the JAX driver, which trains on the same
+images and weights as this one at ``--source-partitions`` =
+``max(default_parallelism, 1)`` (``tests/test_torch_resnet_driver.py``
+holds the two drivers' losses together there):
+
+- the source comes in ``default_parallelism × max(1, workers)``
+  partitions by default, where the JAX driver draws
+  ``max(default_parallelism, 1)``, so that each worker draws a partition
+  of its own instead of re-walking one (a pool over one partition re-walks
+  it in every worker); ``synthetic_images`` seeds each partition by its
+  index, so another count gives other images;
+- the bottleneck variants fuse their 1×1 conv→BN pairs on kernel K4
+  (``fused_conv_bn=True``); the JAX driver builds its model unfused.
 
 Flags of the JAX driver that the port cannot honour yet fail at parse
 time, each naming its ROADMAP item. Rank 0 prints one JSON line: the train
@@ -60,8 +69,8 @@ NOT_PORTED = {
     "--materialize-records": "data/records.py: ROADMAP Queue 1 item 3",
     "--record-px": "data/records.py: ROADMAP Queue 1 item 3",
     "--eval-dir": "imagenet_folder and the JPEG eval set: ROADMAP Queue 1 item 3",
-    "--weights": "the torchvision import and Trainer.load_pretrained: "
-                 "ROADMAP Queue 1 item 1",
+    "--weights": "the torchvision state-dict import (models/resnet_io.py's "
+                 "import_torchvision_resnet): ROADMAP Queue 1 item 3",
     "--profile-dir": "utils/profiling.py over torch.profiler: ROADMAP Queue 1 item 9",
     "--tensorboard-dir": "the Trainer's TensorBoard writer: ROADMAP Queue 1 item 9",
     "--mfu": "the Trainer's measure_flops (MFU): ROADMAP Queue 1 item 9",

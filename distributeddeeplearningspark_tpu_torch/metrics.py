@@ -1,10 +1,11 @@
 """Step timing and throughput, the per-step log line, and ROC AUC.
 
-The port's copy of ``Meter``, ``MetricLogger``, ``StreamingAUC`` and
-``auc_from_predictions`` from ``distributeddeeplearningspark_tpu/
+The port's copy of ``Meter``, ``MetricLogger``, ``StreamingAUC``,
+``auc_from_predictions``, ``attention_matmul_flops`` and
+``llama_model_flops_per_token`` from ``distributeddeeplearningspark_tpu/
 metrics.py``, without the JAX device queries: the chip count is the
-caller's (the Session's device count), and model FLOPs/MFU, TensorBoard
-and recovery events are not ported yet.
+caller's (the Session's device count), and measured FLOPs, MFU,
+TensorBoard and recovery events are not ported yet.
 """
 
 from __future__ import annotations
@@ -193,3 +194,43 @@ def auc_from_predictions(predictions, *, num_bins: int = 4096,
     if device is not None:
         auc.all_reduce(device)
     return auc.compute()
+
+
+def attention_matmul_flops(batch: int, heads: int, seq: int, head_dim: int, *,
+                           causal: bool = False, train: bool = True) -> float:
+    """Model matmul FLOPs of one attention op: the forward's QKᵀ and PV,
+    and in training the backward's dV, dP, dQ and dK (4 more), each
+    2·B·H·S²·D; causal halves them. Model flops, not implementation flops:
+    the backward's recompute of the scores is not counted; GQA does not
+    change the count."""
+    one_matmul = 2.0 * batch * heads * seq * seq * head_dim
+    total = 2 * one_matmul + (4 * one_matmul if train else 0.0)
+    return total * (0.5 if causal else 1.0)
+
+
+def llama_model_flops_per_token(cfg, seq: int, *,
+                                frozen_base: bool = True) -> float:
+    """Model FLOPs per trained token of a Llama step (2 flops a
+    multiply-add, the convention published MFU numbers use).
+
+    Counted: the projection, FFN and head matmuls (the embedding lookup is
+    a gather), the attention score and value matmuls (causal halving, at
+    the q-head count) and the LoRA adapter matmuls. Forward 2·P; backward
+    dx 2·P again; backward dW 2·P for the trainable params only (the
+    frozen-base step has no base dW). Not counted: elementwise, norm and
+    softmax work, the optimizer, and the remat recompute."""
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kvh = cfg.num_kv_heads * cfg.head_dim
+    p_layer = h * h + 2 * h * kvh + h * h + 3 * h * i  # the dense model's
+    p_matmul = cfg.num_layers * p_layer + v * h  # + head, embed is a gather
+    lora = 0
+    if cfg.lora_rank:
+        sizes = {"wq": (h, h), "wk": (h, kvh), "wv": (h, kvh), "wo": (h, h),
+                 "gate": (h, i), "up": (h, i), "down": (i, h)}
+        lora = sum(cfg.num_layers * cfg.lora_rank * (fi + fo)
+                   for t, (fi, fo) in sizes.items() if t in cfg.lora_targets)
+    # fwd + bwd-dx always; dW for the trainable set only
+    dense = (4 * p_matmul if frozen_base else 6 * p_matmul) + 6 * lora
+    attn = cfg.num_layers * attention_matmul_flops(
+        1, cfg.num_heads, seq, cfg.head_dim, causal=True, train=True) / seq
+    return float(dense + attn)

@@ -49,6 +49,7 @@ from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.train.optim import (
     GradientTransformation,
     global_norm,
+    updated_by,
 )
 from distributeddeeplearningspark_tpu_torch.train.state import TrainState
 
@@ -168,10 +169,11 @@ def make_sparse_embed_train_step(model: torch.nn.Module, tx: GradientTransformat
                                  loss_fn: Callable, specs: Sequence[SparseEmbedSpec],
                                  *, distributed: bool = False):
     """(state, batch) → (state, metrics), the train step with sparse table
-    updates. ``tx`` sees the :func:`dense_trainable` params only, in the
-    order of ``state.params``; ``state.embed_state`` holds each table's
-    ``row_accum``. The model takes ``overrides={spec.name: vectors}`` and
-    must read its tables only through them.
+    updates. ``tx`` sees the :func:`dense_trainable` params that its own
+    mask (``optim.masked``) accepts, in the order of ``state.params``;
+    ``state.embed_state`` holds each table's ``row_accum``. The model takes
+    ``overrides={spec.name: vectors}`` and must read its tables only
+    through them.
 
     ``distributed=True`` (a data-parallel gang, each rank holding its rows
     of the global batch): the loss is weighed and the dense gradients
@@ -186,9 +188,13 @@ def make_sparse_embed_train_step(model: torch.nn.Module, tx: GradientTransformat
     the steps' gathers receive at more than one rank."""
     specs = tuple(specs)
     trainable = dense_trainable(specs)
+    updates_param = updated_by(tx)
 
     def train_step(state: TrainState, batch: dict[str, torch.Tensor]):
-        dense = [p for name, p in state.params.items() if trainable(name)]
+        names = [name for name in state.params if trainable(name)]
+        dense = [state.params[name] for name in names]
+        opt_index = [i for i, name in enumerate(names) if updates_param(name)]
+        opt_params = [dense[i] for i in opt_index]
         tables = {s.name: state.params[s.param_path] for s in specs}
         everything = [*dense, *tables.values()]
         model.train()
@@ -217,8 +223,9 @@ def make_sparse_embed_train_step(model: torch.nn.Module, tx: GradientTransformat
                 collectives.all_reduce_grads(grads)
                 merged = {n: _gather_rows(i, g) for n, (i, g) in merged.items()}
             grad_norm = global_norm(grads + [g for _, g in merged.values()])
-            updates, opt_state = tx.update(grads, state.opt_state, dense)
-            torch._foreach_add_(dense, updates)
+            updates, opt_state = tx.update([grads[i] for i in opt_index],
+                                           state.opt_state, opt_params)
+            torch._foreach_add_(opt_params, updates)
             for s in specs:
                 rowwise_adagrad_update(
                     tables[s.name], state.embed_state[s.name][ROW_ACCUM],

@@ -1,12 +1,13 @@
-"""Loss functions — the port of ``train/losses.py`` for BERT, ResNet and
-DLRM.
+"""Loss functions — the port of ``train/losses.py`` for BERT, ResNet,
+DLRM and Llama.
 
 Each takes (model outputs, batch dict) and returns (scalar loss, metrics
 dict). A loss whose denominator is not the example count reports a
 ``"weight"`` metric, which :meth:`..trainer.Trainer.evaluate` uses to
 combine per-batch means exactly across unequal batches; the train loop
-drops it from its logs. The causal-LM losses of the JAX package arrive
-with the slice that trains Llama.
+drops it from its logs. ``causal_lm`` takes logits only: the MoE
+load-balance term and the fused LM head (``causal_lm_fused``) are not
+ported yet (ROADMAP Queue 1 items 5 and 6).
 """
 
 from __future__ import annotations
@@ -86,3 +87,41 @@ def binary_xent(logits: torch.Tensor, batch: dict[str, Any]
     loss = (per_ex * w).sum() / denom
     return loss, {"loss": loss, "accuracy": (hit * w).sum() / denom,
                   "weight": denom}
+
+
+def _reduce_next_token(per_tok: torch.Tensor, batch: dict[str, Any]
+                       ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The JAX package's LM reduction: the shifted ``loss_mask`` (the mask
+    of each target token), padded eval rows weighing nothing, the weighted
+    mean, and the metrics ``loss``, ``perplexity`` and ``weight``."""
+    mask = batch.get("loss_mask")
+    em = batch.get("eval_mask")
+    if mask is not None:
+        mask = mask[:, 1:].float()
+    elif em is not None:
+        mask = torch.ones_like(per_tok)
+    if em is not None:  # padded eval rows: zero token weight end-to-end
+        mask = mask * em.float()[:, None]
+    if mask is not None:
+        denom = mask.sum().clamp(min=1.0)
+        loss = (per_tok * mask).sum() / denom
+    else:
+        denom = torch.tensor(float(per_tok.numel()), device=per_tok.device)
+        loss = per_tok.mean()
+    return loss, {"loss": loss, "perplexity": torch.exp(loss), "weight": denom}
+
+
+def causal_lm(logits: torch.Tensor, batch: dict[str, Any]
+              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Next-token cross-entropy in f32 (the Llama-2 LoRA fine-tune): the
+    logits at position t against ``input_ids`` at t + 1; respects
+    ``loss_mask`` and ``eval_mask``."""
+    if not isinstance(logits, torch.Tensor):
+        raise TypeError(f"causal_lm takes the [B, S, V] logits, got "
+                        f"{type(logits).__name__} (the fused head and MoE "
+                        f"outputs are not ported yet)")
+    labels = batch["input_ids"][:, 1:].long()
+    logits = logits[:, :-1].float()
+    per_tok = F.cross_entropy(logits.flatten(0, 1), labels.flatten(),
+                              reduction="none").view(labels.shape)
+    return _reduce_next_token(per_tok, batch)

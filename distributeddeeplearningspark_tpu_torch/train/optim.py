@@ -2,7 +2,7 @@
 
 The port of ``distributeddeeplearningspark_tpu/train/optim.py`` for the
 BERT and ResNet paths: ``adamw``, ``sgd``, ``warmup_linear``,
-``warmup_cosine`` and ``with_grad_clip``. Each is a
+``warmup_cosine``, ``with_grad_clip`` and ``masked``. Each is a
 :class:`GradientTransformation` of optax's shape, ``init(params) -> state``
 and ``update(updates, state, params) -> (updates, state)``, over lists of
 tensors in the params' order, so that a reader can map it onto optax. The
@@ -27,8 +27,14 @@ Updates are made in place with ``torch._foreach_*`` ops: a transform may
 overwrite the ``updates`` it is given (the caller's gradients) and the
 moment buffers in its state. Counts are host integers, so no update syncs
 with the device. These are plain tensor ops, as the JAX package runs its
-optimizer in XLA, not in Pallas. ``lamb``, ``lars``, ``adafactor`` and
-``masked`` are not ported yet.
+optimizer in XLA, not in Pallas. ``lamb``, ``lars`` and ``adafactor`` are
+not ported yet.
+
+``masked(tx, trainable)`` (the LoRA fine-tune) names the params ``tx``
+updates: the train step hands it only those, with their gradients, so the
+others get no update, no optimizer state and no part in a clip inside it,
+as under optax's ``multi_transform`` with ``set_to_zero``. A masked
+transformation is the outermost one: :func:`chain` refuses to hold it.
 """
 
 from __future__ import annotations
@@ -45,9 +51,16 @@ Tensors = list[torch.Tensor]
 class GradientTransformation(NamedTuple):
     init: Callable[[Tensors], Any]
     update: Callable[[Tensors, Any, Tensors], tuple[Tensors, Any]]
+    #: the param names this transformation updates (:func:`masked`); None:
+    #: every param it is given
+    trainable: Callable[[str], bool] | None = None
 
 
 def chain(*txs: GradientTransformation) -> GradientTransformation:
+    if any(tx.trainable is not None for tx in txs):
+        raise ValueError("a masked transformation must be the outermost one: "
+                         "masked(chain(...), trainable), not chain(masked(...))")
+
     def init(params):
         return tuple(tx.init(params) for tx in txs)
 
@@ -172,6 +185,21 @@ def sgd(learning_rate: float | Schedule, momentum: float | None = 0.9,
 
 def with_grad_clip(tx: GradientTransformation, max_norm: float) -> GradientTransformation:
     return chain(clip_by_global_norm(max_norm), tx)
+
+
+def masked(tx: GradientTransformation,
+           trainable: Callable[[str], bool]) -> GradientTransformation:
+    """Train only the params whose name (``named_parameters()``'s, the JAX
+    path with dots) ``trainable`` accepts: ``tx`` is given those params and
+    their gradients only, so a clip inside it sees only theirs, and the
+    others keep their values and get no optimizer state (the JAX package's
+    ``masked``: base weights frozen, LoRA adapters trained)."""
+    return GradientTransformation(tx.init, tx.update, trainable)
+
+
+def updated_by(tx: GradientTransformation) -> Callable[[str], bool]:
+    """The predicate over param names of the params ``tx`` updates."""
+    return tx.trainable or (lambda name: True)
 
 
 def linear_schedule(init_value: float, end_value: float,

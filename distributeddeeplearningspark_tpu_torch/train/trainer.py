@@ -46,9 +46,17 @@ AdaGrad to them (in a gang, to every rank's rows, gathered), and the
 optimizer state is built over the other params only, so no moment of table
 size exists.
 
-Not ported yet (ROADMAP Queue 1 item 1): ``accum_steps``, ``trainable``,
-``on_nonfinite="skip"|"rollback"``, eval during fit, callbacks; sharding
-plans and rules, profiling, sanitize and TensorBoard.
+``trainable`` (a predicate over param names, e.g. ``lora_trainable``)
+freezes the params it rejects: they leave autograd and the optimizer state
+is built over the others (:mod:`.step`). ``accum_steps`` splits each batch
+into that many micro-batches whose gradients are summed before one update
+(the constructor's value, or ``fit(accum_steps=...)``). Neither goes with
+``sparse_embed``, as in JAX. :meth:`load_pretrained` overlays imported
+weights (``models.llama_io``) on the live params in place.
+
+Not ported yet (ROADMAP Queue 1 item 1): ``on_nonfinite="skip"|"rollback"``,
+eval during fit, callbacks; sharding plans and rules, profiling, sanitize
+and TensorBoard.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from __future__ import annotations
 import logging
 import math
 import os
+import re
 import time
 from typing import Any, Callable, Iterator, Sequence
 
@@ -122,6 +131,19 @@ def _lap_anatomy(lap_s: float, dispatch_s: float, drain_s: float,
                 num_chips=num_chips)
 
 
+def _overlay(live: dict[str, torch.Tensor], new: dict[str, Any], what: str
+             ) -> None:
+    """Copy each of ``new`` into ``live``'s tensor of its name, in place,
+    cast to its dtype, after checking every shape."""
+    for k, v in new.items():
+        if tuple(v.shape) != tuple(live[k].shape):
+            raise ValueError(f"{what} {k}: shape {tuple(v.shape)} != model "
+                             f"{tuple(live[k].shape)}")
+    with torch.no_grad():
+        for k, v in new.items():
+            live[k].copy_(torch.as_tensor(v))
+
+
 def _first_leaf(tree: Any) -> Any:
     while isinstance(tree, (dict, tuple, list)):
         tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
@@ -138,13 +160,17 @@ class Trainer:
     ``sparse_embed``: :class:`~.embed.SparseEmbedSpec` s of the tables that
     train row-sparsely (``models.dlrm.sparse_embed_specs``); the model then
     takes ``overrides`` in train mode. ``checkpointer``: where ``fit``
-    saves and :meth:`restore` reads."""
+    saves and :meth:`restore` reads. ``accum_steps``: micro-batches per
+    optimizer step. ``trainable``: the params that train (None: all); pass
+    the predicate the optimizer is ``masked`` with."""
 
     def __init__(self, session: Session | None, model: torch.nn.Module,
                  loss_fn: Callable, optimizer: GradientTransformation, *,
                  seed: int = 0,
                  sparse_embed: Sequence[embed_lib.SparseEmbedSpec] = (),
-                 checkpointer: Checkpointer | None = None):
+                 checkpointer: Checkpointer | None = None,
+                 accum_steps: int = 1,
+                 trainable: Callable[[str], bool] | None = None):
         self.session = session or Session.get_or_default()
         self.device = self.session.device
         wrong = {str(p.device) for p in model.parameters()
@@ -164,30 +190,90 @@ class Trainer:
         if missing:
             raise ValueError(f"sparse_embed tables {missing} are not params of "
                              f"the model")
+        if self.sparse_embed and accum_steps != 1:
+            raise ValueError("accum_steps is not supported with sparse_embed")
+        if self.sparse_embed and trainable is not None:
+            raise ValueError(
+                "trainable is not supported with sparse_embed: the sparse "
+                "step already keeps tables out of autodiff, and silently "
+                "ignoring the predicate for other params would skip the "
+                "frozen-weight exclusion the caller asked for")
+        self.accum_steps = accum_steps
+        self.trainable = trainable
+        self._build_train_step()
+        self._eval_step = step_lib.make_eval_step(model, loss_fn)
+
+    def _build_train_step(self) -> None:
         if self.sparse_embed:
             self._train_step = embed_lib.make_sparse_embed_train_step(
-                model, optimizer, loss_fn, self.sparse_embed,
+                self.model, self.tx, self.loss_fn, self.sparse_embed,
                 distributed=self.session.distributed)
         else:
             self._train_step = step_lib.make_train_step(
-                model, optimizer, loss_fn, distributed=self.session.distributed)
-        self._eval_step = step_lib.make_eval_step(model, loss_fn)
+                self.model, self.tx, self.loss_fn,
+                distributed=self.session.distributed, trainable=self.trainable,
+                accum_steps=self.accum_steps)
 
     def init(self) -> TrainState:
         """The initial state: the model's params, the optimizer's state
-        (over the params that are not sparse tables), the dropout generator
-        seeded from ``seed``, the model's buffers (BatchNorm statistics) and
-        the sparse tables' zero row accumulators."""
+        (over the params that train, are not sparse tables and pass the
+        optimizer's mask), the dropout generator seeded from ``seed``, the
+        model's buffers (BatchNorm statistics) and the sparse tables' zero
+        row accumulators."""
         params = dict(self.model.named_parameters())
-        dense = embed_lib.dense_trainable(self.sparse_embed)
+        trains = (embed_lib.dense_trainable(self.sparse_embed)
+                  if self.sparse_embed else self.trainable)
+        names = step_lib.optimizer_params(params, self.tx, trains)
         self.state = TrainState(
             step=0, params=params,
-            opt_state=self.tx.init([p for n, p in params.items() if dense(n)]),
+            opt_state=self.tx.init([params[n] for n in names]),
             generator=torch.Generator(self.device).manual_seed(self.seed),
             mutable=dict(self.model.named_buffers()),
             embed_state=embed_lib.init_embed_state(self.sparse_embed, params))
         logger.info("initialized %s params on %s",
                     f"{self.state.num_params:,}", self.device)
+        return self.state
+
+    def load_pretrained(self, params: dict[str, Any], *,
+                        batch_stats: dict[str, Any] | None = None,
+                        strict: bool = False,
+                        allow_uncovered: Sequence[str] = ("lora_",)) -> TrainState:
+        """Overlay imported weights (e.g. ``models.llama_io``'s
+        ``load_llama_safetensors``) on the state, in place.
+
+        ``params`` maps param names (``named_parameters()``'s) to tensors or
+        numpy arrays of the params' shapes; each is cast to its param's
+        dtype and copied onto its device. Params absent from ``params``
+        keep their values. With ``strict``, both names that are not params
+        and params ``params`` does not cover (except those matching a
+        pattern of ``allow_uncovered``, by default the LoRA adapters)
+        raise; without, each kind is logged as a warning. ``batch_stats``:
+        the model's buffers (BatchNorm's running statistics) by name,
+        overlaid the same way."""
+        if self.state is None:
+            raise RuntimeError("call init() before load_pretrained()")
+        live = self.state.params
+        seen = set(params) & set(live)
+        extra = set(params) - seen
+        uncovered = {k for k in set(live) - seen
+                     if not any(re.search(pat, k) for pat in allow_uncovered)}
+        if strict and (extra or uncovered):
+            raise ValueError(
+                f"pretrained overlay mismatch: extra keys {sorted(extra)[:4]}, "
+                f"uncovered model params {sorted(uncovered)[:4]}")
+        if extra:
+            logger.warning("ignored %d pretrained keys not in model", len(extra))
+        if uncovered:
+            logger.warning("%d model params not covered by pretrained overlay "
+                           "(e.g. %s)", len(uncovered), sorted(uncovered)[:3])
+        _overlay(live, {k: params[k] for k in seen}, "pretrained")
+        if batch_stats is not None:
+            if not self.state.mutable:
+                raise ValueError("batch_stats given but the model has no "
+                                 "buffers (BatchNorm statistics)")
+            _overlay(self.state.mutable, {k: v for k, v in batch_stats.items()
+                                          if k in self.state.mutable},
+                     "batch_stats")
         return self.state
 
     def restore(self, checkpointer: Checkpointer | None = None, *,
@@ -240,7 +326,7 @@ class Trainer:
     def fit(self, dataset: PartitionedDataset, *, batch_size: int,
             steps: int | None = None, tokens_per_example: int = 0,
             log_every: int = 10, checkpoint_every: int | None = None,
-            data_state: dict | None = None
+            data_state: dict | None = None, accum_steps: int | None = None
             ) -> tuple[TrainState, dict[str, float]]:
         """Train until the state's step reaches ``steps`` (or the dataset is
         exhausted). Returns (final state, summary): the :class:`Meter`'s
@@ -250,7 +336,21 @@ class Trainer:
 
         ``checkpoint_every``: save every N steps and at the end (needs a
         checkpointer). ``data_state`` (from :meth:`restore`): skip the
-        ``examples_seen`` the checkpoint had trained on."""
+        ``examples_seen`` the checkpoint had trained on. ``accum_steps``:
+        micro-batches per optimizer step (``batch_size`` stays the global
+        batch), overriding the constructor's."""
+        if accum_steps is not None and accum_steps != self.accum_steps:
+            if self.sparse_embed:
+                raise ValueError(
+                    "accum_steps is not supported with sparse_embed tables "
+                    "(train/embed.py) — recommender batches are already large; "
+                    "scale batch_size instead")
+            self.accum_steps = accum_steps
+            self._build_train_step()
+        if batch_size % self.accum_steps:
+            raise ValueError(
+                f"batch_size {batch_size} must divide by accum_steps "
+                f"{self.accum_steps}")
         if self.state is None:
             self.init()
         meter = Meter(examples_per_step=batch_size,

@@ -72,6 +72,25 @@ def test_mlm_dataset_matches_jax_byte_for_byte(corpus, kw):
     _assert_examples_equal(got, want)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(seq_len=64),
+    dict(seq_len=64, segment_ids=True),
+    dict(seq_len=100, eos_between_docs=False),
+    dict(seq_len=4096, segment_ids=True),
+    dict(seq_len=64, segment_ids=True, num_workers=2),
+], ids=["packed", "segments", "no_eos", "tail_only", "segments_pooled"])
+def test_lm_dataset_matches_jax_byte_for_byte(corpus, kw):
+    """Config 5's feed: full windows, the corpus tail's short block (its
+    padding out of ``loss_mask``, its pads at segment -1), the same bytes
+    when tokenized over worker processes."""
+    jdocs, tdocs, lines, jtok = corpus
+    ttok = ttext.WordPieceTokenizer.train(lines, vocab_size=48)
+    want = jtext.lm_dataset(jdocs, jtok, **{**kw, "num_workers": 0}).collect()
+    got = ttext.lm_dataset(tdocs, ttok, **kw).collect()
+    _assert_examples_equal(got, want)
+    assert {"input_ids", "loss_mask"} <= set(got[0])
+
+
 def test_mlm_dataset_rejects_segments_without_packing(corpus):
     _, tdocs, lines, _ = corpus
     ttok = ttext.WordPieceTokenizer.train(lines, vocab_size=48)

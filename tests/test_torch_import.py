@@ -66,7 +66,8 @@ print(json.dumps({{"modules": names, "loaded": sorted(sys.modules)}}))
                 "models.lenet", "models.lenet_io", "utils.env",
                 "parallel.mesh", "parallel.collectives", "checkpoint", "cli",
                 "examples.train_mnist", "data.workers", "data.prefetch",
-                "examples", "examples.train_resnet", "examples.train_dlrm"}
+                "examples", "examples.train_resnet", "examples.train_dlrm",
+                "models.llama", "models.llama_io", "examples.train_llama_lora"}
     got = {n.split(".", 1)[1] for n in rec["modules"]}
     assert expected <= got, expected - got
     bad = [m for m in rec["loaded"] if _forbidden(m)]
@@ -98,12 +99,19 @@ def test_chip_smoke_imports_no_jax():
 @pytest.mark.parametrize("entry", ["bert_base", "for_model", "engine",
                                    "resolve_device", "session", "trainer",
                                    "resnet50", "dlrm", "lenet", "train_resnet",
-                                   "train_dlrm"])
+                                   "train_dlrm", "llama2_7b", "llama_tiny",
+                                   "train_llama_lora", "train_mnist"])
 def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
     if torch.cuda.is_available():
         pytest.skip("the no-CUDA error needs a machine without CUDA")
     from distributeddeeplearningspark_tpu_torch import Session, Trainer
-    from distributeddeeplearningspark_tpu_torch.examples import train_dlrm, train_resnet
+    from distributeddeeplearningspark_tpu_torch.examples import (
+        train_dlrm,
+        train_llama_lora,
+        train_mnist,
+        train_resnet,
+    )
+    from distributeddeeplearningspark_tpu_torch.models import llama
     from distributeddeeplearningspark_tpu_torch.models.bert import (
         BertConfig, BertForMLM, bert_base)
     from distributeddeeplearningspark_tpu_torch.serve import InferenceEngine
@@ -126,6 +134,10 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
         # the drivers, run with no conf: the card, not a CPU fallback
         "train_resnet": lambda: train_resnet.main(["--steps", "1", "--image-size", "32"]),
         "train_dlrm": lambda: train_dlrm.main(["--steps", "1", "--vocab-size", "10"]),
+        "llama2_7b": lambda: llama.llama2_7b(num_layers=1),
+        "llama_tiny": lambda: llama.llama_tiny(),
+        "train_llama_lora": lambda: train_llama_lora.main(["--steps", "1"]),
+        "train_mnist": lambda: train_mnist.main(["--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -131,6 +131,28 @@ B, S, P, STEPS = 4, 128, 20, 5
 LR = toptim.warmup_linear(2e-3, 2, STEPS)
 
 
+@pytest.mark.parametrize("masks", [(), ("loss_mask",), ("eval_mask",),
+                                   ("loss_mask", "eval_mask")])
+def test_causal_lm_matches_jax(masks):
+    """Next-token CE with the shifted loss_mask, padded eval rows weighing
+    nothing: loss, perplexity and weight."""
+    rng = np.random.default_rng(4)
+    logits = rng.normal(0, 3, (3, 9, 17)).astype(np.float32)
+    batch = {"input_ids": rng.integers(0, 17, (3, 9)).astype(np.int32)}
+    if "loss_mask" in masks:
+        batch["loss_mask"] = (rng.random((3, 9)) < 0.7).astype(np.float32)
+    if "eval_mask" in masks:
+        batch["eval_mask"] = np.array([1, 0, 1], np.float32)
+    jl, jm = jlosses.causal_lm(jnp.asarray(logits),
+                               {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tm = tlosses.causal_lm(torch.from_numpy(logits),
+                               {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert set(tm) == set(jm) == {"loss", "perplexity", "weight"}
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-6)
+    for k in jm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-6, err_msg=k)
+
+
 def _mlm_batches(vocab, seed=0):
     rng = np.random.default_rng(seed)
     out = []

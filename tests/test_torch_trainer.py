@@ -185,3 +185,115 @@ def test_trainer_refuses_a_model_off_the_session_device():
             Trainer(spark, model, tlosses.masked_lm, toptim.adamw(1e-3))
     finally:
         spark.stop()
+
+
+# -- Llama LoRA: trainable, accum_steps -------------------------------------------
+
+LLAMA_SEQ, LLAMA_BATCH, LLAMA_STEPS = 64, 4, 6
+
+
+def _lora_tx(optim_mod, llama_mod):
+    return optim_mod.masked(optim_mod.with_grad_clip(optim_mod.adamw(
+        optim_mod.warmup_cosine(1e-2, 1, LLAMA_STEPS)), 1.0), llama_mod.lora_trainable)
+
+
+@pytest.fixture(scope="module")
+@bounded()
+def lora_runs(tmp_path_factory):
+    """The tiny Llama's LoRA fine-tune (the config-5 driver's optimizer,
+    ``trainable=lora_trainable``, ``accum_steps=2``, packed documents with
+    segment ids) through the JAX ``Trainer`` and the port's, from the same
+    weights: (JAX workdir, port workdir, port trainer, initial params)."""
+    from distributeddeeplearningspark_tpu.models import llama as jllama
+    from distributeddeeplearningspark_tpu_torch.models import llama as tllama
+    from distributeddeeplearningspark_tpu_torch.models.llama_io import (
+        params_from_flax as llama_from_flax)
+
+    root = tmp_path_factory.mktemp("lora")
+    mp = pytest.MonkeyPatch()
+    try:
+        jspark = JSession.builder.master("local[1]").appName("j").getOrCreate()
+        jdocs, jtok = _corpus(jtext)
+        jds = jtext.lm_dataset(jdocs, jtok, seq_len=LLAMA_SEQ, segment_ids=True,
+                               num_workers=0).repeat()
+        jcfg = jllama.LlamaConfig.tiny(vocab_size=64, lora_rank=4)
+        jtrainer = JTrainer(jspark, jllama.LlamaForCausalLM(jcfg), jlosses.causal_lm,
+                            _lora_tx(joptim, jllama), accum_steps=2,
+                            trainable=jllama.lora_trainable)
+        jtrainer.init(jtrainer._sample_batch(jds, LLAMA_BATCH))
+        params = jax.tree.map(np.asarray, jax.device_get(jtrainer.state.params))
+        mp.setenv(jtele.WORKDIR_ENV, str(root / "jax"))
+        jtrainer.fit(jds, batch_size=LLAMA_BATCH, steps=LLAMA_STEPS,
+                     tokens_per_example=LLAMA_SEQ, log_every=LOG_EVERY)
+        jtele.reset()
+        jspark.stop()
+
+        spark = Session.builder.master("local[1]").appName("t").config(
+            DEVICE_CONF, "cpu").getOrCreate()
+        tdocs, ttok = _corpus(ttext)
+        tds = ttext.lm_dataset(tdocs, ttok, seq_len=LLAMA_SEQ,
+                               segment_ids=True).repeat()
+        tcfg = tllama.LlamaConfig.tiny(vocab_size=64, lora_rank=4)
+        model = tllama.LlamaForCausalLM(tcfg, device="cpu")
+        init = llama_from_flax(params, tcfg)
+        model.load_state_dict(init)
+        trainer = Trainer(spark, model, tlosses.causal_lm, _lora_tx(toptim, tllama),
+                          accum_steps=2, trainable=tllama.lora_trainable)
+        mp.setenv(ttele.WORKDIR_ENV, str(root / "port"))
+        trainer.fit(tds, batch_size=LLAMA_BATCH, steps=LLAMA_STEPS,
+                    tokens_per_example=LLAMA_SEQ, log_every=LOG_EVERY)
+        ttele.reset()
+        spark.stop()
+    finally:
+        mp.undo()
+    return root / "jax", root / "port", trainer, init
+
+
+def test_lora_fit_with_accumulation_logs_the_jax_losses(lora_runs):
+    jdir, tdir, *_ = lora_runs
+    want, got = _step_metrics(jdir), _step_metrics(tdir)
+    assert [s for s, _ in got] == [s for s, _ in want] == [2, 4, 6]
+    for (_, tm), (_, jm) in zip(got, want):
+        assert set(tm) == set(jm) == {"loss", "perplexity", "grad_norm"}
+        for k in tm:
+            np.testing.assert_allclose(tm[k], jm[k], rtol=RTOL, err_msg=k)
+    assert got[-1][1]["loss"] < got[0][1]["loss"]
+
+
+def test_lora_fit_trains_the_adapters_only(lora_runs):
+    *_, trainer, init = lora_runs
+    state = trainer.state
+    lora = [n for n in state.params if ".lora_" in n]
+    assert len(lora) == 16 and trainer.accum_steps == 2
+    adam = state.opt_state[1][0]  # chain(clip, chain(adam, decay, lr))
+    assert sum(t.numel() for t in (*adam.mu, *adam.nu)) == \
+        2 * sum(state.params[n].numel() for n in lora)
+    for n, p in state.params.items():
+        moved = not torch.equal(p.detach(), init[n])
+        assert moved == (n in lora), n
+        assert p.requires_grad == (n in lora) and p.grad is None, n
+
+
+def test_accum_steps_and_trainable_refusals():
+    from distributeddeeplearningspark_tpu_torch.models.dlrm import dlrm, sparse_embed_specs
+
+    spark = Session.builder.master("local[1]").config(DEVICE_CONF, "cpu").getOrCreate()
+    try:
+        model = dlrm(vocab_sizes=(10,) * 26, device="cpu")
+        specs = sparse_embed_specs(model)
+        with pytest.raises(ValueError, match="accum_steps is not supported"):
+            Trainer(spark, model, tlosses.binary_xent, toptim.adamw(1e-3),
+                    sparse_embed=specs, accum_steps=2)
+        with pytest.raises(ValueError, match="trainable is not supported"):
+            Trainer(spark, model, tlosses.binary_xent, toptim.adamw(1e-3),
+                    sparse_embed=specs, trainable=lambda n: True)
+        trainer = Trainer(spark, model, tlosses.binary_xent, toptim.adamw(1e-3),
+                          sparse_embed=specs)
+        with pytest.raises(ValueError, match="accum_steps is not supported"):
+            trainer.fit(None, batch_size=4, accum_steps=2)
+        _, bert, ds = _tiny_trainer()
+        bert.accum_steps = 1
+        with pytest.raises(ValueError, match="must divide by accum_steps 2"):
+            bert.fit(ds, batch_size=3, steps=1, accum_steps=2)
+    finally:
+        spark.stop()
