@@ -151,22 +151,55 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    BatchNorm's batch mean and variance the same on both halves and the
    whole batch's, and the halves' summed parameter gradients the whole
    batch's, at the stated tolerances, through K4;
-14. print one JSON line of per-kernel numbers, the card's name and power
+14. the recovery chain: ResNet-50 at b=256 (K4) for 6 steps through
+   ``Trainer.fit(on_nonfinite="skip")`` with ``DLS_FAULT=nan@3``: the
+   skipped step leaves every param, SGD trace, the schedule's count and
+   every BatchNorm statistic bitwise as step 2 left them, one skipped
+   step, finite steps after it, 27 K4 launches a step, and the train
+   step's ms and host syncs (``torch.cuda.set_sync_debug_mode``) with the
+   guard against without, in turns; BERT-base at b=32, S=512 (K1-K3) for
+   8 steps through ``fit(on_nonfinite="rollback")`` with
+   ``DLS_FAULT=nan@6``, a checkpoint and an evaluation on a held-out MLM
+   set every 4 steps: one rollback to step 4, the last checkpoint's
+   ``examples_seen`` past the window the feed went on over, the final
+   params against a second run restored at step 4 and fed from 6 batches
+   in (and whether the bits agree), every ``eval_*`` fit logs against
+   ``Trainer.evaluate`` at the same step, the kernels' launches, the
+   checkpoint's save and restore ms; the port's LeNet driver under the
+   port's ``Supervisor`` with ``DLS_FAULT=crash@8``, a checkpoint every 4
+   steps and ``--resume``: the attempts ``training-crash`` then ``clean``
+   in the telemetry stream, the final params bitwise phase 11's 150
+   straight steps, nothing of the killed attempt left, and the seconds
+   from the kill to the relaunch's first step;
+15. print one JSON line of per-kernel numbers, the card's name and power
    limit (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --gang`` runs, at one rank per card (2 or more),
-the LeNet phase and then the ResNet-50 (b=256 global) and DLRM (b=8,192
-global) drivers over NCCL: the replicas in sync, 27 K4 launches a step,
+the LeNet phase; the port's LeNet driver under the port's ``Supervisor``
+at N ranks with ``shrink_after=1`` and ``DLS_FAULT=die_host@25`` on host
+1, which must relaunch at N - 1 ranks from the step-20 checkpoint, record
+its ``geometry_change`` and log the losses of an uninterrupted N-rank run
+at a stated tolerance (a global batch of 96 over 12 source partitions:
+the same batches at 4 and 3 ranks); a planted desync of rank 1's params
+(``SANITIZE_FAULTS``) that ``fit(sanitize_every=1)`` must catch as
+``DesyncError`` on every rank over NCCL; then the ResNet-50 (b=256
+global) and DLRM (b=8,192 global) drivers over NCCL: the replicas in sync, 27 K4 launches a step,
 every rank's losses the global batch's and a one-card run's on the same
 batches at a stated tolerance, ResNet-50's parameters' change and the
 DLRM's row accumulators too; two faults planted into ResNet-50's N-rank
 run (the loss not weighed, a rank-local BatchNorm backward) and one into
 the DLRM's (a rank-by-rank sparse merge) must each break one of those
 limits; each rank's step ms and a profiled window's NCCL kernel time.
-``--gang dlrm`` (or ``resnet``) runs that driver's comparisons only.
-``python3 chip_smoke.py --input-ab`` times BERT-base, ResNet-50 and the
+``--gang dlrm`` (or ``resnet``) runs that driver's comparisons only,
+``--gang recovery`` the shrink and the desync only.
+``python3 chip_smoke.py --recovery`` builds the kernels and runs phases 11
+and 14 only (one card). ``python3 chip_smoke.py --input-ab`` times BERT-base, ResNet-50 and the
 DLRM through ``Trainer.fit`` with their batches built in the prefetch
-thread and in the loop's thread, in turns (one card).
+thread and in the loop's thread, in turns (one card). ``python3
+chip_smoke.py --loop-ab A B B A`` times the unguarded LeNet-5 and DLRM
+train loops through the package of each checkout root named, in that
+order, each in a process of its own (one card; for a parent commit
+unpacked under ``build/`` against this tree).
 
 Exits non-zero, printing no result, when CUDA is absent, when the port's
 package is not beside this script, or when any phase fails.
@@ -1203,7 +1236,8 @@ def train_llama(torch, fa) -> dict:
     records = _events(workdir)
     logged = [(r["step"], r["metrics"]["loss"]) for r in records
               if r["kind"] == "step_metrics"]
-    opt_numel = sum(t.numel() for t in _tensors(torch, trainer.state.opt_state))
+    opt_numel = sum(t.numel() for t in _tensors(torch, trainer.state.opt_state)
+                    if t.dim())  # the moments; the counts are 0-d
     lora_numel = sum(p.numel() for n, p in trainer.state.params.items()
                      if llama.lora_trainable(n))
     profile = _profile_fit(torch, trainer, ds, LLAMA_BATCH,
@@ -2352,6 +2386,397 @@ def check_bn_halves(torch) -> dict:
     return rec
 
 
+# -- phase 14: the recovery chain, on one card ----------------------------------
+
+#: ResNet-50 under on_nonfinite="skip": steps, and the step DLS_FAULT poisons
+SKIP_STEPS, SKIP_AT = 6, 3
+#: BERT-base under on_nonfinite="rollback" with eval inside fit: steps,
+#: checkpoint and eval interval, the poisoned step, the held-out set
+ROLLBACK_STEPS, ROLLBACK_EVERY, ROLLBACK_AT, ROLLBACK_EVAL_EXAMPLES = 8, 4, 6, 64
+#: the rollback's final params against a run restored at the rollback's
+#: step and fed from its feed position (relative, over every param): the
+#: same kernels on the same inputs; 0 where the bits agree
+ROLLBACK_RTOL = 1e-6
+#: every eval_* value fit logs against Trainer.evaluate at the same step
+EVAL_RTOL = 1e-6
+#: the supervised LeNet drill: the fault and the checkpoint interval; the
+#: run's steps and batch are the LeNet phase's, whose 150 straight steps it
+#: is held to bitwise
+CRASH_AT, CRASH_EVERY = 8, 4
+
+
+def _capture_logged(logger_name: str):
+    """A handler on a MetricLogger's logger and the list it fills with
+    ``(step, metrics)`` of each ``step N: {json}`` line."""
+    import logging
+
+    got: list = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            if record.msg == "step %d: %s":
+                step, text = record.args
+                got.append((step, json.loads(text)))
+
+    lg = logging.getLogger(logger_name)
+    handler = Grab(logging.INFO)
+    lg.setLevel(logging.INFO)
+    lg.addHandler(handler)
+    return got, lambda: lg.removeHandler(handler)
+
+
+def _syncs_per_step(torch, trainer, batch, steps: int = 5) -> tuple[float, list]:
+    """Host syncs a train step makes (on one batch already on the card,
+    after two warm steps), as ``torch.cuda.set_sync_debug_mode("warn")``
+    reports them, and the Python lines they came from."""
+    import warnings
+
+    for _ in range(2):
+        trainer.state, _ = trainer._train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(steps):
+                trainer.state, _ = trainer._train_step(trainer.state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    return len(syncs) / steps, sorted({f"{Path(w.filename).name}:{w.lineno}"
+                                       for w in syncs})
+
+
+def recovery_skip_resnet(torch, cb) -> dict:
+    """ResNet-50 at b=256 under ``fit(on_nonfinite="skip")`` with
+    ``DLS_FAULT=nan@3``: the poisoned step leaves every param, SGD trace
+    and BatchNorm statistic bitwise as step 2 left them; the guard's loop
+    ms and host syncs a step against the step without it."""
+    from distributeddeeplearningspark_tpu_torch.data import sources, vision
+    from distributeddeeplearningspark_tpu_torch.data.feed import device_batches
+    from distributeddeeplearningspark_tpu_torch.models import resnet
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.state import leaves
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    spark = Session.builder.master("local[1]").appName("resnet50-skip").getOrCreate()
+    workers = input_workers()
+    src = sources.synthetic_images(4 * RESNET_BATCH, image_size=224,
+                                   num_classes=1000, num_partitions=workers)
+    ds = vision.imagenet_train(src, size=224, repeat=True, num_workers=workers)
+    model = resnet.resnet50(num_classes=1000, fused_conv_bn=True, device="cuda", seed=0)
+    tx = optim.sgd(optim.warmup_cosine(0.1, 1, SKIP_STEPS), momentum=0.9,
+                   weight_decay=1e-4)
+    trainer = Trainer(spark, model, losses.softmax_xent, tx)
+    snaps: dict[int, dict] = {}
+
+    def snapshot(step, _metrics):
+        if step in (SKIP_AT - 1, SKIP_AT):
+            st = trainer.state
+            snaps[step] = {
+                **{f"param {k}": v.detach().clone() for k, v in st.params.items()},
+                **{f"opt {i}": t.clone() for i, t in enumerate(
+                    x for x in leaves(st.opt_state) if isinstance(x, torch.Tensor))},
+                **{f"buffer {k}": v.clone() for k, v in st.mutable.items()}}
+
+    got, done = _capture_logged(f"{PKG}.metrics")
+    os.environ["DLS_FAULT"] = f"nan@{SKIP_AT}"
+    cb.matmul_stats.launches = 0  # the path's run starts here
+    try:
+        _, summary = trainer.fit(ds, batch_size=RESNET_BATCH, steps=SKIP_STEPS,
+                                 log_every=1, on_nonfinite="skip",
+                                 callbacks=[snapshot])
+    finally:
+        os.environ.pop("DLS_FAULT", None)
+        done()
+    launches = cb.matmul_stats.launches
+    before, after = snaps[SKIP_AT - 1], snaps[SKIP_AT]
+    moved = sorted(k for k in before if not torch.equal(before[k], after[k]))
+    kinds = {kind: sum(k.startswith(kind) for k in before)
+             for kind in ("param", "opt", "buffer")}
+    losses_by_step = {s: m["loss"] for s, m in got if "loss" in m}
+    skipped_by_step = {s: m["skipped"] for s, m in got if "skipped" in m}
+    guard_bytes = trainer._train_step.guard.nbytes
+    snaps.clear()
+
+    batch = next(device_batches(ds, RESNET_BATCH, trainer.device))
+    batch = {k: v for k, v in batch.items()}
+    timing: dict[str, list] = {"guard": [], "plain": []}
+    syncs: dict[str, list] = {"guard": [], "plain": []}
+    sites: dict[str, list] = {}
+    for guarded in (False, True, False, True):  # in turns, in this call
+        trainer._guard_nonfinite = guarded
+        trainer._build_train_step()
+        key = "guard" if guarded else "plain"
+        timing[key].append(_loop_ms(torch, trainer, batch))
+        n, where = _syncs_per_step(torch, trainer, batch)
+        syncs[key].append(n)
+        sites[key] = sorted(set(sites.get(key, [])) | set(where))
+    spark.stop()
+    rec = dict(steps=SKIP_STEPS, batch_size=RESNET_BATCH, poisoned_step=SKIP_AT,
+               skipped_steps=summary.get("skipped_steps"), k4_launches=launches,
+               logged_losses=losses_by_step, skipped_by_step=skipped_by_step,
+               held=kinds, moved_at_poisoned_step=moved[:5],
+               guard_snapshot_bytes=guard_bytes,
+               loop_ms_guard=float(np.mean(timing["guard"])),
+               loop_ms_plain=float(np.mean(timing["plain"])),
+               loop_ms_runs=timing, host_syncs_per_step=syncs, host_sync_sites=sites,
+               card=nvidia_smi_line())
+    print("recovery skip resnet-50 " + json.dumps(rec), flush=True)
+    check(summary.get("skipped_steps") == 1.0,
+          f"skipped_steps {summary.get('skipped_steps')}, want 1")
+    # the opt state: SGD's trace a param and the schedule's count
+    check(not moved and kinds["opt"] == len(trainer.state.params) + 1
+          and kinds["buffer"] == 106,
+          f"the poisoned step moved {moved[:5]} (held {kinds})")
+    check(not np.isfinite(losses_by_step[SKIP_AT])
+          and all(np.isfinite(losses_by_step[s]) for s in range(SKIP_AT + 1, SKIP_STEPS + 1)),
+          f"logged losses {losses_by_step}")
+    check(skipped_by_step == {s: float(s == SKIP_AT) for s in range(1, SKIP_STEPS + 1)},
+          f"skipped by step {skipped_by_step}")
+    check(launches == 27 * SKIP_STEPS,
+          f"K4 launched {launches} times in {SKIP_STEPS} steps, want 27 per step")
+    check(max(syncs["guard"]) <= min(syncs["plain"]),
+          f"host syncs a step with the guard {syncs['guard']}, without "
+          f"{syncs['plain']} ({sites})")
+    return rec
+
+
+def recovery_rollback_bert(torch, fa) -> dict:
+    """BERT-base MLM at b=32, S=512 under ``fit(on_nonfinite="rollback")``
+    with ``DLS_FAULT=nan@6``, checkpoints every 4 steps and eval inside fit
+    every 4: one rollback to step 4; the final params against a second run
+    restored at step 4 and fed from examples_seen = 6 batches; every logged
+    eval_* against Trainer.evaluate at the same step; save and restore ms."""
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch import metrics as metrics_mod
+    from distributeddeeplearningspark_tpu_torch import telemetry
+    from distributeddeeplearningspark_tpu_torch.checkpoint import Checkpointer
+    from distributeddeeplearningspark_tpu_torch.data import text
+    from distributeddeeplearningspark_tpu_torch.models import bert
+    from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    batch_size, seq = 32, 512
+    workdir = ROOT / "build" / "chip_smoke_rollback"
+    shutil.rmtree(workdir, ignore_errors=True)
+    spark = Session.builder.master("local[1]").appName("bert-rollback").getOrCreate()
+    docs = text.synthetic_wikipedia(512, num_partitions=1)
+    tok = text.WordPieceTokenizer.train(docs.collect(), vocab_size=8192)
+
+    def train_ds():
+        return text.mlm_dataset(docs, tok, seq_len=seq, max_predictions=80,
+                                num_workers=0).repeat()
+
+    held = text.synthetic_wikipedia(400, num_partitions=1, seed=7)
+    eval_ds = text.mlm_dataset(held, tok, seq_len=seq, max_predictions=80,
+                               num_workers=0)
+    eval_ds = PartitionedDataset.parallelize(eval_ds.take(ROLLBACK_EVAL_EXAMPLES), 1)
+    check(eval_ds.count() == ROLLBACK_EVAL_EXAMPLES,
+          f"the held-out set holds {eval_ds.count()} examples")
+
+    def make_trainer():
+        model = bert.bert_base(device="cuda", seed=0)
+        tx = optim.with_grad_clip(
+            optim.adamw(optim.warmup_linear(1e-4, 2, ROLLBACK_STEPS)), 1.0)
+        return Trainer(spark, model, losses.masked_lm, tx,
+                       checkpointer=Checkpointer(workdir / "ckpt"))
+
+    trainer = make_trainer()
+    direct: dict[int, dict] = {}
+
+    def evaluate_here(step, _metrics):
+        if step % ROLLBACK_EVERY == 0:
+            direct[step] = trainer.evaluate(eval_ds, batch_size=batch_size)
+
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    # what fit hands its MetricLogger, unrounded (the log line rounds)
+    got: list = []
+    plain_log = metrics_mod.MetricLogger.log
+    metrics_mod.MetricLogger.log = lambda self, step, m: (
+        got.append((step, dict(m))), plain_log(self, step, m))[1]
+    os.environ["DLS_FAULT"] = f"nan@{ROLLBACK_AT}"
+    os.environ[telemetry.WORKDIR_ENV] = str(workdir)
+    for k in kernels:  # the path's run starts here
+        k.launches = 0
+    try:
+        state, summary = trainer.fit(
+            train_ds(), batch_size=batch_size, steps=ROLLBACK_STEPS, log_every=1,
+            checkpoint_every=ROLLBACK_EVERY, on_nonfinite="rollback",
+            eval_dataset=eval_ds, eval_every=ROLLBACK_EVERY,
+            callbacks=[evaluate_here])
+    finally:
+        os.environ.pop("DLS_FAULT", None)
+        os.environ.pop(telemetry.WORKDIR_ENV, None)
+        telemetry.reset()
+        metrics_mod.MetricLogger.log = plain_log
+    launches = {k.__name__: k.launches for k in kernels}
+    final = {k: v.detach().float().clone() for k, v in state.params.items()}
+    records = _events(workdir)
+    rollbacks = [r for r in records if r["kind"] == "recovery"
+                 and r.get("event") == "rollback"]
+    logged_eval = {s: m for s, m in got if any(k.startswith("eval_") for k in m)}
+    data_state = json.loads((workdir / "ckpt" / str(ROLLBACK_STEPS)
+                             / "data_state.json").read_text())
+
+    # the second run: restore the rollback's step, feed from where the first
+    # run's feed was when it rolled back
+    second = make_trainer()
+    second.restore(step=ROLLBACK_EVERY)
+    telemetry.reset()
+    for k in kernels:
+        k.launches = 0
+    state2, _ = second.fit(train_ds(), batch_size=batch_size, steps=ROLLBACK_STEPS,
+                           log_every=ROLLBACK_STEPS,
+                           data_state={"examples_seen": ROLLBACK_AT * batch_size,
+                                       "batch_size": batch_size})
+    launches2 = {k.__name__: k.launches for k in kernels}
+    second_final = {k: v.detach().float() for k, v in state2.params.items()}
+    num = sum(float((second_final[k] - v).abs().sum()) for k, v in final.items())
+    den = sum(float(v.abs().sum()) for v in final.values())
+    bitwise = all(torch.equal(second_final[k], v) for k, v in final.items())
+    # the rollback's restore, then the second run's (its stream lies in the
+    # checkpoint root: no workdir was named for it)
+    restore_ms = _phase_ms(records, "restore") + _phase_ms(
+        _events(workdir / "ckpt"), "restore")
+    save_ms = _phase_ms(records, "checkpoint")
+    wait_ms = _phase_ms(records, "checkpoint-wait")
+    eval_gap = max(abs(logged_eval[s][f"eval_{k}"] - v) / max(abs(v), 1e-12)
+                   for s, m in direct.items() for k, v in m.items())
+    spark.stop()
+    rec = dict(steps=ROLLBACK_STEPS, batch_size=batch_size, seq_len=seq,
+               poisoned_step=ROLLBACK_AT, rollbacks=summary.get("rollbacks"),
+               rolled_back=[(r["step"], r["to_step"], r["window"]) for r in rollbacks],
+               examples_seen_at_end=data_state["examples_seen"],
+               final_rel_diff_vs_restored_run=num / den, final_bitwise=bitwise,
+               eval_logged=logged_eval, eval_direct=direct,
+               eval_max_rel_diff=eval_gap, launches=launches,
+               second_run_launches=launches2,
+               checkpoint_save_ms=save_ms, checkpoint_wait_ms=wait_ms,
+               restore_ms=restore_ms, card=nvidia_smi_line())
+    print("recovery rollback bert-base " + json.dumps(rec), flush=True)
+    L = 12
+    passes = ROLLBACK_AT + (ROLLBACK_STEPS - ROLLBACK_EVERY)
+    evals = 2 * (ROLLBACK_STEPS // ROLLBACK_EVERY) * (ROLLBACK_EVAL_EXAMPLES // batch_size)
+    check(summary.get("rollbacks") == 1.0
+          and [(s, t) for s, t, _ in rec["rolled_back"]] == [(ROLLBACK_AT, ROLLBACK_EVERY)],
+          f"rollbacks {summary.get('rollbacks')}: {rec['rolled_back']}")
+    check(data_state["examples_seen"] == (ROLLBACK_STEPS + ROLLBACK_AT - ROLLBACK_EVERY)
+          * batch_size, f"the last checkpoint's data_state {data_state}")
+    check(num / den <= ROLLBACK_RTOL,
+          f"final params {num / den:.3e} (relative) from the restored run's")
+    check(sorted(direct) == sorted(logged_eval) == [ROLLBACK_EVERY, ROLLBACK_STEPS]
+          and eval_gap <= EVAL_RTOL,
+          f"eval inside fit {logged_eval} against evaluate {direct}")
+    check(launches == {"flash_fwd": L * (passes + evals), "flash_bwd_dq": L * passes,
+                       "flash_bwd_dkv": L * passes},
+          f"kernel launches {launches} for {passes} steps and {evals} eval batches")
+    check(len(restore_ms) == 2, f"restore phases {restore_ms}")
+    return rec
+
+
+def recovery_supervised_lenet(torch) -> dict:
+    """The port's LeNet driver under the port's Supervisor on this card,
+    ``DLS_FAULT=crash@8``, a checkpoint every 4 steps, ``--resume``: the
+    attempts' classifications from the telemetry stream, the final params
+    against the LeNet phase's 150 straight steps, nothing of the killed
+    attempt left, and the seconds from the kill to the relaunch's first
+    step."""
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch import checkpoint as ckpt_lib
+    from distributeddeeplearningspark_tpu_torch.supervisor import Supervisor
+    from distributeddeeplearningspark_tpu_torch.utils.env import conf_to_env
+
+    workdir = ROOT / "build" / "chip_smoke_supervised"
+    shutil.rmtree(workdir, ignore_errors=True)
+    script = ROOT / PKG / "examples" / "train_mnist.py"
+    argv = [sys.executable, str(script), "--steps", str(LENET_STEPS),
+            "--batch-size", str(LENET_BATCH), "--log-every", "1",
+            "--checkpoint-dir", str(workdir / "ckpt"),
+            "--checkpoint-every", str(CRASH_EVERY), "--resume"]
+    sup = Supervisor(argv, num_processes=1, max_restarts=2, restart_backoff_s=0.1,
+                     env={"DLS_FAULT": f"crash@{CRASH_AT}",
+                          **conf_to_env({"spark.dls.deterministic": "true"})},
+                     ckpt_dir=str(workdir / "ckpt"),
+                     progress_path=str(workdir / "ckpt"), telemetry_dir=str(workdir))
+    t0 = time.time()
+    result = sup.run()
+    wall_s = time.time() - t0
+    left = _left_behind(script, set())
+    records = _events(workdir)
+    ends = [r for r in records if r["kind"] == "attempt" and r.get("edge") == "end"]
+    begins = [r for r in records if r["kind"] == "attempt" and r.get("edge") == "begin"]
+    runs = [r for r in records if r["process"] == "p0" and r["kind"] == "phase"
+            and r.get("name") == "run" and r.get("edge") == "begin"]
+    steps = [r for r in records if r["process"] == "p0" and r["kind"] == "step_metrics"]
+    killed_at = ends[0]["ts"] if ends else None
+    after = [r for r in steps if killed_at is not None and r["ts"] > killed_at]
+    relaunch = dict(
+        kill_to_first_step_s=after[0]["ts"] - killed_at if after else None,
+        kill_to_relaunch_s=begins[1]["ts"] - killed_at if len(begins) > 1 else None,
+        relaunch_to_run_s=(runs[-1]["ts"] - begins[1]["ts"]
+                           if len(begins) > 1 and runs else None),
+        run_to_first_step_s=after[0]["ts"] - runs[-1]["ts"] if after and runs else None)
+    final = torch.load(workdir / "ckpt" / str(LENET_STEPS) / ckpt_lib.STATE_FILE,
+                       map_location="cpu", weights_only=True)["params"]
+    straight = torch.load(ROOT / "build" / "chip_smoke_lenet_1" / "half" / "ckpt"
+                          / str(LENET_STEPS) / ckpt_lib.STATE_FILE,
+                          map_location="cpu", weights_only=True)["params"]
+    mismatched = [k for k in straight if not torch.equal(final[k], straight[k])]
+    rec = dict(attempts=[(a.ordinal, a.returncodes, a.classification)
+                         for a in result.attempts],
+               telemetry_classifications=[e["classification"] for e in ends],
+               first_step_after_relaunch=after[0]["step"] if after else None,
+               mismatched_vs_straight=mismatched, left_behind=left, wall_s=wall_s,
+               card=nvidia_smi_line(), **relaunch)
+    print("recovery supervised lenet " + json.dumps(rec), flush=True)
+    check(result.ok and [a.classification for a in result.attempts]
+          == ["training-crash", "clean"] and result.attempts[0].returncodes == [-9],
+          f"attempts {rec['attempts']}")
+    check(rec["telemetry_classifications"] == ["training-crash", "clean"],
+          f"the stream's attempt records: {rec['telemetry_classifications']}")
+    check(rec["first_step_after_relaunch"] == CRASH_EVERY + 1,
+          f"the relaunch's first step {rec['first_step_after_relaunch']}")
+    check(not mismatched, f"final params differ from 150 straight steps in {mismatched}")
+    check(not left, f"left behind by the supervised runs: {left}")
+    return rec
+
+
+def recovery_main(torch) -> int:
+    """``chip_smoke.py --recovery``: the kernels built, phase 11 (whose 150
+    straight steps the supervised drill is held to) and phase 14."""
+    from distributeddeeplearningspark_tpu_torch.ops import _build
+    from distributeddeeplearningspark_tpu_torch.ops import conv_bn as cb
+    from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
+
+    try:
+        _build.build_all()
+        train_lenet(torch)
+        check_recovery(torch, cb, fa)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    print(nvidia_smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def check_recovery(torch, cb, fa) -> dict:
+    """Phase 14: the skip guard on ResNet-50 (K4), the rollback and eval
+    inside fit on BERT-base (K1-K3), and the supervised crash drill."""
+    return dict(skip=recovery_skip_resnet(torch, cb),
+                rollback=recovery_rollback_bert(torch, fa),
+                supervised=recovery_supervised_lenet(torch))
+
+
 # -- chip_smoke.py --gang: the drivers at one rank per card ---------------------
 
 #: steps of the --gang runs (each logged), and of the profiled window
@@ -2454,9 +2879,9 @@ def model_rank(argv: list[str]) -> int:
     import torch
 
     from distributeddeeplearningspark_tpu_torch.examples import train_dlrm, train_resnet
-    from distributeddeeplearningspark_tpu_torch.parallel import collectives
     from distributeddeeplearningspark_tpu_torch.session import Session
     from distributeddeeplearningspark_tpu_torch.train import embed
+    from distributeddeeplearningspark_tpu_torch.utils import sanitize
 
     name, out, fault = argv[:3]
     driver = {"resnet": train_resnet, "dlrm": train_dlrm}[name]
@@ -2478,7 +2903,7 @@ def model_rank(argv: list[str]) -> int:
     compare.update({f"{n}.row_accum": s[embed.ROW_ACCUM].detach().cpu()
                     for n, s in state.embed_state.items()})
     compare.update({f"{k}.step1": v for k, v in first.items()})
-    collectives.assert_replicas_in_sync(
+    sanitize.assert_replicas_in_sync(
         {**state.params, **dict(trainer.model.named_buffers()),
          **{f"{n}.row_accum": s[embed.ROW_ACCUM] for n, s in state.embed_state.items()}},
         what="params, buffers and row accumulators")
@@ -2639,6 +3064,255 @@ def train_drivers_gang(torch, ranks: int, names=("resnet", "dlrm")) -> dict:
     return out
 
 
+# -- chip_smoke.py --gang: shrink to survive, and a planted desync ----------------
+
+#: the supervised LeNet gang that loses host 1: steps, a global batch that
+#: divides by 4 and by 3, source partitions that both rank counts divide (so
+#: the global batches stay the same across the shrink), the checkpoint
+#: interval, and the step before which host 1 dies
+SHRINK_STEPS, SHRINK_BATCH, SHRINK_PARTITIONS = 40, 96, 12
+SHRINK_EVERY, SHRINK_AT = 10, 25
+#: the drill's learning rate: the losses stay near their start (~2.3), where
+#: a relative gap measures the two runs' gradients. At the driver's 0.01
+#: they fall to 7e-4 by step 40, and there the cards' TF32 convolutions
+#: over 24 rows a rank (four ranks) against 32 (three) read 1.5e-2
+#: relative, though the first step after the shrink matched at 1.3e-5 and
+#: each later step drifted further (four H100 80GB HBM3 cards at 700 W)
+SHRINK_LR = 1e-3
+#: faults planted into the LeNet gang, as GANG_FAULTS into the drivers'
+#: runs: each must be caught
+SANITIZE_FAULTS = {
+    "desync": "after step 2 rank 1's params move by 1e-3 (a replica that stopped "
+              "being one): fit(sanitize_every=1) must raise DesyncError on every "
+              "rank at step 3, its fingerprints all-gathered over NCCL",
+}
+
+
+def desync_rank(fault: str, out: str) -> int:
+    """One rank of the planted desync (``chip_smoke.py --desync-rank FAULT
+    OUT``, run by the port's cli): LeNet under ``fit(sanitize_every=1)``
+    for 4 steps, FAULT planted after step 2; writes what it caught to
+    ``OUT/desync-<rank>.json`` (the ranks share one stdout)."""
+    import torch
+
+    from distributeddeeplearningspark_tpu_torch.data import sources
+    from distributeddeeplearningspark_tpu_torch.models.lenet import LeNet5
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+    from distributeddeeplearningspark_tpu_torch.utils import sanitize
+
+    check(fault in SANITIZE_FAULTS, f"no fault {fault!r}")
+    spark = Session.builder.appName("lenet-desync").getOrCreate()
+    ds = sources.synthetic_mnist(4096, num_partitions=spark.default_parallelism).repeat()
+    trainer = Trainer(spark, LeNet5(device=spark.device), losses.softmax_xent,
+                      optim.sgd(0.01, momentum=0.9))
+
+    def plant(step, _metrics):
+        if step == 2 and spark.rank == 1:
+            with torch.no_grad():
+                next(iter(trainer.state.params.values())).add_(1e-3)
+
+    caught = None
+    try:
+        trainer.fit(ds, batch_size=LENET_BATCH, steps=4, log_every=1,
+                    sanitize_every=1, callbacks=[plant])
+    except sanitize.DesyncError as e:
+        caught = dict(step=trainer.state.step, error=str(e)[:200])
+    Path(out, f"desync-{spark.rank}.json").write_text(json.dumps(dict(
+        rank=spark.rank, backend=spark.backend, world_size=spark.world_size,
+        caught=caught)))
+    spark.stop()
+    return 0 if caught is not None and caught["step"] == 3 else 1
+
+
+def gang_desync(torch, ranks: int) -> dict:
+    """Each of SANITIZE_FAULTS planted into a LeNet gang at ``local[ranks]``:
+    every rank must report the DesyncError at step 3."""
+    import shutil
+
+    out = {"card": nvidia_smi_line()}
+    for fault in SANITIZE_FAULTS:
+        workdir = ROOT / "build" / f"chip_smoke_desync_{fault}"
+        shutil.rmtree(workdir, ignore_errors=True)
+        _, timing = _launch(workdir, ranks, Path(__file__).resolve(),
+                            ["--desync-rank", fault, str(workdir)])
+        found = [json.loads(p.read_text()) for p in sorted(workdir.glob("desync-*.json"))]
+        out[fault] = dict(ranks=found, launch=timing)
+        check(len(found) == ranks and all(r["caught"] and r["caught"]["step"] == 3
+                                          for r in found),
+              f"planted {fault}: {found}")
+    print("gang desync " + json.dumps(out), flush=True)
+    return out
+
+
+def gang_shrink(torch, ranks: int) -> dict:
+    """The port's LeNet driver at ``ranks`` processes under the port's
+    Supervisor with ``shrink_after=1`` and ``DLS_FAULT=die_host@25`` (host
+    1): the gang relaunches at ``ranks - 1`` from the last checkpoint and
+    records ``geometry_change``; its losses after the shrink against an
+    uninterrupted run at ``ranks``, at GANG_LOSS_RTOL."""
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch.supervisor import Supervisor
+    from distributeddeeplearningspark_tpu_torch.utils.env import conf_to_env
+
+    script = ROOT / PKG / "examples" / "train_mnist.py"
+    runs = {}
+    for name, env, kw in (("straight", {}, {}),
+                          ("shrunk", {"DLS_FAULT": f"die_host@{SHRINK_AT}"},
+                           {"shrink_after": 1})):
+        wd = ROOT / "build" / f"chip_smoke_shrink_{name}"
+        shutil.rmtree(wd, ignore_errors=True)
+        argv = [sys.executable, str(script), "--steps", str(SHRINK_STEPS),
+                "--batch-size", str(SHRINK_BATCH),
+                "--source-partitions", str(SHRINK_PARTITIONS), "--log-every", "1",
+                "--lr", str(SHRINK_LR),
+                "--checkpoint-dir", str(wd / "ckpt"),
+                "--checkpoint-every", str(SHRINK_EVERY), "--resume"]
+        t0 = time.time()
+        result = Supervisor(argv, num_processes=ranks, max_restarts=2,
+                            restart_backoff_s=0.1, env={**env, **conf_to_env(
+                                {"spark.dls.deterministic": "true"})},
+                            ckpt_dir=str(wd / "ckpt"), progress_path=str(wd / "ckpt"),
+                            telemetry_dir=str(wd), **kw).run()
+        records = _events(wd)
+        begins = [r["ts"] for r in records if r["kind"] == "attempt"
+                  and r.get("edge") == "begin"]
+        last = [r for r in records if r["process"] == "p0"
+                and r["kind"] == "step_metrics" and r["ts"] > begins[-1]]
+        runs[name] = dict(
+            attempts=[(a.ordinal, a.num_processes, a.returncodes, a.classification,
+                       a.dead_host) for a in result.attempts],
+            ok=result.ok, wall_s=time.time() - t0,
+            losses={r["step"]: r["metrics"]["loss"] for r in last},
+            geometry=[{k: r.get(k) for k in ("step", "dead_host", "from_processes",
+                                             "to_processes", "hosts")}
+                      for r in records if r["kind"] == "recovery"
+                      and r.get("event") == "geometry_change"],
+            left=_left_behind(script, set()))
+    straight, shrunk = runs["straight"], runs["shrunk"]
+    resumed = sorted(shrunk["losses"])
+    pairs = [(shrunk["losses"][s], straight["losses"].get(s, float("nan")))
+             for s in resumed]
+    gap = max((abs(a - b) / abs(b) for a, b in pairs), default=None)
+    rec = dict(ranks=ranks, runs=runs, resumed_steps=[resumed[0], resumed[-1]]
+               if resumed else None, loss_gap=gap,
+               first_step_gap=abs(pairs[0][0] - pairs[0][1]) / abs(pairs[0][1])
+               if pairs else None, card=nvidia_smi_line())
+    print("gang shrink " + json.dumps(rec), flush=True)
+    check(straight["ok"] and len(straight["attempts"]) == 1,
+          f"the uninterrupted run: {straight['attempts']}")
+    check(shrunk["ok"] and [(a[1], a[3], a[4]) for a in shrunk["attempts"]]
+          == [(ranks, "training-crash", 1), (ranks - 1, "clean", None)],
+          f"the shrink drill's attempts: {shrunk['attempts']}")
+    last_ckpt = (SHRINK_AT - 1) // SHRINK_EVERY * SHRINK_EVERY
+    check(shrunk["geometry"] == [dict(step=last_ckpt, dead_host=1,
+                                      from_processes=ranks, to_processes=ranks - 1,
+                                      hosts=[h for h in range(ranks) if h != 1])],
+          f"geometry_change records: {shrunk['geometry']}")
+    check(resumed == list(range(last_ckpt + 1, SHRINK_STEPS + 1)),
+          f"the shrunk gang logged steps {resumed}")
+    check(bool(pairs) and bool(np.isfinite(pairs).all()),
+          f"losses after the shrink against the uninterrupted run's: {pairs}")
+    check(gap is not None and gap <= GANG_LOSS_RTOL,
+          f"losses after the shrink are {gap} from the uninterrupted run's")
+    check(not straight["left"] and not shrunk["left"],
+          f"left behind: {straight['left']} {shrunk['left']}")
+    return rec
+
+
+# -- chip_smoke.py --loop-ab: the unguarded loops of two trees ------------------
+
+#: timed laps of each model in a tree's run (one warm lap before them), and
+#: steps a lap
+LOOP_AB_LAPS, LOOP_AB_STEPS = 5, {"lenet": 100, "dlrm": 10}
+
+
+def loop_ms_tree(tree: str) -> int:
+    """One tree's run of --loop-ab (``chip_smoke.py --loop-ms TREE``, with
+    TREE's package first on the path): LeNet-5 (b=64, SGD with momentum,
+    as examples/train_mnist.py) and the config-4 DLRM (b=8,192, AdamW and
+    the sparse table through K5, as phase 10), each unguarded, the train
+    loop's ms a step with its input ready (:func:`_loop_ms`) in laps; prints
+    one ``loop ms {json}`` line with the kind of the optimizer's counts."""
+    import torch
+
+    import distributeddeeplearningspark_tpu_torch as pkg
+    from distributeddeeplearningspark_tpu_torch.data import sources
+    from distributeddeeplearningspark_tpu_torch.data.feed import device_batches
+    from distributeddeeplearningspark_tpu_torch.models import dlrm
+    from distributeddeeplearningspark_tpu_torch.models.lenet import LeNet5
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    check(Path(pkg.__file__).resolve().parent.parent == Path(tree).resolve(),
+          f"{PKG} imported from {pkg.__file__}, not from {tree}")
+    spark = Session.builder.master("local[1]").appName("loop-ab").getOrCreate()
+    def lenet():
+        return (Trainer(spark, LeNet5(device=spark.device), losses.softmax_xent,
+                        optim.sgd(0.01, momentum=0.9)),
+                sources.synthetic_mnist(4096, num_partitions=1).repeat(), LENET_BATCH)
+
+    def dlrm_run():
+        model = dlrm.dlrm(DLRM_VOCABS, device="cuda", seed=0)
+        return (Trainer(spark, model, losses.binary_xent,
+                        optim.adamw(1e-3, weight_decay=0.0),
+                        sparse_embed=dlrm.sparse_embed_specs(model, lr=1e-2)),
+                sources.synthetic_criteo(2 * DLRM_BATCH, vocab_sizes=DLRM_VOCABS,
+                                         num_partitions=1).repeat(), DLRM_BATCH)
+
+    out = {"tree": tree, "card": nvidia_smi_line()}
+    for name, make in (("lenet", lenet), ("dlrm", dlrm_run)):
+        trainer, ds, batch_size = make()
+        trainer.fit(ds, batch_size=batch_size, steps=2, log_every=2)
+        batch = next(device_batches(ds, batch_size, trainer.device))
+        laps = [_loop_ms(torch, trainer, batch, LOOP_AB_STEPS[name])
+                for _ in range(LOOP_AB_LAPS + 1)][1:]
+        counts = sorted({type(x).__name__ for x in
+                         _tensors_and_ints(torch, trainer.state.opt_state)
+                         if not isinstance(x, torch.Tensor) or x.dim() == 0})
+        out[name] = dict(laps_ms=laps, counts=counts)
+        del trainer
+        torch.cuda.empty_cache()
+    spark.stop()
+    print("loop ms " + json.dumps(out), flush=True)
+    return 0
+
+
+def _tensors_and_ints(torch, tree) -> list:
+    """The tensor and int leaves of a tree of tuples and lists."""
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tensors_and_ints(torch, v)]
+    return [tree] if isinstance(tree, (torch.Tensor, int)) else []
+
+
+def loop_ab_main(trees: list[str]) -> int:
+    """``chip_smoke.py --loop-ab TREE [TREE ...]``: :func:`loop_ms_tree` in a
+    process of its own for each TREE (a checkout's root) in the order given
+    (for two trees: A, B, B, A), on one card; prints one ``loop ab {json}``
+    line: each run's laps and each model's mean over every lap of a tree."""
+    runs = []
+    for tree in trees:
+        root = Path(tree).resolve()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--loop-ms", str(root)], cwd=root, text=True,
+                              capture_output=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("loop ms ")]
+        if proc.returncode != 0 or not lines:
+            print(f"chip_smoke: FAIL: --loop-ms {tree} exited {proc.returncode}: "
+                  f"{proc.stderr[-2000:]}", file=sys.stderr)
+            return 1
+        runs.append(json.loads(lines[-1][len("loop ms "):]))
+    means = {tree: {m: float(np.mean([lap for r in runs if r["tree"] == str(Path(tree).resolve())
+                                      for lap in r[m]["laps_ms"]]))
+                    for m in LOOP_AB_STEPS} for tree in dict.fromkeys(trees)}
+    print("loop ab " + json.dumps(dict(runs=runs, mean_ms=means,
+                                       card=nvidia_smi_line())), flush=True)
+    return 0
+
+
 # -- chip_smoke.py --input-ab: the prefetch thread against the loop's thread ----
 
 #: steps of each timed fit of the A/B, and its laps (the first is left out)
@@ -2757,23 +3431,28 @@ def input_ab_main(torch) -> int:
 
 
 def gang_main(torch, names: list[str]) -> int:
-    """``chip_smoke.py --gang [resnet|dlrm ...]``: at one rank per visible
-    card (2 or more), NCCL between them, the LeNet phase, then the ResNet-50
-    and DLRM drivers (:func:`train_drivers_gang`); with names, only those
-    drivers' comparisons."""
+    """``chip_smoke.py --gang [resnet|dlrm|recovery ...]``: at one rank per
+    visible card (2 or more), NCCL between them, the LeNet phase, the
+    supervised shrink and the planted desync, then the ResNet-50 and DLRM
+    drivers (:func:`train_drivers_gang`); with names, only those parts."""
     ranks = torch.cuda.device_count()
     if ranks < 2:
         print(f"chip_smoke --gang: {ranks} card(s); it needs 2 or more",
               file=sys.stderr)
         return 2
-    if not set(names) <= set(GANG_FAULTS):
-        print(f"chip_smoke --gang: no driver {names}; choose from "
-              f"{sorted(GANG_FAULTS)}", file=sys.stderr)
+    if not set(names) <= set(GANG_FAULTS) | {"recovery"}:
+        print(f"chip_smoke --gang: no part {names}; choose from "
+              f"{sorted(GANG_FAULTS) + ['recovery']}", file=sys.stderr)
         return 2
     try:
         if not names:
             train_lenet(torch, ranks)
-        train_drivers_gang(torch, ranks, tuple(names) or tuple(GANG_FAULTS))
+        if not names or "recovery" in names:
+            gang_shrink(torch, ranks)
+            gang_desync(torch, ranks)
+        drivers = tuple(n for n in names if n in GANG_FAULTS)
+        if drivers or not names:
+            train_drivers_gang(torch, ranks, drivers or tuple(GANG_FAULTS))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2920,11 +3599,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--loop-ms"]:  # another tree's package, on its own
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        return loop_ms_tree(sys.argv[2])
+    if sys.argv[1:2] == ["--loop-ab"]:
+        return loop_ab_main(sys.argv[2:])
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:] == ["--lenet-rank"]:
         return lenet_rank()
     if sys.argv[1:2] == ["--model-rank"]:
         return model_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--desync-rank"]:
+        return desync_rank(*sys.argv[2:4])
     if sys.argv[1:2] == ["--bn-half-rank"]:
         rank, port, out = sys.argv[2:5]
         return bn_half_rank(int(rank), int(port), out)
@@ -2941,6 +3627,8 @@ def main() -> int:
         return gang_main(torch, sys.argv[2:])
     if sys.argv[1:] == ["--input-ab"]:
         return input_ab_main(torch)
+    if sys.argv[1:] == ["--recovery"]:
+        return recovery_main(torch)
     from distributeddeeplearningspark_tpu_torch.models import bert
     from distributeddeeplearningspark_tpu_torch.ops import _build
     from distributeddeeplearningspark_tpu_torch.ops import attention
@@ -2980,20 +3668,23 @@ def main() -> int:
         train_lenet(torch)
         drivers = train_drivers(torch)
         check_bn_halves(torch)
+        recovery = check_recovery(torch, cb, fa)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
     src = "distributeddeeplearningspark_tpu/ops/flash_attention.py"
+    rollback = recovery["rollback"]
     fwd = k1[0]  # the shape the served batches of 32 give the kernel
     bwd = k23[0]  # the training shape: b=32, S=512, every key allowed
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": f"{PKG}/csrc/flash_fwd.cu", "replaces": f"{src}:131",
-        # the served batches', BERT's and Llama's (in process and through
-        # the driver) runs, each counted from 0
+        # the served batches', BERT's, Llama's (in process and through the
+        # driver) and the rollback drill's two runs, each counted from 0
         "launches": serve["flash_fwd_launches"] + train["launches"]["flash_fwd"]
-        + llama["launches"]["flash_fwd"] + llama["driver"]["flash_launches"]["flash_fwd"],
+        + llama["launches"]["flash_fwd"] + llama["driver"]["flash_launches"]["flash_fwd"]
+        + rollback["launches"]["flash_fwd"] + rollback["second_run_launches"]["flash_fwd"],
         "max_abs_err": max(c["max_abs_err"] for c in k1),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -3005,7 +3696,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"{PKG}/csrc/flash_bwd.cu", "replaces": f"{src}:{line}",
             "launches": train["launches"][name] + llama["launches"][name]
-            + llama["driver"]["flash_launches"][name],
+            + llama["driver"]["flash_launches"][name] + rollback["launches"][name]
+            + rollback["second_run_launches"][name],
             "max_abs_err": max(c[g] for c in k23 for g in grads),
             "ms": bwd[f"{key}_ms"], "plain_ms": bwd["plain_ms"],
             "bound_ms": bwd[f"{key}_bound_ms"], "bound_by": bwd[f"{key}_bound_by"],
@@ -3024,8 +3716,10 @@ def main() -> int:
         "name": "conv_bn_stats", "route": "cuda",
         "source": f"{PKG}/csrc/conv_bn.cu",
         "replaces": "distributeddeeplearningspark_tpu/ops/conv_bn.py:62",
-        # the in-process phase's and the driver's runs, each counted from 0
-        "launches": resnet["k4_launches"] + drivers["resnet"]["k4_launches"],
+        # the in-process phase's, the driver's and the skip drill's runs,
+        # each counted from 0
+        "launches": resnet["k4_launches"] + drivers["resnet"]["k4_launches"]
+        + recovery["skip"]["k4_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in k4),
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),

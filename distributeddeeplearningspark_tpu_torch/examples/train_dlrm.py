@@ -24,6 +24,21 @@ Then the held-out AUC (config 4's metric): ``predict(output_fn=sigmoid,
 with_inputs=True)`` on ``synthetic_criteo(seed=777)`` (or ``--eval-data``),
 each rank over its rows, the histograms summed over ranks.
 
+Under the port's supervisor (relaunch from the newest checkpoint when a
+rank dies)::
+
+    python -m distributeddeeplearningspark_tpu_torch.supervisor -n 2 \\
+        --ckpt-dir WD --progress-path WD -- python \\
+        distributeddeeplearningspark_tpu_torch/examples/train_dlrm.py \\
+        --steps 3 --batch-size 64 --vocab-size 100 --checkpoint-dir WD --resume
+
+(``--resume`` restores the newest verified step; a restore that raises
+exits with the supervisor's ``RESTORE_FAILED_EXIT``).
+
+``--checkpoint-dir``, ``--checkpoint-every`` and ``--resume`` are the
+port's (the JAX driver has none): the step's state, the table and its row
+accumulators included.
+
 Flags of the JAX driver that the port cannot honour yet fail at parse
 time, each naming its ROADMAP item. Rank 0 prints one JSON line: the train
 summary, the AUC, where the run went (world size, backend, device), K5's
@@ -36,12 +51,16 @@ import logging
 
 import torch
 
-from distributeddeeplearningspark_tpu_torch import Session, Trainer
+from distributeddeeplearningspark_tpu_torch import Checkpointer, Session, Trainer, faults
 from distributeddeeplearningspark_tpu_torch.data.sources import (
     criteo_tsv,
     synthetic_criteo,
 )
-from distributeddeeplearningspark_tpu_torch.examples import add_not_ported
+from distributeddeeplearningspark_tpu_torch.examples import (
+    add_checkpoint_flags,
+    add_not_ported,
+    resume,
+)
 from distributeddeeplearningspark_tpu_torch.metrics import auc_from_predictions
 from distributeddeeplearningspark_tpu_torch.models.dlrm import (
     DLRM,
@@ -49,8 +68,8 @@ from distributeddeeplearningspark_tpu_torch.models.dlrm import (
     sparse_embed_specs,
 )
 from distributeddeeplearningspark_tpu_torch.ops import scatter_rows
-from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.train import embed, losses, optim
+from distributeddeeplearningspark_tpu_torch.utils import sanitize
 
 NOT_PORTED = {
     "--dense-tables": "the dense-table step: ROADMAP Queue 1 item 4",
@@ -86,6 +105,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="partitions of the synthetic source (a multiple of "
                         "the ranks); the global batches are the same at any "
                         "rank count that divides it. Default: the ranks")
+    add_checkpoint_flags(p)
     add_not_ported(p, NOT_PORTED)
     return p
 
@@ -121,11 +141,13 @@ def make_dataset(args: argparse.Namespace, spark: Session):
                             or spark.default_parallelism).repeat()
 
 
-def make_trainer(args: argparse.Namespace, spark: Session) -> Trainer:
+def make_trainer(args: argparse.Namespace, spark: Session,
+                 checkpointer: Checkpointer | None = None) -> Trainer:
     model = make_model(args, spark.device)
     return Trainer(spark, model, losses.binary_xent,
                    optim.adamw(args.lr, weight_decay=0.0),
-                   sparse_embed=sparse_embed_specs(model, lr=args.lr))
+                   sparse_embed=sparse_embed_specs(model, lr=args.lr),
+                   checkpointer=checkpointer)
 
 
 def held_out_auc(args: argparse.Namespace, spark: Session, trainer: Trainer,
@@ -149,21 +171,27 @@ def held_out_auc(args: argparse.Namespace, spark: Session, trainer: Trainer,
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+    faults.die_if_dead_host_on_relaunch()
     builder = Session.builder.appName("dlrm-criteo")
     if args.master:
         builder = builder.master(args.master)
     spark = builder.getOrCreate()
     print(spark, flush=True)
 
-    trainer = make_trainer(args, spark)
+    ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
+    trainer = make_trainer(args, spark, ckpt)
+    data_state, restored_step = resume(trainer, ckpt, args.resume)
+    start = trainer.state.step if trainer.state is not None else 0
     k5 = scatter_rows.scatter_add_rows.launches
     gathered = embed.make_sparse_embed_train_step.gather_bytes
     state, summary = trainer.fit(make_dataset(args, spark), batch_size=args.batch_size,
-                                 steps=args.steps, log_every=args.log_every)
-    steps = max(state.step, 1)
+                                 steps=args.steps, log_every=args.log_every,
+                                 checkpoint_every=args.checkpoint_every if ckpt else None,
+                                 data_state=data_state)
+    steps = max(state.step - start, 1)
     k5 = scatter_rows.scatter_add_rows.launches - k5
     gathered = embed.make_sparse_embed_train_step.gather_bytes - gathered
-    collectives.assert_replicas_in_sync(
+    sanitize.assert_replicas_in_sync(
         {**state.params, **{f"{n}.row_accum": s[embed.ROW_ACCUM]
                             for n, s in state.embed_state.items()}},
         what="params and row accumulators")
@@ -171,12 +199,15 @@ def main(argv: list[str] | None = None) -> None:
     if spark.rank == 0:
         print(json.dumps({
             "train": summary, "eval_auc": auc, "step": state.step,
+            "restored_step": restored_step,
             "model": args.model, "world_size": spark.world_size,
             "backend": spark.backend, "device": str(spark.device),
             "k5_launches": k5, "k5_launches_per_step": k5 / steps,
             "merge_bytes_per_step": gathered / steps,
             "replicas_checked": spark.world_size > 1,
         }), flush=True)
+    if ckpt:
+        ckpt.close()
     spark.stop()
 
 

@@ -20,6 +20,20 @@ the attention runs on the flash kernels (K1 forward and in the remat
 recompute, K2/K3 backward). At ``local[N]`` each rank holds a whole
 replica and the adapters' gradients are all-reduced.
 
+Under the port's supervisor (relaunch from the newest checkpoint when a
+rank dies)::
+
+    python -m distributeddeeplearningspark_tpu_torch.supervisor -n 1 \\
+        --ckpt-dir WD --progress-path WD -- python \\
+        distributeddeeplearningspark_tpu_torch/examples/train_llama_lora.py \\
+        --variant 7b --seq-len 1024 --batch-size 8 --lora-rank 16 \\
+        --checkpoint-dir WD --resume
+
+``--checkpoint-dir``, ``--checkpoint-every`` and ``--resume`` are the
+port's (the JAX driver has none); a restore that raises exits with the
+supervisor's ``RESTORE_FAILED_EXIT``. A checkpoint holds the whole state,
+the frozen base included.
+
 The JAX driver's sharding, sequence and pipeline parallelism, MoE, int8
 base, fused head, sampling and the import of real weights (which needs
 their tokenizer) are not ported yet: those flags fail at parse time, each
@@ -34,9 +48,13 @@ import logging
 
 import torch
 
-from distributeddeeplearningspark_tpu_torch import Session, Trainer
+from distributeddeeplearningspark_tpu_torch import Checkpointer, Session, Trainer, faults
 from distributeddeeplearningspark_tpu_torch.data import text as text_lib
-from distributeddeeplearningspark_tpu_torch.examples import add_not_ported
+from distributeddeeplearningspark_tpu_torch.examples import (
+    add_checkpoint_flags,
+    add_not_ported,
+    resume,
+)
 from distributeddeeplearningspark_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -95,6 +113,7 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--" + axis.replace("_", "-"), type=int, default=default,
                        help=f"only 1 (-1 for --fsdp: no sharding) is ported: "
                             f"{MESH_AXES[axis]}")
+    add_checkpoint_flags(p)
     add_not_ported(p, NOT_PORTED)
     return p
 
@@ -123,6 +142,7 @@ def make_config(args: argparse.Namespace, vocab_size: int) -> LlamaConfig:
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+    faults.die_if_dead_host_on_relaunch()
     builder = Session.builder.appName("llama-lora")
     if args.master:
         builder = builder.master(args.master)
@@ -150,19 +170,25 @@ def main(argv: list[str] | None = None) -> None:
                 args.lr, min(10, max(args.steps // 10, 1)), args.steps)),
             1.0),
         lora_trainable)
+    ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
     trainer = Trainer(spark, model, losses.causal_lm, tx,
-                      accum_steps=args.accum_steps, trainable=lora_trainable)
+                      accum_steps=args.accum_steps, trainable=lora_trainable,
+                      checkpointer=ckpt)
+    data_state, restored_step = resume(trainer, ckpt, args.resume)
     kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     before = [k.launches for k in kernels]
     if spark.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(spark.device)
     state, summary = trainer.fit(ds, batch_size=args.batch_size, steps=args.steps,
                                  tokens_per_example=args.seq_len,
-                                 log_every=args.log_every)
+                                 log_every=args.log_every,
+                                 checkpoint_every=args.checkpoint_every if ckpt else None,
+                                 data_state=data_state)
     launches = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
     if spark.rank == 0:
         print(json.dumps({
-            "train": summary, "step": state.step, "variant": args.variant,
+            "train": summary, "step": state.step, "restored_step": restored_step,
+            "variant": args.variant,
             "world_size": spark.world_size, "backend": spark.backend,
             "device": str(spark.device), "flash_launches": launches,
             "trainable_params": sum(p.numel() for n, p in state.params.items()
@@ -170,6 +196,8 @@ def main(argv: list[str] | None = None) -> None:
             "max_memory_allocated": (torch.cuda.max_memory_allocated(spark.device)
                                      if spark.device.type == "cuda" else None),
         }), flush=True)
+    if ckpt:
+        ckpt.close()
     spark.stop()
 
 

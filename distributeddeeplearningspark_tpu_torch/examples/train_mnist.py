@@ -8,22 +8,36 @@ through the port's cli::
         --conf spark.dls.device=cpu \\
         distributeddeeplearningspark_tpu_torch/examples/train_mnist.py --steps 150
 
-(on the card, drop the ``spark.dls.device`` conf: rank r takes ``cuda:r``).
+(on the card, drop the ``spark.dls.device`` conf: rank r takes ``cuda:r``),
+or under the port's supervisor, which relaunches the gang from its newest
+checkpoint when a rank dies::
+
+    python -m distributeddeeplearningspark_tpu_torch.supervisor -n 2 \\
+        --ckpt-dir WD --progress-path WD [--conf spark.dls.device=cpu] -- \\
+        python distributeddeeplearningspark_tpu_torch/examples/train_mnist.py \\
+        --steps 150 --checkpoint-dir WD --checkpoint-every 25 --resume
+
 Run alone, ``python -m distributeddeeplearningspark_tpu_torch.examples.
 train_mnist`` trains on one device. SGD with momentum 0.9 on
-``softmax_xent``; synthetic MNIST unless ``--data-dir`` names IDX files;
-``--checkpoint-dir`` saves every ``--checkpoint-every`` steps and
-``--resume`` continues from the newest step that verifies. Rank 0 prints
-one JSON line: the train summary, the test metrics, and where the run
-went (backend, device, world size, the step's all-reduces).
+``softmax_xent``; synthetic MNIST unless ``--data-dir`` names IDX files
+(in ``--source-partitions`` partitions, by default one a rank: a count
+that several rank counts divide keeps the global batches the same across
+an elastic shrink); ``--checkpoint-dir`` saves every
+``--checkpoint-every`` steps and ``--resume`` continues from the newest
+step that verifies (a restore that raises exits with the supervisor's
+``RESTORE_FAILED_EXIT``); ``--on-nonfinite`` is ``Trainer.fit``'s
+divergence policy. Rank 0 prints one JSON line: the train summary, the
+test metrics, and where the run went (backend, device, world size, the
+step's all-reduces).
 """
 
 import argparse
 import json
 import logging
 
-from distributeddeeplearningspark_tpu_torch import Checkpointer, LeNet5, Session, Trainer
+from distributeddeeplearningspark_tpu_torch import Checkpointer, LeNet5, Session, Trainer, faults
 from distributeddeeplearningspark_tpu_torch.data.sources import load_mnist_idx, synthetic_mnist
+from distributeddeeplearningspark_tpu_torch.examples import add_checkpoint_flags, resume
 from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.train import losses, optim
 
@@ -37,21 +51,24 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("--data-dir", default=None,
                    help="dir with MNIST IDX files; synthetic if unset")
-    p.add_argument("--checkpoint-dir", default=None,
-                   help="enable checkpointing to this dir")
-    p.add_argument("--checkpoint-every", type=int, default=25)
-    p.add_argument("--resume", action="store_true",
-                   help="resume from the newest verified checkpoint")
+    p.add_argument("--source-partitions", type=int, default=None,
+                   help="partitions of the data (default: one a rank)")
+    p.add_argument("--log-every", type=int, default=25)
+    p.add_argument("--on-nonfinite", default="raise",
+                   choices=["raise", "skip", "rollback"],
+                   help="divergence recovery policy (see Trainer.fit)")
+    add_checkpoint_flags(p)
     args = p.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+    faults.die_if_dead_host_on_relaunch()
     builder = Session.builder.appName("mnist-lenet5")
     if args.master:
         builder = builder.master(args.master)
     spark = builder.getOrCreate()
     print(spark, flush=True)
 
-    n = spark.default_parallelism
+    n = args.source_partitions or spark.default_parallelism
     if args.data_dir:
         train_ds = load_mnist_idx(args.data_dir, "train", num_partitions=n)
         test_ds = load_mnist_idx(args.data_dir, "test", num_partitions=n)
@@ -62,16 +79,12 @@ def main(argv: list[str] | None = None) -> None:
     ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
     trainer = Trainer(spark, LeNet5(device=spark.device), losses.softmax_xent,
                       optim.sgd(args.lr, momentum=0.9), checkpointer=ckpt)
-    data_state = None
-    restored_step = None
-    if args.resume and ckpt and ckpt.latest_step() is not None:
-        state, data_state = trainer.restore()
-        restored_step = state.step
+    data_state, restored_step = resume(trainer, ckpt, args.resume)
     calls = collectives.all_reduce_grads.calls
     state, summary = trainer.fit(
         train_ds.repeat(), batch_size=args.batch_size, steps=args.steps,
-        log_every=25, checkpoint_every=args.checkpoint_every if ckpt else None,
-        data_state=data_state)
+        log_every=args.log_every, checkpoint_every=args.checkpoint_every if ckpt else None,
+        data_state=data_state, on_nonfinite=args.on_nonfinite)
     allreduces = collectives.all_reduce_grads.calls - calls
     metrics = trainer.evaluate(test_ds, batch_size=args.batch_size)
     if spark.rank == 0:

@@ -34,6 +34,17 @@ holds the two drivers' losses together there):
 - the bottleneck variants fuse their 1×1 conv→BN pairs on kernel K4
   (``fused_conv_bn=True``); the JAX driver builds its model unfused.
 
+Under the port's supervisor (relaunch from the newest checkpoint when a
+rank dies)::
+
+    python -m distributeddeeplearningspark_tpu_torch.supervisor -n 2 \\
+        --ckpt-dir WD --progress-path WD -- python \\
+        distributeddeeplearningspark_tpu_torch/examples/train_resnet.py \\
+        --steps 3 --batch-size 8 --image-size 32 --num-classes 10 --checkpoint-dir WD --resume
+
+(``--resume`` restores the newest verified step; a restore that raises
+exits with the supervisor's ``RESTORE_FAILED_EXIT``).
+
 Flags of the JAX driver that the port cannot honour yet fail at parse
 time, each naming its ROADMAP item. Rank 0 prints one JSON line: the train
 summary, where the run went (world size, backend, device), K4's launches
@@ -46,15 +57,20 @@ import logging
 
 import torch
 
-from distributeddeeplearningspark_tpu_torch import Checkpointer, Session, Trainer
+from distributeddeeplearningspark_tpu_torch import Checkpointer, Session, Trainer, faults
 from distributeddeeplearningspark_tpu_torch.data import vision
 from distributeddeeplearningspark_tpu_torch.data.sources import synthetic_images
 from distributeddeeplearningspark_tpu_torch.data.workers import resolve_num_workers
-from distributeddeeplearningspark_tpu_torch.examples import add_not_ported
+from distributeddeeplearningspark_tpu_torch.examples import (
+    add_checkpoint_flags,
+    add_not_ported,
+    resume,
+)
 from distributeddeeplearningspark_tpu_torch.models import resnet
 from distributeddeeplearningspark_tpu_torch.ops import conv_bn
 from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.train import losses, optim
+from distributeddeeplearningspark_tpu_torch.utils import sanitize
 
 RESNETS = {
     "resnet18": resnet.ResNet18, "resnet34": resnet.ResNet34,
@@ -99,11 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="partitions of the synthetic source (a multiple of "
                         "the ranks); the global batches are the same at any "
                         "rank count that divides it. Default: the ranks × max(1, workers)")
-    p.add_argument("--checkpoint-dir", default=None,
-                   help="enable checkpointing to this dir")
-    p.add_argument("--checkpoint-every", type=int, default=25)
-    p.add_argument("--resume", action="store_true",
-                   help="resume from the newest verified checkpoint")
+    add_checkpoint_flags(p)
     add_not_ported(p, NOT_PORTED)
     return p
 
@@ -146,6 +158,7 @@ def make_trainer(args: argparse.Namespace, spark: Session,
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+    faults.die_if_dead_host_on_relaunch()
     builder = Session.builder.appName("resnet-imagenet")
     if args.master:
         builder = builder.master(args.master)
@@ -154,10 +167,7 @@ def main(argv: list[str] | None = None) -> None:
 
     ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
     trainer = make_trainer(args, spark, ckpt)
-    data_state = restored_step = None
-    if args.resume and ckpt and ckpt.latest_step() is not None:
-        state, data_state = trainer.restore()
-        restored_step = state.step
+    data_state, restored_step = resume(trainer, ckpt, args.resume)
     start = trainer.state.step if trainer.state is not None else 0
     k4, bn = conv_bn.matmul_stats.launches, collectives.all_reduce_sum.calls
     state, summary = trainer.fit(
@@ -169,7 +179,7 @@ def main(argv: list[str] | None = None) -> None:
     k4 = conv_bn.matmul_stats.launches - k4
     bn = collectives.all_reduce_sum.calls - bn
     model = trainer.model
-    collectives.assert_replicas_in_sync(
+    sanitize.assert_replicas_in_sync(
         {**dict(model.named_parameters()), **dict(model.named_buffers())},
         what="params and BatchNorm buffers")
     if spark.rank == 0:

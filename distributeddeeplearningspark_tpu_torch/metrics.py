@@ -4,8 +4,10 @@ The port's copy of ``Meter``, ``MetricLogger``, ``StreamingAUC``,
 ``auc_from_predictions``, ``attention_matmul_flops`` and
 ``llama_model_flops_per_token`` from ``distributeddeeplearningspark_tpu/
 metrics.py``, without the JAX device queries: the chip count is the
-caller's (the Session's device count), and measured FLOPs, MFU,
-TensorBoard and recovery events are not ported yet.
+caller's (the Session's device count). ``MetricLogger.event`` writes a
+recovery event's WARNING line and ``recovery`` telemetry record; its
+TensorBoard scalar, measured FLOPs and MFU are not ported yet (ROADMAP
+Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -98,12 +100,31 @@ def _log_value(v: Any):
 
 
 class MetricLogger:
-    """One structured log line per call, ``step N: {json}``."""
+    """One structured log line per call, ``step N: {json}``; recovery
+    events as their own WARNING lines, mirrored into ``telemetry`` (an
+    :class:`~.telemetry.EventWriter`) when given."""
+
+    def __init__(self, *, telemetry=None):
+        self._telemetry = telemetry
 
     def log(self, step: int, metrics: dict[str, float]) -> None:
         """Emit unconditionally — cadence is the caller's decision."""
         logger.info("step %d: %s", step,
                     json.dumps({k: _log_value(v) for k, v in metrics.items()}))
+
+    def event(self, step: int, kind: str, **fields) -> None:
+        """Surface a recovery event (a divergence skip, a rollback) on rank
+        0 as a WARNING line of its own — the line an operator greps for
+        after an incident — and as a ``recovery`` telemetry record, so the
+        audit trail survives the process."""
+        from distributeddeeplearningspark_tpu_torch.parallel import collectives
+
+        if collectives.rank() != 0:
+            return
+        logger.warning("recovery event at step %d: %s %s", step, kind,
+                       json.dumps(fields, default=str))
+        if self._telemetry is not None:
+            self._telemetry.recovery(step, kind, **fields)
 
 
 class StreamingAUC:

@@ -29,21 +29,16 @@ Two more carry the models whose JAX step reduces inside the forward:
   batch's row order.
 
 :func:`grad_average` is the reference's round loop, a numpy average of
-per-partition gradients, which tests hold the step to;
-:func:`assert_replicas_in_sync` compares a digest of every rank's params.
+per-partition gradients, which tests hold the step to. Whether the ranks'
+replicas agree is :func:`..utils.sanitize.assert_replicas_in_sync`'s check.
 """
 
 from __future__ import annotations
 
-import hashlib
 from typing import Any, Sequence
 
 import numpy as np
 import torch
-
-
-class DesyncError(RuntimeError):
-    """Replicated state differs across ranks."""
 
 
 def _dist():
@@ -186,28 +181,3 @@ def grad_average(partition_grads: Sequence[Any]) -> Any:
     for g in partition_grads[1:]:
         acc += np.asarray(g)
     return acc / n
-
-
-def params_digest(params: dict[str, torch.Tensor]) -> str:
-    """blake2b over every param's name, dtype, shape and bytes."""
-    h = hashlib.blake2b(digest_size=16)
-    for name in sorted(params):
-        t = params[name].detach().cpu().contiguous()
-        h.update(f"{name}:{t.dtype}:{tuple(t.shape)}".encode())
-        h.update(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"")
-    return h.hexdigest()
-
-
-def assert_replicas_in_sync(params: dict[str, torch.Tensor], *,
-                            what: str = "params") -> None:
-    """Raise :class:`DesyncError` unless every rank holds the same bytes:
-    one digest a rank, all-gathered and compared (a no-op outside a
-    group)."""
-    if not active():
-        return
-    digests = [None] * world_size()
-    _dist().all_gather_object(digests, params_digest(params))
-    bad = [r for r, d in enumerate(digests) if d != digests[0]]
-    if bad:
-        raise DesyncError(f"{what} desynced across ranks: ranks {bad} differ "
-                          f"from rank 0 ({digests})")

@@ -18,14 +18,23 @@ phase (``checkpoint``, ``checkpoint-verify``, ``checkpoint-wait``,
 ``restore``) with begin/end records, the end carrying ``dur_s``, and
 :meth:`EventWriter.recovery` writes a ``recovery`` event (``quarantine``).
 
+The port's :class:`~..supervisor.Supervisor` writes its ``attempt``
+lifecycle records and ``recovery`` decisions into the same stream, as a
+process that is no member of the gang (``host=None``); the trainer's
+recovery events (``skip``, ``rollback``) go through
+:meth:`~..metrics.MetricLogger.event`. :func:`read_events` merges a
+workdir's streams in time order (the supervisor's hang localization reads
+it, :mod:`.fleet`).
+
 Writers are append-only and flushed per call; a full disk downgrades
 telemetry to one warning, never a serving failure. Size-capped segment
-rotation and the reader side are not ported.
+rotation and the incremental reader are not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import logging
 import os
@@ -61,15 +70,20 @@ class EventWriter:
 
     ``clock`` is injectable (epoch seconds) for tests."""
 
+    _HOST_FROM_ENV = object()  # sentinel: the host identity from DLS_*
+
     def __init__(self, workdir: str | os.PathLike, *, process: str | None = None,
-                 clock=time.time):
+                 clock=time.time, host: int | None | object = _HOST_FROM_ENV):
         self.workdir = os.path.abspath(os.fspath(workdir))
         self.process = process or f"p{os.environ.get('DLS_PROCESS_ID', '0')}"
         self.path = os.path.join(self.workdir, TELEMETRY_DIRNAME,
                                  f"events-{self.process}.jsonl")
         self.tenant = os.environ.get(TENANT_ENV) or None
         self.priority = _priority_from_env()
-        self.host, self.hosts = process_identity()
+        env_host, self.hosts = process_identity()
+        # host=None opts a process that is no member of the gang (the
+        # supervisor) out of the fleet table
+        self.host = env_host if host is EventWriter._HOST_FROM_ENV else host
         self._clock = clock
         self._lock = threading.Lock()
         self._f = None
@@ -82,9 +96,10 @@ class EventWriter:
     def _record(self, kind: str, fields: dict[str, Any]) -> dict[str, Any]:
         rec = {"ts": self._clock(), "kind": kind, "process": self.process,
                **fields}
-        rec.setdefault("host", self.host)
-        if self.hosts > 1:
-            rec.setdefault("hosts", self.hosts)
+        if self.host is not None:
+            rec.setdefault("host", self.host)
+            if self.hosts > 1:
+                rec.setdefault("hosts", self.hosts)
         if self.tenant is not None:
             rec.setdefault("tenant", self.tenant)
         if self.priority is not None:
@@ -166,6 +181,11 @@ class EventWriter:
         else:
             self.emit("recovery", step=int(step), event=event, **fields)
 
+    def attempt(self, edge: str, ordinal: int, **fields: Any) -> None:
+        """A supervisor attempt's lifecycle record (``begin``/``end``/
+        ``backoff``)."""
+        self.emit("attempt", edge=edge, ordinal=int(ordinal), **fields)
+
     def heartbeat(self, **fields: Any) -> None:
         self.emit("heartbeat", **fields)
 
@@ -210,6 +230,31 @@ def phase(name: str, **fields: Any):
     if writer is not None:
         return writer.phase(name, **fields)
     return contextlib.nullcontext()
+
+
+def read_events(workdir: str | os.PathLike) -> list[dict]:
+    """Every process's events under ``workdir`` merged into one stream in
+    ``ts`` order (stable, so equal timestamps keep each file's order).
+    Torn lines (a writer SIGKILLed mid-append) and lines that are not an
+    event object are skipped: a crashed run's stream must parse."""
+    events: list[dict] = []
+    pattern = os.path.join(os.fspath(workdir), TELEMETRY_DIRNAME,
+                           "events-*.jsonl")
+    for path in sorted(glob.glob(pattern)):
+        try:
+            with open(path) as f:
+                lines = f.readlines()
+        except OSError:
+            continue
+        for line in lines:
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(rec, dict) and "ts" in rec and "kind" in rec:
+                events.append(rec)
+    events.sort(key=lambda e: float(e["ts"]))
+    return events
 
 
 def reset() -> None:

@@ -25,10 +25,14 @@ arithmetic is optax's, not ``torch.optim``'s defaults:
 
 Updates are made in place with ``torch._foreach_*`` ops: a transform may
 overwrite the ``updates`` it is given (the caller's gradients) and the
-moment buffers in its state. Counts are host integers, so no update syncs
-with the device. These are plain tensor ops, as the JAX package runs its
-optimizer in XLA, not in Pallas. ``lamb``, ``lars`` and ``adafactor`` are
-not ported yet.
+moment buffers in its state. Counts are 0-d int64 tensors on the params'
+device, as the JAX package's are device arrays: a schedule takes one and
+returns a float or a 0-d f32 tensor, and Adam's bias corrections are
+computed from it on the device in f32, so no update syncs with the host
+and the train step's non-finite guard (:mod:`.step`) holds a skipped
+step's counts back as it holds the moments. These are plain tensor ops,
+as the JAX package runs its optimizer in XLA, not in Pallas. ``lamb``,
+``lars`` and ``adafactor`` are not ported yet.
 
 ``masked(tx, trainable)`` (the LoRA fine-tune) names the params ``tx``
 updates: the train step hands it only those, with their gradients, so the
@@ -44,8 +48,15 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-Schedule = Callable[[int], float]
+#: a count (a 0-d int64 tensor; an int is taken too) to a learning rate
+Schedule = Callable[[torch.Tensor], "float | torch.Tensor"]
 Tensors = list[torch.Tensor]
+
+
+def _count(params: Tensors) -> torch.Tensor:
+    """A fresh step count: a 0-d int64 zero on the params' device."""
+    return torch.zeros((), dtype=torch.int64,
+                       device=params[0].device if params else None)
 
 
 class GradientTransformation(NamedTuple):
@@ -94,7 +105,7 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
 
 
 class ScaleByAdamState(NamedTuple):
-    count: int
+    count: torch.Tensor
     mu: Tensors
     nu: Tensors
 
@@ -102,7 +113,7 @@ class ScaleByAdamState(NamedTuple):
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
                   eps: float = 1e-8) -> GradientTransformation:
     def init(params):
-        return ScaleByAdamState(0, [torch.zeros_like(p) for p in params],
+        return ScaleByAdamState(_count(params), [torch.zeros_like(p) for p in params],
                                 [torch.zeros_like(p) for p in params])
 
     def update(updates, state, params):
@@ -112,9 +123,9 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, updates, updates, value=1.0 - b2)
         count = state.count + 1
-        f32 = np.float32
-        bc1 = float(f32(1) - f32(b1) ** f32(count))
-        bc2 = float(f32(1) - f32(b2) ** f32(count))
+        c = count.float()
+        bc1 = 1.0 - torch.pow(b1, c)
+        bc2 = 1.0 - torch.pow(b2, c)
         denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, eps)
@@ -161,10 +172,12 @@ def scale_by_learning_rate(learning_rate: float | Schedule) -> GradientTransform
     schedule = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
 
     def update(updates, count, params):
-        torch._foreach_mul_(updates, -float(schedule(count)))
+        lr = schedule(count)
+        torch._foreach_mul_(updates, -lr if isinstance(lr, torch.Tensor)
+                            else -float(lr))
         return updates, count + 1
 
-    return GradientTransformation(lambda params: 0, update)
+    return GradientTransformation(_count, update)
 
 
 def adamw(learning_rate: float | Schedule, *, b1: float = 0.9, b2: float = 0.999,
@@ -207,12 +220,10 @@ def linear_schedule(init_value: float, end_value: float,
     """optax's ``linear_schedule`` in f32."""
     if transition_steps <= 0:
         return lambda count: init_value
-    f32 = np.float32
 
-    def schedule(count: int) -> float:
-        c = f32(min(max(count, 0), transition_steps))
-        frac = f32(1) - c / f32(transition_steps)
-        return float(f32(init_value - end_value) * frac + f32(end_value))
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        c = torch.as_tensor(count).clamp(0, transition_steps).float()
+        return (init_value - end_value) * (1.0 - c / transition_steps) + end_value
 
     return schedule
 
@@ -220,11 +231,16 @@ def linear_schedule(init_value: float, end_value: float,
 def join_schedules(schedules: list[Schedule], boundaries: list[int]) -> Schedule:
     """optax's ``join_schedules``: past each boundary, the next schedule at
     ``count - boundary``."""
-    def schedule(count: int) -> float:
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        count = torch.as_tensor(count)
+
+        def dev(x):  # a constant leg's float, filled on the device (no copy)
+            return x if isinstance(x, torch.Tensor) else torch.full(
+                (), x, dtype=torch.float32, device=count.device)
+
         out = schedules[0](count)
         for boundary, sched in zip(boundaries, schedules[1:]):
-            if count >= boundary:
-                out = sched(count - boundary)
+            out = torch.where(count >= boundary, dev(sched(count - boundary)), dev(out))
         return out
 
     return schedule
@@ -245,12 +261,10 @@ def cosine_decay_schedule(init_value: float, decay_steps: int,
     if not decay_steps > 0:
         raise ValueError(f"The cosine_decay_schedule requires positive "
                          f"decay_steps, got decay_steps={decay_steps}.")
-    f32 = np.float32
-
-    def schedule(count: int) -> float:
-        c = f32(min(count, decay_steps))
-        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(decay_steps)))
-        return float(f32(init_value) * (f32(1 - alpha) * cosine + f32(alpha)))
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        c = torch.as_tensor(count).clamp(max=decay_steps).float()
+        cosine = 0.5 * (1.0 + torch.cos(np.float32(np.pi) * c / decay_steps))
+        return init_value * ((1 - alpha) * cosine + alpha)
 
     return schedule
 

@@ -14,7 +14,8 @@ in place by the sparse step; empty when no table trains sparsely.
 
 :meth:`TrainState.state_dict` is what a checkpoint holds: plain dicts,
 lists, ints and tensors (``torch.load(weights_only=True)`` reads it), the
-optimizer state flattened to its leaves in order.
+optimizer state flattened to its leaves in order (its counts, 0-d device
+tensors, as host ints).
 :meth:`TrainState.load_state_dict` writes such a dict back into the live
 tensors in place, so the model's params stay the optimizer's.
 """
@@ -27,35 +28,47 @@ from typing import Any
 import torch
 
 
-def _leaves(tree: Any) -> list:
+def leaves(tree: Any) -> list:
     """The leaves of a tree of tuples (NamedTuples too), lists and dicts,
     in order."""
     if isinstance(tree, dict):
-        return [x for k in tree for x in _leaves(tree[k])]
+        return [x for k in tree for x in leaves(tree[k])]
     if isinstance(tree, (tuple, list)):
-        return [x for v in tree for x in _leaves(v)]
+        return [x for v in tree for x in leaves(v)]
     return [tree]
 
 
-def _refill(template: Any, leaves: list) -> Any:
-    """``template`` with its leaves taken from ``leaves`` in order: a
-    tensor leaf is copied into the template's tensor in place, any other
-    leaf (a host count) replaced."""
+def _refill(template: Any, saved: list) -> Any:
+    """``template`` with its leaves taken from ``saved`` in order: a
+    tensor leaf is copied into the template's tensor in place (a count,
+    saved as an int, filled into its 0-d tensor), any other leaf replaced."""
     if isinstance(template, dict):
-        return {k: _refill(v, leaves) for k, v in template.items()}
+        return {k: _refill(v, saved) for k, v in template.items()}
     if isinstance(template, (tuple, list)):
-        items = [_refill(v, leaves) for v in template]
+        items = [_refill(v, saved) for v in template]
         if hasattr(template, "_fields"):  # a NamedTuple
             return type(template)(*items)
         return type(template)(items)
-    new = leaves.pop(0)
+    new = saved.pop(0)
     if isinstance(template, torch.Tensor):
+        if isinstance(new, int) and template.dim() == 0:
+            return template.fill_(new)
         if not isinstance(new, torch.Tensor) or new.shape != template.shape:
             raise ValueError(f"optimizer state leaf {getattr(new, 'shape', new)} "
                              f"does not fit {tuple(template.shape)}")
         template.copy_(new)
         return template
     return new
+
+
+def _host_count(x: Any) -> Any:
+    """A 0-d integer tensor (an optimizer's count) as the host int a
+    checkpoint holds; other leaves as they are."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.dim() == 0 and not x.is_floating_point():
+            return int(x)
+    return x
 
 
 def _copy_named(live: dict[str, torch.Tensor], saved: dict[str, torch.Tensor],
@@ -90,8 +103,7 @@ class TrainState:
         return {
             "step": int(self.step),
             "params": {k: p.detach() for k, p in self.params.items()},
-            "opt_state": [x.detach() if isinstance(x, torch.Tensor) else x
-                          for x in _leaves(self.opt_state)],
+            "opt_state": [_host_count(x) for x in leaves(self.opt_state)],
             "generator": self.generator.get_state(),
             "mutable": {k: v.detach() for k, v in self.mutable.items()},
             "embed_state": {name: {k: v.detach() for k, v in s.items()}
@@ -108,12 +120,12 @@ class TrainState:
                              f"want {sorted(self.embed_state)}")
         for name, s in self.embed_state.items():
             _copy_named(s, sd["embed_state"][name], f"embed state {name}")
-        leaves = list(sd["opt_state"])
-        if len(leaves) != len(_leaves(self.opt_state)):
-            raise ValueError(f"optimizer state has {len(leaves)} leaves, want "
-                             f"{len(_leaves(self.opt_state))}")
+        saved = list(sd["opt_state"])
+        if len(saved) != len(leaves(self.opt_state)):
+            raise ValueError(f"optimizer state has {len(saved)} leaves, want "
+                             f"{len(leaves(self.opt_state))}")
         with torch.no_grad():
-            self.opt_state = _refill(self.opt_state, leaves)
+            self.opt_state = _refill(self.opt_state, saved)
         self.generator.set_state(sd["generator"])
         self.step = int(sd["step"])
         return self

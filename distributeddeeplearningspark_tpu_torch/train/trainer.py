@@ -6,8 +6,8 @@ session's device to a loss and an optax-shaped optimizer
 :class:`~..rdd.PartitionedDataset` through the train step and syncs with
 the device only at log points, where it laps the :class:`~..metrics.Meter`,
 logs, writes a ``step_metrics`` record (when ``DLS_TELEMETRY_DIR`` or the
-checkpointer names a workdir) and raises on a non-finite metric, as the JAX
-loop's default ``on_nonfinite="raise"`` does.
+checkpointer names a workdir) and applies the ``on_nonfinite`` policy
+(by default it raises on a non-finite metric, as the JAX loop does).
 
 ``fit`` and :meth:`evaluate` feed through
 :func:`~..data.prefetch.prefetch_to_device`: a background thread
@@ -40,6 +40,20 @@ the end; :meth:`restore` loads the newest step that verifies, and
 ``fit(data_state=...)`` fast-forwards the feed past the batches already
 trained on, so a resumed run repeats an uninterrupted one.
 
+The recovery chain (the JAX package's ``tests/test_chaos.py`` runs it
+link by link): ``fit(on_nonfinite="skip")`` builds the step with its
+non-finite guard (:mod:`.step`) and keeps the device's running count of
+skipped steps, fetched at log points only, against ``nonfinite_budget``;
+``on_nonfinite="rollback"`` restores the newest verified finite checkpoint
+at a log point whose metrics are not finite, up to ``max_rollbacks``
+times. Recovery events go to :meth:`~..metrics.MetricLogger.event`.
+``DLS_FAULT`` (:mod:`..faults`) fires at its JAX places: ``nan``,
+``crash``, ``hang`` and ``die_host`` before the step they name,
+``truncate_ckpt`` after a save. Each log lap stamps the supervisor's
+liveness file (``DLS_HEARTBEAT_FILE``). ``eval_every`` runs
+:meth:`evaluate` inside ``fit``; ``callbacks`` see every step;
+``sanitize_every`` checks the gang's replicas.
+
 ``sparse_embed`` specs (:mod:`.embed`) train their tables row-sparsely:
 the step gathers the batch's rows outside autograd and applies row-wise
 AdaGrad to them (in a gang, to every rank's rows, gathered), and the
@@ -54,15 +68,16 @@ into that many micro-batches whose gradients are summed before one update
 ``sparse_embed``, as in JAX. :meth:`load_pretrained` overlays imported
 weights (``models.llama_io``) on the live params in place.
 
-Not ported yet (ROADMAP Queue 1 item 1): ``on_nonfinite="skip"|"rollback"``,
-eval during fit, callbacks; sharding plans and rules, profiling, sanitize
-and TensorBoard.
+Not ported yet: the graceful preemption drain (a ``sigterm`` fault or a
+preemption notice raises; ROADMAP Queue 1 item 7); sharding plans and
+rules; ``profile``, ``measure_flops`` and ``tensorboard_dir`` (Queue 1
+item 9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
-import math
 import os
 import re
 import time
@@ -70,6 +85,7 @@ from typing import Any, Callable, Iterator, Sequence
 
 import torch
 
+from distributeddeeplearningspark_tpu_torch import faults
 from distributeddeeplearningspark_tpu_torch import telemetry as telemetry_lib
 from distributeddeeplearningspark_tpu_torch.checkpoint import Checkpointer
 from distributeddeeplearningspark_tpu_torch.data.feed import (
@@ -89,8 +105,24 @@ from distributeddeeplearningspark_tpu_torch.train import embed as embed_lib
 from distributeddeeplearningspark_tpu_torch.train import step as step_lib
 from distributeddeeplearningspark_tpu_torch.train.optim import GradientTransformation
 from distributeddeeplearningspark_tpu_torch.train.state import TrainState
+from distributeddeeplearningspark_tpu_torch.utils import sanitize
 
 logger = logging.getLogger("distributeddeeplearningspark_tpu_torch.trainer")
+
+
+def _touch_heartbeat() -> None:
+    """Stamp the supervisor's liveness file (``DLS_HEARTBEAT_FILE``, set by
+    :class:`~..supervisor.Supervisor`) at a log lap: progress between
+    checkpoints is then visible to its hang watchdog, and a stuck worker
+    stops stamping."""
+    path = os.environ.get("DLS_HEARTBEAT_FILE")
+    if not path:
+        return
+    try:
+        with open(path, "w") as f:
+            f.write(str(os.getpid()))
+    except OSError:  # heartbeats are best-effort, never fail training
+        pass
 
 
 def _to_host(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
@@ -200,6 +232,7 @@ class Trainer:
                 "frozen-weight exclusion the caller asked for")
         self.accum_steps = accum_steps
         self.trainable = trainable
+        self._guard_nonfinite = False  # fit(on_nonfinite="skip") rebuilds
         self._build_train_step()
         self._eval_step = step_lib.make_eval_step(model, loss_fn)
 
@@ -212,7 +245,8 @@ class Trainer:
             self._train_step = step_lib.make_train_step(
                 self.model, self.tx, self.loss_fn,
                 distributed=self.session.distributed, trainable=self.trainable,
-                accum_steps=self.accum_steps)
+                accum_steps=self.accum_steps,
+                guard_nonfinite=self._guard_nonfinite)
 
     def init(self) -> TrainState:
         """The initial state: the model's params, the optimizer's state
@@ -326,7 +360,13 @@ class Trainer:
     def fit(self, dataset: PartitionedDataset, *, batch_size: int,
             steps: int | None = None, tokens_per_example: int = 0,
             log_every: int = 10, checkpoint_every: int | None = None,
-            data_state: dict | None = None, accum_steps: int | None = None
+            eval_dataset: PartitionedDataset | None = None,
+            eval_every: int | None = None,
+            callbacks: Sequence[Callable[[int, dict], None]] = (),
+            data_state: dict | None = None,
+            sanitize_every: int | None = None,
+            accum_steps: int | None = None, on_nonfinite: str = "raise",
+            nonfinite_budget: int = 10, max_rollbacks: int = 2
             ) -> tuple[TrainState, dict[str, float]]:
         """Train until the state's step reaches ``steps`` (or the dataset is
         exhausted). Returns (final state, summary): the :class:`Meter`'s
@@ -338,7 +378,52 @@ class Trainer:
         checkpointer). ``data_state`` (from :meth:`restore`): skip the
         ``examples_seen`` the checkpoint had trained on. ``accum_steps``:
         micro-batches per optimizer step (``batch_size`` stays the global
-        batch), overriding the constructor's."""
+        batch), overriding the constructor's. ``eval_dataset`` /
+        ``eval_every``: :meth:`evaluate` every N steps inside an ``eval``
+        telemetry phase, logged as ``eval_*``. ``callbacks``: each called
+        as ``cb(step, last_logged_metrics)`` after every step.
+        ``sanitize_every``: check every N steps that the gang's params are
+        in sync (:func:`~..utils.sanitize.assert_replicas_in_sync`).
+
+        ``on_nonfinite``, the policy for NaN/Inf metrics, read at log points:
+
+        - ``"raise"`` (default): ``FloatingPointError``;
+        - ``"skip"``: the step itself withholds the update of a step whose
+          gradient is not finite (:mod:`.step`'s guard: params, optimizer
+          state and buffers keep their values, the poisoned batch is
+          consumed); at most ``nonfinite_budget`` steps may be skipped.
+          The summary reports ``skipped_steps``;
+        - ``"rollback"``: reload the newest verified checkpoint whose params
+          are finite (quarantining one that is not) and go on from the
+          feed's current position — the model rewinds, the feed does not,
+          and the batches passed over are folded into every later
+          checkpoint's ``examples_seen``. Needs a checkpointer with a saved
+          step; at most ``max_rollbacks``. The summary reports
+          ``rollbacks``.
+
+        ``DLS_FAULT`` (:mod:`..faults`) injects ``nan``, ``crash``, ``hang``
+        and ``die_host`` at its step and ``truncate_ckpt`` after a save; a
+        ``sigterm`` fault or a preemption-notice path raises, since the
+        graceful drain is not ported (ROADMAP Queue 1 item 7)."""
+        if on_nonfinite not in ("raise", "skip", "rollback"):
+            raise ValueError(
+                f"on_nonfinite must be 'raise'|'skip'|'rollback', got "
+                f"{on_nonfinite!r}")
+        if on_nonfinite == "skip" and self.sparse_embed:
+            raise ValueError(
+                "on_nonfinite='skip' is not supported with sparse_embed "
+                "tables (the row-sparse step has no update guard); use "
+                "'rollback' or 'raise'")
+        if faults.sigterm_fault() is not None or faults.preempt_notice_path():
+            raise NotImplementedError(
+                "a preemption notice (DLS_FAULT=sigterm@N or "
+                f"{faults.PREEMPT_NOTICE_ENV}) asks for the graceful drain "
+                "and live handoff, which the port does not have yet (ROADMAP "
+                "Queue 1 item 7); refusing to train as if none was given")
+        rebuild = False
+        if (on_nonfinite == "skip") != self._guard_nonfinite:
+            self._guard_nonfinite = on_nonfinite == "skip"
+            rebuild = True
         if accum_steps is not None and accum_steps != self.accum_steps:
             if self.sparse_embed:
                 raise ValueError(
@@ -346,6 +431,8 @@ class Trainer:
                     "(train/embed.py) — recommender batches are already large; "
                     "scale batch_size instead")
             self.accum_steps = accum_steps
+            rebuild = True
+        if rebuild:
             self._build_train_step()
         if batch_size % self.accum_steps:
             raise ValueError(
@@ -357,7 +444,7 @@ class Trainer:
                       tokens_per_step=batch_size * tokens_per_example,
                       num_chips=self.session.num_devices)
         tele = self._telemetry()
-        mlog = MetricLogger()
+        mlog = MetricLogger(telemetry=tele)
         step_i = self.state.step
         skip = 0
         if data_state and data_state.get("examples_seen"):
@@ -370,11 +457,28 @@ class Trainer:
                     f"land mid-batch; resume with the original batch size")
             skip = int(data_state["examples_seen"]) // batch_size
         ckpt = self.checkpointer if checkpoint_every else None
+        # batches the feed consumed beyond step_i (a rollback rewinds the
+        # model, never the feed), folded into examples_seen so that a resume
+        # lands on the feed's true position; a resumed run inherits the
+        # earlier run's (the skip beyond state.step is that drift)
+        rolled_back_batches = max(0, skip - step_i)
 
         def save(at: int) -> None:
             ckpt.save(at, self.state, data_state={
-                "examples_seen": at * batch_size, "batch_size": batch_size})
+                "examples_seen": (at + rolled_back_batches) * batch_size,
+                "batch_size": batch_size})
 
+        def tele_phase(name: str):
+            return (tele.phase(name) if tele is not None
+                    else contextlib.nullcontext())
+
+        # drivers launched some other way than through the supervisor's
+        # workers: on a relaunch, a die_host target must not train
+        faults.die_if_dead_host_on_relaunch()
+        fault = faults.get()
+        skipped_dev = None  # the device's running count of skipped steps
+        n_skipped = 0
+        rollbacks = 0
         probe = StarvationProbe() if tele is not None else None
         if tele is not None:
             tele.emit("phase", name="run", edge="begin", step=step_i,
@@ -391,11 +495,28 @@ class Trainer:
                 got_batch = True
                 if steps is not None and step_i >= steps:
                     break
+                if fault is not None and step_i + 1 == fault.step \
+                        and fault.kind in ("nan", "crash", "hang", "die_host"):
+                    kind = fault.kind
+                    # one-shot: a rollback rewinds step_i past the trigger,
+                    # and re-poisoning the retrained window would turn one
+                    # injected spike into a loop
+                    fault = None
+                    if kind == "nan":
+                        batch = faults.nan_batch(batch)
+                    elif kind in ("crash", "die_host"):
+                        faults.crash()
+                    else:
+                        faults.hang()
                 t0 = time.perf_counter()
                 self.state, metrics = self._train_step(self.state, batch)
                 dispatch_s += time.perf_counter() - t0
                 metrics.pop("weight", None)  # eval-aggregation detail
                 step_i += 1
+                if "skipped" in metrics:
+                    # a device-side add a step; fetched only at log points
+                    s = metrics["skipped"]
+                    skipped_dev = s if skipped_dev is None else skipped_dev + s
                 if step_i % log_every == 0 or (steps is not None and step_i >= steps):
                     # the copy to the host waits for this step: the lap
                     # boundary is a true sync point, so the timing is honest
@@ -406,6 +527,7 @@ class Trainer:
                     lap_start = step_i
                     lap_s, lap_n = meter.last_lap or (0.0, 0)
                     mlog.log(step_i, {**last_metrics, **meter.summary()})
+                    _touch_heartbeat()
                     if tele is not None:
                         snap = probe.snapshot()
                         tele.step_metrics(
@@ -415,13 +537,52 @@ class Trainer:
                                 snap["input_wait_s"], self.session.num_devices))
                         tele.heartbeat(step=step_i)
                     dispatch_s = 0.0
-                    bad = {k: v for k, v in last_metrics.items()
-                           if not math.isfinite(v)}
-                    if bad:
-                        raise FloatingPointError(
-                            f"non-finite metrics at step {step_i}: {bad}")
+                    if on_nonfinite == "raise":
+                        sanitize.assert_all_finite(last_metrics, step=step_i)
+                    elif on_nonfinite == "skip":
+                        if skipped_dev is not None:
+                            new_skipped = int(skipped_dev)
+                            if new_skipped > n_skipped:
+                                mlog.event(step_i, "skip", skipped_steps=new_skipped,
+                                           nonfinite=sanitize.nonfinite_metrics(
+                                               last_metrics))
+                            n_skipped = new_skipped
+                            if n_skipped > nonfinite_budget:
+                                raise FloatingPointError(
+                                    f"skipped {n_skipped} non-finite steps, "
+                                    f"over nonfinite_budget={nonfinite_budget} "
+                                    f"— this divergence is persistent, not a "
+                                    f"transient spike; last metrics: "
+                                    f"{last_metrics}")
+                    else:
+                        bad = sanitize.nonfinite_metrics(last_metrics)
+                        if bad:
+                            rollbacks += 1
+                            rolled_to = self._roll_back(step_i, bad, rollbacks,
+                                                        max_rollbacks)
+                            mlog.event(step_i, "rollback", to_step=rolled_to,
+                                       window=step_i - rolled_to, nonfinite=bad)
+                            rolled_back_batches += step_i - rolled_to
+                            step_i = lap_start = rolled_to
+                            last_metrics = {}
+                            continue
+                if sanitize_every and step_i % sanitize_every == 0:
+                    sanitize.assert_replicas_in_sync(self.state.params)
+                for cb in callbacks:
+                    cb(step_i, last_metrics)
                 if ckpt is not None and step_i % checkpoint_every == 0:
                     save(step_i)
+                    if (fault is not None and fault.kind == "truncate_ckpt"
+                            and step_i >= fault.step):
+                        # the kill-mid-finalize drill: the save committed and
+                        # manifested, its bytes torn, then death unannounced
+                        ckpt.wait()
+                        faults.truncate_latest_checkpoint(ckpt.directory)
+                        faults.crash()
+                if eval_every and eval_dataset is not None and step_i % eval_every == 0:
+                    with tele_phase("eval"):
+                        emetrics = self.evaluate(eval_dataset, batch_size=batch_size)
+                    mlog.log(step_i, {f"eval_{k}": v for k, v in emetrics.items()})
         finally:
             feed.close()
             if tele is not None:
@@ -436,11 +597,57 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         summary = {**meter.summary(), **last_metrics}
+        if on_nonfinite == "skip":
+            if skipped_dev is not None:
+                n_skipped = int(skipped_dev)
+            summary["skipped_steps"] = float(n_skipped)
+            if n_skipped:
+                logger.warning("run skipped %d non-finite step(s) "
+                               "(on_nonfinite='skip')", n_skipped)
+        elif on_nonfinite == "rollback":
+            summary["rollbacks"] = float(rollbacks)
         if ckpt is not None:
             if step_i % checkpoint_every:
                 save(step_i)
             ckpt.wait()
         return self.state, summary
+
+    def _roll_back(self, step_i: int, bad: dict, rollbacks: int,
+                   max_rollbacks: int) -> int:
+        """Restore the newest verified checkpoint whose params are finite,
+        quarantining each byte-intact but non-finite one on the way (a
+        divergence checkpointed before a log point could see it); the step
+        it restored. Raises FloatingPointError past ``max_rollbacks``,
+        without a checkpointer, or when no step is left."""
+        if rollbacks > max_rollbacks:
+            raise FloatingPointError(
+                f"non-finite metrics at step {step_i} after exhausting "
+                f"max_rollbacks={max_rollbacks}: {bad}")
+        if self.checkpointer is None:
+            raise FloatingPointError(
+                f"on_nonfinite='rollback' needs a checkpointer with a saved "
+                f"step; non-finite at step {step_i}: {bad}")
+        try:
+            last_bad = None
+            while True:
+                self.restore()
+                if sanitize.tree_all_finite(self.state.params):
+                    return self.state.step
+                ckpt_step = self.state.step
+                if ckpt_step == last_bad:
+                    # the quarantine did not take (a read-only filesystem):
+                    # refuse to spin on the same step
+                    raise RuntimeError(f"could not quarantine poisoned "
+                                       f"checkpoint step {ckpt_step}")
+                last_bad = ckpt_step
+                logger.warning("rollback target step %d holds non-finite "
+                               "params; quarantining and walking back further",
+                               ckpt_step)
+                self.checkpointer.quarantine(ckpt_step)
+        except Exception as e:
+            raise FloatingPointError(
+                f"rollback from non-finite metrics at step {step_i} failed "
+                f"({e}); bad metrics: {bad}") from e
 
     def evaluate(self, dataset: PartitionedDataset, *, batch_size: int
                  ) -> dict[str, float]:

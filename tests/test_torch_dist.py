@@ -28,6 +28,7 @@ rank writes what the tests read into OUTDIR:
   in sync: a model with buffers (ResNet) and ``sparse_embed`` (DLRM).
 """
 
+import hashlib
 import json
 import multiprocessing as mp
 import os
@@ -55,9 +56,21 @@ from distributeddeeplearningspark_tpu_torch.session import DEVICE_CONF
 from distributeddeeplearningspark_tpu_torch.train import losses, optim
 from distributeddeeplearningspark_tpu_torch.train.state import TrainState
 from distributeddeeplearningspark_tpu_torch.train.step import make_train_step
+from distributeddeeplearningspark_tpu_torch.utils import sanitize
 from test_torch_deadline import bounded, per_test
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def params_digest(params: dict[str, torch.Tensor]) -> str:
+    """blake2b over every tensor's name, dtype, shape and bytes: equal
+    digests are equal replicas."""
+    h = hashlib.blake2b(digest_size=16)
+    for name in sorted(params):
+        t = params[name].detach().cpu().contiguous()
+        h.update(f"{name}:{t.dtype}:{tuple(t.shape)}".encode())
+        h.update(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"")
+    return h.hexdigest()
 # f32 on both sides; 20 SGD steps compound the order of the sums
 FIT_RTOL, FIT_ATOL = 1e-4, 1e-5
 # one gradient: the reduction's order against the global batch's
@@ -205,7 +218,7 @@ def _worker(outdir: Path) -> None:
                            batch_size=32, steps=20, log_every=1)
     ttele.reset()
     del os.environ[ttele.WORKDIR_ENV]
-    collectives.assert_replicas_in_sync(state.params)
+    sanitize.assert_replicas_in_sync(state.params)
     if rank == 0:
         np.savez(outdir / "fit_final.npz",
                  **{k: v.detach().numpy() for k, v in state.params.items()})
@@ -253,9 +266,9 @@ def _worker(outdir: Path) -> None:
     trained = {}
     for name, run in (("resnet", resnet), ("sparse_embed", dlrm)):
         summary, replicated = run()
-        collectives.assert_replicas_in_sync(replicated, what=name)
+        sanitize.assert_replicas_in_sync(replicated, what=name)
         trained[name] = dict(loss=summary["loss"],
-                             digest=collectives.params_digest(replicated))
+                             digest=params_digest(replicated))
     out["trained"] = trained
     out["pooled"] = _pooled_runs(spark, init, outdir)
     if rank == 0:

@@ -50,6 +50,7 @@ from distributeddeeplearningspark_tpu_torch.train import losses, optim
 from distributeddeeplearningspark_tpu_torch.train.embed import ROW_ACCUM
 from distributeddeeplearningspark_tpu_torch.train.state import TrainState
 from distributeddeeplearningspark_tpu_torch.train.step import make_train_step
+from distributeddeeplearningspark_tpu_torch.utils import sanitize
 
 from test_torch_deadline import bounded, per_test
 from test_torch_dist import run_gang
@@ -223,7 +224,7 @@ def _worker(outdir: Path) -> None:
     ttele.reset()
     del os.environ[ttele.WORKDIR_ENV]
     model = trainer.model
-    collectives.assert_replicas_in_sync(
+    sanitize.assert_replicas_in_sync(
         {**dict(model.named_parameters()), **dict(model.named_buffers())})
     np.savez(outdir / f"resnet_final_{rank}.npz",
              **{k: v.detach().numpy() for k, v in model.state_dict().items()})
@@ -243,7 +244,7 @@ def _worker(outdir: Path) -> None:
     ttele.reset()
     del os.environ[ttele.WORKDIR_ENV]
     accum = {f"{n}.{ROW_ACCUM}": s[ROW_ACCUM] for n, s in state.embed_state.items()}
-    collectives.assert_replicas_in_sync({**state.params, **accum})
+    sanitize.assert_replicas_in_sync({**state.params, **accum})
     np.savez(outdir / f"dlrm_final_{rank}.npz",
              **{k: v.detach().numpy() for k, v in {**state.params, **accum}.items()})
 
