@@ -70,8 +70,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    gradients through the kernels agree with the plain attention path from
    nonzero B; print the step time, tokens/s, model TFLOP/s, a profiled
    window and the peak memory; then run the port's driver through its
-   ``dlsubmit`` at ``local[1]`` for 5 steps (the same launch counts a step,
-   finite losses, nothing left);
+   ``dlsubmit`` at ``local[1]`` for 5 steps with its default ``--fsdp -1``
+   (a one-card mesh: nothing sharded, the card holding what the rule
+   engine reckons; the same launch counts a step, finite losses, nothing
+   left);
 7. hold K4 (the 1×1-conv matmul with BN statistics) against its plain
    version on the card in bf16 at the ten shapes of ResNet-50's fused
    layers at b=256, three that a rank of four gets at 64 images, and six
@@ -190,8 +192,22 @@ DLRM's row accumulators too; two faults planted into ResNet-50's N-rank
 run (the loss not weighed, a rank-local BatchNorm backward) and one into
 the DLRM's (a rank-by-rank sparse merge) must each break one of those
 limits; each rank's step ms and a profiled window's NCCL kernel time.
-``--gang dlrm`` (or ``resnet``) runs that driver's comparisons only,
-``--gang recovery`` the shrink and the desync only.
+Then Llama-2 7B LoRA (config 5) sharded over the cards: the port's Llama
+driver through its cli at N ranks (NCCL) with its default ``--fsdp -1``
+(global b=8, S=1,024, LoRA rank 16, the base FSDP-sharded, the adapters
+and norm scales replicated) and at one card on the same batches: every
+rank's losses one card's at a stated tolerance, K1/K2/K3 64/32/32
+launches a step on every card, the replicated params in sync, each card's
+resident param bytes the rule engine's reckoning, each card's peak memory
+at least half the base below one card's; a full fine-tune of the 7B
+widths cut to 2 layers (sharded params in training) at N ranks and on one
+card, losses and grad norms at stated tolerances; and two planted faults
+(``LLAMA_GANG_FAULTS``: the adapters' all-reduce skipped, FSDP2's
+reduce-scatter left averaging) that must each break one of those limits;
+each card's step ms, tokens/s, peak memory and a profiled window's NCCL
+time.
+``--gang dlrm`` (or ``resnet``, ``llama``) runs that part's comparisons
+only, ``--gang recovery`` the shrink and the desync only.
 ``python3 chip_smoke.py --recovery`` builds the kernels and runs phases 11
 and 14 only (one card). ``python3 chip_smoke.py --input-ab`` times BERT-base, ResNet-50 and the
 DLRM through ``Trainer.fit`` with their batches built in the prefetch
@@ -1214,7 +1230,9 @@ def train_llama(torch, fa) -> dict:
     check(tok.vocab_size <= cfg.vocab_size, "tokenizer ids past the model's vocab")
     base_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
                      if not llama.lora_trainable(n))
-    trainer = Trainer(spark, model, losses.causal_lm, tx, trainable=llama.lora_trainable)
+    trainer = Trainer(spark, model, losses.causal_lm, tx, rules=llama.llama_rules(cfg),
+                      trainable=llama.lora_trainable)
+    check(not trainer.shard_dims, f"one card sharded {trainer.shard_dims}")
     trainer.init()
     setup_s = time.perf_counter() - t0
     os.environ[telemetry.WORKDIR_ENV] = str(workdir)
@@ -1288,8 +1306,10 @@ def train_llama(torch, fa) -> dict:
 
 def train_llama_driver(torch) -> dict:
     """The port's examples/train_llama_lora.py through its cli at
-    ``local[1]`` (a gang of one, NCCL): 7B at b=8, S=1,024, LoRA rank 16,
-    LLAMA_DRIVER_STEPS steps, each logged: it exits 0, the flash kernels
+    ``local[1]`` (a gang of one, NCCL) with its default ``--fsdp -1``, which
+    at one card shards nothing (as JAX at one device): 7B at b=8, S=1,024,
+    LoRA rank 16, LLAMA_DRIVER_STEPS steps, each logged: it exits 0, the
+    mesh is one card's and the card holds the whole model, the flash kernels
     launch LLAMA_LAUNCHES a step, the losses are finite and nothing of the
     run is left."""
     args = ["--variant", "7b", "--seq-len", str(LLAMA_SEQ), "--batch-size",
@@ -1303,7 +1323,9 @@ def train_llama_driver(torch) -> dict:
                left=run["left"], **{k: v for k, v in res.items() if k != "train"})
     print("train llama driver " + json.dumps(rec), flush=True)
     check(res["backend"] == "nccl" and res["device"] == "cuda:0"
-          and res["world_size"] == 1 and res["step"] == LLAMA_DRIVER_STEPS,
+          and res["world_size"] == 1 and res["step"] == LLAMA_DRIVER_STEPS
+          and res["mesh"]["fsdp"] == 1 and res["sharded_params"] == 0
+          and res["by_rank"][0]["param_bytes"] == res["by_rank"][0]["param_bytes_reckoned"],
           f"llama driver: {res}")
     logged = rec["logged_losses"] or []
     check(len(logged) == LLAMA_DRIVER_STEPS and all(np.isfinite(x) for x in logged),
@@ -3064,6 +3086,257 @@ def train_drivers_gang(torch, ranks: int, names=("resnet", "dlrm")) -> dict:
     return out
 
 
+# -- chip_smoke.py --gang llama: config 5 FSDP-sharded over the cards ------------
+
+#: the Llama gang's peak lr: AdamW moves the adapters ~lr a step, so the
+#: losses of a sound run and of a run whose adapters drift apart part
+LLAMA_GANG_LR = 1e-3
+#: the full fine-tune that puts sharded params in training (the LoRA base is
+#: frozen, so its gradients never pass FSDP2's reduce-scatter): Llama-2 7B's
+#: widths cut to this many layers, f32 params, every param trainable, at a
+#: full fine-tune's peak lr. At LLAMA_GANG_LR every param steps ~1e-3 and
+#: the run diverges (losses 10.6, 10.6, 14.4, 8.1, 11.2, 8.6 on four H100s
+#: and on one), where bf16 rounding at 2 rows a card against 8 grew from
+#: 3e-5 at step 3 to 1.08e-3 at step 5, the grad norms 1.5e-4 apart
+LLAMA_GANG_FULL_LAYERS, LLAMA_GANG_FULL_LR = 2, 1e-4
+#: each logged grad norm at N ranks against one card's on the same batches:
+#: bf16 activations summed over b/N rows against b (four H100s read 1.5e-4;
+#: an averaged reduce-scatter leaves the sharded gradients 1/N of the
+#: global batch's: 0.75 off)
+GANG_GRAD_NORM_RTOL = 1e-2
+#: faults planted into the Llama gang: each must break one of its limits
+LLAMA_GANG_FAULTS = {
+    "adapters-local": ("lora", "the replicated params' all-reduce skipped: each "
+                               "rank's LoRA adapters step on its own rows' "
+                               "gradient (ignored_params left rank-local)"),
+    "reduce-scatter-averaged": ("full", "FSDP2's reduce-scatter left at its "
+                                        "default mean: the sharded gradients come "
+                                        "back 1/N of the global batch's"),
+}
+
+
+def _plant_llama(fault: str) -> None:
+    """Plant one of LLAMA_GANG_FAULTS into this process's port."""
+    from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
+
+    if fault == "adapters-local":
+        collectives.all_reduce_grads = lambda grads: None
+    elif fault == "reduce-scatter-averaged":
+        sharding._sum_gradients = lambda unit: None
+    else:
+        check(fault == "none", f"no fault {fault!r}")
+
+
+def _llama_gang_args(ranks: int, steps: int) -> list[str]:
+    """The driver's flags of the Llama gang: 7B at the global b=8, S=1,024,
+    LoRA rank 16, every rank on the fsdp axis (the default --fsdp -1), the
+    corpus in as many partitions as ranks (the same batches on one card)."""
+    return ["--variant", "7b", "--seq-len", str(LLAMA_SEQ), "--batch-size",
+            str(LLAMA_BATCH), "--lora-rank", str(LLAMA_RANK), "--lora-alpha", "16",
+            "--lr", str(LLAMA_GANG_LR), "--steps", str(steps), "--log-every", "1",
+            "--source-partitions", str(ranks)]
+
+
+def llama_rank(argv: list[str]) -> int:
+    """One rank of a Llama gang comparison run (``chip_smoke.py --llama-rank
+    OUT MODE FAULT ARGS``, run by the port's cli): the driver's session,
+    data and model (MODE ``lora``: its trainer; ``full``: the full fine-tune
+    at LLAMA_GANG_FULL_LAYERS layers of the 7B widths under the same
+    ``llama_rules``), FAULT planted, GANG_STEPS steps, each logged; each rank
+    writes ``OUT/rank<r>.json``: its card (flash launches, resident param
+    bytes and the rule engine's reckoning, peak memory) and whether the
+    replicated params agree across the ranks. A sound LoRA run at more than
+    one rank then takes GANG_WINDOW more steps under the profiler."""
+    import dataclasses
+
+    import torch
+
+    from distributeddeeplearningspark_tpu_torch.examples import train_llama_lora as driver
+    from distributeddeeplearningspark_tpu_torch.models import llama
+    from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+    from distributeddeeplearningspark_tpu_torch.utils import sanitize
+
+    out, mode, fault = argv[:3]
+    args = driver.parse_args(argv[3:])
+    _plant_llama(fault)
+    spark = driver.make_session(args, f"llama-gang-{mode}-{fault}")
+    ds, tok = driver.make_dataset(args, spark)
+    cfg = driver.make_config(args, tok.vocab_size)
+    if mode == "lora":
+        trainer = driver.make_trainer(args, spark, cfg)
+    else:
+        cfg = dataclasses.replace(cfg, num_layers=LLAMA_GANG_FULL_LAYERS, lora_rank=0,
+                                  param_dtype=torch.float32)
+        tx = optim.with_grad_clip(optim.adamw(optim.warmup_cosine(
+            LLAMA_GANG_FULL_LR, 1, args.steps)), 1.0)
+        trainer = Trainer(spark, driver.make_model(cfg, spark.device), losses.causal_lm,
+                          tx, rules=llama.llama_rules(cfg))
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit(ds, batch_size=args.batch_size, steps=GANG_STEPS, log_every=1,
+                tokens_per_example=args.seq_len)
+    rec = driver.card_record(trainer, {k.__name__: k.launches for k in kernels})
+    try:
+        sanitize.assert_replicas_in_sync(trainer.state.params)
+        rec["replicas_in_sync"] = True
+    except sanitize.DesyncError as e:
+        rec["replicas_in_sync"] = False
+        rec["desync"] = str(e)[:200]
+    rec.update(rank=spark.rank, world_size=spark.world_size, backend=spark.backend,
+               mesh=spark.mesh.shape, sharded_params=len(trainer.shard_dims))
+    if mode == "lora" and fault == "none" and spark.world_size > 1:
+        rec["profile"] = _profile_fit(torch, trainer, ds, args.batch_size, {},
+                                      steps=GANG_WINDOW)
+    Path(out, f"rank{spark.rank}.json").write_text(json.dumps(rec))
+    spark.stop()
+    return 0
+
+
+def _llama_run(workdir: Path, ranks: int, mode: str, fault: str, args: list[str]
+               ) -> dict:
+    """A :func:`llama_rank` launch of the driver's flags ``args`` at
+    ``local[ranks]``: every rank's record,
+    its logged losses and grad norms, and its step ms (the laps after the
+    first), from its telemetry."""
+    import shutil
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    _, timing = _launch(workdir, ranks, Path(__file__).resolve(),
+                        ["--llama-rank", str(workdir), mode, fault, *args],
+                        timeout=900)
+    cards = [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(ranks)]
+    logged: dict = {}
+    for r in _events(workdir):
+        if r["kind"] == "step_metrics" and r["step"] <= GANG_STEPS:
+            logged.setdefault(r["process"], []).append(
+                (r["metrics"]["loss"], r["metrics"]["grad_norm"],
+                 r["lap_s"] * 1e3 / r["steps"]))
+    by_rank = [logged.get(f"p{r}", []) for r in range(ranks)]
+    return dict(cards=cards, launch=timing,
+                losses=[[x[0] for x in v] for v in by_rank],
+                grad_norms=[[x[1] for x in v] for v in by_rank],
+                step_ms=[float(np.mean([x[2] for x in v][1:])) if len(v) > 1 else None
+                         for v in by_rank])
+
+
+def train_llama_gang(torch, ranks: int) -> dict:
+    """Llama-2 7B LoRA (config 5) FSDP-sharded over ``ranks`` cards (NCCL):
+    the port's driver through its cli at ``local[ranks]`` with its default
+    ``--fsdp -1`` (global b=8, S=1,024, LoRA rank 16) and at ``local[1]``
+    on the same batches. Held: every rank's losses one card's at
+    GANG_LOSS_RTOL, K1/K2/K3 LLAMA_LAUNCHES a step on every card, the
+    replicated params in sync, each card's resident param bytes the rule
+    engine's reckoning, each card's peak memory in fit at least half the
+    base below one card's. Then the full fine-tune at
+    LLAMA_GANG_FULL_LAYERS layers (sharded params in training) at N ranks
+    and on one card: losses at GANG_LOSS_RTOL and grad norms at
+    GANG_GRAD_NORM_RTOL; each of LLAMA_GANG_FAULTS planted into its N-rank
+    run must break one of those limits. Prints each card's step ms,
+    tokens/s, peak memory, and a profiled window's NCCL time."""
+    root = ROOT / "build" / f"chip_smoke_llama_gang_{ranks}"
+    args = _llama_gang_args(ranks, GANG_STEPS)
+    many = _driver_run("llama_lora", root / "driver", ranks, args)
+    one = _driver_run("llama_lora", root / "one", 1, args)
+    res, res1 = many["result"], one["result"]
+    cards = res["by_rank"]
+    want_launches = {k: n * GANG_STEPS for k, n in LLAMA_LAUNCHES.items()}
+    whole_bytes = res1["by_rank"][0]["param_bytes"]  # one card holds it all
+    got, want = many["losses"].get("p0", []), one["losses"].get("p0", [])
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    rec = dict(
+        ranks=ranks, global_batch=LLAMA_BATCH, seq_len=LLAMA_SEQ, lora_rank=LLAMA_RANK,
+        mesh=res["mesh"], sharded_params=res["sharded_params"], losses=got,
+        one_card_losses=want, max_loss_rel_err=_loss_gap(got, want),
+        loss_rtol=GANG_LOSS_RTOL, step_ms_by_rank=many["step_ms_by_rank"],
+        one_card_step_ms=one["step_ms_by_rank"].get("p0"),
+        tokens_per_sec_per_card={p: tokens / ranks / (ms / 1e3)
+                                 for p, ms in many["step_ms_by_rank"].items()},
+        one_card_tokens_per_sec=tokens / (one["step_ms_by_rank"]["p0"] / 1e3),
+        cards=cards, one_card=res1["by_rank"][0], launch=many["launch"],
+        left=many["left"])
+    comparisons = {}
+    for mode in ("lora", "full"):
+        runs = {"none": _llama_run(root / f"{mode}-none", ranks, mode, "none", args)}
+        if mode == "full":
+            runs["one"] = _llama_run(root / "full-one", 1, mode, "none", args)
+        for fault, (fault_mode, _) in LLAMA_GANG_FAULTS.items():
+            if fault_mode == mode:
+                runs[fault] = _llama_run(root / f"{mode}-{fault}", ranks, mode, fault,
+                                         args)
+        ref = runs.get("one")
+        comparisons[mode] = {
+            name: dict(
+                losses=run["losses"][0], grad_norms=run["grad_norms"][0],
+                step_ms=run["step_ms"], launch=run["launch"],
+                replicas_in_sync=all(c["replicas_in_sync"] for c in run["cards"]),
+                ranks_agree=all(v == run["losses"][0] for v in run["losses"]),
+                cards=[{k: c[k] for k in ("flash_launches", "param_bytes",
+                                          "param_bytes_reckoned",
+                                          "max_memory_allocated")}
+                       for c in run["cards"]],
+                profile=run["cards"][0].get("profile"),
+                **(dict(max_loss_rel_err=_loss_gap(run["losses"][0], ref["losses"][0]),
+                        max_grad_norm_rel_err=_loss_gap(run["grad_norms"][0],
+                                                       ref["grad_norms"][0]))
+                   if ref is not None and name != "one" else {}))
+            for name, run in runs.items()}
+    # the LoRA faults against the sound driver runs' one card
+    for name, run in comparisons["lora"].items():
+        run["max_loss_rel_err"] = _loss_gap(run["losses"], want)
+    rec["comparisons"] = comparisons
+    profile = comparisons["lora"]["none"]["profile"] or {}
+    rec["nccl_ms_per_step"] = profile.get("busy_ms_by_family", {}).get("nccl")
+    rec["card"] = nvidia_smi_line()
+    print("gang llama " + json.dumps(rec), flush=True)
+    check(res["world_size"] == ranks and res["backend"] == "nccl"
+          and res["mesh"]["data"] == 1 and res["mesh"]["fsdp"] == ranks
+          and res["replicas_checked"] and res["sharded_params"] > 0,
+          f"llama gang: {({k: v for k, v in res.items() if k != 'train'})}")
+    check(res1["mesh"]["fsdp"] == 1 and res1["sharded_params"] == 0,
+          f"the one-card run sharded: {res1['mesh']}, {res1['sharded_params']}")
+    check(sorted(many["losses"]) == [f"p{r}" for r in range(ranks)]
+          and all(v == got for v in many["losses"].values()),
+          "llama gang: the ranks logged different losses")
+    check(rec["max_loss_rel_err"] <= GANG_LOSS_RTOL,
+          f"llama gang: the losses at {ranks} cards are off one card's "
+          f"({rec['max_loss_rel_err']} > {GANG_LOSS_RTOL}): {got} vs {want}")
+    for r, card in enumerate(cards):
+        check(card["flash_launches"] == want_launches,
+              f"card {r}: flash launches {card['flash_launches']}, want {want_launches}")
+        check(card["param_bytes"] == card["param_bytes_reckoned"] < whole_bytes,
+              f"card {r}: resident param bytes {card['param_bytes']}, the rule "
+              f"engine's reckoning {card['param_bytes_reckoned']}, one card's "
+              f"{whole_bytes}")
+        check(res1["by_rank"][0]["max_memory_allocated"] - card["max_memory_allocated"]
+              >= whole_bytes / 2,
+              f"card {r}: peak {card['max_memory_allocated']} is not half the base "
+              f"below one card's {res1['by_rank'][0]['max_memory_allocated']}")
+    check(not many["left"] and not one["left"], f"left {many['left']} {one['left']}")
+    check(profile.get("busy_ms_by_family", {}).get("nccl", 0.0) > 0,
+          f"no NCCL kernel in the profiled llama gang: {profile}")
+    sound = [comparisons["lora"]["none"], comparisons["full"]["none"]]
+    check(all(run["replicas_in_sync"] and run["ranks_agree"] for run in sound)
+          and sound[0]["max_loss_rel_err"] <= GANG_LOSS_RTOL,
+          f"llama gang comparisons: {sound}")
+    full = comparisons["full"]["none"]
+    check(full["max_loss_rel_err"] <= GANG_LOSS_RTOL
+          and full["max_grad_norm_rel_err"] <= GANG_GRAD_NORM_RTOL,
+          f"the full fine-tune at {ranks} cards is off one card's: "
+          f"{full['max_loss_rel_err']}, {full['max_grad_norm_rel_err']}")
+    for fault, (mode, why) in LLAMA_GANG_FAULTS.items():
+        seen = comparisons[mode][fault]
+        check(not seen["replicas_in_sync"] or seen["max_loss_rel_err"] > GANG_LOSS_RTOL
+              or seen.get("max_grad_norm_rel_err", 0.0) > GANG_GRAD_NORM_RTOL,
+              f"llama gang: the planted fault {fault!r} ({why}) stays within every "
+              f"limit: {seen}")
+    return rec
+
+
 # -- chip_smoke.py --gang: shrink to survive, and a planted desync ----------------
 
 #: the supervised LeNet gang that loses host 1: steps, a global batch that
@@ -3431,18 +3704,19 @@ def input_ab_main(torch) -> int:
 
 
 def gang_main(torch, names: list[str]) -> int:
-    """``chip_smoke.py --gang [resnet|dlrm|recovery ...]``: at one rank per
-    visible card (2 or more), NCCL between them, the LeNet phase, the
-    supervised shrink and the planted desync, then the ResNet-50 and DLRM
-    drivers (:func:`train_drivers_gang`); with names, only those parts."""
+    """``chip_smoke.py --gang [resnet|dlrm|recovery|llama ...]``: at one rank
+    per visible card (2 or more), NCCL between them, the LeNet phase, the
+    supervised shrink and the planted desync, the ResNet-50 and DLRM
+    drivers (:func:`train_drivers_gang`), then Llama-2 7B LoRA sharded over
+    the cards (:func:`train_llama_gang`); with names, only those parts."""
     ranks = torch.cuda.device_count()
     if ranks < 2:
         print(f"chip_smoke --gang: {ranks} card(s); it needs 2 or more",
               file=sys.stderr)
         return 2
-    if not set(names) <= set(GANG_FAULTS) | {"recovery"}:
+    if not set(names) <= set(GANG_FAULTS) | {"recovery", "llama"}:
         print(f"chip_smoke --gang: no part {names}; choose from "
-              f"{sorted(GANG_FAULTS) + ['recovery']}", file=sys.stderr)
+              f"{sorted(GANG_FAULTS) + ['llama', 'recovery']}", file=sys.stderr)
         return 2
     try:
         if not names:
@@ -3453,6 +3727,8 @@ def gang_main(torch, names: list[str]) -> int:
         drivers = tuple(n for n in names if n in GANG_FAULTS)
         if drivers or not names:
             train_drivers_gang(torch, ranks, drivers or tuple(GANG_FAULTS))
+        if not names or "llama" in names:
+            train_llama_gang(torch, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3609,6 +3885,8 @@ def main() -> int:
         return lenet_rank()
     if sys.argv[1:2] == ["--model-rank"]:
         return model_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--llama-rank"]:
+        return llama_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--desync-rank"]:
         return desync_rank(*sys.argv[2:4])
     if sys.argv[1:2] == ["--bn-half-rank"]:

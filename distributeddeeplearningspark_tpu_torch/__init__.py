@@ -84,6 +84,8 @@ _EXPORTS = {
     "LeNet5": "distributeddeeplearningspark_tpu_torch.models.lenet",
     "PartitionedDataset": "distributeddeeplearningspark_tpu_torch.rdd",
     "MeshSpec": "distributeddeeplearningspark_tpu_torch.parallel.mesh",
+    "ShardingRules": "distributeddeeplearningspark_tpu_torch.parallel.sharding",
+    "Plan": "distributeddeeplearningspark_tpu_torch.parallel.plan",
     "Checkpointer": "distributeddeeplearningspark_tpu_torch.checkpoint",
     "BertConfig": "distributeddeeplearningspark_tpu_torch.models.bert",
     "BertForMLM": "distributeddeeplearningspark_tpu_torch.models.bert",
@@ -108,6 +110,7 @@ _EXPORTS = {
     "LlamaForCausalLM": "distributeddeeplearningspark_tpu_torch.models.llama",
     "llama2_7b": "distributeddeeplearningspark_tpu_torch.models.llama",
     "lora_trainable": "distributeddeeplearningspark_tpu_torch.models.llama",
+    "llama_rules": "distributeddeeplearningspark_tpu_torch.models.llama",
     "StreamingAUC": "distributeddeeplearningspark_tpu_torch.metrics",
     "Session": "distributeddeeplearningspark_tpu_torch.session",
     "Trainer": "distributeddeeplearningspark_tpu_torch.train.trainer",
@@ -118,6 +121,8 @@ if TYPE_CHECKING:  # static analyzers see the real names
     from distributeddeeplearningspark_tpu_torch.checkpoint import Checkpointer
     from distributeddeeplearningspark_tpu_torch.models.lenet import LeNet5
     from distributeddeeplearningspark_tpu_torch.parallel.mesh import MeshSpec
+    from distributeddeeplearningspark_tpu_torch.parallel.plan import Plan
+    from distributeddeeplearningspark_tpu_torch.parallel.sharding import ShardingRules
     from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
     from distributeddeeplearningspark_tpu_torch.models.bert import (
         BertConfig,
@@ -129,6 +134,7 @@ if TYPE_CHECKING:  # static analyzers see the real names
         LlamaConfig,
         LlamaForCausalLM,
         llama2_7b,
+        llama_rules,
         lora_trainable,
     )
     from distributeddeeplearningspark_tpu_torch.models.dlrm import (

@@ -18,9 +18,14 @@ How the port differs: the files are written into ``<directory>/
 ``<step>``. The rename is the structural commit marker: the manifest is
 written before it, so every committed step has one, and a step whose
 manifest went missing later verifies structurally when its ``state.pt``
-is there. Data-parallel params are replicated, so rank 0 writes; every
-other rank's :meth:`Checkpointer.save` is a no-op, and :meth:`wait` ends
-with a barrier, so no rank reads a step before rank 0 has committed it.
+is there. Rank 0 writes; every other rank's :meth:`Checkpointer.save`
+writes nothing, and :meth:`wait` ends with a barrier, so no rank reads a
+step before rank 0 has committed it. A sharded state (FSDP,
+:mod:`.parallel.sharding`) is saved whole in the same format: every rank
+takes part in gathering each sharded leaf (``full_tensor()``), one leaf at
+a time, and rank 0 copies it to the host. So a step written at ``fsdp=N``
+restores at any rank count, the supervisor's shrink included: the restore
+reads the whole tensors on every rank and writes each rank's shard.
 With ``async_save`` the state is copied to the host on the loop's thread
 and the files are written on a background thread; :meth:`wait` joins it.
 
@@ -28,8 +33,8 @@ Telemetry, through the process-wide writer: the ``checkpoint`` phase
 spans :meth:`save`'s blocking part (waiting out the previous write and the
 copy to the host), ``checkpoint-wait`` spans :meth:`wait`,
 ``checkpoint-verify`` each verification of the walk, ``restore`` the
-read; a quarantine writes a ``recovery`` event. orbax, sharded items and
-reshard-on-restore are not ported (ROADMAP Queue 1 item 7).
+read; a quarantine writes a ``recovery`` event. orbax and per-rank shard
+files are not ported (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from typing import Any
 import torch
 
 from distributeddeeplearningspark_tpu_torch import telemetry
-from distributeddeeplearningspark_tpu_torch.parallel import collectives
+from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
 
 logger = logging.getLogger("distributeddeeplearningspark_tpu_torch.checkpoint")
 
@@ -176,15 +181,18 @@ def latest_step_in(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def _to_host(tree: Any) -> Any:
+def _to_host(tree: Any, keep: bool = True) -> Any:
     """A copy of ``tree`` with every tensor on the CPU (never sharing the
-    live tensor's storage)."""
+    live tensor's storage), a sharded one gathered whole first (a
+    collective). ``keep=False`` (the ranks that do not write): only take
+    part in the gathers."""
     if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
+        return {k: _to_host(v, keep) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_host(v) for v in tree]
+        return [_to_host(v, keep) for v in tree]
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
+        whole = sharding.full(tree.detach())
+        return whole.to("cpu", copy=True) if keep else None
     return tree
 
 
@@ -216,6 +224,8 @@ class Checkpointer:
         """Save ``state`` (a TrainState) at ``step``, with an optional JSON
         ``data_state``. Returns True where this rank wrote (rank 0)."""
         if collectives.rank() != 0:
+            if any(sharding.is_sharded(t) for t in state.params.values()):
+                _to_host(state.state_dict(), keep=False)
             return False
         with telemetry.phase("checkpoint", step=int(step)):
             self._join_writer()

@@ -43,7 +43,7 @@ import sys
 import time
 
 from distributeddeeplearningspark_tpu_torch import telemetry
-from distributeddeeplearningspark_tpu_torch.parallel.mesh import spec_from_conf
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import devices_from_conf
 from distributeddeeplearningspark_tpu_torch.utils.env import (
     COORDINATOR_ENV,
     NUM_PROCESSES_ENV,
@@ -97,9 +97,9 @@ def parse_conf(args: argparse.Namespace) -> dict[str, str]:
 
 def num_processes(conf: dict[str, str]) -> int:
     """How many ranks the launch conf asks for."""
-    spec = spec_from_conf(conf.get("spark.master"), conf)
-    if spec.data != -1:
-        return spec.data
+    n = devices_from_conf(conf.get("spark.master"), conf)
+    if n is not None:
+        return n
     if conf.get("spark.dls.device", "cuda") == "cpu":
         return 1
     import torch

@@ -17,8 +17,22 @@ weights from seed 0 → ``Trainer.fit`` with ``causal_lm`` and
 the clip sees the adapters' gradients only, and the base leaves autograd
 (``trainable=lora_trainable``). At S a multiple of 512 in bf16 (7B, 13B)
 the attention runs on the flash kernels (K1 forward and in the remat
-recompute, K2/K3 backward). At ``local[N]`` each rank holds a whole
-replica and the adapters' gradients are all-reduced.
+recompute, K2/K3 backward).
+
+Sharded as the JAX driver shards it: ``--fsdp`` (default ``-1``, every
+rank) sets ``mesh.data=1, mesh.fsdp=--fsdp`` and the trainer takes
+``rules=llama_rules(cfg)``, so at ``local[N]`` the base is FSDP-sharded
+over the N ranks (FSDP2, each card holding 1/N of it) while the LoRA
+adapters and the norm scales stay replicated and their gradients are
+all-reduced; at ``local[1]`` nothing is sharded. On the CPU::
+
+    python -m distributeddeeplearningspark_tpu_torch.cli --master local[2] \\
+        --conf spark.dls.device=cpu \\
+        distributeddeeplearningspark_tpu_torch/examples/train_llama_lora.py \\
+        --variant tiny --steps 4 --batch-size 4 --seq-len 64 --lora-rank 4
+
+``--source-partitions P`` keeps the global batches the same at any rank
+count that divides P.
 
 Under the port's supervisor (relaunch from the newest checkpoint when a
 rank dies)::
@@ -34,12 +48,16 @@ port's (the JAX driver has none); a restore that raises exits with the
 supervisor's ``RESTORE_FAILED_EXIT``. A checkpoint holds the whole state,
 the frozen base included.
 
-The JAX driver's sharding, sequence and pipeline parallelism, MoE, int8
+The JAX driver's tensor, sequence and pipeline parallelism, MoE, int8
 base, fused head, sampling and the import of real weights (which needs
 their tokenizer) are not ported yet: those flags fail at parse time, each
 naming its ROADMAP item. Rank 0 prints one JSON line: the train summary,
-where the run went (world size, backend, device), the flash kernels'
-launches in ``fit`` and the peak device memory.
+where the run went (world size, backend, device, the mesh), the number of
+sharded params, and for each rank the flash kernels' launches in ``fit``,
+its resident param bytes (each shard's ``to_local()``, each replicated
+param whole) beside the rule engine's reckoning, and its peak device
+memory during ``fit``; ``replicas_checked`` says the replicated params
+were compared across the ranks.
 """
 
 import argparse
@@ -58,11 +76,14 @@ from distributeddeeplearningspark_tpu_torch.examples import (
 from distributeddeeplearningspark_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
+    llama_rules,
     lora_trainable,
 )
 from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
+from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 from distributeddeeplearningspark_tpu_torch.train import losses, optim
+from distributeddeeplearningspark_tpu_torch.utils import sanitize
 
 NOT_PORTED = {
     "--weights": "a fine-tune from real Llama-2 weights waits for the weights "
@@ -78,10 +99,10 @@ NOT_PORTED = {
     "--fused-head-loss": "train/fused_ce.py: ROADMAP Queue 1 item 5",
     "--sample-tokens": "models/llama_gen.py: ROADMAP Queue 1 item 8",
 }
-#: mesh axes of the JAX driver: only size 1 (no sharding) is ported
+#: mesh axes of the JAX driver the port cannot shard over yet: only 1
 MESH_AXES = {
-    "fsdp": "FSDP (parallel/sharding.py, FSDP2 fully_shard): ROADMAP Queue 1 item 5",
-    "tensor": "tensor parallelism (DTensor, llama_rules): ROADMAP Queue 1 item 5",
+    "tensor": "tensor parallelism (DTensor, llama_rules' tensor entries): "
+              "ROADMAP Queue 1 item 5",
     "seq_parallel": "context parallelism (ring, Ulysses): ROADMAP Queue 1 item 6",
     "pipeline": "the pipeline (models/llama_pp.py): ROADMAP Queue 1 item 6",
 }
@@ -107,12 +128,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "ids and attention never crosses document boundaries")
     p.add_argument("--corpus", default=None,
                    help="text file (one document a line); synthetic if unset")
+    p.add_argument("--source-partitions", type=int, default=None,
+                   help="partitions of the synthetic corpus (a multiple of the "
+                        "ranks); the global batches are the same at any rank "
+                        "count that divides it. Default: one a rank")
     p.add_argument("--log-every", type=int, default=10)
-    for axis, default in (("fsdp", -1), ("tensor", 1), ("seq_parallel", 1),
-                          ("pipeline", 1)):
-        p.add_argument("--" + axis.replace("_", "-"), type=int, default=default,
-                       help=f"only 1 (-1 for --fsdp: no sharding) is ported: "
-                            f"{MESH_AXES[axis]}")
+    p.add_argument("--fsdp", type=int, default=-1,
+                   help="FSDP axis size (-1: every rank)")
+    for axis in MESH_AXES:
+        p.add_argument("--" + axis.replace("_", "-"), type=int, default=1,
+                       help=f"only 1 is ported: {MESH_AXES[axis]}")
     add_checkpoint_flags(p)
     add_not_ported(p, NOT_PORTED)
     return p
@@ -139,30 +164,43 @@ def make_config(args: argparse.Namespace, vocab_size: int) -> LlamaConfig:
                             lora_rank=args.lora_rank, lora_alpha=args.lora_alpha)
 
 
-def main(argv: list[str] | None = None) -> None:
-    args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    faults.die_if_dead_host_on_relaunch()
-    builder = Session.builder.appName("llama-lora")
+def make_session(args: argparse.Namespace, app: str = "llama-lora") -> Session:
+    """The session on the JAX driver's mesh: ``mesh.data=1`` and
+    ``mesh.fsdp=--fsdp`` (config 5 is FSDP-dominant: the fsdp workers are
+    the executors)."""
+    builder = (Session.builder.appName(app).config("mesh.data", 1)
+               .config("mesh.fsdp", args.fsdp))
     if args.master:
         builder = builder.master(args.master)
-    spark = builder.getOrCreate()
-    print(spark, flush=True)
+    return builder.getOrCreate()
 
+
+def make_dataset(args: argparse.Namespace, spark: Session):
+    """(the repeated ``lm_dataset``, its tokenizer): the corpus (or
+    ``synthetic_wikipedia``) → a ``WordPieceTokenizer`` trained on it."""
+    parts = args.source_partitions or max(spark.default_parallelism, 1)
     if args.corpus:
         with open(args.corpus) as f:
             lines = [ln.rstrip("\n") for ln in f if ln.strip()]
-        docs = PartitionedDataset.parallelize(lines, spark.default_parallelism)
+        docs = PartitionedDataset.parallelize(lines, parts)
     else:
-        docs = text_lib.synthetic_wikipedia(
-            1024, num_partitions=max(spark.default_parallelism, 1))
+        docs = text_lib.synthetic_wikipedia(1024, num_partitions=parts)
     tok = text_lib.WordPieceTokenizer.train(docs.collect(), vocab_size=2048)
-    cfg = make_config(args, tok.vocab_size)
-    model = LlamaForCausalLM(cfg, device=spark.device)
-    model.init_weights(torch.Generator(device=spark.device).manual_seed(0))
     ds = text_lib.lm_dataset(docs, tok, seq_len=args.seq_len,
                              segment_ids=args.segment_ids).repeat()
+    return ds, tok
 
+
+def make_model(cfg: LlamaConfig, device: torch.device) -> LlamaForCausalLM:
+    """The model at ``cfg``, weights from seed 0 (the same on every rank)."""
+    model = LlamaForCausalLM(cfg, device=device)
+    return model.init_weights(torch.Generator(device=device).manual_seed(0))
+
+
+def make_trainer(args: argparse.Namespace, spark: Session, cfg: LlamaConfig,
+                 checkpointer: Checkpointer | None = None) -> Trainer:
+    """The LoRA fine-tune's trainer, the params laid out by ``llama_rules``
+    over the session's mesh."""
     # the clip inside the mask: the norm over the adapters' gradients only
     tx = optim.masked(
         optim.with_grad_clip(
@@ -170,10 +208,39 @@ def main(argv: list[str] | None = None) -> None:
                 args.lr, min(10, max(args.steps // 10, 1)), args.steps)),
             1.0),
         lora_trainable)
+    return Trainer(spark, make_model(cfg, spark.device), losses.causal_lm, tx,
+                   rules=llama_rules(cfg), accum_steps=args.accum_steps,
+                   trainable=lora_trainable, checkpointer=checkpointer)
+
+
+def card_record(trainer: Trainer, launches: dict) -> dict:
+    """This rank's card: its flash launches, its resident param bytes beside
+    the rule engine's reckoning, and its peak device memory."""
+    named = dict(trainer.model.named_parameters())
+    device = trainer.device
+    return {
+        "flash_launches": launches,
+        "param_bytes": sharding.resident_param_bytes(trainer.model),
+        "param_bytes_reckoned": sharding.bytes_per_card(
+            {n: tuple(p.shape) for n, p in named.items()},
+            {n: p.element_size() for n, p in named.items()},
+            trainer.plan.rules, trainer.session.mesh),
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None),
+    }
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    faults.die_if_dead_host_on_relaunch()
+    spark = make_session(args)
+    print(spark, flush=True)
+
+    ds, tok = make_dataset(args, spark)
+    cfg = make_config(args, tok.vocab_size)
     ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
-    trainer = Trainer(spark, model, losses.causal_lm, tx,
-                      accum_steps=args.accum_steps, trainable=lora_trainable,
-                      checkpointer=ckpt)
+    trainer = make_trainer(args, spark, cfg, ckpt)
     data_state, restored_step = resume(trainer, ckpt, args.resume)
     kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     before = [k.launches for k in kernels]
@@ -185,16 +252,20 @@ def main(argv: list[str] | None = None) -> None:
                                  checkpoint_every=args.checkpoint_every if ckpt else None,
                                  data_state=data_state)
     launches = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
+    by_rank = collectives.all_gather_object(card_record(trainer, launches))
+    sanitize.assert_replicas_in_sync(state.params, what="replicated params")
     if spark.rank == 0:
         print(json.dumps({
             "train": summary, "step": state.step, "restored_step": restored_step,
             "variant": args.variant,
             "world_size": spark.world_size, "backend": spark.backend,
-            "device": str(spark.device), "flash_launches": launches,
+            "device": str(spark.device), "mesh": spark.mesh.shape,
+            "sharded_params": len(trainer.shard_dims),
+            "flash_launches": launches,
             "trainable_params": sum(p.numel() for n, p in state.params.items()
                                     if lora_trainable(n)),
-            "max_memory_allocated": (torch.cuda.max_memory_allocated(spark.device)
-                                     if spark.device.type == "cuda" else None),
+            "max_memory_allocated": by_rank[0]["max_memory_allocated"],
+            "by_rank": by_rank, "replicas_checked": spark.world_size > 1,
         }), flush=True)
     if ckpt:
         ckpt.close()

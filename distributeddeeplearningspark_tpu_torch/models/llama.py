@@ -32,6 +32,11 @@ Batch dict: ``input_ids`` [B,S] int, optional ``attention_mask`` [B,S] 1/0
 and ``segment_ids`` [B,S]; ``loss_mask`` is the loss's. Returns logits
 [B,S,vocab] f32.
 
+:func:`llama_rules` is the JAX ``llama_rules`` over the port's param
+names: the layout ``Trainer(rules=...)`` lowers to FSDP2 over the ``fsdp``
+axis (:mod:`..parallel.sharding`), its ``tensor`` entries kept in torch's
+``[out, in]`` layout for tensor parallelism.
+
 Not ported yet, and refused by name: the MoE FFN and ring/Ulysses
 attention (ROADMAP Queue 1 item 6), the int8 frozen base and the fused
 head loss (item 5), decoding with a KV cache (item 8).
@@ -52,6 +57,7 @@ from distributeddeeplearningspark_tpu_torch.ops.attention import (
     dot_product_attention,
     padding_mask,
 )
+from distributeddeeplearningspark_tpu_torch.parallel.sharding import P, ShardingRules
 from distributeddeeplearningspark_tpu_torch.utils.device import resolve_device
 
 
@@ -338,3 +344,39 @@ def lora_trainable(path: str) -> bool:
     the base is frozen. Give it to ``optim.masked`` and to
     ``Trainer(trainable=...)``."""
     return "lora_a" in path or "lora_b" in path
+
+
+def llama_rules(cfg: LlamaConfig, *, fsdp: bool = True,
+                fsdp_min_size: int = 2**14, pipeline: bool = False) -> ShardingRules:
+    """FSDP + Megatron-style tensor-parallel layout for the Llama params
+    (JAX's ``llama_rules``, on torch's ``[out, in]`` weights).
+
+    Attention's q/k/v shard their heads (output rows) over ``tensor``; the
+    out-projection and the MLP's down-projection shard their input
+    (contracting) columns, so the pair is a split matmul and one
+    all-reduce a block. The embedding and the LM head shard the vocab.
+    LoRA adapters stay replicated: rank-r factors are too small to be worth
+    a collective. The auto-FSDP pass then shards the largest remaining dim
+    of every param of at least ``fsdp_min_size`` elements over ``fsdp``.
+    The port's mesh refuses ``tensor`` above 1 (ROADMAP Queue 1 item 5), so
+    today only the FSDP pass shards. The int8 base, the MoE bank and the
+    pipeline's stage layout raise, as the model does."""
+    if pipeline:
+        raise NotImplementedError(
+            "llama_rules(pipeline=True): the pipeline (models/llama_pp.py) is "
+            "not ported yet: ROADMAP Queue 1 item 6")
+    for field in ("base_quant", "moe_experts"):
+        if getattr(cfg, field):
+            raise NotImplementedError(f"llama_rules for LlamaConfig.{field}: "
+                                      f"{_NOT_PORTED[field]}")
+    rules = (
+        (r"lora_", P()),
+        (r"(wq|wk|wv)/weight", P("tensor", None)),
+        (r"wo/weight", P(None, "tensor")),
+        (r"(gate|up)/weight", P("tensor", None)),
+        (r"down/weight", P(None, "tensor")),
+        (r"token_embed/weight", P("tensor", None)),
+        (r"lm_head/weight", P("tensor", None)),
+    )
+    return ShardingRules(rules=rules, fsdp=fsdp, fsdp_min_size=fsdp_min_size,
+                         fsdp_exclude=(r"lora_",))

@@ -81,6 +81,16 @@ def broadcast_object(obj: Any, src: int = 0) -> Any:
     return box[0]
 
 
+def all_gather_object(obj: Any) -> list:
+    """Every rank's ``obj`` (picklable), in rank order (``[obj]`` outside a
+    group)."""
+    if not active():
+        return [obj]
+    out: list = [None] * world_size()
+    _dist().all_gather_object(out, obj)
+    return out
+
+
 def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
     """Sum ``t`` across ranks in place (a no-op outside a group)."""
     if active():

@@ -2,20 +2,26 @@
 
 The port of ``distributeddeeplearningspark_tpu/parallel/mesh.py``'s
 :class:`MeshSpec`: the same axis names in the same order (``data``,
-``fsdp``, ``pipe``, ``expert``, ``seq``, ``tensor``), ``data=-1``
-absorbing every device, and the same conf keys, parsed as the JAX
+``fsdp``, ``pipe``, ``expert``, ``seq``, ``tensor``), at most one axis
+``-1`` absorbing every device, and the same conf keys, parsed as the JAX
 ``Session`` parses them (``local[N]``, ``mesh.<axis>``, ``mesh.data``,
 ``spark.executor.instances``, the last winning for ``data``).
 
 In the port an executor is a process holding one device, so a mesh spans
-the processes of a ``torch.distributed`` group. Only the ``data`` axis is
-ported: a spec with any other axis above 1 raises ``NotImplementedError``
-(FSDP and tensor parallelism are ROADMAP Queue 1 item 5).
+the processes of a ``torch.distributed`` group. The ``data`` and ``fsdp``
+axes are ported, one at a time: ``fsdp > 1`` shards parameters over the
+gang (FSDP2, :mod:`.sharding`), the JAX Llama driver's layout
+(``mesh.data=1, mesh.fsdp=-1``). Everything else raises
+``NotImplementedError`` naming its ROADMAP item: ``tensor`` (Queue 1 item
+5), ``data`` and ``fsdp`` both above 1 (HSDP, item 5), ``seq``, ``pipe``
+and ``expert`` (item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Any
 
 AXIS_DATA = "data"
 AXIS_FSDP = "fsdp"
@@ -34,10 +40,22 @@ BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
 #: master URLs that ask for every local device
 WILDCARD_MASTERS = (None, "auto", "local", "local[*]")
 
+#: the axes not ported yet → their ROADMAP item
+_NOT_PORTED = {
+    AXIS_PIPE: "pipeline parallelism (parallel/pipeline.py): ROADMAP Queue 1 item 6",
+    AXIS_EXPERT: "expert parallelism (models/moe.py): ROADMAP Queue 1 item 6",
+    AXIS_SEQ: "context parallelism (ring, Ulysses): ROADMAP Queue 1 item 6",
+    AXIS_TENSOR: "tensor parallelism (DTensor, llama_rules' tensor entries): "
+                 "ROADMAP Queue 1 item 5",
+}
+_HSDP = ("a mesh with both data and fsdp above 1 (HSDP) is not ported yet: "
+         "ROADMAP Queue 1 item 5")
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """Declarative mesh shape; ``data=-1`` absorbs every device."""
+    """Declarative mesh shape; ``-1`` means "absorb all remaining devices".
+    At most one axis may be ``-1``."""
 
     data: int = -1
     fsdp: int = 1
@@ -47,27 +65,55 @@ class MeshSpec:
     tensor: int = 1
 
     def __post_init__(self) -> None:
-        beyond = {a: getattr(self, a) for a in MESH_AXES[1:]
-                  if getattr(self, a) != 1}
+        for axis in MESH_AXES:
+            n = getattr(self, axis)
+            if n == 0 or n < -1:
+                raise ValueError(f"mesh {axis} axis must be >= 1 or -1, got {n}")
+        beyond = {a: getattr(self, a) for a in _NOT_PORTED if getattr(self, a) != 1}
         if beyond:
             raise NotImplementedError(
-                f"mesh axes {beyond}: the port shards only the data axis; "
-                f"FSDP, tensor, sequence, expert and pipeline axes are "
-                f"ROADMAP Queue 1 item 5")
-        if self.data == 0 or self.data < -1:
-            raise ValueError(f"mesh data axis must be >= 1 or -1, got {self.data}")
+                f"mesh axes {beyond}: the port shards over data and fsdp only; "
+                + "; ".join(_NOT_PORTED[a] for a in beyond))
+        if self.data > 1 and self.fsdp > 1:
+            raise NotImplementedError(f"mesh {self.sizes}: {_HSDP}")
+        if self.data == -1 and self.fsdp == -1:
+            raise ValueError(f"at most one mesh axis may be -1, got spec {self}")
+
+    @property
+    def sizes(self) -> tuple[int, ...]:
+        return tuple(getattr(self, a) for a in MESH_AXES)
 
     def axis_sizes(self, num_devices: int) -> tuple[int, ...]:
-        """Each axis's size over ``num_devices`` (every axis but ``data``
-        is 1)."""
-        data = num_devices if self.data == -1 else self.data
-        if data != num_devices:
-            raise ValueError(f"mesh spec needs {data} devices, got {num_devices}")
-        return (data,) + (1,) * (len(MESH_AXES) - 1)
+        """Each axis's size over ``num_devices``: the ``-1`` axis takes what
+        the others leave (JAX's rule)."""
+        sizes = list(self.sizes)
+        wild = [i for i, s in enumerate(sizes) if s == -1]
+        fixed = math.prod(s for s in sizes if s != -1)
+        if wild:
+            if num_devices % fixed:
+                raise ValueError(f"{num_devices} devices not divisible by fixed "
+                                 f"axes {fixed} ({self})")
+            sizes[wild[0]] = num_devices // fixed
+        if math.prod(sizes) != num_devices:
+            raise ValueError(f"mesh spec {tuple(sizes)} needs {math.prod(sizes)} "
+                             f"devices, got {num_devices}")
+        if sizes[0] > 1 and sizes[1] > 1:
+            raise NotImplementedError(f"mesh {tuple(sizes)}: {_HSDP}")
+        return tuple(sizes)
 
     def shape(self, num_devices: int) -> dict[str, int]:
         """``{axis: size}`` over ``num_devices`` (``Mesh.shape``'s form)."""
         return dict(zip(MESH_AXES, self.axis_sizes(num_devices)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A session's mesh: each axis's size (the JAX ``Mesh.shape``) and, where
+    ``fsdp`` is above 1, the ``torch.distributed`` ``DeviceMesh`` over the
+    gang whose one dim is named ``fsdp`` (None otherwise)."""
+
+    shape: dict[str, int]
+    device_mesh: Any = None
 
 
 def num_data_shards(shape: dict[str, int]) -> int:
@@ -87,8 +133,9 @@ def local_n(master: str | None) -> int | None:
 def spec_from_conf(master: str | None, conf: dict[str, str]) -> MeshSpec:
     """A master URL and session conf as a :class:`MeshSpec`, by the JAX
     ``Session``'s rules: ``local[N]`` asks for N data shards, a wildcard
-    master for all (``data=-1``); ``mesh.data`` and then
-    ``spark.executor.instances`` override the data axis."""
+    master for all (``data=-1``); ``mesh.<axis>`` sizes the others (``-1``
+    included); ``mesh.data`` and then ``spark.executor.instances`` override
+    the data axis."""
     axes = {a: int(conf.get(f"mesh.{a}", 1)) for a in MESH_AXES[1:]}
     if master in WILDCARD_MASTERS:
         data = -1
@@ -101,3 +148,18 @@ def spec_from_conf(master: str | None, conf: dict[str, str]) -> MeshSpec:
     if conf.get("spark.executor.instances") is not None:
         data = int(conf["spark.executor.instances"])
     return MeshSpec(data=data, **axes)
+
+
+def devices_from_conf(master: str | None, conf: dict[str, str]) -> int | None:
+    """How many devices (processes) a master URL and conf ask for; None for
+    every device. A spec without a ``-1`` axis asks for the product of its
+    axes; with one, ``local[N]`` asks for N times the other fixed axes but
+    ``data`` (JAX's ``local[N]`` with ``mesh.data=1, mesh.fsdp=-1`` is N
+    devices over fsdp), and a wildcard master for all."""
+    spec = spec_from_conf(master, conf)
+    if -1 not in spec.sizes:
+        return math.prod(spec.sizes)
+    n = local_n(master)
+    if n is None:
+        return None
+    return n * math.prod(s for s in spec.sizes[1:] if s != -1)

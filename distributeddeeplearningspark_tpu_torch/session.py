@@ -35,8 +35,16 @@ forms the group, and the train step's all-reduce runs over it.
   for bit on the card as on the CPU.
 
 Conf exported by the launcher (``DLS_CONF_*``) is read first; the
-builder's ``.master()``/``.config()`` win over it. Only the ``data`` mesh
-axis is ported (:mod:`.parallel.mesh`).
+builder's ``.master()``/``.config()`` win over it.
+
+``Session.mesh`` is the mesh over the gang (:mod:`.parallel.mesh`): its
+``shape`` is JAX's ``Session.mesh.shape``, and the global batch is split
+``data × fsdp`` ways, one share a process. With ``mesh.fsdp`` above 1 (the
+JAX Llama driver's ``mesh.data=1, mesh.fsdp=-1``: every process on the
+``fsdp`` axis) the session builds a ``torch.distributed`` ``DeviceMesh``
+over its group, one dim named ``fsdp``, on the session's device type;
+``Trainer(rules=...)`` shards parameters over it (:mod:`.parallel.sharding`).
+Such a mesh without a group raises.
 """
 
 from __future__ import annotations
@@ -50,7 +58,10 @@ from typing import Any, Iterable, Sequence
 import torch
 
 from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
+    AXIS_FSDP,
+    Mesh,
     MeshSpec,
+    devices_from_conf,
     num_data_shards,
     spec_from_conf,
 )
@@ -83,12 +94,14 @@ class Session:
 
     def __init__(self, app_name: str, conf: dict[str, str], device: torch.device,
                  spec: MeshSpec | None = None, *, rank: int = 0,
-                 world_size: int = 1, group: bool = False):
+                 world_size: int = 1, group: bool = False, device_mesh=None):
         self.app_name = app_name
         self.conf = dict(conf)
         self.device = device
         self.spec = spec or MeshSpec(data=world_size)
-        self.mesh_shape = self.spec.shape(world_size)
+        #: the mesh over the gang: ``mesh.shape`` ``{axis: size}``, and the
+        #: ``DeviceMesh`` when ``fsdp`` is above 1
+        self.mesh = Mesh(self.spec.shape(world_size), device_mesh)
         self.rank = rank
         self.world_size = world_size
         #: True when this session formed a ``torch.distributed`` group
@@ -145,7 +158,7 @@ class Session:
     @property
     def default_parallelism(self) -> int:
         """Data shards: one per process of the gang."""
-        return num_data_shards(self.mesh_shape)
+        return num_data_shards(self.mesh.shape)
 
     @property
     def num_devices(self) -> int:
@@ -213,24 +226,35 @@ def _join_group(env: DistributedEnv, device: torch.device) -> None:
                            f"{env.world_size}")
 
 
+def _fsdp_device_mesh(size: int, device: torch.device):
+    """The ``DeviceMesh`` over the gang's group, one dim named ``fsdp`` (the
+    mesh refuses ``data × fsdp``, so ``fsdp`` spans every process)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device.type, (size,), mesh_dim_names=(AXIS_FSDP,))
+
+
 def _create_session(conf: dict[str, str]) -> Session:
     device = resolve_device(conf.get(DEVICE_CONF, "cuda"))
     master = conf.get("spark.master")
     spec = spec_from_conf(master, conf)
+    requested = devices_from_conf(master, conf)
     env = distributed_env()
     world = env.world_size if env is not None else 1
-    if env is None and spec.data not in (-1, 1):
+    if env is None and requested not in (None, 1):
         raise ValueError(
-            f"master {master!r} asks for {spec.data} executors: in the port "
+            f"master {master!r} asks for {requested} executors: in the port "
             f"an executor is a process; launch the script through "
             f"`python -m distributeddeeplearningspark_tpu_torch.cli "
-            f"--master local[{spec.data}] script.py`")
-    if env is not None and spec.data not in (-1, world):
-        raise ValueError(f"master {master!r} asks for {spec.data} executors, "
+            f"--master local[{requested}] script.py`")
+    if env is not None and requested not in (None, world):
+        raise ValueError(f"master {master!r} asks for {requested} executors, "
                          f"the launch started {world} processes")
+    # the mesh's shape over this gang (an axis that cannot fit raises here)
+    shape = spec.shape(world)
     if device.type == "cuda":
         available = torch.cuda.device_count()
-        if env is None and spec.data == -1 and available > 1:
+        if env is None and requested is None and available > 1:
             raise ValueError(
                 f"master {master!r} asks for all {available} devices: launch "
                 f"the script through `python -m "
@@ -256,6 +280,8 @@ def _create_session(conf: dict[str, str]) -> Session:
     if env is not None:
         _join_group(env, device)
         sess_kw = dict(rank=env.rank, world_size=env.world_size, group=True)
+        if shape[AXIS_FSDP] > 1:
+            sess_kw["device_mesh"] = _fsdp_device_mesh(shape[AXIS_FSDP], device)
     app = conf.get("spark.app.name", "dls-torch")
     sess = Session(app, conf, device, spec, **sess_kw)
     sess._restore_determinism = restore

@@ -34,6 +34,15 @@ step's counts back as it holds the moments. These are plain tensor ops,
 as the JAX package runs its optimizer in XLA, not in Pallas. ``lamb``,
 ``lars`` and ``adafactor`` are not ported yet.
 
+Under FSDP (:mod:`..parallel.sharding`) the train step hands a
+transformation the local shards of the sharded params, as a
+:class:`Shards` list that says which entries are shards:
+:func:`global_norm` (and so ``clip_by_global_norm``) then sums the
+shards' squares across the ranks and counts every other tensor once, the
+norm of the whole gradient; elementwise updates are the same on a shard
+as on the whole. Each list a multi-tensor op takes holds plain tensors
+only.
+
 ``masked(tx, trainable)`` (the LoRA fine-tune) names the params ``tx``
 updates: the train step hands it only those, with their gradients, so the
 others get no update, no optimizer state and no part in a clip inside it,
@@ -59,6 +68,22 @@ def _count(params: Tensors) -> torch.Tensor:
                        device=params[0].device if params else None)
 
 
+class Shards(list):
+    """A list of tensors, some of which (``sharded[i]``) are this rank's
+    shards of tensors sharded over the process group ``group``: what the
+    train step hands a transformation under FSDP."""
+
+    def __init__(self, tensors, sharded, group=None):
+        super().__init__(tensors)
+        self.sharded = list(sharded)
+        self.group = group
+
+    def like(self, tensors) -> "Shards":
+        """``tensors`` (one for each of this list's, in order) as Shards of
+        the same layout."""
+        return Shards(tensors, self.sharded, self.group)
+
+
 class GradientTransformation(NamedTuple):
     init: Callable[[Tensors], Any]
     update: Callable[[Tensors, Any, Tensors], tuple[Tensors, Any]]
@@ -78,7 +103,10 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
     def update(updates, state, params):
         new_state = []
         for tx, s in zip(txs, state):
-            updates, s = tx.update(updates, s, params)
+            out, s = tx.update(updates, s, params)
+            # a later global norm must still see which entries are shards
+            updates = (updates.like(out) if isinstance(updates, Shards)
+                       and not isinstance(out, Shards) else out)
             new_state.append(s)
         return updates, tuple(new_state)
 
@@ -86,9 +114,21 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
 
 
 def global_norm(tensors: Tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every element, f32, on the device."""
-    return torch.linalg.vector_norm(torch.stack(
-        [n.float() for n in torch._foreach_norm(tensors)]))
+    """sqrt of the sum of squares over every element, f32, on the device.
+    Over :class:`Shards`, the shards' sums of squares are all-reduced
+    across their group (a collective: every rank calls it) and each other
+    tensor counts once."""
+    norms = [n.float() for n in torch._foreach_norm(tensors)]
+    if not (isinstance(tensors, Shards) and any(tensors.sharded)):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    import torch.distributed as dist
+
+    squares = torch.stack([n for n, s in zip(norms, tensors.sharded) if s]).square().sum()
+    dist.all_reduce(squares, group=tensors.group)
+    whole = [n for n, s in zip(norms, tensors.sharded) if not s]
+    if whole:
+        squares = squares + torch.stack(whole).square().sum()
+    return torch.sqrt(squares)
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:

@@ -18,6 +18,11 @@ optimizer state flattened to its leaves in order (its counts, 0-d device
 tensors, as host ints).
 :meth:`TrainState.load_state_dict` writes such a dict back into the live
 tensors in place, so the model's params stay the optimizer's.
+
+Under FSDP (:mod:`..parallel.sharding`) a sharded param, and each
+optimizer tensor made from it, is a ``DTensor``: :meth:`state_dict` keeps
+them as they are (the checkpointer gathers each whole, on every rank), and
+:meth:`load_state_dict` takes whole tensors and writes each rank's shard.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import dataclasses
 from typing import Any
 
 import torch
+
+from distributeddeeplearningspark_tpu_torch.parallel.sharding import assign
 
 
 def leaves(tree: Any) -> list:
@@ -36,6 +43,20 @@ def leaves(tree: Any) -> list:
     if isinstance(tree, (tuple, list)):
         return [x for v in tree for x in leaves(v)]
     return [tree]
+
+
+def map_leaves(fn, tree: Any, *rest: Any) -> Any:
+    """``tree`` with each leaf ``x`` replaced by ``fn(x, *the leaves at the
+    same place in rest)``, its dicts, lists, tuples and NamedTuples
+    rebuilt."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        items = [map_leaves(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        if hasattr(tree, "_fields"):  # a NamedTuple
+            return type(tree)(*items)
+        return type(tree)(items)
+    return fn(tree, *rest)
 
 
 def _refill(template: Any, saved: list) -> Any:
@@ -56,7 +77,7 @@ def _refill(template: Any, saved: list) -> Any:
         if not isinstance(new, torch.Tensor) or new.shape != template.shape:
             raise ValueError(f"optimizer state leaf {getattr(new, 'shape', new)} "
                              f"does not fit {tuple(template.shape)}")
-        template.copy_(new)
+        assign(template, new)
         return template
     return new
 
@@ -76,12 +97,11 @@ def _copy_named(live: dict[str, torch.Tensor], saved: dict[str, torch.Tensor],
     if set(live) != set(saved):
         raise ValueError(f"{what} differ: missing {sorted(set(live) - set(saved))}, "
                          f"unexpected {sorted(set(saved) - set(live))}")
-    with torch.no_grad():
-        for name, t in live.items():
-            if t.shape != saved[name].shape:
-                raise ValueError(f"{what} {name}: shape {tuple(saved[name].shape)}, "
-                                 f"want {tuple(t.shape)}")
-            t.copy_(saved[name])
+    for name, t in live.items():
+        if t.shape != saved[name].shape:
+            raise ValueError(f"{what} {name}: shape {tuple(saved[name].shape)}, "
+                             f"want {tuple(t.shape)}")
+        assign(t, saved[name])
 
 
 @dataclasses.dataclass

@@ -53,6 +53,19 @@ gradient. Micro-batch i is every rank's i-th slice of its rows. The model's
 buffers are not reduced: BatchNorm's forward already takes the global
 batch's statistics (:mod:`..models.resnet`), so they move alike on every
 rank.
+
+Under FSDP (``Trainer(rules=...)`` lowered the model with
+:func:`..parallel.sharding.fully_shard_model`) a sharded param is a
+``DTensor``: its gradient arrives reduce-scattered and summed across the
+ranks from FSDP2's backward, so only the replicated trainables go through
+``all_reduce_grads``. Everything after the backward runs on the local
+shards (``to_local()``, views of the params' storage), so no multi-tensor
+op mixes ``DTensor`` and ``Tensor``: ``grad_norm`` is the whole gradient's
+(the shards' squares summed across the ranks, each replicated gradient
+counted once, :class:`..train.optim.Shards`), the optimizer updates each
+shard in place and keeps its state as shards (``DTensor``\\ s in
+``state.opt_state``, sharded like their params), and the guard snapshots
+and restores shards.
 """
 
 from __future__ import annotations
@@ -62,13 +75,18 @@ from typing import Any, Callable
 
 import torch
 
-from distributeddeeplearningspark_tpu_torch.parallel import collectives
+from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
 from distributeddeeplearningspark_tpu_torch.train.optim import (
     GradientTransformation,
+    Shards,
     global_norm,
     updated_by,
 )
-from distributeddeeplearningspark_tpu_torch.train.state import TrainState, leaves
+from distributeddeeplearningspark_tpu_torch.train.state import (
+    TrainState,
+    leaves,
+    map_leaves,
+)
 
 LossFn = Callable[[Any, dict[str, Any]], tuple[torch.Tensor, dict[str, torch.Tensor]]]
 
@@ -151,6 +169,19 @@ def _tensors(tree) -> list[torch.Tensor]:
     return [x for x in leaves(tree) if isinstance(x, torch.Tensor)]
 
 
+def _rewrap(old: Any, new: Any) -> Any:
+    """The optimizer's new state leaf in the state's form: where the old
+    leaf is sharded, the new local shard as a ``DTensor`` of its layout
+    (the old one itself when the update wrote its shard in place)."""
+    if not sharding.is_sharded(old):
+        return new
+    if new.data_ptr() == sharding.local(old).data_ptr():
+        return old
+    return type(old).from_local(new, old.device_mesh, old.placements,
+                                shape=old.shape, stride=old.stride(),
+                                run_check=False)
+
+
 def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
                     loss_fn: LossFn, *, distributed: bool = False,
                     trainable: Callable[[str], bool] | None = None,
@@ -169,15 +200,25 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
         p.requires_grad_(trainable is None or trainable(n))
     opt_names = set(optimizer_params(grad_names, tx))
     opt_index = [i for i, n in enumerate(grad_names) if n in opt_names]
+    # FSDP: which trainables are sharded, and over which group
+    sharded = [sharding.is_sharded(named[n]) for n in grad_names]
+    group = next((named[n].device_mesh.get_group() for n, s in zip(grad_names, sharded)
+                  if s), None)
+
+    def shards(tensors: list, index: list[int]) -> list:
+        if not any(sharded):
+            return tensors
+        return Shards(tensors, [sharded[i] for i in index], group)
 
     guard = NonfiniteGuard() if guard_nonfinite else None
 
     def train_step(state: TrainState, batch: dict[str, torch.Tensor]):
         params = [state.params[n] for n in grad_names]
-        opt_params = [params[i] for i in opt_index]
+        opt_params = [sharding.local(params[i]) for i in opt_index]
+        opt_state = map_leaves(sharding.local, state.opt_state)
         if guard is not None:
             buffers = list(state.mutable.values())
-            guard.save(opt_params + _tensors(state.opt_state) + buffers)
+            guard.save(opt_params + _tensors(opt_state) + buffers)
         model.train()
         for p in params:
             p.grad = None
@@ -192,16 +233,19 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
             micro_metrics.append({k: v.detach() for k, v in metrics.items()})
             del outputs, loss
         # a trainable param the forward did not reach: JAX's zero gradient
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in params]
+        grads = shards([sharding.local(torch.zeros_like(p) if p.grad is None
+                                       else p.grad) for p in params],
+                       list(range(len(params))))
         with torch.no_grad():
             if accum_steps > 1:
                 torch._foreach_div_(grads, float(accum_steps))
             if distributed:
-                collectives.all_reduce_grads(grads)
+                # FSDP2 already summed the sharded ones in its reduce-scatter
+                collectives.all_reduce_grads(
+                    [g for g, s in zip(grads, sharded) if not s])
             grad_norm = global_norm(grads)
-            updates, opt_state = tx.update([grads[i] for i in opt_index],
-                                           state.opt_state, opt_params)
+            updates, opt_state = tx.update(shards([grads[i] for i in opt_index],
+                                                  opt_index), opt_state, opt_params)
             torch._foreach_add_(opt_params, updates)
         if guard is not None:
             # a NaN/Inf anywhere in the gradients poisons their norm, so one
@@ -216,19 +260,24 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
         metrics["grad_norm"] = grad_norm
         if guard is not None:
             metrics["skipped"] = 1.0 - ok.float()
-        return dataclasses.replace(state, step=state.step + 1,
-                                   opt_state=opt_state), metrics
+        return dataclasses.replace(
+            state, step=state.step + 1,
+            opt_state=map_leaves(_rewrap, state.opt_state, opt_state)), metrics
 
     train_step.guard = guard
     return train_step
 
 
 def make_eval_step(model: torch.nn.Module, loss_fn: LossFn):
-    """batch → metrics, no gradients, the model in eval mode."""
+    """batch → metrics, no gradients, the model in eval mode. Under
+    ``no_grad``, not ``inference_mode``: FSDP2 keeps a root's gathered
+    params between forwards, and a training forward refuses those made in
+    inference mode ("Inplace update to inference tensor outside
+    InferenceMode")."""
 
     def eval_step(batch: dict[str, torch.Tensor]):
         model.eval()
-        with torch.inference_mode():
+        with torch.no_grad():
             _, metrics = loss_fn(model(batch), batch)
         return metrics
 

@@ -68,10 +68,23 @@ into that many micro-batches whose gradients are summed before one update
 ``sparse_embed``, as in JAX. :meth:`load_pretrained` overlays imported
 weights (``models.llama_io``) on the live params in place.
 
+``rules`` (a :class:`~..parallel.sharding.ShardingRules`, default
+``REPLICATED``) or ``plan`` (a :class:`~..parallel.plan.Plan`, which wins,
+as in JAX) lay the params out over the session's mesh: with ``fsdp`` above
+1 (``mesh.data=1, mesh.fsdp=-1``) the constructor lowers them to FSDP2
+(:func:`~..parallel.sharding.fully_shard_model`) before it builds the
+step, and the params the rules shard become ``DTensor`` params; the plan is
+validated against the mesh first. :meth:`init` builds the optimizer state
+over them (sharded like its params), :meth:`load_pretrained` and
+:meth:`restore` write whole tensors into each rank's shards, checkpoints
+hold whole tensors, ``sanitize_every`` compares the replicated params
+only, and :meth:`evaluate`/:meth:`predict` run under ``no_grad`` (FSDP2
+and ``inference_mode`` do not mix, :mod:`.step`). At ``fsdp`` 1 nothing is
+sharded, as in JAX on one device.
+
 Not ported yet: the graceful preemption drain (a ``sigterm`` fault or a
-preemption notice raises; ROADMAP Queue 1 item 7); sharding plans and
-rules; ``profile``, ``measure_flops`` and ``tensorboard_dir`` (Queue 1
-item 9).
+preemption notice raises; ROADMAP Queue 1 item 7); ``profile``,
+``measure_flops`` and ``tensorboard_dir`` (Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -98,7 +111,12 @@ from distributeddeeplearningspark_tpu_torch.data.prefetch import (
     prefetch_to_device,
 )
 from distributeddeeplearningspark_tpu_torch.metrics import Meter, MetricLogger
-from distributeddeeplearningspark_tpu_torch.parallel import collectives
+from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
+from distributeddeeplearningspark_tpu_torch.parallel import plan as plan_lib
+from distributeddeeplearningspark_tpu_torch.parallel.sharding import (
+    REPLICATED,
+    ShardingRules,
+)
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 from distributeddeeplearningspark_tpu_torch.session import Session
 from distributeddeeplearningspark_tpu_torch.train import embed as embed_lib
@@ -166,14 +184,16 @@ def _lap_anatomy(lap_s: float, dispatch_s: float, drain_s: float,
 def _overlay(live: dict[str, torch.Tensor], new: dict[str, Any], what: str
              ) -> None:
     """Copy each of ``new`` into ``live``'s tensor of its name, in place,
-    cast to its dtype, after checking every shape."""
+    cast to its dtype (into its shard where it is sharded), after checking
+    every shape. In ``live``'s order: a sharded tensor's copy is a
+    collective, which every rank makes in the same order."""
     for k, v in new.items():
         if tuple(v.shape) != tuple(live[k].shape):
             raise ValueError(f"{what} {k}: shape {tuple(v.shape)} != model "
                              f"{tuple(live[k].shape)}")
-    with torch.no_grad():
-        for k, v in new.items():
-            live[k].copy_(torch.as_tensor(v))
+    for k, t in live.items():
+        if k in new:
+            sharding.assign(t, new[k])
 
 
 def _first_leaf(tree: Any) -> Any:
@@ -194,10 +214,13 @@ class Trainer:
     takes ``overrides`` in train mode. ``checkpointer``: where ``fit``
     saves and :meth:`restore` reads. ``accum_steps``: micro-batches per
     optimizer step. ``trainable``: the params that train (None: all); pass
-    the predicate the optimizer is ``masked`` with."""
+    the predicate the optimizer is ``masked`` with. ``rules``/``plan``:
+    the params' layout over the session's mesh (the module docstring)."""
 
     def __init__(self, session: Session | None, model: torch.nn.Module,
                  loss_fn: Callable, optimizer: GradientTransformation, *,
+                 rules: ShardingRules = REPLICATED,
+                 plan: plan_lib.Plan | None = None,
                  seed: int = 0,
                  sparse_embed: Sequence[embed_lib.SparseEmbedSpec] = (),
                  checkpointer: Checkpointer | None = None,
@@ -210,6 +233,17 @@ class Trainer:
         if wrong:
             raise ValueError(f"model params lie on {sorted(wrong)}, the "
                              f"session's device is {self.device}")
+        # one Plan carries the layout: an explicit plan wins, else the rules
+        # are wrapped in one (JAX's precedence)
+        if plan is not None:
+            rules = plan.rules
+            if plan.model_hints:
+                logger.warning(
+                    "plan %r carries model hints %s: apply them to the model "
+                    "config yourself; the plan layer cannot rebuild the model",
+                    plan.name, plan.hints())
+        self.plan = plan if plan is not None else plan_lib.plan_for_rules(rules)
+        self.plan.validate(self.session.mesh)
         self.model = model
         self.loss_fn = loss_fn
         self.tx = optimizer
@@ -230,8 +264,14 @@ class Trainer:
                 "step already keeps tables out of autodiff, and silently "
                 "ignoring the predicate for other params would skip the "
                 "frozen-weight exclusion the caller asked for")
+        if sparse_embed and sharding.shard_dims(model, rules, self.session.mesh):
+            raise NotImplementedError(
+                "sharded params with sparse_embed tables (the expert-sharded "
+                "DLRM table) are not ported yet: ROADMAP Queue 1 item 5")
         self.accum_steps = accum_steps
         self.trainable = trainable
+        #: the params the rules shard over fsdp: name → dim (empty: none)
+        self.shard_dims = sharding.fully_shard_model(model, rules, self.session.mesh)
         self._guard_nonfinite = False  # fit(on_nonfinite="skip") rebuilds
         self._build_train_step()
         self._eval_step = step_lib.make_eval_step(model, loss_fn)
@@ -707,7 +747,7 @@ class Trainer:
         self.model.eval()
         for host_batch in self._host_feed(dataset, batch_size,
                                           drop_remainder=False):
-            with torch.inference_mode():
+            with torch.no_grad():  # not inference_mode: see make_eval_step
                 out = self.model(to_device(host_batch, self.device))
                 if output_fn is not None:
                     out = output_fn(out)

@@ -17,7 +17,10 @@ failure modes get cheap, explicit checks:
 Fingerprints are computed on the device: per tensor ``[sum, l2, min,
 max]`` in float64, stacked into one ``[L, 4]`` tensor, all-gathered across
 the gang through :mod:`..parallel.collectives` (NCCL on the card, gloo on
-the CPU) and copied to the host once.
+the CPU) and copied to the host once. Under FSDP only the replicated
+leaves are compared: a sharded param (a ``DTensor``) holds another shard
+on every rank by design. :func:`tree_all_finite` looks at each rank's
+shard and agrees across the gang.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from distributeddeeplearningspark_tpu_torch.parallel import collectives
+from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
 
 __all__ = ["DesyncError", "tree_fingerprint", "assert_replicas_in_sync",
            "nonfinite_metrics", "assert_all_finite", "tree_all_finite",
@@ -74,10 +77,10 @@ def assert_replicas_in_sync(tree: Any, *, atol: float = 0.0,
     """Raise :class:`DesyncError` if the ranks' copies of ``tree`` differ:
     every rank's fingerprint is all-gathered and compared with rank 0's at
     ``atol`` (a gang's params must be bit-identical, so the default is 0).
-    A no-op outside a gang."""
+    Sharded leaves are left out. A no-op outside a gang."""
     if collectives.world_size() == 1:
         return
-    fp = _device_fingerprint(tree)
+    fp = _device_fingerprint([x for x in _leaves(tree) if not sharding.is_sharded(x)])
     if fp.shape[0] == 0:
         return
     all_fps = collectives.all_gather_rows(fp).cpu().numpy().reshape(
@@ -115,10 +118,15 @@ def tree_all_finite(tree: Any) -> bool:
     """True iff every floating leaf of ``tree`` is entirely finite — the
     check a rollback runs on a restored state before trusting it (a
     manifest certifies bytes, not numerics: a NaN state checkpoints and
-    restores byte-perfectly). One device-side reduction, one host sync."""
-    flags = [torch.isfinite(torch.as_tensor(x)).all().reshape(1)
-             for x in _leaves(tree)
-             if torch.as_tensor(x).is_floating_point()]
+    restores byte-perfectly). One device-side reduction, one host sync;
+    with sharded leaves, each rank's shards are checked and the verdict
+    all-reduced, so every rank returns the same."""
+    leaves = _leaves(tree)
+    flags = [torch.isfinite(torch.as_tensor(sharding.local(x))).all().reshape(1)
+             for x in leaves if torch.as_tensor(x).is_floating_point()]
+    if any(sharding.is_sharded(x) for x in leaves):
+        bad = torch.stack([~f for f in flags]).sum().reshape(1).float()
+        return not bool(collectives.all_reduce_sum_(bad).item())
     if not flags:
         return True
     by_device: dict[torch.device, list[torch.Tensor]] = {}
