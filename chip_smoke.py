@@ -9,18 +9,20 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    ``nvcc`` per source, started together, ``sm_90a``) and print the
    compiler's register/spill report;
 2. hold K1 (flash forward) against its plain PyTorch version on the card
-   in nine bf16 cases (the served and the training shape, causal GQA at
+   in eleven bf16 cases (the served and the training shape, causal GQA at
    D = 128, segments with padding, a fully masked row, S = 320 at D = 64
    and at D = 128 causal GQA, whole key tiles skipped by padding and
-   by segments, and Llama-2 7B's b=8, S=1,024, 32 heads, D = 128,
-   causal), at the stated tolerance, and time the kernel, the
+   by segments, Llama-2 7B's b=8, S=1,024, 32 heads, D = 128, causal,
+   and one card's local heads under tensor parallelism: b=4 at 16 heads,
+   b=8 at 8), at the stated tolerance, and time the kernel, the
    plain version, one PyTorch library call computing the same function (a
    yardstick the port never calls) and the card's bound for the same work;
 3. the same for K2 (dQ) and K3 (dK, dV) against the plain backward, in
-   ten cases (the training shape, b=32, S=512, every key allowed; the
+   twelve cases (the training shape, b=32, S=512, every key allowed; the
    served batch; causal GQA at D = 128; segments with padding; a fully
    masked row; S = 320 at D = 64 and at D = 128 causal GQA; whole tiles
-   skipped; S = 322 with padding; Llama's), each run twice for equal bits, timing
+   skipped; S = 322 with padding; Llama's, and its two local-head
+   shapes), each run twice for equal bits, timing
    ``_delta`` and the whole ``flash_bwd`` beside the two kernels; then the
    gates: "auto" picks the plain path for f32 and for head dims the
    kernels are not built for, an f32 ``Conv1x1BN`` and a bf16 one with
@@ -195,17 +197,28 @@ limits; each rank's step ms and a profiled window's NCCL kernel time.
 Then Llama-2 7B LoRA (config 5) sharded over the cards: the port's Llama
 driver through its cli at N ranks (NCCL) with its default ``--fsdp -1``
 (global b=8, S=1,024, LoRA rank 16, the base FSDP-sharded, the adapters
-and norm scales replicated) and at one card on the same batches: every
-rank's losses one card's at a stated tolerance, K1/K2/K3 64/32/32
-launches a step on every card, the replicated params in sync, each card's
-resident param bytes the rule engine's reckoning, each card's peak memory
-at least half the base below one card's; a full fine-tune of the 7B
-widths cut to 2 layers (sharded params in training) at N ranks and on one
-card, losses and grad norms at stated tolerances; and two planted faults
-(``LLAMA_GANG_FAULTS``: the adapters' all-reduce skipped, FSDP2's
-reduce-scatter left averaging) that must each break one of those limits;
-each card's step ms, tokens/s, peak memory and a profiled window's NCCL
-time.
+and norm scales replicated), with ``--tensor 2`` (fsdp=N/2 × tensor=2)
+and ``--tensor 4`` (the base also split over the tensor peers' heads,
+columns and vocab), and at one card on the same batches: every rank's
+losses one card's at a stated tolerance, K1/K2/K3 64/32/32 launches a
+step on every card at its local heads, each param in sync within its
+replica group, each card's resident param bytes the rule engine's
+reckoning, each card's peak in the init (the model built on the meta
+device, each card drawing its shards) below the whole model, and at
+fsdp=N each card's peak memory in fit at least half the base below one
+card's; comparison runs of the LoRA at fsdp=N and at fsdp=N/2 ×
+tensor=2, and of a full fine-tune of the 7B widths cut to 2 layers
+(sharded params in training) at fsdp=N, at data=2 × fsdp=N/2 (HSDP) and
+on one card, losses and grad norms at stated tolerances; and four planted
+faults (``LLAMA_GANG_FAULTS``: the adapters' all-reduce skipped, FSDP2's
+reduce-scatter left averaging, the adapters' gradients left unsummed over
+the tensor group, the feed sharded by world rank) that must each break
+one of those limits; each card's step ms, tokens/s, peak memory, a
+profiled window's NCCL time and kernels (their names carry NCCL's
+algorithm and protocol), the transports and tuning model NCCL logged for
+the driver runs (``NCCL_DEBUG=INFO``, ``NCCL_DEBUG_SUBSYS=INIT,TUNING``,
+a file a process, in their environment only), and the tensor=2 driver
+again under ``NCCL_PROTO=Simple``, printed beside the rest.
 ``--gang dlrm`` (or ``resnet``, ``llama``) runs that part's comparisons
 only, ``--gang recovery`` the shrink and the desync only.
 ``python3 chip_smoke.py --recovery`` builds the kernels and runs phases 11
@@ -439,6 +452,16 @@ def _library_call(torch, case, masked: bool = True):
         is_causal=case["causal"] and mask is None, enable_gqa=gqa)
 
 
+def _llama_tp_cases(torch) -> list[dict]:
+    """The Llama-2 7B step's attention on one card of a tensor-parallel
+    gang (``--gang llama``), each card holding 32/T heads: at fsdp=2 ×
+    tensor=2, b = 4 a card and 16 heads; at tensor=4, b = 8 and 8 heads."""
+    return [_attn_case(torch, f"llama_tp{t}_b{b}_s1024_h{LLAMA_HEADS // t}_causal_d128",
+                       b=b, s=LLAMA_SEQ, h=LLAMA_HEADS // t, hkv=LLAMA_HEADS // t,
+                       d=128, causal=True, seed=10 + t)
+            for t, b in LLAMA_TP_SHAPES]
+
+
 def check_flash_fwd(torch, fa) -> list[dict]:
     cases = [
         _attn_case(torch, "bert_b32_padded", b=32, s=512, h=12, hkv=12, d=64,
@@ -471,6 +494,8 @@ def check_flash_fwd(torch, fa) -> list[dict]:
         # where the Llama-2 7B fine-tune's launches run: causal, D = 128
         _attn_case(torch, "llama_b8_s1024_causal_d128", b=LLAMA_BATCH,
                    s=LLAMA_SEQ, h=32, hkv=32, d=128, causal=True, seed=10),
+        # each card's local heads under tensor parallelism (--gang llama)
+        *_llama_tp_cases(torch),
     ]
     results = []
     for c in cases:
@@ -593,6 +618,7 @@ def check_flash_bwd(torch, fa) -> list[dict]:
         # the Llama-2 7B fine-tune's shape: causal, D = 128
         _attn_case(torch, "llama_b8_s1024_causal_d128", b=LLAMA_BATCH,
                    s=LLAMA_SEQ, h=32, hkv=32, d=128, causal=True, seed=10),
+        *_llama_tp_cases(torch),
     ]
     results = []
     for c in cases:
@@ -1114,6 +1140,11 @@ def train_bert(torch, fa) -> dict:
 #: Llama-2 7B at its published widths, LoRA rank 16 (alpha 16) on wq and wv,
 #: b=8 sequences of S=1,024: steps in process and through the driver
 LLAMA_STEPS, LLAMA_DRIVER_STEPS, LLAMA_BATCH, LLAMA_SEQ, LLAMA_RANK = 10, 5, 8, 1024, 16
+#: Llama-2 7B's attention heads
+LLAMA_HEADS = 32
+#: (tensor, rows a card) of the Llama gang's tensor-parallel runs at four
+#: cards: fsdp=2 × tensor=2 (b = 8 over 2 batch shards) and tensor=4
+LLAMA_TP_SHAPES = ((2, LLAMA_BATCH // 2), (4, LLAMA_BATCH))
 #: the in-process phase's peak lr (LoRA fine-tunes run 1e-4 to 1e-3; random
 #: base weights need the upper end for the loss to move in 10 steps)
 LLAMA_LR = 1e-3
@@ -1917,20 +1948,23 @@ def _running(script: Path) -> set[int]:
 
 def _launch(workdir: Path, ranks: int, script: Path, args, *,
             deterministic: bool = False, timeout: float = 300,
-            pids: set | None = None) -> tuple[list[str], dict]:
+            pids: set | None = None, env: dict | None = None
+            ) -> tuple[list[str], dict]:
     """One launch of ``script`` through the port's cli at ``local[ranks]`` on
     the card (optionally with deterministic algorithms), its telemetry in
     ``workdir``: rank 0's stdout lines, and the launch's wall seconds with
     the part before rank 0's run began (process start, CUDA, the group) and
     the run's own, from its telemetry. Fails on a non-zero exit. ``pids``
     receives the pids of the launch's ranks and of the workers they fork,
-    seen every 0.2 s while it runs."""
+    seen every 0.2 s while it runs. ``env`` is added to the launch's
+    environment."""
     conf = ["--conf", "spark.dls.deterministic=true"] if deterministic else []
     cmd = [sys.executable, "-m", f"{PKG}.cli", "--master", f"local[{ranks}]",
            *conf, "--workdir", str(workdir), str(script), *args]
     t0 = time.time()
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+                            stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, **(env or {})})
     while True:
         try:
             stdout, stderr = proc.communicate(timeout=0.2)
@@ -2207,7 +2241,8 @@ def _left_behind(script: Path, pids: set) -> dict:
         time.sleep(0.1)
 
 
-def _driver_run(name: str, workdir: Path, ranks: int, args: list[str]) -> dict:
+def _driver_run(name: str, workdir: Path, ranks: int, args: list[str],
+                env: dict | None = None) -> dict:
     """One launch of the port's ``name`` driver through its cli at
     ``local[ranks]``: rank 0's JSON line, the launch's timing, each rank's
     logged losses and step ms (its laps after the first, from its
@@ -2215,9 +2250,11 @@ def _driver_run(name: str, workdir: Path, ranks: int, args: list[str]) -> dict:
     import shutil
 
     shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
     script = _driver_script(name)
     pids: set[int] = set()
-    lines, timing = _launch(workdir, ranks, script, args, timeout=600, pids=pids)
+    lines, timing = _launch(workdir, ranks, script, args, timeout=600, pids=pids,
+                            env=env)
     results = [json.loads(x) for x in lines if x.startswith('{"train"')]
     check(len(results) == 1, f"{name} driver printed {len(results)} result "
           f"lines: {lines[-20:]}")
@@ -2228,7 +2265,7 @@ def _driver_run(name: str, workdir: Path, ranks: int, args: list[str]) -> dict:
             losses.setdefault(r["process"], []).append(r["metrics"]["loss"])
             laps.setdefault(r["process"], []).append(r["lap_s"] * 1e3 / r["steps"])
     step_ms = {p: float(np.mean(v[1:] if len(v) > 1 else v)) for p, v in laps.items()}
-    return dict(result=results[0], launch=timing, losses=losses,
+    return dict(result=results[0], launch=timing, losses=losses, workdir=workdir,
                 step_ms_by_rank=step_ms, left=_left_behind(script, pids))
 
 
@@ -3086,7 +3123,7 @@ def train_drivers_gang(torch, ranks: int, names=("resnet", "dlrm")) -> dict:
     return out
 
 
-# -- chip_smoke.py --gang llama: config 5 FSDP-sharded over the cards ------------
+# -- chip_smoke.py --gang llama: config 5 sharded over the cards -------------------
 
 #: the Llama gang's peak lr: AdamW moves the adapters ~lr a step, so the
 #: losses of a sound run and of a run whose adapters drift apart part
@@ -3104,7 +3141,8 @@ LLAMA_GANG_FULL_LAYERS, LLAMA_GANG_FULL_LR = 2, 1e-4
 #: an averaged reduce-scatter leaves the sharded gradients 1/N of the
 #: global batch's: 0.75 off)
 GANG_GRAD_NORM_RTOL = 1e-2
-#: faults planted into the Llama gang: each must break one of its limits
+#: faults planted into the Llama gang, by the run they go into: each must
+#: break one of its limits
 LLAMA_GANG_FAULTS = {
     "adapters-local": ("lora", "the replicated params' all-reduce skipped: each "
                                "rank's LoRA adapters step on its own rows' "
@@ -3112,29 +3150,58 @@ LLAMA_GANG_FAULTS = {
     "reduce-scatter-averaged": ("full", "FSDP2's reduce-scatter left at its "
                                         "default mean: the sharded gradients come "
                                         "back 1/N of the global batch's"),
+    "adapters-unsummed": ("lora-tp", "the adapters' gradients left unsummed over "
+                                     "the tensor group: each tensor peer's A and B "
+                                     "step on its own heads' part"),
+    "feed-by-world-rank": ("lora-tp", "the feed sharded by world rank: tensor peers "
+                                      "take different rows, each a 1/N share"),
 }
+#: NCCL's tuning model and transports, logged by the tensor-parallel and
+#: FSDP drivers' ranks (their environment only) into a file each
+#: (``nccl.<pid>.log`` in the launch's workdir: NCCL logs to stdout
+#: otherwise); the algorithm and protocol each collective ran are in the
+#: names of its kernels in the profiled windows
+NCCL_TUNING_ENV = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,TUNING"}
 
 
 def _plant_llama(fault: str) -> None:
     """Plant one of LLAMA_GANG_FAULTS into this process's port."""
+    from distributeddeeplearningspark_tpu_torch.data import feed
+    from distributeddeeplearningspark_tpu_torch.models import llama
     from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
+    from distributeddeeplearningspark_tpu_torch.train import trainer
 
     if fault == "adapters-local":
-        collectives.all_reduce_grads = lambda grads: None
+        collectives.all_reduce_grads = lambda grads, group=None: None
     elif fault == "reduce-scatter-averaged":
         sharding._sum_gradients = lambda unit: None
+    elif fault == "adapters-unsummed":
+        def unsummed(a, b, split):
+            if split is None:
+                return a, b
+            if split.dim == 0:
+                return a, b.chunk(split.size, 1)[split.index]
+            return a.chunk(split.size, 0)[split.index], b
+        llama.adapter_shards = unsummed
+    elif fault == "feed-by-world-rank":
+        def by_world_rank(self, dataset, batch_size, **kw):
+            n, r = self.session.world_size, self.session.rank
+            return feed.host_batches(dataset, batch_size, num_shards=n,
+                                     shard_range=(r, r + 1), **kw)
+        trainer.Trainer._host_feed = by_world_rank
     else:
         check(fault == "none", f"no fault {fault!r}")
 
 
-def _llama_gang_args(ranks: int, steps: int) -> list[str]:
+def _llama_gang_args(ranks: int, steps: int, tensor: int = 1) -> list[str]:
     """The driver's flags of the Llama gang: 7B at the global b=8, S=1,024,
-    LoRA rank 16, every rank on the fsdp axis (the default --fsdp -1), the
-    corpus in as many partitions as ranks (the same batches on one card)."""
+    LoRA rank 16, every rank on the fsdp axis (the default --fsdp -1) but
+    the ``tensor`` peers, the corpus in as many partitions as ranks (the
+    same batches on one card)."""
     return ["--variant", "7b", "--seq-len", str(LLAMA_SEQ), "--batch-size",
             str(LLAMA_BATCH), "--lora-rank", str(LLAMA_RANK), "--lora-alpha", "16",
             "--lr", str(LLAMA_GANG_LR), "--steps", str(steps), "--log-every", "1",
-            "--source-partitions", str(ranks)]
+            "--source-partitions", str(ranks), "--tensor", str(tensor)]
 
 
 def llama_rank(argv: list[str]) -> int:
@@ -3142,15 +3209,18 @@ def llama_rank(argv: list[str]) -> int:
     OUT MODE FAULT ARGS``, run by the port's cli): the driver's session,
     data and model (MODE ``lora``: its trainer; ``full``: the full fine-tune
     at LLAMA_GANG_FULL_LAYERS layers of the 7B widths under the same
-    ``llama_rules``), FAULT planted, GANG_STEPS steps, each logged; each rank
-    writes ``OUT/rank<r>.json``: its card (flash launches, resident param
-    bytes and the rule engine's reckoning, peak memory) and whether the
-    replicated params agree across the ranks. A sound LoRA run at more than
-    one rank then takes GANG_WINDOW more steps under the profiler."""
+    ``llama_rules``; ``full-hsdp``: the same on ``data=2 × fsdp``), FAULT
+    planted, GANG_STEPS steps, each logged; each rank writes
+    ``OUT/rank<r>.json``: its card (flash launches, resident param bytes and
+    the rule engine's reckoning, peak memory in the init and in ``fit``)
+    and whether each param agrees within its replica group. A sound LoRA
+    run at more than one rank then takes GANG_WINDOW more steps under the
+    profiler."""
     import dataclasses
 
     import torch
 
+    from distributeddeeplearningspark_tpu_torch import Session
     from distributeddeeplearningspark_tpu_torch.examples import train_llama_lora as driver
     from distributeddeeplearningspark_tpu_torch.models import llama
     from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
@@ -3161,9 +3231,14 @@ def llama_rank(argv: list[str]) -> int:
     out, mode, fault = argv[:3]
     args = driver.parse_args(argv[3:])
     _plant_llama(fault)
-    spark = driver.make_session(args, f"llama-gang-{mode}-{fault}")
+    if mode == "full-hsdp":
+        spark = (Session.builder.appName(f"llama-gang-{mode}-{fault}")
+                 .config("mesh.data", 2).config("mesh.fsdp", -1).getOrCreate())
+    else:
+        spark = driver.make_session(args, f"llama-gang-{mode}-{fault}")
     ds, tok = driver.make_dataset(args, spark)
     cfg = driver.make_config(args, tok.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
     if mode == "lora":
         trainer = driver.make_trainer(args, spark, cfg)
     else:
@@ -3171,8 +3246,9 @@ def llama_rank(argv: list[str]) -> int:
                                   param_dtype=torch.float32)
         tx = optim.with_grad_clip(optim.adamw(optim.warmup_cosine(
             LLAMA_GANG_FULL_LR, 1, args.steps)), 1.0)
-        trainer = Trainer(spark, driver.make_model(cfg, spark.device), losses.causal_lm,
+        trainer = Trainer(spark, driver.make_model(cfg), losses.causal_lm,
                           tx, rules=llama.llama_rules(cfg))
+    init_peak = torch.cuda.max_memory_allocated()
     kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     for k in kernels:
         k.launches = 0
@@ -3180,6 +3256,7 @@ def llama_rank(argv: list[str]) -> int:
     trainer.fit(ds, batch_size=args.batch_size, steps=GANG_STEPS, log_every=1,
                 tokens_per_example=args.seq_len)
     rec = driver.card_record(trainer, {k.__name__: k.launches for k in kernels})
+    rec["init_max_memory_allocated"] = init_peak
     try:
         sanitize.assert_replicas_in_sync(trainer.state.params)
         rec["replicas_in_sync"] = True
@@ -3187,7 +3264,8 @@ def llama_rank(argv: list[str]) -> int:
         rec["replicas_in_sync"] = False
         rec["desync"] = str(e)[:200]
     rec.update(rank=spark.rank, world_size=spark.world_size, backend=spark.backend,
-               mesh=spark.mesh.shape, sharded_params=len(trainer.shard_dims))
+               mesh=spark.mesh.shape, local_heads=driver.local_heads(trainer),
+               sharded_params=len(set(trainer.shard_dims) | set(trainer.tensor_dims)))
     if mode == "lora" and fault == "none" and spark.world_size > 1:
         rec["profile"] = _profile_fit(torch, trainer, ds, args.batch_size, {},
                                       steps=GANG_WINDOW)
@@ -3224,60 +3302,147 @@ def _llama_run(workdir: Path, ranks: int, mode: str, fault: str, args: list[str]
                          for v in by_rank])
 
 
+def _nccl_env(workdir: Path) -> dict:
+    """NCCL_TUNING_ENV, each process's log in ``workdir``."""
+    return {**NCCL_TUNING_ENV, "NCCL_DEBUG_FILE": str(workdir / "nccl.%p.log")}
+
+
+def _nccl_tuning(workdir: Path) -> dict:
+    """What NCCL logged in a launch (``_nccl_env``): the transports its
+    channels took (``via P2P/...``, ``via SHM/...``) counted over every
+    process, and one process's tuning lines (the model's latency and
+    bandwidth for each algorithm and protocol), at most 80."""
+    import re
+
+    transports: dict[str, int] = {}
+    tuning: list[str] = []
+    for i, path in enumerate(sorted(workdir.glob("nccl.*.log"))):
+        for line in path.read_text(errors="replace").splitlines():
+            m = re.search(r" via (\S+)", line)
+            if m:
+                transports[m.group(1)] = transports.get(m.group(1), 0) + 1
+            if i == 0 and ("TUNING" in line or "|" in line):
+                tuning.append(line.split("NCCL INFO", 1)[-1].strip()[:200])
+    return dict(transports=transports, tuning=tuning[:80])
+
+
+def _nccl_kernels(profile: dict | None) -> dict:
+    """The NCCL kernels of a profiled window by name (their algorithm and
+    protocol are in it), device ms a step."""
+    return {k: ms for k, ms in (profile or {}).get("top_device_ms_per_step", [])
+            if "nccl" in k.lower()}
+
+
+def _cards_check(res: dict, ranks: int, whole_bytes: int, name: str) -> None:
+    """Each card of a sharded driver run: K1/K2/K3 LLAMA_LAUNCHES a step,
+    its resident param bytes the rule engine's reckoning and below one
+    card's whole model, and its peak in the init below the whole model,
+    which building the model whole before sharding it held on every card
+    at once."""
+    want_launches = {k: n * GANG_STEPS for k, n in LLAMA_LAUNCHES.items()}
+    for r, card in enumerate(res["by_rank"]):
+        check(card["flash_launches"] == want_launches,
+              f"{name} card {r}: flash launches {card['flash_launches']}, want "
+              f"{want_launches}")
+        check(card["param_bytes"] == card["param_bytes_reckoned"] < whole_bytes,
+              f"{name} card {r}: resident param bytes {card['param_bytes']}, the "
+              f"rule engine's reckoning {card['param_bytes_reckoned']}, one card's "
+              f"{whole_bytes}")
+        check(card["init_max_memory_allocated"] < whole_bytes,
+              f"{name} card {r}: peak in the init {card['init_max_memory_allocated']} "
+              f"is not below the whole model's {whole_bytes}")
+
+
 def train_llama_gang(torch, ranks: int) -> dict:
-    """Llama-2 7B LoRA (config 5) FSDP-sharded over ``ranks`` cards (NCCL):
-    the port's driver through its cli at ``local[ranks]`` with its default
-    ``--fsdp -1`` (global b=8, S=1,024, LoRA rank 16) and at ``local[1]``
-    on the same batches. Held: every rank's losses one card's at
-    GANG_LOSS_RTOL, K1/K2/K3 LLAMA_LAUNCHES a step on every card, the
-    replicated params in sync, each card's resident param bytes the rule
-    engine's reckoning, each card's peak memory in fit at least half the
-    base below one card's. Then the full fine-tune at
-    LLAMA_GANG_FULL_LAYERS layers (sharded params in training) at N ranks
-    and on one card: losses at GANG_LOSS_RTOL and grad norms at
-    GANG_GRAD_NORM_RTOL; each of LLAMA_GANG_FAULTS planted into its N-rank
-    run must break one of those limits. Prints each card's step ms,
-    tokens/s, peak memory, and a profiled window's NCCL time."""
+    """Llama-2 7B LoRA (config 5) sharded over ``ranks`` cards (NCCL): the
+    port's driver through its cli at ``local[ranks]`` with its default
+    ``--fsdp -1`` (global b=8, S=1,024, LoRA rank 16), with ``--tensor T``
+    for each T of LLAMA_TP_SHAPES that divides ``ranks`` (fsdp = N/T ×
+    tensor = T), and at ``local[1]`` on the same batches. Held on each run:
+    every rank's losses one card's at GANG_LOSS_RTOL, K1/K2/K3
+    LLAMA_LAUNCHES a step on every card at its local heads, each param in
+    sync within its replica group, each card's resident param bytes the
+    rule engine's reckoning, each card's peak in the init below the whole
+    model, and at fsdp=N each card's peak in fit at least half the base
+    below one card's. Then comparison runs: the LoRA at fsdp=N and at
+    fsdp=N/2 × tensor=2 (each profiled), the full fine-tune at
+    LLAMA_GANG_FULL_LAYERS layers (sharded params in training) at fsdp=N,
+    at data=2 × fsdp=N/2 (HSDP) and on one card: losses at GANG_LOSS_RTOL
+    and grad norms at GANG_GRAD_NORM_RTOL; each of LLAMA_GANG_FAULTS
+    planted into its N-rank run must break one of those limits. Prints
+    each card's step ms, tokens/s, peak memory, a profiled window's NCCL
+    time and kernels, and NCCL's algorithm and protocol for each
+    collective of the driver runs."""
     root = ROOT / "build" / f"chip_smoke_llama_gang_{ranks}"
     args = _llama_gang_args(ranks, GANG_STEPS)
-    many = _driver_run("llama_lora", root / "driver", ranks, args)
+    many = _driver_run("llama_lora", root / "driver", ranks, args,
+                       env=_nccl_env(root / "driver"))
     one = _driver_run("llama_lora", root / "one", 1, args)
+    tps = {t: _driver_run("llama_lora", root / f"driver-tp{t}", ranks,
+                          _llama_gang_args(ranks, GANG_STEPS, t),
+                          env=_nccl_env(root / f"driver-tp{t}"))
+           for t, _ in LLAMA_TP_SHAPES if ranks % t == 0}
+    # the fsdp × tensor=2 run again with NCCL's Simple protocol: its step
+    # against the protocol NCCL picks (printed, not held)
+    simple = (_driver_run("llama_lora", root / "driver-tp2-simple", ranks,
+                          _llama_gang_args(ranks, GANG_STEPS, 2),
+                          env={**_nccl_env(root / "driver-tp2-simple"),
+                               "NCCL_PROTO": "Simple"})
+              if 2 in tps else None)
     res, res1 = many["result"], one["result"]
     cards = res["by_rank"]
-    want_launches = {k: n * GANG_STEPS for k, n in LLAMA_LAUNCHES.items()}
     whole_bytes = res1["by_rank"][0]["param_bytes"]  # one card holds it all
     got, want = many["losses"].get("p0", []), one["losses"].get("p0", [])
     tokens = LLAMA_BATCH * LLAMA_SEQ
+
+    def driver_rec(run: dict) -> dict:
+        r = run["result"]
+        losses = run["losses"].get("p0", [])
+        return dict(
+            mesh=r["mesh"], sharded_params=r["sharded_params"],
+            local_heads=r["local_heads"], losses=losses,
+            max_loss_rel_err=_loss_gap(losses, want), loss_rtol=GANG_LOSS_RTOL,
+            step_ms_by_rank=run["step_ms_by_rank"],
+            tokens_per_sec_per_card={p: tokens / ranks / (ms / 1e3)
+                                     for p, ms in run["step_ms_by_rank"].items()},
+            init_s=r["init_s"], cards=r["by_rank"], launch=run["launch"],
+            left=run["left"], nccl=_nccl_tuning(run["workdir"]))
+
     rec = dict(
         ranks=ranks, global_batch=LLAMA_BATCH, seq_len=LLAMA_SEQ, lora_rank=LLAMA_RANK,
-        mesh=res["mesh"], sharded_params=res["sharded_params"], losses=got,
-        one_card_losses=want, max_loss_rel_err=_loss_gap(got, want),
-        loss_rtol=GANG_LOSS_RTOL, step_ms_by_rank=many["step_ms_by_rank"],
-        one_card_step_ms=one["step_ms_by_rank"].get("p0"),
-        tokens_per_sec_per_card={p: tokens / ranks / (ms / 1e3)
-                                 for p, ms in many["step_ms_by_rank"].items()},
+        **driver_rec(many),
+        one_card_losses=want, one_card_step_ms=one["step_ms_by_rank"].get("p0"),
         one_card_tokens_per_sec=tokens / (one["step_ms_by_rank"]["p0"] / 1e3),
-        cards=cards, one_card=res1["by_rank"][0], launch=many["launch"],
-        left=many["left"])
+        one_card=res1["by_rank"][0],
+        tensor_parallel={t: driver_rec(run) for t, run in tps.items()},
+        tensor_2_nccl_simple=None if simple is None else driver_rec(simple))
     comparisons = {}
-    for mode in ("lora", "full"):
-        runs = {"none": _llama_run(root / f"{mode}-none", ranks, mode, "none", args)}
+    tp_args = _llama_gang_args(ranks, GANG_STEPS, 2)
+    for mode, mode_args in (("lora", args), ("lora-tp", tp_args), ("full", args)):
+        run_mode = "lora" if mode == "lora-tp" else mode
+        runs = {"none": _llama_run(root / f"{mode}-none", ranks, run_mode, "none",
+                                   mode_args)}
         if mode == "full":
             runs["one"] = _llama_run(root / "full-one", 1, mode, "none", args)
+            if ranks % 2 == 0 and ranks > 2:
+                runs["hsdp"] = _llama_run(root / "full-hsdp", ranks, "full-hsdp",
+                                          "none", args)
         for fault, (fault_mode, _) in LLAMA_GANG_FAULTS.items():
             if fault_mode == mode:
-                runs[fault] = _llama_run(root / f"{mode}-{fault}", ranks, mode, fault,
-                                         args)
+                runs[fault] = _llama_run(root / f"{mode}-{fault}", ranks, run_mode,
+                                         fault, mode_args)
         ref = runs.get("one")
         comparisons[mode] = {
             name: dict(
                 losses=run["losses"][0], grad_norms=run["grad_norms"][0],
                 step_ms=run["step_ms"], launch=run["launch"],
+                mesh=run["cards"][0]["mesh"],
                 replicas_in_sync=all(c["replicas_in_sync"] for c in run["cards"]),
                 ranks_agree=all(v == run["losses"][0] for v in run["losses"]),
                 cards=[{k: c[k] for k in ("flash_launches", "param_bytes",
                                           "param_bytes_reckoned",
-                                          "max_memory_allocated")}
+                                          "max_memory_allocated",
+                                          "init_max_memory_allocated", "local_heads")}
                        for c in run["cards"]],
                 profile=run["cards"][0].get("profile"),
                 **(dict(max_loss_rel_err=_loss_gap(run["losses"][0], ref["losses"][0]),
@@ -3285,13 +3450,18 @@ def train_llama_gang(torch, ranks: int) -> dict:
                                                        ref["grad_norms"][0]))
                    if ref is not None and name != "one" else {}))
             for name, run in runs.items()}
-    # the LoRA faults against the sound driver runs' one card
-    for name, run in comparisons["lora"].items():
-        run["max_loss_rel_err"] = _loss_gap(run["losses"], want)
+    # the LoRA runs and their faults against the sound driver runs' one card
+    for mode in ("lora", "lora-tp"):
+        for run in comparisons[mode].values():
+            run["max_loss_rel_err"] = _loss_gap(run["losses"], want)
     rec["comparisons"] = comparisons
-    profile = comparisons["lora"]["none"]["profile"] or {}
-    rec["nccl_ms_per_step"] = profile.get("busy_ms_by_family", {}).get("nccl")
+    profiles = {m: comparisons[m]["none"]["profile"] or {} for m in ("lora", "lora-tp")}
+    rec["nccl_ms_per_step"] = {m: p.get("busy_ms_by_family", {}).get("nccl")
+                               for m, p in profiles.items()}
+    rec["nccl_kernels_ms_per_step"] = {m: _nccl_kernels(p) for m, p in profiles.items()}
     rec["card"] = nvidia_smi_line()
+    rec["torch_version"] = torch.__version__
+    rec["nccl_version"] = torch.cuda.nccl.version()
     print("gang llama " + json.dumps(rec), flush=True)
     check(res["world_size"] == ranks and res["backend"] == "nccl"
           and res["mesh"]["data"] == 1 and res["mesh"]["fsdp"] == ranks
@@ -3299,35 +3469,44 @@ def train_llama_gang(torch, ranks: int) -> dict:
           f"llama gang: {({k: v for k, v in res.items() if k != 'train'})}")
     check(res1["mesh"]["fsdp"] == 1 and res1["sharded_params"] == 0,
           f"the one-card run sharded: {res1['mesh']}, {res1['sharded_params']}")
-    check(sorted(many["losses"]) == [f"p{r}" for r in range(ranks)]
-          and all(v == got for v in many["losses"].values()),
-          "llama gang: the ranks logged different losses")
-    check(rec["max_loss_rel_err"] <= GANG_LOSS_RTOL,
-          f"llama gang: the losses at {ranks} cards are off one card's "
-          f"({rec['max_loss_rel_err']} > {GANG_LOSS_RTOL}): {got} vs {want}")
+    for name, run in (("fsdp", many), *((f"tensor={t}", r) for t, r in tps.items())):
+        r = run["result"]
+        t = r["mesh"]["tensor"]
+        check(r["world_size"] == ranks and r["mesh"]["fsdp"] * t == ranks
+              and r["replicas_checked"] and r["local_heads"] == LLAMA_HEADS // t,
+              f"llama gang {name}: {({k: v for k, v in r.items() if k != 'train'})}")
+        logged = run["losses"].get("p0", [])
+        check(sorted(run["losses"]) == [f"p{q}" for q in range(ranks)]
+              and all(v == logged for v in run["losses"].values()),
+              f"llama gang {name}: the ranks logged different losses")
+        gap = _loss_gap(logged, want)
+        check(gap <= GANG_LOSS_RTOL,
+              f"llama gang {name}: the losses at {ranks} cards are off one card's "
+              f"({gap} > {GANG_LOSS_RTOL}): {logged} vs {want}")
+        _cards_check(r, ranks, whole_bytes, f"llama gang {name}")
+        check(not run["left"], f"llama gang {name} left {run['left']}")
     for r, card in enumerate(cards):
-        check(card["flash_launches"] == want_launches,
-              f"card {r}: flash launches {card['flash_launches']}, want {want_launches}")
-        check(card["param_bytes"] == card["param_bytes_reckoned"] < whole_bytes,
-              f"card {r}: resident param bytes {card['param_bytes']}, the rule "
-              f"engine's reckoning {card['param_bytes_reckoned']}, one card's "
-              f"{whole_bytes}")
         check(res1["by_rank"][0]["max_memory_allocated"] - card["max_memory_allocated"]
               >= whole_bytes / 2,
               f"card {r}: peak {card['max_memory_allocated']} is not half the base "
               f"below one card's {res1['by_rank'][0]['max_memory_allocated']}")
-    check(not many["left"] and not one["left"], f"left {many['left']} {one['left']}")
-    check(profile.get("busy_ms_by_family", {}).get("nccl", 0.0) > 0,
-          f"no NCCL kernel in the profiled llama gang: {profile}")
-    sound = [comparisons["lora"]["none"], comparisons["full"]["none"]]
+    check(not one["left"], f"left {one['left']}")
+    for m, p in profiles.items():
+        check(p.get("busy_ms_by_family", {}).get("nccl", 0.0) > 0,
+              f"no NCCL kernel in the profiled llama gang ({m}): {p}")
+    sound = [comparisons[m]["none"] for m in ("lora", "lora-tp", "full")]
     check(all(run["replicas_in_sync"] and run["ranks_agree"] for run in sound)
-          and sound[0]["max_loss_rel_err"] <= GANG_LOSS_RTOL,
+          and all(run["max_loss_rel_err"] <= GANG_LOSS_RTOL for run in sound[:2]),
           f"llama gang comparisons: {sound}")
-    full = comparisons["full"]["none"]
-    check(full["max_loss_rel_err"] <= GANG_LOSS_RTOL
-          and full["max_grad_norm_rel_err"] <= GANG_GRAD_NORM_RTOL,
-          f"the full fine-tune at {ranks} cards is off one card's: "
-          f"{full['max_loss_rel_err']}, {full['max_grad_norm_rel_err']}")
+    for name in ("none", "hsdp"):
+        full = comparisons["full"].get(name)
+        if full is None:
+            continue
+        check(full["replicas_in_sync"] and full["ranks_agree"]
+              and full["max_loss_rel_err"] <= GANG_LOSS_RTOL
+              and full["max_grad_norm_rel_err"] <= GANG_GRAD_NORM_RTOL,
+              f"the full fine-tune at {full['mesh']} is off one card's: "
+              f"{full['max_loss_rel_err']}, {full['max_grad_norm_rel_err']}")
     for fault, (mode, why) in LLAMA_GANG_FAULTS.items():
         seen = comparisons[mode][fault]
         check(not seen["replicas_in_sync"] or seen["max_loss_rel_err"] > GANG_LOSS_RTOL

@@ -43,7 +43,10 @@ from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 def process_shard_range(num_shards: int, *, rank: int | None = None,
                         world_size: int | None = None) -> tuple[int, int] | None:
     """This process's data-shard slice [lo, hi), or None for one process.
-    ``rank``/``world_size`` default to this process's group's."""
+    ``rank``/``world_size`` default to this process's group's; under tensor
+    parallelism the caller passes its coordinate on the batch axes and
+    their size (``Mesh.batch_index``, ``Trainer``), so ``tensor`` peers take
+    the same shards."""
     pc = collectives.world_size() if world_size is None else world_size
     if pc == 1:
         return None

@@ -20,16 +20,22 @@ the attention runs on the flash kernels (K1 forward and in the remat
 recompute, K2/K3 backward).
 
 Sharded as the JAX driver shards it: ``--fsdp`` (default ``-1``, every
-rank) sets ``mesh.data=1, mesh.fsdp=--fsdp`` and the trainer takes
-``rules=llama_rules(cfg)``, so at ``local[N]`` the base is FSDP-sharded
-over the N ranks (FSDP2, each card holding 1/N of it) while the LoRA
-adapters and the norm scales stay replicated and their gradients are
-all-reduced; at ``local[1]`` nothing is sharded. On the CPU::
+rank) and ``--tensor`` (default 1) set ``mesh.data=1, mesh.fsdp=--fsdp,
+mesh.tensor=--tensor`` and the trainer takes ``rules=llama_rules(cfg)``,
+so at ``local[N]`` the base is FSDP-sharded over N/T ranks (FSDP2) and
+split over T ranks for tensor parallelism (``DTensor``: the heads, the
+MLP's columns and the vocab), each card holding 1/N of it, while the
+LoRA adapters and the norm scales stay replicated; at ``local[1]``
+nothing is sharded. ``local[N]`` is N processes: JAX's ``local[N]
+--tensor T`` is the port's ``local[N·T] --tensor T``. The model is built
+on the meta device and the trainer draws its weights from seed 0, each
+card keeping its shards (bitwise one card's weights). On the CPU::
 
     python -m distributeddeeplearningspark_tpu_torch.cli --master local[2] \\
         --conf spark.dls.device=cpu \\
         distributeddeeplearningspark_tpu_torch/examples/train_llama_lora.py \\
-        --variant tiny --steps 4 --batch-size 4 --seq-len 64 --lora-rank 4
+        --variant tiny --steps 4 --batch-size 4 --seq-len 64 --lora-rank 4 \\
+        --tensor 2
 
 ``--source-partitions P`` keeps the global batches the same at any rank
 count that divides P.
@@ -48,21 +54,25 @@ port's (the JAX driver has none); a restore that raises exits with the
 supervisor's ``RESTORE_FAILED_EXIT``. A checkpoint holds the whole state,
 the frozen base included.
 
-The JAX driver's tensor, sequence and pipeline parallelism, MoE, int8
+The JAX driver's sequence, pipeline and expert parallelism, MoE, int8
 base, fused head, sampling and the import of real weights (which needs
 their tokenizer) are not ported yet: those flags fail at parse time, each
 naming its ROADMAP item. Rank 0 prints one JSON line: the train summary,
 where the run went (world size, backend, device, the mesh), the number of
-sharded params, and for each rank the flash kernels' launches in ``fit``,
-its resident param bytes (each shard's ``to_local()``, each replicated
-param whole) beside the rule engine's reckoning, and its peak device
-memory during ``fit``; ``replicas_checked`` says the replicated params
-were compared across the ranks.
+sharded params (on any axis), the attention's local heads a rank, and
+for each rank the flash kernels' launches in ``fit``, its resident param
+bytes (each shard's ``to_local()``, each replicated param whole) beside
+the rule engine's reckoning, its peak device memory in the init and
+during ``fit``, and the tensor-parallel all-reduces it made in ``fit``
+(and rank 0's seconds in the trainer's init);
+``replicas_checked`` says each param was compared within its replica
+group.
 """
 
 import argparse
 import json
 import logging
+import time
 
 import torch
 
@@ -81,6 +91,7 @@ from distributeddeeplearningspark_tpu_torch.models.llama import (
 )
 from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
 from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import AXIS_TENSOR
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 from distributeddeeplearningspark_tpu_torch.train import losses, optim
 from distributeddeeplearningspark_tpu_torch.utils import sanitize
@@ -101,8 +112,6 @@ NOT_PORTED = {
 }
 #: mesh axes of the JAX driver the port cannot shard over yet: only 1
 MESH_AXES = {
-    "tensor": "tensor parallelism (DTensor, llama_rules' tensor entries): "
-              "ROADMAP Queue 1 item 5",
     "seq_parallel": "context parallelism (ring, Ulysses): ROADMAP Queue 1 item 6",
     "pipeline": "the pipeline (models/llama_pp.py): ROADMAP Queue 1 item 6",
 }
@@ -135,6 +144,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--fsdp", type=int, default=-1,
                    help="FSDP axis size (-1: every rank)")
+    p.add_argument("--tensor", type=int, default=1,
+                   help="tensor-parallel axis size (ranks a layer is split over)")
     for axis in MESH_AXES:
         p.add_argument("--" + axis.replace("_", "-"), type=int, default=1,
                        help=f"only 1 is ported: {MESH_AXES[axis]}")
@@ -165,11 +176,11 @@ def make_config(args: argparse.Namespace, vocab_size: int) -> LlamaConfig:
 
 
 def make_session(args: argparse.Namespace, app: str = "llama-lora") -> Session:
-    """The session on the JAX driver's mesh: ``mesh.data=1`` and
-    ``mesh.fsdp=--fsdp`` (config 5 is FSDP-dominant: the fsdp workers are
-    the executors)."""
+    """The session on the JAX driver's mesh: ``mesh.data=1``,
+    ``mesh.fsdp=--fsdp`` and ``mesh.tensor=--tensor`` (config 5 is
+    FSDP-dominant: the fsdp workers are the executors)."""
     builder = (Session.builder.appName(app).config("mesh.data", 1)
-               .config("mesh.fsdp", args.fsdp))
+               .config("mesh.fsdp", args.fsdp).config("mesh.tensor", args.tensor))
     if args.master:
         builder = builder.master(args.master)
     return builder.getOrCreate()
@@ -191,10 +202,11 @@ def make_dataset(args: argparse.Namespace, spark: Session):
     return ds, tok
 
 
-def make_model(cfg: LlamaConfig, device: torch.device) -> LlamaForCausalLM:
-    """The model at ``cfg``, weights from seed 0 (the same on every rank)."""
-    model = LlamaForCausalLM(cfg, device=device)
-    return model.init_weights(torch.Generator(device=device).manual_seed(0))
+def make_model(cfg: LlamaConfig) -> LlamaForCausalLM:
+    """The model at ``cfg`` on the meta device: the trainer lowers the
+    rules onto it, allocates each card's shards and draws the weights from
+    its seed (0, the same on every rank)."""
+    return LlamaForCausalLM(cfg, device="meta")
 
 
 def make_trainer(args: argparse.Namespace, spark: Session, cfg: LlamaConfig,
@@ -208,14 +220,23 @@ def make_trainer(args: argparse.Namespace, spark: Session, cfg: LlamaConfig,
                 args.lr, min(10, max(args.steps // 10, 1)), args.steps)),
             1.0),
         lora_trainable)
-    return Trainer(spark, make_model(cfg, spark.device), losses.causal_lm, tx,
+    return Trainer(spark, make_model(cfg), losses.causal_lm, tx,
                    rules=llama_rules(cfg), accum_steps=args.accum_steps,
                    trainable=lora_trainable, checkpointer=checkpointer)
 
 
+def local_heads(trainer: Trainer) -> int:
+    """The attention heads each rank runs: ``num_heads`` over the split of
+    ``wq``'s rows (1 without tensor parallelism)."""
+    split = any(n.endswith("attention.wq.weight") for n in trainer.tensor_dims)
+    size = trainer.session.mesh.shape[AXIS_TENSOR] if split else 1
+    return trainer.model.cfg.num_heads // size
+
+
 def card_record(trainer: Trainer, launches: dict) -> dict:
     """This rank's card: its flash launches, its resident param bytes beside
-    the rule engine's reckoning, and its peak device memory."""
+    the rule engine's reckoning, and its peak device memory (in ``fit``:
+    since the last reset)."""
     named = dict(trainer.model.named_parameters())
     device = trainer.device
     return {
@@ -240,11 +261,19 @@ def main(argv: list[str] | None = None) -> None:
     ds, tok = make_dataset(args, spark)
     cfg = make_config(args, tok.vocab_size)
     ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
+    cuda = spark.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(spark.device)
+    t0 = time.perf_counter()
     trainer = make_trainer(args, spark, cfg, ckpt)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(spark.device) if cuda else None
     data_state, restored_step = resume(trainer, ckpt, args.resume)
     kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     before = [k.launches for k in kernels]
-    if spark.device.type == "cuda":
+    tp_ops = (collectives.all_reduce_forward, collectives.all_reduce_backward)
+    tp_before = sum(op.calls for op in tp_ops)
+    if cuda:
         torch.cuda.reset_peak_memory_stats(spark.device)
     state, summary = trainer.fit(ds, batch_size=args.batch_size, steps=args.steps,
                                  tokens_per_example=args.seq_len,
@@ -252,7 +281,10 @@ def main(argv: list[str] | None = None) -> None:
                                  checkpoint_every=args.checkpoint_every if ckpt else None,
                                  data_state=data_state)
     launches = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
-    by_rank = collectives.all_gather_object(card_record(trainer, launches))
+    card = card_record(trainer, launches)
+    card.update(init_max_memory_allocated=init_peak,
+                tensor_all_reduces=sum(op.calls for op in tp_ops) - tp_before)
+    by_rank = collectives.all_gather_object(card)
     sanitize.assert_replicas_in_sync(state.params, what="replicated params")
     if spark.rank == 0:
         print(json.dumps({
@@ -260,11 +292,14 @@ def main(argv: list[str] | None = None) -> None:
             "variant": args.variant,
             "world_size": spark.world_size, "backend": spark.backend,
             "device": str(spark.device), "mesh": spark.mesh.shape,
-            "sharded_params": len(trainer.shard_dims),
+            "sharded_params": len(set(trainer.shard_dims) | set(trainer.tensor_dims)),
+            "tensor_split_params": len(trainer.tensor_dims),
+            "local_heads": local_heads(trainer),
             "flash_launches": launches,
             "trainable_params": sum(p.numel() for n, p in state.params.items()
                                     if lora_trainable(n)),
             "max_memory_allocated": by_rank[0]["max_memory_allocated"],
+            "init_s": init_s,
             "by_rank": by_rank, "replicas_checked": spark.world_size > 1,
         }), flush=True)
     if ckpt:

@@ -33,9 +33,27 @@ and ``segment_ids`` [B,S]; ``loss_mask`` is the loss's. Returns logits
 [B,S,vocab] f32.
 
 :func:`llama_rules` is the JAX ``llama_rules`` over the port's param
-names: the layout ``Trainer(rules=...)`` lowers to FSDP2 over the ``fsdp``
-axis (:mod:`..parallel.sharding`), its ``tensor`` entries kept in torch's
-``[out, in]`` layout for tensor parallelism.
+names, its ``tensor`` entries in torch's ``[out, in]`` layout: the layout
+``Trainer(rules=...)`` lowers onto the mesh (:mod:`..parallel.sharding`).
+
+Under tensor parallelism (the lowering made the projections, the
+embedding and the head ``DTensor``\\ s split over ``tensor``) each layer
+reads its weights' placements (``sharding.tensor_split``) and runs on its
+shard, Megatron's way, on plain local tensors (the flash kernels never see
+a ``DTensor``): attention on its local heads (``num_heads`` and
+``num_kv_heads`` must each divide by ``tensor``, else ``ValueError``) and
+the MLP on its local columns of ``intermediate_size``; each block's input
+goes through ``collectives.all_reduce_backward`` (its gradient summed
+over the group) and the row-split ``wo``/``down`` outputs through
+``all_reduce_forward``. The embedding looks up the ids of its vocab rows
+and sums over the group; the head's logits stay split over the vocab, a
+``DTensor`` ``Shard(2)`` that ``losses.causal_lm`` reduces without
+gathering them. The LoRA adapters stay whole on every rank, as JAX keeps
+them (``lora_`` → ``P()``): a column-split projection adds ``(x·A)·B[:,
+its columns]``, so each peer's gradients of A and B are parts of the
+whole, and the adapters go through ``all_reduce_backward`` too
+(:func:`adapter_shards`): their gradients arrive summed over the group,
+while the norm scales', whole on every peer already, are not.
 
 Not ported yet, and refused by name: the MoE FFN and ring/Ulysses
 attention (ROADMAP Queue 1 item 6), the int8 frozen base and the fused
@@ -57,7 +75,17 @@ from distributeddeeplearningspark_tpu_torch.ops.attention import (
     dot_product_attention,
     padding_mask,
 )
-from distributeddeeplearningspark_tpu_torch.parallel.sharding import P, ShardingRules
+from distributeddeeplearningspark_tpu_torch.parallel import collectives
+from distributeddeeplearningspark_tpu_torch.parallel.sharding import (
+    P,
+    ShardingRules,
+    TensorSplit,
+    assign,
+    is_sharded,
+    local,
+    local_value,
+    tensor_split,
+)
 from distributeddeeplearningspark_tpu_torch.utils.device import resolve_device
 
 
@@ -168,13 +196,49 @@ class LoRALinear(nn.Module):
                                                    device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Under a ``tensor`` split, ``x`` is this rank's input (the whole
+        one for a column split, its columns for a row split) and the output
+        this rank's columns (a part of the sum for a row split)."""
         dt = self.dtype
         x = x.to(dt)
-        y = F.linear(x, self.weight.to(dt))
+        y = F.linear(x, local_value(self.weight).to(dt))
         if self.rank:
-            delta = (x @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
+            a, b = adapter_shards(self.lora_a, self.lora_b, tensor_split(self.weight))
+            delta = (x @ a.to(dt)) @ b.to(dt)
             y = y + (delta * (self.alpha / self.rank)).to(y.dtype)
         return y
+
+
+def adapter_shards(a: torch.Tensor, b: torch.Tensor, split: TensorSplit | None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The LoRA factors a projection split by ``split`` uses: A and B whole
+    through ``all_reduce_backward`` (each peer's gradients are its part of
+    the whole), then B's columns of this rank's output shard (a column
+    split) or A's rows of its input shard (a row split)."""
+    if split is None:
+        return a, b
+    a = collectives.all_reduce_backward(a, split.group)
+    b = collectives.all_reduce_backward(b, split.group)
+    if split.dim == 0:
+        return a, b.chunk(split.size, 1)[split.index]
+    return a.chunk(split.size, 0)[split.index], b
+
+
+def _block_split(column: Sequence[nn.Module], row: nn.Module) -> TensorSplit | None:
+    """The ``tensor`` split of a block whose ``column`` projections feed
+    ``row``: None where none is split; Megatron's pairing (the column
+    projections' outputs and the row one's input split alike) or
+    ``NotImplementedError``."""
+    splits = [tensor_split(m.weight) for m in column] + [tensor_split(row.weight)]
+    if all(sp is None for sp in splits):
+        return None
+    if (any(sp is None for sp in splits) or any(sp.dim != 0 for sp in splits[:-1])
+            or splits[-1].dim != 1):
+        raise NotImplementedError(
+            f"tensor split {[None if sp is None else sp.dim for sp in splits]} of "
+            f"a block: the model runs the column projections split on dim 0 "
+            f"and the row one on dim 1 (llama_rules' layout), or none split")
+    return splits[0]
 
 
 def _proj(cfg: LlamaConfig, name: str, d_in: int, d_out: int, device
@@ -199,16 +263,27 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
-        q = self.wq(x).view(b, s, cfg.num_heads, hd)
-        k = self.wk(x).view(b, s, cfg.num_kv_heads, hd)
-        v = self.wv(x).view(b, s, cfg.num_kv_heads, hd)
+        heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
+        split = _block_split((self.wq, self.wk, self.wv), self.wo)
+        if split is not None:
+            if heads % split.size or kv_heads % split.size:
+                raise ValueError(
+                    f"tensor={split.size} must divide num_heads={heads} and "
+                    f"num_kv_heads={kv_heads} (wq {tuple(self.wq.weight.shape)}, "
+                    f"wk {tuple(self.wk.weight.shape)}): each rank takes whole heads")
+            heads, kv_heads = heads // split.size, kv_heads // split.size
+            x = collectives.all_reduce_backward(x, split.group)
+        q = self.wq(x).view(b, s, heads, hd)
+        k = self.wk(x).view(b, s, kv_heads, hd)
+        v = self.wv(x).view(b, s, kv_heads, hd)
         positions = torch.arange(s, device=x.device)[None, :]
         q = rotary_embedding(q, positions, cfg.rope_theta)
         k = rotary_embedding(k, positions, cfg.rope_theta)
         y = dot_product_attention(q, k, v, mask=mask, causal=True,
                                   segment_ids=segment_ids,
                                   impl=cfg.attention_impl)
-        return self.wo(y.reshape(b, s, cfg.num_heads * hd))
+        out = self.wo(y.reshape(b, s, heads * hd))
+        return out if split is None else collectives.all_reduce_forward(out, split.group)
 
 
 class LlamaMLP(nn.Module):
@@ -222,7 +297,11 @@ class LlamaMLP(nn.Module):
         self.down = _proj(cfg, "down", i, h, device)
 
     def forward(self, x):
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        split = _block_split((self.gate, self.up), self.down)
+        if split is not None:
+            x = collectives.all_reduce_backward(x, split.group)
+        out = self.down(F.silu(self.gate(x)) * self.up(x))
+        return out if split is None else collectives.all_reduce_forward(out, split.group)
 
 
 class DecoderLayer(nn.Module):
@@ -277,12 +356,12 @@ class LlamaForCausalLM(nn.Module):
         """``generator`` is taken for the Trainer's call and unused: Llama-2
         has no dropout."""
         del generator
-        cfg, dt = self.cfg, self.cfg.dtype
+        cfg = self.cfg
         ids = batch["input_ids"]
         if ids.shape[1] > cfg.max_position:
             raise ValueError(f"sequence length {ids.shape[1]} exceeds "
                              f"max_position {cfg.max_position}")
-        x = F.embedding(ids, self.token_embed.weight.to(dt))
+        x = self._embed(ids)
         pad = batch.get("attention_mask")
         # causal is handled inside attention; a mask only for padding
         mask = padding_mask(pad) if pad is not None else None
@@ -293,8 +372,43 @@ class LlamaForCausalLM(nn.Module):
                 x = checkpoint(layer, x, mask, segment_ids, use_reentrant=False)
             else:
                 x = layer(x, mask, segment_ids)
-        x = self.final_norm(x)
-        return F.linear(x.to(dt), self.lm_head.weight.to(dt)).float()
+        return self._head(self.final_norm(x))
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """The tokens' rows; under a ``tensor`` split of the vocab each rank
+        looks up the ids of its rows (zeros elsewhere) and the group sums."""
+        dt = self.cfg.dtype
+        w = self.token_embed.weight
+        split = tensor_split(w)
+        if split is None:
+            return F.embedding(ids, local_value(w).to(dt))
+        if split.dim != 0:
+            raise NotImplementedError(f"token_embed split on dim {split.dim}: the "
+                                      f"model splits the vocab (dim 0) only")
+        rows = w.to_local()
+        rel = ids - split.index * rows.shape[0]
+        inside = (rel >= 0) & (rel < rows.shape[0])
+        x = F.embedding(torch.where(inside, rel, 0), rows.to(dt)) * inside[..., None].to(dt)
+        return collectives.all_reduce_forward(x, split.group)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits; under a ``tensor`` split of the vocab, this rank's
+        columns as a ``DTensor`` ``Shard(2)`` of the whole ``[B, S, V]``."""
+        dt = self.cfg.dtype
+        w = self.lm_head.weight
+        split = tensor_split(w)
+        if split is None:
+            return F.linear(x.to(dt), local_value(w).to(dt)).float()
+        if split.dim != 0:
+            raise NotImplementedError(f"lm_head split on dim {split.dim}: the "
+                                      f"model splits the vocab (dim 0) only")
+        from torch.distributed.tensor import DTensor, Shard
+
+        x = collectives.all_reduce_backward(x, split.group)
+        logits = F.linear(x.to(dt), w.to_local().to(dt)).float()
+        b, s, v = logits.shape[0], logits.shape[1], w.shape[0]
+        return DTensor.from_local(logits, split.mesh, [Shard(2)], run_check=False,
+                                  shape=(b, s, v), stride=(s * v, v, 1))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "LlamaForCausalLM":
@@ -302,19 +416,32 @@ class LlamaForCausalLM(nn.Module):
         scales: the embedding normal(0, 1/√H), the projections and the head
         normal(0, 1/√fan_in) (lecun's scale, not truncated), LoRA A
         he-uniform (±√(6/fan_in)), B zero, unit norm scales. Drawn on the
-        params' device, in their dtype."""
-        self.token_embed.weight.normal_(0.0, self.cfg.hidden_size ** -0.5,
-                                        generator=generator)
+        params' device, in their dtype, each param whole and in this order;
+        a sharded param keeps its shard of the draw (``sharding.assign``),
+        so a sharded model's weights are bitwise one device's from the same
+        generator, at the cost of one whole param at a time."""
+
+        def draw(p: torch.Tensor, fill) -> None:
+            if not is_sharded(p):
+                fill(p)
+                return
+            whole = torch.empty(p.shape, dtype=p.dtype, device=local(p).device)
+            fill(whole)
+            assign(p, whole)
+
+        std = self.cfg.hidden_size ** -0.5
+        draw(self.token_embed.weight,
+             lambda t: t.normal_(0.0, std, generator=generator))
         for mod in self.modules():
             if isinstance(mod, (LoRALinear, nn.Linear)):
-                fan_in = mod.weight.shape[1]
-                mod.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+                std = mod.weight.shape[1] ** -0.5
+                draw(mod.weight, lambda t: t.normal_(0.0, std, generator=generator))
             if isinstance(mod, LoRALinear) and mod.rank:
                 limit = math.sqrt(6.0 / mod.lora_a.shape[0])
-                mod.lora_a.uniform_(-limit, limit, generator=generator)
-                mod.lora_b.zero_()
+                draw(mod.lora_a, lambda t: t.uniform_(-limit, limit, generator=generator))
+                draw(mod.lora_b, lambda t: t.zero_())
             if isinstance(mod, RMSNorm):
-                mod.scale.fill_(1.0)
+                draw(mod.scale, lambda t: t.fill_(1.0))
         return self
 
 
@@ -357,10 +484,9 @@ def llama_rules(cfg: LlamaConfig, *, fsdp: bool = True,
     all-reduce a block. The embedding and the LM head shard the vocab.
     LoRA adapters stay replicated: rank-r factors are too small to be worth
     a collective. The auto-FSDP pass then shards the largest remaining dim
-    of every param of at least ``fsdp_min_size`` elements over ``fsdp``.
-    The port's mesh refuses ``tensor`` above 1 (ROADMAP Queue 1 item 5), so
-    today only the FSDP pass shards. The int8 base, the MoE bank and the
-    pipeline's stage layout raise, as the model does."""
+    of every param of at least ``fsdp_min_size`` elements over ``fsdp``
+    (for a tensor-split weight, its other dim). The int8 base, the MoE
+    bank and the pipeline's stage layout raise, as the model does."""
     if pipeline:
         raise NotImplementedError(
             "llama_rules(pipeline=True): the pipeline (models/llama_pp.py) is "

@@ -17,6 +17,12 @@ so the train step makes the same gradient in two collectives:
 2. :func:`all_reduce_grads` — the gradients summed across ranks in place,
    one flat buffer per dtype (one collective each, not one per param).
 
+Under tensor parallelism (a mesh with ``tensor`` above 1) the batch is
+split over the ``data × fsdp`` ranks only and the ranks of one ``tensor``
+group hold the same rows, so the train step passes both collectives the
+session's batch group (``Mesh.group(BATCH_AXES)``): summed over the whole
+gang, every row would count ``tensor`` times.
+
 Two more carry the models whose JAX step reduces inside the forward:
 
 - :func:`all_reduce_sum` — a differentiable sum across ranks, for
@@ -27,6 +33,15 @@ Two more carry the models whose JAX step reduces inside the forward:
 - :func:`all_gather_rows` — the row-sparse step's merge: every rank's ids
   and gathered-vector gradients in rank order, which is the global
   batch's row order.
+
+Megatron's two tensor-parallel operators carry a layer split over a
+``tensor`` group (:mod:`..models.llama`): :func:`all_reduce_backward`
+(``f``: the identity forward, the gradient summed across the group; at a
+column-split layer's input, whose gradient each peer holds a part of)
+and :func:`all_reduce_forward` (``g``: the sum forward, the gradient passed
+as it is; after a row-split layer, whose output each peer holds a part
+of). The LoRA adapters, replicated but used on each peer's columns only,
+go through ``f`` too, so their gradients arrive summed across the group.
 
 :func:`grad_average` is the reference's round loop, a numpy average of
 per-partition gradients, which tests hold the step to. Whether the ranks'
@@ -91,45 +106,49 @@ def all_gather_object(obj: Any) -> list:
     return out
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` across ranks in place (a no-op outside a group)."""
+def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` across the ranks of ``group`` (None: every rank) in place
+    (a no-op outside a group)."""
     if active():
-        _dist().all_reduce(t)
+        _dist().all_reduce(t, group=group)
     return t
 
 
 def weigh_loss(loss: torch.Tensor, metrics: dict[str, torch.Tensor],
-               rows: int) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+               rows: int, group=None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Rank r's loss scaled by ``w_r / W`` and the metrics made global, by
-    one all-reduce of ``[w_r, m·w_r ...]``. ``"weight"`` comes back as W."""
+    one all-reduce of ``[w_r, m·w_r ...]`` over ``group`` (None: every
+    rank; under tensor parallelism the batch group). ``"weight"`` comes
+    back as W."""
     w = metrics.get("weight")
     w = (w.detach().float().reshape(()) if w is not None
          else torch.full((), float(rows), device=loss.device))
     names = [k for k in metrics if k != "weight"]
     vec = torch.stack([w] + [metrics[k].detach().float().reshape(()) * w
                              for k in names])
-    all_reduce_sum_(vec)
+    all_reduce_sum_(vec, group)
     total = vec[0]
     out = {k: v for k, v in zip(names, vec[1:] / total)}
     out["weight"] = total
     return loss * (w / total), out
 
 
-def all_reduce_grads(grads: Sequence[torch.Tensor]) -> None:
-    """Sum ``grads`` across ranks in place: one flat buffer and one
-    all-reduce per dtype (a no-op outside a group). Counts the calls that
-    reduce in ``all_reduce_grads.calls``: the train step makes one a step."""
+def all_reduce_grads(grads: Sequence[torch.Tensor], group=None) -> None:
+    """Sum ``grads`` across the ranks of ``group`` (None: every rank) in
+    place: one flat buffer and one all-reduce per dtype (a no-op outside a
+    group). Counts the calls that reduce in ``all_reduce_grads.calls``: the
+    train step makes one a step, in a gang of one too."""
     if not active():
         return
     all_reduce_grads.calls += 1
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for g in grads:
         by_dtype.setdefault(g.dtype, []).append(g)
-    for group in by_dtype.values():
-        flat = torch.cat([g.reshape(-1) for g in group])
-        _dist().all_reduce(flat)
-        parts = flat.split([g.numel() for g in group])
-        torch._foreach_copy_(group, [p.view_as(g) for p, g in zip(parts, group)])
+    for same in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in same])
+        _dist().all_reduce(flat, group=group)
+        parts = flat.split([g.numel() for g in same])
+        torch._foreach_copy_(same, [p.view_as(g) for p, g in zip(parts, same)])
 
 
 all_reduce_grads.calls = 0
@@ -166,13 +185,63 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
 all_reduce_sum.calls = 0
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` (equal shapes) concatenated along dim 0 in rank
-    order (``t`` itself outside a group and in a gang of one)."""
-    if world_size() == 1:
+class _AllReduceForward(torch.autograd.Function):
+    """Megatron's ``g``: summed across ``group``, the gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        out = t.clone(memory_format=torch.contiguous_format)
+        all_reduce_forward.calls += 1
+        _dist().all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+class _AllReduceBackward(torch.autograd.Function):
+    """Megatron's ``f``: the identity, the gradient summed across ``group``."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        g = g.clone(memory_format=torch.contiguous_format)
+        all_reduce_backward.calls += 1
+        _dist().all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_reduce_forward(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed across the ranks of ``group``; its gradient reaches
+    each rank's ``t`` unreduced (every rank computes the same loss from the
+    sum). Counts its collectives in ``all_reduce_forward.calls``."""
+    return _AllReduceForward.apply(t, group)
+
+
+def all_reduce_backward(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` itself; its gradient is summed across the ranks of ``group``
+    (each rank's holds the part its shard of the next layer gives). Counts
+    its collectives in ``all_reduce_backward.calls``."""
+    return _AllReduceBackward.apply(t, group)
+
+
+all_reduce_forward.calls = 0
+all_reduce_backward.calls = 0
+
+
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``t`` (equal shapes) of ``group`` (None: every rank)
+    concatenated along dim 0 in rank order (``t`` itself outside a group
+    and in a group of one)."""
+    if not active() or _dist().get_world_size(group) == 1:
         return t
-    parts = [torch.empty_like(t) for _ in range(world_size())]
-    _dist().all_gather(parts, t.contiguous())
+    parts = [torch.empty_like(t) for _ in range(_dist().get_world_size(group))]
+    _dist().all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts)
 
 

@@ -8,20 +8,29 @@ The port of ``distributeddeeplearningspark_tpu/parallel/mesh.py``'s
 ``spark.executor.instances``, the last winning for ``data``).
 
 In the port an executor is a process holding one device, so a mesh spans
-the processes of a ``torch.distributed`` group. The ``data`` and ``fsdp``
-axes are ported, one at a time: ``fsdp > 1`` shards parameters over the
-gang (FSDP2, :mod:`.sharding`), the JAX Llama driver's layout
-(``mesh.data=1, mesh.fsdp=-1``). Everything else raises
-``NotImplementedError`` naming its ROADMAP item: ``tensor`` (Queue 1 item
-5), ``data`` and ``fsdp`` both above 1 (HSDP, item 5), ``seq``, ``pipe``
-and ``expert`` (item 6).
+the processes of a ``torch.distributed`` group, rank r at the coordinates
+of device r of the JAX mesh (row-major over ``MESH_AXES``, ``tensor``
+innermost). The ``data``, ``fsdp`` and ``tensor`` axes are ported, alone
+or together: ``fsdp > 1`` shards parameters over the gang (FSDP2,
+:mod:`.sharding`), the JAX Llama driver's layout (``mesh.data=1,
+mesh.fsdp=-1``); ``data × fsdp`` is HSDP; ``tensor > 1`` splits the
+layers over ``llama_rules``' ``tensor`` entries (``DTensor``), and the
+ranks that differ only in their ``tensor`` coordinate take the same rows
+of every batch. ``seq``, ``pipe`` and ``expert`` raise
+``NotImplementedError`` naming ROADMAP Queue 1 item 6.
+
+One deliberate difference from the JAX ``Session``: there, ``local[N]``
+with ``mesh.tensor=T`` asks for N·T devices (``--tensor`` "peels off
+chips" within each of N executors); here ``local[N]`` is the launch's N
+processes, and a ``-1`` axis absorbs what the others leave, so JAX's
+``local[N]`` at ``tensor=T`` is the port's ``local[N·T]``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Sequence
 
 AXIS_DATA = "data"
 AXIS_FSDP = "fsdp"
@@ -36,6 +45,9 @@ MESH_AXES: tuple[str, ...] = (AXIS_DATA, AXIS_FSDP, AXIS_PIPE, AXIS_EXPERT,
 
 #: the axes the global batch is split over
 BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
+#: the axes that shard parameters: each distinct shard lies once in a group
+#: over them, so a norm over shards sums across it and never across ``data``
+SHARD_AXES = (AXIS_FSDP, AXIS_TENSOR)
 
 #: master URLs that ask for every local device
 WILDCARD_MASTERS = (None, "auto", "local", "local[*]")
@@ -45,11 +57,7 @@ _NOT_PORTED = {
     AXIS_PIPE: "pipeline parallelism (parallel/pipeline.py): ROADMAP Queue 1 item 6",
     AXIS_EXPERT: "expert parallelism (models/moe.py): ROADMAP Queue 1 item 6",
     AXIS_SEQ: "context parallelism (ring, Ulysses): ROADMAP Queue 1 item 6",
-    AXIS_TENSOR: "tensor parallelism (DTensor, llama_rules' tensor entries): "
-                 "ROADMAP Queue 1 item 5",
 }
-_HSDP = ("a mesh with both data and fsdp above 1 (HSDP) is not ported yet: "
-         "ROADMAP Queue 1 item 5")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +80,9 @@ class MeshSpec:
         beyond = {a: getattr(self, a) for a in _NOT_PORTED if getattr(self, a) != 1}
         if beyond:
             raise NotImplementedError(
-                f"mesh axes {beyond}: the port shards over data and fsdp only; "
-                + "; ".join(_NOT_PORTED[a] for a in beyond))
-        if self.data > 1 and self.fsdp > 1:
-            raise NotImplementedError(f"mesh {self.sizes}: {_HSDP}")
-        if self.data == -1 and self.fsdp == -1:
+                f"mesh axes {beyond}: the port shards over data, fsdp and "
+                f"tensor only; " + "; ".join(_NOT_PORTED[a] for a in beyond))
+        if sum(getattr(self, a) == -1 for a in MESH_AXES) > 1:
             raise ValueError(f"at most one mesh axis may be -1, got spec {self}")
 
     @property
@@ -97,8 +103,6 @@ class MeshSpec:
         if math.prod(sizes) != num_devices:
             raise ValueError(f"mesh spec {tuple(sizes)} needs {math.prod(sizes)} "
                              f"devices, got {num_devices}")
-        if sizes[0] > 1 and sizes[1] > 1:
-            raise NotImplementedError(f"mesh {tuple(sizes)}: {_HSDP}")
         return tuple(sizes)
 
     def shape(self, num_devices: int) -> dict[str, int]:
@@ -106,14 +110,59 @@ class MeshSpec:
         return dict(zip(MESH_AXES, self.axis_sizes(num_devices)))
 
 
+def coordinates(shape: dict[str, int], rank: int) -> dict[str, int]:
+    """Rank ``rank``'s coordinate on each axis: JAX's device order,
+    row-major over ``MESH_AXES`` (``tensor`` innermost)."""
+    out = {}
+    for axis in reversed(MESH_AXES):
+        rank, out[axis] = divmod(rank, shape[axis])
+    return {a: out[a] for a in MESH_AXES}
+
+
+def group_ranks(shape: dict[str, int], axes: Sequence[str]) -> list[list[int]]:
+    """The ranks of each group over ``axes``: ranks that share their
+    coordinate on every other axis, each group in its coordinates' order."""
+    groups: dict[tuple, list[int]] = {}
+    for r in range(math.prod(shape.values())):
+        c = coordinates(shape, r)
+        groups.setdefault(tuple(c[a] for a in MESH_AXES if a not in axes), []).append(r)
+    return list(groups.values())
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A session's mesh: each axis's size (the JAX ``Mesh.shape``) and, where
-    ``fsdp`` is above 1, the ``torch.distributed`` ``DeviceMesh`` over the
-    gang whose one dim is named ``fsdp`` (None otherwise)."""
+    """A session's mesh: each axis's size (the JAX ``Mesh.shape``); where
+    ``fsdp`` or ``tensor`` is above 1, the ``torch.distributed``
+    ``DeviceMesh`` over the gang, one dim for each axis above 1 named as
+    the JAX axis (None otherwise); and the process groups over
+    ``BATCH_AXES``, ``SHARD_AXES`` and ``tensor`` that do not span the
+    whole gang (:meth:`group`)."""
 
     shape: dict[str, int]
     device_mesh: Any = None
+    groups: dict = dataclasses.field(default_factory=dict)
+
+    def size(self, axes: Sequence[str]) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def group(self, axes: Sequence[str]):
+        """The process group of this rank over ``axes`` (a tuple of axis
+        names): None where it is the whole gang (``torch.distributed``'s
+        default group)."""
+        axes = tuple(axes)
+        if self.size(axes) == math.prod(self.shape.values()):
+            return None
+        if axes not in self.groups:
+            raise RuntimeError(f"mesh {self.shape} has no process group over "
+                               f"{axes}: it needs the gang's process group "
+                               f"(launch through the port's cli)")
+        return self.groups[axes]
+
+    def batch_index(self, rank: int) -> int:
+        """Which of the ``data × fsdp`` batch shards rank ``rank`` feeds: its
+        coordinate on ``BATCH_AXES`` (tensor peers feed the same)."""
+        c = coordinates(self.shape, rank)
+        return c[AXIS_DATA] * self.shape[AXIS_FSDP] + c[AXIS_FSDP]
 
 
 def num_data_shards(shape: dict[str, int]) -> int:
@@ -153,13 +202,12 @@ def spec_from_conf(master: str | None, conf: dict[str, str]) -> MeshSpec:
 def devices_from_conf(master: str | None, conf: dict[str, str]) -> int | None:
     """How many devices (processes) a master URL and conf ask for; None for
     every device. A spec without a ``-1`` axis asks for the product of its
-    axes; with one, ``local[N]`` asks for N times the other fixed axes but
-    ``data`` (JAX's ``local[N]`` with ``mesh.data=1, mesh.fsdp=-1`` is N
-    devices over fsdp), and a wildcard master for all."""
+    axes; with one, ``local[N]`` asks for N processes, which the ``-1``
+    axis spreads over what the other axes leave (JAX's ``local[N]`` with
+    ``mesh.data=1, mesh.fsdp=-1`` is N devices over fsdp; at ``tensor=T``
+    JAX asks for N·T, the module docstring says why the port does not),
+    and a wildcard master for all."""
     spec = spec_from_conf(master, conf)
     if -1 not in spec.sizes:
         return math.prod(spec.sizes)
-    n = local_n(master)
-    if n is None:
-        return None
-    return n * math.prod(s for s in spec.sizes[1:] if s != -1)
+    return local_n(master)

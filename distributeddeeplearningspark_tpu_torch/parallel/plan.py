@@ -14,9 +14,12 @@ Not ported, and refused by :meth:`Plan.validate` naming the ROADMAP item:
 ``seq_axis`` (context parallelism, Queue 1 item 6), ``zero_axes`` (ZeRO
 weight-update sharding, ``zero_plan``, item 5) and ``style="shard_map"``
 (bodies on the explicit collectives, compiled by ``compile_step_with_plan``,
-item 5). ``stage_plan`` (the pipeline) and the JAX build's tensor-axis
-guard (``DLS_PLAN_ALLOW_TENSOR``, a workaround for that jax's partitioner)
-are not copied; the port's mesh refuses a ``tensor`` axis above 1.
+item 5). ``stage_plan`` (the pipeline) is not copied. Nor are the JAX
+build's ``PlanTensorAxisWarning`` and ``DLS_PLAN_ALLOW_TENSOR``: they
+guard against that jax's partitioner, which miscomputes losses on
+``tensor`` meshes; the port lowers a plan's ``tensor`` entries to
+``DTensor`` itself (:func:`.sharding.fully_shard_model`), so a plan with
+``tensor`` validates like any other.
 """
 
 from __future__ import annotations

@@ -14,22 +14,35 @@ rule engine, copied here unchanged, over the port's param names
    ``fsdp`` axis (ZeRO-3);
 3. everything else stays replicated.
 
-A spec's only effect in the port is its ``fsdp`` entry: the mesh refuses
-every other axis above 1, so a ``tensor`` entry (``llama_rules``) shards
-nothing yet (ROADMAP Queue 1 item 5). :func:`fully_shard_model` lowers the
-rules onto a module with FSDP2's ``fully_shard``, over the session's
-``DeviceMesh``: once on each layer of the model's layer ``ModuleList``\\ s,
-then on the root, each param sharded on the rule engine's dim
-(``shard_placement_fn``), every param the rules leave replicated handed
-over as ``ignored_params``. Those keep the data-parallel path: the train
-step sums their gradients with ``collectives.all_reduce_grads``. The
-sharded params' gradients arrive reduce-scattered, **summed** across the
-ranks (FSDP2 averages by default; the train step's loss is already
-weighed by each rank's share of the global batch, ``collectives.
-weigh_loss``). A sharded param is a ``DTensor`` whose local shard is
-``to_local()``; the train step, its optimizer and its guard work on those
-shards, so the optimizer state is sharded like its params, as the JAX
-``state_shardings`` lays it out.
+A spec lowers onto the session's ``DeviceMesh`` (:func:`fully_shard_model`)
+in torchtitan's order. First its ``tensor`` entry: at ``tensor`` above 1
+the param becomes a ``DTensor`` on the ``tensor`` sub-mesh, ``Shard`` on
+that dim, each rank keeping its chunk (``llama_rules``' Megatron layout;
+the model reads the placement and splits its compute,
+:mod:`..models.llama`). Then its ``fsdp`` entry: FSDP2's ``fully_shard``
+over the batch dims of the mesh (``fsdp``, or ``data × fsdp`` for HSDP:
+sharded over ``fsdp``, replicated over ``data``), once on each layer of
+the model's layer ``ModuleList``\\ s that holds such a param, then on the
+root, each on its rule's dim (``shard_placement_fn``; on a tensor-split
+param FSDP2 shards the local chunk, so a rule's ``P("tensor", "fsdp")``
+lands as placements ``(Shard(1), Shard(0))`` over ``(fsdp, tensor)``),
+every other param handed over as ``ignored_params``. Those keep the
+data-parallel path: the train step sums their gradients over the batch
+group with ``collectives.all_reduce_grads``. The FSDP-sharded params'
+gradients arrive reduce-scattered (and, under HSDP, all-reduced over
+``data``), **summed** (FSDP2 averages by default; the train step's loss is
+already weighed by each rank's share of the global batch,
+``collectives.weigh_loss``). A sharded param is a ``DTensor`` whose local
+shard is ``to_local()``; the train step, its optimizer and its guard work
+on those shards, so the optimizer state is sharded like its params, as
+the JAX ``state_shardings`` lays it out. Each card holds
+:func:`bytes_per_card`.
+
+What the lowering cannot place raises, and never trains replicas: a spec
+entry on an axis other than ``fsdp`` and ``tensor`` above 1, two axes
+above 1 on one dim (FSDP2 would interleave them, ``_StridedShard``), a
+``tensor`` dim that does not divide, a sharded mesh with no
+``DeviceMesh``, and a torch whose FSDP2 lacks what the lowering calls.
 
 How the port's layout differs from JAX's: JAX stacks Llama's layers
 (``scan_layers``), so each norm scale is one ``[L, H]`` leaf past
@@ -50,7 +63,12 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from distributeddeeplearningspark_tpu_torch.parallel.mesh import AXIS_FSDP
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
+    AXIS_FSDP,
+    AXIS_TENSOR,
+    BATCH_AXES,
+    SHARD_AXES,
+)
 
 
 class PartitionSpec(tuple):
@@ -170,33 +188,59 @@ REPLICATED = ShardingRules()
 FSDP = ShardingRules(fsdp=True)
 
 
-# -- the lowering to FSDP2 --------------------------------------------------------
+# -- the lowering to DTensor and FSDP2 ----------------------------------------------
 
 
-def fsdp_dim(spec: PartitionSpec) -> int | None:
-    """The dim a spec shards over ``fsdp``, None where it does not."""
+def _axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def axis_dim(spec: PartitionSpec, axis: str) -> int | None:
+    """The dim a spec shards over ``axis``, None where it does not."""
     for i, e in enumerate(spec):
-        if _mentions(e, AXIS_FSDP):
+        if _mentions(e, axis):
             return i
     return None
 
 
+def fsdp_dim(spec: PartitionSpec) -> int | None:
+    """The dim a spec shards over ``fsdp``, None where it does not."""
+    return axis_dim(spec, AXIS_FSDP)
+
+
+def _specs(model: nn.Module, rules: ShardingRules, mesh) -> dict[str, PartitionSpec]:
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    return rules.tree_specs(shapes, mesh)
+
+
+def _dims(specs: dict[str, PartitionSpec], mesh, axis: str) -> dict[str, int]:
+    if mesh.shape[axis] == 1:
+        return {}
+    dims = {n: axis_dim(s, axis) for n, s in specs.items()}
+    return {n: d for n, d in dims.items() if d is not None}
+
+
 def shard_dims(model: nn.Module, rules: ShardingRules, mesh) -> dict[str, int]:
     """The params the rules shard over ``fsdp`` on ``mesh``: name → dim."""
-    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
-    dims = {n: fsdp_dim(s) for n, s in rules.tree_specs(shapes, mesh).items()}
-    return {n: d for n, d in dims.items() if d is not None}
+    return _dims(_specs(model, rules, mesh), mesh, AXIS_FSDP)
+
+
+def tensor_dims(model: nn.Module, rules: ShardingRules, mesh) -> dict[str, int]:
+    """The params the rules split over ``tensor`` on ``mesh``: name → dim."""
+    return _dims(_specs(model, rules, mesh), mesh, AXIS_TENSOR)
 
 
 def bytes_per_card(shapes: dict[str, tuple[int, ...]], itemsizes: dict[str, int],
                    rules: ShardingRules, mesh) -> int:
     """The rule engine's reckoning of the param bytes each card holds: a
-    sharded param's bytes over the ``fsdp`` size, a replicated one's whole."""
-    n = mesh.shape[AXIS_FSDP]
+    param's bytes over the product of the sizes of the mesh axes its spec
+    names, a replicated one's whole."""
     total = 0
     for name, spec in rules.tree_specs(shapes, mesh).items():
         nbytes = math.prod(shapes[name]) * itemsizes[name]
-        total += nbytes // n if fsdp_dim(spec) is not None else nbytes
+        total += nbytes // math.prod(mesh.shape[a] for e in spec for a in _axes(e))
     return total
 
 
@@ -214,35 +258,115 @@ def local(t: torch.Tensor) -> torch.Tensor:
         return t.to_local()
 
 
+def local_value(t: torch.Tensor) -> torch.Tensor:
+    """``local`` inside autograd, for a forward: a ``DTensor``'s local
+    shard (its gradient flows back to the ``DTensor``), any other tensor
+    itself. What a kernel receives is never a ``DTensor``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def full(t: torch.Tensor) -> torch.Tensor:
-    """The whole of a sharded tensor, gathered from every rank (a
-    collective: every rank calls it), any other tensor itself."""
+    """The whole of a sharded tensor, gathered from every rank that holds a
+    part of it (a collective: every rank calls it), any other tensor
+    itself."""
     if not isinstance(t, DTensor):
         return t
     with torch.no_grad():
         return t.full_tensor()
 
 
+def shard_of(t: DTensor, whole: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of ``whole`` (a view) by ``t``'s placements: each
+    ``Shard(d)`` over a mesh dim of size n keeps chunk (the rank's
+    coordinate) of n along d, as ``DTensor`` and FSDP2 chunk it. No
+    collective."""
+    from torch.distributed.tensor import Shard
+
+    coord = t.device_mesh.get_coordinate()
+    out = whole
+    for i, p in enumerate(t.placements):
+        if not p.is_shard():
+            continue
+        if type(p) is not Shard:
+            raise NotImplementedError(f"placement {p} (two mesh axes on one dim) "
+                                      f"cannot be sliced locally")
+        out = out.chunk(t.device_mesh.size(i), p.dim)[coord[i]]
+    return out
+
+
 def assign(t: torch.Tensor, src: torch.Tensor) -> None:
     """Copy the whole tensor ``src`` (any device, cast to ``t``'s dtype) into
-    ``t`` in place; into its local shard when ``t`` is sharded, ``src``
-    distributed over ``t``'s mesh by its placements (every rank calls it
-    with the same ``src``)."""
-    from torch.distributed.tensor import distribute_tensor
-
+    ``t`` in place; into its local shard when ``t`` is sharded (every rank
+    calls it with the same ``src``, each keeping its shard: no
+    collective)."""
     with torch.no_grad():
-        src = torch.as_tensor(src).detach().to(t.device, t.dtype)
+        src = torch.as_tensor(src).detach()
         if isinstance(t, DTensor):
-            shard = distribute_tensor(src, t.device_mesh, t.placements).to_local()
-            t.to_local().copy_(shard)
+            dst = t.to_local()
+            dst.copy_(shard_of(t, src).to(dst.device, dst.dtype))
         else:
-            t.copy_(src)
+            t.copy_(src.to(t.device, t.dtype))
 
 
 def resident_param_bytes(model: nn.Module) -> int:
     """The param bytes this card holds: each sharded param's local shard,
     each replicated one whole."""
     return sum(local(p).numel() * p.element_size() for p in model.parameters())
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSplit:
+    """How a ``DTensor`` is split over the ``tensor`` axis: the dim, the
+    1-D ``tensor`` mesh (None for a tensor on a wider mesh) and its group,
+    this rank's index and the size."""
+
+    dim: int
+    mesh: Any
+    group: Any
+    index: int
+    size: int
+
+
+def tensor_split(t: Any) -> TensorSplit | None:
+    """``t``'s split over the mesh's ``tensor`` axis, None where ``t`` is not
+    a ``DTensor`` sharded over it: what a layer reads to run on its shard
+    (:mod:`..models.llama`)."""
+    if not isinstance(t, DTensor):
+        return None
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names or ()
+    if AXIS_TENSOR not in names:
+        return None
+    i = names.index(AXIS_TENSOR)
+    p = t.placements[i]
+    if not p.is_shard():
+        return None
+    # a layer's forward sees its weight on the 1-D tensor mesh (FSDP2's
+    # unsharded param); the sharded param outside one names no 1-D mesh
+    sub = mesh if mesh.ndim == 1 else None
+    return TensorSplit(dim=p.dim, mesh=sub, group=mesh.get_group(i),
+                       index=mesh.get_local_rank(i), size=mesh.size(i))
+
+
+def fsdp_reduced(t: Any) -> bool:
+    """True for a param FSDP2 shards over ``fsdp``: its gradient arrives
+    reduced from FSDP2's backward."""
+    if not isinstance(t, DTensor):
+        return False
+    names = t.device_mesh.mesh_dim_names or ()
+    return AXIS_FSDP in names and t.placements[names.index(AXIS_FSDP)].is_shard()
+
+
+def norm_share(t: Any, group_size: int) -> float:
+    """A tensor's weight in a norm summed across the ``SHARD_AXES`` group of
+    ``group_size`` ranks: 0 for a whole tensor (counted once, on every
+    rank alike); for a ``DTensor``, its distinct shards over the group's
+    size, so each distinct shard's squares count once."""
+    if not isinstance(t, DTensor):
+        return 0.0
+    shards = math.prod(t.device_mesh.size(i) for i, p in enumerate(t.placements)
+                       if p.is_shard())
+    return shards / group_size
 
 
 def _layer_units(module: nn.Module) -> list[nn.Module]:
@@ -264,24 +388,73 @@ def _sum_gradients(unit) -> None:
     unit.set_force_sum_reduction_for_comms(True)
 
 
+def _check_placeable(specs: dict[str, PartitionSpec], shapes: dict, mesh) -> None:
+    """Raise where the lowering cannot place a spec on ``mesh``."""
+    for name, spec in specs.items():
+        for dim, e in enumerate(spec):
+            wide = [a for a in _axes(e) if mesh.shape[a] > 1]
+            other = [a for a in wide if a not in SHARD_AXES]
+            if other:
+                raise NotImplementedError(
+                    f"{name}: spec {spec} shards over {other}; the port lowers "
+                    f"fsdp and tensor entries only")
+            if len(wide) > 1:
+                raise NotImplementedError(
+                    f"{name}: spec {spec} puts {wide} on one dim (FSDP2 would "
+                    f"interleave them); the lowering places one axis a dim")
+        t = axis_dim(spec, AXIS_TENSOR)
+        size = mesh.shape[AXIS_TENSOR]
+        if t is not None and size > 1 and shapes[name][t] % size:
+            raise ValueError(f"{name}: dim {t} of shape {shapes[name]} does not "
+                             f"divide by tensor={size}")
+
+
+def _split_over_tensor(model: nn.Module, dims: dict[str, int], tp_mesh) -> None:
+    """Each param of ``dims`` as a ``DTensor`` on ``tp_mesh``, ``Shard`` on
+    its dim: this rank keeps its chunk (a copy: the whole is freed)."""
+    from torch.distributed.tensor import Shard
+
+    index, size = tp_mesh.get_local_rank(), tp_mesh.size()
+    for name, dim in dims.items():
+        owner, attr = model, name
+        if "." in name:
+            path, attr = name.rsplit(".", 1)
+            owner = model.get_submodule(path)
+        p = getattr(owner, attr)
+        chunk = p.detach().chunk(size, dim)[index].clone(
+            memory_format=torch.contiguous_format)
+        dt = DTensor.from_local(chunk, tp_mesh, [Shard(dim)], run_check=False,
+                                shape=p.shape, stride=p.stride())
+        owner.register_parameter(attr, nn.Parameter(dt, requires_grad=p.requires_grad))
+
+
 def fully_shard_model(model: nn.Module, rules: ShardingRules, mesh) -> dict[str, int]:
     """Lower ``rules`` onto ``model`` over ``mesh`` (the session's
-    :class:`~.mesh.Mesh`) with FSDP2: ``fully_shard`` once on each layer of
-    its layer ``ModuleList``\\ s that holds a sharded param, then on the
-    root, each sharded param on its rule's dim, every other param ignored
-    (replicated). Returns the sharded params' dims by name; nothing is
-    sharded (and nothing called) where the rules shard no param, as at
-    ``fsdp`` 1. Raises where ``fsdp`` > 1 has no ``DeviceMesh`` (no process
-    group) and where this torch's ``fully_shard`` lacks what the lowering
-    needs: it never falls back to replicas."""
-    dims = shard_dims(model, rules, mesh)
-    if not dims:
+    :class:`~.mesh.Mesh`): the ``tensor`` entries to ``DTensor`` on the
+    ``tensor`` sub-mesh, then the ``fsdp`` entries with FSDP2 over the
+    batch dims (``fully_shard`` once on each layer of its layer
+    ``ModuleList``\\ s that holds such a param, then on the root, each on
+    its rule's dim, every other param ignored). Works on a model on the
+    meta device (then ``to_empty`` and draw the weights, as
+    ``Trainer`` does). Returns the ``fsdp``-sharded params' dims by name;
+    nothing is sharded (and nothing called) where the rules shard no
+    param, as at ``fsdp`` and ``tensor`` 1. Raises where the module
+    docstring says: it never falls back to replicas."""
+    specs = _specs(model, rules, mesh)
+    _check_placeable(specs, {n: tuple(p.shape) for n, p in model.named_parameters()},
+                     mesh)
+    dims, tdims = _dims(specs, mesh, AXIS_FSDP), _dims(specs, mesh, AXIS_TENSOR)
+    if not dims and not tdims:
         return {}
     if mesh.device_mesh is None:
         raise RuntimeError(
-            f"mesh {mesh.shape} shards params over fsdp but has no DeviceMesh: "
-            f"an fsdp mesh needs the gang's process group (launch through "
+            f"mesh {mesh.shape} shards params but has no DeviceMesh: a sharded "
+            f"mesh needs the gang's process group (launch through "
             f"`python -m distributeddeeplearningspark_tpu_torch.cli`)")
+    if tdims:
+        _split_over_tensor(model, tdims, mesh.device_mesh[AXIS_TENSOR])
+    if not dims:
+        return {}
     from torch.distributed.fsdp import FSDPModule, fully_shard
     from torch.distributed.tensor import Shard
 
@@ -293,13 +466,15 @@ def fully_shard_model(model: nn.Module, rules: ShardingRules, mesh) -> dict[str,
         raise NotImplementedError(
             f"torch {torch.__version__}'s FSDP2 lacks {sorted(missing)}, which "
             f"the lowering needs: sharding needs a newer torch")
+    batch = tuple(a for a in BATCH_AXES if mesh.shape[a] > 1)
+    dp_mesh = mesh.device_mesh[batch]
     named = dict(model.named_parameters())
     by_param = {id(named[n]): d for n, d in dims.items()}
     ignored = {p for n, p in named.items() if n not in dims}
     units = [u for u in _layer_units(model)
              if any(id(p) in by_param for p in u.parameters())]
     for unit in units + [model]:
-        fully_shard(unit, mesh=mesh.device_mesh, ignored_params=ignored or None,
+        fully_shard(unit, mesh=dp_mesh, ignored_params=ignored or None,
                     shard_placement_fn=lambda p: Shard(by_param[id(p)]))
         _sum_gradients(unit)
     return dims

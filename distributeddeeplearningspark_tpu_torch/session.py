@@ -39,12 +39,15 @@ builder's ``.master()``/``.config()`` win over it.
 
 ``Session.mesh`` is the mesh over the gang (:mod:`.parallel.mesh`): its
 ``shape`` is JAX's ``Session.mesh.shape``, and the global batch is split
-``data × fsdp`` ways, one share a process. With ``mesh.fsdp`` above 1 (the
-JAX Llama driver's ``mesh.data=1, mesh.fsdp=-1``: every process on the
-``fsdp`` axis) the session builds a ``torch.distributed`` ``DeviceMesh``
-over its group, one dim named ``fsdp``, on the session's device type;
-``Trainer(rules=...)`` shards parameters over it (:mod:`.parallel.sharding`).
-Such a mesh without a group raises.
+``data × fsdp`` ways, one share for each batch coordinate (the ``tensor``
+peers of a coordinate take the same rows). With ``mesh.fsdp`` or
+``mesh.tensor`` above 1 (the JAX Llama driver's ``mesh.data=1,
+mesh.fsdp=-1, mesh.tensor=T``) the session builds a ``torch.distributed``
+``DeviceMesh`` over its group with ``init_device_mesh``, one dim for each
+axis above 1, named as the JAX axis, on the session's device type, and
+the process groups over the batch axes, the shard axes and ``tensor``
+(``Mesh.group``); ``Trainer(rules=...)`` shards parameters over it
+(:mod:`.parallel.sharding`). Such a mesh without a group raises.
 """
 
 from __future__ import annotations
@@ -59,9 +62,14 @@ import torch
 
 from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
     AXIS_FSDP,
+    AXIS_TENSOR,
+    BATCH_AXES,
+    MESH_AXES,
+    SHARD_AXES,
     Mesh,
     MeshSpec,
     devices_from_conf,
+    group_ranks,
     num_data_shards,
     spec_from_conf,
 )
@@ -94,14 +102,16 @@ class Session:
 
     def __init__(self, app_name: str, conf: dict[str, str], device: torch.device,
                  spec: MeshSpec | None = None, *, rank: int = 0,
-                 world_size: int = 1, group: bool = False, device_mesh=None):
+                 world_size: int = 1, group: bool = False, device_mesh=None,
+                 groups: dict | None = None):
         self.app_name = app_name
         self.conf = dict(conf)
         self.device = device
         self.spec = spec or MeshSpec(data=world_size)
         #: the mesh over the gang: ``mesh.shape`` ``{axis: size}``, and the
-        #: ``DeviceMesh`` when ``fsdp`` is above 1
-        self.mesh = Mesh(self.spec.shape(world_size), device_mesh)
+        #: ``DeviceMesh`` and the axes' groups when ``fsdp`` or ``tensor`` is
+        #: above 1
+        self.mesh = Mesh(self.spec.shape(world_size), device_mesh, groups or {})
         self.rank = rank
         self.world_size = world_size
         #: True when this session formed a ``torch.distributed`` group
@@ -226,12 +236,37 @@ def _join_group(env: DistributedEnv, device: torch.device) -> None:
                            f"{env.world_size}")
 
 
-def _fsdp_device_mesh(size: int, device: torch.device):
-    """The ``DeviceMesh`` over the gang's group, one dim named ``fsdp`` (the
-    mesh refuses ``data × fsdp``, so ``fsdp`` spans every process)."""
+def _device_mesh(shape: dict[str, int], rank: int, device: torch.device
+                 ) -> tuple[Any, dict]:
+    """The ``DeviceMesh`` over the gang's group, one dim for each axis above
+    1 in ``MESH_AXES`` order (rank r at JAX's device r), and this rank's
+    process groups over ``BATCH_AXES``, ``SHARD_AXES`` and ``tensor`` where
+    they do not span the gang: a ``DeviceMesh`` dim's group where one axis
+    of them is above 1, else made here (every rank makes every group, in
+    the same order, as ``new_group`` needs)."""
+    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(device.type, (size,), mesh_dim_names=(AXIS_FSDP,))
+    names = tuple(a for a in MESH_AXES if shape[a] > 1)
+    mesh = init_device_mesh(device.type, tuple(shape[a] for a in names),
+                            mesh_dim_names=names)
+    world = mesh.size()
+    groups = {}
+    for axes in (BATCH_AXES, SHARD_AXES, (AXIS_TENSOR,)):
+        wide = [a for a in axes if shape[a] > 1]
+        size = 1
+        for a in wide:
+            size *= shape[a]
+        if size == world:
+            continue
+        if len(wide) == 1:
+            groups[axes] = mesh.get_group(wide[0])
+            continue
+        for ranks in group_ranks(shape, axes):
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axes] = g
+    return mesh, groups
 
 
 def _create_session(conf: dict[str, str]) -> Session:
@@ -280,8 +315,9 @@ def _create_session(conf: dict[str, str]) -> Session:
     if env is not None:
         _join_group(env, device)
         sess_kw = dict(rank=env.rank, world_size=env.world_size, group=True)
-        if shape[AXIS_FSDP] > 1:
-            sess_kw["device_mesh"] = _fsdp_device_mesh(shape[AXIS_FSDP], device)
+        if shape[AXIS_FSDP] > 1 or shape[AXIS_TENSOR] > 1:
+            sess_kw["device_mesh"], sess_kw["groups"] = _device_mesh(
+                shape, env.rank, device)
     app = conf.get("spark.app.name", "dls-torch")
     sess = Session(app, conf, device, spec, **sess_kw)
     sess._restore_determinism = restore

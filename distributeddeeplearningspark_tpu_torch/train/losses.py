@@ -7,7 +7,10 @@ dict). A loss whose denominator is not the example count reports a
 combine per-batch means exactly across unequal batches; the train loop
 drops it from its logs. ``causal_lm`` takes logits only: the MoE
 load-balance term and the fused LM head (``causal_lm_fused``) are not
-ported yet (ROADMAP Queue 1 items 5 and 6).
+ported yet (ROADMAP Queue 1 items 5 and 6). Logits split over the vocab
+(a ``DTensor`` ``Shard(2)`` over ``tensor``, the Llama head under tensor
+parallelism) go through a vocab-parallel cross-entropy that gathers no
+logits.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
 
 
 def softmax_xent(logits: torch.Tensor, batch: dict[str, Any]
@@ -121,7 +126,37 @@ def causal_lm(logits: torch.Tensor, batch: dict[str, Any]
                         f"{type(logits).__name__} (the fused head and MoE "
                         f"outputs are not ported yet)")
     labels = batch["input_ids"][:, 1:].long()
+    split = sharding.tensor_split(logits)
+    if split is not None:
+        return _reduce_next_token(_vocab_parallel_xent(logits, labels, split), batch)
     logits = logits[:, :-1].float()
     per_tok = F.cross_entropy(logits.flatten(0, 1), labels.flatten(),
                               reduction="none").view(labels.shape)
     return _reduce_next_token(per_tok, batch)
+
+
+def _vocab_parallel_xent(logits, labels: torch.Tensor, split) -> torch.Tensor:
+    """Per-token cross-entropy, in f32, of ``[B, S, V]`` logits split over
+    the vocab (``split``: this rank holds columns ``[i·n, (i+1)·n)``)
+    against ``labels`` ``[B, S-1]``, the logits at position t against the
+    label at t: ``log Σ exp(z) − z[label]`` with ``z`` the logits less their
+    row max, the max and the two sums taken over the group (Megatron's
+    vocab-parallel cross-entropy). Each rank's gradient reaches only its
+    columns (``softmax − onehot`` there)."""
+    import torch.distributed as dist
+
+    if split.dim != logits.dim() - 1:
+        raise NotImplementedError(f"logits split on dim {split.dim}: the loss "
+                                  f"takes them split over the vocab (last dim)")
+    part = logits.to_local()[:, :-1].float()
+    n = part.shape[-1]
+    with torch.no_grad():
+        top = part.max(-1, keepdim=True).values
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=split.group)
+    z = part - top
+    rel = labels - split.index * n
+    inside = (rel >= 0) & (rel < n)
+    picked = z.gather(-1, torch.where(inside, rel, 0)[..., None])[..., 0] * inside
+    sums = collectives.all_reduce_forward(torch.stack([z.exp().sum(-1), picked]),
+                                          split.group)
+    return torch.log(sums[0]) - sums[1]

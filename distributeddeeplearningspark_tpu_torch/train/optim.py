@@ -34,14 +34,15 @@ step's counts back as it holds the moments. These are plain tensor ops,
 as the JAX package runs its optimizer in XLA, not in Pallas. ``lamb``,
 ``lars`` and ``adafactor`` are not ported yet.
 
-Under FSDP (:mod:`..parallel.sharding`) the train step hands a
-transformation the local shards of the sharded params, as a
-:class:`Shards` list that says which entries are shards:
+Under FSDP and tensor parallelism (:mod:`..parallel.sharding`) the train
+step hands a transformation the local shards of the sharded params, as a
+:class:`Shards` list that says which entries are shards and how many
+times each distinct shard lies in the shard group (``fsdp × tensor``):
 :func:`global_norm` (and so ``clip_by_global_norm``) then sums the
-shards' squares across the ranks and counts every other tensor once, the
-norm of the whole gradient; elementwise updates are the same on a shard
-as on the whole. Each list a multi-tensor op takes holds plain tensors
-only.
+shards' squares across that group, each distinct shard once and never
+across ``data`` replicas, and counts every other tensor once, the norm of
+the whole gradient; elementwise updates are the same on a shard as on
+the whole. Each list a multi-tensor op takes holds plain tensors only.
 
 ``masked(tx, trainable)`` (the LoRA fine-tune) names the params ``tx``
 updates: the train step hands it only those, with their gradients, so the
@@ -69,19 +70,22 @@ def _count(params: Tensors) -> torch.Tensor:
 
 
 class Shards(list):
-    """A list of tensors, some of which (``sharded[i]``) are this rank's
-    shards of tensors sharded over the process group ``group``: what the
-    train step hands a transformation under FSDP."""
+    """A list of tensors, some of which are this rank's shards of tensors
+    sharded over the process group ``group`` (None: every rank): what the
+    train step hands a transformation under FSDP and tensor parallelism.
+    ``shares[i]`` is 0 for a whole tensor, else the weight of its squares
+    in a sum across ``group``: its distinct shards over the group's size
+    (``sharding.norm_share``), so each distinct shard counts once."""
 
-    def __init__(self, tensors, sharded, group=None):
+    def __init__(self, tensors, shares, group=None):
         super().__init__(tensors)
-        self.sharded = list(sharded)
+        self.shares = [float(s) for s in shares]
         self.group = group
 
     def like(self, tensors) -> "Shards":
         """``tensors`` (one for each of this list's, in order) as Shards of
         the same layout."""
-        return Shards(tensors, self.sharded, self.group)
+        return Shards(tensors, self.shares, self.group)
 
 
 class GradientTransformation(NamedTuple):
@@ -115,17 +119,18 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
 
 def global_norm(tensors: Tensors) -> torch.Tensor:
     """sqrt of the sum of squares over every element, f32, on the device.
-    Over :class:`Shards`, the shards' sums of squares are all-reduced
-    across their group (a collective: every rank calls it) and each other
-    tensor counts once."""
+    Over :class:`Shards`, the shards' sums of squares, each weighed by its
+    share, are all-reduced across their group (a collective: every rank
+    calls it) and each other tensor counts once."""
     norms = [n.float() for n in torch._foreach_norm(tensors)]
-    if not (isinstance(tensors, Shards) and any(tensors.sharded)):
+    if not (isinstance(tensors, Shards) and any(tensors.shares)):
         return torch.linalg.vector_norm(torch.stack(norms))
     import torch.distributed as dist
 
-    squares = torch.stack([n for n, s in zip(norms, tensors.sharded) if s]).square().sum()
+    squares = torch.stack([n.square() * s for n, s in zip(norms, tensors.shares)
+                           if s]).sum()
     dist.all_reduce(squares, group=tensors.group)
-    whole = [n for n, s in zip(norms, tensors.sharded) if not s]
+    whole = [n for n, s in zip(norms, tensors.shares) if not s]
     if whole:
         squares = squares + torch.stack(whole).square().sum()
     return torch.sqrt(squares)

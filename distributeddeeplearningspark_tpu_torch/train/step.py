@@ -54,18 +54,25 @@ buffers are not reduced: BatchNorm's forward already takes the global
 batch's statistics (:mod:`..models.resnet`), so they move alike on every
 rank.
 
-Under FSDP (``Trainer(rules=...)`` lowered the model with
-:func:`..parallel.sharding.fully_shard_model`) a sharded param is a
-``DTensor``: its gradient arrives reduce-scattered and summed across the
-ranks from FSDP2's backward, so only the replicated trainables go through
-``all_reduce_grads``. Everything after the backward runs on the local
-shards (``to_local()``, views of the params' storage), so no multi-tensor
-op mixes ``DTensor`` and ``Tensor``: ``grad_norm`` is the whole gradient's
-(the shards' squares summed across the ranks, each replicated gradient
-counted once, :class:`..train.optim.Shards`), the optimizer updates each
-shard in place and keeps its state as shards (``DTensor``\\ s in
-``state.opt_state``, sharded like their params), and the guard snapshots
-and restores shards.
+Under FSDP and tensor parallelism (``Trainer(rules=...)`` lowered the
+model with :func:`..parallel.sharding.fully_shard_model`) a sharded param
+is a ``DTensor``. ``mesh`` (the session's) names the groups: the loss is
+weighed over the batch group (``data × fsdp``: the ``tensor`` peers hold
+the same rows). An FSDP-sharded param's gradient arrives reduced from
+FSDP2's backward (reduce-scattered over ``fsdp``, all-reduced over
+``data``); every other trainable's (a replicated param, a param split over
+``tensor`` only) goes through ``all_reduce_grads`` over the batch group
+(a tensor-split layer's gradient is its shard's already, and the LoRA
+adapters' arrive summed over ``tensor`` from the model's backward).
+Everything after the backward runs on the local shards (``to_local()``,
+views of the params' storage), so no multi-tensor op mixes ``DTensor``
+and ``Tensor``: ``grad_norm`` is the whole gradient's (each distinct
+shard's squares summed once across the ``fsdp × tensor`` group, each
+replicated gradient counted once, :class:`..train.optim.Shards`), the
+optimizer updates each shard in place and keeps its state as shards
+(``DTensor``\\ s in ``state.opt_state``, sharded like their params), and
+the guard snapshots and restores shards. Without ``mesh`` both groups are
+the whole gang.
 """
 
 from __future__ import annotations
@@ -76,6 +83,7 @@ from typing import Any, Callable
 import torch
 
 from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import BATCH_AXES, SHARD_AXES
 from distributeddeeplearningspark_tpu_torch.train.optim import (
     GradientTransformation,
     Shards,
@@ -185,13 +193,15 @@ def _rewrap(old: Any, new: Any) -> Any:
 def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
                     loss_fn: LossFn, *, distributed: bool = False,
                     trainable: Callable[[str], bool] | None = None,
-                    accum_steps: int = 1, guard_nonfinite: bool = False):
+                    accum_steps: int = 1, guard_nonfinite: bool = False,
+                    mesh=None):
     """(state, batch) → (state, metrics). ``model(batch, generator=g)``
     returns the outputs ``loss_fn(outputs, batch)`` consumes. Sets each
     param's ``requires_grad`` from ``trainable`` (None: every param).
     ``guard_nonfinite``: skip the update of a step whose gradient is not
     finite (the module docstring); the step's ``guard`` attribute is its
-    :class:`NonfiniteGuard` (None without)."""
+    :class:`NonfiniteGuard` (None without). ``mesh``: the session's
+    :class:`~..parallel.mesh.Mesh`, whose groups the step reduces over."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     named = dict(model.named_parameters())
@@ -200,15 +210,19 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
         p.requires_grad_(trainable is None or trainable(n))
     opt_names = set(optimizer_params(grad_names, tx))
     opt_index = [i for i, n in enumerate(grad_names) if n in opt_names]
-    # FSDP: which trainables are sharded, and over which group
-    sharded = [sharding.is_sharded(named[n]) for n in grad_names]
-    group = next((named[n].device_mesh.get_group() for n, s in zip(grad_names, sharded)
-                  if s), None)
+    # which trainables FSDP2 reduces, and each one's share of the norm
+    batch_group = mesh.group(BATCH_AXES) if mesh is not None else None
+    shard_size = (mesh.size(SHARD_AXES) if mesh is not None
+                  else collectives.world_size())
+    by_fsdp = [sharding.fsdp_reduced(named[n]) for n in grad_names]
+    shares = [sharding.norm_share(named[n], shard_size) for n in grad_names]
+    shard_group = (mesh.group(SHARD_AXES) if mesh is not None and any(shares)
+                   else None)
 
     def shards(tensors: list, index: list[int]) -> list:
-        if not any(sharded):
+        if not any(shares):
             return tensors
-        return Shards(tensors, [sharded[i] for i in index], group)
+        return Shards(tensors, [shares[i] for i in index], shard_group)
 
     guard = NonfiniteGuard() if guard_nonfinite else None
 
@@ -228,7 +242,8 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
             loss, metrics = loss_fn(outputs, mb)
             if distributed:
                 rows = next(iter(mb.values())).shape[0]
-                loss, metrics = collectives.weigh_loss(loss, metrics, rows)
+                loss, metrics = collectives.weigh_loss(loss, metrics, rows,
+                                                       batch_group)
             loss.backward()
             micro_metrics.append({k: v.detach() for k, v in metrics.items()})
             del outputs, loss
@@ -240,9 +255,9 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
             if accum_steps > 1:
                 torch._foreach_div_(grads, float(accum_steps))
             if distributed:
-                # FSDP2 already summed the sharded ones in its reduce-scatter
+                # FSDP2 already reduced its own in its backward
                 collectives.all_reduce_grads(
-                    [g for g, s in zip(grads, sharded) if not s])
+                    [g for g, f in zip(grads, by_fsdp) if not f], batch_group)
             grad_norm = global_norm(grads)
             updates, opt_state = tx.update(shards([grads[i] for i in opt_index],
                                                   opt_index), opt_state, opt_params)

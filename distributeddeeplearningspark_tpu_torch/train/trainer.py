@@ -70,17 +70,28 @@ weights (``models.llama_io``) on the live params in place.
 
 ``rules`` (a :class:`~..parallel.sharding.ShardingRules`, default
 ``REPLICATED``) or ``plan`` (a :class:`~..parallel.plan.Plan`, which wins,
-as in JAX) lay the params out over the session's mesh: with ``fsdp`` above
-1 (``mesh.data=1, mesh.fsdp=-1``) the constructor lowers them to FSDP2
-(:func:`~..parallel.sharding.fully_shard_model`) before it builds the
-step, and the params the rules shard become ``DTensor`` params; the plan is
-validated against the mesh first. :meth:`init` builds the optimizer state
-over them (sharded like its params), :meth:`load_pretrained` and
-:meth:`restore` write whole tensors into each rank's shards, checkpoints
-hold whole tensors, ``sanitize_every`` compares the replicated params
-only, and :meth:`evaluate`/:meth:`predict` run under ``no_grad`` (FSDP2
-and ``inference_mode`` do not mix, :mod:`.step`). At ``fsdp`` 1 nothing is
-sharded, as in JAX on one device.
+as in JAX) lay the params out over the session's mesh: with ``fsdp`` or
+``tensor`` above 1 (``mesh.data=1, mesh.fsdp=-1, mesh.tensor=T``; HSDP's
+``data × fsdp``) the constructor lowers them
+(:func:`~..parallel.sharding.fully_shard_model`: ``tensor`` entries to
+``DTensor``, ``fsdp`` entries to FSDP2) before it builds the step, and the
+params the rules shard become ``DTensor`` params; the plan is validated
+against the mesh first. A model on the meta device (what the Llama driver
+builds) is lowered there, then ``to_empty`` on the session's device, and
+``model.init_weights`` draws its weights from a generator seeded with
+``seed``: each card allocates its shards only, and the weights are
+bitwise those of the model built on one device and initialised from the
+same seed (JAX's ``init_state`` makes the state sharded the same way).
+Each rank feeds the rows of its coordinate on the batch axes (``data ×
+fsdp``): ``tensor`` peers take the same rows, and the step, ``evaluate``
+and ``predict`` reduce over the batch group. :meth:`init` builds the
+optimizer state over the params (sharded like them),
+:meth:`load_pretrained` and :meth:`restore` write whole tensors into each
+rank's shards, checkpoints hold whole tensors, ``sanitize_every`` compares
+each param within its replica group, and :meth:`evaluate`/:meth:`predict`
+run under ``no_grad`` (FSDP2 and ``inference_mode`` do not mix,
+:mod:`.step`). At ``fsdp`` and ``tensor`` 1 nothing is sharded, as in JAX
+on one device.
 
 Not ported yet: the graceful preemption drain (a ``sigterm`` fault or a
 preemption notice raises; ROADMAP Queue 1 item 7); ``profile``,
@@ -113,6 +124,7 @@ from distributeddeeplearningspark_tpu_torch.data.prefetch import (
 from distributeddeeplearningspark_tpu_torch.metrics import Meter, MetricLogger
 from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
 from distributeddeeplearningspark_tpu_torch.parallel import plan as plan_lib
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import BATCH_AXES
 from distributeddeeplearningspark_tpu_torch.parallel.sharding import (
     REPLICATED,
     ShardingRules,
@@ -184,9 +196,8 @@ def _lap_anatomy(lap_s: float, dispatch_s: float, drain_s: float,
 def _overlay(live: dict[str, torch.Tensor], new: dict[str, Any], what: str
              ) -> None:
     """Copy each of ``new`` into ``live``'s tensor of its name, in place,
-    cast to its dtype (into its shard where it is sharded), after checking
-    every shape. In ``live``'s order: a sharded tensor's copy is a
-    collective, which every rank makes in the same order."""
+    cast to its dtype (into its shard where it is sharded: each rank keeps
+    its part of the whole, no collective), after checking every shape."""
     for k, v in new.items():
         if tuple(v.shape) != tuple(live[k].shape):
             raise ValueError(f"{what} {k}: shape {tuple(v.shape)} != model "
@@ -215,7 +226,9 @@ class Trainer:
     saves and :meth:`restore` reads. ``accum_steps``: micro-batches per
     optimizer step. ``trainable``: the params that train (None: all); pass
     the predicate the optimizer is ``masked`` with. ``rules``/``plan``:
-    the params' layout over the session's mesh (the module docstring)."""
+    the params' layout over the session's mesh (the module docstring). A
+    model on the meta device needs an ``init_weights(generator)`` that
+    sets every param and buffer; its weights are drawn from ``seed``."""
 
     def __init__(self, session: Session | None, model: torch.nn.Module,
                  loss_fn: Callable, optimizer: GradientTransformation, *,
@@ -228,8 +241,11 @@ class Trainer:
                  trainable: Callable[[str], bool] | None = None):
         self.session = session or Session.get_or_default()
         self.device = self.session.device
-        wrong = {str(p.device) for p in model.parameters()
-                 if p.device != self.device}
+        # a model on the meta device is materialised below, if it can draw
+        # its weights
+        on_meta = any(p.is_meta for p in model.parameters())
+        wrong = {str(p.device) for p in model.parameters() if p.device != self.device
+                 and not (p.is_meta and hasattr(model, "init_weights"))}
         if wrong:
             raise ValueError(f"model params lie on {sorted(wrong)}, the "
                              f"session's device is {self.device}")
@@ -270,8 +286,13 @@ class Trainer:
                 "DLRM table) are not ported yet: ROADMAP Queue 1 item 5")
         self.accum_steps = accum_steps
         self.trainable = trainable
+        #: the params the rules split over tensor: name → dim (empty: none)
+        self.tensor_dims = sharding.tensor_dims(model, rules, self.session.mesh)
         #: the params the rules shard over fsdp: name → dim (empty: none)
         self.shard_dims = sharding.fully_shard_model(model, rules, self.session.mesh)
+        if on_meta:
+            model.to_empty(device=self.device)
+            model.init_weights(torch.Generator(self.device).manual_seed(seed))
         self._guard_nonfinite = False  # fit(on_nonfinite="skip") rebuilds
         self._build_train_step()
         self._eval_step = step_lib.make_eval_step(model, loss_fn)
@@ -286,7 +307,7 @@ class Trainer:
                 self.model, self.tx, self.loss_fn,
                 distributed=self.session.distributed, trainable=self.trainable,
                 accum_steps=self.accum_steps,
-                guard_nonfinite=self._guard_nonfinite)
+                guard_nonfinite=self._guard_nonfinite, mesh=self.session.mesh)
 
     def init(self) -> TrainState:
         """The initial state: the model's params, the optimizer's state
@@ -379,12 +400,19 @@ class Trainer:
             workdir = ckpt.directory
         return telemetry_lib.configure(workdir) if workdir else None
 
+    def _shard_range(self) -> tuple[int, int] | None:
+        """This rank's data shards: those of its coordinate on the batch
+        axes (its ``tensor`` peers take the same)."""
+        n = self.session.default_parallelism
+        return process_shard_range(
+            n, rank=self.session.mesh.batch_index(self.session.rank), world_size=n)
+
     def _host_feed(self, dataset: PartitionedDataset, batch_size: int,
                    **kw) -> Iterator[dict]:
         """This rank's rows of each global batch (JAX's shard mapping)."""
-        n = self.session.default_parallelism
-        return host_batches(dataset, batch_size, num_shards=n,
-                            shard_range=process_shard_range(n), **kw)
+        return host_batches(dataset, batch_size,
+                            num_shards=self.session.default_parallelism,
+                            shard_range=self._shard_range(), **kw)
 
     def _feed(self, dataset: PartitionedDataset, batch_size: int, *,
               skip_batches: int = 0, probe: StarvationProbe | None = None
@@ -718,7 +746,8 @@ class Trainer:
                     w = 0.0  # this rank's slice of the tail is all padding
                 vec = torch.tensor([w] + [v * w for v in m.values()],
                                    dtype=torch.float64, device=self.device)
-                sums = collectives.all_reduce_sum_(vec).tolist()
+                sums = collectives.all_reduce_sum_(
+                    vec, self.session.mesh.group(BATCH_AXES)).tolist()
                 for k, v in zip(m, sums[1:]):
                     totals[k] = totals.get(k, 0.0) + v
                 wsum += sums[0]
@@ -737,22 +766,25 @@ class Trainer:
         each output batch on the device before the copy to the host (e.g.
         ``lambda logits: logits.argmax(-1)``).
 
-        In a gang the outputs are gathered, so every rank yields the whole
+        In a gang the outputs are gathered (a vocab-split output whole, then
+        the rows over the batch group), so every rank yields the whole
         global row stream — with ``with_inputs``, only the rows whose inputs
         it holds. As in JAX, a tail that cannot fill every rank equally is
         then dropped."""
         n = self.session.default_parallelism
-        srange = process_shard_range(n)
-        gather = self.session.distributed and self.session.world_size > 1
+        srange = self._shard_range()
+        group = self.session.mesh.group(BATCH_AXES) if self.session.distributed else None
+        gather = self.session.distributed and n > 1
         self.model.eval()
         for host_batch in self._host_feed(dataset, batch_size,
                                           drop_remainder=False):
             with torch.no_grad():  # not inference_mode: see make_eval_step
                 out = self.model(to_device(host_batch, self.device))
+                out = _tree_map(sharding.full, out)
                 if output_fn is not None:
                     out = output_fn(out)
                 if gather:
-                    out = _tree_map(collectives.all_gather_rows, out)
+                    out = _tree_map(lambda t: collectives.all_gather_rows(t, group), out)
                 host = _tree_map(lambda t: t.cpu().numpy(), out)
             rows = _first_leaf(host).shape[0]
             local_rows = next(iter(host_batch.values())).shape[0]

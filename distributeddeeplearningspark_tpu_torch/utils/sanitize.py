@@ -17,9 +17,12 @@ failure modes get cheap, explicit checks:
 Fingerprints are computed on the device: per tensor ``[sum, l2, min,
 max]`` in float64, stacked into one ``[L, 4]`` tensor, all-gathered across
 the gang through :mod:`..parallel.collectives` (NCCL on the card, gloo on
-the CPU) and copied to the host once. Under FSDP only the replicated
-leaves are compared: a sharded param (a ``DTensor``) holds another shard
-on every rank by design. :func:`tree_all_finite` looks at each rank's
+the CPU) and copied to the host once. Under FSDP and tensor parallelism
+each leaf is compared within its replica group: a whole leaf across the
+gang, a sharded one (a ``DTensor``) across the ranks that hold the same
+shard (the same coordinates on the mesh dims it is sharded over: under
+HSDP, the ``data`` replicas of one ``fsdp`` shard); shards that differ by
+design are never compared. :func:`tree_all_finite` looks at each rank's
 shard and agrees across the gang.
 """
 
@@ -50,12 +53,26 @@ def _leaves(tree: Any) -> list:
     return [tree] if isinstance(tree, (torch.Tensor, np.ndarray)) else []
 
 
+def _shard_key(leaf: Any) -> float:
+    """Which shard of ``leaf`` this rank holds, as one number: its
+    coordinates on the mesh dims the leaf is sharded over, mixed-radix (0
+    for a whole leaf). Equal keys, equal shards by design."""
+    if not sharding.is_sharded(leaf):
+        return 0.0
+    mesh, coord, key = leaf.device_mesh, leaf.device_mesh.get_coordinate(), 0
+    for i, p in enumerate(leaf.placements):
+        if p.is_shard():
+            key = key * mesh.size(i) + coord[i]
+    return float(key)
+
+
 def _device_fingerprint(tree: Any) -> torch.Tensor:
     """``[L, 4]`` float64 on the leaves' device: per leaf ``[sum, l2, min,
-    max]`` (an empty leaf gives zeros)."""
+    max]`` (an empty leaf gives zeros), of a sharded leaf this rank's
+    shard."""
     rows = []
     for leaf in _leaves(tree):
-        x = torch.as_tensor(leaf).detach().reshape(-1).to(torch.float64)
+        x = sharding.local(torch.as_tensor(leaf)).detach().reshape(-1).to(torch.float64)
         if x.numel() == 0:
             rows.append(torch.zeros(4, dtype=torch.float64, device=x.device))
             continue
@@ -75,20 +92,29 @@ def tree_fingerprint(tree: Any) -> np.ndarray:
 def assert_replicas_in_sync(tree: Any, *, atol: float = 0.0,
                             what: str = "params") -> None:
     """Raise :class:`DesyncError` if the ranks' copies of ``tree`` differ:
-    every rank's fingerprint is all-gathered and compared with rank 0's at
-    ``atol`` (a gang's params must be bit-identical, so the default is 0).
-    Sharded leaves are left out. A no-op outside a gang."""
+    every rank's fingerprint is all-gathered with the shard each leaf's
+    row describes, and each row is compared at ``atol`` with the first
+    rank's that holds the same shard (a gang's replicas must be
+    bit-identical, so the default is 0). A no-op outside a gang."""
     if collectives.world_size() == 1:
         return
-    fp = _device_fingerprint([x for x in _leaves(tree) if not sharding.is_sharded(x)])
-    if fp.shape[0] == 0:
+    leaves = _leaves(tree)
+    if not leaves:
         return
-    all_fps = collectives.all_gather_rows(fp).cpu().numpy().reshape(
-        collectives.world_size(), *fp.shape)
+    fp = _device_fingerprint(leaves)
+    keys = torch.tensor([_shard_key(x) for x in leaves], dtype=torch.float64,
+                        device=fp.device)
+    rows = torch.cat([fp, keys[:, None]], dim=1)
+    gathered = collectives.all_gather_rows(rows).cpu().numpy().reshape(
+        collectives.world_size(), *rows.shape)
+    all_fps, all_keys = gathered[..., :4], gathered[..., 4]
+    # each (rank, leaf) against the first rank holding the same shard
+    first = np.argmax(all_keys[None, :, :] == all_keys[:, None, :], axis=1)
+    ref = np.take_along_axis(all_fps, first[..., None], axis=0)
     with np.errstate(invalid="ignore"):
-        worst = np.max(np.abs(all_fps - all_fps[0][None]), axis=(1, 2))
+        worst = np.max(np.abs(all_fps - ref), axis=(1, 2))
     # a NaN that appears on some ranks only is a desync too
-    nan_mismatch = np.any(np.isnan(all_fps) != np.isnan(all_fps[0][None]), axis=(1, 2))
+    nan_mismatch = np.any(np.isnan(all_fps) != np.isnan(ref), axis=(1, 2))
     bad = [i for i, (w, n) in enumerate(zip(worst, nan_mismatch)) if n or w > atol]
     if bad:
         raise DesyncError(

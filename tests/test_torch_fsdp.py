@@ -19,7 +19,8 @@ against the JAX package's sharding, on the CPU.
   ``sanitize_every``, a bitwise resume, a checkpoint written at
   ``fsdp=2`` restored at one rank; the ``inference_mode`` × FSDP2 fault
   (ROADMAP Queue 3).
-- The driver at ``local[2]`` takes ``--fsdp -1`` and refuses ``--tensor 2``.
+- The driver at ``local[2]`` takes ``--fsdp -1`` and ``--tensor 2``, and
+  refuses the sequence, pipeline and expert axes.
 
 f32 throughout: each tolerance is summation order, and says so."""
 
@@ -508,14 +509,34 @@ def test_fsdp_mesh_parses_as_jax(master, conf, want):
 
 
 def test_what_the_mesh_cannot_shard_raises():
-    with pytest.raises(NotImplementedError, match="HSDP.*Queue 1 item 5"):
-        tmesh.MeshSpec(data=2, fsdp=2)
-    with pytest.raises(NotImplementedError, match="HSDP.*Queue 1 item 5"):
-        tmesh.MeshSpec(data=-1, fsdp=2).axis_sizes(8)
-    with pytest.raises(NotImplementedError, match="tensor parallelism.*Queue 1 item 5"):
-        tmesh.spec_from_conf("local[2]", {"mesh.tensor": "2"})
+    """The mesh refuses the seq, pipe and expert axes (ROADMAP Queue 1 item
+    6; data × fsdp and tensor are ported), and the lowering what it cannot
+    place, before it needs a group: an axis other than fsdp and tensor, two
+    axes on one dim, a tensor dim that does not divide. Heads that do not
+    divide by tensor raise in the gang (``test_torch_tp.py``)."""
+    for axis in ("seq", "pipe", "expert"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            tmesh.MeshSpec(data=2, fsdp=2, tensor=2, **{axis: 2})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        tmesh.spec_from_conf("local[2]", {"mesh.tensor": "2", "mesh.seq": "2"})
+    assert tmesh.MeshSpec(data=-1, fsdp=2).axis_sizes(8)[:2] == (4, 2)
     with pytest.raises(ValueError, match="at most one"):
         tmesh.MeshSpec(data=-1, fsdp=-1)
+    model = tllama.llama_tiny(device="cpu", lora_rank=RANK)
+    mesh = tmesh.Mesh(tmesh.MeshSpec(data=2, fsdp=2, tensor=2).shape(8))
+    for rules, err, what in (
+            (tsharding.ShardingRules(rules=((r"wq/weight", tsharding.P("data", None)),)),
+             NotImplementedError, "fsdp and tensor entries only"),
+            (tsharding.ShardingRules(rules=((r"wq/weight", tsharding.P(("fsdp", "tensor"),
+                                                                       None)),)),
+             NotImplementedError, "one axis a dim"),
+            (tsharding.ShardingRules(rules=((r"lora_a", tsharding.P(None, "tensor")),)),
+             ValueError, "does not divide by tensor=2")):
+        with pytest.raises(err, match=what):
+            tsharding.fully_shard_model(tllama.llama_tiny(device="cpu", lora_rank=1),
+                                        rules, mesh)
+    with pytest.raises(RuntimeError, match="no DeviceMesh"):
+        tsharding.fully_shard_model(model, tllama.llama_rules(model.cfg), mesh)
 
 
 def test_an_fsdp_mesh_without_a_group_never_replicates(monkeypatch):
@@ -765,11 +786,16 @@ def test_driver_shards_over_every_rank_by_default(tmp_path):
 
 
 def test_driver_refuses_tensor_parallelism(capsys):
-    with pytest.raises(SystemExit) as e:
-        tdriver.parse_args(["--variant", "tiny", "--tensor", "2"])
-    assert e.value.code == 2
-    assert "ROADMAP Queue 1 item 5" in capsys.readouterr().err
-    assert tdriver.parse_args(["--variant", "tiny"]).fsdp == -1
+    """The driver takes ``--tensor`` (tensor parallelism is ported) and still
+    refuses the sequence, pipeline and expert axes beside it, naming ROADMAP
+    Queue 1 item 6."""
+    for flag in ("--seq-parallel", "--pipeline", "--expert"):
+        with pytest.raises(SystemExit) as e:
+            tdriver.parse_args(["--variant", "tiny", "--tensor", "2", flag, "2"])
+        assert e.value.code == 2
+        assert "ROADMAP Queue 1 item 6" in capsys.readouterr().err
+    args = tdriver.parse_args(["--variant", "tiny", "--tensor", "2"])
+    assert args.fsdp == -1 and args.tensor == 2
 
 
 if __name__ == "__main__":

@@ -212,16 +212,14 @@ def test_spec_from_conf_parses_as_jax(master, conf):
     assert tmesh.spec_from_conf(master, conf) == MeshSpec(data=want.data)
 
 
-@pytest.mark.parametrize("conf", [{"mesh.fsdp": "2"}, {"mesh.tensor": "-1"},
+@pytest.mark.parametrize("conf", [{"mesh.seq": "-1"}, {"mesh.tensor": "2", "mesh.pipe": "-1"},
                                   {"mesh.seq": "4"}, {"mesh.pipe": "2"},
                                   {"mesh.expert": "2"}])
 def test_axes_beyond_data_are_refused(conf):
-    """Each axis the port cannot shard over yet names its ROADMAP item:
-    tensor parallelism and data × fsdp (HSDP) item 5, the context, pipeline
-    and expert axes item 6."""
-    axis = next(iter(conf)).split(".")[1]
-    item = 5 if axis in ("fsdp", "tensor") else 6
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+    """Each axis the port cannot shard over yet names its ROADMAP item: the
+    context, pipeline and expert axes item 6, also beside a tensor axis
+    (data, fsdp and tensor are ported)."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tmesh.spec_from_conf("local[2]", conf)
 
 

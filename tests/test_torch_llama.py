@@ -498,8 +498,8 @@ def test_driver_trains_through_the_cli_on_the_cpu(tmp_path):
     ["--weights", "w"], ["--tokenizer", "t"], ["--cp-impl", "ring"],
     ["--microbatches", "2"], ["--moe-experts", "4"], ["--moe-group", "8"],
     ["--expert", "2"], ["--base-quant", "int8"], ["--fused-head-loss"],
-    ["--sample-tokens", "8"], ["--fsdp", "2", "--tensor", "2"], ["--tensor", "2"],
-    ["--seq-parallel", "2"], ["--pipeline", "2"]])
+    ["--sample-tokens", "8"], ["--fsdp", "2", "--tensor", "2", "--seq-parallel", "2"],
+    ["--tensor", "2", "--pipeline", "2"], ["--seq-parallel", "2"], ["--pipeline", "2"]])
 def test_driver_refuses_what_is_not_ported(flag, capsys):
     with pytest.raises(SystemExit) as e:
         tdriver.parse_args(["--variant", "tiny", *flag])

@@ -178,11 +178,23 @@ def test_fit_is_seeded_through_the_dropout_generator():
 
 
 def test_trainer_refuses_a_model_off_the_session_device():
+    """A model whose params lie off the session's device is refused; one on
+    the meta device is refused unless it can draw its weights
+    (``init_weights``), and then it is materialised on the session's
+    device with the weights of the same model built there."""
     spark = Session.builder.master("local[1]").config(DEVICE_CONF, "cpu").getOrCreate()
     try:
-        model = tbert.BertForMLM(tbert.BertConfig.tiny(num_layers=1), device="meta")
+        model = torch.nn.Linear(4, 4, device="meta")
         with pytest.raises(ValueError, match="session's device"):
             Trainer(spark, model, tlosses.masked_lm, toptim.adamw(1e-3))
+        cfg = tbert.BertConfig.tiny(num_layers=1)
+        model = tbert.BertForMLM(cfg, device="meta")
+        trainer = Trainer(spark, model, tlosses.masked_lm, toptim.adamw(1e-3), seed=3)
+        eager = tbert.BertForMLM(cfg, device="cpu").init_weights(
+            torch.Generator().manual_seed(3))
+        for (n, p), (_, q) in zip(trainer.model.named_parameters(),
+                                  eager.named_parameters()):
+            assert p.device.type == "cpu" and torch.equal(p, q), n
     finally:
         spark.stop()
 
