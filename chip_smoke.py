@@ -684,6 +684,163 @@ def check_flash_bwd(torch, fa) -> list[dict]:
     return results
 
 
+# -- phase 3b: the ring's per-hop compute on one card -----------------------------
+
+#: context parallelism at four cards (``--gang llama``): Llama-2 7B's 32
+#: heads, b = 4 of S = 4,096 (Llama-2's max_position) split into 4 blocks
+CP_BATCH, CP_SEQ, CP_DEGREE = 4, 4096, 4
+
+
+def _cp_inputs(torch):
+    """q, k, v and dO at b=4, S=4,096, 32 heads, D = 128 (bf16), and packed
+    segment ids whose documents cross the blocks' boundaries, so that a hop
+    meets q and kv ids that differ."""
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    mk = lambda: torch.randn(CP_BATCH, CP_SEQ, LLAMA_HEADS, 128, device="cuda",  # noqa: E731
+                             generator=gen).to(torch.bfloat16)
+    segs = torch.zeros(CP_BATCH, CP_SEQ, dtype=torch.int32, device="cuda")
+    for i, starts in enumerate([[0, 700, 1500, 3000], [0, 2048], [0],
+                                [0, 1023, 1025, 3077]]):
+        for doc, st in enumerate(starts):
+            segs[i, st:] = doc
+    return dict(q=mk(), k=mk(), v=mk(), do=mk(), segs=segs.contiguous())
+
+
+def _ring_on_one_card(torch, fa, ra, x, use_flash: bool) -> dict:
+    """Every hop of a CP_DEGREE-way ring split, in turn on this card (the
+    per-hop compute of ``ops.ring_attention`` without its exchange): each
+    rank's forward merged on the LSE, then its backward with the merged LSE
+    and ``delta``, the dK/dV of each block summed over the ranks whose hops
+    met it. The whole sequence's o, lse [B·H, S], dq, dk and dv."""
+    n, sl = CP_DEGREE, CP_SEQ // CP_DEGREE
+    blk = lambda t, j: t[:, j * sl:(j + 1) * sl].contiguous()  # noqa: E731
+    scale = 128 ** -0.5
+    outs, lses, dqs = [], [], []
+    dk = torch.zeros(x["k"].shape, dtype=torch.float32, device="cuda")
+    dv = torch.zeros_like(dk)
+    for r in range(n):
+        q, do, qs = blk(x["q"], r), blk(x["do"], r), blk(x["segs"], r)
+        acc = None
+        hops = [(i, (r + i) % n) for i in range(n) if ra.hop_active(r, i, n, True)]
+        for i, j in hops:
+            acc = ra.merge(acc, *ra.hop_forward(
+                q, blk(x["k"], j), blk(x["v"], j), q_segs=qs, kv_segs=blk(x["segs"], j),
+                scale=scale, causal=i == 0, use_flash=use_flash))
+        o, lse = acc[0].to(torch.bfloat16), acc[1]
+        delta = fa._delta(o, do).contiguous()
+        dq = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+        for i, j in hops:
+            g = ra.hop_backward(q, blk(x["k"], j), blk(x["v"], j), do, lse, delta,
+                                q_segs=qs, kv_segs=blk(x["segs"], j), scale=scale,
+                                causal=i == 0, use_flash=use_flash)
+            dq += g[0].float()
+            dk[:, j * sl:(j + 1) * sl] += g[1].float()
+            dv[:, j * sl:(j + 1) * sl] += g[2].float()
+        outs.append(o)
+        lses.append(lse.view(CP_BATCH, LLAMA_HEADS, sl))
+        dqs.append(dq)
+    return dict(o=torch.cat(outs, 1), lse=torch.cat(lses, 2).reshape(-1, CP_SEQ),
+                dq=torch.cat(dqs, 1), dk=dk, dv=dv)
+
+
+def _cp_kernel_times(torch, fa) -> list[dict]:
+    """K1, K2 and K3 where context parallelism runs them on the card: a
+    ring hop (b=4, 1,024 q rows against a block of 1,024 keys, every key
+    allowed, 32 heads) and Ulysses' full sequence on a head slice (b=4,
+    S=4,096, causal, 8 heads); each beside SDPA and its bound."""
+    cases = [
+        _attn_case(torch, "ring_hop_b4_s1024_h32_d128", b=CP_BATCH,
+                   s=CP_SEQ // CP_DEGREE, h=LLAMA_HEADS, hkv=LLAMA_HEADS, d=128,
+                   causal=False, seed=41),
+        _attn_case(torch, "ulysses_b4_s4096_h8_causal_d128", b=CP_BATCH, s=CP_SEQ,
+                   h=LLAMA_HEADS // CP_DEGREE, hkv=LLAMA_HEADS // CP_DEGREE, d=128,
+                   causal=True, seed=42),
+    ]
+    out = []
+    for c in cases:
+        kw = dict(scale=128 ** -0.5, causal=c["causal"])
+        gen = torch.Generator(device="cuda").manual_seed(43)
+        do = torch.randn(c["q"].shape, device="cuda", generator=gen).to(torch.bfloat16)
+        o, lse = fa.flash_fwd(c["q"], c["k"], c["v"], **kw)
+        delta = fa._delta(o, do).contiguous()
+        sdpa = _library_call(torch, c)
+        fwd_bound = _bound(torch, c)
+        dq_bound = _bwd_bound(torch, c, 3, (c["q"],))
+        dkv_bound = _bwd_bound(torch, c, 4, (c["k"], c["v"]))
+        rec = dict(
+            case=c["name"], shape=list(c["q"].shape), causal=c["causal"],
+            fwd_ms=graph_ms(torch, lambda: fa.flash_fwd(c["q"], c["k"], c["v"], **kw), 20),
+            fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+            fwd_library_ms=graph_ms(torch, lambda: sdpa(c["q"], c["k"], c["v"]), 20),
+            fwd_plain_ms=graph_ms(torch, lambda: fa.flash_attention_reference(
+                c["q"], c["k"], c["v"], **kw), 3),
+            dq_ms=graph_ms(torch, lambda: fa.flash_bwd_dq(
+                c["q"], c["k"], c["v"], do, lse, delta, **kw), 20),
+            dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+            dkv_ms=graph_ms(torch, lambda: fa.flash_bwd_dkv(
+                c["q"], c["k"], c["v"], do, lse, delta, **kw), 20),
+            dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+            bwd_plain_ms=graph_ms(torch, lambda: fa.flash_attention_backward_reference(
+                c["q"], c["k"], c["v"], o, lse, do, **kw), 3),
+            bwd_library_ms=_library_bwd_ms(torch, c, do))
+        print("CP kernels " + json.dumps(rec), flush=True)
+        out.append(rec)
+        del o, lse, delta, do
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_ring_hops(torch, fa, ra) -> dict:
+    """The ring's per-hop compute for a CP_DEGREE-way split of b=4, S=4,096,
+    32 heads, D = 128, every hop in turn on this card: K1 causal on the
+    diagonal and non-causal on the earlier blocks with distinct q/kv
+    segment ids, merged on the LSE; K2/K3 with the merged LSE and
+    ``delta``. Held against the whole sequence's K1 and K2/K3 (causal, the
+    same segment ids) and against the same hops on the kernels' plain
+    versions, at K1's and K2/K3's tolerances; the inactive hops launch
+    nothing (1 + r hops for the rank at index r: 10 launches of each
+    kernel). Then the kernels' times at the hop's and at Ulysses' shapes."""
+    x = _cp_inputs(torch)
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [k.launches for k in kernels]
+    ring = _ring_on_one_card(torch, fa, ra, x, use_flash=True)
+    torch.cuda.synchronize()
+    launches = [k.launches - b for k, b in zip(kernels, before)]
+    want_launches = [sum(1 + r for r in range(CP_DEGREE))] * 3
+    kw = dict(q_segs=x["segs"], kv_segs=x["segs"], scale=128 ** -0.5, causal=True)
+    o, lse = fa.flash_fwd(x["q"], x["k"], x["v"], **kw)
+    whole = dict(o=o, lse=lse, **dict(zip(("dq", "dk", "dv"), fa.flash_bwd(
+        x["q"], x["k"], x["v"], o, lse, x["do"], **kw))))
+    plain = _ring_on_one_card(torch, fa, ra, x, use_flash=False)
+    errs, ok = {}, launches == want_launches
+    for ref_name, ref in (("whole", whole), ("plain", plain)):
+        o_err = (ring["o"].float() - ref["o"].float()).abs()
+        lse_err = float((ring["lse"] - ref["lse"]).abs().max())
+        errs[f"o_vs_{ref_name}"] = float(o_err.max())
+        errs[f"lse_vs_{ref_name}"] = lse_err
+        ok = ok and bool((o_err <= O_ATOL + O_RTOL * ref["o"].float().abs()).all())
+        ok = ok and lse_err <= LSE_ATOL
+        for g in ("dq", "dk", "dv"):
+            got, want = ring[g].float(), ref[g].float()
+            err = (got - want).abs()
+            errs[f"{g}_vs_{ref_name}"] = float(err.max())
+            ok = ok and bool(torch.isfinite(got).all()) and bool(
+                (err <= GRAD_TOL * float(want.abs().max()) + GRAD_TOL * want.abs()).all())
+    rec = dict(shape=[CP_BATCH, CP_SEQ, LLAMA_HEADS, 128], degree=CP_DEGREE,
+               launches=dict(zip((k.__name__ for k in kernels), launches)),
+               want_launches=want_launches[0], **errs,
+               tolerance=f"o: |o-ref| <= {O_ATOL} + {O_RTOL}*|ref|, lse <= {LSE_ATOL}; "
+                         f"grads: |g-ref| <= {GRAD_TOL}*max|ref| + {GRAD_TOL}*|ref|",
+               ok=ok)
+    print("CP ring hops " + json.dumps(rec), flush=True)
+    check(ok, f"the ring's per-hop K1-K3 disagree with the whole sequence's or the "
+              f"plain hops, or launched other than {want_launches}: {rec}")
+    del x, ring, whole, plain, o, lse
+    torch.cuda.empty_cache()
+    rec["times"] = _cp_kernel_times(torch, fa)
+    return rec
+
+
 def check_gates(torch, fa, attention, cb) -> None:
     """The dispatch sends the kernels only what they take: "auto" picks the
     plain path for f32 and for head dims the kernels are not built for, an
@@ -3155,7 +3312,20 @@ LLAMA_GANG_FAULTS = {
                                      "step on its own heads' part"),
     "feed-by-world-rank": ("lora-tp", "the feed sharded by world rank: tensor peers "
                                       "take different rows, each a 1/N share"),
+    "rope-local": ("ring-seq4", "the RoPE positions not offset by the seq index: "
+                                "each block rotated as if it began the sequence"),
+    "cp-grads-unsummed": ("ring-seq4", "the gradients summed over the batch group "
+                                       "only: each seq peer's adapters step on its "
+                                       "block's part"),
 }
+#: context parallelism's layouts at four cards: name → (``--seq-parallel``,
+#: ``--cp-impl``); the rest of the cards go to fsdp (the driver's default
+#: ``--fsdp -1``)
+LLAMA_CP_LAYOUTS = {"ring-seq4": (4, "ring"), "ulysses-seq4": (4, "ulysses"),
+                    "ring-fsdp2-seq2": (2, "ring")}
+#: Llama-2 7B's decoder layers, kv heads (multi-head: as many as its
+#: LLAMA_HEADS) and head dim
+LLAMA_LAYERS, LLAMA_KV_HEADS, LLAMA_HEAD_DIM = 32, 32, 128
 #: NCCL's tuning model and transports, logged by the tensor-parallel and
 #: FSDP drivers' ranks (their environment only) into a file each
 #: (``nccl.<pid>.log`` in the launch's workdir: NCCL logs to stdout
@@ -3166,6 +3336,8 @@ NCCL_TUNING_ENV = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,TUNING"}
 
 def _plant_llama(fault: str) -> None:
     """Plant one of LLAMA_GANG_FAULTS into this process's port."""
+    import torch
+
     from distributeddeeplearningspark_tpu_torch.data import feed
     from distributeddeeplearningspark_tpu_torch.models import llama
     from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
@@ -3183,6 +3355,25 @@ def _plant_llama(fault: str) -> None:
                 return a, b.chunk(split.size, 1)[split.index]
             return a.chunk(split.size, 0)[split.index], b
         llama.adapter_shards = unsummed
+    elif fault == "rope-local":
+        llama.positions = lambda s, device, impl: torch.arange(s, device=device)[None, :]
+    elif fault == "cp-grads-unsummed":
+        from distributeddeeplearningspark_tpu_torch import Session
+        from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
+            BATCH_AXES,
+            LOSS_AXES,
+        )
+
+        summed = collectives.all_reduce_grads
+
+        def batch_group_only(grads, group=None):
+            mesh = Session._active.mesh
+            if group is mesh.group(LOSS_AXES):
+                group = mesh.group(BATCH_AXES)
+            return summed(grads, group)
+        # the original counts its calls on the module's attribute
+        batch_group_only.calls = summed.calls
+        collectives.all_reduce_grads = batch_group_only
     elif fault == "feed-by-world-rank":
         def by_world_rank(self, dataset, batch_size, **kw):
             n, r = self.session.world_size, self.session.rank
@@ -3212,8 +3403,10 @@ def llama_rank(argv: list[str]) -> int:
     ``llama_rules``; ``full-hsdp``: the same on ``data=2 × fsdp``), FAULT
     planted, GANG_STEPS steps, each logged; each rank writes
     ``OUT/rank<r>.json``: its card (flash launches, resident param bytes and
-    the rule engine's reckoning, peak memory in the init and in ``fit``)
-    and whether each param agrees within its replica group. A sound LoRA
+    the rule engine's reckoning, peak memory in the init and in ``fit``,
+    its ``seq`` index, the RoPE positions its first layer applied and the
+    bytes its ring exchanges and all-to-alls sent in ``fit``) and whether
+    each param agrees within its replica group. A sound LoRA
     run at more than one rank then takes GANG_WINDOW more steps under the
     profiler."""
     import dataclasses
@@ -3224,6 +3417,7 @@ def llama_rank(argv: list[str]) -> int:
     from distributeddeeplearningspark_tpu_torch.examples import train_llama_lora as driver
     from distributeddeeplearningspark_tpu_torch.models import llama
     from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearningspark_tpu_torch.ops import ring_attention, ulysses
     from distributeddeeplearningspark_tpu_torch.train import losses, optim
     from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
     from distributeddeeplearningspark_tpu_torch.utils import sanitize
@@ -3252,11 +3446,29 @@ def llama_rank(argv: list[str]) -> int:
     kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     for k in kernels:
         k.launches = 0
+    cp_ops = (ring_attention.exchange, ulysses.all_to_all)
+    for op in cp_ops:
+        op.bytes_sent = 0
+    # the RoPE positions the first layer applied on this rank: its first,
+    # last and count
+    positions: list = []
+    rope = llama.rotary_embedding
+
+    def recorded_rope(x, pos, theta):
+        if not positions:
+            flat = pos[0].tolist()
+            positions.extend([flat[0], flat[-1], len(flat)])
+        return rope(x, pos, theta)
+
+    llama.rotary_embedding = recorded_rope
     torch.cuda.reset_peak_memory_stats()
     trainer.fit(ds, batch_size=args.batch_size, steps=GANG_STEPS, log_every=1,
                 tokens_per_example=args.seq_len)
+    llama.rotary_embedding = rope
     rec = driver.card_record(trainer, {k.__name__: k.launches for k in kernels})
-    rec["init_max_memory_allocated"] = init_peak
+    rec.update(init_max_memory_allocated=init_peak, positions=positions,
+               seq_index=spark.mesh.seq_index,
+               cp_bytes_sent=sum(op.bytes_sent for op in cp_ops))
     try:
         sanitize.assert_replicas_in_sync(trainer.state.params)
         rec["replicas_in_sync"] = True
@@ -3508,11 +3720,148 @@ def train_llama_gang(torch, ranks: int) -> dict:
               f"the full fine-tune at {full['mesh']} is off one card's: "
               f"{full['max_loss_rel_err']}, {full['max_grad_norm_rel_err']}")
     for fault, (mode, why) in LLAMA_GANG_FAULTS.items():
+        if mode in LLAMA_CP_LAYOUTS:  # train_llama_cp_gang's
+            continue
         seen = comparisons[mode][fault]
         check(not seen["replicas_in_sync"] or seen["max_loss_rel_err"] > GANG_LOSS_RTOL
               or seen.get("max_grad_norm_rel_err", 0.0) > GANG_GRAD_NORM_RTOL,
               f"llama gang: the planted fault {fault!r} ({why}) stays within every "
               f"limit: {seen}")
+    return rec
+
+
+def _llama_cp_args(seq: int, impl: str) -> list[str]:
+    """The driver's flags of the CP runs: 7B at the global b=4, S=4,096
+    (Llama-2's max_position), LoRA rank 16, the corpus in 4 source
+    partitions (the same global batches at 1 and 2 batch shards), and
+    ``--seq-parallel``/``--cp-impl`` above one card."""
+    cp = ["--seq-parallel", str(seq), "--cp-impl", impl] if seq > 1 else []
+    return ["--variant", "7b", "--seq-len", str(CP_SEQ), "--batch-size", str(CP_BATCH),
+            "--lora-rank", str(LLAMA_RANK), "--lora-alpha", "16", "--lr",
+            str(LLAMA_GANG_LR), "--steps", str(GANG_STEPS), "--log-every", "1",
+            "--source-partitions", "4", *cp]
+
+
+def _cp_prediction(ranks: int, seq: int, impl: str, seq_index: int) -> dict:
+    """What a card at ``seq`` index ``seq_index`` should show in GANG_STEPS
+    steps, reckoned from the shapes: K1 in each layer's forward and remat
+    recompute and K2/K3 in its backward, once for each hop that meets a
+    local query (the ring: the diagonal and the 1 + r − 1 blocks before it;
+    Ulysses: one full-sequence call); and the bytes it sends: the ring's
+    K/V blocks (bf16) N − 1 times forward and again in the recompute, N − 1
+    times backward beside N rotations of the f32 dK/dV; Ulysses' 12
+    all-to-alls a layer (q, k, v and o; forward, recompute, backward) but
+    the first layer's k's backward, each sending (N − 1)/N of its [b, S/N,
+    heads, 128] bf16 tensor."""
+    rows, sl = CP_BATCH // (ranks // seq), CP_SEQ // seq
+    hops = 1 + seq_index if impl == "ring" else 1
+    # one bf16 [b, S/N, heads, D] block of q (and o), and of k (and v)
+    q_block, kv_block = (rows * sl * h * LLAMA_HEAD_DIM * 2
+                         for h in (LLAMA_HEADS, LLAMA_KV_HEADS))
+    steps = GANG_STEPS * LLAMA_LAYERS
+    if impl == "ring":
+        per_step = LLAMA_LAYERS * (2 * (seq - 1) * 2 * kv_block + (seq - 1) * 2 * kv_block
+                                   + seq * 4 * kv_block)
+    else:
+        # the first layer's k takes no gradient (wk and the embedding are
+        # frozen), so autograd skips that all-to-all's backward
+        per_step = LLAMA_LAYERS * 3 * sum(t * (seq - 1) // seq for t in (
+            q_block, kv_block, kv_block, q_block)) - kv_block * (seq - 1) // seq
+    return dict(flash_launches={"flash_fwd": 2 * hops * steps, "flash_bwd_dq": hops * steps,
+                                "flash_bwd_dkv": hops * steps},
+                cp_bytes_sent=per_step * GANG_STEPS,
+                positions=[seq_index * sl, seq_index * sl + sl - 1, sl])
+
+
+def train_llama_cp_gang(torch, ranks: int) -> dict:
+    """Context parallelism for config 5 over ``ranks`` cards: Llama-2 7B
+    LoRA at the global b=4, S=4,096 through the driver's session, data,
+    config and trainer (:func:`llama_rank`), at each layout of
+    LLAMA_CP_LAYOUTS (the ring at seq=4, Ulysses at seq=4, the ring at
+    fsdp=2 × seq=2) and at one card on the same batches. Held on each
+    layout: every rank's losses one card's at GANG_LOSS_RTOL and its grad
+    norms at GANG_GRAD_NORM_RTOL, each param in sync within its replica
+    group, each card's K1/K2/K3 launches, the bytes its exchanges sent and
+    the RoPE positions of its block as :func:`_cp_prediction` reckons
+    them, its resident param bytes the rule engine's reckoning, and its
+    peak in ``fit`` below one card's. The CP faults of LLAMA_GANG_FAULTS,
+    planted into their layout's run, must each break one of those limits.
+    Prints each card's step ms, tokens/s, peak memory and a profiled
+    window's NCCL time."""
+    root = ROOT / "build" / f"chip_smoke_llama_cp_{ranks}"
+    one = _llama_run(root / "one", 1, "lora", "none", _llama_cp_args(1, "ring"))
+    layouts = {name: lay for name, lay in LLAMA_CP_LAYOUTS.items() if ranks % lay[0] == 0}
+    runs = {name: _llama_run(root / name, ranks, "lora", "none", _llama_cp_args(*lay))
+            for name, lay in layouts.items()}
+    for fault, (layout, _) in LLAMA_GANG_FAULTS.items():
+        if layout in layouts:
+            runs[fault] = _llama_run(root / fault, ranks, "lora", fault,
+                                     _llama_cp_args(*layouts[layout]))
+    tokens = CP_BATCH * CP_SEQ
+    one_card = one["cards"][0]
+
+    def limits(name: str, run: dict) -> dict:
+        """What ``run`` shows against one card and the reckoning."""
+        layout = name if name in layouts else LLAMA_GANG_FAULTS[name][0]
+        seq, impl = layouts[layout]
+        cards = run["cards"]
+        want = [_cp_prediction(ranks, seq, impl, c["seq_index"]) for c in cards]
+        prof = cards[0].get("profile") or {}
+        return dict(
+            layout=layout, mesh=cards[0]["mesh"], losses=run["losses"][0],
+            max_loss_rel_err=_loss_gap(run["losses"][0], one["losses"][0]),
+            max_grad_norm_rel_err=_loss_gap(run["grad_norms"][0], one["grad_norms"][0]),
+            ranks_agree=all(v == run["losses"][0] for v in run["losses"]),
+            replicas_in_sync=all(c["replicas_in_sync"] for c in cards),
+            launches_as_reckoned=all(c["flash_launches"] == w["flash_launches"]
+                                     for c, w in zip(cards, want)),
+            bytes_as_reckoned=all(c["cp_bytes_sent"] == w["cp_bytes_sent"]
+                                  for c, w in zip(cards, want)),
+            positions_global=all(c["positions"] == w["positions"]
+                                 for c, w in zip(cards, want)),
+            resident_as_reckoned=all(c["param_bytes"] == c["param_bytes_reckoned"]
+                                     for c in cards),
+            peak_below_one_card=all(c["max_memory_allocated"]
+                                    < one_card["max_memory_allocated"] for c in cards),
+            cards=[{k: c[k] for k in ("seq_index", "flash_launches", "cp_bytes_sent",
+                                      "positions", "param_bytes", "max_memory_allocated",
+                                      "init_max_memory_allocated")} for c in cards],
+            step_ms=run["step_ms"],
+            tokens_per_sec_per_card=[tokens / ranks / (ms / 1e3) if ms else None
+                                     for ms in run["step_ms"]],
+            launch=run["launch"],
+            nccl_ms_per_step=prof.get("busy_ms_by_family", {}).get("nccl"),
+            nccl_kernels_ms_per_step=_nccl_kernels(prof),
+            profile=prof or None)
+
+    seen = {name: limits(name, run) for name, run in runs.items()}
+    rec = dict(ranks=ranks, global_batch=CP_BATCH, seq_len=CP_SEQ, lora_rank=LLAMA_RANK,
+               one_card=dict(losses=one["losses"][0], step_ms=one["step_ms"][0],
+                             tokens_per_sec=tokens / (one["step_ms"][0] / 1e3),
+                             card=one_card),
+               runs=seen, card=nvidia_smi_line())
+    print("gang llama-cp " + json.dumps(rec), flush=True)
+    held = ("ranks_agree", "replicas_in_sync", "launches_as_reckoned",
+            "bytes_as_reckoned", "positions_global", "resident_as_reckoned",
+            "peak_below_one_card")
+
+    def within(r: dict) -> bool:
+        return (all(r[k] for k in held) and r["max_loss_rel_err"] <= GANG_LOSS_RTOL
+                and r["max_grad_norm_rel_err"] <= GANG_GRAD_NORM_RTOL)
+
+    check(one_card["flash_launches"] == {k: n * GANG_STEPS for k, n in LLAMA_LAUNCHES.items()},
+          f"llama cp: one card's launches {one_card['flash_launches']}")
+    for name in layouts:
+        r = seen[name]
+        check(within(r), f"llama cp {name} at {r['mesh']} breaks a limit: "
+                         f"{({k: v for k, v in r.items() if k != 'profile'})}")
+        check(not r["profile"] or r["nccl_ms_per_step"],
+              f"llama cp {name}: no NCCL kernel in the profiled window")
+    for fault, (layout, why) in LLAMA_GANG_FAULTS.items():
+        if layout in layouts:
+            check(not within(seen[fault]),
+                  f"llama cp: the planted fault {fault!r} ({why}) stays within every "
+                  f"limit: {seen[fault]}")
     return rec
 
 
@@ -3893,9 +4242,10 @@ def gang_main(torch, names: list[str]) -> int:
         print(f"chip_smoke --gang: {ranks} card(s); it needs 2 or more",
               file=sys.stderr)
         return 2
-    if not set(names) <= set(GANG_FAULTS) | {"recovery", "llama"}:
+    if not set(names) <= set(GANG_FAULTS) | {"recovery", "llama", "llama-cp"}:
         print(f"chip_smoke --gang: no part {names}; choose from "
-              f"{sorted(GANG_FAULTS) + ['llama', 'recovery']}", file=sys.stderr)
+              f"{sorted(GANG_FAULTS) + ['llama', 'llama-cp', 'recovery']}",
+              file=sys.stderr)
         return 2
     try:
         if not names:
@@ -3908,6 +4258,8 @@ def gang_main(torch, names: list[str]) -> int:
             train_drivers_gang(torch, ranks, drivers or tuple(GANG_FAULTS))
         if not names or "llama" in names:
             train_llama_gang(torch, ranks)
+        if not names or "llama" in names or "llama-cp" in names:
+            train_llama_cp_gang(torch, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4091,6 +4443,7 @@ def main() -> int:
     from distributeddeeplearningspark_tpu_torch.ops import attention
     from distributeddeeplearningspark_tpu_torch.ops import conv_bn as cb
     from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearningspark_tpu_torch.ops import ring_attention as ra
     from distributeddeeplearningspark_tpu_torch.ops import scatter_rows as sr
     from distributeddeeplearningspark_tpu_torch.serve import engine as engine_mod
 
@@ -4113,6 +4466,10 @@ def main() -> int:
 
         k1 = check_flash_fwd(torch, fa)
         k23 = check_flash_bwd(torch, fa)
+        check_ring_hops(torch, fa, ra)
+        if sys.argv[1:] == ["--cp"]:
+            print(nvidia_smi_line())
+            return 0
         check_gates(torch, fa, attention, cb)
         check_input()
         train = train_bert(torch, fa)

@@ -26,6 +26,13 @@ to the device with a non-blocking copy from pinned memory;
 :func:`device_batches` does so in the caller's thread, and
 :func:`~.prefetch.prefetch_to_device`, which ``Trainer.fit`` feeds
 through, in a background thread ahead of the consumer.
+
+Under context parallelism :func:`seq_shard` then keeps one block of each
+row's sequence (JAX's ``batch_spec(seq_sharded=True)``: dim 1 of every
+leaf of rank ≥ 2 split over ``seq``, rank-1 leaves whole). Next-token
+labels cross the blocks' boundaries, so it first makes them from the
+whole rows (``NEXT_IDS``, ``NEXT_MASK``), which ``losses.causal_lm``
+then reads instead of shifting the block it holds.
 """
 
 from __future__ import annotations
@@ -211,6 +218,43 @@ def host_batches(
             batch = checked(stack_examples(chunk))
             chunk.clear()
             yield batch
+
+
+#: the whole row's next token at each position (0 at the last), and its
+#: weight: the shifted ``loss_mask`` (1 without one), 0 at each row's last
+#: position, which has no next token
+NEXT_IDS, NEXT_MASK = "next_ids", "next_mask"
+
+
+def seq_shard(batch: dict[str, np.ndarray], index: int, n: int
+              ) -> dict[str, np.ndarray]:
+    """Block ``index`` of ``n`` of each row's sequence: dim 1 of every leaf
+    of rank ≥ 2 sliced, rank-1 leaves (``eval_mask``) whole. A batch with
+    ``input_ids`` first gets ``NEXT_IDS`` and ``NEXT_MASK`` from its whole
+    rows, the labels JAX's ``causal_lm`` shifts over the whole row: a
+    block's last position is labelled by the next block's first token, and
+    only the last block drops its final position. The batch itself at
+    ``n`` 1. The sequence must divide by ``n``."""
+    if n == 1:
+        return batch
+    out = dict(batch)
+    ids = batch.get("input_ids")
+    if ids is not None and ids.ndim == 2:
+        nxt = np.zeros_like(ids)
+        nxt[:, :-1] = ids[:, 1:]
+        weight = np.zeros(ids.shape, np.float32)
+        mask = batch.get("loss_mask")
+        weight[:, :-1] = 1.0 if mask is None else mask[:, 1:]
+        out[NEXT_IDS], out[NEXT_MASK] = nxt, weight
+    for k, v in out.items():
+        if v.ndim < 2:
+            continue
+        if v.shape[1] % n:
+            raise ValueError(f"{k}: sequence length {v.shape[1]} must divide by "
+                             f"the seq degree {n}")
+        block = v.shape[1] // n
+        out[k] = v[:, index * block:(index + 1) * block]
+    return out
 
 
 def to_device(batch: dict[str, np.ndarray], device: torch.device

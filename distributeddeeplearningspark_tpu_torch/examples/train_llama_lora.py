@@ -37,6 +37,21 @@ card keeping its shards (bitwise one card's weights). On the CPU::
         --variant tiny --steps 4 --batch-size 4 --seq-len 64 --lora-rank 4 \\
         --tensor 2
 
+``--seq-parallel C`` (default 1) and ``--cp-impl ring|ulysses`` (default
+``ring``) are JAX's context parallelism: ``mesh.seq=C``, the model's
+``attention_impl`` set to the ``--cp-impl`` when C > 1, and the trainer's
+``context_parallel``, so each row's sequence is split into C blocks, one
+a rank of each ``seq`` group (the ring rotates K/V blocks over it, Ulysses
+trades the sequence split for a head split by all-to-all). It composes
+with ``--fsdp`` and ``--tensor``: ``local[N]`` is then fsdp = N/(C·T).
+On the CPU::
+
+    python -m distributeddeeplearningspark_tpu_torch.cli --master local[2] \\
+        --conf spark.dls.device=cpu \\
+        distributeddeeplearningspark_tpu_torch/examples/train_llama_lora.py \\
+        --variant tiny --steps 4 --batch-size 4 --seq-len 64 --lora-rank 4 \\
+        --seq-parallel 2 --cp-impl ulysses
+
 ``--source-partitions P`` keeps the global batches the same at any rank
 count that divides P.
 
@@ -54,22 +69,25 @@ port's (the JAX driver has none); a restore that raises exits with the
 supervisor's ``RESTORE_FAILED_EXIT``. A checkpoint holds the whole state,
 the frozen base included.
 
-The JAX driver's sequence, pipeline and expert parallelism, MoE, int8
-base, fused head, sampling and the import of real weights (which needs
-their tokenizer) are not ported yet: those flags fail at parse time, each
+The JAX driver's pipeline and expert parallelism, MoE, int8 base, fused
+head, sampling and the import of real weights (which needs their
+tokenizer) are not ported yet: those flags fail at parse time, each
 naming its ROADMAP item. Rank 0 prints one JSON line: the train summary,
-where the run went (world size, backend, device, the mesh), the number of
+where the run went (world size, backend, device, the mesh, the CP
+implementation), the number of
 sharded params (on any axis), the attention's local heads a rank, and
 for each rank the flash kernels' launches in ``fit``, its resident param
 bytes (each shard's ``to_local()``, each replicated param whole) beside
 the rule engine's reckoning, its peak device memory in the init and
 during ``fit``, and the tensor-parallel all-reduces it made in ``fit``
-(and rank 0's seconds in the trainer's init);
+and the bytes its ring exchanges and all-to-alls sent in ``fit`` (and
+rank 0's seconds in the trainer's init);
 ``replicas_checked`` says each param was compared within its replica
 group.
 """
 
 import argparse
+import dataclasses
 import json
 import logging
 import time
@@ -90,6 +108,7 @@ from distributeddeeplearningspark_tpu_torch.models.llama import (
     lora_trainable,
 )
 from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
+from distributeddeeplearningspark_tpu_torch.ops import ring_attention, ulysses
 from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
 from distributeddeeplearningspark_tpu_torch.parallel.mesh import AXIS_TENSOR
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
@@ -101,7 +120,6 @@ NOT_PORTED = {
                  "and their tokenizer in the repository (models/llama_io.py "
                  "reads them): ROADMAP Queue 1 item 5",
     "--tokenizer": "the HF tokenizer adapter: ROADMAP Queue 1 item 5",
-    "--cp-impl": "ring and Ulysses attention: ROADMAP Queue 1 item 6",
     "--microbatches": "the pipeline (models/llama_pp.py): ROADMAP Queue 1 item 6",
     "--moe-experts": "models/moe.py: ROADMAP Queue 1 item 6",
     "--moe-group": "models/moe.py: ROADMAP Queue 1 item 6",
@@ -112,7 +130,6 @@ NOT_PORTED = {
 }
 #: mesh axes of the JAX driver the port cannot shard over yet: only 1
 MESH_AXES = {
-    "seq_parallel": "context parallelism (ring, Ulysses): ROADMAP Queue 1 item 6",
     "pipeline": "the pipeline (models/llama_pp.py): ROADMAP Queue 1 item 6",
 }
 VARIANTS = {"7b": LlamaConfig.llama2_7b, "13b": LlamaConfig.llama2_13b}
@@ -146,6 +163,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="FSDP axis size (-1: every rank)")
     p.add_argument("--tensor", type=int, default=1,
                    help="tensor-parallel axis size (ranks a layer is split over)")
+    p.add_argument("--seq-parallel", type=int, default=1,
+                   help="context-parallel axis size (shards the sequence over "
+                        "the mesh seq axis)")
+    p.add_argument("--cp-impl", choices=["ring", "ulysses"], default="ring",
+                   help="context-parallel strategy when --seq-parallel > 1: ring "
+                        "(K/V blocks rotate, no head constraint) or ulysses "
+                        "(all-to-all head scatter; heads must divide by the "
+                        "CP degree)")
     for axis in MESH_AXES:
         p.add_argument("--" + axis.replace("_", "-"), type=int, default=1,
                        help=f"only 1 is ported: {MESH_AXES[axis]}")
@@ -170,17 +195,22 @@ def make_config(args: argparse.Namespace, vocab_size: int) -> LlamaConfig:
         if vocab_size > cfg.vocab_size:
             raise SystemExit(f"tokenizer vocab ({vocab_size}) exceeds model "
                              f"vocab ({cfg.vocab_size})")
-        return cfg
-    return LlamaConfig.tiny(vocab_size=max(vocab_size, 512),
-                            lora_rank=args.lora_rank, lora_alpha=args.lora_alpha)
+    else:
+        cfg = LlamaConfig.tiny(vocab_size=max(vocab_size, 512),
+                               lora_rank=args.lora_rank, lora_alpha=args.lora_alpha)
+    if args.seq_parallel > 1:
+        cfg = dataclasses.replace(cfg, attention_impl=args.cp_impl)
+    return cfg
 
 
 def make_session(args: argparse.Namespace, app: str = "llama-lora") -> Session:
     """The session on the JAX driver's mesh: ``mesh.data=1``,
-    ``mesh.fsdp=--fsdp`` and ``mesh.tensor=--tensor`` (config 5 is
-    FSDP-dominant: the fsdp workers are the executors)."""
+    ``mesh.fsdp=--fsdp``, ``mesh.seq=--seq-parallel`` and
+    ``mesh.tensor=--tensor`` (config 5 is FSDP-dominant: the fsdp workers
+    are the executors)."""
     builder = (Session.builder.appName(app).config("mesh.data", 1)
-               .config("mesh.fsdp", args.fsdp).config("mesh.tensor", args.tensor))
+               .config("mesh.fsdp", args.fsdp).config("mesh.seq", args.seq_parallel)
+               .config("mesh.tensor", args.tensor))
     if args.master:
         builder = builder.master(args.master)
     return builder.getOrCreate()
@@ -212,7 +242,8 @@ def make_model(cfg: LlamaConfig) -> LlamaForCausalLM:
 def make_trainer(args: argparse.Namespace, spark: Session, cfg: LlamaConfig,
                  checkpointer: Checkpointer | None = None) -> Trainer:
     """The LoRA fine-tune's trainer, the params laid out by ``llama_rules``
-    over the session's mesh."""
+    over the session's mesh, the sequence sharded over ``seq`` at
+    ``--seq-parallel`` above 1."""
     # the clip inside the mask: the norm over the adapters' gradients only
     tx = optim.masked(
         optim.with_grad_clip(
@@ -222,7 +253,8 @@ def make_trainer(args: argparse.Namespace, spark: Session, cfg: LlamaConfig,
         lora_trainable)
     return Trainer(spark, make_model(cfg), losses.causal_lm, tx,
                    rules=llama_rules(cfg), accum_steps=args.accum_steps,
-                   trainable=lora_trainable, checkpointer=checkpointer)
+                   trainable=lora_trainable, checkpointer=checkpointer,
+                   context_parallel=args.seq_parallel > 1)
 
 
 def local_heads(trainer: Trainer) -> int:
@@ -273,6 +305,8 @@ def main(argv: list[str] | None = None) -> None:
     before = [k.launches for k in kernels]
     tp_ops = (collectives.all_reduce_forward, collectives.all_reduce_backward)
     tp_before = sum(op.calls for op in tp_ops)
+    cp_ops = (ring_attention.exchange, ulysses.all_to_all)
+    cp_before = sum(op.bytes_sent for op in cp_ops)
     if cuda:
         torch.cuda.reset_peak_memory_stats(spark.device)
     state, summary = trainer.fit(ds, batch_size=args.batch_size, steps=args.steps,
@@ -283,7 +317,8 @@ def main(argv: list[str] | None = None) -> None:
     launches = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
     card = card_record(trainer, launches)
     card.update(init_max_memory_allocated=init_peak,
-                tensor_all_reduces=sum(op.calls for op in tp_ops) - tp_before)
+                tensor_all_reduces=sum(op.calls for op in tp_ops) - tp_before,
+                cp_bytes_sent=sum(op.bytes_sent for op in cp_ops) - cp_before)
     by_rank = collectives.all_gather_object(card)
     sanitize.assert_replicas_in_sync(state.params, what="replicated params")
     if spark.rank == 0:
@@ -292,6 +327,7 @@ def main(argv: list[str] | None = None) -> None:
             "variant": args.variant,
             "world_size": spark.world_size, "backend": spark.backend,
             "device": str(spark.device), "mesh": spark.mesh.shape,
+            "cp_impl": cfg.attention_impl if args.seq_parallel > 1 else None,
             "sharded_params": len(set(trainer.shard_dims) | set(trainer.tensor_dims)),
             "tensor_split_params": len(trainer.tensor_dims),
             "local_heads": local_heads(trainer),

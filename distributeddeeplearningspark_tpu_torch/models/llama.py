@@ -55,9 +55,19 @@ whole, and the adapters go through ``all_reduce_backward`` too
 (:func:`adapter_shards`): their gradients arrive summed over the group,
 while the norm scales', whole on every peer already, are not.
 
-Not ported yet, and refused by name: the MoE FFN and ring/Ulysses
-attention (ROADMAP Queue 1 item 6), the int8 frozen base and the fused
-head loss (item 5), decoding with a KV cache (item 8).
+Context parallelism (``attention_impl`` ``"ring"`` or ``"ulysses"``,
+JAX's): the batch reaching the model is this rank's block of every row's
+sequence, the block at its ``seq`` index on the session's mesh
+(``Trainer(context_parallel=True)`` feeds it, :mod:`..data.feed`). The
+RoPE positions are then global (:func:`positions`: ``seq index ·
+S_local + arange(S_local)``), ``max_position`` holds the whole sequence,
+and attention (on the local heads under tensor parallelism) goes to
+:mod:`..ops.ring_attention` or :mod:`..ops.ulysses`, which exchange K/V
+over the ``seq`` group. At ``seq`` 1 both are plain local attention.
+
+Not ported yet, and refused by name: the MoE FFN (ROADMAP Queue 1 item
+6), the int8 frozen base and the fused head loss (item 5), decoding with
+a KV cache (item 8).
 """
 
 from __future__ import annotations
@@ -71,10 +81,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from distributeddeeplearningspark_tpu_torch.ops import ring_attention
 from distributeddeeplearningspark_tpu_torch.ops.attention import (
     dot_product_attention,
     padding_mask,
 )
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import AXIS_SEQ
 from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.parallel.sharding import (
     P,
@@ -143,6 +155,28 @@ class LlamaConfig:
                     dtype=torch.float32)
         base.update(kw)
         return LlamaConfig(**base)
+
+
+#: the attention implementations that take a sequence sharded over ``seq``
+CONTEXT_PARALLEL_IMPLS = ("ring", "ulysses")
+
+
+def seq_degree(impl: str) -> int:
+    """How many blocks each row's sequence is split into: the session
+    mesh's ``seq`` size under a context-parallel ``impl``, else 1."""
+    if impl not in CONTEXT_PARALLEL_IMPLS:
+        return 1
+    return ring_attention.resolve_mesh().shape[AXIS_SEQ]
+
+
+def positions(s_local: int, device, impl: str) -> torch.Tensor:
+    """The RoPE positions ``[1, S_local]`` of this rank's tokens: under a
+    context-parallel ``impl``, those of its block of the sequence (``seq``
+    index · ``S_local`` on), else ``0..S_local-1``."""
+    start = 0
+    if impl in CONTEXT_PARALLEL_IMPLS:
+        start = ring_attention.resolve_mesh().seq_index * s_local
+    return torch.arange(start, start + s_local, device=device)[None, :]
 
 
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,
@@ -276,9 +310,9 @@ class LlamaAttention(nn.Module):
         q = self.wq(x).view(b, s, heads, hd)
         k = self.wk(x).view(b, s, kv_heads, hd)
         v = self.wv(x).view(b, s, kv_heads, hd)
-        positions = torch.arange(s, device=x.device)[None, :]
-        q = rotary_embedding(q, positions, cfg.rope_theta)
-        k = rotary_embedding(k, positions, cfg.rope_theta)
+        pos = positions(s, x.device, cfg.attention_impl)
+        q = rotary_embedding(q, pos, cfg.rope_theta)
+        k = rotary_embedding(k, pos, cfg.rope_theta)
         y = dot_product_attention(q, k, v, mask=mask, causal=True,
                                   segment_ids=segment_ids,
                                   impl=cfg.attention_impl)
@@ -337,10 +371,6 @@ class LlamaForCausalLM(nn.Module):
             if getattr(cfg, field):
                 raise NotImplementedError(f"LlamaConfig.{field} is not ported "
                                           f"yet ({why})")
-        if cfg.attention_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention_impl={cfg.attention_impl!r} is not ported yet "
-                f"(context parallelism: ROADMAP Queue 1 item 6)")
         self.cfg = cfg
         h = cfg.hidden_size
         self.token_embed = nn.Embedding(cfg.vocab_size, h, dtype=cfg.param_dtype,
@@ -358,8 +388,10 @@ class LlamaForCausalLM(nn.Module):
         del generator
         cfg = self.cfg
         ids = batch["input_ids"]
-        if ids.shape[1] > cfg.max_position:
-            raise ValueError(f"sequence length {ids.shape[1]} exceeds "
+        # under context parallelism ids hold one block of each row
+        seq_len = ids.shape[1] * seq_degree(cfg.attention_impl)
+        if seq_len > cfg.max_position:
+            raise ValueError(f"sequence length {seq_len} exceeds "
                              f"max_position {cfg.max_position}")
         x = self._embed(ids)
         pad = batch.get("attention_mask")

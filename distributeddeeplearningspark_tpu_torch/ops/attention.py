@@ -9,6 +9,12 @@ call :func:`dot_product_attention`; ``impl`` picks the implementation:
   its autograd Function: the hand-written CUDA kernels for CUDA tensors
   (K1 forward, K2/K3 backward), their plain versions for CPU tensors.
   Key-padding masks and grouped (GQA) K/V are taken natively.
+- ``"ring"`` — context-parallel exact attention over the mesh ``seq``
+  axis (:mod:`.ring_attention`): K/V blocks rotate around the ``seq``
+  group, the flash kernels on each hop;
+- ``"ulysses"`` — context-parallel exact attention by all-to-all head
+  scatter (:mod:`.ulysses`): the kernels over the whole sequence on a
+  slice of the heads, which must divide by the ``seq`` degree;
 - ``"auto"`` — flash when the tensors are on CUDA and the shape qualifies
   (no bias, key-only mask, seq a multiple of 512, head dim a multiple of
   8, whole GQA groups), else xla — the JAX rule with "on TPU" read as
@@ -18,7 +24,8 @@ call :func:`dot_product_attention`; ``impl`` picks the implementation:
   instead of sending the kernel a call it refuses.
 
 All take and return ``[batch, seq, heads, head_dim]`` (BSHD) and are
-differentiable. Ring and Ulysses context parallelism are not ported yet.
+differentiable; under ``ring`` and ``ulysses`` ``seq`` is this rank's
+block of the sequence.
 """
 
 from __future__ import annotations
@@ -49,8 +56,20 @@ def dot_product_attention(q, k, v, *, bias=None, mask=None,
     if impl == "flash":
         return fa.flash_attention(q, k, v, bias=bias, mask=mask, causal=causal,
                                   scale=scale, segment_ids=segment_ids)
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(f"impl={impl!r} is not ported yet")
+    if impl == "ring":
+        from distributeddeeplearningspark_tpu_torch.ops.ring_attention import (
+            ring_attention)
+
+        # GQA-native: grouped K/V ride the ring at Hkv heads; the segment
+        # ids' kv side rides it like the mask
+        return ring_attention(q, k, v, bias=bias, mask=mask, causal=causal,
+                              scale=scale, segment_ids=segment_ids)
+    if impl == "ulysses":
+        from distributeddeeplearningspark_tpu_torch.ops.ulysses import (
+            ulysses_attention)
+
+        return ulysses_attention(q, k, v, bias=bias, mask=mask, causal=causal,
+                                 scale=scale, segment_ids=segment_ids)
     k, v = _expand_gqa(q, k, v)
     if segment_ids is not None:
         seg_mask = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]

@@ -10,7 +10,8 @@ so the train step makes the same gradient in two collectives:
    (the loss's ``"weight"`` metric when it reports one, else its row
    count) beside its weighted metrics. Rank r's loss is scaled by
    ``w_r / W`` before backward, ``W`` the sum, and the metrics come back
-   global. For a mean over rows on equal shards this is the plain mean;
+   global (``perplexity`` the exp of the global loss). For a mean over
+   rows on equal shards this is the plain mean;
    for ``masked_lm`` it is what stays exact when ranks hold unequal
    numbers of masked tokens (unless a rank holds none: the loss clamps
    its weight to 1).
@@ -20,8 +21,10 @@ so the train step makes the same gradient in two collectives:
 Under tensor parallelism (a mesh with ``tensor`` above 1) the batch is
 split over the ``data × fsdp`` ranks only and the ranks of one ``tensor``
 group hold the same rows, so the train step passes both collectives the
-session's batch group (``Mesh.group(BATCH_AXES)``): summed over the whole
-gang, every row would count ``tensor`` times.
+session's loss group (``Mesh.group(LOSS_AXES)``, ``data × fsdp × seq``:
+the ``seq`` peers of context parallelism each hold a block of the same
+rows' tokens): summed over the whole gang, every row would count
+``tensor`` times.
 
 Two more carry the models whose JAX step reduces inside the forward:
 
@@ -118,7 +121,7 @@ def weigh_loss(loss: torch.Tensor, metrics: dict[str, torch.Tensor],
                rows: int, group=None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Rank r's loss scaled by ``w_r / W`` and the metrics made global, by
     one all-reduce of ``[w_r, m·w_r ...]`` over ``group`` (None: every
-    rank; under tensor parallelism the batch group). ``"weight"`` comes
+    rank; under tensor or context parallelism the loss group). ``"weight"`` comes
     back as W."""
     w = metrics.get("weight")
     w = (w.detach().float().reshape(()) if w is not None
@@ -129,6 +132,9 @@ def weigh_loss(loss: torch.Tensor, metrics: dict[str, torch.Tensor],
     all_reduce_sum_(vec, group)
     total = vec[0]
     out = {k: v for k, v in zip(names, vec[1:] / total)}
+    if "perplexity" in out and "loss" in out:
+        # exp of the global loss, as JAX's; not the mean of the ranks' exps
+        out["perplexity"] = torch.exp(out["loss"])
     out["weight"] = total
     return loss * (w / total), out
 

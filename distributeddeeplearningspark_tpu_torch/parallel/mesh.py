@@ -10,13 +10,18 @@ The port of ``distributeddeeplearningspark_tpu/parallel/mesh.py``'s
 In the port an executor is a process holding one device, so a mesh spans
 the processes of a ``torch.distributed`` group, rank r at the coordinates
 of device r of the JAX mesh (row-major over ``MESH_AXES``, ``tensor``
-innermost). The ``data``, ``fsdp`` and ``tensor`` axes are ported, alone
-or together: ``fsdp > 1`` shards parameters over the gang (FSDP2,
-:mod:`.sharding`), the JAX Llama driver's layout (``mesh.data=1,
+innermost). The ``data``, ``fsdp``, ``seq`` and ``tensor`` axes are
+ported, alone or together: ``fsdp > 1`` shards parameters over the gang
+(FSDP2, :mod:`.sharding`), the JAX Llama driver's layout (``mesh.data=1,
 mesh.fsdp=-1``); ``data × fsdp`` is HSDP; ``tensor > 1`` splits the
 layers over ``llama_rules``' ``tensor`` entries (``DTensor``), and the
 ranks that differ only in their ``tensor`` coordinate take the same rows
-of every batch. ``seq``, ``pipe`` and ``expert`` raise
+of every batch; ``seq > 1`` is context parallelism: the ranks that differ
+only in their ``seq`` coordinate take the same rows, each its block of
+the sequence (:mod:`..ops.ring_attention`, :mod:`..ops.ulysses`). Two
+groups then differ: the *batch* group over ``BATCH_AXES`` (who takes
+distinct rows) and the *loss* group over ``LOSS_AXES`` (over whom losses,
+metrics and gradients are summed). ``pipe`` and ``expert`` raise
 ``NotImplementedError`` naming ROADMAP Queue 1 item 6.
 
 One deliberate difference from the JAX ``Session``: there, ``local[N]``
@@ -45,6 +50,10 @@ MESH_AXES: tuple[str, ...] = (AXIS_DATA, AXIS_FSDP, AXIS_PIPE, AXIS_EXPERT,
 
 #: the axes the global batch is split over
 BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
+#: the axes the global batch's tokens are split over: losses, metrics and
+#: gradients are summed across them (the ``seq`` peers of a batch shard
+#: hold the blocks of its rows)
+LOSS_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_SEQ)
 #: the axes that shard parameters: each distinct shard lies once in a group
 #: over them, so a norm over shards sums across it and never across ``data``
 SHARD_AXES = (AXIS_FSDP, AXIS_TENSOR)
@@ -56,7 +65,6 @@ WILDCARD_MASTERS = (None, "auto", "local", "local[*]")
 _NOT_PORTED = {
     AXIS_PIPE: "pipeline parallelism (parallel/pipeline.py): ROADMAP Queue 1 item 6",
     AXIS_EXPERT: "expert parallelism (models/moe.py): ROADMAP Queue 1 item 6",
-    AXIS_SEQ: "context parallelism (ring, Ulysses): ROADMAP Queue 1 item 6",
 }
 
 
@@ -80,8 +88,8 @@ class MeshSpec:
         beyond = {a: getattr(self, a) for a in _NOT_PORTED if getattr(self, a) != 1}
         if beyond:
             raise NotImplementedError(
-                f"mesh axes {beyond}: the port shards over data, fsdp and "
-                f"tensor only; " + "; ".join(_NOT_PORTED[a] for a in beyond))
+                f"mesh axes {beyond}: the port shards over data, fsdp, seq "
+                f"and tensor only; " + "; ".join(_NOT_PORTED[a] for a in beyond))
         if sum(getattr(self, a) == -1 for a in MESH_AXES) > 1:
             raise ValueError(f"at most one mesh axis may be -1, got spec {self}")
 
@@ -132,15 +140,16 @@ def group_ranks(shape: dict[str, int], axes: Sequence[str]) -> list[list[int]]:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A session's mesh: each axis's size (the JAX ``Mesh.shape``); where
-    ``fsdp`` or ``tensor`` is above 1, the ``torch.distributed``
+    ``fsdp``, ``seq`` or ``tensor`` is above 1, the ``torch.distributed``
     ``DeviceMesh`` over the gang, one dim for each axis above 1 named as
-    the JAX axis (None otherwise); and the process groups over
-    ``BATCH_AXES``, ``SHARD_AXES`` and ``tensor`` that do not span the
-    whole gang (:meth:`group`)."""
+    the JAX axis (None otherwise); the process groups over ``BATCH_AXES``,
+    ``LOSS_AXES``, ``SHARD_AXES``, ``seq`` and ``tensor`` that do not span
+    the whole gang (:meth:`group`); and this process's rank."""
 
     shape: dict[str, int]
     device_mesh: Any = None
     groups: dict = dataclasses.field(default_factory=dict)
+    rank: int = 0
 
     def size(self, axes: Sequence[str]) -> int:
         return math.prod(self.shape[a] for a in axes)
@@ -163,6 +172,12 @@ class Mesh:
         coordinate on ``BATCH_AXES`` (tensor peers feed the same)."""
         c = coordinates(self.shape, rank)
         return c[AXIS_DATA] * self.shape[AXIS_FSDP] + c[AXIS_FSDP]
+
+    @property
+    def seq_index(self) -> int:
+        """This rank's coordinate on ``seq``: which block of each row's
+        sequence it holds."""
+        return coordinates(self.shape, self.rank)[AXIS_SEQ]
 
 
 def num_data_shards(shape: dict[str, int]) -> int:

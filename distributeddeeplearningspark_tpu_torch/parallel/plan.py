@@ -10,11 +10,12 @@ JAX format, so a plan saved by the JAX package loads here and keeps its
 lowered by :func:`.sharding.fully_shard_model`, not compiled: the JAX
 ``compile_step_with_plan`` has no counterpart.
 
-Not ported, and refused by :meth:`Plan.validate` naming the ROADMAP item:
-``seq_axis`` (context parallelism, Queue 1 item 6), ``zero_axes`` (ZeRO
-weight-update sharding, ``zero_plan``, item 5) and ``style="shard_map"``
-(bodies on the explicit collectives, compiled by ``compile_step_with_plan``,
-item 5). ``stage_plan`` (the pipeline) is not copied. Nor are the JAX
+A plan's ``seq_axis`` (context parallelism) makes the ``Trainer`` shard
+each row's sequence over that axis, as JAX's ``seq_sharded``. Not ported,
+and refused by :meth:`Plan.validate` naming the ROADMAP item: ``zero_axes``
+(ZeRO weight-update sharding, ``zero_plan``, item 5) and
+``style="shard_map"`` (bodies on the explicit collectives, compiled by
+``compile_step_with_plan``, item 5). ``stage_plan`` (the pipeline) is not copied. Nor are the JAX
 build's ``PlanTensorAxisWarning`` and ``DLS_PLAN_ALLOW_TENSOR``: they
 guard against that jax's partitioner, which miscomputes losses on
 ``tensor`` meshes; the port lowers a plan's ``tensor`` entries to
@@ -30,7 +31,7 @@ import json
 import os
 from typing import Mapping
 
-from distributeddeeplearningspark_tpu_torch.parallel.mesh import BATCH_AXES
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import AXIS_SEQ, BATCH_AXES
 from distributeddeeplearningspark_tpu_torch.parallel.sharding import (
     REPLICATED,
     PartitionSpec,
@@ -122,6 +123,10 @@ class Plan:
                            tuple((str(k), str(v))
                                  for k, v in dict(self.model_hints).items()))
 
+    @property
+    def seq_sharded(self) -> bool:
+        return self.seq_axis is not None
+
     # -- logical view --------------------------------------------------------
 
     def logical_axes(self) -> dict[str, tuple[str, ...]]:
@@ -174,10 +179,10 @@ class Plan:
                 f"plan {self.name!r}: style='shard_map' (step bodies on the "
                 f"explicit collectives, compiled by compile_step_with_plan) is "
                 f"not ported yet: ROADMAP Queue 1 item 5")
-        if self.seq_axis:
+        if self.seq_axis not in (None, AXIS_SEQ):
             raise PlanValidationError(
-                f"plan {self.name!r}: seq_axis={self.seq_axis!r} (context "
-                f"parallelism) is not ported yet: ROADMAP Queue 1 item 6")
+                f"plan {self.name!r}: seq_axis={self.seq_axis!r}: the ring and "
+                f"Ulysses attention exchange over the {AXIS_SEQ!r} axis")
         if self.zero_axes:
             raise PlanValidationError(
                 f"plan {self.name!r}: zero_axes={self.zero_axes} (ZeRO "

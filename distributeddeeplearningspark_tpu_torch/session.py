@@ -39,15 +39,18 @@ builder's ``.master()``/``.config()`` win over it.
 
 ``Session.mesh`` is the mesh over the gang (:mod:`.parallel.mesh`): its
 ``shape`` is JAX's ``Session.mesh.shape``, and the global batch is split
-``data × fsdp`` ways, one share for each batch coordinate (the ``tensor``
-peers of a coordinate take the same rows). With ``mesh.fsdp`` or
-``mesh.tensor`` above 1 (the JAX Llama driver's ``mesh.data=1,
-mesh.fsdp=-1, mesh.tensor=T``) the session builds a ``torch.distributed``
-``DeviceMesh`` over its group with ``init_device_mesh``, one dim for each
-axis above 1, named as the JAX axis, on the session's device type, and
-the process groups over the batch axes, the shard axes and ``tensor``
-(``Mesh.group``); ``Trainer(rules=...)`` shards parameters over it
-(:mod:`.parallel.sharding`). Such a mesh without a group raises.
+``data × fsdp`` ways, one share for each batch coordinate (the ``seq``
+and ``tensor`` peers of a coordinate take the same rows; the ``seq``
+peers each a block of their sequence). With ``mesh.fsdp``, ``mesh.seq``
+or ``mesh.tensor`` above 1 (the JAX Llama driver's ``mesh.data=1,
+mesh.fsdp=-1, mesh.seq=C, mesh.tensor=T``) the session builds a
+``torch.distributed`` ``DeviceMesh`` over its group with
+``init_device_mesh``, one dim for each axis above 1, named as the JAX
+axis, on the session's device type, and the process groups over the
+batch axes, the loss axes (``data × fsdp × seq``), the shard axes,
+``seq`` and ``tensor`` (``Mesh.group``); ``Trainer(rules=...)`` shards
+parameters over it (:mod:`.parallel.sharding`). Such a mesh without a
+group raises.
 """
 
 from __future__ import annotations
@@ -62,8 +65,10 @@ import torch
 
 from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
     AXIS_FSDP,
+    AXIS_SEQ,
     AXIS_TENSOR,
     BATCH_AXES,
+    LOSS_AXES,
     MESH_AXES,
     SHARD_AXES,
     Mesh,
@@ -109,9 +114,10 @@ class Session:
         self.device = device
         self.spec = spec or MeshSpec(data=world_size)
         #: the mesh over the gang: ``mesh.shape`` ``{axis: size}``, and the
-        #: ``DeviceMesh`` and the axes' groups when ``fsdp`` or ``tensor`` is
-        #: above 1
-        self.mesh = Mesh(self.spec.shape(world_size), device_mesh, groups or {})
+        #: ``DeviceMesh`` and the axes' groups when ``fsdp``, ``seq`` or
+        #: ``tensor`` is above 1
+        self.mesh = Mesh(self.spec.shape(world_size), device_mesh, groups or {},
+                         rank=rank)
         self.rank = rank
         self.world_size = world_size
         #: True when this session formed a ``torch.distributed`` group
@@ -240,10 +246,11 @@ def _device_mesh(shape: dict[str, int], rank: int, device: torch.device
                  ) -> tuple[Any, dict]:
     """The ``DeviceMesh`` over the gang's group, one dim for each axis above
     1 in ``MESH_AXES`` order (rank r at JAX's device r), and this rank's
-    process groups over ``BATCH_AXES``, ``SHARD_AXES`` and ``tensor`` where
-    they do not span the gang: a ``DeviceMesh`` dim's group where one axis
-    of them is above 1, else made here (every rank makes every group, in
-    the same order, as ``new_group`` needs)."""
+    process groups over ``BATCH_AXES``, ``LOSS_AXES``, ``SHARD_AXES``,
+    ``seq`` and ``tensor`` where they do not span the gang: a
+    ``DeviceMesh`` dim's group where one axis of them is above 1, else made
+    here (every rank makes every group, in the same order, as
+    ``new_group`` needs)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -251,21 +258,24 @@ def _device_mesh(shape: dict[str, int], rank: int, device: torch.device
     mesh = init_device_mesh(device.type, tuple(shape[a] for a in names),
                             mesh_dim_names=names)
     world = mesh.size()
-    groups = {}
-    for axes in (BATCH_AXES, SHARD_AXES, (AXIS_TENSOR,)):
-        wide = [a for a in axes if shape[a] > 1]
+    groups, by_wide = {}, {}
+    for axes in (BATCH_AXES, LOSS_AXES, SHARD_AXES, (AXIS_SEQ,), (AXIS_TENSOR,)):
+        wide = tuple(a for a in axes if shape[a] > 1)
         size = 1
         for a in wide:
             size *= shape[a]
         if size == world:
             continue
+        if wide in by_wide:  # the same ranks (the loss group at seq 1)
+            groups[axes] = by_wide[wide]
+            continue
         if len(wide) == 1:
-            groups[axes] = mesh.get_group(wide[0])
+            groups[axes] = by_wide[wide] = mesh.get_group(wide[0])
             continue
         for ranks in group_ranks(shape, axes):
             g = dist.new_group(ranks)
             if rank in ranks:
-                groups[axes] = g
+                groups[axes] = by_wide[wide] = g
     return mesh, groups
 
 
@@ -315,7 +325,7 @@ def _create_session(conf: dict[str, str]) -> Session:
     if env is not None:
         _join_group(env, device)
         sess_kw = dict(rank=env.rank, world_size=env.world_size, group=True)
-        if shape[AXIS_FSDP] > 1 or shape[AXIS_TENSOR] > 1:
+        if any(shape[a] > 1 for a in (AXIS_FSDP, AXIS_SEQ, AXIS_TENSOR)):
             sess_kw["device_mesh"], sess_kw["groups"] = _device_mesh(
                 shape, env.rank, device)
     app = conf.get("spark.app.name", "dls-torch")

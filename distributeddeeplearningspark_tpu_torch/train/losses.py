@@ -10,7 +10,12 @@ load-balance term and the fused LM head (``causal_lm_fused``) are not
 ported yet (ROADMAP Queue 1 items 5 and 6). Logits split over the vocab
 (a ``DTensor`` ``Shard(2)`` over ``tensor``, the Llama head under tensor
 parallelism) go through a vocab-parallel cross-entropy that gathers no
-logits.
+logits. Under context parallelism a batch holds one block of each row's
+sequence and the next-token labels made from the whole rows
+(``feed.NEXT_IDS``, ``feed.NEXT_MASK``, :func:`..data.feed.seq_shard`):
+``causal_lm`` then takes every position of the block against them, so the
+per-token losses and weights are those JAX's ``causal_lm`` takes over the
+whole rows, split over the ``seq`` peers.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from distributeddeeplearningspark_tpu_torch.data.feed import NEXT_IDS, NEXT_MASK
 from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
 
 
@@ -97,11 +103,14 @@ def binary_xent(logits: torch.Tensor, batch: dict[str, Any]
 def _reduce_next_token(per_tok: torch.Tensor, batch: dict[str, Any]
                        ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The JAX package's LM reduction: the shifted ``loss_mask`` (the mask
-    of each target token), padded eval rows weighing nothing, the weighted
+    of each target token; under context parallelism ``NEXT_MASK``, shifted
+    over the whole rows), padded eval rows weighing nothing, the weighted
     mean, and the metrics ``loss``, ``perplexity`` and ``weight``."""
     mask = batch.get("loss_mask")
     em = batch.get("eval_mask")
-    if mask is not None:
+    if NEXT_MASK in batch:
+        mask = batch[NEXT_MASK].float()
+    elif mask is not None:
         mask = mask[:, 1:].float()
     elif em is not None:
         mask = torch.ones_like(per_tok)
@@ -119,27 +128,34 @@ def _reduce_next_token(per_tok: torch.Tensor, batch: dict[str, Any]
 def causal_lm(logits: torch.Tensor, batch: dict[str, Any]
               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Next-token cross-entropy in f32 (the Llama-2 LoRA fine-tune): the
-    logits at position t against ``input_ids`` at t + 1; respects
+    logits at position t against ``input_ids`` at t + 1 (under context
+    parallelism every position against ``NEXT_IDS``); respects
     ``loss_mask`` and ``eval_mask``."""
     if not isinstance(logits, torch.Tensor):
         raise TypeError(f"causal_lm takes the [B, S, V] logits, got "
                         f"{type(logits).__name__} (the fused head and MoE "
                         f"outputs are not ported yet)")
-    labels = batch["input_ids"][:, 1:].long()
+    # the positions that have a label here: all of a block whose labels
+    # came from the whole rows, else all but the last
+    whole = NEXT_IDS in batch
+    labels = (batch[NEXT_IDS] if whole else batch["input_ids"][:, 1:]).long()
     split = sharding.tensor_split(logits)
     if split is not None:
-        return _reduce_next_token(_vocab_parallel_xent(logits, labels, split), batch)
-    logits = logits[:, :-1].float()
+        return _reduce_next_token(
+            _vocab_parallel_xent(logits, labels, split, shifted=not whole), batch)
+    logits = (logits if whole else logits[:, :-1]).float()
     per_tok = F.cross_entropy(logits.flatten(0, 1), labels.flatten(),
                               reduction="none").view(labels.shape)
     return _reduce_next_token(per_tok, batch)
 
 
-def _vocab_parallel_xent(logits, labels: torch.Tensor, split) -> torch.Tensor:
+def _vocab_parallel_xent(logits, labels: torch.Tensor, split, shifted: bool = True
+                         ) -> torch.Tensor:
     """Per-token cross-entropy, in f32, of ``[B, S, V]`` logits split over
     the vocab (``split``: this rank holds columns ``[i·n, (i+1)·n)``)
-    against ``labels`` ``[B, S-1]``, the logits at position t against the
-    label at t: ``log Σ exp(z) − z[label]`` with ``z`` the logits less their
+    against ``labels`` ``[B, S-1]`` (``shifted``: the last position has
+    none) or ``[B, S]``, the logits at position t against the label at t:
+    ``log Σ exp(z) − z[label]`` with ``z`` the logits less their
     row max, the max and the two sums taken over the group (Megatron's
     vocab-parallel cross-entropy). Each rank's gradient reaches only its
     columns (``softmax − onehot`` there)."""
@@ -148,7 +164,8 @@ def _vocab_parallel_xent(logits, labels: torch.Tensor, split) -> torch.Tensor:
     if split.dim != logits.dim() - 1:
         raise NotImplementedError(f"logits split on dim {split.dim}: the loss "
                                   f"takes them split over the vocab (last dim)")
-    part = logits.to_local()[:, :-1].float()
+    part = logits.to_local()
+    part = (part[:, :-1] if shifted else part).float()
     n = part.shape[-1]
     with torch.no_grad():
         top = part.max(-1, keepdim=True).values

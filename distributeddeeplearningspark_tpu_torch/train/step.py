@@ -57,11 +57,11 @@ rank.
 Under FSDP and tensor parallelism (``Trainer(rules=...)`` lowered the
 model with :func:`..parallel.sharding.fully_shard_model`) a sharded param
 is a ``DTensor``. ``mesh`` (the session's) names the groups: the loss is
-weighed over the batch group (``data × fsdp``: the ``tensor`` peers hold
-the same rows). An FSDP-sharded param's gradient arrives reduced from
+weighed over the loss group (``data × fsdp``, and ``seq`` below: the
+``tensor`` peers hold the same rows). An FSDP-sharded param's gradient arrives reduced from
 FSDP2's backward (reduce-scattered over ``fsdp``, all-reduced over
 ``data``); every other trainable's (a replicated param, a param split over
-``tensor`` only) goes through ``all_reduce_grads`` over the batch group
+``tensor`` only) goes through ``all_reduce_grads`` over the loss group
 (a tensor-split layer's gradient is its shard's already, and the LoRA
 adapters' arrive summed over ``tensor`` from the model's backward).
 Everything after the backward runs on the local shards (``to_local()``,
@@ -73,6 +73,15 @@ optimizer updates each shard in place and keeps its state as shards
 (``DTensor``\\ s in ``state.opt_state``, sharded like their params), and
 the guard snapshots and restores shards. Without ``mesh`` both groups are
 the whole gang.
+
+Under context parallelism (``seq`` above 1) each rank holds a block of
+its rows' sequence, so the loss is weighed over the loss group (``data ×
+fsdp × seq``) and the gradients are summed over it: the data-parallel
+path's all-reduce takes the loss group, and the FSDP-reduced gradients
+(reduce-scattered over ``fsdp`` only, since the rules never shard over
+``seq`` and the params are replicated across it) are all-reduced over
+the ``seq`` group, on their local shards: each card keeps the rule
+engine's bytes. ``grad_norm`` stays over ``SHARD_AXES``.
 """
 
 from __future__ import annotations
@@ -83,7 +92,11 @@ from typing import Any, Callable
 import torch
 
 from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
-from distributeddeeplearningspark_tpu_torch.parallel.mesh import BATCH_AXES, SHARD_AXES
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
+    AXIS_SEQ,
+    LOSS_AXES,
+    SHARD_AXES,
+)
 from distributeddeeplearningspark_tpu_torch.train.optim import (
     GradientTransformation,
     Shards,
@@ -211,7 +224,9 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
     opt_names = set(optimizer_params(grad_names, tx))
     opt_index = [i for i, n in enumerate(grad_names) if n in opt_names]
     # which trainables FSDP2 reduces, and each one's share of the norm
-    batch_group = mesh.group(BATCH_AXES) if mesh is not None else None
+    loss_group = mesh.group(LOSS_AXES) if mesh is not None else None
+    seq_split = mesh is not None and mesh.shape[AXIS_SEQ] > 1
+    seq_group = mesh.group((AXIS_SEQ,)) if seq_split else None
     shard_size = (mesh.size(SHARD_AXES) if mesh is not None
                   else collectives.world_size())
     by_fsdp = [sharding.fsdp_reduced(named[n]) for n in grad_names]
@@ -243,7 +258,7 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
             if distributed:
                 rows = next(iter(mb.values())).shape[0]
                 loss, metrics = collectives.weigh_loss(loss, metrics, rows,
-                                                       batch_group)
+                                                       loss_group)
             loss.backward()
             micro_metrics.append({k: v.detach() for k, v in metrics.items()})
             del outputs, loss
@@ -255,9 +270,13 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
             if accum_steps > 1:
                 torch._foreach_div_(grads, float(accum_steps))
             if distributed:
-                # FSDP2 already reduced its own in its backward
+                # FSDP2 already reduced its own over the batch dims in its
+                # backward; under context parallelism the seq peers' remain
                 collectives.all_reduce_grads(
-                    [g for g, f in zip(grads, by_fsdp) if not f], batch_group)
+                    [g for g, f in zip(grads, by_fsdp) if not f], loss_group)
+                if seq_split and any(by_fsdp):
+                    collectives.all_reduce_grads(
+                        [g for g, f in zip(grads, by_fsdp) if f], seq_group)
             grad_norm = global_norm(grads)
             updates, opt_state = tx.update(shards([grads[i] for i in opt_index],
                                                   opt_index), opt_state, opt_params)

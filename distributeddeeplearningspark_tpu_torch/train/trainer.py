@@ -83,8 +83,9 @@ builds) is lowered there, then ``to_empty`` on the session's device, and
 bitwise those of the model built on one device and initialised from the
 same seed (JAX's ``init_state`` makes the state sharded the same way).
 Each rank feeds the rows of its coordinate on the batch axes (``data ×
-fsdp``): ``tensor`` peers take the same rows, and the step, ``evaluate``
-and ``predict`` reduce over the batch group. :meth:`init` builds the
+fsdp``): ``tensor`` peers take the same rows, the step and ``evaluate``
+reduce over the loss group (the batch group, and ``seq`` under context
+parallelism) and ``predict`` gathers over the batch group. :meth:`init` builds the
 optimizer state over the params (sharded like them),
 :meth:`load_pretrained` and :meth:`restore` write whole tensors into each
 rank's shards, checkpoints hold whole tensors, ``sanitize_every`` compares
@@ -92,6 +93,18 @@ each param within its replica group, and :meth:`evaluate`/:meth:`predict`
 run under ``no_grad`` (FSDP2 and ``inference_mode`` do not mix,
 :mod:`.step`). At ``fsdp`` and ``tensor`` 1 nothing is sharded, as in JAX
 on one device.
+
+``context_parallel=True`` (or a plan with a ``seq_axis``, JAX's
+``Trainer(context_parallel=...)``) shards each row's sequence over the
+mesh's ``seq`` axis: each rank feeds the rows of its batch coordinate and
+of those the block at its ``seq`` index (:func:`~..data.feed.seq_shard`,
+which first makes the next-token labels from the whole rows), for a model
+whose attention takes such a block (Llama's ``attention_impl`` ``"ring"``
+or ``"ulysses"``). Losses, metrics and gradients are then summed over the
+loss group (``data × fsdp × seq``: :mod:`.step`), :meth:`evaluate`'s sums
+too, :meth:`predict` gathers the blocks back into whole rows, and tokens/s
+counts each token once. A mesh with ``seq`` above 1 without it raises:
+every ``seq`` peer would take the same whole rows.
 
 Not ported yet: the graceful preemption drain (a ``sigterm`` fault or a
 preemption notice raises; ROADMAP Queue 1 item 7); ``profile``,
@@ -115,6 +128,7 @@ from distributeddeeplearningspark_tpu_torch.checkpoint import Checkpointer
 from distributeddeeplearningspark_tpu_torch.data.feed import (
     host_batches,
     process_shard_range,
+    seq_shard,
     to_device,
 )
 from distributeddeeplearningspark_tpu_torch.data.prefetch import (
@@ -124,7 +138,12 @@ from distributeddeeplearningspark_tpu_torch.data.prefetch import (
 from distributeddeeplearningspark_tpu_torch.metrics import Meter, MetricLogger
 from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
 from distributeddeeplearningspark_tpu_torch.parallel import plan as plan_lib
-from distributeddeeplearningspark_tpu_torch.parallel.mesh import BATCH_AXES
+from distributeddeeplearningspark_tpu_torch.ops import ring_attention
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
+    AXIS_SEQ,
+    BATCH_AXES,
+    LOSS_AXES,
+)
 from distributeddeeplearningspark_tpu_torch.parallel.sharding import (
     REPLICATED,
     ShardingRules,
@@ -170,6 +189,15 @@ def _tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, (tuple, list)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _mapped(fn: Callable, it: Iterator) -> Iterator:
+    """``fn`` of each of ``it``; closing this closes ``it``."""
+    try:
+        for x in it:
+            yield fn(x)
+    finally:
+        it.close()
 
 
 def _skip(it: Iterator, n: int) -> Iterator:
@@ -226,7 +254,8 @@ class Trainer:
     saves and :meth:`restore` reads. ``accum_steps``: micro-batches per
     optimizer step. ``trainable``: the params that train (None: all); pass
     the predicate the optimizer is ``masked`` with. ``rules``/``plan``:
-    the params' layout over the session's mesh (the module docstring). A
+    the params' layout over the session's mesh (the module docstring).
+    ``context_parallel``: shard each row's sequence over ``seq``. A
     model on the meta device needs an ``init_weights(generator)`` that
     sets every param and buffer; its weights are drawn from ``seed``."""
 
@@ -238,7 +267,8 @@ class Trainer:
                  sparse_embed: Sequence[embed_lib.SparseEmbedSpec] = (),
                  checkpointer: Checkpointer | None = None,
                  accum_steps: int = 1,
-                 trainable: Callable[[str], bool] | None = None):
+                 trainable: Callable[[str], bool] | None = None,
+                 context_parallel: bool = False):
         self.session = session or Session.get_or_default()
         self.device = self.session.device
         # a model on the meta device is materialised below, if it can draw
@@ -253,13 +283,24 @@ class Trainer:
         # are wrapped in one (JAX's precedence)
         if plan is not None:
             rules = plan.rules
+            context_parallel = context_parallel or plan.seq_sharded
             if plan.model_hints:
                 logger.warning(
                     "plan %r carries model hints %s: apply them to the model "
                     "config yourself; the plan layer cannot rebuild the model",
                     plan.name, plan.hints())
-        self.plan = plan if plan is not None else plan_lib.plan_for_rules(rules)
+        self.plan = plan if plan is not None else plan_lib.plan_for_rules(
+            rules, context_parallel=context_parallel)
         self.plan.validate(self.session.mesh)
+        #: each row's sequence sharded over the mesh's ``seq`` axis
+        self.context_parallel = context_parallel
+        if self.session.mesh.shape[AXIS_SEQ] > 1 and not context_parallel:
+            raise ValueError(
+                f"mesh {self.session.mesh.shape} has seq > 1: pass "
+                f"context_parallel=True (or a plan with seq_axis), or every "
+                f"seq peer trains on the same whole rows")
+        if context_parallel:
+            ring_attention.set_default_mesh(self.session.mesh)
         self.model = model
         self.loss_fn = loss_fn
         self.tx = optimizer
@@ -407,12 +448,24 @@ class Trainer:
         return process_shard_range(
             n, rank=self.session.mesh.batch_index(self.session.rank), world_size=n)
 
+    def _seq_shard(self, batch: dict) -> dict:
+        """This rank's block of each row's sequence under context
+        parallelism (the batch itself otherwise)."""
+        if not self.context_parallel:
+            return batch
+        mesh = self.session.mesh
+        return seq_shard(batch, mesh.seq_index, mesh.shape[AXIS_SEQ])
+
     def _host_feed(self, dataset: PartitionedDataset, batch_size: int,
-                   **kw) -> Iterator[dict]:
-        """This rank's rows of each global batch (JAX's shard mapping)."""
-        return host_batches(dataset, batch_size,
-                            num_shards=self.session.default_parallelism,
-                            shard_range=self._shard_range(), **kw)
+                   whole_rows: bool = False, **kw) -> Iterator[dict]:
+        """This rank's rows of each global batch (JAX's shard mapping), and
+        of those its block of the sequence unless ``whole_rows``."""
+        batches = host_batches(dataset, batch_size,
+                               num_shards=self.session.default_parallelism,
+                               shard_range=self._shard_range(), **kw)
+        if whole_rows or not self.context_parallel:
+            return batches
+        return _mapped(self._seq_shard, batches)
 
     def _feed(self, dataset: PartitionedDataset, batch_size: int, *,
               skip_batches: int = 0, probe: StarvationProbe | None = None
@@ -747,7 +800,7 @@ class Trainer:
                 vec = torch.tensor([w] + [v * w for v in m.values()],
                                    dtype=torch.float64, device=self.device)
                 sums = collectives.all_reduce_sum_(
-                    vec, self.session.mesh.group(BATCH_AXES)).tolist()
+                    vec, self.session.mesh.group(LOSS_AXES)).tolist()
                 for k, v in zip(m, sums[1:]):
                     totals[k] = totals.get(k, 0.0) + v
                 wsum += sums[0]
@@ -766,23 +819,35 @@ class Trainer:
         each output batch on the device before the copy to the host (e.g.
         ``lambda logits: logits.argmax(-1)``).
 
-        In a gang the outputs are gathered (a vocab-split output whole, then
-        the rows over the batch group), so every rank yields the whole
-        global row stream — with ``with_inputs``, only the rows whose inputs
-        it holds. As in JAX, a tail that cannot fill every rank equally is
-        then dropped."""
+        In a gang the outputs are gathered (a vocab-split output whole, under
+        context parallelism the sequence blocks of each leaf of rank ≥ 2
+        along dim 1, then the rows over the batch group), so every rank
+        yields the whole global row stream — with ``with_inputs``, only the
+        rows whose inputs it holds. As in JAX, a tail that cannot fill every
+        rank equally is then dropped."""
         n = self.session.default_parallelism
         srange = self._shard_range()
         group = self.session.mesh.group(BATCH_AXES) if self.session.distributed else None
         gather = self.session.distributed and n > 1
+        cp = self.context_parallel and self.session.mesh.shape[AXIS_SEQ] > 1
+        seq_group = self.session.mesh.group((AXIS_SEQ,)) if cp else None
+
+        def whole_seq(t: torch.Tensor) -> torch.Tensor:
+            if t.dim() < 2:
+                return t
+            return collectives.all_gather_rows(t.transpose(0, 1).contiguous(),
+                                               seq_group).transpose(0, 1)
+
         self.model.eval()
-        for host_batch in self._host_feed(dataset, batch_size,
+        for host_batch in self._host_feed(dataset, batch_size, whole_rows=True,
                                           drop_remainder=False):
             with torch.no_grad():  # not inference_mode: see make_eval_step
-                out = self.model(to_device(host_batch, self.device))
+                out = self.model(to_device(self._seq_shard(host_batch), self.device))
                 out = _tree_map(sharding.full, out)
                 if output_fn is not None:
                     out = output_fn(out)
+                if cp:
+                    out = _tree_map(whole_seq, out)
                 if gather:
                     out = _tree_map(lambda t: collectives.all_gather_rows(t, group), out)
                 host = _tree_map(lambda t: t.cpu().numpy(), out)

@@ -509,16 +509,19 @@ def test_fsdp_mesh_parses_as_jax(master, conf, want):
 
 
 def test_what_the_mesh_cannot_shard_raises():
-    """The mesh refuses the seq, pipe and expert axes (ROADMAP Queue 1 item
-    6; data × fsdp and tensor are ported), and the lowering what it cannot
-    place, before it needs a group: an axis other than fsdp and tensor, two
-    axes on one dim, a tensor dim that does not divide. Heads that do not
-    divide by tensor raise in the gang (``test_torch_tp.py``)."""
-    for axis in ("seq", "pipe", "expert"):
+    """The mesh refuses the pipe and expert axes (ROADMAP Queue 1 item 6;
+    data × fsdp, seq and tensor are ported), also beside seq, and the
+    lowering what it cannot place, before it needs a group: an axis other
+    than fsdp and tensor, two axes on one dim, a tensor dim that does not
+    divide. Heads that do not divide by tensor raise in the gang
+    (``test_torch_tp.py``)."""
+    for axis in ("pipe", "expert"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             tmesh.MeshSpec(data=2, fsdp=2, tensor=2, **{axis: 2})
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            tmesh.MeshSpec(data=2, seq=2, **{axis: 2})
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tmesh.spec_from_conf("local[2]", {"mesh.tensor": "2", "mesh.seq": "2"})
+        tmesh.spec_from_conf("local[2]", {"mesh.seq": "2", "mesh.pipe": "2"})
     assert tmesh.MeshSpec(data=-1, fsdp=2).axis_sizes(8)[:2] == (4, 2)
     with pytest.raises(ValueError, match="at most one"):
         tmesh.MeshSpec(data=-1, fsdp=-1)
@@ -579,12 +582,12 @@ def test_plan_records_and_signatures_are_jax(name, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(seq_axis="seq"), "item 6"), (dict(zero_axes=("data",)), "item 5"),
-    (dict(style="shard_map"), "item 5")])
+    (dict(seq_axis="seq", zero_axes=("data",)), "item 5"),
+    (dict(zero_axes=("data",)), "item 5"), (dict(style="shard_map"), "item 5")])
 def test_plans_the_port_lacks_raise(kw, item):
-    """seq_axis, zero_axes and style="shard_map" raise naming their ROADMAP
-    item, from ``validate`` and from the Trainer; so does an axis the mesh
-    lacks."""
+    """zero_axes and style="shard_map" raise naming their ROADMAP item,
+    also beside a seq_axis (context parallelism is ported), from
+    ``validate`` and from the Trainer; so does an axis the mesh lacks."""
     mesh = tmesh.Mesh(tmesh.MeshSpec(data=1).shape(1))
     plan = tplan.Plan(name="x", **kw)
     with pytest.raises(tplan.PlanValidationError, match=f"Queue 1 {item}"):
@@ -786,12 +789,13 @@ def test_driver_shards_over_every_rank_by_default(tmp_path):
 
 
 def test_driver_refuses_tensor_parallelism(capsys):
-    """The driver takes ``--tensor`` (tensor parallelism is ported) and still
-    refuses the sequence, pipeline and expert axes beside it, naming ROADMAP
-    Queue 1 item 6."""
-    for flag in ("--seq-parallel", "--pipeline", "--expert"):
+    """The driver takes ``--tensor`` and ``--seq-parallel`` (tensor and
+    context parallelism are ported) and still refuses the pipeline and
+    expert axes beside them, naming ROADMAP Queue 1 item 6."""
+    for flags in (["--pipeline", "2"], ["--expert", "2"],
+                  ["--seq-parallel", "2", "--pipeline", "2"]):
         with pytest.raises(SystemExit) as e:
-            tdriver.parse_args(["--variant", "tiny", "--tensor", "2", flag, "2"])
+            tdriver.parse_args(["--variant", "tiny", "--tensor", "2", *flags])
         assert e.value.code == 2
         assert "ROADMAP Queue 1 item 6" in capsys.readouterr().err
     args = tdriver.parse_args(["--variant", "tiny", "--tensor", "2"])

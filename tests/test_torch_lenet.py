@@ -212,13 +212,14 @@ def test_spec_from_conf_parses_as_jax(master, conf):
     assert tmesh.spec_from_conf(master, conf) == MeshSpec(data=want.data)
 
 
-@pytest.mark.parametrize("conf", [{"mesh.seq": "-1"}, {"mesh.tensor": "2", "mesh.pipe": "-1"},
-                                  {"mesh.seq": "4"}, {"mesh.pipe": "2"},
+@pytest.mark.parametrize("conf", [{"mesh.seq": "-1", "mesh.pipe": "2"},
+                                  {"mesh.tensor": "2", "mesh.pipe": "-1"},
+                                  {"mesh.seq": "4", "mesh.expert": "2"}, {"mesh.pipe": "2"},
                                   {"mesh.expert": "2"}])
 def test_axes_beyond_data_are_refused(conf):
     """Each axis the port cannot shard over yet names its ROADMAP item: the
-    context, pipeline and expert axes item 6, also beside a tensor axis
-    (data, fsdp and tensor are ported)."""
+    pipeline and expert axes item 6, also beside a tensor or a seq axis
+    (data, fsdp, seq and tensor are ported)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tmesh.spec_from_conf("local[2]", conf)
 
