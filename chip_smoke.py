@@ -170,7 +170,7 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    in (and whether the bits agree), every ``eval_*`` fit logs against
    ``Trainer.evaluate`` at the same step, the kernels' launches, the
    checkpoint's save and restore ms; the port's LeNet driver under the
-   port's ``Supervisor`` with ``DLS_FAULT=crash@8``, a checkpoint every 4
+   port's ``Supervisor`` with ``DLS_FAULT=crash@10``, a checkpoint every 4
    steps and ``--resume``: the attempts ``training-crash`` then ``clean``
    in the telemetry stream, the final params bitwise phase 11's 150
    straight steps, nothing of the killed attempt left, and the seconds
@@ -184,7 +184,12 @@ at N ranks with ``shrink_after=1`` and ``DLS_FAULT=die_host@25`` on host
 1, which must relaunch at N - 1 ranks from the step-20 checkpoint, record
 its ``geometry_change`` and log the losses of an uninterrupted N-rank run
 at a stated tolerance (a global batch of 96 over 12 source partitions:
-the same batches at 4 and 3 ranks); a planted desync of rank 1's params
+the same batches at 4 and 3 ranks); the same gang drained for a
+preemption instead (``DLS_FAULT=sigterm@25`` on host 1): every rank exits
+0 after the live handoff, the attempt is classified ``graceful-shutdown``,
+the relaunch at N - 1 resumes from the handoff at step 25 with no
+walk-back and no step logged twice, its losses the uninterrupted run's at
+the same tolerance; a planted desync of rank 1's params
 (``SANITIZE_FAULTS``) that ``fit(sanitize_every=1)`` must catch as
 ``DesyncError`` on every rank over NCCL; then the ResNet-50 (b=256
 global) and DLRM (b=8,192 global) drivers over NCCL: the replicas in sync, 27 K4 launches a step,
@@ -219,8 +224,22 @@ algorithm and protocol), the transports and tuning model NCCL logged for
 the driver runs (``NCCL_DEBUG=INFO``, ``NCCL_DEBUG_SUBSYS=INIT,TUNING``,
 a file a process, in their environment only), and the tensor=2 driver
 again under ``NCCL_PROTO=Simple``, printed beside the rest.
-``--gang dlrm`` (or ``resnet``, ``llama``) runs that part's comparisons
-only, ``--gang recovery`` the shrink and the desync only.
+Then config 5's preemption drain (``--gang llama-drain``): the Llama
+driver at 7B, full width (S = 1,024, LoRA rank 16, a global batch of 12
+over 12 source partitions, 8 steps) at fsdp=N under the port's
+``Supervisor`` with ``DLS_FAULT=sigterm@4`` on host 1: the live engine
+gathers every FSDP2 shard onto every card (blake2b-verified, bounded bytes
+in flight), rank 0 writes the handoff, and the relaunch at fsdp=N-1 (every
+leaf whole on every card: no dim of 7B divides by 3) ingests it, digests
+checked, and runs steps 5–8 with K1/K2/K3 64/32/32 a step on both sides
+of the drain; its losses an uninterrupted fsdp=N run's at a stated
+tolerance; beside it the same gang's ``die_host@6`` walk-back through a
+checkpoint every 4 steps; the drain's gather, digest and write, the
+handoff's bytes, rounds and peak bytes in flight, the ingest, and each
+relaunch's seconds to its first step and its steps lost.
+``--gang dlrm`` (or ``resnet``, ``llama``, ``llama-cp``, ``llama-drain``)
+runs that part's comparisons only, ``--gang recovery`` the shrink, the
+drain and the desync only.
 ``python3 chip_smoke.py --recovery`` builds the kernels and runs phases 11
 and 14 only (one card). ``python3 chip_smoke.py --input-ab`` times BERT-base, ResNet-50 and the
 DLRM through ``Trainer.fit`` with their batches built in the prefetch
@@ -2617,8 +2636,12 @@ ROLLBACK_RTOL = 1e-6
 EVAL_RTOL = 1e-6
 #: the supervised LeNet drill: the fault and the checkpoint interval; the
 #: run's steps and batch are the LeNet phase's, whose 150 straight steps it
-#: is held to bitwise
-CRASH_AT, CRASH_EVERY = 8, 4
+#: is held to bitwise. The kill comes after the step-8 save, which joins
+#: the step-4 save's asynchronous write first, so step 4 is committed by
+#: then (step 8 may be too). A kill 3 steps after the step-4 save (~80 ms
+#: of LeNet steps) found that write uncommitted on an H100 80GB HBM3 at
+#: 700 W, and the relaunch began from the start
+CRASH_AT, CRASH_EVERY = 10, 4
 
 
 def _capture_logged(logger_name: str):
@@ -2898,8 +2921,10 @@ def recovery_rollback_bert(torch, fa) -> dict:
 
 def recovery_supervised_lenet(torch) -> dict:
     """The port's LeNet driver under the port's Supervisor on this card,
-    ``DLS_FAULT=crash@8``, a checkpoint every 4 steps, ``--resume``: the
-    attempts' classifications from the telemetry stream, the final params
+    ``DLS_FAULT=crash@10``, a checkpoint every 4 steps, ``--resume``: the
+    attempts' classifications from the telemetry stream, the relaunch's
+    first step one past the newest checkpoint it restored (4, or 8 where
+    that write had committed before the kill), the final params
     against the LeNet phase's 150 straight steps, nothing of the killed
     attempt left, and the seconds from the kill to the relaunch's first
     step."""
@@ -2933,6 +2958,10 @@ def recovery_supervised_lenet(torch) -> dict:
     steps = [r for r in records if r["process"] == "p0" and r["kind"] == "step_metrics"]
     killed_at = ends[0]["ts"] if ends else None
     after = [r for r in steps if killed_at is not None and r["ts"] > killed_at]
+    restored = [r.get("step") for r in records if r["process"] == "p0"
+                and r["kind"] == "phase" and r.get("name") == "restore"
+                and r.get("edge") == "end" and killed_at is not None
+                and r["ts"] > killed_at]
     relaunch = dict(
         kill_to_first_step_s=after[0]["ts"] - killed_at if after else None,
         kill_to_relaunch_s=begins[1]["ts"] - killed_at if len(begins) > 1 else None,
@@ -2949,6 +2978,7 @@ def recovery_supervised_lenet(torch) -> dict:
                          for a in result.attempts],
                telemetry_classifications=[e["classification"] for e in ends],
                first_step_after_relaunch=after[0]["step"] if after else None,
+               restored_step=restored[0] if restored else None,
                mismatched_vs_straight=mismatched, left_behind=left, wall_s=wall_s,
                card=nvidia_smi_line(), **relaunch)
     print("recovery supervised lenet " + json.dumps(rec), flush=True)
@@ -2957,8 +2987,10 @@ def recovery_supervised_lenet(torch) -> dict:
           f"attempts {rec['attempts']}")
     check(rec["telemetry_classifications"] == ["training-crash", "clean"],
           f"the stream's attempt records: {rec['telemetry_classifications']}")
-    check(rec["first_step_after_relaunch"] == CRASH_EVERY + 1,
-          f"the relaunch's first step {rec['first_step_after_relaunch']}")
+    check(rec["restored_step"] in (CRASH_EVERY, 2 * CRASH_EVERY)
+          and rec["first_step_after_relaunch"] == rec["restored_step"] + 1,
+          f"the relaunch restored step {rec['restored_step']} and began at "
+          f"{rec['first_step_after_relaunch']}")
     check(not mismatched, f"final params differ from 150 straight steps in {mismatched}")
     check(not left, f"left behind by the supervised runs: {left}")
     return rec
@@ -3865,6 +3897,157 @@ def train_llama_cp_gang(torch, ranks: int) -> dict:
     return rec
 
 
+# -- chip_smoke.py --gang llama-drain: config 5's preemption drain ---------------------
+
+#: the drill's global batch and source partitions: both divide by 4 and by 3,
+#: so the global batches are the same before and after the shrink (the
+#: gang's b = 8 does not divide by 3)
+DRAIN_BATCH, DRAIN_PARTITIONS = 12, 12
+#: its steps, the step host 1's notice drains at, and the die_host run's
+#: checkpoint interval and the step before which host 1 dies: it walks back
+#: to the newest committed checkpoint, step 4 if the step's asynchronous
+#: write (~13.5 GB) has committed by then, else the start
+DRAIN_STEPS, DRAIN_AT, DRAIN_EVERY, DRAIN_DIE_AT = 8, 4, 4, 6
+
+
+def _llama_drain_args() -> list[str]:
+    """The driver's flags of the drain drill: Llama-2 7B at full width, S =
+    1,024, LoRA rank 16 on wq/wv, the global b = DRAIN_BATCH."""
+    return ["--variant", "7b", "--seq-len", str(LLAMA_SEQ), "--batch-size",
+            str(DRAIN_BATCH), "--lora-rank", str(LLAMA_RANK), "--lora-alpha", "16",
+            "--lr", str(LLAMA_GANG_LR), "--steps", str(DRAIN_STEPS), "--log-every", "1",
+            "--source-partitions", str(DRAIN_PARTITIONS)]
+
+
+def _handoff_numbers(wd: Path) -> dict:
+    """The drained rank 0's drain from its telemetry: the live engine's wall
+    split into the gather and the digests (the copies to the host, the
+    hashing, the verify re-read), its rounds, peak bytes in flight and
+    budget; the handoff's write split into the pulls, the digest and the
+    file writes; and the handoff's bytes and ingest (the resume's
+    record)."""
+    rs = _reshards(_events(wd, "p0"))
+    drain = next((r for r in rs if r.get("reason") == "preemption-drain"), {})
+    resume = next((r for r in rs if r.get("reason") == "preemption-resume"), {})
+    return dict(move_s=drain.get("wall_s"), move_gather_s=drain.get("move_gather_s"),
+                move_digest_s=drain.get("move_digest_s"),
+                bytes_gathered=drain.get("bytes_moved"),
+                leaves_gathered=drain.get("leaves_moved"), rounds=drain.get("rounds"),
+                peak_inflight_bytes=drain.get("peak_inflight_bytes"),
+                mem_budget_mb=drain.get("mem_budget_mb"), save_s=drain.get("save_s"),
+                save_pull_s=drain.get("save_pull_s"),
+                save_digest_s=drain.get("save_digest_s"),
+                save_write_s=drain.get("save_write_s"),
+                handoff_bytes=resume.get("bytes_moved"),
+                handoff_leaves=resume.get("leaves_moved"), ingest_s=resume.get("wall_s"))
+
+
+def train_llama_drain(torch, ranks: int) -> dict:
+    """Config 5's graceful preemption drain at full width: Llama-2 7B LoRA
+    through the port's driver at ``fsdp=ranks`` under the port's
+    Supervisor with ``DLS_FAULT=sigterm@4`` (host 1), 8 steps at the global
+    b = 12 over 12 source partitions. The gang drains at step 4: the live
+    engine gathers every FSDP2 shard onto every card (verified), rank 0
+    writes the handoff, and the supervisor relaunches at ``ranks - 1``
+    cards (fsdp=3: no dim of 7B divides by 3, so every leaf is whole on
+    every card), which ingests it (digests checked on every rank) and runs
+    steps 5–8 (:func:`_drain_checks`). Against an uninterrupted run at
+    ``ranks`` on the same batches: every logged loss at GANG_LOSS_RTOL;
+    K1/K2/K3 launched LLAMA_LAUNCHES a step on both sides of the drain.
+    Beside it the same gang's hard loss: ``DLS_FAULT=die_host@6`` with a
+    checkpoint every 4 steps, which walks back to step 4 at ``ranks - 1``.
+    Prints the drain's gather, digest and write, the handoff's bytes,
+    rounds and peak bytes in flight, the ingest, the relaunch to its first
+    step and the steps lost, for both. Each run's workdir is removed after
+    it is read (the handoff and a checkpoint are ~13.5 GB each)."""
+    import shutil
+
+    root = ROOT / "build" / f"chip_smoke_llama_drain_{ranks}"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    args = _llama_drain_args()
+    driver = _driver_script("llama_lora")
+    straight = _driver_run("llama_lora", root / "straight", ranks, args)
+    shutil.rmtree(root / "straight", ignore_errors=True)
+    want = {i + 1: v for i, v in enumerate(straight["losses"].get("p0", []))}
+    runs = {}
+    for name, env, kw, every in (
+            ("drain", {"DLS_FAULT": f"sigterm@{DRAIN_AT}"}, {"max_restarts": 1},
+             DRAIN_STEPS),
+            ("walk-back", {"DLS_FAULT": f"die_host@{DRAIN_DIE_AT}"},
+             {"max_restarts": 2, "shrink_after": 1}, DRAIN_EVERY)):
+        wd = root / name
+        argv = [sys.executable, str(driver), *args, "--checkpoint-dir", str(wd / "ckpt"),
+                "--checkpoint-every", str(every), "--resume"]
+        run = _supervised_run(f"llama {name}", wd, argv, ranks, env, **kw)
+        run["handoff"] = _handoff_numbers(wd) if name == "drain" else None
+        run["checkpoint_ms"] = _phase_ms(_events(wd, "p0"), "checkpoint")
+        shutil.rmtree(wd, ignore_errors=True)
+        runs[name] = run
+    drain, walk = runs["drain"], runs["walk-back"]
+    sides = [x for x in drain["json_lines"] if "flash_launches" in x]
+    before = next((x for x in sides if "preempted_at" in x), None)
+    after = next((x for x in sides if "train" in x), None)
+
+    def gap(got: dict) -> float:
+        return max((abs(got[s] - want[s]) / abs(want[s]) for s in got if s in want),
+                   default=float("nan"))
+
+    rec = dict(
+        ranks=ranks, global_batch=DRAIN_BATCH, seq_len=LLAMA_SEQ, lora_rank=LLAMA_RANK,
+        steps=DRAIN_STEPS, drain_at=DRAIN_AT, die_at=DRAIN_DIE_AT,
+        disk_free_gb=free_gb, straight_losses=want,
+        straight_step_ms=straight["step_ms_by_rank"].get("p0"),
+        drain=dict({k: v for k, v in drain.items() if k != "json_lines"},
+                   loss_gap=gap(drain["losses"]), steps_lost=0,
+                   launches_before=before and before["flash_launches"],
+                   launches_after=after and after["flash_launches"],
+                   mesh_after=after and after["mesh"],
+                   cards_after=after and [{k: c[k] for k in (
+                       "param_bytes", "param_bytes_reckoned", "max_memory_allocated")}
+                       for c in after["by_rank"]]),
+        walk_back=dict({k: v for k, v in walk.items() if k != "json_lines"},
+                       loss_gap=gap(walk["losses"]),
+                       steps_lost=DRAIN_DIE_AT - 1 - ((walk["geometry"] or [{}])[0]
+                                                      .get("step") or 0)),
+        card=nvidia_smi_line())
+    print("gang llama drain " + json.dumps(rec), flush=True)
+    check(not straight["left"], f"llama drain: the straight run left {straight['left']}")
+    _drain_checks("llama drain", drain, ranks, DRAIN_AT)
+    check(sorted(drain["losses"]) == list(range(1, DRAIN_STEPS + 1)) and len(want)
+          == DRAIN_STEPS, f"llama drain logged {sorted(drain['losses'])}, the straight "
+          f"run {sorted(want)}")
+    check(rec["drain"]["loss_gap"] <= GANG_LOSS_RTOL,
+          f"llama drain: losses {rec['drain']['loss_gap']} off the uninterrupted "
+          f"run's: {drain['losses']} vs {want}")
+    per_side = {k: v * DRAIN_AT for k, v in LLAMA_LAUNCHES.items()}
+    check(before is not None and after is not None
+          and before["flash_launches"] == per_side
+          and all(c["flash_launches"] == per_side for c in after["by_rank"]),
+          f"llama drain: K1-K3 launches before {before and before['flash_launches']}, "
+          f"after {after and [c['flash_launches'] for c in after['by_rank']]}, "
+          f"want {per_side} on each side")
+    check(after["mesh"]["fsdp"] == ranks - 1 and after["world_size"] == ranks - 1,
+          f"llama drain: the relaunch's mesh {after['mesh']}")
+    h = drain["handoff"]
+    check(h["peak_inflight_bytes"] is not None
+          and h["peak_inflight_bytes"] <= h["mem_budget_mb"] * 2**20
+          and h["handoff_bytes"] and h["bytes_gathered"],
+          f"llama drain: the handoff {h}")
+    check(not drain["left"], f"llama drain left {drain['left']}")
+    check(walk["ok"] and [(a[1], a[3]) for a in walk["attempts"]]
+          == [(ranks, "training-crash"), (ranks - 1, "clean")]
+          and [g["resume"] for g in walk["geometry"]] == ["checkpoint"]
+          and walk["geometry"][0]["step"] in (None, DRAIN_EVERY),
+          f"llama walk-back: {walk['attempts']} {walk['geometry']}")
+    check(sorted(walk["losses"]) == list(range(1, DRAIN_STEPS + 1))
+          and rec["walk_back"]["loss_gap"] <= GANG_LOSS_RTOL,
+          f"llama walk-back: losses {walk['losses']} vs {want}")
+    check(not walk["left"], f"llama walk-back left {walk['left']}")
+    return rec
+
+
 # -- chip_smoke.py --gang: shrink to survive, and a planted desync ----------------
 
 #: the supervised LeNet gang that loses host 1: steps, a global batch that
@@ -4000,7 +4183,10 @@ def gang_shrink(torch, ranks: int) -> dict:
     rec = dict(ranks=ranks, runs=runs, resumed_steps=[resumed[0], resumed[-1]]
                if resumed else None, loss_gap=gap,
                first_step_gap=abs(pairs[0][0] - pairs[0][1]) / abs(pairs[0][1])
-               if pairs else None, card=nvidia_smi_line())
+               if pairs else None, steps_lost=SHRINK_AT - 1 - (resumed[0] - 1
+                                                               if resumed else 0),
+               relaunch=_relaunch_timing(_events(ROOT / "build" / "chip_smoke_shrink_shrunk")),
+               card=nvidia_smi_line())
     print("gang shrink " + json.dumps(rec), flush=True)
     check(straight["ok"] and len(straight["attempts"]) == 1,
           f"the uninterrupted run: {straight['attempts']}")
@@ -4020,6 +4206,144 @@ def gang_shrink(torch, ranks: int) -> dict:
           f"losses after the shrink are {gap} from the uninterrupted run's")
     check(not straight["left"] and not shrunk["left"],
           f"left behind: {straight['left']} {shrunk['left']}")
+    return rec
+
+
+def _relaunch_timing(records: list[dict]) -> dict:
+    """Seconds from the end of a supervised run's first attempt (its kill,
+    or its drain's exit) to the relaunch, to the relaunch's ``run`` phase
+    and to its first step, and each rank's restore (checkpoint or handoff)
+    in the relaunch, from the run's telemetry."""
+    ends = [r for r in records if r["kind"] == "attempt" and r.get("edge") == "end"]
+    begins = [r for r in records if r["kind"] == "attempt" and r.get("edge") == "begin"]
+    if not ends or len(begins) < 2:
+        return {}
+    gone, back = ends[0]["ts"], begins[1]["ts"]
+    runs = [r["ts"] for r in records if r["process"] == "p0" and r["kind"] == "phase"
+            and r.get("name") == "run" and r.get("edge") == "begin" and r["ts"] > back]
+    steps = [r["ts"] for r in records if r["process"] == "p0"
+             and r["kind"] == "step_metrics" and r["ts"] > back]
+    restores = [r["dur_s"] for r in records if r["kind"] == "phase"
+                and r.get("name") == "restore" and r.get("edge") == "end"
+                and r["ts"] > back]
+    return dict(end_to_relaunch_s=back - gone,
+                end_to_first_step_s=steps[0] - gone if steps else None,
+                relaunch_to_first_step_s=steps[0] - back if steps else None,
+                relaunch_to_run_s=runs[0] - back if runs else None,
+                run_to_first_step_s=steps[0] - runs[0] if steps and runs else None,
+                restore_s_by_rank=restores)
+
+
+def _reshards(records: list[dict]) -> list[dict]:
+    return [{k: v for k, v in r.items() if k not in ("kind", "event")}
+            for r in records if r["kind"] == "recovery" and r.get("event") == "reshard"]
+
+
+def _drain_checks(name: str, run: dict, ranks: int, drain_at: int) -> None:
+    """What every drain drill holds: one relaunch, classified
+    ``graceful-shutdown`` with every rank exiting 0, a ``geometry_change``
+    resuming from the live handoff at the drained step, both reshard
+    events (the drain's over collectives on every rank, the resume's from
+    the verified handoff on every survivor) and none walking back, and no
+    step logged twice."""
+    check(run["ok"] and [(a[1], a[2], a[3]) for a in run["attempts"]]
+          == [(ranks, [0] * ranks, "graceful-shutdown"),
+              (ranks - 1, [0] * (ranks - 1), "clean")],
+          f"{name}: attempts {run['attempts']}")
+    check([(g["step"], g["resume"], g["dead_host"], g["to_processes"])
+           for g in run["geometry"]] == [(drain_at, "live-handoff", 1, ranks - 1)],
+          f"{name}: geometry_change records {run['geometry']}")
+    drains = [r for r in run["reshards"] if r.get("reason") == "preemption-drain"]
+    resumes = [r for r in run["reshards"] if r.get("reason") == "preemption-resume"]
+    check(len(drains) == ranks and all(r["transport"] == "collectives"
+                                       and r["step"] == drain_at for r in drains)
+          and len(resumes) == ranks - 1
+          and all(r["transport"] == "handoff" and r["verified"] for r in resumes)
+          and not any(r.get("walk_back") for r in run["reshards"]),
+          f"{name}: reshard events {run['reshards']}")
+    check(len(run["logged_steps"]) == len(set(run["logged_steps"])),
+          f"{name}: a step was logged twice: {run['logged_steps']}")
+
+
+def _supervised_run(name: str, wd: Path, argv: list[str], ranks: int, env: dict,
+                    **kw) -> dict:
+    """A supervised gang of ``argv`` at ``ranks`` (each worker's output in a
+    file of the workdir, ``worker-<attempt>-<rank>.log``): its attempts,
+    rank 0's losses by step, the steps it logged, its ``geometry_change``
+    and ``reshard`` records, the relaunch's timing, rank 0's JSON lines
+    and what of it outlived the run."""
+    import shlex
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch.supervisor import Supervisor
+
+    shutil.rmtree(wd, ignore_errors=True)
+    wd.mkdir(parents=True)
+    wrapped = ["bash", "-c", f"exec {shlex.join(argv)} > {shlex.quote(str(wd))}"
+               f"/worker-$DLS_RESTART-$DLS_PROCESS_ID.log 2>&1"]
+    t0 = time.time()
+    result = Supervisor(wrapped, num_processes=ranks, restart_backoff_s=0.1,
+                        env=env, ckpt_dir=str(wd / "ckpt"),
+                        progress_path=str(wd / "ckpt"), telemetry_dir=str(wd),
+                        **kw).run()
+    wall_s = time.time() - t0
+    records = _events(wd)
+    steps = [r for r in records if r["process"] == "p0" and r["kind"] == "step_metrics"]
+    lines = []
+    for f in sorted(wd.glob("worker-*-0.log")):
+        for x in f.read_text(errors="replace").splitlines():
+            if x.startswith("{"):
+                try:
+                    lines.append(json.loads(x))
+                except ValueError:
+                    continue
+    return dict(
+        attempts=[(a.ordinal, a.num_processes, a.returncodes, a.classification,
+                   a.dead_host) for a in result.attempts],
+        ok=result.ok, wall_s=wall_s, losses={r["step"]: r["metrics"]["loss"] for r in steps},
+        logged_steps=[r["step"] for r in steps],
+        geometry=[{k: r.get(k) for k in ("step", "dead_host", "from_processes",
+                                         "to_processes", "hosts", "resume")}
+                  for r in records if r["kind"] == "recovery"
+                  and r.get("event") == "geometry_change"],
+        reshards=_reshards(records), relaunch=_relaunch_timing(records),
+        json_lines=lines, left=_left_behind(Path(argv[1]), set()))
+
+
+def gang_drain(torch, ranks: int, straight_losses: dict) -> dict:
+    """The LeNet drain drill beside :func:`gang_shrink`: the same driver and
+    batches at ``ranks`` under the port's Supervisor with
+    ``DLS_FAULT=sigterm@25`` (host 1's preemption notice). The gang drains
+    at step 25, hands its state off live and exits 0; the supervisor
+    shrinks at once and the relaunch at ``ranks - 1`` resumes from the
+    handoff at step 25 (:func:`_drain_checks`), its losses the
+    uninterrupted run's (:func:`gang_shrink`'s) at GANG_LOSS_RTOL. Prints
+    the drain's and the relaunch's timing beside the shrink's."""
+    from distributeddeeplearningspark_tpu_torch.utils.env import conf_to_env
+
+    wd = ROOT / "build" / "chip_smoke_drain_lenet"
+    script = ROOT / PKG / "examples" / "train_mnist.py"
+    argv = [sys.executable, str(script), "--steps", str(SHRINK_STEPS),
+            "--batch-size", str(SHRINK_BATCH),
+            "--source-partitions", str(SHRINK_PARTITIONS), "--log-every", "1",
+            "--lr", str(SHRINK_LR), "--checkpoint-dir", str(wd / "ckpt"),
+            "--checkpoint-every", str(SHRINK_EVERY), "--resume"]
+    run = _supervised_run("lenet drain", wd, argv, ranks, {
+        "DLS_FAULT": f"sigterm@{SHRINK_AT}",
+        **conf_to_env({"spark.dls.deterministic": "true"})}, max_restarts=1)
+    pairs = [(run["losses"][s], straight_losses.get(s, float("nan")))
+             for s in sorted(run["losses"])]
+    gap = max((abs(a - b) / abs(b) for a, b in pairs), default=None)
+    rec = dict(ranks=ranks, drain_at=SHRINK_AT, steps_lost=0, loss_gap=gap, **run,
+               card=nvidia_smi_line())
+    rec.pop("json_lines")
+    print("gang drain " + json.dumps(rec), flush=True)
+    _drain_checks("lenet drain", run, ranks, SHRINK_AT)
+    check(sorted(run["losses"]) == list(range(1, SHRINK_STEPS + 1)),
+          f"lenet drain logged steps {sorted(run['losses'])}")
+    check(gap is not None and np.isfinite(gap) and gap <= GANG_LOSS_RTOL,
+          f"lenet drain: losses {gap} from the uninterrupted run's")
+    check(not run["left"], f"lenet drain left {run['left']}")
     return rec
 
 
@@ -4232,26 +4556,29 @@ def input_ab_main(torch) -> int:
 
 
 def gang_main(torch, names: list[str]) -> int:
-    """``chip_smoke.py --gang [resnet|dlrm|recovery|llama ...]``: at one rank
-    per visible card (2 or more), NCCL between them, the LeNet phase, the
-    supervised shrink and the planted desync, the ResNet-50 and DLRM
-    drivers (:func:`train_drivers_gang`), then Llama-2 7B LoRA sharded over
-    the cards (:func:`train_llama_gang`); with names, only those parts."""
+    """``chip_smoke.py --gang [resnet|dlrm|recovery|llama|llama-cp|llama-drain
+    ...]``: at one rank per visible card (2 or more), NCCL between them, the
+    LeNet phase, the supervised shrink, the drain and the planted desync,
+    the ResNet-50 and DLRM drivers (:func:`train_drivers_gang`), then
+    Llama-2 7B LoRA sharded over the cards (:func:`train_llama_gang`,
+    :func:`train_llama_cp_gang`) and drained for a preemption
+    (:func:`train_llama_drain`); with names, only those parts."""
     ranks = torch.cuda.device_count()
     if ranks < 2:
         print(f"chip_smoke --gang: {ranks} card(s); it needs 2 or more",
               file=sys.stderr)
         return 2
-    if not set(names) <= set(GANG_FAULTS) | {"recovery", "llama", "llama-cp"}:
+    parts = ["llama", "llama-cp", "llama-drain", "recovery"]
+    if not set(names) <= set(GANG_FAULTS) | set(parts):
         print(f"chip_smoke --gang: no part {names}; choose from "
-              f"{sorted(GANG_FAULTS) + ['llama', 'llama-cp', 'recovery']}",
-              file=sys.stderr)
+              f"{sorted(GANG_FAULTS) + parts}", file=sys.stderr)
         return 2
     try:
         if not names:
             train_lenet(torch, ranks)
         if not names or "recovery" in names:
-            gang_shrink(torch, ranks)
+            shrink = gang_shrink(torch, ranks)
+            gang_drain(torch, ranks, shrink["runs"]["straight"]["losses"])
             gang_desync(torch, ranks)
         drivers = tuple(n for n in names if n in GANG_FAULTS)
         if drivers or not names:
@@ -4260,6 +4587,8 @@ def gang_main(torch, names: list[str]) -> int:
             train_llama_gang(torch, ranks)
         if not names or "llama" in names or "llama-cp" in names:
             train_llama_cp_gang(torch, ranks)
+        if not names or "llama-drain" in names:
+            train_llama_drain(torch, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

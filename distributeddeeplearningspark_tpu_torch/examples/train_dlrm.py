@@ -59,6 +59,7 @@ from distributeddeeplearningspark_tpu_torch.data.sources import (
 from distributeddeeplearningspark_tpu_torch.examples import (
     add_checkpoint_flags,
     add_not_ported,
+    drained,
     resume,
 )
 from distributeddeeplearningspark_tpu_torch.metrics import auc_from_predictions
@@ -188,6 +189,8 @@ def main(argv: list[str] | None = None) -> None:
                                  steps=args.steps, log_every=args.log_every,
                                  checkpoint_every=args.checkpoint_every if ckpt else None,
                                  data_state=data_state)
+    if drained(trainer, ckpt, spark):
+        return
     steps = max(state.step - start, 1)
     k5 = scatter_rows.scatter_add_rows.launches - k5
     gathered = embed.make_sparse_embed_train_step.gather_bytes - gathered

@@ -67,7 +67,11 @@ rank dies)::
 ``--checkpoint-dir``, ``--checkpoint-every`` and ``--resume`` are the
 port's (the JAX driver has none); a restore that raises exits with the
 supervisor's ``RESTORE_FAILED_EXIT``. A checkpoint holds the whole state,
-the frozen base included.
+the frozen base included. A preemption notice (``DLS_FAULT=sigterm@N``,
+``DLS_PREEMPT_NOTICE``) drains the gang into a live handoff beside the
+checkpoints: rank 0 then prints one JSON line with ``preempted_at`` and
+the flash kernels' launches, and every rank exits 0; under ``--resume``
+the shrunk relaunch goes on from the handoff.
 
 The JAX driver's pipeline and expert parallelism, MoE, int8 base, fused
 head, sampling and the import of real weights (which needs their
@@ -99,6 +103,7 @@ from distributeddeeplearningspark_tpu_torch.data import text as text_lib
 from distributeddeeplearningspark_tpu_torch.examples import (
     add_checkpoint_flags,
     add_not_ported,
+    drained,
     resume,
 )
 from distributeddeeplearningspark_tpu_torch.models.llama import (
@@ -315,6 +320,13 @@ def main(argv: list[str] | None = None) -> None:
                                  checkpoint_every=args.checkpoint_every if ckpt else None,
                                  data_state=data_state)
     launches = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
+    if trainer.preempted_at is not None and spark.rank == 0:
+        print(json.dumps({"preempted_at": trainer.preempted_at,
+                          "restored_step": restored_step,
+                          "world_size": spark.world_size, "mesh": spark.mesh.shape,
+                          "flash_launches": launches}), flush=True)
+    if drained(trainer, ckpt, spark):
+        return
     card = card_record(trainer, launches)
     card.update(init_max_memory_allocated=init_peak,
                 tensor_all_reduces=sum(op.calls for op in tp_ops) - tp_before,

@@ -37,7 +37,7 @@ import logging
 
 from distributeddeeplearningspark_tpu_torch import Checkpointer, LeNet5, Session, Trainer, faults
 from distributeddeeplearningspark_tpu_torch.data.sources import load_mnist_idx, synthetic_mnist
-from distributeddeeplearningspark_tpu_torch.examples import add_checkpoint_flags, resume
+from distributeddeeplearningspark_tpu_torch.examples import add_checkpoint_flags, drained, resume
 from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.train import losses, optim
 
@@ -85,6 +85,8 @@ def main(argv: list[str] | None = None) -> None:
         train_ds.repeat(), batch_size=args.batch_size, steps=args.steps,
         log_every=args.log_every, checkpoint_every=args.checkpoint_every if ckpt else None,
         data_state=data_state, on_nonfinite=args.on_nonfinite)
+    if drained(trainer, ckpt, spark):
+        return
     allreduces = collectives.all_reduce_grads.calls - calls
     metrics = trainer.evaluate(test_ds, batch_size=args.batch_size)
     if spark.rank == 0:

@@ -64,6 +64,7 @@ from distributeddeeplearningspark_tpu_torch.data.workers import resolve_num_work
 from distributeddeeplearningspark_tpu_torch.examples import (
     add_checkpoint_flags,
     add_not_ported,
+    drained,
     resume,
 )
 from distributeddeeplearningspark_tpu_torch.models import resnet
@@ -175,6 +176,8 @@ def main(argv: list[str] | None = None) -> None:
         log_every=args.log_every,
         checkpoint_every=args.checkpoint_every if ckpt else None,
         data_state=data_state)
+    if drained(trainer, ckpt, spark):
+        return
     steps = max(state.step - start, 1)
     k4 = conv_bn.matmul_stats.launches - k4
     bn = collectives.all_reduce_sum.calls - bn

@@ -15,24 +15,34 @@ script can be driven through every failure mode by the supervisor
                                 # and keep that host dead on every later
                                 # attempt (a dead machine stays dead); the
                                 # victim is DLS_FAULT_HOST (default 1)
-    DLS_FAULT=sigterm@N         # a preemption NOTICE at step N: parsed and
-                                # scoped as in the JAX package
-                                # (:func:`sigterm_fault`), but the graceful
-                                # drain that honours it is not ported
-                                # (ROADMAP Queue 1 item 7): ``Trainer.fit``
-                                # raises on it rather than run fault-free
+    DLS_FAULT=sigterm@N         # a preemption NOTICE at step N, not a kill:
+                                # the trainer drains the step in flight,
+                                # gathers the state live
+                                # (parallel/live_reshard.py), writes the
+                                # digest-verified handoff, then the DRAIN
+                                # evidence, and the whole gang exits clean,
+                                # so the supervisor shrinks WITHOUT walking
+                                # back through the checkpoint. Targets a
+                                # host like die_host (DLS_FAULT_HOST,
+                                # default 1) but fires on attempt 0 only.
+                                # Scoped: get() returns None for it — only
+                                # the trainer's drain consults
+                                # sigterm_fault()
 
 ``die_shuffle_worker`` parses (a spec written for the JAX package is not
 malformed here) and :func:`get` scopes it out as the JAX package does;
 its consumer, the shuffle exchange's ``shuffle_fault``, waits with the
 exchange (ROADMAP Queue 1 item 4).
 
-Beside the env-declared drills lives the scheduler's runtime channel, the
-preemption notice (``DLS_PREEMPT_NOTICE`` names a file path): the port's
-``Trainer.fit`` raises when the path is set, as for ``sigterm``, and the
-supervisor retires a notice (:func:`consume_preempt_notice`) when it acts
-on a drain. Delivering and reading a notice wait for the drain (ROADMAP
-Queue 1 item 7).
+Beside the env-declared drills lives one *runtime* channel: the
+scheduler's preemption notice (``DLS_PREEMPT_NOTICE`` names a file path;
+:func:`deliver_preempt_notice` / :func:`read_preempt_notice`). It takes the
+``sigterm`` drain's path but is delivered mid-run instead of declared at
+launch: the notice carries a step floor, so every rank of a gang drains at
+the same step although each reads the file at its own time (the deliverer
+stamps it a margin ahead of the gang's last step), and the supervisor
+retires it (:func:`consume_preempt_notice`) when it acts on the drain, so
+the shrunk relaunch runs clean.
 
 Determinism rules (the JAX package's, unchanged):
 
@@ -163,14 +173,56 @@ def get() -> Fault | None:
 
 
 #: Env var carrying the path of a run's preemption-notice file (a
-#: scheduler exports it when launching a placed job).
+#: scheduler exports it when launching a placed job; unset, the trainer
+#: reads no file).
 PREEMPT_NOTICE_ENV = "DLS_PREEMPT_NOTICE"
+
+
+@dataclasses.dataclass(frozen=True)
+class PreemptNotice:
+    """A delivered preemption notice: drain host ``host`` once training
+    reaches step ``step`` (the floor every rank of a gang drains at)."""
+
+    host: int
+    step: int
 
 
 def preempt_notice_path() -> str | None:
     """Where this run's preemption notice would land (None when the run was
     not launched by a scheduler — the common case)."""
     return os.environ.get(PREEMPT_NOTICE_ENV) or None
+
+
+def deliver_preempt_notice(path: str, *, host: int, step: int) -> str:
+    """Deliver a preemption notice atomically (tmp + rename, as the DRAIN
+    evidence): a reader sees the whole notice or none."""
+    import json
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump({"host": int(host), "step": int(step), "ts": time.time()}, f)
+    os.replace(tmp, path)
+    logger.warning("preemption notice delivered: drain host %d at step >= %d "
+                   "(%s)", host, step, path)
+    return path
+
+
+def read_preempt_notice(path: str | None = None) -> PreemptNotice | None:
+    """The pending preemption notice, or None (no env, no file, or a
+    malformed or torn file — never raises: the channel is advisory and a
+    bad read must not kill a healthy step)."""
+    import json
+
+    path = path if path is not None else preempt_notice_path()
+    if not path:
+        return None
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+        return PreemptNotice(host=int(doc["host"]), step=int(doc["step"]))
+    except (OSError, ValueError, KeyError, TypeError):
+        return None
 
 
 def consume_preempt_notice(path: str | None, *, ordinal: int) -> None:

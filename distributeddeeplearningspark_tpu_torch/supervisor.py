@@ -71,12 +71,13 @@ _PKG_PARENT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESTORE_FAILED_EXIT = 13
 
 #: Evidence file a gracefully draining gang leaves in the checkpoint root:
-#: ``"<doomed_host> <drained_step>"``. Written by the JAX package's
-#: trainer's SIGTERM drain (after the live handoff commits; the port's
-#: drain waits for ROADMAP Queue 1 item 7), read by :meth:`Supervisor._classify`
-#: to tell "the gang exited zero because it DRAINED" from "the gang finished"
-#: — without it a graceful preemption would look like success (or, had the
-#: drain path exited non-zero, burn a backoff slot as a training-crash).
+#: ``"<doomed_host> <drained_step>"``. Written by rank 0 of the trainer's
+#: preemption drain (``Trainer._graceful_drain``) last, after the live
+#: handoff has committed on every rank, and read by
+#: :meth:`Supervisor._classify` to tell "the gang exited zero because it
+#: DRAINED" from "the gang finished" — without it a graceful preemption
+#: would look like success (or, had the drain path exited non-zero, burn a
+#: backoff slot as a training-crash).
 DRAIN_EVIDENCE = "DRAIN"
 
 
@@ -230,13 +231,22 @@ class Supervisor:
     supervisor stops relaunching a doomed geometry: it drops that host from
     the gang, recomputes ``DLS_NUM_PROCESSES`` (ranks renumber contiguously;
     each process also gets its stable original ordinal as ``DLS_HOST_ID``),
-    and relaunches the survivors from the last checkpoint — a data-parallel
-    gang's state is replicated, so every survivor restores the same step
-    whole (sharded state's reshard-on-restore waits for ROADMAP Queue 1
-    item 7) — and the global batch is preserved (the feed splits it over fewer hosts, so the
-    per-host share grows; recorded as ``batch_policy`` on the
-    ``geometry_change`` recovery event). The gang never shrinks below
-    ``min_processes``.
+    and relaunches the survivors from the last checkpoint — a checkpoint
+    holds whole tensors, so the survivors restore it at their rank count, a
+    sharded state included — and the global batch is preserved (the feed
+    splits it over fewer hosts, so the per-host share grows; recorded as
+    ``batch_policy`` on the ``geometry_change`` recovery event). The gang
+    never shrinks below ``min_processes``.
+
+    **Graceful drain.** A gang told of a preemption (``DLS_FAULT=sigterm@N``
+    or a ``DLS_PREEMPT_NOTICE`` file) drains: it commits a live handoff,
+    writes the ``DRAIN`` evidence and exits 0. The attempt is classified
+    ``graceful-shutdown``; the supervisor retires the evidence (and the
+    notice) to ``*.consumed-<ordinal>``, shrinks at once with no repeated
+    evidence and no backoff (``geometry_change`` with ``resume=
+    "live-handoff"`` at the drained step), and the relaunch resumes from
+    the handoff. The relaunch does not drain again: the evidence and the
+    notice are gone, and ``sigterm`` fires on attempt 0 only.
     """
 
     def __init__(

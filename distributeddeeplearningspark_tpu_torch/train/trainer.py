@@ -49,8 +49,10 @@ at a log point whose metrics are not finite, up to ``max_rollbacks``
 times. Recovery events go to :meth:`~..metrics.MetricLogger.event`.
 ``DLS_FAULT`` (:mod:`..faults`) fires at its JAX places: ``nan``,
 ``crash``, ``hang`` and ``die_host`` before the step they name,
-``truncate_ckpt`` after a save. Each log lap stamps the supervisor's
-liveness file (``DLS_HEARTBEAT_FILE``). ``eval_every`` runs
+``truncate_ckpt`` after a save. Each log lap, each batch :meth:`evaluate`
+takes and the end of ``fit``'s last save stamp the supervisor's liveness
+file (``DLS_HEARTBEAT_FILE``): a worker evaluating or saving is not hung.
+``eval_every`` runs
 :meth:`evaluate` inside ``fit``; ``callbacks`` see every step;
 ``sanitize_every`` checks the gang's replicas.
 
@@ -106,15 +108,29 @@ too, :meth:`predict` gathers the blocks back into whole rows, and tokens/s
 counts each token once. A mesh with ``seq`` above 1 without it raises:
 every ``seq`` peer would take the same whole rows.
 
-Not ported yet: the graceful preemption drain (a ``sigterm`` fault or a
-preemption notice raises; ROADMAP Queue 1 item 7); ``profile``,
-``measure_flops`` and ``tensorboard_dir`` (Queue 1 item 9).
+The graceful preemption drain: a preemption notice (``DLS_FAULT=sigterm@N``
+for the host ``DLS_FAULT_HOST`` names, or a notice file at
+``DLS_PREEMPT_NOTICE``, :func:`~..faults.read_preempt_notice`) is honoured
+at the first step boundary at or past its step, after the callbacks and
+before that step's checkpoint: every rank gathers the state onto every
+card by the bounded live engine (:mod:`..parallel.live_reshard`, every leaf
+replicated on its mesh, blake2b-verified), rank 0 commits it as a
+digest-verified handoff beside the checkpoints, and only then writes the
+supervisor's ``DRAIN`` evidence; ``fit`` returns with
+:attr:`Trainer.preempted_at` set and saves no final checkpoint. The
+supervisor shrinks the gang at once, and the relaunch's
+:meth:`Trainer.restore_live_handoff` resumes from the drained step with no
+walk-back. A drain that fails raises.
+
+Not ported yet: ``profile``, ``measure_flops`` and ``tensorboard_dir``
+(ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import math
 import os
 import re
 import time
@@ -161,9 +177,9 @@ logger = logging.getLogger("distributeddeeplearningspark_tpu_torch.trainer")
 
 def _touch_heartbeat() -> None:
     """Stamp the supervisor's liveness file (``DLS_HEARTBEAT_FILE``, set by
-    :class:`~..supervisor.Supervisor`) at a log lap: progress between
-    checkpoints is then visible to its hang watchdog, and a stuck worker
-    stops stamping."""
+    :class:`~..supervisor.Supervisor`) at a log lap, an evaluated batch and
+    the end of ``fit``'s last save: progress between checkpoints is then
+    visible to its hang watchdog, and a stuck worker stops stamping."""
     path = os.environ.get("DLS_HEARTBEAT_FILE")
     if not path:
         return
@@ -335,6 +351,9 @@ class Trainer:
             model.to_empty(device=self.device)
             model.init_weights(torch.Generator(self.device).manual_seed(seed))
         self._guard_nonfinite = False  # fit(on_nonfinite="skip") rebuilds
+        #: the step a graceful preemption drain ended ``fit`` at (None: not
+        #: drained); a drained driver exits 0 and writes no final artefacts
+        self.preempted_at: int | None = None
         self._build_train_step()
         self._eval_step = step_lib.make_eval_step(model, loss_fn)
 
@@ -428,6 +447,98 @@ class Trainer:
         self.state, data_state = ckpt.restore(self.state, step=step)
         logger.info("resumed at step %d", self.state.step)
         return self.state, data_state
+
+    def restore_live_handoff(self, checkpointer: Checkpointer | None = None
+                             ) -> tuple[TrainState, dict | None]:
+        """Resume from a graceful drain's live handoff: the drained step,
+        not the last checkpoint (no walk-back). Every rank reads and
+        digest-checks the handoff beside the checkpoints and writes it into
+        this trainer's layout (initialising the state first if needed); then
+        the handoff is consumed. Returns ``(state, data_state)`` like
+        :meth:`restore`. Raises
+        :class:`~..parallel.live_reshard.HandoffError` on any mismatch: the
+        caller walks back through the checkpoint."""
+        from distributeddeeplearningspark_tpu_torch.parallel import live_reshard
+
+        ckpt = checkpointer or self.checkpointer
+        if ckpt is None:
+            raise RuntimeError("Trainer.restore_live_handoff: no checkpointer "
+                               "configured — the handoff lives in its directory")
+        self._telemetry(ckpt)
+        if self.state is None:
+            self.init()
+        t0 = time.perf_counter()
+        with telemetry_lib.phase("restore", source="live-handoff"):
+            self.state, manifest = live_reshard.load_handoff(ckpt.directory,
+                                                             self.state)
+        nbytes = sum(math.prod(r["shape"]) * (
+            8 if r["dtype"] == live_reshard.INT_DTYPE
+            else getattr(torch, r["dtype"]).itemsize) for r in manifest["leaves"])
+        stats = live_reshard.TransferStats(
+            leaves=len(manifest["leaves"]), leaves_moved=len(manifest["leaves"]),
+            bytes_total=nbytes, bytes_moved=nbytes,
+            mem_budget_bytes=live_reshard.memory_budget_bytes(),
+            wall_s=time.perf_counter() - t0, verified=True)
+        step = int(manifest["step"])
+        live_reshard.emit_reshard_event(
+            stats, step=step, transport="handoff", walk_back=False,
+            reason="preemption-resume")
+        collectives.barrier()  # every rank has ingested it
+        if collectives.rank() == 0:
+            live_reshard.clear_handoff(ckpt.directory)
+        logger.info("resumed from the live handoff at step %d (%.1f MiB, %.2fs; "
+                    "checkpoint-free, no walk-back)", step, nbytes / 2**20,
+                    stats.wall_s)
+        return self.state, manifest.get("data_state")
+
+    def _graceful_drain(self, step: int, *, examples_seen: int,
+                        batch_size: int, doomed: int) -> None:
+        """Honour a preemption notice naming host ``doomed``: the step in
+        flight is finished, every leaf of the state is gathered replicated
+        onto its mesh by the bounded engine (verified), rank 0 commits it as
+        the handoff, and after a barrier the ``DRAIN`` evidence is written
+        last, so the supervisor only ever sees evidence an ingestible
+        handoff backs. A hard kill (``die_host``) never gets here: it walks
+        back through the checkpoint."""
+        from distributeddeeplearningspark_tpu_torch import supervisor as sup_lib
+        from distributeddeeplearningspark_tpu_torch.parallel import live_reshard
+
+        if self.checkpointer is None:
+            raise RuntimeError(
+                "graceful preemption drain needs a checkpointer: its "
+                "directory carries the live handoff the shrunk gang resumes "
+                "from")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the step in flight
+        leaves = live_reshard.flatten(self.state.state_dict())
+        move: dict[str, float] = {}
+        digests: dict[str, str] = {}
+        moved, stats = live_reshard.redistribute(
+            leaves, {k: live_reshard.replicated_on(v) for k, v in leaves.items()},
+            timings=move, digests=digests)
+        saving: dict[str, float] = {}
+        t0 = time.perf_counter()
+        live_reshard.save_handoff(
+            self.checkpointer.directory, step, moved,
+            data_state={"examples_seen": examples_seen, "batch_size": batch_size},
+            stats=stats, timings=saving, digests=digests)
+        save_s = time.perf_counter() - t0
+        del moved
+        live_reshard.emit_reshard_event(
+            stats, step=step, transport="collectives", walk_back=False,
+            reason="preemption-drain", dead_host=doomed, save_s=round(save_s, 4),
+            **{f"move_{k}": round(v, 4) for k, v in move.items()},
+            **{f"save_{k}": round(v, 4) for k, v in saving.items()})
+        if collectives.rank() == 0:
+            sup_lib.write_drain_evidence(self.checkpointer.directory,
+                                         host=doomed, step=step)
+        self.preempted_at = step
+        logger.warning(
+            "graceful drain at step %d: host %d preempted — live handoff "
+            "committed (%d leaves, %.1f MiB gathered in %d round(s), %.2fs; "
+            "saved in %.2fs); exiting clean for the supervisor to shrink "
+            "without walk-back", step, doomed, stats.leaves,
+            stats.bytes_moved / 2**20, stats.rounds, stats.wall_s, save_s)
 
     def _telemetry(self, checkpointer: Checkpointer | None = None
                    ) -> telemetry_lib.EventWriter | None:
@@ -523,9 +634,10 @@ class Trainer:
           ``rollbacks``.
 
         ``DLS_FAULT`` (:mod:`..faults`) injects ``nan``, ``crash``, ``hang``
-        and ``die_host`` at its step and ``truncate_ckpt`` after a save; a
-        ``sigterm`` fault or a preemption-notice path raises, since the
-        graceful drain is not ported (ROADMAP Queue 1 item 7)."""
+        and ``die_host`` at its step and ``truncate_ckpt`` after a save. A
+        ``sigterm`` fault or a preemption notice (``DLS_PREEMPT_NOTICE``)
+        drains at the first step boundary at or past its step (the module
+        docstring) and returns with :attr:`preempted_at` set."""
         if on_nonfinite not in ("raise", "skip", "rollback"):
             raise ValueError(
                 f"on_nonfinite must be 'raise'|'skip'|'rollback', got "
@@ -535,12 +647,6 @@ class Trainer:
                 "on_nonfinite='skip' is not supported with sparse_embed "
                 "tables (the row-sparse step has no update guard); use "
                 "'rollback' or 'raise'")
-        if faults.sigterm_fault() is not None or faults.preempt_notice_path():
-            raise NotImplementedError(
-                "a preemption notice (DLS_FAULT=sigterm@N or "
-                f"{faults.PREEMPT_NOTICE_ENV}) asks for the graceful drain "
-                "and live handoff, which the port does not have yet (ROADMAP "
-                "Queue 1 item 7); refusing to train as if none was given")
         rebuild = False
         if (on_nonfinite == "skip") != self._guard_nonfinite:
             self._guard_nonfinite = on_nonfinite == "skip"
@@ -597,6 +703,12 @@ class Trainer:
         # workers: on a relaunch, a die_host target must not train
         faults.die_if_dead_host_on_relaunch()
         fault = faults.get()
+        # the preemption notice is scoped out of get(): every rank takes part
+        # in the drain, whichever host is leaving. The notice file's step
+        # floor is how the ranks agree on one drain step.
+        preempt = faults.sigterm_fault()
+        notice_path = faults.preempt_notice_path()
+        self.preempted_at = None
         skipped_dev = None  # the device's running count of skipped steps
         n_skipped = 0
         rollbacks = 0
@@ -691,6 +803,20 @@ class Trainer:
                     sanitize.assert_replicas_in_sync(self.state.params)
                 for cb in callbacks:
                     cb(step_i, last_metrics)
+                doomed = None
+                if preempt is not None and step_i >= preempt.step:
+                    doomed = faults.fault_host()
+                elif notice_path is not None:
+                    notice = faults.read_preempt_notice(notice_path)
+                    if notice is not None and step_i >= notice.step:
+                        doomed = notice.host
+                if doomed is not None:
+                    # drained before this step's checkpoint: the resume
+                    # point is this step
+                    self._graceful_drain(
+                        step_i, examples_seen=(step_i + rolled_back_batches)
+                        * batch_size, batch_size=batch_size, doomed=doomed)
+                    break
                 if ckpt is not None and step_i % checkpoint_every == 0:
                     save(step_i)
                     if (fault is not None and fault.kind == "truncate_ckpt"
@@ -728,9 +854,12 @@ class Trainer:
         elif on_nonfinite == "rollback":
             summary["rollbacks"] = float(rollbacks)
         if ckpt is not None:
-            if step_i % checkpoint_every:
+            # a drained run committed its handoff: a final checkpoint would
+            # move the walk-back point past it
+            if self.preempted_at is None and step_i % checkpoint_every:
                 save(step_i)
             ckpt.wait()
+            _touch_heartbeat()
         return self.state, summary
 
     def _roll_back(self, step_i: int, bad: dict, rollbacks: int,
@@ -804,6 +933,7 @@ class Trainer:
                 for k, v in zip(m, sums[1:]):
                     totals[k] = totals.get(k, 0.0) + v
                 wsum += sums[0]
+                _touch_heartbeat()
         finally:
             feed.close()
         return {k: v / max(wsum, 1e-9) for k, v in totals.items()}

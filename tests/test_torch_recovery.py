@@ -543,13 +543,3 @@ def test_skip_refused_with_sparse_embed_and_bad_policy_named(spark):
     with pytest.raises(ValueError, match="'raise'|'skip'|'rollback'"):
         _lenet_trainer(spark).fit(_mnist(), batch_size=8, steps=1,
                                   on_nonfinite="ignore")
-
-
-@pytest.mark.parametrize("env", [{"DLS_FAULT": "sigterm@3"},
-                                 {"DLS_PREEMPT_NOTICE": "notice.json"}])
-def test_a_preemption_notice_raises_naming_its_roadmap_item(spark, monkeypatch, env):
-    monkeypatch.delenv("DLS_RESTART", raising=False)
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        _lenet_trainer(spark).fit(_mnist(), batch_size=8, steps=4)

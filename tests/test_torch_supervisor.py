@@ -346,6 +346,45 @@ def test_hang_drill_is_killed_classified_and_relaunched(tmp_path):
     assert (tmp_path / "ckpt" / str(STEPS)).is_dir()
 
 
+SLOW_EVAL = """
+import time
+from distributeddeeplearningspark_tpu_torch import LeNet5, Session, Trainer
+from distributeddeeplearningspark_tpu_torch.data import sources
+from distributeddeeplearningspark_tpu_torch.train import losses, optim
+
+
+class SlowEval(LeNet5):
+    def forward(self, *args, **kw):
+        if not self.training:
+            time.sleep(0.5)
+        return super().forward(*args, **kw)
+
+
+spark = Session.builder.master("local[1]").getOrCreate()
+trainer = Trainer(spark, SlowEval(device="cpu"), losses.softmax_xent, optim.sgd(0.01))
+trainer.fit(sources.synthetic_mnist(64, num_partitions=1).repeat(), batch_size=16,
+            steps=2, log_every=1)
+trainer.evaluate(sources.synthetic_mnist(160, num_partitions=1), batch_size=16)
+"""
+
+
+def test_an_evaluation_longer_than_the_hang_timeout_is_not_a_hang(tmp_path):
+    """The hang drill's relaunch was killed as a second hang: after its last
+    step the driver evaluates, and on a loaded CPU that took longer than
+    ``hang_timeout_s`` without a stamp. Here, in isolation: a worker logs
+    two steps (the watchdog leaves its startup grace), then evaluates ten
+    batches of 0.5 s each, 5 s in all against a 3 s timeout. Each batch
+    stamps the liveness file, so the attempt is clean."""
+    script = tmp_path / "slow_eval.py"
+    script.write_text(SLOW_EVAL)
+    result = Supervisor([sys.executable, str(script)], num_processes=1, max_restarts=0,
+                        env={**CPU, "OMP_NUM_THREADS": "1"}, hang_timeout_s=3.0,
+                        startup_grace_s=120.0, progress_path=str(tmp_path / "ckpt"),
+                        telemetry_dir=str(tmp_path)).run()
+    assert result.ok, [(a.returncodes, a.classification) for a in result.attempts]
+    assert _attempt_ends(tmp_path) == {0: "clean"}
+
+
 def test_truncate_drill_walks_back_past_the_torn_step(tmp_path):
     torn = _run(tmp_path, "truncate_ckpt@8")
     assert torn.ok, [(a.returncodes, a.classification) for a in torn.attempts]
