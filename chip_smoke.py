@@ -228,8 +228,9 @@ Then config 5's preemption drain (``--gang llama-drain``): the Llama
 driver at 7B, full width (S = 1,024, LoRA rank 16, a global batch of 12
 over 12 source partitions, 8 steps) at fsdp=N under the port's
 ``Supervisor`` with ``DLS_FAULT=sigterm@4`` on host 1: the live engine
-gathers every FSDP2 shard onto every card (blake2b-verified, bounded bytes
-in flight), rank 0 writes the handoff, and the relaunch at fsdp=N-1 (every
+pulls every FSDP2 shard chunk by chunk to rank 0 (bounded bytes in flight,
+what arrived checked against each rank's own blake2b digests), which
+writes the handoff, and the relaunch at fsdp=N-1 (every
 leaf whole on every card: no dim of 7B divides by 3) ingests it, digests
 checked, and runs steps 5–8 with K1/K2/K3 64/32/32 a step on both sides
 of the drain; its losses an uninterrupted fsdp=N run's at a stated
@@ -241,7 +242,10 @@ relaunch's seconds to its first step and its steps lost.
 runs that part's comparisons only, ``--gang recovery`` the shrink, the
 drain and the desync only.
 ``python3 chip_smoke.py --recovery`` builds the kernels and runs phases 11
-and 14 only (one card). ``python3 chip_smoke.py --input-ab`` times BERT-base, ResNet-50 and the
+and 14 only (one card). ``python3 chip_smoke.py --ckpt-commit TREE``
+measures the supervised crash drill's race with TREE's package (one card):
+how long the LeNet checkpoint's asynchronous write takes to commit against
+the steps a ``crash@8`` kill leaves it. ``python3 chip_smoke.py --input-ab`` times BERT-base, ResNet-50 and the
 DLRM through ``Trainer.fit`` with their batches built in the prefetch
 thread and in the loop's thread, in turns (one card). ``python3
 chip_smoke.py --loop-ab A B B A`` times the unguarded LeNet-5 and DLRM
@@ -2638,9 +2642,11 @@ EVAL_RTOL = 1e-6
 #: run's steps and batch are the LeNet phase's, whose 150 straight steps it
 #: is held to bitwise. The kill comes after the step-8 save, which joins
 #: the step-4 save's asynchronous write first, so step 4 is committed by
-#: then (step 8 may be too). A kill 3 steps after the step-4 save (~80 ms
-#: of LeNet steps) found that write uncommitted on an H100 80GB HBM3 at
-#: 700 W, and the relaunch began from the start
+#: then (step 8 may be too). A kill at step 8 races that write:
+#: ``--ckpt-commit`` timed it at 16–45 ms from queue to commit against
+#: 26–48 ms from queue to the end of step 7, and 1 of 32 writes committed
+#: after it (the same on the tree before the preemption drain; an H100
+#: 80GB HBM3 at 700 W)
 CRASH_AT, CRASH_EVERY = 10, 4
 
 
@@ -2917,6 +2923,79 @@ def recovery_rollback_bert(torch, fa) -> dict:
           f"kernel launches {launches} for {passes} steps and {evals} eval batches")
     check(len(restore_ms) == 2, f"restore phases {restore_ms}")
     return rec
+
+
+#: fresh LeNet runs of the crash drill's race probe (``--ckpt-commit``)
+CRASH_PROBES = 8
+
+
+def ckpt_commit_tree(tree: str) -> int:
+    """The supervised crash drill's race on one tree (``chip_smoke.py
+    --ckpt-commit TREE``, with TREE's package first on the path; one card):
+    LeNet-5 as the drill's driver trains it (b=64, SGD with momentum, a
+    deterministic session, an asynchronous checkpoint every CRASH_EVERY
+    steps), CRASH_PROBES fresh runs of 2 * CRASH_EVERY steps in one process.
+    For each, the step-CRASH_EVERY save's write on its thread (ms from the
+    save's return, the write queued, to the rename that commits it) against
+    the ms from that return to the end of step 2 * CRASH_EVERY - 1, where
+    ``DLS_FAULT=crash@8`` kills the drill's first attempt: a write that
+    commits later is lost to that kill. Prints one ``ckpt commit {json}``
+    line."""
+    import shutil
+
+    import distributeddeeplearningspark_tpu_torch as pkg
+    from distributeddeeplearningspark_tpu_torch.checkpoint import Checkpointer
+    from distributeddeeplearningspark_tpu_torch.data import sources
+    from distributeddeeplearningspark_tpu_torch.models.lenet import LeNet5
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    check(Path(pkg.__file__).resolve().parent.parent == Path(tree).resolve(),
+          f"{PKG} imported from {pkg.__file__}, not from {tree}")
+    spark = Session.builder.master("local[1]").appName("ckpt-commit").config(
+        "spark.dls.deterministic", "true").getOrCreate()
+    times: dict = {}
+    real_save, real_write = Checkpointer.save, Checkpointer._write
+
+    def save(self, step, state, **kw):
+        out = real_save(self, step, state, **kw)
+        times[("queued", step)] = time.perf_counter()
+        return out
+
+    def write(self, step, host, data_state):
+        real_write(self, step, host, data_state)
+        times[("committed", step)] = time.perf_counter()
+
+    Checkpointer.save, Checkpointer._write = save, write
+    kill_step, runs = 2 * CRASH_EVERY - 1, []
+    root = ROOT / "build" / "chip_smoke_ckpt_commit"
+    for i in range(CRASH_PROBES):
+        shutil.rmtree(root, ignore_errors=True)
+        times.clear()
+        ends: dict = {}
+        ckpt = Checkpointer(root)
+        trainer = Trainer(spark, LeNet5(device=spark.device), losses.softmax_xent,
+                          optim.sgd(0.01, momentum=0.9), checkpointer=ckpt)
+        trainer.fit(sources.synthetic_mnist(4096, num_partitions=1, seed=0).repeat(),
+                    batch_size=LENET_BATCH, steps=2 * CRASH_EVERY, log_every=1,
+                    checkpoint_every=CRASH_EVERY,
+                    callbacks=[lambda s, _m: ends.__setitem__(s, time.perf_counter())])
+        ckpt.close()
+        queued = times[("queued", CRASH_EVERY)]
+        committed = times[("committed", CRASH_EVERY)]
+        runs.append(dict(queued_to_commit_ms=(committed - queued) * 1e3,
+                         queued_to_kill_ms=(ends[kill_step] - queued) * 1e3,
+                         committed_before_kill=committed <= ends[kill_step]))
+    shutil.rmtree(root, ignore_errors=True)
+    spark.stop()
+    commit = sorted(r["queued_to_commit_ms"] for r in runs)
+    rec = dict(tree=str(Path(tree).resolve()), runs=runs,
+               commit_ms_median=commit[len(commit) // 2], commit_ms_max=commit[-1],
+               lost_to_the_kill=sum(not r["committed_before_kill"] for r in runs),
+               card=nvidia_smi_line())
+    print("ckpt commit " + json.dumps(rec), flush=True)
+    return 0
 
 
 def recovery_supervised_lenet(torch) -> dict:
@@ -3920,24 +3999,21 @@ def _llama_drain_args() -> list[str]:
 
 
 def _handoff_numbers(wd: Path) -> dict:
-    """The drained rank 0's drain from its telemetry: the live engine's wall
-    split into the gather and the digests (the copies to the host, the
-    hashing, the verify re-read), its rounds, peak bytes in flight and
-    budget; the handoff's write split into the pulls, the digest and the
-    file writes; and the handoff's bytes and ingest (the resume's
-    record)."""
+    """The drained rank 0's drain from its telemetry: the save's wall, and
+    in it the pulls with their copies to the host, the hashing threads'
+    busy seconds (every rank's own shard, the file's digest and the check
+    of what arrived) and the writing thread's (both overlap the pulls); its
+    rounds, peak bytes in flight and budget; and the handoff's bytes and
+    ingest (the resume's record)."""
     rs = _reshards(_events(wd, "p0"))
     drain = next((r for r in rs if r.get("reason") == "preemption-drain"), {})
     resume = next((r for r in rs if r.get("reason") == "preemption-resume"), {})
-    return dict(move_s=drain.get("wall_s"), move_gather_s=drain.get("move_gather_s"),
-                move_digest_s=drain.get("move_digest_s"),
+    return dict(drain_s=drain.get("wall_s"), pull_s=drain.get("save_pull_s"),
+                digest_s=drain.get("save_digest_s"), write_s=drain.get("save_write_s"),
                 bytes_gathered=drain.get("bytes_moved"),
                 leaves_gathered=drain.get("leaves_moved"), rounds=drain.get("rounds"),
                 peak_inflight_bytes=drain.get("peak_inflight_bytes"),
-                mem_budget_mb=drain.get("mem_budget_mb"), save_s=drain.get("save_s"),
-                save_pull_s=drain.get("save_pull_s"),
-                save_digest_s=drain.get("save_digest_s"),
-                save_write_s=drain.get("save_write_s"),
+                mem_budget_mb=drain.get("mem_budget_mb"),
                 handoff_bytes=resume.get("bytes_moved"),
                 handoff_leaves=resume.get("leaves_moved"), ingest_s=resume.get("wall_s"))
 
@@ -3947,8 +4023,9 @@ def train_llama_drain(torch, ranks: int) -> dict:
     through the port's driver at ``fsdp=ranks`` under the port's
     Supervisor with ``DLS_FAULT=sigterm@4`` (host 1), 8 steps at the global
     b = 12 over 12 source partitions. The gang drains at step 4: the live
-    engine gathers every FSDP2 shard onto every card (verified), rank 0
-    writes the handoff, and the supervisor relaunches at ``ranks - 1``
+    engine pulls every FSDP2 shard chunk by chunk to rank 0, which checks
+    what arrived against each rank's own digests and writes the handoff,
+    and the supervisor relaunches at ``ranks - 1``
     cards (fsdp=3: no dim of 7B divides by 3, so every leaf is whole on
     every card), which ingests it (digests checked on every rank) and runs
     steps 5–8 (:func:`_drain_checks`). Against an uninterrupted run at
@@ -4740,6 +4817,9 @@ def main() -> int:
         return loop_ms_tree(sys.argv[2])
     if sys.argv[1:2] == ["--loop-ab"]:
         return loop_ab_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--ckpt-commit"]:  # another tree's package, on its own
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        return ckpt_commit_tree(sys.argv[2])
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:] == ["--lenet-rank"]:
         return lenet_rank()

@@ -49,22 +49,14 @@ go through ``f`` too, so their gradients arrive summed across the group.
 :func:`grad_average` is the reference's round loop, a numpy average of
 per-partition gradients, which tests hold the step to. Whether the ranks'
 replicas agree is :func:`..utils.sanitize.assert_replicas_in_sync`'s check.
-
-The opt-in comms probe for explicit bulk transfers (:func:`transfer_probe`,
-on with ``DLS_COMMS_PROBE``): the live-reshard engine reports each move as a
-``collective`` telemetry event. It runs eagerly on the host, outside any
-compiled step.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Any, Sequence
 
 import numpy as np
 import torch
-
-from distributeddeeplearningspark_tpu_torch import telemetry
 
 
 def _dist():
@@ -274,23 +266,3 @@ def grad_average(partition_grads: Sequence[Any]) -> Any:
     for g in partition_grads[1:]:
         acc += np.asarray(g)
     return acc / n
-
-
-#: Env toggle for the comms probes (any value but ""/"0" enables).
-COMMS_PROBE_ENV = "DLS_COMMS_PROBE"
-
-
-def collective_probes_enabled() -> bool:
-    return os.environ.get(COMMS_PROBE_ENV, "") not in ("", "0")
-
-
-def transfer_probe(op: str, nbytes: int, wall_s: float, **fields: Any) -> None:
-    """Report one explicit bulk transfer (the live-reshard engine's schedule,
-    a handoff ingest) as a ``collective`` event when probes are on; the
-    caller hands over the measured wall."""
-    if not collective_probes_enabled():
-        return
-    writer = telemetry.get()
-    if writer is not None:
-        writer.emit("collective", op=op, bytes=int(nbytes),
-                    wait_s=float(wall_s), **fields)

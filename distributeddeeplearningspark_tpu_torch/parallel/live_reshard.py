@@ -20,23 +20,34 @@ lives on (a tuple of ``Shard``/``Replicate``, one a mesh dim):
   rows each holds, FSDP2's uneven shards included); then each rank keeps
   the part its target span covers. A whole-leaf ``full_tensor()`` never
   happens: the chunk is the most any rank holds in flight.
-- **verification**: every moved leaf is blake2b-hashed (16 bytes) over its
-  contiguous little-endian bytes in logical row order during the pull, and
-  again from the target after placement; a mismatch raises
-  :class:`ReshardVerifyError` before anything is saved. The re-reads are
-  not counted as rounds.
+- **verification**: every rank hashes (blake2b, 16 bytes, over the
+  contiguous little-endian bytes in row-major order) what it holds of each
+  sharded leaf *before* any of it travels, over the region ``DTensor``
+  itself reports for that rank (not this module's spans, so a wrong span
+  cannot hide). After the move each rank hashes the same regions where it
+  now holds them, and one exchange of digests compares the two; a mismatch
+  anywhere (a corrupt broadcast, a broadcast from the wrong rank, a piece
+  placed at the wrong rows) raises :class:`ReshardVerifyError` on every
+  rank. Hashing is not counted as rounds.
 
 The **handoff** (:func:`save_handoff` / :func:`load_handoff`): a drained
 gang's state as raw bytes, a file a leaf, beside a manifest holding each
 leaf's path, shape, torch dtype and digest (top-level keys as JAX's:
 ``format``, ``step``, ``data_state``, ``geometry``, ``leaves``,
-``stats``). Rank 0 writes it into ``live_handoff.tmp.<pid>/`` while every
-rank takes part in the pulls, renames it into place, then the gang meets
-at a barrier. The relaunch reads every file on every rank, checks each
+``stats``). The save is the drain's one move: the gang pulls each sharded
+leaf chunk by chunk under the budget straight from its shards (no
+replicated copy is made), rank 0 hashes and writes each chunk into
+``live_handoff.tmp.<pid>/`` on background threads while the next is
+pulled, checks what it received against every rank's own digests as
+above, and only then renames the directory into place; the gang meets at
+a barrier. The relaunch reads every file on every rank, checks each
 digest and the leaf set, agrees across ranks, and writes the whole tensors
 into the new trainer's layout (each rank keeping its shard of the
 replicated source: no collective). Any mismatch raises
 :class:`HandoffError`, and the caller walks back through the checkpoint.
+A ``progress`` callback (the trainer passes its heartbeat) is called at
+every chunk of a save and every leaf of an ingest, so a supervisor's hang
+watchdog sees a long drain as progress.
 
 Consumers: ``Trainer``'s graceful drain and ``restore_live_handoff``
 (:mod:`..train.trainer`) and the drivers' resume (:mod:`..examples`).
@@ -53,8 +64,9 @@ import math
 import os
 import shutil
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -128,9 +140,9 @@ def chunk_rows(shape: tuple[int, ...], itemsize: int,
 
 @dataclasses.dataclass
 class TransferStats:
-    """Ledger of one :func:`redistribute` call — the live-path fields the
-    ``reshard`` telemetry event carries (bytes moved, rounds, peak
-    in-flight, wall)."""
+    """Ledger of one :func:`redistribute` or :func:`save_handoff` call — the
+    live-path fields the ``reshard`` telemetry event carries (bytes moved,
+    rounds, peak in-flight, wall)."""
 
     leaves: int = 0
     leaves_moved: int = 0
@@ -287,13 +299,6 @@ def _write_block(dst: torch.Tensor, dst_span: Span, block: torch.Tensor,
         dst[relative(o, dst_span)] = block[relative(o, block_span)]
 
 
-def _digest_chunks(x: torch.Tensor, chunks) -> str:
-    h = hashlib.blake2b(digest_size=_DIGEST_SIZE)
-    for lo, hi in chunks:
-        h.update(_host_bytes(_pull_rows(x, lo, hi)[1]))
-    return h.hexdigest()
-
-
 def _add(timings: dict | None, key: str, t0: float) -> float:
     """Add the seconds since ``t0`` to ``timings[key]``; returns now."""
     now = time.perf_counter()
@@ -308,9 +313,71 @@ def _on_target(x: torch.Tensor, target: tuple) -> bool:
     return all(isinstance(p, Replicate) for p in target)
 
 
+# -- verification -------------------------------------------------------------------
+
+
+def _region(shape, mesh, placements) -> Span:
+    """The global span this rank holds of a tensor of ``shape`` laid out by
+    ``placements`` on ``mesh``, as ``DTensor`` computes it — not by this
+    module's spans, so a check of a move does not share the arithmetic it
+    checks."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    local, offset = compute_local_shape_and_global_offset(
+        tuple(shape), mesh, tuple(placements))
+    return [(int(o), int(o) + int(n)) for n, o in zip(local, offset)]
+
+
+def _key(span: Span) -> tuple:
+    return tuple((int(lo), int(hi)) for lo, hi in span)
+
+
+def _digest(t: torch.Tensor, budget: int) -> str:
+    """blake2b of ``t``'s row-major bytes, copied to the host by row chunks
+    of at most ``budget`` bytes."""
+    h = hashlib.blake2b(digest_size=_DIGEST_SIZE)
+    if t.dim() == 0:
+        h.update(_host_bytes(t))
+    for lo, hi in (chunk_rows(tuple(t.shape), t.element_size(), budget)
+                   if t.dim() else ()):
+        h.update(_host_bytes(t[lo:hi]))
+    return h.hexdigest()
+
+
+def _digests_of(local: torch.Tensor, held: Span, spans, budget: int) -> dict:
+    """``{span: digest}`` of the parts of ``local`` (covering ``held``) that
+    each non-empty span of ``spans`` names."""
+    out: dict = {}
+    for span in spans:
+        if span is None or _key(span) in out:
+            continue
+        out[_key(span)] = _digest(local[relative(span, held)], budget)
+    return out
+
+
+def _agree_or_raise(error: str | None) -> None:
+    """Every rank's verdict; raises :class:`ReshardVerifyError` on every rank
+    when any rank found a mismatch."""
+    bad = [(r, e) for r, e in enumerate(collectives.all_gather_object(error))
+           if e is not None]
+    if bad:
+        r, e = bad[0]
+        raise ReshardVerifyError(
+            f"rank {r}: {e} — the transfer corrupted bytes; do not checkpoint "
+            f"this state, restore from the last verified checkpoint")
+
+
+def _mismatch(path: str, span: tuple, source: int, want: str, got: str) -> str:
+    return (f"leaf {path!r}: blake2b mismatch at rows {list(span)} of rank "
+            f"{source}'s shard (source {want}, received {got})")
+
+
+# -- the move ----------------------------------------------------------------------
+
+
 def _move_leaf(x: DTensor, target: tuple, chunks, ledger: _RoundLedger,
-               timings: dict | None = None) -> tuple[DTensor, str]:
-    """Move one leaf chunk by chunk; returns ``(moved, source_digest)``."""
+               timings: dict | None = None) -> DTensor:
+    """Move one leaf chunk by chunk."""
     mesh = x.device_mesh
     shape = tuple(x.shape)
     dst_span = shard_span(shape, target, tuple(mesh.shape),
@@ -318,48 +385,40 @@ def _move_leaf(x: DTensor, target: tuple, chunks, ledger: _RoundLedger,
     with torch.no_grad():
         device = x.to_local().device
     dst = torch.empty([b - a for a, b in dst_span], dtype=x.dtype, device=device)
-    h = hashlib.blake2b(digest_size=_DIGEST_SIZE)
     for lo, hi in chunks:
         t0 = time.perf_counter()
         span, block = _pull_rows(x, lo, hi)
         ledger.add(block.numel() * block.element_size())
         _write_block(dst, dst_span, block, span)
-        t0 = _add(timings, "gather_s", t0)
-        h.update(_host_bytes(block))
-        _add(timings, "digest_s", t0)
+        _add(timings, "gather_s", t0)
     ledger.close()
-    moved = DTensor.from_local(dst, mesh, tuple(target), run_check=False,
-                               shape=x.shape, stride=x.stride())
-    return moved, h.hexdigest()
+    return DTensor.from_local(dst, mesh, tuple(target), run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def redistribute(leaves: dict[str, Any], targets: dict[str, Any], *,
                  mem_mb: float | None = None, verify: bool = True,
-                 timings: dict[str, float] | None = None,
-                 digests: dict[str, str] | None = None
+                 timings: dict[str, float] | None = None
                  ) -> tuple[dict[str, Any], TransferStats]:
     """Move each leaf of the flat state ``leaves`` to its placements in
     ``targets`` (a tuple, one a mesh dim of the leaf's mesh; a missing or
     None target leaves the leaf alone) in rounds of bounded bytes in
-    flight; returns ``(leaves, stats)``. A collective: every rank of the
-    leaves' meshes calls it with the same paths and targets.
+    flight; returns ``(leaves, stats)``. A collective: every rank calls it
+    with the same paths and targets.
 
     Each round gathers one chunk's rows only (``DLS_RESHARD_MEM_MB`` or
-    ``mem_mb``); with ``verify``, every moved leaf is re-read from its new
-    layout and its blake2b digest checked against the pull's, and a
-    mismatch raises :class:`ReshardVerifyError`. Re-reads from replicated
-    targets take no collective and run on a thread a core (hashing frees
-    the interpreter lock). ``timings`` (if given) accumulates this rank's
-    seconds gathering (``gather_s``) and copying to the host and hashing,
-    the re-reads included (``digest_s``); ``digests`` (if given) receives
-    each verified leaf's digest by path, which :func:`save_handoff` takes
-    in place of hashing the same bytes again."""
+    ``mem_mb``). With ``verify``, every rank hashes each part of its source
+    shard that some rank's target holds before the move, and each part it
+    holds of every source shard after it; one exchange compares them, and
+    a mismatch raises :class:`ReshardVerifyError` on every rank.
+    ``timings`` (if given) accumulates this rank's seconds gathering
+    (``gather_s``) and copying to the host and hashing (``digest_s``)."""
     budget = memory_budget_bytes(mem_mb)
     ledger = _RoundLedger(budget)
     stats = TransferStats(mem_budget_bytes=budget)
     t0 = time.perf_counter()
     out: dict[str, Any] = {}
-    pending: list[tuple[str, DTensor, str, tuple]] = []
+    moving: list[tuple[str, DTensor, tuple]] = []
     for path, x in leaves.items():
         stats.leaves += 1
         target = targets.get(path)
@@ -374,42 +433,49 @@ def redistribute(leaves: dict[str, Any], targets: dict[str, Any], *,
             raise ValueError(
                 f"leaf {path!r}: a tensor on no mesh cannot take placements "
                 f"{tuple(target)}")
+        moving.append((path, x, tuple(target)))
+    # every rank's region of each leaf before and after, as DTensor lays
+    # them out, then what this rank's source holds of each target region,
+    # hashed before anything travels
+    regions, sources = [], {}
+    if verify and moving:
+        t_d = time.perf_counter()
+        regions = collectives.all_gather_object(
+            {path: (_region(x.shape, x.device_mesh, x.placements),
+                    _region(x.shape, x.device_mesh, target))
+             for path, x, target in moving})
+        for path, x, _ in moving:
+            held = regions[collectives.rank()][path][0]
+            sources[path] = _digests_of(
+                x.to_local(), held, [overlap(held, r[path][1]) for r in regions], budget)
+        _add(timings, "digest_s", t_d)
+    for path, x, target in moving:
         chunks = chunk_rows(tuple(x.shape), x.element_size(), budget)
-        moved, digest = _move_leaf(x, tuple(target), chunks, ledger, timings)
+        out[path] = _move_leaf(x, target, chunks, ledger, timings)
         stats.leaves_moved += 1
         stats.bytes_moved += x.numel() * x.element_size()
-        out[path] = moved
-        if verify:
-            pending.append((path, moved, digest, chunks))
-    # every re-read first (they may be collectives), then the comparisons
-    t_verify = time.perf_counter()
-    if all(all(isinstance(p, Replicate) for p in moved.placements)
-           for _, moved, _, _ in pending):
-        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
-            got = list(pool.map(lambda item: _digest_chunks(item[1], item[3]), pending))
-    else:
-        got = [_digest_chunks(moved, chunks) for _, moved, _, chunks in pending]
-    _add(timings, "digest_s", t_verify)
-    for (path, _, digest, _), g in zip(pending, got):
-        if g != digest:
-            raise ReshardVerifyError(
-                f"leaf {path!r}: blake2b mismatch after live reshard "
-                f"(source {digest}, target {g}) — transfer corrupted "
-                f"bytes; do not checkpoint this state, restore from the "
-                f"last verified checkpoint")
-    if digests is not None:
-        digests.update((path, g) for (path, _, _, _), g in zip(pending, got))
+    if verify and moving:
+        t_d = time.perf_counter()
+        error = None
+        every = collectives.all_gather_object(sources)
+        for path, _, _ in moving:
+            dst = regions[collectives.rank()][path][1]
+            local = out[path].to_local()
+            for src, r in enumerate(regions):
+                span = overlap(r[path][0], dst)
+                if span is None:
+                    continue
+                got = _digest(local[relative(span, dst)], budget)
+                want = every[src][path].get(_key(span))
+                if got != want and error is None:
+                    error = _mismatch(path, _key(span), src, want, got)
+        _add(timings, "digest_s", t_d)
+        _agree_or_raise(error)
     stats.verified = bool(verify)
     stats.rounds = ledger.rounds
     stats.peak_inflight_bytes = ledger.peak
     stats.wall_s = time.perf_counter() - t0
-    _probe(stats)
     return out, stats
-
-
-def _probe(stats: TransferStats) -> None:
-    collectives.transfer_probe("live_reshard", stats.bytes_moved, stats.wall_s,
-                               rounds=stats.rounds)
 
 
 def emit_reshard_event(stats: TransferStats, *, step: int | None = None,
@@ -477,77 +543,213 @@ def tree_digest(tree: Any) -> str:
     return h.hexdigest()
 
 
+#: threads a kind of hashing takes in a handoff's save (a leaf's chunks all
+#: go to one, in order; blake2b frees the interpreter lock)
+HASH_LANES = 4
+
+
+class _Lanes:
+    """Background threads, one a lane, each doing its work in the order it
+    was queued, with at most ``depth`` items queued in all (so the host
+    copies they hold stay bounded). Keeps each lane's busy seconds and the
+    first error, which :meth:`join` returns: the caller goes on with its
+    collectives and reports the error in step with the gang."""
+
+    def __init__(self, names, depth: int = 32):
+        self._pools = {n: ThreadPoolExecutor(1, thread_name_prefix=f"dls-handoff-{n}")
+                       for n in names}
+        self.busy = dict.fromkeys(names, 0.0)
+        self.error: BaseException | None = None
+        self._queued: deque = deque()
+        self._depth = depth
+
+    def submit(self, lane: str, fn: Callable, *args) -> None:
+        if self.error is not None:
+            return
+
+        def timed():
+            t0 = time.perf_counter()
+            try:
+                fn(*args)
+            finally:
+                self.busy[lane] += time.perf_counter() - t0
+
+        self._queued.append(self._pools[lane].submit(timed))
+        while len(self._queued) > self._depth:
+            self._wait(self._queued.popleft())
+
+    def _wait(self, fut) -> None:
+        try:
+            fut.result()
+        except Exception as e:  # noqa: BLE001 — reported by join()
+            self.error = self.error or e
+
+    def join(self) -> BaseException | None:
+        while self._queued:
+            self._wait(self._queued.popleft())
+        return self.error
+
+    def close(self) -> None:
+        for pool in self._pools.values():
+            pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _hash_regions(hashers: dict, data: np.ndarray, span: Span, itemsize: int) -> None:
+    """Feed each region's hasher (keyed by its span) the part of a block it
+    covers; ``data`` holds the bytes of the block covering ``span``."""
+    arr = data.reshape(*[hi - lo for lo, hi in span], itemsize)
+    for region, h in hashers.items():
+        o = overlap(list(region), span)
+        if o is not None:
+            h.update(np.ascontiguousarray(arr[relative(o, span)]))
+
+
+def _finish(out: dict, key: str, h) -> None:
+    out[key] = h.hexdigest()
+
+
 def save_handoff(directory: str | os.PathLike, step: int, leaves: dict[str, Any], *,
-                 data_state: dict | None = None,
-                 stats: TransferStats | None = None,
+                 data_state: dict | None = None, mem_mb: float | None = None,
                  timings: dict[str, float] | None = None,
-                 digests: dict[str, str] | None = None) -> str:
+                 progress: Callable[[], None] | None = None) -> TransferStats:
     """Persist the flat state ``leaves`` as a handoff under ``directory``,
-    atomically: rank 0 writes each leaf's bytes (streamed by row chunks,
-    hashed as they are written) and the manifest into a temp dir and
-    renames it into place; the other ranks take part in the pulls of
-    sharded leaves. Ends with a barrier, so on return the handoff exists
-    whole for every rank. ``timings`` (if given) accumulates the seconds
-    spent pulling (``pull_s``), hashing (``digest_s``) and writing
-    (``write_s``) on this rank. A leaf named in ``digests`` (the digests
-    :func:`redistribute` verified on these very tensors) is not hashed
-    again; the ingest checks the file against it all the same."""
+    atomically; returns the move's :class:`TransferStats`. A collective:
+    every rank calls it with the same leaves.
+
+    Each sharded ``DTensor`` leaf is pulled straight from its shards by row
+    chunks, one chunk in flight at a time (``DLS_RESHARD_MEM_MB`` or
+    ``mem_mb``); a plain or replicated leaf is read where it lies. Every
+    rank hashes its own shard of each sharded leaf before it travels; rank
+    0 writes each chunk and hashes it twice (the file's digest, and the
+    regions each rank's shard covers) on background threads, checks the
+    regions against the ranks' digests, and only then writes the manifest
+    and renames ``live_handoff.tmp.<pid>/`` into place. A mismatch, or a
+    failed write, raises :class:`ReshardVerifyError` on every rank and
+    leaves no handoff. Ends with a barrier. ``timings`` (if given)
+    accumulates this rank's seconds pulling and copying to the host
+    (``pull_s``), hashing (``digest_s``, the threads' busy time) and
+    writing (``write_s``); the threads overlap the pulls, so the three need
+    not add up to the wall. ``progress`` is called after every chunk."""
+    budget = memory_budget_bytes(mem_mb)
+    ledger = _RoundLedger(budget)
+    stats = TransferStats(leaves=len(leaves), mem_budget_bytes=budget, verified=True)
+    t_start = time.perf_counter()
     writer = collectives.rank() == 0
     final = handoff_dir(directory)
     tmp = f"{final}.tmp.{os.getpid()}"
-    if writer:
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-    acc = {"pull_s": 0.0, "digest_s": 0.0, "write_s": 0.0}
-    budget = memory_budget_bytes()
-    records = []
-    for i, (path, leaf) in enumerate(leaves.items()):
-        dtype = _dtype_name(leaf)
-        chunks, t = _leaf_chunks(leaf, budget)
-        fname = f"leaf{i:05d}.bin"
-        known = (digests or {}).get(path)
-        h = None if known else hashlib.blake2b(digest_size=_DIGEST_SIZE)
-        f = open(os.path.join(tmp, fname), "wb") if writer else None
-        try:
+    sharded = {path: x for path, x in leaves.items() if isinstance(x, DTensor)
+               and any(isinstance(p, Shard) for p in x.placements)}
+    # every rank's region of each sharded leaf, as DTensor lays it out
+    regions = collectives.all_gather_object(
+        {path: _region(x.shape, x.device_mesh, x.placements)
+         for path, x in sharded.items()}) if sharded else []
+    lanes = _Lanes([f"{kind}{j}" for kind in (("source", "digest", "check") if writer
+                                               else ("source",))
+                    for j in range(HASH_LANES)] + (["write"] if writer else []))
+    sources: dict[str, str] = {}
+    checks: dict[str, dict] = {}
+    records: list[dict] = []
+    files: list = []
+    pull_s = 0.0
+    committed = False
+    try:
+        if writer:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        for i, (path, leaf) in enumerate(leaves.items()):
+            lane = i % HASH_LANES
+            chunks, t = _leaf_chunks(leaf, budget)
+            nbytes = t.numel() * t.element_size()
+            stats.bytes_total += nbytes if isinstance(leaf, torch.Tensor) else 0
+            moving = path in sharded
+            t0 = time.perf_counter()
+            if moving:
+                stats.leaves_moved += 1
+                stats.bytes_moved += nbytes
+                # this rank's shard, hashed before any of it travels
+                local = t.to_local()
+                if local.numel():
+                    mine = hashlib.blake2b(digest_size=_DIGEST_SIZE)
+                    for lo, hi in chunk_rows(tuple(local.shape), local.element_size(),
+                                             budget):
+                        lanes.submit(f"source{lane}", mine.update,
+                                     _host_bytes(local[lo:hi]))
+                    lanes.submit(f"source{lane}", _finish, sources, path, mine)
+            if writer:
+                rec = {"path": path, "file": f"leaf{i:05d}.bin", "shape": list(t.shape),
+                       "dtype": _dtype_name(leaf), "digest": None}
+                records.append(rec)
+                f = open(os.path.join(tmp, rec["file"]), "wb")
+                files.append(f)
+                h = hashlib.blake2b(digest_size=_DIGEST_SIZE)
+                # the distinct regions the ranks hold, each hashed from what arrived
+                region_hs = {_key(r[path]): hashlib.blake2b(digest_size=_DIGEST_SIZE)
+                             for r in regions if moving
+                             and all(lo < hi for lo, hi in r[path])}
+                if region_hs:
+                    checks[path] = region_hs
             for lo, hi in chunks:
-                t0 = time.perf_counter()
-                block = _pull_rows(t, lo, hi)[1]
-                if not writer:
-                    acc["pull_s"] += time.perf_counter() - t0
+                span, block = _pull_rows(t, lo, hi)
+                if moving:
+                    ledger.add(block.numel() * block.element_size())
+                if writer:
+                    data = _host_bytes(block)
+                    lanes.submit("write", f.write, data)
+                    lanes.submit(f"digest{lane}", h.update, data)
+                    if region_hs:
+                        lanes.submit(f"check{lane}", _hash_regions, region_hs, data,
+                                     span, t.element_size())
+                if progress is not None:
+                    progress()
+            if moving:
+                ledger.close()
+            if writer:
+                lanes.submit("write", f.close)
+                lanes.submit(f"digest{lane}", _finish, rec, "digest", h)
+            pull_s += time.perf_counter() - t0
+        failure = lanes.join()
+        error = None if failure is None else f"handoff write failed: {failure!r}"
+        every = collectives.all_gather_object(sources) if sharded else [sources]
+        for path, region_hs in checks.items():
+            for src, r in enumerate(regions):
+                key = _key(r[path])
+                if key not in region_hs or error is not None:
                     continue
-                data = _host_bytes(block)
-                t1 = time.perf_counter()
-                if h is not None:
-                    h.update(data)
-                t2 = time.perf_counter()
-                f.write(memoryview(data))
-                t3 = time.perf_counter()
-                acc["pull_s"] += t1 - t0
-                acc["digest_s"] += t2 - t1
-                acc["write_s"] += t3 - t2
-        finally:
-            if f is not None:
-                f.close()
-        records.append({"path": path, "file": fname, "shape": list(t.shape),
-                        "dtype": dtype, "digest": known or h.hexdigest()})
-    if writer:
-        manifest = {
-            "format": HANDOFF_FORMAT,
-            "step": int(step),
-            "data_state": data_state,
-            "geometry": geometry_of(leaves),
-            "leaves": records,
-            "stats": stats.to_record() if stats is not None else None,
-        }
-        with open(os.path.join(tmp, HANDOFF_MANIFEST), "w") as fh:
-            json.dump(manifest, fh)
-        shutil.rmtree(final, ignore_errors=True)
-        os.replace(tmp, final)
+                got, want = region_hs[key].hexdigest(), every[src].get(path)
+                if got != want:
+                    error = _mismatch(path, key, src, want, got)
+        if sharded:
+            _agree_or_raise(error)
+        elif error is not None:
+            raise ReshardVerifyError(error)
+        stats.rounds, stats.peak_inflight_bytes = ledger.rounds, ledger.peak
+        stats.wall_s = time.perf_counter() - t_start
+        if writer:
+            manifest = {
+                "format": HANDOFF_FORMAT,
+                "step": int(step),
+                "data_state": data_state,
+                "geometry": geometry_of(leaves),
+                "leaves": records,
+                "stats": stats.to_record(),
+            }
+            with open(os.path.join(tmp, HANDOFF_MANIFEST), "w") as fh:
+                json.dump(manifest, fh)
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+        committed = True
+    finally:
+        lanes.close()
+        for f in files:
+            f.close()
+        if writer and not committed:
+            shutil.rmtree(tmp, ignore_errors=True)
     collectives.barrier()
     if timings is not None:
-        for k, v in acc.items():
+        for k, v in (("pull_s", pull_s), ("write_s", lanes.busy.get("write", 0.0)),
+                     ("digest_s", sum(v for k, v in lanes.busy.items() if k != "write"))):
             timings[k] = timings.get(k, 0.0) + v
-    return final
+    return stats
 
 
 def peek_handoff(directory: str | os.PathLike) -> dict | None:
@@ -559,9 +761,9 @@ def peek_handoff(directory: str | os.PathLike) -> dict | None:
         return json.load(f)
 
 
-def _read_leaf(hd: str, rec: dict) -> Any:
+def _read_leaf(hd: str, rec: dict, progress: Callable[[], None] | None = None) -> Any:
     """One manifest leaf's value, its digest checked (raises
-    :class:`HandoffError`)."""
+    :class:`HandoffError`); ``progress`` is called once it is read."""
     path = os.path.join(hd, rec["file"])
     try:
         raw = np.fromfile(path, dtype=np.uint8)
@@ -575,6 +777,8 @@ def _read_leaf(hd: str, rec: dict) -> Any:
             f"manifest's {rec['digest']} — torn or corrupt handoff; fall back "
             f"to the checkpoint")
     if rec["dtype"] == INT_DTYPE:
+        if progress is not None:
+            progress()
         return int(np.frombuffer(raw.tobytes(), dtype="<i8")[0])
     dtype = getattr(torch, rec["dtype"], None)
     shape = tuple(rec["shape"])
@@ -583,6 +787,8 @@ def _read_leaf(hd: str, rec: dict) -> Any:
         raise HandoffError(
             f"handoff leaf {rec['path']!r}: {raw.size} bytes do not hold a "
             f"{shape} {rec['dtype']} tensor — fall back to the checkpoint")
+    if progress is not None:
+        progress()
     return torch.from_numpy(raw).view(dtype).reshape(shape)
 
 
@@ -596,13 +802,15 @@ def _check_leaf(key: str, rec: dict, leaf: Any, hd: str) -> None:
             f"(at {hd}) — fall back to the checkpoint")
 
 
-def load_handoff(directory: str | os.PathLike, template: Any) -> tuple[Any, dict]:
+def load_handoff(directory: str | os.PathLike, template: Any, *,
+                 progress: Callable[[], None] | None = None) -> tuple[Any, dict]:
     """Ingest a handoff into ``template`` (a ``TrainState``, in place, on
     its own layout): every leaf digest-verified against the manifest, the
     leaf set, shapes and dtypes checked against ``template``'s, the
     verdict agreed by every rank, then each whole tensor written into each
     rank's shard. Returns ``(state, manifest)``; raises
-    :class:`HandoffError` on any mismatch (fall back to the checkpoint)."""
+    :class:`HandoffError` on any mismatch (fall back to the checkpoint).
+    ``progress`` is called after every leaf read."""
     hd = handoff_dir(directory)
     loaded: dict[str, Any] = {}
     live = template.state_dict()
@@ -633,7 +841,7 @@ def load_handoff(directory: str | os.PathLike, template: Any) -> tuple[Any, dict
                 f"{sorted(by_path)} — fall back to the checkpoint")
         # reading and hashing free the interpreter lock: a thread a core
         with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
-            values = list(pool.map(lambda kr: _read_leaf(hd, kr[1]), wanted))
+            values = list(pool.map(lambda kr: _read_leaf(hd, kr[1], progress), wanted))
         loaded = {key: v for (key, _), v in zip(wanted, values)}
     except (HandoffError, OSError, ValueError, KeyError) as e:
         error = e if isinstance(e, HandoffError) else HandoffError(

@@ -112,11 +112,12 @@ The graceful preemption drain: a preemption notice (``DLS_FAULT=sigterm@N``
 for the host ``DLS_FAULT_HOST`` names, or a notice file at
 ``DLS_PREEMPT_NOTICE``, :func:`~..faults.read_preempt_notice`) is honoured
 at the first step boundary at or past its step, after the callbacks and
-before that step's checkpoint: every rank gathers the state onto every
-card by the bounded live engine (:mod:`..parallel.live_reshard`, every leaf
-replicated on its mesh, blake2b-verified), rank 0 commits it as a
-digest-verified handoff beside the checkpoints, and only then writes the
-supervisor's ``DRAIN`` evidence; ``fit`` returns with
+before that step's checkpoint: the gang streams the state from its shards
+into a handoff beside the checkpoints by the bounded live engine
+(:mod:`..parallel.live_reshard`: chunks under the byte budget, no
+replicated copy, what rank 0 received checked against every rank's own
+blake2b digests, rank 0 writes), stamping the heartbeat at every chunk,
+and only then rank 0 writes the supervisor's ``DRAIN`` evidence; ``fit`` returns with
 :attr:`Trainer.preempted_at` set and saves no final checkpoint. The
 supervisor shrinks the gang at once, and the relaunch's
 :meth:`Trainer.restore_live_handoff` resumes from the drained step with no
@@ -467,10 +468,11 @@ class Trainer:
         self._telemetry(ckpt)
         if self.state is None:
             self.init()
+        _touch_heartbeat()  # the ingest stamps it at every leaf from here
         t0 = time.perf_counter()
         with telemetry_lib.phase("restore", source="live-handoff"):
-            self.state, manifest = live_reshard.load_handoff(ckpt.directory,
-                                                             self.state)
+            self.state, manifest = live_reshard.load_handoff(
+                ckpt.directory, self.state, progress=_touch_heartbeat)
         nbytes = sum(math.prod(r["shape"]) * (
             8 if r["dtype"] == live_reshard.INT_DTYPE
             else getattr(torch, r["dtype"]).itemsize) for r in manifest["leaves"])
@@ -494,12 +496,13 @@ class Trainer:
     def _graceful_drain(self, step: int, *, examples_seen: int,
                         batch_size: int, doomed: int) -> None:
         """Honour a preemption notice naming host ``doomed``: the step in
-        flight is finished, every leaf of the state is gathered replicated
-        onto its mesh by the bounded engine (verified), rank 0 commits it as
-        the handoff, and after a barrier the ``DRAIN`` evidence is written
-        last, so the supervisor only ever sees evidence an ingestible
-        handoff backs. A hard kill (``die_host``) never gets here: it walks
-        back through the checkpoint."""
+        flight is finished, the gang streams every leaf of the state from
+        its shards into the handoff (bounded, verified against each rank's
+        own digests; rank 0 writes), and after its barrier the ``DRAIN``
+        evidence is written last, so the supervisor only ever sees evidence
+        an ingestible handoff backs. Every chunk stamps the heartbeat, so a
+        long drain is not taken for a hang. A hard kill (``die_host``)
+        never gets here: it walks back through the checkpoint."""
         from distributeddeeplearningspark_tpu_torch import supervisor as sup_lib
         from distributeddeeplearningspark_tpu_torch.parallel import live_reshard
 
@@ -510,24 +513,15 @@ class Trainer:
                 "from")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # the step in flight
-        leaves = live_reshard.flatten(self.state.state_dict())
-        move: dict[str, float] = {}
-        digests: dict[str, str] = {}
-        moved, stats = live_reshard.redistribute(
-            leaves, {k: live_reshard.replicated_on(v) for k, v in leaves.items()},
-            timings=move, digests=digests)
         saving: dict[str, float] = {}
-        t0 = time.perf_counter()
-        live_reshard.save_handoff(
-            self.checkpointer.directory, step, moved,
+        stats = live_reshard.save_handoff(
+            self.checkpointer.directory, step,
+            live_reshard.flatten(self.state.state_dict()),
             data_state={"examples_seen": examples_seen, "batch_size": batch_size},
-            stats=stats, timings=saving, digests=digests)
-        save_s = time.perf_counter() - t0
-        del moved
+            timings=saving, progress=_touch_heartbeat)
         live_reshard.emit_reshard_event(
             stats, step=step, transport="collectives", walk_back=False,
-            reason="preemption-drain", dead_host=doomed, save_s=round(save_s, 4),
-            **{f"move_{k}": round(v, 4) for k, v in move.items()},
+            reason="preemption-drain", dead_host=doomed,
             **{f"save_{k}": round(v, 4) for k, v in saving.items()})
         if collectives.rank() == 0:
             sup_lib.write_drain_evidence(self.checkpointer.directory,
@@ -535,10 +529,10 @@ class Trainer:
         self.preempted_at = step
         logger.warning(
             "graceful drain at step %d: host %d preempted — live handoff "
-            "committed (%d leaves, %.1f MiB gathered in %d round(s), %.2fs; "
-            "saved in %.2fs); exiting clean for the supervisor to shrink "
-            "without walk-back", step, doomed, stats.leaves,
-            stats.bytes_moved / 2**20, stats.rounds, stats.wall_s, save_s)
+            "committed (%d leaves, %.1f MiB gathered in %d round(s), %.2fs); "
+            "exiting clean for the supervisor to shrink without walk-back",
+            step, doomed, stats.leaves, stats.bytes_moved / 2**20, stats.rounds,
+            stats.wall_s)
 
     def _telemetry(self, checkpointer: Checkpointer | None = None
                    ) -> telemetry_lib.EventWriter | None:

@@ -11,14 +11,17 @@ the contract of the JAX package's ``tests/test_live_reshard.py``.
   way back is the source bitwise; the rounds bound the bytes in flight (a
   row wider than the budget moves whole and the peak says so); a leaf on
   its target passes through untouched; a None target leaves a leaf alone;
-  a corrupted copy raises ``ReshardVerifyError`` on every rank; a sharded
-  state's handoff saved by the gang loads bitwise into a whole state.
+  a corrupted copy, or one broadcast corrupted in flight (in a move and in
+  the handoff's save), raises ``ReshardVerifyError`` on every rank and a
+  torn save leaves nothing behind; a sharded state's handoff saved by the
+  gang, under the budget, loads bitwise into a whole state.
 - The handoff on one process: the round trip (bf16, ints, the generator's
   state) is bitwise; a corrupt, missing or extra leaf and a wrong shape
   raise ``HandoffError``. ``tree_digest`` tells order and content apart;
   ``emit_reshard_event`` writes JAX's field names for the same stats.
 """
 
+import contextlib
 import json
 import sys
 from pathlib import Path
@@ -262,6 +265,28 @@ def _round_trip(leaves: dict, wholes: dict, mem_mb: float) -> dict:
     }
 
 
+@contextlib.contextmanager
+def _corrupt_first_broadcast_into(receiver: int):
+    """The first broadcast that rank ``receiver`` takes from another rank
+    arrives with one byte flipped (the senders' bytes are intact)."""
+    import torch.distributed as dist
+
+    real, hits = live.dist.broadcast, []
+
+    def broadcast(tensor, src, group=None, **kw):
+        work = real(tensor, src=src, group=group, **kw)
+        if dist.get_rank() == receiver != src and not hits and tensor.numel():
+            hits.append(src)
+            tensor.view(-1).view(torch.uint8)[0] ^= 1
+        return work
+
+    live.dist.broadcast = broadcast
+    try:
+        yield hits
+    finally:
+        live.dist.broadcast = real
+
+
 def _worker(outdir: Path) -> None:
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
@@ -313,11 +338,30 @@ def _worker(outdir: Path) -> None:
     finally:
         live._write_block = real
 
-    # the sharded state's handoff, saved by the gang, loads whole at one rank
     state = TrainState(step=5, params={n: p for n, p in m.named_parameters()},
                        opt_state=[2, leaves["a"] * 2], generator=torch.Generator().manual_seed(3))
-    live.save_handoff(outdir, 5, live.flatten(state.state_dict()),
-                      data_state={"examples_seen": 40, "batch_size": 8})
+    # one broadcast corrupted in flight: the move, and the handoff's save,
+    # check what arrived against each sender's own digests on every rank
+    out["corrupt_broadcast"] = {}
+    for name, move in (
+            ("redistribute", lambda: live.redistribute(
+                leaves, {k: live.replicated_on(v) for k, v in leaves.items()})),
+            ("save_handoff", lambda: live.save_handoff(
+                outdir / "torn", 5, live.flatten(state.state_dict())))):
+        with _corrupt_first_broadcast_into(0):
+            try:
+                move()
+                out["corrupt_broadcast"][name] = None
+            except live.ReshardVerifyError as e:
+                out["corrupt_broadcast"][name] = str(e)
+    torch.distributed.barrier()  # rank 0 has cleaned up
+    torn = outdir / "torn"
+    out["torn_left"] = sorted(p.name for p in torn.iterdir()) if torn.exists() else []
+
+    # the sharded state's handoff, saved by the gang, loads whole at one rank
+    out["handoff"] = live.save_handoff(
+        outdir, 5, live.flatten(state.state_dict()), mem_mb=GANG_MEM_MB,
+        data_state={"examples_seen": 40, "batch_size": 8}).to_record()
     opt_whole = state.opt_state[1].full_tensor()  # a collective: every rank
     if rank == 0:
         torch.save({"whole": wholes, "opt": opt_whole}, outdir / "wholes.pt")
@@ -382,6 +426,29 @@ def test_a_corrupted_move_raises_on_every_rank(gang):
     for rec in ranks:
         assert rec["corrupt"] and "blake2b mismatch" in rec["corrupt"]
         assert "last verified checkpoint" in rec["corrupt"]
+
+
+@pytest.mark.parametrize("move", ["redistribute", "save_handoff"])
+def test_a_corrupted_broadcast_raises_on_every_rank(gang, move):
+    """The check covers the transfer: rank 0 receives one byte flipped, and
+    every rank raises; a torn save leaves no handoff and no temp dir."""
+    _, ranks = gang
+    for rec in ranks:
+        err = rec["corrupt_broadcast"][move]
+        assert err and "blake2b mismatch" in err and "rank 0:" in err, err
+        assert "last verified checkpoint" in err
+        assert rec["torn_left"] == []
+
+
+def test_the_handoffs_save_bounds_the_bytes_in_flight(gang):
+    """The save pulls the four sharded leaves straight from their shards,
+    one chunk under the budget at a time."""
+    _, ranks = gang
+    for rec in ranks:
+        s = rec["handoff"]
+        assert s["leaves_moved"] == 4 and s["rounds"] > 4 and s["verified"]
+        assert 0 < s["peak_inflight_bytes"] <= s["mem_budget_bytes"] == 96
+        assert s["bytes_moved"] == (10 * 6 * 4 * 2 + 9 * 5 * 2 + 4 * 8 * 4)
 
 
 def test_the_gangs_handoff_loads_whole_at_one_rank(gang):

@@ -385,6 +385,69 @@ def test_an_evaluation_longer_than_the_hang_timeout_is_not_a_hang(tmp_path):
     assert _attempt_ends(tmp_path) == {0: "clean"}
 
 
+SLOW_DRAIN = """
+import os
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+from distributeddeeplearningspark_tpu_torch import Checkpointer, LeNet5, Session, Trainer
+from distributeddeeplearningspark_tpu_torch.data import sources
+from distributeddeeplearningspark_tpu_torch.parallel import live_reshard
+from distributeddeeplearningspark_tpu_torch.train import losses, optim
+
+pull, read = live_reshard._pull_rows, live_reshard._read_leaf
+
+
+def slow_pull(*args):
+    time.sleep(0.1)
+    return pull(*args)
+
+
+def slow_read(*args):
+    time.sleep(0.5)
+    return read(*args)
+
+
+live_reshard._pull_rows, live_reshard._read_leaf = slow_pull, slow_read
+# one thread a pool: the ingest reads its leaves one after another
+live_reshard.ThreadPoolExecutor = lambda n, **kw: ThreadPoolExecutor(1, **kw)
+os.environ[live_reshard.RESHARD_MEM_ENV] = str(4096 / 2**20)
+spark = Session.builder.master("local[1]").getOrCreate()
+ckpt = Checkpointer(sys.argv[1])
+trainer = Trainer(spark, LeNet5(device="cpu"), losses.softmax_xent, optim.sgd(0.01),
+                  checkpointer=ckpt)
+data_state = None
+if live_reshard.has_handoff(ckpt.directory):
+    _, data_state = trainer.restore_live_handoff()
+trainer.fit(sources.synthetic_mnist(64, num_partitions=1).repeat(), batch_size=16,
+            steps=4, log_every=1, data_state=data_state)
+ckpt.close()
+"""
+
+
+def test_a_drain_and_an_ingest_longer_than_the_hang_timeout_are_not_hangs(tmp_path):
+    """A preemption drain and the relaunch's ingest of its handoff each take
+    longer than ``hang_timeout_s``: a 4 KiB budget and one chunk pulled
+    every 0.1 s make LeNet's first dense weight (192 KB) alone a 4.8 s pull,
+    and one leaf is read every 0.5 s, against a 3 s timeout. The engine
+    stamps the liveness file at every chunk and every leaf, so the drain is
+    classified ``graceful-shutdown`` and the relaunch is clean."""
+    script = tmp_path / "slow_drain.py"
+    script.write_text(SLOW_DRAIN)
+    ckpt = tmp_path / "ckpt"
+    result = Supervisor([sys.executable, str(script), str(ckpt)], num_processes=1,
+                        max_restarts=1, restart_backoff_s=0.05,
+                        env={**CPU, "OMP_NUM_THREADS": "1", "DLS_FAULT": "sigterm@2"},
+                        hang_timeout_s=3.0, startup_grace_s=120.0, ckpt_dir=str(ckpt),
+                        progress_path=str(ckpt), telemetry_dir=str(tmp_path)).run()
+    assert result.ok, [(a.returncodes, a.classification) for a in result.attempts]
+    assert _attempt_ends(tmp_path) == {0: "graceful-shutdown", 1: "clean"}
+    walls = {e["reason"]: e["wall_s"] for e in _recovery_events(tmp_path)
+             if e["event"] == "reshard"}
+    assert walls["preemption-drain"] > 3.0 and walls["preemption-resume"] > 3.0, walls
+
+
 def test_truncate_drill_walks_back_past_the_torn_step(tmp_path):
     torn = _run(tmp_path, "truncate_ckpt@8")
     assert torn.ok, [(a.returncodes, a.classification) for a in torn.attempts]
