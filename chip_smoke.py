@@ -238,9 +238,9 @@ tolerance; beside it the same gang's ``die_host@6`` walk-back through a
 checkpoint every 4 steps; the drain's gather, digest and write, the
 handoff's bytes, rounds and peak bytes in flight, the ingest, and each
 relaunch's seconds to its first step and its steps lost.
-``--gang dlrm`` (or ``resnet``, ``llama``, ``llama-cp``, ``llama-drain``)
-runs that part's comparisons only, ``--gang recovery`` the shrink, the
-drain and the desync only.
+``--gang dlrm`` (or ``resnet``, ``llama``, ``llama-cp``, ``llama-drain``,
+``llama-moe``) runs that part's comparisons only (names combine),
+``--gang recovery`` the shrink, the drain and the desync only.
 ``python3 chip_smoke.py --recovery`` builds the kernels and runs phases 11
 and 14 only (one card). ``python3 chip_smoke.py --ckpt-commit TREE``
 measures the supervised crash drill's race with TREE's package (one card):
@@ -519,6 +519,8 @@ def check_flash_fwd(torch, fa) -> list[dict]:
                    s=LLAMA_SEQ, h=32, hkv=32, d=128, causal=True, seed=10),
         # each card's local heads under tensor parallelism (--gang llama)
         *_llama_tp_cases(torch),
+        # the MoE 0.9b's: 16 q heads over 8 kv heads
+        _moe_09b_case(torch),
     ]
     results = []
     for c in cases:
@@ -642,6 +644,7 @@ def check_flash_bwd(torch, fa) -> list[dict]:
         _attn_case(torch, "llama_b8_s1024_causal_d128", b=LLAMA_BATCH,
                    s=LLAMA_SEQ, h=32, hkv=32, d=128, causal=True, seed=10),
         *_llama_tp_cases(torch),
+        _moe_09b_case(torch),
     ]
     results = []
     for c in cases:
@@ -1545,6 +1548,154 @@ def train_llama_driver(torch) -> dict:
     check(res["flash_launches"] == want,
           f"the llama driver's flash launches {res['flash_launches']}, want {want}")
     check(not run["left"], f"llama driver left {run['left']}")
+    return rec
+
+
+# -- phase 5c: the MoE 0.9b on one card -----------------------------------------
+
+#: the MoE 0.9b (the JAX bench's ``_llama_09b_cfg`` with ``llama_moe_e8``'s
+#: experts): vocab 32,000, hidden 2,048, 16 layers, 16 q heads over 8 kv
+#: heads (D = 128), FFN 5,632, 8 experts top-2 at capacity factor 1.25, one
+#: routing group a sequence, LoRA rank 16 on wq/wv, bf16 storage; b=4
+#: sequences of S=1,024 (``llama_moe_e8`` pinned b=1 only to fit a 16 GiB
+#: TPU chip), MOE_STEPS steps, and the dense 0.9b on the same batches
+MOE_BATCH, MOE_EXPERTS, MOE_STEPS, MOE_LAYERS = 4, 8, 10, 16
+MOE_VOCAB, MOE_HIDDEN, MOE_FFN = 32000, 2048, 5632
+#: flash launches a step of the 16-layer 0.9b: K1 forward and in the
+#: remat recompute, K2 and K3 once each a layer
+MOE_LAUNCHES = {"flash_fwd": 32, "flash_bwd_dq": 16, "flash_bwd_dkv": 16}
+#: the 0.9b's attention heads and kv heads
+MOE_HEADS, MOE_KV_HEADS = 16, 8
+
+
+def moe_09b_config(torch, llama, **kw):
+    """The MoE 0.9b's config (``moe_experts=0``: the dense 0.9b)."""
+    base = dict(vocab_size=MOE_VOCAB, hidden_size=MOE_HIDDEN, num_layers=MOE_LAYERS,
+                num_heads=MOE_HEADS, num_kv_heads=MOE_KV_HEADS, intermediate_size=MOE_FFN,
+                max_position=LLAMA_SEQ, lora_rank=LLAMA_RANK, lora_alpha=16.0,
+                dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                moe_experts=MOE_EXPERTS)
+    base.update(kw)
+    return llama.LlamaConfig(**base)
+
+
+def _moe_09b_case(torch) -> dict:
+    """The MoE 0.9b step's attention: b=4, S=1,024, 16 q heads over 8 kv
+    heads, causal, D = 128."""
+    return _attn_case(torch, f"moe09b_b{MOE_BATCH}_s1024_h{MOE_HEADS}_kv{MOE_KV_HEADS}"
+                      "_causal_d128", b=MOE_BATCH, s=LLAMA_SEQ, h=MOE_HEADS,
+                      hkv=MOE_KV_HEADS, d=128, causal=True, seed=20)
+
+
+def _lm_feed(spark, parts: int):
+    """synthetic_wikipedia in ``parts`` partitions → a WordPieceTokenizer
+    trained on it → ``lm_dataset`` at S=1,024, repeated: the Llama driver's
+    feed."""
+    from distributeddeeplearningspark_tpu_torch.data import text
+
+    docs = text.synthetic_wikipedia(1024, num_partitions=parts)
+    tok = text.WordPieceTokenizer.train(docs.collect(), vocab_size=2048)
+    return text.lm_dataset(docs, tok, seq_len=LLAMA_SEQ).repeat(), tok
+
+
+def _train_09b(torch, fa, spark, ds, experts: int) -> dict:
+    """The 0.9b (MoE at ``experts`` above 0) built on the meta device and
+    drawn by the Trainer from seed 0, MOE_STEPS LoRA steps at b=4 through
+    ``Trainer.fit``, each logged; then a profiled window."""
+    import gc
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch import telemetry
+    from distributeddeeplearningspark_tpu_torch.metrics import llama_model_flops_per_token
+    from distributeddeeplearningspark_tpu_torch.models import llama
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    steps = MOE_STEPS
+    workdir = ROOT / "build" / f"chip_smoke_llama_moe_{experts}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    cfg = moe_09b_config(torch, llama, moe_experts=experts)
+    tx = optim.masked(optim.with_grad_clip(optim.adamw(optim.warmup_cosine(
+        LLAMA_LR, min(10, max(steps // 10, 1)), steps)), 1.0), llama.lora_trainable)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(spark, llama.LlamaForCausalLM(cfg, device="meta"), losses.causal_lm,
+                      tx, rules=llama.llama_rules(cfg), trainable=llama.lora_trainable)
+    trainer.init()
+    setup_s = time.perf_counter() - t0
+    param_bytes = sum(p.numel() * p.element_size() for p in trainer.model.parameters())
+    os.environ[telemetry.WORKDIR_ENV] = str(workdir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for k in kernels:  # the main path's run starts here
+        k.launches = 0
+    try:
+        _, summary = trainer.fit(ds, batch_size=MOE_BATCH, steps=steps,
+                                 tokens_per_example=LLAMA_SEQ, log_every=1)
+    finally:
+        os.environ.pop(telemetry.WORKDIR_ENV, None)
+        telemetry.reset()
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    logged = [r["metrics"] for r in _events(workdir) if r["kind"] == "step_metrics"]
+    profile = _profile_fit(torch, trainer, ds, MOE_BATCH,
+                           dict(tokens_per_example=LLAMA_SEQ), steps=3)
+    flops = llama_model_flops_per_token(cfg, LLAMA_SEQ, frozen_base=True)
+    tokens_s = summary.get("tokens_per_sec_per_chip")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(experts=experts, layers=cfg.num_layers, param_bytes=param_bytes,
+                losses=[m["loss"] for m in logged],
+                moe_aux=[m.get("moe_aux") for m in logged],
+                moe_dropped_frac=[m.get("moe_dropped_frac") for m in logged],
+                step_time_ms=summary.get("step_time_ms"),
+                tokens_per_sec_per_chip=tokens_s, model_flops_per_token=flops,
+                model_tflops_per_s=tokens_s * flops / 1e12 if tokens_s else None,
+                launches=launches, max_memory_allocated=peak, setup_s=setup_s,
+                profile=profile)
+
+
+def train_llama_moe(torch, fa) -> dict:
+    """The MoE 0.9b (Queue 1 item 6's ``expert`` axis at one card) through
+    the port's Session → synthetic_wikipedia → WordPieceTokenizer →
+    lm_dataset(S=1,024) → Trainer.fit (``trainable=lora_trainable``, the
+    adapters' AdamW) for MOE_STEPS steps at b=4, then the dense 0.9b on the
+    same batches: the MoE's losses finite and falling, ``moe_aux`` and
+    ``moe_dropped_frac`` logged each step, K1/K2/K3 MOE_LAUNCHES a step, and
+    the routing's cost beside the dense run's step."""
+    import gc
+
+    from distributeddeeplearningspark_tpu_torch.session import Session
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    spark = Session.builder.master("local[1]").appName("llama-moe").getOrCreate()
+    try:
+        ds, tok = _lm_feed(spark, max(spark.default_parallelism, 1))
+        runs = {name: _train_09b(torch, fa, spark, ds, experts)
+                for name, experts in (("moe", MOE_EXPERTS), ("dense", 0))}
+    finally:
+        spark.stop()
+    moe, dense = runs["moe"], runs["dense"]
+    rec = dict(batch_size=MOE_BATCH, seq_len=LLAMA_SEQ, lora_rank=LLAMA_RANK,
+               tokenizer_vocab=tok.vocab_size, **runs,
+               moe_over_dense_step=(moe["step_time_ms"] / dense["step_time_ms"]
+                                    if dense["step_time_ms"] else None),
+               card=nvidia_smi_line())
+    print("train llama moe-0.9b " + json.dumps(rec), flush=True)
+    for name, run in runs.items():
+        check(len(run["losses"]) == MOE_STEPS and all(np.isfinite(run["losses"])),
+              f"the {name} 0.9b's logged losses: {run['losses']}")
+        want = {k: n * MOE_STEPS for k, n in MOE_LAUNCHES.items()}
+        check(run["launches"] == want,
+              f"the {name} 0.9b's flash launches {run['launches']}, want {want}")
+    check(moe["losses"][-1] < moe["losses"][0], f"the MoE loss did not fall: {moe}")
+    check(all(a is not None and np.isfinite(a) and a > 0 for a in moe["moe_aux"])
+          and all(d is not None and 0.0 <= d <= 1.0 for d in moe["moe_dropped_frac"]),
+          f"moe_aux {moe['moe_aux']}, moe_dropped_frac {moe['moe_dropped_frac']}")
+    check(dense["moe_aux"] == [None] * MOE_STEPS, "the dense 0.9b logged moe_aux")
     return rec
 
 
@@ -3164,8 +3315,8 @@ def _plant(fault: str) -> None:
     if fault == "loss-unweighed":
         weigh = collectives.weigh_loss
 
-        def unweighed(loss, metrics, rows):
-            weighed, out = weigh(loss, metrics, rows)
+        def unweighed(loss, metrics, rows, group=None):
+            weighed, out = weigh(loss, metrics, rows, group)
             return weighed * collectives.world_size(), out
 
         collectives.weigh_loss = unweighed
@@ -3180,7 +3331,7 @@ def _plant(fault: str) -> None:
                 collectives.all_reduce_sum = reduce
 
         resnet._BatchNormTrain.backward = staticmethod(local_backward)
-        collectives._AllReduceSum.backward = staticmethod(lambda ctx, g: g)
+        collectives._AllReduceSum.backward = staticmethod(lambda ctx, g: (g, None))
     elif fault == "merge-local":
         update = embed.rowwise_adagrad_update
 
@@ -3597,30 +3748,31 @@ def llama_rank(argv: list[str]) -> int:
     return 0
 
 
-def _llama_run(workdir: Path, ranks: int, mode: str, fault: str, args: list[str]
-               ) -> dict:
-    """A :func:`llama_rank` launch of the driver's flags ``args`` at
-    ``local[ranks]``: every rank's record,
-    its logged losses and grad norms, and its step ms (the laps after the
+def _llama_run(workdir: Path, ranks: int, mode: str, fault: str, args: list[str],
+               entry: str = "--llama-rank") -> dict:
+    """A :func:`llama_rank` launch of the driver's flags ``args`` (with
+    ``entry="--moe-rank"``, a :func:`moe_rank` launch of its layout) at
+    ``local[ranks]``: every rank's record, its logged losses, grad norms and
+    ``moe_aux`` (None without MoE), and its step ms (the laps after the
     first), from its telemetry."""
     import shutil
 
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     _, timing = _launch(workdir, ranks, Path(__file__).resolve(),
-                        ["--llama-rank", str(workdir), mode, fault, *args],
-                        timeout=900)
+                        [entry, str(workdir), mode, fault, *args], timeout=900)
     cards = [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(ranks)]
     logged: dict = {}
     for r in _events(workdir):
         if r["kind"] == "step_metrics" and r["step"] <= GANG_STEPS:
             logged.setdefault(r["process"], []).append(
                 (r["metrics"]["loss"], r["metrics"]["grad_norm"],
-                 r["lap_s"] * 1e3 / r["steps"]))
+                 r["lap_s"] * 1e3 / r["steps"], r["metrics"].get("moe_aux")))
     by_rank = [logged.get(f"p{r}", []) for r in range(ranks)]
     return dict(cards=cards, launch=timing,
                 losses=[[x[0] for x in v] for v in by_rank],
                 grad_norms=[[x[1] for x in v] for v in by_rank],
+                moe_aux=[[x[3] for x in v] for v in by_rank],
                 step_ms=[float(np.mean([x[2] for x in v][1:])) if len(v) > 1 else None
                          for v in by_rank])
 
@@ -3838,6 +3990,373 @@ def train_llama_gang(torch, ranks: int) -> dict:
               or seen.get("max_grad_norm_rel_err", 0.0) > GANG_GRAD_NORM_RTOL,
               f"llama gang: the planted fault {fault!r} ({why}) stays within every "
               f"limit: {seen}")
+    return rec
+
+
+# -- the expert axis across the cards (--gang llama-moe) -------------------------
+
+#: the MoE comparison runs' layouts at four cards: name → (``mesh.fsdp``,
+#: ``mesh.expert``); ``data`` stays 1, and one card is ``one``
+MOE_LAYOUTS = {"expert4": (1, 4), "fsdp2-expert2": (2, 2)}
+#: the MoE 0.9b full fine-tune: its widths cut to this many layers, f32
+#: params, every param (the experts and the router too) trainable
+MOE_FULL_LAYERS = 2
+#: each logged ``moe_aux`` at four cards against one card's: the load
+#: balance's means over the same global batch, from bf16 activations that
+#: round differently at b/N rows (a near-tie flipped in one token's first
+#: choice moves one layer's aux by about E·p̄/T, 2.4e-4 of its ~1, 1.5e-5 of
+#: the 16 layers' sum); means taken over each rank's own rows
+#: (``aux-local-means``) move it by the covariance across ranks of each
+#: expert's share and mean probability. A CPU rehearsal (4 gloo ranks, the
+#: widths cut to 128 hidden, 4 layers, S = 64, bf16) read 1.4e-3 sound at
+#: fsdp=2 × expert=2, 1.2e-3 at expert=4 (the combined output summed over
+#: the expert group in bf16; at S = 256 7.1e-4 and 9.7e-4: a flip weighs
+#: less among more tokens), and 0.217 with the fault
+MOE_AUX_RTOL = 2e-3
+#: each logged grad norm of the MoE runs against one card's: as
+#: GANG_GRAD_NORM_RTOL's, but held tighter, since the router's gradient
+#: counted once per expert peer (``ep-router-summed``) moves only the part
+#: of x's gradient that the router gives; the rehearsal read 3.0e-4 sound
+#: (4.7e-4 at expert=4) and 1.15e-2 with that fault
+MOE_GRAD_NORM_RTOL = 2e-3
+#: faults planted into the MoE gang, by the (mode, layout) run they go into:
+#: each must break one of its limits
+MOE_GANG_FAULTS = {
+    "ep-output-unsummed": (("lora", "expert4"), "no g after the local experts: "
+                           "each card's output holds only its own experts' part"),
+    "ep-dx-unsummed": (("lora", "expert4"), "no f before the local experts: x's "
+                       "gradient holds only the local experts' part"),
+    "ep-router-summed": (("full", "expert4"), "the router's input through f: its "
+                         "gradient counted once per expert peer"),
+    "ep-gates-unsummed": (("full", "expert4"), "no f on the combine's gates: the "
+                          "router's gradient through them only the local slots' part"),
+    "aux-local-means": (("lora", "fsdp2-expert2"), "the load balance from each "
+                        "rank's own means, not the global batch's"),
+}
+#: the 7B MoE driver run: ``--variant 7b --moe-experts 8 --expert 4`` at the
+#: global b=8, S=1,024, MOE_DRIVER_STEPS steps, built on the meta device
+MOE_DRIVER_STEPS = 6
+
+
+def _plant_moe(fault: str) -> None:
+    """Plant one of MOE_GANG_FAULTS into this process's port."""
+    from distributeddeeplearningspark_tpu_torch.models import llama, moe
+
+    if fault == "ep-output-unsummed":
+        moe._leave = lambda y, splits: y
+    elif fault == "ep-dx-unsummed":
+        moe._enter = lambda x, splits: x
+    elif fault == "ep-gates-unsummed":
+        moe._gates = lambda w, splits: w
+    elif fault == "ep-router-summed":
+        route = moe.MoEMLP._route
+        moe.MoEMLP._route = lambda self, x: route(self, moe._enter(x, self.splits()))
+    elif fault == "aux-local-means":
+        forward = llama.LlamaForCausalLM.forward
+
+        def local_means(self, *a, **kw):
+            self.batch_sum = None
+            return forward(self, *a, **kw)
+        llama.LlamaForCausalLM.forward = local_means
+    else:
+        check(fault == "none", f"no fault {fault!r}")
+
+
+def moe_rank(argv: list[str]) -> int:
+    """One rank of a MoE gang comparison run (``chip_smoke.py --moe-rank OUT
+    MODE FAULT LAYOUT``, run by the port's cli): the session on LAYOUT's
+    mesh (MOE_LAYOUTS; ``one`` at one card), the Llama driver's feed in 4
+    partitions (the same global batches at 1, 2 and 4 batch shards), MODE
+    ``lora`` (the MoE 0.9b LoRA fine-tune, the bank frozen) or ``full``
+    (MOE_FULL_LAYERS layers, f32, every param trainable), built on the meta
+    device and drawn from seed 0, FAULT planted, GANG_STEPS steps at b=4,
+    each logged; each rank writes ``OUT/rank<r>.json``: its card (flash
+    launches, resident param bytes and the rule engine's reckoning, peaks),
+    its local shard of layer 0's ``w_gate`` and whether each param agrees
+    within its replica group. A sound LoRA run at more than one rank then
+    takes GANG_WINDOW more steps under the profiler."""
+    import torch
+
+    from distributeddeeplearningspark_tpu_torch import Session
+    from distributeddeeplearningspark_tpu_torch.examples import train_llama_lora as driver
+    from distributeddeeplearningspark_tpu_torch.models import llama
+    from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearningspark_tpu_torch.parallel import sharding
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+    from distributeddeeplearningspark_tpu_torch.utils import sanitize
+
+    out, mode, fault, layout = argv[:4]
+    _plant_moe(fault)
+    fsdp, expert = MOE_LAYOUTS.get(layout, (1, 1))
+    spark = (Session.builder.appName(f"moe-gang-{mode}-{layout}-{fault}")
+             .config("mesh.data", 1).config("mesh.fsdp", fsdp)
+             .config("mesh.expert", expert).getOrCreate())
+    ds, _ = _lm_feed(spark, 4)
+    torch.cuda.reset_peak_memory_stats()
+    if mode == "lora":
+        cfg = moe_09b_config(torch, llama)
+        tx = optim.masked(optim.with_grad_clip(optim.adamw(optim.warmup_cosine(
+            LLAMA_GANG_LR, 1, GANG_STEPS)), 1.0), llama.lora_trainable)
+        trainer = Trainer(spark, llama.LlamaForCausalLM(cfg, device="meta"),
+                          losses.causal_lm, tx, rules=llama.llama_rules(cfg),
+                          trainable=llama.lora_trainable)
+    else:
+        cfg = moe_09b_config(torch, llama, num_layers=MOE_FULL_LAYERS, lora_rank=0,
+                             param_dtype=torch.float32)
+        tx = optim.with_grad_clip(optim.adamw(optim.warmup_cosine(
+            LLAMA_GANG_FULL_LR, 1, GANG_STEPS)), 1.0)
+        trainer = Trainer(spark, llama.LlamaForCausalLM(cfg, device="meta"),
+                          losses.causal_lm, tx, rules=llama.llama_rules(cfg))
+    init_peak = torch.cuda.max_memory_allocated()
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit(ds, batch_size=MOE_BATCH, steps=GANG_STEPS, log_every=1,
+                tokens_per_example=LLAMA_SEQ)
+    rec = driver.card_record(trainer, {k.__name__: k.launches for k in kernels})
+    bank = trainer.model.layers[0].moe.w_gate
+    rec.update(init_max_memory_allocated=init_peak,
+               bank_local_shape=list(sharding.local(bank).shape),
+               expert_split_params=len(trainer.expert_dims))
+    try:
+        sanitize.assert_replicas_in_sync(trainer.state.params)
+        rec["replicas_in_sync"] = True
+    except sanitize.DesyncError as e:
+        rec["replicas_in_sync"] = False
+        rec["desync"] = str(e)[:200]
+    rec.update(rank=spark.rank, world_size=spark.world_size, backend=spark.backend,
+               mesh=spark.mesh.shape)
+    if mode == "lora" and fault == "none" and spark.world_size > 1:
+        rec["profile"] = _profile_fit(torch, trainer, ds, MOE_BATCH, {},
+                                      steps=GANG_WINDOW)
+    Path(out, f"rank{spark.rank}.json").write_text(json.dumps(rec))
+    spark.stop()
+    return 0
+
+
+def moe_driver_rank(argv: list[str]) -> int:
+    """One rank of the 7B MoE driver run (``chip_smoke.py --moe-driver-rank
+    OUT ARGS``, run by the port's cli): the port's driver's ``main(ARGS)``,
+    with one change: after its ``fit`` returns, GANG_WINDOW more steps run
+    under the profiler (the flash launch counts put back as they were, so
+    the driver reports its own run's), and each rank writes the window to
+    ``OUT/profile<r>.json``."""
+    import torch
+
+    from distributeddeeplearningspark_tpu_torch.examples import train_llama_lora as driver
+    from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    out, args = argv[0], argv[1:]
+    fit = Trainer.fit
+
+    def fit_then_profile(self, ds, *, batch_size, **kw):
+        res = fit(self, ds, batch_size=batch_size, **kw)
+        Trainer.fit = fit  # the window's own fit, and any later one, unwrapped
+        kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+        counts = [k.launches for k in kernels]
+        profile = _profile_fit(torch, self, ds, batch_size,
+                               dict(tokens_per_example=kw.get("tokens_per_example")),
+                               steps=GANG_WINDOW)
+        for k, n in zip(kernels, counts):
+            k.launches = n
+        Path(out, f"profile{self.session.rank}.json").write_text(json.dumps(profile))
+        return res
+
+    Trainer.fit = fit_then_profile
+    driver.main(args)
+    return 0
+
+
+def _moe_driver_run(workdir: Path, ranks: int, args: list[str], env: dict) -> dict:
+    """A :func:`moe_driver_rank` launch at ``local[ranks]``: rank 0's JSON
+    line, each rank's profiled window, logged losses and step ms (its laps
+    of the driver's own steps after the first) and its ``collective``
+    events, from its telemetry."""
+    import shutil
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    lines, timing = _launch(workdir, ranks, Path(__file__).resolve(),
+                            ["--moe-driver-rank", str(workdir), *args], timeout=1200,
+                            env=env)
+    results = [json.loads(x) for x in lines if x.startswith('{"train"')]
+    check(len(results) == 1, f"the MoE driver printed {len(results)} result lines: "
+          f"{lines[-20:]}")
+    losses: dict[str, list] = {}
+    laps: dict[str, list] = {}
+    laps_all: dict[str, int] = {}
+    probes: dict[str, list] = {}
+    for r in _events(workdir):
+        p = r["process"]
+        if r["kind"] == "step_metrics":
+            laps_all[p] = laps_all.get(p, 0) + 1
+            if r["step"] <= MOE_DRIVER_STEPS:
+                losses.setdefault(p, []).append(r["metrics"]["loss"])
+                laps.setdefault(p, []).append(r["lap_s"] * 1e3 / r["steps"])
+        elif r["kind"] == "collective":
+            probes.setdefault(p, []).append(r)
+    barriers = {p: [e for e in v if e["op"] == "barrier"] for p, v in probes.items()}
+    profiles = [json.loads((workdir / f"profile{q}.json").read_text())
+                for q in range(ranks)]
+    return dict(result=results[0], launch=timing, losses=losses, profiles=profiles,
+                step_ms_by_rank={p: float(np.mean(v[1:])) for p, v in laps.items()},
+                laps_by_rank=laps_all,
+                probe_events_by_rank={p: {op: sum(e["op"] == op for e in v)
+                                          for op in sorted({e["op"] for e in v})}
+                                      for p, v in probes.items()},
+                barrier_wait_s_by_rank={p: sum(e["wait_s"] for e in v)
+                                        for p, v in barriers.items()})
+
+
+def train_llama_moe_gang(torch, ranks: int) -> dict:
+    """The ``expert`` mesh axis across ``ranks`` (4) cards, NCCL. Comparison
+    runs (:func:`moe_rank`) of the MoE 0.9b LoRA fine-tune and of its
+    MOE_FULL_LAYERS-layer full fine-tune at ``expert=4`` and at ``fsdp=2 ×
+    expert=2`` against one card on the same global batches: each rank's
+    losses the same and within GANG_LOSS_RTOL of one card's, the grad norms
+    within MOE_GRAD_NORM_RTOL and ``moe_aux`` within MOE_AUX_RTOL, each
+    param in sync within its replica group, each card holding its own
+    experts (layer 0's bank ``[8/expert, 2,048/fsdp, 5,632]``) at the rule
+    engine's resident bytes, K1/K2/K3 at MOE_LAUNCHES a step (and the full
+    fine-tune's two layers' share); each of MOE_GANG_FAULTS must break one
+    of those limits. Then the port's driver at ``--variant 7b --moe-experts
+    8 --expert 4`` (:func:`moe_driver_rank`, b=8, S=1,024,
+    MOE_DRIVER_STEPS steps, built on the meta device, ``DLS_COMMS_PROBE=1``):
+    each card's resident bytes, its init and fit peaks, finite losses,
+    K1/K2/K3 LLAMA_LAUNCHES a step, step ms, tokens/s a card, a profiled
+    window's NCCL time, and one ``barrier`` ``collective`` event a log lap
+    on every rank (and no other: at ``expert=4`` the loss group is one rank,
+    so the load balance's sums make no collective). No one-card run exists
+    at that size (37.0B params, 74.1 GB in bf16)."""
+    root = ROOT / "build" / f"chip_smoke_llama_moe_gang_{ranks}"
+    comparisons: dict = {}
+    for mode in ("lora", "full"):
+        runs = {"one": _llama_run(root / f"{mode}-one", 1, mode, "none", ["one"],
+                                  entry="--moe-rank")}
+        for layout in MOE_LAYOUTS:
+            runs[layout] = _llama_run(root / f"{mode}-{layout}", ranks, mode, "none",
+                                      [layout], entry="--moe-rank")
+        for fault, ((fmode, layout), _) in MOE_GANG_FAULTS.items():
+            if fmode == mode:
+                runs[fault] = _llama_run(root / f"{mode}-{fault}", ranks, mode, fault,
+                                         [layout], entry="--moe-rank")
+        ref = runs["one"]
+        comparisons[mode] = {
+            name: dict(
+                losses=run["losses"][0], grad_norms=run["grad_norms"][0],
+                moe_aux=run["moe_aux"][0], step_ms=run["step_ms"], launch=run["launch"],
+                mesh=run["cards"][0]["mesh"],
+                replicas_in_sync=all(c["replicas_in_sync"] for c in run["cards"]),
+                ranks_agree=all(v == run["losses"][0] for v in run["losses"]),
+                cards=[{k: c[k] for k in ("flash_launches", "param_bytes",
+                                          "param_bytes_reckoned", "bank_local_shape",
+                                          "expert_split_params", "max_memory_allocated",
+                                          "init_max_memory_allocated")}
+                       for c in run["cards"]],
+                profile=run["cards"][0].get("profile"),
+                **(dict(max_loss_rel_err=_loss_gap(run["losses"][0], ref["losses"][0]),
+                        max_grad_norm_rel_err=_loss_gap(run["grad_norms"][0],
+                                                       ref["grad_norms"][0]),
+                        max_moe_aux_rel_err=_loss_gap(run["moe_aux"][0],
+                                                      ref["moe_aux"][0]))
+                   if name != "one" else {}))
+            for name, run in runs.items()}
+    nccl_env = _nccl_env(root / "driver")
+    driver_args = ["--variant", "7b", "--moe-experts", str(MOE_EXPERTS), "--expert",
+                   str(ranks), "--seq-len", str(LLAMA_SEQ), "--batch-size",
+                   str(LLAMA_BATCH), "--lora-rank", str(LLAMA_RANK), "--lora-alpha", "16",
+                   "--lr", str(LLAMA_GANG_LR), "--steps", str(MOE_DRIVER_STEPS),
+                   "--log-every", "1", "--source-partitions", str(ranks)]
+    drv = _moe_driver_run(root / "driver", ranks, driver_args,
+                          env={**nccl_env, "DLS_COMMS_PROBE": "1"})
+    res = drv["result"]
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    rec = dict(
+        ranks=ranks, batch_size=MOE_BATCH, seq_len=LLAMA_SEQ, comparisons=comparisons,
+        nccl_ms_per_step={m: (comparisons[m].get("expert4", {}).get("profile") or {})
+                          .get("busy_ms_by_family", {}).get("nccl") for m in ("lora",)},
+        driver=dict(
+            mesh=res["mesh"], moe_experts=res["moe_experts"],
+            expert_split_params=res["expert_split_params"], losses=drv["losses"],
+            step_ms_by_rank=drv["step_ms_by_rank"],
+            tokens_per_sec_per_card={p: tokens / ranks / (ms / 1e3)
+                                     for p, ms in drv["step_ms_by_rank"].items()},
+            cards=res["by_rank"], init_s=res["init_s"], launch=drv["launch"],
+            probe_events_by_rank=drv["probe_events_by_rank"],
+            barrier_wait_s_by_rank=drv["barrier_wait_s_by_rank"],
+            laps_by_rank=drv["laps_by_rank"],
+            nccl_ms_per_step=[(p.get("busy_ms_by_family") or {}).get("nccl")
+                              for p in drv["profiles"]],
+            nccl_kernels_ms_per_step=_nccl_kernels(drv["profiles"][0]),
+            profile=drv["profiles"][0], nccl=_nccl_tuning(root / "driver")),
+        card=nvidia_smi_line(), torch_version=torch.__version__,
+        nccl_version=torch.cuda.nccl.version())
+    print("gang llama-moe " + json.dumps(rec), flush=True)
+    want = {"lora": {k: n * GANG_STEPS for k, n in MOE_LAUNCHES.items()},
+            "full": {k: n * GANG_STEPS * MOE_FULL_LAYERS // MOE_LAYERS
+                     for k, n in MOE_LAUNCHES.items()}}
+    for mode, runs in comparisons.items():
+        for name, run in runs.items():
+            sound = name == "one" or name in MOE_LAYOUTS
+            if not sound:
+                continue
+            fsdp, expert = MOE_LAYOUTS.get(name, (1, 1))
+            check(run["mesh"]["fsdp"] == fsdp and run["mesh"]["expert"] == expert,
+                  f"moe gang {mode}/{name}: mesh {run['mesh']}")
+            check(run["replicas_in_sync"] and run["ranks_agree"],
+                  f"moe gang {mode}/{name}: replicas or ranks disagree: {run}")
+            for r, card in enumerate(run["cards"]):
+                check(card["flash_launches"] == want[mode],
+                      f"moe gang {mode}/{name} card {r}: flash launches "
+                      f"{card['flash_launches']}, want {want[mode]}")
+                check(card["param_bytes"] == card["param_bytes_reckoned"],
+                      f"moe gang {mode}/{name} card {r}: resident {card['param_bytes']}, "
+                      f"the rule engine's {card['param_bytes_reckoned']}")
+                check(card["bank_local_shape"] == [MOE_EXPERTS // expert,
+                                                   MOE_HIDDEN // fsdp, MOE_FFN],
+                      f"moe gang {mode}/{name} card {r}: layer 0's bank "
+                      f"{card['bank_local_shape']}")
+            if name == "one":
+                continue
+            check(run["max_loss_rel_err"] <= GANG_LOSS_RTOL
+                  and run["max_grad_norm_rel_err"] <= MOE_GRAD_NORM_RTOL
+                  and run["max_moe_aux_rel_err"] <= MOE_AUX_RTOL,
+                  f"moe gang {mode}/{name} is off one card's: loss "
+                  f"{run['max_loss_rel_err']}, grad norm {run['max_grad_norm_rel_err']}, "
+                  f"moe_aux {run['max_moe_aux_rel_err']}")
+    for fault, ((mode, _), why) in MOE_GANG_FAULTS.items():
+        seen = comparisons[mode][fault]
+        check(not seen["replicas_in_sync"] or seen["max_loss_rel_err"] > GANG_LOSS_RTOL
+              or seen["max_grad_norm_rel_err"] > MOE_GRAD_NORM_RTOL
+              or seen["max_moe_aux_rel_err"] > MOE_AUX_RTOL,
+              f"moe gang: the planted fault {fault!r} ({why}) stays within every "
+              f"limit: {seen}")
+    check(res["world_size"] == ranks and res["backend"] == "nccl"
+          and res["mesh"]["expert"] == ranks and res["mesh"]["fsdp"] == 1
+          and res["moe_experts"] == MOE_EXPERTS and res["replicas_checked"]
+          and res["expert_split_params"] == 3 * LLAMA_LAYERS,
+          f"moe driver: {({k: v for k, v in res.items() if k != 'train'})}")
+    want7 = {k: n * MOE_DRIVER_STEPS for k, n in LLAMA_LAUNCHES.items()}
+    for r, card in enumerate(res["by_rank"]):
+        check(card["flash_launches"] == want7,
+              f"moe driver card {r}: flash launches {card['flash_launches']}, want {want7}")
+        check(card["param_bytes"] == card["param_bytes_reckoned"],
+              f"moe driver card {r}: resident {card['param_bytes']}, the rule "
+              f"engine's {card['param_bytes_reckoned']}")
+    logged = drv["losses"]
+    check(sorted(logged) == [f"p{q}" for q in range(ranks)]
+          and all(len(v) == MOE_DRIVER_STEPS and all(np.isfinite(v)) and v == logged["p0"]
+                  for v in logged.values()),
+          f"moe driver's logged losses: {logged}")
+    check(all(drv["probe_events_by_rank"].get(p, {}).get("barrier") == n
+              for p, n in drv["laps_by_rank"].items()),
+          f"moe driver: collective events {drv['probe_events_by_rank']}, a barrier "
+          f"a lap {drv['laps_by_rank']}")
+    check(all((p.get("busy_ms_by_family") or {}).get("nccl", 0.0) > 0
+              for p in drv["profiles"]), "no NCCL kernel in the MoE driver's window")
     return rec
 
 
@@ -4633,19 +5152,20 @@ def input_ab_main(torch) -> int:
 
 
 def gang_main(torch, names: list[str]) -> int:
-    """``chip_smoke.py --gang [resnet|dlrm|recovery|llama|llama-cp|llama-drain
-    ...]``: at one rank per visible card (2 or more), NCCL between them, the
-    LeNet phase, the supervised shrink, the drain and the planted desync,
-    the ResNet-50 and DLRM drivers (:func:`train_drivers_gang`), then
-    Llama-2 7B LoRA sharded over the cards (:func:`train_llama_gang`,
-    :func:`train_llama_cp_gang`) and drained for a preemption
-    (:func:`train_llama_drain`); with names, only those parts."""
+    """``chip_smoke.py --gang [resnet|dlrm|recovery|llama|llama-cp|llama-drain|
+    llama-moe ...]``: at one rank per visible card (2 or more), NCCL between
+    them, the LeNet phase, the supervised shrink, the drain and the planted
+    desync, the ResNet-50 and DLRM drivers (:func:`train_drivers_gang`),
+    then Llama-2 7B LoRA sharded over the cards (:func:`train_llama_gang`,
+    :func:`train_llama_cp_gang`), drained for a preemption
+    (:func:`train_llama_drain`) and the MoE Llamas over the ``expert`` axis
+    (:func:`train_llama_moe_gang`); with names, only those parts."""
     ranks = torch.cuda.device_count()
     if ranks < 2:
         print(f"chip_smoke --gang: {ranks} card(s); it needs 2 or more",
               file=sys.stderr)
         return 2
-    parts = ["llama", "llama-cp", "llama-drain", "recovery"]
+    parts = ["llama", "llama-cp", "llama-drain", "llama-moe", "recovery"]
     if not set(names) <= set(GANG_FAULTS) | set(parts):
         print(f"chip_smoke --gang: no part {names}; choose from "
               f"{sorted(GANG_FAULTS) + parts}", file=sys.stderr)
@@ -4662,10 +5182,12 @@ def gang_main(torch, names: list[str]) -> int:
             train_drivers_gang(torch, ranks, drivers or tuple(GANG_FAULTS))
         if not names or "llama" in names:
             train_llama_gang(torch, ranks)
-        if not names or "llama" in names or "llama-cp" in names:
+        if not names or "llama-cp" in names:
             train_llama_cp_gang(torch, ranks)
         if not names or "llama-drain" in names:
             train_llama_drain(torch, ranks)
+        if not names or "llama-moe" in names:
+            train_llama_moe_gang(torch, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4827,6 +5349,10 @@ def main() -> int:
         return model_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--llama-rank"]:
         return llama_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--moe-rank"]:
+        return moe_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--moe-driver-rank"]:
+        return moe_driver_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--desync-rank"]:
         return desync_rank(*sys.argv[2:4])
     if sys.argv[1:2] == ["--bn-half-rank"]:
@@ -4879,11 +5405,16 @@ def main() -> int:
         if sys.argv[1:] == ["--cp"]:
             print(nvidia_smi_line())
             return 0
+        if sys.argv[1:] == ["--moe"]:
+            train_llama_moe(torch, fa)
+            print(nvidia_smi_line())
+            return 0
         check_gates(torch, fa, attention, cb)
         check_input()
         train = train_bert(torch, fa)
         serve = serve_bert(torch, fa, bert, engine_mod)
         llama = train_llama(torch, fa)
+        moe = train_llama_moe(torch, fa)
         k4 = check_conv_bn(torch, cb)
         resnet = train_resnet(torch, cb)
         k5 = check_scatter_rows(torch, sr)
@@ -4904,9 +5435,11 @@ def main() -> int:
         "name": "flash_fwd", "route": "cuda",
         "source": f"{PKG}/csrc/flash_fwd.cu", "replaces": f"{src}:131",
         # the served batches', BERT's, Llama's (in process and through the
-        # driver) and the rollback drill's two runs, each counted from 0
+        # driver), the MoE and dense 0.9b's and the rollback drill's two
+        # runs, each counted from 0
         "launches": serve["flash_fwd_launches"] + train["launches"]["flash_fwd"]
         + llama["launches"]["flash_fwd"] + llama["driver"]["flash_launches"]["flash_fwd"]
+        + moe["moe"]["launches"]["flash_fwd"] + moe["dense"]["launches"]["flash_fwd"]
         + rollback["launches"]["flash_fwd"] + rollback["second_run_launches"]["flash_fwd"],
         "max_abs_err": max(c["max_abs_err"] for c in k1),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
@@ -4919,7 +5452,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"{PKG}/csrc/flash_bwd.cu", "replaces": f"{src}:{line}",
             "launches": train["launches"][name] + llama["launches"][name]
-            + llama["driver"]["flash_launches"][name] + rollback["launches"][name]
+            + llama["driver"]["flash_launches"][name] + moe["moe"]["launches"][name]
+            + moe["dense"]["launches"][name] + rollback["launches"][name]
             + rollback["second_run_launches"][name],
             "max_abs_err": max(c[g] for c in k23 for g in grads),
             "ms": bwd[f"{key}_ms"], "plain_ms": bwd["plain_ms"],

@@ -73,19 +73,39 @@ checkpoints: rank 0 then prints one JSON line with ``preempted_at`` and
 the flash kernels' launches, and every rank exits 0; under ``--resume``
 the shrunk relaunch goes on from the handoff.
 
-The JAX driver's pipeline and expert parallelism, MoE, int8 base, fused
-head, sampling and the import of real weights (which needs their
-tokenizer) are not ported yet: those flags fail at parse time, each
-naming its ROADMAP item. Rank 0 prints one JSON line: the train summary,
+``--moe-experts E`` swaps every layer's MLP for the MoE FFN (E experts,
+top-2, capacity factor 1.25; ``--moe-group g`` routes in groups of g
+tokens, else one group a sequence), and ``--expert n`` (default 1) sets
+``mesh.expert=n``: ``llama_rules`` splits each layer's expert bank over n
+ranks, each running its E/n experts on the rows its expert peers take
+too, so at ``local[N]`` fsdp = N/(n·C·T). Under ``lora_trainable`` the bank
+and the router are frozen with the rest of the base, stored in
+``param_dtype`` (bf16 at 7B). The JAX driver's parse-time refusals are
+kept, in its words but one: beside ``--base-quant`` it says "the expert
+bank trains from scratch in f32", which is not what its LoRA fine-tune
+does, so the port's message says why instead (the int8 base has no form
+for the bank). On the CPU::
+
+    python -m distributeddeeplearningspark_tpu_torch.cli --master local[2] \\
+        --conf spark.dls.device=cpu \\
+        distributeddeeplearningspark_tpu_torch/examples/train_llama_lora.py \\
+        --variant tiny --steps 4 --batch-size 4 --seq-len 64 --lora-rank 4 \\
+        --moe-experts 4 --expert 2
+
+The JAX driver's pipeline, int8 base, fused head, sampling and the import
+of real weights (which needs their tokenizer) are not ported yet: those
+flags fail at parse time, each naming its ROADMAP item. Rank 0 prints one JSON line: the train summary,
 where the run went (world size, backend, device, the mesh, the CP
 implementation), the number of
-sharded params (on any axis), the attention's local heads a rank, and
+sharded params (on any axis) and of those split over ``tensor`` and over
+``expert``, the MoE's experts (0: dense), the attention's local heads a
+rank, and
 for each rank the flash kernels' launches in ``fit``, its resident param
 bytes (each shard's ``to_local()``, each replicated param whole) beside
 the rule engine's reckoning, its peak device memory in the init and
-during ``fit``, and the tensor-parallel all-reduces it made in ``fit``
-and the bytes its ring exchanges and all-to-alls sent in ``fit`` (and
-rank 0's seconds in the trainer's init);
+during ``fit``, and the Megatron all-reduces (over its tensor and
+expert groups) and the bytes its ring exchanges and all-to-alls sent in
+``fit`` (and rank 0's seconds in the trainer's init);
 ``replicas_checked`` says each param was compared within its replica
 group.
 """
@@ -126,10 +146,6 @@ NOT_PORTED = {
                  "reads them): ROADMAP Queue 1 item 5",
     "--tokenizer": "the HF tokenizer adapter: ROADMAP Queue 1 item 5",
     "--microbatches": "the pipeline (models/llama_pp.py): ROADMAP Queue 1 item 6",
-    "--moe-experts": "models/moe.py: ROADMAP Queue 1 item 6",
-    "--moe-group": "models/moe.py: ROADMAP Queue 1 item 6",
-    "--expert": "expert parallelism: ROADMAP Queue 1 item 6",
-    "--base-quant": "the int8 frozen base: ROADMAP Queue 1 item 5",
     "--fused-head-loss": "train/fused_ce.py: ROADMAP Queue 1 item 5",
     "--sample-tokens": "models/llama_gen.py: ROADMAP Queue 1 item 8",
 }
@@ -137,6 +153,8 @@ NOT_PORTED = {
 MESH_AXES = {
     "pipeline": "the pipeline (models/llama_pp.py): ROADMAP Queue 1 item 6",
 }
+#: why ``--base-quant`` is refused (after the JAX driver's own refusals)
+BASE_QUANT = "the int8 frozen base: ROADMAP Queue 1 item 5"
 VARIANTS = {"7b": LlamaConfig.llama2_7b, "13b": LlamaConfig.llama2_13b}
 
 
@@ -176,6 +194,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "(K/V blocks rotate, no head constraint) or ulysses "
                         "(all-to-all head scatter; heads must divide by the "
                         "CP degree)")
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="swap each layer's FFN for a top-2-routed MoE expert bank "
+                        "sharded over the expert mesh axis (models/moe.py); 0 = "
+                        "dense")
+    p.add_argument("--moe-group", type=int, default=0,
+                   help="routing-group size for --moe-experts (0 = per-sequence); "
+                        "must divide batch*seq_len")
+    p.add_argument("--expert", type=int, default=1,
+                   help="expert-parallel axis size (with --moe-experts)")
+    p.add_argument("--base-quant", default=None, choices=["int8"],
+                   help=f"not ported yet: {BASE_QUANT}")
     for axis in MESH_AXES:
         p.add_argument("--" + axis.replace("_", "-"), type=int, default=1,
                        help=f"only 1 is ported: {MESH_AXES[axis]}")
@@ -185,8 +214,35 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    """The flags, with the JAX driver's refusals first (in its words, but
+    for the MoE beside the int8 base: see the module docstring), then the
+    port's refusals of what it has not ported."""
     p = build_parser()
     args = p.parse_args(argv)
+    if args.moe_experts:
+        if args.pipeline > 1:
+            p.error("--moe-experts is not supported with --pipeline "
+                    "(the stage forward drops the load-balance aux loss)")
+        if args.expert > 1 and args.moe_experts % args.expert:
+            p.error(f"--moe-experts {args.moe_experts} must divide by "
+                    f"--expert {args.expert} (expert-dim sharding)")
+    elif args.expert > 1:
+        p.error("--expert > 1 without --moe-experts just replicates the "
+                "dense model over extra chips; drop --expert or add "
+                "--moe-experts")
+    elif args.moe_group:
+        p.error("--moe-group only applies to the MoE router; add "
+                "--moe-experts or drop it")
+    if args.base_quant and not args.lora_rank:
+        p.error("--base-quant requires --lora-rank > 0 (the quantized base "
+                "is frozen; adapters carry the training)")
+    if args.base_quant and args.moe_experts:
+        p.error("--base-quant is not supported with --moe-experts (the int8 "
+                "base quantizes the dense projections only; the expert bank, "
+                "frozen with the base under LoRA and stored in bf16 at 7B, "
+                "has no int8 form)")
+    if args.base_quant:
+        p.error(f"--base-quant is not ported yet ({BASE_QUANT})")
     for axis, why in MESH_AXES.items():
         if getattr(args, axis) > 1:
             p.error(f"--{axis.replace('_', '-')} > 1 is not ported yet ({why})")
@@ -205,17 +261,20 @@ def make_config(args: argparse.Namespace, vocab_size: int) -> LlamaConfig:
                                lora_rank=args.lora_rank, lora_alpha=args.lora_alpha)
     if args.seq_parallel > 1:
         cfg = dataclasses.replace(cfg, attention_impl=args.cp_impl)
+    if args.moe_experts:
+        cfg = dataclasses.replace(cfg, moe_experts=args.moe_experts,
+                                  moe_group_size=args.moe_group)
     return cfg
 
 
 def make_session(args: argparse.Namespace, app: str = "llama-lora") -> Session:
     """The session on the JAX driver's mesh: ``mesh.data=1``,
-    ``mesh.fsdp=--fsdp``, ``mesh.seq=--seq-parallel`` and
-    ``mesh.tensor=--tensor`` (config 5 is FSDP-dominant: the fsdp workers
-    are the executors)."""
+    ``mesh.fsdp=--fsdp``, ``mesh.seq=--seq-parallel``,
+    ``mesh.tensor=--tensor`` and ``mesh.expert=--expert`` (config 5 is
+    FSDP-dominant: the fsdp workers are the executors)."""
     builder = (Session.builder.appName(app).config("mesh.data", 1)
                .config("mesh.fsdp", args.fsdp).config("mesh.seq", args.seq_parallel)
-               .config("mesh.tensor", args.tensor))
+               .config("mesh.tensor", args.tensor).config("mesh.expert", args.expert))
     if args.master:
         builder = builder.master(args.master)
     return builder.getOrCreate()
@@ -340,8 +399,11 @@ def main(argv: list[str] | None = None) -> None:
             "world_size": spark.world_size, "backend": spark.backend,
             "device": str(spark.device), "mesh": spark.mesh.shape,
             "cp_impl": cfg.attention_impl if args.seq_parallel > 1 else None,
-            "sharded_params": len(set(trainer.shard_dims) | set(trainer.tensor_dims)),
+            "sharded_params": len(set(trainer.shard_dims) | set(trainer.tensor_dims)
+                                  | set(trainer.expert_dims)),
             "tensor_split_params": len(trainer.tensor_dims),
+            "expert_split_params": len(trainer.expert_dims),
+            "moe_experts": cfg.moe_experts,
             "local_heads": local_heads(trainer),
             "flash_launches": launches,
             "trainable_params": sum(p.numel() for n, p in state.params.items()

@@ -238,11 +238,17 @@ def llama_model_flops_per_token(cfg, seq: int, *,
     a gather), the attention score and value matmuls (causal halving, at
     the q-head count) and the LoRA adapter matmuls. Forward 2·P; backward
     dx 2·P again; backward dW 2·P for the trainable params only (the
-    frozen-base step has no base dW). Not counted: elementwise, norm and
-    softmax work, the optimizer, and the remat recompute."""
+    frozen-base step has no base dW). With MoE (``moe_experts`` above 0)
+    each token runs ``moe_top_k`` expert FFNs and the router's projection;
+    the dispatch and the dropped tokens are implementation- and
+    load-dependent and not counted (JAX's count). Not counted: elementwise,
+    norm and softmax work, the optimizer, and the remat recompute."""
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     kvh = cfg.num_kv_heads * cfg.head_dim
-    p_layer = h * h + 2 * h * kvh + h * h + 3 * h * i  # the dense model's
+    ffn = 3 * h * i
+    if getattr(cfg, "moe_experts", 0):
+        ffn = cfg.moe_top_k * 3 * h * i + h * cfg.moe_experts
+    p_layer = h * h + 2 * h * kvh + h * h + ffn
     p_matmul = cfg.num_layers * p_layer + v * h  # + head, embed is a gather
     lora = 0
     if cfg.lora_rank:

@@ -65,9 +65,24 @@ and attention (on the local heads under tensor parallelism) goes to
 :mod:`..ops.ring_attention` or :mod:`..ops.ulysses`, which exchange K/V
 over the ``seq`` group. At ``seq`` 1 both are plain local attention.
 
-Not ported yet, and refused by name: the MoE FFN (ROADMAP Queue 1 item
-6), the int8 frozen base and the fused head loss (item 5), decoding with
-a KV cache (item 8).
+With ``cfg.moe_experts`` above 0 every layer's MLP is the MoE FFN
+(:class:`..models.moe.MoEMLP`, named ``moe``: top-``moe_top_k`` routing,
+``moe_capacity_factor``, ``moe_group_size``), as in the flax model. In
+training (``model.train()``, JAX's ``train=True``) the model then returns
+``{"logits", "moe_aux", "moe_dropped_frac"}``: the load-balance losses
+summed over the layers, weighed by ``moe_aux_weight``, and the dropped
+share averaged over them; in eval mode, plain logits. The load balance is
+a product of two means over the global batch: each layer's batch sums
+(:func:`..models.moe.load_balance`) are added over the ranks that hold
+distinct rows by :attr:`LlamaForCausalLM.batch_sum` (one differentiable
+all-reduce of the ``[L, 2E + 2]`` sums, outside the remat regions) before
+the product. Under expert parallelism (``llama_rules`` splits the bank's
+experts over ``expert``) each rank runs its own experts; the module
+docstring of :mod:`..models.moe` says how the tokens enter and leave them.
+
+Not ported yet, and refused by name: the int8 frozen base and the fused
+head loss (item 5), decoding with a KV cache (item 8), and MoE under
+context parallelism (its routing groups span whole sequences, item 6).
 """
 
 from __future__ import annotations
@@ -81,6 +96,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from distributeddeeplearningspark_tpu_torch.models.moe import MoEMLP, load_balance
 from distributeddeeplearningspark_tpu_torch.ops import ring_attention
 from distributeddeeplearningspark_tpu_torch.ops.attention import (
     dot_product_attention,
@@ -121,9 +137,15 @@ class LlamaConfig:
     lora_rank: int = 0              # 0: no adapters
     lora_alpha: float = 16.0
     lora_targets: Sequence[str] = ("wq", "wv")
+    #: the MoE FFN in every layer (0: the dense SwiGLU MLP)
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    #: the routing group's tokens (0: one group a sequence)
+    moe_group_size: int = 0
     # the JAX config's options the port refuses (LlamaForCausalLM)
     fused_head_loss: bool = False
-    moe_experts: int = 0
     base_quant: str | None = None
     decode: bool = False
 
@@ -339,23 +361,34 @@ class LlamaMLP(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm block: ``x + attention(norm(x))``, then ``x + mlp(norm(x))``."""
+    """Pre-norm block: ``x + attention(norm(x))``, then ``x + mlp(norm(x))``;
+    with ``cfg.moe_experts`` the MLP is the MoE FFN (``moe``) and the block
+    returns ``(x, sums)``, its routing's batch sums."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.attention_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, device)
         self.attention = LlamaAttention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, device)
-        self.mlp = LlamaMLP(cfg, device)
+        if cfg.moe_experts:
+            self.moe = MoEMLP(cfg.hidden_size, cfg.intermediate_size, cfg.moe_experts,
+                              top_k=cfg.moe_top_k,
+                              capacity_factor=cfg.moe_capacity_factor,
+                              group_size=cfg.moe_group_size, dtype=cfg.dtype,
+                              param_dtype=cfg.param_dtype, device=device)
+        else:
+            self.mlp = LlamaMLP(cfg, device)
 
     def forward(self, x, mask, segment_ids=None):
         x = x + self.attention(self.attention_norm(x), mask, segment_ids)
+        if hasattr(self, "moe"):
+            y, sums = self.moe.forward_sums(self.mlp_norm(x))
+            return x + y, sums
         return x + self.mlp(self.mlp_norm(x))
 
 
 #: the flax config's options the port refuses → their ROADMAP item
 _NOT_PORTED = {
-    "moe_experts": "the MoE FFN (models/moe.py): ROADMAP Queue 1 item 6",
     "base_quant": "the int8 frozen base: ROADMAP Queue 1 item 5",
     "decode": "KV-cached decoding (models/llama_gen.py): ROADMAP Queue 1 item 8",
     "fused_head_loss": "the fused head loss (train/fused_ce.py): ROADMAP Queue 1 item 5",
@@ -367,6 +400,19 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
+        if cfg.base_quant and cfg.moe_experts:
+            # the flax model's refusal, worded for what the bank is: it
+            # trains in a full fine-tune, and under lora_trainable it is
+            # frozen like the rest of the base (in bf16 at 7B)
+            raise NotImplementedError(
+                "base_quant with moe_experts: the int8 base quantizes the dense "
+                "projections only; the expert bank has no int8 form (drop one "
+                "of the two)")
+        if cfg.moe_experts and cfg.attention_impl in CONTEXT_PARALLEL_IMPLS:
+            raise NotImplementedError(
+                f"moe_experts under attention_impl={cfg.attention_impl!r}: the "
+                f"routing groups span whole sequences, and a context-parallel "
+                f"rank holds a block of each: ROADMAP Queue 1 item 6")
         for field, why in _NOT_PORTED.items():
             if getattr(cfg, field):
                 raise NotImplementedError(f"LlamaConfig.{field} is not ported "
@@ -380,11 +426,17 @@ class LlamaForCausalLM(nn.Module):
         self.final_norm = RMSNorm(h, cfg.rms_eps, cfg.dtype, device)
         self.lm_head = nn.Linear(h, cfg.vocab_size, bias=False,
                                  dtype=cfg.param_dtype, device=device)
+        #: sums a tensor over the ranks that hold distinct rows of the global
+        #: batch (differentiably); None: this process holds all of it. The
+        #: train step sets it (``collectives.all_reduce_sum`` over its loss
+        #: group), so the MoE load balance takes the global batch's means.
+        self.batch_sum = None
 
     def forward(self, batch: dict[str, torch.Tensor],
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None):
         """``generator`` is taken for the Trainer's call and unused: Llama-2
-        has no dropout."""
+        has no dropout. The logits, or with MoE in training the dict the
+        module docstring names."""
         del generator
         cfg = self.cfg
         ids = batch["input_ids"]
@@ -399,12 +451,25 @@ class LlamaForCausalLM(nn.Module):
         mask = padding_mask(pad) if pad is not None else None
         segment_ids = batch.get("segment_ids")
         remat = cfg.remat and torch.is_grad_enabled()
+        sums = []
         for layer in self.layers:
             if remat:
                 x = checkpoint(layer, x, mask, segment_ids, use_reentrant=False)
             else:
                 x = layer(x, mask, segment_ids)
-        return self._head(self.final_norm(x))
+            if cfg.moe_experts:
+                x, layer_sums = x
+                sums.append(layer_sums)
+        logits = self._head(self.final_norm(x))
+        if not (cfg.moe_experts and self.training):
+            # eval and predict take plain logits, as the flax model gives them
+            return logits
+        sums = torch.stack(sums)
+        if self.batch_sum is not None:
+            sums = self.batch_sum(sums)
+        aux, dropped = load_balance(sums, cfg.moe_experts, cfg.moe_top_k)
+        return {"logits": logits, "moe_aux": cfg.moe_aux_weight * aux.sum(),
+                "moe_dropped_frac": dropped.mean()}
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         """The tokens' rows; under a ``tensor`` split of the vocab each rank
@@ -474,6 +539,8 @@ class LlamaForCausalLM(nn.Module):
                 draw(mod.lora_b, lambda t: t.zero_())
             if isinstance(mod, RMSNorm):
                 draw(mod.scale, lambda t: t.fill_(1.0))
+            if isinstance(mod, MoEMLP):
+                mod.init_weights(draw, generator)
         return self
 
 
@@ -515,18 +582,20 @@ def llama_rules(cfg: LlamaConfig, *, fsdp: bool = True,
     (contracting) columns, so the pair is a split matmul and one
     all-reduce a block. The embedding and the LM head shard the vocab.
     LoRA adapters stay replicated: rank-r factors are too small to be worth
-    a collective. The auto-FSDP pass then shards the largest remaining dim
-    of every param of at least ``fsdp_min_size`` elements over ``fsdp``
-    (for a tensor-split weight, its other dim). The int8 base, the MoE
-    bank and the pipeline's stage layout raise, as the model does."""
+    a collective. The MoE expert bank (``[E, H, I]`` and ``[E, I, H]``, the
+    flax layout) shards its experts over ``expert`` and its FFN dim over
+    ``tensor``; the router stays replicated. The auto-FSDP pass then shards
+    the largest remaining dim of every param of at least ``fsdp_min_size``
+    elements over ``fsdp`` (for a tensor- or expert-split weight, another
+    dim). The int8 base and the pipeline's stage layout raise, as the model
+    does."""
     if pipeline:
         raise NotImplementedError(
             "llama_rules(pipeline=True): the pipeline (models/llama_pp.py) is "
             "not ported yet: ROADMAP Queue 1 item 6")
-    for field in ("base_quant", "moe_experts"):
-        if getattr(cfg, field):
-            raise NotImplementedError(f"llama_rules for LlamaConfig.{field}: "
-                                      f"{_NOT_PORTED[field]}")
+    if cfg.base_quant:
+        raise NotImplementedError(f"llama_rules for LlamaConfig.base_quant: "
+                                  f"{_NOT_PORTED['base_quant']}")
     rules = (
         (r"lora_", P()),
         (r"(wq|wk|wv)/weight", P("tensor", None)),
@@ -535,6 +604,9 @@ def llama_rules(cfg: LlamaConfig, *, fsdp: bool = True,
         (r"down/weight", P(None, "tensor")),
         (r"token_embed/weight", P("tensor", None)),
         (r"lm_head/weight", P("tensor", None)),
+        *(((r"moe/(w_gate|w_up)", P("expert", None, "tensor")),
+           (r"moe/w_down", P("expert", "tensor", None)),
+           (r"moe/router", P())) if cfg.moe_experts else ()),
     )
     return ShardingRules(rules=rules, fsdp=fsdp, fsdp_min_size=fsdp_min_size,
                          fsdp_exclude=(r"lora_",))

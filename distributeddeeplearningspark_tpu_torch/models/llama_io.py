@@ -4,7 +4,9 @@
 - :func:`params_from_flax` carries the JAX model's params across: flax
   ``DenseGeneral`` kernels are ``[in, out...]`` (q/k/v ``[H, heads, hd]``,
   ``wo`` ``[heads, hd, H]``), the port's weights torch's ``[out, in]``;
-  the LoRA A ``[in, r]`` and B ``[r, out]`` keep their layout. Both of the
+  the LoRA A ``[in, r]`` and B ``[r, out]`` keep their layout, and so do
+  an MoE layer's ``moe/{router,w_gate,w_up,w_down}`` (the port's
+  :class:`~.moe.MoEMLP` stores the flax layout). Both of the
   flax layouts are read: scanned (``layers/...`` stacked on a leading
   ``[L]`` axis, the flax default) and unrolled (``layers_{i}/...``).
 - :func:`load_llama_safetensors` and :func:`export_llama_safetensors` read
@@ -68,7 +70,7 @@ def _t(a) -> torch.Tensor:
 def _layer_from_flax(lay: Mapping[str, Any], cfg: LlamaConfig, pre: str,
                      out: dict) -> None:
     h = cfg.hidden_size
-    att, mlp = lay["attention"], lay["mlp"]
+    att = lay["attention"]
     for name in ("wq", "wk", "wv"):   # [H, heads, hd] → [heads·hd, H]
         node = att[name]
         out[f"{pre}.attention.{name}.weight"] = _t(
@@ -78,10 +80,14 @@ def _layer_from_flax(lay: Mapping[str, Any], cfg: LlamaConfig, pre: str,
     out[f"{pre}.attention.wo.weight"] = _t(
         np.asarray(node["base"]["kernel"]).reshape(-1, h).T)
     _lora(node, f"{pre}.attention.wo", out)
-    for name in ("gate", "up", "down"):
-        node = mlp[name]
-        out[f"{pre}.mlp.{name}.weight"] = _t(np.asarray(node["base"]["kernel"]).T)
-        _lora(node, f"{pre}.mlp.{name}", out)
+    if "moe" in lay:  # the expert bank and the router keep the flax layout
+        for name in ("router", "w_gate", "w_up", "w_down"):
+            out[f"{pre}.moe.{name}"] = _t(lay["moe"][name])
+    else:
+        for name in ("gate", "up", "down"):
+            node = lay["mlp"][name]
+            out[f"{pre}.mlp.{name}.weight"] = _t(np.asarray(node["base"]["kernel"]).T)
+            _lora(node, f"{pre}.mlp.{name}", out)
     out[f"{pre}.attention_norm.scale"] = _t(lay["attention_norm"]["scale"])
     out[f"{pre}.mlp_norm.scale"] = _t(lay["mlp_norm"]["scale"])
 

@@ -10,10 +10,10 @@ second all-to-all turns the output back (:class:`_AllToAll`, whose
 backward is the reverse all-to-all). The key mask and the segment ids are
 all-gathered, since the local attention needs them whole.
 
-``all_to_all_single`` splits dim 0, so the head chunks move there first.
-Rank j takes the contiguous heads ``[j·H/N, (j+1)·H/N)`` of q and
-``[j·Hkv/N, (j+1)·Hkv/N)`` of k and v, so each GQA group stays with its
-kv head. JAX's checks are kept: the local (after ``tensor``) q heads and
+The exchange is the port's one all-to-all,
+:func:`..parallel.collectives.all_to_all`. Rank j takes the contiguous
+heads ``[j·H/N, (j+1)·H/N)`` of q and ``[j·Hkv/N, (j+1)·Hkv/N)`` of k and
+v, so each GQA group stays with its kv head. JAX's checks are kept: the local (after ``tensor``) q heads and
 kv heads must each divide by the ``seq`` degree; the sequence must divide
 by it too, which the feed that slices it checks
 (:func:`..data.feed.seq_shard`).
@@ -41,22 +41,13 @@ from distributeddeeplearningspark_tpu_torch.parallel.mesh import AXIS_SEQ
 
 def all_to_all(x: torch.Tensor, sg: ra.SeqGroup, to_heads: bool) -> torch.Tensor:
     """``to_heads``: ``[B, S/N, H, D]`` → ``[B, S, H/N, D]`` (scatter the
-    heads, gather the sequence); else the reverse."""
-    import torch.distributed as dist
-
-    n = sg.size
-    if to_heads:
-        b, sl, h, d = x.shape
-        send = x.reshape(b, sl, n, h // n, d).permute(2, 0, 1, 3, 4).contiguous()
-    else:
-        b, s, hl, d = x.shape
-        send = x.reshape(b, n, s // n, hl, d).permute(1, 0, 2, 3, 4).contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=sg.group)
-    all_to_all.bytes_sent += send.numel() * send.element_size() * (n - 1) // n
-    if to_heads:  # [N, B, S/N, H/N, D], dim 0 the sequence block
-        return recv.permute(1, 0, 2, 3, 4).reshape(b, n * sl, h // n, d)
-    return recv.permute(1, 2, 0, 3, 4).reshape(b, s // n, n * hl, d)
+    heads, gather the sequence); else the reverse. The exchange is
+    :func:`..parallel.collectives.all_to_all` over the ``seq`` group."""
+    split, concat = (2, 1) if to_heads else (1, 2)
+    out = collectives.all_to_all(x, None, split_dim=split, concat_dim=concat,
+                                 group=sg.group)
+    all_to_all.bytes_sent += x.numel() * x.element_size() * (sg.size - 1) // sg.size
+    return out
 
 
 all_to_all.bytes_sent = 0

@@ -10,19 +10,22 @@ The port of ``distributeddeeplearningspark_tpu/parallel/mesh.py``'s
 In the port an executor is a process holding one device, so a mesh spans
 the processes of a ``torch.distributed`` group, rank r at the coordinates
 of device r of the JAX mesh (row-major over ``MESH_AXES``, ``tensor``
-innermost). The ``data``, ``fsdp``, ``seq`` and ``tensor`` axes are
-ported, alone or together: ``fsdp > 1`` shards parameters over the gang
-(FSDP2, :mod:`.sharding`), the JAX Llama driver's layout (``mesh.data=1,
-mesh.fsdp=-1``); ``data × fsdp`` is HSDP; ``tensor > 1`` splits the
+innermost). The ``data``, ``fsdp``, ``expert``, ``seq`` and ``tensor``
+axes are ported, alone or together: ``fsdp > 1`` shards parameters over
+the gang (FSDP2, :mod:`.sharding`), the JAX Llama driver's layout
+(``mesh.data=1, mesh.fsdp=-1``); ``data × fsdp`` is HSDP; ``tensor > 1`` splits the
 layers over ``llama_rules``' ``tensor`` entries (``DTensor``), and the
 ranks that differ only in their ``tensor`` coordinate take the same rows
 of every batch; ``seq > 1`` is context parallelism: the ranks that differ
 only in their ``seq`` coordinate take the same rows, each its block of
-the sequence (:mod:`..ops.ring_attention`, :mod:`..ops.ulysses`). Two
-groups then differ: the *batch* group over ``BATCH_AXES`` (who takes
-distinct rows) and the *loss* group over ``LOSS_AXES`` (over whom losses,
-metrics and gradients are summed). ``pipe`` and ``expert`` raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 6.
+the sequence (:mod:`..ops.ring_attention`, :mod:`..ops.ulysses`);
+``expert > 1`` is expert parallelism: ``llama_rules`` splits the MoE
+expert bank's experts over it (:mod:`..models.moe`), and the ranks that
+differ only in their ``expert`` coordinate take the same rows, as
+``tensor`` peers do. Two groups then differ: the *batch* group over
+``BATCH_AXES`` (who takes distinct rows) and the *loss* group over
+``LOSS_AXES`` (over whom losses, metrics and gradients are summed).
+``pipe`` raises ``NotImplementedError`` naming ROADMAP Queue 1 item 6.
 
 One deliberate difference from the JAX ``Session``: there, ``local[N]``
 with ``mesh.tensor=T`` asks for N·T devices (``--tensor`` "peels off
@@ -56,7 +59,7 @@ BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
 LOSS_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_SEQ)
 #: the axes that shard parameters: each distinct shard lies once in a group
 #: over them, so a norm over shards sums across it and never across ``data``
-SHARD_AXES = (AXIS_FSDP, AXIS_TENSOR)
+SHARD_AXES = (AXIS_FSDP, AXIS_EXPERT, AXIS_TENSOR)
 
 #: master URLs that ask for every local device
 WILDCARD_MASTERS = (None, "auto", "local", "local[*]")
@@ -64,7 +67,6 @@ WILDCARD_MASTERS = (None, "auto", "local", "local[*]")
 #: the axes not ported yet → their ROADMAP item
 _NOT_PORTED = {
     AXIS_PIPE: "pipeline parallelism (parallel/pipeline.py): ROADMAP Queue 1 item 6",
-    AXIS_EXPERT: "expert parallelism (models/moe.py): ROADMAP Queue 1 item 6",
 }
 
 
@@ -88,8 +90,8 @@ class MeshSpec:
         beyond = {a: getattr(self, a) for a in _NOT_PORTED if getattr(self, a) != 1}
         if beyond:
             raise NotImplementedError(
-                f"mesh axes {beyond}: the port shards over data, fsdp, seq "
-                f"and tensor only; " + "; ".join(_NOT_PORTED[a] for a in beyond))
+                f"mesh axes {beyond}: the port shards over data, fsdp, "
+                f"expert, seq and tensor only; " + "; ".join(_NOT_PORTED[a] for a in beyond))
         if sum(getattr(self, a) == -1 for a in MESH_AXES) > 1:
             raise ValueError(f"at most one mesh axis may be -1, got spec {self}")
 
@@ -140,11 +142,12 @@ def group_ranks(shape: dict[str, int], axes: Sequence[str]) -> list[list[int]]:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A session's mesh: each axis's size (the JAX ``Mesh.shape``); where
-    ``fsdp``, ``seq`` or ``tensor`` is above 1, the ``torch.distributed``
-    ``DeviceMesh`` over the gang, one dim for each axis above 1 named as
-    the JAX axis (None otherwise); the process groups over ``BATCH_AXES``,
-    ``LOSS_AXES``, ``SHARD_AXES``, ``seq`` and ``tensor`` that do not span
-    the whole gang (:meth:`group`); and this process's rank."""
+    ``fsdp``, ``expert``, ``seq`` or ``tensor`` is above 1, the
+    ``torch.distributed`` ``DeviceMesh`` over the gang, one dim for each
+    axis above 1 named as the JAX axis (None otherwise); the process groups
+    over ``BATCH_AXES``, ``LOSS_AXES``, ``SHARD_AXES``, ``expert``, ``seq``
+    and ``tensor`` that do not span the whole gang (:meth:`group`); and
+    this process's rank."""
 
     shape: dict[str, int]
     device_mesh: Any = None
@@ -157,10 +160,15 @@ class Mesh:
     def group(self, axes: Sequence[str]):
         """The process group of this rank over ``axes`` (a tuple of axis
         names): None where it is the whole gang (``torch.distributed``'s
-        default group)."""
+        default group). Axes the session made no group for (as a collective
+        verb may name) take their ``DeviceMesh`` dim's where one of them is
+        above 1."""
         axes = tuple(axes)
         if self.size(axes) == math.prod(self.shape.values()):
             return None
+        wide = tuple(a for a in axes if self.shape[a] > 1)
+        if axes not in self.groups and self.device_mesh is not None and len(wide) == 1:
+            self.groups[axes] = self.device_mesh.get_group(wide[0])
         if axes not in self.groups:
             raise RuntimeError(f"mesh {self.shape} has no process group over "
                                f"{axes}: it needs the gang's process group "

@@ -15,17 +15,20 @@ rule engine, copied here unchanged, over the port's param names
 3. everything else stays replicated.
 
 A spec lowers onto the session's ``DeviceMesh`` (:func:`fully_shard_model`)
-in torchtitan's order. First its ``tensor`` entry: at ``tensor`` above 1
-the param becomes a ``DTensor`` on the ``tensor`` sub-mesh, ``Shard`` on
-that dim, each rank keeping its chunk (``llama_rules``' Megatron layout;
-the model reads the placement and splits its compute,
-:mod:`..models.llama`). Then its ``fsdp`` entry: FSDP2's ``fully_shard``
+in torchtitan's order. First its model-parallel entries, ``expert`` and
+``tensor``: where one or both are above 1 the param becomes a ``DTensor``
+on the sub-mesh of those axes, ``Shard`` on each one's dim, each rank
+keeping its chunk (``llama_rules``' Megatron layout and its expert bank;
+the model reads the placements and splits its compute,
+:mod:`..models.llama`, :mod:`..models.moe`). Then its ``fsdp`` entry: FSDP2's ``fully_shard``
 over the batch dims of the mesh (``fsdp``, or ``data × fsdp`` for HSDP:
 sharded over ``fsdp``, replicated over ``data``), once on each layer of
 the model's layer ``ModuleList``\\ s that holds such a param, then on the
 root, each on its rule's dim (``shard_placement_fn``; on a tensor-split
 param FSDP2 shards the local chunk, so a rule's ``P("tensor", "fsdp")``
-lands as placements ``(Shard(1), Shard(0))`` over ``(fsdp, tensor)``),
+lands as placements ``(Shard(1), Shard(0))`` over ``(fsdp, tensor)``, and
+the bank's ``P("expert", "fsdp", "tensor")`` as ``(Shard(1), Shard(0),
+Shard(2))`` over ``(fsdp, expert, tensor)``),
 every other param handed over as ``ignored_params``. Those keep the
 data-parallel path: the train step sums their gradients over the batch
 group with ``collectives.all_reduce_grads``. The FSDP-sharded params'
@@ -39,9 +42,9 @@ the JAX ``state_shardings`` lays it out. Each card holds
 :func:`bytes_per_card`.
 
 What the lowering cannot place raises, and never trains replicas: a spec
-entry on an axis other than ``fsdp`` and ``tensor`` above 1, two axes
-above 1 on one dim (FSDP2 would interleave them, ``_StridedShard``), a
-``tensor`` dim that does not divide, a sharded mesh with no
+entry on an axis other than ``fsdp``, ``expert`` and ``tensor`` above 1,
+two axes above 1 on one dim (FSDP2 would interleave them,
+``_StridedShard``), an ``expert`` or ``tensor`` dim that does not divide, a sharded mesh with no
 ``DeviceMesh``, and a torch whose FSDP2 lacks what the lowering calls.
 
 How the port's layout differs from JAX's: JAX stacks Llama's layers
@@ -64,6 +67,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
+    AXIS_EXPERT,
     AXIS_FSDP,
     AXIS_TENSOR,
     BATCH_AXES,
@@ -232,6 +236,16 @@ def tensor_dims(model: nn.Module, rules: ShardingRules, mesh) -> dict[str, int]:
     return _dims(_specs(model, rules, mesh), mesh, AXIS_TENSOR)
 
 
+def expert_dims(model: nn.Module, rules: ShardingRules, mesh) -> dict[str, int]:
+    """The params the rules split over ``expert`` on ``mesh``: name → dim."""
+    return _dims(_specs(model, rules, mesh), mesh, AXIS_EXPERT)
+
+
+#: the model-parallel axes: a spec's entries on them lower to ``DTensor``
+#: ``Shard``s on their sub-mesh, the model reading the placements
+MODEL_AXES = (AXIS_EXPERT, AXIS_TENSOR)
+
+
 def bytes_per_card(shapes: dict[str, tuple[int, ...]], itemsizes: dict[str, int],
                    rules: ShardingRules, mesh) -> int:
     """The rule engine's reckoning of the param bytes each card holds: a
@@ -316,9 +330,9 @@ def resident_param_bytes(model: nn.Module) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TensorSplit:
-    """How a ``DTensor`` is split over the ``tensor`` axis: the dim, the
-    1-D ``tensor`` mesh (None for a tensor on a wider mesh) and its group,
-    this rank's index and the size."""
+    """How a ``DTensor`` is split over a mesh axis (``tensor``, ``expert``):
+    the dim, the 1-D mesh of that axis (None for a tensor on a wider mesh)
+    and the axis's group, this rank's index and the size."""
 
     dim: int
     mesh: Any
@@ -327,25 +341,30 @@ class TensorSplit:
     size: int
 
 
-def tensor_split(t: Any) -> TensorSplit | None:
-    """``t``'s split over the mesh's ``tensor`` axis, None where ``t`` is not
-    a ``DTensor`` sharded over it: what a layer reads to run on its shard
-    (:mod:`..models.llama`)."""
+def mesh_split(t: Any, axis: str) -> TensorSplit | None:
+    """``t``'s split over the mesh axis ``axis``, None where ``t`` is not a
+    ``DTensor`` sharded over it: what a layer reads to run on its shard
+    (:mod:`..models.llama`, :mod:`..models.moe`)."""
     if not isinstance(t, DTensor):
         return None
     mesh = t.device_mesh
     names = mesh.mesh_dim_names or ()
-    if AXIS_TENSOR not in names:
+    if axis not in names:
         return None
-    i = names.index(AXIS_TENSOR)
+    i = names.index(axis)
     p = t.placements[i]
     if not p.is_shard():
         return None
-    # a layer's forward sees its weight on the 1-D tensor mesh (FSDP2's
-    # unsharded param); the sharded param outside one names no 1-D mesh
+    # a layer's forward sees its weight on the 1-D model-parallel mesh
+    # (FSDP2's unsharded param); the sharded param outside one names none
     sub = mesh if mesh.ndim == 1 else None
     return TensorSplit(dim=p.dim, mesh=sub, group=mesh.get_group(i),
                        index=mesh.get_local_rank(i), size=mesh.size(i))
+
+
+def tensor_split(t: Any) -> TensorSplit | None:
+    """``t``'s split over the mesh's ``tensor`` axis (:func:`mesh_split`)."""
+    return mesh_split(t, AXIS_TENSOR)
 
 
 def fsdp_reduced(t: Any) -> bool:
@@ -397,62 +416,71 @@ def _check_placeable(specs: dict[str, PartitionSpec], shapes: dict, mesh) -> Non
             if other:
                 raise NotImplementedError(
                     f"{name}: spec {spec} shards over {other}; the port lowers "
-                    f"fsdp and tensor entries only")
+                    f"fsdp, expert and tensor entries only")
             if len(wide) > 1:
                 raise NotImplementedError(
                     f"{name}: spec {spec} puts {wide} on one dim (FSDP2 would "
                     f"interleave them); the lowering places one axis a dim")
-        t = axis_dim(spec, AXIS_TENSOR)
-        size = mesh.shape[AXIS_TENSOR]
-        if t is not None and size > 1 and shapes[name][t] % size:
-            raise ValueError(f"{name}: dim {t} of shape {shapes[name]} does not "
-                             f"divide by tensor={size}")
+        for axis in MODEL_AXES:
+            d, size = axis_dim(spec, axis), mesh.shape[axis]
+            if d is not None and size > 1 and shapes[name][d] % size:
+                raise ValueError(f"{name}: dim {d} of shape {shapes[name]} does "
+                                 f"not divide by {axis}={size}")
 
 
-def _split_over_tensor(model: nn.Module, dims: dict[str, int], tp_mesh) -> None:
-    """Each param of ``dims`` as a ``DTensor`` on ``tp_mesh``, ``Shard`` on
-    its dim: this rank keeps its chunk (a copy: the whole is freed)."""
+def _split_over_model_axes(model: nn.Module, specs: dict[str, PartitionSpec],
+                           mesh) -> None:
+    """Each param whose spec names an axis of ``MODEL_AXES`` above 1 as a
+    ``DTensor`` on the sub-mesh of those axes, ``Shard`` on each one's dim:
+    this rank keeps its chunk (a copy: the whole is freed)."""
     from torch.distributed.tensor import Shard
 
-    index, size = tp_mesh.get_local_rank(), tp_mesh.size()
-    for name, dim in dims.items():
+    for name, spec in specs.items():
+        axes = tuple(a for a in MODEL_AXES
+                     if mesh.shape[a] > 1 and axis_dim(spec, a) is not None)
+        if not axes:
+            continue
+        sub = mesh.device_mesh[axes]
         owner, attr = model, name
         if "." in name:
             path, attr = name.rsplit(".", 1)
             owner = model.get_submodule(path)
         p = getattr(owner, attr)
-        chunk = p.detach().chunk(size, dim)[index].clone(
-            memory_format=torch.contiguous_format)
-        dt = DTensor.from_local(chunk, tp_mesh, [Shard(dim)], run_check=False,
-                                shape=p.shape, stride=p.stride())
+        chunk = p.detach()
+        for i, a in enumerate(axes):
+            chunk = chunk.chunk(sub.size(i), axis_dim(spec, a))[sub.get_local_rank(i)]
+        chunk = chunk.clone(memory_format=torch.contiguous_format)
+        dt = DTensor.from_local(chunk, sub, [Shard(axis_dim(spec, a)) for a in axes],
+                                run_check=False, shape=p.shape, stride=p.stride())
         owner.register_parameter(attr, nn.Parameter(dt, requires_grad=p.requires_grad))
 
 
 def fully_shard_model(model: nn.Module, rules: ShardingRules, mesh) -> dict[str, int]:
     """Lower ``rules`` onto ``model`` over ``mesh`` (the session's
-    :class:`~.mesh.Mesh`): the ``tensor`` entries to ``DTensor`` on the
-    ``tensor`` sub-mesh, then the ``fsdp`` entries with FSDP2 over the
+    :class:`~.mesh.Mesh`): the ``expert`` and ``tensor`` entries to
+    ``DTensor`` on their sub-mesh, then the ``fsdp`` entries with FSDP2 over the
     batch dims (``fully_shard`` once on each layer of its layer
     ``ModuleList``\\ s that holds such a param, then on the root, each on
     its rule's dim, every other param ignored). Works on a model on the
     meta device (then ``to_empty`` and draw the weights, as
     ``Trainer`` does). Returns the ``fsdp``-sharded params' dims by name;
     nothing is sharded (and nothing called) where the rules shard no
-    param, as at ``fsdp`` and ``tensor`` 1. Raises where the module
+    param, as at ``fsdp``, ``expert`` and ``tensor`` 1. Raises where the module
     docstring says: it never falls back to replicas."""
     specs = _specs(model, rules, mesh)
     _check_placeable(specs, {n: tuple(p.shape) for n, p in model.named_parameters()},
                      mesh)
-    dims, tdims = _dims(specs, mesh, AXIS_FSDP), _dims(specs, mesh, AXIS_TENSOR)
-    if not dims and not tdims:
+    dims = _dims(specs, mesh, AXIS_FSDP)
+    split = any(_dims(specs, mesh, a) for a in MODEL_AXES)
+    if not dims and not split:
         return {}
     if mesh.device_mesh is None:
         raise RuntimeError(
             f"mesh {mesh.shape} shards params but has no DeviceMesh: a sharded "
             f"mesh needs the gang's process group (launch through "
             f"`python -m distributeddeeplearningspark_tpu_torch.cli`)")
-    if tdims:
-        _split_over_tensor(model, tdims, mesh.device_mesh[AXIS_TENSOR])
+    if split:
+        _split_over_model_axes(model, specs, mesh)
     if not dims:
         return {}
     from torch.distributed.fsdp import FSDPModule, fully_shard

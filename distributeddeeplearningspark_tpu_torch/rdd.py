@@ -25,7 +25,6 @@ serial path, whose partitioning differs.
 
 from __future__ import annotations
 
-import copy
 import functools
 import itertools
 import os
@@ -35,6 +34,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
+
+from distributeddeeplearningspark_tpu_torch.parallel import collectives
 
 PartitionFn = Callable[[], Iterable[Any]]
 
@@ -458,14 +459,10 @@ class PartitionedDataset:
     def tree_aggregate(self, zero: Any, seq_op: Callable[[Any, Any], Any],
                        comb_op: Callable[[Any, Any], Any]) -> Any:
         """Spark ``treeAggregate``: a fold per partition from a copy of
-        ``zero``, then the partials combined on the driver."""
-        per_part = []
-        for p in self._parts:
-            acc = copy.deepcopy(zero)
-            for x in p():
-                acc = seq_op(acc, x)
-            per_part.append(acc)
-        return functools.reduce(comb_op, per_part)
+        ``zero``, then the partials combined on the driver
+        (:func:`..parallel.collectives.tree_aggregate`)."""
+        return collectives.tree_aggregate((p() for p in self._parts), zero, seq_op,
+                                          comb_op)
 
     def foreach_partition(self, f: Callable[[Iterable[Any]], None]) -> None:
         for p in self._parts:

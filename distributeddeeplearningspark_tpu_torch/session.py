@@ -43,12 +43,13 @@ builder's ``.master()``/``.config()`` win over it.
 and ``tensor`` peers of a coordinate take the same rows; the ``seq``
 peers each a block of their sequence). With ``mesh.fsdp``, ``mesh.seq``
 or ``mesh.tensor`` above 1 (the JAX Llama driver's ``mesh.data=1,
-mesh.fsdp=-1, mesh.seq=C, mesh.tensor=T``) the session builds a
+mesh.fsdp=-1, mesh.seq=C, mesh.tensor=T``), or ``mesh.expert`` above 1,
+the session builds a
 ``torch.distributed`` ``DeviceMesh`` over its group with
 ``init_device_mesh``, one dim for each axis above 1, named as the JAX
 axis, on the session's device type, and the process groups over the
 batch axes, the loss axes (``data × fsdp × seq``), the shard axes,
-``seq`` and ``tensor`` (``Mesh.group``); ``Trainer(rules=...)`` shards
+``expert``, ``seq`` and ``tensor`` (``Mesh.group``); ``Trainer(rules=...)`` shards
 parameters over it (:mod:`.parallel.sharding`). Such a mesh without a
 group raises.
 """
@@ -64,6 +65,7 @@ from typing import Any, Iterable, Sequence
 import torch
 
 from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
+    AXIS_EXPERT,
     AXIS_FSDP,
     AXIS_SEQ,
     AXIS_TENSOR,
@@ -114,8 +116,8 @@ class Session:
         self.device = device
         self.spec = spec or MeshSpec(data=world_size)
         #: the mesh over the gang: ``mesh.shape`` ``{axis: size}``, and the
-        #: ``DeviceMesh`` and the axes' groups when ``fsdp``, ``seq`` or
-        #: ``tensor`` is above 1
+        #: ``DeviceMesh`` and the axes' groups when ``fsdp``, ``expert``,
+        #: ``seq`` or ``tensor`` is above 1
         self.mesh = Mesh(self.spec.shape(world_size), device_mesh, groups or {},
                          rank=rank)
         self.rank = rank
@@ -247,7 +249,7 @@ def _device_mesh(shape: dict[str, int], rank: int, device: torch.device
     """The ``DeviceMesh`` over the gang's group, one dim for each axis above
     1 in ``MESH_AXES`` order (rank r at JAX's device r), and this rank's
     process groups over ``BATCH_AXES``, ``LOSS_AXES``, ``SHARD_AXES``,
-    ``seq`` and ``tensor`` where they do not span the gang: a
+    ``expert``, ``seq`` and ``tensor`` where they do not span the gang: a
     ``DeviceMesh`` dim's group where one axis of them is above 1, else made
     here (every rank makes every group, in the same order, as
     ``new_group`` needs)."""
@@ -259,7 +261,8 @@ def _device_mesh(shape: dict[str, int], rank: int, device: torch.device
                             mesh_dim_names=names)
     world = mesh.size()
     groups, by_wide = {}, {}
-    for axes in (BATCH_AXES, LOSS_AXES, SHARD_AXES, (AXIS_SEQ,), (AXIS_TENSOR,)):
+    for axes in (BATCH_AXES, LOSS_AXES, SHARD_AXES, (AXIS_EXPERT,), (AXIS_SEQ,),
+                 (AXIS_TENSOR,)):
         wide = tuple(a for a in axes if shape[a] > 1)
         size = 1
         for a in wide:
@@ -325,7 +328,7 @@ def _create_session(conf: dict[str, str]) -> Session:
     if env is not None:
         _join_group(env, device)
         sess_kw = dict(rank=env.rank, world_size=env.world_size, group=True)
-        if any(shape[a] > 1 for a in (AXIS_FSDP, AXIS_SEQ, AXIS_TENSOR)):
+        if any(shape[a] > 1 for a in (AXIS_FSDP, AXIS_EXPERT, AXIS_SEQ, AXIS_TENSOR)):
             sess_kw["device_mesh"], sess_kw["groups"] = _device_mesh(
                 shape, env.rank, device)
     app = conf.get("spark.app.name", "dls-torch")

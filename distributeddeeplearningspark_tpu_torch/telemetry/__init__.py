@@ -224,6 +224,13 @@ def get() -> EventWriter | None:
     return _writer
 
 
+def emit(kind: str, **fields: Any) -> None:
+    """Emit through the process-wide writer; a no-op unconfigured."""
+    writer = _writer
+    if writer is not None:
+        writer.emit(kind, **fields)
+
+
 def phase(name: str, **fields: Any):
     """Span context through the process-wide writer (no-op unconfigured)."""
     writer = _writer

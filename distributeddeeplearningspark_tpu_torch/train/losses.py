@@ -5,9 +5,11 @@ Each takes (model outputs, batch dict) and returns (scalar loss, metrics
 dict). A loss whose denominator is not the example count reports a
 ``"weight"`` metric, which :meth:`..trainer.Trainer.evaluate` uses to
 combine per-batch means exactly across unequal batches; the train loop
-drops it from its logs. ``causal_lm`` takes logits only: the MoE
-load-balance term and the fused LM head (``causal_lm_fused``) are not
-ported yet (ROADMAP Queue 1 items 5 and 6). Logits split over the vocab
+drops it from its logs. ``causal_lm`` takes the logits, or an MoE
+model's ``{"logits", "moe_aux", "moe_dropped_frac"}`` (:func:`_add_moe_aux`:
+the already weighed load-balance loss joins the loss and both are
+reported); the fused LM head (``causal_lm_fused``) is not ported yet
+(ROADMAP Queue 1 item 5). Logits split over the vocab
 (a ``DTensor`` ``Shard(2)`` over ``tensor``, the Llama head under tensor
 parallelism) go through a vocab-parallel cross-entropy that gathers no
 logits. Under context parallelism a batch holds one block of each row's
@@ -125,28 +127,47 @@ def _reduce_next_token(per_tok: torch.Tensor, batch: dict[str, Any]
     return loss, {"loss": loss, "perplexity": torch.exp(loss), "weight": denom}
 
 
+def _add_moe_aux(loss: torch.Tensor, metrics: dict[str, torch.Tensor], outputs
+                 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Fold a model's (already weighed) MoE load-balance loss into the loss,
+    and report it and the dropped share, a metric only. ``perplexity``
+    stays the exponential of the cross-entropy, as JAX's."""
+    if isinstance(outputs, dict) and "moe_aux" in outputs:
+        aux = outputs["moe_aux"]
+        loss = loss + aux
+        metrics = {**metrics, "loss": loss, "moe_aux": aux}
+        if "moe_dropped_frac" in outputs:
+            metrics["moe_dropped_frac"] = outputs["moe_dropped_frac"]
+    return loss, metrics
+
+
 def causal_lm(logits: torch.Tensor, batch: dict[str, Any]
               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Next-token cross-entropy in f32 (the Llama-2 LoRA fine-tune): the
     logits at position t against ``input_ids`` at t + 1 (under context
     parallelism every position against ``NEXT_IDS``); respects
-    ``loss_mask`` and ``eval_mask``."""
+    ``loss_mask`` and ``eval_mask``. An MoE model's output dict adds its
+    load-balance loss (:func:`_add_moe_aux`)."""
+    outputs = logits
+    if isinstance(logits, dict):
+        logits = outputs["logits"]
     if not isinstance(logits, torch.Tensor):
         raise TypeError(f"causal_lm takes the [B, S, V] logits, got "
-                        f"{type(logits).__name__} (the fused head and MoE "
-                        f"outputs are not ported yet)")
+                        f"{type(logits).__name__} (the fused head's outputs are "
+                        f"not ported yet)")
     # the positions that have a label here: all of a block whose labels
     # came from the whole rows, else all but the last
     whole = NEXT_IDS in batch
     labels = (batch[NEXT_IDS] if whole else batch["input_ids"][:, 1:]).long()
     split = sharding.tensor_split(logits)
     if split is not None:
-        return _reduce_next_token(
-            _vocab_parallel_xent(logits, labels, split, shifted=not whole), batch)
-    logits = (logits if whole else logits[:, :-1]).float()
-    per_tok = F.cross_entropy(logits.flatten(0, 1), labels.flatten(),
-                              reduction="none").view(labels.shape)
-    return _reduce_next_token(per_tok, batch)
+        per_tok = _vocab_parallel_xent(logits, labels, split, shifted=not whole)
+    else:
+        logits = (logits if whole else logits[:, :-1]).float()
+        per_tok = F.cross_entropy(logits.flatten(0, 1), labels.flatten(),
+                                  reduction="none").view(labels.shape)
+    loss, metrics = _reduce_next_token(per_tok, batch)
+    return _add_moe_aux(loss, metrics, outputs)
 
 
 def _vocab_parallel_xent(logits, labels: torch.Tensor, split, shifted: bool = True

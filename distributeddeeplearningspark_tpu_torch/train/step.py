@@ -82,11 +82,21 @@ path's all-reduce takes the loss group, and the FSDP-reduced gradients
 ``seq`` and the params are replicated across it) are all-reduced over
 the ``seq`` group, on their local shards: each card keeps the rule
 engine's bytes. ``grad_norm`` stays over ``SHARD_AXES``.
+
+A model with a ``batch_sum`` attribute (the MoE Llama,
+:mod:`..models.llama`) gets a differentiable all-reduce over the loss
+group there in a distributed step: its load-balance loss E · Σₑ fₑ · p̄ₑ is
+a product of two means over the global batch, which a mean of the ranks'
+products is not. Every rank then adds the same global aux to its loss,
+and the ``w_r / W`` weighing sums it to the aux once; its gradient, summed
+back over the group by the all-reduce's backward and then over the ranks'
+gradients, is the global batch's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
@@ -240,6 +250,16 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
         return Shards(tensors, [shares[i] for i in index], shard_group)
 
     guard = NonfiniteGuard() if guard_nonfinite else None
+    loss_ranks = mesh.size(LOSS_AXES) if mesh is not None else collectives.world_size()
+    if distributed and hasattr(model, "batch_sum"):
+        # the MoE load balance is a product of two global-batch means: the
+        # model adds its batch sums over the ranks that hold distinct rows
+        # (the loss group) before the product, so every rank's aux is the
+        # global one and, weighed by w_r / W, it joins the loss once; a loss
+        # group of one rank (expert or tensor peers only) holds them all
+        model.batch_sum = (functools.partial(collectives.all_reduce_sum, axis=LOSS_AXES,
+                                             group=loss_group)
+                           if loss_ranks > 1 else None)
 
     def train_step(state: TrainState, batch: dict[str, torch.Tensor]):
         params = [state.params[n] for n in grad_names]

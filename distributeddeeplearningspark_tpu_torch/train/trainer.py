@@ -123,6 +123,14 @@ supervisor shrinks the gang at once, and the relaunch's
 :meth:`Trainer.restore_live_handoff` resumes from the drained step with no
 walk-back. A drain that fails raises.
 
+With the comms probes on (``DLS_COMMS_PROBE=1``,
+``collectives.enable_collective_probes``) and telemetry on, each log lap
+takes one :func:`~..parallel.collectives.barrier_probe`: a ``collective``
+event of this rank's wait for the gang, which the JAX package's
+``fleet.host_table`` folds into its comms-wait column. An MoE model's
+``moe_aux`` and ``moe_dropped_frac`` are metrics like any other: in the
+log line and the ``step_metrics`` records.
+
 Not ported yet: ``profile``, ``measure_flops`` and ``tensorboard_dir``
 (ROADMAP Queue 1 item 9).
 """
@@ -346,6 +354,8 @@ class Trainer:
         self.trainable = trainable
         #: the params the rules split over tensor: name → dim (empty: none)
         self.tensor_dims = sharding.tensor_dims(model, rules, self.session.mesh)
+        #: the params the rules split over expert: name → dim (empty: none)
+        self.expert_dims = sharding.expert_dims(model, rules, self.session.mesh)
         #: the params the rules shard over fsdp: name → dim (empty: none)
         self.shard_dims = sharding.fully_shard_model(model, rules, self.session.mesh)
         if on_meta:
@@ -711,6 +721,11 @@ class Trainer:
             tele.emit("phase", name="run", edge="begin", step=step_i,
                       attempt=int(os.environ.get("DLS_RESTART", "0") or 0))
             tele.heartbeat(step=step_i)
+        # opt-in gang-barrier latency, one sample a log lap (a scalar
+        # all-reduce timed on the host): in a straggling gang every healthy
+        # rank's sample grows by the straggler's lag, the fleet table's
+        # comms-wait column (DLS_COMMS_PROBE=1)
+        comms_probe = tele is not None and collectives.collective_probes_enabled()
         feed = self._feed(dataset, batch_size, skip_batches=skip, probe=probe)
         meter.start()
         lap_start = step_i
@@ -763,6 +778,8 @@ class Trainer:
                                 lap_s, dispatch_s, drain_s, lap_n,
                                 snap["input_wait_s"], self.session.num_devices))
                         tele.heartbeat(step=step_i)
+                        if comms_probe:
+                            collectives.barrier_probe(self.session.mesh)
                     dispatch_s = 0.0
                     if on_nonfinite == "raise":
                         sanitize.assert_all_finite(last_metrics, step=step_i)

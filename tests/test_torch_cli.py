@@ -284,9 +284,15 @@ def test_launcher_refuses_what_it_cannot_start(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         cli.num_processes({"spark.master": "local[2]", "mesh.seq": "2", "mesh.pipe": "2"})
     # data × fsdp (HSDP) and data × seq are ported: local[2] at fsdp=2 or at
-    # seq=2 is four processes
+    # seq=2 is four processes,
     assert cli.num_processes({"spark.master": "local[2]", "mesh.fsdp": "2"}) == 4
     assert cli.num_processes({"spark.master": "local[2]", "mesh.seq": "2"}) == 4
+    # and so is expert: local[2] at expert=2 is four processes; pipe beside
+    # it still refuses
+    assert cli.num_processes({"spark.master": "local[2]", "mesh.expert": "2"}) == 4
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        cli.num_processes({"spark.master": "local[2]", "mesh.expert": "2",
+                           "mesh.pipe": "2"})
     with pytest.raises(SystemExit, match="KEY=VALUE"):
         cli.parse_conf(cli.build_parser().parse_args(["--conf", "nokey", "x.py"]))
     with pytest.raises(SystemExit, match="script not found"):

@@ -20,7 +20,7 @@ against the JAX package's sharding, on the CPU.
   ``fsdp=2`` restored at one rank; the ``inference_mode`` × FSDP2 fault
   (ROADMAP Queue 3).
 - The driver at ``local[2]`` takes ``--fsdp -1`` and ``--tensor 2``, and
-  refuses the sequence, pipeline and expert axes.
+  refuses the pipeline axis.
 
 f32 throughout: each tolerance is summation order, and says so."""
 
@@ -509,17 +509,18 @@ def test_fsdp_mesh_parses_as_jax(master, conf, want):
 
 
 def test_what_the_mesh_cannot_shard_raises():
-    """The mesh refuses the pipe and expert axes (ROADMAP Queue 1 item 6;
-    data × fsdp, seq and tensor are ported), also beside seq, and the
-    lowering what it cannot place, before it needs a group: an axis other
-    than fsdp and tensor, two axes on one dim, a tensor dim that does not
-    divide. Heads that do not divide by tensor raise in the gang
-    (``test_torch_tp.py``)."""
-    for axis in ("pipe", "expert"):
+    """The mesh refuses the pipe axis (ROADMAP Queue 1 item 6; data × fsdp,
+    expert, seq and tensor are ported), also beside seq and beside expert,
+    and the lowering what it cannot place, before it needs a group: an axis
+    other than fsdp, expert and tensor, two axes on one dim, a tensor or an
+    expert dim that does not divide. Heads that do not divide by tensor
+    raise in the gang (``test_torch_tp.py``)."""
+    for extra in ({}, {"expert": 2}):
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tmesh.MeshSpec(data=2, fsdp=2, tensor=2, **{axis: 2})
+            tmesh.MeshSpec(data=2, fsdp=2, tensor=2, pipe=2, **extra)
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tmesh.MeshSpec(data=2, seq=2, **{axis: 2})
+            tmesh.MeshSpec(data=2, seq=2, pipe=2, **extra)
+    assert tmesh.MeshSpec(data=2, fsdp=2, expert=2).axis_sizes(8)[3] == 2
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tmesh.spec_from_conf("local[2]", {"mesh.seq": "2", "mesh.pipe": "2"})
     assert tmesh.MeshSpec(data=-1, fsdp=2).axis_sizes(8)[:2] == (4, 2)
@@ -529,7 +530,7 @@ def test_what_the_mesh_cannot_shard_raises():
     mesh = tmesh.Mesh(tmesh.MeshSpec(data=2, fsdp=2, tensor=2).shape(8))
     for rules, err, what in (
             (tsharding.ShardingRules(rules=((r"wq/weight", tsharding.P("data", None)),)),
-             NotImplementedError, "fsdp and tensor entries only"),
+             NotImplementedError, "fsdp, expert and tensor entries only"),
             (tsharding.ShardingRules(rules=((r"wq/weight", tsharding.P(("fsdp", "tensor"),
                                                                        None)),)),
              NotImplementedError, "one axis a dim"),
@@ -538,6 +539,11 @@ def test_what_the_mesh_cannot_shard_raises():
         with pytest.raises(err, match=what):
             tsharding.fully_shard_model(tllama.llama_tiny(device="cpu", lora_rank=1),
                                         rules, mesh)
+    # three experts over expert=2
+    moe = tllama.llama_tiny(device="cpu", moe_experts=3)
+    with pytest.raises(ValueError, match="does not divide by expert=2"):
+        tsharding.fully_shard_model(moe, tllama.llama_rules(moe.cfg), tmesh.Mesh(
+            tmesh.MeshSpec(data=1, fsdp=2, expert=2).shape(4)))
     with pytest.raises(RuntimeError, match="no DeviceMesh"):
         tsharding.fully_shard_model(model, tllama.llama_rules(model.cfg), mesh)
 
@@ -789,10 +795,11 @@ def test_driver_shards_over_every_rank_by_default(tmp_path):
 
 
 def test_driver_refuses_tensor_parallelism(capsys):
-    """The driver takes ``--tensor`` and ``--seq-parallel`` (tensor and
-    context parallelism are ported) and still refuses the pipeline and
-    expert axes beside them, naming ROADMAP Queue 1 item 6."""
-    for flags in (["--pipeline", "2"], ["--expert", "2"],
+    """The driver takes ``--tensor``, ``--seq-parallel`` and ``--expert``
+    (tensor, context and expert parallelism are ported) and still refuses
+    the pipeline beside them, naming ROADMAP Queue 1 item 6."""
+    for flags in (["--pipeline", "2"],
+                  ["--moe-experts", "4", "--expert", "2", "--microbatches", "2"],
                   ["--seq-parallel", "2", "--pipeline", "2"]):
         with pytest.raises(SystemExit) as e:
             tdriver.parse_args(["--variant", "tiny", "--tensor", "2", *flags])
@@ -800,6 +807,9 @@ def test_driver_refuses_tensor_parallelism(capsys):
         assert "ROADMAP Queue 1 item 6" in capsys.readouterr().err
     args = tdriver.parse_args(["--variant", "tiny", "--tensor", "2"])
     assert args.fsdp == -1 and args.tensor == 2
+    args = tdriver.parse_args(["--variant", "tiny", "--tensor", "2", "--moe-experts",
+                               "4", "--expert", "2"])
+    assert (args.expert, args.moe_experts) == (2, 4)
 
 
 if __name__ == "__main__":

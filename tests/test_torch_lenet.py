@@ -214,12 +214,13 @@ def test_spec_from_conf_parses_as_jax(master, conf):
 
 @pytest.mark.parametrize("conf", [{"mesh.seq": "-1", "mesh.pipe": "2"},
                                   {"mesh.tensor": "2", "mesh.pipe": "-1"},
-                                  {"mesh.seq": "4", "mesh.expert": "2"}, {"mesh.pipe": "2"},
-                                  {"mesh.expert": "2"}])
+                                  {"mesh.seq": "4", "mesh.expert": "2", "mesh.pipe": "2"},
+                                  {"mesh.pipe": "2"},
+                                  {"mesh.expert": "-1", "mesh.pipe": "2"}])
 def test_axes_beyond_data_are_refused(conf):
     """Each axis the port cannot shard over yet names its ROADMAP item: the
-    pipeline and expert axes item 6, also beside a tensor or a seq axis
-    (data, fsdp, seq and tensor are ported)."""
+    pipeline axis item 6, also beside a tensor, a seq or an expert axis
+    (data, fsdp, expert, seq and tensor are ported)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tmesh.spec_from_conf("local[2]", conf)
 

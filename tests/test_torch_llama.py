@@ -285,7 +285,8 @@ def test_masked_must_be_the_outermost_transformation():
 
 
 @pytest.mark.parametrize("fields", [
-    pytest.param(dict(moe_experts=4), id="moe_experts-4"),
+    pytest.param(dict(moe_experts=4, fused_head_loss=True),
+                 id="moe_experts-4-fused_head_loss-True"),
     pytest.param(dict(base_quant="int8"), id="base_quant-int8"),
     pytest.param(dict(decode=True), id="decode-True"),
     pytest.param(dict(fused_head_loss=True), id="fused_head_loss-True"),
@@ -295,7 +296,8 @@ def test_masked_must_be_the_outermost_transformation():
                  id="attention_impl-ulysses-decode-True")])
 def test_model_refuses_what_is_not_ported(fields):
     """What the port lacks raises by name, also beside ring and Ulysses
-    attention (context parallelism is ported)."""
+    attention (context parallelism is ported) and beside MoE, and MoE
+    under context parallelism."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         tllama.LlamaForCausalLM(_tcfg(**fields), device="cpu")
 
@@ -503,9 +505,11 @@ def test_driver_trains_through_the_cli_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--weights", "w"], ["--tokenizer", "t"], ["--seq-parallel", "2", "--pipeline", "2"],
-    ["--microbatches", "2"], ["--moe-experts", "4"], ["--moe-group", "8"],
-    ["--expert", "2"], ["--base-quant", "int8"], ["--fused-head-loss"],
-    ["--sample-tokens", "8"], ["--seq-parallel", "2", "--expert", "2"],
+    ["--microbatches", "2"], ["--moe-experts", "4", "--microbatches", "2"],
+    ["--moe-experts", "4", "--moe-group", "8", "--fused-head-loss"],
+    ["--moe-experts", "4", "--expert", "2", "--sample-tokens", "8"],
+    ["--base-quant", "int8"], ["--fused-head-loss"], ["--sample-tokens", "8"],
+    ["--seq-parallel", "2", "--moe-experts", "4", "--expert", "2", "--weights", "w"],
     ["--tensor", "2", "--pipeline", "2"],
     ["--seq-parallel", "2", "--cp-impl", "ulysses", "--microbatches", "2"],
     ["--pipeline", "2"]])
@@ -514,6 +518,35 @@ def test_driver_refuses_what_is_not_ported(flag, capsys):
         tdriver.parse_args(["--variant", "tiny", *flag])
     assert e.value.code == 2
     assert "ROADMAP Queue 1 item" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,words", [
+    (["--expert", "2"], "--expert > 1 without --moe-experts just replicates"),
+    (["--moe-group", "8"], "--moe-group only applies to the MoE router"),
+    (["--moe-experts", "6", "--expert", "4"],
+     "--moe-experts 6 must divide by --expert 4 (expert-dim sharding)"),
+    (["--moe-experts", "4", "--pipeline", "2"],
+     "--moe-experts is not supported with --pipeline (the stage forward drops"),
+    (["--base-quant", "int8", "--lora-rank", "0"],
+     "--base-quant requires --lora-rank > 0"),
+    (["--base-quant", "int8", "--moe-experts", "4"],
+     "the expert bank, frozen with the base under LoRA")])
+def test_driver_keeps_the_jax_drivers_moe_refusals(flags, words, capsys):
+    """The JAX driver's parse-time refusals, in its words (but for MoE
+    beside the int8 base, whose reason the port words for its LoRA run)."""
+    with pytest.raises(SystemExit) as e:
+        tdriver.parse_args(["--variant", "tiny", *flags])
+    assert e.value.code == 2
+    assert words in capsys.readouterr().err
+
+
+def test_driver_takes_the_moe_flags():
+    args = tdriver.parse_args(["--variant", "7b", "--moe-experts", "8", "--moe-group",
+                               "64", "--expert", "4", "--lora-rank", "16"])
+    cfg = tdriver.make_config(args, 2048)
+    assert (cfg.moe_experts, cfg.moe_group_size, cfg.moe_top_k, args.expert) == \
+        (8, 64, 2, 4)
+    assert cfg.param_dtype == torch.bfloat16
 
 
 def test_driver_takes_the_jax_drivers_flags():
