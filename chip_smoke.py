@@ -46,11 +46,20 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    that every parameter gradient through the kernels agrees with the
    plain attention path on one batch, that the steps' telemetry saw the
    pool at W workers and that nothing of the input path outlives the
-   phase; print the step time, tokens/s, the host's ms per batch, the
+   phase; ``fit`` itself profiles its last lap and counts its first step's
+   FLOPs (``profile=``, ``measure_flops=True``): check that the count is
+   a reckoning of the step's products exactly and the same on the kernel
+   route and the plain path, that each lap's ``mfu`` is its flops × steps /
+   wall / peak, that the last ``memory`` event's peak is
+   ``max_memory_allocated``, that the window's breakdown (the package's
+   ``op_breakdown``) holds the ``flash`` family at 12 launches a step of
+   each kernel, and that the port's ``dlstatus --anatomy --json`` shows
+   the MFU and the memory; print the step time, tokens/s, the MFU and
+   ``mfu_device`` (laps before the window), the host's ms per batch, the
    loop's own ms a step with its input ready, the laps' summed wait for
    input, the prefetch ring's depth, the workers'
-   utilization, the step's forward/backward/optimizer split, a profiled
-   window and the peak device memory;
+   utilization, the step's forward/backward/optimizer split, the window's
+   breakdown and the peak device memory;
 6. serve BERT-base through the port's ``InferenceEngine.for_model`` to 8
    client threads; check every served row against a one-request forward of
    the same module whose attention runs the plain PyTorch path, the first
@@ -70,8 +79,12 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    memory stays under a limit that a planted fault (every frozen param's
    gradient zero-filled) breaks, and that at 2 layers the adapters'
    gradients through the kernels agree with the plain attention path from
-   nonzero B; print the step time, tokens/s, model TFLOP/s, a profiled
-   window and the peak memory; then run the port's driver through its
+   nonzero B; ``fit`` profiles its last 3 steps and counts its first
+   step's FLOPs, held as BERT's are (K1 64 launches a step in the window,
+   K2 and K3 32, the count a reckoning's exactly, at 2 layers the same on
+   both routes); print the step time, tokens/s, model TFLOP/s, the MFU and
+   ``mfu_device``, the measured count over the model formula's (and why),
+   the window's top families and the peak memory; then run the port's driver through its
    ``dlsubmit`` at ``local[1]`` for 5 steps with its default ``--fsdp -1``
    (a one-card mesh: nothing sharded, the card holding what the rule
    engine reckons; the same launch counts a step, finite losses, nothing
@@ -147,7 +160,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    exits 0, that K4 ran 27 times a step and the BatchNorm all-reduces 106
    times a step (K5 once a step), that the logged losses are finite and
    that no process or segment of either run is left; print each run's
-   step ms and the launch's seconds;
+   step ms and the launch's seconds; then the ResNet-50 driver again for 6
+   steps with ``--profile-dir --mfu --tensorboard-dir``: its window's
+   breakdown holds the ``k4`` family at 27 launches a step and its MFU is
+   finite; whether the TensorBoard writer ran is printed;
 13. hold global BatchNorm statistics on the card: ResNet-50 at b=256 as
    the two halves of a batch, one process each on this card, summing
    their statistics and their gradients through a gloo group as
@@ -242,7 +258,8 @@ relaunch's seconds to its first step and its steps lost.
 ``llama-moe``) runs that part's comparisons only (names combine),
 ``--gang recovery`` the shrink, the drain and the desync only.
 ``python3 chip_smoke.py --recovery`` builds the kernels and runs phases 11
-and 14 only (one card). ``python3 chip_smoke.py --ckpt-commit TREE``
+and 14 only (one card); ``--observe`` builds them and runs phases 5 and 6b
+and the observed ResNet driver only (one card). ``python3 chip_smoke.py --ckpt-commit TREE``
 measures the supervised crash drill's race with TREE's package (one card):
 how long the LeNet checkpoint's asynchronous write takes to commit against
 the steps a ``crash@8`` kill leaves it. ``python3 chip_smoke.py --input-ab`` times BERT-base, ResNet-50 and the
@@ -1068,14 +1085,20 @@ def _check_pooled(name: str, gauges: dict, workers: int) -> None:
 def _grad_parity(torch, model, loss_fn, batch) -> dict:
     """Every parameter's gradient on ``batch`` through the kernels
     (``attention_impl="auto"``) against the plain path (``"xla"``), with the
-    same weights and dropout off (eval mode)."""
+    same weights and dropout off (eval mode); and each route's FLOPs of the
+    forward and backward (``metrics.counting_flops``: the kernels' formulas
+    on one route, the mode's count of the plain products on the other)."""
+    from distributeddeeplearningspark_tpu_torch import metrics
+
     model.eval()
-    grads = {}
+    grads, flops = {}, {}
     try:
         for impl in ("auto", "xla"):
             model.cfg.attention_impl = impl
             model.zero_grad(set_to_none=True)
-            loss_fn(model(batch), batch)[0].backward()
+            with metrics.counting_flops() as n:
+                loss_fn(model(batch), batch)[0].backward()
+            flops[impl] = n["flops"]
             grads[impl] = {n: p.grad.detach().clone()
                            for n, p in model.named_parameters()}
     finally:
@@ -1086,7 +1109,8 @@ def _grad_parity(torch, model, loss_fn, batch) -> dict:
                   for m in ("query", "key", "value"))}
     return dict(**_compare_grads(torch, grads["auto"], grads["xla"],
                                  PARITY_RTOL, PARITY_ATOL),
-                qkv_weights=len(qkv), qkv_min_grad_norm=min(qkv.values()))
+                qkv_weights=len(qkv), qkv_min_grad_norm=min(qkv.values()),
+                flops=flops)
 
 
 def _compare_grads(torch, got: dict, ref: dict, rtol: float, atol: float) -> dict:
@@ -1156,67 +1180,165 @@ def _loop_ms(torch, trainer, batch, steps: int = 10) -> float:
     return (time.perf_counter() - t0) / steps * 1e3
 
 
-def _kernel_family(name: str) -> str:
-    """A device kernel's family, from its name: the port's kernels, cuDNN
-    convolutions, cuBLAS GEMMs, or other (elementwise, reductions, copies)."""
-    if "flash_" in name:
-        return "flash"
-    if "matmul_stats" in name:
-        return "k4"
-    if "scatter_add_rows" in name:
-        return "k5"
-    if "nccl" in name.lower():
-        return "nccl"
-    if any(s in name for s in ("fprop", "dgrad", "wgrad", "conv", "cudnn",
-                               "implicit")):
-        return "conv"
-    if any(s in name for s in ("gemm", "nvjet", "cutlass")):
-        return "gemm"
-    return "other"
+#: where the profiled windows write their traces (one directory a window)
+PROFILE_ROOT = ROOT / "build" / "chip_smoke_profiles"
+
+
+def _window(trace: str, steps: int) -> dict:
+    """A profiled window's numbers from its Chrome trace, read by the
+    package (``utils.profiling.op_breakdown`` over ``utils.kineto``): the
+    device's busy time per step (every stream's kernels, copies and
+    memsets; a host range mirrored on the device, NCCL's
+    ``nccl:all_reduce``, is not work of its own) against the window's wall
+    per step (the trace's extent: the profiler's start to its sync at the
+    window's end), the busy time by kernel family, the kernels that take
+    most of it, the busiest stream's launches by kernel, and the host-side
+    records of the collectives (calls and host ms per step). "not
+    measured" when the trace holds no device event."""
+    from distributeddeeplearningspark_tpu_torch.utils import kineto, profiling
+
+    # the profiler's own session record spans the trace; the window's wall is
+    # its first op to the last event of the device or the host
+    events = [e for e in kineto.load(trace) if e.get("cat") != "Trace"]
+    wall_ms = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+               - min(float(e["ts"]) for e in events)) / 1e3 / steps
+    comms: dict[str, dict] = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and any(
+                k in e["name"].lower() for k in ("allreduce", "all_reduce", "nccl")):
+            c = comms.setdefault(e["name"], dict(calls=0, host_ms_per_step=0.0))
+            c["calls"] += 1
+            c["host_ms_per_step"] += float(e["dur"]) / 1e3 / steps
+    fams = profiling.op_breakdown(trace, top=50, streams="all")
+    if fams.get("error") or not fams["plane"] or not fams["plane"].startswith("device"):
+        return dict(busy_ms_per_step="not measured", wall_ms_per_step=wall_ms,
+                    collectives=comms, trace=trace)
+    busy_ms = fams["total_ms"] / steps
+    top = profiling.op_breakdown(trace, top=10, by="kernel", streams="all")
+    stream = profiling.op_breakdown(trace, top=200, by="kernel")
+    return dict(steps=steps, wall_ms_per_step=wall_ms, busy_ms_per_step=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms,
+                busy_ms_by_family={o["name"]: o["ms"] / steps for o in fams["ops"]},
+                top_device_ms_per_step=[(o["name"][:80], o["ms"] / steps)
+                                        for o in top["ops"]],
+                stream=stream["line"],
+                stream_launches_per_step={o["name"][:80]: o["count"] / steps
+                                          for o in stream["ops"]},
+                collectives=comms, trace=trace)
 
 
 def _profile_fit(torch, trainer, ds, batch_size: int, fit_kw: dict,
                  steps: int = 4) -> dict:
-    """``steps`` more steps of ``fit`` under ``torch.profiler``: the device's
-    busy time per step (the sum of the times of the kernels and copies that
-    ran on it, one stream, so none overlap) against the wall time per step,
-    the kernels that take most of it, and the host-side records of the
-    collectives (calls and host ms per step). The profiler's own cost is in
-    the wall time; "not measured" when the trace holds no device event."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """``steps`` more steps of ``fit``, every one in its profiled window
+    (``fit(profile=ProfileSpec(...))``), read by :func:`_window`."""
+    from distributeddeeplearningspark_tpu_torch.utils.profiling import ProfileSpec
 
     start = trainer.state.step
+    out = PROFILE_ROOT / f"{os.getpid()}.{time.time_ns()}"
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        trainer.fit(ds, batch_size=batch_size, steps=start + steps,
-                    log_every=steps, **fit_kw)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    events = prof.key_averages()
-    # a range the host annotates (NCCL's "nccl:all_reduce") is mirrored on
-    # the device under the same name, over its kernels: not work of its own
-    host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
-    own = [(e.key, e.self_device_time_total / 1e3) for e in events
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-           and e.key not in host_keys]
-    comms = {e.key: dict(calls=e.count, host_ms_per_step=e.cpu_time_total / 1e3 / steps)
-             for e in events if e.device_type == DeviceType.CPU
-             and any(s in e.key.lower() for s in ("allreduce", "all_reduce", "nccl"))}
-    busy_ms = sum(ms for _, ms in own) / steps
-    if not own:
-        return dict(busy_ms_per_step="not measured", wall_ms_per_step=wall_ms,
-                    collectives=comms)
-    top = sorted(own, key=lambda kv: -kv[1])[:10]
-    groups: dict[str, float] = {}
-    for k, ms in own:  # by kernel family, from the kernels' names
-        group = _kernel_family(k)
-        groups[group] = groups.get(group, 0.0) + ms / steps
-    return dict(steps=steps, wall_ms_per_step=wall_ms, busy_ms_per_step=busy_ms,
-                idle_share=1.0 - busy_ms / wall_ms, busy_ms_by_family=groups,
-                top_device_ms_per_step=[(k[:80], ms / steps) for k, ms in top],
-                collectives=comms)
+    trainer.fit(ds, batch_size=batch_size, steps=start + steps, log_every=steps,
+                profile=ProfileSpec(str(out), start_step=0, num_steps=steps), **fit_kw)
+    traces = sorted(out.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"profiled window wrote {traces}")
+    return _window(str(traces[0]), steps)
+
+
+def _launches_per_step(window: dict, kernels: dict[str, str]) -> dict:
+    """The window's launches a step of each of ``kernels`` (name → the
+    substring of its device kernel's name), on the busiest stream."""
+    got = window.get("stream_launches_per_step", {})
+    return {name: sum(n for k, n in got.items() if sub in k)
+            for name, sub in kernels.items()}
+
+
+#: the flash kernels' device names (csrc/flash_fwd.cu, csrc/flash_bwd.cu)
+FLASH_KERNELS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+#: a lap's recorded MFU against flops × steps / wall / peak, both from its
+#: record (the record rounds the MFU to 6 decimals)
+MFU_ATOL = 1e-6
+
+
+def _observability(torch, workdir: Path, records: list[dict], window: dict,
+                   window_start: int, launches_per_step: dict[str, int],
+                   peak_bytes: int, name: str) -> dict:
+    """The device-side observability of a phase's ``fit(profile=...,
+    measure_flops=True)``: each lap's MFU against its own flops × steps /
+    wall / peak, the last ``memory`` event's peak against
+    ``max_memory_allocated``, the window's launches a step by kernel, and
+    the port's ``dlstatus --anatomy --json`` on the workdir. The MFU and
+    step ms are the steady laps' before the window (``window_start``: the
+    step it began after), apart from the window's laps, which carry the
+    profiler's cost."""
+    laps = [r for r in records if r["kind"] == "step_metrics"]
+    mems = [r for r in records if r["kind"] == "memory"]
+    mfu_off = max(abs(r["mfu"] - r["flops_per_step"] * r["steps"]
+                      / r["anatomy_wall_s"] / r["peak_flops_per_chip"]) for r in laps)
+    launches = _launches_per_step(window, FLASH_KERNELS)
+    res = subprocess.run([sys.executable, "-m", f"{PKG}.status", str(workdir),
+                          "--anatomy", "--json"], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    status = json.loads(res.stdout.strip().splitlines()[-1]) if res.returncode == 0 else {}
+    anatomy = status.get("anatomy") or {}
+    steady = [r for r in laps[1:] if r["step"] <= window_start] or laps[-1:]
+    profiled = [r for r in laps if r["step"] > window_start]
+    rec = dict(
+        flops_per_step=laps[-1]["flops_per_step"],
+        peak_flops_per_chip=laps[-1]["peak_flops_per_chip"],
+        peak_source=laps[-1]["peak_source"],
+        mfu=float(np.mean([r["mfu"] for r in steady])),
+        mfu_device=float(np.mean([r["mfu_device"] for r in steady])),
+        step_ms=1e3 * sum(r["anatomy_wall_s"] for r in steady)
+        / sum(r["steps"] for r in steady),
+        mfu_window=float(np.mean([r["mfu"] for r in profiled])),
+        step_ms_window=1e3 * sum(r["anatomy_wall_s"] for r in profiled)
+        / sum(r["steps"] for r in profiled),
+        mfu_max_abs_off=mfu_off, laps=len(laps), memory_events=len(mems),
+        memory=mems[-1] if mems else None, max_memory_allocated=peak_bytes,
+        window_launches_per_step=launches,
+        top_families=sorted(window.get("busy_ms_by_family", {}).items(),
+                            key=lambda kv: -kv[1])[:5],
+        dlstatus_rc=res.returncode,
+        dlstatus_mfu=(anatomy.get("mfu") or {}).get("mfu"),
+        dlstatus_memory=anatomy.get("memory"))
+    print(f"observability {name} " + json.dumps(rec), flush=True)
+    # a lap holding the counted first step (a first call: its compile) has
+    # no device time for it, and so no mfu_device
+    check(all(r.get("mfu") is not None
+              and (r.get("mfu_device") is not None) == (r["compile_in_lap_s"] == 0)
+              for r in laps) and mfu_off <= MFU_ATOL,
+          f"{name}: a lap's mfu is not flops × steps / wall / peak (off by "
+          f"{mfu_off}), or its mfu_device is missing")
+    check(rec["peak_source"].startswith("spec table"),
+          f"{name}: the MFU's peak came from {rec['peak_source']}")
+    check(len(mems) == len(laps) and mems[-1]["source"] == "memory_stats"
+          and mems[-1]["peak_bytes_in_use_max"] == peak_bytes,
+          f"{name}: {len(mems)} memory events for {len(laps)} laps, the last "
+          f"{rec['memory']}, max_memory_allocated {peak_bytes}")
+    check(launches == launches_per_step,
+          f"{name}: the window's flash launches a step {launches}, want "
+          f"{launches_per_step}")
+    check("flash" in window.get("busy_ms_by_family", {}),
+          f"{name}: no flash family in the window's breakdown")
+    check(res.returncode == 0 and rec["dlstatus_mfu"] and rec["dlstatus_memory"]
+          and rec["dlstatus_memory"].get("source") == "memory_stats",
+          f"{name}: the port's dlstatus --anatomy: rc {res.returncode}, "
+          f"{anatomy or res.stderr[-2000:]}")
+    return rec
+
+
+def _bert_products(cfg, b: int, s: int, predictions: int) -> int:
+    """One BERT MLM step's FLOPs reckoned by hand (2 a multiply-add): every
+    param trains and the embeddings' rows want gradients, so each product
+    counts three times (forward, dx, dW; QKᵀ and PV their two gradients);
+    per layer Q, K, V, O and the two FFN projections on every token, QKᵀ
+    and PV over the whole S × S; the MLM head's transform and the tied
+    decoder on the ``predictions`` gathered positions."""
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    n, p = b * s, b * predictions
+    layer = (4 * 2 * n * h * h + 2 * 2 * n * h * i
+             + 2 * 2 * b * cfg.num_heads * s * s * (h // cfg.num_heads))
+    return 3 * (cfg.num_layers * layer + 2 * p * h * h + 2 * p * h * v)
 
 
 def train_bert(torch, fa) -> dict:
@@ -1233,6 +1355,8 @@ def train_bert(torch, fa) -> dict:
     from distributeddeeplearningspark_tpu_torch.session import Session
     from distributeddeeplearningspark_tpu_torch.train import losses, optim
     from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    from distributeddeeplearningspark_tpu_torch.utils.profiling import ProfileSpec
 
     steps, batch_size, seq, log_every = 30, 32, 512, 10
     workdir = ROOT / "build" / "chip_smoke_train"
@@ -1266,8 +1390,12 @@ def train_bert(torch, fa) -> dict:
         k.launches = 0
     t_fit = time.perf_counter()
     try:
+        # the last lap profiled; the first step's FLOPs counted
         _, summary = trainer.fit(ds, batch_size=batch_size, steps=steps,
-                                 tokens_per_example=seq, log_every=log_every)
+                                 tokens_per_example=seq, log_every=log_every,
+                                 measure_flops=True, profile=ProfileSpec(
+                                     str(workdir / "profile"),
+                                     start_step=steps - log_every, num_steps=log_every))
     finally:
         os.environ.pop(telemetry.WORKDIR_ENV, None)
         telemetry.reset()
@@ -1275,15 +1403,16 @@ def train_bert(torch, fa) -> dict:
     launches = {k.__name__: k.launches for k in kernels}
     peak_bytes = torch.cuda.max_memory_allocated()
 
-    records = [json.loads(line) for f in sorted(
-        (workdir / telemetry.TELEMETRY_DIRNAME).glob("events-*.jsonl"))
-        for line in f.read_text().splitlines()]
+    records = _events(workdir)
     logged = [(r["step"], r["metrics"]["loss"]) for r in records
               if r["kind"] == "step_metrics"]
     gauges = _input_gauges(records)
+    profile = _window(str(sorted((workdir / "profile").glob("*.pt.trace.json"))[-1]),
+                      log_every)
+    observed = _observability(torch, workdir, records, profile, steps - log_every,
+                              {k: cfg.num_layers for k in FLASH_KERNELS}, peak_bytes,
+                              "bert-base")
     host_batch_ms = _host_batch_ms(ds, batch_size, 6)
-    profile = _profile_fit(torch, trainer, ds, batch_size,
-                           dict(tokens_per_example=seq))
     batch = next(device_batches(ds, batch_size, trainer.device))
     loop_ms = _loop_ms(torch, trainer, batch)
     parity = _grad_parity(torch, model, losses.masked_lm, batch)
@@ -1297,7 +1426,13 @@ def train_bert(torch, fa) -> dict:
                launches=launches, max_memory_allocated=peak_bytes,
                fit_s=fit_s, setup_s=setup_s, host_batch_ms=host_batch_ms,
                loop_ms=loop_ms, workers=workers, input=gauges,
-               step_split=split, profile=profile, grad_parity=parity)
+               step_split=split, profile=profile, grad_parity=parity,
+               mfu=observed["mfu"], mfu_device=observed["mfu_device"],
+               flops_per_step=observed["flops_per_step"],
+               reckoned_flops_per_step=_bert_products(cfg, batch_size, seq, 80),
+               step_time_ms_unprofiled=observed["step_ms"],
+               model_tflops_per_s=observed["flops_per_step"]
+               / (observed["step_ms"] / 1e3) / 1e12)
     print("train bert-base " + json.dumps(rec), flush=True)
     _check_pooled("train_bert", gauges, workers)
     check(len(logged) == steps // log_every,
@@ -1315,6 +1450,11 @@ def train_bert(torch, fa) -> dict:
     check(parity["qkv_weights"] == 3 * cfg.num_layers
           and parity["qkv_min_grad_norm"] > 0,
           "a query/key/value projection got no gradient through the kernels")
+    check(parity["flops"]["auto"] == parity["flops"]["xla"] > 0,
+          f"the kernel route and the plain path count other FLOPs: {parity['flops']}")
+    check(rec["flops_per_step"] == rec["reckoned_flops_per_step"],
+          f"the step's measured FLOPs {rec['flops_per_step']} are not the "
+          f"reckoning's {rec['reckoned_flops_per_step']}")
     return rec
 
 
@@ -1344,13 +1484,57 @@ LLAMA_PEAK_OVER_BASE = 2.0
 #: attention path on one batch, at 2 layers of the 7B widths, from nonzero
 #: B (bf16 activations: PARITY_RTOL/PARITY_ATOL, as for BERT)
 LLAMA_PARITY_LAYERS = 2
+#: the main fit's profiled window: its last steps
+LLAMA_WINDOW = 3
+
+
+def _llama_products(cfg, b: int, s: int) -> int:
+    """One LoRA step's FLOPs reckoned by hand (2 a multiply-add), as
+    ``FlopCounterMode`` and the kernels' formulas count them. Forward:
+    every projection, the adapters (x·A, then ·B), QKᵀ and PV at the q
+    heads over the whole S × S (the plain version computes the masked half
+    too), the head. Remat: each layer's forward again, all but ``down``
+    (the non-reentrant checkpoint stops once it has remade every tensor the
+    backward saved). Backward, the base frozen: dx of each projection whose
+    input wants a gradient, the adapters' d(x·A), dB, dA and dx through A,
+    dP/dQ/dK/dV as q, k and v want them, the head's dx. Layer 0's input
+    (the frozen embedding's rows) wants none: its wq/wk/wv get no dx, and
+    of q, k, v only those with an adapter want a gradient."""
+    n, h, i, v, r = b * s, cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, \
+        cfg.lora_rank
+    kvh = cfg.num_kv_heads * cfg.head_dim
+    mm = lambda m_, k_, n_: 2 * m_ * k_ * n_  # noqa: E731
+    attn = 2 * b * cfg.num_heads * s * s * cfg.head_dim  # one product
+    proj = {"wq": (h, h), "wk": (h, kvh), "wv": (h, kvh), "wo": (h, h),
+            "gate": (h, i), "up": (h, i), "down": (i, h)}
+    targets = set(cfg.lora_targets)
+    fwd = (sum(mm(n, fi, fo) for fi, fo in proj.values()) + 2 * attn
+           + sum(mm(n, fi, r) + mm(n, r, fo) for t, (fi, fo) in proj.items()
+                 if t in targets))
+    total = 2 * mm(n, h, v)  # the head: forward, dx
+    for layer in range(cfg.num_layers):
+        first = layer == 0
+        total += fwd + (fwd - mm(n, i, h) if cfg.remat else 0)
+        for t, (fi, fo) in proj.items():
+            if not (first and t in ("wq", "wk", "wv")):
+                total += mm(n, fi, fo)
+            if t in targets:
+                total += 2 * mm(n, r, fo) + mm(n, fi, r) * (1 if first else 2)
+        if first:
+            wq, wk, wv = ("wq" in targets), ("wk" in targets), ("wv" in targets)
+            total += attn * ((wq or wk) + wq + wk + wv)
+        else:
+            total += 4 * attn
+    return total
 
 
 def _llama_grad_parity(torch, fa, batch) -> dict:
     """The adapters' gradients at LLAMA_PARITY_LAYERS layers of the 7B
     widths (the same weights, seed 1, B drawn nonzero) through the kernels
     (``attention_impl="auto"``, which must pick them) and through the plain
-    path (``"xla"``) on the same batch."""
+    path (``"xla"``) on the same batch; and each route's FLOPs of the
+    forward and backward (``metrics.counting_flops``)."""
+    from distributeddeeplearningspark_tpu_torch import metrics
     from distributeddeeplearningspark_tpu_torch.models import llama
     from distributeddeeplearningspark_tpu_torch.ops import attention
     from distributeddeeplearningspark_tpu_torch.train import losses
@@ -1366,12 +1550,14 @@ def _llama_grad_parity(torch, fa, batch) -> dict:
     model.train()
     q = torch.zeros(LLAMA_BATCH, LLAMA_SEQ, 32, 128, device="cuda", dtype=torch.bfloat16)
     picked = attention._pick_impl(q, q, None, None)
-    grads, launches = {}, {}
+    grads, launches, flops = {}, {}, {}
     for impl in ("auto", "xla"):
         model.cfg.attention_impl = impl
         before = fa.flash_fwd.launches
         model.zero_grad(set_to_none=True)
-        losses.causal_lm(model(batch), batch)[0].backward()
+        with metrics.counting_flops() as counted:
+            losses.causal_lm(model(batch), batch)[0].backward()
+        flops[impl] = counted["flops"]
         launches[impl] = fa.flash_fwd.launches - before
         grads[impl] = {n: p.grad.detach().float().clone()
                        for n, p in model.named_parameters() if p.grad is not None}
@@ -1380,7 +1566,7 @@ def _llama_grad_parity(torch, fa, batch) -> dict:
     del model
     torch.cuda.empty_cache()
     rec = _compare_grads(torch, grads["auto"], grads["xla"], PARITY_RTOL, PARITY_ATOL)
-    return dict(rec, picked=picked, k1_launches=launches,
+    return dict(rec, picked=picked, k1_launches=launches, flops=flops,
                 lora_a_min_grad_norm=min(float(g.norm()) for n, g in grads["auto"].items()
                                          if n.endswith("lora_a")),
                 frozen_with_grad=frozen_grads)
@@ -1418,6 +1604,7 @@ def train_llama(torch, fa) -> dict:
     from distributeddeeplearningspark_tpu_torch.session import Session
     from distributeddeeplearningspark_tpu_torch.train import losses, optim
     from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+    from distributeddeeplearningspark_tpu_torch.utils.profiling import ProfileSpec
 
     gc.collect()  # what the earlier phases left in the caching allocator
     torch.cuda.empty_cache()
@@ -1457,8 +1644,12 @@ def train_llama(torch, fa) -> dict:
         k.launches = 0
     t_fit = time.perf_counter()
     try:
-        _, summary = trainer.fit(ds, batch_size=LLAMA_BATCH, steps=steps,
-                                 tokens_per_example=LLAMA_SEQ, log_every=1)
+        # the last LLAMA_WINDOW steps profiled; the first step's FLOPs counted
+        _, summary = trainer.fit(
+            ds, batch_size=LLAMA_BATCH, steps=steps, tokens_per_example=LLAMA_SEQ,
+            log_every=1, measure_flops=True,
+            profile=ProfileSpec(str(workdir / "profile"), start_step=steps - LLAMA_WINDOW,
+                                num_steps=LLAMA_WINDOW))
     finally:
         os.environ.pop(telemetry.WORKDIR_ENV, None)
         telemetry.reset()
@@ -1472,8 +1663,10 @@ def train_llama(torch, fa) -> dict:
                     if t.dim())  # the moments; the counts are 0-d
     lora_numel = sum(p.numel() for n, p in trainer.state.params.items()
                      if llama.lora_trainable(n))
-    profile = _profile_fit(torch, trainer, ds, LLAMA_BATCH,
-                           dict(tokens_per_example=LLAMA_SEQ), steps=3)
+    profile = _window(str(sorted((workdir / "profile").glob("*.pt.trace.json"))[-1]),
+                      LLAMA_WINDOW)
+    observed = _observability(torch, workdir, records, profile, steps - LLAMA_WINDOW,
+                              LLAMA_LAUNCHES, peak_bytes, "llama-2-7b lora")
     batch = next(device_batches(ds, LLAMA_BATCH, trainer.device))
     fault_peak = _llama_peak_with_zero_filled_base(torch, trainer, batch)
     spark.stop()
@@ -1483,6 +1676,26 @@ def train_llama(torch, fa) -> dict:
     parity = _llama_grad_parity(torch, fa, batch)
     flops_per_token = llama_model_flops_per_token(cfg, LLAMA_SEQ, frozen_base=True)
     tokens_s = summary.get("tokens_per_sec_per_chip")
+    reckoned = _llama_products(cfg, LLAMA_BATCH, LLAMA_SEQ)
+    model_step = flops_per_token * LLAMA_BATCH * LLAMA_SEQ
+    # the measured count over the model formula's: the formula halves the
+    # causal attention and counts no remat recompute; the count takes the
+    # whole S × S (as the plain version computes it) and each layer's
+    # forward again but down, and layer 0's q/k/v projections get no dx
+    measured = dict(flops_per_step=observed["flops_per_step"], reckoned=reckoned,
+                    model_formula=model_step,
+                    measured_over_model=observed["flops_per_step"] / model_step,
+                    why=("the count takes QKᵀ and PV over the whole S × S and "
+                         "each layer's remat recompute but down; the model "
+                         "formula halves the causal attention and counts no "
+                         "recompute"),
+                    mfu=observed["mfu"], mfu_device=observed["mfu_device"],
+                    step_time_ms_unprofiled=observed["step_ms"],
+                    measured_tflops_per_s=observed["flops_per_step"]
+                    / (observed["step_ms"] / 1e3) / 1e12,
+                    model_tflops_per_s_unprofiled=model_step
+                    / (observed["step_ms"] / 1e3) / 1e12)
+    print("llama flops " + json.dumps(measured), flush=True)
     rec = dict(steps=steps, batch_size=LLAMA_BATCH, seq_len=LLAMA_SEQ,
                lora_rank=LLAMA_RANK, tokenizer_vocab=tok.vocab_size,
                logged_losses=logged, step_time_ms=summary.get("step_time_ms"),
@@ -1493,7 +1706,8 @@ def train_llama(torch, fa) -> dict:
                base_bytes=base_bytes, peak_limit=LLAMA_PEAK_OVER_BASE * base_bytes,
                zero_filled_base_peak=fault_peak,
                optimizer_state_numel=opt_numel, lora_numel=lora_numel,
-               fit_s=fit_s, setup_s=setup_s, profile=profile, grad_parity=parity)
+               fit_s=fit_s, setup_s=setup_s, profile=profile, grad_parity=parity,
+               flops=measured, observability=observed)
     print("train llama-2-7b lora " + json.dumps(rec), flush=True)
     check(len(logged) == steps and all(np.isfinite(x) for _, x in logged),
           f"logged losses {logged}")
@@ -1514,6 +1728,12 @@ def train_llama(torch, fa) -> dict:
     check(parity["max_tolerance_used"] <= 1.0,
           f"adapter gradients through the kernels are off the plain path's: "
           f"{parity['worst']}")
+    check(parity["flops"]["auto"] == parity["flops"]["xla"] > 0,
+          f"at {LLAMA_PARITY_LAYERS} layers the kernel route and the plain path "
+          f"count other FLOPs: {parity['flops']}")
+    check(observed["flops_per_step"] == reckoned,
+          f"the step's measured FLOPs {observed['flops_per_step']} are not the "
+          f"reckoning's {reckoned}")
     rec["driver"] = train_llama_driver(torch)
     return rec
 
@@ -2643,6 +2863,56 @@ def train_drivers(torch) -> dict:
           f"the dlrm driver launched K5 {res['k5_launches']} times in "
           f"{DRIVER_STEPS} steps, want one a step")
     check(0.0 <= res["eval_auc"] <= 1.0, f"the dlrm driver's AUC: {res['eval_auc']}")
+    return rec
+
+
+#: the observed ResNet driver's steps (its window: steps min(10, steps // 2)
+#: to the end, the driver's own choice)
+OBSERVED_DRIVER_STEPS = 6
+
+
+def train_resnet_driver_observed(torch) -> dict:
+    """The port's examples/train_resnet.py through its cli at ``local[1]``
+    with ``--profile-dir --mfu --tensorboard-dir``, ResNet-50 at full width
+    for OBSERVED_DRIVER_STEPS steps: it exits 0, its window's breakdown
+    holds the ``k4`` family at 27 launches a step, its summary's MFU is
+    finite, and whether the TensorBoard writer ran is printed (the card's
+    machine may lack the ``tensorboard`` package: then the driver warns and
+    logs to files only)."""
+    from distributeddeeplearningspark_tpu_torch.utils import profiling
+
+    wd = ROOT / "build" / "chip_smoke_drivers" / "resnet_observed"
+    steps = OBSERVED_DRIVER_STEPS
+    run = _driver_run("resnet", wd, 1, _driver_args(
+        "resnet", steps=steps, log_every=1, workers=input_workers()) + [
+        "--profile-dir", str(wd / "profile"), "--mfu",
+        "--tensorboard-dir", str(wd / "tb")])
+    res = run["result"]
+    window_steps = steps - min(10, steps // 2)
+    traces = profiling.trace_files(str(wd / "profile"))
+    window = _window(traces[-1], window_steps) if traces else {}
+    k4 = _launches_per_step(window, {"k4": "matmul_stats_kernel"})["k4"]
+    laps = [r for r in _events(wd) if r["kind"] == "step_metrics"]
+    rec = dict(step_time_ms=res["train"].get("step_time_ms"),
+               mfu=res["train"].get("mfu"), launch=run["launch"],
+               flops_per_step=laps[-1].get("flops_per_step") if laps else None,
+               lap_mfu=[r.get("mfu") for r in laps],
+               lap_mfu_device=[r.get("mfu_device") for r in laps],
+               memory_events=sum(r["kind"] == "memory" for r in _events(wd)),
+               traces=len(traces), window_k4_launches_per_step=k4,
+               busy_ms_by_family=window.get("busy_ms_by_family"),
+               idle_share=window.get("idle_share"),
+               tensorboard_ran=bool(list((wd / "tb").glob("events.out.tfevents.*"))),
+               left=run["left"])
+    print("resnet driver observed " + json.dumps(rec), flush=True)
+    check(res["step"] == steps and res["k4_launches"] == 27 * steps,
+          f"the observed resnet driver: {res}")
+    check(len(traces) == 1 and "k4" in (window.get("busy_ms_by_family") or {})
+          and k4 == 27, f"the resnet driver's window: {len(traces)} traces, "
+          f"families {window.get('busy_ms_by_family')}, K4 {k4} a step")
+    check(rec["mfu"] is not None and np.isfinite(rec["mfu"]) and rec["mfu"] > 0,
+          f"the resnet driver's MFU: {rec['mfu']}")
+    check(not run["left"], f"the observed resnet driver left {run['left']}")
     return rec
 
 
@@ -5399,6 +5669,12 @@ def main() -> int:
               f"{_build.load('flash_fwd').dls_flash_fwd_cuda_version()}",
               flush=True)
 
+        if sys.argv[1:] == ["--observe"]:
+            train_bert(torch, fa)
+            train_llama(torch, fa)
+            train_resnet_driver_observed(torch)
+            print(nvidia_smi_line())
+            return 0
         k1 = check_flash_fwd(torch, fa)
         k23 = check_flash_bwd(torch, fa)
         check_ring_hops(torch, fa, ra)
@@ -5421,6 +5697,7 @@ def main() -> int:
         dlrm_rec = train_dlrm(torch, sr)
         train_lenet(torch)
         drivers = train_drivers(torch)
+        train_resnet_driver_observed(torch)
         check_bn_halves(torch)
         recovery = check_recovery(torch, cb, fa)
     except SmokeFailure as e:

@@ -45,8 +45,11 @@ rank dies)::
 (``--resume`` restores the newest verified step; a restore that raises
 exits with the supervisor's ``RESTORE_FAILED_EXIT``).
 
-Flags of the JAX driver that the port cannot honour yet fail at parse
-time, each naming its ROADMAP item. Rank 0 prints one JSON line: the train
+``--profile-dir``, ``--mfu`` and ``--tensorboard-dir`` pass ``fit``'s
+``profile`` (a window from step ``min(10, steps // 2)``),
+``measure_flops`` and ``tensorboard_dir``, as the JAX driver's do. Flags
+of the JAX driver that the port cannot honour yet fail at parse time, each
+naming its ROADMAP item. Rank 0 prints one JSON line: the train
 summary, where the run went (world size, backend, device), K4's launches
 in ``fit`` and the BatchNorm all-reduces a step (forward and backward).
 """
@@ -72,6 +75,7 @@ from distributeddeeplearningspark_tpu_torch.ops import conv_bn
 from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.train import losses, optim
 from distributeddeeplearningspark_tpu_torch.utils import sanitize
+from distributeddeeplearningspark_tpu_torch.utils.profiling import ProfileSpec
 
 RESNETS = {
     "resnet18": resnet.ResNet18, "resnet34": resnet.ResNet34,
@@ -88,9 +92,6 @@ NOT_PORTED = {
     "--eval-dir": "imagenet_folder and the JPEG eval set: ROADMAP Queue 1 item 3",
     "--weights": "the torchvision state-dict import (models/resnet_io.py's "
                  "import_torchvision_resnet): ROADMAP Queue 1 item 3",
-    "--profile-dir": "utils/profiling.py over torch.profiler: ROADMAP Queue 1 item 9",
-    "--tensorboard-dir": "the Trainer's TensorBoard writer: ROADMAP Queue 1 item 9",
-    "--mfu": "the Trainer's measure_flops (MFU): ROADMAP Queue 1 item 9",
 }
 LARS = "optim.lars: ROADMAP Queue 1 item 3"
 
@@ -112,6 +113,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--optimizer", default="sgd", choices=["sgd", "lars"])
     p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace window into this dir")
+    p.add_argument("--tensorboard-dir", default=None)
+    p.add_argument("--mfu", action="store_true",
+                   help="measure the first step's FLOPs and report MFU")
     p.add_argument("--source-partitions", type=int, default=None,
                    help="partitions of the synthetic source (a multiple of "
                         "the ranks); the global batches are the same at any "
@@ -171,11 +177,14 @@ def main(argv: list[str] | None = None) -> None:
     data_state, restored_step = resume(trainer, ckpt, args.resume)
     start = trainer.state.step if trainer.state is not None else 0
     k4, bn = conv_bn.matmul_stats.launches, collectives.all_reduce_sum.calls
+    profile = (ProfileSpec(args.profile_dir, start_step=min(10, args.steps // 2))
+               if args.profile_dir else None)
     state, summary = trainer.fit(
         make_dataset(args, spark), batch_size=args.batch_size, steps=args.steps,
         log_every=args.log_every,
         checkpoint_every=args.checkpoint_every if ckpt else None,
-        data_state=data_state)
+        data_state=data_state, profile=profile, measure_flops=args.mfu,
+        tensorboard_dir=args.tensorboard_dir)
     if drained(trainer, ckpt, spark):
         return
     steps = max(state.step - start, 1)

@@ -53,7 +53,10 @@ them (``lora_`` → ``P()``): a column-split projection adds ``(x·A)·B[:,
 its columns]``, so each peer's gradients of A and B are parts of the
 whole, and the adapters go through ``all_reduce_backward`` too
 (:func:`adapter_shards`): their gradients arrive summed over the group,
-while the norm scales', whole on every peer already, are not.
+while the norm scales', whole on every peer already, are not. The
+adapter's products that every peer repeats (x·A under a column split, ·B
+under a row split) go through :func:`~..metrics.replicated_matmul`, so a
+measured FLOP count holds them once.
 
 Context parallelism (``attention_impl`` ``"ring"`` or ``"ulysses"``,
 JAX's): the batch reaching the model is this rank's block of every row's
@@ -96,6 +99,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from distributeddeeplearningspark_tpu_torch.metrics import replicated_matmul
 from distributeddeeplearningspark_tpu_torch.models.moe import MoEMLP, load_balance
 from distributeddeeplearningspark_tpu_torch.ops import ring_attention
 from distributeddeeplearningspark_tpu_torch.ops.attention import (
@@ -259,8 +263,15 @@ class LoRALinear(nn.Module):
         x = x.to(dt)
         y = F.linear(x, local_value(self.weight).to(dt))
         if self.rank:
-            a, b = adapter_shards(self.lora_a, self.lora_b, tensor_split(self.weight))
-            delta = (x @ a.to(dt)) @ b.to(dt)
+            split = tensor_split(self.weight)
+            a, b = adapter_shards(self.lora_a, self.lora_b, split)
+            a, b = a.to(dt), b.to(dt)
+            if split is None:
+                delta = (x @ a) @ b
+            elif split.dim == 0:  # x·A is every peer's alike
+                delta = replicated_matmul(x, a, counted=split.index == 0) @ b
+            else:  # (x·A)·B: each peer's partial x·A through the whole B
+                delta = replicated_matmul(x @ a, b, counted=split.index == 0)
             y = y + (delta * (self.alpha / self.rank)).to(y.dtype)
         return y
 

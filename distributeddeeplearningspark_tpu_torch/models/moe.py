@@ -85,6 +85,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from distributeddeeplearningspark_tpu_torch.metrics import replicated_matmul
 from distributeddeeplearningspark_tpu_torch.parallel import collectives
 from distributeddeeplearningspark_tpu_torch.parallel.mesh import AXIS_EXPERT, AXIS_TENSOR
 from distributeddeeplearningspark_tpu_torch.parallel.sharding import (
@@ -169,8 +170,14 @@ class MoEMLP(nn.Module):
                               mesh_split(self.w_gate, AXIS_TENSOR)) if sp is not None]
 
     def _route(self, x: torch.Tensor) -> torch.Tensor:
-        """The router's probabilities ``[G, g, E]`` in f32."""
-        return torch.softmax(x.float() @ local_value(self.router).float(), dim=-1)
+        """The router's probabilities ``[G, g, E]`` in f32. Under a
+        ``tensor`` split every peer routes the same tokens: the product is
+        counted on one (:func:`~..metrics.replicated_matmul`)."""
+        router = local_value(self.router).float()
+        split = mesh_split(self.w_gate, AXIS_TENSOR)
+        logits = (x.float() @ router if split is None else
+                  replicated_matmul(x.float(), router, counted=split.index == 0))
+        return torch.softmax(logits, dim=-1)
 
     def forward(self, x: torch.Tensor):
         y, sums = self.forward_sums(x)

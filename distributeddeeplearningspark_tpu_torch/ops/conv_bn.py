@@ -13,7 +13,8 @@ second read of Y. Here:
   kernel for CUDA tensors (bf16, contiguous, 16-byte aligned, M, K and N
   multiples of 8) or raises, and takes :func:`matmul_stats_reference` for
   CPU tensors of every shape :func:`can_fuse` admits. Its launch count is
-  ``matmul_stats.launches``.
+  ``matmul_stats.launches``; a launch notes its product's FLOPs, ``2·M·K·N``
+  (:func:`~..metrics.note_kernel_flops`).
 - :func:`fused_matmul_stats` — the differentiable op, the counterpart of
   the JAX package's ``jax.custom_vjp`` ``matmul_stats``: K4 forward, and the
   JAX backward (``:177-189``) as torch matmuls in f32, the stats cotangents
@@ -40,6 +41,7 @@ import functools
 import torch
 from torch import nn
 
+from distributeddeeplearningspark_tpu_torch import metrics
 from distributeddeeplearningspark_tpu_torch.parallel import collectives
 
 #: BatchNorm's running-statistics momentum and epsilon (the JAX module's)
@@ -153,6 +155,7 @@ def matmul_stats(x: torch.Tensor, w: torch.Tensor):
     if err:
         raise RuntimeError(f"matmul_stats kernel launch failed: CUDA error {err}")
     matmul_stats.launches += 1
+    metrics.note_kernel_flops(metrics.matmul_flops(m, k, n))
     # one reduce over the blocks' partial rows, as the JAX package's XLA sum
     s1, s2 = ps.sum(1)
     return y, s1, s2

@@ -15,7 +15,10 @@ design and the bound). Here:
   128) or raises, and takes the kernel's plain PyTorch version
   (:func:`flash_attention_reference`,
   :func:`flash_attention_backward_reference`) for a CPU tensor. Each keeps
-  its launch count in a plain integer, ``<wrapper>.launches``.
+  its launch count in a plain integer, ``<wrapper>.launches``, and where it
+  launches notes its FLOP formula for a measured count
+  (:func:`~..metrics.note_kernel_flops`: K1 the forward's two products, K2
+  dP and dQ, K3 dK and dV, as the gradients ``needs`` asks for).
 - :func:`flash_attention` — the public op, with the argument checks of the
   JAX package's ``flash_attention`` (:func:`flash_operands`), made
   differentiable by :class:`_FlashAttention` (K1 forward, K2/K3 backward).
@@ -43,6 +46,8 @@ import ctypes
 import functools
 
 import torch
+
+from distributeddeeplearningspark_tpu_torch import metrics
 
 #: finite "minus infinity" for masked logits (see the module docstring)
 MASK_VALUE = -1e30
@@ -252,6 +257,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             (q, k, v, kv_mask, q_segs, kv_segs, o, lse),
             b, s, h, k.shape[2], d, scale, causal)
     flash_fwd.launches += 1
+    metrics.note_kernel_flops(metrics.flash_fwd_flops(b, s, s, h, d))
     return o, lse
 
 
@@ -270,10 +276,23 @@ def _check_bwd_cuda_operands(q, k, v, do, lse, delta, masks) -> None:
                              f"{(b * h, s)} on q's device")
 
 
+def _bwd_products(needs: tuple[bool, bool, bool], *names: str) -> int:
+    """How many of ``names`` (dP, dQ, dK, dV) autograd's backward of the
+    plain attention computes when ``needs`` says which of q, k, v want a
+    gradient: dP for q or k, dQ for q, dK for k, dV for v."""
+    nq, nk, nv = needs
+    want = {"dP": nq or nk, "dQ": nq, "dK": nk, "dV": nv}
+    return sum(bool(want[n]) for n in names)
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, *, kv_mask=None, q_segs=None,
-                 kv_segs=None, scale: float, causal: bool = False):
+                 kv_segs=None, scale: float, causal: bool = False,
+                 needs: tuple[bool, bool, bool] = (True, True, True)):
     """K2: dq ``[B, S, H, D]`` from the forward's ``lse`` and
-    ``delta = rowsum(dO∘O)`` (both ``[B·H, S]`` f32)."""
+    ``delta = rowsum(dO∘O)`` (both ``[B·H, S]`` f32). ``needs``: which of
+    q, k, v want a gradient; the FLOPs noted are the products of dP and dQ
+    the plain path's autograd would compute for those
+    (:func:`~..metrics.flash_bwd_flops`)."""
     kw = dict(kv_mask=kv_mask, q_segs=q_segs, kv_segs=kv_segs, scale=scale,
               causal=causal)
     if q.device.type == "cpu":
@@ -286,6 +305,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, kv_mask=None, q_segs=None,
             (q, k, v, do, lse, delta, kv_mask, q_segs, kv_segs, dq),
             b, s, h, k.shape[2], d, scale, causal)
     flash_bwd_dq.launches += 1
+    metrics.note_kernel_flops(metrics.flash_bwd_flops(b, s, s, h, d) // 4
+                              * _bwd_products(needs, "dP", "dQ"))
     return dq
 
 
@@ -293,9 +314,12 @@ flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, kv_mask=None, q_segs=None,
-                  kv_segs=None, scale: float, causal: bool = False):
+                  kv_segs=None, scale: float, causal: bool = False,
+                  needs: tuple[bool, bool, bool] = (True, True, True)):
     """K3: ``(dk, dv)`` ``[B, S, Hkv, D]``, each kv head's gradient summed
-    over its group of q heads, from ``lse`` and ``delta`` as K2's."""
+    over its group of q heads, from ``lse`` and ``delta`` as K2's. It
+    computes both; the FLOPs noted are those of dK and dV that ``needs``
+    asks for."""
     kw = dict(kv_mask=kv_mask, q_segs=q_segs, kv_segs=kv_segs, scale=scale,
               causal=causal)
     if q.device.type == "cpu":
@@ -308,6 +332,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, kv_mask=None, q_segs=None,
             (q, k, v, do, lse, delta, kv_mask, q_segs, kv_segs, dk, dv),
             b, s, h, k.shape[2], d, scale, causal)
     flash_bwd_dkv.launches += 1
+    metrics.note_kernel_flops(metrics.flash_bwd_flops(b, s, s, h, d) // 4
+                              * _bwd_products(needs, "dK", "dV"))
     return dk, dv
 
 
@@ -315,11 +341,13 @@ flash_bwd_dkv.launches = 0
 
 
 def flash_bwd(q, k, v, o, lse, do, *, kv_mask=None, q_segs=None,
-              kv_segs=None, scale: float, causal: bool = False):
+              kv_segs=None, scale: float, causal: bool = False,
+              needs: tuple[bool, bool, bool] = (True, True, True)):
     """The flash backward: ``(dq, dk, dv)`` from the forward's ``o`` and
     ``lse``, as the JAX package's ``_flash_bwd(res, g)``. On CUDA tensors
-    it computes ``delta`` and launches K2 then K3 on the current stream; on
-    CPU tensors it takes :func:`flash_attention_backward_reference`."""
+    it computes ``delta`` and launches K2 then K3 on the current stream
+    (``needs``: which gradients the caller wants, for their FLOP count);
+    on CPU tensors it takes :func:`flash_attention_backward_reference`."""
     kw = dict(kv_mask=kv_mask, q_segs=q_segs, kv_segs=kv_segs, scale=scale,
               causal=causal)
     if q.device.type == "cpu":
@@ -327,8 +355,8 @@ def flash_bwd(q, k, v, o, lse, do, *, kv_mask=None, q_segs=None,
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd runs on cuda or cpu, not {q.device}")
     delta = _delta(o, do).contiguous()
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-    return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, needs=needs, **kw)
+    return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, needs=needs, **kw))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -349,7 +377,8 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse, kv_mask, q_segs, kv_segs = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(),
                                kv_mask=kv_mask, q_segs=q_segs, kv_segs=kv_segs,
-                               scale=ctx.scale, causal=ctx.causal)
+                               scale=ctx.scale, causal=ctx.causal,
+                               needs=tuple(ctx.needs_input_grad[:3]))
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -16,10 +16,31 @@ dataset's worker pool (``num_workers``, ``DLS_DATA_WORKERS``) forks from
 that thread. With telemetry on, each lap's ``step_metrics`` record carries
 the :class:`~..data.prefetch.StarvationProbe`'s gauges (``input_wait_s``,
 the ring's depth, the pool's ``input_workers`` and utilization) and the
-lap's split in the JAX package's anatomy keys (``anatomy_wall_s``;
-``device_s``, the host time spent in the train step's calls and waiting at
-the lap's sync; ``input_wait_s``; ``host_s``, the rest), so the JAX
-package's ``dlstatus --anatomy`` reads it.
+lap's split from :class:`~..telemetry.anatomy.StepAnatomy` in the JAX
+package's keys (``anatomy_wall_s``; ``device_s``, the host time spent in
+the train step's calls and waiting at the lap's one sync; ``input_wait_s``;
+``host_s``, the rest; ``compile_in_lap_s``, the first call of a new input
+signature), and a ``memory`` event follows it (the allocator's watermarks,
+:func:`~..telemetry.anatomy.memory_watermarks`), so ``dlstatus --anatomy``
+(the port's and the JAX package's) reads it. The train step is wrapped in
+the signature ledger (:func:`~..telemetry.anatomy.instrument`): the first
+call of each input signature writes a ``compile`` event.
+
+Device-side observability, the JAX ``fit``'s three options:
+``measure_flops=True`` counts ``fit``'s first step under
+``FlopCounterMode`` with the kernels' FLOP formulas
+(:meth:`Trainer.measured_cost`, :func:`~..metrics.measured_flops_per_step`:
+the count is the same on the kernel route and the plain path, and global
+over the gang); it adds no step, the counted step is the first one
+trained. Every lap's record then carries ``flops_per_step``,
+``peak_flops_per_chip``, ``peak_source``, ``mfu`` (over the lap's wall)
+and ``mfu_device`` (over its device time), and the summary ``mfu``.
+``profile=ProfileSpec(dir, start_step, num_steps)`` traces a window of
+steps, relative to the step ``fit`` resumed at, with ``torch.profiler``
+(:mod:`..utils.profiling`); ``tensorboard_dir`` writes each logged metric
+as a TensorBoard scalar on rank 0. The profiler and the writer are closed
+in ``fit``'s ``finally``: a run that fails inside the window still writes
+its trace.
 
 In a data-parallel gang (a :class:`~..session.Session` launched by the
 port's cli) each rank feeds its own rows of every global batch
@@ -130,9 +151,6 @@ event of this rank's wait for the gang, which the JAX package's
 ``fleet.host_table`` folds into its comms-wait column. An MoE model's
 ``moe_aux`` and ``moe_dropped_frac`` are metrics like any other: in the
 log line and the ``step_metrics`` records.
-
-Not ported yet: ``profile``, ``measure_flops`` and ``tensorboard_dir``
-(ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -173,13 +191,15 @@ from distributeddeeplearningspark_tpu_torch.parallel.sharding import (
     REPLICATED,
     ShardingRules,
 )
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import AXIS_EXPERT
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 from distributeddeeplearningspark_tpu_torch.session import Session
+from distributeddeeplearningspark_tpu_torch.telemetry import anatomy as anatomy_lib
 from distributeddeeplearningspark_tpu_torch.train import embed as embed_lib
 from distributeddeeplearningspark_tpu_torch.train import step as step_lib
 from distributeddeeplearningspark_tpu_torch.train.optim import GradientTransformation
 from distributeddeeplearningspark_tpu_torch.train.state import TrainState
-from distributeddeeplearningspark_tpu_torch.utils import sanitize
+from distributeddeeplearningspark_tpu_torch.utils import profiling, sanitize
 
 logger = logging.getLogger("distributeddeeplearningspark_tpu_torch.trainer")
 
@@ -231,19 +251,6 @@ def _skip(it: Iterator, n: int) -> Iterator:
         if next(it, None) is None:
             return
     yield from it
-
-
-def _lap_anatomy(lap_s: float, dispatch_s: float, drain_s: float,
-                 dispatches: int, input_wait_s: float, num_chips: int) -> dict:
-    """A lap's wall split in the JAX package's anatomy keys: ``device_s``
-    is the host time given to the device (the train step's calls and the
-    wait at the lap's sync), ``host_s`` the rest after the input wait."""
-    device = dispatch_s + drain_s
-    return dict(anatomy_wall_s=lap_s, device_s=device,
-                device_dispatch_s=dispatch_s, device_drain_s=drain_s,
-                host_s=max(0.0, lap_s - device - input_wait_s),
-                compile_in_lap_s=0.0, device_dispatches=dispatches,
-                num_chips=num_chips)
 
 
 def _overlay(live: dict[str, torch.Tensor], new: dict[str, Any], what: str
@@ -370,15 +377,19 @@ class Trainer:
 
     def _build_train_step(self) -> None:
         if self.sparse_embed:
-            self._train_step = embed_lib.make_sparse_embed_train_step(
+            step = embed_lib.make_sparse_embed_train_step(
                 self.model, self.tx, self.loss_fn, self.sparse_embed,
                 distributed=self.session.distributed)
         else:
-            self._train_step = step_lib.make_train_step(
+            step = step_lib.make_train_step(
                 self.model, self.tx, self.loss_fn,
                 distributed=self.session.distributed, trainable=self.trainable,
                 accum_steps=self.accum_steps,
                 guard_nonfinite=self._guard_nonfinite, mesh=self.session.mesh)
+        # the signature ledger: a new input signature is the eager step's
+        # "compile", one telemetry event each (telemetry/anatomy.py)
+        self._train_step = anatomy_lib.instrument(
+            step, name="train_step", plan=self.plan, device=self.device)
 
     def init(self) -> TrainState:
         """The initial state: the model's params, the optimizer's state
@@ -601,6 +612,9 @@ class Trainer:
             callbacks: Sequence[Callable[[int, dict], None]] = (),
             data_state: dict | None = None,
             sanitize_every: int | None = None,
+            profile: profiling.ProfileSpec | None = None,
+            measure_flops: bool = False,
+            tensorboard_dir: str | None = None,
             accum_steps: int | None = None, on_nonfinite: str = "raise",
             nonfinite_budget: int = 10, max_rollbacks: int = 2
             ) -> tuple[TrainState, dict[str, float]]:
@@ -620,6 +634,10 @@ class Trainer:
         as ``cb(step, last_logged_metrics)`` after every step.
         ``sanitize_every``: check every N steps that the gang's params are
         in sync (:func:`~..utils.sanitize.assert_replicas_in_sync`).
+        ``profile``: trace that window of steps (relative to the step this
+        call starts at). ``measure_flops``: count the first step's FLOPs
+        (:meth:`measured_cost`) for the laps' MFU. ``tensorboard_dir``: the
+        logged metrics as TensorBoard scalars (rank 0).
 
         ``on_nonfinite``, the policy for NaN/Inf metrics, read at log points:
 
@@ -669,13 +687,22 @@ class Trainer:
             raise ValueError(
                 f"batch_size {batch_size} must divide by accum_steps "
                 f"{self.accum_steps}")
+        if measure_flops and self.session.mesh.shape[AXIS_EXPERT] > 1:
+            raise NotImplementedError(
+                "measure_flops with expert > 1: each expert peer repeats the "
+                "dense layers on the same rows, and counting them once there "
+                "is not ported")
         if self.state is None:
             self.init()
         meter = Meter(examples_per_step=batch_size,
                       tokens_per_step=batch_size * tokens_per_example,
-                      num_chips=self.session.num_devices)
+                      num_chips=self.session.num_devices, device=self.device)
         tele = self._telemetry()
-        mlog = MetricLogger(telemetry=tele)
+        # the lap's device/host/input split: the instrumented step reports
+        # each call's seconds into it, the lap's sync drains into it
+        anat = anatomy_lib.StepAnatomy(device=self.device) if tele is not None else None
+        self._train_step.attach_anatomy(anat)
+        mlog = MetricLogger(telemetry=tele, tensorboard_dir=tensorboard_dir)
         step_i = self.state.step
         skip = 0
         if data_state and data_state.get("examples_seen"):
@@ -726,12 +753,20 @@ class Trainer:
         # rank's sample grows by the straggler's lag, the fleet table's
         # comms-wait column (DLS_COMMS_PROBE=1)
         comms_probe = tele is not None and collectives.collective_probes_enabled()
+        # the window is relative to this call's first step; stop() syncs the
+        # card first, so the trace holds the window's kernels
+        profiler = profiling.StepProfiler(
+            profile, start_offset=step_i, device=self.device,
+            sync=(lambda: torch.cuda.synchronize(self.device))
+            if self.device.type == "cuda" else None)
+        flops_pending = measure_flops
         feed = self._feed(dataset, batch_size, skip_batches=skip, probe=probe)
         meter.start()
+        if anat is not None:
+            anat.reset(now=meter.last_time)  # the meter's start
         lap_start = step_i
         last_metrics: dict[str, float] = {}
         got_batch = False
-        dispatch_s = 0.0
         try:
             for batch in feed:
                 got_batch = True
@@ -750,9 +785,17 @@ class Trainer:
                         faults.crash()
                     else:
                         faults.hang()
-                t0 = time.perf_counter()
-                self.state, metrics = self._train_step(self.state, batch)
-                dispatch_s += time.perf_counter() - t0
+                profiler.observe(step_i)
+                with (profiling.step_annotation(step_i) if profile is not None
+                      else contextlib.nullcontext()):
+                    if flops_pending:
+                        # the first step, counted: it is trained, not extra
+                        (self.state, metrics), _ = self._train_step.prepare(
+                            self.state, batch)
+                        flops_pending = False
+                        meter.set_flops(self._train_step.flops_per_step)
+                    else:
+                        self.state, metrics = self._train_step(self.state, batch)
                 metrics.pop("weight", None)  # eval-aggregation detail
                 step_i += 1
                 if "skipped" in metrics:
@@ -762,25 +805,29 @@ class Trainer:
                 if step_i % log_every == 0 or (steps is not None and step_i >= steps):
                     # the copy to the host waits for this step: the lap
                     # boundary is a true sync point, so the timing is honest
-                    t0 = time.perf_counter()
-                    fetched = _to_host(metrics)
-                    drain_s = time.perf_counter() - t0
+                    with (anat.drain() if anat is not None
+                          else contextlib.nullcontext()):
+                        fetched = _to_host(metrics)
                     last_metrics = meter.lap(step_i - lap_start, fetched)
                     lap_start = step_i
                     lap_s, lap_n = meter.last_lap or (0.0, 0)
+                    if tele is not None:
+                        snap = probe.snapshot()
+                        # the anatomy lap closes at the meter's lap
+                        anat_rec = anat.lap(
+                            steps=lap_n, input_wait_s=snap["input_wait_s"],
+                            flops_per_step=self._train_step.flops_per_step,
+                            num_chips=self.session.num_devices, now=meter.last_time)
                     mlog.log(step_i, {**last_metrics, **meter.summary()})
                     _touch_heartbeat()
                     if tele is not None:
-                        snap = probe.snapshot()
                         tele.step_metrics(
                             step_i, steps=lap_n, lap_s=lap_s, metrics=last_metrics,
-                            **snap, **_lap_anatomy(
-                                lap_s, dispatch_s, drain_s, lap_n,
-                                snap["input_wait_s"], self.session.num_devices))
+                            **snap, **anat_rec)
+                        tele.emit("memory", **anatomy_lib.memory_watermarks(self.device))
                         tele.heartbeat(step=step_i)
                         if comms_probe:
                             collectives.barrier_probe(self.session.mesh)
-                    dispatch_s = 0.0
                     if on_nonfinite == "raise":
                         sanitize.assert_all_finite(last_metrics, step=step_i)
                     elif on_nonfinite == "skip":
@@ -842,9 +889,14 @@ class Trainer:
                         emetrics = self.evaluate(eval_dataset, batch_size=batch_size)
                     mlog.log(step_i, {f"eval_{k}": v for k, v in emetrics.items()})
         finally:
+            # the trace and the writer are flushed on every exit: the window
+            # of a run that failed is the one wanted most
             feed.close()
+            profiler.stop()
+            self._train_step.attach_anatomy(None)
             if tele is not None:
                 tele.emit("phase", name="run", edge="end", step=step_i)
+            mlog.close()
         if skip and not got_batch:
             raise RuntimeError(
                 f"resume fast-forward consumed the whole dataset: skipping "
@@ -871,7 +923,21 @@ class Trainer:
                 save(step_i)
             ckpt.wait()
             _touch_heartbeat()
+        # the laps are closed: wait for the window's device-time budget line
+        profiler.join_breakdown()
         return self.state, summary
+
+    def measured_cost(self, batch: dict[str, torch.Tensor]) -> float | None:
+        """FLOPs per step, global over the gang, counted over one real train
+        step on ``batch`` (on the session's device): the counterpart of the
+        JAX ``compiled_cost``. An eager step is costed only by running it,
+        so the state advances by this step (``fit(measure_flops=True)``
+        trains its first step here). The count is route-independent
+        (:func:`~..metrics.measured_flops_per_step`)."""
+        if self.state is None:
+            self.init()
+        (self.state, _), rec = self._train_step.prepare(self.state, batch)
+        return rec["flops"]
 
     def _roll_back(self, step_i: int, bad: dict, rollbacks: int,
                    max_rollbacks: int) -> int:

@@ -69,7 +69,9 @@ print(json.dumps({{"modules": names, "loaded": sorted(sys.modules)}}))
                 "examples", "examples.train_resnet", "examples.train_dlrm",
                 "models.llama", "models.llama_io", "examples.train_llama_lora",
                 "faults", "supervisor", "utils.sanitize", "telemetry.fleet",
-                "data.exchange"}
+                "data.exchange", "telemetry.anatomy", "telemetry.health",
+                "telemetry.series", "status", "utils.profiling", "utils.kineto",
+                "utils.memory"}
     got = {n.split(".", 1)[1] for n in rec["modules"]}
     assert expected <= got, expected - got
     bad = [m for m in rec["loaded"] if _forbidden(m)]
@@ -90,6 +92,27 @@ def test_port_sources_import_no_jax():
     bad = {str(f.relative_to(PORT_DIR)): n for f in files
            for n in _imported_names(f) if _forbidden(n)}
     assert not bad, bad
+
+
+@pytest.mark.parametrize("module", ["telemetry.anatomy", "telemetry.health",
+                                    "telemetry.series", "telemetry.fleet",
+                                    "telemetry.trace", "status", "utils.profiling",
+                                    "utils.kineto", "utils.memory", "metrics"])
+def test_each_observability_module_names_no_jax(module):
+    path = PORT_DIR.joinpath(*module.split(".")).with_suffix(".py")
+    names = list(_imported_names(path))
+    assert names and not [n for n in names if _forbidden(n)]
+
+
+def test_resnet_driver_takes_the_observability_flags():
+    """The three flags it refused (ROADMAP Queue 1 item 9) parse now."""
+    from distributeddeeplearningspark_tpu_torch.examples import train_resnet
+
+    assert not {"--profile-dir", "--tensorboard-dir", "--mfu"} & set(train_resnet.NOT_PORTED)
+    args = train_resnet.parse_args(["--profile-dir", "p", "--tensorboard-dir", "tb",
+                                    "--mfu"])
+    assert (args.profile_dir, args.tensorboard_dir, args.mfu) == ("p", "tb", True)
+    assert train_resnet.parse_args([]).mfu is False
 
 
 def test_chip_smoke_imports_no_jax():
