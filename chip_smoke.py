@@ -9,16 +9,17 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    ``nvcc`` per source, started together, ``sm_90a``) and print the
    compiler's register/spill report;
 2. hold K1 (flash forward) against its plain PyTorch version on the card
-   in eleven bf16 cases (the served and the training shape, causal GQA at
+   in bf16 cases (the served and the training shape, causal GQA at
    D = 128, segments with padding, a fully masked row, S = 320 at D = 64
    and at D = 128 causal GQA, whole key tiles skipped by padding and
    by segments, Llama-2 7B's b=8, S=1,024, 32 heads, D = 128, causal,
-   and one card's local heads under tensor parallelism: b=4 at 16 heads,
-   b=8 at 8), at the stated tolerance, and time the kernel, the
+   one card's local heads under tensor parallelism: b=4 at 16 heads,
+   b=8 at 8, and a pipeline stage's microbatches of that shape, b=2 and
+   b=1, and the MoE 0.9b's), at the stated tolerance, and time the kernel, the
    plain version, one PyTorch library call computing the same function (a
    yardstick the port never calls) and the card's bound for the same work;
 3. the same for K2 (dQ) and K3 (dK, dV) against the plain backward, in
-   twelve cases (the training shape, b=32, S=512, every key allowed; the
+   the same cases and more (the training shape, b=32, S=512, every key allowed; the
    served batch; causal GQA at D = 128; segments with padding; a fully
    masked row; S = 320 at D = 64 and at D = 128 causal GQA; whole tiles
    skipped; S = 322 with padding; Llama's, and its two local-head
@@ -254,9 +255,22 @@ tolerance; beside it the same gang's ``die_host@6`` walk-back through a
 checkpoint every 4 steps; the drain's gather, digest and write, the
 handoff's bytes, rounds and peak bytes in flight, the ingest, and each
 relaunch's seconds to its first step and its steps lost.
+Then config 5 pipelined over the ``pipe`` axis (``--gang llama-pp``, four
+cards): the driver's session, data and trainer at 7B, full width (b = 8,
+S = 1,024, LoRA rank 16) at pipe=4 with M = 2, 4 and 8 microbatches, at
+fsdp=2 × pipe=2 and pipe=2 × tensor=2 with M = 4, and on one card, on the
+same batches, each rank's first step's FLOPs measured; the 2-layer full
+fine-tune at pipe=2 and on one card; held: losses and grad norms one
+card's, K1/K2/K3 2·(L/P)·M, (L/P)·M and (L/P)·M a step a card, the bytes
+each card sends stage to stage and in the bank's broadcast as reckoned,
+resident param bytes the rule engine's (3,770,957,824 B a card at
+pipe=4), the measured FLOPs one card's, and four planted faults that must
+each break a limit; each card's step ms, tokens/s, host ms issuing a step,
+and busy share in a profiled window beside the bubble (P − 1)/(M + P − 1).
+``--gang llama-pp-steps`` runs its layouts and one card only.
 ``--gang dlrm`` (or ``resnet``, ``llama``, ``llama-cp``, ``llama-drain``,
-``llama-moe``) runs that part's comparisons only (names combine),
-``--gang recovery`` the shrink, the drain and the desync only.
+``llama-moe``, ``llama-pp``) runs that part's comparisons only (names
+combine), ``--gang recovery`` the shrink, the drain and the desync only.
 ``python3 chip_smoke.py --recovery`` builds the kernels and runs phases 11
 and 14 only (one card); ``--observe`` builds them and runs phases 5 and 6b
 and the observed ResNet driver only (one card). ``python3 chip_smoke.py --ckpt-commit TREE``
@@ -502,6 +516,15 @@ def _llama_tp_cases(torch) -> list[dict]:
             for t, b in LLAMA_TP_SHAPES]
 
 
+def _llama_pp_cases(torch) -> list[dict]:
+    """The Llama-2 7B step's attention on a stage of a pipelined gang
+    (``--gang llama-pp``): one microbatch, 32 heads, b = 2 rows at M = 4
+    and b = 1 at M = 8 (and at fsdp=2 × pipe=2, M = 4)."""
+    return [_attn_case(torch, f"llama_pp_b{b}_s1024_causal_d128", b=b, s=LLAMA_SEQ,
+                       h=LLAMA_HEADS, hkv=LLAMA_HEADS, d=128, causal=True, seed=20 + b)
+            for b in LLAMA_PP_MICRO_ROWS]
+
+
 def check_flash_fwd(torch, fa) -> list[dict]:
     cases = [
         _attn_case(torch, "bert_b32_padded", b=32, s=512, h=12, hkv=12, d=64,
@@ -536,6 +559,8 @@ def check_flash_fwd(torch, fa) -> list[dict]:
                    s=LLAMA_SEQ, h=32, hkv=32, d=128, causal=True, seed=10),
         # each card's local heads under tensor parallelism (--gang llama)
         *_llama_tp_cases(torch),
+        # a pipeline stage's microbatches (--gang llama-pp)
+        *_llama_pp_cases(torch),
         # the MoE 0.9b's: 16 q heads over 8 kv heads
         _moe_09b_case(torch),
     ]
@@ -661,6 +686,7 @@ def check_flash_bwd(torch, fa) -> list[dict]:
         _attn_case(torch, "llama_b8_s1024_causal_d128", b=LLAMA_BATCH,
                    s=LLAMA_SEQ, h=32, hkv=32, d=128, causal=True, seed=10),
         *_llama_tp_cases(torch),
+        *_llama_pp_cases(torch),
         _moe_09b_case(torch),
     ]
     results = []
@@ -1468,6 +1494,8 @@ LLAMA_HEADS = 32
 #: (tensor, rows a card) of the Llama gang's tensor-parallel runs at four
 #: cards: fsdp=2 × tensor=2 (b = 8 over 2 batch shards) and tensor=4
 LLAMA_TP_SHAPES = ((2, LLAMA_BATCH // 2), (4, LLAMA_BATCH))
+#: a pipeline stage's microbatch rows (--gang llama-pp): b = 8 at M = 4, 8
+LLAMA_PP_MICRO_ROWS = (LLAMA_BATCH // 4, LLAMA_BATCH // 8)
 #: the in-process phase's peak lr (LoRA fine-tunes run 1e-4 to 1e-3; random
 #: base weights need the upper end for the loss to move in 10 steps)
 LLAMA_LR = 1e-3
@@ -3849,6 +3877,16 @@ LLAMA_GANG_FAULTS = {
     "cp-grads-unsummed": ("ring-seq4", "the gradients summed over the batch group "
                                        "only: each seq peer's adapters step on its "
                                        "block's part"),
+    "bank-grad-summed": ("pp-lora", "the bank's broadcast back-propagated as a sum "
+                                    "over the pipe peers: every stage's gradients "
+                                    "P times the loss's"),
+    "embed-grad-unsummed": ("pp-full", "the embedding's gradient not summed over "
+                                       "pipe: only stage 0's copy of it steps on "
+                                       "it"),
+    "bank-misordered": ("pp-lora", "the last stage banking the microbatches in "
+                                   "reverse order: rows meet other rows' labels"),
+    "stage-layers-reversed": ("pp-lora", "a stage applying its layers in reverse "
+                                         "order"),
 }
 #: context parallelism's layouts at four cards: name → (``--seq-parallel``,
 #: ``--cp-impl``); the rest of the cards go to fsdp (the driver's default
@@ -3906,6 +3944,30 @@ def _plant_llama(fault: str) -> None:
         # the original counts its calls on the module's attribute
         batch_group_only.calls = summed.calls
         collectives.all_reduce_grads = batch_group_only
+    elif fault == "bank-grad-summed":
+        import torch.distributed as dist
+
+        from distributeddeeplearningspark_tpu_torch.parallel import pipeline
+
+        def summed(g, pg):
+            g = g.clone()
+            dist.all_reduce(g, group=pg.group)
+            return g
+        pipeline._bank_grad = summed
+    elif fault == "embed-grad-unsummed":
+        from distributeddeeplearningspark_tpu_torch.models import llama_pp
+
+        llama_pp.PipelinedForward.first_stage_params = ()
+    elif fault == "bank-misordered":
+        from distributeddeeplearningspark_tpu_torch.parallel import pipeline
+
+        pipeline._bank = lambda outputs: torch.stack([o.detach() for o in outputs[::-1]])
+    elif fault == "stage-layers-reversed":
+        from distributeddeeplearningspark_tpu_torch.models import llama_pp
+
+        stage_forward = llama_pp._stage_forward
+        llama_pp._stage_forward = lambda layers, x, remat: stage_forward(
+            layers[::-1], x, remat)
     elif fault == "feed-by-world-rank":
         def by_world_rank(self, dataset, batch_size, **kw):
             n, r = self.session.world_size, self.session.rank
@@ -3927,6 +3989,24 @@ def _llama_gang_args(ranks: int, steps: int, tensor: int = 1) -> list[str]:
             "--source-partitions", str(ranks), "--tensor", str(tensor)]
 
 
+class _TimedStep:
+    """A trainer's train step, each call's host seconds kept: the time the
+    host takes to issue the step's work (the call does not wait for the
+    card), against the step's wall between two log points' syncs."""
+
+    def __init__(self, step):
+        self.step, self.host_s = step, []
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self.step(*args, **kwargs)
+        self.host_s.append(time.perf_counter() - t0)
+        return out
+
+
 def llama_rank(argv: list[str]) -> int:
     """One rank of a Llama gang comparison run (``chip_smoke.py --llama-rank
     OUT MODE FAULT ARGS``, run by the port's cli): the driver's session,
@@ -3936,11 +4016,14 @@ def llama_rank(argv: list[str]) -> int:
     planted, GANG_STEPS steps, each logged; each rank writes
     ``OUT/rank<r>.json``: its card (flash launches, resident param bytes and
     the rule engine's reckoning, peak memory in the init and in ``fit``,
-    its ``seq`` index, the RoPE positions its first layer applied and the
-    bytes its ring exchanges and all-to-alls sent in ``fit``) and whether
-    each param agrees within its replica group. A sound LoRA
-    run at more than one rank then takes GANG_WINDOW more steps under the
-    profiler."""
+    its ``seq`` index, the RoPE positions its first layer applied, the
+    bytes its ring exchanges and all-to-alls sent in ``fit``, its pipeline
+    stage and the bytes it sent stage to stage and in the bank's broadcast)
+    and whether each param agrees within its replica group. MODE
+    ``pp-lora`` and ``pp-full`` are ``lora`` and ``full`` laid out by stage
+    at ``--pipeline`` above 1 with ``--microbatches``, their first step's
+    FLOPs measured (``fit(measure_flops=True)``). A sound LoRA run at more
+    than one rank then takes GANG_WINDOW more steps under the profiler."""
     import dataclasses
 
     import torch
@@ -3954,7 +4037,11 @@ def llama_rank(argv: list[str]) -> int:
     from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
     from distributeddeeplearningspark_tpu_torch.utils import sanitize
 
+    from distributeddeeplearningspark_tpu_torch.parallel.pipeline import pipeline
+
     out, mode, fault = argv[:3]
+    measure = mode.startswith("pp-")
+    mode = mode.removeprefix("pp-")
     args = driver.parse_args(argv[3:])
     _plant_llama(fault)
     if mode == "full-hsdp":
@@ -3973,7 +4060,8 @@ def llama_rank(argv: list[str]) -> int:
         tx = optim.with_grad_clip(optim.adamw(optim.warmup_cosine(
             LLAMA_GANG_FULL_LR, 1, args.steps)), 1.0)
         trainer = Trainer(spark, driver.make_model(cfg), losses.causal_lm,
-                          tx, rules=llama.llama_rules(cfg))
+                          tx, rules=llama.llama_rules(cfg, pipeline=args.pipeline > 1),
+                          pipeline_microbatches=args.microbatches or None)
     init_peak = torch.cuda.max_memory_allocated()
     kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     for k in kernels:
@@ -3981,6 +4069,7 @@ def llama_rank(argv: list[str]) -> int:
     cp_ops = (ring_attention.exchange, ulysses.all_to_all)
     for op in cp_ops:
         op.bytes_sent = 0
+    pipeline.handoff_bytes = pipeline.broadcast_bytes = 0
     # the RoPE positions the first layer applied on this rank: its first,
     # last and count
     positions: list = []
@@ -3993,14 +4082,19 @@ def llama_rank(argv: list[str]) -> int:
         return rope(x, pos, theta)
 
     llama.rotary_embedding = recorded_rope
+    timed = trainer._train_step = _TimedStep(trainer._train_step)
     torch.cuda.reset_peak_memory_stats()
     trainer.fit(ds, batch_size=args.batch_size, steps=GANG_STEPS, log_every=1,
-                tokens_per_example=args.seq_len)
+                tokens_per_example=args.seq_len, measure_flops=measure)
+    trainer._train_step = timed.step
     llama.rotary_embedding = rope
     rec = driver.card_record(trainer, {k.__name__: k.launches for k in kernels})
     rec.update(init_max_memory_allocated=init_peak, positions=positions,
                seq_index=spark.mesh.seq_index,
-               cp_bytes_sent=sum(op.bytes_sent for op in cp_ops))
+               cp_bytes_sent=sum(op.bytes_sent for op in cp_ops),
+               flops_per_step=trainer._train_step.flops_per_step if measure else None,
+               host_call_ms=float(np.mean(timed.host_s[1:])) * 1e3
+               if len(timed.host_s) > 1 else None)
     try:
         sanitize.assert_replicas_in_sync(trainer.state.params)
         rec["replicas_in_sync"] = True
@@ -4259,6 +4353,179 @@ def train_llama_gang(torch, ranks: int) -> dict:
         check(not seen["replicas_in_sync"] or seen["max_loss_rel_err"] > GANG_LOSS_RTOL
               or seen.get("max_grad_norm_rel_err", 0.0) > GANG_GRAD_NORM_RTOL,
               f"llama gang: the planted fault {fault!r} ({why}) stays within every "
+              f"limit: {seen}")
+    return rec
+
+
+# -- chip_smoke.py --gang llama-pp: config 5 pipelined over the cards -------------
+
+#: the pipelined layouts of config 5 on four cards: name → (``--pipeline``,
+#: ``--microbatches``, ``--tensor``); the rest of the cards go to fsdp (the
+#: driver's default ``--fsdp -1``)
+LLAMA_PP_LAYOUTS = {"pipe4-m2": (4, 2, 1), "pipe4-m4": (4, 4, 1), "pipe4-m8": (4, 8, 1),
+                    "fsdp2-pipe2-m4": (2, 4, 1), "pipe2-tensor2-m4": (2, 4, 2)}
+#: the full fine-tune (LLAMA_GANG_FULL_LAYERS layers of the 7B widths, the
+#: embedding and the head in training) pipelined on two cards: (``--pipeline``,
+#: ``--microbatches``)
+LLAMA_PP_FULL = (2, 2)
+#: config 5 at pipe=4: each card's resident param bytes (8 layers' bf16 base,
+#: f32 LoRA and norms; the bf16 embedding and head and the f32 final norm)
+LLAMA_PP4_PARAM_BYTES = 3_770_957_824
+#: Llama-2 7B's hidden width (a handoff is a microbatch of it, in bf16)
+LLAMA_HIDDEN = 4096
+
+
+def _pp_reckoning(layers: int, stage: int, pipe: int, micro: int, rows: int) -> dict:
+    """What a card of pipeline ``stage`` does each step: its K1/K2/K3
+    launches (K1 in each of its layers' forward and remat recompute for
+    each microbatch), the bytes it sends stage to stage (a microbatch of
+    ``rows // micro`` rows of bf16 activations forward unless it is the
+    last stage, its gradient back unless it is the first) and in the
+    bank's broadcast (the last stage: every microbatch)."""
+    per = layers // pipe * micro
+    mb = rows // micro * LLAMA_SEQ * LLAMA_HIDDEN * 2
+    return dict(launches={"flash_fwd": 2 * per, "flash_bwd_dq": per, "flash_bwd_dkv": per},
+                handoff_bytes=micro * mb * ((stage < pipe - 1) + (stage > 0)),
+                broadcast_bytes=micro * mb if stage == pipe - 1 else 0,
+                bubble=(pipe - 1) / (micro + pipe - 1))
+
+
+def train_llama_pp_gang(torch, ranks: int, faults: bool = True) -> dict:
+    """Llama-2 7B LoRA (config 5) pipelined over ``ranks`` cards (NCCL): the
+    driver's session, data and trainer (:func:`llama_rank`, ``pp-lora``) at
+    each of LLAMA_PP_LAYOUTS (pipe=4 at M = 4 and 8, fsdp=2 × pipe=2 and
+    pipe=2 × tensor=2 at M = 4) and on one card, on the same global batches
+    (b = 8, S = 1,024, full width), GANG_STEPS steps, the first one's FLOPs
+    measured; then (with ``faults``) the 2-layer full fine-tune at pipe=2
+    on two cards and on one and the planted faults. Held on each run: every rank's losses one card's at
+    GANG_LOSS_RTOL and its grad norms at GANG_GRAD_NORM_RTOL, each param in
+    sync within its replica group, each card's K1/K2/K3 launches, handoff
+    and broadcast bytes as :func:`_pp_reckoning` reckons, its resident param
+    bytes the rule engine's (LLAMA_PP4_PARAM_BYTES at pipe=4), the measured
+    FLOPs a step one card's; each of the pipeline's LLAMA_GANG_FAULTS
+    planted into its run must break one of those limits. Prints each
+    card's step ms, tokens/s and busy share in a profiled window beside
+    the bubble (P − 1)/(M + P − 1)."""
+    root = ROOT / "build" / f"chip_smoke_llama_pp_{ranks}"
+    base = _llama_gang_args(ranks, GANG_STEPS)
+    one = _llama_run(root / "one", 1, "pp-lora", "none", base)
+    runs = {}
+    for name, (pipe, micro, tensor) in LLAMA_PP_LAYOUTS.items():
+        args = [*_llama_gang_args(ranks, GANG_STEPS, tensor), "--pipeline", str(pipe),
+                "--microbatches", str(micro)]
+        runs[name] = _llama_run(root / name, ranks, "pp-lora", "none", args)
+    planted, full, full_one = {}, None, None
+    if faults:
+        pipe4 = [*base, "--pipeline", "4", "--microbatches", "4"]
+        planted = {f: _llama_run(root / f"pipe4-m4-{f}", ranks, "pp-lora", f, pipe4)
+                   for f, (mode, _) in LLAMA_GANG_FAULTS.items() if mode == "pp-lora"}
+        full_args = [*base, "--pipeline", str(LLAMA_PP_FULL[0]), "--microbatches",
+                     str(LLAMA_PP_FULL[1])]
+        full_one = _llama_run(root / "full-one", 1, "pp-full", "none", base)
+        full = _llama_run(root / "full-pipe2", LLAMA_PP_FULL[0], "pp-full", "none",
+                          full_args)
+        planted.update({f: _llama_run(root / f"full-pipe2-{f}", LLAMA_PP_FULL[0],
+                                      "pp-full", f, full_args)
+                        for f, (mode, _) in LLAMA_GANG_FAULTS.items() if mode == "pp-full"})
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+
+    def summary(run: dict, ref: dict, micro: int | None = None, layers: int = LLAMA_LAYERS
+                ) -> dict:
+        cards = run["cards"]
+        mesh = cards[0]["mesh"]
+        rows = LLAMA_BATCH // (mesh["data"] * mesh["fsdp"])
+        out = dict(
+            mesh=mesh, microbatches=micro, losses=run["losses"][0],
+            grad_norms=run["grad_norms"][0],
+            max_loss_rel_err=_loss_gap(run["losses"][0], ref["losses"][0]),
+            max_grad_norm_rel_err=_loss_gap(run["grad_norms"][0], ref["grad_norms"][0]),
+            ranks_agree=all(v == run["losses"][0] for v in run["losses"]),
+            replicas_in_sync=all(c["replicas_in_sync"] for c in cards),
+            flops_per_step=cards[0]["flops_per_step"],
+            step_ms_by_rank=run["step_ms"],
+            host_call_ms_by_rank=[c["host_call_ms"] for c in cards],
+            tokens_per_sec_per_card=[tokens / len(cards) / (ms / 1e3) if ms else None
+                                     for ms in run["step_ms"]],
+            launch=run["launch"], cards=[])
+        for c in cards:
+            want = (_pp_reckoning(layers, c["pipe_stage"], mesh["pipe"], micro, rows)
+                    if micro else None)
+            prof = c.get("profile") or {}
+            out["cards"].append(dict(
+                stage=c["pipe_stage"], flash_launches=c["flash_launches"],
+                param_bytes=c["param_bytes"], param_bytes_reckoned=c["param_bytes_reckoned"],
+                handoff_bytes=c["handoff_bytes"], broadcast_bytes=c["broadcast_bytes"],
+                reckoned=want, max_memory_allocated=c["max_memory_allocated"],
+                busy_share=(1.0 - prof["idle_share"]) if "idle_share" in prof else None,
+                bubble=want and want["bubble"],
+                busy_ms_per_step=prof.get("busy_ms_per_step"),
+                wall_ms_per_step=prof.get("wall_ms_per_step"),
+                nccl_ms_per_step=prof.get("busy_ms_by_family", {}).get("nccl"),
+                flops_per_step=c["flops_per_step"]))
+        return out
+
+    rec = dict(ranks=ranks, global_batch=LLAMA_BATCH, seq_len=LLAMA_SEQ,
+               lora_rank=LLAMA_RANK,
+               one_card=dict(losses=one["losses"][0], grad_norms=one["grad_norms"][0],
+                             step_ms=one["step_ms"][0],
+                             host_call_ms=one["cards"][0]["host_call_ms"],
+                             tokens_per_sec=tokens / (one["step_ms"][0] / 1e3),
+                             flops_per_step=one["cards"][0]["flops_per_step"],
+                             flash_launches=one["cards"][0]["flash_launches"],
+                             max_memory_allocated=one["cards"][0]["max_memory_allocated"]),
+               layouts={name: summary(run, one, LLAMA_PP_LAYOUTS[name][1])
+                        for name, run in runs.items()},
+               full=full and summary(full, full_one, LLAMA_PP_FULL[1],
+                                     LLAMA_GANG_FULL_LAYERS),
+               full_one_card=full_one and dict(losses=full_one["losses"][0],
+                                               grad_norms=full_one["grad_norms"][0]),
+               faults={f: summary(run, full_one if LLAMA_GANG_FAULTS[f][0] == "pp-full"
+                                  else one) for f, run in planted.items()},
+               card=nvidia_smi_line(), torch_version=torch.__version__,
+               nccl_version=torch.cuda.nccl.version())
+    print("gang llama-pp " + json.dumps(rec), flush=True)
+    want_one = {k: n * GANG_STEPS for k, n in LLAMA_LAUNCHES.items()}
+    check(one["cards"][0]["flash_launches"] == want_one,
+          f"llama pp: one card's launches {one['cards'][0]['flash_launches']}")
+    for name, r in [*rec["layouts"].items(), *([("full", rec["full"])] if full else [])]:
+        check(r["ranks_agree"] and r["replicas_in_sync"],
+              f"llama pp {name}: the ranks disagree or the replicas desynced: {r}")
+        check(r["max_loss_rel_err"] <= GANG_LOSS_RTOL
+              and r["max_grad_norm_rel_err"] <= GANG_GRAD_NORM_RTOL,
+              f"llama pp {name} at {r['mesh']} is off one card's: losses "
+              f"{r['max_loss_rel_err']}, grad norms {r['max_grad_norm_rel_err']}")
+        want_flops = (rec["one_card"] if name != "full" else
+                      dict(flops_per_step=full_one["cards"][0]["flops_per_step"]))
+        check(r["flops_per_step"] == want_flops["flops_per_step"] is not None
+              and all(c["flops_per_step"] == r["flops_per_step"] for c in r["cards"]),
+              f"llama pp {name}: measured FLOPs {r['flops_per_step']}, one card's "
+              f"{want_flops['flops_per_step']}")
+        for c in r["cards"]:
+            want = c["reckoned"]
+            check(c["flash_launches"] == {k: n * GANG_STEPS
+                                          for k, n in want["launches"].items()},
+                  f"llama pp {name} stage {c['stage']}: launches {c['flash_launches']}, "
+                  f"want {want['launches']} a step")
+            check(c["handoff_bytes"] == want["handoff_bytes"] * GANG_STEPS
+                  and c["broadcast_bytes"] == want["broadcast_bytes"] * GANG_STEPS,
+                  f"llama pp {name} stage {c['stage']}: sent {c['handoff_bytes']} + "
+                  f"{c['broadcast_bytes']} B, reckoned {want} a step")
+            check(c["param_bytes"] == c["param_bytes_reckoned"],
+                  f"llama pp {name} stage {c['stage']}: resident {c['param_bytes']} B, "
+                  f"the rule engine's reckoning {c['param_bytes_reckoned']}")
+            if name.startswith("pipe4"):
+                check(c["param_bytes"] == LLAMA_PP4_PARAM_BYTES,
+                      f"llama pp {name}: {c['param_bytes']} B a card, reckoned "
+                      f"{LLAMA_PP4_PARAM_BYTES}")
+            if name != "full":
+                check(c["busy_share"] is not None,
+                      f"llama pp {name}: no device time in the profiled window")
+        check(r["mesh"]["pipe"] > 1, f"llama pp {name}: mesh {r['mesh']}")
+    for fault, seen in rec["faults"].items():
+        why = LLAMA_GANG_FAULTS[fault][1]
+        check(not seen["replicas_in_sync"] or seen["max_loss_rel_err"] > GANG_LOSS_RTOL
+              or seen["max_grad_norm_rel_err"] > GANG_GRAD_NORM_RTOL,
+              f"llama pp: the planted fault {fault!r} ({why}) stays within every "
               f"limit: {seen}")
     return rec
 
@@ -5423,19 +5690,22 @@ def input_ab_main(torch) -> int:
 
 def gang_main(torch, names: list[str]) -> int:
     """``chip_smoke.py --gang [resnet|dlrm|recovery|llama|llama-cp|llama-drain|
-    llama-moe ...]``: at one rank per visible card (2 or more), NCCL between
-    them, the LeNet phase, the supervised shrink, the drain and the planted
-    desync, the ResNet-50 and DLRM drivers (:func:`train_drivers_gang`),
-    then Llama-2 7B LoRA sharded over the cards (:func:`train_llama_gang`,
-    :func:`train_llama_cp_gang`), drained for a preemption
-    (:func:`train_llama_drain`) and the MoE Llamas over the ``expert`` axis
-    (:func:`train_llama_moe_gang`); with names, only those parts."""
+    llama-moe|llama-pp ...]``: at one rank per visible card (2 or more), NCCL
+    between them, the LeNet phase, the supervised shrink, the drain and the
+    planted desync, the ResNet-50 and DLRM drivers
+    (:func:`train_drivers_gang`), then Llama-2 7B LoRA sharded over the
+    cards (:func:`train_llama_gang`, :func:`train_llama_cp_gang`), drained
+    for a preemption (:func:`train_llama_drain`), the MoE Llamas over the
+    ``expert`` axis (:func:`train_llama_moe_gang`) and config 5 pipelined
+    over the ``pipe`` axis (:func:`train_llama_pp_gang`, four cards); with
+    names, only those parts."""
     ranks = torch.cuda.device_count()
     if ranks < 2:
         print(f"chip_smoke --gang: {ranks} card(s); it needs 2 or more",
               file=sys.stderr)
         return 2
-    parts = ["llama", "llama-cp", "llama-drain", "llama-moe", "recovery"]
+    parts = ["llama", "llama-cp", "llama-drain", "llama-moe", "llama-pp", "llama-pp-steps",
+             "recovery"]
     if not set(names) <= set(GANG_FAULTS) | set(parts):
         print(f"chip_smoke --gang: no part {names}; choose from "
               f"{sorted(GANG_FAULTS) + parts}", file=sys.stderr)
@@ -5458,6 +5728,10 @@ def gang_main(torch, names: list[str]) -> int:
             train_llama_drain(torch, ranks)
         if not names or "llama-moe" in names:
             train_llama_moe_gang(torch, ranks)
+        if not names or "llama-pp" in names:
+            train_llama_pp_gang(torch, ranks)
+        if "llama-pp-steps" in names:  # the layouts' steps only, no faults
+            train_llama_pp_gang(torch, ranks, faults=False)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

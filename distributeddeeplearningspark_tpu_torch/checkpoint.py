@@ -26,8 +26,13 @@ takes part in gathering each sharded leaf (``full_tensor()``), one leaf at
 a time, and rank 0 copies it to the host. So a step written at ``fsdp=N``
 restores at any rank count, the supervisor's shrink included: the restore
 reads the whole tensors on every rank and writes each rank's shard.
-With ``async_save`` the state is copied to the host on the loop's thread
-and the files are written on a background thread; :meth:`wait` joins it.
+On a pipeline each stage's params and optimizer tensors reach rank 0 over
+the pipe links (:meth:`~.parallel.pipeline.StageState.whole`) and the step
+holds the whole state in the same format, so a step written at ``pipe=P``
+restores at ``pipe`` 1, at any ``fsdp``, and back: a restore writes each
+stage's part. With ``async_save`` the state is copied to the host on the
+loop's thread and the files are written on a background thread;
+:meth:`wait` joins it.
 
 Telemetry, through the process-wide writer: the ``checkpoint`` phase
 spans :meth:`save`'s blocking part (waiting out the previous write and the
@@ -196,6 +201,12 @@ def _to_host(tree: Any, keep: bool = True) -> Any:
     return tree
 
 
+def _device(state: Any) -> torch.device:
+    """The device the state's params lie on (a pipeline's transfers run
+    there)."""
+    return sharding.local(next(iter(state.params.values()))).device
+
+
 class Checkpointer:
     """Checkpoints of a :class:`~.train.state.TrainState` under
     ``directory`` (created if absent), the newest ``max_to_keep`` kept.
@@ -223,13 +234,17 @@ class Checkpointer:
     def save(self, step: int, state: Any, *, data_state: dict | None = None) -> bool:
         """Save ``state`` (a TrainState) at ``step``, with an optional JSON
         ``data_state``. Returns True where this rank wrote (rank 0)."""
+        pipe = getattr(state, "pipe", None)
         if collectives.rank() != 0:
-            if any(sharding.is_sharded(t) for t in state.params.values()):
+            if pipe is not None:
+                pipe.whole(state, _device(state))
+            elif any(sharding.is_sharded(t) for t in state.params.values()):
                 _to_host(state.state_dict(), keep=False)
             return False
         with telemetry.phase("checkpoint", step=int(step)):
             self._join_writer()
-            host = _to_host(state.state_dict())
+            host = (pipe.whole(state, _device(state)) if pipe is not None
+                    else _to_host(state.state_dict()))
         if self.async_save:
             self._writer = threading.Thread(
                 target=self._write_guarded, args=(int(step), host, data_state),

@@ -92,11 +92,26 @@ for the bank). On the CPU::
         --variant tiny --steps 4 --batch-size 4 --seq-len 64 --lora-rank 4 \\
         --moe-experts 4 --expert 2
 
-The JAX driver's pipeline, int8 base, fused head, sampling and the import
+``--pipeline P`` (default 1) and ``--microbatches M`` (default P) are
+JAX's GPipe pipeline: ``mesh.pipe=P``, ``llama_rules(cfg, pipeline=True)``
+and the trainer's ``pipeline_microbatches``, so each rank runs a stage of
+L/P layers on M microbatches of its rows (:mod:`..models.llama_pp`),
+holding only that stage's layers; beside ``--fsdp`` and ``--tensor``,
+``local[N]`` is then fsdp = N/(P·T). JAX's refusals are kept:
+``--segment-ids``, ``--moe-experts`` and ``--fused-head-loss`` with
+``--pipeline``. On the CPU::
+
+    python -m distributeddeeplearningspark_tpu_torch.cli --master local[4] \\
+        --conf spark.dls.device=cpu \\
+        distributeddeeplearningspark_tpu_torch/examples/train_llama_lora.py \\
+        --variant tiny --steps 4 --batch-size 4 --seq-len 64 --lora-rank 4 \\
+        --pipeline 4 --microbatches 2
+
+The JAX driver's int8 base, fused head, sampling and the import
 of real weights (which needs their tokenizer) are not ported yet: those
 flags fail at parse time, each naming its ROADMAP item. Rank 0 prints one JSON line: the train summary,
 where the run went (world size, backend, device, the mesh, the CP
-implementation), the number of
+implementation, the pipeline's microbatches), the number of
 sharded params (on any axis) and of those split over ``tensor`` and over
 ``expert``, the MoE's experts (0: dense), the attention's local heads a
 rank, and
@@ -104,8 +119,10 @@ for each rank the flash kernels' launches in ``fit``, its resident param
 bytes (each shard's ``to_local()``, each replicated param whole) beside
 the rule engine's reckoning, its peak device memory in the init and
 during ``fit``, and the Megatron all-reduces (over its tensor and
-expert groups) and the bytes its ring exchanges and all-to-alls sent in
-``fit`` (and rank 0's seconds in the trainer's init);
+expert groups), the bytes its ring exchanges and all-to-alls sent in
+``fit``, its pipeline stage and the bytes it sent stage to stage and in
+the bank's broadcast in ``fit`` (and rank 0's seconds in the trainer's
+init);
 ``replicas_checked`` says each param was compared within its replica
 group.
 """
@@ -135,6 +152,7 @@ from distributeddeeplearningspark_tpu_torch.models.llama import (
 from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
 from distributeddeeplearningspark_tpu_torch.ops import ring_attention, ulysses
 from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
+from distributeddeeplearningspark_tpu_torch.parallel.pipeline import pipeline
 from distributeddeeplearningspark_tpu_torch.parallel.mesh import AXIS_TENSOR
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 from distributeddeeplearningspark_tpu_torch.train import losses, optim
@@ -145,13 +163,8 @@ NOT_PORTED = {
                  "and their tokenizer in the repository (models/llama_io.py "
                  "reads them): ROADMAP Queue 1 item 5",
     "--tokenizer": "the HF tokenizer adapter: ROADMAP Queue 1 item 5",
-    "--microbatches": "the pipeline (models/llama_pp.py): ROADMAP Queue 1 item 6",
     "--fused-head-loss": "train/fused_ce.py: ROADMAP Queue 1 item 5",
     "--sample-tokens": "models/llama_gen.py: ROADMAP Queue 1 item 8",
-}
-#: mesh axes of the JAX driver the port cannot shard over yet: only 1
-MESH_AXES = {
-    "pipeline": "the pipeline (models/llama_pp.py): ROADMAP Queue 1 item 6",
 }
 #: why ``--base-quant`` is refused (after the JAX driver's own refusals)
 BASE_QUANT = "the int8 frozen base: ROADMAP Queue 1 item 5"
@@ -203,11 +216,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "must divide batch*seq_len")
     p.add_argument("--expert", type=int, default=1,
                    help="expert-parallel axis size (with --moe-experts)")
+    p.add_argument("--pipeline", type=int, default=1,
+                   help="pipeline-parallel axis size (GPipe stages of the layers)")
+    p.add_argument("--microbatches", type=int, default=0,
+                   help="pipeline microbatches per step (default: the pipe degree)")
     p.add_argument("--base-quant", default=None, choices=["int8"],
                    help=f"not ported yet: {BASE_QUANT}")
-    for axis in MESH_AXES:
-        p.add_argument("--" + axis.replace("_", "-"), type=int, default=1,
-                       help=f"only 1 is ported: {MESH_AXES[axis]}")
     add_checkpoint_flags(p)
     add_not_ported(p, NOT_PORTED)
     return p
@@ -218,7 +232,20 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     for the MoE beside the int8 base: see the module docstring), then the
     port's refusals of what it has not ported."""
     p = build_parser()
+    # JAX refuses the fused head beside the pipeline before the port's
+    # refusal of the flag itself (which argparse raises while parsing)
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--pipeline", type=int, default=1)
+    pre.add_argument("--fused-head-loss", action="store_true")
+    early, _ = pre.parse_known_args(argv)
+    if early.fused_head_loss and early.pipeline > 1:
+        p.error("--fused-head-loss is not supported with --pipeline "
+                "(the GPipe forward emits real logits)")
     args = p.parse_args(argv)
+    if args.segment_ids and args.pipeline > 1:
+        p.error("--segment-ids is not supported with --pipeline (the stage "
+                "forward does not thread them; packed batches would "
+                "silently attend across documents)")
     if args.moe_experts:
         if args.pipeline > 1:
             p.error("--moe-experts is not supported with --pipeline "
@@ -243,9 +270,6 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                 "has no int8 form)")
     if args.base_quant:
         p.error(f"--base-quant is not ported yet ({BASE_QUANT})")
-    for axis, why in MESH_AXES.items():
-        if getattr(args, axis) > 1:
-            p.error(f"--{axis.replace('_', '-')} > 1 is not ported yet ({why})")
     return args
 
 
@@ -270,11 +294,13 @@ def make_config(args: argparse.Namespace, vocab_size: int) -> LlamaConfig:
 def make_session(args: argparse.Namespace, app: str = "llama-lora") -> Session:
     """The session on the JAX driver's mesh: ``mesh.data=1``,
     ``mesh.fsdp=--fsdp``, ``mesh.seq=--seq-parallel``,
-    ``mesh.tensor=--tensor`` and ``mesh.expert=--expert`` (config 5 is
-    FSDP-dominant: the fsdp workers are the executors)."""
+    ``mesh.tensor=--tensor``, ``mesh.pipe=--pipeline`` and
+    ``mesh.expert=--expert`` (config 5 is FSDP-dominant: the fsdp workers
+    are the executors)."""
     builder = (Session.builder.appName(app).config("mesh.data", 1)
                .config("mesh.fsdp", args.fsdp).config("mesh.seq", args.seq_parallel)
-               .config("mesh.tensor", args.tensor).config("mesh.expert", args.expert))
+               .config("mesh.tensor", args.tensor).config("mesh.pipe", args.pipeline)
+               .config("mesh.expert", args.expert))
     if args.master:
         builder = builder.master(args.master)
     return builder.getOrCreate()
@@ -306,8 +332,8 @@ def make_model(cfg: LlamaConfig) -> LlamaForCausalLM:
 def make_trainer(args: argparse.Namespace, spark: Session, cfg: LlamaConfig,
                  checkpointer: Checkpointer | None = None) -> Trainer:
     """The LoRA fine-tune's trainer, the params laid out by ``llama_rules``
-    over the session's mesh, the sequence sharded over ``seq`` at
-    ``--seq-parallel`` above 1."""
+    over the session's mesh (by stage at ``--pipeline`` above 1), the
+    sequence sharded over ``seq`` at ``--seq-parallel`` above 1."""
     # the clip inside the mask: the norm over the adapters' gradients only
     tx = optim.masked(
         optim.with_grad_clip(
@@ -316,9 +342,11 @@ def make_trainer(args: argparse.Namespace, spark: Session, cfg: LlamaConfig,
             1.0),
         lora_trainable)
     return Trainer(spark, make_model(cfg), losses.causal_lm, tx,
-                   rules=llama_rules(cfg), accum_steps=args.accum_steps,
+                   rules=llama_rules(cfg, pipeline=args.pipeline > 1),
+                   accum_steps=args.accum_steps,
                    trainable=lora_trainable, checkpointer=checkpointer,
-                   context_parallel=args.seq_parallel > 1)
+                   context_parallel=args.seq_parallel > 1,
+                   pipeline_microbatches=args.microbatches or None)
 
 
 def local_heads(trainer: Trainer) -> int:
@@ -331,17 +359,22 @@ def local_heads(trainer: Trainer) -> int:
 
 def card_record(trainer: Trainer, launches: dict) -> dict:
     """This rank's card: its flash launches, its resident param bytes beside
-    the rule engine's reckoning, and its peak device memory (in ``fit``:
-    since the last reset)."""
-    named = dict(trainer.model.named_parameters())
+    the rule engine's reckoning (from the whole model's shapes, for its
+    pipeline stage), and its peak device memory (in ``fit``: since the last
+    reset)."""
+    named = dict(LlamaForCausalLM(trainer.model.cfg, device="meta").named_parameters())
     device = trainer.device
+    mesh = trainer.session.mesh
     return {
         "flash_launches": launches,
         "param_bytes": sharding.resident_param_bytes(trainer.model),
         "param_bytes_reckoned": sharding.bytes_per_card(
             {n: tuple(p.shape) for n, p in named.items()},
             {n: p.element_size() for n, p in named.items()},
-            trainer.plan.rules, trainer.session.mesh),
+            trainer.plan.rules, mesh, stage=mesh.pipe_index),
+        "pipe_stage": mesh.pipe_index,
+        "handoff_bytes": pipeline.handoff_bytes,
+        "broadcast_bytes": pipeline.broadcast_bytes,
         "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else None),
     }
@@ -371,6 +404,7 @@ def main(argv: list[str] | None = None) -> None:
     tp_before = sum(op.calls for op in tp_ops)
     cp_ops = (ring_attention.exchange, ulysses.all_to_all)
     cp_before = sum(op.bytes_sent for op in cp_ops)
+    pipeline.handoff_bytes = pipeline.broadcast_bytes = 0  # counted in fit
     if cuda:
         torch.cuda.reset_peak_memory_stats(spark.device)
     state, summary = trainer.fit(ds, batch_size=args.batch_size, steps=args.steps,
@@ -399,6 +433,8 @@ def main(argv: list[str] | None = None) -> None:
             "world_size": spark.world_size, "backend": spark.backend,
             "device": str(spark.device), "mesh": spark.mesh.shape,
             "cp_impl": cfg.attention_impl if args.seq_parallel > 1 else None,
+            "microbatches": (trainer.model.pipe.num_microbatches
+                             if trainer.model.pipe is not None else None),
             "sharded_params": len(set(trainer.shard_dims) | set(trainer.tensor_dims)
                                   | set(trainer.expert_dims)),
             "tensor_split_params": len(trainer.tensor_dims),

@@ -83,6 +83,11 @@ the product. Under expert parallelism (``llama_rules`` splits the bank's
 experts over ``expert``) each rank runs its own experts; the module
 docstring of :mod:`..models.moe` says how the tokens enter and leave them.
 
+On a pipeline (the session's ``pipe`` above 1) the ``Trainer`` converts
+the model (:func:`.llama_pp.make_pp_model`): the layers other stages hold
+become :class:`ElsewhereLayer` places and ``model.pipe`` runs the GPipe
+forward; ``llama_rules(pipeline=True)`` lays the layers out by stage.
+
 Not ported yet, and refused by name: the int8 frozen base and the fused
 head loss (item 5), decoding with a KV cache (item 8), and MoE under
 context parallelism (its routing groups span whole sequences, item 6).
@@ -398,6 +403,20 @@ class DecoderLayer(nn.Module):
         return x + self.mlp(self.mlp_norm(x))
 
 
+class ElsewhereLayer(nn.Module):
+    """The place of a decoder layer that another pipeline stage holds
+    (:mod:`.llama_pp`): no params, never run. ``init_weights`` draws a
+    layer's worth of values in its place and discards them, so the layers
+    this stage holds get one device's draws."""
+
+    def __init__(self, index: int, stage: int):
+        super().__init__()
+        self.index, self.stage = index, stage
+
+    def forward(self, *args):
+        raise RuntimeError(f"layer {self.index} lies on pipeline stage {self.stage}")
+
+
 #: the flax config's options the port refuses → their ROADMAP item
 _NOT_PORTED = {
     "base_quant": "the int8 frozen base: ROADMAP Queue 1 item 5",
@@ -442,6 +461,9 @@ class LlamaForCausalLM(nn.Module):
         #: train step sets it (``collectives.all_reduce_sum`` over its loss
         #: group), so the MoE load balance takes the global batch's means.
         self.batch_sum = None
+        #: the pipelined forward (:func:`.llama_pp.make_pp_model`); None:
+        #: this process runs every layer
+        self.pipe = None
 
     def forward(self, batch: dict[str, torch.Tensor],
                 generator: torch.Generator | None = None):
@@ -449,6 +471,8 @@ class LlamaForCausalLM(nn.Module):
         has no dropout. The logits, or with MoE in training the dict the
         module docstring names."""
         del generator
+        if self.pipe is not None:
+            return self.pipe.forward(self, batch)
         cfg = self.cfg
         ids = batch["input_ids"]
         # under context parallelism ids hold one block of each row
@@ -499,21 +523,30 @@ class LlamaForCausalLM(nn.Module):
         x = F.embedding(torch.where(inside, rel, 0), rows.to(dt)) * inside[..., None].to(dt)
         return collectives.all_reduce_forward(x, split.group)
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, x: torch.Tensor, counted: bool | None = None) -> torch.Tensor:
         """f32 logits; under a ``tensor`` split of the vocab, this rank's
-        columns as a ``DTensor`` ``Shard(2)`` of the whole ``[B, S, V]``."""
+        columns as a ``DTensor`` ``Shard(2)`` of the whole ``[B, S, V]``.
+        ``counted`` (a pipeline, whose every pipe peer repeats the head on
+        the same rows): the product through
+        :func:`~..metrics.replicated_matmul`, counted only where True."""
         dt = self.cfg.dtype
         w = self.lm_head.weight
+
+        def product(x, w):
+            if counted is None:
+                return F.linear(x.to(dt), w.to(dt)).float()
+            return replicated_matmul(x.to(dt), w.to(dt).t(), counted=counted).float()
+
         split = tensor_split(w)
         if split is None:
-            return F.linear(x.to(dt), local_value(w).to(dt)).float()
+            return product(x, local_value(w))
         if split.dim != 0:
             raise NotImplementedError(f"lm_head split on dim {split.dim}: the "
                                       f"model splits the vocab (dim 0) only")
         from torch.distributed.tensor import DTensor, Shard
 
         x = collectives.all_reduce_backward(x, split.group)
-        logits = F.linear(x.to(dt), w.to_local().to(dt)).float()
+        logits = product(x, w.to_local())
         b, s, v = logits.shape[0], logits.shape[1], w.shape[0]
         return DTensor.from_local(logits, split.mesh, [Shard(2)], run_check=False,
                                   shape=(b, s, v), stride=(s * v, v, 1))
@@ -527,7 +560,9 @@ class LlamaForCausalLM(nn.Module):
         params' device, in their dtype, each param whole and in this order;
         a sharded param keeps its shard of the draw (``sharding.assign``),
         so a sharded model's weights are bitwise one device's from the same
-        generator, at the cost of one whole param at a time."""
+        generator, at the cost of one whole param at a time. In the place of
+        a layer another pipeline stage holds (:class:`ElsewhereLayer`) a
+        scratch layer takes that layer's draws, which are discarded."""
 
         def draw(p: torch.Tensor, fill) -> None:
             if not is_sharded(p):
@@ -540,19 +575,31 @@ class LlamaForCausalLM(nn.Module):
         std = self.cfg.hidden_size ** -0.5
         draw(self.token_embed.weight,
              lambda t: t.normal_(0.0, std, generator=generator))
+        scratch = None
         for mod in self.modules():
-            if isinstance(mod, (LoRALinear, nn.Linear)):
-                std = mod.weight.shape[1] ** -0.5
-                draw(mod.weight, lambda t: t.normal_(0.0, std, generator=generator))
-            if isinstance(mod, LoRALinear) and mod.rank:
-                limit = math.sqrt(6.0 / mod.lora_a.shape[0])
-                draw(mod.lora_a, lambda t: t.uniform_(-limit, limit, generator=generator))
-                draw(mod.lora_b, lambda t: t.zero_())
-            if isinstance(mod, RMSNorm):
-                draw(mod.scale, lambda t: t.fill_(1.0))
-            if isinstance(mod, MoEMLP):
-                mod.init_weights(draw, generator)
+            if isinstance(mod, ElsewhereLayer):
+                if scratch is None:
+                    scratch = DecoderLayer(self.cfg, device=local(
+                        self.token_embed.weight).device)
+                for sub in scratch.modules():
+                    self._draw_module(sub, draw, generator)
+                continue
+            self._draw_module(mod, draw, generator)
         return self
+
+    def _draw_module(self, mod: nn.Module, draw, generator: torch.Generator) -> None:
+        """``init_weights``' draws of one module's own params."""
+        if isinstance(mod, (LoRALinear, nn.Linear)):
+            std = mod.weight.shape[1] ** -0.5
+            draw(mod.weight, lambda t: t.normal_(0.0, std, generator=generator))
+        if isinstance(mod, LoRALinear) and mod.rank:
+            limit = math.sqrt(6.0 / mod.lora_a.shape[0])
+            draw(mod.lora_a, lambda t: t.uniform_(-limit, limit, generator=generator))
+            draw(mod.lora_b, lambda t: t.zero_())
+        if isinstance(mod, RMSNorm):
+            draw(mod.scale, lambda t: t.fill_(1.0))
+        if isinstance(mod, MoEMLP):
+            mod.init_weights(draw, generator)
 
 
 def _build(cfg: LlamaConfig, device, seed: int) -> LlamaForCausalLM:
@@ -598,12 +645,12 @@ def llama_rules(cfg: LlamaConfig, *, fsdp: bool = True,
     ``tensor``; the router stays replicated. The auto-FSDP pass then shards
     the largest remaining dim of every param of at least ``fsdp_min_size``
     elements over ``fsdp`` (for a tensor- or expert-split weight, another
-    dim). The int8 base and the pipeline's stage layout raise, as the model
-    does."""
-    if pipeline:
-        raise NotImplementedError(
-            "llama_rules(pipeline=True): the pipeline (models/llama_pp.py) is "
-            "not ported yet: ROADMAP Queue 1 item 6")
+    dim). ``pipeline=True``: every param of layer i, LoRA and norms
+    included, lies on the cards of pipeline stage ``i // (L/P)`` only
+    (``ShardingRules.stage_of``; JAX's ``P("pipe", ...)`` on the stacked
+    layers), with its ``tensor`` and ``fsdp`` entries as above over that
+    stage's cards; the embedding, the head and the final norm are
+    replicated over ``pipe``. The int8 base raises, as the model does."""
     if cfg.base_quant:
         raise NotImplementedError(f"llama_rules for LlamaConfig.base_quant: "
                                   f"{_NOT_PORTED['base_quant']}")
@@ -620,4 +667,10 @@ def llama_rules(cfg: LlamaConfig, *, fsdp: bool = True,
            (r"moe/router", P())) if cfg.moe_experts else ()),
     )
     return ShardingRules(rules=rules, fsdp=fsdp, fsdp_min_size=fsdp_min_size,
-                         fsdp_exclude=(r"lora_",))
+                         fsdp_exclude=(r"lora_",),
+                         stage_pattern=LAYER_PATTERN if pipeline else None,
+                         num_layers=cfg.num_layers if pipeline else 0)
+
+
+#: a decoder layer's params' path, the layer index its group
+LAYER_PATTERN = r"(?:^|/)layers/(\d+)/"

@@ -10,8 +10,8 @@ The port of ``distributeddeeplearningspark_tpu/parallel/mesh.py``'s
 In the port an executor is a process holding one device, so a mesh spans
 the processes of a ``torch.distributed`` group, rank r at the coordinates
 of device r of the JAX mesh (row-major over ``MESH_AXES``, ``tensor``
-innermost). The ``data``, ``fsdp``, ``expert``, ``seq`` and ``tensor``
-axes are ported, alone or together: ``fsdp > 1`` shards parameters over
+innermost). Every axis is ported, alone or together (``pipe`` with
+``data``, ``fsdp`` and ``tensor`` only): ``fsdp > 1`` shards parameters over
 the gang (FSDP2, :mod:`.sharding`), the JAX Llama driver's layout
 (``mesh.data=1, mesh.fsdp=-1``); ``data × fsdp`` is HSDP; ``tensor > 1`` splits the
 layers over ``llama_rules``' ``tensor`` entries (``DTensor``), and the
@@ -22,10 +22,15 @@ the sequence (:mod:`..ops.ring_attention`, :mod:`..ops.ulysses`);
 ``expert > 1`` is expert parallelism: ``llama_rules`` splits the MoE
 expert bank's experts over it (:mod:`..models.moe`), and the ranks that
 differ only in their ``expert`` coordinate take the same rows, as
-``tensor`` peers do. Two groups then differ: the *batch* group over
+``tensor`` peers do. ``pipe > 1`` is the GPipe pipeline
+(:mod:`.pipeline`, :mod:`..models.llama_pp`): the ranks that differ only
+in their ``pipe`` coordinate hold a stage of the layers each and take the
+same rows, as in JAX, where ``pipe`` is in neither ``BATCH_AXES`` nor
+``LOSS_AXES``. Two groups then differ: the *batch* group over
 ``BATCH_AXES`` (who takes distinct rows) and the *loss* group over
 ``LOSS_AXES`` (over whom losses, metrics and gradients are summed).
-``pipe`` raises ``NotImplementedError`` naming ROADMAP Queue 1 item 6.
+``pipe`` beside ``seq`` or ``expert`` raises ``NotImplementedError``
+naming ROADMAP Queue 1 item 10: the JAX package has no tested path there.
 
 One deliberate difference from the JAX ``Session``: there, ``local[N]``
 with ``mesh.tensor=T`` asks for N·T devices (``--tensor`` "peels off
@@ -60,13 +65,17 @@ LOSS_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_SEQ)
 #: the axes that shard parameters: each distinct shard lies once in a group
 #: over them, so a norm over shards sums across it and never across ``data``
 SHARD_AXES = (AXIS_FSDP, AXIS_EXPERT, AXIS_TENSOR)
+#: the shard axes and ``pipe``: a norm over a pipeline's stages sums the
+#: squares of each stage's own layers across it
+STAGE_SHARD_AXES = SHARD_AXES + (AXIS_PIPE,)
 
 #: master URLs that ask for every local device
 WILDCARD_MASTERS = (None, "auto", "local", "local[*]")
 
-#: the axes not ported yet → their ROADMAP item
-_NOT_PORTED = {
-    AXIS_PIPE: "pipeline parallelism (parallel/pipeline.py): ROADMAP Queue 1 item 6",
+#: the axes the pipeline does not compose with yet → their ROADMAP item
+_NOT_BESIDE_PIPE = {
+    AXIS_SEQ: "the pipeline beside context parallelism: ROADMAP Queue 1 item 10",
+    AXIS_EXPERT: "the pipeline beside expert parallelism: ROADMAP Queue 1 item 10",
 }
 
 
@@ -87,11 +96,12 @@ class MeshSpec:
             n = getattr(self, axis)
             if n == 0 or n < -1:
                 raise ValueError(f"mesh {axis} axis must be >= 1 or -1, got {n}")
-        beyond = {a: getattr(self, a) for a in _NOT_PORTED if getattr(self, a) != 1}
-        if beyond:
+        beside = {a: getattr(self, a) for a in _NOT_BESIDE_PIPE if getattr(self, a) != 1}
+        if self.pipe != 1 and beside:
             raise NotImplementedError(
-                f"mesh axes {beyond}: the port shards over data, fsdp, "
-                f"expert, seq and tensor only; " + "; ".join(_NOT_PORTED[a] for a in beyond))
+                f"mesh pipe={self.pipe} beside {beside}: the port pipelines "
+                f"beside data, fsdp and tensor only; "
+                + "; ".join(_NOT_BESIDE_PIPE[a] for a in beside))
         if sum(getattr(self, a) == -1 for a in MESH_AXES) > 1:
             raise ValueError(f"at most one mesh axis may be -1, got spec {self}")
 
@@ -142,12 +152,12 @@ def group_ranks(shape: dict[str, int], axes: Sequence[str]) -> list[list[int]]:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A session's mesh: each axis's size (the JAX ``Mesh.shape``); where
-    ``fsdp``, ``expert``, ``seq`` or ``tensor`` is above 1, the
+    ``fsdp``, ``pipe``, ``expert``, ``seq`` or ``tensor`` is above 1, the
     ``torch.distributed`` ``DeviceMesh`` over the gang, one dim for each
     axis above 1 named as the JAX axis (None otherwise); the process groups
-    over ``BATCH_AXES``, ``LOSS_AXES``, ``SHARD_AXES``, ``expert``, ``seq``
-    and ``tensor`` that do not span the whole gang (:meth:`group`); and
-    this process's rank."""
+    over ``BATCH_AXES``, ``LOSS_AXES``, ``SHARD_AXES``, ``STAGE_SHARD_AXES``,
+    ``pipe``, ``expert``, ``seq`` and ``tensor`` that do not span the whole
+    gang (:meth:`group`); and this process's rank."""
 
     shape: dict[str, int]
     device_mesh: Any = None
@@ -186,6 +196,22 @@ class Mesh:
         """This rank's coordinate on ``seq``: which block of each row's
         sequence it holds."""
         return coordinates(self.shape, self.rank)[AXIS_SEQ]
+
+    @property
+    def pipe_index(self) -> int:
+        """This rank's coordinate on ``pipe``: which stage of the layers it
+        runs."""
+        return coordinates(self.shape, self.rank)[AXIS_PIPE]
+
+    def pipe_peer(self, stage: int) -> int:
+        """The rank of this rank's pipe group at ``stage``: every other
+        coordinate its own."""
+        c = coordinates(self.shape, self.rank)
+        c[AXIS_PIPE] = stage
+        r = 0
+        for axis in MESH_AXES:
+            r = r * self.shape[axis] + c[axis]
+        return r
 
 
 def num_data_shards(shape: dict[str, int]) -> int:

@@ -15,7 +15,10 @@ each row's sequence over that axis, as JAX's ``seq_sharded``. Not ported,
 and refused by :meth:`Plan.validate` naming the ROADMAP item: ``zero_axes``
 (ZeRO weight-update sharding, ``zero_plan``, item 5) and
 ``style="shard_map"`` (bodies on the explicit collectives, compiled by
-``compile_step_with_plan``, item 5). ``stage_plan`` (the pipeline) is not copied. Nor are the JAX
+``compile_step_with_plan``, item 5). A plan's rules may carry the GPipe
+pipeline's stage layout (``ShardingRules.stage_pattern``, the port's
+form of JAX's ``P("pipe", ...)`` on stacked layers), which its record
+keeps. ``stage_plan`` (the MPMD pipeline) is not copied. Nor are the JAX
 build's ``PlanTensorAxisWarning`` and ``DLS_PLAN_ALLOW_TENSOR``: they
 guard against that jax's partitioner, which miscomputes losses on
 ``tensor`` meshes; the port lowers a plan's ``tensor`` entries to
@@ -61,12 +64,15 @@ def _entries_spec(entries) -> PartitionSpec:
 
 
 def _rules_record(rules: ShardingRules) -> dict:
-    return {
+    rec = {
         "rules": [[pat, _spec_entries(spec)] for pat, spec in rules.rules],
         "fsdp": bool(rules.fsdp),
         "fsdp_min_size": int(rules.fsdp_min_size),
         "fsdp_exclude": list(rules.fsdp_exclude),
     }
+    if rules.stage_pattern is not None:  # the pipeline's stage layout
+        rec.update(stage_pattern=rules.stage_pattern, num_layers=int(rules.num_layers))
+    return rec
 
 
 def _record_rules(rec: Mapping) -> ShardingRules:
@@ -76,6 +82,8 @@ def _record_rules(rec: Mapping) -> ShardingRules:
         fsdp=bool(rec.get("fsdp", False)),
         fsdp_min_size=int(rec.get("fsdp_min_size", 2**14)),
         fsdp_exclude=tuple(rec.get("fsdp_exclude", ())),
+        stage_pattern=rec.get("stage_pattern"),
+        num_layers=int(rec.get("num_layers", 0)),
     )
 
 
@@ -141,6 +149,8 @@ class Plan:
             param_axes.update(_spec_axes(spec))
         if self.rules.fsdp:
             param_axes.add("fsdp")
+        if self.rules.stage_pattern is not None:
+            param_axes.add("pipe")
         if param_axes:
             out["params"] = tuple(sorted(param_axes))
         return out

@@ -47,6 +47,16 @@ two axes above 1 on one dim (FSDP2 would interleave them,
 ``_StridedShard``), an ``expert`` or ``tensor`` dim that does not divide, a sharded mesh with no
 ``DeviceMesh``, and a torch whose FSDP2 lacks what the lowering calls.
 
+On a pipeline (a mesh with ``pipe`` above 1, :mod:`.pipeline`) the rules
+carry the stage layout (``ShardingRules.stage_of``): a stage's layers lie
+on its own cards only, so the model holds no other stage's layers by the
+time the rules are lowered (:mod:`..models.llama_pp`), and each of its
+params is lowered as above over the sub-mesh of its own pipe coordinate
+(``data``, ``fsdp``, ``tensor``): the ``DeviceMesh`` slices of a rank
+never cross ``pipe``. :func:`bytes_per_card` reckons a stage's card, and a
+stage's params carry their stage (:func:`mark_stage`) for the norms, the
+replica checks and the checkpoints.
+
 How the port's layout differs from JAX's: JAX stacks Llama's layers
 (``scan_layers``), so each norm scale is one ``[L, H]`` leaf past
 ``fsdp_min_size`` and sharded; the port's are ``L`` leaves of ``[H]``,
@@ -69,6 +79,7 @@ from torch.distributed.tensor import DTensor
 from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
     AXIS_EXPERT,
     AXIS_FSDP,
+    AXIS_PIPE,
     AXIS_TENSOR,
     BATCH_AXES,
     SHARD_AXES,
@@ -106,12 +117,34 @@ class ShardingRules:
     alone (e.g. LoRA adapters that should stay fully replicated).
     ``mesh`` is anything with a ``shape`` mapping of axis → size: the
     session's :class:`~.mesh.Mesh`, or a JAX ``Mesh``.
+    ``stage_pattern`` / ``num_layers``: the pipeline's layout over the
+    ``pipe`` axis, JAX's ``P("pipe", ...)`` on the stacked ``[L]`` dim of
+    every layer param, which the port's per-layer params do not have: a
+    param whose path matches ``stage_pattern`` (its first group the layer
+    index i) belongs to stage ``i // (num_layers / pipe)`` and lies on that
+    stage's cards only; every other param is replicated over ``pipe``.
     """
 
     rules: tuple[tuple[str, PartitionSpec], ...] = ()
     fsdp: bool = False
     fsdp_min_size: int = 2**14
     fsdp_exclude: tuple[str, ...] = ()
+    stage_pattern: str | None = None
+    num_layers: int = 0
+
+    def stage_of(self, path: str, mesh) -> int | None:
+        """The pipeline stage that holds the param at ``path`` on ``mesh``;
+        None where it is replicated over ``pipe`` (every param at ``pipe``
+        1, and every param of rules without a stage layout)."""
+        pipe = mesh.shape.get(AXIS_PIPE, 1)
+        if pipe == 1 or self.stage_pattern is None:
+            return None
+        m = re.search(self.stage_pattern, path)
+        if m is None:
+            return None
+        if self.num_layers % pipe:
+            raise ValueError(f"num_layers {self.num_layers} must divide by pipe {pipe}")
+        return int(m.group(1)) // (self.num_layers // pipe)
 
     def spec_for(self, path: str, shape: tuple[int, ...], mesh) -> PartitionSpec:
         spec = None
@@ -247,12 +280,16 @@ MODEL_AXES = (AXIS_EXPERT, AXIS_TENSOR)
 
 
 def bytes_per_card(shapes: dict[str, tuple[int, ...]], itemsizes: dict[str, int],
-                   rules: ShardingRules, mesh) -> int:
+                   rules: ShardingRules, mesh, stage: int = 0) -> int:
     """The rule engine's reckoning of the param bytes each card holds: a
     param's bytes over the product of the sizes of the mesh axes its spec
-    names, a replicated one's whole."""
+    names, a replicated one's whole. ``shapes`` are the whole model's; on
+    a pipeline (``rules.stage_of``) a card of ``stage`` holds that stage's
+    layers only."""
     total = 0
     for name, spec in rules.tree_specs(shapes, mesh).items():
+        if rules.stage_of(path_str(name), mesh) not in (None, stage):
+            continue
         nbytes = math.prod(shapes[name]) * itemsizes[name]
         total += nbytes // math.prod(mesh.shape[a] for e in spec for a in _axes(e))
     return total
@@ -376,16 +413,35 @@ def fsdp_reduced(t: Any) -> bool:
     return AXIS_FSDP in names and t.placements[names.index(AXIS_FSDP)].is_shard()
 
 
-def norm_share(t: Any, group_size: int) -> float:
-    """A tensor's weight in a norm summed across the ``SHARD_AXES`` group of
-    ``group_size`` ranks: 0 for a whole tensor (counted once, on every
-    rank alike); for a ``DTensor``, its distinct shards over the group's
-    size, so each distinct shard's squares count once."""
+def norm_share(t: Any, group_size: int, stages: int = 1) -> float:
+    """A tensor's weight in a norm summed across the ``SHARD_AXES`` group
+    (``STAGE_SHARD_AXES`` on a pipeline of ``stages``) of ``group_size``
+    ranks: 0 for a whole tensor every rank of the group holds (counted
+    once, on every rank alike); else its distinct shards over the number of
+    ranks of the group that hold it (a stage's param: its stage's), so each
+    distinct shard's squares count once."""
+    owned = pipe_stage(t) is not None
     if not isinstance(t, DTensor):
-        return 0.0
+        return 1.0 / (group_size // stages) if owned else 0.0
     shards = math.prod(t.device_mesh.size(i) for i, p in enumerate(t.placements)
                        if p.is_shard())
-    return shards / group_size
+    return shards / (group_size // stages if owned else group_size)
+
+
+#: the attribute a pipeline stage's param carries: its stage index
+_STAGE_ATTR = "_dls_pipe_stage"
+
+
+def mark_stage(t: torch.Tensor, stage: int) -> None:
+    """Tag a param as one that only the cards of pipeline stage ``stage``
+    hold (:mod:`.pipeline`): norms, replica checks and checkpoints read it."""
+    setattr(t, _STAGE_ATTR, int(stage))
+
+
+def pipe_stage(t: Any) -> int | None:
+    """The pipeline stage a param belongs to (:func:`mark_stage`); None for
+    a param every stage holds."""
+    return getattr(t, _STAGE_ATTR, None)
 
 
 def _layer_units(module: nn.Module) -> list[nn.Module]:

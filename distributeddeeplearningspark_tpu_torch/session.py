@@ -41,15 +41,17 @@ builder's ``.master()``/``.config()`` win over it.
 ``shape`` is JAX's ``Session.mesh.shape``, and the global batch is split
 ``data × fsdp`` ways, one share for each batch coordinate (the ``seq``
 and ``tensor`` peers of a coordinate take the same rows; the ``seq``
-peers each a block of their sequence). With ``mesh.fsdp``, ``mesh.seq``
-or ``mesh.tensor`` above 1 (the JAX Llama driver's ``mesh.data=1,
-mesh.fsdp=-1, mesh.seq=C, mesh.tensor=T``), or ``mesh.expert`` above 1,
+peers each a block of their sequence; the ``pipe`` peers, the same rows).
+With ``mesh.fsdp``, ``mesh.seq`` or ``mesh.tensor`` above 1 (the JAX Llama
+driver's ``mesh.data=1, mesh.fsdp=-1, mesh.seq=C, mesh.tensor=T``), or
+``mesh.pipe`` or ``mesh.expert`` above 1,
 the session builds a
 ``torch.distributed`` ``DeviceMesh`` over its group with
 ``init_device_mesh``, one dim for each axis above 1, named as the JAX
 axis, on the session's device type, and the process groups over the
-batch axes, the loss axes (``data × fsdp × seq``), the shard axes,
-``expert``, ``seq`` and ``tensor`` (``Mesh.group``); ``Trainer(rules=...)`` shards
+batch axes, the loss axes (``data × fsdp × seq``), the shard axes (with
+and without ``pipe``), ``pipe``, ``expert``, ``seq`` and ``tensor``
+(``Mesh.group``); ``Trainer(rules=...)`` shards
 parameters over it (:mod:`.parallel.sharding`). Such a mesh without a
 group raises.
 """
@@ -67,12 +69,14 @@ import torch
 from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
     AXIS_EXPERT,
     AXIS_FSDP,
+    AXIS_PIPE,
     AXIS_SEQ,
     AXIS_TENSOR,
     BATCH_AXES,
     LOSS_AXES,
     MESH_AXES,
     SHARD_AXES,
+    STAGE_SHARD_AXES,
     Mesh,
     MeshSpec,
     devices_from_conf,
@@ -249,7 +253,8 @@ def _device_mesh(shape: dict[str, int], rank: int, device: torch.device
     """The ``DeviceMesh`` over the gang's group, one dim for each axis above
     1 in ``MESH_AXES`` order (rank r at JAX's device r), and this rank's
     process groups over ``BATCH_AXES``, ``LOSS_AXES``, ``SHARD_AXES``,
-    ``expert``, ``seq`` and ``tensor`` where they do not span the gang: a
+    ``STAGE_SHARD_AXES``, ``pipe``, ``expert``, ``seq`` and ``tensor``
+    where they do not span the gang: a
     ``DeviceMesh`` dim's group where one axis of them is above 1, else made
     here (every rank makes every group, in the same order, as
     ``new_group`` needs)."""
@@ -261,7 +266,8 @@ def _device_mesh(shape: dict[str, int], rank: int, device: torch.device
                             mesh_dim_names=names)
     world = mesh.size()
     groups, by_wide = {}, {}
-    for axes in (BATCH_AXES, LOSS_AXES, SHARD_AXES, (AXIS_EXPERT,), (AXIS_SEQ,),
+    pipe = (STAGE_SHARD_AXES, (AXIS_PIPE,)) if shape[AXIS_PIPE] > 1 else ()
+    for axes in (BATCH_AXES, LOSS_AXES, SHARD_AXES, *pipe, (AXIS_EXPERT,), (AXIS_SEQ,),
                  (AXIS_TENSOR,)):
         wide = tuple(a for a in axes if shape[a] > 1)
         size = 1
@@ -328,7 +334,8 @@ def _create_session(conf: dict[str, str]) -> Session:
     if env is not None:
         _join_group(env, device)
         sess_kw = dict(rank=env.rank, world_size=env.world_size, group=True)
-        if any(shape[a] > 1 for a in (AXIS_FSDP, AXIS_EXPERT, AXIS_SEQ, AXIS_TENSOR)):
+        if any(shape[a] > 1 for a in (AXIS_FSDP, AXIS_PIPE, AXIS_EXPERT, AXIS_SEQ,
+                                      AXIS_TENSOR)):
             sess_kw["device_mesh"], sess_kw["groups"] = _device_mesh(
                 shape, env.rank, device)
     app = conf.get("spark.app.name", "dls-torch")

@@ -23,6 +23,13 @@ Under FSDP (:mod:`..parallel.sharding`) a sharded param, and each
 optimizer tensor made from it, is a ``DTensor``: :meth:`state_dict` keeps
 them as they are (the checkpointer gathers each whole, on every rank), and
 :meth:`load_state_dict` takes whole tensors and writes each rank's shard.
+
+On a pipeline (:mod:`..parallel.pipeline`) a rank's state holds its
+stage's params and their optimizer tensors only; ``pipe`` (a
+:class:`~..parallel.pipeline.StageState`) says where they lie in the whole
+state, which a checkpoint holds in the format of ``pipe`` 1:
+:meth:`load_state_dict` takes such a whole dict and writes this stage's
+part of it.
 """
 
 from __future__ import annotations
@@ -113,6 +120,8 @@ class TrainState:
     mutable: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     embed_state: dict[str, dict[str, torch.Tensor]] = dataclasses.field(
         default_factory=dict)
+    #: this stage's place in the whole state on a pipeline; None: the whole
+    pipe: Any = None
 
     @property
     def num_params(self) -> int:
@@ -132,7 +141,10 @@ class TrainState:
 
     def load_state_dict(self, sd: dict[str, Any]) -> "TrainState":
         """Write ``sd`` (a :meth:`state_dict`, on any device) into this
-        state in place; returns self."""
+        state in place; returns self. On a pipeline ``sd`` is the whole
+        state's, and this stage's part of it is written."""
+        if self.pipe is not None:
+            sd = self.pipe.local(sd, self)
         _copy_named(self.params, sd["params"], "params")
         _copy_named(self.mutable, sd["mutable"], "buffers")
         if set(self.embed_state) != set(sd["embed_state"]):

@@ -83,6 +83,20 @@ path's all-reduce takes the loss group, and the FSDP-reduced gradients
 the ``seq`` group, on their local shards: each card keeps the rule
 engine's bytes. ``grad_norm`` stays over ``SHARD_AXES``.
 
+On a pipeline (``pipe`` above 1, :mod:`..models.llama_pp`) each rank
+holds its stage's layers and the replicated embedding, head and final
+norm, and the pipe peers compute the same loss on the same rows. A
+stage's params reduce over the loss group inside the stage, as above. The
+replicated ones: the params only stage 0 uses (the embedding,
+``model.pipe.first_stage_params``), whose gradient only stage 0 produces,
+are summed over the pipe group (the other peers add zeros); the head's
+and the final norm's are whole on every peer already and are not (that
+would count them P times). ``grad_norm`` sums each stage's params'
+squares across the pipe group too (``STAGE_SHARD_AXES``, each stage's
+param weighed by the ranks of its stage that hold it) and counts the
+replicated ones once, so it is one device's, and a NaN on any stage
+skips the guarded update on every stage.
+
 A model with a ``batch_sum`` attribute (the MoE Llama,
 :mod:`..models.llama`) gets a differentiable all-reduce over the loss
 group there in a distributed step: its load-balance loss E · Σₑ fₑ · p̄ₑ is
@@ -103,9 +117,11 @@ import torch
 
 from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
 from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
+    AXIS_PIPE,
     AXIS_SEQ,
     LOSS_AXES,
     SHARD_AXES,
+    STAGE_SHARD_AXES,
 )
 from distributeddeeplearningspark_tpu_torch.train.optim import (
     GradientTransformation,
@@ -237,12 +253,18 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
     loss_group = mesh.group(LOSS_AXES) if mesh is not None else None
     seq_split = mesh is not None and mesh.shape[AXIS_SEQ] > 1
     seq_group = mesh.group((AXIS_SEQ,)) if seq_split else None
-    shard_size = (mesh.size(SHARD_AXES) if mesh is not None
+    stages = mesh.shape[AXIS_PIPE] if mesh is not None else 1
+    shard_axes = STAGE_SHARD_AXES if stages > 1 else SHARD_AXES
+    shard_size = (mesh.size(shard_axes) if mesh is not None
                   else collectives.world_size())
     by_fsdp = [sharding.fsdp_reduced(named[n]) for n in grad_names]
-    shares = [sharding.norm_share(named[n], shard_size) for n in grad_names]
-    shard_group = (mesh.group(SHARD_AXES) if mesh is not None and any(shares)
+    shares = [sharding.norm_share(named[n], shard_size, stages) for n in grad_names]
+    shard_group = (mesh.group(shard_axes) if mesh is not None and any(shares)
                    else None)
+    # the params only a pipeline's stage 0 uses: summed over the pipe group
+    first_stage = getattr(getattr(model, "pipe", None), "first_stage_params", ())
+    pipe_summed = [i for i, n in enumerate(grad_names) if stages > 1 and n in first_stage]
+    pipe_group = mesh.group((AXIS_PIPE,)) if pipe_summed else None
 
     def shards(tensors: list, index: list[int]) -> list:
         if not any(shares):
@@ -297,6 +319,9 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
                 if seq_split and any(by_fsdp):
                     collectives.all_reduce_grads(
                         [g for g, f in zip(grads, by_fsdp) if f], seq_group)
+                if pipe_summed:
+                    collectives.all_reduce_grads([grads[i] for i in pipe_summed],
+                                                 pipe_group)
             grad_norm = global_norm(grads)
             updates, opt_state = tx.update(shards([grads[i] for i in opt_index],
                                                   opt_index), opt_state, opt_params)

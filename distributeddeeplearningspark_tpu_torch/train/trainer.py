@@ -144,6 +144,19 @@ supervisor shrinks the gang at once, and the relaunch's
 :meth:`Trainer.restore_live_handoff` resumes from the drained step with no
 walk-back. A drain that fails raises.
 
+On a mesh with ``pipe`` above 1 (JAX's ``_apply_fn``) a Llama
+(``LlamaForCausalLM``) trains through the GPipe pipeline: the constructor
+converts it (:func:`~..models.llama_pp.make_pp_model`, before the
+lowering: each rank keeps its stage's layers only, a model on the meta
+device never allocating the others), so the train step, :meth:`evaluate`
+and :meth:`predict` run the pipelined forward, with
+``pipeline_microbatches`` microbatches (default: the pipe size); the rules
+must carry the stage layout (``llama_rules(cfg, pipeline=True)``). Any
+other model raises JAX's ``NotImplementedError``. The pipe peers take the
+same rows. :meth:`load_pretrained` writes this stage's layers of a whole
+tree, checkpoints hold the whole state (:mod:`..checkpoint`), and the
+graceful drain refuses a pipeline (ROADMAP Queue 1 item 11).
+
 With the comms probes on (``DLS_COMMS_PROBE=1``,
 ``collectives.enable_collective_probes``) and telemetry on, each log lap
 takes one :func:`~..parallel.collectives.barrier_probe`: a ``collective``
@@ -191,7 +204,7 @@ from distributeddeeplearningspark_tpu_torch.parallel.sharding import (
     REPLICATED,
     ShardingRules,
 )
-from distributeddeeplearningspark_tpu_torch.parallel.mesh import AXIS_EXPERT
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import AXIS_EXPERT, AXIS_PIPE
 from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
 from distributeddeeplearningspark_tpu_torch.session import Session
 from distributeddeeplearningspark_tpu_torch.telemetry import anatomy as anatomy_lib
@@ -287,7 +300,9 @@ class Trainer:
     optimizer step. ``trainable``: the params that train (None: all); pass
     the predicate the optimizer is ``masked`` with. ``rules``/``plan``:
     the params' layout over the session's mesh (the module docstring).
-    ``context_parallel``: shard each row's sequence over ``seq``. A
+    ``context_parallel``: shard each row's sequence over ``seq``.
+    ``pipeline_microbatches``: the GPipe schedule's microbatches on a
+    ``pipe`` mesh (None: the pipe size). A
     model on the meta device needs an ``init_weights(generator)`` that
     sets every param and buffer; its weights are drawn from ``seed``."""
 
@@ -300,7 +315,8 @@ class Trainer:
                  checkpointer: Checkpointer | None = None,
                  accum_steps: int = 1,
                  trainable: Callable[[str], bool] | None = None,
-                 context_parallel: bool = False):
+                 context_parallel: bool = False,
+                 pipeline_microbatches: int | None = None):
         self.session = session or Session.get_or_default()
         self.device = self.session.device
         # a model on the meta device is materialised below, if it can draw
@@ -359,6 +375,9 @@ class Trainer:
                 "DLRM table) are not ported yet: ROADMAP Queue 1 item 5")
         self.accum_steps = accum_steps
         self.trainable = trainable
+        self.pipeline_microbatches = pipeline_microbatches
+        #: the whole model's param names on a pipeline (None: no pipeline)
+        self._whole_names = self._pipeline(model, rules)
         #: the params the rules split over tensor: name → dim (empty: none)
         self.tensor_dims = sharding.tensor_dims(model, rules, self.session.mesh)
         #: the params the rules split over expert: name → dim (empty: none)
@@ -368,12 +387,41 @@ class Trainer:
         if on_meta:
             model.to_empty(device=self.device)
             model.init_weights(torch.Generator(self.device).manual_seed(seed))
+        if self._whole_names is not None:
+            stage = self.session.mesh.pipe_index
+            for n, p in model.named_parameters():
+                if rules.stage_of(sharding.path_str(n), self.session.mesh) is not None:
+                    sharding.mark_stage(p, stage)
         self._guard_nonfinite = False  # fit(on_nonfinite="skip") rebuilds
         #: the step a graceful preemption drain ended ``fit`` at (None: not
         #: drained); a drained driver exits 0 and writes no final artefacts
         self.preempted_at: int | None = None
         self._build_train_step()
         self._eval_step = step_lib.make_eval_step(model, loss_fn)
+
+    def _pipeline(self, model: torch.nn.Module, rules: ShardingRules
+                  ) -> list[str] | None:
+        """On a ``pipe`` mesh, convert the model to its pipelined forward
+        (JAX's ``_apply_fn``); the whole model's param names, None without
+        a pipeline."""
+        mesh = self.session.mesh
+        if mesh.shape[AXIS_PIPE] <= 1:
+            return None
+        from distributeddeeplearningspark_tpu_torch.models import llama_pp
+        from distributeddeeplearningspark_tpu_torch.models.llama import LlamaForCausalLM
+
+        if not isinstance(model, LlamaForCausalLM):
+            raise NotImplementedError(
+                f"mesh has pipe={mesh.shape[AXIS_PIPE]} but "
+                f"{type(model).__name__} has no pipeline-parallel forward — "
+                f"use a pipe=1 mesh or a pipeline-capable model (Llama)")
+        if rules.stage_pattern is None:
+            raise ValueError(
+                f"mesh has pipe={mesh.shape[AXIS_PIPE]}: the rules must lay the "
+                f"layers out by stage (llama_rules(cfg, pipeline=True))")
+        whole = llama_pp.whole_param_names(model.cfg)
+        llama_pp.make_pp_model(model, mesh, self.pipeline_microbatches)
+        return whole
 
     def _build_train_step(self) -> None:
         if self.sparse_embed:
@@ -401,12 +449,22 @@ class Trainer:
         trains = (embed_lib.dense_trainable(self.sparse_embed)
                   if self.sparse_embed else self.trainable)
         names = step_lib.optimizer_params(params, self.tx, trains)
+        pipe = None
+        if self._whole_names is not None:
+            from distributeddeeplearningspark_tpu_torch.parallel.pipeline import (
+                PipeGroup,
+                StageState,
+            )
+
+            pipe = StageState(PipeGroup.of(self.session.mesh), tuple(names), tuple(
+                step_lib.optimizer_params(self._whole_names, self.tx, trains)))
         self.state = TrainState(
             step=0, params=params,
             opt_state=self.tx.init([params[n] for n in names]),
             generator=torch.Generator(self.device).manual_seed(self.seed),
             mutable=dict(self.model.named_buffers()),
-            embed_state=embed_lib.init_embed_state(self.sparse_embed, params))
+            embed_state=embed_lib.init_embed_state(self.sparse_embed, params),
+            pipe=pipe)
         logger.info("initialized %s params on %s",
                     f"{self.state.num_params:,}", self.device)
         return self.state
@@ -424,14 +482,17 @@ class Trainer:
         keep their values. With ``strict``, both names that are not params
         and params ``params`` does not cover (except those matching a
         pattern of ``allow_uncovered``, by default the LoRA adapters)
-        raise; without, each kind is logged as a warning. ``batch_stats``:
+        raise; without, each kind is logged as a warning. On a pipeline
+        ``params`` is the whole model's tree: the layers other stages hold
+        are theirs, neither extra nor written here. ``batch_stats``:
         the model's buffers (BatchNorm's running statistics) by name,
         overlaid the same way."""
         if self.state is None:
             raise RuntimeError("call init() before load_pretrained()")
         live = self.state.params
         seen = set(params) & set(live)
-        extra = set(params) - seen
+        extra = set(params) - (set(live) if self._whole_names is None
+                               else set(self._whole_names))
         uncovered = {k for k in set(live) - seen
                      if not any(re.search(pat, k) for pat in allow_uncovered)}
         if strict and (extra or uncovered):
@@ -486,6 +547,10 @@ class Trainer:
         if ckpt is None:
             raise RuntimeError("Trainer.restore_live_handoff: no checkpointer "
                                "configured — the handoff lives in its directory")
+        if self._whole_names is not None:
+            raise live_reshard.HandoffError(
+                "a live handoff into a pipeline is not ported (ROADMAP Queue 1 "
+                "item 11): walk back through the checkpoint")
         self._telemetry(ckpt)
         if self.state is None:
             self.init()
@@ -527,6 +592,11 @@ class Trainer:
         from distributeddeeplearningspark_tpu_torch import supervisor as sup_lib
         from distributeddeeplearningspark_tpu_torch.parallel import live_reshard
 
+        if self._whole_names is not None:
+            raise NotImplementedError(
+                "the graceful preemption drain of a pipeline is not ported: "
+                "the live engine does not carry stage-owned params whole "
+                "(ROADMAP Queue 1 item 11)")
         if self.checkpointer is None:
             raise RuntimeError(
                 "graceful preemption drain needs a checkpointer: its "

@@ -56,14 +56,18 @@ def _leaves(tree: Any) -> list:
 def _shard_key(leaf: Any) -> float:
     """Which shard of ``leaf`` this rank holds, as one number: its
     coordinates on the mesh dims the leaf is sharded over, mixed-radix (0
-    for a whole leaf). Equal keys, equal shards by design."""
+    for a whole leaf), and for a pipeline stage's param its stage
+    (``sharding.pipe_stage``: the stages' params at one place of the tree
+    are different layers). Equal keys, equal shards by design."""
+    stage = sharding.pipe_stage(leaf)
+    key = 0 if stage is None else (stage + 1) * 2**24
     if not sharding.is_sharded(leaf):
-        return 0.0
-    mesh, coord, key = leaf.device_mesh, leaf.device_mesh.get_coordinate(), 0
+        return float(key)
+    mesh, coord, shard = leaf.device_mesh, leaf.device_mesh.get_coordinate(), 0
     for i, p in enumerate(leaf.placements):
         if p.is_shard():
-            key = key * mesh.size(i) + coord[i]
-    return float(key)
+            shard = shard * mesh.size(i) + coord[i]
+    return float(key + shard)
 
 
 def _device_fingerprint(tree: Any) -> torch.Tensor:

@@ -281,16 +281,21 @@ def test_launcher_counts_ranks(argv, want):
 
 
 def test_launcher_refuses_what_it_cannot_start(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # the pipeline beside seq still refuses, naming its ROADMAP item
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         cli.num_processes({"spark.master": "local[2]", "mesh.seq": "2", "mesh.pipe": "2"})
     # data × fsdp (HSDP) and data × seq are ported: local[2] at fsdp=2 or at
     # seq=2 is four processes,
     assert cli.num_processes({"spark.master": "local[2]", "mesh.fsdp": "2"}) == 4
     assert cli.num_processes({"spark.master": "local[2]", "mesh.seq": "2"}) == 4
-    # and so is expert: local[2] at expert=2 is four processes; pipe beside
-    # it still refuses
+    # and so are expert and pipe: local[2] at expert=2 or at pipe=2 is four
+    # processes (pipe counts like the other axes); pipe beside expert still
+    # refuses
     assert cli.num_processes({"spark.master": "local[2]", "mesh.expert": "2"}) == 4
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    assert cli.num_processes({"spark.master": "local[2]", "mesh.pipe": "2"}) == 4
+    assert cli.num_processes({"spark.master": "local[1]", "mesh.pipe": "2",
+                              "mesh.tensor": "2"}) == 4
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         cli.num_processes({"spark.master": "local[2]", "mesh.expert": "2",
                            "mesh.pipe": "2"})
     with pytest.raises(SystemExit, match="KEY=VALUE"):

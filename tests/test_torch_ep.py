@@ -301,10 +301,18 @@ def test_plan_validates_and_names_the_expert_axis():
 
 
 def test_pipe_axis_still_refuses():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    """The pipe axis beside expert names ROADMAP Queue 1 item 10, and the
+    pipeline refuses the MoE model in JAX's words (its stage forward would
+    drop the load balance); ``llama_rules(pipeline=True)`` lays the MoE
+    layers out by stage all the same."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tmesh.MeshSpec(data=1, expert=2, pipe=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tllama.llama_rules(_tcfg(), pipeline=True)
+    from distributeddeeplearningspark_tpu_torch.models import llama_pp
+
+    with pytest.raises(NotImplementedError, match="MoE is not wired"):
+        llama_pp.check_pp_config(_tcfg(), 2)
+    rules = tllama.llama_rules(_tcfg(), pipeline=True)
+    assert rules.num_layers == _tcfg().num_layers and rules.stage_pattern
 
 
 if __name__ == "__main__":

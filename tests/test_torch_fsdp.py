@@ -509,19 +509,20 @@ def test_fsdp_mesh_parses_as_jax(master, conf, want):
 
 
 def test_what_the_mesh_cannot_shard_raises():
-    """The mesh refuses the pipe axis (ROADMAP Queue 1 item 6; data × fsdp,
-    expert, seq and tensor are ported), also beside seq and beside expert,
-    and the lowering what it cannot place, before it needs a group: an axis
-    other than fsdp, expert and tensor, two axes on one dim, a tensor or an
-    expert dim that does not divide. Heads that do not divide by tensor
-    raise in the gang (``test_torch_tp.py``)."""
+    """The mesh refuses the pipe axis beside seq and beside expert (ROADMAP
+    Queue 1 item 10; every axis is ported, pipe beside data, fsdp and
+    tensor), and the lowering what it cannot place, before it needs a
+    group: an axis other than fsdp, expert and tensor, two axes on one dim,
+    a tensor or an expert dim that does not divide. Heads that do not
+    divide by tensor raise in the gang (``test_torch_tp.py``)."""
+    assert tmesh.MeshSpec(data=2, fsdp=2, tensor=2, pipe=2).axis_sizes(16)[2] == 2
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        tmesh.MeshSpec(data=2, fsdp=2, tensor=2, pipe=2, expert=2)
     for extra in ({}, {"expert": 2}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tmesh.MeshSpec(data=2, fsdp=2, tensor=2, pipe=2, **extra)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             tmesh.MeshSpec(data=2, seq=2, pipe=2, **extra)
     assert tmesh.MeshSpec(data=2, fsdp=2, expert=2).axis_sizes(8)[3] == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tmesh.spec_from_conf("local[2]", {"mesh.seq": "2", "mesh.pipe": "2"})
     assert tmesh.MeshSpec(data=-1, fsdp=2).axis_sizes(8)[:2] == (4, 2)
     with pytest.raises(ValueError, match="at most one"):
@@ -794,17 +795,28 @@ def test_driver_shards_over_every_rank_by_default(tmp_path):
     assert np.isfinite(rec["train"]["loss"])
 
 
-def test_driver_refuses_tensor_parallelism(capsys):
-    """The driver takes ``--tensor``, ``--seq-parallel`` and ``--expert``
-    (tensor, context and expert parallelism are ported) and still refuses
-    the pipeline beside them, naming ROADMAP Queue 1 item 6."""
-    for flags in (["--pipeline", "2"],
-                  ["--moe-experts", "4", "--expert", "2", "--microbatches", "2"],
-                  ["--seq-parallel", "2", "--pipeline", "2"]):
-        with pytest.raises(SystemExit) as e:
-            tdriver.parse_args(["--variant", "tiny", "--tensor", "2", *flags])
-        assert e.value.code == 2
-        assert "ROADMAP Queue 1 item 6" in capsys.readouterr().err
+def test_driver_refuses_tensor_parallelism(capsys, monkeypatch):
+    """The driver takes ``--tensor``, ``--seq-parallel``, ``--expert``,
+    ``--pipeline`` and ``--microbatches`` (tensor, context, expert and
+    pipeline parallelism are ported); it still refuses the pipeline beside
+    the MoE (JAX's refusal, at parse time) and its session the pipeline
+    beside context parallelism, naming ROADMAP Queue 1 item 10."""
+    args = tdriver.parse_args(["--variant", "tiny", "--tensor", "2", "--pipeline", "2",
+                               "--microbatches", "4"])
+    assert (args.tensor, args.pipeline, args.microbatches) == (2, 2, 4)
+    args = tdriver.parse_args(["--variant", "tiny", "--moe-experts", "4", "--expert",
+                               "2", "--microbatches", "2"])
+    assert (args.pipeline, args.microbatches) == (1, 2)
+    with pytest.raises(SystemExit) as e:
+        tdriver.parse_args(["--variant", "tiny", "--tensor", "2", "--moe-experts", "4",
+                            "--pipeline", "2"])
+    assert e.value.code == 2
+    assert "--moe-experts is not supported with --pipeline" in capsys.readouterr().err
+    args = tdriver.parse_args(["--variant", "tiny", "--tensor", "2", "--seq-parallel",
+                               "2", "--pipeline", "2", "--master", "local[8]"])
+    monkeypatch.setenv("DLS_CONF_spark__dls__device", "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        tdriver.make_session(args)
     args = tdriver.parse_args(["--variant", "tiny", "--tensor", "2"])
     assert args.fsdp == -1 and args.tensor == 2
     args = tdriver.parse_args(["--variant", "tiny", "--tensor", "2", "--moe-experts",

@@ -212,17 +212,27 @@ def test_spec_from_conf_parses_as_jax(master, conf):
     assert tmesh.spec_from_conf(master, conf) == MeshSpec(data=want.data)
 
 
-@pytest.mark.parametrize("conf", [{"mesh.seq": "-1", "mesh.pipe": "2"},
-                                  {"mesh.tensor": "2", "mesh.pipe": "-1"},
-                                  {"mesh.seq": "4", "mesh.expert": "2", "mesh.pipe": "2"},
-                                  {"mesh.pipe": "2"},
-                                  {"mesh.expert": "-1", "mesh.pipe": "2"}])
-def test_axes_beyond_data_are_refused(conf):
-    """Each axis the port cannot shard over yet names its ROADMAP item: the
-    pipeline axis item 6, also beside a tensor, a seq or an expert axis
-    (data, fsdp, expert, seq and tensor are ported)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tmesh.spec_from_conf("local[2]", conf)
+@pytest.mark.parametrize("conf,refused", [
+    ({"mesh.seq": "-1", "mesh.pipe": "2"}, True),
+    ({"mesh.tensor": "2", "mesh.pipe": "-1"}, False),
+    ({"mesh.seq": "4", "mesh.expert": "2", "mesh.pipe": "2"}, True),
+    ({"mesh.pipe": "2"}, False),
+    ({"mesh.expert": "-1", "mesh.pipe": "2"}, True),
+    ({"mesh.fsdp": "2", "mesh.pipe": "2"}, False),
+    ({"mesh.seq": "2", "mesh.pipe": "-1"}, True),
+])
+def test_axes_beyond_data_are_refused(conf, refused):
+    """Every axis is ported, the pipeline beside data, fsdp and tensor
+    only: a pipe axis is parsed as the JAX Session parses it, and beside a
+    seq or an expert axis (``-1`` included) it names ROADMAP Queue 1 item
+    10."""
+    if refused:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            tmesh.spec_from_conf("local[2]", conf)
+        return
+    want = _parse_master("local[2]", conf)[1]
+    got = tmesh.spec_from_conf("local[2]", conf)
+    assert got.sizes == tuple(getattr(want, a) for a in jmesh.MESH_AXES)
 
 
 def test_unrecognized_master_is_refused():

@@ -503,21 +503,38 @@ def test_driver_trains_through_the_cli_on_the_cpu(tmp_path):
                                      "flash_bwd_dkv": 0}
 
 
-@pytest.mark.parametrize("flag", [
-    ["--weights", "w"], ["--tokenizer", "t"], ["--seq-parallel", "2", "--pipeline", "2"],
-    ["--microbatches", "2"], ["--moe-experts", "4", "--microbatches", "2"],
-    ["--moe-experts", "4", "--moe-group", "8", "--fused-head-loss"],
-    ["--moe-experts", "4", "--expert", "2", "--sample-tokens", "8"],
-    ["--base-quant", "int8"], ["--fused-head-loss"], ["--sample-tokens", "8"],
-    ["--seq-parallel", "2", "--moe-experts", "4", "--expert", "2", "--weights", "w"],
-    ["--tensor", "2", "--pipeline", "2"],
-    ["--seq-parallel", "2", "--cp-impl", "ulysses", "--microbatches", "2"],
-    ["--pipeline", "2"]])
-def test_driver_refuses_what_is_not_ported(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        tdriver.parse_args(["--variant", "tiny", *flag])
-    assert e.value.code == 2
-    assert "ROADMAP Queue 1 item" in capsys.readouterr().err
+@pytest.mark.parametrize("flag,refused", [
+    (["--weights", "w"], "parse"), (["--tokenizer", "t"], "parse"),
+    (["--seq-parallel", "2", "--pipeline", "2"], "session"),
+    (["--microbatches", "2"], None), (["--moe-experts", "4", "--microbatches", "2"], None),
+    (["--moe-experts", "4", "--moe-group", "8", "--fused-head-loss"], "parse"),
+    (["--moe-experts", "4", "--expert", "2", "--sample-tokens", "8"], "parse"),
+    (["--base-quant", "int8"], "parse"), (["--fused-head-loss"], "parse"),
+    (["--sample-tokens", "8"], "parse"),
+    (["--seq-parallel", "2", "--moe-experts", "4", "--expert", "2", "--weights", "w"],
+     "parse"),
+    (["--tensor", "2", "--pipeline", "2"], None),
+    (["--seq-parallel", "2", "--cp-impl", "ulysses", "--microbatches", "2"], None),
+    (["--pipeline", "2"], None),
+    (["--seq-parallel", "2", "--cp-impl", "ulysses", "--pipeline", "2"], "session")])
+def test_driver_refuses_what_is_not_ported(flag, refused, capsys, monkeypatch):
+    """What the port has not ported fails at parse time naming its ROADMAP
+    item; the pipeline's flags are ported and parse, and its session
+    refuses the pipeline beside context parallelism naming Queue 1 item
+    10."""
+    if refused == "parse":
+        with pytest.raises(SystemExit) as e:
+            tdriver.parse_args(["--variant", "tiny", *flag])
+        assert e.value.code == 2
+        assert "ROADMAP Queue 1 item" in capsys.readouterr().err
+        return
+    args = tdriver.parse_args(["--variant", "tiny", *flag])
+    assert args.pipeline == (2 if "--pipeline" in flag else 1)
+    assert args.microbatches == (2 if "--microbatches" in flag else 0)
+    if refused == "session":
+        monkeypatch.setenv("DLS_CONF_spark__dls__device", "cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+            tdriver.make_session(args)
 
 
 @pytest.mark.parametrize("flags,words", [
