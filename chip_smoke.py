@@ -268,8 +268,25 @@ pipe=4), the measured FLOPs one card's, and four planted faults that must
 each break a limit; each card's step ms, tokens/s, host ms issuing a step,
 and busy share in a profiled window beside the bubble (P − 1)/(M + P − 1).
 ``--gang llama-pp-steps`` runs its layouts and one card only.
+Then config 5 as an MPMD pipeline (``--gang llama-mpmd``, four cards: one
+process a stage, one card a stage, activations and gradients over the
+authenticated socket transport, ``PipelineSupervisor``): (a) the 7B full
+fine-tune (every param trainable, AdamW, b = 8, S = 1,024, M = 4, 6
+steps, GPipe-exact) through the supervisor and the built-in stage worker
+against the port's GPipe ``Trainer`` at pipe=4 on the same weights and
+batches; (b) the same in 1F1B against (a); (c) the 7B widths at 4 layers
+under SGD, a thread a stage in this process, against one card's
+``Trainer`` (losses and each param's change) and a repeat (bitwise); three
+planted faults at (c)'s size that must each break a limit; (d) the kill
+drill at (c)'s size (``die_host@5`` on stage 1: only it restarts), then
+the port's ``examples/train_llama_mpmd.py`` at its defaults. Held beside:
+K1/K2/K3 64/32/32 a step a stage and 67,108,864 B a step each way on each
+link in (a) and (b), peak memory below the card's; printed: each stage's
+ms a step, tokens/s a card, the transport's ms a microbatch (device →
+host, send, host → device), the measured bubble against 3/7 and the
+drill's seconds from the kill to the next step.
 ``--gang dlrm`` (or ``resnet``, ``llama``, ``llama-cp``, ``llama-drain``,
-``llama-moe``, ``llama-pp``) runs that part's comparisons only (names
+``llama-moe``, ``llama-pp``, ``llama-mpmd``) runs that part's comparisons only (names
 combine), ``--gang recovery`` the shrink, the drain and the desync only.
 ``python3 chip_smoke.py --recovery`` builds the kernels and runs phases 11
 and 14 only (one card); ``--observe`` builds them and runs phases 5 and 6b
@@ -5688,24 +5705,540 @@ def input_ab_main(torch) -> int:
     return 0
 
 
+# -- chip_smoke.py --gang llama-mpmd: config 5 as an MPMD pipeline over four cards --------
+
+#: the MPMD pipeline's stages (one card each) and microbatches
+MPMD_STAGES, MPMD_MICRO = 4, 4
+#: Llama-2 7B's widths (config 5) as DLS_PIPE_SPEC's ``cfg``: bf16 compute
+#: and f32 params, LlamaConfig's defaults (the spec's own default is the
+#: f32 tiny model of the CPU drills)
+MPMD_7B = {"vocab_size": 32000, "hidden_size": 4096, "num_layers": LLAMA_LAYERS,
+           "num_heads": LLAMA_HEADS, "num_kv_heads": LLAMA_KV_HEADS,
+           "intermediate_size": 11008, "max_position": 4096, "dtype": "bfloat16"}
+#: the 7B full fine-tune's AdamW lr: AdamW steps every param ~lr from its
+#: first step; LLAMA_GANG_FULL_LR (1e-4) held at 2 layers, 32 layers take
+#: a tenth of it so that the losses stay near their start
+MPMD_LR = 1e-5
+#: (c): the 7B widths cut to one layer a stage (1.07B params), trained with
+#: plain SGD (no momentum): a param's change is then lr × its gradient, so
+#: two runs' changes compare as their gradients do (AdamW's first steps move
+#: every param ±lr by the gradient's sign alone, and a sign flip in a near-
+#: zero gradient moves it 2·lr)
+MPMD_SMALL_LAYERS, MPMD_SGD_LR = 4, 1e-2
+#: (c): each param's change over the run against one card's, |Δ_mpmd −
+#: Δ_one| / |Δ_one| per tensor (GANG_PARAM_RTOL's criterion): bf16
+#: activations of 2-row microbatches against the whole batch of 8, worst in
+#: the norm scales, whose gradients are sums that cancel (the planted
+#: ``embed-backward-skipped`` reads 1.0 on the embedding)
+MPMD_PARAM_RTOL = 0.1
+#: (b): the 1F1B losses against (a)'s (per-microbatch losses and arrival-
+#: order accumulation against the full batch's in GPipe order): 4.0e-5
+#: measured at 7B, so well under GANG_LOSS_RTOL; its params are held in
+#: (c)'s 1F1B run, under SGD against one card's
+MPMD_1F1B_RTOL = 2e-4
+#: the card's memory, and a stage's reckoned bytes: f32 params, gradients
+#: and Adam's two moments, 16 B a param
+CARD_BYTES, MPMD_BYTES_PER_PARAM = 80e9, 16
+#: faults planted into (c)'s in-process run → (the limit it must break,
+#: what it is): ``bitwise``, the params of a repeat of the clean run (which
+#: a sound repeat meets); ``losses``, one card's at GANG_LOSS_RTOL;
+#: ``params``, each param's change one card's at MPMD_PARAM_RTOL
+MPMD_FAULTS = {
+    "grad-forward-order": ("bitwise", "the last stage sending its GRAD frames in "
+                                      "forward microbatch order: the gradients "
+                                      "accumulate in another order than GPipe's"),
+    "mask-weight-per-microbatch": ("losses", "the last stage dividing the full "
+                                             "batch's loss by one microbatch's mask "
+                                             "weight (losses M times one card's)"),
+    "embed-backward-skipped": ("params", "stage 0 skipping the embedding's backward "
+                                         "(the embedding never moves)"),
+}
+
+
+def _mpmd_spec(layers: int, mode: str = "exact", **kw) -> dict:
+    """DLS_PIPE_SPEC of a config-5 MPMD run: ``layers`` of the 7B widths,
+    b = 8, S = 1,024, M = 4, GANG_STEPS steps, seed 0."""
+    return {"cfg": {**MPMD_7B, "num_layers": layers}, "steps": GANG_STEPS,
+            "batch_size": LLAMA_BATCH, "seq": LLAMA_SEQ, "microbatches": MPMD_MICRO,
+            "mode": mode, "seed": 0,
+            "loss_mode": "full_batch" if mode == "exact" else "per_microbatch",
+            "optimizer": {"name": "adamw", "lr": MPMD_LR}, **kw}
+
+
+def _mpmd_reckoning(spec: dict, stage: int) -> dict:
+    """What stage ``stage`` does each step: K1/K2/K3 launches (K1 in each
+    of its layers' forward and remat recompute for each microbatch), the
+    bf16 activation bytes it sends down and the gradient bytes it sends
+    up, its params and the bytes of its f32 training state."""
+    cfg = spec["cfg"]
+    per = cfg["num_layers"] // MPMD_STAGES * MPMD_MICRO
+    h, v, f = cfg["hidden_size"], cfg["vocab_size"], cfg["intermediate_size"]
+    layer = 4 * h * h + 3 * h * f + 2 * h
+    params = (cfg["num_layers"] // MPMD_STAGES * layer + (v * h if stage == 0 else 0)
+              + (v * h + h if stage == MPMD_STAGES - 1 else 0))
+    step_bytes = LLAMA_BATCH * LLAMA_SEQ * h * 2  # M microbatches of b/M rows
+    return dict(launches={"flash_fwd": 2 * per, "flash_bwd_dq": per, "flash_bwd_dkv": per},
+                act_bytes=step_bytes if stage < MPMD_STAGES - 1 else 0,
+                grad_bytes=step_bytes if stage > 0 else 0,
+                params=params, state_bytes=params * MPMD_BYTES_PER_PARAM)
+
+
+def mpmd_ref_rank(argv: list[str]) -> int:
+    """One rank of an MPMD gang's reference run (``chip_smoke.py
+    --mpmd-ref-rank OUT SPEC PIPE``, run by the port's cli): the port's
+    ``Trainer`` on the spec's model (its init from the spec's seed), its
+    optimizer and its batches (``synthetic_batch_fn``, in one partition: the
+    same global batches), every param trainable; at PIPE > 1 the GPipe
+    pipeline over ``pipe`` with the spec's microbatches. Each rank writes
+    ``OUT/rank<r>.json`` (its stage, K1/K2/K3 launches, peak memory, its
+    final params' digests); on one card also ``OUT/params.pt``, the final
+    params."""
+    import torch
+
+    from distributeddeeplearningspark_tpu_torch import Session
+    from distributeddeeplearningspark_tpu_torch.models import llama
+    from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
+    from distributeddeeplearningspark_tpu_torch.train import losses
+    from distributeddeeplearningspark_tpu_torch.train import pipeline_trainer as pt
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    out, spec, pipe = Path(argv[0]), json.loads(argv[1]), int(argv[2])
+    builder = Session.builder.appName(f"mpmd-ref-pipe{pipe}").config("mesh.data", 1)
+    if pipe > 1:
+        builder = builder.config("mesh.pipe", pipe)
+    spark = builder.getOrCreate()
+    cfg = pt._tiny_cfg(spec)
+    batch_fn = pt.synthetic_batch_fn(spec)
+    rows = [{k: v[i] for k, v in batch_fn(s).items()}
+            for s in range(spec["steps"]) for i in range(spec["batch_size"])]
+    trainer = Trainer(spark, llama.LlamaForCausalLM(cfg, device="meta"), losses.causal_lm,
+                      pt._optimizer(spec), rules=llama.llama_rules(cfg, pipeline=pipe > 1),
+                      pipeline_microbatches=spec["microbatches"] if pipe > 1 else None,
+                      seed=spec["seed"])
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit(PartitionedDataset.parallelize(rows, 1), batch_size=spec["batch_size"],
+                steps=spec["steps"], log_every=1)
+    rec = dict(rank=spark.rank, stage=spark.mesh.pipe_index, mesh=spark.mesh.shape,
+               flash_launches={k.__name__: k.launches for k in kernels},
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               param_digests=pt.param_digests(dict(trainer.model.named_parameters())))
+    if pipe == 1:
+        torch.save({n: p.detach().cpu() for n, p in trainer.model.named_parameters()},
+                   out / "params.pt")
+    (out / f"rank{spark.rank}.json").write_text(json.dumps(rec))
+    spark.stop()
+    return 0
+
+
+def _mpmd_ref_run(wd: Path, spec: dict, pipe: int) -> dict:
+    """A :func:`mpmd_ref_rank` launch at ``local[pipe]``: rank 0's logged
+    losses and step ms (the laps after the first), every rank's record."""
+    import shutil
+
+    shutil.rmtree(wd, ignore_errors=True)
+    wd.mkdir(parents=True)
+    _, timing = _launch(wd, pipe, Path(__file__).resolve(),
+                        ["--mpmd-ref-rank", str(wd), json.dumps(spec), str(pipe)],
+                        timeout=900)
+    steps = [r for r in _events(wd, "p0") if r["kind"] == "step_metrics"]
+    laps = [r["lap_s"] * 1e3 / r["steps"] for r in steps]
+    return dict(losses=[r["metrics"]["loss"] for r in steps],
+                step_ms=float(np.mean(laps[1:])) if len(laps) > 1 else None,
+                cards=[json.loads((wd / f"rank{r}.json").read_text()) for r in range(pipe)],
+                launch=timing)
+
+
+def _mpmd_supervised(wd: Path, spec: dict, env: dict | None = None) -> dict:
+    """An MPMD run through ``PipelineSupervisor`` and the built-in stage
+    worker, stage k on card k (``CUDA_VISIBLE_DEVICES``), each stage's
+    output in ``wd/stage-<k>-<attempt>.log``: rank 0's DONE record, each
+    stage's summaries by attempt, the restarts, the pipeline block of the
+    port's ``status.report``, the telemetry and the wall seconds."""
+    import shlex
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch import status, telemetry
+    from distributeddeeplearningspark_tpu_torch.examples.train_llama_mpmd import _card_envs
+    from distributeddeeplearningspark_tpu_torch.supervisor import (
+        PipelineSupervisor,
+        StagePlan,
+    )
+
+    shutil.rmtree(wd, ignore_errors=True)
+    wd.mkdir(parents=True)
+    worker = shlex.join([sys.executable, "-m", f"{PKG}.train.pipeline_trainer"])
+    argv = ["bash", "-c", f"exec {worker} > {shlex.quote(str(wd))}"
+            f"/stage-$DLS_STAGE_ID-$DLS_RESTART.log 2>&1"]
+    sup = PipelineSupervisor(
+        [StagePlan(argv=argv, env=e) for e in _card_envs(MPMD_STAGES)],
+        env={"DLS_PIPE_SPEC": json.dumps(spec), **(env or {})}, telemetry_dir=str(wd),
+        max_restarts=2, restart_backoff_s=0.1, wall_timeout_s=900, hang_timeout_s=300)
+    t0 = time.time()
+    res = sup.run()
+    wall_s = time.time() - t0
+    logs = {p.name: p.read_text(errors="replace")[-1500:] for p in sorted(wd.glob("stage-*.log"))}
+    check(res.ok, f"mpmd run {wd.name}: attempts "
+          f"{ {k: [(a.returncodes, a.classification) for a in v] for k, v in res.attempts.items()} }"
+          f", logs {logs}")
+    done = json.loads((wd / "DONE").read_text())
+    summaries = {k: [json.loads(p.read_text())
+                     for p in sorted((wd / f"stage{k}").glob("summary-*.json"))]
+                 for k in range(MPMD_STAGES)}
+    return dict(done=done, summaries=summaries, wall_s=wall_s,
+                restarts={k: res.restarts_of(k) for k in range(MPMD_STAGES)},
+                attempts={k: [a.classification for a in v] for k, v in res.attempts.items()},
+                pipeline=status.report(str(wd), traces=True)["pipeline"],
+                events=telemetry.read_events(str(wd)))
+
+
+def _mpmd_stage_table(run: dict, spec: dict) -> list[dict]:
+    """Each stage's last summary beside its reckoning: step ms (the laps
+    after the first), tokens/s a card, the transport's ms a microbatch
+    (device → host, ``sendall``, host → device), launches, bytes sent and
+    peak memory."""
+    rows = []
+    for k in range(MPMD_STAGES):
+        s = run["summaries"][k][-1]
+        st = s["stats"]
+        frames = sum(st["sent"][kind][0] for kind in ("act", "grad"))
+        sendall = sum(v[2] for side in st.get("links", {}).values()
+                      for kind, v in side.items() if kind in ("act", "grad"))
+        laps = st["lap_s"]
+        step_ms = float(np.mean(laps[1:])) * 1e3 if len(laps) > 1 else None
+        rows.append(dict(
+            stage=k, attempt=s["attempt"], params=s["params"], step_ms=step_ms,
+            tokens_per_sec_per_card=(LLAMA_BATCH * LLAMA_SEQ / MPMD_STAGES
+                                     / (step_ms / 1e3)) if step_ms else None,
+            d2h_ms_per_mb=st["d2h_s"] * 1e3 / frames if frames else None,
+            send_ms_per_mb=sendall * 1e3 / frames if frames else None,
+            h2d_ms_per_mb=st["h2d_s"] * 1e3 / st["transfers"] if st["transfers"] else None,
+            flash_launches=s["flash_launches"], sent=st["sent"], steps=len(laps),
+            max_memory_allocated=s.get("max_memory_allocated"),
+            reckoned=_mpmd_reckoning(spec, k)))
+    return rows
+
+
+def _mpmd_digests(run: dict) -> dict[int, dict[str, str]]:
+    """Each stage's final params' digests, from its last summary."""
+    return {k: run["summaries"][k][-1]["param_digests"] for k in range(MPMD_STAGES)}
+
+
+def _mpmd_checks(name: str, run: dict, spec: dict) -> list[dict]:
+    """Each stage of a clean MPMD run: GANG_STEPS steps, K1/K2/K3 as
+    reckoned a step, the activation and gradient bytes it sent as reckoned,
+    its params the reckoning's and its peak memory below the card's."""
+    table = _mpmd_stage_table(run, spec)
+    check(run["done"]["step"] == GANG_STEPS and len(run["done"]["losses"]) == GANG_STEPS
+          and all(np.isfinite(run["done"]["losses"])),
+          f"mpmd {name}: DONE {run['done']}")
+    for row in table:
+        want = row["reckoned"]
+        k = row["stage"]
+        check(row["steps"] == GANG_STEPS and row["attempt"] == 0,
+              f"mpmd {name} stage {k}: {row['steps']} steps at attempt {row['attempt']}")
+        check(row["flash_launches"] == {n: c * GANG_STEPS
+                                        for n, c in want["launches"].items()},
+              f"mpmd {name} stage {k}: launches {row['flash_launches']}, want "
+              f"{want['launches']} a step")
+        check(row["sent"]["act"][1] == want["act_bytes"] * GANG_STEPS
+              and row["sent"]["grad"][1] == want["grad_bytes"] * GANG_STEPS,
+              f"mpmd {name} stage {k}: sent {row['sent']}, reckoned {want} a step")
+        check(row["params"] == want["params"],
+              f"mpmd {name} stage {k}: {row['params']} params, reckoned {want['params']}")
+        check(row["max_memory_allocated"] < CARD_BYTES,
+              f"mpmd {name} stage {k}: peak {row['max_memory_allocated']} B")
+    return table
+
+
+def _mpmd_threads(torch, spec: dict, fault: str = "none") -> dict:
+    """An MPMD run in this process, one thread a stage, stage k on
+    ``cuda:k``, over the socket transport, ``fault`` planted: stage 0's
+    losses, every stage's final params (on the host) and the K1/K2/K3
+    launches of all stages together."""
+    import socket as socket_lib
+
+    from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearningspark_tpu_torch.parallel import mpmd
+    from distributeddeeplearningspark_tpu_torch.train import pipeline_trainer as pt
+
+    check(fault == "none" or fault in MPMD_FAULTS, f"no fault {fault!r}")
+    saved = (pt.backward_order, pt.loss_denominator, pt.LlamaStageProgram.embed_backward)
+    if fault == "grad-forward-order":
+        pt.backward_order = lambda m: list(range(m))
+    elif fault == "mask-weight-per-microbatch":
+        pt.loss_denominator = lambda meta: max(float(meta["weight"]) / meta["m"], 1.0)
+    elif fault == "embed-backward-skipped":
+        def skipped(self, state, ids_dev, d_x_full):
+            self._embed_out = None
+        pt.LlamaStageProgram.embed_backward = skipped
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for k in kernels:
+        k.launches = 0
+    ports = []
+    for _ in range(MPMD_STAGES - 1):
+        with socket_lib.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    key = os.urandom(16)
+    cfg = pt._tiny_cfg(spec)
+    results: dict = {}
+    errors: dict = {}
+
+    def run(k: int) -> None:
+        try:
+            prog = pt.LlamaStageProgram(cfg, k, MPMD_STAGES, pt._optimizer(spec),
+                                        device=f"cuda:{k % torch.cuda.device_count()}",
+                                        mode=spec["mode"],
+                                        loss_mode=spec["loss_mode"])
+            tr = mpmd.PipelineTransport(k, MPMD_STAGES, ports, key, pinned=True,
+                                        connect_timeout=300)
+            runner = pt.PipelineStageRunner(
+                prog, tr, pt.StageRunConfig(steps=spec["steps"],
+                                            batch_size=spec["batch_size"],
+                                            microbatches=spec["microbatches"],
+                                            seed=spec["seed"]),
+                batch_fn=pt.synthetic_batch_fn(spec) if k == 0 else None)
+            out = runner.run()
+            results[k] = dict(losses=out["losses"], params={
+                n: p.detach().cpu() for n, p in out["state"].params.items()})
+        except BaseException as e:  # noqa: BLE001 — reported by the check below
+            errors[k] = f"{type(e).__name__}: {e}"
+
+    try:
+        threads = [threading.Thread(target=run, args=(k,), name=f"mpmd-stage{k}")
+                   for k in range(MPMD_STAGES)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+    finally:
+        pt.backward_order, pt.loss_denominator, pt.LlamaStageProgram.embed_backward = saved
+    check(not errors and len(results) == MPMD_STAGES,
+          f"mpmd in-process run ({fault}): {errors}")
+    torch.cuda.empty_cache()
+    params = {n: p for k in range(MPMD_STAGES) for n, p in results[k]["params"].items()}
+    return dict(losses=results[0]["losses"], params=params,
+                digests={k: pt.param_digests(results[k]["params"])
+                         for k in range(MPMD_STAGES)},
+                launches={k.__name__: k.launches for k in kernels})
+
+
+def _change_gap(torch, got: dict, want: dict, init: dict) -> dict:
+    """Each param's change from ``init`` against ``want``'s, |Δ_got −
+    Δ_want| / |Δ_want| per tensor: the worst and where."""
+    check(sorted(got) == sorted(want), f"{sorted(got)} against {sorted(want)}")
+    gaps = {}
+    for n, w in want.items():
+        w, g, i = (t.to("cuda:0", torch.float64) for t in (w, got[n], init[n]))
+        ch = float((w - i).norm())
+        gaps[n] = float((g - w).norm()) / ch if ch else float("inf")
+    worst = max(gaps, key=gaps.get)
+    return dict(worst=worst, rel=gaps[worst],
+                embed=gaps.get("token_embed.weight"))
+
+
+def _mpmd_drill_timing(run: dict) -> dict:
+    """The kill drill's seconds: from the supervisor seeing stage 1 dead to
+    its relaunch, and from the kill to stage 0's next step (the first step
+    it logged after the kill)."""
+    ev = run["events"]
+    dead = [e["ts"] for e in ev if e.get("kind") == "attempt" and e.get("edge") == "end"
+            and e.get("classification") == "stage-crash"]
+    if not dead:
+        return {}
+    t = dead[0]
+    relaunch = [e["ts"] for e in ev if e.get("kind") == "attempt" and e.get("edge") == "begin"
+                and e.get("ts", 0) > t]
+    nxt = [e for e in ev if e.get("kind") == "step_metrics" and e.get("process") == "p0"
+           and e["ts"] > t]
+    return dict(relaunch_s=relaunch[0] - t if relaunch else None,
+                kill_to_next_step_s=nxt[0]["ts"] - t if nxt else None,
+                next_step=nxt[0]["step"] if nxt else None)
+
+
+def train_llama_mpmd_gang(torch, ranks: int) -> dict:
+    """Config 5 as an MPMD pipeline of MPMD_STAGES one-card stages
+    (``--gang llama-mpmd``, four cards): (a) the 7B full fine-tune (every
+    param trainable, AdamW MPMD_LR, b = 8, S = 1,024, M = 4, GANG_STEPS
+    steps, ``exact``) through ``PipelineSupervisor`` and the built-in stage
+    worker, against the port's GPipe ``Trainer`` at pipe=4 on the same
+    weights and batches; (b) the same in ``sharded``/1F1B, against (a);
+    (c) the 7B widths at MPMD_SMALL_LAYERS layers under SGD, in this
+    process (a thread a stage), against one card's ``Trainer``: losses and
+    each param's change, and a repeat bitwise; the same in 1F1B; the
+    planted MPMD_FAULTS at (c)'s size; (d) the kill drill at (c)'s size (``die_host@5`` on stage
+    1, a checkpoint every 2 steps), then the driver
+    ``examples/train_llama_mpmd.py`` at its defaults. Held: (a)'s losses
+    and final params bitwise the GPipe ``Trainer``'s, (b)'s losses at
+    MPMD_1F1B_RTOL, (c)'s at GANG_LOSS_RTOL and its params' changes at
+    MPMD_PARAM_RTOL in both modes, (d)'s losses and final params bitwise
+    (c)'s, K1/K2/K3 and each link's bytes as reckoned a step a
+    stage, peak memory below the card's, only the killed stage restarting,
+    each fault breaking a limit. Prints each stage's ms a step, tokens/s a
+    card, the transport's ms a microbatch, the measured bubble against
+    (P − 1)/(M + P − 1) and the drill's seconds."""
+    import subprocess as sp
+
+    check(ranks >= MPMD_STAGES, f"mpmd: {ranks} cards, the pipeline takes {MPMD_STAGES}")
+    root = ROOT / "build" / "chip_smoke_mpmd"
+    spec_a = _mpmd_spec(LLAMA_LAYERS)
+    ref_a = _mpmd_ref_run(root / "gpipe-pipe4", spec_a, MPMD_STAGES)
+    run_a = _mpmd_supervised(root / "a-exact", spec_a)
+    table_a = _mpmd_checks("a", run_a, spec_a)
+    spec_b = _mpmd_spec(LLAMA_LAYERS, "sharded")
+    run_b = _mpmd_supervised(root / "b-1f1b", spec_b)
+    table_b = _mpmd_checks("b", run_b, spec_b)
+
+    sgd = {"name": "sgd", "lr": MPMD_SGD_LR}
+    spec_c = _mpmd_spec(MPMD_SMALL_LAYERS, optimizer=sgd)
+    ref_c = _mpmd_ref_run(root / "c-one-card", spec_c, 1)
+    one_params = torch.load(root / "c-one-card" / "params.pt", weights_only=True)
+    (root / "c-one-card" / "params.pt").unlink()
+    from distributeddeeplearningspark_tpu_torch.models import llama
+    from distributeddeeplearningspark_tpu_torch.train import pipeline_trainer as pt
+
+    init_model = llama.LlamaForCausalLM(pt._tiny_cfg(spec_c), device="meta")
+    init_model.to_empty(device="cuda:0")
+    init_model.init_weights(torch.Generator("cuda:0").manual_seed(spec_c["seed"]))
+    init = {n: p.detach().cpu() for n, p in init_model.named_parameters()}
+    del init_model
+    torch.cuda.empty_cache()
+    run_c = _mpmd_threads(torch, spec_c)
+    repeat_c = _mpmd_threads(torch, spec_c)
+    run_c1 = _mpmd_threads(torch, {**spec_c, "mode": "sharded",
+                                   "loss_mode": "per_microbatch"})
+    faults = {f: _mpmd_threads(torch, spec_c, f) for f in MPMD_FAULTS}
+
+    def bitwise(a: dict, b: dict) -> bool:
+        return sorted(a) == sorted(b) and all(torch.equal(a[n], b[n]) for n in a)
+
+    c = dict(losses=run_c["losses"], one_card_losses=ref_c["losses"],
+             max_loss_rel_err=_loss_gap(run_c["losses"], ref_c["losses"]),
+             change=_change_gap(torch, run_c["params"], one_params, init),
+             repeat_bitwise=bitwise(run_c["params"], repeat_c["params"])
+             and run_c["losses"] == repeat_c["losses"],
+             launches=run_c["launches"],
+             sharded=dict(losses=run_c1["losses"],
+                          max_loss_rel_err=_loss_gap(run_c1["losses"], ref_c["losses"]),
+                          change=_change_gap(torch, run_c1["params"], one_params, init)))
+    fault_rec = {f: dict(losses=r["losses"],
+                         max_loss_rel_err=_loss_gap(r["losses"], ref_c["losses"]),
+                         change=_change_gap(torch, r["params"], one_params, init),
+                         bitwise_clean=bitwise(r["params"], run_c["params"]))
+                 for f, r in faults.items()}
+    del faults, repeat_c, run_c1
+
+    spec_d = _mpmd_spec(MPMD_SMALL_LAYERS, optimizer=sgd, checkpoint_every=2)
+    run_d = _mpmd_supervised(root / "d-drill", spec_d, {
+        "DLS_FAULT": "die_host@5", "DLS_FAULT_HOST": "1", "DLS_FAULT_ONCE": "1"})
+    import shutil
+
+    for k in range(MPMD_STAGES):  # checkpoints of 1-3 GB a stage
+        shutil.rmtree(root / "d-drill" / f"stage{k}" / "ckpt", ignore_errors=True)
+    drv_wd = root / "driver"
+    shutil.rmtree(drv_wd, ignore_errors=True)
+    t0 = time.time()
+    drv = sp.run([sys.executable, "-m", f"{PKG}.examples.train_llama_mpmd", "--workdir",
+                  str(drv_wd)], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    drv_s = time.time() - t0
+    drv_lines = [x for x in drv.stdout.splitlines() if x.startswith("{")]
+    check(drv.returncode == 0 and len(drv_lines) == 1,
+          f"mpmd driver exited {drv.returncode}: {drv.stdout[-1500:]} {drv.stderr[-1500:]}")
+    driver = json.loads(drv_lines[0])
+
+    theory = (MPMD_STAGES - 1) / (MPMD_MICRO + MPMD_STAGES - 1)
+    gpipe_digests = {card["stage"]: card["param_digests"] for card in ref_a["cards"]}
+    digests_a = _mpmd_digests(run_a)
+    rec = dict(
+        stages=MPMD_STAGES, microbatches=MPMD_MICRO, global_batch=LLAMA_BATCH,
+        seq_len=LLAMA_SEQ, lr=MPMD_LR, theoretical_bubble=theory,
+        a=dict(losses=run_a["done"]["losses"], gpipe_losses=ref_a["losses"],
+               max_loss_rel_err=_loss_gap(run_a["done"]["losses"], ref_a["losses"]),
+               bitwise_gpipe=[np.float32(x).tobytes() for x in run_a["done"]["losses"]]
+               == [np.float32(x).tobytes() for x in ref_a["losses"]],
+               params_bitwise_gpipe=all(
+                   bool(digests_a[k]) and all(gpipe_digests.get(k, {}).get(n) == d
+                                              for n, d in digests_a[k].items())
+                   for k in range(MPMD_STAGES)),
+               gpipe_step_ms=ref_a["step_ms"], gpipe_cards=ref_a["cards"],
+               wall_s=run_a["wall_s"], bubble=run_a["pipeline"], stages=table_a),
+        b=dict(losses=run_b["done"]["losses"],
+               max_loss_rel_err=_loss_gap(run_b["done"]["losses"], run_a["done"]["losses"]),
+               wall_s=run_b["wall_s"], bubble=run_b["pipeline"], stages=table_b),
+        c=c, one_card_step_ms=ref_c["step_ms"], faults=fault_rec,
+        d=dict(losses=run_d["done"]["losses"], restarts=run_d["restarts"],
+               attempts=run_d["attempts"],
+               max_loss_rel_err=_loss_gap(run_d["done"]["losses"], run_c["losses"]),
+               bitwise_c=run_d["done"]["losses"] == run_c["losses"],
+               params_bitwise_c=_mpmd_digests(run_d) == run_c["digests"],
+               timing=_mpmd_drill_timing(run_d), wall_s=run_d["wall_s"],
+               recoveries=[(e.get("event"), e.get("stage")) for e in run_d["events"]
+                           if e.get("kind") == "recovery"]),
+        driver=dict(extra=driver["extra"], value=driver["value"], wall_s=drv_s),
+        card=nvidia_smi_line(), torch_version=torch.__version__)
+    print("gang llama-mpmd " + json.dumps(rec, default=str), flush=True)
+    for row in table_a:
+        print(f"mpmd a stage {row['stage']}: {row['step_ms']:.1f} ms a step, "
+              f"{row['tokens_per_sec_per_card']:.0f} tokens/s a card, transport ms a "
+              f"microbatch d2h {row['d2h_ms_per_mb']} send {row['send_ms_per_mb']} "
+              f"h2d {row['h2d_ms_per_mb']}, peak {row['max_memory_allocated'] / 1e9:.2f} GB "
+              f"(reckoned state {row['reckoned']['state_bytes'] / 1e9:.2f} GB)", flush=True)
+    print(f"mpmd bubble: a {run_a['pipeline'].get('measured_bubble_frac')} b "
+          f"{run_b['pipeline'].get('measured_bubble_frac')} theory {theory:.4f}; drill "
+          f"{rec['d']['timing']}", flush=True)
+    check(rec["a"]["bitwise_gpipe"] and rec["a"]["params_bitwise_gpipe"],
+          f"mpmd a: losses {rec['a']['losses']} (or final params) not bitwise the "
+          f"GPipe Trainer's {rec['a']['gpipe_losses']}")
+    check(rec["b"]["max_loss_rel_err"] <= MPMD_1F1B_RTOL,
+          f"mpmd b (1F1B): losses {rec['b']['losses']} off (a)'s")
+    for mode, seen in (("exact", c), ("1F1B", c["sharded"])):
+        check(seen["max_loss_rel_err"] <= GANG_LOSS_RTOL
+              and seen["change"]["rel"] <= MPMD_PARAM_RTOL,
+              f"mpmd c ({mode}): off one card's: {seen}")
+    check(c["repeat_bitwise"], "mpmd c: a repeat of the clean run is not bitwise the same")
+    for f, seen in fault_rec.items():
+        limit, why = MPMD_FAULTS[f]
+        broke = {"bitwise": not seen["bitwise_clean"],
+                 "losses": seen["max_loss_rel_err"] > GANG_LOSS_RTOL,
+                 "params": seen["change"]["rel"] > MPMD_PARAM_RTOL}
+        check(broke[limit], f"mpmd: the planted fault {f!r} ({why}) keeps its limit "
+                            f"({limit}): {seen}")
+    d = rec["d"]
+    check(d["restarts"] == {k: int(k == 1) for k in range(MPMD_STAGES)},
+          f"mpmd d: restarts {d['restarts']}, only stage 1 should restart")
+    check(("stage-restart", 1) in d["recoveries"] and ("pipeline-resync", 0) in d["recoveries"],
+          f"mpmd d: recoveries {d['recoveries']}")
+    check(d["bitwise_c"] and d["params_bitwise_c"],
+          f"mpmd d: losses (or final params) not bitwise (c)'s: {d}")
+    check(driver["extra"]["ok"] and driver["extra"]["final_step"] == 8
+          and all(v == 0 for v in driver["extra"]["restarts_per_stage"].values()),
+          f"mpmd driver: {driver}")
+    return rec
+
+
 def gang_main(torch, names: list[str]) -> int:
     """``chip_smoke.py --gang [resnet|dlrm|recovery|llama|llama-cp|llama-drain|
-    llama-moe|llama-pp ...]``: at one rank per visible card (2 or more), NCCL
-    between them, the LeNet phase, the supervised shrink, the drain and the
-    planted desync, the ResNet-50 and DLRM drivers
+    llama-moe|llama-pp|llama-mpmd ...]``: at one rank per visible card (2 or
+    more), NCCL between them, the LeNet phase, the supervised shrink, the
+    drain and the planted desync, the ResNet-50 and DLRM drivers
     (:func:`train_drivers_gang`), then Llama-2 7B LoRA sharded over the
     cards (:func:`train_llama_gang`, :func:`train_llama_cp_gang`), drained
     for a preemption (:func:`train_llama_drain`), the MoE Llamas over the
-    ``expert`` axis (:func:`train_llama_moe_gang`) and config 5 pipelined
-    over the ``pipe`` axis (:func:`train_llama_pp_gang`, four cards); with
-    names, only those parts."""
+    ``expert`` axis (:func:`train_llama_moe_gang`), config 5 pipelined
+    over the ``pipe`` axis (:func:`train_llama_pp_gang`, four cards) and as
+    an MPMD pipeline of one-card stages (:func:`train_llama_mpmd_gang`,
+    four cards); with names, only those parts."""
     ranks = torch.cuda.device_count()
     if ranks < 2:
         print(f"chip_smoke --gang: {ranks} card(s); it needs 2 or more",
               file=sys.stderr)
         return 2
-    parts = ["llama", "llama-cp", "llama-drain", "llama-moe", "llama-pp", "llama-pp-steps",
-             "recovery"]
+    parts = ["llama", "llama-cp", "llama-drain", "llama-moe", "llama-mpmd", "llama-pp",
+             "llama-pp-steps", "recovery"]
     if not set(names) <= set(GANG_FAULTS) | set(parts):
         print(f"chip_smoke --gang: no part {names}; choose from "
               f"{sorted(GANG_FAULTS) + parts}", file=sys.stderr)
@@ -5732,6 +6265,8 @@ def gang_main(torch, names: list[str]) -> int:
             train_llama_pp_gang(torch, ranks)
         if "llama-pp-steps" in names:  # the layouts' steps only, no faults
             train_llama_pp_gang(torch, ranks, faults=False)
+        if not names or "llama-mpmd" in names:
+            train_llama_mpmd_gang(torch, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -5893,6 +6428,8 @@ def main() -> int:
         return model_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--llama-rank"]:
         return llama_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--mpmd-ref-rank"]:
+        return mpmd_ref_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--moe-rank"]:
         return moe_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--moe-driver-rank"]:

@@ -38,8 +38,12 @@ Telemetry, through the process-wide writer: the ``checkpoint`` phase
 spans :meth:`save`'s blocking part (waiting out the previous write and the
 copy to the host), ``checkpoint-wait`` spans :meth:`wait`,
 ``checkpoint-verify`` each verification of the walk, ``restore`` the
-read; a quarantine writes a ``recovery`` event. orbax and per-rank shard
-files are not ported (ROADMAP Queue 1 item 7).
+read; a quarantine writes a ``recovery`` event. Each stage of the MPMD
+pipeline (:mod:`.train.pipeline_trainer`) saves its own state through a
+Checkpointer of its own under ``<workdir>/stage<k>/ckpt`` (no process
+group: the stage writes, and its barrier is a no-op). orbax and per-rank
+shard files are not ported (ROADMAP Queue 1 item 7, with the rest of
+``parallel/reshard.py``).
 """
 
 from __future__ import annotations

@@ -18,7 +18,10 @@ and refused by :meth:`Plan.validate` naming the ROADMAP item: ``zero_axes``
 ``compile_step_with_plan``, item 5). A plan's rules may carry the GPipe
 pipeline's stage layout (``ShardingRules.stage_pattern``, the port's
 form of JAX's ``P("pipe", ...)`` on stacked layers), which its record
-keeps. ``stage_plan`` (the MPMD pipeline) is not copied. Nor are the JAX
+keeps. :func:`stage_plan` (the MPMD pipeline's per-stage layout) takes
+``"replicated"`` only: a stage is one card, and the layouts that spread a
+stage over several (``fsdp``, ``tensor``, ``zero``) are refused by name
+(:data:`MULTI_CARD_STAGES`). Nor are the JAX
 build's ``PlanTensorAxisWarning`` and ``DLS_PLAN_ALLOW_TENSOR``: they
 guard against that jax's partitioner, which miscomputes losses on
 ``tensor`` meshes; the port lowers a plan's ``tensor`` entries to
@@ -286,3 +289,22 @@ def plan_for_rules(rules: ShardingRules, *, context_parallel: bool = False,
             name += "+seq"
     return Plan(name=name, rules=rules,
                 seq_axis="seq" if context_parallel else None)
+
+
+#: where the MPMD pipeline's stages of more than one card stand
+MULTI_CARD_STAGES = "stages of more than one card: ROADMAP Queue 1 item 7, multi-card stages"
+
+
+def stage_plan(name: str) -> Plan:
+    """Per-stage pipeline layouts by name (``DLS_PIPE_SPEC``'s
+    ``stage_plans``/``plan`` values). A stage of the port's MPMD pipeline
+    is one process on one card, so only ``replicated`` runs; ``fsdp``,
+    ``tensor`` and ``zero`` (JAX's wide-fsdp, Megatron and ZeRO stage
+    gangs) raise :class:`PlanError` naming the ROADMAP item."""
+    if name == "replicated":
+        return Plan(name="stage-replicated")
+    if name in ("fsdp", "tensor", "zero"):
+        raise PlanError(f"stage_plan({name!r}) lays a stage over several cards; "
+                        f"not ported yet ({MULTI_CARD_STAGES})")
+    raise PlanError(
+        f"unknown stage plan {name!r} (want replicated|fsdp|tensor|zero)")

@@ -1,9 +1,11 @@
 """Elastic supervisor — gang launch, failure detection, restart-from-checkpoint.
 
-The port's copy of ``distributeddeeplearningspark_tpu/supervisor.py``
-(without the MPMD ``PipelineSupervisor``/``StagePlan``, which wait for
-pipeline parallelism, ROADMAP Queue 1 item 7). A gang that loses a rank
-cannot go on (every collective waits on it), so recovery is job-level:
+The port's copy of ``distributeddeeplearningspark_tpu/supervisor.py``:
+the gang :class:`Supervisor` and, for the MPMD pipeline
+(:mod:`.train.pipeline_trainer`), :class:`PipelineSupervisor` with its
+one :class:`StagePlan` a stage, which restarts a dead stage alone. A gang that
+loses a rank cannot go on (every collective waits on it), so recovery is
+job-level:
 
 1. train with frequent checkpoints (:mod:`.checkpoint`),
 2. detect a dead or failed worker (a process exit, or no progress when a
@@ -38,6 +40,7 @@ run's timeline unchanged. Run it as::
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import random
@@ -815,6 +818,316 @@ class Supervisor:
                 import shutil
 
                 shutil.rmtree(self._hb_dir, ignore_errors=True)
+
+
+# -- MPMD stage pipelines -----------------------------------------------------
+
+
+@dataclasses.dataclass
+class StagePlan:
+    """One pipeline stage's launch recipe: the worker command plus any
+    stage-specific env (on a card, its ``CUDA_VISIBLE_DEVICES``).
+    ``argv=None`` uses the built-in env-configured stage worker
+    (``python -m distributeddeeplearningspark_tpu_torch.train.pipeline_trainer``).
+    """
+
+    argv: list[str] | None = None
+    env: dict[str, str] = dataclasses.field(default_factory=dict)
+
+    def command(self) -> list[str]:
+        if self.argv is not None:
+            return list(self.argv)
+        return [sys.executable, "-m",
+                "distributeddeeplearningspark_tpu_torch.train.pipeline_trainer"]
+
+
+@dataclasses.dataclass
+class PipelineResult:
+    """Per-stage attempt histories for one pipeline run."""
+
+    attempts: dict[int, list[Attempt]]
+
+    @property
+    def ok(self) -> bool:
+        return bool(self.attempts) and all(
+            rows and rows[-1].ok for rows in self.attempts.values())
+
+    def restarts_of(self, stage: int) -> int:
+        return max(0, len(self.attempts.get(stage, [])) - 1)
+
+
+class PipelineSupervisor:
+    """Launch and monitor an MPMD stage pipeline: one independent process
+    per stage, each with its OWN env, card, failure domain and checkpoint
+    lineage.
+
+    The gang :class:`Supervisor` restarts the WHOLE gang on any failure —
+    right for SPMD, where one lost rank poisons every collective. A
+    pipeline of stages fails narrower: stages touch each other only through
+    the :mod:`.parallel.mpmd` socket transport, so when stage *k* dies its
+    peers merely block (re-listening / re-dialing, stamping their
+    heartbeats) while THIS supervisor relaunches stage *k* alone with a
+    bumped per-stage ``DLS_RESTART``; the reconnected pipeline then agrees
+    on the resume step and rolls back to it
+    (``PipelineTransport.sync_step``). Every attempt/recovery record carries
+    ``stage=`` so ``dlstatus`` shows which stage burned the restarts.
+    Classifications: ``clean``, ``stage-crash``, ``restore-failure``
+    (:data:`RESTORE_FAILED_EXIT`) and ``hang`` (the heartbeat watchdog).
+
+    Topology env exported to every stage process: ``DLS_STAGE_ID``,
+    ``DLS_NUM_STAGES``, ``DLS_PIPE_PORTS`` (JSON — port *k* carries the
+    k↔k+1 link), ``DLS_PIPE_AUTHKEY``, plus the familiar contract
+    (``DLS_PROCESS_ID``/``DLS_HOST_ID`` = stage ordinal, ``DLS_RESTART`` =
+    per-stage attempt, ``DLS_TELEMETRY_DIR``, ``DLS_HEARTBEAT_FILE`` with a
+    watchdog, ``PYTHONPATH`` naming the port's parent, ``OMP_NUM_THREADS``
+    = cores / stages unless set). ``DLS_FAULT=die_host@N`` with
+    ``DLS_FAULT_HOST=k`` therefore targets exactly one stage. Each stage
+    starts in a process group of its own, which a kill takes whole. The
+    supervisor touches no device: a stage takes the card it sees (a
+    ``StagePlan``'s ``CUDA_VISIBLE_DEVICES``) unless its spec asks for the
+    CPU.
+    """
+
+    def __init__(self, stages: list[StagePlan], *, max_restarts: int = 3,
+                 poll_interval: float = 0.1, restart_backoff_s: float = 0.2,
+                 backoff_jitter: float = 0.25,
+                 env: dict[str, str] | None = None,
+                 telemetry_dir: str | None = None,
+                 wall_timeout_s: float | None = None,
+                 hang_timeout_s: float | None = None):
+        if len(stages) < 2:
+            raise ValueError(f"a pipeline needs >= 2 stages, got {len(stages)}")
+        self.stages = list(stages)
+        self.num_stages = len(stages)
+        self.max_restarts = max_restarts
+        self.poll_interval = poll_interval
+        self.restart_backoff_s = restart_backoff_s
+        self.backoff_jitter = backoff_jitter
+        self.env = dict(env or {})
+        self.wall_timeout_s = wall_timeout_s
+        # per-stage heartbeat watchdog: a stage stamps DLS_HEARTBEAT_FILE in
+        # every long phase, so a stage that is alive but wedged
+        # (DLS_FAULT=hang) is killed and restarted ALONE — without this, its
+        # healthy peers would burn their transport timeouts and restart
+        # budgets being blamed for it
+        self.hang_timeout_s = hang_timeout_s
+        self._hb_dir: str | None = None
+        if hang_timeout_s is not None:
+            import tempfile
+
+            self._hb_dir = tempfile.mkdtemp(prefix="dls_pipe_hb_")
+        from distributeddeeplearningspark_tpu_torch.parallel import mpmd
+
+        for i, plan in enumerate(self.stages):
+            if plan.argv is None and not (
+                    mpmd.ENV_SPEC in plan.env
+                    or mpmd.ENV_SPEC in self.env
+                    or mpmd.ENV_SPEC in os.environ):
+                # the built-in worker's ONE required input; without this
+                # check every stage dies on a raw KeyError and the
+                # supervisor silently burns max_restarts per stage
+                raise ValueError(
+                    f"stage {i} uses the built-in pipeline worker but no "
+                    f"{mpmd.ENV_SPEC} is set (pass it via env= or the "
+                    f"StagePlan's env) — the worker cannot boot without "
+                    f"its run spec")
+        self.ports = [free_port() for _ in range(self.num_stages - 1)]
+        import secrets
+
+        self.authkey = secrets.token_hex(16)
+        self.telemetry_dir = (
+            telemetry_dir
+            or self.env.get(telemetry_lib.WORKDIR_ENV)
+            or os.environ.get(telemetry_lib.WORKDIR_ENV))
+        self._tele: telemetry_lib.EventWriter | None = None
+        self._ordinals = [0] * self.num_stages   # per-stage DLS_RESTART
+        self._attempt_seq = 0                    # global telemetry ordinal
+        self._launch_t0: list[float] = [0.0] * self.num_stages
+        self._launch_wall: list[float] = [0.0] * self.num_stages
+        self._attempt_ordinal: list[int] = [0] * self.num_stages
+
+    def _telemetry(self) -> telemetry_lib.EventWriter | None:
+        if self._tele is None and self.telemetry_dir:
+            self._tele = telemetry_lib.EventWriter(
+                self.telemetry_dir, process="pipeline-supervisor", host=None)
+        return self._tele
+
+    def _stage_env(self, idx: int) -> dict[str, str]:
+        from distributeddeeplearningspark_tpu_torch.parallel import mpmd
+
+        env = {
+            **os.environ,
+            **self.env,
+            **self.stages[idx].env,
+            mpmd.ENV_STAGE: str(idx),
+            mpmd.ENV_NUM_STAGES: str(self.num_stages),
+            mpmd.ENV_PORTS: json.dumps(self.ports),
+            mpmd.ENV_AUTHKEY: self.authkey,
+            PROCESS_ID_ENV: str(idx),
+            NUM_PROCESSES_ENV: str(self.num_stages),
+            "DLS_HOST_ID": str(idx),
+            "DLS_RESTART": str(self._ordinals[idx]),
+        }
+        env.setdefault("OMP_NUM_THREADS", str(
+            max(1, (os.cpu_count() or 1) // self.num_stages)))
+        path = env.get("PYTHONPATH")
+        env["PYTHONPATH"] = _PKG_PARENT + (os.pathsep + path if path else "")
+        if self.telemetry_dir:
+            env[telemetry_lib.WORKDIR_ENV] = self.telemetry_dir
+        if self._hb_dir is not None:
+            env["DLS_HEARTBEAT_FILE"] = self._hb_path(idx)
+        return env
+
+    def _hb_path(self, idx: int) -> str:
+        assert self._hb_dir is not None
+        return os.path.join(self._hb_dir, f"hb_{idx}")
+
+    def _hb_stale(self, idx: int, since: float) -> bool:
+        """True when stage ``idx`` has produced no heartbeat for
+        ``hang_timeout_s`` (measured from its launch until the first
+        stamp, then from the last stamp)."""
+        assert self.hang_timeout_s is not None
+        try:
+            mtime = os.stat(self._hb_path(idx)).st_mtime
+        except OSError:
+            mtime = None
+        last = since if mtime is None else max(since, mtime)
+        return time.time() - last > self.hang_timeout_s
+
+    def _launch_stage(self, idx: int) -> subprocess.Popen:
+        if self._hb_dir is not None:
+            # reset the liveness clock: a stale file from the previous
+            # attempt must not instantly re-condemn the relaunch
+            try:
+                os.remove(self._hb_path(idx))
+            except OSError:
+                pass
+        proc = subprocess.Popen(self.stages[idx].command(),
+                                env=self._stage_env(idx), start_new_session=True)
+        self._launch_t0[idx] = time.monotonic()
+        self._launch_wall[idx] = time.time()
+        self._attempt_ordinal[idx] = self._attempt_seq
+        tele = self._telemetry()
+        if tele is not None:
+            tele.attempt("begin", self._attempt_seq, stage=idx,
+                         stage_restart=self._ordinals[idx],
+                         num_processes=1)
+        self._attempt_seq += 1
+        logger.info("pipeline: launched stage %d (attempt %d, pid %d)",
+                    idx, self._ordinals[idx], proc.pid)
+        return proc
+
+    def _finish_attempt(self, idx: int, rc: int, attempts: dict, *,
+                        hang: bool = False) -> Attempt:
+        cls = ("hang" if hang else
+               "clean" if rc == 0 else
+               "restore-failure" if rc == RESTORE_FAILED_EXIT
+               else "stage-crash")
+        att = Attempt(self._ordinals[idx], [rc],
+                      time.monotonic() - self._launch_t0[idx],
+                      classification=cls, num_processes=1,
+                      dead_host=None if rc == 0 else idx)
+        attempts.setdefault(idx, []).append(att)
+        tele = self._telemetry()
+        if tele is not None:
+            tele.attempt("end", self._attempt_ordinal[idx], stage=idx,
+                         returncodes=[rc], classification=cls,
+                         duration_s=att.duration_s, num_processes=1,
+                         **({"dead_host": idx} if rc != 0 else {}))
+        return att
+
+    def run(self) -> PipelineResult:
+        attempts: dict[int, list[Attempt]] = {}
+        procs: list[subprocess.Popen | None] = [
+            self._launch_stage(i) for i in range(self.num_stages)]
+        completed = [False] * self.num_stages
+        t0 = time.monotonic()
+        try:
+            while True:
+                progressed = False
+                for idx, proc in enumerate(procs):
+                    if proc is None:
+                        continue
+                    rc = proc.poll()
+                    hang = False
+                    if rc is None:
+                        if (self.hang_timeout_s is not None
+                                and self._hb_stale(
+                                    idx, self._launch_wall[idx])):
+                            logger.warning(
+                                "pipeline: stage %d heartbeat silent for "
+                                ">%.0fs — killing the hung stage (peers "
+                                "keep running)", idx, self.hang_timeout_s)
+                            hang = True
+                            Supervisor._kill([proc])
+                            rc = proc.poll()
+                        else:
+                            continue
+                    else:
+                        _reap_groups([proc])  # what it forked goes with it
+                    progressed = True
+                    self._finish_attempt(idx, int(rc), attempts, hang=hang)
+                    if rc == 0 and not hang:
+                        procs[idx] = None
+                        completed[idx] = True
+                        logger.info("pipeline: stage %d completed", idx)
+                        continue
+                    if self._ordinals[idx] >= self.max_restarts:
+                        logger.error(
+                            "pipeline: stage %d failed rc=%s with "
+                            "max_restarts=%d exhausted — tearing down",
+                            idx, rc, self.max_restarts)
+                        procs[idx] = None
+                        self._teardown(procs)
+                        return PipelineResult(attempts)
+                    delay = min(self.restart_backoff_s
+                                * (2.0 ** self._ordinals[idx]), 30.0)
+                    if self.backoff_jitter:
+                        delay *= 1.0 + random.uniform(-self.backoff_jitter,
+                                                      self.backoff_jitter)
+                    logger.warning(
+                        "pipeline: stage %d died rc=%s — restarting ONLY "
+                        "this stage in %.2fs (peers block on the transport)",
+                        idx, rc, delay)
+                    tele = self._telemetry()
+                    if tele is not None:
+                        tele.recovery(None, "stage-restart", stage=idx,
+                                      returncode=int(rc),
+                                      ordinal=self._ordinals[idx] + 1,
+                                      delay_s=round(delay, 3))
+                    time.sleep(max(0.0, delay))
+                    self._ordinals[idx] += 1
+                    procs[idx] = self._launch_stage(idx)
+                if all(completed):
+                    return PipelineResult(attempts)
+                if (self.wall_timeout_s is not None
+                        and time.monotonic() - t0 > self.wall_timeout_s):
+                    logger.error("pipeline: wall timeout after %.0fs",
+                                 self.wall_timeout_s)
+                    self._teardown(procs)
+                    for idx, proc in enumerate(procs):
+                        if proc is not None:
+                            self._finish_attempt(idx, int(proc.returncode
+                                                          or -1), attempts)
+                    return PipelineResult(attempts)
+                if not progressed:
+                    time.sleep(self.poll_interval)
+        except BaseException:
+            self._teardown(procs)
+            raise
+        finally:
+            if self._tele is not None:
+                self._tele.close()
+                self._tele = None
+            if self._hb_dir is not None:
+                import shutil
+
+                shutil.rmtree(self._hb_dir, ignore_errors=True)
+                self._hb_dir = None
+
+    @staticmethod
+    def _teardown(procs: list) -> None:
+        Supervisor._kill([p for p in procs if p is not None])
 
 
 def main(argv: list[str] | None = None) -> int:

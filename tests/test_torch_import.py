@@ -71,7 +71,9 @@ print(json.dumps({{"modules": names, "loaded": sorted(sys.modules)}}))
                 "faults", "supervisor", "utils.sanitize", "telemetry.fleet",
                 "data.exchange", "telemetry.anatomy", "telemetry.health",
                 "telemetry.series", "status", "utils.profiling", "utils.kineto",
-                "utils.memory"}
+                "utils.memory", "parallel.mpmd", "train.pipeline_trainer",
+                "examples.train_llama_mpmd", "parallel.pipeline", "models.llama_pp",
+                "parallel.plan"}
     got = {n.split(".", 1)[1] for n in rec["modules"]}
     assert expected <= got, expected - got
     bad = [m for m in rec["loaded"] if _forbidden(m)]
@@ -125,7 +127,8 @@ def test_chip_smoke_imports_no_jax():
                                    "resolve_device", "session", "trainer",
                                    "resnet50", "dlrm", "lenet", "train_resnet",
                                    "train_dlrm", "llama2_7b", "llama_tiny",
-                                   "train_llama_lora", "train_mnist"])
+                                   "train_llama_lora", "train_mnist",
+                                   "train_llama_mpmd", "stage_program"])
 def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
     if torch.cuda.is_available():
         pytest.skip("the no-CUDA error needs a machine without CUDA")
@@ -133,6 +136,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
     from distributeddeeplearningspark_tpu_torch.examples import (
         train_dlrm,
         train_llama_lora,
+        train_llama_mpmd,
         train_mnist,
         train_resnet,
     )
@@ -140,7 +144,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
     from distributeddeeplearningspark_tpu_torch.models.bert import (
         BertConfig, BertForMLM, bert_base)
     from distributeddeeplearningspark_tpu_torch.serve import InferenceEngine
-    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim, pipeline_trainer
     from distributeddeeplearningspark_tpu_torch.utils.device import resolve_device
 
     calls = {
@@ -163,6 +167,9 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
         "llama_tiny": lambda: llama.llama_tiny(),
         "train_llama_lora": lambda: train_llama_lora.main(["--steps", "1"]),
         "train_mnist": lambda: train_mnist.main(["--steps", "1"]),
+        "train_llama_mpmd": lambda: train_llama_mpmd.main(["--steps", "1"]),
+        "stage_program": lambda: pipeline_trainer.LlamaStageProgram(
+            llama.LlamaConfig.tiny(), 0, 2, optim.sgd(0.1)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
