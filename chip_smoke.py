@@ -278,16 +278,30 @@ batches; (b) the same in 1F1B against (a); (c) the 7B widths at 4 layers
 under SGD, a thread a stage in this process, against one card's
 ``Trainer`` (losses and each param's change) and a repeat (bitwise); three
 planted faults at (c)'s size that must each break a limit; (d) the kill
-drill at (c)'s size (``die_host@5`` on stage 1: only it restarts), then
-the port's ``examples/train_llama_mpmd.py`` at its defaults. Held beside:
-K1/K2/K3 64/32/32 a step a stage and 67,108,864 B a step each way on each
-link in (a) and (b), peak memory below the card's; printed: each stage's
-ms a step, tokens/s a card, the transport's ms a microbatch (device →
-host, send, host → device), the measured bubble against 3/7 and the
-drill's seconds from the kill to the next step.
+drill at (c)'s size (``die_host@5`` on stage 1: only it restarts). Then
+stages of two cards, each stage a ``torch.distributed`` gang of one
+process a card (NCCL): K1–K3 at a tensor=2 card's shape (16 heads, 2
+rows) beside SDPA; (e) the 7B over two stages, stage 0 FSDP2 at fsdp=2 and
+stage 1 the Megatron splits at tensor=2, 1F1B, against (b)'s losses, the
+layouts checked; (f) ``exact`` at data=2 both stages (the 7B widths at 8
+layers) bitwise the port's GPipe ``Trainer`` at data=2 × pipe=2; (g) the
+7B widths at 4 layers under SGD (f32 compute), stage 1 restored from the
+data=2 run's step-2 checkpoint at tensor=2, its losses the uninterrupted
+run's at 1e-5; (h) the kill drill on a gang (``die_host@5`` on rank 1 of
+stage 1: only stage 1's two processes are relaunched, bitwise); then the
+port's ``examples/train_llama_mpmd.py`` at its defaults (two stages of
+two cards). Held beside: K1/K2/K3 64/32/32 a step a stage and
+67,108,864 B a step each way on each link in (a) and (b), and in (e)/(f)
+K1/K2/K3 a step a card, the link's bytes, the gang's scatter, gather and
+broadcast bytes a step, params a card, peak memory below the card's;
+printed: each stage's ms a step, tokens/s a card, the transport's ms a
+microbatch (device → host, send, host → device), the gang's collective
+ms a move, the measured bubble against 3/7 (1/5 for two stages) and the
+drills' seconds from the kill to the next step.
 ``--gang dlrm`` (or ``resnet``, ``llama``, ``llama-cp``, ``llama-drain``,
 ``llama-moe``, ``llama-pp``, ``llama-mpmd``) runs that part's comparisons only (names
-combine), ``--gang recovery`` the shrink, the drain and the desync only.
+combine), ``--gang llama-mpmd-stages`` (e)–(h) and the driver only (with
+its own (b) run), ``--gang recovery`` the shrink, the drain and the desync only.
 ``python3 chip_smoke.py --recovery`` builds the kernels and runs phases 11
 and 14 only (one card); ``--observe`` builds them and runs phases 5 and 6b
 and the observed ResNet driver only (one card). ``python3 chip_smoke.py --ckpt-commit TREE``
@@ -542,8 +556,18 @@ def _llama_pp_cases(torch) -> list[dict]:
             for b in LLAMA_PP_MICRO_ROWS]
 
 
-def check_flash_fwd(torch, fa) -> list[dict]:
-    cases = [
+def _llama_mpmd_cases(torch) -> list[dict]:
+    """The Llama-2 7B step's attention on a card of a tensor=2 MPMD stage
+    (``--gang llama-mpmd`` (e)): 16 local heads on a microbatch of 2 rows
+    (b = 8 in M = 4)."""
+    return [_attn_case(torch, f"llama_mpmd_tp2_b{LLAMA_BATCH // MPMD_MICRO}_s1024_h"
+                              f"{LLAMA_HEADS // 2}_causal_d128",
+                       b=LLAMA_BATCH // MPMD_MICRO, s=LLAMA_SEQ, h=LLAMA_HEADS // 2,
+                       hkv=LLAMA_HEADS // 2, d=128, causal=True, seed=30)]
+
+
+def check_flash_fwd(torch, fa, cases: list | None = None) -> list[dict]:
+    cases = cases or [
         _attn_case(torch, "bert_b32_padded", b=32, s=512, h=12, hkv=12, d=64,
                    causal=False, seed=1,
                    lengths=np.random.default_rng(1).integers(1, 513, 32).tolist()),
@@ -578,6 +602,8 @@ def check_flash_fwd(torch, fa) -> list[dict]:
         *_llama_tp_cases(torch),
         # a pipeline stage's microbatches (--gang llama-pp)
         *_llama_pp_cases(torch),
+        # a tensor=2 MPMD stage's microbatches (--gang llama-mpmd)
+        *_llama_mpmd_cases(torch),
         # the MoE 0.9b's: 16 q heads over 8 kv heads
         _moe_09b_case(torch),
     ]
@@ -668,8 +694,8 @@ def _library_bwd_ms(torch, case, do, masked: bool = True) -> float:
     return graph_ms(torch, fwd_bwd, 20) - fwd_ms
 
 
-def check_flash_bwd(torch, fa) -> list[dict]:
-    cases = [
+def check_flash_bwd(torch, fa, cases: list | None = None) -> list[dict]:
+    cases = cases or [
         _attn_case(torch, "bert_b32_full_mask", b=32, s=512, h=12, hkv=12,
                    d=64, causal=False, seed=5, lengths=[512] * 32),
         _attn_case(torch, "bert_b32_padded", b=32, s=512, h=12, hkv=12, d=64,
@@ -704,6 +730,7 @@ def check_flash_bwd(torch, fa) -> list[dict]:
                    s=LLAMA_SEQ, h=32, hkv=32, d=128, causal=True, seed=10),
         *_llama_tp_cases(torch),
         *_llama_pp_cases(torch),
+        *_llama_mpmd_cases(torch),
         _moe_09b_case(torch),
     ]
     results = []
@@ -5785,11 +5812,12 @@ def _mpmd_reckoning(spec: dict, stage: int) -> dict:
 
 def mpmd_ref_rank(argv: list[str]) -> int:
     """One rank of an MPMD gang's reference run (``chip_smoke.py
-    --mpmd-ref-rank OUT SPEC PIPE``, run by the port's cli): the port's
-    ``Trainer`` on the spec's model (its init from the spec's seed), its
-    optimizer and its batches (``synthetic_batch_fn``, in one partition: the
-    same global batches), every param trainable; at PIPE > 1 the GPipe
-    pipeline over ``pipe`` with the spec's microbatches. Each rank writes
+    --mpmd-ref-rank OUT SPEC PIPE [DATA]``, run by the port's cli): the
+    port's ``Trainer`` on the spec's model (its init from the spec's seed),
+    its optimizer and its batches (``synthetic_batch_fn``, in one partition:
+    the same global batches, DATA shards of them), every param trainable; at
+    PIPE > 1 the GPipe pipeline over ``pipe`` with the spec's microbatches.
+    Each rank writes
     ``OUT/rank<r>.json`` (its stage, K1/K2/K3 launches, peak memory, its
     final params' digests); on one card also ``OUT/params.pt``, the final
     params."""
@@ -5804,7 +5832,8 @@ def mpmd_ref_rank(argv: list[str]) -> int:
     from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
 
     out, spec, pipe = Path(argv[0]), json.loads(argv[1]), int(argv[2])
-    builder = Session.builder.appName(f"mpmd-ref-pipe{pipe}").config("mesh.data", 1)
+    data = int(argv[3]) if len(argv) > 3 else 1
+    builder = Session.builder.appName(f"mpmd-ref-pipe{pipe}").config("mesh.data", data)
     if pipe > 1:
         builder = builder.config("mesh.pipe", pipe)
     spark = builder.getOrCreate()
@@ -5834,28 +5863,32 @@ def mpmd_ref_rank(argv: list[str]) -> int:
     return 0
 
 
-def _mpmd_ref_run(wd: Path, spec: dict, pipe: int) -> dict:
-    """A :func:`mpmd_ref_rank` launch at ``local[pipe]``: rank 0's logged
-    losses and step ms (the laps after the first), every rank's record."""
+def _mpmd_ref_run(wd: Path, spec: dict, pipe: int, data: int = 1) -> dict:
+    """A :func:`mpmd_ref_rank` launch at ``local[pipe · data]``: rank 0's
+    logged losses and step ms (the laps after the first), every rank's
+    record."""
     import shutil
 
     shutil.rmtree(wd, ignore_errors=True)
     wd.mkdir(parents=True)
-    _, timing = _launch(wd, pipe, Path(__file__).resolve(),
-                        ["--mpmd-ref-rank", str(wd), json.dumps(spec), str(pipe)],
-                        timeout=900)
+    _, timing = _launch(wd, pipe * data, Path(__file__).resolve(),
+                        ["--mpmd-ref-rank", str(wd), json.dumps(spec), str(pipe),
+                         str(data)], timeout=900)
     steps = [r for r in _events(wd, "p0") if r["kind"] == "step_metrics"]
     laps = [r["lap_s"] * 1e3 / r["steps"] for r in steps]
     return dict(losses=[r["metrics"]["loss"] for r in steps],
                 step_ms=float(np.mean(laps[1:])) if len(laps) > 1 else None,
-                cards=[json.loads((wd / f"rank{r}.json").read_text()) for r in range(pipe)],
+                cards=[json.loads((wd / f"rank{r}.json").read_text())
+                       for r in range(pipe * data)],
                 launch=timing)
 
 
-def _mpmd_supervised(wd: Path, spec: dict, env: dict | None = None) -> dict:
+def _mpmd_supervised(wd: Path, spec: dict, env: dict | None = None, *,
+                     stages: int = MPMD_STAGES, cards: int = 1) -> dict:
     """An MPMD run through ``PipelineSupervisor`` and the built-in stage
-    worker, stage k on card k (``CUDA_VISIBLE_DEVICES``), each stage's
-    output in ``wd/stage-<k>-<attempt>.log``: rank 0's DONE record, each
+    worker, ``stages`` stages of ``cards`` cards each (stage k on cards
+    k·n … k·n+n−1, ``CUDA_VISIBLE_DEVICES``), each process's output in
+    ``wd/stage-<k>-<attempt>-r<rank>.log``: stage 0's DONE record, each
     stage's summaries by attempt, the restarts, the pipeline block of the
     port's ``status.report``, the telemetry and the wall seconds."""
     import shlex
@@ -5872,9 +5905,9 @@ def _mpmd_supervised(wd: Path, spec: dict, env: dict | None = None) -> dict:
     wd.mkdir(parents=True)
     worker = shlex.join([sys.executable, "-m", f"{PKG}.train.pipeline_trainer"])
     argv = ["bash", "-c", f"exec {worker} > {shlex.quote(str(wd))}"
-            f"/stage-$DLS_STAGE_ID-$DLS_RESTART.log 2>&1"]
+            f"/stage-$DLS_STAGE_ID-$DLS_RESTART-r$DLS_PROCESS_ID.log 2>&1"]
     sup = PipelineSupervisor(
-        [StagePlan(argv=argv, env=e) for e in _card_envs(MPMD_STAGES)],
+        [StagePlan(argv=argv, env=e) for e in _card_envs(stages, cards)],
         env={"DLS_PIPE_SPEC": json.dumps(spec), **(env or {})}, telemetry_dir=str(wd),
         max_restarts=2, restart_backoff_s=0.1, wall_timeout_s=900, hang_timeout_s=300)
     t0 = time.time()
@@ -5887,9 +5920,9 @@ def _mpmd_supervised(wd: Path, spec: dict, env: dict | None = None) -> dict:
     done = json.loads((wd / "DONE").read_text())
     summaries = {k: [json.loads(p.read_text())
                      for p in sorted((wd / f"stage{k}").glob("summary-*.json"))]
-                 for k in range(MPMD_STAGES)}
+                 for k in range(stages)}
     return dict(done=done, summaries=summaries, wall_s=wall_s,
-                restarts={k: res.restarts_of(k) for k in range(MPMD_STAGES)},
+                restarts={k: res.restarts_of(k) for k in range(stages)},
                 attempts={k: [a.classification for a in v] for k, v in res.attempts.items()},
                 pipeline=status.report(str(wd), traces=True)["pipeline"],
                 events=telemetry.read_events(str(wd)))
@@ -6060,6 +6093,316 @@ def _mpmd_drill_timing(run: dict) -> dict:
                 next_step=nxt[0]["step"] if nxt else None)
 
 
+# -- chip_smoke.py --gang llama-mpmd, (e)–(h): stages of two cards -------------
+
+#: (e)–(h) and the driver: two stages of two cards each, one process a card
+MPMD_GANG_STAGES, MPMD_GANG_CARDS = 2, 2
+#: (e): the heterogeneous layouts, JAX's test_mpmd_heterogeneous_stage_meshes:
+#: stage 0 FSDP2 over fsdp=2 (every param of 2**10 elements or more), stage
+#: 1 the Megatron splits over tensor=2
+MPMD_HETERO = {"stage_meshes": {"0": {"data": 1, "fsdp": 2},
+                                "1": {"data": 1, "tensor": 2}},
+               "stage_plans": {"0": "fsdp", "1": "tensor"}, "fsdp_min_size": 2**10}
+#: (f): the 7B widths at 8 layers, exact, both stages at data=2 (a 16-layer
+#: stage whole on one card does not fit with AdamW's state)
+MPMD_EXACT_LAYERS = 8
+#: (g) and (h): the 7B widths at 4 layers under SGD, in f32 compute, so that
+#: a tensor-split stage's sums differ from a whole one's at f32 rounding only
+#: (the bound is JAX's test_mpmd one, an f32 test's): the geometry change's
+#: 4 losses against the uninterrupted run's
+MPMD_GEOMETRY_LAYERS, MPMD_GEOMETRY_RTOL = 4, 1e-5
+
+
+def _mpmd_gang_reckoning(spec: dict, stage: int) -> dict:
+    """What each card of stage ``stage`` of a two-stage gang run does a
+    step: K1/K2/K3 launches (every card runs its stage's layers on its
+    rows, or on every row at tensor=2), the link bytes the stage sends down
+    and up, the gang's bytes of each move (scatter and gather of the link's
+    microbatches over row shards, broadcast to tensor peers), and the
+    params each card holds."""
+    cfg = spec["cfg"]
+    stages, m = MPMD_GANG_STAGES, spec["microbatches"]
+    per_stage = cfg["num_layers"] // stages
+    h, v, f = cfg["hidden_size"], cfg["vocab_size"], cfg["intermediate_size"]
+    dt = 4 if cfg.get("dtype") == "float32" else 2
+    mesh = (spec.get("stage_meshes") or {}).get(str(stage)) or spec.get("mesh") or {}
+    tensor = int(mesh.get("tensor", 1))
+    rows_split = int(mesh.get("data", 1)) * int(mesh.get("fsdp", 1))
+    step_bytes = spec["batch_size"] * spec["seq"] * h * dt
+    first, last = stage == 0, stage == stages - 1
+    norms = (2 * per_stage + (1 if last else 0)) * h
+    split = (per_stage * (4 * h * h + 3 * h * f) + (v * h if first else 0)
+             + (v * h if last else 0))
+    if tensor > 1:
+        card_params = split // tensor + norms
+    elif mesh.get("fsdp", 1) > 1 and (spec.get("stage_plans") or {}).get(str(stage)) == "fsdp":
+        # FSDP2 shards what the plan's fsdp_min_size reaches: a norm scale
+        # of H elements at 4,096, not at a narrow model's widths
+        fsdp = int(mesh["fsdp"])
+        small = h < spec.get("fsdp_min_size", 2**10)
+        card_params = split // fsdp + (norms if small else norms // fsdp)
+    else:
+        card_params = split + norms
+    moves = {"broadcast": 0, "scatter": 0, "gather": 0}
+    if tensor > 1:
+        moves["broadcast"] = step_bytes if not first else 0  # activations in
+    elif rows_split > 1:
+        moves["scatter"] = step_bytes  # activations in, or gradients back
+        moves["gather"] = step_bytes   # what the stage sends
+    return dict(launches={"flash_fwd": 2 * per_stage * m, "flash_bwd_dq": per_stage * m,
+                          "flash_bwd_dkv": per_stage * m},
+                act_bytes=step_bytes if not last else 0,
+                grad_bytes=step_bytes if not first else 0,
+                moves=moves, moves_count=m, card_params=card_params,
+                state_bytes=card_params * MPMD_BYTES_PER_PARAM)
+
+
+def _mpmd_gang_table(run: dict, spec: dict) -> list[dict]:
+    """Each stage's last summary and each of its cards against the
+    reckoning: GANG_STEPS steps, K1/K2/K3 a step a card, the
+    link's and the gang's bytes a step, params and peak memory a card; and
+    each stage's ms a step, tokens/s a card, the transport's ms a
+    microbatch and the gang's collective ms a move."""
+    rows = []
+    cards = MPMD_GANG_STAGES * MPMD_GANG_CARDS
+    for k in range(MPMD_GANG_STAGES):
+        s = run["summaries"][k][-1]
+        st, want = s["stats"], _mpmd_gang_reckoning(spec, k)
+        gang = st["gang"]
+        moves = sum(gang[x][0] for x in ("broadcast", "scatter", "gather"))
+        laps = st["lap_s"]
+        step_ms = float(np.mean(laps[1:])) * 1e3 if len(laps) > 1 else None
+        frames = sum(st["sent"][kind][0] for kind in ("act", "grad"))
+        sendall = sum(v[2] for side in st.get("links", {}).values()
+                      for kind, v in side.items() if kind in ("act", "grad"))
+        row = dict(stage=k, mesh=s["mesh"], plan=s["plan"], mode=s["mode"],
+                   attempt=s["attempt"], steps=len(laps), step_ms=step_ms,
+                   tokens_per_sec_per_card=(spec["batch_size"] * spec["seq"] / cards
+                                            / (step_ms / 1e3)) if step_ms else None,
+                   d2h_ms_per_mb=st["d2h_s"] * 1e3 / frames if frames else None,
+                   send_ms_per_mb=sendall * 1e3 / frames if frames else None,
+                   h2d_ms_per_mb=st["h2d_s"] * 1e3 / st["transfers"] if st["transfers"] else None,
+                   gang_ms_per_move=gang["collective_s"] * 1e3 / moves if moves else None,
+                   gang=gang, sent=st["sent"], ranks=s["ranks"], layout=s["layout"],
+                   reckoned=want)
+        rows.append(row)
+        check(row["steps"] == GANG_STEPS, f"mpmd gang stage {k}: {row['steps']} steps")
+        check(st["sent"]["act"][1] == want["act_bytes"] * GANG_STEPS
+              and st["sent"]["grad"][1] == want["grad_bytes"] * GANG_STEPS,
+              f"mpmd gang stage {k}: link bytes {st['sent']}, reckoned {want} a step")
+        for kind, nbytes in want["moves"].items():
+            count = want["moves_count"] * GANG_STEPS if nbytes else 0
+            check(gang[kind] == [count, nbytes * GANG_STEPS],
+                  f"mpmd gang stage {k}: {kind} {gang[kind]}, reckoned "
+                  f"{count} moves of {nbytes * GANG_STEPS} B")
+        check(len(s["ranks"]) == MPMD_GANG_CARDS, f"mpmd gang stage {k}: ranks {s['ranks']}")
+        for card in s["ranks"]:
+            check(card["flash_launches"] == {n: c * GANG_STEPS
+                                             for n, c in want["launches"].items()},
+                  f"mpmd gang stage {k} rank {card['rank']}: launches "
+                  f"{card['flash_launches']}, want {want['launches']} a step")
+            check(card["params"] == want["card_params"],
+                  f"mpmd gang stage {k} rank {card['rank']}: {card['params']} params, "
+                  f"reckoned {want['card_params']}")
+            check(card["max_memory_allocated"] < CARD_BYTES,
+                  f"mpmd gang stage {k} rank {card['rank']}: peak "
+                  f"{card['max_memory_allocated']} B")
+    return rows
+
+
+def _attempt_pids(run: dict) -> dict[int, list[list[int]]]:
+    """Each stage's attempts' pids, from the supervisor's ``attempt`` events."""
+    out: dict[int, list[list[int]]] = {}
+    for e in run["events"]:
+        if e.get("kind") == "attempt" and e.get("edge") == "begin":
+            out.setdefault(e["stage"], []).append(e["pids"])
+    return out
+
+
+def _print_gang_table(name: str, table: list[dict]) -> None:
+    for row in table:
+        peaks = [c.get("max_memory_allocated", 0) / 1e9 for c in row["ranks"]]
+        print(f"mpmd {name} stage {row['stage']} ({row['plan'] or row['mode']}, "
+              f"mesh {dict((a, n) for a, n in row['mesh'].items() if n > 1)}): "
+              f"{row['step_ms']:.1f} ms a step, {row['tokens_per_sec_per_card']:.0f} "
+              f"tokens/s a card, transport ms a microbatch d2h {row['d2h_ms_per_mb']} "
+              f"send {row['send_ms_per_mb']} h2d {row['h2d_ms_per_mb']}, gang collective "
+              f"ms a move {row['gang_ms_per_move']}, peak GB a card {peaks} (reckoned "
+              f"state {row['reckoned']['state_bytes'] / 1e9:.2f} GB)", flush=True)
+
+
+def train_llama_mpmd_stages(torch, b_losses: list | None) -> dict:
+    """Stages of two cards (``--gang llama-mpmd``, four cards): (e) config
+    5's 7B full fine-tune over two stages, stage 0 FSDP2 at fsdp=2 and stage
+    1 the Megatron splits at tensor=2, ``sharded`` 1F1B, against (b)'s
+    losses (the one-card stages in 1F1B on the same weights and batches) at
+    MPMD_1F1B_RTOL, the layouts FSDP2 and ``DTensor``; (f) ``exact`` at
+    data=2 both stages, the 7B widths at MPMD_EXACT_LAYERS layers, against
+    the port's GPipe ``Trainer`` at data=2 × pipe=2 in this call: per-step
+    losses and final params bitwise; (g) MPMD_GEOMETRY_LAYERS layers under
+    SGD in f32 compute, data=2 stages with a checkpoint every 2 steps, and
+    stage 1 restarted at tensor=2 (``sharded``, the full-batch loss) from
+    the step-2 checkpoints: the 4 losses at MPMD_GEOMETRY_RTOL; (h) the
+    kill drill on (g)'s run (``die_host@5`` on rank 1 of stage 1): only
+    stage 1's two processes relaunched, stage 0's pids unchanged, losses
+    and final params bitwise; then the driver at its defaults (two stages
+    of two cards). K1–K3 at a tensor=2 card's shape (16 heads, 2 rows)
+    beside SDPA first. ``b_losses``: (b)'s, None to run (b) here."""
+    import shutil
+    import subprocess as sp
+
+    from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
+
+    root = ROOT / "build" / "chip_smoke_mpmd_stages"
+    shape_k1 = check_flash_fwd(torch, fa, _llama_mpmd_cases(torch))
+    shape_k23 = check_flash_bwd(torch, fa, _llama_mpmd_cases(torch))
+    torch.cuda.empty_cache()
+    if b_losses is None:
+        run_b = _mpmd_supervised(root / "b-1f1b", _mpmd_spec(LLAMA_LAYERS, "sharded"))
+        b_losses = run_b["done"]["losses"]
+        shutil.rmtree(root / "b-1f1b", ignore_errors=True)
+    theory = (MPMD_GANG_STAGES - 1) / (MPMD_MICRO + MPMD_GANG_STAGES - 1)
+    gang = dict(stages=MPMD_GANG_STAGES, cards=MPMD_GANG_CARDS)
+
+    # (e) the 7B, heterogeneous
+    spec_e = _mpmd_spec(LLAMA_LAYERS, "sharded", **MPMD_HETERO)
+    run_e = _mpmd_supervised(root / "e-hetero", spec_e, **gang)
+    table_e = _mpmd_gang_table(run_e, spec_e)
+    lay0, lay1 = table_e[0]["layout"], table_e[1]["layout"]
+    # FSDP2 shards each stage-0 param of 2**10 elements or more on its
+    # largest dim over fsdp; stage 1 holds DTensors over tensor alone
+    first = f"layers.{LLAMA_LAYERS // MPMD_GANG_STAGES}"
+    layouts_ok = (lay0["fsdp_modules"] > 0 and lay1["fsdp_modules"] == 0
+                  and all(m == ["fsdp"] and len(pl) == 1 and pl[0].startswith("Shard(")
+                          for m, pl in lay0["sharded"].values())
+                  and {"token_embed.weight", "layers.0.mlp.gate.weight"} <= set(lay0["sharded"])
+                  and all(m == ["tensor"] for m, _ in lay1["sharded"].values())
+                  and lay1["sharded"].get("lm_head.weight") == [["tensor"], ["Shard(0)"]]
+                  and lay1["sharded"].get(f"{first}.mlp.down.weight")
+                  == [["tensor"], ["Shard(1)"]])
+    e = dict(losses=run_e["done"]["losses"], b_losses=b_losses,
+             max_loss_rel_err=_loss_gap(run_e["done"]["losses"], b_losses),
+             layouts_ok=layouts_ok, sharded_params=(len(lay0["sharded"]), len(lay1["sharded"])),
+             wall_s=run_e["wall_s"], bubble=run_e["pipeline"], stages=table_e)
+    shutil.rmtree(root / "e-hetero", ignore_errors=True)
+
+    # (f) exact at data=2 against the GPipe Trainer at data=2 × pipe=2
+    spec_f = _mpmd_spec(MPMD_EXACT_LAYERS, mesh={"data": MPMD_GANG_CARDS})
+    ref_f = _mpmd_ref_run(root / "f-gpipe", spec_f, MPMD_GANG_STAGES, MPMD_GANG_CARDS)
+    run_f = _mpmd_supervised(root / "f-exact", spec_f, **gang)
+    table_f = _mpmd_gang_table(run_f, spec_f)
+    gpipe = {card["stage"]: card["param_digests"] for card in ref_f["cards"]}
+    digests_f = {k: run_f["summaries"][k][-1]["param_digests"] for k in range(2)}
+    f = dict(losses=run_f["done"]["losses"], gpipe_losses=ref_f["losses"],
+             max_loss_rel_err=_loss_gap(run_f["done"]["losses"], ref_f["losses"]),
+             bitwise=[np.float32(x).tobytes() for x in run_f["done"]["losses"]]
+             == [np.float32(x).tobytes() for x in ref_f["losses"]],
+             params_bitwise=all(bool(digests_f[k]) and all(
+                 gpipe.get(k, {}).get(n) == d for n, d in digests_f[k].items())
+                 for k in range(2)),
+             params_differing=sorted(n for k in range(2) for n, d in digests_f[k].items()
+                                     if gpipe.get(k, {}).get(n) != d),
+             gpipe_step_ms=ref_f["step_ms"], gpipe_cards=ref_f["cards"],
+             wall_s=run_f["wall_s"], bubble=run_f["pipeline"], stages=table_f)
+    shutil.rmtree(root / "f-gpipe", ignore_errors=True)
+    shutil.rmtree(root / "f-exact", ignore_errors=True)
+
+    # (g) the geometry change on restore, from (g)'s clean run's step 2
+    sgd = {"name": "sgd", "lr": MPMD_SGD_LR}
+    f32 = {**MPMD_7B, "num_layers": MPMD_GEOMETRY_LAYERS, "dtype": "float32"}
+    spec_g = _mpmd_spec(MPMD_GEOMETRY_LAYERS, optimizer=sgd, checkpoint_every=2,
+                        mesh={"data": MPMD_GANG_CARDS}, cfg=f32)
+    clean = _mpmd_supervised(root / "g-clean", spec_g, **gang)
+    moved = root / "g-moved"
+    shutil.rmtree(moved, ignore_errors=True)
+    for k in range(2):
+        shutil.copytree(root / "g-clean" / f"stage{k}" / "ckpt" / "2",
+                        moved / f"stage{k}" / "ckpt" / "2", copy_function=os.link)
+    spec_moved = {**spec_g, "steps": 4, "mode": "sharded", "loss_mode": "full_batch",
+                  "stage_meshes": {"1": {"data": 1, "tensor": MPMD_GANG_CARDS}},
+                  "stage_plans": {"1": "tensor"}}
+    run_g = _mpmd_supervised(moved, spec_moved, **gang)
+    want_g = clean["done"]["losses"][:4]
+    got_g = run_g["done"]["losses"]
+    g = dict(losses=got_g, uninterrupted=want_g,
+             max_loss_rel_err=max(abs(a - b) / abs(b) for a, b in zip(got_g, want_g))
+             if len(got_g) == len(want_g) == 4 else None,
+             stage1=dict(mesh=run_g["summaries"][1][-1]["mesh"],
+                         plan=run_g["summaries"][1][-1]["plan"],
+                         sharded=len(run_g["summaries"][1][-1]["layout"]["sharded"])),
+             wall_s=run_g["wall_s"])
+    shutil.rmtree(moved, ignore_errors=True)
+
+    # (h) the kill drill on a gang, against (g)'s clean run
+    run_h = _mpmd_supervised(root / "h-drill", spec_g, {
+        "DLS_FAULT": "die_host@5", "DLS_FAULT_HOST": "1", "DLS_FAULT_RANK": "1",
+        "DLS_FAULT_ONCE": "1"}, **gang)
+    pids = _attempt_pids(run_h)
+    h = dict(losses=run_h["done"]["losses"], restarts=run_h["restarts"],
+             attempts=run_h["attempts"], pids=pids,
+             stage0_pids_kept=[c["pid"] for c in run_h["summaries"][0][-1]["ranks"]]
+             == (pids.get(0) or [[]])[0] and len(pids.get(0, [])) == 1,
+             stage1_relaunched=len(pids.get(1, [])) == 2
+             and not set(pids[1][0]) & set(pids[1][1])
+             and len(pids[1][1]) == MPMD_GANG_CARDS,
+             bitwise=run_h["done"]["losses"] == clean["done"]["losses"],
+             params_bitwise=all(run_h["summaries"][k][-1]["param_digests"]
+                                == clean["summaries"][k][-1]["param_digests"]
+                                for k in range(2)),
+             timing=_mpmd_drill_timing(run_h), wall_s=run_h["wall_s"],
+             recoveries=[(ev.get("event"), ev.get("stage")) for ev in run_h["events"]
+                         if ev.get("kind") == "recovery"])
+    shutil.rmtree(root / "g-clean", ignore_errors=True)
+    shutil.rmtree(root / "h-drill", ignore_errors=True)
+
+    # the driver at its defaults: two stages of two cards
+    drv_wd = root / "driver"
+    shutil.rmtree(drv_wd, ignore_errors=True)
+    t0 = time.time()
+    drv = sp.run([sys.executable, "-m", f"{PKG}.examples.train_llama_mpmd", "--workdir",
+                  str(drv_wd)], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    drv_s = time.time() - t0
+    drv_lines = [x for x in drv.stdout.splitlines() if x.startswith("{")]
+    check(drv.returncode == 0 and len(drv_lines) == 1,
+          f"mpmd driver exited {drv.returncode}: {drv.stdout[-1500:]} {drv.stderr[-1500:]}")
+    driver = json.loads(drv_lines[0])
+
+    rec = dict(theoretical_bubble=theory, e=e, f=f, g=g, h=h,
+               driver=dict(extra=driver["extra"], value=driver["value"], wall_s=drv_s),
+               k1_tp2=shape_k1, k23_tp2=shape_k23,
+               card=nvidia_smi_line(), torch_version=torch.__version__)
+    print("gang llama-mpmd stages " + json.dumps(rec, default=str), flush=True)
+    _print_gang_table("e", table_e)
+    _print_gang_table("f", table_f)
+    for kr in shape_k1 + shape_k23:
+        print(f"mpmd tp2 shape {kr.get('case')}: ms {kr.get('ms')} plain "
+              f"{kr.get('plain_ms')} SDPA {kr.get('library_ms')} bound {kr.get('bound_ms')}",
+              flush=True)
+    print(f"mpmd gang bubble: e {run_e['pipeline'].get('measured_bubble_frac')} f "
+          f"{run_f['pipeline'].get('measured_bubble_frac')} theory {theory:.4f}; drill "
+          f"{h['timing']}", flush=True)
+    check(e["max_loss_rel_err"] <= MPMD_1F1B_RTOL,
+          f"mpmd e: losses {e['losses']} off (b)'s {b_losses}")
+    check(layouts_ok, f"mpmd e: the layouts are not FSDP2 | DTensor: {lay0} {lay1}")
+    check(f["bitwise"] and f["params_bitwise"],
+          f"mpmd f: losses {f['losses']} (or final params {f['params_differing']}) not "
+          f"bitwise the GPipe Trainer's {f['gpipe_losses']}")
+    check(g["max_loss_rel_err"] is not None and g["max_loss_rel_err"] <= MPMD_GEOMETRY_RTOL
+          and g["stage1"]["mesh"]["tensor"] == MPMD_GANG_CARDS and g["stage1"]["sharded"] > 0,
+          f"mpmd g: losses {g['losses']} against {g['uninterrupted']}, stage 1 {g['stage1']}")
+    check(h["restarts"] == {0: 0, 1: 1} and h["stage0_pids_kept"] and h["stage1_relaunched"],
+          f"mpmd h: restarts {h['restarts']}, pids {h['pids']}")
+    check(("stage-restart", 1) in h["recoveries"] and ("pipeline-resync", 0) in h["recoveries"],
+          f"mpmd h: recoveries {h['recoveries']}")
+    check(h["bitwise"] and h["params_bitwise"],
+          f"mpmd h: losses (or final params) not bitwise the clean run's: {h}")
+    check(driver["extra"]["ok"] and driver["extra"]["final_step"] == 8
+          and driver["extra"]["devices_per_stage"] == MPMD_GANG_CARDS
+          and all(v == 0 for v in driver["extra"]["restarts_per_stage"].values()),
+          f"mpmd driver: {driver}")
+    return rec
+
+
 def train_llama_mpmd_gang(torch, ranks: int) -> dict:
     """Config 5 as an MPMD pipeline of MPMD_STAGES one-card stages
     (``--gang llama-mpmd``, four cards): (a) the 7B full fine-tune (every
@@ -6071,8 +6414,9 @@ def train_llama_mpmd_gang(torch, ranks: int) -> dict:
     process (a thread a stage), against one card's ``Trainer``: losses and
     each param's change, and a repeat bitwise; the same in 1F1B; the
     planted MPMD_FAULTS at (c)'s size; (d) the kill drill at (c)'s size (``die_host@5`` on stage
-    1, a checkpoint every 2 steps), then the driver
-    ``examples/train_llama_mpmd.py`` at its defaults. Held: (a)'s losses
+    1, a checkpoint every 2 steps), then (e)–(h) and the driver
+    ``examples/train_llama_mpmd.py`` at its defaults, two stages of two cards
+    (:func:`train_llama_mpmd_stages`). Held: (a)'s losses
     and final params bitwise the GPipe ``Trainer``'s, (b)'s losses at
     MPMD_1F1B_RTOL, (c)'s at GANG_LOSS_RTOL and its params' changes at
     MPMD_PARAM_RTOL in both modes, (d)'s losses and final params bitwise
@@ -6081,8 +6425,6 @@ def train_llama_mpmd_gang(torch, ranks: int) -> dict:
     each fault breaking a limit. Prints each stage's ms a step, tokens/s a
     card, the transport's ms a microbatch, the measured bubble against
     (P − 1)/(M + P − 1) and the drill's seconds."""
-    import subprocess as sp
-
     check(ranks >= MPMD_STAGES, f"mpmd: {ranks} cards, the pipeline takes {MPMD_STAGES}")
     root = ROOT / "build" / "chip_smoke_mpmd"
     spec_a = _mpmd_spec(LLAMA_LAYERS)
@@ -6139,16 +6481,6 @@ def train_llama_mpmd_gang(torch, ranks: int) -> dict:
 
     for k in range(MPMD_STAGES):  # checkpoints of 1-3 GB a stage
         shutil.rmtree(root / "d-drill" / f"stage{k}" / "ckpt", ignore_errors=True)
-    drv_wd = root / "driver"
-    shutil.rmtree(drv_wd, ignore_errors=True)
-    t0 = time.time()
-    drv = sp.run([sys.executable, "-m", f"{PKG}.examples.train_llama_mpmd", "--workdir",
-                  str(drv_wd)], cwd=ROOT, capture_output=True, text=True, timeout=600)
-    drv_s = time.time() - t0
-    drv_lines = [x for x in drv.stdout.splitlines() if x.startswith("{")]
-    check(drv.returncode == 0 and len(drv_lines) == 1,
-          f"mpmd driver exited {drv.returncode}: {drv.stdout[-1500:]} {drv.stderr[-1500:]}")
-    driver = json.loads(drv_lines[0])
 
     theory = (MPMD_STAGES - 1) / (MPMD_MICRO + MPMD_STAGES - 1)
     gpipe_digests = {card["stage"]: card["param_digests"] for card in ref_a["cards"]}
@@ -6178,7 +6510,6 @@ def train_llama_mpmd_gang(torch, ranks: int) -> dict:
                timing=_mpmd_drill_timing(run_d), wall_s=run_d["wall_s"],
                recoveries=[(e.get("event"), e.get("stage")) for e in run_d["events"]
                            if e.get("kind") == "recovery"]),
-        driver=dict(extra=driver["extra"], value=driver["value"], wall_s=drv_s),
         card=nvidia_smi_line(), torch_version=torch.__version__)
     print("gang llama-mpmd " + json.dumps(rec, default=str), flush=True)
     for row in table_a:
@@ -6214,9 +6545,7 @@ def train_llama_mpmd_gang(torch, ranks: int) -> dict:
           f"mpmd d: recoveries {d['recoveries']}")
     check(d["bitwise_c"] and d["params_bitwise_c"],
           f"mpmd d: losses (or final params) not bitwise (c)'s: {d}")
-    check(driver["extra"]["ok"] and driver["extra"]["final_step"] == 8
-          and all(v == 0 for v in driver["extra"]["restarts_per_stage"].values()),
-          f"mpmd driver: {driver}")
+    rec["stages_of_two_cards"] = train_llama_mpmd_stages(torch, run_b["done"]["losses"])
     return rec
 
 
@@ -6237,8 +6566,8 @@ def gang_main(torch, names: list[str]) -> int:
         print(f"chip_smoke --gang: {ranks} card(s); it needs 2 or more",
               file=sys.stderr)
         return 2
-    parts = ["llama", "llama-cp", "llama-drain", "llama-moe", "llama-mpmd", "llama-pp",
-             "llama-pp-steps", "recovery"]
+    parts = ["llama", "llama-cp", "llama-drain", "llama-moe", "llama-mpmd",
+             "llama-mpmd-stages", "llama-pp", "llama-pp-steps", "recovery"]
     if not set(names) <= set(GANG_FAULTS) | set(parts):
         print(f"chip_smoke --gang: no part {names}; choose from "
               f"{sorted(GANG_FAULTS) + parts}", file=sys.stderr)
@@ -6267,6 +6596,8 @@ def gang_main(torch, names: list[str]) -> int:
             train_llama_pp_gang(torch, ranks, faults=False)
         if not names or "llama-mpmd" in names:
             train_llama_mpmd_gang(torch, ranks)
+        if "llama-mpmd-stages" in names:  # (e)-(h) and the driver only
+            train_llama_mpmd_stages(torch, None)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -1,10 +1,11 @@
 """MPMD pipeline training end to end: N stage processes, one supervisor.
 
 The port of ``examples/train_llama_mpmd.py``. Launches a pipeline of
-independent stage processes (:mod:`..train.pipeline_trainer`'s built-in
-worker, one card each: stage k sees card k of the visible ones through
-``CUDA_VISIBLE_DEVICES``) training the built-in tiny Llama over the socket
-transport, supervised with stage-scoped restart
+independent stage gangs (:mod:`..train.pipeline_trainer`'s built-in
+worker, one process a card: stage k of n cards a stage sees cards k·n …
+k·n+n−1 of the visible ones through ``CUDA_VISIBLE_DEVICES``, its mesh
+``{"data": n}`` as JAX's driver lays it) training the built-in tiny Llama
+over the socket transport, supervised with stage-scoped restart
 (:class:`..supervisor.PipelineSupervisor`). Prints ONE summary JSON line
 with the loss trajectory, the measured bubble fraction against the
 (P−1)/(M+P−1) bound from the run's own trace spans (the port's
@@ -12,11 +13,9 @@ with the loss trajectory, the measured bubble fraction against the
 
     python -m distributeddeeplearningspark_tpu_torch.examples.train_llama_mpmd \\
         --steps 8 --microbatches 4
-    ... --kill-stage 1 --kill-at 5       # drill: only stage 1 restarts
-    ... --device cpu                     # every stage on the CPU
-
-A stage of the port is one card: ``--devices-per-stage`` other than 1 is
-refused (ROADMAP Queue 1 item 7, multi-card stages).
+    ... --kill-stage 1 --kill-at 5       # drill: only stage 1's gang restarts
+    ... --device cpu                     # n gloo processes a stage on the CPU
+    ... --devices-per-stage 1            # one card (one process) a stage
 """
 
 import argparse
@@ -25,14 +24,13 @@ import os
 import sys
 import tempfile
 
-from distributeddeeplearningspark_tpu_torch.parallel import plan as plan_lib
 from distributeddeeplearningspark_tpu_torch.utils.device import resolve_device
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stages", type=int, default=2)
-    ap.add_argument("--devices-per-stage", type=int, default=1)
+    ap.add_argument("--devices-per-stage", type=int, default=2)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--seq", type=int, default=32)
@@ -51,21 +49,31 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="--kill-stage fires before this 1-based step")
     ap.add_argument("--max-restarts", type=int, default=3)
     args = ap.parse_args(argv)
-    if args.devices_per_stage != 1:
-        ap.error(f"--devices-per-stage {args.devices_per_stage}: a stage is one "
-                 f"card; {plan_lib.MULTI_CARD_STAGES}")
+    if args.devices_per_stage < 1:
+        ap.error(f"--devices-per-stage {args.devices_per_stage}: at least 1")
     return args
 
 
-def _card_envs(stages: int) -> list[dict[str, str]]:
-    """Each stage's ``CUDA_VISIBLE_DEVICES``: card k of the visible ones
-    (round robin when there are fewer cards than stages)."""
-    import torch
+def _card_envs(stages: int, per_stage: int = 1,
+               visible: list[str] | None = None) -> list[dict[str, str]]:
+    """Each stage's ``CUDA_VISIBLE_DEVICES``: stage k takes cards
+    k·n … k·n+n−1 of the visible ones (``visible``, else the environment's
+    or every card's); fewer cards than stages × n raise (two ranks would
+    share a card)."""
+    if visible is None:
+        env = os.environ.get("CUDA_VISIBLE_DEVICES")
+        if env is not None:
+            visible = [c for c in env.split(",") if c.strip()]
+        else:
+            import torch
 
-    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
-    cards = ([c for c in visible.split(",") if c.strip()] if visible
-             else [str(i) for i in range(torch.cuda.device_count())])
-    return [{"CUDA_VISIBLE_DEVICES": cards[k % len(cards)]} for k in range(stages)]
+            visible = [str(i) for i in range(torch.cuda.device_count())]
+    need = stages * per_stage
+    if len(visible) < need:
+        raise ValueError(f"{stages} stages of {per_stage} card(s) need {need} "
+                         f"cards, {len(visible)} visible")
+    return [{"CUDA_VISIBLE_DEVICES": ",".join(visible[k * per_stage:(k + 1) * per_stage])}
+            for k in range(stages)]
 
 
 def main(argv=None) -> int:
@@ -84,14 +92,15 @@ def main(argv=None) -> int:
         "seq": args.seq, "microbatches": args.microbatches,
         "checkpoint_every": args.checkpoint_every, "seed": 0,
         "mode": args.mode, "device": args.device,
+        "mesh": {"data": args.devices_per_stage},
     }
     env = {"DLS_PIPE_SPEC": json.dumps(spec)}
     if args.kill_stage is not None:
         env.update({"DLS_FAULT": f"die_host@{args.kill_at}",
                     "DLS_FAULT_HOST": str(args.kill_stage),
                     "DLS_FAULT_ONCE": "1"})
-    stage_envs = (_card_envs(args.stages) if args.device == "cuda"
-                  else [{} for _ in range(args.stages)])
+    stage_envs = (_card_envs(args.stages, args.devices_per_stage)
+                  if args.device == "cuda" else [{} for _ in range(args.stages)])
     sup = PipelineSupervisor(
         [StagePlan(env=e) for e in stage_envs], env=env,
         telemetry_dir=workdir, max_restarts=args.max_restarts,
@@ -114,6 +123,7 @@ def main(argv=None) -> int:
             "ok": result.ok,
             "workdir": workdir,
             "stages": args.stages,
+            "devices_per_stage": args.devices_per_stage,
             "microbatches": args.microbatches,
             "mode": args.mode,
             "device": args.device,

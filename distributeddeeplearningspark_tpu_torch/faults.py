@@ -56,7 +56,10 @@ Determinism rules (the JAX package's, unchanged):
   contract). ``die_host`` instead targets by *host identity*
   (``DLS_HOST_ID``, the supervisor-exported original host ordinal, falling
   back to ``DLS_PROCESS_ID``), so after an elastic shrink renumbers the
-  ranks the fault keeps naming the same machine.
+  ranks the fault keeps naming the same machine. Where a host is a gang
+  of processes (an MPMD pipeline stage of several cards,
+  :class:`~.supervisor.PipelineSupervisor`), ``DLS_FAULT_RANK`` narrows
+  ``die_host`` to one of them; the JAX package's host is one process.
 - ``nan`` fires exactly once (the equality-matched step); ``crash``/``hang``
   never return; ``truncate_ckpt`` fires at the first checkpoint boundary at
   or after its step.
@@ -162,14 +165,18 @@ def get() -> Fault | None:
         if (os.environ.get("DLS_RESTART", "0") != "0"
                 and os.environ.get("DLS_FAULT_ONCE") == "1"):
             return None
-        return fault if this_host() == fault_host() else None
+        return fault if this_host() == fault_host() and _rank_targeted() else None
     if (os.environ.get("DLS_RESTART", "0") != "0"
             and os.environ.get("DLS_FAULT_ALL_ATTEMPTS") != "1"):
         return None
+    return fault if _rank_targeted() else None
+
+
+def _rank_targeted() -> bool:
+    """False where ``DLS_FAULT_RANK`` names another rank than this
+    process's ``DLS_PROCESS_ID``."""
     rank = os.environ.get("DLS_FAULT_RANK")
-    if rank is not None and int(os.environ.get(PROCESS_ID_ENV, "0") or 0) != int(rank):
-        return None
-    return fault
+    return rank is None or int(os.environ.get(PROCESS_ID_ENV, "0") or 0) == int(rank)
 
 
 #: Env var carrying the path of a run's preemption-notice file (a

@@ -18,10 +18,9 @@ and refused by :meth:`Plan.validate` naming the ROADMAP item: ``zero_axes``
 ``compile_step_with_plan``, item 5). A plan's rules may carry the GPipe
 pipeline's stage layout (``ShardingRules.stage_pattern``, the port's
 form of JAX's ``P("pipe", ...)`` on stacked layers), which its record
-keeps. :func:`stage_plan` (the MPMD pipeline's per-stage layout) takes
-``"replicated"`` only: a stage is one card, and the layouts that spread a
-stage over several (``fsdp``, ``tensor``, ``zero``) are refused by name
-(:data:`MULTI_CARD_STAGES`). Nor are the JAX
+keeps. :func:`stage_plan` builds the MPMD pipeline's per-stage layouts
+(``replicated``, ``fsdp``, ``tensor``) as JAX's does, and refuses ``zero``
+(item 5). Nor are the JAX
 build's ``PlanTensorAxisWarning`` and ``DLS_PLAN_ALLOW_TENSOR``: they
 guard against that jax's partitioner, which miscomputes losses on
 ``tensor`` meshes; the port lowers a plan's ``tensor`` entries to
@@ -291,20 +290,28 @@ def plan_for_rules(rules: ShardingRules, *, context_parallel: bool = False,
                 seq_axis="seq" if context_parallel else None)
 
 
-#: where the MPMD pipeline's stages of more than one card stand
-MULTI_CARD_STAGES = "stages of more than one card: ROADMAP Queue 1 item 7, multi-card stages"
-
-
-def stage_plan(name: str) -> Plan:
+def stage_plan(name: str, cfg=None, *, fsdp_min_size: int = 2**14) -> Plan:
     """Per-stage pipeline layouts by name (``DLS_PIPE_SPEC``'s
-    ``stage_plans``/``plan`` values). A stage of the port's MPMD pipeline
-    is one process on one card, so only ``replicated`` runs; ``fsdp``,
-    ``tensor`` and ``zero`` (JAX's wide-fsdp, Megatron and ZeRO stage
-    gangs) raise :class:`PlanError` naming the ROADMAP item."""
+    ``stage_plans``/``plan`` values, JAX's): ``replicated``; ``fsdp`` (wide
+    sharded storage: every param of at least ``fsdp_min_size`` elements over
+    the stage's ``fsdp`` axis); ``tensor`` (the Megatron splits of
+    ``llama_rules(cfg, fsdp=False)``, so it needs the model cfg). ``zero``
+    (replicated params, replica-sharded optimizer state) raises
+    :class:`PlanError` naming ROADMAP Queue 1 item 5, as :meth:`Plan.validate`
+    refuses ``zero_axes``."""
     if name == "replicated":
         return Plan(name="stage-replicated")
-    if name in ("fsdp", "tensor", "zero"):
-        raise PlanError(f"stage_plan({name!r}) lays a stage over several cards; "
-                        f"not ported yet ({MULTI_CARD_STAGES})")
+    if name == "fsdp":
+        return Plan(name="stage-fsdp",
+                    rules=ShardingRules(fsdp=True, fsdp_min_size=fsdp_min_size))
+    if name == "tensor":
+        if cfg is None:
+            raise PlanError("stage_plan('tensor') needs the model cfg")
+        from distributeddeeplearningspark_tpu_torch.models.llama import llama_rules
+
+        return Plan(name="stage-tensor", rules=llama_rules(cfg, fsdp=False))
+    if name == "zero":
+        raise PlanError("stage_plan('zero') (ZeRO weight-update sharding) is not "
+                        "ported yet: ROADMAP Queue 1 item 5")
     raise PlanError(
         f"unknown stage plan {name!r} (want replicated|fsdp|tensor|zero)")

@@ -826,9 +826,10 @@ class Supervisor:
 @dataclasses.dataclass
 class StagePlan:
     """One pipeline stage's launch recipe: the worker command plus any
-    stage-specific env (on a card, its ``CUDA_VISIBLE_DEVICES``).
-    ``argv=None`` uses the built-in env-configured stage worker
-    (``python -m distributeddeeplearningspark_tpu_torch.train.pipeline_trainer``).
+    stage-specific env (on cards, its ``CUDA_VISIBLE_DEVICES``: the stage's
+    cards, rank r of its gang on the r-th). ``argv=None`` uses the built-in
+    env-configured stage worker (``python -m
+    distributeddeeplearningspark_tpu_torch.train.pipeline_trainer``).
     """
 
     argv: list[str] | None = None
@@ -839,6 +840,13 @@ class StagePlan:
             return list(self.argv)
         return [sys.executable, "-m",
                 "distributeddeeplearningspark_tpu_torch.train.pipeline_trainer"]
+
+    def cards(self) -> int | None:
+        """How many cards its ``CUDA_VISIBLE_DEVICES`` lists (None: unset)."""
+        visible = self.env.get("CUDA_VISIBLE_DEVICES")
+        if visible is None:
+            return None
+        return len([c for c in visible.split(",") if c.strip()])
 
 
 @dataclasses.dataclass
@@ -857,35 +865,45 @@ class PipelineResult:
 
 
 class PipelineSupervisor:
-    """Launch and monitor an MPMD stage pipeline: one independent process
-    per stage, each with its OWN env, card, failure domain and checkpoint
-    lineage.
+    """Launch and monitor an MPMD stage pipeline: one independent gang of
+    processes per stage, each with its OWN env, cards, failure domain and
+    checkpoint lineage.
 
     The gang :class:`Supervisor` restarts the WHOLE gang on any failure —
     right for SPMD, where one lost rank poisons every collective. A
     pipeline of stages fails narrower: stages touch each other only through
-    the :mod:`.parallel.mpmd` socket transport, so when stage *k* dies its
-    peers merely block (re-listening / re-dialing, stamping their
-    heartbeats) while THIS supervisor relaunches stage *k* alone with a
-    bumped per-stage ``DLS_RESTART``; the reconnected pipeline then agrees
-    on the resume step and rolls back to it
-    (``PipelineTransport.sync_step``). Every attempt/recovery record carries
-    ``stage=`` so ``dlstatus`` shows which stage burned the restarts.
-    Classifications: ``clean``, ``stage-crash``, ``restore-failure``
-    (:data:`RESTORE_FAILED_EXIT`) and ``hang`` (the heartbeat watchdog).
+    the :mod:`.parallel.mpmd` socket transport, so when a rank of stage *k*
+    dies or hangs its peers merely block (re-listening / re-dialing,
+    stamping their heartbeats) while THIS supervisor kills stage *k*'s
+    whole gang (a surviving rank would wait forever in a collective) and
+    relaunches it alone with a bumped per-stage ``DLS_RESTART``; the other
+    stages' processes keep running, and the reconnected pipeline agrees on
+    the resume step and rolls back to it (``PipelineTransport.sync_step``).
+    Every attempt/recovery record carries ``stage=`` and
+    ``num_processes=`` so ``dlstatus`` shows which stage burned the
+    restarts. Classifications: ``clean``, ``stage-crash``,
+    ``restore-failure`` (:data:`RESTORE_FAILED_EXIT`) and ``hang`` (the
+    heartbeat watchdog: any rank's stale heartbeat is its stage's hang).
 
-    Topology env exported to every stage process: ``DLS_STAGE_ID``,
-    ``DLS_NUM_STAGES``, ``DLS_PIPE_PORTS`` (JSON — port *k* carries the
-    k↔k+1 link), ``DLS_PIPE_AUTHKEY``, plus the familiar contract
-    (``DLS_PROCESS_ID``/``DLS_HOST_ID`` = stage ordinal, ``DLS_RESTART`` =
-    per-stage attempt, ``DLS_TELEMETRY_DIR``, ``DLS_HEARTBEAT_FILE`` with a
-    watchdog, ``PYTHONPATH`` naming the port's parent, ``OMP_NUM_THREADS``
-    = cores / stages unless set). ``DLS_FAULT=die_host@N`` with
-    ``DLS_FAULT_HOST=k`` therefore targets exactly one stage. Each stage
-    starts in a process group of its own, which a kill takes whole. The
-    supervisor touches no device: a stage takes the card it sees (a
-    ``StagePlan``'s ``CUDA_VISIBLE_DEVICES``) unless its spec asks for the
-    CPU.
+    Stage *k* is a gang of n processes, n the size of its stage mesh
+    (``DLS_PIPE_SPEC``'s ``stage_meshes[k]``, else ``mesh``; a ``-1`` axis
+    absorbs the cards of the stage's ``CUDA_VISIBLE_DEVICES``, one process
+    without them: :func:`.train.pipeline_trainer.stage_processes`), with a
+    rendezvous of its own drawn anew at each attempt (a port the dead gang
+    held may linger in ``TIME_WAIT``). Topology env exported to every
+    process: ``DLS_STAGE_ID``, ``DLS_NUM_STAGES``, ``DLS_PIPE_PORTS`` (JSON
+    — port *k* carries the k↔k+1 link, which rank 0 of each stage holds),
+    ``DLS_PIPE_AUTHKEY``, plus the gang contract within the stage
+    (``DLS_COORDINATOR``, ``DLS_NUM_PROCESSES`` = n, ``DLS_PROCESS_ID`` =
+    the rank in the stage), ``DLS_HOST_ID`` = the stage ordinal,
+    ``DLS_RESTART`` = the per-stage attempt, ``DLS_TELEMETRY_DIR``,
+    ``DLS_HEARTBEAT_FILE`` (one a rank) with a watchdog, ``PYTHONPATH``
+    naming the port's parent and ``OMP_NUM_THREADS`` = cores / processes
+    unless set. ``DLS_FAULT=die_host@N`` with ``DLS_FAULT_HOST=k``
+    therefore targets one stage, and ``DLS_FAULT_RANK=r`` one rank of it.
+    Each process starts in a process group of its own, which a kill takes
+    whole. The supervisor touches no device: a stage takes the cards it
+    sees unless its spec asks for the CPU.
     """
 
     def __init__(self, stages: list[StagePlan], *, max_restarts: int = 3,
@@ -905,7 +923,7 @@ class PipelineSupervisor:
         self.backoff_jitter = backoff_jitter
         self.env = dict(env or {})
         self.wall_timeout_s = wall_timeout_s
-        # per-stage heartbeat watchdog: a stage stamps DLS_HEARTBEAT_FILE in
+        # per-rank heartbeat watchdog: a stage stamps DLS_HEARTBEAT_FILE in
         # every long phase, so a stage that is alive but wedged
         # (DLS_FAULT=hang) is killed and restarted ALONE — without this, its
         # healthy peers would burn their transport timeouts and restart
@@ -918,11 +936,11 @@ class PipelineSupervisor:
             self._hb_dir = tempfile.mkdtemp(prefix="dls_pipe_hb_")
         from distributeddeeplearningspark_tpu_torch.parallel import mpmd
 
+        specs = []
         for i, plan in enumerate(self.stages):
-            if plan.argv is None and not (
-                    mpmd.ENV_SPEC in plan.env
-                    or mpmd.ENV_SPEC in self.env
-                    or mpmd.ENV_SPEC in os.environ):
+            raw = (plan.env.get(mpmd.ENV_SPEC) or self.env.get(mpmd.ENV_SPEC)
+                   or os.environ.get(mpmd.ENV_SPEC))
+            if plan.argv is None and raw is None:
                 # the built-in worker's ONE required input; without this
                 # check every stage dies on a raw KeyError and the
                 # supervisor silently burns max_restarts per stage
@@ -931,6 +949,21 @@ class PipelineSupervisor:
                     f"{mpmd.ENV_SPEC} is set (pass it via env= or the "
                     f"StagePlan's env) — the worker cannot boot without "
                     f"its run spec")
+            specs.append(json.loads(raw) if raw else None)
+        from distributeddeeplearningspark_tpu_torch.train.pipeline_trainer import (
+            stage_processes,
+        )
+
+        #: each stage's gang size (its stage mesh's size)
+        self.sizes = [1 if spec is None else stage_processes(spec, i, plan.cards())
+                      for i, (spec, plan) in enumerate(zip(specs, self.stages))]
+        for i, (n, plan) in enumerate(zip(self.sizes, self.stages)):
+            cards = plan.cards()
+            if cards is not None and cards < n:
+                raise ValueError(
+                    f"stage {i} is a gang of {n} processes but its "
+                    f"CUDA_VISIBLE_DEVICES lists {cards} card(s): two ranks "
+                    f"would share a card")
         self.ports = [free_port() for _ in range(self.num_stages - 1)]
         import secrets
 
@@ -945,6 +978,8 @@ class PipelineSupervisor:
         self._launch_t0: list[float] = [0.0] * self.num_stages
         self._launch_wall: list[float] = [0.0] * self.num_stages
         self._attempt_ordinal: list[int] = [0] * self.num_stages
+        #: each stage's rendezvous port at its current attempt
+        self._rendezvous: list[int | None] = [None] * self.num_stages
 
     def _telemetry(self) -> telemetry_lib.EventWriter | None:
         if self._tele is None and self.telemetry_dir:
@@ -952,9 +987,12 @@ class PipelineSupervisor:
                 self.telemetry_dir, process="pipeline-supervisor", host=None)
         return self._tele
 
-    def _stage_env(self, idx: int) -> dict[str, str]:
+    def _stage_env(self, idx: int, rank: int = 0) -> dict[str, str]:
+        """The env of rank ``rank`` of stage ``idx``'s gang at its current
+        attempt."""
         from distributeddeeplearningspark_tpu_torch.parallel import mpmd
 
+        n = self.sizes[idx]
         env = {
             **os.environ,
             **self.env,
@@ -963,47 +1001,60 @@ class PipelineSupervisor:
             mpmd.ENV_NUM_STAGES: str(self.num_stages),
             mpmd.ENV_PORTS: json.dumps(self.ports),
             mpmd.ENV_AUTHKEY: self.authkey,
-            PROCESS_ID_ENV: str(idx),
-            NUM_PROCESSES_ENV: str(self.num_stages),
+            PROCESS_ID_ENV: str(rank),
+            NUM_PROCESSES_ENV: str(n),
             "DLS_HOST_ID": str(idx),
             "DLS_RESTART": str(self._ordinals[idx]),
         }
+        if n > 1:
+            env[COORDINATOR_ENV] = f"127.0.0.1:{self._rendezvous[idx]}"
+        else:
+            env.pop(COORDINATOR_ENV, None)
         env.setdefault("OMP_NUM_THREADS", str(
-            max(1, (os.cpu_count() or 1) // self.num_stages)))
+            max(1, (os.cpu_count() or 1) // sum(self.sizes))))
         path = env.get("PYTHONPATH")
         env["PYTHONPATH"] = _PKG_PARENT + (os.pathsep + path if path else "")
         if self.telemetry_dir:
             env[telemetry_lib.WORKDIR_ENV] = self.telemetry_dir
         if self._hb_dir is not None:
-            env["DLS_HEARTBEAT_FILE"] = self._hb_path(idx)
+            env["DLS_HEARTBEAT_FILE"] = self._hb_path(idx, rank)
         return env
 
-    def _hb_path(self, idx: int) -> str:
+    def _hb_path(self, idx: int, rank: int = 0) -> str:
         assert self._hb_dir is not None
-        return os.path.join(self._hb_dir, f"hb_{idx}")
+        return os.path.join(self._hb_dir, f"hb_{idx}_{rank}")
 
     def _hb_stale(self, idx: int, since: float) -> bool:
-        """True when stage ``idx`` has produced no heartbeat for
+        """True when any rank of stage ``idx`` has produced no heartbeat for
         ``hang_timeout_s`` (measured from its launch until the first
         stamp, then from the last stamp)."""
         assert self.hang_timeout_s is not None
-        try:
-            mtime = os.stat(self._hb_path(idx)).st_mtime
-        except OSError:
-            mtime = None
-        last = since if mtime is None else max(since, mtime)
-        return time.time() - last > self.hang_timeout_s
+        for rank in range(self.sizes[idx]):
+            try:
+                mtime = os.stat(self._hb_path(idx, rank)).st_mtime
+            except OSError:
+                mtime = None
+            last = since if mtime is None else max(since, mtime)
+            if time.time() - last > self.hang_timeout_s:
+                return True
+        return False
 
-    def _launch_stage(self, idx: int) -> subprocess.Popen:
+    def _launch_stage(self, idx: int) -> list[subprocess.Popen]:
+        n = self.sizes[idx]
         if self._hb_dir is not None:
             # reset the liveness clock: a stale file from the previous
             # attempt must not instantly re-condemn the relaunch
-            try:
-                os.remove(self._hb_path(idx))
-            except OSError:
-                pass
-        proc = subprocess.Popen(self.stages[idx].command(),
-                                env=self._stage_env(idx), start_new_session=True)
+            for rank in range(n):
+                try:
+                    os.remove(self._hb_path(idx, rank))
+                except OSError:
+                    pass
+        # a fresh rendezvous each attempt: the dead gang's port may linger
+        self._rendezvous[idx] = free_port() if n > 1 else None
+        gang = [subprocess.Popen(self.stages[idx].command(),
+                                 env=self._stage_env(idx, rank),
+                                 start_new_session=True)
+                for rank in range(n)]
         self._launch_t0[idx] = time.monotonic()
         self._launch_wall[idx] = time.time()
         self._attempt_ordinal[idx] = self._attempt_seq
@@ -1011,64 +1062,82 @@ class PipelineSupervisor:
         if tele is not None:
             tele.attempt("begin", self._attempt_seq, stage=idx,
                          stage_restart=self._ordinals[idx],
-                         num_processes=1)
+                         num_processes=n, pids=[p.pid for p in gang])
         self._attempt_seq += 1
-        logger.info("pipeline: launched stage %d (attempt %d, pid %d)",
-                    idx, self._ordinals[idx], proc.pid)
-        return proc
+        logger.info("pipeline: launched stage %d (attempt %d, %d process(es), "
+                    "pids %s)", idx, self._ordinals[idx], n,
+                    [p.pid for p in gang])
+        return gang
 
-    def _finish_attempt(self, idx: int, rc: int, attempts: dict, *,
+    def _finish_attempt(self, idx: int, codes: list[int], attempts: dict, *,
                         hang: bool = False) -> Attempt:
+        ok = all(rc == 0 for rc in codes)
         cls = ("hang" if hang else
-               "clean" if rc == 0 else
-               "restore-failure" if rc == RESTORE_FAILED_EXIT
+               "clean" if ok else
+               "restore-failure" if RESTORE_FAILED_EXIT in codes
                else "stage-crash")
-        att = Attempt(self._ordinals[idx], [rc],
+        att = Attempt(self._ordinals[idx], list(codes),
                       time.monotonic() - self._launch_t0[idx],
-                      classification=cls, num_processes=1,
-                      dead_host=None if rc == 0 else idx)
+                      classification=cls, num_processes=self.sizes[idx],
+                      dead_host=None if ok and not hang else idx)
         attempts.setdefault(idx, []).append(att)
         tele = self._telemetry()
         if tele is not None:
             tele.attempt("end", self._attempt_ordinal[idx], stage=idx,
-                         returncodes=[rc], classification=cls,
-                         duration_s=att.duration_s, num_processes=1,
-                         **({"dead_host": idx} if rc != 0 else {}))
+                         returncodes=list(codes), classification=cls,
+                         duration_s=att.duration_s,
+                         num_processes=self.sizes[idx],
+                         **({} if ok and not hang else {"dead_host": idx}))
         return att
+
+    @staticmethod
+    def _gang_outcome(gang: list[subprocess.Popen]) -> list[int] | None:
+        """The gang's return codes once it is over: every rank exited 0, or
+        some rank exited non-zero (the others are then killed: a rank that
+        survives a dead peer would wait forever in a collective). None
+        while it runs."""
+        codes = [p.poll() for p in gang]
+        if all(rc == 0 for rc in codes):
+            return codes
+        if not any(rc not in (None, 0) for rc in codes):
+            return None
+        Supervisor._kill(gang)
+        return [p.returncode for p in gang]
 
     def run(self) -> PipelineResult:
         attempts: dict[int, list[Attempt]] = {}
-        procs: list[subprocess.Popen | None] = [
+        gangs: list[list[subprocess.Popen] | None] = [
             self._launch_stage(i) for i in range(self.num_stages)]
         completed = [False] * self.num_stages
         t0 = time.monotonic()
         try:
             while True:
                 progressed = False
-                for idx, proc in enumerate(procs):
-                    if proc is None:
+                for idx, gang in enumerate(gangs):
+                    if gang is None:
                         continue
-                    rc = proc.poll()
+                    codes = self._gang_outcome(gang)
                     hang = False
-                    if rc is None:
+                    if codes is None:
                         if (self.hang_timeout_s is not None
                                 and self._hb_stale(
                                     idx, self._launch_wall[idx])):
                             logger.warning(
                                 "pipeline: stage %d heartbeat silent for "
-                                ">%.0fs — killing the hung stage (peers "
-                                "keep running)", idx, self.hang_timeout_s)
+                                ">%.0fs — killing the hung stage's gang "
+                                "(peers keep running)", idx, self.hang_timeout_s)
                             hang = True
-                            Supervisor._kill([proc])
-                            rc = proc.poll()
+                            Supervisor._kill(gang)
+                            codes = [p.returncode for p in gang]
                         else:
                             continue
                     else:
-                        _reap_groups([proc])  # what it forked goes with it
+                        _reap_groups(gang)  # what it forked goes with it
                     progressed = True
-                    self._finish_attempt(idx, int(rc), attempts, hang=hang)
-                    if rc == 0 and not hang:
-                        procs[idx] = None
+                    self._finish_attempt(idx, [int(rc) for rc in codes],
+                                         attempts, hang=hang)
+                    if all(rc == 0 for rc in codes) and not hang:
+                        gangs[idx] = None
                         completed[idx] = True
                         logger.info("pipeline: stage %d completed", idx)
                         continue
@@ -1076,9 +1145,9 @@ class PipelineSupervisor:
                         logger.error(
                             "pipeline: stage %d failed rc=%s with "
                             "max_restarts=%d exhausted — tearing down",
-                            idx, rc, self.max_restarts)
-                        procs[idx] = None
-                        self._teardown(procs)
+                            idx, codes, self.max_restarts)
+                        gangs[idx] = None
+                        self._teardown(gangs)
                         return PipelineResult(attempts)
                     delay = min(self.restart_backoff_s
                                 * (2.0 ** self._ordinals[idx]), 30.0)
@@ -1087,33 +1156,35 @@ class PipelineSupervisor:
                                                       self.backoff_jitter)
                     logger.warning(
                         "pipeline: stage %d died rc=%s — restarting ONLY "
-                        "this stage in %.2fs (peers block on the transport)",
-                        idx, rc, delay)
+                        "this stage's gang in %.2fs (peers block on the "
+                        "transport)", idx, codes, delay)
                     tele = self._telemetry()
                     if tele is not None:
                         tele.recovery(None, "stage-restart", stage=idx,
-                                      returncode=int(rc),
+                                      returncode=next((int(rc) for rc in codes
+                                                       if rc != 0), -1),
+                                      num_processes=self.sizes[idx],
                                       ordinal=self._ordinals[idx] + 1,
                                       delay_s=round(delay, 3))
                     time.sleep(max(0.0, delay))
                     self._ordinals[idx] += 1
-                    procs[idx] = self._launch_stage(idx)
+                    gangs[idx] = self._launch_stage(idx)
                 if all(completed):
                     return PipelineResult(attempts)
                 if (self.wall_timeout_s is not None
                         and time.monotonic() - t0 > self.wall_timeout_s):
                     logger.error("pipeline: wall timeout after %.0fs",
                                  self.wall_timeout_s)
-                    self._teardown(procs)
-                    for idx, proc in enumerate(procs):
-                        if proc is not None:
-                            self._finish_attempt(idx, int(proc.returncode
-                                                          or -1), attempts)
+                    self._teardown(gangs)
+                    for idx, gang in enumerate(gangs):
+                        if gang is not None:
+                            self._finish_attempt(idx, [int(p.returncode or -1)
+                                                       for p in gang], attempts)
                     return PipelineResult(attempts)
                 if not progressed:
                     time.sleep(self.poll_interval)
         except BaseException:
-            self._teardown(procs)
+            self._teardown(gangs)
             raise
         finally:
             if self._tele is not None:
@@ -1126,8 +1197,8 @@ class PipelineSupervisor:
                 self._hb_dir = None
 
     @staticmethod
-    def _teardown(procs: list) -> None:
-        Supervisor._kill([p for p in procs if p is not None])
+    def _teardown(gangs: list) -> None:
+        Supervisor._kill([p for gang in gangs if gang is not None for p in gang])
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -171,7 +171,12 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
         c = count.float()
         bc1 = 1.0 - torch.pow(b1, c)
         bc2 = 1.0 - torch.pow(b2, c)
-        denom = torch._foreach_div(nu, bc2)
+        # the gradients are spent: the denominator takes their memory, so
+        # the update is the one param-sized temporary (nu / bc2 in place is
+        # the same division, bit for bit, as into a new list)
+        denom = updates
+        torch._foreach_copy_(denom, nu)
+        torch._foreach_div_(denom, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, eps)
         out = torch._foreach_div(mu, bc1)

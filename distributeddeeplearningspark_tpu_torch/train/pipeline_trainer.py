@@ -1,13 +1,20 @@
-"""MPMD pipeline trainer — each stage its own process on its own card, the
-port of ``distributeddeeplearningspark_tpu/train/pipeline_trainer.py``.
+"""MPMD pipeline trainer — each stage its own gang of processes on its own
+cards, the port of ``distributeddeeplearningspark_tpu/train/pipeline_trainer.py``.
 
 :mod:`..parallel.pipeline` runs GPipe inside ONE gang: every stage shares
 one process group, one failure domain and one launch. Here (PAPERS.md
-2412.14374, MPMD pipeline parallelism) stage *k* is a separate OS process
-with its own card, its own optimizer and its own checkpoint lineage,
-exchanging activations and gradients over the authenticated socket
-transport of :mod:`..parallel.mpmd`, double-buffered so stage *k* computes
-microbatch *i* while *i+1* is in flight. Stages never join a collective.
+2412.14374, MPMD pipeline parallelism) stage *k* is a separate gang of OS
+processes, one a card (the port's reading of a JAX stage of n devices),
+with its own ``torch.distributed`` group and mesh
+(:func:`_join_stage_gang`: ``stage_meshes[k]``, else ``mesh``), its own
+layout, optimizer and checkpoint lineage, exchanging activations and
+gradients over the authenticated socket transport of
+:mod:`..parallel.mpmd`, double-buffered so stage *k* computes microbatch
+*i* while *i+1* is in flight. Stages never join a collective with each
+other. Within a stage the lead (rank 0) alone holds the links; what it
+receives goes to its gang over the stage's group, scattered by rows or
+broadcast to tensor peers, and what the stage sends is gathered to it
+first (:class:`StageGang`), on the compute stream.
 
 **The program** (:class:`LlamaStageProgram`) holds one stage of the
 port's Llama (:mod:`..models.llama`): layers ``k·L/P … (k+1)·L/P − 1``
@@ -25,21 +32,31 @@ stage, and K2 and K3 (L/P)·M times each.
 
 **Numerics.** Two modes, as in JAX:
 
-- ``mode="exact"`` (``loss_mode="full_batch"``): the per-microbatch
-  gradients accumulate in the one-program GPipe order (reverse microbatch
-  order, :func:`backward_order`) into the params' ``.grad`` and step once;
-  stage 0 embeds the FULL batch once and back-propagates it once, on the
+- ``mode="exact"`` (``loss_mode="full_batch"``, a stage mesh over
+  ``data``/``fsdp`` only): params whole on every rank; each rank of the
+  stage takes its rows of each microbatch (row shard r holds rows
+  r·B/D … (r+1)·B/D − 1 of the batch, the port's data-parallel feed, and
+  link microbatch i carries each shard's i-th slice in shard order,
+  :meth:`LlamaStageProgram.link_rows`); the per-microbatch gradients
+  accumulate in the one-program GPipe order (reverse microbatch order,
+  :func:`backward_order`) into the params' ``.grad`` and are summed over
+  the row shards once, at the step (``collectives.all_reduce_grads``);
+  stage 0 embeds its rows once and back-propagates them once, on the
   concatenated input gradients; the last stage runs norm → head → loss over
-  the full concatenated batch in one graph, dividing by the mask weight
-  stage 0 computed (:func:`loss_denominator` of its META frame). The same
-  ops in the same order as :mod:`..parallel.pipeline`'s step.
+  its rows of the full batch in one graph, dividing by the mask weight
+  stage 0 computed (:func:`loss_denominator` of its META frame), or over
+  row shards with the data-parallel ``Trainer``'s weighing
+  (``collectives.weigh_loss``). The same ops in the same order as
+  :mod:`..parallel.pipeline`'s step at ``data × pipe``.
 - ``mode="sharded"`` (``loss_mode="per_microbatch"``): the 1F1B schedule;
   the last stage backwards each microbatch right after its forward, and
-  the gradients accumulate in arrival order. JAX lays a stage out by a
-  per-stage plan over a stage mesh; a port stage is one card, so
-  :func:`stage_main` refuses a spec whose stage mesh is more than one card
-  or whose stage plan is not ``replicated``
-  (:func:`..parallel.plan.stage_plan`), by name.
+  the gradients accumulate in arrival order. The stage is laid out by its
+  plan (``stage_plans[k]``, else ``plan``: ``replicated``, ``fsdp``,
+  ``tensor`` or a plan record, :func:`stage_plan_of`) over its mesh with
+  :func:`..parallel.sharding.fully_shard_model`: FSDP2's gradients reduce
+  at each microbatch's backward, as JAX's; a ``tensor`` stage's layers run
+  Megatron's splits on local shards, each rank on every row. ``zero``
+  stays refused (ROADMAP Queue 1 item 5, :func:`refuse_multi_card_stage`).
 
 **Scheduling.** 1F1B: middle stages prefer a waiting gradient over the next
 forward, and with ``loss_mode="per_microbatch"`` the last stage holds at
@@ -48,10 +65,12 @@ which the trace spans measure (the port's ``dlstatus --traces`` pipeline
 block, :func:`..telemetry.fleet.pipeline_anatomy`).
 
 **Recovery.** Each stage checkpoints its own state
-(``<workdir>/stage<k>/ckpt``) through :class:`..checkpoint.Checkpointer`.
-When a stage dies, its peers' transport raises a typed error; they
-re-listen/re-dial while :class:`..supervisor.PipelineSupervisor` restarts
-only the dead stage, then all stages agree on the resume step
+(``<workdir>/stage<k>/ckpt``) through :class:`..checkpoint.Checkpointer`,
+whole tensors gathered from its gang (so a stage restores on any mesh,
+JAX's reshard-on-restore). When a rank of a stage dies, its peers'
+transport raises a typed error; they re-listen/re-dial while
+:class:`..supervisor.PipelineSupervisor` restarts only the dead stage's
+gang, then all stages agree on the resume step
 (:meth:`..parallel.mpmd.PipelineTransport.sync_step`), roll back to it and
 go on. A stage stamps ``DLS_HEARTBEAT_FILE`` in every long phase: every
 second of its init and of a checkpoint save or restore,
@@ -75,6 +94,7 @@ import dataclasses
 import hashlib
 import json
 import logging
+import math
 import os
 import threading
 import time
@@ -95,12 +115,19 @@ from distributeddeeplearningspark_tpu_torch.models.llama_pp import (
     _stage_forward,
     check_pp_config,
 )
-from distributeddeeplearningspark_tpu_torch.parallel import mpmd
+from distributeddeeplearningspark_tpu_torch.parallel import collectives, mpmd, sharding
 from distributeddeeplearningspark_tpu_torch.parallel import plan as plan_lib
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
+    Mesh,
+    MeshSpec,
+    num_data_shards,
+)
 from distributeddeeplearningspark_tpu_torch.parallel.pipeline import stage_layers
 from distributeddeeplearningspark_tpu_torch.telemetry import trace as trace_lib
-from distributeddeeplearningspark_tpu_torch.train import optim
-from distributeddeeplearningspark_tpu_torch.train.state import TrainState
+from distributeddeeplearningspark_tpu_torch.train import losses, optim
+from distributeddeeplearningspark_tpu_torch.train.state import TrainState, map_leaves
+from distributeddeeplearningspark_tpu_torch.train.step import _rewrap
 from distributeddeeplearningspark_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("distributeddeeplearningspark_tpu_torch.pipeline")
@@ -176,24 +203,51 @@ def beating(period: float = BEAT_S):
 def ce_sums(logits: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(Σ per-token CE · mask, Σ mask)`` in f32 over the shifted targets:
-    :func:`..losses.causal_lm`'s expression, before its division."""
+    :func:`..losses.causal_lm`'s expression, before its division. Logits
+    split over the vocab (a ``tensor`` stage's head) take the
+    vocab-parallel cross-entropy."""
     labels = ids[:, 1:].long()
-    lg = logits[:, :-1].float()
-    per_tok = F.cross_entropy(lg.flatten(0, 1), labels.flatten(),
-                              reduction="none").view(labels.shape)
+    split = sharding.tensor_split(logits)
+    if split is not None:
+        per_tok = losses._vocab_parallel_xent(logits, labels, split)
+    else:
+        lg = logits[:, :-1].float()
+        per_tok = F.cross_entropy(lg.flatten(0, 1), labels.flatten(),
+                                  reduction="none").view(labels.shape)
     m = mask[:, 1:].float()
     return (per_tok * m).sum(), m.sum()
 
 
+class _StageCalls:
+    """A stage program's ``model.pipe``: ``model({"call": f, "args": a})``
+    runs ``f(*a)`` inside the model's own forward, so that where FSDP2
+    shards the model its root hooks wrap the stage's embedding, layers and
+    head (the root's params gathered, their gradients reduced after the
+    backward) as they wrap a whole model's forward."""
+
+    def forward(self, model: LlamaForCausalLM, batch: dict):
+        return batch["call"](*batch["args"])
+
+
 class LlamaStageProgram:
     """The compute owned by ONE pipeline stage of a Llama model, on one
-    device.
+    device or on a gang of them (``mesh``).
 
     Stage 0 holds ``token_embed`` and its layers; the last stage its layers,
     ``final_norm`` and ``lm_head`` (and the loss). The values are the whole
     model's own init from the seed (:meth:`init_state`), or ``init_params``
     (a whole state dict, e.g. ``llama_io.params_from_flax``'s), so N
     stages reassemble to one card's model.
+
+    ``mesh`` (a :class:`~..parallel.mesh.Mesh` over the stage's gang, None:
+    one device): the rows of each microbatch split over its batch axes
+    (``data × fsdp``; ``tensor`` peers take the same rows). ``exact`` keeps
+    the params whole on every rank and sums the accumulated gradients over
+    the batch group once, at :meth:`apply_grads` (a mesh with another axis
+    above 1 is refused, as in JAX); ``sharded`` lays the params out by
+    ``plan`` (:func:`..parallel.plan.stage_plan`) with
+    :func:`..parallel.sharding.fully_shard_model`: FSDP2's gradients reduce
+    at each microbatch's backward, the others' once at :meth:`apply_grads`.
 
     Per step: :meth:`start_step`; stage 0 :meth:`embed`; :meth:`fwd` of
     each microbatch (its graph kept under its index); the last stage
@@ -205,7 +259,8 @@ class LlamaStageProgram:
     def __init__(self, cfg: LlamaConfig, stage: int, num_stages: int,
                  tx: optim.GradientTransformation, *, device="cuda",
                  mode: str = "exact", loss_mode: str = "full_batch",
-                 init_params: dict[str, Any] | None = None):
+                 init_params: dict[str, Any] | None = None,
+                 mesh: Mesh | None = None, plan: plan_lib.Plan | None = None):
         if mode not in ("exact", "sharded"):
             raise ValueError(f"mode must be 'exact'|'sharded', got {mode!r}")
         if loss_mode not in ("full_batch", "per_microbatch"):
@@ -218,10 +273,26 @@ class LlamaStageProgram:
                 "parity with the single-program baseline needs the loss "
                 "computed over the full concatenated logits")
         check_pp_config(cfg, num_stages)
+        shape = mesh.shape if mesh is not None else MeshSpec(data=1).shape(1)
+        if mode == "exact":
+            extra = {a: s for a, s in shape.items() if a not in BATCH_AXES and s > 1}
+            if extra:
+                raise ValueError(
+                    f"mode='exact' shards rows over (data, fsdp) only; this "
+                    f"stage mesh also has {extra} — use mode='sharded'")
+            plan = None
+        #: the mesh a plan is validated and lowered on (one device's
+        #: without a gang)
+        self._layout_mesh = mesh if mesh is not None else Mesh(shape)
+        if plan is not None:
+            plan.validate(self._layout_mesh)
         self.cfg = cfg
         self.stage = stage
         self.num_stages = num_stages
         self.tx = tx
+        self.mode = mode
+        self.mesh = mesh
+        self.plan = plan
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -230,6 +301,11 @@ class LlamaStageProgram:
         self.last = stage == num_stages - 1
         self.layers = stage_layers(cfg.num_layers, num_stages, stage)
         self.stage_len = len(self.layers)
+        #: the ranks that take distinct rows, this rank's place among them
+        #: and their process group (None: one rank, or the whole gang)
+        self.row_shards = num_data_shards(shape)
+        self.row_index = mesh.batch_index(mesh.rank) if mesh is not None else 0
+        self.row_group = mesh.group(BATCH_AXES) if self.row_shards > 1 else None
         self._init_params = init_params
         self.model: LlamaForCausalLM | None = None
         self.names: list[str] = []
@@ -240,9 +316,9 @@ class LlamaStageProgram:
 
     def _build(self) -> LlamaForCausalLM:
         """The model on the meta device, the other stages' layers (and on
-        all but the last stage the norm and head) taken out, then
-        allocated on the device. Every stage keeps ``token_embed``: the
-        init draws it first."""
+        all but the last stage the norm and head) taken out, laid out by
+        the plan, then allocated on the device. Every stage keeps
+        ``token_embed``: the init draws it first."""
         model = LlamaForCausalLM(self.cfg, device="meta")
         for i in range(self.cfg.num_layers):
             if i not in self.layers:
@@ -250,17 +326,25 @@ class LlamaStageProgram:
         if not self.last:
             model.final_norm = None
             model.lm_head = None
-        model.to_empty(device=self.device)
         if not self.first:
             model.token_embed.weight.requires_grad_(False)
+        if self.plan is not None:
+            sharding.fully_shard_model(model, self.plan.rules, self._layout_mesh)
+        model.to_empty(device=self.device)
+        model.pipe = _StageCalls()
         self.names = [n for n, _ in model.named_parameters()
                       if self.first or not n.startswith("token_embed.")]
         return model.train()
 
+    def _call(self, fn: Callable, *args):
+        """``fn(*args)`` through the model's forward (:class:`_StageCalls`)."""
+        return self.model({"call": fn, "args": args})
+
     def init_state(self, seed: int) -> TrainState:
         """This stage's :class:`TrainState` at step 0: the whole model's draws
-        from ``seed`` (one card's) or ``init_params``, this stage's slice;
-        fresh optimizer state. A second call draws into the same tensors."""
+        from ``seed`` (one card's) or ``init_params``, this stage's slice
+        (each rank its shard of a sharded param); fresh optimizer state. A
+        second call draws into the same tensors."""
         if self.model is None:
             self.model = self._build()
         model = self.model
@@ -270,7 +354,7 @@ class LlamaStageProgram:
             else:
                 for n, p in model.named_parameters():
                     if n in self.names:
-                        p.copy_(torch.as_tensor(self._init_params[n]))
+                        sharding.assign(p, torch.as_tensor(self._init_params[n]))
         self.start_step()
         params = dict(model.named_parameters())
         params = {n: params[n] for n in self.names}
@@ -294,6 +378,22 @@ class LlamaStageProgram:
             x = torch.from_numpy(np.ascontiguousarray(x))
         return mpmd.to_device(x, self.device)
 
+    def my_rows(self, x):
+        """This rank's rows of ``x`` (its chunk of the row shards)."""
+        if self.row_shards == 1:
+            return x
+        n = x.shape[0] // self.row_shards
+        return x[self.row_index * n:(self.row_index + 1) * n]
+
+    def link_rows(self, batch_size: int, m: int, mb: int) -> np.ndarray:
+        """The batch rows microbatch ``mb`` carries on the links: each row
+        shard's ``mb``-th slice of its own rows, in shard order (shard r
+        holds rows r·B/D … (r+1)·B/D − 1, the port's data-parallel feed)."""
+        block = batch_size // self.row_shards
+        per = block // m
+        return np.concatenate([np.arange(r * block + mb * per, r * block + (mb + 1) * per)
+                               for r in range(self.row_shards)])
+
     def split_rows(self, x: torch.Tensor, m: int) -> list[torch.Tensor]:
         """``[B, ...]`` → M row-contiguous microbatches."""
         return list(torch.split(x, x.shape[0] // m))
@@ -302,10 +402,10 @@ class LlamaStageProgram:
         return torch.cat(list(parts), dim=0)
 
     def embed(self, state: TrainState, ids_dev: torch.Tensor) -> torch.Tensor:
-        """Stage 0: the full batch's embedding (its graph kept for
+        """Stage 0: its rows' embedding (the graph kept for
         :meth:`embed_backward`)."""
         with torch.enable_grad():
-            x = self.model._embed(ids_dev)
+            x = self._call(self.model._embed, ids_dev)
         self._embed_out = x
         return x.detach()
 
@@ -322,7 +422,7 @@ class LlamaStageProgram:
         inp = x_mb.detach().requires_grad_(True)
         layers = [self.model.layers[i] for i in self.layers]
         with torch.enable_grad():
-            out = _stage_forward(layers, inp, self.cfg.remat)
+            out = self._call(lambda x: _stage_forward(layers, x, self.cfg.remat), inp)
         self._graphs[mb] = (inp, out)
         return out.detach()
 
@@ -342,33 +442,65 @@ class LlamaStageProgram:
         """The loss denominator's weight: the shifted mask's sum (f32)."""
         return float(mask_dev[:, 1:].float().sum())
 
+    def _sum_rows(self, *values: torch.Tensor) -> list[float]:
+        """f32 sums of ``values`` over the row shards (this rank's own
+        where it holds every row)."""
+        vec = torch.stack([v.detach().float() for v in values])
+        if self.row_shards > 1:
+            collectives.all_reduce_sum_(vec, self.row_group)
+        return vec.tolist()
+
     def loss_backward(self, state: TrainState, acts: torch.Tensor,
                       ids_dev: torch.Tensor, mask_dev: torch.Tensor,
                       denom: float) -> tuple[dict, torch.Tensor]:
-        """(metrics, d_acts) for ``acts`` (the full batch or one
-        microbatch): norm → head → cross-entropy summed, over ``denom``
-        (the GLOBAL mask weight), back-propagated in one graph; the norm's
-        and head's gradients accumulate."""
+        """(metrics, d_acts) for ``acts`` (this rank's rows of the full
+        batch or of one microbatch): norm → head → cross-entropy summed,
+        over ``denom`` (the GLOBAL mask weight), back-propagated in one
+        graph; the norm's and head's gradients accumulate. ``exact`` over
+        row shards takes the data-parallel ``Trainer``'s loss instead: each
+        rank's mean over its rows weighed by its share of the global weight
+        (``collectives.weigh_loss``), the same ops as the GPipe step's."""
         a = acts.detach().requires_grad_(True)
         model = self.model
+
+        def head(x):
+            return model._head(model.final_norm(x), counted=True)
+
         with torch.enable_grad():
-            logits = model._head(model.final_norm(a), counted=True)
+            logits = self._call(head, a)
+            if self.mode == "exact" and self.row_shards > 1:
+                loss, out = losses.causal_lm(logits, {"input_ids": ids_dev,
+                                                      "loss_mask": mask_dev})
+                loss, out = collectives.weigh_loss(loss, out, ids_dev.shape[0],
+                                                   self.row_group)
+                loss.backward()
+                return {"loss": float(out["loss"]), "weight": float(out["weight"])}, a.grad
             s, w = ce_sums(logits, ids_dev, mask_dev)
             loss = s / torch.tensor(denom, dtype=torch.float32, device=s.device)
         loss.backward()
-        loss_sum, weight = torch.stack([s.detach(), w]).tolist()
+        loss_sum, weight = self._sum_rows(s, w)
         loss_sum = np.float32(loss_sum)
         return {"loss": float(np.float32(loss_sum / np.float32(denom))),
                 "loss_sum": float(loss_sum), "weight": float(weight)}, a.grad
 
     def apply_grads(self, state: TrainState) -> TrainState:
         """One optimizer step from the accumulated gradients (a param the
-        step did not reach takes a zero gradient, as JAX's)."""
+        step did not reach takes a zero gradient, as JAX's): the gradients
+        FSDP2 did not reduce summed over the row shards first, then the
+        update on each rank's local shards."""
         params = [state.params[n] for n in self.names]
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        grads = [sharding.local(torch.zeros_like(p) if p.grad is None else p.grad)
+                 for p in params]
+        local = [sharding.local(p) for p in params]
         with torch.no_grad():
-            updates, state.opt_state = self.tx.update(grads, state.opt_state, params)
-            torch._foreach_add_(params, updates)
+            if self.row_shards > 1:
+                collectives.all_reduce_grads(
+                    [g for g, p in zip(grads, params) if not sharding.fsdp_reduced(p)],
+                    self.row_group)
+            updates, opt_state = self.tx.update(
+                grads, map_leaves(sharding.local, state.opt_state), local)
+            torch._foreach_add_(local, updates)
+        state.opt_state = map_leaves(_rewrap, state.opt_state, opt_state)
         for p in params:
             p.grad = None
         state.step += 1
@@ -422,6 +554,120 @@ class _StepSpans:
         self.records = []
 
 
+# -- the stage's gang ------------------------------------------------------------
+
+
+class StageGang:
+    """The ranks of one stage, joined in its own process group (the default
+    one of each stage process), as the runner sees them.
+
+    Rank 0, the *lead*, alone holds the stage's transport links; a frame it
+    receives reaches the gang in two parts: its header (microbatch, labels,
+    mask, trace) over ``ctrl``, a gloo group, by :meth:`share`, then its
+    tensor over the stage's group on the compute stream: scattered by rows
+    where the ranks split them (``data``, ``fsdp``), broadcast where they
+    all need every row (``tensor``) (:meth:`spread`). What the stage sends
+    is first gathered to the lead (:meth:`collect`). Every branch the lead
+    takes on what its links hold (a gradient waiting or not, the resume
+    step) is shared the same way, so the ranks make the same collectives in
+    the same order. A link error the lead meets is held
+    (:attr:`error`) and raised on every rank at the next :meth:`share`:
+    the ranks then resync together, none left waiting in a collective.
+    Counts the bytes each of the three moves carried and their seconds
+    (:attr:`stats`), on the lead."""
+
+    def __init__(self, program: LlamaStageProgram, ctrl=None):
+        mesh = program.mesh
+        self.program = program
+        self.size = math.prod(mesh.shape.values()) if mesh is not None else 1
+        self.rank = mesh.rank if mesh is not None else 0
+        self.lead = self.rank == 0
+        self.ctrl = ctrl
+        self.error: mpmd.TransportError | None = None
+        self.stats = {"broadcast": [0, 0], "scatter": [0, 0], "gather": [0, 0],
+                      "collective_s": 0.0}
+
+    def fail(self, err: mpmd.TransportError) -> None:
+        """Hold a link error for the next :meth:`share` (raise it at once
+        in a gang of one)."""
+        if self.size == 1:
+            raise err
+        self.error = self.error or err
+
+    def share(self, obj: Any = None) -> Any:
+        """The lead's ``obj`` on every rank; raises on every rank the link
+        error the lead holds. The ranks that wait stamp their heartbeats."""
+        if self.size == 1:
+            return obj
+        import torch.distributed as dist
+
+        box = [("error", repr(self.error)) if self.error is not None else ("ok", obj)]
+        if self.lead:
+            dist.broadcast_object_list(box, src=0, group=self.ctrl)
+        else:
+            with beating():
+                dist.broadcast_object_list(box, src=0, group=self.ctrl)
+        tag, value = box[0]
+        if tag == "error":
+            err = self.error or mpmd.PeerDiedError(f"stage lead: {value}")
+            self.error = None
+            raise err
+        return value
+
+    def _timed(self, kind: str, nbytes: int, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if self.program.device.type == "cuda":
+            torch.cuda.synchronize(self.program.device)
+        if self.lead:
+            self.stats[kind][0] += 1
+            self.stats[kind][1] += nbytes
+            self.stats["collective_s"] += time.perf_counter() - t0
+        return out
+
+    def spread(self, whole: torch.Tensor | None, shape: tuple, dtype: torch.dtype
+               ) -> torch.Tensor:
+        """The lead's ``whole`` (a link microbatch on its device) to every
+        rank: each rank's rows of it."""
+        import torch.distributed as dist
+
+        prog = self.program
+        if self.size == 1:
+            return whole
+        nbytes = math.prod(shape) * dtype.itemsize
+        rows = prog.row_shards
+        if rows == self.size:
+            part = torch.empty((shape[0] // rows, *shape[1:]), dtype=dtype,
+                               device=prog.device)
+            chunks = list(whole.chunk(rows)) if self.lead else None
+            self._timed("scatter", nbytes, lambda: dist.scatter(part, chunks, src=0))
+            return part
+        buf = whole if self.lead else torch.empty(shape, dtype=dtype, device=prog.device)
+        self._timed("broadcast", nbytes, lambda: dist.broadcast(buf, src=0))
+        return prog.my_rows(buf)
+
+    def collect(self, part: torch.Tensor) -> torch.Tensor | None:
+        """Every rank's rows of a link microbatch, whole on the lead (None
+        on the other ranks)."""
+        import torch.distributed as dist
+
+        prog = self.program
+        if self.size == 1:
+            return part
+        rows = prog.row_shards
+        if rows == 1:  # tensor peers: the lead's rows are the whole
+            return part if self.lead else None
+        nbytes = part.numel() * part.element_size() * rows
+        part = part.contiguous()
+        if rows == self.size:
+            parts = [torch.empty_like(part) for _ in range(rows)] if self.lead else None
+            self._timed("gather", nbytes, lambda: dist.gather(part, parts, dst=0))
+            return torch.cat(parts) if self.lead else None
+        whole = self._timed("gather", nbytes,
+                            lambda: collectives.all_gather_rows(part, prog.row_group))
+        return whole if self.lead else None
+
+
 # -- the stage runner ---------------------------------------------------------
 
 
@@ -444,30 +690,42 @@ class PipelineStageRunner:
 
     ``batch_fn(step) -> {"input_ids", "loss_mask"}`` (stage 0 only) must be
     a pure function of the step index — that is what makes rollback-resync
-    trivial (no stream state to rewind). The runner owns scheduling,
+    trivial (no stream state to rewind), and lets each rank of stage 0
+    take its own rows of the step's batch. The runner owns scheduling,
     checkpointing, telemetry (spans + step_metrics + heartbeats), fault
-    injection hooks, and peer-death resync. ``stats`` holds what the
-    transport cost: the seconds moving tensors to the host (``d2h_s``) and
-    to the card (``h2d_s``), the frames and tensor bytes of the
-    activations and gradients sent (``sent``), and each step's seconds
-    (``lap_s``).
+    injection hooks, and peer-death resync. On a stage of several ranks
+    (``gang``) it runs on every rank, the lead alone holding ``transport``
+    (None on the others). ``stats`` holds what the transport cost: the
+    seconds moving tensors to the host (``d2h_s``) and to the card
+    (``h2d_s``), the frames and tensor bytes of the activations and
+    gradients sent (``sent``), and each step's seconds (``lap_s``).
     """
 
     def __init__(self, program: LlamaStageProgram,
-                 transport: mpmd.PipelineTransport, run: StageRunConfig, *,
+                 transport: mpmd.PipelineTransport | None, run: StageRunConfig, *,
                  batch_fn: Callable[[int], dict] | None = None,
-                 checkpointer=None):
+                 checkpointer=None, gang: StageGang | None = None):
         self.program = program
+        self.gang = gang or StageGang(program)
         self.transport = transport
         self.run_cfg = run
         self.batch_fn = batch_fn
         self.ckpt = checkpointer
         if program.first and batch_fn is None:
             raise ValueError("stage 0 needs a batch_fn (it owns the feed)")
+        if self.gang.lead and transport is None:
+            raise ValueError("the stage's lead rank needs the transport")
         if run.batch_size % run.microbatches:
             raise ValueError(
                 f"batch_size {run.batch_size} must divide by microbatches "
                 f"{run.microbatches}")
+        rows = run.batch_size // run.microbatches
+        if rows % program.row_shards:
+            raise ValueError(
+                f"microbatch of {rows} row(s) (batch {run.batch_size} / "
+                f"{run.microbatches} microbatches) cannot shard over this "
+                f"stage's {program.row_shards} (data x fsdp) device(s) — use "
+                f"fewer microbatches, a bigger batch, or a narrower stage mesh")
         self._tele = telemetry_lib.get()
         self._losses: list[float] = []
         self._cuda = program.device.type == "cuda"
@@ -491,6 +749,21 @@ class PipelineStageRunner:
             self._losses = [float(x) for x in saved][:step]
         return restored
 
+    def _agree(self, committed: int) -> int:
+        """The lead (re)connects its links and agrees the resume step with
+        the other stages; every rank gets it."""
+        cfg = self.run_cfg
+        agreed = None
+        if self.gang.lead:
+            try:
+                self.transport.connect(hello={"step": committed},
+                                       timeout=cfg.connect_timeout_s)
+                agreed = self.transport.sync_step(committed,
+                                                  timeout=cfg.connect_timeout_s)
+            except mpmd.TransportError as e:
+                self.gang.fail(e)
+        return self.gang.share(agreed)
+
     def run(self) -> dict:
         cfg = self.run_cfg
         if self._cuda:
@@ -501,18 +774,16 @@ class PipelineStageRunner:
         if committed > 0:
             state = self._restore(state, committed)
         step = state.step
-        self.transport.connect(hello={"step": committed},
-                               timeout=cfg.connect_timeout_s)
-        agreed = self.transport.sync_step(committed, timeout=cfg.connect_timeout_s)
-        if agreed != step:
-            state = self._reposition(state, agreed)
-            step = agreed
-        if self._tele is not None:
-            self._tele.emit("phase", name="run", edge="begin", step=step)
-            self._tele.heartbeat(step=step)
-        fault = faults.get()
         resync_t0: float | None = None
         try:
+            agreed = self._agree(committed)
+            if agreed != step:
+                state = self._reposition(state, agreed)
+                step = agreed
+            if self._tele is not None:
+                self._tele.emit("phase", name="run", edge="begin", step=step)
+                self._tele.heartbeat(step=step)
+            fault = faults.get()
             while step < cfg.steps:
                 if fault is not None and step + 1 == fault.step and \
                         fault.kind in ("crash", "die_host", "hang"):
@@ -549,12 +820,14 @@ class PipelineStageRunner:
                     self._save(state, step)
             if self.ckpt is not None:
                 self._save(state, step)
-            self.stats["links"] = {
-                side: {mpmd._KIND_NAMES[k]: v for k, v in link.sent.items()}
-                for side, link in (("up", self.transport.up),
-                                   ("down", self.transport.down))
-                if link is not None}
-            self.transport.close()
+            if self.transport is not None:
+                self.stats["links"] = {
+                    side: {mpmd._KIND_NAMES[k]: v for k, v in link.sent.items()}
+                    for side, link in (("up", self.transport.up),
+                                       ("down", self.transport.down))
+                    if link is not None}
+                self.transport.close()
+            self.stats["gang"] = dict(self.gang.stats)
             return {"step": step, "losses": self._losses,
                     "stage": self.program.stage, "state": state,
                     "stats": self.stats}
@@ -563,7 +836,8 @@ class PipelineStageRunner:
             # unwinding): tear the sockets now so peers get a typed
             # PeerDiedError immediately instead of burning their full
             # recv timeout discovering it
-            self.transport.reset()
+            if self.transport is not None:
+                self.transport.reset()
             raise
         finally:
             if self._tele is not None:
@@ -599,24 +873,31 @@ class PipelineStageRunner:
     def _resync(self, state: TrainState, err: mpmd.TransportError) -> TrainState:
         """A peer died mid-step: drop partial step state, block on the
         transport until the supervisor brings the stage back, agree on the
-        resume step, roll back to it."""
+        resume step, roll back to it (every rank of the gang together)."""
         cfg = self.run_cfg
-        committed = self._committed_step()
-        logger.warning(
-            "stage %d: peer failure (%s: %s) — reconnecting and resyncing "
-            "from checkpoint step %d",
-            self.program.stage, type(err).__name__, err, committed)
-        if self._tele is not None:
-            self._tele.recovery(committed or None, "pipeline-resync",
-                                stage=self.program.stage,
-                                error=type(err).__name__,
-                                detail=str(err)[:200])
-        self.program.start_step()
-        self.transport.reset()
-        self.transport.connect(hello={"step": committed},
-                               timeout=cfg.connect_timeout_s)
-        agreed = self.transport.sync_step(committed, timeout=cfg.connect_timeout_s)
-        return self._reposition(state, agreed)
+        while True:
+            committed = self._committed_step()
+            logger.warning(
+                "stage %d: peer failure (%s: %s) — reconnecting and resyncing "
+                "from checkpoint step %d",
+                self.program.stage, type(err).__name__, err, committed)
+            if self._tele is not None:
+                self._tele.recovery(committed or None, "pipeline-resync",
+                                    stage=self.program.stage,
+                                    error=type(err).__name__,
+                                    detail=str(err)[:200])
+            self.program.start_step()
+            if self.transport is not None:
+                self.transport.reset()
+            t0 = time.monotonic()
+            try:
+                agreed = self._agree(committed)
+            except mpmd.TransportError as e:
+                if time.monotonic() - t0 > cfg.resync_budget_s:
+                    raise
+                err = e
+                continue
+            return self._reposition(state, agreed)
 
     # -- one training step ---------------------------------------------------
 
@@ -671,14 +952,52 @@ class PipelineStageRunner:
                         kind=mpmd._KIND_NAMES.get(kind, kind)):
             return link.recv(kind, timeout=self.run_cfg.recv_timeout_s)
 
-    def _send(self, link: mpmd.StageLink, kind: int, obj: Any, mb: int,
+    def _take(self, fetch: Callable[[], tuple], key: str | None = None) -> tuple:
+        """A frame on every rank: the lead ``fetch()``\\ es it from a link
+        (its ``key`` tensor then put on the card), the gang gets its header
+        and its rows of the tensor (:meth:`StageGang.spread`)."""
+        gang = self.gang
+        item = None
+        if gang.lead:
+            try:
+                item = fetch()
+            except mpmd.TransportError as e:
+                gang.fail(e)
+        head = None
+        if item is not None:
+            mb, payload = item
+            t = payload.get(key) if key else None
+            head = (mb, {k: v for k, v in payload.items() if k != key},
+                    None if t is None else (tuple(t.shape), t.dtype))
+        mb, payload, tensor = gang.share(head)
+        if tensor is not None:
+            whole = self._put(item[1][key]) if gang.lead else None
+            payload[key] = gang.spread(whole, *tensor)
+        return mb, payload
+
+    def _send(self, link: mpmd.StageLink | None, kind: int, obj: Any, mb: int,
               spans: _StepSpans, *, drain=None) -> None:
         """Bounded send that never deadlocks the bidirectional flow: while
         the send queue is full, incoming frames are drained into a local
         pending list (``drain``), so the opposite direction keeps moving.
         Booked as send-wait only when it actually blocked. The payload is
         encoded once, here (a card's tensors copied to pinned host
-        memory)."""
+        memory). On a gang the activation or gradient is first gathered to
+        the lead, which alone sends; a link error it meets is held for the
+        gang (:meth:`StageGang.fail`)."""
+        for name in ("act", "grad"):
+            t = obj.get(name) if isinstance(obj, dict) else None
+            if isinstance(t, torch.Tensor):
+                obj = {**obj, name: self.gang.collect(t)}
+        if not self.gang.lead:
+            return
+        try:
+            self._send_lead(link, kind, obj, mb, spans, drain=drain)
+        except mpmd.TransportError as e:
+            self.gang.fail(e)
+
+    def _send_lead(self, link: mpmd.StageLink, kind: int, obj: Any, mb: int,
+                   spans: _StepSpans, *, drain=None) -> None:
         t0 = time.perf_counter()
         enc = mpmd.encode_payload(obj, pin=self._cuda)
         self.stats["d2h_s"] += time.perf_counter() - t0
@@ -719,13 +1038,17 @@ class PipelineStageRunner:
                 pending.append(item)
         return drain
 
+    def _links(self):
+        """(up, down): the lead's links, None on the other ranks."""
+        tr = self.transport
+        return (tr.up, tr.down) if tr is not None else (None, None)
+
     # stage 0 — owns the batch, the embedding, and the microbatch traces.
     def _step_first(self, state: TrainState, step: int, spans: _StepSpans) -> dict:
         cfg, prog = self.run_cfg, self.program
         m = cfg.microbatches
-        rows = cfg.batch_size // m
-        down = self.transport.down
-        assert down is not None
+        _, down = self._links()
+        assert down is not None or not self.gang.lead
         batch = self.batch_fn(step)
         ids = np.ascontiguousarray(batch["input_ids"], np.int32)
         mask = np.ascontiguousarray(
@@ -735,10 +1058,12 @@ class PipelineStageRunner:
             raise ValueError(
                 f"batch_fn returned {ids.shape[0]} rows, expected "
                 f"{cfg.batch_size}")
+        block = cfg.batch_size // prog.row_shards
+        mine = slice(prog.row_index * block, (prog.row_index + 1) * block)
         with spans.span("pipe-embed"):
-            ids_dev = prog.put_rows(ids)
+            ids_dev = prog.put_rows(ids[mine])
             x_full = self._block(prog.embed(state, ids_dev))
-            weight = prog.mask_weight(prog.put_rows(mask))
+            weight = prog.mask_weight(prog.put_rows(mask)) if self.gang.lead else None
         pending: list = []
         drain = self._drainer(down, mpmd.GRAD, pending)
         self._send(down, mpmd.META, {
@@ -754,22 +1079,22 @@ class PipelineStageRunner:
             with spans.span("pipe-fwd", trace_id=tid, parent_id=root,
                             span_id=fwd_sid, mb=i):
                 act = self._block(prog.fwd(state, x_mbs[i], i))
+            rows = prog.link_rows(cfg.batch_size, m, i)
             self._send(down, mpmd.ACT, {
                 "step": step, "act": act,
-                "labels": ids[i * rows:(i + 1) * rows],
-                "mask": mask[i * rows:(i + 1) * rows],
+                "labels": ids[rows], "mask": mask[rows],
                 "trace": {"trace_id": tid, "parent_id": fwd_sid},
             }, i, spans, drain=drain)
             traces.append((tid, root, mb_t0))
         d_x: list = [None] * m
         for _ in range(m):
-            mb, payload = self._recv(down, mpmd.GRAD, spans, pending)
+            mb, payload = self._take(
+                lambda: self._recv(down, mpmd.GRAD, spans, pending), "grad")
             tid, root, mb_t0 = traces[mb]
             ctx = payload.get("trace") or {}
-            dy = self._put(payload["grad"])
             with spans.span("pipe-bwd", trace_id=tid,
                             parent_id=ctx.get("parent_id") or root, mb=mb):
-                d_x[mb] = self._block(prog.bwd(state, mb, dy))
+                d_x[mb] = self._block(prog.bwd(state, mb, payload["grad"]))
             # close the cross-stage microbatch root: fwd → transit →
             # downstream stages → grad return → local bwd, end to end
             spans.add("microbatch", mb_t0, time.time(), trace_id=tid,
@@ -778,7 +1103,7 @@ class PipelineStageRunner:
         with spans.span("pipe-embed-bwd"):
             prog.embed_backward(state, ids_dev, prog.concat_rows(d_x))
             self._block()
-        _, payload = self._recv(down, mpmd.METRICS, spans)
+        _, payload = self._take(lambda: self._recv(down, mpmd.METRICS, spans))
         return dict(payload.get("metrics") or {})
 
     # middle stages — pure relay compute: 1F1B (prefer a waiting gradient
@@ -786,27 +1111,32 @@ class PipelineStageRunner:
     def _step_mid(self, state: TrainState, step: int, spans: _StepSpans) -> dict:
         cfg, prog = self.run_cfg, self.program
         m = cfg.microbatches
-        up, down = self.transport.up, self.transport.down
-        assert up is not None and down is not None
+        up, down = self._links()
         pending_g: list = []
         drain_g = self._drainer(down, mpmd.GRAD, pending_g)
-        _, meta = self._recv(up, mpmd.META, spans)
+        _, meta = self._take(lambda: self._recv(up, mpmd.META, spans))
         self._send(down, mpmd.META, meta, -1, spans, drain=drain_g)
         tids: dict[int, str | None] = {}
         done_f = done_b = 0
         while done_b < m:
-            item = pending_g.pop(0) if pending_g else down.try_recv(mpmd.GRAD)
-            if item is None and done_f < m:
-                mb, payload = self._recv(up, mpmd.ACT, spans)
+            item = None
+            if self.gang.lead:
+                try:
+                    item = pending_g.pop(0) if pending_g else down.try_recv(mpmd.GRAD)
+                except mpmd.TransportError as e:
+                    self.gang.fail(e)
+            waiting = self.gang.share(item is not None)
+            if not waiting and done_f < m:
+                mb, payload = self._take(
+                    lambda: self._recv(up, mpmd.ACT, spans), "act")
                 ctx = payload.get("trace") or {}
                 fwd_sid = trace_lib.new_span_id()
-                x = self._put(payload["act"])
                 with spans.span(
                         "pipe-fwd",
                         trace_id=ctx.get("trace_id") or spans.trace_id,
                         parent_id=ctx.get("parent_id"),
                         span_id=fwd_sid, mb=mb):
-                    y = self._block(prog.fwd(state, x, mb))
+                    y = self._block(prog.fwd(state, payload["act"], mb))
                 tids[mb] = ctx.get("trace_id")
                 self._send(down, mpmd.ACT, {
                     "step": step, "act": y,
@@ -816,23 +1146,22 @@ class PipelineStageRunner:
                 }, mb, spans, drain=drain_g)
                 done_f += 1
                 continue
-            if item is None:
-                item = self._recv(down, mpmd.GRAD, spans)
-            mb, payload = item
+            mb, payload = self._take(
+                lambda: item if item is not None else self._recv(down, mpmd.GRAD, spans),
+                "grad")
             ctx = payload.get("trace") or {}
             bwd_sid = trace_lib.new_span_id()
             tid = tids.get(mb) or spans.trace_id
-            dy = self._put(payload["grad"])
             with spans.span("pipe-bwd", trace_id=tid,
                             parent_id=ctx.get("parent_id"),
                             span_id=bwd_sid, mb=mb):
-                dx = self._block(prog.bwd(state, mb, dy))
+                dx = self._block(prog.bwd(state, mb, payload["grad"]))
             self._send(up, mpmd.GRAD, {
                 "step": step, "grad": dx,
                 "trace": {"trace_id": tid, "parent_id": bwd_sid},
             }, mb, spans, drain=drain_g)
             done_b += 1
-        _, payload = self._recv(down, mpmd.METRICS, spans)
+        _, payload = self._take(lambda: self._recv(down, mpmd.METRICS, spans))
         self._send(up, mpmd.METRICS, payload, -1, spans)
         return dict(payload.get("metrics") or {})
 
@@ -842,9 +1171,8 @@ class PipelineStageRunner:
     def _step_last(self, state: TrainState, step: int, spans: _StepSpans) -> dict:
         cfg, prog = self.run_cfg, self.program
         m = cfg.microbatches
-        up = self.transport.up
-        assert up is not None
-        _, meta = self._recv(up, mpmd.META, spans)
+        up, _ = self._links()
+        _, meta = self._take(lambda: self._recv(up, mpmd.META, spans))
         denom = loss_denominator(meta)
         if prog.loss_mode == "full_batch":
             metrics = self._last_full_batch(state, step, spans, m, denom)
@@ -856,22 +1184,22 @@ class PipelineStageRunner:
 
     def _last_full_batch(self, state, step, spans, m, denom) -> dict:
         prog = self.program
-        up = self.transport.up
+        up, _ = self._links()
         pending_a: list = []
         drain_a = self._drainer(up, mpmd.ACT, pending_a)
         h_out, labels, masks, ctxs = {}, {}, {}, {}
         for _ in range(m):
-            mb, payload = self._recv(up, mpmd.ACT, spans, pending_a)
+            mb, payload = self._take(
+                lambda: self._recv(up, mpmd.ACT, spans, pending_a), "act")
             ctx = payload.get("trace") or {}
             fwd_sid = trace_lib.new_span_id()
-            x = self._put(payload["act"])
             with spans.span("pipe-fwd",
                             trace_id=ctx.get("trace_id") or spans.trace_id,
                             parent_id=ctx.get("parent_id"),
                             span_id=fwd_sid, mb=mb):
-                h_out[mb] = self._block(prog.fwd(state, x, mb))
-            labels[mb] = np.asarray(payload["labels"], np.int32)
-            masks[mb] = np.asarray(payload["mask"], np.float32)
+                h_out[mb] = self._block(prog.fwd(state, payload["act"], mb))
+            labels[mb] = prog.my_rows(np.asarray(payload["labels"], np.int32))
+            masks[mb] = prog.my_rows(np.asarray(payload["mask"], np.float32))
             ctxs[mb] = {"trace_id": ctx.get("trace_id"), "fwd": fwd_sid}
         with spans.span("pipe-loss"):
             acts = prog.concat_rows([h_out[i] for i in range(m)])
@@ -898,26 +1226,26 @@ class PipelineStageRunner:
 
     def _last_per_microbatch(self, state, step, spans, m, denom) -> dict:
         prog = self.program
-        up = self.transport.up
+        up, _ = self._links()
         pending_a: list = []
         drain_a = self._drainer(up, mpmd.ACT, pending_a)
         loss_sum = weight = 0.0
         for _ in range(m):
-            mb, payload = self._recv(up, mpmd.ACT, spans, pending_a)
+            mb, payload = self._take(
+                lambda: self._recv(up, mpmd.ACT, spans, pending_a), "act")
             ctx = payload.get("trace") or {}
             tid = ctx.get("trace_id") or spans.trace_id
             fwd_sid = trace_lib.new_span_id()
-            x = self._put(payload["act"])
             with spans.span("pipe-fwd", trace_id=tid,
                             parent_id=ctx.get("parent_id"),
                             span_id=fwd_sid, mb=mb):
-                h = self._block(prog.fwd(state, x, mb))
+                h = self._block(prog.fwd(state, payload["act"], mb))
             with spans.span("pipe-loss", trace_id=tid, parent_id=fwd_sid,
                             mb=mb):
                 mrec, d_h = prog.loss_backward(
                     state, h,
-                    prog.put_rows(np.asarray(payload["labels"], np.int32)),
-                    prog.put_rows(np.asarray(payload["mask"], np.float32)),
+                    prog.put_rows(prog.my_rows(np.asarray(payload["labels"], np.int32))),
+                    prog.put_rows(prog.my_rows(np.asarray(payload["mask"], np.float32))),
                     denom)
                 loss_sum += mrec["loss_sum"]
                 weight += mrec["weight"]
@@ -937,15 +1265,20 @@ class PipelineStageRunner:
 # -- env-configured stage entry point -----------------------------------------
 #
 # ``python -m distributeddeeplearningspark_tpu_torch.train.pipeline_trainer``
-# runs one stage, entirely env-configured — the worker half of the
-# PipelineSupervisor contract. DLS_PIPE_SPEC carries the run recipe;
+# runs one rank of one stage, entirely env-configured — the worker half of
+# the PipelineSupervisor contract. DLS_PIPE_SPEC carries the run recipe;
 # DLS_STAGE_ID / DLS_NUM_STAGES / DLS_PIPE_PORTS / DLS_PIPE_AUTHKEY the
-# topology; DLS_TELEMETRY_DIR the shared run directory (per-stage
-# checkpoints live under ``<workdir>/stage<k>/ckpt``, each stage's summary
-# in ``<workdir>/stage<k>/summary-<attempt>.json``).
+# topology; DLS_COORDINATOR / DLS_NUM_PROCESSES / DLS_PROCESS_ID the stage's
+# gang; DLS_TELEMETRY_DIR the shared run directory (per-stage checkpoints
+# live under ``<workdir>/stage<k>/ckpt``, each stage's summary in
+# ``<workdir>/stage<k>/summary-<attempt>.json``, written by its lead).
 
 #: the spec's ``cfg`` keys that name a torch dtype
 _DTYPE_KEYS = ("dtype", "param_dtype")
+#: seconds a stage's gloo control group waits in one collective: a rank
+#: waits there while its lead waits for a peer stage (its connect and the
+#: resync budget)
+CTRL_TIMEOUT_S = 900.0
 
 
 def _tiny_cfg(spec: dict) -> LlamaConfig:
@@ -974,31 +1307,78 @@ def _optimizer(spec: dict) -> optim.GradientTransformation:
     raise ValueError(f"unknown optimizer {name!r} in DLS_PIPE_SPEC")
 
 
-def refuse_multi_card_stage(spec: dict, stage: int) -> None:
-    """A port stage is one card: refuse, naming the ROADMAP item, a spec
-    whose stage mesh (``stage_meshes[stage]``, else ``mesh``) has an axis
-    other than 1 (or -1: all the devices the stage sees, one), or whose
-    stage plan (``stage_plans[stage]``, else ``plan``) is not
-    ``replicated``."""
-    mesh = (spec.get("stage_meshes") or {}).get(str(stage)) or spec.get("mesh") or {}
-    if any(int(v) not in (1, -1) for v in dict(mesh).values()):
-        raise ValueError(f"DLS_PIPE_SPEC stage {stage}: mesh {mesh} spans more "
-                         f"than one card; not ported yet ({plan_lib.MULTI_CARD_STAGES})")
-    name = (spec.get("stage_plans") or {}).get(str(stage), spec.get("plan", "replicated"))
-    if isinstance(name, dict):
-        raise ValueError(f"DLS_PIPE_SPEC stage {stage}: a serialized plan "
-                         f"record lays a stage out over a mesh; not ported yet "
-                         f"({plan_lib.MULTI_CARD_STAGES})")
+def stage_mesh_axes(spec: dict, stage: int) -> dict[str, int]:
+    """Stage ``stage``'s mesh axes: ``stage_meshes[stage]``, else ``mesh``,
+    else JAX's default ``{"data": -1}`` (every device the stage sees)."""
+    per_stage = (spec.get("stage_meshes") or {}).get(str(stage))
+    return {k: int(v) for k, v in dict(per_stage or spec.get("mesh") or {"data": -1}).items()}
+
+
+def stage_processes(spec: dict, stage: int, cards: int | None = None) -> int:
+    """How many processes stage ``stage``'s gang takes: its mesh's size, a
+    ``-1`` axis absorbing ``cards`` (the cards the stage is given; one
+    process without them)."""
+    axes = stage_mesh_axes(spec, stage)
+    fixed = math.prod(v for v in axes.values() if v != -1)
+    if -1 not in axes.values():
+        return fixed
+    if cards is None:
+        return fixed
+    if cards % fixed:
+        raise ValueError(f"DLS_PIPE_SPEC stage {stage}: mesh {axes} does not "
+                         f"divide its {cards} card(s)")
+    return cards
+
+
+def _stage_plan_name(spec: dict, stage: int):
+    """Stage ``stage``'s plan entry: ``stage_plans[stage]``, else ``plan``,
+    else ``replicated`` (a name or a serialized plan record)."""
+    return (spec.get("stage_plans") or {}).get(str(stage), spec.get("plan", "replicated"))
+
+
+def stage_plan_of(spec: dict, stage: int, cfg: LlamaConfig) -> plan_lib.Plan:
+    """Stage ``stage``'s layout for ``mode="sharded"`` (JAX's
+    ``_stage_plan``): its plan entry by name
+    (:func:`..parallel.plan.stage_plan`, ``fsdp_min_size`` from the spec,
+    JAX's default 2**10) or a serialized plan record
+    (``Plan.from_record``); the program validates it on the stage's mesh.
+    ``zero`` raises naming ROADMAP Queue 1 item 5."""
+    name = _stage_plan_name(spec, stage)
     try:
-        plan_lib.stage_plan(name)
+        if isinstance(name, dict):
+            return plan_lib.Plan.from_record(name)
+        return plan_lib.stage_plan(
+            name, cfg, fsdp_min_size=int(spec.get("fsdp_min_size", 2**10)))
     except plan_lib.PlanError as e:
         raise ValueError(f"DLS_PIPE_SPEC stage {stage}: {e}") from e
+
+
+def refuse_multi_card_stage(spec: dict, stage: int) -> None:
+    """What a stage still cannot be: raise ``ValueError``, naming why, for
+    a ``zero`` stage plan (ZeRO weight-update sharding, ROADMAP Queue 1 item
+    5) and, in ``mode="exact"``, a stage mesh with an axis other than
+    ``data``/``fsdp`` above 1 (JAX's own refusal: exact mode splits rows
+    only)."""
+    name = _stage_plan_name(spec, stage)
+    if name == "zero" or (isinstance(name, dict) and name.get("zero_axes")):
+        raise ValueError(f"DLS_PIPE_SPEC stage {stage}: the 'zero' stage plan "
+                         f"(ZeRO weight-update sharding) is not ported yet: "
+                         f"ROADMAP Queue 1 item 5")
+    if spec.get("mode", "exact") == "exact":
+        extra = {a: s for a, s in stage_mesh_axes(spec, stage).items()
+                 if a not in BATCH_AXES and s not in (1, -1)}
+        if extra:
+            raise ValueError(
+                f"DLS_PIPE_SPEC stage {stage}: mode='exact' shards rows over "
+                f"(data, fsdp) only; this stage mesh also has {extra} — use "
+                f"mode='sharded'")
 
 
 def synthetic_batch_fn(spec: dict) -> Callable[[int], dict]:
     """Deterministic pure-function-of-step batch stream (JAX's bytes): the
     property that makes resync rollback trivial (re-running step *s*
-    reproduces its batch bit-for-bit at any attempt)."""
+    reproduces its batch bit-for-bit at any attempt, on any stage
+    geometry)."""
     b = int(spec.get("batch_size", 8))
     t = int(spec.get("seq", 32))
     vocab = int((spec.get("cfg") or {}).get("vocab_size", 512))
@@ -1016,30 +1396,93 @@ def synthetic_batch_fn(spec: dict) -> Callable[[int], dict]:
 
 def param_digests(params: dict[str, torch.Tensor]) -> dict[str, str]:
     """Each param's bytes under SHA-256 (16 hex digits), hashed on the
-    host: two runs' final params compare bit for bit through their
-    summaries, without a checkpoint."""
-    return {n: hashlib.sha256(p.detach().to("cpu").contiguous().reshape(-1)
-                              .view(torch.uint8).numpy()).hexdigest()[:16]
+    host, a sharded param gathered whole first (a collective: every rank of
+    its gang calls it): two runs' final params compare bit for bit through
+    their summaries, without a checkpoint, whatever their layouts."""
+    return {n: hashlib.sha256(sharding.full(p.detach()).to("cpu").contiguous()
+                              .reshape(-1).view(torch.uint8).numpy()).hexdigest()[:16]
             for n, p in params.items()}
 
 
+def _layout(model: torch.nn.Module, params: dict[str, torch.Tensor]) -> dict:
+    """How a stage's params lie: each sharded param's mesh axes and
+    placements, and how many modules FSDP2 wraps."""
+    from torch.distributed.fsdp import FSDPModule
+
+    return {"sharded": {n: [list(p.device_mesh.mesh_dim_names or ()),
+                            [f"Shard({x.dim})" if x.is_shard() else type(x).__name__
+                             for x in p.placements]]
+                        for n, p in params.items() if sharding.is_sharded(p)},
+            "fsdp_modules": sum(isinstance(m, FSDPModule) for m in model.modules())}
+
+
 def stage_summary(runner: PipelineStageRunner, result: dict) -> dict:
-    """What a stage reports at its end: its steps, losses, transport
-    stats, its K1/K2/K3 launches, (on a card) its peak memory and its
-    final params' digests (:func:`param_digests`)."""
+    """What a stage reports at its end (every rank calls it; the lead's is
+    the stage's): its steps, losses, transport and gang stats, its layout,
+    its final params' digests (:func:`param_digests`) and each rank's pid,
+    params held, K1/K2/K3 launches and (on a card) peak memory."""
     from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
 
     prog = runner.program
+    state = result["state"]
+    card = {"rank": runner.gang.rank, "pid": os.getpid(),
+            "params": sum(sharding.local(p).numel() for p in state.params.values()),
+            "flash_launches": {k.__name__: k.launches
+                               for k in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)}}
+    if prog.device.type == "cuda":
+        card["max_memory_allocated"] = torch.cuda.max_memory_allocated(prog.device)
     out = {"stage": prog.stage, "step": result["step"], "losses": result["losses"],
            "attempt": int(os.environ.get("DLS_RESTART", "0") or 0),
-           "params": sum(p.numel() for p in result["state"].params.values()),
-           "stats": result["stats"],
-           "flash_launches": {k.__name__: k.launches
-                              for k in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)}}
-    if prog.device.type == "cuda":
-        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(prog.device)
-    out["param_digests"] = param_digests(result["state"].params)
+           "mesh": prog.mesh.shape if prog.mesh is not None else None,
+           "mode": prog.mode, "plan": prog.plan.name if prog.plan is not None else None,
+           "params": sum(p.numel() for p in state.params.values()),
+           "stats": result["stats"], "layout": _layout(prog.model, state.params),
+           "flash_launches": card["flash_launches"]}
+    if "max_memory_allocated" in card:
+        out["max_memory_allocated"] = card["max_memory_allocated"]
+    out["param_digests"] = param_digests(state.params)
+    if runner.gang.size > 1:
+        import torch.distributed as dist
+
+        cards = [None] * runner.gang.size
+        dist.all_gather_object(cards, card, group=runner.gang.ctrl)
+        out["ranks"] = cards
+    else:
+        out["ranks"] = [card]
     return out
+
+
+def _join_stage_gang(device: torch.device, spec: dict, stage: int):
+    """This process's place in its stage's gang: the stage's process group
+    (NCCL on a card, gloo on the CPU, as a ``Session``'s gang joins it; no
+    fallback), its :class:`~..parallel.mesh.Mesh` from the spec's stage
+    mesh, its gloo control group (None on the CPU: the stage's own group is
+    gloo) and its device; no mesh and no group for a stage of one
+    process."""
+    from distributeddeeplearningspark_tpu_torch.session import _device_mesh, _join_group
+    from distributeddeeplearningspark_tpu_torch.utils.env import (
+        NUM_PROCESSES_ENV,
+        distributed_env,
+    )
+
+    n = int(os.environ.get(NUM_PROCESSES_ENV) or 1)
+    shape = MeshSpec(**stage_mesh_axes(spec, stage)).shape(n)
+    if n == 1:
+        return None, None, device
+    env = distributed_env()
+    import datetime
+
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        device = torch.device("cuda", env.rank)
+        torch.cuda.set_device(device)
+    _join_group(env, device)
+    device_mesh, groups = _device_mesh(shape, env.rank, device)
+    ctrl = (dist.new_group(backend="gloo",
+                           timeout=datetime.timedelta(seconds=CTRL_TIMEOUT_S))
+            if device.type == "cuda" else None)
+    return Mesh(shape, device_mesh, groups, env.rank), ctrl, device
 
 
 def stage_main() -> int:
@@ -1048,20 +1491,30 @@ def stage_main() -> int:
     spec = json.loads(os.environ[mpmd.ENV_SPEC])
     stage = int(os.environ[mpmd.ENV_STAGE])
     num_stages = int(os.environ[mpmd.ENV_NUM_STAGES])
-    workdir = os.environ.get(telemetry_lib.WORKDIR_ENV)
-    if workdir:
-        telemetry_lib.configure(workdir)
     refuse_multi_card_stage(spec, stage)
     mode = spec.get("mode", "exact")
     device = resolve_device(spec.get("device", "cuda"))
+    mesh, ctrl, device = _join_stage_gang(device, spec, stage)
+    rank = mesh.rank if mesh is not None else 0
+    workdir = os.environ.get(telemetry_lib.WORKDIR_ENV)
+    if workdir and rank == 0:  # the lead writes the stage's telemetry
+        telemetry_lib.configure(workdir, process=f"p{stage}")
+    cfg = _tiny_cfg(spec)
+    init_params = None
+    if spec.get("init_params"):
+        init_params = torch.load(spec["init_params"], map_location="cpu",
+                                 weights_only=True)
     program = LlamaStageProgram(
-        _tiny_cfg(spec), stage, num_stages, _optimizer(spec), device=device, mode=mode,
+        cfg, stage, num_stages, _optimizer(spec), device=device, mode=mode,
         loss_mode=spec.get("loss_mode",
                            "full_batch" if mode == "exact"
-                           else "per_microbatch"))
+                           else "per_microbatch"),
+        init_params=init_params, mesh=mesh,
+        plan=stage_plan_of(spec, stage, cfg) if mode == "sharded" else None)
+    gang = StageGang(program, ctrl)
     transport = mpmd.PipelineTransport.from_env(
         depth=int(spec.get("depth", 2)), pinned=device.type == "cuda",
-        tick=touch_heartbeat)
+        tick=touch_heartbeat) if gang.lead else None
     ckpt = None
     if workdir and spec.get("checkpoint_every"):
         from distributeddeeplearningspark_tpu_torch.checkpoint import Checkpointer
@@ -1078,26 +1531,33 @@ def stage_main() -> int:
     runner = PipelineStageRunner(
         program, transport, run,
         batch_fn=synthetic_batch_fn(spec) if stage == 0 else None,
-        checkpointer=ckpt)
-    logger.info("stage %d/%d: mode=%s on %s serving pipeline",
-                stage, num_stages, mode, device)
+        checkpointer=ckpt, gang=gang)
+    logger.info("stage %d/%d rank %d/%d: mesh %s mode=%s on %s serving pipeline",
+                stage, num_stages, gang.rank, gang.size,
+                mesh.shape if mesh is not None else None, mode, device)
     try:
         result = runner.run()
     finally:
         if ckpt is not None:
             ckpt.close()
-        transport.close()
+        if transport is not None:
+            transport.close()
     if workdir:
         summary = stage_summary(runner, result)
-        path = os.path.join(workdir, f"stage{stage}",
-                            f"summary-{summary['attempt']}.json")
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "w") as f:
-            json.dump(summary, f)
-        if stage == 0:
-            with open(os.path.join(workdir, "DONE"), "w") as f:
-                json.dump({"step": result["step"], "losses": result["losses"],
-                           "attempt": summary["attempt"]}, f)
+        if gang.lead:
+            path = os.path.join(workdir, f"stage{stage}",
+                                f"summary-{summary['attempt']}.json")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w") as f:
+                json.dump(summary, f)
+            if stage == 0:
+                with open(os.path.join(workdir, "DONE"), "w") as f:
+                    json.dump({"step": result["step"], "losses": result["losses"],
+                               "attempt": summary["attempt"]}, f)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

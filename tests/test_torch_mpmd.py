@@ -16,10 +16,12 @@
 - **The supervisor**: the stage env contract (a ``StagePlan``'s
   ``CUDA_VISIBLE_DEVICES`` included), two stages needed, the hang
   watchdog's plumbing, a spec required for the built-in worker.
-- **The refusals**: ``stage_plan`` ``fsdp``/``tensor``/``zero``, a stage
-  mesh of more than one device, ``mode="exact"`` with ``per_microbatch``,
-  the driver's ``--devices-per-stage 2``, and a stage worker with no card
-  and no ``"device": "cpu"``.
+- **Stage layouts and what stays refused**: ``stage_plan`` builds
+  ``fsdp`` and ``tensor`` (a plan record too) and refuses ``zero`` (ROADMAP
+  Queue 1 item 5); a stage mesh of two devices is a gang of two processes,
+  which ``exact`` refuses on a ``tensor`` mesh; ``mode="exact"`` with
+  ``per_microbatch``; the driver's two cards a stage by default (its card
+  lists); and a stage worker with no card and no ``"device": "cpu"``.
 
 The end-to-end runs and the drills are ``tests/test_torch_mpmd_e2e.py``.
 """
@@ -37,6 +39,7 @@ import torch
 from distributeddeeplearningspark_tpu_torch import telemetry
 from distributeddeeplearningspark_tpu_torch.models import llama as tllama
 from distributeddeeplearningspark_tpu_torch.models import llama_io as tllama_io
+from distributeddeeplearningspark_tpu_torch.parallel import mesh as tmesh
 from distributeddeeplearningspark_tpu_torch.parallel import mpmd
 from distributeddeeplearningspark_tpu_torch.parallel import plan as tplan
 from distributeddeeplearningspark_tpu_torch.train import optim
@@ -477,7 +480,10 @@ def test_pipeline_supervisor_stage_env_contract(tmp_path):
     # stage-targetable identity: DLS_FAULT=die_host@N + DLS_FAULT_HOST=k
     # kills exactly stage k
     assert env0["DLS_HOST_ID"] == "0" and env1["DLS_HOST_ID"] == "1"
-    assert env0["DLS_PROCESS_ID"] == "0" and env1["DLS_PROCESS_ID"] == "1"
+    # each stage a gang of one: rank 0 of 1, no rendezvous
+    assert env0["DLS_PROCESS_ID"] == "0" and env1["DLS_PROCESS_ID"] == "0"
+    assert env0["DLS_NUM_PROCESSES"] == env1["DLS_NUM_PROCESSES"] == "1"
+    assert "DLS_COORDINATOR" not in env0 and sup.sizes == [1, 1]
     assert env0["DLS_RESTART"] == "0"
     assert env0["CUDA_VISIBLE_DEVICES"] == "2" and env1["CUDA_VISIBLE_DEVICES"] == "3"
     assert env0[telemetry.WORKDIR_ENV] == str(tmp_path)
@@ -509,7 +515,7 @@ def test_pipeline_supervisor_hang_watchdog_plumbing(tmp_path):
         [StagePlan(argv=["true"]), StagePlan(argv=["true"])],
         telemetry_dir=str(tmp_path), hang_timeout_s=5.0)
     env0 = sup._stage_env(0)
-    assert env0["DLS_HEARTBEAT_FILE"] == sup._hb_path(0)
+    assert env0["DLS_HEARTBEAT_FILE"] == sup._hb_path(0, 0)
     now = time.time()
     sup._launch_wall[0] = now
     assert not sup._hb_stale(0, now)           # just launched: in grace
@@ -552,24 +558,61 @@ def test_heartbeat_stamps_through_a_long_phase(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", ["fsdp", "tensor", "zero"])
 def test_stage_plan_refuses_multi_card_layouts(name):
+    """``fsdp`` and ``tensor`` build JAX's stage layouts (a tensor stage
+    needs the cfg); ``zero`` stays refused, naming ROADMAP Queue 1 item 5,
+    in ``stage_plan`` and in a spec."""
     assert tplan.stage_plan("replicated").name == "stage-replicated"
-    with pytest.raises(tplan.PlanError, match="multi-card stages"):
-        tplan.stage_plan(name)
-    for spec in ({"mode": "sharded", "stage_plans": {"1": name}}, {"plan": name}):
-        with pytest.raises(ValueError, match="multi-card stages"):
-            tpt.refuse_multi_card_stage(spec, 1)
-    tpt.refuse_multi_card_stage({"stage_plans": {"0": name}}, 1)
     with pytest.raises(tplan.PlanError, match="unknown stage plan"):
         tplan.stage_plan("magic")
+    if name == "zero":
+        with pytest.raises(tplan.PlanError, match="item 5"):
+            tplan.stage_plan(name, _tcfg())
+        for spec in ({"mode": "sharded", "stage_plans": {"1": name}}, {"plan": name}):
+            with pytest.raises(ValueError, match="item 5"):
+                tpt.refuse_multi_card_stage(spec, 1)
+        tpt.refuse_multi_card_stage({"stage_plans": {"0": name}}, 1)
+        return
+    plan = tplan.stage_plan(name, _tcfg(), fsdp_min_size=2**10)
+    assert plan.name == f"stage-{name}"
+    if name == "fsdp":
+        assert plan.rules.fsdp and plan.rules.fsdp_min_size == 2**10 and not plan.rules.rules
+    else:
+        with pytest.raises(tplan.PlanError, match="cfg"):
+            tplan.stage_plan(name)
+        assert not plan.rules.fsdp
+        assert dict(plan.rules.rules)["(wq|wk|wv)/weight"] == ("tensor", None)
+    mesh = tmesh.Mesh(tmesh.MeshSpec(data=1, **{name: 2}).shape(2))
+    assert tpt.stage_plan_of({"mode": "sharded", "stage_plans": {"1": name}}, 1,
+                             _tcfg()).name == plan.name
+    # a serialized plan record is taken too, and validated on the stage's mesh
+    rec = plan.to_record()
+    assert tpt.stage_plan_of({"plan": rec}, 0, _tcfg()).signature() == plan.signature()
+    plan.validate(mesh)
+    tpt.refuse_multi_card_stage({"mode": "sharded", "stage_plans": {"1": name}}, 1)
 
 
 @pytest.mark.parametrize("spec", [{"mesh": {"data": 2}},
                                   {"stage_meshes": {"0": {"fsdp": 2}}},
                                   {"mesh": {"data": 1, "tensor": 2}}])
 def test_stage_mesh_of_more_than_one_device_is_refused(spec):
-    with pytest.raises(ValueError, match="multi-card stages"):
-        tpt.refuse_multi_card_stage(spec, 0)
+    """A stage mesh of two devices is a gang of two processes (the
+    supervisor's ``stage_processes``, a ``-1`` axis taking the stage's
+    cards); ``exact`` refuses a mesh with an axis other than data/fsdp
+    (JAX's refusal), ``sharded`` takes it."""
+    assert tpt.stage_processes(spec, 0) == 2
+    assert tpt.stage_processes({"mesh": {"data": -1}}, 0, cards=4) == 4
+    assert tpt.stage_processes({}, 1) == 1
     tpt.refuse_multi_card_stage({"mesh": {"data": -1}, "plan": "replicated"}, 0)
+    if "tensor" in json.dumps(spec):
+        with pytest.raises(ValueError, match="exact"):
+            tpt.refuse_multi_card_stage(spec, 0)
+        with pytest.raises(ValueError, match="exact"):
+            tpt.LlamaStageProgram(_tcfg(), 0, 2, optim.sgd(0.1), device="cpu",
+                                  mesh=tmesh.Mesh(tmesh.MeshSpec(
+                                      data=1, tensor=2).shape(2)))
+        tpt.refuse_multi_card_stage({**spec, "mode": "sharded"}, 0)
+    else:
+        tpt.refuse_multi_card_stage(spec, 0)
 
 
 def test_stage_program_validation():
@@ -584,12 +627,21 @@ def test_stage_program_validation():
 
 
 def test_driver_refuses_more_than_one_device_a_stage(capsys):
+    """The driver's default is two cards a stage, as JAX's: stage k takes
+    cards 2k and 2k+1, its mesh {"data": 2}; fewer cards than stages × n
+    are refused (round robin would put two ranks on one card)."""
     from distributeddeeplearningspark_tpu_torch.examples import train_llama_mpmd
 
+    assert train_llama_mpmd.parse_args([]).devices_per_stage == 2
     with pytest.raises(SystemExit):
-        train_llama_mpmd.parse_args(["--devices-per-stage", "2"])
-    assert "multi-card stages" in capsys.readouterr().err
-    assert train_llama_mpmd.parse_args([]).devices_per_stage == 1
+        train_llama_mpmd.parse_args(["--devices-per-stage", "0"])
+    assert "at least 1" in capsys.readouterr().err
+    cards = [str(c) for c in range(4)]
+    assert train_llama_mpmd._card_envs(2, 2, cards) == [
+        {"CUDA_VISIBLE_DEVICES": "0,1"}, {"CUDA_VISIBLE_DEVICES": "2,3"}]
+    assert train_llama_mpmd._card_envs(4, 1, cards)[3] == {"CUDA_VISIBLE_DEVICES": "3"}
+    with pytest.raises(ValueError, match="need 6 cards"):
+        train_llama_mpmd._card_envs(3, 2, cards)
 
 
 def test_stage_worker_without_a_card_raises(monkeypatch, tmp_path):

@@ -46,12 +46,18 @@ from test_torch_dist import run_gang
 #: the loss of each step against the JAX one-device step's (f32)
 LOSS_RTOL = 1e-5
 #: each param's change over the 3 AdamW steps, |Δ_port − Δ_jax| / |Δ_jax|
-#: per tensor (test_torch_pp.py's criterion): AdamW steps ±lr wherever a
-#: gradient is near 0, so summation order alone flips whole steps there. On
-#: these batches the port's own whole model on one device lies 1.54e-3 off
-#: JAX's in layers.4.mlp.gate.weight (the MPMD runs 1.57e-3), above
-#: test_torch_pp.py's 1e-3 on its batches
+#: per tensor (test_torch_pp.py's criterion): AdamW's first step is
+#: g / (|g| + eps), so where |g| is below eps a rounding of g moves the step
+#: by a good part of lr. On these batches the port's own whole model on one
+#: device lies 1.54e-3 off JAX's in layers.4.mlp.gate.weight (the MPMD runs
+#: 1.57e-3), above test_torch_pp.py's 1e-3 on its batches: one element,
+#: whose first gradient (5.8e-9) is the tensor's smallest, carries 99.99%
+#: of its square, and the rest agrees within 2e-5
+#: (:func:`test_the_one_device_gap_lies_in_a_near_zero_gradient`)
 JAX_CHANGE_RTOL = 3e-3
+#: Adam's eps (optax's and the port's default): a first gradient below it
+#: steps by g / (|g| + eps), not ±1
+ADAM_EPS = 1e-8
 #: the same against the port's whole model on one device, which the MPMD
 #: runs meet within 3.5e-5
 ONE_CARD_CHANGE_RTOL = 1e-4
@@ -141,6 +147,39 @@ def _port_one_device(init: dict, batch_fn) -> dict:
         for p in params:
             p.grad = None
     return {n: p.detach().numpy().copy() for n, p in named.items()}
+
+
+def test_the_one_device_gap_lies_in_a_near_zero_gradient(jax_reference):
+    """Where the port's one-device run lies off JAX's in
+    ``layers.4.mlp.gate.weight``: the elements that carry 99% of the
+    squared gap of the 3-step change are few, each with a first-step
+    gradient below Adam's eps and among the tensor's smallest 0.1%; without
+    them the change agrees within 1e-4 of its size (the port's one-device
+    Llama holds JAX's where AdamW's steps do not hang on a rounding)."""
+    ref = jax_reference
+    name = "layers.4.mlp.gate.weight"
+    init = ref["init"][name].ravel()
+    d_jax = ref["final"][name].ravel() - init
+    d_port = ref["one_card"][name].ravel() - init
+    sq = (d_port - d_jax).astype(np.float64) ** 2
+    assert 1e-3 < np.sqrt(sq.sum()) / np.linalg.norm(d_jax) <= JAX_CHANGE_RTOL
+    order = np.argsort(sq)[::-1]
+    carriers = order[:int(np.searchsorted(np.cumsum(sq[order]) / sq.sum(), 0.99)) + 1]
+    model = tllama.LlamaForCausalLM(tllama.LlamaConfig.tiny(num_layers=LAYERS),
+                                    device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in ref["init"].items()})
+    batch = {k: torch.from_numpy(v) for k, v in ref["batch_fn"](0).items()}
+    from distributeddeeplearningspark_tpu_torch.train import losses
+
+    losses.causal_lm(model(batch), batch)[0].backward()
+    grad = np.abs(dict(model.named_parameters())[name].grad.numpy().ravel())
+    listed = {int(i): (float(grad[i]), float(np.sqrt(sq[i]) / LR)) for i in carriers}
+    assert len(carriers) <= 4, listed
+    smallest = np.quantile(grad, 1e-3)
+    assert all(grad[i] < ADAM_EPS and grad[i] <= smallest for i in carriers), listed
+    rest = np.ones(init.size, bool)
+    rest[carriers] = False
+    assert np.sqrt(sq[rest].sum()) <= 1e-4 * np.linalg.norm(d_jax[rest]), listed
 
 
 def _free_port():

@@ -107,6 +107,45 @@ def test_adamw_chain_matches_optax(grad_scale, max_norm, lr):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-9)
 
 
+def _adam_two_temporaries(updates, state, b1=0.9, b2=0.999, eps=1e-8):
+    """The earlier ``scale_by_adam`` update: ``denom`` and ``out`` built as
+    two whole new lists."""
+    mu, nu = [m.clone() for m in state.mu], [n.clone() for n in state.nu]
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, updates, alpha=1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, updates, updates, value=1.0 - b2)
+    c = (state.count + 1).float()
+    denom = torch._foreach_div(nu, 1.0 - torch.pow(b2, c))
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    out = torch._foreach_div(mu, 1.0 - torch.pow(b1, c))
+    torch._foreach_div_(out, denom)
+    return out, mu, nu, denom
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adam_update_in_the_gradients_memory_is_bitwise_the_old(dtype):
+    """``scale_by_adam`` with the denominator in the spent gradients' memory
+    (one param-sized temporary, the update) against the two-list formula:
+    every update and both moments bitwise, over 4 updates of random tensors
+    with gradients near zero among them."""
+    g = torch.Generator().manual_seed(0)
+    shapes = [(33, 7), (5,), (4, 3, 2)]
+    params = [torch.randn(s, generator=g).to(dtype) for s in shapes]
+    tx = toptim.scale_by_adam()
+    state = tx.init(params)
+    for i in range(4):
+        grads = [(torch.randn(s, generator=g) * 10.0 ** -(3 * (i % 2))).to(dtype)
+                 for s in shapes]
+        want, mu, nu, denom = _adam_two_temporaries([x.clone() for x in grads], state)
+        got, state = tx.update(grads, state, params)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        # the denominator lies in the gradients' memory
+        for a, b in zip([*got, *state.mu, *state.nu, *grads], [*want, *mu, *nu, *denom]):
+            assert a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits)), i
+
+
 @pytest.mark.parametrize("eval_mask", [False, True])
 def test_masked_lm_matches_jax(eval_mask):
     rng = np.random.default_rng(3)
