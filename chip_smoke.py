@@ -89,7 +89,14 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    ``dlsubmit`` at ``local[1]`` for 5 steps with its default ``--fsdp -1``
    (a one-card mesh: nothing sharded, the card holding what the rule
    engine reckons; the same launch counts a step, finite losses, nothing
-   left);
+   left); then config 5 on the int8 frozen base with the fused head loss
+   (``train_llama_qlora``): 10 steps and the driver's 5 with
+   ``--base-quant int8 --fused-head-loss``, finite falling losses, the same
+   launch counts, the resident base bytes and the measured FLOPs each the
+   reckoning exactly, the adapters' gradients against the dequantised bf16
+   base through the plain loss, and its peak memory and step ms printed
+   beside the bf16 cell's (``--qlora`` runs the kernels' checks and this
+   phase only);
 7. hold K4 (the 1×1-conv matmul with BN statistics) against its plain
    version on the card in bf16 at the ten shapes of ResNet-50's fused
    layers at b=256, three that a rank of four gets at 64 images, and six
@@ -298,6 +305,11 @@ printed: each stage's ms a step, tokens/s a card, the transport's ms a
 microbatch (device → host, send, host → device), the gang's collective
 ms a move, the measured bubble against 3/7 (1/5 for two stages) and the
 drills' seconds from the kill to the next step.
+``--gang llama`` also runs ZeRO on the 2-layer full fine-tune: data=N
+under ``zero_plan(DP)`` beside ``DP``, bitwise, the optimizer state a card
+÷N, each restored at data=N/2; ``--gang llama-mpmd-stages`` also (f)'s
+model with stage 0 under the ``zero`` stage plan beside ``replicated``,
+bitwise (``--gang llama-zero`` and ``llama-mpmd-zero`` run these alone).
 ``--gang dlrm`` (or ``resnet``, ``llama``, ``llama-cp``, ``llama-drain``,
 ``llama-moe``, ``llama-pp``, ``llama-mpmd``) runs that part's comparisons only (names
 combine), ``--gang llama-mpmd-stages`` (e)–(h) and the driver only (with
@@ -1841,6 +1853,209 @@ def train_llama_driver(torch) -> dict:
           f"the llama driver's flash launches {res['flash_launches']}, want {want}")
     check(not run["left"], f"llama driver left {run['left']}")
     return rec
+
+
+# -- phase 5b': Llama-2 7B LoRA on the int8 base with the fused head ------------
+
+#: Llama-2 7B's int8 base: the projections at one byte a weight, their f32
+#: scales (one an output channel: wq, wk, wv, wo and down 4,096 each, gate
+#: and up 11,008), the bf16 embedding and head, the f32 norm scales
+QLORA_Q8_BYTES = 32 * (4 * 4096 * 4096 + 3 * 4096 * 11008)
+QLORA_SCALE_BYTES = 32 * (5 * 4096 + 2 * 11008) * 4
+QLORA_EMBED_HEAD_BYTES = 2 * 32000 * 4096 * 2
+QLORA_NORM_BYTES = (2 * 32 + 1) * 4096 * 4
+
+
+def _llama_products_fused(cfg, b: int, s: int) -> int:
+    """:func:`_llama_products` with the fused head loss: the head's forward
+    and dx (2 products of b·s rows) become the chunked loss's three over
+    the b·(s−1) rows that have a label: its forward's logits, the
+    backward's recompute of them and dh (the head is frozen: no dW)."""
+    n, h, v = b * s, cfg.hidden_size, cfg.vocab_size
+    return (_llama_products(cfg, b, s) - 2 * (2 * n * h * v)
+            + 3 * (2 * b * (s - 1) * h * v))
+
+
+def _qlora_grad_parity(torch, model, batch) -> dict:
+    """The adapters' gradients of the trained int8 model through the fused
+    loss on one batch, against the same model with a bf16 base dequantised
+    from its int8 params (each projection's ``q·scale`` in bf16, the
+    weight its forward multiplies by) through the unfused ``causal_lm``."""
+    import dataclasses
+
+    from distributeddeeplearningspark_tpu_torch.models import llama
+    from distributeddeeplearningspark_tpu_torch.train import losses
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    losses.causal_lm_fused(model(batch), batch)[0].backward()
+    got = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()
+           if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    cfg = dataclasses.replace(model.cfg, base_quant=None, fused_head_loss=False)
+    dense = llama.LlamaForCausalLM(cfg, device="meta").to_empty(device="cuda")
+    with torch.no_grad():
+        sd = {n: p for n, p in model.state_dict().items()
+              if not n.endswith((".base_q8", ".base_scale"))}
+        for name, mod in model.named_modules():
+            if isinstance(mod, llama.LoRALinear) and mod.quantized:
+                sd[f"{name}.weight"] = mod.base_weight()
+        dense.load_state_dict(sd)
+    for n, p in dense.named_parameters():
+        p.requires_grad_(llama.lora_trainable(n))
+    dense.train()
+    losses.causal_lm(dense(batch), batch)[0].backward()
+    ref = {n: p.grad.detach().float().clone() for n, p in dense.named_parameters()
+           if p.grad is not None}
+    del dense
+    torch.cuda.empty_cache()
+    rec = _compare_grads(torch, got, ref, PARITY_RTOL, PARITY_ATOL)
+    return dict(rec, same_tensors=sorted(got) == sorted(ref))
+
+
+def train_llama_qlora(torch, fa) -> dict:
+    """Config 5 on the memory path (Queue 1 item 5): Llama-2 7B at its
+    published widths with the int8 frozen base (``base_quant="int8"``) and
+    the fused head loss (``fused_head_loss=True``, ``losses.causal_lm_fused``),
+    LoRA rank 16 on wq/wv, b=8, S=1,024, LLAMA_STEPS steps through
+    ``Session`` → ``lm_dataset`` → ``Trainer.fit`` (the first step's FLOPs
+    counted): finite, falling losses; K1/K2/K3 LLAMA_LAUNCHES a step; the
+    resident base bytes the reckoning (QLORA_*); the measured FLOPs the
+    reckoning with the fused head (:func:`_llama_products_fused`); the
+    adapters' gradients on one batch against the dequantised bf16 base
+    through the unfused loss (:func:`_qlora_grad_parity`); then the driver
+    through its cli with ``--base-quant int8 --fused-head-loss``."""
+    import gc
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch import telemetry
+    from distributeddeeplearningspark_tpu_torch.data.feed import device_batches
+    from distributeddeeplearningspark_tpu_torch.models import llama
+    from distributeddeeplearningspark_tpu_torch.session import Session
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = LLAMA_STEPS
+    workdir = ROOT / "build" / "chip_smoke_llama_qlora"
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    spark = Session.builder.master("local[1]").appName("llama-qlora").getOrCreate()
+    ds, tok = _lm_feed(spark, 1)
+    tx = optim.masked(optim.with_grad_clip(optim.adamw(optim.warmup_cosine(
+        LLAMA_LR, min(10, max(steps // 10, 1)), steps)), 1.0), llama.lora_trainable)
+    model = llama.llama2_7b(device="cuda", seed=0, lora_rank=LLAMA_RANK, lora_alpha=16.0,
+                            base_quant="int8", fused_head_loss=True)
+    cfg = model.cfg
+    base_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                     if not llama.lora_trainable(n))
+    q8_bytes = sum(p.numel() for n, p in model.named_parameters() if n.endswith(".base_q8")
+                   and p.dtype == torch.int8)
+    want_base = QLORA_Q8_BYTES + QLORA_SCALE_BYTES + QLORA_EMBED_HEAD_BYTES + QLORA_NORM_BYTES
+    trainer = Trainer(spark, model, losses.causal_lm_fused, tx, rules=llama.llama_rules(cfg),
+                      trainable=llama.lora_trainable)
+    check(not trainer.shard_dims, f"one card sharded {trainer.shard_dims}")
+    trainer.init()
+    setup_s = time.perf_counter() - t0
+    os.environ[telemetry.WORKDIR_ENV] = str(workdir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for k in kernels:  # the main path's run starts here
+        k.launches = 0
+    try:
+        _, summary = trainer.fit(ds, batch_size=LLAMA_BATCH, steps=steps,
+                                 tokens_per_example=LLAMA_SEQ, log_every=1,
+                                 measure_flops=True)
+    finally:
+        os.environ.pop(telemetry.WORKDIR_ENV, None)
+        telemetry.reset()
+    launches = {k.__name__: k.launches for k in kernels}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    laps = [r for r in _events(workdir) if r["kind"] == "step_metrics"]
+    logged = [(r["step"], r["metrics"]["loss"]) for r in laps]
+    flops = laps[-1]["flops_per_step"] if laps else None
+    reckoned = _llama_products_fused(cfg, LLAMA_BATCH, LLAMA_SEQ)
+    batch = next(device_batches(ds, LLAMA_BATCH, trainer.device))
+    parity = _qlora_grad_parity(torch, trainer.model, batch)
+    spark.stop()
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = dict(steps=steps, batch_size=LLAMA_BATCH, seq_len=LLAMA_SEQ,
+               lora_rank=LLAMA_RANK, logged_losses=logged,
+               step_time_ms=summary.get("step_time_ms"),
+               tokens_per_sec_per_chip=summary.get("tokens_per_sec_per_chip"),
+               launches=launches, max_memory_allocated=peak_bytes,
+               base_bytes=base_bytes, base_bytes_reckoned=want_base,
+               q8_bytes=q8_bytes, q8_bytes_reckoned=QLORA_Q8_BYTES,
+               flops_per_step=flops, flops_reckoned=reckoned,
+               flops_unfused_reckoned=_llama_products(cfg, LLAMA_BATCH, LLAMA_SEQ),
+               setup_s=setup_s, grad_parity=parity, card=nvidia_smi_line())
+    print("train llama-2-7b qlora " + json.dumps(rec), flush=True)
+    check(len(logged) == steps and all(np.isfinite(x) for _, x in logged),
+          f"qlora: logged losses {logged}")
+    check(logged[-1][1] < logged[0][1], f"qlora: the loss did not fall: {logged}")
+    want = {k: n * steps for k, n in LLAMA_LAUNCHES.items()}
+    check(launches == want, f"qlora: flash launches during fit {launches}, want {want}")
+    check(q8_bytes == QLORA_Q8_BYTES and base_bytes == want_base,
+          f"qlora: resident base {base_bytes} B (int8 {q8_bytes}), reckoned {want_base} "
+          f"(int8 {QLORA_Q8_BYTES})")
+    check(flops == reckoned, f"qlora: the step's measured FLOPs {flops} are not the "
+          f"fused reckoning's {reckoned}")
+    check(parity["same_tensors"] and parity["tensors"] == 2 * 2 * LLAMA_LAYERS
+          and parity["max_tolerance_used"] <= 1.0,
+          f"qlora: the adapters' gradients are off the dequantised bf16 base's: "
+          f"{parity['worst']}")
+    rec["driver"] = train_llama_qlora_driver(torch)
+    return rec
+
+
+def train_llama_qlora_driver(torch) -> dict:
+    """The port's Llama driver through its cli at ``local[1]`` with
+    ``--base-quant int8 --fused-head-loss`` at 7B, b=8, S=1,024, LoRA rank
+    16, LLAMA_DRIVER_STEPS steps: it exits 0, the card holds the int8 model
+    (its resident bytes the rule engine's reckoning), K1/K2/K3
+    LLAMA_LAUNCHES a step, finite losses, nothing left."""
+    args = ["--variant", "7b", "--seq-len", str(LLAMA_SEQ), "--batch-size",
+            str(LLAMA_BATCH), "--lora-rank", str(LLAMA_RANK), "--lora-alpha", "16",
+            "--steps", str(LLAMA_DRIVER_STEPS), "--log-every", "1",
+            "--base-quant", "int8", "--fused-head-loss"]
+    run = _driver_run("llama_lora", ROOT / "build" / "chip_smoke_llama_qlora_driver", 1,
+                      args)
+    res = run["result"]
+    rec = dict(step_time_ms=res["train"].get("step_time_ms"), launch=run["launch"],
+               logged_losses=run["losses"].get("p0"), left=run["left"],
+               **{k: v for k, v in res.items() if k != "train"})
+    print("train llama qlora driver " + json.dumps(rec), flush=True)
+    check(res["base_quant"] == "int8" and res["fused_head_loss"] is True
+          and res["step"] == LLAMA_DRIVER_STEPS and res["sharded_params"] == 0
+          and res["param_bytes"] == res["by_rank"][0]["param_bytes_reckoned"],
+          f"qlora driver: {res}")
+    logged = rec["logged_losses"] or []
+    check(len(logged) == LLAMA_DRIVER_STEPS and all(np.isfinite(x) for x in logged),
+          f"qlora driver's logged losses: {logged}")
+    want = {k: n * LLAMA_DRIVER_STEPS for k, n in LLAMA_LAUNCHES.items()}
+    check(res["flash_launches"] == want,
+          f"the qlora driver's flash launches {res['flash_launches']}, want {want}")
+    check(not run["left"], f"qlora driver left {run['left']}")
+    return rec
+
+
+def print_memory_path(bf16: dict | None, qlora: dict) -> None:
+    """Config 5's step on the int8 base with the fused head beside the bf16
+    base with the plain head, from this run."""
+    line = dict(card=nvidia_smi_line(),
+                qlora=dict(peak_bytes=qlora["max_memory_allocated"],
+                           base_bytes=qlora["base_bytes"],
+                           step_ms=qlora["step_time_ms"]))
+    if bf16 is not None:
+        line["bf16"] = dict(peak_bytes=bf16["max_memory_allocated"],
+                            base_bytes=bf16["base_bytes"], step_ms=bf16["step_time_ms"])
+        line["peak_saved_bytes"] = bf16["max_memory_allocated"] - qlora["max_memory_allocated"]
+        line["base_saved_bytes"] = bf16["base_bytes"] - qlora["base_bytes"]
+    print("llama memory path " + json.dumps(line), flush=True)
 
 
 # -- phase 5c: the MoE 0.9b on one card -----------------------------------------
@@ -4401,6 +4616,167 @@ def train_llama_gang(torch, ranks: int) -> dict:
     return rec
 
 
+# -- chip_smoke.py --gang llama (llama-zero): ZeRO weight-update sharding ----------
+
+
+def zero_rank(argv: list[str]) -> int:
+    """One rank of a ZeRO comparison run (``chip_smoke.py --zero-rank OUT
+    PLAN RESTORE ARGS``, run by the port's cli): the Llama gang's full
+    fine-tune (LLAMA_GANG_FULL_LAYERS layers of the 7B widths, f32 params,
+    every param trainable, AdamW under the clip) data-parallel over every
+    rank (``mesh.data=-1``) with ``plan=DP`` or ``zero_plan(DP)``,
+    GANG_STEPS steps checkpointed at the last into ``OUT/ckpt``; with
+    RESTORE a checkpoint directory, that run restored instead and one more
+    step taken. Each rank writes ``OUT/rank<r>.json``: its optimizer-state
+    bytes (and the whole state's), its peak memory, the digest of every
+    param and the logged losses come from its telemetry."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from distributeddeeplearningspark_tpu_torch import Checkpointer, Session
+    from distributeddeeplearningspark_tpu_torch.examples import train_llama_lora as driver
+    from distributeddeeplearningspark_tpu_torch.parallel import plan as plan_lib
+    from distributeddeeplearningspark_tpu_torch.parallel import sharding
+    from distributeddeeplearningspark_tpu_torch.train import losses, optim
+    from distributeddeeplearningspark_tpu_torch.train.state import leaves
+    from distributeddeeplearningspark_tpu_torch.train.trainer import Trainer
+
+    out, plan_name, restore = argv[:3]
+    args = driver.parse_args(argv[3:])
+    spark = (Session.builder.appName(f"llama-zero-{plan_name}").config("mesh.data", -1)
+             .config("mesh.fsdp", 1).getOrCreate())
+    ds, tok = driver.make_dataset(args, spark)
+    cfg = dataclasses.replace(driver.make_config(args, tok.vocab_size),
+                              num_layers=LLAMA_GANG_FULL_LAYERS, lora_rank=0,
+                              param_dtype=torch.float32)
+    plan = plan_lib.zero_plan(plan_lib.DP) if plan_name == "zero" else plan_lib.DP
+    tx = optim.with_grad_clip(optim.adamw(optim.warmup_cosine(
+        LLAMA_GANG_FULL_LR, 1, GANG_STEPS + 1)), 1.0)
+    ckpt = Checkpointer(restore if restore != "none" else Path(out, "ckpt"))
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(spark, driver.make_model(cfg), losses.causal_lm, tx, plan=plan,
+                      checkpointer=ckpt)
+    data_state, steps = None, GANG_STEPS
+    if restore != "none":
+        _, data_state = trainer.restore()
+        steps = GANG_STEPS + 1
+    trainer.fit(ds, batch_size=args.batch_size, steps=steps, log_every=1,
+                tokens_per_example=args.seq_len, data_state=data_state,
+                checkpoint_every=GANG_STEPS if restore == "none" else None)
+    ckpt.close()
+    state = trainer.state
+    ts = [t for t in leaves(state.opt_state) if isinstance(t, torch.Tensor)]
+    digest = hashlib.blake2b(digest_size=16)
+    for n in sorted(state.params):
+        digest.update(state.params[n].detach().contiguous().view(torch.uint8).cpu().numpy())
+    # the reckoning: AdamW's two f32 moments of each param, 1/N of those of
+    # at least zero_min_size elements with a dim N divides; two 0-d counts
+    n = spark.world_size
+    sizes = [(p.numel(), p.shape) for p in state.params.values()]
+    reckoned = sum(2 * 4 * (k // n if k >= plan.zero_min_size and n > 1
+                            and any(d % n == 0 for d in shape) else k)
+                   for k, shape in sizes) + 2 * 8
+    rec = dict(rank=spark.rank, world_size=spark.world_size, mesh=spark.mesh.shape,
+               opt_bytes_reckoned=reckoned if plan.zero_axes else None,
+               plan=plan.name, zero_axes=list(plan.zero_axes),
+               opt_bytes=sum(sharding.local(t).numel() * t.element_size() for t in ts),
+               opt_bytes_whole=sum(t.numel() * t.element_size() for t in ts),
+               sliced_leaves=sum(1 for t in ts if sharding.is_sharded(t)),
+               param_bytes=sum(p.numel() * p.element_size() for p in state.params.values()),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               params_digest=digest.hexdigest(), step=state.step)
+    Path(out, f"rank{spark.rank}.json").write_text(json.dumps(rec))
+    spark.stop()
+    return 0
+
+
+def _zero_run(workdir: Path, ranks: int, plan: str, restore: str, args: list[str]) -> dict:
+    """A :func:`zero_rank` launch at ``local[ranks]``: every rank's record
+    and its logged losses from its telemetry."""
+    import shutil
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    _, timing = _launch(workdir, ranks, Path(__file__).resolve(),
+                        ["--zero-rank", str(workdir), plan, restore, *args], timeout=900)
+    cards = [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(ranks)]
+    logged: dict = {}
+    for r in _events(workdir):
+        if r["kind"] == "step_metrics":
+            logged.setdefault(r["process"], []).append(
+                (r["step"], r["metrics"]["loss"], r["lap_s"] * 1e3 / r["steps"]))
+    by_rank = [logged.get(f"p{r}", []) for r in range(ranks)]
+    return dict(cards=cards, launch=timing, steps=[[x[0] for x in v] for v in by_rank],
+                losses=[[x[1] for x in v] for v in by_rank],
+                step_ms=float(np.mean([x[2] for x in by_rank[0][1:]]))
+                if len(by_rank[0]) > 1 else None)
+
+
+def train_llama_zero(torch, ranks: int) -> dict:
+    """ZeRO weight-update sharding on config 5's full fine-tune (the Llama
+    gang's LLAMA_GANG_FULL_LAYERS layers of the 7B widths, every param
+    trainable, AdamW): at ``data=ranks`` under ``zero_plan(DP)`` beside
+    ``DP`` in this call, GANG_STEPS steps: the losses and the final params
+    bitwise equal, each card's optimizer-state bytes the replicated ones
+    over ``ranks`` (at 7B every leaf but the 0-d counts is sliced: each has
+    a dim the zero degree divides); then each run's checkpoint restored at
+    ``data=ranks/2`` under its own plan, one more step: the restored
+    step's loss and params bitwise equal between the two. Prints each
+    card's optimizer-state bytes against the reckoning, its peak memory and
+    the step ms."""
+    root = ROOT / "build" / f"chip_smoke_llama_zero_{ranks}"
+    args = _llama_gang_args(ranks, GANG_STEPS)
+    runs = {plan: _zero_run(root / plan, ranks, plan, "none", args) for plan in ("dp", "zero")}
+    half = ranks // 2
+    restored = {plan: _zero_run(root / f"{plan}-restored-{half}", half, plan,
+                                str(root / plan / "ckpt"), _llama_gang_args(ranks, GANG_STEPS))
+                for plan in ("dp", "zero")}
+    dp, zero = runs["dp"], runs["zero"]
+    whole = dp["cards"][0]["opt_bytes"]
+    reckoned = zero["cards"][0]["opt_bytes_reckoned"]
+    rec = dict(
+        ranks=ranks, layers=LLAMA_GANG_FULL_LAYERS, card=nvidia_smi_line(),
+        losses={p: r["losses"][0] for p, r in runs.items()},
+        bitwise_losses=[np.float32(x).tobytes() for x in zero["losses"][0]]
+        == [np.float32(x).tobytes() for x in dp["losses"][0]],
+        bitwise_params=all(a["params_digest"] == b["params_digest"]
+                           for a, b in zip(zero["cards"], dp["cards"])),
+        opt_bytes={p: [c["opt_bytes"] for c in r["cards"]] for p, r in runs.items()},
+        opt_bytes_reckoned=reckoned,
+        sliced_leaves=[c["sliced_leaves"] for c in zero["cards"]],
+        peak_bytes={p: [c["max_memory_allocated"] for c in r["cards"]]
+                    for p, r in runs.items()},
+        step_ms={p: r["step_ms"] for p, r in runs.items()},
+        restored={p: dict(steps=r["steps"][0], losses=r["losses"][0],
+                          digest=r["cards"][0]["params_digest"], mesh=r["cards"][0]["mesh"],
+                          opt_bytes=[c["opt_bytes"] for c in r["cards"]])
+                  for p, r in restored.items()})
+    print("gang llama zero " + json.dumps(rec), flush=True)
+    check(all(c["mesh"]["data"] == ranks and c["world_size"] == ranks
+              for r in runs.values() for c in r["cards"]),
+          f"llama zero: meshes {[c['mesh'] for c in dp['cards']]}")
+    check(len(dp["losses"][0]) == GANG_STEPS and all(np.isfinite(dp["losses"][0]))
+          and all(v == dp["losses"][0] for v in dp["losses"]),
+          f"llama zero: DP's losses {dp['losses']}")
+    check(rec["bitwise_losses"] and rec["bitwise_params"],
+          f"llama zero: ZeRO's losses {zero['losses'][0]} (or params) are not DP's "
+          f"{dp['losses'][0]} bitwise")
+    check(all(c["opt_bytes_whole"] == whole for c in zero["cards"])
+          and all(b == reckoned for b in rec["opt_bytes"]["zero"])
+          and all(b == whole for b in rec["opt_bytes"]["dp"]),
+          f"llama zero: optimizer-state bytes a card {rec['opt_bytes']}, reckoned "
+          f"{reckoned} under ZeRO (the whole {whole})")
+    r_dp, r_zero = rec["restored"]["dp"], rec["restored"]["zero"]
+    check(r_zero["steps"] == r_dp["steps"] == [GANG_STEPS + 1]
+          and r_zero["mesh"]["data"] == half
+          and np.float32(r_zero["losses"][0]).tobytes()
+          == np.float32(r_dp["losses"][0]).tobytes() and r_zero["digest"] == r_dp["digest"],
+          f"llama zero: restored at data={half}: {rec['restored']}")
+    return rec
+
+
 # -- chip_smoke.py --gang llama-pp: config 5 pipelined over the cards -------------
 
 #: the pipelined layouts of config 5 on four cards: name → (``--pipeline``,
@@ -6403,6 +6779,55 @@ def train_llama_mpmd_stages(torch, b_losses: list | None) -> dict:
     return rec
 
 
+def train_llama_mpmd_zero(torch) -> dict:
+    """The MPMD ``zero`` stage plan on (f)'s model (the 7B widths at
+    MPMD_EXACT_LAYERS layers, AdamW) over two stages of two cards, each
+    stage at data=2 in ``sharded`` mode: stage 0 under ``zero`` (replicated
+    params, its optimizer state sliced over data) beside the
+    ``replicated`` stage plan: the losses and the final params bitwise
+    equal, and each card of the zero stage holding half the replicated
+    state's bytes (but the 0-d counts)."""
+    import shutil
+
+    root = ROOT / "build" / "chip_smoke_mpmd_zero"
+    gang = dict(stages=MPMD_GANG_STAGES, cards=MPMD_GANG_CARDS)
+    runs = {}
+    for plan in ("replicated", "zero"):
+        spec = _mpmd_spec(MPMD_EXACT_LAYERS, "sharded", mesh={"data": MPMD_GANG_CARDS},
+                          stage_plans={"0": plan, "1": "replicated"})
+        runs[plan] = _mpmd_supervised(root / plan, spec, **gang)
+    rep, zero = runs["replicated"], runs["zero"]
+    s_rep, s_zero = rep["summaries"][0][-1], zero["summaries"][0][-1]
+    counts = 2 * 8  # Adam's count and the schedule's, 0-d int64
+    whole = s_rep["ranks"][0]["opt_state_bytes"]
+    rec = dict(card=nvidia_smi_line(), losses={p: r["done"]["losses"] for p, r in runs.items()},
+               plans=[s_zero["plan"], s_rep["plan"]],
+               bitwise_losses=[np.float32(x).tobytes() for x in zero["done"]["losses"]]
+               == [np.float32(x).tobytes() for x in rep["done"]["losses"]],
+               bitwise_params=all(zero["summaries"][k][-1]["param_digests"]
+                                  == rep["summaries"][k][-1]["param_digests"]
+                                  for k in range(MPMD_GANG_STAGES)),
+               opt_bytes={"replicated": [c["opt_state_bytes"] for c in s_rep["ranks"]],
+                          "zero": [c["opt_state_bytes"] for c in s_zero["ranks"]]},
+               opt_bytes_reckoned=(whole - counts) // MPMD_GANG_CARDS + counts,
+               peak_bytes={p: [c.get("max_memory_allocated") for c in
+                               r["summaries"][0][-1]["ranks"]] for p, r in runs.items()},
+               wall_s={p: r["wall_s"] for p, r in runs.items()})
+    print("gang llama-mpmd zero " + json.dumps(rec), flush=True)
+    for p in runs:
+        shutil.rmtree(root / p, ignore_errors=True)
+    check(rec["plans"] == ["stage-zero", "stage-replicated"]
+          and len(rec["losses"]["zero"]) == GANG_STEPS,
+          f"mpmd zero: plans {rec['plans']}, losses {rec['losses']}")
+    check(rec["bitwise_losses"] and rec["bitwise_params"],
+          f"mpmd zero: the zero stage's losses (or params) are not the replicated "
+          f"stage's bitwise: {rec['losses']}")
+    check(all(b == rec["opt_bytes_reckoned"] for b in rec["opt_bytes"]["zero"]),
+          f"mpmd zero: optimizer-state bytes a card {rec['opt_bytes']}, reckoned "
+          f"{rec['opt_bytes_reckoned']}")
+    return rec
+
+
 def train_llama_mpmd_gang(torch, ranks: int) -> dict:
     """Config 5 as an MPMD pipeline of MPMD_STAGES one-card stages
     (``--gang llama-mpmd``, four cards): (a) the 7B full fine-tune (every
@@ -6567,7 +6992,8 @@ def gang_main(torch, names: list[str]) -> int:
               file=sys.stderr)
         return 2
     parts = ["llama", "llama-cp", "llama-drain", "llama-moe", "llama-mpmd",
-             "llama-mpmd-stages", "llama-pp", "llama-pp-steps", "recovery"]
+             "llama-mpmd-stages", "llama-mpmd-zero", "llama-pp", "llama-pp-steps",
+             "llama-zero", "recovery"]
     if not set(names) <= set(GANG_FAULTS) | set(parts):
         print(f"chip_smoke --gang: no part {names}; choose from "
               f"{sorted(GANG_FAULTS) + parts}", file=sys.stderr)
@@ -6584,6 +7010,8 @@ def gang_main(torch, names: list[str]) -> int:
             train_drivers_gang(torch, ranks, drivers or tuple(GANG_FAULTS))
         if not names or "llama" in names:
             train_llama_gang(torch, ranks)
+        if not names or "llama" in names or "llama-zero" in names:
+            train_llama_zero(torch, ranks)
         if not names or "llama-cp" in names:
             train_llama_cp_gang(torch, ranks)
         if not names or "llama-drain" in names:
@@ -6598,6 +7026,8 @@ def gang_main(torch, names: list[str]) -> int:
             train_llama_mpmd_gang(torch, ranks)
         if "llama-mpmd-stages" in names:  # (e)-(h) and the driver only
             train_llama_mpmd_stages(torch, None)
+        if "llama-mpmd-stages" in names or "llama-mpmd-zero" in names:
+            train_llama_mpmd_zero(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -6759,6 +7189,8 @@ def main() -> int:
         return model_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--llama-rank"]:
         return llama_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--zero-rank"]:
+        return zero_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--mpmd-ref-rank"]:
         return mpmd_ref_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--moe-rank"]:
@@ -6827,11 +7259,17 @@ def main() -> int:
             train_llama_moe(torch, fa)
             print(nvidia_smi_line())
             return 0
+        if sys.argv[1:] == ["--qlora"]:
+            print_memory_path(None, train_llama_qlora(torch, fa))
+            print(nvidia_smi_line())
+            return 0
         check_gates(torch, fa, attention, cb)
         check_input()
         train = train_bert(torch, fa)
         serve = serve_bert(torch, fa, bert, engine_mod)
         llama = train_llama(torch, fa)
+        qlora = train_llama_qlora(torch, fa)
+        print_memory_path(llama, qlora)
         moe = train_llama_moe(torch, fa)
         k4 = check_conv_bn(torch, cb)
         resnet = train_resnet(torch, cb)
@@ -6853,11 +7291,12 @@ def main() -> int:
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": f"{PKG}/csrc/flash_fwd.cu", "replaces": f"{src}:131",
-        # the served batches', BERT's, Llama's (in process and through the
-        # driver), the MoE and dense 0.9b's and the rollback drill's two
-        # runs, each counted from 0
+        # the served batches', BERT's, Llama's and the int8 Llama's (each in
+        # process and through the driver), the MoE and dense 0.9b's and the
+        # rollback drill's two runs, each counted from 0
         "launches": serve["flash_fwd_launches"] + train["launches"]["flash_fwd"]
         + llama["launches"]["flash_fwd"] + llama["driver"]["flash_launches"]["flash_fwd"]
+        + qlora["launches"]["flash_fwd"] + qlora["driver"]["flash_launches"]["flash_fwd"]
         + moe["moe"]["launches"]["flash_fwd"] + moe["dense"]["launches"]["flash_fwd"]
         + rollback["launches"]["flash_fwd"] + rollback["second_run_launches"]["flash_fwd"],
         "max_abs_err": max(c["max_abs_err"] for c in k1),
@@ -6871,7 +7310,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"{PKG}/csrc/flash_bwd.cu", "replaces": f"{src}:{line}",
             "launches": train["launches"][name] + llama["launches"][name]
-            + llama["driver"]["flash_launches"][name] + moe["moe"]["launches"][name]
+            + llama["driver"]["flash_launches"][name] + qlora["launches"][name]
+            + qlora["driver"]["flash_launches"][name] + moe["moe"]["launches"][name]
             + moe["dense"]["launches"][name] + rollback["launches"][name]
             + rollback["second_run_launches"][name],
             "max_abs_err": max(c[g] for c in k23 for g in grads),

@@ -21,7 +21,8 @@ manifest went missing later verifies structurally when its ``state.pt``
 is there. Rank 0 writes; every other rank's :meth:`Checkpointer.save`
 writes nothing, and :meth:`wait` ends with a barrier, so no rank reads a
 step before rank 0 has committed it. A sharded state (FSDP,
-:mod:`.parallel.sharding`) is saved whole in the same format: every rank
+:mod:`.parallel.sharding`; ZeRO's optimizer-state slices,
+:mod:`.parallel.zero`) is saved whole in the same format: every rank
 takes part in gathering each sharded leaf (``full_tensor()``), one leaf at
 a time, and rank 0 copies it to the host. So a step written at ``fsdp=N``
 restores at any rank count, the supervisor's shrink included: the restore
@@ -60,6 +61,7 @@ import torch
 
 from distributeddeeplearningspark_tpu_torch import telemetry
 from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
+from distributeddeeplearningspark_tpu_torch.train.state import leaves
 
 logger = logging.getLogger("distributeddeeplearningspark_tpu_torch.checkpoint")
 
@@ -242,7 +244,7 @@ class Checkpointer:
         if collectives.rank() != 0:
             if pipe is not None:
                 pipe.whole(state, _device(state))
-            elif any(sharding.is_sharded(t) for t in state.params.values()):
+            elif any(sharding.is_sharded(t) for t in leaves(state.state_dict())):
                 _to_host(state.state_dict(), keep=False)
             return False
         with telemetry.phase("checkpoint", step=int(step)):

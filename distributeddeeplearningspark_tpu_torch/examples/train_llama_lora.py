@@ -107,14 +107,28 @@ holding only that stage's layers; beside ``--fsdp`` and ``--tensor``,
         --variant tiny --steps 4 --batch-size 4 --seq-len 64 --lora-rank 4 \\
         --pipeline 4 --microbatches 2
 
-The JAX driver's int8 base, fused head, sampling and the import
-of real weights (which needs their tokenizer) are not ported yet: those
-flags fail at parse time, each naming its ROADMAP item. Rank 0 prints one JSON line: the train summary,
+``--base-quant int8`` stores each projection's frozen base in int8 with
+an f32 scale a channel (the model's ``base_quant``; it needs
+``--lora-rank`` above 0 and no ``--moe-experts``, JAX's refusals), and
+``--fused-head-loss`` trains through ``losses.causal_lm_fused``, which
+never makes the ``[B, S, V]`` logits (JAX's refusal beside
+``--pipeline`` is kept; the trainer refuses it where the head is sharded,
+ROADMAP Queue 1 item 5). On one card::
+
+    python -m distributeddeeplearningspark_tpu_torch.cli --master local[1] \\
+        distributeddeeplearningspark_tpu_torch/examples/train_llama_lora.py \\
+        --variant 7b --seq-len 1024 --batch-size 8 --lora-rank 16 --steps 10 \\
+        --base-quant int8 --fused-head-loss
+
+The JAX driver's sampling and the import of real weights (which needs
+their tokenizer) are not ported yet: those flags fail at parse time, each
+naming its ROADMAP item. Rank 0 prints one JSON line: the train summary,
 where the run went (world size, backend, device, the mesh, the CP
 implementation, the pipeline's microbatches), the number of
 sharded params (on any axis) and of those split over ``tensor`` and over
-``expert``, the MoE's experts (0: dense), the attention's local heads a
-rank, and
+``expert``, the MoE's experts (0: dense), the int8 base and the fused head (as
+asked), rank 0's resident param bytes and peak device memory in ``fit``,
+the attention's local heads a rank, and
 for each rank the flash kernels' launches in ``fit``, its resident param
 bytes (each shard's ``to_local()``, each replicated param whole) beside
 the rule engine's reckoning, its peak device memory in the init and
@@ -163,11 +177,8 @@ NOT_PORTED = {
                  "and their tokenizer in the repository (models/llama_io.py "
                  "reads them): ROADMAP Queue 1 item 5",
     "--tokenizer": "the HF tokenizer adapter: ROADMAP Queue 1 item 5",
-    "--fused-head-loss": "train/fused_ce.py: ROADMAP Queue 1 item 5",
     "--sample-tokens": "models/llama_gen.py: ROADMAP Queue 1 item 8",
 }
-#: why ``--base-quant`` is refused (after the JAX driver's own refusals)
-BASE_QUANT = "the int8 frozen base: ROADMAP Queue 1 item 5"
 VARIANTS = {"7b": LlamaConfig.llama2_7b, "13b": LlamaConfig.llama2_13b}
 
 
@@ -221,27 +232,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--microbatches", type=int, default=0,
                    help="pipeline microbatches per step (default: the pipe degree)")
     p.add_argument("--base-quant", default=None, choices=["int8"],
-                   help=f"not ported yet: {BASE_QUANT}")
+                   help="store the frozen base projections int8 with a per-channel "
+                        "f32 scale (needs --lora-rank > 0)")
+    p.add_argument("--fused-head-loss", action="store_true",
+                   help="fuse the LM head into a chunked-vocab loss: the [B, S, V] "
+                        "f32 logits never materialize (train/fused_ce.py)")
     add_checkpoint_flags(p)
     add_not_ported(p, NOT_PORTED)
     return p
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
-    """The flags, with the JAX driver's refusals first (in its words, but
-    for the MoE beside the int8 base: see the module docstring), then the
-    port's refusals of what it has not ported."""
+    """The flags, with the JAX driver's refusals (in its words, but for the
+    MoE beside the int8 base: see the module docstring); the port's
+    refusals of what it has not ported fail while parsing."""
     p = build_parser()
-    # JAX refuses the fused head beside the pipeline before the port's
-    # refusal of the flag itself (which argparse raises while parsing)
-    pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--pipeline", type=int, default=1)
-    pre.add_argument("--fused-head-loss", action="store_true")
-    early, _ = pre.parse_known_args(argv)
-    if early.fused_head_loss and early.pipeline > 1:
+    args = p.parse_args(argv)
+    if args.fused_head_loss and args.pipeline > 1:
         p.error("--fused-head-loss is not supported with --pipeline "
                 "(the GPipe forward emits real logits)")
-    args = p.parse_args(argv)
     if args.segment_ids and args.pipeline > 1:
         p.error("--segment-ids is not supported with --pipeline (the stage "
                 "forward does not thread them; packed batches would "
@@ -268,8 +277,6 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                 "base quantizes the dense projections only; the expert bank, "
                 "frozen with the base under LoRA and stored in bf16 at 7B, "
                 "has no int8 form)")
-    if args.base_quant:
-        p.error(f"--base-quant is not ported yet ({BASE_QUANT})")
     return args
 
 
@@ -288,6 +295,10 @@ def make_config(args: argparse.Namespace, vocab_size: int) -> LlamaConfig:
     if args.moe_experts:
         cfg = dataclasses.replace(cfg, moe_experts=args.moe_experts,
                                   moe_group_size=args.moe_group)
+    if args.fused_head_loss:
+        cfg = dataclasses.replace(cfg, fused_head_loss=True)
+    if args.base_quant:
+        cfg = dataclasses.replace(cfg, base_quant=args.base_quant)
     return cfg
 
 
@@ -341,7 +352,8 @@ def make_trainer(args: argparse.Namespace, spark: Session, cfg: LlamaConfig,
                 args.lr, min(10, max(args.steps // 10, 1)), args.steps)),
             1.0),
         lora_trainable)
-    return Trainer(spark, make_model(cfg), losses.causal_lm, tx,
+    loss = losses.causal_lm_fused if cfg.fused_head_loss else losses.causal_lm
+    return Trainer(spark, make_model(cfg), loss, tx,
                    rules=llama_rules(cfg, pipeline=args.pipeline > 1),
                    accum_steps=args.accum_steps,
                    trainable=lora_trainable, checkpointer=checkpointer,
@@ -440,6 +452,8 @@ def main(argv: list[str] | None = None) -> None:
             "tensor_split_params": len(trainer.tensor_dims),
             "expert_split_params": len(trainer.expert_dims),
             "moe_experts": cfg.moe_experts,
+            "base_quant": cfg.base_quant, "fused_head_loss": cfg.fused_head_loss,
+            "param_bytes": by_rank[0]["param_bytes"],
             "local_heads": local_heads(trainer),
             "flash_launches": launches,
             "trainable_params": sum(p.numel() for n, p in state.params.items()

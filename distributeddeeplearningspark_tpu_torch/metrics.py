@@ -35,7 +35,13 @@ the mode counts for the kernel's plain version at the same shapes:
   ``index_add_``.
 
 So a step counts the same on the kernel route and on the plain path. The
-ring's hops count their kernels with every gradient wanted and skip the
+fused head loss (:mod:`.train.fused_ce`) is ``torch.mm`` calls the mode
+counts as they run, its f32-output products on the card among them: the
+forward's chunked logits, and in the backward the recompute of each
+chunk's logits and ``dh`` (and ``dW`` where the head trains), so a fused
+step counts 2·N·H·V more than the plain head's forward and dx over its N
+labelled rows. The int8 base's dequantisation is elementwise and counts
+nothing. The ring's hops count their kernels with every gradient wanted and skip the
 causal hops no query attends, so a ring's count is not one card's. The
 count is made global by one all-reduce over the gang: each rank counts the
 products of its own rows (FSDP2 gathers the params, so a rank's products

@@ -88,9 +88,29 @@ the model (:func:`.llama_pp.make_pp_model`): the layers other stages hold
 become :class:`ElsewhereLayer` places and ``model.pipe`` runs the GPipe
 forward; ``llama_rules(pipeline=True)`` lays the layers out by stage.
 
-Not ported yet, and refused by name: the int8 frozen base and the fused
-head loss (item 5), decoding with a KV cache (item 8), and MoE under
-context parallelism (its routing groups span whole sequences, item 6).
+``cfg.base_quant="int8"`` (JAX's QLoRA-style base): every projection's
+frozen base weight is stored int8, ``base_q8`` ``[out, in]`` (JAX's
+``[in, out...]`` with its input axes folded, transposed to torch's
+layout), with an f32 ``base_scale`` ``[out]`` a channel (absmax,
+:func:`.llama_io.quantize_base_int8`); the forward dequantises it as JAX
+does, ``q.to(dtype) * scale.to(dtype)`` in the compute dtype, then the
+product. The embedding, the head, the norms and the adapters keep their
+dtypes. It needs ``lora_rank`` above 0 and no MoE, as in JAX; a random
+init draws each projection as the dense one and rounds it at JAX's shared
+step ``q0 = 4/√in/127``, clipped to ±127.
+
+``cfg.fused_head_loss`` (JAX's): the model returns ``{"hidden",
+"lm_head"}`` (the final norm's output and the head's weight, plus
+``moe_aux``/``moe_dropped_frac`` in training) instead of logits, for
+:func:`..train.losses.causal_lm_fused`, which never makes the ``[B, S,
+V]`` logits; ``Trainer.predict``/``evaluate`` make them where JAX's step
+does (:func:`..train.fused_ce.materialize_logits`). The ``Trainer``
+refuses it where the head's weight is sharded (over ``fsdp`` or
+``tensor``: ROADMAP Queue 1 item 5).
+
+Not ported yet, and refused by name: decoding with a KV cache (item 8),
+and MoE under context parallelism (its routing groups span whole
+sequences, item 6).
 """
 
 from __future__ import annotations
@@ -153,9 +173,11 @@ class LlamaConfig:
     moe_aux_weight: float = 0.01
     #: the routing group's tokens (0: one group a sequence)
     moe_group_size: int = 0
-    # the JAX config's options the port refuses (LlamaForCausalLM)
+    #: return {"hidden", "lm_head"} for losses.causal_lm_fused (no logits)
     fused_head_loss: bool = False
+    #: "int8": the projections' frozen base stored int8 with f32 scales
     base_quant: str | None = None
+    # the JAX config's option the port refuses (LlamaForCausalLM)
     decode: bool = False
 
     @property
@@ -246,19 +268,43 @@ class LoRALinear(nn.Module):
     ``dtype``, plus ``(x·A)·B·alpha/rank`` when ``rank`` > 0 (A ``[in, r]``
     and B ``[r, out]``, f32, cast to ``dtype`` for the products). The base
     weight is frozen by the caller (``Trainer(trainable=lora_trainable)``),
-    never by the module."""
+    never by the module. ``base_quant="int8"``: the base is ``base_q8``
+    (int8 ``[out, in]``, no gradient) and ``base_scale`` (f32 ``[out]``)
+    in the place of ``weight``."""
 
     def __init__(self, d_in: int, d_out: int, *, rank: int, alpha: float,
-                 dtype: torch.dtype, param_dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, param_dtype: torch.dtype,
+                 base_quant: str | None = None, device=None):
         super().__init__()
         self.rank, self.alpha, self.dtype = rank, alpha, dtype
-        self.weight = nn.Parameter(torch.empty(d_out, d_in, dtype=param_dtype,
-                                               device=device))
+        self.quantized = base_quant == "int8"
+        if self.quantized:
+            self.base_q8 = nn.Parameter(torch.empty(d_out, d_in, dtype=torch.int8,
+                                                    device=device), requires_grad=False)
+            self.base_scale = nn.Parameter(torch.empty(d_out, dtype=torch.float32,
+                                                       device=device))
+        else:
+            self.weight = nn.Parameter(torch.empty(d_out, d_in, dtype=param_dtype,
+                                                   device=device))
         if rank:
             self.lora_a = nn.Parameter(torch.empty(d_in, rank, dtype=torch.float32,
                                                    device=device))
             self.lora_b = nn.Parameter(torch.zeros(rank, d_out, dtype=torch.float32,
                                                    device=device))
+
+    @property
+    def base(self) -> nn.Parameter:
+        """The stored base weight ``[out, in]``: ``weight``, or ``base_q8``."""
+        return self.base_q8 if self.quantized else self.weight
+
+    def base_weight(self) -> torch.Tensor:
+        """This rank's base weight in ``dtype``; the int8 base dequantised as
+        JAX's ``kernel_q.astype(dtype) * scale.astype(dtype)``."""
+        dt = self.dtype
+        if self.quantized:
+            scale = local_value(self.base_scale).to(dt)
+            return local_value(self.base_q8).to(dt) * scale[:, None]
+        return local_value(self.weight).to(dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Under a ``tensor`` split, ``x`` is this rank's input (the whole
@@ -266,9 +312,9 @@ class LoRALinear(nn.Module):
         this rank's columns (a part of the sum for a row split)."""
         dt = self.dtype
         x = x.to(dt)
-        y = F.linear(x, local_value(self.weight).to(dt))
+        y = F.linear(x, self.base_weight())
         if self.rank:
-            split = tensor_split(self.weight)
+            split = tensor_split(self.base)
             a, b = adapter_shards(self.lora_a, self.lora_b, split)
             a, b = a.to(dt), b.to(dt)
             if split is None:
@@ -301,7 +347,7 @@ def _block_split(column: Sequence[nn.Module], row: nn.Module) -> TensorSplit | N
     ``row``: None where none is split; Megatron's pairing (the column
     projections' outputs and the row one's input split alike) or
     ``NotImplementedError``."""
-    splits = [tensor_split(m.weight) for m in column] + [tensor_split(row.weight)]
+    splits = [tensor_split(m.base) for m in column] + [tensor_split(row.base)]
     if all(sp is None for sp in splits):
         return None
     if (any(sp is None for sp in splits) or any(sp.dim != 0 for sp in splits[:-1])
@@ -318,7 +364,8 @@ def _proj(cfg: LlamaConfig, name: str, d_in: int, d_out: int, device
     """The projection ``name``, with adapters when it is a LoRA target."""
     rank = cfg.lora_rank if name in cfg.lora_targets else 0
     return LoRALinear(d_in, d_out, rank=rank, alpha=cfg.lora_alpha, dtype=cfg.dtype,
-                      param_dtype=cfg.param_dtype, device=device)
+                      param_dtype=cfg.param_dtype, base_quant=cfg.base_quant,
+                      device=device)
 
 
 class LlamaAttention(nn.Module):
@@ -341,8 +388,8 @@ class LlamaAttention(nn.Module):
             if heads % split.size or kv_heads % split.size:
                 raise ValueError(
                     f"tensor={split.size} must divide num_heads={heads} and "
-                    f"num_kv_heads={kv_heads} (wq {tuple(self.wq.weight.shape)}, "
-                    f"wk {tuple(self.wk.weight.shape)}): each rank takes whole heads")
+                    f"num_kv_heads={kv_heads} (wq {tuple(self.wq.base.shape)}, "
+                    f"wk {tuple(self.wk.base.shape)}): each rank takes whole heads")
             heads, kv_heads = heads // split.size, kv_heads // split.size
             x = collectives.all_reduce_backward(x, split.group)
         q = self.wq(x).view(b, s, heads, hd)
@@ -419,9 +466,7 @@ class ElsewhereLayer(nn.Module):
 
 #: the flax config's options the port refuses → their ROADMAP item
 _NOT_PORTED = {
-    "base_quant": "the int8 frozen base: ROADMAP Queue 1 item 5",
     "decode": "KV-cached decoding (models/llama_gen.py): ROADMAP Queue 1 item 8",
-    "fused_head_loss": "the fused head loss (train/fused_ce.py): ROADMAP Queue 1 item 5",
 }
 
 
@@ -430,6 +475,14 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
+        if cfg.base_quant is not None:
+            if cfg.base_quant != "int8":
+                raise ValueError(f"unknown base_quant {cfg.base_quant!r}; "
+                                 "supported: 'int8'")
+            if not cfg.lora_rank:
+                raise ValueError("base_quant='int8' requires lora_rank > 0 "
+                                 "(frozen-base LoRA; train with "
+                                 "trainable=lora_trainable)")
         if cfg.base_quant and cfg.moe_experts:
             # the flax model's refusal, worded for what the bank is: it
             # trains in a full fine-tune, and under lora_trainable it is
@@ -468,8 +521,8 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, batch: dict[str, torch.Tensor],
                 generator: torch.Generator | None = None):
         """``generator`` is taken for the Trainer's call and unused: Llama-2
-        has no dropout. The logits, or with MoE in training the dict the
-        module docstring names."""
+        has no dropout. The logits, or with MoE in training or with
+        ``fused_head_loss`` the dict the module docstring names."""
         del generator
         if self.pipe is not None:
             return self.pipe.forward(self, batch)
@@ -495,16 +548,38 @@ class LlamaForCausalLM(nn.Module):
             if cfg.moe_experts:
                 x, layer_sums = x
                 sums.append(layer_sums)
-        logits = self._head(self.final_norm(x))
+        x = self.final_norm(x)
+        if cfg.fused_head_loss and not cfg.decode:
+            # for losses.causal_lm_fused: the [B, S, V] logits never exist
+            out = {"hidden": x, "lm_head": self._head_weight()}
+            if cfg.moe_experts and self.training:
+                out.update(self._moe_terms(sums))
+            return out
+        logits = self._head(x)
         if not (cfg.moe_experts and self.training):
             # eval and predict take plain logits, as the flax model gives them
             return logits
+        return {"logits": logits, **self._moe_terms(sums)}
+
+    def _moe_terms(self, sums: list) -> dict[str, torch.Tensor]:
+        """The weighed load-balance loss and the dropped share from the
+        layers' routing sums (over the global batch: :attr:`batch_sum`)."""
+        cfg = self.cfg
         sums = torch.stack(sums)
         if self.batch_sum is not None:
             sums = self.batch_sum(sums)
         aux, dropped = load_balance(sums, cfg.moe_experts, cfg.moe_top_k)
-        return {"logits": logits, "moe_aux": cfg.moe_aux_weight * aux.sum(),
+        return {"moe_aux": cfg.moe_aux_weight * aux.sum(),
                 "moe_dropped_frac": dropped.mean()}
+
+    def _head_weight(self) -> torch.Tensor:
+        """The head's whole weight ``[V, H]`` for the fused loss; a split
+        head (the ``Trainer`` refuses it) raises."""
+        w = self.lm_head.weight
+        if is_sharded(w):
+            raise NotImplementedError(
+                "fused_head_loss with a sharded lm_head: ROADMAP Queue 1 item 5")
+        return w
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         """The tokens' rows; under a ``tensor`` split of the vocab each rank
@@ -589,7 +664,19 @@ class LlamaForCausalLM(nn.Module):
 
     def _draw_module(self, mod: nn.Module, draw, generator: torch.Generator) -> None:
         """``init_weights``' draws of one module's own params."""
-        if isinstance(mod, (LoRALinear, nn.Linear)):
+        if isinstance(mod, LoRALinear) and mod.quantized:
+            # the dense draw, rounded at JAX's shared step q0 = 4/√in/127
+            fan_in = mod.base_q8.shape[1]
+            q0 = 4.0 / math.sqrt(fan_in) / 127.0
+
+            def quantized(t: torch.Tensor) -> None:
+                w = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+                w.normal_(0.0, fan_in ** -0.5, generator=generator)
+                t.copy_(torch.clamp(torch.round(w / q0), -127, 127))
+
+            draw(mod.base_q8, quantized)
+            draw(mod.base_scale, lambda t: t.fill_(q0))
+        elif isinstance(mod, (LoRALinear, nn.Linear)):
             std = mod.weight.shape[1] ** -0.5
             draw(mod.weight, lambda t: t.normal_(0.0, std, generator=generator))
         if isinstance(mod, LoRALinear) and mod.rank:
@@ -650,16 +737,22 @@ def llama_rules(cfg: LlamaConfig, *, fsdp: bool = True,
     (``ShardingRules.stage_of``; JAX's ``P("pipe", ...)`` on the stacked
     layers), with its ``tensor`` and ``fsdp`` entries as above over that
     stage's cards; the embedding, the head and the final norm are
-    replicated over ``pipe``. The int8 base raises, as the model does."""
-    if cfg.base_quant:
-        raise NotImplementedError(f"llama_rules for LlamaConfig.base_quant: "
-                                  f"{_NOT_PORTED['base_quant']}")
+    replicated over ``pipe``. The int8 base's ``base_q8`` takes its dense
+    sibling's layout and ``base_scale`` its output dim's (whole for
+    ``wo``/``down``, whose outputs the block sums), JAX's int8 entries."""
     rules = (
         (r"lora_", P()),
         (r"(wq|wk|wv)/weight", P("tensor", None)),
         (r"wo/weight", P(None, "tensor")),
         (r"(gate|up)/weight", P("tensor", None)),
         (r"down/weight", P(None, "tensor")),
+        *(((r"(wq|wk|wv)/base_q8", P("tensor", None)),
+           (r"(wq|wk|wv)/base_scale", P("tensor")),
+           (r"wo/base_q8", P(None, "tensor")),
+           (r"(gate|up)/base_q8", P("tensor", None)),
+           (r"(gate|up)/base_scale", P("tensor")),
+           (r"(wo|down)/base_scale", P(None)),
+           (r"down/base_q8", P(None, "tensor"))) if cfg.base_quant else ()),
         (r"token_embed/weight", P("tensor", None)),
         (r"lm_head/weight", P("tensor", None)),
         *(((r"moe/(w_gate|w_up)", P("expert", None, "tensor")),

@@ -19,6 +19,12 @@
   tensor at a time from a memory map and casts it to the config's storage
   dtype, so a 7B import never holds the model in f32.
 - :func:`merge_lora` folds trained adapters into the base weights.
+- :func:`quantize_base_int8` turns a dense state dict into the int8 base a
+  ``base_quant="int8"`` model takes (per output channel absmax, JAX's
+  arithmetic); :func:`params_from_flax` also reads a JAX int8 tree
+  (``base_q8``/``base_scale``). An int8 state dict is neither exported nor
+  merged (JAX's refusals: quantization is lossy, so export the dense
+  state dict it came from, and merge before quantizing).
 
 Adapters are never exported or imported: a checkpoint holds the base
 model, and the adapters start fresh (B = 0) or come from the port's own
@@ -67,27 +73,37 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _base_from_flax(node: Mapping[str, Any], pre: str, n_in: int, out: dict) -> None:
+    """A projection's base: the dense kernel ``[in..., out...]`` (``n_in``
+    input axes) as ``weight`` ``[out, in]``, or JAX's int8 ``base_q8``
+    (its input axes already folded: ``[in, out...]``) as ``base_q8``
+    ``[out, in]`` and ``base_scale`` ``[out...]`` flattened."""
+    if "base_q8" in node:
+        q = np.asarray(node["base_q8"])
+        out[f"{pre}.base_q8"] = _t(q.reshape(q.shape[0], -1).T)
+        out[f"{pre}.base_scale"] = _t(np.asarray(node["base_scale"]).reshape(-1))
+        return
+    k = np.asarray(node["base"]["kernel"])
+    fan_in = int(np.prod(k.shape[:n_in]))
+    out[f"{pre}.weight"] = _t(k.reshape(fan_in, -1).T)
+
+
 def _layer_from_flax(lay: Mapping[str, Any], cfg: LlamaConfig, pre: str,
                      out: dict) -> None:
-    h = cfg.hidden_size
     att = lay["attention"]
     for name in ("wq", "wk", "wv"):   # [H, heads, hd] → [heads·hd, H]
-        node = att[name]
-        out[f"{pre}.attention.{name}.weight"] = _t(
-            np.asarray(node["base"]["kernel"]).reshape(h, -1).T)
-        _lora(node, f"{pre}.attention.{name}", out)
-    node = att["wo"]                   # [heads, hd, H] → [H, heads·hd]
-    out[f"{pre}.attention.wo.weight"] = _t(
-        np.asarray(node["base"]["kernel"]).reshape(-1, h).T)
-    _lora(node, f"{pre}.attention.wo", out)
+        _base_from_flax(att[name], f"{pre}.attention.{name}", 1, out)
+        _lora(att[name], f"{pre}.attention.{name}", out)
+    # [heads, hd, H] → [H, heads·hd]
+    _base_from_flax(att["wo"], f"{pre}.attention.wo", 2, out)
+    _lora(att["wo"], f"{pre}.attention.wo", out)
     if "moe" in lay:  # the expert bank and the router keep the flax layout
         for name in ("router", "w_gate", "w_up", "w_down"):
             out[f"{pre}.moe.{name}"] = _t(lay["moe"][name])
     else:
         for name in ("gate", "up", "down"):
-            node = lay["mlp"][name]
-            out[f"{pre}.mlp.{name}.weight"] = _t(np.asarray(node["base"]["kernel"]).T)
-            _lora(node, f"{pre}.mlp.{name}", out)
+            _base_from_flax(lay["mlp"][name], f"{pre}.mlp.{name}", 1, out)
+            _lora(lay["mlp"][name], f"{pre}.mlp.{name}", out)
     out[f"{pre}.attention_norm.scale"] = _t(lay["attention_norm"]["scale"])
     out[f"{pre}.mlp_norm.scale"] = _t(lay["mlp_norm"]["scale"])
 
@@ -230,6 +246,12 @@ def export_llama_safetensors(params: Mapping[str, torch.Tensor], cfg: LlamaConfi
     (the inverse of :func:`load_llama_safetensors`). Adapters are not
     exported: fold them in first (:func:`merge_lora`) for a merged
     export."""
+    if any(name.endswith(".base_q8") for name in params):
+        raise NotImplementedError(
+            "export of an int8-quantized state dict: HF interchange has no "
+            "per-channel-scale layout for it — export the dense state dict you "
+            "quantized from (quantization is lossy; there is no faithful int8 → "
+            "HF bf16 inverse)")
     to_hf = {port: hf for hf, port in _TOP_NAMES}
     to_hf.update({f"layers.{i}.{port}": f"model.layers.{i}.{hf}"
                   for i in range(cfg.num_layers) for hf, port in _LAYER_NAMES})
@@ -247,7 +269,14 @@ def merge_lora(params: Mapping[str, torch.Tensor], cfg: LlamaConfig
                ) -> dict[str, torch.Tensor]:
     """Fold trained LoRA adapters into their base weights, ``W ← W +
     (alpha/r)·(A·B)ᵀ`` (the product in f32, added in W's dtype), and drop
-    the adapters: the deploy-time merge that makes LoRA inference free."""
+    the adapters: the deploy-time merge that makes LoRA inference free. An
+    int8 base raises (JAX's refusal)."""
+    if any(name.endswith(".base_q8") for name in params):
+        raise NotImplementedError(
+            "merge_lora on an int8-quantized state dict would bake absmax "
+            "re-quantization error into the merged weights; merge on the dense "
+            "state dict FIRST, then quantize_base_int8 the result (or keep the "
+            "adapters separate)")
     out = {k: v for k, v in params.items() if ".lora_" not in k}
     scale = cfg.lora_alpha / cfg.lora_rank if cfg.lora_rank else 0.0
     for name in params:
@@ -258,4 +287,32 @@ def merge_lora(params: Mapping[str, torch.Tensor], cfg: LlamaConfig
         a, b = params[f"{pre}.lora_a"].float(), params[f"{pre}.lora_b"].float()
         w = params[f"{pre}.weight"]
         out[f"{pre}.weight"] = w + ((a @ b).T * scale).to(w.dtype)
+    return out
+
+
+#: the projections whose base weight :func:`quantize_base_int8` quantizes
+_PROJECTIONS = re.compile(r"(?:^|\.)(?:attention\.(?:wq|wk|wv|wo)|mlp\.(?:gate|up|down))"
+                          r"\.weight$")
+
+
+def quantize_base_int8(params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A dense state dict → the int8 base a ``base_quant="int8"`` model
+    takes: each projection's ``weight`` ``[out, in]`` becomes ``base_q8``
+    (int8, ``round(W / s)`` clipped to ±127) and ``base_scale`` (f32, ``s
+    = max(|W| over the channel's inputs) / 127``, at least 1e-12), a scale
+    a output channel, JAX's arithmetic in f32 on the host; the embedding,
+    the head, the norms and the adapters pass through (QLoRA's
+    convention). Use it after :func:`load_llama_safetensors` and give the
+    result to ``Trainer.load_pretrained`` on an int8 model."""
+    out: dict[str, torch.Tensor] = {}
+    for name, t in params.items():
+        if not _PROJECTIONS.search(name):
+            out[name] = t
+            continue
+        w = t.detach().to("cpu", torch.float32)
+        s = torch.clamp(w.abs().amax(dim=1) / 127.0, min=1e-12)
+        pre = name[:-len(".weight")]
+        out[f"{pre}.base_q8"] = torch.clamp(torch.round(w / s[:, None]), -127,
+                                            127).to(torch.int8)
+        out[f"{pre}.base_scale"] = s
     return out

@@ -11,16 +11,19 @@ lowered by :func:`.sharding.fully_shard_model`, not compiled: the JAX
 ``compile_step_with_plan`` has no counterpart.
 
 A plan's ``seq_axis`` (context parallelism) makes the ``Trainer`` shard
-each row's sequence over that axis, as JAX's ``seq_sharded``. Not ported,
-and refused by :meth:`Plan.validate` naming the ROADMAP item: ``zero_axes``
-(ZeRO weight-update sharding, ``zero_plan``, item 5) and
-``style="shard_map"`` (bodies on the explicit collectives, compiled by
-``compile_step_with_plan``, item 5). A plan's rules may carry the GPipe
+each row's sequence over that axis, as JAX's ``seq_sharded``. Its
+``zero_axes`` (:func:`zero_plan`, JAX's ZeRO weight-update sharding) make
+the ``Trainer`` keep each large optimizer-state leaf as this rank's slice
+over those axes, which must be batch axes (:meth:`Plan.validate`), and
+update it bitwise as the replicated optimizer does
+(:mod:`.zero`). Not ported, and refused by :meth:`Plan.validate` naming
+the ROADMAP item: ``style="shard_map"`` (bodies on the explicit
+collectives, compiled by ``compile_step_with_plan``, item 5; the JAX
+``Trainer`` refuses such plans too). A plan's rules may carry the GPipe
 pipeline's stage layout (``ShardingRules.stage_pattern``, the port's
 form of JAX's ``P("pipe", ...)`` on stacked layers), which its record
 keeps. :func:`stage_plan` builds the MPMD pipeline's per-stage layouts
-(``replicated``, ``fsdp``, ``tensor``) as JAX's does, and refuses ``zero``
-(item 5). Nor are the JAX
+(``replicated``, ``fsdp``, ``tensor``, ``zero``) as JAX's does. Nor are the JAX
 build's ``PlanTensorAxisWarning`` and ``DLS_PLAN_ALLOW_TENSOR``: they
 guard against that jax's partitioner, which miscomputes losses on
 ``tensor`` meshes; the port lowers a plan's ``tensor`` entries to
@@ -109,10 +112,12 @@ class Plan:
     ``rules`` — the per-leaf param/optimizer sharding rule engine.
     ``model_hints`` — serializable model-config overrides a driver applies
     before building the model; the plan layer itself never reads them.
-    ``seq_axis``, ``style``, ``zero_axes``, ``zero_min_size`` and
-    ``donate_state`` are the JAX plan's, kept so that records and
-    signatures match it; :meth:`validate` refuses the values the port
-    cannot run.
+    ``zero_axes`` — ZeRO weight-update sharding: optimizer-state leaves of
+    at least ``zero_min_size`` elements get their largest divisible dim
+    sliced over these replica axes (:mod:`.zero`).
+    ``seq_axis``, ``style`` and ``donate_state`` are the JAX plan's too,
+    kept so that records and signatures match it; :meth:`validate` refuses
+    the values the port cannot run.
     """
 
     name: str
@@ -186,20 +191,23 @@ class Plan:
             raise PlanValidationError(
                 f"plan {self.name!r}: batch_axes must name at least one "
                 f"mesh axis")
+        overlap = set(self.zero_axes) - set(self.batch_axes)
+        if self.zero_axes and overlap:
+            raise PlanValidationError(
+                f"plan {self.name!r}: zero_axes {sorted(overlap)} are not "
+                f"replica (batch) axes — ZeRO shards optimizer state across "
+                f"the axes that replicate it, i.e. a subset of batch_axes "
+                f"{self.batch_axes}")
         if self.style == "shard_map":
             raise PlanValidationError(
                 f"plan {self.name!r}: style='shard_map' (step bodies on the "
                 f"explicit collectives, compiled by compile_step_with_plan) is "
-                f"not ported yet: ROADMAP Queue 1 item 5")
+                f"not ported yet: ROADMAP Queue 1 item 5 (the JAX Trainer "
+                f"refuses it too)")
         if self.seq_axis not in (None, AXIS_SEQ):
             raise PlanValidationError(
                 f"plan {self.name!r}: seq_axis={self.seq_axis!r}: the ring and "
                 f"Ulysses attention exchange over the {AXIS_SEQ!r} axis")
-        if self.zero_axes:
-            raise PlanValidationError(
-                f"plan {self.name!r}: zero_axes={self.zero_axes} (ZeRO "
-                f"weight-update sharding) is not ported yet: ROADMAP Queue 1 "
-                f"item 5")
 
     # -- identity / serialization -------------------------------------------
 
@@ -279,6 +287,18 @@ FSDP_PLAN = Plan(name="fsdp", rules=ShardingRules(fsdp=True),
                  description="auto-FSDP params + moments over 'fsdp'")
 
 
+def zero_plan(base: Plan = DP, *, axes: tuple[str, ...] | None = None,
+              name: str | None = None) -> Plan:
+    """ZeRO weight-update sharding as just another plan: ``base``'s param
+    layout, the optimizer state sliced over the replica axes (by default
+    every batch axis ``base`` declares). JAX's, record for record."""
+    axes = tuple(axes if axes is not None else base.batch_axes)
+    return dataclasses.replace(
+        base, name=name or f"{base.name}+zero", zero_axes=axes,
+        description=(base.description + " + ZeRO weight-update sharding "
+                     f"over {axes}").strip())
+
+
 def plan_for_rules(rules: ShardingRules, *, context_parallel: bool = False,
                    name: str | None = None) -> Plan:
     """Wrap a (rules, context_parallel) trainer config as a Plan."""
@@ -295,10 +315,9 @@ def stage_plan(name: str, cfg=None, *, fsdp_min_size: int = 2**14) -> Plan:
     ``stage_plans``/``plan`` values, JAX's): ``replicated``; ``fsdp`` (wide
     sharded storage: every param of at least ``fsdp_min_size`` elements over
     the stage's ``fsdp`` axis); ``tensor`` (the Megatron splits of
-    ``llama_rules(cfg, fsdp=False)``, so it needs the model cfg). ``zero``
-    (replicated params, replica-sharded optimizer state) raises
-    :class:`PlanError` naming ROADMAP Queue 1 item 5, as :meth:`Plan.validate`
-    refuses ``zero_axes``."""
+    ``llama_rules(cfg, fsdp=False)``, so it needs the model cfg); ``zero``
+    (replicated params, the optimizer state sliced over the replica axes:
+    ``zero_plan(Plan(name="stage"), name="stage-zero")``)."""
     if name == "replicated":
         return Plan(name="stage-replicated")
     if name == "fsdp":
@@ -311,7 +330,6 @@ def stage_plan(name: str, cfg=None, *, fsdp_min_size: int = 2**14) -> Plan:
 
         return Plan(name="stage-tensor", rules=llama_rules(cfg, fsdp=False))
     if name == "zero":
-        raise PlanError("stage_plan('zero') (ZeRO weight-update sharding) is not "
-                        "ported yet: ROADMAP Queue 1 item 5")
+        return zero_plan(Plan(name="stage"), name="stage-zero")
     raise PlanError(
         f"unknown stage plan {name!r} (want replicated|fsdp|tensor|zero)")

@@ -8,8 +8,9 @@ combine per-batch means exactly across unequal batches; the train loop
 drops it from its logs. ``causal_lm`` takes the logits, or an MoE
 model's ``{"logits", "moe_aux", "moe_dropped_frac"}`` (:func:`_add_moe_aux`:
 the already weighed load-balance loss joins the loss and both are
-reported); the fused LM head (``causal_lm_fused``) is not ported yet
-(ROADMAP Queue 1 item 5). Logits split over the vocab
+reported). ``causal_lm_fused`` takes a fused-head model's ``{"hidden",
+"lm_head"}`` (:mod:`.fused_ce`: the logits are never made), with the same
+metrics; ``causal_lm`` refuses that dict by name. Logits split over the vocab
 (a ``DTensor`` ``Shard(2)`` over ``tensor``, the Llama head under tensor
 parallelism) go through a vocab-parallel cross-entropy that gathers no
 logits. Under context parallelism a batch holds one block of each row's
@@ -150,11 +151,14 @@ def causal_lm(logits: torch.Tensor, batch: dict[str, Any]
     load-balance loss (:func:`_add_moe_aux`)."""
     outputs = logits
     if isinstance(logits, dict):
+        if "logits" not in logits:
+            raise TypeError(
+                "model returned the fused-head dict (fused_head_loss=True) — "
+                "pair it with losses.causal_lm_fused")
         logits = outputs["logits"]
     if not isinstance(logits, torch.Tensor):
         raise TypeError(f"causal_lm takes the [B, S, V] logits, got "
-                        f"{type(logits).__name__} (the fused head's outputs are "
-                        f"not ported yet)")
+                        f"{type(logits).__name__}")
     # the positions that have a label here: all of a block whose labels
     # came from the whole rows, else all but the last
     whole = NEXT_IDS in batch
@@ -166,6 +170,32 @@ def causal_lm(logits: torch.Tensor, batch: dict[str, Any]
         logits = (logits if whole else logits[:, :-1]).float()
         per_tok = F.cross_entropy(logits.flatten(0, 1), labels.flatten(),
                                   reduction="none").view(labels.shape)
+    loss, metrics = _reduce_next_token(per_tok, batch)
+    return _add_moe_aux(loss, metrics, outputs)
+
+
+def causal_lm_fused(outputs: dict[str, torch.Tensor], batch: dict[str, Any]
+                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Next-token cross-entropy fused with the LM head
+    (:func:`.fused_ce.chunked_softmax_xent`): ``outputs`` is the
+    ``{"hidden", "lm_head"}`` dict of a model with ``fused_head_loss=True``,
+    so the ``[B, S, V]`` logits and their cotangent never exist. The labels,
+    masks, metrics and MoE terms are :func:`causal_lm`'s."""
+    from distributeddeeplearningspark_tpu_torch.train.fused_ce import (
+        chunked_softmax_xent,
+        is_fused_output,
+    )
+
+    if not is_fused_output(outputs):
+        raise TypeError(
+            "causal_lm_fused needs the {'hidden', 'lm_head'} dict a model "
+            "with fused_head_loss=True returns; this model produced "
+            f"{type(outputs).__name__} — either set the config flag or use "
+            "losses.causal_lm")
+    whole = NEXT_IDS in batch
+    labels = (batch[NEXT_IDS] if whole else batch["input_ids"][:, 1:]).long()
+    hidden = outputs["hidden"] if whole else outputs["hidden"][:, :-1]
+    per_tok = chunked_softmax_xent(hidden, outputs["lm_head"], labels)
     loss, metrics = _reduce_next_token(per_tok, batch)
     return _add_moe_aux(loss, metrics, outputs)
 

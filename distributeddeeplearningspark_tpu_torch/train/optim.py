@@ -31,8 +31,18 @@ returns a float or a 0-d f32 tensor, and Adam's bias corrections are
 computed from it on the device in f32, so no update syncs with the host
 and the train step's non-finite guard (:mod:`.step`) holds a skipped
 step's counts back as it holds the moments. These are plain tensor ops,
-as the JAX package runs its optimizer in XLA, not in Pallas. ``lamb``,
-``lars`` and ``adafactor`` are not ported yet.
+as the JAX package runs its optimizer in XLA, not in Pallas. ``lamb``
+and ``lars`` are not ported yet.
+
+``adafactor`` is optax 0.2.6's (JAX's ``adafactor``):
+``scale_by_factored_rms`` (the second moment of a tensor with two dims
+of at least ``min_dim_size_to_factor`` kept as row and column means over
+its two largest dims; decay ``1 − (t+1)^−0.8``, eps 1e-30 added to the
+squares), ``clip_by_block_rms(1.0)``, ``* lr``,
+``scale_by_param_block_rms`` (``* max(rms(p), 1e-3)``), ``+ weight_decay
+· p`` where set, then ``* −1``. Its statistics and both RMS scalings are
+taken over whole tensors, so on shards or ZeRO slices it raises
+(ROADMAP Queue 1 item 5).
 
 Under FSDP and tensor parallelism (:mod:`..parallel.sharding`) the train
 step hands a transformation the local shards of the sharded params, as a
@@ -88,6 +98,19 @@ class Shards(list):
         return Shards(tensors, self.shares, self.group)
 
 
+class Slices(Shards):
+    """ZeRO's :class:`Shards` (:mod:`..parallel.zero`): this rank's slices
+    of whole tensors (shares as :class:`Shards` say), and ``whole``, the
+    whole tensors they were copied from. The first :func:`global_norm`
+    over them reads ``whole``, so a clip sees the replicated optimizer's
+    norm bit for bit; later ones (the slices may have changed) take the
+    collective sum of :class:`Shards`."""
+
+    def __init__(self, tensors, shares, group=None, whole=None):
+        super().__init__(tensors, shares, group)
+        self.whole = whole
+
+
 class GradientTransformation(NamedTuple):
     init: Callable[[Tensors], Any]
     update: Callable[[Tensors, Any, Tensors], tuple[Tensors, Any]]
@@ -122,6 +145,10 @@ def global_norm(tensors: Tensors) -> torch.Tensor:
     Over :class:`Shards`, the shards' sums of squares, each weighed by its
     share, are all-reduced across their group (a collective: every rank
     calls it) and each other tensor counts once."""
+    whole = getattr(tensors, "whole", None)
+    if whole is not None:
+        tensors.whole = None
+        tensors = whole
     norms = [n.float() for n in torch._foreach_norm(tensors)]
     if not (isinstance(tensors, Shards) and any(tensors.shares)):
         return torch.linalg.vector_norm(torch.stack(norms))
@@ -294,6 +321,124 @@ def join_schedules(schedules: list[Schedule], boundaries: list[int]) -> Schedule
         return out
 
     return schedule
+
+
+class FactoredState(NamedTuple):
+    """optax's ``FactoredState``: a tensor's row and column means where it
+    is factored, else its whole second moment (the others a one-element
+    zero, as optax keeps them)."""
+    count: torch.Tensor
+    v_row: Tensors
+    v_col: Tensors
+    v: Tensors
+
+
+def _factored_dims(shape: tuple[int, ...], min_dim_size_to_factor: int
+                   ) -> tuple[int, int] | None:
+    """optax's: the second largest and the largest dim, where the second
+    largest is at least ``min_dim_size_to_factor``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+#: optax's ``adafactor`` defaults, which JAX's keeps: the second moment's
+#: decay exponent (from step 0) and the eps added to the squares
+ADAFACTOR_DECAY, ADAFACTOR_EPS = 0.8, 1e-30
+
+
+def scale_by_factored_rms(min_dim_size_to_factor: int = 128) -> GradientTransformation:
+    """optax's ``scale_by_factored_rms`` (factored second moments) at
+    ``ADAFACTOR_DECAY`` and ``ADAFACTOR_EPS``."""
+    def init(params):
+        def one(p):
+            return torch.zeros(1, dtype=p.dtype, device=p.device)
+
+        v_row, v_col, v = [], [], []
+        for p in params:
+            dims = _factored_dims(tuple(p.shape), min_dim_size_to_factor)
+            if dims is None:
+                v_row.append(one(p))
+                v_col.append(one(p))
+                v.append(torch.zeros_like(p))
+                continue
+            d1, d0 = dims
+            v_row.append(p.new_zeros([n for i, n in enumerate(p.shape) if i != d0]))
+            v_col.append(p.new_zeros([n for i, n in enumerate(p.shape) if i != d1]))
+            v.append(one(p))
+        return FactoredState(_count(params), v_row, v_col, v)
+
+    def update(updates, state, params):
+        if isinstance(updates, Shards) and any(updates.shares):
+            raise NotImplementedError(
+                "adafactor over shards or ZeRO slices: its factored moments and "
+                "its RMS scalings are per whole tensor; not ported yet: ROADMAP "
+                "Queue 1 item 5")
+        decay = 1.0 - torch.pow((state.count + 1).float(), -ADAFACTOR_DECAY)
+        out, v_row, v_col, v = [], [], [], []
+        for g, vr, vc, vv in zip(updates, state.v_row, state.v_col, state.v):
+            sq = g.square() + ADAFACTOR_EPS
+            dims = _factored_dims(tuple(g.shape), min_dim_size_to_factor)
+            if dims is None:
+                vv = decay * vv + (1.0 - decay) * sq
+                out.append(g * torch.pow(vv, -0.5))
+            else:
+                d1, d0 = dims
+                vr = decay * vr + (1.0 - decay) * sq.mean(d0)
+                vc = decay * vc + (1.0 - decay) * sq.mean(d1)
+                row_mean = vr.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+                row = torch.pow(vr / row_mean, -0.5)
+                col = torch.pow(vc, -0.5)
+                out.append(g * row.unsqueeze(d0) * col.unsqueeze(d1))
+            v_row.append(vr)
+            v_col.append(vc)
+            v.append(vv)
+        return out, FactoredState(state.count + 1, v_row, v_col, v)
+
+    return GradientTransformation(init, update)
+
+
+def clip_by_block_rms() -> GradientTransformation:
+    """optax's ``clip_by_block_rms(1.0)``: each tensor divided by ``max(1,
+    rms)``."""
+    def update(updates, state, params):
+        return [u / torch.clamp(torch.sqrt(u.square().mean()), min=1.0)
+                for u in updates], state
+
+    return GradientTransformation(lambda params: (), update)
+
+
+def scale_by_param_block_rms() -> GradientTransformation:
+    """optax's: each update times its param's RMS, at least 1e-3."""
+    def update(updates, state, params):
+        out = []
+        for u, p in zip(updates, params):
+            rms = torch.sqrt(p.square().mean())
+            out.append(u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms))
+        return out, state
+
+    return GradientTransformation(lambda params: (), update)
+
+
+def adafactor(learning_rate: float | Schedule, *, weight_decay: float = 0.0,
+              min_dim_size_to_factor: int = 128) -> GradientTransformation:
+    """JAX's ``adafactor``: ``optax.adafactor(learning_rate,
+    min_dim_size_to_factor=..., weight_decay_rate=weight_decay or None)``
+    with optax's defaults (decay 0.8 from step 0, parameter scaling,
+    clipping threshold 1, eps 1e-30, no momentum)."""
+    txs = [scale_by_factored_rms(min_dim_size_to_factor),
+           clip_by_block_rms(),
+           scale_by_learning_rate(
+               (lambda c: -learning_rate(c)) if callable(learning_rate)
+               else -learning_rate),
+           scale_by_param_block_rms()]
+    if weight_decay:
+        txs.append(add_decayed_weights(weight_decay))
+    txs.append(scale_by_learning_rate(1.0))
+    return chain(*txs)
 
 
 def warmup_linear(peak_lr: float, warmup_steps: int, total_steps: int,

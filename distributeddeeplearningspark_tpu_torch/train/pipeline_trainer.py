@@ -52,11 +52,12 @@ stage, and K2 and K3 (L/P)·M times each.
   the last stage backwards each microbatch right after its forward, and
   the gradients accumulate in arrival order. The stage is laid out by its
   plan (``stage_plans[k]``, else ``plan``: ``replicated``, ``fsdp``,
-  ``tensor`` or a plan record, :func:`stage_plan_of`) over its mesh with
-  :func:`..parallel.sharding.fully_shard_model`: FSDP2's gradients reduce
-  at each microbatch's backward, as JAX's; a ``tensor`` stage's layers run
-  Megatron's splits on local shards, each rank on every row. ``zero``
-  stays refused (ROADMAP Queue 1 item 5, :func:`refuse_multi_card_stage`).
+  ``tensor``, ``zero`` or a plan record, :func:`stage_plan_of`) over its
+  mesh with :func:`..parallel.sharding.fully_shard_model`: FSDP2's
+  gradients reduce at each microbatch's backward, as JAX's; a ``tensor``
+  stage's layers run Megatron's splits on local shards, each rank on every
+  row; a ``zero`` stage keeps its params replicated and each rank its
+  slice of the optimizer state (:mod:`..parallel.zero`).
 
 **Scheduling.** 1F1B: middle stages prefer a waiting gradient over the next
 forward, and with ``loss_mode="per_microbatch"`` the last stage holds at
@@ -73,7 +74,9 @@ transport raises a typed error; they re-listen/re-dial while
 gang, then all stages agree on the resume step
 (:meth:`..parallel.mpmd.PipelineTransport.sync_step`), roll back to it and
 go on. A stage stamps ``DLS_HEARTBEAT_FILE`` in every long phase: every
-second of its init and of a checkpoint save or restore,
+second from its first moment while torch and the package import (the
+watchdog times a stage from its launch to its first stamp), of its init and
+of a checkpoint save or restore,
 every second it waits in ``connect`` or the resync, and each step; so the
 supervisor's hang watchdog never takes a survivor that waits for a
 restarted peer for a hang.
@@ -89,46 +92,82 @@ supervisor's env (:func:`stage_main`).
 
 from __future__ import annotations
 
-import contextlib
-import dataclasses
-import hashlib
-import json
-import logging
-import math
 import os
 import threading
 import time
-from typing import Any, Callable
 
-import numpy as np
-import torch
-import torch.nn.functional as F
 
-from distributeddeeplearningspark_tpu_torch import faults
-from distributeddeeplearningspark_tpu_torch import telemetry as telemetry_lib
-from distributeddeeplearningspark_tpu_torch.models.llama import (
+def _start_boot_beat(period: float = 1.0, limit_s: float = 300.0) -> threading.Event:
+    """Stamp ``DLS_HEARTBEAT_FILE`` now and every ``period`` seconds from a
+    thread, until the returned event is set or ``limit_s`` has passed. A
+    stage worker's first act (``python -m`` this module): its imports of
+    torch and the package take seconds on an idle host and can outlast the
+    hang watchdog's timeout on a loaded one, and the watchdog times a stage
+    from its launch to its first stamp. The limit keeps a wedged import a
+    hang."""
+    stop = threading.Event()
+    path, t0 = os.environ["DLS_HEARTBEAT_FILE"], time.monotonic()
+
+    def beat():
+        while True:
+            try:
+                with open(path, "w") as f:
+                    f.write(str(os.getpid()))
+            except OSError:
+                pass
+            if stop.wait(period) or time.monotonic() - t0 > limit_s:
+                return
+
+    threading.Thread(target=beat, name="dls-boot-heartbeat", daemon=True).start()
+    return stop
+
+
+#: the boot beat of a stage worker, stopped by :func:`stage_main` (None:
+#: imported as a module, or no heartbeat file)
+_BOOT_BEAT = (_start_boot_beat() if __name__ == "__main__"
+              and os.environ.get("DLS_HEARTBEAT_FILE") else None)
+
+import contextlib  # noqa: E402  (after the boot beat: these take seconds)
+import dataclasses  # noqa: E402
+import hashlib  # noqa: E402
+import json  # noqa: E402
+import logging  # noqa: E402
+import math  # noqa: E402
+from typing import Any, Callable  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from distributeddeeplearningspark_tpu_torch import faults  # noqa: E402
+from distributeddeeplearningspark_tpu_torch import telemetry as telemetry_lib  # noqa: E402
+from distributeddeeplearningspark_tpu_torch.models.llama import (  # noqa: E402
     ElsewhereLayer,
     LlamaConfig,
     LlamaForCausalLM,
 )
-from distributeddeeplearningspark_tpu_torch.models.llama_pp import (
+from distributeddeeplearningspark_tpu_torch.models.llama_pp import (  # noqa: E402
     _stage_forward,
     check_pp_config,
 )
-from distributeddeeplearningspark_tpu_torch.parallel import collectives, mpmd, sharding
-from distributeddeeplearningspark_tpu_torch.parallel import plan as plan_lib
-from distributeddeeplearningspark_tpu_torch.parallel.mesh import (
+from distributeddeeplearningspark_tpu_torch.parallel import collectives, mpmd, sharding  # noqa: E402
+from distributeddeeplearningspark_tpu_torch.parallel import plan as plan_lib  # noqa: E402
+from distributeddeeplearningspark_tpu_torch.parallel.mesh import (  # noqa: E402
     BATCH_AXES,
     Mesh,
     MeshSpec,
     num_data_shards,
 )
-from distributeddeeplearningspark_tpu_torch.parallel.pipeline import stage_layers
-from distributeddeeplearningspark_tpu_torch.telemetry import trace as trace_lib
-from distributeddeeplearningspark_tpu_torch.train import losses, optim
-from distributeddeeplearningspark_tpu_torch.train.state import TrainState, map_leaves
-from distributeddeeplearningspark_tpu_torch.train.step import _rewrap
-from distributeddeeplearningspark_tpu_torch.utils.device import resolve_device
+from distributeddeeplearningspark_tpu_torch.parallel.pipeline import stage_layers  # noqa: E402
+from distributeddeeplearningspark_tpu_torch.telemetry import trace as trace_lib  # noqa: E402
+from distributeddeeplearningspark_tpu_torch.train import losses, optim  # noqa: E402
+from distributeddeeplearningspark_tpu_torch.train.state import (  # noqa: E402
+    TrainState,
+    leaves,
+    map_leaves,
+)
+from distributeddeeplearningspark_tpu_torch.train.step import _rewrap  # noqa: E402
+from distributeddeeplearningspark_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 logger = logging.getLogger("distributeddeeplearningspark_tpu_torch.pipeline")
 
@@ -307,6 +346,9 @@ class LlamaStageProgram:
         self.row_index = mesh.batch_index(mesh.rank) if mesh is not None else 0
         self.row_group = mesh.group(BATCH_AXES) if self.row_shards > 1 else None
         self._init_params = init_params
+        #: the ZeRO layout of the optimizer state under a ``zero`` stage plan
+        #: (:mod:`..parallel.zero`; None: no ``zero_axes``)
+        self.zero = None
         self.model: LlamaForCausalLM | None = None
         self.names: list[str] = []
         self._graphs: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
@@ -358,8 +400,14 @@ class LlamaStageProgram:
         self.start_step()
         params = dict(model.named_parameters())
         params = {n: params[n] for n in self.names}
+        opt_params = [params[n] for n in self.names]
+        if self.plan is not None and self.plan.zero_axes and self.zero is None:
+            from distributeddeeplearningspark_tpu_torch.parallel.zero import ZeroLayout
+
+            self.zero = ZeroLayout(self.plan, self._layout_mesh, opt_params)
         return TrainState(step=0, params=params,
-                          opt_state=self.tx.init([params[n] for n in self.names]),
+                          opt_state=(self.tx.init(opt_params) if self.zero is None
+                                     else self.zero.init(self.tx, opt_params)),
                           generator=torch.Generator(self.device).manual_seed(seed))
 
     # -- per-step compute (called by the runner) -----------------------------
@@ -487,7 +535,8 @@ class LlamaStageProgram:
         """One optimizer step from the accumulated gradients (a param the
         step did not reach takes a zero gradient, as JAX's): the gradients
         FSDP2 did not reduce summed over the row shards first, then the
-        update on each rank's local shards."""
+        update on each rank's local shards (under a ``zero`` plan on its
+        slices of the whole, all-gathered after: :mod:`..parallel.zero`)."""
         params = [state.params[n] for n in self.names]
         grads = [sharding.local(torch.zeros_like(p) if p.grad is None else p.grad)
                  for p in params]
@@ -497,9 +546,12 @@ class LlamaStageProgram:
                 collectives.all_reduce_grads(
                     [g for g, p in zip(grads, params) if not sharding.fsdp_reduced(p)],
                     self.row_group)
-            updates, opt_state = self.tx.update(
-                grads, map_leaves(sharding.local, state.opt_state), local)
-            torch._foreach_add_(local, updates)
+            opt_state = map_leaves(sharding.local, state.opt_state)
+            if self.zero is not None:
+                opt_state = self.zero.update(self.tx, grads, opt_state, local)
+            else:
+                updates, opt_state = self.tx.update(grads, opt_state, local)
+                torch._foreach_add_(local, updates)
         state.opt_state = map_leaves(_rewrap, state.opt_state, opt_state)
         for p in params:
             p.grad = None
@@ -1342,7 +1394,8 @@ def stage_plan_of(spec: dict, stage: int, cfg: LlamaConfig) -> plan_lib.Plan:
     (:func:`..parallel.plan.stage_plan`, ``fsdp_min_size`` from the spec,
     JAX's default 2**10) or a serialized plan record
     (``Plan.from_record``); the program validates it on the stage's mesh.
-    ``zero`` raises naming ROADMAP Queue 1 item 5."""
+    ``zero`` keeps the params replicated and slices the optimizer state
+    over the stage's batch axes (:mod:`..parallel.zero`)."""
     name = _stage_plan_name(spec, stage)
     try:
         if isinstance(name, dict):
@@ -1355,15 +1408,8 @@ def stage_plan_of(spec: dict, stage: int, cfg: LlamaConfig) -> plan_lib.Plan:
 
 def refuse_multi_card_stage(spec: dict, stage: int) -> None:
     """What a stage still cannot be: raise ``ValueError``, naming why, for
-    a ``zero`` stage plan (ZeRO weight-update sharding, ROADMAP Queue 1 item
-    5) and, in ``mode="exact"``, a stage mesh with an axis other than
-    ``data``/``fsdp`` above 1 (JAX's own refusal: exact mode splits rows
-    only)."""
-    name = _stage_plan_name(spec, stage)
-    if name == "zero" or (isinstance(name, dict) and name.get("zero_axes")):
-        raise ValueError(f"DLS_PIPE_SPEC stage {stage}: the 'zero' stage plan "
-                         f"(ZeRO weight-update sharding) is not ported yet: "
-                         f"ROADMAP Queue 1 item 5")
+    a stage mesh with an axis other than ``data``/``fsdp`` above 1 in
+    ``mode="exact"`` (JAX's own refusal: exact mode splits rows only)."""
     if spec.get("mode", "exact") == "exact":
         extra = {a: s for a, s in stage_mesh_axes(spec, stage).items()
                  if a not in BATCH_AXES and s not in (1, -1)}
@@ -1420,13 +1466,17 @@ def stage_summary(runner: PipelineStageRunner, result: dict) -> dict:
     """What a stage reports at its end (every rank calls it; the lead's is
     the stage's): its steps, losses, transport and gang stats, its layout,
     its final params' digests (:func:`param_digests`) and each rank's pid,
-    params held, K1/K2/K3 launches and (on a card) peak memory."""
+    params and optimizer-state bytes held, K1/K2/K3 launches and (on a
+    card) peak memory."""
     from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
 
     prog = runner.program
     state = result["state"]
     card = {"rank": runner.gang.rank, "pid": os.getpid(),
             "params": sum(sharding.local(p).numel() for p in state.params.values()),
+            "opt_state_bytes": sum(sharding.local(t).numel() * t.element_size()
+                                   for t in leaves(state.opt_state)
+                                   if isinstance(t, torch.Tensor)),
             "flash_launches": {k.__name__: k.launches
                                for k in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)}}
     if prog.device.type == "cuda":
@@ -1488,6 +1538,8 @@ def _join_stage_gang(device: torch.device, spec: dict, stage: int):
 def stage_main() -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     touch_heartbeat()
+    if _BOOT_BEAT is not None:  # the phases below stamp for themselves
+        _BOOT_BEAT.set()
     spec = json.loads(os.environ[mpmd.ENV_SPEC])
     stage = int(os.environ[mpmd.ENV_STAGE])
     num_stages = int(os.environ[mpmd.ENV_NUM_STAGES])

@@ -97,6 +97,13 @@ param weighed by the ranks of its stage that hold it) and counts the
 replicated ones once, so it is one device's, and a NaN on any stage
 skips the guarded update on every stage.
 
+``zero`` (a :class:`..parallel.zero.ZeroLayout`, the ``Trainer``'s under
+a plan with ``zero_axes``): the gradients are reduced whole as above, and
+the optimizer runs on this rank's slices of them, of the params and of its
+state (``DTensor`` slices in ``state.opt_state``), the updated slices then
+all-gathered into every replica's params: JAX's ZeRO, bitwise the
+replicated update.
+
 A model with a ``batch_sum`` attribute (the MoE Llama,
 :mod:`..models.llama`) gets a differentiable all-reduce over the loss
 group there in a distributed step: its load-balance loss E · Σₑ fₑ · p̄ₑ is
@@ -233,20 +240,24 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
                     loss_fn: LossFn, *, distributed: bool = False,
                     trainable: Callable[[str], bool] | None = None,
                     accum_steps: int = 1, guard_nonfinite: bool = False,
-                    mesh=None):
+                    mesh=None, zero=None):
     """(state, batch) → (state, metrics). ``model(batch, generator=g)``
     returns the outputs ``loss_fn(outputs, batch)`` consumes. Sets each
     param's ``requires_grad`` from ``trainable`` (None: every param).
     ``guard_nonfinite``: skip the update of a step whose gradient is not
     finite (the module docstring); the step's ``guard`` attribute is its
     :class:`NonfiniteGuard` (None without). ``mesh``: the session's
-    :class:`~..parallel.mesh.Mesh`, whose groups the step reduces over."""
+    :class:`~..parallel.mesh.Mesh`, whose groups the step reduces over.
+    ``zero``: the ZeRO layout of the optimizer's params (module docstring).
+    A param that is not floating point (the int8 base) never trains."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     named = dict(model.named_parameters())
-    grad_names = [n for n in named if trainable is None or trainable(n)]
+    grad_names = [n for n, p in named.items() if p.is_floating_point()
+                  and (trainable is None or trainable(n))]
+    trains = set(grad_names)
     for n, p in named.items():
-        p.requires_grad_(trainable is None or trainable(n))
+        p.requires_grad_(n in trains)
     opt_names = set(optimizer_params(grad_names, tx))
     opt_index = [i for i, n in enumerate(grad_names) if n in opt_names]
     # which trainables FSDP2 reduces, and each one's share of the norm
@@ -323,9 +334,13 @@ def make_train_step(model: torch.nn.Module, tx: GradientTransformation,
                     collectives.all_reduce_grads([grads[i] for i in pipe_summed],
                                                  pipe_group)
             grad_norm = global_norm(grads)
-            updates, opt_state = tx.update(shards([grads[i] for i in opt_index],
-                                                  opt_index), opt_state, opt_params)
-            torch._foreach_add_(opt_params, updates)
+            if zero is not None:
+                opt_state = zero.update(tx, [grads[i] for i in opt_index], opt_state,
+                                        opt_params)
+            else:
+                updates, opt_state = tx.update(shards([grads[i] for i in opt_index],
+                                                      opt_index), opt_state, opt_params)
+                torch._foreach_add_(opt_params, updates)
         if guard is not None:
             # a NaN/Inf anywhere in the gradients poisons their norm, so one
             # predicate covers a loss blowup and a gradient blowup

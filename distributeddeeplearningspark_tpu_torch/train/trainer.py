@@ -117,6 +117,15 @@ run under ``no_grad`` (FSDP2 and ``inference_mode`` do not mix,
 :mod:`.step`). At ``fsdp`` and ``tensor`` 1 nothing is sharded, as in JAX
 on one device.
 
+A plan with ``zero_axes`` (``plan.zero_plan``, JAX's ZeRO weight-update
+sharding) keeps the params replicated and each rank's slice of the
+optimizer state (:mod:`..parallel.zero`): the step updates the slices and
+gathers the params, bitwise the replicated update, and checkpoints hold
+the state whole. It needs every param the optimizer updates replicated,
+no pipeline and no sparse tables; a model with ``fused_head_loss`` is
+refused where the rules shard its head (ROADMAP Queue 1 item 5). A param
+that is not floating point (the int8 base) never trains.
+
 ``context_parallel=True`` (or a plan with a ``seq_axis``, JAX's
 ``Trainer(context_parallel=...)``) shards each row's sequence over the
 mesh's ``seq`` axis: each rank feeds the rows of its batch coordinate and
@@ -210,6 +219,10 @@ from distributeddeeplearningspark_tpu_torch.session import Session
 from distributeddeeplearningspark_tpu_torch.telemetry import anatomy as anatomy_lib
 from distributeddeeplearningspark_tpu_torch.train import embed as embed_lib
 from distributeddeeplearningspark_tpu_torch.train import step as step_lib
+from distributeddeeplearningspark_tpu_torch.train.fused_ce import (
+    is_fused_output,
+    materialize_logits,
+)
 from distributeddeeplearningspark_tpu_torch.train.optim import GradientTransformation
 from distributeddeeplearningspark_tpu_torch.train.state import TrainState
 from distributeddeeplearningspark_tpu_torch.utils import profiling, sanitize
@@ -373,6 +386,18 @@ class Trainer:
             raise NotImplementedError(
                 "sharded params with sparse_embed tables (the expert-sharded "
                 "DLRM table) are not ported yet: ROADMAP Queue 1 item 5")
+        if getattr(getattr(model, "cfg", None), "fused_head_loss", False):
+            mesh = self.session.mesh
+            if "lm_head.weight" in {*sharding.tensor_dims(model, rules, mesh),
+                                    *sharding.shard_dims(model, rules, mesh)}:
+                raise NotImplementedError(
+                    "fused_head_loss with the head's weight sharded (fsdp or "
+                    "tensor): the fused loss reads the whole weight after the "
+                    "forward; not ported yet: ROADMAP Queue 1 item 5")
+        if self.plan.zero_axes and (sparse_embed or self.session.mesh.shape[AXIS_PIPE] > 1):
+            raise NotImplementedError(
+                f"plan {self.plan.name!r}: zero_axes with sparse_embed tables or on "
+                f"a pipeline: not ported yet: ROADMAP Queue 1 item 5")
         self.accum_steps = accum_steps
         self.trainable = trainable
         self.pipeline_microbatches = pipeline_microbatches
@@ -392,6 +417,15 @@ class Trainer:
             for n, p in model.named_parameters():
                 if rules.stage_of(sharding.path_str(n), self.session.mesh) is not None:
                     sharding.mark_stage(p, stage)
+        #: the ZeRO layout of the optimizer state (None: a plan without
+        #: ``zero_axes``)
+        self.zero = None
+        if self.plan.zero_axes:
+            from distributeddeeplearningspark_tpu_torch.parallel.zero import ZeroLayout
+
+            params = dict(model.named_parameters())
+            self.zero = ZeroLayout(self.plan, self.session.mesh,
+                                   [params[n] for n in self._optimizer_names(params)])
         self._guard_nonfinite = False  # fit(on_nonfinite="skip") rebuilds
         #: the step a graceful preemption drain ended ``fit`` at (None: not
         #: drained); a drained driver exits 0 and writes no final artefacts
@@ -433,7 +467,8 @@ class Trainer:
                 self.model, self.tx, self.loss_fn,
                 distributed=self.session.distributed, trainable=self.trainable,
                 accum_steps=self.accum_steps,
-                guard_nonfinite=self._guard_nonfinite, mesh=self.session.mesh)
+                guard_nonfinite=self._guard_nonfinite, mesh=self.session.mesh,
+                zero=self.zero)
         # the signature ledger: a new input signature is the eager step's
         # "compile", one telemetry event each (telemetry/anatomy.py)
         self._train_step = anatomy_lib.instrument(
@@ -448,7 +483,7 @@ class Trainer:
         params = dict(self.model.named_parameters())
         trains = (embed_lib.dense_trainable(self.sparse_embed)
                   if self.sparse_embed else self.trainable)
-        names = step_lib.optimizer_params(params, self.tx, trains)
+        names = self._optimizer_names(params)
         pipe = None
         if self._whole_names is not None:
             from distributeddeeplearningspark_tpu_torch.parallel.pipeline import (
@@ -458,9 +493,11 @@ class Trainer:
 
             pipe = StageState(PipeGroup.of(self.session.mesh), tuple(names), tuple(
                 step_lib.optimizer_params(self._whole_names, self.tx, trains)))
+        opt_params = [params[n] for n in names]
         self.state = TrainState(
             step=0, params=params,
-            opt_state=self.tx.init([params[n] for n in names]),
+            opt_state=(self.tx.init(opt_params) if self.zero is None
+                       else self.zero.init(self.tx, opt_params)),
             generator=torch.Generator(self.device).manual_seed(self.seed),
             mutable=dict(self.model.named_buffers()),
             embed_state=embed_lib.init_embed_state(self.sparse_embed, params),
@@ -468,6 +505,15 @@ class Trainer:
         logger.info("initialized %s params on %s",
                     f"{self.state.num_params:,}", self.device)
         return self.state
+
+    def _optimizer_names(self, params: dict[str, torch.Tensor]) -> list[str]:
+        """The names of the params the optimizer updates, in order: those
+        that train (not sparse tables), pass its mask and are floating
+        point (the int8 base never trains)."""
+        trains = (embed_lib.dense_trainable(self.sparse_embed)
+                  if self.sparse_embed else self.trainable)
+        return [n for n in step_lib.optimizer_params(params, self.tx, trains)
+                if params[n].is_floating_point()]
 
     def load_pretrained(self, params: dict[str, Any], *,
                         batch_stats: dict[str, Any] | None = None,
@@ -1120,6 +1166,8 @@ class Trainer:
                                           drop_remainder=False):
             with torch.no_grad():  # not inference_mode: see make_eval_step
                 out = self.model(to_device(self._seq_shard(host_batch), self.device))
+                if is_fused_output(out):  # the logits predict yields (JAX's step)
+                    out = materialize_logits(out)
                 out = _tree_map(sharding.full, out)
                 if output_fn is not None:
                     out = output_fn(out)

@@ -589,18 +589,20 @@ def test_plan_records_and_signatures_are_jax(name, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(seq_axis="seq", zero_axes=("data",)), "item 5"),
-    (dict(zero_axes=("data",)), "item 5"), (dict(style="shard_map"), "item 5")])
+    (dict(seq_axis="seq", zero_axes=("tensor",)), "not replica"),
+    (dict(zero_axes=("seq",)), "not replica"), (dict(style="shard_map"), "Queue 1 item 5")])
 def test_plans_the_port_lacks_raise(kw, item):
-    """zero_axes and style="shard_map" raise naming their ROADMAP item,
-    also beside a seq_axis (context parallelism is ported), from
-    ``validate`` and from the Trainer; so does an axis the mesh lacks."""
+    """style="shard_map" raises naming its ROADMAP item, and zero axes
+    outside the batch axes as JAX's ``validate`` does (ZeRO is ported:
+    ``test_torch_zero.py``), also beside a seq_axis (context parallelism is
+    ported), from ``validate`` and from the Trainer; so does an axis the
+    mesh lacks."""
     mesh = tmesh.Mesh(tmesh.MeshSpec(data=1).shape(1))
     plan = tplan.Plan(name="x", **kw)
-    with pytest.raises(tplan.PlanValidationError, match=f"Queue 1 {item}"):
+    with pytest.raises(tplan.PlanValidationError, match=item):
         plan.validate(mesh)
     with Session.builder.master("local[1]").config(DEVICE_CONF, "cpu").getOrCreate() as spark:
-        with pytest.raises(tplan.PlanValidationError, match=f"Queue 1 {item}"):
+        with pytest.raises(tplan.PlanValidationError, match=item):
             Trainer(spark, tllama.llama_tiny(device="cpu"), losses.causal_lm,
                     optim.adamw(1e-3), plan=plan)
     with pytest.raises(tplan.PlanValidationError, match="do not exist"):

@@ -284,21 +284,34 @@ def test_masked_must_be_the_outermost_transformation():
     assert toptim.updated_by(toptim.adamw(1e-3))("anything")
 
 
-@pytest.mark.parametrize("fields", [
-    pytest.param(dict(moe_experts=4, fused_head_loss=True),
+#: what the port refuses (and how), or None for what it now builds
+_BUILT = None
+
+
+@pytest.mark.parametrize("fields,refusal", [
+    pytest.param(dict(moe_experts=4, fused_head_loss=True), _BUILT,
                  id="moe_experts-4-fused_head_loss-True"),
-    pytest.param(dict(base_quant="int8"), id="base_quant-int8"),
-    pytest.param(dict(decode=True), id="decode-True"),
-    pytest.param(dict(fused_head_loss=True), id="fused_head_loss-True"),
+    pytest.param(dict(base_quant="int8"), _BUILT, id="base_quant-int8"),
+    pytest.param(dict(decode=True), (NotImplementedError, "ROADMAP Queue 1 item"),
+                 id="decode-True"),
+    pytest.param(dict(fused_head_loss=True), _BUILT, id="fused_head_loss-True"),
     pytest.param(dict(attention_impl="ring", moe_experts=4),
+                 (NotImplementedError, "ROADMAP Queue 1 item"),
                  id="attention_impl-ring-moe_experts-4"),
     pytest.param(dict(attention_impl="ulysses", decode=True),
+                 (NotImplementedError, "ROADMAP Queue 1 item"),
                  id="attention_impl-ulysses-decode-True")])
-def test_model_refuses_what_is_not_ported(fields):
+def test_model_refuses_what_is_not_ported(fields, refusal):
     """What the port lacks raises by name, also beside ring and Ulysses
     attention (context parallelism is ported) and beside MoE, and MoE
-    under context parallelism."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    under context parallelism. The fused head loss (with MoE too) and the
+    int8 base are ported and build (``test_torch_fused_ce.py``,
+    ``test_torch_qlora.py``)."""
+    if refusal is _BUILT:
+        model = tllama.LlamaForCausalLM(_tcfg(**fields), device="cpu")
+        assert all(getattr(model.cfg, k) == v for k, v in fields.items())
+        return
+    with pytest.raises(refusal[0], match=refusal[1]):
         tllama.LlamaForCausalLM(_tcfg(**fields), device="cpu")
 
 
@@ -507,9 +520,9 @@ def test_driver_trains_through_the_cli_on_the_cpu(tmp_path):
     (["--weights", "w"], "parse"), (["--tokenizer", "t"], "parse"),
     (["--seq-parallel", "2", "--pipeline", "2"], "session"),
     (["--microbatches", "2"], None), (["--moe-experts", "4", "--microbatches", "2"], None),
-    (["--moe-experts", "4", "--moe-group", "8", "--fused-head-loss"], "parse"),
+    (["--moe-experts", "4", "--moe-group", "8", "--fused-head-loss"], None),
     (["--moe-experts", "4", "--expert", "2", "--sample-tokens", "8"], "parse"),
-    (["--base-quant", "int8"], "parse"), (["--fused-head-loss"], "parse"),
+    (["--base-quant", "int8"], None), (["--fused-head-loss"], None),
     (["--sample-tokens", "8"], "parse"),
     (["--seq-parallel", "2", "--moe-experts", "4", "--expert", "2", "--weights", "w"],
      "parse"),
@@ -519,9 +532,9 @@ def test_driver_trains_through_the_cli_on_the_cpu(tmp_path):
     (["--seq-parallel", "2", "--cp-impl", "ulysses", "--pipeline", "2"], "session")])
 def test_driver_refuses_what_is_not_ported(flag, refused, capsys, monkeypatch):
     """What the port has not ported fails at parse time naming its ROADMAP
-    item; the pipeline's flags are ported and parse, and its session
-    refuses the pipeline beside context parallelism naming Queue 1 item
-    10."""
+    item; the pipeline's flags, the int8 base and the fused head are ported
+    and parse, and the session refuses the pipeline beside context
+    parallelism naming Queue 1 item 10."""
     if refused == "parse":
         with pytest.raises(SystemExit) as e:
             tdriver.parse_args(["--variant", "tiny", *flag])
@@ -531,6 +544,8 @@ def test_driver_refuses_what_is_not_ported(flag, refused, capsys, monkeypatch):
     args = tdriver.parse_args(["--variant", "tiny", *flag])
     assert args.pipeline == (2 if "--pipeline" in flag else 1)
     assert args.microbatches == (2 if "--microbatches" in flag else 0)
+    assert args.base_quant == ("int8" if "--base-quant" in flag else None)
+    assert args.fused_head_loss == ("--fused-head-loss" in flag)
     if refused == "session":
         monkeypatch.setenv("DLS_CONF_spark__dls__device", "cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):

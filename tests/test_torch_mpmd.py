@@ -17,8 +17,7 @@
   ``CUDA_VISIBLE_DEVICES`` included), two stages needed, the hang
   watchdog's plumbing, a spec required for the built-in worker.
 - **Stage layouts and what stays refused**: ``stage_plan`` builds
-  ``fsdp`` and ``tensor`` (a plan record too) and refuses ``zero`` (ROADMAP
-  Queue 1 item 5); a stage mesh of two devices is a gang of two processes,
+  ``fsdp``, ``tensor`` and ``zero`` (a plan record too); a stage mesh of two devices is a gang of two processes,
   which ``exact`` refuses on a ``tensor`` mesh; ``mode="exact"`` with
   ``per_microbatch``; the driver's two cards a stage by default (its card
   lists); and a stage worker with no card and no ``"device": "cpu"``.
@@ -558,30 +557,29 @@ def test_heartbeat_stamps_through_a_long_phase(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", ["fsdp", "tensor", "zero"])
 def test_stage_plan_refuses_multi_card_layouts(name):
-    """``fsdp`` and ``tensor`` build JAX's stage layouts (a tensor stage
-    needs the cfg); ``zero`` stays refused, naming ROADMAP Queue 1 item 5,
-    in ``stage_plan`` and in a spec."""
+    """``fsdp``, ``tensor`` and ``zero`` build JAX's stage layouts (a
+    tensor stage needs the cfg; ``zero`` is ``zero_plan(Plan("stage"))``:
+    replicated params, the optimizer state sliced over the batch axes), in
+    ``stage_plan`` and in a spec; the spec's refusals pass them all."""
     assert tplan.stage_plan("replicated").name == "stage-replicated"
     with pytest.raises(tplan.PlanError, match="unknown stage plan"):
         tplan.stage_plan("magic")
-    if name == "zero":
-        with pytest.raises(tplan.PlanError, match="item 5"):
-            tplan.stage_plan(name, _tcfg())
-        for spec in ({"mode": "sharded", "stage_plans": {"1": name}}, {"plan": name}):
-            with pytest.raises(ValueError, match="item 5"):
-                tpt.refuse_multi_card_stage(spec, 1)
-        tpt.refuse_multi_card_stage({"stage_plans": {"0": name}}, 1)
-        return
     plan = tplan.stage_plan(name, _tcfg(), fsdp_min_size=2**10)
     assert plan.name == f"stage-{name}"
-    if name == "fsdp":
+    if name == "zero":
+        assert plan.zero_axes == plan.batch_axes and not plan.rules.rules
+        assert plan.signature() == tplan.zero_plan(tplan.Plan(name="stage"),
+                                                   name="stage-zero").signature()
+        mesh = tmesh.Mesh(tmesh.MeshSpec(data=2).shape(2))
+    elif name == "fsdp":
         assert plan.rules.fsdp and plan.rules.fsdp_min_size == 2**10 and not plan.rules.rules
     else:
         with pytest.raises(tplan.PlanError, match="cfg"):
             tplan.stage_plan(name)
         assert not plan.rules.fsdp
         assert dict(plan.rules.rules)["(wq|wk|wv)/weight"] == ("tensor", None)
-    mesh = tmesh.Mesh(tmesh.MeshSpec(data=1, **{name: 2}).shape(2))
+    if name != "zero":
+        mesh = tmesh.Mesh(tmesh.MeshSpec(data=1, **{name: 2}).shape(2))
     assert tpt.stage_plan_of({"mode": "sharded", "stage_plans": {"1": name}}, 1,
                              _tcfg()).name == plan.name
     # a serialized plan record is taken too, and validated on the stage's mesh

@@ -14,6 +14,10 @@
   timeout (stage 1 starts :data:`HOLD_S` late, stamping its own heartbeat
   while it waits) is not killed as a hang: stage 0 stamps its heartbeat
   while it waits for its peer.
+- **The stage worker beats while it imports**: the watchdog times a stage
+  from its launch to its first heartbeat, so the worker stamps it before
+  it imports torch and from a thread while the imports run (on a loaded
+  host they outlast the timeout, which made the test above unsteady).
 """
 
 import json
@@ -111,3 +115,52 @@ def test_survivor_waiting_in_connect_is_not_a_hang(tmp_path):
     assert done["step"] == 2
     assert [len(res.attempts[k]) for k in (0, 1)] == [1, 1]
     assert res.attempts[0][0].duration_s > HOLD_S > HANG_TIMEOUT_S
+
+
+#: a stage worker under a stand-in for a loaded host: its import of torch
+#: stalls STALL_S (past several of the boot beat's periods), and it records
+#: whether its heartbeat was stamped before that import and again during it
+_SLOW_IMPORT = """
+import importlib.abc, os, runpy, sys, time
+hb, out = os.environ["DLS_HEARTBEAT_FILE"], os.environ["PROBE_OUT"]
+
+class SlowTorch(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name == "torch":
+            sys.meta_path.remove(self)
+            mtime = lambda: os.stat(hb).st_mtime if os.path.exists(hb) else None
+            before = mtime()
+            time.sleep({stall})
+            with open(out, "w") as f:
+                f.write(repr((before, mtime())))
+        return None
+
+sys.meta_path.insert(0, SlowTorch())
+runpy.run_module("distributeddeeplearningspark_tpu_torch.train.pipeline_trainer",
+                 run_name="__main__", alter_sys=True)
+"""
+
+
+def test_stage_worker_beats_while_it_imports(tmp_path):
+    """The cause of a stage taken for hung on a loaded host: the watchdog
+    times a stage from its launch to its first heartbeat, and the worker
+    (``python -m ...pipeline_trainer``, the late stage's ``execv`` too)
+    stamped it only in ``stage_main``, after seconds of imports. The worker
+    stamps it before it imports torch and goes on stamping while the import
+    stalls."""
+    import subprocess
+
+    stall = 3.5
+    hb, out = tmp_path / "hb", tmp_path / "probe"
+    env = {k: v for k, v in os.environ.items() if k != "DLS_PIPE_SPEC"}
+    env.update(DLS_HEARTBEAT_FILE=str(hb), PROBE_OUT=str(out),
+               PYTHONPATH=os.pathsep.join(filter(None, [
+                   os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   env.get("PYTHONPATH")])))
+    proc = subprocess.run([sys.executable, "-c", _SLOW_IMPORT.format(stall=stall)],
+                          env=env, capture_output=True, text=True, timeout=120)
+    # no spec in the env: stage_main stops at it, after the imports
+    assert proc.returncode != 0 and "DLS_PIPE_SPEC" in proc.stderr, proc.stderr[-2000:]
+    before, during = eval(out.read_text())
+    assert before is not None, "no heartbeat before the worker imported torch"
+    assert during - before >= stall - 1.5, (before, during)
