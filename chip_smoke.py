@@ -87,16 +87,46 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    ``mfu_device``, the measured count over the model formula's (and why),
    the window's top families and the peak memory; then run the port's driver through its
    ``dlsubmit`` at ``local[1]`` for 5 steps with its default ``--fsdp -1``
-   (a one-card mesh: nothing sharded, the card holding what the rule
-   engine reckons; the same launch counts a step, finite losses, nothing
-   left); then config 5 on the int8 frozen base with the fused head loss
+   and ``--sample-tokens 16`` (a one-card mesh: nothing sharded, the card
+   holding what the rule engine reckons; the same launch counts a step,
+   finite losses, nothing left, two sampled continuations of 16 tokens
+   after ``fit``); then config 5 on the int8 frozen base with the fused head loss
    (``train_llama_qlora``): 10 steps and the driver's 5 with
    ``--base-quant int8 --fused-head-loss``, finite falling losses, the same
    launch counts, the resident base bytes and the measured FLOPs each the
    reckoning exactly, the adapters' gradients against the dequantised bf16
    base through the plain loss, and its peak memory and step ms printed
    beside the bf16 cell's (``--qlora`` runs the kernels' checks and this
-   phase only);
+   phase only); the MoE 0.9b (``train_llama_moe``, ``--moe``);
+5d. text generation and the rest of serving (``serve_llama``) on Llama-2
+   7B at its published widths (bf16, LoRA rank 16 on wq and wv with B
+   drawn nonzero, random weights from a seed): ``llama_gen.generate`` at
+   b=8 prompts of 128 tokens, 128 new, greedy — every token against the
+   argmax of the port's training forward over prompt + output (K1 at S =
+   512), a mismatch excused only where that forward's top-2 margin is
+   below DECODE_MARGIN and at most DECODE_EXCUSED_SHARE of positions so
+   excused; decode's logits at the prefill and 4 steps within DECODE_ATOL
+   of the forward's; eos freezing the rows; a sampled run (temperature
+   0.8, top_k 40) inside each step's top 40 — and the same on the int8
+   base against its own forward; prefill ms, ms a decode step (eager, and
+   its device time from a CUDA graph), tokens/s and peak memory for both;
+   the ``ContinuousGenerator`` at 8 slots, 1,024 positions, pages of 16,
+   32 requests from 8 client threads (a shared 64-token system prompt and
+   a unique 16–192-token suffix, 32–128 new tokens): the paged pool
+   without the prefix cache giving each request the dense pool's tokens,
+   the prefix-cached pool hitting for every request after the first and
+   held by teacher forcing, joins mid-flight, a swap of the adapters
+   mid-flight that drops nothing and flushes the prefix cache; TTFT and
+   per-token ms at p50/p99, tokens/s, KV occupancy, deferrals, the
+   gather/scatter share of a paged step and peak memory; two planted
+   faults (SERVE_FAULTS) at the 7B widths cut to 2 layers, each breaking
+   a check; then ``dlserve``: a two-replica tinyllama fleet on the card
+   with a rolling reload (0 dropped, each replica on ``cuda``, no process
+   left, the port's ``dlstatus --fleet-serve --json`` reads the run) and
+   LeNet under ``--watch --compare-sequential`` with a newer step
+   committed mid-load (at least one reload). ``python3 chip_smoke.py
+   --serve`` builds the kernels and runs phase 6b's driver run and this
+   phase only (one card);
 7. hold K4 (the 1×1-conv matmul with BN statistics) against its plain
    version on the card in bf16 at the ten shapes of ResNet-50's fused
    layers at b=256, three that a rank of four gets at 64 images, and six
@@ -333,6 +363,7 @@ package is not beside this script, or when any phase fails.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import multiprocessing as mp
@@ -1558,6 +1589,8 @@ LLAMA_LR = 1e-3
 #: flash launches a step: K1 in each layer's forward and again in its remat
 #: recompute, K2 and K3 once in each layer's backward
 LLAMA_LAUNCHES = {"flash_fwd": 64, "flash_bwd_dq": 32, "flash_bwd_dkv": 32}
+#: the driver's sampling after fit (``--sample-tokens``)
+LLAMA_SAMPLE_TOKENS = 16
 #: the training step's peak device memory over the base weights' bytes: the
 #: base (13.5 GB in bf16), the 32 layer inputs the remat keeps (2.1 GB), one
 #: layer's recompute (~1 GB), the f32 logits and their gradient (~2.1 GB)
@@ -1828,11 +1861,13 @@ def train_llama_driver(torch) -> dict:
     at one card shards nothing (as JAX at one device): 7B at b=8, S=1,024,
     LoRA rank 16, LLAMA_DRIVER_STEPS steps, each logged: it exits 0, the
     mesh is one card's and the card holds the whole model, the flash kernels
-    launch LLAMA_LAUNCHES a step, the losses are finite and nothing of the
-    run is left."""
+    launch LLAMA_LAUNCHES a step, the losses are finite, nothing of the run
+    is left, and ``--sample-tokens`` gives two continuations of
+    LLAMA_SAMPLE_TOKENS tokens after ``fit``."""
     args = ["--variant", "7b", "--seq-len", str(LLAMA_SEQ), "--batch-size",
             str(LLAMA_BATCH), "--lora-rank", str(LLAMA_RANK), "--lora-alpha", "16",
-            "--steps", str(LLAMA_DRIVER_STEPS), "--log-every", "1"]
+            "--steps", str(LLAMA_DRIVER_STEPS), "--log-every", "1",
+            "--sample-tokens", str(LLAMA_SAMPLE_TOKENS)]
     run = _driver_run("llama_lora", ROOT / "build" / "chip_smoke_llama_driver", 1, args)
     res = run["result"]
     rec = dict(step_time_ms=res["train"].get("step_time_ms"),
@@ -1852,6 +1887,10 @@ def train_llama_driver(torch) -> dict:
     check(res["flash_launches"] == want,
           f"the llama driver's flash launches {res['flash_launches']}, want {want}")
     check(not run["left"], f"llama driver left {run['left']}")
+    sampled = res.get("sampled") or []
+    check(len(sampled) == 2 and all(len(r) == LLAMA_SAMPLE_TOKENS
+                                    and all(0 <= t < 32000 for t in r) for r in sampled),
+          f"the llama driver's sampled continuations: {sampled}")
     return rec
 
 
@@ -7168,6 +7207,620 @@ def serve_bert(torch, fa, bert, engine_mod) -> dict:
     return rec
 
 
+# -- phase 5d: text generation and the rest of serving, on one card ------------
+
+#: decode's logits vs the training forward's (the port's own, with K1 at S =
+#: 512) over the same tokens, per entry: bf16 activations through 32
+#: pre-norm layers, where decode's shapes (8 rows a projection against
+#: 4,096) change cuBLAS's tiling and so every projection's rounding, and
+#: decode attends with the plain path's f32 softmax against K1's bf16 P
+DECODE_ATOL = 0.25
+#: a greedy token may differ from the forward's argmax only at a position
+#: whose top-2 margin there is below this, as each of the two logits may be
+#: off by DECODE_ATOL
+DECODE_MARGIN = 2 * DECODE_ATOL
+#: the share of checked positions that may be so excused: random weights
+#: give logits of about unit spread over 32,000 tokens, whose top-2 gap is
+#: ~0.2 on average, so near-ties are common; a mismatch at a wider margin
+#: fails the check whatever the share
+DECODE_EXCUSED_SHARE = 0.25
+#: generate: b prompts of SERVE_PROMPT tokens, SERVE_NEW new tokens each
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 128, 128
+#: the ContinuousGenerator: slots, max_cache_len, page size; requests from
+#: clients, each a shared system prompt + a unique suffix
+GEN_SLOTS, GEN_CACHE, GEN_PAGE = 8, 1024, 16
+GEN_REQUESTS, GEN_CLIENTS, GEN_SYSTEM = 32, 8, 64
+GEN_SUFFIX, GEN_NEW = (16, 192), (32, 128)
+#: the planted faults, at the 7B widths cut to FAULT_LAYERS layers; each
+#: must break a check of the serving phase
+SERVE_FAULTS = {
+    "index-reset-skipped": "the prefill's index reset skipped: decode resumes "
+                           "at the bucket's end and attends the pads' K/V",
+    "rope-from-zero": "decode's RoPE at positions 0..T-1 instead of each row's "
+                      "own positions",
+}
+FAULT_LAYERS = 2
+#: new tokens of the swap drill's two waves
+SWAP_NEW = (48, 16)
+#: where the phase runs (the card; a CPU rehearsal of the script sets "cpu")
+SERVE_DEVICE = "cuda"
+
+
+def _plant_serve(fault: str | None):
+    """Plant one of SERVE_FAULTS (None: none) into this process's port;
+    returns the undo."""
+    import torch
+
+    from distributeddeeplearningspark_tpu_torch.models import llama
+    from distributeddeeplearningspark_tpu_torch.serve import generate as gen_mod
+
+    saved = (gen_mod.reset_index, llama.decode_positions)
+    if fault == "index-reset-skipped":
+        gen_mod.reset_index = lambda cache, end: cache
+    elif fault == "rope-from-zero":
+        llama.decode_positions = lambda index, t: torch.arange(
+            t, device=index.device)[None, :].expand(index.shape[0], t)
+    elif fault is not None:
+        raise ValueError(fault)
+
+    def undo():
+        gen_mod.reset_index, llama.decode_positions = saved
+    return undo
+
+
+def _serve_llama_model(torch, llama, layers: int | None = None, **kw):
+    """Llama-2 7B at its published widths (``layers``: cut to that depth),
+    bf16, LoRA rank 16 on wq and wv with B drawn nonzero so the adapters
+    act, random weights from seed 0, on the card."""
+    if layers:
+        kw["num_layers"] = layers
+    model = llama.llama2_7b(device=SERVE_DEVICE, seed=0, lora_rank=16, **kw)
+    cfg = model.cfg
+    check(cfg.hidden_size == 4096 and cfg.num_heads == 32
+          and cfg.intermediate_size == 11008 and cfg.vocab_size == 32000
+          and cfg.num_layers == (layers or 32) and cfg.dtype == torch.bfloat16,
+          f"the serving model is not at Llama-2 7B's widths: {cfg}")
+    gen = torch.Generator(device=SERVE_DEVICE).manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.02, generator=gen)
+    return model.eval()
+
+
+def _forward_logits(torch, model, seqs: list[np.ndarray], rows: int = 8) -> list:
+    """The training forward's f32 logits over each token sequence (the port's
+    own forward, at ``attention_impl="auto"``: K1 on a sequence right-padded
+    to a multiple of 512; the causal mask keeps the pads out of every earlier
+    position), ``rows`` sequences a call; one ``[len, V]`` tensor each."""
+    out = []
+    length = max(512, -(-max(len(s) for s in seqs) // 512) * 512)
+    for i in range(0, len(seqs), rows):
+        chunk = seqs[i:i + rows]
+        ids = np.zeros((len(chunk), length), np.int64)
+        for r, s in enumerate(chunk):
+            ids[r, :len(s)] = s
+        with torch.inference_mode():
+            lg = model({"input_ids": torch.from_numpy(ids).to(SERVE_DEVICE)})
+        out.extend(lg[r, :len(s)].clone() for r, s in enumerate(chunk))
+    return out
+
+
+def _teacher_forced(torch, model, prompts, outputs) -> dict:
+    """Each generated token against the argmax of the training forward's
+    logits over prompt + output: a mismatch is excused only where the
+    forward's top-2 margin is below DECODE_MARGIN, and at most
+    DECODE_EXCUSED_SHARE of the positions may be so excused."""
+    seqs = [np.concatenate([p, o]) for p, o in zip(prompts, outputs)]
+    checked = excused = 0
+    worst = 0.0
+    for p, o, lg in zip(prompts, outputs, _forward_logits(torch, model, seqs)):
+        steps = lg[len(p) - 1:len(p) - 1 + len(o)].float()
+        top2 = torch.topk(steps, 2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        argmax = steps.argmax(-1).cpu().numpy()
+        bad = argmax != o
+        checked += len(o)
+        excused += int(bad.sum())
+        if bad.any():
+            worst = max(worst, float(margin[bad].max()))
+    rec = dict(positions=checked, mismatches=excused,
+               excused_share=excused / max(checked, 1), worst_mismatch_margin=worst)
+    check(worst < DECODE_MARGIN,
+          f"a token differs from the forward's argmax at a top-2 margin of "
+          f"{worst:.3f} >= {DECODE_MARGIN}: {rec}")
+    check(rec["excused_share"] <= DECODE_EXCUSED_SHARE,
+          f"{excused} of {checked} tokens differ from the forward's argmax "
+          f"(share above {DECODE_EXCUSED_SHARE}): {rec}")
+    return rec
+
+
+def _decode_logits_err(torch, model, prompt: np.ndarray, out: np.ndarray,
+                       steps: int = 4) -> float:
+    """max |decode logits - forward logits| at the prefill's last position
+    and the next ``steps`` decode steps, the forward over prompt + output."""
+    from distributeddeeplearningspark_tpu_torch.models.llama import KVCache
+
+    b, t = prompt.shape
+    fwd = _forward_logits(torch, model, list(np.concatenate([prompt, out], 1)))
+    cache = KVCache.zeros(model.cfg, b, max_cache_len=t + out.shape[1], device=SERVE_DEVICE)
+    err = 0.0
+    with torch.inference_mode():
+        lo, cache = model({"input_ids": torch.from_numpy(prompt).long().to(SERVE_DEVICE)},
+                          cache=cache)
+        got = [lo[:, -1]]
+        for j in range(steps):
+            lo, cache = model({"input_ids": torch.from_numpy(out[:, j:j + 1]).long()
+                               .to(SERVE_DEVICE)}, cache=cache)
+            got.append(lo[:, 0])
+    for j, g in enumerate(got):
+        ref = torch.stack([f[t - 1 + j] for f in fwd])
+        err = max(err, float((g.float() - ref.float()).abs().max()))
+    return err
+
+
+def _decode_step_device_ms(torch, model, total: int) -> float:
+    """The device time of one decode step at b=SERVE_B (a cache of
+    ``total`` positions, half full), its launches captured in a CUDA graph
+    and replayed, so the host's cost per launch is not in it: beside the
+    eager step's ms, the host's share of a step."""
+    from distributeddeeplearningspark_tpu_torch.models.llama import KVCache
+
+    cache = KVCache.zeros(model.cfg, SERVE_B, max_cache_len=total, device=SERVE_DEVICE)
+    cache.index.fill_(total // 2)
+    tok = torch.ones(SERVE_B, 1, dtype=torch.long, device=SERVE_DEVICE)
+    with torch.inference_mode():
+        return graph_ms(torch, lambda: model({"input_ids": tok}, cache=cache), 10)
+
+
+def _generate_checks(torch, model, name: str, timed: bool = True) -> dict:
+    """``generate`` at b=SERVE_B: greedy against the training forward (its
+    tokens by teacher forcing, its first 4 steps' logits), eos freezing, a
+    sampled run inside each step's top 40; with ``timed``, prefill ms, ms a
+    decode step, tokens/s and peak memory."""
+    from distributeddeeplearningspark_tpu_torch.models.llama_gen import generate
+    from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(0)
+    vocab = model.cfg.vocab_size
+    prompt = rng.integers(1, vocab, (SERVE_B, SERVE_PROMPT)).astype(np.int64)
+    total = SERVE_PROMPT + SERVE_NEW
+    rec: dict = {"model": name}
+    if timed:
+        generate(model, prompt, max_new_tokens=4, max_cache_len=total)  # warm
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for key, new in (("one", 1), ("all", SERVE_NEW)):
+            t0 = time.perf_counter()
+            out = generate(model, prompt, max_new_tokens=new, max_cache_len=total)
+            torch.cuda.synchronize()
+            rec[key] = (time.perf_counter() - t0) * 1e3
+        rec["prefill_ms"] = rec.pop("one")
+        rec["ms_a_step"] = (rec.pop("all") - rec["prefill_ms"]) / (SERVE_NEW - 1)
+        rec["tokens_per_s"] = SERVE_B / rec["ms_a_step"] * 1e3
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        rec["peak_over_start"] = rec["max_memory_allocated"] - before
+        rec["step_device_ms"] = _decode_step_device_ms(torch, model, total)
+    else:
+        out = generate(model, prompt, max_new_tokens=SERVE_NEW, max_cache_len=total)
+    out = out.cpu().numpy().astype(np.int64)
+    check(out.shape == (SERVE_B, SERVE_NEW) and (out >= 0).all() and (out < vocab).all(),
+          f"{name}: generate's output {out.shape}")
+    before = fa.flash_fwd.launches
+    rec["decode_logits_max_err"] = _decode_logits_err(torch, model, prompt, out)
+    rec["greedy"] = _teacher_forced(torch, model, list(prompt), list(out))
+    rec["teacher_forcing_k1_launches"] = fa.flash_fwd.launches - before
+    check(rec["teacher_forcing_k1_launches"] > 0,
+          f"{name}: the training forward ran no K1")
+    check(rec["decode_logits_max_err"] <= DECODE_ATOL,
+          f"{name}: decode's logits {rec['decode_logits_max_err']:.4f} off the "
+          f"training forward's (tolerance {DECODE_ATOL})")
+    # eos: the first token of row 0 that does not occur before its step
+    row = list(out[0, :16])
+    cut = next(i for i in range(1, 16) if row[i] not in row[:i])
+    eos = int(row[cut])
+    frozen = generate(model, prompt, max_new_tokens=16, max_cache_len=total,
+                      eos_id=eos, pad_id=0).cpu().numpy()
+    want = out[:, :16].copy()
+    for r in range(SERVE_B):
+        hit = np.flatnonzero(want[r] == eos)
+        if hit.size:
+            want[r, hit[0] + 1:] = 0
+    check(np.array_equal(frozen, want), f"{name}: eos did not freeze the rows as "
+          f"greedy + padding: {frozen[:2]} vs {want[:2]}")
+    rec["eos_frozen_rows"] = int(sum((w == eos).any() for w in want))
+    sampled = generate(model, prompt, max_new_tokens=16, max_cache_len=total,
+                       temperature=0.8, top_k=40, seed=0).cpu().numpy().astype(np.int64)
+    seqs = list(np.concatenate([prompt, sampled], 1))
+    outside = 0
+    for r, lg in enumerate(_forward_logits(torch, model, seqs)):
+        steps = lg[SERVE_PROMPT - 1:SERVE_PROMPT + 15].float()
+        kth = torch.topk(steps, 40, dim=-1).values[:, -1]
+        got = steps.gather(1, torch.from_numpy(sampled[r]).to(SERVE_DEVICE)[:, None])[:, 0]
+        outside += int((got < kth - DECODE_MARGIN).sum())
+    rec["sampled_outside_top40"] = outside
+    check(outside == 0, f"{name}: {outside} sampled tokens lie outside their step's "
+          f"top 40 (by more than {DECODE_MARGIN})")
+    return rec
+
+
+def _client_load(gen, requests: list, clients: int) -> dict:
+    """``requests`` (prompt, new tokens) through ``gen`` from ``clients``
+    closed-loop threads (client c sends requests c, c + clients, ...): each
+    request's tokens, TTFT, per-token gaps, the wall time and the largest
+    KV occupancy seen."""
+    n = len(requests)
+    tokens: list = [None] * n
+    ttft, gaps = [0.0] * n, [[] for _ in range(n)]
+    errors: list = []
+    occupancy = [0.0]
+    stop = threading.Event()
+
+    def client(c):
+        try:
+            for i in range(c, n, clients):
+                stamps: list[float] = []
+                t0 = time.perf_counter()
+                out = gen.submit(requests[i][0], requests[i][1],
+                                 stream=lambda _, s=stamps: s.append(time.perf_counter())
+                                 ).result(600)
+                tokens[i] = out
+                ttft[i] = (stamps[0] - t0) * 1e3
+                gaps[i] = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def sample():
+        while not stop.wait(0.05):
+            occupancy[0] = max(occupancy[0], gen.stats().get("kv_page_occupancy") or 0.0)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    sampler = threading.Thread(target=sample, daemon=True)
+    t0 = time.perf_counter()
+    sampler.start()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    stop.set()
+    sampler.join()
+    check(not errors, f"generator client error: {errors[:1]}")
+    check(all(t is not None for t in tokens), "a request got no tokens")
+    for (p, new), t in zip(requests, tokens):
+        check(len(t) == new, f"a request asked {new} tokens and got {len(t)}")
+    flat_gaps = sorted(g for gs in gaps for g in gs)
+    st_ttft = sorted(ttft)
+    return dict(tokens=tokens, wall_s=wall,
+                tokens_per_s=sum(len(t) for t in tokens) / wall,
+                ttft_p50_ms=percentile(st_ttft, 0.5), ttft_p99_ms=percentile(st_ttft, 0.99),
+                token_p50_ms=percentile(flat_gaps, 0.5),
+                token_p99_ms=percentile(flat_gaps, 0.99),
+                kv_occupancy_max=occupancy[0])
+
+
+def _gen_requests(vocab: int, n: int | None = None, seed: int = 0) -> list:
+    """``n`` (default GEN_REQUESTS) requests: a shared system prompt of
+    GEN_SYSTEM tokens + a unique suffix, and their new tokens."""
+    rng = np.random.default_rng(seed)
+    n = n or GEN_REQUESTS
+    system = rng.integers(1, vocab, (GEN_SYSTEM,)).astype(np.int32)
+    return [(np.concatenate([system, rng.integers(1, vocab, (int(rng.integers(
+        GEN_SUFFIX[0], GEN_SUFFIX[1] + 1)),)).astype(np.int32)]),
+             int(rng.integers(GEN_NEW[0], GEN_NEW[1] + 1))) for _ in range(n)]
+
+
+def _paged_share(torch, gen) -> dict:
+    """The assemble + scatter share of a paged decode step at the full pool
+    (every slot's table, positions at the cache's middle), each timed on
+    its own between CUDA events."""
+    tables = torch.arange(1, GEN_SLOTS * gen._pps + 1, device=SERVE_DEVICE,
+                          dtype=torch.long).view(GEN_SLOTS, gen._pps)
+    pos = torch.full((GEN_SLOTS,), GEN_CACHE // 2, dtype=torch.int32, device=SERVE_DEVICE)
+    tok = torch.ones(GEN_SLOTS, dtype=torch.long, device=SERVE_DEVICE)
+    cache = gen.assemble(tables, pos)
+    params = gen._params
+    rec = dict(step_ms=time_ms(torch, lambda: gen._paged_step(params, tables, pos, tok), 10),
+               assemble_ms=time_ms(torch, lambda: gen.assemble(tables, pos), 10),
+               scatter_ms=time_ms(torch, lambda: gen.scatter(cache, tables), 10))
+    rec["assemble_scatter_share"] = (rec["assemble_ms"] + rec["scatter_ms"]) / rec["step_ms"]
+    return rec
+
+
+def _generator_checks(torch, model) -> dict:
+    """The ContinuousGenerator at GEN_SLOTS slots, GEN_CACHE positions,
+    pages of GEN_PAGE: the dense pool, the paged pool without the prefix
+    cache (the same tokens for every request), the paged pool with it
+    (every request held by teacher forcing, a hit for every request after
+    the first), and a swap of the adapters mid-flight."""
+    from distributeddeeplearningspark_tpu_torch.serve.generate import ContinuousGenerator
+
+    cfg = model.cfg
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    requests = _gen_requests(cfg.vocab_size)
+    runs: dict = {}
+    for name, kw in (("dense", {}), ("paged", dict(page_size=GEN_PAGE, prefix_cache=False)),
+                     ("prefix", dict(page_size=GEN_PAGE))):
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gen = ContinuousGenerator(cfg, params, device=SERVE_DEVICE, slots=GEN_SLOTS,
+                                  max_cache_len=GEN_CACHE, max_queue=1024, **kw)
+        with gen:
+            gen.generate(np.arange(1, 40, dtype=np.int32), 2, timeout=600)  # warm
+            load = _client_load(gen, requests, GEN_CLIENTS)
+        st = gen.stats()
+        peak = torch.cuda.max_memory_allocated()
+        load.update(max_memory_allocated=peak, peak_over_start=peak - before,
+                    admitted=st["admitted"], max_active=st["max_active"],
+                    deferred=st["deferred"],
+                    **{k: st.get(k) for k in ("prefix_hits", "prefix_misses",
+                                              "prefix_hit_rate", "prefix_tokens_saved")})
+        check(load["max_active"] == GEN_SLOTS and load["admitted"] == GEN_REQUESTS + 1,
+              f"{name}: no mid-flight joins (admitted {load['admitted']}, max active "
+              f"{load['max_active']})")
+        if name == "paged":
+            load.update(_paged_share(torch, gen))
+        runs[name] = load
+        del gen
+        gc.collect()  # the generator's instrumented calls hold it in a cycle
+        torch.cuda.empty_cache()
+    same = [np.array_equal(a, b) for a, b in zip(runs["dense"]["tokens"],
+                                                 runs["paged"]["tokens"])]
+    check(all(same), f"the paged pool's tokens differ from the dense pool's in "
+          f"{same.count(False)} of {len(same)} requests")
+    pre = runs["prefix"]
+    # admissions run one at a time, so the first request (and the warm-up)
+    # miss and every later request hits the system prompt's pages
+    check(pre["prefix_hits"] == GEN_REQUESTS - 1 and pre["prefix_misses"] == 2,
+          f"the prefix cache did not hit every request after the first: "
+          f"{ {k: v for k, v in pre.items() if k != 'tokens'} }")
+    pre["teacher_forcing"] = _teacher_forced(
+        torch, model, [r[0] for r in requests], pre["tokens"])
+    runs["swap"] = _generator_swap(torch, cfg, params, requests)
+    for r in runs.values():
+        r.pop("tokens", None)
+    return runs
+
+
+def _generator_swap(torch, cfg, params, requests) -> dict:
+    """A swap of the adapters mid-flight: 8 requests admitted and decoding,
+    then ``swap_params`` with every ``lora_b`` redrawn, then 8 more: all 16
+    complete, and the swap flushed the prefix cache (the first admission
+    after it misses)."""
+    from distributeddeeplearningspark_tpu_torch.serve.generate import ContinuousGenerator
+
+    gen = ContinuousGenerator(cfg, params, device=SERVE_DEVICE, slots=GEN_SLOTS,
+                              max_cache_len=GEN_CACHE, page_size=GEN_PAGE)
+    draw = torch.Generator(device=SERVE_DEVICE).manual_seed(2)
+    swapped = {k: (torch.randn(v.shape, generator=draw, device=SERVE_DEVICE) * 0.02
+                   if k.endswith("lora_b") else v) for k, v in params.items()}
+    first = [threading.Event() for _ in range(GEN_SLOTS)]
+    with gen:
+        wave1 = [gen.submit(p, SWAP_NEW[0], stream=lambda _, e=first[i]: e.set())
+                 for i, (p, _) in enumerate(requests[:GEN_SLOTS])]
+        check(all(e.wait(600) for e in first), "wave 1 never streamed")
+        done_at_swap = sum(f.done() for f in wave1)
+        entries = gen.stats()["prefix_entries"]
+        gen.swap_params(swapped)
+        wave2 = [gen.submit(p, SWAP_NEW[1]) for p, _ in requests[GEN_SLOTS:2 * GEN_SLOTS]]
+        outs = [f.result(600) for f in wave1 + wave2]
+    st = gen.stats()
+    rec = dict(done_at_swap=done_at_swap, entries_before=entries,
+               completed=st["completed"], reloads=st["reloads"],
+               prefix_hits=st["prefix_hits"], prefix_misses=st["prefix_misses"])
+    check(done_at_swap == 0 and all(len(o) in SWAP_NEW for o in outs)
+          and st["completed"] == 2 * GEN_SLOTS and st["reloads"] == 1,
+          f"the swap mid-flight dropped or restarted requests: {rec}")
+    check(st["prefix_misses"] == 2 and entries > 0,
+          f"the swap did not flush the prefix cache: {rec}")
+    return rec
+
+
+def _serve_faults(torch, llama) -> dict:
+    """The 7B widths at FAULT_LAYERS layers: the generate checks and a
+    dense generator of 8 requests, held by teacher forcing, pass as they
+    are, and each planted fault breaks one of them."""
+    from distributeddeeplearningspark_tpu_torch.serve.generate import ContinuousGenerator
+
+    model = _serve_llama_model(torch, llama, layers=FAULT_LAYERS)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    requests = [(p[:40 + 8 * i], 24) for i, (p, _) in
+                enumerate(_gen_requests(model.cfg.vocab_size, 8, seed=1))]
+
+    def run():
+        _generate_checks(torch, model, f"{FAULT_LAYERS} layers", timed=False)
+        gen = ContinuousGenerator(model.cfg, params, device=SERVE_DEVICE, slots=4,
+                                  max_cache_len=256)
+        with gen:
+            outs = [f.result(600) for f in [gen.submit(p, n) for p, n in requests]]
+        _teacher_forced(torch, model, [p for p, _ in requests], outs)
+
+    run()
+    out = {}
+    for fault in SERVE_FAULTS:
+        undo = _plant_serve(fault)
+        try:
+            run()
+            broke = None
+        except SmokeFailure as e:
+            broke = str(e)[:200]
+        finally:
+            undo()
+        check(broke is not None, f"the planted fault {fault!r} broke no check")
+        out[fault] = broke
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_cli(args: list[str], timeout: float = 600) -> dict:
+    """``dlserve`` (the port's serve.cli) as a process: its one JSON line."""
+    out = subprocess.run([sys.executable, "-m", f"{PKG}.serve.cli", "--device",
+                          SERVE_DEVICE, *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    check(out.returncode == 0, f"dlserve {args} exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    lines = [x for x in out.stdout.splitlines() if x.startswith("{")]
+    check(len(lines) == 1, f"dlserve printed {len(lines)} JSON lines")
+    return json.loads(lines[0])
+
+
+def _replicas_running() -> set[int]:
+    """Pids of processes running a serving replica."""
+    pids = set()
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                if b"replica_main" in (d / "cmdline").read_bytes():
+                    pids.add(int(d.name))
+            except OSError:
+                continue
+    return pids
+
+
+def serve_drivers(torch) -> dict:
+    """``dlserve`` on the card: a two-replica tinyllama fleet with a rolling
+    reload (0 dropped, each replica on cuda, nothing left, the port's
+    ``dlstatus --fleet-serve`` reads the run), and LeNet under ``--watch``
+    with a newer step committed mid-load (at least one reload)."""
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch.checkpoint import Checkpointer
+    from distributeddeeplearningspark_tpu_torch.models.lenet import LeNet5
+    from distributeddeeplearningspark_tpu_torch.train.state import TrainState
+
+    base = ROOT / "build" / "chip_smoke_serve"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    wd = base / "fleet"
+    fleet = _serve_cli(["--model", "tinyllama", "--replicas", "2", "--rolling-reload",
+                        "--compare-single-replica", "--clients", "8",
+                        "--requests-per-client", "8", "--workdir", str(wd)])
+    ex = fleet["extra"]
+    left = _replicas_running()
+    st = subprocess.run([sys.executable, "-m", f"{PKG}.status", str(wd), "--fleet-serve",
+                         "--json"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    check(st.returncode == 0, f"dlstatus --fleet-serve exited {st.returncode}: "
+          f"{st.stderr[-1000:]}")
+    totals = json.loads(st.stdout)["fleet_serve"]["totals"]
+    rec = {"fleet": dict(requests_per_s=fleet["value"], dropped=ex["requests_dropped"],
+                         failed=ex["requests_failed"], ok=ex["requests_ok"],
+                         latency_p50_ms=ex["latency_p50_ms"],
+                         latency_p99_ms=ex["latency_p99_ms"],
+                         replicas_reloaded=ex["rolling_reload"]["replicas_reloaded"],
+                         replica_devices=ex["replica_devices"],
+                         replica_scaling=ex.get("replica_scaling"),
+                         prefix_hit_rate=ex["prefix"]["hit_rate"],
+                         left=sorted(left), dlstatus_ok=totals["ok"])}
+    check(ex["requests_dropped"] == 0 and ex["requests_failed"] == 0
+          and ex["rolling_reload"]["replicas_reloaded"] == 2
+          and all(d.startswith(SERVE_DEVICE) for d in ex["replica_devices"].values())
+          and not left and totals["ok"] >= ex["requests_ok"],
+          f"the tinyllama fleet: {rec['fleet']}")
+    ck = base / "lenet_ckpt"
+
+    def lenet_state(seed, step):
+        model = LeNet5(device="cpu", seed=seed)
+        return TrainState(step=step, params=dict(model.named_parameters()),
+                          opt_state=[], generator=torch.Generator().manual_seed(0))
+
+    with Checkpointer(ck, async_save=False) as c:
+        c.save(1, lenet_state(0, 1))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.serve.cli", "--device", SERVE_DEVICE,
+         "--model", "lenet",
+         "--checkpoint-dir", str(ck), "--watch", "--watch-interval-s", "0.02",
+         "--compare-sequential", "--max-batch", "4", "--max-queue", "8192",
+         "--clients", "32", "--requests-per-client", "64"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    err: list[str] = []
+    warmed = threading.Event()
+
+    def read_err():
+        for line in proc.stderr:
+            err.append(line)
+            if "warmed" in line:
+                warmed.set()
+
+    reader = threading.Thread(target=read_err, daemon=True)
+    reader.start()
+    try:
+        check(warmed.wait(300), f"dlserve lenet never warmed: {''.join(err)[-2000:]}")
+        with Checkpointer(ck, async_save=False) as c:
+            c.save(2, lenet_state(1, 2))
+        stdout, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(10)
+    check(proc.returncode == 0, f"dlserve lenet --watch exited {proc.returncode}: "
+          f"{''.join(err)[-2000:]}")
+    lenet = json.loads([x for x in stdout.splitlines() if x.startswith("{")][-1])["extra"]
+    rec["lenet"] = {k: lenet[k] for k in ("requests_ok", "requests_shed", "reloads",
+                                          "params_version", "latency_p50_ms",
+                                          "latency_p99_ms", "batching_speedup", "device")}
+    check(lenet["reloads"] >= 1 and lenet["params_version"] == 2
+          and lenet["requests_ok"] == 32 * 64 and lenet["device"].startswith(SERVE_DEVICE),
+          f"dlserve lenet --watch: {rec['lenet']}")
+    print("serve drivers " + json.dumps(rec), flush=True)
+    return rec
+
+
+def serve_llama(torch) -> dict:
+    """Phase 5d: Llama-2 7B decoding on one card — ``generate`` in bf16 and
+    on the int8 base, each against its own training forward; the
+    ContinuousGenerator's dense, paged and prefix-cached pools and a swap
+    mid-flight; the planted faults; then ``dlserve``'s fleet and LeNet
+    runs."""
+    from distributeddeeplearningspark_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    model = _serve_llama_model(torch, llama)
+    rec = {"bf16": _generate_checks(torch, model, "bf16")}
+    print("serve llama generate " + json.dumps(rec["bf16"]), flush=True)
+    rec["generator"] = _generator_checks(torch, model)
+    print("serve llama generator " + json.dumps(rec["generator"]), flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = _serve_llama_model(torch, llama, base_quant="int8")
+    rec["int8"] = _generate_checks(torch, model, "int8")
+    print("serve llama generate " + json.dumps(rec["int8"]), flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["faults"] = _serve_faults(torch, llama)
+    print("serve llama faults " + json.dumps(rec["faults"]), flush=True)
+    rec["drivers"] = serve_drivers(torch)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"serve llama: {rec['seconds']:.1f} s; {nvidia_smi_line()}", flush=True)
+    return rec
+
+
+def serve_main(torch) -> int:
+    """``--serve``: build the kernels, then the Llama driver with its
+    sampling (phase 6b's driver run) and phase 5d alone."""
+    from distributeddeeplearningspark_tpu_torch.ops import _build
+
+    print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    try:
+        t0 = time.perf_counter()
+        _build.build_all()
+        print(f"build: {', '.join(_build.SOURCES)} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        train_llama_driver(torch)
+        serve_llama(torch)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    print(nvidia_smi_line())
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -7217,6 +7870,8 @@ def main() -> int:
         return input_ab_main(torch)
     if sys.argv[1:] == ["--recovery"]:
         return recovery_main(torch)
+    if sys.argv[1:] == ["--serve"]:
+        return serve_main(torch)
     from distributeddeeplearningspark_tpu_torch.models import bert
     from distributeddeeplearningspark_tpu_torch.ops import _build
     from distributeddeeplearningspark_tpu_torch.ops import attention
@@ -7271,6 +7926,7 @@ def main() -> int:
         qlora = train_llama_qlora(torch, fa)
         print_memory_path(llama, qlora)
         moe = train_llama_moe(torch, fa)
+        serve_llama(torch)
         k4 = check_conv_bn(torch, cb)
         resnet = train_resnet(torch, cb)
         k5 = check_scatter_rows(torch, sr)

@@ -11,7 +11,8 @@ with each file's size and CRC32, written atomically (tmp + ``os.replace``);
 ``<step>.corrupt-N``; :func:`latest_step_in`. A restore without an
 explicit step walks back from the newest step to the newest one that
 verifies, quarantining each corrupt step it passes, and raises
-:class:`RestoreError` when none is left.
+:class:`RestoreError` when none is left. :meth:`Checkpointer.restore_params`
+reads a step's params alone (the serving side's restore: :mod:`.serve.reload`).
 
 How the port differs: the files are written into ``<directory>/
 .tmp-<step>/`` and the step is committed by renaming that directory to
@@ -397,6 +398,38 @@ class Checkpointer:
                     data_state = json.load(f)
         logger.info("restored checkpoint step %d from %s", step, self.directory)
         return state, data_state
+
+    def restore_params(self, *, step: int | None = None) -> tuple[dict, int]:
+        """``(params, step)``: the ``params`` of a saved state (name →
+        tensor, on the CPU), without a state template and without
+        materialising the optimizer's state, for a serving process that
+        knows nothing of the optimizer that trained the run (JAX's
+        ``restore_params``, at the layout the step holds: every step holds
+        the whole state). Without ``step``, the newest step that verifies
+        (:func:`verify_step_dir`), walking back past corrupt ones without
+        quarantining them: the serving side reads a directory the training
+        run owns, and renaming its steps is the owner's recovery, not a
+        reader's. An explicit ``step`` is verified but never walked back
+        from (:class:`RestoreError`)."""
+        self.wait()
+        if step is None:
+            step = self.latest_verified_step()
+            if step is None:
+                raise RestoreError(f"no intact checkpoint under {self.directory}")
+        else:
+            ok, reason = verify_step_dir(self._step_dir(step))
+            if not ok:
+                raise RestoreError(
+                    f"requested checkpoint step {step} failed integrity "
+                    f"verification: {reason}")
+        with telemetry.phase("restore", step=int(step)):
+            saved = torch.load(os.path.join(self._step_dir(step), STATE_FILE),
+                               map_location="cpu", weights_only=True, mmap=True)
+            params = {k: v.clone() for k, v in saved["params"].items()}
+        del saved
+        logger.info("restored params of checkpoint step %d from %s", step,
+                    self.directory)
+        return params, int(step)
 
     # -- lifecycle -----------------------------------------------------------
 

@@ -120,9 +120,14 @@ ROADMAP Queue 1 item 5). On one card::
         --variant 7b --seq-len 1024 --batch-size 8 --lora-rank 16 --steps 10 \\
         --base-quant int8 --fused-head-loss
 
-The JAX driver's sampling and the import of real weights (which needs
-their tokenizer) are not ported yet: those flags fail at parse time, each
-naming its ROADMAP item. Rank 0 prints one JSON line: the train summary,
+``--sample-tokens N`` samples after ``fit`` as the JAX driver does (two
+prompts ``arange(8) % vocab``, temperature 0.8, top_k 40, seed 0, through
+:func:`..models.llama_gen.generate` on rank 0's card, the params gathered
+whole first where they are sharded; refused beside ``--pipeline``, ROADMAP
+Queue 1 item 8): rank 0 prints ``sampled continuations: [[...], [...]]``
+and the JSON line carries them as ``sampled``. The import of real weights
+(which needs their tokenizer) is not ported yet: its flags fail at parse
+time, naming their ROADMAP item. Rank 0 prints one JSON line: the train summary,
 where the run went (world size, backend, device, the mesh, the CP
 implementation, the pipeline's microbatches), the number of
 sharded params (on any axis) and of those split over ``tensor`` and over
@@ -147,6 +152,7 @@ import json
 import logging
 import time
 
+import numpy as np
 import torch
 
 from distributeddeeplearningspark_tpu_torch import Checkpointer, Session, Trainer, faults
@@ -163,6 +169,7 @@ from distributeddeeplearningspark_tpu_torch.models.llama import (
     llama_rules,
     lora_trainable,
 )
+from distributeddeeplearningspark_tpu_torch.models.llama_gen import generate
 from distributeddeeplearningspark_tpu_torch.ops import flash_attention as fa
 from distributeddeeplearningspark_tpu_torch.ops import ring_attention, ulysses
 from distributeddeeplearningspark_tpu_torch.parallel import collectives, sharding
@@ -177,7 +184,6 @@ NOT_PORTED = {
                  "and their tokenizer in the repository (models/llama_io.py "
                  "reads them): ROADMAP Queue 1 item 5",
     "--tokenizer": "the HF tokenizer adapter: ROADMAP Queue 1 item 5",
-    "--sample-tokens": "models/llama_gen.py: ROADMAP Queue 1 item 8",
 }
 VARIANTS = {"7b": LlamaConfig.llama2_7b, "13b": LlamaConfig.llama2_13b}
 
@@ -237,6 +243,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused-head-loss", action="store_true",
                    help="fuse the LM head into a chunked-vocab loss: the [B, S, V] "
                         "f32 logits never materialize (train/fused_ce.py)")
+    p.add_argument("--sample-tokens", type=int, default=0,
+                   help="after training, sample this many tokens from two "
+                        "prompts (KV-cached decode, models/llama_gen.py)")
     add_checkpoint_flags(p)
     add_not_ported(p, NOT_PORTED)
     return p
@@ -269,6 +278,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     elif args.moe_group:
         p.error("--moe-group only applies to the MoE router; add "
                 "--moe-experts or drop it")
+    if args.sample_tokens and args.pipeline > 1:
+        p.error("--sample-tokens with --pipeline: the stages hold the layers, "
+                "and generation runs on one card (ROADMAP Queue 1 item 8)")
     if args.base_quant and not args.lora_rank:
         p.error("--base-quant requires --lora-rank > 0 (the quantized base "
                 "is frozen; adapters carry the training)")
@@ -392,6 +404,26 @@ def card_record(trainer: Trainer, launches: dict) -> dict:
     }
 
 
+def sample_continuations(trainer: Trainer, tokens: int) -> list | None:
+    """JAX's sampling after ``fit``: two prompts ``arange(8) % vocab``,
+    temperature 0.8, top_k 40, seed 0, ``tokens`` new tokens each. Every
+    rank gathers the whole params (a collective where they are sharded);
+    rank 0 generates on its card, with a one-card model holding them where
+    the trainer's model is sharded. None on the other ranks."""
+    model = trainer.model
+    whole = {n: sharding.full(p) for n, p in model.named_parameters()}
+    if trainer.session.rank != 0:
+        return None
+    if any(sharding.is_sharded(p) for p in model.parameters()):
+        model = LlamaForCausalLM(model.cfg, device=trainer.device)
+        model.load_state_dict(whole)
+    vocab = model.cfg.vocab_size
+    prompt = np.tile(np.arange(8, dtype=np.int64)[None] % vocab, (2, 1))
+    out = generate(model.eval(), prompt, max_new_tokens=tokens, temperature=0.8,
+                   top_k=40, seed=0)
+    return out.cpu().tolist()
+
+
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
@@ -438,6 +470,10 @@ def main(argv: list[str] | None = None) -> None:
                 cp_bytes_sent=sum(op.bytes_sent for op in cp_ops) - cp_before)
     by_rank = collectives.all_gather_object(card)
     sanitize.assert_replicas_in_sync(state.params, what="replicated params")
+    sampled = (sample_continuations(trainer, args.sample_tokens)
+               if args.sample_tokens else None)
+    if sampled is not None:
+        print("sampled continuations:", sampled, flush=True)
     if spark.rank == 0:
         print(json.dumps({
             "train": summary, "step": state.step, "restored_step": restored_step,
@@ -461,6 +497,7 @@ def main(argv: list[str] | None = None) -> None:
             "max_memory_allocated": by_rank[0]["max_memory_allocated"],
             "init_s": init_s,
             "by_rank": by_rank, "replicas_checked": spark.world_size > 1,
+            "sampled": sampled,
         }), flush=True)
     if ckpt:
         ckpt.close()

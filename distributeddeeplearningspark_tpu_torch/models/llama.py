@@ -108,9 +108,24 @@ does (:func:`..train.fused_ce.materialize_logits`). The ``Trainer``
 refuses it where the head's weight is sharded (over ``fsdp`` or
 ``tensor``: ROADMAP Queue 1 item 5).
 
-Not ported yet, and refused by name: decoding with a KV cache (item 8),
-and MoE under context parallelism (its routing groups span whole
-sequences, item 6).
+Decoding with a KV cache (JAX's ``decode`` mode, :mod:`.llama_gen`): the
+cache is explicit state, a :class:`KVCache` (``k`` and ``v`` ``[L, B,
+max_cache_len, nkv, hd]`` in the compute dtype, ``index`` ``[B]`` int32),
+which ``forward(batch, cache=...)`` takes and returns beside the logits
+(``cfg.decode`` makes a zero cache of ``cfg.max_cache_len`` when none is
+given). Each call applies RoPE at every row's own positions ``index[:,
+None] + arange(T)``, writes its T new K/V there (in place, one
+``index_put_`` a layer, the start clamped as JAX's ``dynamic_update_slice``
+clamps it), attends over the whole cache under ``kpos <= qpos`` with the
+plain attention (JAX's ``impl="xla"``: no kernel lies on this path) and
+returns the cache with ``index`` advanced by T. Prefill (T = the prompt) and
+a decode step (T = 1) are one path. Decode refuses an attention mask and
+``segment_ids`` in JAX's words, skips the fused head and the MoE terms, and
+keeps the adapters and the int8 base; a tensor-split layer or a pipeline
+refuses it (ROADMAP Queue 1 item 8's remainder).
+
+Not ported yet, and refused by name: MoE under context parallelism (its
+routing groups span whole sequences, item 6).
 """
 
 from __future__ import annotations
@@ -177,8 +192,11 @@ class LlamaConfig:
     fused_head_loss: bool = False
     #: "int8": the projections' frozen base stored int8 with f32 scales
     base_quant: str | None = None
-    # the JAX config's option the port refuses (LlamaForCausalLM)
+    #: KV-cached decoding (:mod:`.llama_gen`): forward takes and returns a
+    #: :class:`KVCache`, made here at ``max_cache_len`` (None: max_position)
+    #: when the caller gives none
     decode: bool = False
+    max_cache_len: int | None = None
 
     @property
     def head_dim(self) -> int:
@@ -232,19 +250,90 @@ def positions(s_local: int, device, impl: str) -> torch.Tensor:
     return torch.arange(start, start + s_local, device=device)[None, :]
 
 
+def decode_positions(index: torch.Tensor, t: int) -> torch.Tensor:
+    """The RoPE positions ``[B, T]`` of a decode call's T tokens: each row
+    from its own cache index."""
+    return index[:, None].long() + torch.arange(t, device=index.device)[None, :]
+
+
+@dataclasses.dataclass
+class KVCache:
+    """The decode state (JAX's ``cache`` collection, its scanned layers
+    stacked): ``k``/``v`` ``[L, B, max_cache_len, nkv, hd]`` in the compute
+    dtype, ``index`` ``[B]`` int32, each row's next write position. A
+    forward writes ``k``/``v`` in place and returns the cache with a new
+    ``index``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    index: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg: LlamaConfig, batch: int, *, max_cache_len: int | None = None,
+              device=None) -> "KVCache":
+        n = max_cache_len or cfg.max_cache_len or cfg.max_position
+        shape = (cfg.num_layers, batch, n, cfg.num_kv_heads, cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=cfg.dtype, device=device),
+                   torch.zeros(shape, dtype=cfg.dtype, device=device),
+                   torch.zeros(batch, dtype=torch.int32, device=device))
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+
+@dataclasses.dataclass
+class DecodeCall:
+    """What every layer of one decode call shares, made once a forward from
+    the cache's ``index`` and the call's T tokens: RoPE's ``cos``/``sin`` at
+    each row's positions (:func:`decode_positions`), where each row's T new
+    K/V go (``rows`` ``[B, 1]``, ``at`` ``[B, T]``: from the row's index,
+    clamped to ``max_len - T`` as JAX's ``dynamic_update_slice`` clamps),
+    and the ``attend`` mask ``[B, 1, T, max_len]``, ``kpos <= qpos``."""
+
+    cos: torch.Tensor
+    sin: torch.Tensor
+    rows: torch.Tensor
+    at: torch.Tensor
+    attend: torch.Tensor
+
+    @classmethod
+    def make(cls, index: torch.Tensor, t: int, max_len: int, head_dim: int,
+             theta: float) -> "DecodeCall":
+        device = index.device
+        arange_t = torch.arange(t, device=device)
+        qpos = index.long()[:, None] + arange_t[None, :]
+        start = index.long().clamp(0, max(max_len - t, 0))
+        kpos = torch.arange(max_len, device=device)[None, None, None, :]
+        return cls(*rope_angles(decode_positions(index, t), head_dim, theta),
+                   rows=torch.arange(index.shape[0], device=device)[:, None],
+                   at=start[:, None] + arange_t[None, :],
+                   attend=kpos <= qpos[:, None, :, None])
+
+
+def rope_angles(positions: torch.Tensor, d: int, theta: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RoPE's ``(cos, sin)`` ``[B or 1, S, 1, D/2]`` f32 at ``positions``
+    ``[B or 1, S]`` for head dim ``d``."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                             device=positions.device) / d))
+    angles = positions.float()[..., None] * inv_freq              # [B,S,D/2]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """RoPE on [B,S,H,D] in f32 from :func:`rope_angles`, half-split
+    (rotate-half) convention."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,
                      theta: float) -> torch.Tensor:
     """RoPE on [B,S,H,D] in f32, half-split (rotate-half) convention;
     ``positions`` [B or 1, S]."""
-    d = x.shape[-1]
-    inv_freq = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
-                                             device=x.device) / d))
-    angles = positions.float()[..., None] * inv_freq              # [B,S,D/2]
-    cos = torch.cos(angles)[:, :, None, :]                        # [B,S,1,D/2]
-    sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return apply_rope(x, *rope_angles(positions, x.shape[-1], theta))
 
 
 class RMSNorm(nn.Module):
@@ -378,12 +467,19 @@ class LlamaAttention(nn.Module):
         self.wv = _proj(cfg, "wv", h, cfg.num_kv_heads * hd, device)
         self.wo = _proj(cfg, "wo", cfg.num_heads * hd, h, device)
 
-    def forward(self, x, mask, segment_ids=None):
+    def forward(self, x, mask, segment_ids=None, kv=None):
+        """``kv``: decode mode's ``(k, v, call)``, this layer's cache
+        ``[B, max_cache_len, nkv, hd]`` (views written in place) and the
+        call's :class:`DecodeCall`."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
         heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
         split = _block_split((self.wq, self.wk, self.wv), self.wo)
+        if split is not None and kv is not None:
+            raise NotImplementedError(
+                "decode with tensor-split projections (generation with "
+                "tensor-sharded params): ROADMAP Queue 1 item 8")
         if split is not None:
             if heads % split.size or kv_heads % split.size:
                 raise ValueError(
@@ -395,14 +491,40 @@ class LlamaAttention(nn.Module):
         q = self.wq(x).view(b, s, heads, hd)
         k = self.wk(x).view(b, s, kv_heads, hd)
         v = self.wv(x).view(b, s, kv_heads, hd)
-        pos = positions(s, x.device, cfg.attention_impl)
-        q = rotary_embedding(q, pos, cfg.rope_theta)
-        k = rotary_embedding(k, pos, cfg.rope_theta)
-        y = dot_product_attention(q, k, v, mask=mask, causal=True,
-                                  segment_ids=segment_ids,
-                                  impl=cfg.attention_impl)
+        if kv is not None:
+            if mask is not None:
+                raise ValueError(
+                    "decode mode has no padding-mask support: the KV cache "
+                    "assumes equal-length prompts (drop attention_mask and "
+                    "bucket/pad prompts to one length upstream)")
+            if segment_ids is not None:
+                raise ValueError(
+                    "decode mode does not take segment_ids (generation is "
+                    "one document per row)")
+            y = self._decode_attend(q, k, v, *kv)
+        else:
+            pos = positions(s, x.device, cfg.attention_impl)
+            q = rotary_embedding(q, pos, cfg.rope_theta)
+            k = rotary_embedding(k, pos, cfg.rope_theta)
+            y = dot_product_attention(q, k, v, mask=mask, causal=True,
+                                      segment_ids=segment_ids,
+                                      impl=cfg.attention_impl)
         out = self.wo(y.reshape(b, s, heads * hd))
         return out if split is None else collectives.all_reduce_forward(out, split.group)
+
+    def _decode_attend(self, q, k, v, ck, cv, call: "DecodeCall"):
+        """JAX's ``_decode_attend``: RoPE at each row's own positions, the T
+        new K/V written at each row's index, then q over the whole cache
+        under ``kpos <= qpos``, the plain attention (:class:`DecodeCall`
+        holds the positions). Rows never see each other's stale cache: the
+        mask bounds each at its own position, and every step writes before
+        it attends."""
+        q = apply_rope(q, call.cos, call.sin)
+        k = apply_rope(k, call.cos, call.sin)
+        ck[call.rows, call.at] = k.to(ck.dtype)
+        cv[call.rows, call.at] = v.to(cv.dtype)
+        return dot_product_attention(q, ck, cv, mask=call.attend, causal=False,
+                                     impl="xla")
 
 
 class LlamaMLP(nn.Module):
@@ -442,8 +564,8 @@ class DecoderLayer(nn.Module):
         else:
             self.mlp = LlamaMLP(cfg, device)
 
-    def forward(self, x, mask, segment_ids=None):
-        x = x + self.attention(self.attention_norm(x), mask, segment_ids)
+    def forward(self, x, mask, segment_ids=None, kv=None):
+        x = x + self.attention(self.attention_norm(x), mask, segment_ids, kv)
         if hasattr(self, "moe"):
             y, sums = self.moe.forward_sums(self.mlp_norm(x))
             return x + y, sums
@@ -462,12 +584,6 @@ class ElsewhereLayer(nn.Module):
 
     def forward(self, *args):
         raise RuntimeError(f"layer {self.index} lies on pipeline stage {self.stage}")
-
-
-#: the flax config's options the port refuses → their ROADMAP item
-_NOT_PORTED = {
-    "decode": "KV-cached decoding (models/llama_gen.py): ROADMAP Queue 1 item 8",
-}
 
 
 class LlamaForCausalLM(nn.Module):
@@ -496,10 +612,6 @@ class LlamaForCausalLM(nn.Module):
                 f"moe_experts under attention_impl={cfg.attention_impl!r}: the "
                 f"routing groups span whole sequences, and a context-parallel "
                 f"rank holds a block of each: ROADMAP Queue 1 item 6")
-        for field, why in _NOT_PORTED.items():
-            if getattr(cfg, field):
-                raise NotImplementedError(f"LlamaConfig.{field} is not ported "
-                                          f"yet ({why})")
         self.cfg = cfg
         h = cfg.hidden_size
         self.token_embed = nn.Embedding(cfg.vocab_size, h, dtype=cfg.param_dtype,
@@ -519,11 +631,15 @@ class LlamaForCausalLM(nn.Module):
         self.pipe = None
 
     def forward(self, batch: dict[str, torch.Tensor],
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, *,
+                cache: KVCache | None = None):
         """``generator`` is taken for the Trainer's call and unused: Llama-2
         has no dropout. The logits, or with MoE in training or with
-        ``fused_head_loss`` the dict the module docstring names."""
+        ``fused_head_loss`` the dict the module docstring names. With a
+        ``cache`` (or ``cfg.decode``): decode mode, ``(logits, cache)``."""
         del generator
+        if cache is not None or self.cfg.decode:
+            return self._decode(batch, cache)
         if self.pipe is not None:
             return self.pipe.forward(self, batch)
         cfg = self.cfg
@@ -549,7 +665,7 @@ class LlamaForCausalLM(nn.Module):
                 x, layer_sums = x
                 sums.append(layer_sums)
         x = self.final_norm(x)
-        if cfg.fused_head_loss and not cfg.decode:
+        if cfg.fused_head_loss:
             # for losses.causal_lm_fused: the [B, S, V] logits never exist
             out = {"hidden": x, "lm_head": self._head_weight()}
             if cfg.moe_experts and self.training:
@@ -560,6 +676,32 @@ class LlamaForCausalLM(nn.Module):
             # eval and predict take plain logits, as the flax model gives them
             return logits
         return {"logits": logits, **self._moe_terms(sums)}
+
+    def _decode(self, batch: dict[str, torch.Tensor], cache: KVCache | None
+                ) -> tuple[torch.Tensor, KVCache]:
+        """Decode mode: the T tokens of ``input_ids`` [B, T] appended at each
+        row's cache index; f32 logits ``[B, T, V]`` and the cache advanced by
+        T. No fused head and no MoE terms (JAX's decode returns logits)."""
+        if self.pipe is not None:
+            raise NotImplementedError(
+                "decode on a pipeline (its stages hold the layers): ROADMAP "
+                "Queue 1 item 8")
+        cfg = self.cfg
+        ids = batch["input_ids"]
+        if cache is None:
+            cache = KVCache.zeros(cfg, ids.shape[0], device=ids.device)
+        x = self._embed(ids)
+        mask = batch.get("attention_mask")
+        mask = padding_mask(mask) if mask is not None else None
+        segment_ids = batch.get("segment_ids")
+        call = DecodeCall.make(cache.index, ids.shape[1], cache.max_len, cfg.head_dim,
+                               cfg.rope_theta)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, mask, segment_ids, (cache.k[i], cache.v[i], call))
+            if cfg.moe_experts:
+                x = x[0]
+        logits = self._head(self.final_norm(x))
+        return logits, dataclasses.replace(cache, index=cache.index + ids.shape[1])
 
     def _moe_terms(self, sums: list) -> dict[str, torch.Tensor]:
         """The weighed load-balance loss and the dropped share from the

@@ -13,7 +13,8 @@ Params are an argument, not a constant: the forward is ``f(params, batch)``
 ``torch.func.functional_call`` under ``torch.inference_mode()``), so
 :meth:`~InferenceEngine.swap_params` replaces the params between batches
 and a batch in flight keeps the params it was dispatched with — zero
-dropped requests across a swap.
+dropped requests across a swap. :meth:`~InferenceEngine.export_params` is
+the fleet's peer warm-up export (:mod:`.fleet`).
 
 When the queue holds ``max_queue`` requests, :meth:`~InferenceEngine.submit`
 fails fast with :class:`OverloadedError`. With a ``workdir`` every request
@@ -89,6 +90,31 @@ def _map_tensors(fn, tree):
     return tree
 
 
+def host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as host numpy, bf16 (which numpy lacks) as f32, exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def conform(new, old, device: torch.device):
+    """``new``'s array leaves (tensors or numpy, as a peer's export or a
+    checkpoint gives them) as tensors on ``device``, each in the dtype of
+    ``old``'s tensor at the same place, where there is one."""
+    if isinstance(new, dict):
+        return {k: conform(v, old.get(k) if isinstance(old, dict) else None, device)
+                for k, v in new.items()}
+    if isinstance(new, (list, tuple)):
+        olds = old if isinstance(old, (list, tuple)) and len(old) == len(new) \
+            else [None] * len(new)
+        return type(new)(conform(v, o, device) for v, o in zip(new, olds))
+    if isinstance(new, (np.ndarray, np.generic)):
+        new = torch.from_numpy(np.array(new))
+    if isinstance(new, torch.Tensor):
+        dtype = old.dtype if isinstance(old, torch.Tensor) else new.dtype
+        return new.to(device=device, dtype=dtype)
+    return new
+
+
 def _row(tree, i: int):
     """Row ``i`` of every array leaf of a host tree."""
     if isinstance(tree, dict):
@@ -126,7 +152,7 @@ class InferenceEngine:
         self.batch_sizes = default_buckets(self.max_batch)
         self._tele = telemetry.configure(workdir) if workdir else None
         self._forward = forward
-        self._params = self._to_device(params)
+        self._params = conform(params, None, self.device)
         self.params_version: int | str = 0
         self._queue: list[_Request] = []
         self._cond = threading.Condition()
@@ -248,8 +274,9 @@ class InferenceEngine:
 
         The swap is a reference assignment under the queue lock; the worker
         reads the params once per batch, so a dispatched batch finishes on
-        the params it started with."""
-        params = self._to_device(params)
+        the params it started with. Numpy leaves (a peer's export) become
+        tensors in the dtype of the leaf they replace."""
+        params = conform(params, self._params, self.device)
         with self._cond:
             self._params = params
             self._stats["reloads"] += 1
@@ -258,10 +285,19 @@ class InferenceEngine:
             elif isinstance(self.params_version, int):
                 self.params_version += 1
 
-    # -- worker --------------------------------------------------------------
+    def export_params(self) -> tuple[Any, int | str]:
+        """Host snapshot of the serving params, ``(tree, version)``: the
+        peer warm-up export (a relaunched replica imports it through
+        :meth:`swap_params` instead of reading the checkpoint directory).
+        The tree and its version are taken under one lock hold, from the
+        same swap; the leaves come back as numpy (bf16 as f32, exactly),
+        since they cross a process boundary by pickle."""
+        with self._cond:
+            params = self._params
+            version = self.params_version
+        return _map_tensors(host_numpy, params), version
 
-    def _to_device(self, tree):
-        return _map_tensors(lambda t: t.to(self.device), tree)
+    # -- worker --------------------------------------------------------------
 
     def _bucket(self, n: int) -> int:
         return next(b for b in self.batch_sizes if b >= n)

@@ -19,6 +19,10 @@ from typing import Any, Iterable
 #: the event kind span records ride the stream under
 SPAN_KIND = "span"
 
+#: cap on the per-token timeline a decode span keeps in its attrs (a 16k-
+#: token generation must not make one span record a megabyte)
+MAX_TOKEN_TIMELINE = 256
+
 
 def new_trace_id() -> str:
     return os.urandom(8).hex()
@@ -76,14 +80,32 @@ class SpanBuffer:
                 pass
         return default
 
+    def context(self, parent_id: str | None = None) -> dict[str, str]:
+        """The trace context to hand the next layer down (the router's to
+        its replicas)."""
+        ctx = {"trace_id": self.trace_id}
+        if parent_id or self.parent_id:
+            ctx["parent_id"] = parent_id or self.parent_id
+        return ctx
+
     def add(self, name: str, t0: float, t1: float | None, *,
-            parent_id: str | None = None, **attrs: Any) -> str:
-        sid = new_span_id()
+            parent_id: str | None = None, span_id: str | None = None,
+            **attrs: Any) -> str:
+        """Append one span (``span_id``: a pre-minted id, as the router's
+        root whose children it names before the root closes)."""
+        sid = span_id or new_span_id()
         self.records.append(span(
             self.trace_id, sid, name, t0, t1,
             parent_id=parent_id if parent_id is not None else self.parent_id,
             **attrs))
         return sid
+
+    def flush(self, writer) -> None:
+        """Write every span collected with ONE ``emit_many`` (a crash loses
+        at most the request being reported) and empty the buffer."""
+        if writer is not None and self.records:
+            writer.emit_many(SPAN_KIND, self.records)
+        self.records = []
 
 
 # -- reader (the JAX package's folds, copied) -----------------------------------

@@ -73,7 +73,9 @@ print(json.dumps({{"modules": names, "loaded": sorted(sys.modules)}}))
                 "telemetry.series", "status", "utils.profiling", "utils.kineto",
                 "utils.memory", "parallel.mpmd", "train.pipeline_trainer",
                 "examples.train_llama_mpmd", "parallel.pipeline", "models.llama_pp",
-                "parallel.plan"}
+                "parallel.plan", "models.llama_gen", "serve.generate", "serve.kv",
+                "serve.reload", "serve.router", "serve.fleet", "serve.cli",
+                "examples.serve_mnist"}
     got = {n.split(".", 1)[1] for n in rec["modules"]}
     assert expected <= got, expected - got
     bad = [m for m in rec["loaded"] if _forbidden(m)]

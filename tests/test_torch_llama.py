@@ -292,21 +292,19 @@ _BUILT = None
     pytest.param(dict(moe_experts=4, fused_head_loss=True), _BUILT,
                  id="moe_experts-4-fused_head_loss-True"),
     pytest.param(dict(base_quant="int8"), _BUILT, id="base_quant-int8"),
-    pytest.param(dict(decode=True), (NotImplementedError, "ROADMAP Queue 1 item"),
-                 id="decode-True"),
+    pytest.param(dict(decode=True), _BUILT, id="decode-True"),
     pytest.param(dict(fused_head_loss=True), _BUILT, id="fused_head_loss-True"),
     pytest.param(dict(attention_impl="ring", moe_experts=4),
                  (NotImplementedError, "ROADMAP Queue 1 item"),
                  id="attention_impl-ring-moe_experts-4"),
-    pytest.param(dict(attention_impl="ulysses", decode=True),
-                 (NotImplementedError, "ROADMAP Queue 1 item"),
+    pytest.param(dict(attention_impl="ulysses", decode=True), _BUILT,
                  id="attention_impl-ulysses-decode-True")])
 def test_model_refuses_what_is_not_ported(fields, refusal):
-    """What the port lacks raises by name, also beside ring and Ulysses
-    attention (context parallelism is ported) and beside MoE, and MoE
-    under context parallelism. The fused head loss (with MoE too) and the
-    int8 base are ported and build (``test_torch_fused_ce.py``,
-    ``test_torch_qlora.py``)."""
+    """What the port lacks raises by name: MoE under context parallelism.
+    The fused head loss (with MoE too), the int8 base and the decode mode
+    (beside Ulysses too: decode attends with the plain path) are ported and
+    build (``test_torch_fused_ce.py``, ``test_torch_qlora.py``,
+    ``test_torch_llama_gen.py``)."""
     if refusal is _BUILT:
         model = tllama.LlamaForCausalLM(_tcfg(**fields), device="cpu")
         assert all(getattr(model.cfg, k) == v for k, v in fields.items())
@@ -521,9 +519,9 @@ def test_driver_trains_through_the_cli_on_the_cpu(tmp_path):
     (["--seq-parallel", "2", "--pipeline", "2"], "session"),
     (["--microbatches", "2"], None), (["--moe-experts", "4", "--microbatches", "2"], None),
     (["--moe-experts", "4", "--moe-group", "8", "--fused-head-loss"], None),
-    (["--moe-experts", "4", "--expert", "2", "--sample-tokens", "8"], "parse"),
+    (["--moe-experts", "4", "--expert", "2", "--sample-tokens", "8"], None),
     (["--base-quant", "int8"], None), (["--fused-head-loss"], None),
-    (["--sample-tokens", "8"], "parse"),
+    (["--sample-tokens", "8"], None),
     (["--seq-parallel", "2", "--moe-experts", "4", "--expert", "2", "--weights", "w"],
      "parse"),
     (["--tensor", "2", "--pipeline", "2"], None),
@@ -532,9 +530,9 @@ def test_driver_trains_through_the_cli_on_the_cpu(tmp_path):
     (["--seq-parallel", "2", "--cp-impl", "ulysses", "--pipeline", "2"], "session")])
 def test_driver_refuses_what_is_not_ported(flag, refused, capsys, monkeypatch):
     """What the port has not ported fails at parse time naming its ROADMAP
-    item; the pipeline's flags, the int8 base and the fused head are ported
-    and parse, and the session refuses the pipeline beside context
-    parallelism naming Queue 1 item 10."""
+    item; the pipeline's flags, the int8 base, the fused head and the
+    sampling after fit are ported and parse, and the session refuses the
+    pipeline beside context parallelism naming Queue 1 item 10."""
     if refused == "parse":
         with pytest.raises(SystemExit) as e:
             tdriver.parse_args(["--variant", "tiny", *flag])
