@@ -202,6 +202,26 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    steps with ``--profile-dir --mfu --tensorboard-dir``: its window's
    breakdown holds the ``k4`` family at 27 launches a step and its MFU is
    finite; whether the TensorBoard writer ran is printed;
+12b. "files", configs 2 and 3 trained from data on disk (every number
+   printed beside the card's name and power limit): (a) the host (C++)
+   kernels of ``utils/native.py``, built by ``g++`` from the checkout's
+   ``csrc/dls_*.cc``, each against its numpy plain version at the record
+   path's shapes on this machine's host, timed both ways, and the
+   committed JPEG fixtures (``tests/fixtures/jpeg``) decoded bitwise as the
+   JAX package's decoder decoded them; (b) ResNet-50 at full width through
+   the port's driver and cli at ``local[1]``: a tree of 1,024 JPEGs copied
+   from the fixtures, ``--data-dir --materialize-records R --record-px
+   256``, then ``--records-dir R --optimizer lars --eval-dir`` 20 steps
+   at b=256 over W workers, beside phase 12's synthetic driver run:
+   27 K4 launches a step, finite and falling losses, a finite top-1/top-5
+   evaluation; step ms and the wait for input of both, and the loop's own
+   ms a step with its input ready; (c) the host's images/s (not the
+   card's) of the JPEG, record and batched fused feeds at b=256, at 0 and
+   W workers, the same bytes at both counts; (d) the port's BERT-base
+   driver (``examples/train_bert.py``) through the cli, 6
+   steps at S=512, b=32 (at its default S=128 the attention gate keeps
+   K1–K3 off) with ``--token-stats`` from a corpus file and from an XML
+   dump: finite losses, K1, K2 and K3 12 times a step;
 13. hold global BatchNorm statistics on the card: ResNet-50 at b=256 as
    the two halves of a batch, one process each on this card, summing
    their statistics and their gradients through a gloo group as
@@ -345,7 +365,7 @@ bitwise (``--gang llama-zero`` and ``llama-mpmd-zero`` run these alone).
 combine), ``--gang llama-mpmd-stages`` (e)–(h) and the driver only (with
 its own (b) run), ``--gang recovery`` the shrink, the drain and the desync only.
 ``python3 chip_smoke.py --recovery`` builds the kernels and runs phases 11
-and 14 only (one card); ``--observe`` builds them and runs phases 5 and 6b
+and 14 only (one card); ``--files`` builds them and runs phase 12b only; ``--observe`` builds them and runs phases 5 and 6b
 and the observed ResNet driver only (one card). ``python3 chip_smoke.py --ckpt-commit TREE``
 measures the supervised crash drill's race with TREE's package (one card):
 how long the LeNet checkpoint's asynchronous write takes to commit against
@@ -7821,6 +7841,403 @@ def serve_main(torch) -> int:
     return 0
 
 
+# -- phase 12b: configs 2 and 3 trained from files ("files") --------------------
+
+#: the committed baseline JPEGs (four classes, two images each) and their
+#: decodes by the JAX package's native decoder, made beside them by
+#: ``tests/fixtures/jpeg/make_fixtures.py``
+FIXTURES = ROOT / "tests" / "fixtures" / "jpeg"
+FILES_ROOT = ROOT / "build" / "chip_smoke_files"
+#: copies of each fixture in the train tree (8 × 128 = 1,024 JPEGs over the
+#: four classes) and in the eval tree (64 JPEGs)
+FILES_COPIES, FILES_EVAL_COPIES = 128, 8
+#: ResNet-50's steps from records and their logging interval
+FILES_STEPS, FILES_LOG_EVERY = 20, 5
+#: the BERT-base driver's steps from a corpus and from a dump, at S=512 and
+#: b=32: at the driver's default S=128 the attention gate (the JAX
+#: package's: S at least FLASH_MIN_SEQ and a multiple of 512) takes the
+#: plain path, and K1–K3 do not run
+FILES_BERT_STEPS, FILES_BERT_LOG_EVERY = 6, 2
+FILES_BERT_SEQ, FILES_BERT_BATCH = 512, 32
+#: the native kernels against their numpy plain versions: the JAX package's
+#: own tests' tolerances (a resize rounds its intermediate frame differently)
+NATIVE_RTOL, NATIVE_RESIZE_RTOL = 1e-6, 1e-5
+
+
+def _with_plain(fn):
+    """``fn()`` on the native kernels' numpy plain versions."""
+    from distributeddeeplearningspark_tpu_torch.utils import native
+
+    os.environ[native.DISABLE_ENV] = "1"
+    try:
+        return fn()
+    finally:
+        os.environ.pop(native.DISABLE_ENV, None)
+
+
+def _host_ms(fn, iters: int = 3) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _rel_err(got, want) -> float:
+    want = np.asarray(want, np.float32)
+    return float(np.abs(np.asarray(got, np.float32) - want).max()
+                 / max(float(np.abs(want).max()), 1e-12))
+
+
+def check_native() -> dict:
+    """(a) The host (C++) kernels of ``utils/native.py``, built from the
+    checkout's ``csrc/dls_*.cc`` by ``g++``: each against its numpy plain
+    version at the record path's shapes (b = 256 frames of 256 × 320,
+    224² crops) on this machine's host, timed both ways; the fixtures
+    decoded bitwise as the JAX package's decoder decoded them."""
+    from distributeddeeplearningspark_tpu_torch.data import vision
+    from distributeddeeplearningspark_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    check(native.available(), "the native library did not load")
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    mean, std = vision.IMAGENET_MEAN, vision.IMAGENET_STD
+    cases: dict[str, dict] = {}
+
+    def case(name, run, tol, compare=None):
+        got = run()
+        want = _with_plain(run) if compare is None else compare()
+        err = _rel_err(got, want)
+        cases[name] = dict(rel_err=err, tol=tol, native_ms=_host_ms(run),
+                           plain_ms=_with_plain(lambda: _host_ms(run, 1))
+                           if compare is None else None)
+        check(err <= tol, f"native {name}: relative error {err} over {tol}")
+
+    frames = rng.integers(0, 256, (256, 256, 320, 3), dtype=np.uint8)
+    ys = rng.integers(0, 256 - 224 + 1, 256).astype(np.int32)
+    xs = rng.integers(0, 320 - 224 + 1, 256).astype(np.int32)
+    flips = (rng.random(256) < 0.5).astype(np.uint8)
+    case("crop_flip_normalize_batch", lambda: native.crop_flip_normalize_batch(
+        frames, ys, xs, flips, (224, 224), mean, std), NATIVE_RTOL)
+    crops = np.ascontiguousarray(frames[:, :224, :224])
+    case("normalize_u8_batch", lambda: native.normalize_u8_batch(crops, mean, std),
+         NATIVE_RTOL)
+    big = rng.uniform(0, 255, (375, 500, 3)).astype(np.float32)
+    case("resize_bilinear", lambda: native.resize_bilinear(big, (256, 341)),
+         NATIVE_RESIZE_RTOL)
+    # frames of the records' shape: a shorter side of 256, widths that vary
+    images = [frames[i, :, :256 + (i * 7) % 64] for i in range(256)]
+    regions = np.asarray([vision.sample_crop_region(256, img.shape[1], rng)
+                          or (0, 0, 256, img.shape[1]) for img in images], np.int32)
+
+    def chain():  # the numpy chain the fused kernel replaces
+        out = np.empty((256, 224, 224, 3), np.float32)
+        for i, (img, (y, x, ch, cw)) in enumerate(zip(images, regions)):
+            r = vision.resize_bilinear(img[y:y + ch, x:x + cw].astype(np.float32) / 255.0,
+                                       (224, 224))
+            out[i] = vision.normalize(r[:, ::-1] if flips[i] else r)
+        return out
+
+    one = lambda: native.rrc_flip_normalize(  # noqa: E731
+        images[3], tuple(regions[3]), bool(flips[3]), (224, 224), mean, std)
+    case("rrc_flip_normalize", one, NATIVE_RESIZE_RTOL, lambda: chain()[3])
+    batch = lambda: native.rrc_flip_normalize_varbatch(  # noqa: E731
+        images, regions, flips, (224, 224), mean, std)
+    t0 = time.perf_counter()
+    plain = chain()
+    chain_ms = (time.perf_counter() - t0) * 1e3
+    case("rrc_flip_normalize_varbatch", batch, NATIVE_RESIZE_RTOL, lambda: plain)
+    cases["rrc_flip_normalize_varbatch"]["plain_ms"] = chain_ms
+    singles = np.stack([native.rrc_flip_normalize(
+        img, tuple(r), bool(f), (224, 224), mean, std)
+        for img, r, f in zip(images, regions, flips)])
+    check(np.array_equal(batch(), singles),
+          "native varbatch differs from its per-image kernel")
+    grads = rng.normal(size=25_557_032).astype(np.float32)  # ResNet-50's params
+    acc = rng.normal(size=grads.size).astype(np.float32)
+    want = acc + grads
+    got = native.sum_into(acc.copy(), grads)
+    check(np.array_equal(got, want), "native sum_into differs from numpy's add")
+    cases["sum_into"] = dict(rel_err=0.0, tol=0.0, native_ms=_host_ms(
+        lambda: native.sum_into(acc.copy(), grads)), plain_ms=_host_ms(lambda: acc + grads))
+    datas = {p.stem: p.read_bytes() for p in sorted(FIXTURES.glob("*.jpg"))}
+    ref = np.load(FIXTURES / "decoded.npz")
+    check(len(datas) == 8 and set(datas) == set(ref.files),
+          f"fixtures {sorted(datas)} against decodes {sorted(ref.files)}")
+    for name, data in datas.items():
+        check(np.array_equal(native.jpeg_decode(data), ref[name]),
+              f"native decode of {name}.jpg is not the reference's")
+    batch_out = native.jpeg_decode_batch(list(datas.values()))
+    check(all(np.array_equal(o, ref[n]) for o, n in zip(batch_out, datas)),
+          "native batch decode differs from the reference's")
+    cases["jpeg_decode"] = dict(rel_err=0.0, tol=0.0, images=len(datas), native_ms=_host_ms(
+        lambda: [native.jpeg_decode(d) for d in datas.values()]), plain_ms=None)
+    cases["jpeg_decode_batch"] = dict(rel_err=0.0, tol=0.0, images=len(datas), native_ms=_host_ms(
+        lambda: native.jpeg_decode_batch(list(datas.values()))), plain_ms=None)
+    rec = dict(load_s=load_s, threads=native.num_threads(), cases=cases,
+               card=nvidia_smi_line())
+    print("files native (host) " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _jpeg_tree(root: Path, copies: int) -> int:
+    """A class-per-subdirectory tree of the fixtures: ``class_<c>/`` holds
+    ``copies`` copies of each of class c's two fixtures."""
+    import shutil
+
+    n = 0
+    for f in sorted(FIXTURES.glob("*.jpg")):
+        d = root / f"class_{f.stem.split('_')[0]}"
+        d.mkdir(parents=True, exist_ok=True)
+        for i in range(copies):
+            shutil.copyfile(f, d / f"{f.stem}_{i:04d}.jpg")
+            n += 1
+    return n
+
+
+def _files_driver_checks(name: str, run: dict, steps: int) -> list:
+    res = run["result"]
+    check(res["backend"] == "nccl" and res["device"] == "cuda:0"
+          and res["world_size"] == 1 and res["step"] == steps,
+          f"{name}: {res}")
+    logged = run["losses"].get("p0", [])
+    check(len(logged) == steps // FILES_LOG_EVERY and all(np.isfinite(x) for x in logged),
+          f"{name}'s logged losses: {logged}")
+    check(not run["left"], f"{name} left {run['left']}")
+    return logged
+
+
+def train_resnet_files(torch, synthetic: dict | None = None,
+                       loop_ms: float | None = None) -> dict:
+    """(b) ResNet-50 at full width (224², 1,000 classes, its 1×1 conv→BN
+    pairs on K4) from files through the port's driver and cli at
+    ``local[1]``: ``--data-dir`` (a tree of 1,024 JPEGs) with
+    ``--materialize-records R --record-px 256``; then ``--records-dir R
+    --optimizer lars --eval-dir`` (64 JPEGs, labels pinned by ``--data-dir``)
+    for FILES_STEPS steps at b=256 over W workers. Checked: the records'
+    count, finite and falling losses, 27 K4 launches a step, a finite
+    top-1/top-5 evaluation, nothing left behind. Printed beside the
+    synthetic branch of the same call: step ms and the laps' summed wait
+    for input, and the loop's own ms a step with its input ready. The
+    default run passes phase 12's synthetic driver run (SGD, the same W)
+    as ``synthetic`` and phase 8's loop ms (the same step on a batch on
+    the card) as ``loop_ms``; alone (``--files``) the phase runs the
+    synthetic branch with this phase's flags and times the loop on a batch
+    of records in process."""
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch.data import records
+    from distributeddeeplearningspark_tpu_torch.data.feed import device_batches
+    from distributeddeeplearningspark_tpu_torch.examples import train_resnet as drv
+    from distributeddeeplearningspark_tpu_torch.session import Session
+
+    w = input_workers()
+    root = FILES_ROOT / "resnet"
+    shutil.rmtree(root, ignore_errors=True)
+    train_dir, eval_dir, rec_dir = root / "train", root / "eval", root / "records"
+    n_train, n_eval = _jpeg_tree(train_dir, FILES_COPIES), _jpeg_tree(eval_dir, FILES_EVAL_COPIES)
+    lines, mat_timing = _launch(root / "materialize", 1, _driver_script("resnet"), [
+        "--data-dir", str(train_dir), "--materialize-records", str(rec_dir),
+        "--record-px", "256"], timeout=600)
+    mats = [json.loads(x) for x in lines if x.startswith('{"materialized"')]
+    check(len(mats) == 1 and mats[0]["materialized"] == 8 and mats[0]["record_px"] == 256,
+          f"materialize printed {mats}: {lines[-10:]}")
+    n_records = sum(len(records._read_index(p)) for p in records.shard_paths(str(rec_dir)))
+    check(n_records == n_train, f"{n_records} records of {n_train} JPEGs")
+    common = _driver_args("resnet", steps=FILES_STEPS, log_every=FILES_LOG_EVERY,
+                          workers=w) + ["--optimizer", "lars"]
+    file_args = common + ["--records-dir", str(rec_dir), "--eval-dir", str(eval_dir),
+                          "--data-dir", str(train_dir)]
+    runs = {"records": _driver_run("resnet", root / "records_run", 1, file_args)}
+    if synthetic is None:
+        runs["synthetic"] = _driver_run("resnet", root / "synthetic_run", 1, common)
+    logged = {}
+    for name, run in runs.items():
+        logged[name] = _files_driver_checks(f"the resnet driver from {name}", run,
+                                            FILES_STEPS)
+        res = run["result"]
+        check(res["optimizer"] == "lars" and res["variant"] == "resnet50"
+              and res["source"] == name and res["k4_launches"] == 27 * FILES_STEPS,
+              f"the resnet driver from {name}: {res['source']}, {res['optimizer']}, "
+              f"K4 {res['k4_launches']} times in {FILES_STEPS} steps, want 27 a step")
+    rl = logged["records"]
+    check(rl[-1] < rl[0], f"the loss from records did not fall: {rl}")
+    evaluation = runs["records"]["result"]["eval"]
+    check(evaluation is not None and all(np.isfinite(v) for v in evaluation.values())
+          and {"loss", "accuracy", "top5_accuracy"} <= set(evaluation),
+          f"the evaluation over --eval-dir: {evaluation}")
+    if loop_ms is None:  # the loop's own ms a step on one batch of records
+        args = drv.parse_args(file_args)
+        args.data_workers = 0
+        spark = Session.builder.master("local[1]").appName("files").getOrCreate()
+        try:
+            trainer = drv.make_trainer(args, spark)
+            feed = device_batches(drv.make_dataset(args, spark), RESNET_BATCH,
+                                  trainer.device)
+            batch = next(feed)
+            feed.close()
+            trainer.init()
+            loop_ms = _loop_ms(torch, trainer, batch)
+        finally:
+            spark.stop()
+        left = _input_leftovers()
+        check(not left, f"the loop's timing left {left}")
+    side = {name: dict(step_time_ms=run["result"]["train"].get("step_time_ms"),
+                       step_ms_by_rank=run["step_ms_by_rank"],
+                       images_per_sec=run["result"]["train"].get("examples_per_sec"),
+                       logged_losses=logged[name], launch=run["launch"],
+                       input=_input_gauges(_events(run["workdir"])),
+                       eval=run["result"]["eval"])
+            for name, run in runs.items()}
+    if synthetic is not None:  # phase 12's synthetic driver run
+        side["synthetic"] = dict(
+            step_time_ms=synthetic["step_time_ms"], optimizer="sgd", steps=DRIVER_STEPS,
+            logged_losses=synthetic["logged_losses"], launch=synthetic["launch"],
+            input=_input_gauges(_events(ROOT / "build" / "chip_smoke_drivers" / "resnet")))
+    rec = dict(
+        images=n_train, eval_images=n_eval, n_records=n_records, workers=w,
+        materialize=dict(mats[0], launch=mat_timing),
+        loop_ms=loop_ms, k4_launches=sum(r["result"]["k4_launches"] for r in runs.values()),
+        card=nvidia_smi_line(), **side)
+    print("files resnet-50 " + json.dumps(rec), flush=True)
+    return rec
+
+
+def host_feed_rates(torch) -> dict:
+    """(c) This machine's host images/s (not the card's) of ResNet's three
+    file feeds at b=256, 224², as the JAX package's ``bench.py --model input``
+    measures them: JPEGs (``imagenet_folder(decode=False)`` →
+    ``imagenet_train``: decode and augment), records (``array_records`` →
+    ``imagenet_train``) and the batched fused feed
+    (``imagenet_train_batched``: one varbatch call a batch), each at 0
+    and at W workers, the source in max(4, workers) partitions; each feed's
+    first batches the same bytes at both counts, nothing left after."""
+    from distributeddeeplearningspark_tpu_torch.data import records, sources, vision
+
+    w = input_workers()
+    train_dir = FILES_ROOT / "resnet" / "train"
+    rec_dir = FILES_ROOT / "resnet" / "records"
+
+    def batched_run(n: int) -> dict:
+        it = vision.imagenet_train_batched(
+            records.array_records(str(rec_dir), num_partitions=max(4, n)).shuffle(0)
+            .repeat(), RESNET_BATCH, seed=0, num_workers=n)
+        try:
+            first = next(it)
+            h = hashlib.sha256(first["image"].tobytes() + first["label"].tobytes())
+            t0 = time.perf_counter()
+            for _ in range(INPUT_TIMED):
+                next(it)
+            ms = (time.perf_counter() - t0) / INPUT_TIMED * 1e3
+        finally:
+            it.close()
+        return dict(digests=[h.hexdigest()], host_batch_ms=ms)
+
+    feeds = {}
+    for n in (0, w):
+        feeds[f"jpeg_w{n}"] = _feed_run(vision.imagenet_train(
+            sources.imagenet_folder(str(train_dir), num_partitions=max(4, n), decode=False),
+            seed=0, repeat=True, num_workers=n), RESNET_BATCH)
+        feeds[f"records_w{n}"] = _feed_run(vision.imagenet_train(
+            records.array_records(str(rec_dir), num_partitions=max(4, n)),
+            seed=0, repeat=True, num_workers=n), RESNET_BATCH)
+        feeds[f"batched_fused_w{n}"] = batched_run(n)
+    left = _input_leftovers()
+    rec = dict(workers=w, cpu_count=os.cpu_count(), batch_size=RESNET_BATCH,
+               host_images_per_sec={k: RESNET_BATCH / v["host_batch_ms"] * 1e3
+                                    for k, v in feeds.items()},
+               host_batch_ms={k: v["host_batch_ms"] for k, v in feeds.items()},
+               leftovers=left, card=nvidia_smi_line())
+    print("files host feeds (host images/s, not the card's) " + json.dumps(rec),
+          flush=True)
+    for feed in ("jpeg", "records", "batched_fused"):
+        check(feeds[f"{feed}_w0"]["digests"] == feeds[f"{feed}_w{w}"]["digests"],
+              f"the {feed} feed's batches differ between 0 and {w} workers")
+    check(not left, f"the file feeds outlived their phase: {left}")
+    return rec
+
+
+def _write_dump(path: Path, docs: list[str]) -> None:
+    """A mediawiki XML dump of ``docs`` with light wikitext and a redirect."""
+    from xml.sax.saxutils import escape
+
+    pages = [f"<page><title>R</title><redirect title=\"T0\" /><revision><text>"
+             f"#REDIRECT [[T0]]</text></revision></page>"]
+    for i, doc in enumerate(docs):
+        wiki = (f"{{{{Infobox|name=T{i}}}}}\n'''T{i}''' is a [[Link|{doc[:24]}]].\n"
+                f"{doc}<ref>a source</ref>\n== History ==\n* {doc[24:80]}\n")
+        pages.append(f"<page><title>T{i}</title><ns>0</ns><revision><text>"
+                     f"{escape(wiki)}</text></revision></page>")
+    path.write_text("<mediawiki xmlns=\"http://www.mediawiki.org/xml/export-0.10/\">"
+                    + "\n".join(pages) + "</mediawiki>")
+
+
+def train_bert_files(torch) -> dict:
+    """(d) The port's BERT-base driver (``examples/train_bert.py``, 12
+    layers, S=512, b=32) through the cli at ``local[1]``,
+    FILES_BERT_STEPS steps with ``--token-stats``, from a corpus file and
+    from a mediawiki XML dump, both written here from synthetic prose:
+    finite losses, K1, K2 and K3 12 times a step each, the windows packed
+    (effective share above 0.9)."""
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch.data import text
+
+    root = FILES_ROOT / "bert"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    docs = text.synthetic_wikipedia(2048, num_partitions=1).collect()
+    (root / "corpus.txt").write_text("\n".join(docs) + "\n")
+    _write_dump(root / "dump.xml", docs[:512])
+    script = ROOT / PKG / "examples" / "train_bert.py"
+    out = {}
+    for name, src in (("corpus", ["--corpus", str(root / "corpus.txt")]),
+                      ("dump", ["--data-dir", str(root / "dump.xml")])):
+        wd = root / name
+        lines, timing = _launch(wd, 1, script, [
+            "--steps", str(FILES_BERT_STEPS), "--log-every", str(FILES_BERT_LOG_EVERY),
+            "--seq-len", str(FILES_BERT_SEQ), "--batch-size", str(FILES_BERT_BATCH),
+            "--token-stats", *src], timeout=600)
+        results = [json.loads(x) for x in lines if x.startswith('{"train"')]
+        check(len(results) == 1, f"the bert driver from {name} printed "
+              f"{len(results)} result lines: {lines[-20:]}")
+        res = results[0]
+        losses = [r["metrics"]["loss"] for r in _events(wd) if r["kind"] == "step_metrics"]
+        out[name] = dict(step_time_ms=res["train"].get("step_time_ms"),
+                         tokens_per_sec=res["train"].get("tokens_per_sec"),
+                         logged_losses=losses, flash_launches=res["flash_launches"],
+                         token_stats=res["token_stats"], vocab_size=res["vocab_size"],
+                         launch=timing)
+        check(res["device"] == "cuda:0" and res["step"] == FILES_BERT_STEPS
+              and res["source"] == name and res["variant"] == "base",
+              f"the bert driver from {name}: {res}")
+        check(len(losses) == FILES_BERT_STEPS // FILES_BERT_LOG_EVERY
+              and all(np.isfinite(x) for x in losses),
+              f"the bert driver from {name}: logged losses {losses}")
+        check(res["flash_launches"] == {k: 12 * FILES_BERT_STEPS for k in FLASH_KERNELS},
+              f"the bert driver from {name}: flash launches {res['flash_launches']}, "
+              f"want 12 a step each")
+        check(res["token_stats"]["effective_frac"] > 0.9,
+              f"the bert driver from {name}: token stats {res['token_stats']}")
+    out["card"] = nvidia_smi_line()
+    print("files bert-base " + json.dumps(out), flush=True)
+    return out
+
+
+def check_files(torch, synthetic: dict | None = None,
+                loop_ms: float | None = None) -> dict:
+    """Phase 12b, "files": (a)–(d) above, with the phase's wall seconds
+    (``synthetic``, ``loop_ms``: see :func:`train_resnet_files`)."""
+    t0 = time.perf_counter()
+    rec = dict(native=check_native(),
+               resnet=train_resnet_files(torch, synthetic, loop_ms),
+               host_feeds=host_feed_rates(torch), bert=train_bert_files(torch))
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"files phase: {rec['seconds']:.1f} s; {nvidia_smi_line()}", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -7898,6 +8315,10 @@ def main() -> int:
               f"{_build.load('flash_fwd').dls_flash_fwd_cuda_version()}",
               flush=True)
 
+        if sys.argv[1:] == ["--files"]:
+            check_files(torch)
+            print(nvidia_smi_line())
+            return 0
         if sys.argv[1:] == ["--observe"]:
             train_bert(torch, fa)
             train_llama(torch, fa)
@@ -7933,6 +8354,7 @@ def main() -> int:
         dlrm_rec = train_dlrm(torch, sr)
         train_lenet(torch)
         drivers = train_drivers(torch)
+        files = check_files(torch, synthetic=drivers["resnet"], loop_ms=resnet["loop_ms"])
         train_resnet_driver_observed(torch)
         check_bn_halves(torch)
         recovery = check_recovery(torch, cb, fa)
@@ -7954,7 +8376,8 @@ def main() -> int:
         + llama["launches"]["flash_fwd"] + llama["driver"]["flash_launches"]["flash_fwd"]
         + qlora["launches"]["flash_fwd"] + qlora["driver"]["flash_launches"]["flash_fwd"]
         + moe["moe"]["launches"]["flash_fwd"] + moe["dense"]["launches"]["flash_fwd"]
-        + rollback["launches"]["flash_fwd"] + rollback["second_run_launches"]["flash_fwd"],
+        + rollback["launches"]["flash_fwd"] + rollback["second_run_launches"]["flash_fwd"]
+        + sum(files["bert"][s]["flash_launches"]["flash_fwd"] for s in ("corpus", "dump")),
         "max_abs_err": max(c["max_abs_err"] for c in k1),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -7969,7 +8392,8 @@ def main() -> int:
             + llama["driver"]["flash_launches"][name] + qlora["launches"][name]
             + qlora["driver"]["flash_launches"][name] + moe["moe"]["launches"][name]
             + moe["dense"]["launches"][name] + rollback["launches"][name]
-            + rollback["second_run_launches"][name],
+            + rollback["second_run_launches"][name]
+            + sum(files["bert"][s]["flash_launches"][name] for s in ("corpus", "dump")),
             "max_abs_err": max(c[g] for c in k23 for g in grads),
             "ms": bwd[f"{key}_ms"], "plain_ms": bwd["plain_ms"],
             "bound_ms": bwd[f"{key}_bound_ms"], "bound_by": bwd[f"{key}_bound_by"],
@@ -7988,10 +8412,10 @@ def main() -> int:
         "name": "conv_bn_stats", "route": "cuda",
         "source": f"{PKG}/csrc/conv_bn.cu",
         "replaces": "distributeddeeplearningspark_tpu/ops/conv_bn.py:62",
-        # the in-process phase's, the driver's and the skip drill's runs,
-        # each counted from 0
+        # the in-process phase's, the driver's, the files phase's two driver
+        # runs and the skip drill's runs, each counted from 0
         "launches": resnet["k4_launches"] + drivers["resnet"]["k4_launches"]
-        + recovery["skip"]["k4_launches"],
+        + files["resnet"]["k4_launches"] + recovery["skip"]["k4_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in k4),
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),

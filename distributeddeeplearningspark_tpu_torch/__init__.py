@@ -39,8 +39,13 @@ and trains it through :class:`Session` and :class:`Trainer`, as
     state, summary = Trainer(spark, bert_base(), losses.masked_lm, tx).fit(
         ds.repeat(), batch_size=32, steps=30, tokens_per_example=512)
 
+(the port's ``examples/train_bert.py`` runs these calls through the cli,
+from a corpus file or a Wikipedia dump: ``--corpus``, ``--data-dir``),
+
 and trains ResNet-50 with the fused 1×1-conv + BN-statistics kernel (K4),
-as ``examples/train_resnet.py`` drives the JAX package on synthetic data:
+as ``examples/train_resnet.py`` drives the JAX package on synthetic data
+(the port's driver also from a JPEG tree or records, ``--data-dir``,
+``--records-dir``, and with ``--optimizer lars``):
 
     ds = vision.imagenet_train(sources.synthetic_images(1024, num_partitions=1),
                                size=224, repeat=True)
@@ -90,6 +95,8 @@ _EXPORTS = {
     "BertConfig": "distributeddeeplearningspark_tpu_torch.models.bert",
     "BertForMLM": "distributeddeeplearningspark_tpu_torch.models.bert",
     "bert_base": "distributeddeeplearningspark_tpu_torch.models.bert",
+    "bert_large": "distributeddeeplearningspark_tpu_torch.models.bert",
+    "bert_tiny": "distributeddeeplearningspark_tpu_torch.models.bert",
     "flash_attention": "distributeddeeplearningspark_tpu_torch.ops.flash_attention",
     "Conv1x1BN": "distributeddeeplearningspark_tpu_torch.ops.conv_bn",
     "ResNet": "distributeddeeplearningspark_tpu_torch.models.resnet",
@@ -128,6 +135,8 @@ if TYPE_CHECKING:  # static analyzers see the real names
         BertConfig,
         BertForMLM,
         bert_base,
+        bert_large,
+        bert_tiny,
     )
     from distributeddeeplearningspark_tpu_torch.metrics import StreamingAUC
     from distributeddeeplearningspark_tpu_torch.models.llama import (

@@ -3,9 +3,10 @@ paths read.
 
 The counterparts of ``distributeddeeplearningspark_tpu/data/sources.py``'s
 :func:`synthetic_mnist`, :func:`load_mnist_idx`, :func:`synthetic_images`,
-:func:`synthetic_criteo` and :func:`criteo_tsv`, numpy for numpy, so both
-packages yield byte-identical examples from the same seed or file. The
-ImageNet-folder and record sources arrive with the slices that read them.
+:func:`synthetic_criteo`, :func:`folder_classes`, :func:`imagenet_folder`
+and :func:`criteo_tsv`, numpy for numpy, so both packages yield
+byte-identical examples from the same seed or file. The record source is
+:mod:`.records`.
 """
 
 from __future__ import annotations
@@ -135,6 +136,65 @@ def synthetic_criteo(
                 score += float(np.log1p(dense) @ dense_w) / num_dense
                 label = np.int32(rng.random() < 1 / (1 + np.exp(-3 * score)))
                 yield {"dense": dense, "sparse": sparse, "label": label}
+
+        return gen
+
+    return PartitionedDataset([make_partition(i) for i in range(num_partitions)])
+
+
+def folder_classes(root: str) -> dict[str, int]:
+    """Class → index of a class-per-subdirectory tree, in sorted-name order
+    (torchvision's convention). Pin one mapping across splits with it: a
+    train and an eval directory that each derive their own misalign the
+    labels whenever their sets of directories differ."""
+    root = os.path.abspath(root)
+    names = sorted(d for d in os.listdir(root)
+                   if os.path.isdir(os.path.join(root, d)) and not d.startswith("."))
+    if not names:
+        raise FileNotFoundError(f"no class directories under {root}")
+    return {n: i for i, n in enumerate(names)}
+
+
+def imagenet_folder(root: str, *, num_partitions: int = 8,
+                    class_to_index: dict[str, int] | None = None,
+                    decode: bool = True) -> PartitionedDataset:
+    """ImageNet's class-per-subdirectory layout (``root/n01440764/x.JPEG``)
+    → ``{"image": [H, W, 3] uint8, "label": int32}``, files dealt to the
+    partitions round robin in sorted order. Labels follow the sorted class
+    directories unless ``class_to_index`` pins them. Decoding
+    (``vision.decode_jpeg``; grayscale is repeated to RGB) happens lazily in
+    the partition's iterator; ``decode=False`` yields the file's bytes under
+    ``"jpeg"`` instead, for a pipeline that decodes inside a later map
+    (``vision.imagenet_train`` spreads it over its pool)."""
+    root = os.path.abspath(root)
+    classes = class_to_index if class_to_index is not None else folder_classes(root)
+    files: list[tuple[str, int]] = []
+    exts = (".jpeg", ".jpg", ".JPEG", ".JPG")
+    for name, idx in sorted(classes.items()):
+        cdir = os.path.join(root, name)
+        if not os.path.isdir(cdir):
+            continue
+        for fn in sorted(os.listdir(cdir)):
+            if fn.endswith(exts):
+                files.append((os.path.join(cdir, fn), idx))
+    if not files:
+        raise FileNotFoundError(f"no JPEG files under {root}")
+
+    def make_partition(pidx: int):
+        shard = files[pidx::num_partitions]
+
+        def gen() -> Iterator[dict]:
+            from distributeddeeplearningspark_tpu_torch.data.vision import decode_jpeg
+
+            for path, label in shard:
+                if decode:
+                    img = decode_jpeg(path)
+                    if img.shape[-1] == 1:
+                        img = np.repeat(img, 3, axis=-1)
+                    yield {"image": img, "label": np.int32(label)}
+                else:
+                    with open(path, "rb") as f:
+                        yield {"jpeg": f.read(), "label": np.int32(label)}
 
         return gen
 

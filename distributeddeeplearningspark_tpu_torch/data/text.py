@@ -13,13 +13,18 @@ and ``segment_ids`` [S] (packed-document ids) when asked for; and the
 causal-LM feed of Llama's fine-tune (:func:`lm_dataset`),
 ``{"input_ids": [S] i32, "loss_mask": [S] f32}`` (+ ``segment_ids``).
 Tokenizing, the per-document hot loop, can run over worker processes
-(:mod:`.workers`); packing and masking stay on the consumer. Wikipedia
-dumps, the HF tokenizer adapter and token statistics are not ported yet.
+(:mod:`.workers`); packing and masking stay on the consumer.
+:func:`wikipedia_dump` reads a Wikipedia corpus off disk (a mediawiki XML
+dump, ``.xml`` or ``.xml.bz2``; a wikiextractor tree; plain text) as a
+dataset of documents, and :func:`token_stats` measures an example stream's
+padding. The HF tokenizer adapter is not ported (it needs ``transformers``
+and a tokenizer on disk).
 """
 
 from __future__ import annotations
 
 import collections
+import os
 import re
 from typing import Iterable, Iterator, Sequence
 
@@ -124,6 +129,14 @@ class WordPieceTokenizer:
             return WordPieceTokenizer({line.rstrip("\n"): i for i, line in enumerate(f)})
 
 
+def segments_from_docs(
+    docs: Iterable[str], tokenizer: WordPieceTokenizer, seq_len: int
+) -> Iterator[np.ndarray]:
+    """Pack tokenized documents into full ``[CLS] ... [SEP]`` windows."""
+    for ids, _ in packed_segments_from_docs(docs, tokenizer, seq_len):
+        yield ids
+
+
 def _pack_token_windows(
     doc_tokens: Iterable[list[int]], window: int
 ) -> Iterator[tuple[list[int], list[int], bool]]:
@@ -146,6 +159,15 @@ def _pack_token_windows(
         yield buf, seg, True
 
 
+def packed_segments_from_docs(
+    docs: Iterable[str], tokenizer: WordPieceTokenizer, seq_len: int
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """:func:`packed_segments_from_tokens` over documents as text: every
+    window full except the corpus tail, so tokens/s is effective tokens/s."""
+    return packed_segments_from_tokens(
+        (tokenizer.encode(doc) for doc in docs), tokenizer, seq_len)
+
+
 def packed_segments_from_tokens(
     doc_tokens: Iterable, tokenizer: WordPieceTokenizer, seq_len: int
 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
@@ -161,6 +183,16 @@ def packed_segments_from_tokens(
             ids += [tokenizer.pad_id] * pad
             sids += [-1] * pad
         yield np.array(ids, np.int32), np.array(sids, np.int32)
+
+
+def padded_segments_from_docs(
+    docs: Iterable[str], tokenizer: WordPieceTokenizer, seq_len: int
+) -> Iterator[np.ndarray]:
+    """One document per window, padded to ``seq_len`` (long documents
+    split): the unpacked shape, whose windows are mostly padding on natural
+    text; kept for the packing comparison."""
+    return _padded_from_tokens(
+        (tokenizer.encode(doc) for doc in docs), tokenizer, seq_len)
 
 
 def _padded_from_tokens(
@@ -304,6 +336,28 @@ def mlm_dataset(
     return token_ds.map_partitions_with_index(per_partition)
 
 
+def token_stats(dataset: PartitionedDataset, *, max_examples: int = 10_000) -> dict:
+    """The padding of an MLM or LM example stream over up to
+    ``max_examples`` examples: ``{examples, tokens, pad_tokens, pad_frac,
+    effective_frac}``; ``effective_frac`` turns tokens/s into non-pad
+    tokens/s."""
+    examples = tokens = pad = 0
+    stream = (ex for p in range(dataset.num_partitions)
+              for ex in dataset.iter_partition(p))
+    for i, ex in enumerate(stream):
+        if i >= max_examples:
+            break
+        am = ex.get("attention_mask")
+        if am is None:  # LM form: loss_mask plays the same role
+            am = ex["loss_mask"]
+        examples += 1
+        tokens += int(np.size(am))
+        pad += int(np.size(am) - np.count_nonzero(am))
+    eff = (tokens - pad) / tokens if tokens else 0.0
+    return {"examples": examples, "tokens": tokens, "pad_tokens": pad,
+            "pad_frac": round(1.0 - eff, 4), "effective_frac": round(eff, 4)}
+
+
 def lm_dataset(
     docs: PartitionedDataset,
     tokenizer: WordPieceTokenizer,
@@ -382,3 +436,167 @@ def synthetic_wikipedia(
         return gen
 
     return PartitionedDataset([make_partition(i) for i in range(num_partitions)])
+
+
+def wikipedia_dump(
+    path: str,
+    *,
+    num_partitions: int = 8,
+    min_chars: int = 64,
+) -> PartitionedDataset:
+    """A Wikipedia corpus on disk → a dataset of documents (config 3's
+    feed), the same documents as the JAX package's from the same files.
+
+    Takes the three shapes Wikipedia pretraining corpora come in:
+
+    - a **mediawiki XML dump** (``*.xml`` / ``*.xml.bz2``, the enwiki
+      download): streamed with stdlib ``iterparse`` (constant memory), one
+      document per ``<page>``'s ``<text>``, redirects skipped, wikitext
+      lightly cleaned by :func:`clean_wikitext` (markup → plain prose, the
+      level of cleaning BERT-era pipelines applied);
+    - a **wikiextractor output tree** (``AA/wiki_00`` files of ``<doc>``
+      blocks): one document per ``<doc>`` element;
+    - **plain text**: one document per line (or per blank-line-separated
+      paragraph group when lines are short), matching this module's
+      synthetic corpus shape.
+
+    Documents stream lazily per partition (files are dealt round-robin;
+    a single big XML file is read by every partition with stride — cheap
+    relative to tokenization, and keeps partition boundaries deterministic).
+    """
+    import glob as _glob
+
+    if os.path.isdir(path):
+        files = sorted(
+            f for f in _glob.glob(os.path.join(path, "**", "*"), recursive=True)
+            if os.path.isfile(f) and not os.path.basename(f).startswith(".")
+        )
+    else:
+        files = [path]
+    if not files:
+        raise FileNotFoundError(f"no corpus files under {path}")
+
+    def open_maybe_bz2(fname: str):
+        if fname.endswith(".bz2"):
+            import bz2
+
+            return bz2.open(fname, "rt", encoding="utf-8", errors="replace")
+        return open(fname, "rt", encoding="utf-8", errors="replace")
+
+    def iter_xml_docs(fname: str) -> Iterator[str]:
+        from xml.etree import ElementTree
+
+        with open_maybe_bz2(fname) as f:
+            # namespace-agnostic: match on the tag's local name
+            for _, elem in ElementTree.iterparse(f, events=("end",)):
+                tag = elem.tag.rsplit("}", 1)[-1]
+                if tag == "page":
+                    text_el = None
+                    redirect = False
+                    for child in elem.iter():
+                        ctag = child.tag.rsplit("}", 1)[-1]
+                        if ctag == "redirect":
+                            redirect = True
+                        elif ctag == "text":
+                            text_el = child
+                    if not redirect and text_el is not None and text_el.text:
+                        doc = clean_wikitext(text_el.text)
+                        if len(doc) >= min_chars:
+                            yield doc
+                    elem.clear()  # constant memory
+
+    def iter_docfile(fname: str) -> Iterator[str]:
+        """wikiextractor '<doc ...> text </doc>' blocks or plain text."""
+        with open_maybe_bz2(fname) as f:
+            first = f.readline()
+            if first.lstrip().startswith("<doc"):
+                buf: list[str] = []
+                for line in f:
+                    if line.startswith("</doc>"):
+                        doc = "\n".join(buf[1:] if buf and not buf[0].strip() else buf)
+                        if len(doc) >= min_chars:
+                            yield doc.strip()
+                        buf = []
+                    elif line.startswith("<doc"):
+                        buf = []
+                    else:
+                        buf.append(line.rstrip("\n"))
+            else:
+                # plain text: a line per doc; short lines merge into paragraphs
+                para: list[str] = []
+                for line in [first] + list(f):
+                    s = line.strip()
+                    if not s:
+                        if para:
+                            doc = " ".join(para)
+                            if len(doc) >= min_chars:
+                                yield doc
+                            para = []
+                    elif len(s) >= min_chars:
+                        yield s
+                    else:
+                        para.append(s)
+                if para and len(" ".join(para)) >= min_chars:
+                    yield " ".join(para)
+
+    def iter_file(fname: str) -> Iterator[str]:
+        base = fname[:-4] if fname.endswith(".bz2") else fname
+        if base.endswith(".xml"):
+            yield from iter_xml_docs(fname)
+        else:
+            yield from iter_docfile(fname)
+
+    def make_partition(pidx: int):
+        def gen() -> Iterator[str]:
+            if len(files) >= num_partitions:
+                for fname in files[pidx::num_partitions]:
+                    yield from iter_file(fname)
+            else:
+                # few big files: stride documents across partitions
+                for fname in files:
+                    for i, doc in enumerate(iter_file(fname)):
+                        if i % num_partitions == pidx:
+                            yield doc
+
+        return gen
+
+    return PartitionedDataset([make_partition(i) for i in range(num_partitions)])
+
+
+_WIKI_PATTERNS: "list[tuple[re.Pattern, str]] | None" = None
+
+
+def clean_wikitext(text: str) -> str:
+    """Light wikitext → plain text (the BERT-era preprocessing level).
+
+    Drops templates/tables/refs/files, unwraps [[links|label]] and quotes,
+    strips headings and html tags. Not a full parser — the goal is clean
+    *training prose*, not rendering fidelity.
+    """
+    global _WIKI_PATTERNS
+    if _WIKI_PATTERNS is None:
+        _WIKI_PATTERNS = [
+            (re.compile(r"<ref[^>]*/>|<ref[^>]*>.*?</ref>", re.S), " "),
+            (re.compile(r"<!--.*?-->", re.S), " "),
+            (re.compile(r"\{\|.*?\|\}", re.S), " "),            # tables
+            (re.compile(r"\[\[(?:File|Image|Category):[^\]]*\]\]"), " "),
+            (re.compile(r"\[\[[^\]|]*\|([^\]]*)\]\]"), r"\1"),  # [[a|b]] → b
+            (re.compile(r"\[\[([^\]]*)\]\]"), r"\1"),           # [[a]] → a
+            (re.compile(r"\[https?://\S*\s([^\]]*)\]"), r"\1"),
+            (re.compile(r"\[https?://\S*\]"), " "),
+            (re.compile(r"'{2,}"), ""),                          # bold/italics
+            (re.compile(r"^=+.*?=+\s*$", re.M), " "),            # headings
+            (re.compile(r"<[^>]+>"), " "),                       # html tags
+            (re.compile(r"^\s*[*#:;]+\s*", re.M), ""),           # list markers
+            (re.compile(r"[ \t]+"), " "),
+            (re.compile(r"\n{3,}"), "\n\n"),
+        ]
+    # templates {{...}} nest; peel iteratively (bounded)
+    for _ in range(4):
+        new = re.sub(r"\{\{[^{}]*\}\}", " ", text)
+        if new == text:
+            break
+        text = new
+    for pat, repl in _WIKI_PATTERNS:
+        text = pat.sub(repl, text)
+    return text.strip()

@@ -323,6 +323,11 @@ def _worker_loop(wid: int, num_workers: int, source_factory, fn,
     ``skip`` fast-forwards a respawned replacement past the first ``skip``
     class elements the consumer already received — the source walk still
     happens (cheap, page-cached) but the map and the transport don't."""
+    # the native kernels' fan-out to one thread a call: the processes are
+    # the parallelism, and W workers each spawning a thread a core would
+    # oversubscribe the host W times. Set whatever the parent's value: that
+    # one tunes the parent's own calls.
+    os.environ["DLS_NATIVE_THREADS"] = "1"
     ring = _Arena(shm.size)
     buf = shm.buf
     base = wid * _ST_STRIDE

@@ -7,8 +7,9 @@ checkpoint when it is torn) and tells the supervisor a checkpoint it cannot
 restore from a crash; and :func:`drained`, the exit of a run that drained.
 
 The drivers: ``train_mnist`` (LeNet-5, config 1), ``train_resnet``
-(ResNet, config 2), ``train_dlrm`` (DLRM / Wide&Deep, config 4) and
-``train_llama_lora`` (the Llama-2 LoRA fine-tune, config 5)."""
+(ResNet, config 2), ``train_bert`` (BERT MLM, config 3), ``train_dlrm``
+(DLRM / Wide&Deep, config 4) and ``train_llama_lora`` (the Llama-2 LoRA
+fine-tune, config 5)."""
 
 import argparse
 import logging

@@ -248,10 +248,25 @@ class BertForMLM(nn.Module):
         return self
 
 
+def _made(cfg: BertConfig, device, seed: int) -> BertForMLM:
+    dev = resolve_device(device)
+    model = BertForMLM(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    return model.eval()
+
+
 def bert_base(*, device="cuda", seed: int = 0, **kw) -> BertForMLM:
     """BERT-base MLM on ``device`` (the card unless ``device="cpu"``), in
     eval mode, with weights made from ``seed``."""
-    dev = resolve_device(device)
-    model = BertForMLM(BertConfig(**kw), device=dev)
-    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
-    return model.eval()
+    return _made(BertConfig(**kw), device, seed)
+
+
+def bert_large(*, device="cuda", seed: int = 0, **kw) -> BertForMLM:
+    """BERT-large (:meth:`BertConfig.large`), as :func:`bert_base`."""
+    return _made(BertConfig.large(**kw), device, seed)
+
+
+def bert_tiny(*, device="cuda", seed: int = 0, **kw) -> BertForMLM:
+    """The 4-layer, 128-wide f32 BERT (:meth:`BertConfig.tiny`), as
+    :func:`bert_base`."""
+    return _made(BertConfig.tiny(**kw), device, seed)

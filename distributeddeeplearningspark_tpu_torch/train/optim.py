@@ -31,8 +31,17 @@ returns a float or a 0-d f32 tensor, and Adam's bias corrections are
 computed from it on the device in f32, so no update syncs with the host
 and the train step's non-finite guard (:mod:`.step`) holds a skipped
 step's counts back as it holds the moments. These are plain tensor ops,
-as the JAX package runs its optimizer in XLA, not in Pallas. ``lamb``
-and ``lars`` are not ported yet.
+as the JAX package runs its optimizer in XLA, not in Pallas.
+
+``lars`` and ``lamb`` are optax's with the JAX package's arguments.
+``lars``: ``add_decayed_weights`` (masked), ``scale_by_trust_ratio``
+(masked; ``trust_coefficient · ‖p‖ / ‖u‖``, 1 where either norm is 0), ``*
+−lr``, then ``trace(momentum)``; both masks take the params with more than
+one dim (conv and dense kernels; the OIHW convs' norms are their HWIO
+norms), so BatchNorm's scales and every bias take neither. ``lamb``:
+``scale_by_adam`` (eps 1e-6), ``+ weight_decay · p`` for every param,
+``scale_by_trust_ratio``, ``* −lr``. Their trust ratios are norms of whole
+tensors, so on shards or ZeRO slices they raise (ROADMAP Queue 1 item 3).
 
 ``adafactor`` is optax 0.2.6's (JAX's ``adafactor``):
 ``scale_by_factored_rms`` (the second moment of a tensor with two dims
@@ -213,9 +222,24 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
     return GradientTransformation(init, update)
 
 
-def add_decayed_weights(weight_decay: float) -> GradientTransformation:
+def _kernels_only(p: torch.Tensor) -> bool:
+    """The JAX package's LARS mask: params with more than one dim."""
+    return p.ndim > 1
+
+
+def add_decayed_weights(weight_decay: float,
+                        mask: Callable[[torch.Tensor], bool] | None = None
+                        ) -> GradientTransformation:
+    """``updates + weight_decay · p``; with ``mask``, only for the params it
+    accepts (optax's ``mask=``)."""
     def update(updates, state, params):
-        torch._foreach_add_(updates, params, alpha=weight_decay)
+        if mask is None:
+            torch._foreach_add_(updates, params, alpha=weight_decay)
+            return updates, state
+        sel = [i for i, p in enumerate(params) if mask(p)]
+        if sel:
+            torch._foreach_add_([updates[i] for i in sel], [params[i] for i in sel],
+                                alpha=weight_decay)
         return updates, state
 
     return GradientTransformation(lambda params: (), update)
@@ -255,6 +279,68 @@ def scale_by_learning_rate(learning_rate: float | Schedule) -> GradientTransform
         return updates, count + 1
 
     return GradientTransformation(_count, update)
+
+
+def _refuse_shards(updates: Tensors, name: str) -> None:
+    if isinstance(updates, Shards) and any(updates.shares):
+        raise NotImplementedError(
+            f"{name} over shards or ZeRO slices: its trust ratio is the norm of "
+            f"a whole tensor; not ported yet: ROADMAP Queue 1 item 3")
+
+
+def scale_by_trust_ratio(trust_coefficient: float = 1.0, eps: float = 0.0,
+                         mask: Callable[[torch.Tensor], bool] | None = None,
+                         name: str = "scale_by_trust_ratio"
+                         ) -> GradientTransformation:
+    """optax's ``scale_by_trust_ratio`` (``min_norm`` 0): each update times
+    ``trust_coefficient · ‖p‖ / (‖u‖ + eps)``, or 1 where either norm is 0;
+    with ``mask``, only the params it accepts (optax's ``masked``). Raises
+    on shards and ZeRO slices, whose norms are a slice's."""
+    def update(updates, state, params):
+        _refuse_shards(updates, name)
+        sel = [i for i, p in enumerate(params) if mask is None or mask(p)]
+        if not sel:
+            return updates, state
+        ups = [updates[i] for i in sel]
+        p_norm = torch._foreach_norm([params[i] for i in sel])
+        u_norm = torch._foreach_norm(ups)
+        ratios = [torch.where((pn == 0.0) | (un == 0.0), torch.ones_like(pn),
+                              trust_coefficient * pn / (un + eps))
+                  for pn, un in zip(p_norm, u_norm)]
+        torch._foreach_mul_(ups, ratios)
+        return updates, state
+
+    return GradientTransformation(lambda params: (), update)
+
+
+def lars(learning_rate: float | Schedule, *, momentum: float = 0.9,
+         weight_decay: float = 1e-4,
+         trust_coefficient: float = 0.001) -> GradientTransformation:
+    """LARS (You et al., arXiv:1708.03888), the large-batch CNN optimizer:
+    the JAX package's ``optax.lars`` with weight decay and the trust ratio
+    masked to the params with more than one dim (conv and dense kernels;
+    BatchNorm's scales and the biases take neither), eps 0, then the
+    momentum trace after ``* −lr``. Pair it with :func:`warmup_cosine`."""
+    return chain(add_decayed_weights(weight_decay, _kernels_only),
+                 scale_by_trust_ratio(trust_coefficient, mask=_kernels_only,
+                                      name="lars"),
+                 scale_by_learning_rate(learning_rate),
+                 trace(momentum))
+
+
+def lamb(learning_rate: float | Schedule, *, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-6, weight_decay: float = 0.01) -> GradientTransformation:
+    """LAMB (You et al., arXiv:1904.00962), the large-batch BERT optimizer:
+    ``optax.lamb`` as the JAX package calls it (weight decay on every
+    param, no mask)."""
+    def refuse(updates, state, params):
+        _refuse_shards(updates, "lamb")  # before Adam's moments see a slice
+        return updates, state
+
+    return chain(GradientTransformation(lambda params: (), refuse),
+                 scale_by_adam(b1, b2, eps), add_decayed_weights(weight_decay),
+                 scale_by_trust_ratio(name="lamb"),
+                 scale_by_learning_rate(learning_rate))
 
 
 def adamw(learning_rate: float | Schedule, *, b1: float = 0.9, b2: float = 0.999,

@@ -1,5 +1,6 @@
-"""``optim.adafactor`` in the port against the JAX package's (``optax``
-0.2.6's ``adafactor``) on the CPU: 5 steps from the same params and
+"""The optimizers the port writes out where the JAX package calls optax:
+``optim.adafactor``, ``lars`` and ``lamb`` against the JAX package's
+(``optax`` 0.2.6's) on the CPU. ``adafactor``: 5 steps from the same params and
 gradients, made from a seed with numpy, for tensors it factors (two dims
 of at least ``min_dim_size_to_factor``, 3-D included) and tensors it
 keeps whole (vectors, a matrix with a short dim, a small square), with
@@ -132,4 +133,90 @@ def test_adafactor_refuses_shards_and_zero_slices():
     for grads in (toptim.Shards([torch.ones(128, 130)], [0.5]),
                   toptim.Slices([torch.ones(128, 130)], [0.5], whole=[torch.ones(256, 130)])):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+            tx.update(grads, state, [torch.zeros(128, 130)])
+
+
+# -- lars and lamb: optax's, as the JAX package calls them ---------------------
+
+#: f32 norms summed in another order move a trust ratio by an ulp, which
+#: scales a whole tensor: 1e-6 relative to each element and to the tensor's
+#: largest element (elements near 0 carry the tensor's rounding)
+LAYERWISE_RTOL = 1e-6
+#: conv kernels (OIHW in the port; a norm does not see the layout), a dense
+#: kernel, a BatchNorm scale and a bias (1-D: masked out of LARS's decay and
+#: trust ratio), and a zero-initialised kernel (a zero norm: trust ratio 1)
+LAYERWISE_SHAPES = {"conv": (16, 8, 3, 3), "dense": (32, 10), "scale": (16,),
+                    "bias": (10,), "zero": (8, 8)}
+
+
+def _layerwise_params():
+    rng = np.random.default_rng(3)
+    out = {k: (rng.standard_normal(s) * 0.1).astype(np.float32)
+           for k, s in LAYERWISE_SHAPES.items()}
+    out["zero"][:] = 0.0
+    return out
+
+
+def _layerwise_grads(step):
+    rng = np.random.default_rng(200 + step)
+    out = {k: rng.standard_normal(s).astype(np.float32)
+           for k, s in LAYERWISE_SHAPES.items()}
+    if step == 0:
+        out["bias"][:] = 0.0  # a zero update norm
+    return out
+
+
+@pytest.mark.parametrize("name", ["lars", "lamb"])
+@pytest.mark.parametrize("schedule", [False, True])
+def test_layerwise_optimizers_match_optax(name, schedule):
+    """5 updates of the port's ``lars``/``lamb`` against the JAX package's
+    (optax's) from the same params and gradients, to 1e-6 relative in f32,
+    the momentum trace and Adam's moments included."""
+    lr_j = optax.linear_schedule(0.5, 0.05, STEPS) if schedule else 0.3
+    lr_t = toptim.linear_schedule(0.5, 0.05, STEPS) if schedule else 0.3
+    kw = dict(weight_decay=1e-2)
+    jtx, ttx = getattr(joptim, name)(lr_j, **kw), getattr(toptim, name)(lr_t, **kw)
+    names = list(LAYERWISE_SHAPES)
+    jp = {k: jnp.asarray(v) for k, v in _layerwise_params().items()}
+    tp = [torch.tensor(_layerwise_params()[k]) for k in names]
+    js, ts = jtx.init(jp), ttx.init(tp)
+    for step in range(STEPS):
+        g = _layerwise_grads(step)
+        ju, js = jtx.update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
+        jp = optax.apply_updates(jp, ju)
+        tu, ts = ttx.update([torch.tensor(g[k]) for k in names], ts, tp)
+        torch._foreach_add_(tp, tu)
+    for k, t in zip(names, tp):
+        want = np.asarray(jp[k])
+        np.testing.assert_allclose(t.numpy(), want, rtol=LAYERWISE_RTOL,
+                                   atol=LAYERWISE_RTOL * np.abs(want).max(),
+                                   err_msg=k)
+        if name == "lars" and k in ("scale", "bias"):
+            # masked out of decay and trust ratio: plain momentum SGD
+            assert not np.array_equal(t.numpy(), _layerwise_params()[k]), k
+
+
+def test_lars_masks_one_dim_params_from_decay_and_trust_ratio():
+    """One LARS step on a 1-D param is momentum SGD at lr, with no decay and
+    no trust ratio; a kernel's step is scaled by 1e-3·‖p‖/‖g + wd·p‖."""
+    tx = toptim.lars(0.1, momentum=0.9, weight_decay=1e-4)
+    p = [torch.full((4,), 2.0), torch.full((2, 2), 2.0)]
+    g = [torch.ones(4), torch.ones(2, 2)]
+    u, _ = tx.update([x.clone() for x in g], tx.init(p), p)
+    torch.testing.assert_close(u[0], torch.full((4,), -0.1), rtol=0, atol=0)
+    d = 1.0 + 1e-4 * 2.0
+    want = -0.1 * d * 1e-3 * 4.0 / (2.0 * d)
+    torch.testing.assert_close(u[1], torch.full((2, 2), want), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("name", ["lars", "lamb"])
+def test_layerwise_optimizers_refuse_shards_and_zero_slices(name):
+    tx = getattr(toptim, name)(1e-2)
+    p = [torch.zeros(256, 130)]
+    state = tx.init(p)
+    for grads in (toptim.Shards([torch.ones(128, 130)], [0.5]),
+                  toptim.Slices([torch.ones(128, 130)], [0.5],
+                                whole=[torch.ones(256, 130)])):
+        with pytest.raises(NotImplementedError,
+                           match=f"{name} over shards.*ROADMAP Queue 1 item 3"):
             tx.update(grads, state, [torch.zeros(128, 130)])

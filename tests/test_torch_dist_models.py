@@ -526,10 +526,7 @@ def test_driver_trains_at_two_ranks(name, tmp_path):
     assert sorted(losses_) == ["p0", "p1"] and losses_["p0"] == losses_["p1"]
 
 
-REFUSED = [("resnet", [flag] + (["x"] if flag != "--mfu" else []))
-           for flag in train_resnet.NOT_PORTED]
-REFUSED += [("resnet", ["--optimizer", "lars"]),
-            ("dlrm", ["--expert-shards", "2"])]
+REFUSED = [("dlrm", ["--expert-shards", "2"])]
 REFUSED += [("dlrm", [flag]) for flag in train_dlrm.NOT_PORTED]
 
 

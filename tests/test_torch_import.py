@@ -75,7 +75,8 @@ print(json.dumps({{"modules": names, "loaded": sorted(sys.modules)}}))
                 "examples.train_llama_mpmd", "parallel.pipeline", "models.llama_pp",
                 "parallel.plan", "models.llama_gen", "serve.generate", "serve.kv",
                 "serve.reload", "serve.router", "serve.fleet", "serve.cli",
-                "examples.serve_mnist"}
+                "examples.serve_mnist", "utils.native", "data.records",
+                "examples.train_bert"}
     got = {n.split(".", 1)[1] for n in rec["modules"]}
     assert expected <= got, expected - got
     bad = [m for m in rec["loaded"] if _forbidden(m)]
@@ -112,7 +113,6 @@ def test_resnet_driver_takes_the_observability_flags():
     """The three flags it refused (ROADMAP Queue 1 item 9) parse now."""
     from distributeddeeplearningspark_tpu_torch.examples import train_resnet
 
-    assert not {"--profile-dir", "--tensorboard-dir", "--mfu"} & set(train_resnet.NOT_PORTED)
     args = train_resnet.parse_args(["--profile-dir", "p", "--tensorboard-dir", "tb",
                                     "--mfu"])
     assert (args.profile_dir, args.tensorboard_dir, args.mfu) == ("p", "tb", True)
@@ -130,12 +130,14 @@ def test_chip_smoke_imports_no_jax():
                                    "resnet50", "dlrm", "lenet", "train_resnet",
                                    "train_dlrm", "llama2_7b", "llama_tiny",
                                    "train_llama_lora", "train_mnist",
-                                   "train_llama_mpmd", "stage_program"])
+                                   "train_llama_mpmd", "stage_program", "train_bert",
+                                   "bert_tiny"])
 def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
     if torch.cuda.is_available():
         pytest.skip("the no-CUDA error needs a machine without CUDA")
     from distributeddeeplearningspark_tpu_torch import Session, Trainer
     from distributeddeeplearningspark_tpu_torch.examples import (
+        train_bert,
         train_dlrm,
         train_llama_lora,
         train_llama_mpmd,
@@ -144,7 +146,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
     )
     from distributeddeeplearningspark_tpu_torch.models import llama
     from distributeddeeplearningspark_tpu_torch.models.bert import (
-        BertConfig, BertForMLM, bert_base)
+        BertConfig, BertForMLM, bert_base, bert_tiny)
     from distributeddeeplearningspark_tpu_torch.serve import InferenceEngine
     from distributeddeeplearningspark_tpu_torch.train import losses, optim, pipeline_trainer
     from distributeddeeplearningspark_tpu_torch.utils.device import resolve_device
@@ -170,6 +172,8 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(entry):
         "train_llama_lora": lambda: train_llama_lora.main(["--steps", "1"]),
         "train_mnist": lambda: train_mnist.main(["--steps", "1"]),
         "train_llama_mpmd": lambda: train_llama_mpmd.main(["--steps", "1"]),
+        "train_bert": lambda: train_bert.main(["--steps", "1", "--variant", "tiny"]),
+        "bert_tiny": lambda: bert_tiny(),
         "stage_program": lambda: pipeline_trainer.LlamaStageProgram(
             llama.LlamaConfig.tiny(), 0, 2, optim.sgd(0.1)),
     }

@@ -11,6 +11,12 @@ by ``params_from_flax``. The JAX fused path runs its Pallas kernel in
 interpret mode. Tolerances: f32 on both sides differs in summation order
 (convolutions by other algorithms), 1e-4 relative to each tensor's largest
 value; bf16 logits differ by where each framework rounds activations.
+
+The torchvision import (``resnet_io.import_torchvision_resnet``, and
+``hf_resnet_to_torchvision_keys`` for ``transformers``' names) is held to
+the JAX package's on a state dict the test makes from a seed in
+torchvision's names and OIHW shapes: the eval logits of both models at
+1e-4 in f32.
 """
 
 import jax
@@ -20,8 +26,10 @@ import pytest
 import torch
 
 from distributeddeeplearningspark_tpu.models import resnet as jresnet
+from distributeddeeplearningspark_tpu.models import resnet_io as jresnet_io
 from distributeddeeplearningspark_tpu.ops import conv_bn as jconv
 from distributeddeeplearningspark_tpu_torch.models import resnet as tresnet
+from distributeddeeplearningspark_tpu_torch.models import resnet_io as tresnet_io
 from distributeddeeplearningspark_tpu_torch.models.resnet_io import params_from_flax
 from distributeddeeplearningspark_tpu_torch.ops import conv_bn as tconv
 from test_torch_deadline import bounded, per_test
@@ -225,3 +233,109 @@ def test_resnet50_raises_without_cuda_unless_given_the_cpu():
         pytest.skip("the no-CUDA error needs a machine without CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tresnet.resnet50()
+
+
+def _torchvision_state_dict(stage_sizes, bottleneck: bool, width: int,
+                            classes: int, seed: int) -> dict[str, torch.Tensor]:
+    """Random weights in torchvision's ResNet names and shapes (v1.5:
+    stride on the 3×3; a downsample where the shape changes)."""
+    rng = np.random.default_rng(seed)
+    sd: dict[str, torch.Tensor] = {}
+
+    def conv(name, o, i, k):
+        sd[name] = torch.from_numpy(
+            rng.normal(0, (2.0 / (i * k * k)) ** 0.5, (o, i, k, k)).astype(np.float32))
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+        sd[f"{name}.bias"] = torch.from_numpy(rng.normal(0, 0.1, c).astype(np.float32))
+        sd[f"{name}.running_mean"] = torch.from_numpy(rng.normal(0, 0.1, c).astype(np.float32))
+        sd[f"{name}.running_var"] = torch.from_numpy(rng.uniform(0.5, 2.0, c).astype(np.float32))
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(7)
+
+    conv("conv1.weight", width, 3, 7)
+    bn("bn1", width)
+    cin = width
+    for s, depth in enumerate(stage_sizes, start=1):
+        f = width * 2 ** (s - 1)
+        cout = 4 * f if bottleneck else f
+        for b in range(depth):
+            pre = f"layer{s}.{b}"
+            if bottleneck:
+                conv(f"{pre}.conv1.weight", f, cin, 1)
+                conv(f"{pre}.conv2.weight", f, f, 3)
+                conv(f"{pre}.conv3.weight", cout, f, 1)
+                for c, n in ((1, f), (2, f), (3, cout)):
+                    bn(f"{pre}.bn{c}", n)
+            else:
+                conv(f"{pre}.conv1.weight", f, cin, 3)
+                conv(f"{pre}.conv2.weight", f, f, 3)
+                bn(f"{pre}.bn1", f)
+                bn(f"{pre}.bn2", f)
+            if b == 0 and (s > 1 or cin != cout):
+                conv(f"{pre}.downsample.0.weight", cout, cin, 1)
+                bn(f"{pre}.downsample.1", cout)
+            cin = cout
+    sd["fc.weight"] = torch.from_numpy(rng.normal(0, 0.05, (classes, cin)).astype(np.float32))
+    sd["fc.bias"] = torch.from_numpy(rng.normal(0, 0.05, classes).astype(np.float32))
+    return sd
+
+
+@pytest.mark.parametrize("kind", ["fused", "unfused", "basic"])
+def test_torchvision_import_gives_the_jax_imports_logits(kind):
+    """One torchvision-convention state dict into the JAX model (its
+    ``import_torchvision_resnet``) and the port's: the same eval logits in
+    f32, every param and BatchNorm statistic covered."""
+    bottleneck = kind != "basic"
+    stages, width = (1, 2), 8
+    sd = _torchvision_state_dict(stages, bottleneck, width, CLASSES, seed=5)
+    jblock = jresnet.BottleneckBlock if bottleneck else jresnet.BasicBlock
+    jm = jresnet.ResNet(stage_sizes=stages, block_cls=jblock, num_classes=CLASSES,
+                        width=width, dtype=jnp.float32)
+    jparams, jstats = jresnet_io.import_torchvision_resnet(
+        {k: v.numpy() for k, v in sd.items()}, stage_sizes=stages, bottleneck=bottleneck)
+    img = np.random.default_rng(6).normal(0, 1, (BATCH, SIZE, SIZE, 3)).astype(np.float32)
+    want = jm.apply({"params": jparams, "batch_stats": jstats}, {"image": img},
+                    train=False)
+    tblock = tresnet.BottleneckBlock if bottleneck else tresnet.BasicBlock
+    tm = tresnet.ResNet(stage_sizes=stages, block_cls=tblock, num_classes=CLASSES,
+                        width=width, dtype=torch.float32, device="cpu",
+                        fused_conv_bn=kind == "fused")
+    params, stats = tresnet_io.import_torchvision_resnet(
+        sd, stage_sizes=stages, bottleneck=bottleneck, fused_conv_bn=kind == "fused")
+    assert set(params) == {n for n, _ in tm.named_parameters()}
+    assert set(stats) == {n for n, _ in tm.named_buffers()}
+    tm.load_state_dict({**params, **stats})
+    tm.eval()
+    with torch.no_grad():
+        got = tm({"image": torch.from_numpy(img)})
+    _close(got, want, msg=kind)
+
+
+def test_hf_keys_map_to_torchvision_names():
+    """``transformers``' ResNet names → torchvision's, as the JAX package
+    maps them, and a state dict that is not such a checkpoint refused."""
+    sd = _torchvision_state_dict((1, 2), True, 8, CLASSES, seed=7)
+    hf = {}
+    for k, v in sd.items():
+        parts = k.split(".")
+        if k.startswith(("conv1", "bn1")):
+            kind = "convolution" if k.startswith("conv1") else "normalization"
+            hf[f"resnet.embedder.embedder.{kind}.{parts[-1]}"] = v
+        elif k.startswith("fc."):
+            hf[f"classifier.1.{parts[-1]}"] = v
+        else:
+            s, b = int(parts[0][5:]) - 1, int(parts[1])
+            if parts[2] == "downsample":
+                kind = "convolution" if parts[3] == "0" else "normalization"
+                hf[f"resnet.encoder.stages.{s}.layers.{b}.shortcut.{kind}.{parts[-1]}"] = v
+            else:
+                c = int(parts[2][-1]) - 1
+                kind = "convolution" if parts[2].startswith("conv") else "normalization"
+                hf[f"resnet.encoder.stages.{s}.layers.{b}.layer.{c}.{kind}.{parts[-1]}"] = v
+    got = tresnet_io.hf_resnet_to_torchvision_keys(hf)
+    want = jresnet_io.hf_resnet_to_torchvision_keys(hf)
+    assert got.keys() == want.keys() == {k for k in sd if not k.endswith("num_batches_tracked")}
+    assert all(got[k] is sd[k] for k in got)
+    with pytest.raises(ValueError, match="does not look like"):
+        tresnet_io.hf_resnet_to_torchvision_keys({"encoder.x": torch.zeros(1)})
