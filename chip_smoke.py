@@ -222,6 +222,34 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    steps at S=512, b=32 (at its default S=128 the attention gate keeps
    K1–K3 off) with ``--token-stats`` from a corpus file and from an XML
    dump: finite losses, K1, K2 and K3 12 times a step;
+12c. "sql", the Spark data plane (every number printed beside the card's
+   name and power limit): (a) config 4 from SQL features: four Criteo
+   ``day_*`` TSVs of 65,536 rows (13 integer columns and 26 columns of
+   8-hex tokens, some fields empty, the labels drawn from a logistic of a
+   few head tokens and dense values) and a held-out file of 65,536, the
+   port's ``examples/train_dlrm.py --sql-features --eval-data`` through
+   the cli at ``local[1]`` at full width (26 × 100,000 × 64 f32, b =
+   8,192) for 20 steps: K5 once a step, finite losses, the held-out AUC at
+   least 0.55; the DataFrame feed's host examples/s alone beside the
+   step's; then ``--dense-tables`` for 5 steps: no K5 launch, finite
+   losses; each run's step ms and peak memory; (b) ``groupBy("k").agg()``
+   with count, sum, mean, min and max over 10,000,000 rows of 2,000,000
+   int64 keys, an integer-valued f64 and an int32 column: the serial path
+   refuses at the default ``max_groups``; the ``columnar`` exchange at 4
+   workers under ``DLS_SHUFFLE_MEM_MB=64`` spills; ``device`` on the card
+   gives its rows' blake2b digest; ``tuple`` gives ``columnar``'s on the
+   first 1,000,000 rows; the device fold equals the exchange's
+   ``combine_planes`` bitwise for int32, int64, f32 and f64 planes ×
+   sum/min/max; each route's rows/s and keys/s, spills, bytes moved and
+   the fold's device ms; (c) (b)'s columnar aggregation under
+   ``DLS_FAULT=die_shuffle_worker@5`` for a mapper and a reducer: the clean
+   digest, at least one retry of each role, nothing left, and a typed
+   ``WorkerCrashed`` at ``DLS_SHUFFLE_MAX_RETRIES=0``; the recovery's cost
+   against the clean wall time; (d) ``examples/dlrm_features.py`` at
+   1,000,000 raw rows, 26 slots, 13 dense, a 100,000-token vocabulary, 4
+   workers, b = 8,192, 20 steps: the vocabulary on the card equal to the
+   heap's on the same counts by digest, the vocabulary seconds, the feed's
+   examples/s and the train summary;
 13. hold global BatchNorm statistics on the card: ResNet-50 at b=256 as
    the two halves of a batch, one process each on this card, summing
    their statistics and their gradients through a gloo group as
@@ -365,7 +393,8 @@ bitwise (``--gang llama-zero`` and ``llama-mpmd-zero`` run these alone).
 combine), ``--gang llama-mpmd-stages`` (e)–(h) and the driver only (with
 its own (b) run), ``--gang recovery`` the shrink, the drain and the desync only.
 ``python3 chip_smoke.py --recovery`` builds the kernels and runs phases 11
-and 14 only (one card); ``--files`` builds them and runs phase 12b only; ``--observe`` builds them and runs phases 5 and 6b
+and 14 only (one card); ``--files`` builds them and runs phase 12b only; ``--sql``
+builds them and runs phase 12c only; ``--observe`` builds them and runs phases 5 and 6b
 and the observed ResNet driver only (one card). ``python3 chip_smoke.py --ckpt-commit TREE``
 measures the supervised crash drill's race with TREE's package (one card):
 how long the LeNet checkpoint's asynchronous write takes to commit against
@@ -383,6 +412,7 @@ package is not beside this script, or when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import json
@@ -8238,6 +8268,495 @@ def check_files(torch, synthetic: dict | None = None,
     return rec
 
 
+# -- phase 12c: the Spark data plane ("sql") -----------------------------------
+
+SQL_ROOT = ROOT / "build" / "chip_smoke_sql"
+#: (a): four day_* shards of 65,536 Criteo rows (262,144, ~80 MB) and a
+#: held-out file of 65,536, trained from at the config-4 DLRM's full width
+SQL_SHARDS, SQL_SHARD_ROWS, SQL_EVAL_ROWS = 4, 65_536, 65_536
+SQL_STEPS, SQL_LOG_EVERY, SQL_DENSE_STEPS = 20, 5, 5
+#: the held-out AUC the planted signal must reach in SQL_STEPS steps
+SQL_AUC_MIN = 0.55
+#: distinct 8-hex-digit tokens drawn from in each categorical column
+SQL_TOKENS = 200_000
+#: (b): a DataFrame of AGG_ROWS rows over AGG_KEYS distinct int64 keys (each
+#: AGG_ROWS / AGG_KEYS times), in AGG_PARTS partitions of DEFAULT_CHUNK_ROWS
+#: chunks; the exchange at AGG_WORKERS workers under AGG_MEM_MB, so it spills
+AGG_ROWS, AGG_KEYS, AGG_PARTS = 10_000_000, 2_000_000, 8
+AGG_WORKERS, AGG_MEM_MB = 4, 64
+#: the tuple transport's rows (its per-key pickles run ~10× slower)
+AGG_TUPLE_ROWS = 1_000_000
+#: every fn on both value columns: count, sum, mean, min, max
+AGG_SPEC = {"k": "count", "v": "sum", "v2": "mean", "i": "min", "i2": "max"}
+#: (c): the element (a mapper's chunk, a reducer's merged frame) at which
+#: worker slot 0 of each role kills itself on its first attempt
+AGG_FAULT_AT = 5
+#: (d): examples/dlrm_features.py at the config-4 shape, cut to 250,000 raw
+#: rows: at 1,000,000 its vocabulary's exchange (26M tuple pairs) took 111 s
+#: of a 387 s phase on the card's host, past the default run's limit
+ETL_ROWS, ETL_SLOTS, ETL_DENSE, ETL_VOCAB = 250_000, 26, 13, 100_000
+ETL_WORKERS, ETL_BATCH, ETL_STEPS = 4, 8192, 20
+#: where the device folds of (b) and (d) run (a CPU rehearsal sets "cpu")
+SQL_DEVICE = "cuda"
+
+
+@contextlib.contextmanager
+def _env(**kv: str):
+    """Environment variables set for a ``with`` block, then restored."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _hex_tokens(ids: np.ndarray, column: int) -> np.ndarray:
+    """8-hex-digit tokens for token ids, distinct within a column."""
+    uniq, inv = np.unique(ids, return_inverse=True)
+    mixed = (uniq.astype(np.uint64) * np.uint64(2654435761)
+             + np.uint64(column * 40503 + 1)) & np.uint64(0xFFFFFFFF)
+    return np.asarray([f"{int(x):08x}" for x in mixed])[inv]
+
+
+def _write_criteo(path: Path, rows: int, seed: int) -> float:
+    """A Criteo-format TSV: label, I1–I13 (log-normal counts, 10% empty),
+    C1–C26 (zipf draws over SQL_TOKENS 8-hex tokens a column, 5% empty).
+    The label is drawn from a logistic of log1p(I1), log1p(I2) and whether
+    C1 and C2 hold one of their head tokens: a signal the model can learn
+    in a few steps. Returns the file's click rate."""
+    rng = np.random.default_rng(seed)
+    dense = np.floor(rng.lognormal(1.5, 1.2, (rows, 13))).astype(np.int64)
+    empty = rng.random((rows, 13)) < 0.1
+    dense[empty] = 0
+    ids = np.minimum(rng.zipf(1.15, (rows, 26)) - 1, SQL_TOKENS - 1)
+    cat_empty = rng.random((rows, 26)) < 0.05
+    x1, x2 = np.log1p(dense[:, 0]), np.log1p(dense[:, 1])
+    z = (1.5 * (x1 - x1.mean()) / x1.std() - 1.0 * (x2 - x2.mean()) / x2.std()
+         + 1.5 * ((ids[:, 0] < 3) & ~cat_empty[:, 0])
+         - 1.5 * ((ids[:, 1] < 3) & ~cat_empty[:, 1]) - 0.5)
+    label = (rng.random(rows) < 1.0 / (1.0 + np.exp(-z))).astype(np.int64)
+    cols = [label.astype(str).tolist()]
+    for j in range(13):
+        cols.append(np.where(empty[:, j], "", dense[:, j].astype(str)).tolist())
+    for j in range(26):
+        cols.append(np.where(cat_empty[:, j], "", _hex_tokens(ids[:, j], j)).tolist())
+    with open(path, "w") as f:
+        f.writelines("\t".join(r) + "\n" for r in zip(*cols))
+    return float(label.mean())
+
+
+def _sql_driver_args(data: Path, eval_file: Path, steps: int, *extra: str) -> list[str]:
+    return ["--sql-features", "--data-dir", str(data), "--eval-data", str(eval_file),
+            "--vocab-size", str(DLRM_VOCABS[0]), "--num-sparse", str(len(DLRM_VOCABS)),
+            "--embed-dim", "64", "--batch-size", str(DLRM_BATCH),
+            "--steps", str(steps), "--log-every", str(SQL_LOG_EVERY),
+            "--eval-examples", str(SQL_EVAL_ROWS), *extra]
+
+
+def _dlrm_in_process(torch, workdir: Path, args: list[str]) -> dict:
+    """The port's DLRM driver's ``main`` in this process (a session of one
+    on this card, no launch), its telemetry in ``workdir``: the shape of
+    :func:`_driver_run`'s record, its peak memory counted from here."""
+    import io
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch import telemetry
+    from distributeddeeplearningspark_tpu_torch.examples import train_dlrm
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    os.environ[telemetry.WORKDIR_ENV] = str(workdir)
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(out):
+            train_dlrm.main(args)
+    finally:
+        os.environ.pop(telemetry.WORKDIR_ENV, None)
+        telemetry.reset()
+    results = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith('{"train"')]
+    check(len(results) == 1, f"the in-process driver printed {len(results)} result lines")
+    losses, laps = [], []
+    for r in _events(workdir):
+        if r["kind"] == "step_metrics":
+            losses.append(r["metrics"]["loss"])
+            laps.append(r["lap_s"] * 1e3 / r["steps"])
+    return dict(result=results[0], launch=dict(wall_s=time.time() - t0), losses={"p0": losses},
+                step_ms_by_rank={"p0": float(np.mean(laps[1:] if len(laps) > 1 else laps))},
+                left={})
+
+
+def sql_train(torch) -> dict:
+    """(a) Config 4 trained from SQL features: Criteo TSVs written here,
+    the port's driver ``--sql-features`` through its cli at ``local[1]``
+    at full width (26 × 100,000 × 64 f32, b = 8,192) for SQL_STEPS steps:
+    K5 once a step, finite losses, the held-out AUC at least SQL_AUC_MIN;
+    the DataFrame feed's host examples/s alone; then ``--dense-tables`` for
+    SQL_DENSE_STEPS steps, the driver's main in this process (a launch
+    costs ~13 s before its first step): no K5 launch, finite losses. Each
+    run's step ms and the card's peak allocated bytes."""
+    import shutil
+
+    from distributeddeeplearningspark_tpu_torch.examples import train_dlrm
+    from distributeddeeplearningspark_tpu_torch.session import Session
+
+    data, wd = SQL_ROOT / "criteo", SQL_ROOT / "runs"
+    shutil.rmtree(SQL_ROOT, ignore_errors=True)
+    data.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ctr = [_write_criteo(data / f"day_{i}", SQL_SHARD_ROWS, seed=i)
+           for i in range(SQL_SHARDS)]
+    eval_file = SQL_ROOT / "eval.tsv"
+    ctr.append(_write_criteo(eval_file, SQL_EVAL_ROWS, seed=99))
+    write_s = time.perf_counter() - t0
+    data_bytes = sum(f.stat().st_size for f in data.iterdir())
+
+    spark = Session.builder.master("local[1]").appName("sql-feed").getOrCreate()
+    try:
+        args = train_dlrm.parse_args(_sql_driver_args(data, eval_file, SQL_STEPS))
+        host_ms = _host_batch_ms(train_dlrm.load_criteo(args, spark, str(data)).repeat(),
+                                 DLRM_BATCH, 3)
+    finally:
+        spark.stop()
+    runs = {"sparse": _driver_run("dlrm", wd / "sparse", 1,
+                                  _sql_driver_args(data, eval_file, SQL_STEPS)),
+            "dense": _dlrm_in_process(torch, wd / "dense",
+                                      _sql_driver_args(data, eval_file, SQL_DENSE_STEPS,
+                                                       "--dense-tables", "--master",
+                                                       "local[1]"))}
+    rec = dict(rows=SQL_SHARDS * SQL_SHARD_ROWS, eval_rows=SQL_EVAL_ROWS,
+               data_bytes=data_bytes, write_s=write_s, click_rates=ctr,
+               feed_host_ms=host_ms, feed_host_examples_per_s=DLRM_BATCH / host_ms * 1e3)
+    for name, run in runs.items():
+        res = run["result"]
+        rec[name] = dict(step_ms=run["step_ms_by_rank"].get("p0"),
+                         examples_per_s=res["train"].get("examples_per_sec_per_chip"),
+                         logged_losses=run["losses"].get("p0"), eval_auc=res["eval_auc"],
+                         k5_launches=res["k5_launches"], steps=res["step"],
+                         peak_bytes=res["peak_bytes"], launch=run["launch"],
+                         left=run["left"], sql_features=res["sql_features"],
+                         dense_tables=res["dense_tables"])
+    print("sql train " + json.dumps(rec), flush=True)
+    for name in runs:
+        r = rec[name]
+        print(f"sql train {name}: step {r['step_ms']} ms, {r['examples_per_s']} "
+              f"examples/s, peak {r['peak_bytes']} B, K5 {r['k5_launches']} "
+              f"launches in {r['steps']} steps, AUC {r['eval_auc']}; "
+              f"{nvidia_smi_line()}", flush=True)
+    print(f"sql feed: {rec['feed_host_examples_per_s']:.1f} host examples/s "
+          f"(DataFrame → to_dataset → host_batches) against the sparse step's "
+          f"{rec['sparse']['examples_per_s']} examples/s; {nvidia_smi_line()}", flush=True)
+    for name, steps in (("sparse", SQL_STEPS), ("dense", SQL_DENSE_STEPS)):
+        r = rec[name]
+        logged = r["logged_losses"] or []
+        check(r["steps"] == steps and r["sql_features"] and not r["left"],
+              f"sql {name} run: {r}")
+        check(len(logged) == steps // SQL_LOG_EVERY and all(np.isfinite(x) for x in logged),
+              f"sql {name} run's logged losses: {logged}")
+    check(rec["sparse"]["k5_launches"] == SQL_STEPS,
+          f"the SQL-fed driver launched K5 {rec['sparse']['k5_launches']} times in "
+          f"{SQL_STEPS} steps, want one a step")
+    check(rec["dense"]["k5_launches"] == 0 and rec["dense"]["dense_tables"],
+          f"--dense-tables launched K5 {rec['dense']['k5_launches']} times")
+    check(rec["sparse"]["eval_auc"] >= SQL_AUC_MIN,
+          f"held-out AUC {rec['sparse']['eval_auc']} < {SQL_AUC_MIN}")
+    return rec
+
+
+def _agg_frame(rows: int, seed: int = 0):
+    """(b)'s DataFrame: ``k`` int64 over AGG_KEYS distinct values (each
+    rows / AGG_KEYS times, shuffled), ``v`` integer-valued f64, ``i``
+    int32, and their copies ``v2``/``i2`` (a dict spec names a column
+    once), in AGG_PARTS partitions of DEFAULT_CHUNK_ROWS chunks."""
+    from distributeddeeplearningspark_tpu_torch.data.dataframe import (
+        DEFAULT_CHUNK_ROWS,
+        DataFrame,
+        col,
+    )
+    from distributeddeeplearningspark_tpu_torch.rdd import PartitionedDataset
+
+    rng = np.random.default_rng(seed)
+    keys = np.arange(AGG_KEYS, dtype=np.int64) * 2654435761 + 12345
+    k = rng.permutation(np.tile(keys, AGG_ROWS // AGG_KEYS))[:rows]
+    v = rng.integers(-1000, 1000, rows).astype(np.float64)
+    i = rng.integers(-50_000, 50_000, rows).astype(np.int32)
+
+    def part(p: int):
+        lo, hi = p * rows // AGG_PARTS, (p + 1) * rows // AGG_PARTS
+
+        def gen():
+            for a in range(lo, hi, DEFAULT_CHUNK_ROWS):
+                b = min(a + DEFAULT_CHUNK_ROWS, hi)
+                yield {"k": k[a:b], "v": v[a:b], "i": i[a:b]}
+        return gen
+
+    df = DataFrame(PartitionedDataset.from_generators(
+        [part(p) for p in range(AGG_PARTS)]), ["k", "v", "i"])
+    return df.withColumns({"v2": col("v"), "i2": col("i")}), (k, v, i)
+
+
+def _frame_digest(df) -> tuple[str, int]:
+    """blake2b over each column's bytes (and dtype) in row order, the
+    columns by name: the same for the same rows however they are chunked;
+    and the row count."""
+    hs: dict = {}
+    n = 0
+    for p in range(df.num_partitions):
+        for ch in df._chunks.iter_partition(p):
+            for c, a in ch.items():
+                a = np.ascontiguousarray(a)
+                h = hs.setdefault(c, hashlib.blake2b(a.dtype.str.encode(), digest_size=16))
+                h.update(a.tobytes())
+            n += len(next(iter(ch.values()))) if ch else 0
+    top = hashlib.blake2b(digest_size=16)
+    for c in sorted(hs):
+        top.update(c.encode() + hs[c].digest())
+    return top.hexdigest(), n
+
+
+def _agg_route(df, **kw) -> dict:
+    """One groupBy("k").agg(AGG_SPEC) route, consumed: its digest, rows,
+    wall seconds and (for the exchange) its stats."""
+    from distributeddeeplearningspark_tpu_torch.data import exchange
+
+    seen: dict = {}
+    orig = exchange.run_exchange
+
+    def spy(*a, **k):
+        r = orig(*a, **k)
+        seen.update(r.stats)
+        return r
+
+    exchange.run_exchange = spy
+    try:
+        t0 = time.perf_counter()
+        digest, rows = _frame_digest(df.groupBy("k").agg(AGG_SPEC, **kw))
+        wall = time.perf_counter() - t0
+    finally:
+        exchange.run_exchange = orig
+    return dict(digest=digest, rows_out=rows, wall_s=wall, stats=seen)
+
+
+def _exchange_leftovers() -> dict:
+    """The exchange's children and ``/dev/shm`` segments of this process
+    still there after a bounded moment."""
+    deadline = time.monotonic() + 10.0
+    while True:
+        gc.collect()
+        procs = [p.name for p in mp.active_children() if p.name.startswith("dlsx-")]
+        segs = [f for f in os.listdir("/dev/shm") if f.startswith(f"dlsx-{os.getpid()}-")]
+        left = {k: v for k, v in dict(processes=procs, segments=segs).items() if v}
+        if not left or time.monotonic() > deadline:
+            return left
+        time.sleep(0.1)
+
+
+def _fold_planes(torch, k: np.ndarray, v: np.ndarray, i: np.ndarray) -> list[dict]:
+    """The device fold against the exchange's ``combine_planes`` (its plain
+    version) on the same planes, bitwise: the key plane's hashes and
+    int32, int64, f32 and f64 value planes × sum/min/max; each fold's
+    device ms on tensors already on the card (CUDA events, synchronised)."""
+    from distributeddeeplearningspark_tpu_torch.data import device_agg, exchange
+
+    uniq, inv = np.unique(k, return_inverse=True)
+    h = exchange.hash_rows([(int(x),) for x in uniq])[inv]
+    planes = {"int32": i, "int64": i.astype(np.int64) * 4099, "float32": v.astype(np.float32),
+              "float64": v}
+    out = []
+    for dtype, vals in planes.items():
+        for op in exchange.NUMERIC_COMBINES:
+            plan = exchange.reduce_pair_plan(op)
+            want = exchange.combine_planes(exchange._Planes(h, (k,), (vals,)), plan)
+            got = device_agg.segment_combine(exchange._Planes(h, (k,), (vals,)), plan,
+                                             device=SQL_DEVICE)
+            same = (got.h.tobytes() == want.h.tobytes()
+                    and got.keys[0].tobytes() == want.keys[0].tobytes()
+                    and got.vals[0].dtype == want.vals[0].dtype
+                    and got.vals[0].tobytes() == want.vals[0].tobytes())
+            # the fold alone, on the card, at this plane's sorted segments
+            pl, starts, seg_id, _ = exchange.sorted_segments(exchange._Planes(h, (k,), (vals,)))
+            nseg = len(starts)
+            col_ = pl.vals[0].astype(np.add.reduce(vals[:0]).dtype) if op == "sum" else pl.vals[0]
+            n_pad, nseg_pad = device_agg._pad_len(len(col_)), device_agg._pad_len(nseg + 1)
+            data = np.full(n_pad, device_agg._identity(op, torch.from_numpy(col_[:0]).dtype), col_.dtype)
+            data[:len(col_)] = col_
+            ids = np.full(n_pad, nseg, np.int64)
+            ids[:len(col_)] = seg_id
+            fold = device_agg._segment_fold(op, nseg_pad, torch.device(SQL_DEVICE))
+            dt = torch.from_numpy(data).to(SQL_DEVICE)
+            di = torch.from_numpy(ids).to(SQL_DEVICE)
+            ms = time_ms(torch, lambda: fold(dt, di), iters=10)
+            t0 = time.perf_counter()
+            exchange.combine_planes(exchange._Planes(h, (k,), (vals,)), plan)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            out.append(dict(dtype=dtype, op=op, rows=len(k), segments=nseg, bitwise=same,
+                            fold_ms=ms, reduceat_host_ms=host_ms))
+    return out
+
+
+def sql_agg(torch) -> dict:
+    """(b) groupBy("k").agg(AGG_SPEC) over AGG_ROWS rows on every route and
+    (c) the columnar route's recovery drill; see the module docstring."""
+    from distributeddeeplearningspark_tpu_torch.data.workers import WorkerCrashed
+
+    t0 = time.perf_counter()
+    df, (k, v, i) = _agg_frame(AGG_ROWS)
+    small, _ = _agg_frame(AGG_TUPLE_ROWS)
+    build_s = time.perf_counter() - t0
+    rec: dict = dict(rows=AGG_ROWS, keys=AGG_KEYS, workers=AGG_WORKERS,
+                     mem_mb=AGG_MEM_MB, spec=AGG_SPEC, build_s=build_s)
+
+    t0 = time.perf_counter()
+    try:
+        _frame_digest(df.groupBy("k").agg(AGG_SPEC, num_workers=0))
+        rec["serial"] = dict(refused=False)
+    except ValueError as e:
+        rec["serial"] = dict(refused="max_groups" in str(e), error=str(e)[:200],
+                             wall_s=time.perf_counter() - t0)
+    with _env(DLS_SHUFFLE_MEM_MB=str(AGG_MEM_MB)):
+        rec["columnar"] = _agg_route(df, num_workers=AGG_WORKERS, transport="columnar")
+        rec["columnar_left"] = _exchange_leftovers()
+        rec["small_columnar"] = _agg_route(small, num_workers=AGG_WORKERS,
+                                           transport="columnar")
+        rec["small_tuple"] = _agg_route(small, num_workers=AGG_WORKERS, transport="tuple")
+    torch.cuda.synchronize()
+    rec["device"] = _agg_route(df, transport="device")
+    rec["planes"] = _fold_planes(torch, k[:AGG_TUPLE_ROWS], v[:AGG_TUPLE_ROWS],
+                                 i[:AGG_TUPLE_ROWS])
+
+    fault = dict(DLS_SHUFFLE_MEM_MB=str(AGG_MEM_MB),
+                 DLS_FAULT=f"die_shuffle_worker@{AGG_FAULT_AT}",
+                 DLS_FAULT_SHUFFLE_ROLE="both")
+    with _env(**fault):
+        rec["recovery"] = _agg_route(df, num_workers=AGG_WORKERS, transport="columnar")
+        rec["recovery_left"] = _exchange_leftovers()
+        with _env(DLS_SHUFFLE_MAX_RETRIES="0"):
+            try:
+                _frame_digest(small.groupBy("k").agg(AGG_SPEC, num_workers=AGG_WORKERS,
+                                                     transport="columnar"))
+                rec["fail_fast"] = "no error"
+            except WorkerCrashed as e:
+                rec["fail_fast"] = f"WorkerCrashed: {str(e)[:200]}"
+        rec["fail_fast_left"] = _exchange_leftovers()
+    for name in ("columnar", "small_columnar", "small_tuple", "device", "recovery"):
+        r = rec[name]
+        rows_in = AGG_TUPLE_ROWS if name.startswith("small") else AGG_ROWS
+        r["rows_in_per_s"] = rows_in / r["wall_s"]
+        r["keys_out_per_s"] = r["rows_out"] / r["wall_s"]
+    rec["recovery_overhead"] = rec["recovery"]["wall_s"] / rec["columnar"]["wall_s"] - 1
+    print("sql agg " + json.dumps(rec, default=str), flush=True)
+    for name in ("columnar", "small_columnar", "small_tuple", "device", "recovery"):
+        r, st = rec[name], rec[name]["stats"]
+        print(f"sql agg {name}: {r['rows_in_per_s']:.0f} rows/s in, "
+              f"{r['keys_out_per_s']:.0f} keys/s out, {r['wall_s']:.2f} s, "
+              f"spills {st.get('spills')}, bytes moved {st.get('bytes_moved')}, "
+              f"retries {st.get('mapper_retries')}/{st.get('reducer_retries')} "
+              f"(mapper/reducer); {nvidia_smi_line()}", flush=True)
+    for p in rec["planes"]:
+        print(f"sql fold {p['dtype']} {p['op']}: bitwise {p['bitwise']}, "
+              f"{p['fold_ms']:.4f} device ms ({p['rows']} rows, {p['segments']} "
+              f"segments), reduceat {p['reduceat_host_ms']:.2f} host ms", flush=True)
+    print(f"sql recovery: {rec['recovery']['wall_s']:.2f} s against the clean "
+          f"{rec['columnar']['wall_s']:.2f} s (+{100 * rec['recovery_overhead']:.1f}%); "
+          f"{rec['fail_fast']}", flush=True)
+    check(rec["serial"].get("refused"), f"the serial path did not refuse: {rec['serial']}")
+    check(rec["columnar"]["rows_out"] == AGG_KEYS,
+          f"{rec['columnar']['rows_out']} groups, want {AGG_KEYS}")
+    check(rec["columnar"]["stats"].get("spills", 0) >= 1,
+          f"the columnar exchange under {AGG_MEM_MB} MB did not spill")
+    check(rec["columnar"]["stats"].get("transport") == "columnar",
+          f"transport {rec['columnar']['stats'].get('transport')}")
+    check(rec["device"]["digest"] == rec["columnar"]["digest"],
+          "the device route's rows differ from the columnar exchange's")
+    check(rec["small_tuple"]["digest"] == rec["small_columnar"]["digest"],
+          "the tuple transport's rows differ from the columnar's")
+    bad = [(p["dtype"], p["op"]) for p in rec["planes"] if not p["bitwise"]]
+    check(not bad, f"the device fold differs from combine_planes at {bad}")
+    st = rec["recovery"]["stats"]
+    check(rec["recovery"]["digest"] == rec["columnar"]["digest"],
+          "the recovered exchange's rows differ from the clean run's")
+    check(st.get("mapper_retries", 0) >= 1 and st.get("reducer_retries", 0) >= 1,
+          f"the drill's rollup: {st.get('mapper_retries')} mapper and "
+          f"{st.get('reducer_retries')} reducer retries, want at least 1 each")
+    check(rec["fail_fast"].startswith("WorkerCrashed"),
+          f"DLS_SHUFFLE_MAX_RETRIES=0 under the fault: {rec['fail_fast']}")
+    for key in ("columnar_left", "recovery_left", "fail_fast_left"):
+        check(not rec[key], f"the exchange left {rec[key]} ({key})")
+    return rec
+
+
+def _vocab_digest(pools: list[list]) -> str:
+    return hashlib.blake2b(json.dumps(pools).encode(), digest_size=16).hexdigest()
+
+
+def sql_etl(torch) -> dict:
+    """(d) The ETL into training: examples/dlrm_features.py at the config-4
+    shape (ETL_ROWS raw rows, 26 slots, 13 dense, a 100,000-token
+    vocabulary a slot, ETL_WORKERS exchange workers, b = 8,192, ETL_STEPS
+    steps, top-V on the card); then, on the counts its exchange reduced,
+    the vocabulary selected again on the card and in the heap: the same by
+    digest."""
+    from distributeddeeplearningspark_tpu_torch.examples import dlrm_features as dfe
+
+    held: list = []
+    count_tokens = dfe.count_tokens
+    dfe.count_tokens = lambda *a, **k: held.append(count_tokens(*a, **k)) or held[-1]
+    try:
+        t0 = time.perf_counter()
+        summary = dfe.main([
+            "--rows", str(ETL_ROWS), "--slots", str(ETL_SLOTS), "--dense", str(ETL_DENSE),
+            "--vocab", str(ETL_VOCAB), "--data-workers", str(ETL_WORKERS),
+            "--batch-size", str(ETL_BATCH), "--steps", str(ETL_STEPS), "--partitions",
+            str(ETL_WORKERS)])
+        main_s = time.perf_counter() - t0
+    finally:
+        dfe.count_tokens = count_tokens
+    counts = held[0]
+    t0 = time.perf_counter()
+    dev = dfe.select_vocabs(counts, num_slots=ETL_SLOTS, top_v=ETL_VOCAB,
+                            topv="device", device=SQL_DEVICE)
+    device_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    heap = dfe.select_vocabs(counts, num_slots=ETL_SLOTS, top_v=ETL_VOCAB, topv="heap")
+    heap_s = time.perf_counter() - t0
+    del counts, held
+    rec = dict(rows=ETL_ROWS, main_s=main_s, summary=summary, device_topv_s=device_s,
+               heap_topv_s=heap_s, device_digest=_vocab_digest(dev),
+               heap_digest=_vocab_digest(heap), vocab_sizes=[len(p) for p in dev],
+               left=_exchange_leftovers())
+    s = summary
+    print(f"sql etl: {ETL_ROWS} rows, vocabulary {s['vocab_build_s']} s (its exchange "
+          f"and the card's top-V); on its counts top-V on the card {device_s:.2f} s, "
+          f"in the heap {heap_s:.2f} s, digests {rec['device_digest']} and "
+          f"{rec['heap_digest']}; feed {s['examples_per_sec']} examples/s; transports "
+          f"{s['transports']}; train {json.dumps(s['train_summary'])}; main "
+          f"{main_s:.1f} s; {nvidia_smi_line()}", flush=True)
+    check(rec["device_digest"] == rec["heap_digest"],
+          "the device top-V vocabulary differs from the heap's")
+    check(s["transports"] == {"vocab_counts": "tuple", "topv": "device"},
+          f"transports {s['transports']}")
+    check(s["train_summary"] and np.isfinite(s["train_summary"]["loss"]),
+          f"train summary {s['train_summary']}")
+    check(not rec["left"], f"the ETL left {rec['left']}")
+    return rec
+
+
+def check_sql(torch) -> dict:
+    """Phase 12c, "sql": (a)–(d) above, with the phase's wall seconds."""
+    t0 = time.perf_counter()
+    rec = dict(train=sql_train(torch), agg=sql_agg(torch), etl=sql_etl(torch))
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"sql phase: {rec['seconds']:.1f} s; {nvidia_smi_line()}", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -8319,6 +8838,10 @@ def main() -> int:
             check_files(torch)
             print(nvidia_smi_line())
             return 0
+        if sys.argv[1:] == ["--sql"]:
+            check_sql(torch)
+            print(nvidia_smi_line())
+            return 0
         if sys.argv[1:] == ["--observe"]:
             train_bert(torch, fa)
             train_llama(torch, fa)
@@ -8355,6 +8878,7 @@ def main() -> int:
         train_lenet(torch)
         drivers = train_drivers(torch)
         files = check_files(torch, synthetic=drivers["resnet"], loop_ms=resnet["loop_ms"])
+        sql = check_sql(torch)
         train_resnet_driver_observed(torch)
         check_bn_halves(torch)
         recovery = check_recovery(torch, cb, fa)
@@ -8427,7 +8951,10 @@ def main() -> int:
         "name": "scatter_add_rows", "route": "cuda",
         "source": f"{PKG}/csrc/scatter_rows.cu",
         "replaces": "distributeddeeplearningspark_tpu/ops/scatter_rows.py:39",
-        "launches": dlrm_rec["k5_launches"] + drivers["dlrm"]["k5_launches"],
+        # the in-process phase's, the synthetic driver's and the SQL-fed
+        # driver's (phase 12c), each counted from 0
+        "launches": dlrm_rec["k5_launches"] + drivers["dlrm"]["k5_launches"]
+        + sql["train"]["sparse"]["k5_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in k5),
         "ms": k5_step["ms"], "plain_ms": k5_step["plain_ms"],
         "bound_ms": k5_step["bound_ms"], "bound_by": k5_step["bound_by"],

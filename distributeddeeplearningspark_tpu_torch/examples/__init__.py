@@ -8,8 +8,9 @@ restore from a crash; and :func:`drained`, the exit of a run that drained.
 
 The drivers: ``train_mnist`` (LeNet-5, config 1), ``train_resnet``
 (ResNet, config 2), ``train_bert`` (BERT MLM, config 3), ``train_dlrm``
-(DLRM / Wide&Deep, config 4) and ``train_llama_lora`` (the Llama-2 LoRA
-fine-tune, config 5)."""
+(DLRM / Wide&Deep, config 4, also from DataFrame features), ``train_llama_lora``
+(the Llama-2 LoRA fine-tune, config 5); and ``dlrm_features``, the DLRM feature
+ETL through the shuffle exchange into training."""
 
 import argparse
 import logging

@@ -24,6 +24,17 @@ Then the held-out AUC (config 4's metric): ``predict(output_fn=sigmoid,
 with_inputs=True)`` on ``synthetic_criteo(seed=777)`` (or ``--eval-data``),
 each rank over its rows, the histograms summed over ranks.
 
+``--sql-features`` reads the Criteo TSVs through the DataFrame plane
+instead of ``criteo_tsv`` (the JAX driver's chain): ``spark.read.option(
+"sep", "\\t").schema(...).csv(day_*)`` at ``default_parallelism``
+partitions, ``fillna(0.0)`` on I1–I13, ``hash_bucket(C_i, vocab)``, then
+``to_dataset(vector_columns={"dense", "sparse"})``, for training and for
+``--eval-data`` alike (the categorical bucketing must be the same for
+both). At more than one rank each rank reads its own partitions, as
+``criteo_tsv``'s split: a DataFrame whose partitions do not divide by the
+ranks is refused. ``--dense-tables`` trains the table with the dense step
+(AdamW on every param, no row-sparse update, so K5 does not run).
+
 Under the port's supervisor (relaunch from the newest checkpoint when a
 rank dies)::
 
@@ -39,16 +50,19 @@ exits with the supervisor's ``RESTORE_FAILED_EXIT``).
 port's (the JAX driver has none): the step's state, the table and its row
 accumulators included.
 
-Flags of the JAX driver that the port cannot honour yet fail at parse
-time, each naming its ROADMAP item. Rank 0 prints one JSON line: the train
-summary, the AUC, where the run went (world size, backend, device), K5's
-launches in ``fit`` and the bytes the row merge gathers a step.
+``--expert-shards`` above 1 fails at parse time, naming its ROADMAP item.
+Rank 0 prints one JSON line: the train summary, the AUC, where the run
+went (world size, backend, device), K5's launches in ``fit``, the bytes
+the row merge gathers a step, the feature route and the card's peak
+allocated bytes.
 """
 
 import argparse
 import json
 import logging
+import os
 
+import numpy as np
 import torch
 
 from distributeddeeplearningspark_tpu_torch import Checkpointer, Session, Trainer, faults
@@ -58,7 +72,6 @@ from distributeddeeplearningspark_tpu_torch.data.sources import (
 )
 from distributeddeeplearningspark_tpu_torch.examples import (
     add_checkpoint_flags,
-    add_not_ported,
     drained,
     resume,
 )
@@ -72,10 +85,6 @@ from distributeddeeplearningspark_tpu_torch.ops import scatter_rows
 from distributeddeeplearningspark_tpu_torch.train import embed, losses, optim
 from distributeddeeplearningspark_tpu_torch.utils import sanitize
 
-NOT_PORTED = {
-    "--dense-tables": "the dense-table step: ROADMAP Queue 1 item 4",
-    "--sql-features": "data/dataframe.py and data/exchange.py: ROADMAP Queue 1 item 4",
-}
 EXPERT = "the expert-sharded table: ROADMAP Queue 1 item 5"
 
 
@@ -97,6 +106,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-dir", default=None,
                    help="Criteo TSV file or directory of day_* shards; "
                         "synthetic if unset")
+    p.add_argument("--dense-tables", action="store_true",
+                   help="train the table with the dense step (no row-sparse "
+                        "update: K5 does not run)")
+    p.add_argument("--sql-features", action="store_true",
+                   help="engineer features through the DataFrame plane "
+                        "(spark.read.csv -> fillna -> hash_bucket), the "
+                        "reference's Spark-SQL route, instead of criteo_tsv")
     p.add_argument("--eval-data", default=None,
                    help="held-out Criteo TSV (file or dir); synthetic if unset")
     p.add_argument("--eval-examples", type=int, default=100_000,
@@ -107,7 +123,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "the ranks); the global batches are the same at any "
                         "rank count that divides it. Default: the ranks")
     add_checkpoint_flags(p)
-    add_not_ported(p, NOT_PORTED)
     return p
 
 
@@ -128,7 +143,40 @@ def make_model(args: argparse.Namespace, device: torch.device):
     return model.init_weights(torch.Generator(device=device).manual_seed(0))
 
 
+def sql_features(args: argparse.Namespace, spark: Session, path: str):
+    """The JAX driver's DataFrame chain over a TSV file or a directory of
+    ``day_*`` shards: example dicts of ``dense`` f32 [13], ``sparse`` int32
+    [num_sparse] and an int32 ``label``. Missing dense fields become 0.0
+    (the model applies Criteo's ``log1p(max(x, 0))``), each categorical
+    column hashes into its table."""
+    from distributeddeeplearningspark_tpu_torch.data.dataframe import col, hash_bucket
+
+    vocabs = (args.vocab_size,) * args.num_sparse
+    dense = [f"I{i + 1}" for i in range(13)]
+    cats = [f"C{i + 1}" for i in range(args.num_sparse)]
+    glob_path = os.path.join(path, "day_*") if os.path.isdir(path) else path
+    df = (spark.read.option("sep", "\t")
+          .schema(["label"] + dense + cats,
+                  {"label": np.int32, **{c: np.str_ for c in cats}})
+          .csv(glob_path))
+    df = df.withColumns({c: col(c).fillna(0.0) for c in dense})
+    df = df.withColumns({c: hash_bucket(col(c), vocabs[i]) for i, c in enumerate(cats)})
+    if df.num_partitions % spark.world_size:
+        raise ValueError(
+            f"--sql-features: the DataFrame over {path} has {df.num_partitions} "
+            f"partition(s) (one a file where the files are fewer than "
+            f"default_parallelism, {spark.default_parallelism}), which do not "
+            f"split over {spark.world_size} ranks: give it a multiple of "
+            f"{spark.world_size} files, or one file")
+    return df.to_dataset(vector_columns={"dense": dense, "sparse": cats})
+
+
 def load_criteo(args: argparse.Namespace, spark: Session, path: str):
+    """One loader for train and eval: the categorical bucketing must be the
+    same for both (``hash_bucket`` under ``--sql-features``, else
+    ``criteo_tsv``'s hex-mod), or eval features index unrelated rows."""
+    if args.sql_features:
+        return sql_features(args, spark, path)
     return criteo_tsv(path, vocab_sizes=(args.vocab_size,) * args.num_sparse,
                       num_partitions=spark.default_parallelism)
 
@@ -145,10 +193,10 @@ def make_dataset(args: argparse.Namespace, spark: Session):
 def make_trainer(args: argparse.Namespace, spark: Session,
                  checkpointer: Checkpointer | None = None) -> Trainer:
     model = make_model(args, spark.device)
+    specs = () if args.dense_tables else sparse_embed_specs(model, lr=args.lr)
     return Trainer(spark, model, losses.binary_xent,
                    optim.adamw(args.lr, weight_decay=0.0),
-                   sparse_embed=sparse_embed_specs(model, lr=args.lr),
-                   checkpointer=checkpointer)
+                   sparse_embed=specs, checkpointer=checkpointer)
 
 
 def held_out_auc(args: argparse.Namespace, spark: Session, trainer: Trainer,
@@ -208,6 +256,9 @@ def main(argv: list[str] | None = None) -> None:
             "k5_launches": k5, "k5_launches_per_step": k5 / steps,
             "merge_bytes_per_step": gathered / steps,
             "replicas_checked": spark.world_size > 1,
+            "sql_features": args.sql_features, "dense_tables": args.dense_tables,
+            "peak_bytes": (torch.cuda.max_memory_allocated(spark.device)
+                           if spark.device.type == "cuda" else None),
         }), flush=True)
     if ckpt:
         ckpt.close()

@@ -28,11 +28,20 @@ script can be driven through every failure mode by the supervisor
                                 # Scoped: get() returns None for it — only
                                 # the trainer's drain consults
                                 # sigterm_fault()
-
-``die_shuffle_worker`` parses (a spec written for the JAX package is not
-malformed here) and :func:`get` scopes it out as the JAX package does;
-its consumer, the shuffle exchange's ``shuffle_fault``, waits with the
-exchange (ROADMAP Queue 1 item 4).
+    DLS_FAULT=die_shuffle_worker@N  # SIGKILL a shuffle exchange child
+                                # (data/exchange.py) mid-task: a mapper at
+                                # its Nth processed element, a reducer at
+                                # its Nth merged payload frame. The victim
+                                # is named by DLS_FAULT_SHUFFLE_ROLE
+                                # (mapper|reducer|both, default mapper)
+                                # and DLS_FAULT_SHUFFLE_ID (worker slot,
+                                # default 0); only epoch/attempt 0 faults,
+                                # so the respawned replacement runs clean
+                                # (DLS_FAULT_ALL_ATTEMPTS=1 keeps killing,
+                                # for testing that the retry budget gives
+                                # up). Scoped: get() returns None for it;
+                                # only the exchange's children consult
+                                # shuffle_fault()
 
 Beside the env-declared drills lives one *runtime* channel: the
 scheduler's preemption notice (``DLS_PREEMPT_NOTICE`` names a file path;
@@ -242,6 +251,45 @@ def consume_preempt_notice(path: str | None, *, ordinal: int) -> None:
         os.replace(path, f"{path}.consumed-{ordinal}")
     except OSError:
         pass
+
+
+def shuffle_fault(role: str, wid: int, attempt: int) -> int | None:
+    """The element/frame threshold at which THIS shuffle child should
+    SIGKILL itself, or None (the common case). ``role`` is "mapper" or
+    "reducer", ``wid`` the worker slot, ``attempt`` the epoch/attempt
+    ordinal — retries run clean unless ``DLS_FAULT_ALL_ATTEMPTS=1``.
+    Malformed specs raise, as :func:`parse` does: a typo'd drill must fail
+    loudly, not run fault-free and "pass"."""
+    spec = os.environ.get("DLS_FAULT")
+    if not spec:
+        return None
+    fault = parse(spec)
+    if fault.kind != "die_shuffle_worker":
+        return None
+    # validate the whole gating env before any early return: the
+    # exchange driver's pre-spawn check (shuffle_fault("mapper", 0, 0))
+    # must catch a typo in any of these, not just the ones its probe
+    # arguments route through
+    raw = os.environ.get("DLS_FAULT_SHUFFLE_ROLE", "mapper").strip().lower()
+    roles = (("mapper", "reducer") if raw == "both"
+             else tuple(r.strip() for r in raw.split(",")))
+    for r in roles:
+        if r not in ("mapper", "reducer"):
+            raise ValueError(
+                f"bad DLS_FAULT_SHUFFLE_ROLE {raw!r}: expected "
+                f"mapper|reducer|both (or a comma list)")
+    raw_id = os.environ.get("DLS_FAULT_SHUFFLE_ID", "0")
+    try:
+        victim = int(raw_id)
+    except ValueError:
+        raise ValueError(
+            f"bad DLS_FAULT_SHUFFLE_ID {raw_id!r}: expected a worker slot "
+            f"ordinal (int >= 0)")
+    if attempt > 0 and os.environ.get("DLS_FAULT_ALL_ATTEMPTS") != "1":
+        return None
+    if role not in roles or wid != victim:
+        return None
+    return fault.step
 
 
 def sigterm_fault() -> Fault | None:

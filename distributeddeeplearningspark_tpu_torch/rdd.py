@@ -12,15 +12,21 @@ The device never sees a dataset: :mod:`.data.feed` stacks its examples into
 batches.
 
 The wide operations (``distinct``, ``reduce_by_key``, ``group_by_key``,
-``sort_by``) run the JAX package's serial path: a per-partition combine,
-then a driver-side dict bounded by the ``max_groups`` ceiling
-(``DLS_AGG_MAX_GROUPS``), the output bucketed by the same canonical key
-hash (:mod:`.data.exchange`) as the JAX package's, so both give the same
-partitions. Their distributed-exchange path is not ported (ROADMAP Queue 1
-item 4): where it would run (workers resolved above 0 from
-``num_workers=`` or ``DLS_DATA_WORKERS``) they raise
-:class:`~.data.exchange.ExchangeNotPorted` instead of quietly taking the
-serial path, whose partitioning differs.
+``sort_by``) have two paths, as in the JAX package:
+
+- **serial** (no workers): a per-partition combine, then a driver-side
+  dict bounded by the ``max_groups`` ceiling (``DLS_AGG_MAX_GROUPS``),
+  which refuses high-cardinality keys loudly instead of growing without
+  bound;
+- **the distributed exchange** (workers resolved above 0 from
+  ``num_workers=`` or ``DLS_DATA_WORKERS``): :mod:`.data.exchange`, a
+  cross-worker hash-partitioned shuffle with spill-to-disk reduce and no
+  ceiling.
+
+Both bucket by the same canonical key hash
+(:func:`~.data.exchange.key_bytes`) in that order within each bucket, so
+the output is the same at any worker count, and the same as the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -214,16 +220,24 @@ class PartitionedDataset:
 
         return self.map_partitions_with_index(samp)
 
-    def distinct(self, *, num_workers: int | None = None) -> "PartitionedDataset":
-        """Spark ``distinct`` (hashable elements), the serial path: a
-        cross-partition set on first iteration, the output in
-        first-occurrence order collapsed to partition 0 (like
-        ``distinct().coalesce(1)``), refusing past the ``max_groups``
-        ceiling. With shuffle workers it raises (module docstring)."""
+    def distinct(self, *, num_workers: int | None = None,
+                 transport: str | None = None) -> "PartitionedDataset":
+        """Spark ``distinct`` (hashable elements).
+
+        With workers: the exchange dedups per bucket with spill-to-disk,
+        output hash-partitioned over the input's partition count in
+        canonical ``key_bytes`` order; plain ``int``/``float`` batches ride
+        the columnar transport unless ``transport="tuple"`` (the same
+        output either way). Serial: a cross-partition set on first
+        iteration, the output in first-occurrence order collapsed to
+        partition 0 (like ``distinct().coalesce(1)``), refusing past the
+        ``max_groups`` ceiling."""
         self._require_finite("distinct")
         from distributeddeeplearningspark_tpu_torch.data import exchange
 
-        exchange.require_serial("distinct()", num_workers)
+        nw = exchange.resolve_shuffle_workers(num_workers)
+        if nw:
+            return exchange.distinct(self, nw, transport=transport)
         parts = self._parts
         limit = exchange.max_groups_limit()
 
@@ -304,15 +318,19 @@ class PartitionedDataset:
     def reduce_by_key(self, f: Callable[[Any, Any], Any],
                       num_partitions: int | None = None, *,
                       num_workers: int | None = None,
-                      combine: str | None = None) -> "PartitionedDataset":
+                      combine: str | None = None,
+                      transport: str | None = None) -> "PartitionedDataset":
         """Spark ``reduceByKey`` over (key, value) pairs (``f`` commutative
-        and associative), the serial path: a map-side combine per
-        partition, then a driver-side dict refusing past the ``max_groups``
-        ceiling; the output hash-partitioned over ``num_partitions``
-        (default: the input's count) in canonical key order. ``combine``
-        (``"sum"``/``"min"``/``"max"``) declares ``f``'s numeric semantics
-        for the exchange's columnar transport and is validated as there.
-        With shuffle workers it raises (module docstring)."""
+        and associative). With workers: through the exchange (mappers
+        combine per slice, per-bucket reducers spill to disk under
+        ``DLS_SHUFFLE_MEM_MB``, no ceiling). Serial: a map-side combine
+        per partition, then a driver-side dict refusing past the
+        ``max_groups`` ceiling. Either way the output is hash-partitioned
+        over ``num_partitions`` (default: the input's count) in canonical
+        key order. ``combine`` (``"sum"``/``"min"``/``"max"``) declares
+        ``f``'s numeric semantics, so plain ``int``/``float`` scalar pairs
+        ride the exchange's columnar transport (``transport="tuple"``
+        keeps the pickled path; the output is the same)."""
         self._require_finite("reduce_by_key")
         from distributeddeeplearningspark_tpu_torch.data import exchange
 
@@ -321,7 +339,11 @@ class PartitionedDataset:
         if combine is not None and combine not in exchange.NUMERIC_COMBINES:
             raise ValueError(
                 f"combine={combine!r} not in {exchange.NUMERIC_COMBINES}")
-        exchange.require_serial("reduce_by_key()", num_workers)
+        nw = exchange.resolve_shuffle_workers(num_workers)
+        if nw:
+            return exchange.reduce_by_key(
+                self, f, num_partitions or len(self._parts), nw,
+                combine=combine, transport=transport)
         parts = self._parts
         limit = exchange.max_groups_limit()
 
@@ -343,15 +365,19 @@ class PartitionedDataset:
     def group_by_key(self, num_partitions: int | None = None, *,
                      num_workers: int | None = None) -> "PartitionedDataset":
         """Spark ``groupByKey``: (key, [values...]) with the values in
-        partition-major encounter order, the serial path (a dict of lists,
-        refusing past the ``max_groups`` distinct keys). With shuffle
-        workers it raises (module docstring)."""
+        partition-major encounter order on both paths (the exchange tags
+        each value with its source position and sorts the lists back at
+        emit). Serial: a dict of lists, refusing past the ``max_groups``
+        distinct keys."""
         self._require_finite("group_by_key")
         from distributeddeeplearningspark_tpu_torch.data import exchange
 
         if num_partitions is not None and num_partitions < 1:
             raise ValueError(f"num_partitions must be >= 1, got {num_partitions}")
-        exchange.require_serial("group_by_key()", num_workers)
+        nw = exchange.resolve_shuffle_workers(num_workers)
+        if nw:
+            return exchange.group_by_key(
+                self, num_partitions or len(self._parts), nw)
         parts = self._parts
         limit = exchange.max_groups_limit()
 
@@ -372,17 +398,22 @@ class PartitionedDataset:
                 num_workers: int | None = None) -> "PartitionedDataset":
         """Spark ``sortBy``: totally ordered output, range-partitioned so
         partition i's elements all precede partition i+1's (descending
-        reverses it; equal keys keep their encounter order). The serial path
-        sorts on the driver once, refusing past the ``max_groups`` ceiling
-        (here a bound on all elements). With shuffle workers it raises
-        (module docstring)."""
+        reverses it; equal keys keep their encounter order). With workers:
+        a range-partitioned external sort through the exchange (boundaries
+        from a deterministic sample, spilled sorted runs, a k-way merge);
+        the concatenated stream equals the serial sort, the boundaries fall
+        on sample quantiles. Serial: one driver-side sort, refusing past
+        the ``max_groups`` ceiling (here a bound on all elements)."""
         self._require_finite("sort_by")
         from distributeddeeplearningspark_tpu_torch.data import exchange
 
         if num_partitions is not None and num_partitions < 1:
             raise ValueError(f"num_partitions must be >= 1, got {num_partitions}")
         n_out = num_partitions or len(self._parts)
-        exchange.require_serial("sort_by()", num_workers)
+        nw = exchange.resolve_shuffle_workers(num_workers)
+        if nw:
+            return exchange.sort_by(self, key, ascending=ascending,
+                                    n_out=n_out, num_workers=nw)
         parts = self._parts
         limit = exchange.max_groups_limit()
         memo: dict = {}

@@ -178,6 +178,24 @@ class Session:
         return PartitionedDataset.parallelize(data, n)
 
     @property
+    def read(self):
+        """``spark.read`` — the DataFrame reader (config 4's feature entry
+        point): ``spark.read.option("sep", "\\t").schema([...]).csv(path)``,
+        at :attr:`default_parallelism` partitions."""
+        from distributeddeeplearningspark_tpu_torch.data.dataframe import DataFrameReader
+
+        return DataFrameReader(default_parallelism=self.default_parallelism)
+
+    def createDataFrame(self, rows, numSlices: int | None = None):
+        """Columnarize driver-side rows into a :class:`~.data.dataframe.DataFrame`."""
+        from distributeddeeplearningspark_tpu_torch.data.dataframe import from_rows
+
+        n = numSlices if numSlices is not None else self.default_parallelism
+        return from_rows(rows, num_partitions=n)
+
+    create_dataframe = createDataFrame
+
+    @property
     def default_parallelism(self) -> int:
         """Data shards: one per process of the gang."""
         return num_data_shards(self.mesh.shape)

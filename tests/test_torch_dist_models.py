@@ -22,8 +22,9 @@ Each rank writes what the tests read into OUTDIR:
   ids repeating across ranks: the losses, the tables and ``row_accum``
   against JAX's, the replicas equal.
 
-The port's two new drivers run under the cli at ``local[2]`` as gangs of
-their own, and every flag they cannot honour is refused at parse time.
+The port's drivers run under the cli at ``local[2]`` as gangs of their own
+(the DLRM's also from ``--sql-features``), and every flag they cannot
+honour is refused at parse time.
 """
 
 import json
@@ -526,8 +527,39 @@ def test_driver_trains_at_two_ranks(name, tmp_path):
     assert sorted(losses_) == ["p0", "p1"] and losses_["p0"] == losses_["p1"]
 
 
+def test_sql_driver_trains_at_two_ranks(tmp_path):
+    """The DLRM driver with ``--sql-features`` through the cli at local[2]:
+    two ``day_*`` files are the DataFrame's two partitions, one a rank (as
+    ``criteo_tsv``'s split), the held-out file split by lines; the gang's
+    replicas in sync, each rank's losses the same, finite."""
+    from test_torch_dlrm_sql import write_criteo
+
+    data = tmp_path / "criteo"
+    data.mkdir()
+    for i in range(2):
+        write_criteo(data / f"day_{i}", 80, seed=i)
+    write_criteo(tmp_path / "eval.tsv", 64, seed=9)
+    script = ROOT / "distributeddeeplearningspark_tpu_torch" / "examples" / "train_dlrm.py"
+    res = run_gang(["--master", "local[2]", "--conf", f"{DEVICE_CONF}=cpu",
+                    "--workdir", str(tmp_path / "wd"), str(script), "--sql-features",
+                    "--data-dir", str(data), "--eval-data", str(tmp_path / "eval.tsv"),
+                    "--steps", "3", "--batch-size", "32", "--vocab-size", "50",
+                    "--embed-dim", "8", "--eval-examples", "64", "--log-every", "1"],
+                   deadline_s=180)
+    assert res.returncode == 0, res.stderr[-4000:]
+    lines = [json.loads(x) for x in res.stdout.splitlines() if x.startswith('{"train"')]
+    assert len(lines) == 1, res.stdout[-2000:]
+    got = lines[0]
+    assert got["world_size"] == 2 and got["backend"] == "gloo" and got["sql_features"]
+    assert got["replicas_checked"] and got["step"] == 3 and np.isfinite(got["train"]["loss"])
+    assert 0.0 <= got["eval_auc"] <= 1.0
+    assert got["merge_bytes_per_step"] == 32 * 26 * (4 + 8 * 4)
+    losses_ = _step_losses(tmp_path / "wd")
+    assert sorted(losses_) == ["p0", "p1"] and losses_["p0"] == losses_["p1"]
+    assert len(losses_["p0"]) == 3
+
+
 REFUSED = [("dlrm", ["--expert-shards", "2"])]
-REFUSED += [("dlrm", [flag]) for flag in train_dlrm.NOT_PORTED]
 
 
 @pytest.mark.parametrize("name,argv", REFUSED, ids=[" ".join(a) for _, a in REFUSED])

@@ -76,7 +76,8 @@ print(json.dumps({{"modules": names, "loaded": sorted(sys.modules)}}))
                 "parallel.plan", "models.llama_gen", "serve.generate", "serve.kv",
                 "serve.reload", "serve.router", "serve.fleet", "serve.cli",
                 "examples.serve_mnist", "utils.native", "data.records",
-                "examples.train_bert"}
+                "examples.train_bert", "data.dataframe", "data.device_agg",
+                "examples.dlrm_features"}
     got = {n.split(".", 1)[1] for n in rec["modules"]}
     assert expected <= got, expected - got
     bad = [m for m in rec["loaded"] if _forbidden(m)]
